@@ -7,8 +7,8 @@ Phases print on their own lines; any failure raises and exits non-zero, and
 no phase is caught.
 
 1. device: torch and CUDA versions, the card's name and power limit.
-2. build: ``nvcc`` builds both kernels (``csrc/*.cu``), one process each,
-   all started together; the build time.
+2. build: ``nvcc`` builds the three kernels (``csrc/*.cu``), one process
+   each, all started together; the build time.
 3. K1 ``matmul_h100`` against its plain version in bf16, at every matmul
    triple of the full llama3-8b serve path at M = 4 and 32 through the leaf
    the dispatch picks, and at six feasible leaves of the tree of different
@@ -16,36 +16,54 @@ no phase is caught.
    Def. 2 ii).
 4. K2 ``flash_attention_h100`` against its plain version in bf16: prefill
    chunk, decode over a ragged cache, non-causal sk = 200, window 128.
-5. serve parity: the llama3 SMOKE config in f32 served on ``cuda`` (the
-   kernels) and on ``cpu`` (their plain versions) from the same weights;
-   the greedy tokens are equal.
-6. serve, the main path: llama3-8b at full width (32 layers, bf16, random
-   weights from a seeded ``torch.Generator`` on the card) through
-   ``init_model`` and ``ServeEngine(warm_kernels=True)``, 4 requests.  Both
-   launch counters are set to 0 just before and read just after.  Every
-   request returns ``max_new`` tokens, both kernels launched, and no
-   dispatch resolved cold after warm-up.
-7. main-path shapes: every launch signature of phase 6 is run again on
+5. K3 ``ssd_scan_h100`` against its plain version in bf16 with an f32
+   state, at the mamba2-130m (24 heads of 64, state 128) and hymba-1.5b (25
+   heads of 64, state 16) signatures: a decode step of 4 rows at seq 1 with
+   the state in, every chunk length 1..256 with the state in, seq 200 (no
+   multiple of any chunk) with and without a state, through the leaf the
+   dispatch picks; and at five feasible leaves of different (chunk, bd).
+6. serve parity: the llama3, mamba2 and hymba SMOKE configs in f32, each
+   served on ``cuda`` (the kernels) and on ``cpu`` (their plain versions)
+   from the same weights; the greedy tokens are equal.
+7. serve, the main paths, each through ``init_model`` (bf16, random weights
+   from a seeded ``torch.Generator`` on the card) and
+   ``ServeEngine(warm_kernels=True)``, 4 requests of 8 new tokens, every
+   launch counter set to 0 just before and read just after each path:
+   mamba2-130m at full width (24 layers; prompts of 200-500 tokens,
+   ``prefill_chunk`` 256, ``max_len`` 1024), hymba-1.5b at full width (32
+   layers) and llama3-8b at full width (32 layers), the last two with
+   prompts of 16-64 tokens, ``prefill_chunk`` 32, ``max_len`` 256.  Every
+   request returns ``max_new`` tokens, each kernel of the path launched
+   (K1 and K3; K1, K2 and K3; K1 and K2), the launch counts match the steps
+   run, no dispatch resolved cold after warm-up, and a full-width forward
+   gives finite logits.
+8. main-path shapes: every launch signature of phase 7 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
    kernel, plain version, the library call, and the bound.
 
-Times are CUDA-event means over repeated launches after one warm-up; a
+Times are medians over 5 CUDA-event batches of repeated launches after one
+warm-up launch, printed with their spread (the slowest batch less the
+fastest): one mean over one batch let a single slow batch set a row.  A
 matmul cycles through copies of its weight operand so that each launch
 reads it from device memory, as the serve path does (attention reads K/V
-that the serve path has just gathered, so repeated launches on the same
-K/V stand for it).  The
-bound of a launch is max(bytes / 3.35 TB/s, flops / peak), with each input
-read once and each output written once, the flops of the keys the masks
-leave visible, and the peak of the H100 SXM data sheet for the input type
-(989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32).  The library call
-is a yardstick timed only here: ``torch.matmul`` (its output is bf16, the
-kernel's f32) and ``scaled_dot_product_attention``.
+and the SSD scan reads x, b, c that the serve path has just written, so
+repeated launches on the same inputs stand for it).  The bound of a launch
+is max(bytes / 3.35 TB/s, flops / peak), with each input read once and each
+output written once, the flops of the keys the masks leave visible, the
+recurrence's 5·state·hd flops a step and head for the SSD scan, and the
+peak of the H100 SXM data sheet for the arithmetic's type (989 TFLOP/s bf16
+on the tensor cores, 67 TFLOP/s f32; the SSD scan's decay products and
+state are f32).  The library call is a yardstick timed only here:
+``torch.matmul`` (its output is bf16, the kernel's f32) and
+``scaled_dot_product_attention``; no single PyTorch call computes the SSD
+scan, so K3 has none.
 
 The line before the last is the kernels' JSON record.  For each kernel
-``launches`` is phase 6's count; ``ms``, ``plain_ms``, ``library_ms`` and
-``bound_ms`` are sums over phase 6's launches, each timed at its own
-signature in phase 7; ``max_abs_err`` is the largest error against the
-plain version over phases 3, 4 and 7.  The last line is the device record.
+``launches`` is phase 7's count over the three paths; ``ms``, ``plain_ms``,
+``library_ms`` and ``bound_ms`` are sums over those launches, each timed at
+its own signature in phase 8; ``max_abs_err`` is the largest error against
+the plain version over phases 3-5 and 8.  The last line is the device
+record.
 
 Tolerances, kernel against plain version on the same inputs:
 
@@ -55,6 +73,10 @@ Tolerances, kernel against plain version on the same inputs:
   and K <= 14336 additions drift by at most K * 2^-24 ~ 1e-3.
 - attention in bf16, rtol = atol = 1e-2: both compute in f32 and round the
   output to bf16 once; the two may round apart by one bf16 step (2^-7).
+- SSD scan: rtol = atol = 1e-3 on the f32 state, which both compute in f32
+  by the same chunk math in another order of sums (at most 256 + state
+  terms of O(1)) and with ``expf``/``logf`` against ``torch.exp``/``log``;
+  rtol = atol = 1e-2 on the bf16 y, one bf16 step as for attention.
 
 TF32 is off for the plain versions (``allow_tf32 = False``), so their f32
 products on the card are full f32.
@@ -79,25 +101,55 @@ L2_FLUSH_BYTES = 128 * 2**20          # more than twice the H100's 50 MB L2
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 MM_TOL = dict(rtol=1e-4, atol=1e-3)
 FA_TOL = dict(rtol=1e-2, atol=1e-2)
-SERVE = dict(max_batch=4, max_len=256, page_size=16, prefill_chunk=32)
+SSD_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+SSD_Y_TOL = dict(rtol=1e-2, atol=1e-2)
+BATCHES = 5
 MAX_NEW = 8
+# (arch, engine sizes, prompt lengths [lo, hi)) of the main paths
+PATHS = (
+    ("mamba2_130m", dict(max_batch=4, max_len=1024, page_size=16,
+                         prefill_chunk=256), (200, 501)),
+    ("hymba_1p5b", dict(max_batch=4, max_len=256, page_size=16,
+                        prefill_chunk=32), (16, 65)),
+    ("llama3_8b", dict(max_batch=4, max_len=256, page_size=16,
+                       prefill_chunk=32), (16, 65)),
+)
+KERNELS = {   # name: (source, the TPU kernel it replaces)
+    "matmul_h100": ("src/repro_torch/csrc/matmul.cu",
+                    "src/repro/kernels/matmul.py:73"),
+    "flash_attention_h100": ("src/repro_torch/csrc/flash_attention.cu",
+                             "src/repro/kernels/flash_attention.py:75"),
+    "ssd_scan_h100": ("src/repro_torch/csrc/ssd_scan.cu",
+                      "src/repro/kernels/ssd_scan.py:70"),
+}
 
 
 def say(*parts) -> None:
     print(*parts, flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int) -> tuple:
+    """(median, spread) in ms a launch over ``BATCHES`` CUDA-event batches
+    of ``reps`` launches each, after one warm-up launch; the spread is the
+    slowest batch less the fastest."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    per = []
+    for _ in range(BATCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    per.sort()
+    return per[len(per) // 2], per[-1] - per[0]
+
+
+def time_into(row: dict, key: str, fn, reps: int) -> None:
+    row[key], row[key + "_spread"] = time_ms(fn, reps)
 
 
 def held(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict
@@ -115,25 +167,35 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict
 
 
 def work(name: str, sig) -> tuple:
-    """(bytes, flops) one launch of ``name`` at ``sig`` must move and do:
+    """(bytes, flops, peak flop/s) of one launch of ``name`` at ``sig``:
     each input read once, each output written once; attention counts the
-    query-key pairs its masks leave visible."""
+    query-key pairs its masks leave visible, the SSD scan the recurrence's
+    multiply-adds (S = a·S + b⊗x, y = c·S: 5·state·hd flops a step and
+    head) at the f32 rate."""
     esz = torch.empty((), dtype=sig[-1]).element_size()
     if name == "matmul_h100":
         M, N, K = sig[:3]
-        return (M * K + K * N) * esz + M * N * 4, 2.0 * M * N * K
+        return ((M * K + K * N) * esz + M * N * 4, 2.0 * M * N * K,
+                PEAK_FLOPS[sig[-1]])
+    if name == "ssd_scan_h100":
+        R, S, H, hd, n, _, _, with_state, _ = sig
+        state_bytes = 4 * R * H * n * hd
+        return (2 * R * S * H * hd * esz + 4 * R * S * H + 2 * R * S * n * esz
+                + state_bytes * (2 if with_state else 1),
+                5.0 * R * S * H * n * hd, PEAK_FLOPS[torch.float32])
     h, sq, sk, d, _, _, causal, window, _ = sig
     pairs = int(_visible(sq, sk, causal, window).sum())
-    return 2 * (h * sq * d + h * sk * d) * esz, 4.0 * h * pairs * d
+    return (2 * (h * sq * d + h * sk * d) * esz, 4.0 * h * pairs * d,
+            PEAK_FLOPS[sig[-1]])
 
 
 def bound_terms_ms(name: str, sig) -> tuple:
-    nbytes, flops = work(name, sig)
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[sig[-1]]
+    nbytes, flops, peak = work(name, sig)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
 
 
 # ---------------------------------------------------------------------------
-# K1 and K2 at one signature: check against plain, time, bound
+# K1, K2 and K3 at one signature: check against plain, time, bound
 # ---------------------------------------------------------------------------
 
 def matmul_case(sig, gen, *, timed: bool):
@@ -152,9 +214,10 @@ def matmul_case(sig, gen, *, timed: bool):
         # copies of B that none is still in the 50 MB L2 when it comes back
         bs = itertools.cycle([b] + [b.clone() for _ in range(
             math.ceil(L2_FLUSH_BYTES / (b.numel() * b.element_size())) - 1)])
-        row["ms"] = time_ms(lambda: matmul_h100(a, next(bs), **kw), 10)
-        row["plain_ms"] = time_ms(lambda: matmul_plain(a, next(bs), **kw), 3)
-        row["library_ms"] = time_ms(lambda: torch.matmul(a, next(bs)), 10)
+        time_into(row, "ms", lambda: matmul_h100(a, next(bs), **kw), 10)
+        time_into(row, "plain_ms",
+                  lambda: matmul_plain(a, next(bs), **kw), 2)
+        time_into(row, "library_ms", lambda: torch.matmul(a, next(bs)), 10)
         row["bound_ms"] = max(bound_terms_ms("matmul_h100", sig))
     return row
 
@@ -185,21 +248,57 @@ def flash_case(sig, gen, *, timed: bool):
     if timed:
         mask = _visible(sq, sk, causal, window)
         sdpa_mask = None if bool(mask.all()) else mask
-        row["ms"] = time_ms(lambda: flash_attention_h100(q, k, v, **kw), 10)
-        row["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v,
-                                                                **kw), 3)
-        row["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(
-                q[None], k[None], v[None], attn_mask=sdpa_mask), 10)
+        time_into(row, "ms",
+                  lambda: flash_attention_h100(q, k, v, **kw), 10)
+        time_into(row, "plain_ms",
+                  lambda: flash_attention_plain(q, k, v, **kw), 2)
+        time_into(row, "library_ms", lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=sdpa_mask), 10)
         row["bound_ms"] = max(bound_terms_ms("flash_attention_h100", sig))
     return row
+
+
+def ssd_case(sig, gen, *, timed: bool):
+    """K3 at (rows, seq, heads, hd, state, chunk, bd, state given, dtype)
+    on inputs shaped as the model makes them: x, b, c in the compute type,
+    b and c one [rows, seq, state] projection shared across heads, the
+    decay in (0.05, 0.95) and the state in f32."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
+    R, S, H, hd, n, chunk, bd, with_state, dtype = sig
+    x = torch.randn((R, S, H, hd), generator=gen, device=DEV).to(dtype)
+    a = torch.sigmoid(torch.randn((R, S, H), generator=gen,
+                                  device=DEV)) * 0.9 + 0.05
+    b = torch.randn((R, S, n), generator=gen, device=DEV).to(dtype)
+    c = torch.randn((R, S, n), generator=gen, device=DEV).to(dtype)
+    s0 = (torch.randn((R, H, n, hd), generator=gen, device=DEV)
+          if with_state else None)
+    kw = dict(chunk=chunk, bd=bd)
+    y, s1 = ssd_scan_h100(x, a, b, c, s0, **kw)
+    torch.cuda.synchronize()
+    wy, ws = ssd_scan_plain(x, a, b, c, s0, **kw)
+    row = {"err": max(held(f"ssd state {sig}", s1, ws, SSD_STATE_TOL),
+                      held(f"ssd y {sig}", y, wy, SSD_Y_TOL))}
+    if timed:
+        time_into(row, "ms",
+                  lambda: ssd_scan_h100(x, a, b, c, s0, **kw), 10)
+        time_into(row, "plain_ms",
+                  lambda: ssd_scan_plain(x, a, b, c, s0, **kw), 2)
+        row["library_ms"] = None
+        row["bound_ms"] = max(bound_terms_ms("ssd_scan_h100", sig))
+    return row
+
+
+CASES = {"matmul_h100": matmul_case, "flash_attention_h100": flash_case,
+         "ssd_scan_h100": ssd_case}
 
 
 def fmt(row) -> str:
     out = f"max_abs_err {row['err']:.3e}"
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        if key in row:
+        if row.get(key) is not None:
             out += f" {key} {row[key]:.4f}"
+            if key + "_spread" in row:
+                out += f" (spread {row[key + '_spread']:.4f})"
     return out
 
 
@@ -285,6 +384,44 @@ def phase_k2(gen) -> float:
     return err
 
 
+def phase_k3(gen) -> float:
+    from repro_torch.configs import get_config
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import enumerate_candidates
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import FAMILY as SSD
+    err = 0.0
+    for arch in ("mamba2_130m", "hymba_1p5b"):
+        s = get_config(arch).ssm
+        cases = [("decode, 4 rows", 4, 1, True)]
+        cases += [(f"chunk {n}", 1, n, True) for n in
+                  (1, 2, 4, 8, 16, 32, 64, 128, 256)]
+        cases += [("seq 200, no state", 1, 200, False),
+                  ("seq 200, state in", 1, 200, True)]
+        for name, rows, seq, with_state in cases:
+            a = ops.select("ssd_scan_h100", {"SQ": seq, "HD": s.head_dim,
+                                             "STATE": s.state}).assignment
+            sig = (rows, seq, s.heads, s.head_dim, s.state, a["chunk"],
+                   a["bd"], with_state, torch.bfloat16)
+            row = ssd_case(sig, gen, timed=False)
+            err = max(err, row["err"])
+            say(f"[K3] {arch} {name}: heads {s.heads} hd {s.head_dim} state "
+                f"{s.state} leaf {dict(a)}: {fmt(row)}")
+    data = {"SQ": 256, "HD": 64, "STATE": 128}
+    feasible = {(c.assignment["chunk"], c.assignment["bd"])
+                for c in enumerate_candidates(SSD, H100_SXM, data)}
+    for chunk, bd in [(16, 8), (32, 16), (64, 64), (128, 32), (64, 16)]:
+        if (chunk, bd) not in feasible:
+            raise AssertionError(f"chunk {chunk} bd {bd} is no feasible leaf "
+                                 f"at {data}")
+        sig = (1, 256, 24, 64, 128, chunk, bd, True, torch.bfloat16)
+        row = ssd_case(sig, gen, timed=True)
+        err = max(err, row["err"])
+        say(f"[K3] leaf chunk {chunk} bd {bd} at seq 256, heads 24, hd 64, "
+            f"state 128: {fmt(row)}")
+    return err
+
+
 def _serve(cfg, params, prompts, device, **kw):
     from repro_torch.runtime import ServeEngine
     eng = ServeEngine(cfg, params, device=device, **kw)
@@ -296,8 +433,6 @@ def _serve(cfg, params, prompts, device, **kw):
 def phase_parity() -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_model
-    cfg = get_smoke_config("llama3_8b").scaled(dtype="float32")
-    params_cpu = init_model(cfg, seed=7, device="cpu")
 
     def to_cuda(node):
         if isinstance(node, dict):
@@ -305,61 +440,73 @@ def phase_parity() -> None:
         if isinstance(node, list):
             return [to_cuda(v) for v in node]
         return node.to(DEV)
-    params_gpu = to_cuda(params_cpu)
-    rng = np.random.default_rng(7)
-    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 19, 11, 3, 26)]
-    kw = dict(max_batch=3, max_len=48, page_size=8, prefill_chunk=8,
-              warm_kernels=True)
-    _, on_gpu = _serve(cfg, params_gpu, prompts, DEV, **kw)
-    _, on_cpu = _serve(cfg, params_cpu, prompts, "cpu", **kw)
-    gpu_toks = [r.out for r in on_gpu]
-    cpu_toks = [r.out for r in on_cpu]
-    say(f"[parity] f32 smoke, cuda kernels: {gpu_toks}")
-    say(f"[parity] f32 smoke, cpu plain:    {cpu_toks}")
-    if gpu_toks != cpu_toks or any(len(t) != MAX_NEW for t in gpu_toks):
-        raise AssertionError("serve parity: tokens differ between the "
-                             "kernels on cuda and the plain versions on cpu")
+
+    for arch, _, _ in PATHS:
+        cfg = get_smoke_config(arch).scaled(dtype="float32")
+        params_cpu = init_model(cfg, seed=7, device="cpu")
+        params_gpu = to_cuda(params_cpu)
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 19, 11, 3, 26)]
+        kw = dict(max_batch=3, max_len=48, page_size=8, prefill_chunk=8,
+                  warm_kernels=True)
+        _, on_gpu = _serve(cfg, params_gpu, prompts, DEV, **kw)
+        _, on_cpu = _serve(cfg, params_cpu, prompts, "cpu", **kw)
+        gpu_toks = [r.out for r in on_gpu]
+        cpu_toks = [r.out for r in on_cpu]
+        say(f"[parity] {cfg.name} f32, cuda kernels: {gpu_toks}")
+        say(f"[parity] {cfg.name} f32, cpu plain:    {cpu_toks}")
+        if gpu_toks != cpu_toks or any(len(t) != MAX_NEW for t in gpu_toks):
+            raise AssertionError(f"serve parity ({cfg.name}): tokens differ "
+                                 "between the kernels on cuda and the plain "
+                                 "versions on cpu")
 
 
-def phase_serve():
-    from repro_torch.artifacts.dispatch import get_default_cache
-    from repro_torch.configs import get_config
+def _counters():
     from repro_torch.kernels.flash_attention import flash_attention_h100
     from repro_torch.kernels.matmul import matmul_h100
+    from repro_torch.kernels.ssd_scan import ssd_scan_h100
+    return {k.__name__: k for k in (matmul_h100, flash_attention_h100,
+                                    ssd_scan_h100)}
+
+
+def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
+    """One main path: ``arch`` at full width through ServeEngine; returns
+    its name, wall time and each kernel's launches and launch shapes."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.configs import get_config
     from repro_torch.models import forward, init_model
     from repro_torch.runtime import ServeEngine
 
-    cfg = get_config("llama3_8b")                     # bf16, 32 layers
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
-    say(f"[serve] llama3-8b full width: {cfg.layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}; weights "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB made in "
+    say(f"[serve] {cfg.name} full width: {cfg.layers} layers, {cfg.block} "
+        f"block, d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}; "
+        f"weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB made in "
         f"{time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV, **SERVE)
+    eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV, **serve_kw)
     stats = get_default_cache().stats
     cold0 = stats.cold_builds
     say(f"[serve] warm-up: {len(eng.kernel_plan)} kernel picks frozen in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; engine {serve_kw}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n))
-               for n in rng.integers(16, 65, 4)]
+               for n in rng.integers(*prompt_lens, 4)]
 
+    kernels = _counters()
     torch.cuda.synchronize()
-    matmul_h100.launches = flash_attention_h100.launches = 0
-    matmul_h100.shapes.clear()
-    flash_attention_h100.shapes.clear()
+    for k in kernels.values():
+        k.launches = 0
+        k.shapes.clear()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
     done = {r.rid: r for r in eng.run_until_drained()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"matmul_h100": matmul_h100.launches,
-                "flash_attention_h100": flash_attention_h100.launches}
-    shapes = {"matmul_h100": dict(matmul_h100.shapes),
-              "flash_attention_h100": dict(flash_attention_h100.shapes)}
+    launches = {n: k.launches for n, k in kernels.items()}
+    shapes = {n: dict(k.shapes) for n, k in kernels.items()}
 
     outs = [done[r] for r in rids]
     for r, p in zip(outs, prompts):
@@ -371,22 +518,28 @@ def phase_serve():
     cold = stats.cold_builds - cold0
     st = eng.sched.stats
     ntok = sum(len(r.out) for r in outs)
-    per_step_mm = 7 * cfg.layers + 1
-    say(f"[serve] {len(outs)} requests, {ntok} tokens in {wall:.3f} s: "
-        f"{ntok / wall:.2f} tokens/s; {st.prefill_chunks} prefill chunks, "
-        f"{st.decode_ticks} decode steps")
-    say(f"[serve] launches: {json.dumps(launches)}; matmul per prefill chunk "
-        f"or decode step {per_step_mm}; attention per chunk {cfg.layers}, "
-        f"per decode step {cfg.layers} x decoding rows; cold dispatch builds "
+    attn = cfg.block in ("attn_mlp", "hybrid")
+    ssm = cfg.block in ("ssm", "hybrid")
+    mlp = cfg.block == "attn_mlp" or cfg.d_ff > 0
+    per_step_mm = cfg.layers * (4 * attn + 5 * ssm + 3 * mlp) + 1
+    steps = st.prefill_chunks + st.decode_ticks
+    say(f"[serve] {cfg.name}: {len(outs)} requests, {ntok} tokens in "
+        f"{wall:.3f} s: {ntok / wall:.2f} tokens/s; {st.prefill_chunks} "
+        f"prefill chunks, {st.decode_ticks} decode steps")
+    say(f"[serve] {cfg.name} launches: {json.dumps(launches)}; matmul per "
+        f"prefill chunk or decode step {per_step_mm}; cold dispatch builds "
         f"after warm-up: {cold}")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path never launched: "
+    used = ["matmul_h100"] + ["flash_attention_h100"] * attn \
+        + ["ssd_scan_h100"] * ssm
+    if any(launches[n] == 0 for n in used):
+        raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     if cold:
         raise AssertionError(f"{cold} dispatches resolved cold after warm-up")
-    if launches["matmul_h100"] != per_step_mm * (st.prefill_chunks
-                                                 + st.decode_ticks):
+    if launches["matmul_h100"] != per_step_mm * steps:
         raise AssertionError("matmul launches do not match the steps run")
+    if launches["ssd_scan_h100"] != cfg.layers * steps * ssm:
+        raise AssertionError("SSD scan launches do not match the steps run")
 
     # one full-width forward through the kernels: finite logits of the
     # expected shape
@@ -396,29 +549,47 @@ def phase_serve():
             torch.isfinite(logits.float()).all()):
         raise AssertionError(f"full-width forward: logits "
                              f"{tuple(logits.shape)} not finite")
-    say(f"[serve] full-width forward: logits {tuple(logits.shape)} finite")
+    say(f"[serve] {cfg.name} full-width forward: logits "
+        f"{tuple(logits.shape)} finite")
     del eng, params, logits
     torch.cuda.empty_cache()
-    return launches, shapes
+    return {"name": cfg.name, "wall_ms": 1e3 * wall, "launches": launches,
+            "shapes": shapes}
 
 
-def phase_shapes(shapes, gen, errs):
-    cases = {"matmul_h100": matmul_case, "flash_attention_h100": flash_case}
-    totals = {}
+def phase_shapes(shapes, gen):
+    """Every launch signature of the main paths, checked and timed once;
+    returns {name: {sig: row}}."""
+    rows = {}
+    for name, by_sig in shapes.items():
+        rows[name] = {}
+        for sig, n in sorted(by_sig.items(), key=lambda kv: str(kv[0])):
+            row = CASES[name](sig, gen, timed=True)
+            rows[name][sig] = row
+            say(f"[shapes] {name} {sig[:-1]} x{n}: {fmt(row)}")
+    return rows
+
+
+def launch_sums(shapes, rows) -> dict:
+    """{name: {key: sum over the launches in ``shapes`` of the key's time
+    at each launch's signature}} (None where a signature has none)."""
+    out = {}
     for name, by_sig in shapes.items():
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0}
-        err = errs[name]
-        for sig, n in sorted(by_sig.items(), key=lambda kv: str(kv[0])):
-            row = cases[name](sig, gen, timed=True)
-            err = max(err, row["err"])
+        for sig, n in by_sig.items():
             for key in tot:
-                tot[key] += n * row[key]
-            say(f"[shapes] {name} {sig[:-1]} x{n}: {fmt(row)}")
-        totals[name] = dict(tot, max_abs_err=err)
-        say(f"[shapes] {name} over the main path's launches: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in totals[name].items()))
-    return totals
+                val = rows[name][sig][key]
+                tot[key] = (None if tot[key] is None or val is None
+                            else tot[key] + n * val)
+        out[name] = tot
+    return out
+
+
+def _sums_line(sums) -> str:
+    return "; ".join(f"{name} " + ", ".join(
+        f"{k} {v:.3f}" for k, v in tot.items() if v is not None)
+        for name, tot in sums.items() if tot["ms"])
 
 
 def main() -> int:
@@ -441,24 +612,35 @@ def main() -> int:
     phase_device()
     phase_build()
     errs = {"matmul_h100": phase_k1(gen),
-            "flash_attention_h100": phase_k2(gen)}
+            "flash_attention_h100": phase_k2(gen),
+            "ssd_scan_h100": phase_k3(gen)}
     phase_parity()
-    launches, shapes = phase_serve()
-    totals = phase_shapes(shapes, gen, errs)
+    launches = {name: 0 for name in KERNELS}
+    shapes = {name: {} for name in KERNELS}
+    paths = []
+    for arch, serve_kw, prompt_lens in PATHS:
+        path = phase_serve(arch, serve_kw, prompt_lens)
+        paths.append(path)
+        for name in KERNELS:
+            launches[name] += path["launches"][name]
+            for sig, n in path["shapes"][name].items():
+                shapes[name][sig] = shapes[name].get(sig, 0) + n
+    rows = phase_shapes(shapes, gen)
+    for path in paths:
+        say(f"[shapes] {path['name']} ({path['wall_ms']:.1f} ms wall), "
+            f"kernel time over its launches: "
+            f"{_sums_line(launch_sums(path['shapes'], rows))}")
+    totals = launch_sums(shapes, rows)
+    say(f"[shapes] all main paths: {_sums_line(totals)}")
 
-    sources = {"matmul_h100": ("src/repro_torch/csrc/matmul.cu",
-                               "src/repro/kernels/matmul.py:73"),
-               "flash_attention_h100": (
-                   "src/repro_torch/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:75")}
     kernels = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces) in KERNELS.items():
         t = totals[name]
-        ms, bound = t["ms"], t["bound_ms"]
+        err = max([errs[name]] + [r["err"] for r in rows[name].values()])
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": t["max_abs_err"], "ms": ms,
-                        "plain_ms": t["plain_ms"], "bound_ms": bound,
+                        "max_abs_err": err, "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": "bytes" if _bytes_bound(name, shapes)
                         else "operations",
                         "library_ms": t["library_ms"]})
@@ -472,7 +654,7 @@ def main() -> int:
 
 def _bytes_bound(name, shapes) -> bool:
     """Whether bytes, not operations, bound the kernel's launches on the
-    main path, summed over them."""
+    main paths, summed over them."""
     byte_ms = op_ms = 0.0
     for sig, n in shapes[name].items():
         b_ms, o_ms = bound_terms_ms(name, sig)

@@ -1,10 +1,10 @@
 """Architecture registry of the port: one module per arch (``--arch <id>``).
 
 Each module exports ``CONFIG`` (the published configuration) and ``SMOKE``
-(a reduced same-family configuration for CPU tests).  This slice of the port
-serves the dense ``attn_mlp`` block, so only llama3-8b is registered; the
-JAX package's other nine configs join with the slices that port their
-blocks.
+(a reduced same-family configuration for CPU tests).  The port serves the
+dense ``attn_mlp``, the attention-free ``ssm`` and the ``hybrid`` blocks, so
+llama3-8b, mamba2-130m and hymba-1.5b are registered; the JAX package's
+other seven configs join with the slices that port their blocks.
 """
 from __future__ import annotations
 
@@ -15,11 +15,15 @@ from ..models.config import ModelConfig
 
 ARCH_IDS = (
     "llama3_8b",
+    "mamba2_130m",
+    "hymba_1p5b",
 )
 
 # canonical external ids -> module names
 ALIASES = {
     "llama3-8b": "llama3_8b",
+    "mamba2-130m": "mamba2_130m",
+    "hymba-1.5b": "hymba_1p5b",
 }
 
 

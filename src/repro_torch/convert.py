@@ -1,10 +1,12 @@
 """Weights from the JAX package into the port.
 
 ``from_jax_params(np_params, cfg)`` takes the JAX parameter pytree of an
-``attn_mlp`` model with its leaves already turned into NumPy arrays (for
-example ``jax.tree.map(np.asarray, params)``) and returns the port's
-parameter dict: the stacked ``layers`` axis becomes a list, matrices take
-the compute dtype, norm scales stay f32.  No JAX is imported here.
+``attn_mlp``, ``ssm`` or ``hybrid`` model with its leaves already turned
+into NumPy arrays (for example ``jax.tree.map(np.asarray, params)``) and
+returns the port's parameter dict: the stacked ``layers`` axis becomes a
+list, matrices take the compute dtype, norm scales and biases stay f32, and
+so does the SSM decay projection ``ssm.wa``, which the JAX layer runs in f32
+whatever the compute type.  No JAX is imported here.
 """
 from __future__ import annotations
 
@@ -22,10 +24,10 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig, *,
     dev = resolve_device(device)
     wdt = torch_dtype(cfg.dtype)
 
-    def leaf(a) -> torch.Tensor:
+    def leaf(a, keep_f32: bool = False) -> torch.Tensor:
         arr = np.asarray(a, dtype=np.float32)
         t = torch.from_numpy(arr.copy()).to(dev)
-        return t.to(wdt) if arr.ndim >= 2 else t
+        return t.to(wdt) if arr.ndim >= 2 and not keep_f32 else t
 
     def tree(node):
         if isinstance(node, dict):
@@ -35,8 +37,9 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig, *,
     stacked = np_params["layers"]
     layers = []
     for i in range(cfg.layers):
-        layers.append({blk: {k: leaf(np.asarray(v)[i]) for k, v in
-                             sub.items()}
+        layers.append({blk: {k: leaf(np.asarray(v)[i],
+                                     keep_f32=(blk, k) == ("ssm", "wa"))
+                             for k, v in sub.items()}
                        for blk, sub in stacked.items()})
     return {"embed": tree(np_params["embed"]), "layers": layers,
             "ln_f": tree(np_params["ln_f"])}

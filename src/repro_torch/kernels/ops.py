@@ -12,7 +12,7 @@ decision path the card takes.  The default machine is ``H100_SXM``.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -21,8 +21,9 @@ from ..core.params import H100_SXM, MachineDescription
 from ..core.select import Candidate
 from .flash_attention import FAMILY as FLASH_FAMILY
 from .matmul import FAMILY as MATMUL_FAMILY
+from .ssd_scan import FAMILY as SSD_FAMILY
 
-FAMILIES = {f.name: f for f in (MATMUL_FAMILY, FLASH_FAMILY)}
+FAMILIES = {f.name: f for f in (MATMUL_FAMILY, FLASH_FAMILY, SSD_FAMILY)}
 
 
 def select(family_name: str, data: Mapping[str, int],
@@ -50,3 +51,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = get_default_cache().warm_callable(
         FLASH_FAMILY, machine, (("SQ", sq), ("HD", d)), q.device.type)
     return fn(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
+             machine: MachineDescription = H100_SXM
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state) of the Mamba-2 SSD scan (K3), keyed on (SQ, HD,
+    STATE).  x [seq, heads, hd], a [seq, heads], b, c [seq, heads, state]
+    and state0 [heads, state, hd] as in the JAX op, or each with a leading
+    rows dim (b, c then also [rows, seq, state], shared across heads)."""
+    unbatched = x.dim() == 3
+    if unbatched:
+        x, a, b, c = x[None], a[None], b[None], c[None]
+        state0 = state0[None] if state0 is not None else None
+    seq, hd, state = x.shape[1], x.shape[3], b.shape[-1]
+    fn = get_default_cache().warm_callable(
+        SSD_FAMILY, machine, (("SQ", seq), ("HD", hd), ("STATE", state)),
+        x.device.type)
+    y, s = fn(x, a, b, c, state0)
+    return (y[0], s[0]) if unbatched else (y, s)

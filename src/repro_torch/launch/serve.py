@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --device cpu                               # smoke config, plain ops
 
+``--arch`` takes llama3-8b, mamba2-130m or hymba-1.5b.
+
 The options of the JAX launcher that this slice does not serve yet
 (``--prefix-sharing``, ``--async-depth`` above 1, ``--monitor``,
 ``--degrade``, ``--plan-dir``/``--strict-plans``, ``--trace``) are accepted
@@ -22,6 +24,7 @@ from repro_torch.artifacts.dispatch import get_default_cache
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import flash_attention_h100
 from repro_torch.kernels.matmul import matmul_h100
+from repro_torch.kernels.ssd_scan import ssd_scan_h100
 from repro_torch.models import init_model
 from repro_torch.runtime import ServeEngine
 
@@ -78,7 +81,9 @@ def main() -> None:
         print(f"warm-up: {len(eng.kernel_plan)} kernel picks frozen")
     stats = get_default_cache().stats
     cold0 = stats.cold_builds
-    matmul_h100.launches = flash_attention_h100.launches = 0
+    kernels = (matmul_h100, flash_attention_h100, ssd_scan_h100)
+    for k in kernels:
+        k.launches = 0
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -97,9 +102,9 @@ def main() -> None:
             print(f"req {r.rid}: {r.out}")
     print(f"{len(done)} requests, {toks} tokens in {dt:.3f}s "
           f"({toks / dt:.2f} tok/s) on {eng.device}")
-    print(f"kernel launches: matmul_h100={matmul_h100.launches} "
-          f"flash_attention_h100={flash_attention_h100.launches}; "
-          f"cold dispatch builds during the run: "
+    print("kernel launches: "
+          + " ".join(f"{k.__name__}={k.launches}" for k in kernels)
+          + f"; cold dispatch builds during the run: "
           f"{stats.cold_builds - cold0}")
 
 

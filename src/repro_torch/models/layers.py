@@ -3,13 +3,14 @@
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts (``wq`` is [d_model, heads·hd], ...), so a JAX pytree converts leaf
 for leaf (:mod:`repro_torch.convert`).  Every projection goes through
-``ops.matmul`` (K1) and every attention core through ``ops.flash_attention``
-(K2): the design the JAX layers state and their warm set traces, although
-their forward is einsum on every backend (ROADMAP F3).  The port is held
-against that einsum math.
+``ops.matmul`` (K1), every attention core through ``ops.flash_attention``
+(K2) and every SSD core through ``ops.ssd_scan`` (K3): the design the JAX
+layers state and their warm set traces, although their forward is einsum
+on every backend (ROADMAP F3).  The port is held against that einsum math.
 
-Only the dense ``attn_mlp`` block of this slice is here: RMSNorm, RoPE,
-attention (no-cache and paged paths), the SwiGLU MLP, embed and unembed.
+The layers of the ported blocks (``attn_mlp``, ``ssm``, ``hybrid``):
+RMSNorm, RoPE, attention (no-cache and paged paths), the Mamba-2 SSD block,
+the SwiGLU MLP, embed and unembed.
 """
 from __future__ import annotations
 
@@ -127,6 +128,32 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             va = cv[blocks].reshape(-1, nk, hd)[:length].to(x.dtype)
             out[b] = _core(q[b], ka, va, cfg)
     return proj(out.reshape(B, Sq, nh * hd), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# SSD (Mamba-2) block
+# ---------------------------------------------------------------------------
+
+def ssm_decays(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Per-token decay a_t in (0, 1): sigmoid(x·wa + bias), in f32 from the
+    f32 ``wa`` whatever the compute type, as the JAX layer computes it."""
+    return torch.sigmoid(proj(x.float(), p["wa"]) + p["a_bias"])
+
+
+def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              state: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD block over x (B, S, d) from ``state`` (B, heads, state, hd) f32
+    (zero when None); returns (out (B, S, d), final state).  B and C are
+    projected once and shared across heads (ngroups = 1); the scan, prefill
+    chunk or decode step alike, is one K3 call over all rows."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    xi = proj(x, p["wx"]).reshape(B, S, s.heads, s.head_dim)
+    b = proj(x, p["wb"])                                    # (B, S, state)
+    c = proj(x, p["wc"])
+    y, new_state = ops.ssd_scan(xi, ssm_decays(p, x), b, c, state)
+    return proj(y.reshape(B, S, s.heads * s.head_dim), p["wo"]), new_state
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,24 @@
-"""Model assembly (the port of ``models/transformer.py``, ``attn_mlp`` only).
+"""Model assembly (the port of ``models/transformer.py``).
 
-Parameters are a dict ``{"embed": {"tok", "out"}, "layers": [per-layer
-dicts], "ln_f": {"scale"}}``; the JAX package stacks layers on a leading
-axis and scans them, the port keeps a list and loops.  Weights (>= 2-D) are
-held in the compute dtype, norm scales in f32: the JAX forward casts every
-weight to ``x.dtype`` before use, so the numbers are the same and a bf16
-model takes half the memory.
+Serves the ``attn_mlp`` (dense GQA), ``ssm`` (attention-free Mamba-2 SSD)
+and ``hybrid`` (parallel attention + SSD heads) blocks; ``attn_moe`` and the
+encoder-decoder are later slices.  Parameters are a dict ``{"embed": {"tok",
+"out"}, "layers": [per-layer dicts], "ln_f": {"scale"}}``; the JAX package
+stacks layers on a leading axis and scans them, the port keeps a list and
+loops.  Weights (>= 2-D) are held in the compute dtype, norm scales and
+biases in f32: the JAX forward casts every weight to ``x.dtype`` before use,
+so the numbers are the same and a bf16 model takes half the memory.  The
+one exception is the SSM decay projection ``wa``, which the JAX layer runs
+in f32 from f32 weights whatever the compute type: it stays f32.
 
-The paged serving functions update the KV pool **in place** (the JAX ones
-return a new pool); they still return it, so callers read the same.
+The paged serving functions update the KV pool and the per-slot SSM state
+**in place** (the JAX ones return a new cache); they still return it, so
+callers read the same.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,11 +30,26 @@ from .config import ModelConfig
 Params = Dict[str, Any]
 
 
-def _check_block(cfg: ModelConfig) -> None:
-    if cfg.block != "attn_mlp" or cfg.encoder is not None:
+def check_block(cfg: ModelConfig) -> None:
+    """Raise for a config whose block the port does not serve yet."""
+    if cfg.block not in ("attn_mlp", "ssm", "hybrid") \
+            or cfg.encoder is not None:
         raise NotImplementedError(
             f"block {cfg.block!r} (config {cfg.name}) is not ported yet: "
-            "this slice serves attn_mlp decoders")
+            "the port serves attn_mlp, ssm and hybrid decoders")
+
+
+def has_attn(cfg: ModelConfig) -> bool:
+    return cfg.block in ("attn_mlp", "hybrid")
+
+
+def has_ssm(cfg: ModelConfig) -> bool:
+    return cfg.block in ("ssm", "hybrid")
+
+
+def has_mlp(cfg: ModelConfig) -> bool:
+    return cfg.block in ("attn_mlp", "hybrid") or (
+        cfg.block == "ssm" and cfg.d_ff > 0)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -44,16 +64,17 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                device: DeviceLike = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
     card unless the caller passes ``"cpu"``): normal / sqrt(fan_in) for
-    matrices, 0.02·normal for the token table, ones for norm scales — the
+    matrices (0.1 / sqrt(fan_in) for the SSM decay projection), 0.02·normal
+    for the token table, ones for norm scales, 2.0 for the decay bias — the
     JAX package's distributions, not its numbers."""
-    _check_block(cfg)
+    check_block(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     wdt = _dtype(cfg)
 
-    def mat(*shape, scale=None):
-        w = torch.randn(shape, generator=g, device=dev, dtype=wdt)
+    def mat(*shape, scale=None, dtype=wdt):
+        w = torch.randn(shape, generator=g, device=dev, dtype=dtype)
         return w.mul_(scale if scale is not None
                       else 1.0 / math.sqrt(max(1, shape[0])))
 
@@ -64,15 +85,31 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     d, f, nh, nk, hd = cfg.d_model, cfg.d_ff, cfg.heads, cfg.kv_heads, cfg.hd
     layers = []
     for _ in range(cfg.layers):
-        attn = {"wq": mat(d, nh * hd), "wk": mat(d, nk * hd),
-                "wv": mat(d, nk * hd), "wo": mat(nh * hd, d)}
-        if cfg.qkv_bias:
-            for name, n in (("bq", nh * hd), ("bk", nk * hd),
-                            ("bv", nk * hd)):
-                attn[name] = torch.zeros(n, dtype=torch.float32, device=dev)
-        layers.append({"ln1": norm(), "attn": attn, "ln2": norm(),
-                       "mlp": {"wi": mat(d, f), "wg": mat(d, f),
-                               "wo": mat(f, d)}})
+        lp: Params = {}
+        if has_attn(cfg):
+            attn = {"wq": mat(d, nh * hd), "wk": mat(d, nk * hd),
+                    "wv": mat(d, nk * hd), "wo": mat(nh * hd, d)}
+            if cfg.qkv_bias:
+                for name, n in (("bq", nh * hd), ("bk", nk * hd),
+                                ("bv", nk * hd)):
+                    attn[name] = torch.zeros(n, dtype=torch.float32,
+                                             device=dev)
+            lp["ln1"], lp["attn"] = norm(), attn
+        if has_ssm(cfg):
+            s = cfg.ssm
+            di = s.heads * s.head_dim
+            lp["lns"] = norm()
+            lp["ssm"] = {
+                "wx": mat(d, di), "wb": mat(d, s.state), "wc": mat(d, s.state),
+                "wa": mat(d, s.heads, scale=0.1 / math.sqrt(d),
+                          dtype=torch.float32),
+                "wo": mat(di, d),
+                "a_bias": torch.full((s.heads,), 2.0, dtype=torch.float32,
+                                     device=dev)}
+        if has_mlp(cfg):
+            lp["ln2"] = norm()
+            lp["mlp"] = {"wi": mat(d, f), "wg": mat(d, f), "wo": mat(f, d)}
+        layers.append(lp)
     return {"embed": {"tok": mat(cfg.vocab, d, scale=0.02),
                       "out": mat(d, cfg.vocab)},
             "layers": layers, "ln_f": norm()}
@@ -82,11 +119,27 @@ def _device(params: Params) -> torch.device:
     return params["embed"]["tok"].device
 
 
-def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, **attn_kw
-           ) -> torch.Tensor:
-    x = x + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
-                        cfg, **attn_kw)
-    return x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+           ssm_state: Optional[torch.Tensor] = None, **attn_kw
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block; returns (x, the SSD core's final state or None).  The
+    hybrid block runs attention and SSD in parallel on separately normed
+    inputs and adds both to the residual, then the MLP, as the JAX
+    ``block_apply`` does."""
+    new_state = None
+    h = x
+    if has_attn(cfg):
+        h = h + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                            cfg, **attn_kw)
+    if has_ssm(cfg):
+        ssd, new_state = L.ssm_block(
+            lp["ssm"], L.rmsnorm(lp["lns"], x, cfg.norm_eps), cfg,
+            state=ssm_state)
+        h = h + ssd
+    x = h
+    if "mlp" in lp:
+        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+    return x, new_state
 
 
 def _long(x, dev: torch.device) -> torch.Tensor:
@@ -103,14 +156,14 @@ def forward(params: Params, cfg: ModelConfig, tokens
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward: tokens (B, S) -> (logits (B, S, V),
     aux loss 0)."""
-    _check_block(cfg)
+    check_block(cfg)
     dev = _device(params)
     tokens = _long(tokens, dev)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, _dtype(cfg))
     positions = torch.arange(S, device=dev)
     for lp in params["layers"]:
-        x = _block(lp, x, cfg, positions=positions)
+        x, _ = _block(lp, x, cfg, positions=positions)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x), torch.zeros((), device=dev)
 
@@ -122,23 +175,38 @@ def forward(params: Params, cfg: ModelConfig, tokens
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
                      batch: int, dtype: torch.dtype = torch.bfloat16, *,
                      device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Block-pool KV cache {"k", "v"} of shape (layers, num_blocks,
-    page_size, kv_heads, hd), bf16 by default as in the JAX package.  Block
-    0 is the garbage block; ``batch`` is kept for signature parity (per-slot
-    SSM state is not ported yet)."""
-    _check_block(cfg)
+    """Decode cache of the paged engine.  Attention configs get the block
+    pool {"k", "v"} of shape (layers, num_blocks, page_size, kv_heads, hd),
+    bf16 by default as in the JAX package, block 0 the garbage block; SSM
+    configs get the per-slot recurrent state "ssm" (layers, batch, heads,
+    state, hd) in f32.  An SSM-only config holds no k/v pool."""
+    check_block(cfg)
     dev = resolve_device(device)
-    shape = (cfg.layers, num_blocks, page_size, cfg.kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    c: Dict[str, torch.Tensor] = {}
+    if has_attn(cfg):
+        shape = (cfg.layers, num_blocks, page_size, cfg.kv_heads, cfg.hd)
+        c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if has_ssm(cfg):
+        s = cfg.ssm
+        c["ssm"] = torch.zeros((cfg.layers, batch, s.heads, s.state,
+                                s.head_dim), dtype=torch.float32, device=dev)
+    return c
 
 
 def paged_copy_block(cache: Dict[str, torch.Tensor], src: int,
                      dst: int) -> Dict[str, torch.Tensor]:
-    """Copy physical block ``src`` into ``dst`` in every layer (in place)."""
+    """Copy physical block ``src`` into ``dst`` in every layer (in place);
+    the per-slot SSM state is not paged and does not move."""
     for key in ("k", "v"):
-        cache[key][:, int(dst)] = cache[key][:, int(src)]
+        if key in cache:
+            cache[key][:, int(dst)] = cache[key][:, int(src)]
     return cache
+
+
+def _layer_kv(cache: Dict[str, torch.Tensor], i: int
+              ) -> Optional[Dict[str, torch.Tensor]]:
+    return {"k": cache["k"][i], "v": cache["v"][i]} if "k" in cache else None
 
 
 def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
@@ -147,21 +215,29 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One chunk of a paged prefill: ``tokens`` (1, C) at logical offset
     ``cache_index`` of the sequence whose block table is ``block_table``
-    (1, nblk).  The chunk attends over keys 0 .. cache_index + C - 1, so end
-    alignment reproduces the causal mask of the JAX layer.  Returns
-    (last-token logits (1, V), cache)."""
+    (1, nblk) and whose SSM state is row ``slot``.  The chunk attends over
+    keys 0 .. cache_index + C - 1, so end alignment reproduces the causal
+    mask of the JAX layer; the SSD core resumes from the slot's state and
+    writes its final state back, so chunks thread the recurrence exactly.
+    Returns (last-token logits (1, V), cache)."""
     dev = _device(params)
     tokens = _long(tokens, dev)
     start = int(cache_index)
+    slot = int(slot)
     C = tokens.shape[1]
     x = L.embed(params["embed"], tokens, _dtype(cfg))
     positions = start + torch.arange(C, device=dev)
     bt = _long(block_table, dev)
     idx = torch.tensor([start], dtype=torch.long, device=dev)
+    ssm = cache.get("ssm")
     for i, lp in enumerate(params["layers"]):
-        x = _block(lp, x, cfg, positions=positions,
-                   cache={"k": cache["k"][i], "v": cache["v"][i]},
-                   cache_index=idx, block_tables=bt, spans=[(0, start + C)])
+        x, new_state = _block(
+            lp, x, cfg,
+            ssm_state=ssm[i, slot:slot + 1] if ssm is not None else None,
+            positions=positions, cache=_layer_kv(cache, i),
+            cache_index=idx, block_tables=bt, spans=[(0, start + C)])
+        if ssm is not None:
+            ssm[i, slot] = new_state[0]
     x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache
 
@@ -173,22 +249,30 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens,
     """One decode step over the paged pool: ``tokens`` (B, 1) with per-row
     ``cache_index`` (B,) and ``block_tables`` (B, nblk), both host arrays.
     ``active`` (B,) bool marks the decoding rows (default: all).  Rows not
-    decoding write the garbage block, as in the JAX step, and skip the
-    attention read; their logits are meaningless and ignored."""
+    decoding write the garbage block, as in the JAX step, skip the
+    attention read and keep their SSM state (the JAX ``ssm_mask``: dead
+    slots, and slots whose chunked prefill is still in flight); their
+    logits are meaningless and ignored.  The SSD step is one K3 launch a
+    layer over all rows."""
     dev = _device(params)
     tokens = _long(tokens, dev)
     B = tokens.shape[0]
     host_idx = np.asarray(cache_index).reshape(B)
-    rows = (range(B) if active is None
+    rows = (list(range(B)) if active is None
             else np.flatnonzero(np.asarray(active)).tolist())
     spans = [(int(b), int(host_idx[b]) + 1) for b in rows]
     idx = _long(host_idx, dev)
     bt = _long(block_tables, dev)
     x = L.embed(params["embed"], tokens, _dtype(cfg))
     positions = idx[:, None]
+    ssm = cache.get("ssm")
+    keep = torch.tensor(rows, dtype=torch.long, device=dev)
     for i, lp in enumerate(params["layers"]):
-        x = _block(lp, x, cfg, positions=positions,
-                   cache={"k": cache["k"][i], "v": cache["v"][i]},
-                   cache_index=idx, block_tables=bt, spans=spans)
+        x, new_state = _block(
+            lp, x, cfg, ssm_state=ssm[i, :B] if ssm is not None else None,
+            positions=positions, cache=_layer_kv(cache, i),
+            cache_index=idx, block_tables=bt, spans=spans)
+        if ssm is not None:
+            ssm[i, keep] = new_state[keep]
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache

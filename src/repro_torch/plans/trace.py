@@ -3,14 +3,17 @@
 The port's ops key dispatch on each call's own shape, as the JAX ops do, so
 the warm set must hold exactly the shapes the port's model asks for — the
 JAX trace warms matmul at ``M = max_len`` and attention at the block-grid
-extent, shapes the port's model never dispatches (ROADMAP F5).  The paged
-``attn_mlp`` serve path of :mod:`repro_torch.models.transformer` asks for:
+extent, shapes the port's model never dispatches, and leaves out the f32
+SSM decay projection (ROADMAP F5).  The paged serve path of
+:mod:`repro_torch.models.transformer` asks, for each block it has, for:
 
-- **prefill chunk** of length C (one sequence): the q/kv/out projections and
-  the MLP at ``M = C``, the attention core at ``SQ = C``, and the lm_head at
-  ``M = 1`` (only the last token is unembedded);
+- **prefill chunk** of length C (one sequence): the q/kv/out projections,
+  the SSM x/B/C/decay/out projections and the MLP at ``M = C``, the
+  attention core at ``SQ = C``, the SSD scan at ``SQ = C``, and the lm_head
+  at ``M = 1`` (only the last token is unembedded);
 - **decode step** over the whole pool: projections, MLP and lm_head at
-  ``M = max_batch``, and one attention core per decoding row at ``SQ = 1``.
+  ``M = max_batch``, one attention core per decoding row at ``SQ = 1``, and
+  one SSD scan over all rows at ``SQ = 1``.
 
 C ranges over the scheduler's quantized chunk lengths: ``prefill_chunk``
 and every power of two below it (capped by ``max_len``).  Nothing is
@@ -22,6 +25,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Tuple
 
 from ..models.config import ModelConfig
+from ..models.transformer import check_block, has_attn, has_mlp, has_ssm
 
 
 def op_label(family: str, data: Dict[str, int]) -> str:
@@ -55,19 +59,39 @@ def chunk_lengths(prefill_chunk: int, max_len: int) -> List[int]:
     return sorted(out, reverse=True)
 
 
-def _layer_requests(cfg: ModelConfig, M: int, prefix: str
+def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str
                     ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+    """One layer's requests over ``M`` token rows whose cores run at
+    sequence length ``SQ`` (a prefill chunk: M = SQ = C; a decode step:
+    M = max_batch, SQ = 1)."""
     d, hd = cfg.d_model, cfg.hd
-    yield (f"{prefix}.attn.q_proj", "matmul_h100",
-           {"M": M, "N": cfg.heads * hd, "K": d})
-    yield (f"{prefix}.attn.kv_proj", "matmul_h100",
-           {"M": M, "N": cfg.kv_heads * hd, "K": d})
-    yield (f"{prefix}.attn.out_proj", "matmul_h100",
-           {"M": M, "N": d, "K": cfg.heads * hd})
-    yield (f"{prefix}.mlp.up_proj", "matmul_h100",
-           {"M": M, "N": cfg.d_ff, "K": d})       # wi and wg share it
-    yield (f"{prefix}.mlp.down_proj", "matmul_h100",
-           {"M": M, "N": d, "K": cfg.d_ff})
+    if has_attn(cfg):
+        yield (f"{prefix}.attn.q_proj", "matmul_h100",
+               {"M": M, "N": cfg.heads * hd, "K": d})
+        yield (f"{prefix}.attn.kv_proj", "matmul_h100",
+               {"M": M, "N": cfg.kv_heads * hd, "K": d})
+        yield (f"{prefix}.attn.out_proj", "matmul_h100",
+               {"M": M, "N": d, "K": cfg.heads * hd})
+        yield (f"{prefix}.attn.core", "flash_attention_h100",
+               {"SQ": SQ, "HD": hd})
+    if has_ssm(cfg):
+        s = cfg.ssm
+        di = s.heads * s.head_dim
+        yield (f"{prefix}.ssm.x_proj", "matmul_h100",
+               {"M": M, "N": di, "K": d})
+        yield (f"{prefix}.ssm.bc_proj", "matmul_h100",
+               {"M": M, "N": s.state, "K": d})    # wb and wc share it
+        yield (f"{prefix}.ssm.decay_proj", "matmul_h100",
+               {"M": M, "N": s.heads, "K": d})    # f32, from f32 wa
+        yield (f"{prefix}.ssm.out_proj", "matmul_h100",
+               {"M": M, "N": d, "K": di})
+        yield (f"{prefix}.ssm.scan", "ssd_scan_h100",
+               {"SQ": SQ, "HD": s.head_dim, "STATE": s.state})
+    if has_mlp(cfg):
+        yield (f"{prefix}.mlp.up_proj", "matmul_h100",
+               {"M": M, "N": cfg.d_ff, "K": d})   # wi and wg share it
+        yield (f"{prefix}.mlp.down_proj", "matmul_h100",
+               {"M": M, "N": d, "K": cfg.d_ff})
 
 
 def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,
@@ -75,14 +99,10 @@ def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,
                    ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
     for c in chunk_lengths(prefill_chunk, max_len):
         pre = f"serve.prefill@{c}"
-        yield from _layer_requests(cfg, c, pre)
-        yield (f"{pre}.attn.core", "flash_attention_h100",
-               {"SQ": c, "HD": cfg.hd})
+        yield from _layer_requests(cfg, c, c, pre)
         yield (f"{pre}.lm_head", "matmul_h100",
                {"M": 1, "N": cfg.vocab, "K": cfg.d_model})
-    yield from _layer_requests(cfg, max_batch, "serve.decode")
-    yield ("serve.decode.attn.core", "flash_attention_h100",
-           {"SQ": 1, "HD": cfg.hd})
+    yield from _layer_requests(cfg, max_batch, 1, "serve.decode")
     yield ("serve.decode.lm_head", "matmul_h100",
            {"M": max_batch, "N": cfg.vocab, "K": cfg.d_model})
 
@@ -92,8 +112,7 @@ def trace_warm_set(cfg: ModelConfig, *, max_len: int = 512,
                    ) -> List[TracedOp]:
     """The config's paged serve warm set: ordered, deduplicated by
     (family, data), deterministic."""
-    if cfg.block != "attn_mlp":
-        raise NotImplementedError(f"block {cfg.block!r} is not ported yet")
+    check_block(cfg)
     out: List[TracedOp] = []
     index: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], int] = {}
     for site, family, data in _iter_requests(

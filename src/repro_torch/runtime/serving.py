@@ -14,9 +14,12 @@ engine's, byte for byte (:mod:`repro_torch.runtime.scheduler`).
 Each tick: plan (scheduler) -> dispatch (at most one prefill chunk, then one
 decode over the whole pool with per-row block tables) -> commit (the one
 host sync: sampled tokens land in request outputs; EOS / ``max_new``
-retire).  Prefix sharing, async depth 2, the kernel monitor, degradation,
-serve-plan artifacts and tracing are later slices of the port and are
-refused by name.
+retire).  It serves the ``attn_mlp``, ``ssm`` and ``hybrid`` blocks; a
+slot's SSM state is zeroed when a sequence is admitted to it, as the JAX
+``_reset_slot`` does.  Prefix sharing, async depth 2, the kernel monitor,
+degradation, serve-plan artifacts and tracing are later slices of the port
+and are refused by name (the JAX engine turns prefix sharing off for SSM
+blocks in any case: their state must see every prompt token).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from ..kernels.ops import FAMILIES
 from ..models import (init_paged_cache, paged_copy_block, paged_decode_step,
                       paged_prefill_chunk)
 from ..models.config import ModelConfig
+from ..models.transformer import check_block
 from ..plans.trace import trace_warm_set
 from .kv_pool import GARBAGE_BLOCK, PagedKVPool
 from .scheduler import Clock, Request, Scheduler, SeqState, TickPlan
@@ -97,9 +101,7 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeEngine({what}) is not ported yet: it comes with "
                     f"{slice_name} of the port")
-        if cfg.block != "attn_mlp" or cfg.encoder is not None:
-            raise NotImplementedError(
-                f"block {cfg.block!r} is not ported yet")
+        check_block(cfg)
         self.device = resolve_device(device)
         pdev = params["embed"]["tok"].device
         if pdev.type != self.device.type:
@@ -168,6 +170,8 @@ class ServeEngine:
     def _dispatch(self, plan: TickPlan):
         for seq in plan.admitted:
             self.last_tok[seq.slot] = 0
+            if "ssm" in self.cache:
+                self.cache["ssm"][:, seq.slot] = 0.0
         for src, dst in plan.cow:
             paged_copy_block(self.cache, src, dst)
         seed = None

@@ -1,6 +1,6 @@
 """The port's copy of the symbolic core is the JAX package's core, and the
-port's two families build non-trivial trees that resolve the whole
-llama3-8b serve warm set on an H100."""
+port's three families build non-trivial trees that resolve the whole serve
+warm sets of llama3-8b, mamba2-130m and hymba-1.5b on an H100."""
 import pytest
 
 import repro.core as jcore
@@ -12,6 +12,8 @@ from repro_torch.core.comprehensive import comprehensive_optimization as t_opt
 from repro_torch.kernels.flash_attention import FAMILY as FLASH
 from repro_torch.kernels.matmul import FAMILY as MATMUL
 from repro_torch.kernels.ops import FAMILIES
+from repro_torch.kernels.ssd_scan import FAMILY as SSD
+from repro_torch.kernels.ssd_scan import smem_bytes
 from repro_torch.plans.trace import chunk_lengths, trace_warm_set
 
 
@@ -95,7 +97,8 @@ def test_h100_machine_binds_the_papers_gpu_limits():
         assert {k: tb[k] for k in jb} == jb
 
 
-@pytest.mark.parametrize("family", [MATMUL, FLASH], ids=lambda f: f.name)
+@pytest.mark.parametrize("family", [MATMUL, FLASH, SSD],
+                         ids=lambda f: f.name)
 def test_port_trees_are_non_trivial(family):
     leaves = tcore.comprehensive_tree(family)
     assert len(leaves) > 1
@@ -163,3 +166,39 @@ def test_instantiate_is_memoized_per_device():
                                          leaf_index=cand.leaf_index)
     assert get("cuda") is get("cuda") and get("cpu") is get("cpu")
     assert get("cuda").func is _launch and get("cpu").func is matmul_plain
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1p5b"])
+@pytest.mark.parametrize("size", ["full", "smoke"])
+def test_ssm_warm_sets_resolve_within_gpu_limits(arch, size):
+    """Every triple of the SSM and hybrid serve warm sets (the served
+    sizes: prefill chunks up to 256) resolves to a leaf whose shared
+    memory fits V."""
+    cfg = get_config(arch) if size == "full" else get_smoke_config(arch)
+    cache = DispatchCache()
+    ops = trace_warm_set(cfg, max_len=1024, max_batch=4, prefill_chunk=256)
+    fams = {op.family for op in ops}
+    assert "ssd_scan_h100" in fams
+    assert ("flash_attention_h100" in fams) == (cfg.block == "hybrid")
+    for op in ops:
+        if op.family != "ssd_scan_h100":
+            continue
+        a = cache.best_variant(SSD, tcore.H100_SXM, op.data_dict()).assignment
+        assert smem_bytes(a["chunk"], a["bd"], cfg.ssm.state) <= 232_448
+    assert {dict(o.data)["SQ"] for o in ops
+            if o.family == "ssd_scan_h100"} == set(chunk_lengths(256, 1024))
+
+
+def test_ssd_shared_memory_cuts_the_domain():
+    """V rules out part of the SSD scan's domain (paper Z_B): at state 128
+    a 128-step chunk fits only with hd tiles of at most 32 columns, and a
+    256-step chunk (its 256² f32 scores alone are 256 KB) never fits."""
+    from repro_torch.core.select import enumerate_candidates
+    got = {(c.assignment["chunk"], c.assignment["bd"])
+           for c in enumerate_candidates(SSD, tcore.H100_SXM,
+                                         {"SQ": 256, "HD": 64, "STATE": 128})}
+    domain = {(c, b) for c in (16, 32, 64, 128, 256) for b in (8, 16, 32, 64)}
+    want = {(c, b) for c, b in domain if smem_bytes(c, b, 128) <= 232_448}
+    assert got == want
+    assert (128, 32) in got and (128, 64) not in got
+    assert not any(c == 256 for c, _ in got)

@@ -15,6 +15,10 @@ Tolerances, kernel against plain version on the same inputs:
   ``torch.exp`` and another summation order.
 - bf16 attention: 1e-2, one bf16 rounding step (2^-7) of the output, which
   both versions compute in f32 and round once.
+- SSD scan: 1e-3 on the f32 state and on an f32 y (the same chunk math
+  summed in another order, ``expf``/``logf`` against ``torch.exp``/``log``,
+  over sums of up to ``chunk`` terms of O(1)); 1e-2 on a bf16 y, one bf16
+  step, as for attention.
 """
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import (flash_attention_h100,
                                                  flash_attention_plain)
 from repro_torch.kernels.matmul import matmul_h100, matmul_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
 
 
 @pytest.fixture
@@ -83,6 +88,52 @@ def test_gpu_flash_kernel_matches_plain(cuda, dtype, tol, sq, sk, bq, bkv,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _ssd_inputs(rows, seq, heads, hd, state, dev, dtype, shared=True):
+    rng = np.random.default_rng(rows * 1000 + seq)
+    x = _t((rows, seq, heads, hd), rng.integers(1 << 30), dev, dtype)
+    a = torch.sigmoid(_t((rows, seq, heads), 3, dev)) * 0.9 + 0.05
+    bc_shape = (rows, seq, state) if shared else (rows, seq, heads, state)
+    b = _t(bc_shape, 4, dev, dtype)
+    c = _t(bc_shape, 5, dev, dtype)
+    s0 = _t((rows, heads, state, hd), 6, dev)
+    return x, a, b, c, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("rows,seq,heads,hd,state,chunk,bd,with_state", [
+    (4, 1, 24, 64, 128, 64, 16, True),        # mamba decode step
+    (1, 256, 24, 64, 128, 64, 16, True),      # mamba prefill chunk
+    (1, 200, 25, 64, 16, 128, 16, False),     # hymba, seq no chunk multiple
+    (2, 37, 3, 20, 8, 16, 8, True),           # ragged hd tile
+    (1, 77, 2, 64, 128, 128, 32, False),      # largest chunk V allows
+    (3, 5, 4, 16, 8, 32, 64, True)])          # tile wider than hd
+def test_gpu_ssd_kernel_matches_plain(cuda, dtype, tol, rows, seq, heads, hd,
+                                      state, chunk, bd, with_state):
+    x, a, b, c, s0 = _ssd_inputs(rows, seq, heads, hd, state, cuda, dtype)
+    s0 = s0 if with_state else None
+    n0 = ssd_scan_h100.launches
+    y, s1 = ssd_scan_h100(x, a, b, c, s0, chunk=chunk, bd=bd)
+    torch.cuda.synchronize()
+    assert ssd_scan_h100.launches == n0 + 1 and y.dtype == dtype
+    wy, ws = ssd_scan_plain(x, a, b, c, s0, chunk=chunk, bd=bd)
+    torch.testing.assert_close(s1, ws, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_kernel_per_head_bc_equals_shared(cuda):
+    x, a, b, c, s0 = _ssd_inputs(2, 40, 3, 32, 16, cuda, torch.float32)
+    heads = x.shape[2]
+    y1, s1 = ssd_scan_h100(x, a, b, c, s0, chunk=16, bd=16)
+    full = [t[:, :, None, :].expand(-1, -1, heads, -1).contiguous()
+            for t in (b, c)]
+    y2, s2 = ssd_scan_h100(x, a, *full, s0, chunk=16, bd=16)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     a = _t((8, 16), 1, cuda)
@@ -93,3 +144,8 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     q = _t((2, 4, 256), 2, cuda)                        # head dim > 128
     with pytest.raises(ValueError):
         flash_attention_h100(q, q, q, bq=1, bkv=32)
+    x, a, b, c, _ = _ssd_inputs(1, 300, 2, 16, 8, cuda, torch.float32)
+    with pytest.raises(TypeError):                      # bf16 decay
+        ssd_scan_h100(x, a.bfloat16(), b, c, chunk=16, bd=16)
+    with pytest.raises(RuntimeError):                   # 256² scores > V
+        ssd_scan_h100(x, a, b, c, chunk=256, bd=16)

@@ -1,4 +1,4 @@
-"""K1 and K2 of the port against the JAX package, on the CPU.
+"""K1, K2 and K3 of the port against the JAX package, on the CPU.
 
 The same inputs, drawn with numpy from a seed, go through the JAX op (its
 Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs it) and
@@ -17,6 +17,7 @@ from repro.kernels.flash_attention import pallas_flash_attention
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_h100
 from repro_torch.kernels.matmul import matmul_h100, matmul_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
 
 SEED = 20260
 
@@ -156,11 +157,117 @@ def test_flash_keeps_bf16():
 
 
 # ---------------------------------------------------------------------------
+# K3 ssd_scan_h100
+# ---------------------------------------------------------------------------
+
+def _ssd(seq, heads, hd, state, seed):
+    """x, a in (0.05, 0.95), b, c as in ``tests/test_kernels.py``, each as a
+    (JAX, torch) pair."""
+    a = 1.0 / (1.0 + np.exp(-_np((seq, heads), seed + 1))) * 0.9 + 0.05
+    return (_pair(_np((seq, heads, hd), seed), "float32"),
+            _pair(a.astype(np.float32), "float32"),
+            _pair(_np((seq, heads, state), seed + 2), "float32"),
+            _pair(_np((seq, heads, state), seed + 3), "float32"))
+
+
+def _stepwise(x, a, b, c, S):
+    """The recurrence one step at a time in f64, from state S."""
+    x, a, b, c, S = (np.asarray(t, np.float64) for t in (x, a, b, c, S))
+    ys = []
+    for t in range(x.shape[0]):
+        S = a[t][:, None, None] * S + np.einsum("hs,hd->hsd", b[t], x[t])
+        ys.append(np.einsum("hs,hsd->hd", c[t], S))
+    return np.stack(ys), S
+
+
+@pytest.mark.parametrize("seq,heads,hd,state", [
+    (256, 2, 32, 16), (512, 4, 64, 32), (128, 1, 64, 64), (200, 3, 32, 16)])
+def test_ssd_scan_matches_jax_pallas_and_oracle(seq, heads, hd, state):
+    """The JAX test's shapes, plus seq 200, no multiple of any chunk."""
+    (jx, tx), (ja, ta), (jb, tb), (jc, tc) = _ssd(seq, heads, hd, state,
+                                                  SEED + 70)
+    pallas = jops.ssd_scan(jx, ja, jb, jc, impl="pallas", interpret=True)
+    oracle = jref.ssd_scan(jx, ja, jb, jc)
+    got, _ = ops.ssd_scan(tx, ta, tb, tc)
+    assert got.shape == (seq, heads, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=2e-3,
+                               atol=2e-3)
+
+
+def test_ssd_state_in_out_matches_stepwise():
+    """A nonzero incoming state, the final state and y against the
+    recurrence one step at a time."""
+    (_, tx), (_, ta), (_, tb), (_, tc) = _ssd(45, 3, 16, 8, SEED + 80)
+    s0 = _np((3, 8, 16), SEED + 84)
+    want_y, want_s = _stepwise(tx, ta, tb, tc, s0)
+    got_y, got_s = ops.ssd_scan(tx, ta, tb, tc, torch.from_numpy(s0))
+    assert got_s.dtype == torch.float32 and got_s.shape == (3, 8, 16)
+    np.testing.assert_allclose(got_y.numpy(), want_y, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("split", [1, 77, 199])
+def test_ssd_state_threads_a_split_sequence(split):
+    """Scanning seq 200 in two calls, the second from the first's final
+    state, gives the JAX oracle's y over the whole sequence (what chunked
+    prefill relies on)."""
+    (jx, tx), (ja, ta), (jb, tb), (jc, tc) = _ssd(200, 2, 32, 16, SEED + 90)
+    y1, s1 = ops.ssd_scan(tx[:split], ta[:split], tb[:split], tc[:split])
+    y2, _ = ops.ssd_scan(tx[split:], ta[split:], tb[split:], tc[split:], s1)
+    np.testing.assert_allclose(torch.cat([y1, y2]).numpy(),
+                               np.asarray(jref.ssd_scan(jx, ja, jb, jc)),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("chunk,bd", [(1, 8), (16, 16), (32, 64), (64, 8),
+                                      (128, 32), (256, 16)])
+def test_ssd_every_chunk_same_result(chunk, bd):
+    """Every (chunk, hd tile) leaf computes the same scan (paper Def. 2
+    ii), held against the JAX oracle."""
+    (jx, tx), (ja, ta), (jb, tb), (jc, tc) = _ssd(150, 2, 16, 8, SEED + 100)
+    got, _ = ssd_scan_h100(tx[None], ta[None], tb[None], tc[None],
+                           chunk=chunk, bd=bd)
+    np.testing.assert_allclose(got[0].numpy(),
+                               np.asarray(jref.ssd_scan(jx, ja, jb, jc)),
+                               rtol=2e-3, atol=2e-3)
+
+
+def test_ssd_shared_bc_equals_per_head_bc():
+    """B and C given once per step ([rows, seq, state], shared across heads
+    as the model projects them) or per head give the same scan."""
+    (_, tx), (_, ta), (_, tb), (_, tc) = _ssd(30, 3, 8, 4, SEED + 110)
+    b1, c1 = tb[None, :, 0], tc[None, :, 0]
+    shared = ssd_scan_plain(tx[None], ta[None], b1, c1, chunk=16, bd=8)
+    per_head = ssd_scan_plain(tx[None], ta[None],
+                              b1[:, :, None].expand(1, 30, 3, 4).contiguous(),
+                              c1[:, :, None].expand(1, 30, 3, 4).contiguous(),
+                              chunk=16, bd=8)
+    for got, want in zip(shared, per_head):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_ssd_oracle_matches_jax_oracle():
+    (jx, tx), (ja, ta), (jb, tb), (jc, tc) = _ssd(23, 2, 8, 4, SEED + 120)
+    np.testing.assert_allclose(ref.ssd_scan(tx, ta, tb, tc).numpy(),
+                               np.asarray(jref.ssd_scan(jx, ja, jb, jc)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_keeps_x_type_and_f32_state():
+    (_, tx), (_, ta), (_, tb), (_, tc) = _ssd(9, 2, 8, 4, SEED + 130)
+    y, s = ops.ssd_scan(tx.bfloat16(), ta, tb.bfloat16(), tc.bfloat16())
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: plain version only for CPU tensors, kernel or raise otherwise
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     m0, f0 = matmul_h100.launches, flash_attention_h100.launches
+    s0 = ssd_scan_h100.launches
     a = torch.ones(4, 8)
     assert torch.equal(matmul_h100(a, a.T.contiguous(), bm=4, bn=32, bk=16,
                                    s=1),
@@ -168,14 +275,23 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
                                     s=1))
     q = torch.ones(1, 2, 8)
     flash_attention_h100(q, q, q, bq=1, bkv=32)
-    assert (matmul_h100.launches, flash_attention_h100.launches) == (m0, f0)
+    x = torch.ones(1, 3, 2, 8)
+    ssd_scan_h100(x, torch.full((1, 3, 2), 0.5), x[..., :4], x[..., :4],
+                  chunk=16, bd=8)
+    assert (matmul_h100.launches, flash_attention_h100.launches,
+            ssd_scan_h100.launches) == (m0, f0, s0)
 
 
 def test_kernel_path_refuses_cpu_tensors():
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import matmul as mm_mod
+    from repro_torch.kernels import ssd_scan as ssd_mod
     a = torch.ones(4, 8)
     with pytest.raises(ValueError):
         mm_mod._launch(a, a.T, bm=4, bn=32, bk=16, s=1, cached=True)
     with pytest.raises(ValueError):
         fa_mod._launch(a[None], a[None], a[None], bq=1, bkv=32)
+    x = torch.ones(1, 3, 2, 8)
+    with pytest.raises(ValueError):
+        ssd_mod._launch(x, torch.full((1, 3, 2), 0.5), x[..., :4],
+                        x[..., :4], chunk=16, bd=8)

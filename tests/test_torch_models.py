@@ -1,10 +1,13 @@
-"""The port's llama3 model against the JAX model on the CPU, f32 smoke size.
+"""The port's models against the JAX models on the CPU, f32 smoke size:
+llama3 (``attn_mlp``), mamba2 (``ssm``) and hymba (``hybrid``).
 
 Weights come from ``repro.models.init_model``, pass through numpy into
 ``repro_torch.convert.from_jax_params``; tokens are drawn with numpy.  The
-port routes projections through K1 and attention through K2 (their plain
-versions on the CPU); the JAX model is einsum math (ROADMAP F3).
-Tolerance 1e-4: the same f32 math summed in another order.
+port routes projections through K1, attention through K2 and the SSD core
+through K3 (their plain versions on the CPU); the JAX model is einsum math
+(ROADMAP F3).  Tolerance 1e-4: the same f32 math summed in another order
+(the SSD scan also in other chunks: the port takes the tree's chunk, the
+JAX layer the config's).
 """
 import dataclasses
 
@@ -119,3 +122,149 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         tm.init_model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         tm.init_paged_cache(cfg, 3, 4, 1)
+
+
+# ---------------------------------------------------------------------------
+# SSM (mamba2) and hybrid (hymba)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["mamba2_130m", "hymba_1p5b"]
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_configs_equal_jax_configs(arch, which):
+    get = "get_config" if which == "CONFIG" else "get_smoke_config"
+    j = getattr(jconfigs, get)(arch)
+    t = getattr(tconfigs, get)(arch.replace("_", "-").replace("1p5", "1.5"))
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert t.param_count() == j.param_count()
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_model(request):
+    cfg = jconfigs.get_smoke_config(request.param).scaled(dtype="float32")
+    jparams, _ = jm.init_model(jax.random.PRNGKey(4), cfg)
+    tcfg = tconfigs.get_smoke_config(request.param).scaled(dtype="float32")
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return cfg, jparams, tcfg, tparams
+
+
+def test_ssm_forward_logits_match(ssm_model):
+    cfg, jp, tcfg, tp = ssm_model
+    toks = np.random.default_rng(7).integers(0, cfg.vocab, (2, 37))
+    want, _ = jm.forward(jp, cfg, jnp.asarray(toks, jnp.int32))
+    got, _ = tm.forward(tp, tcfg, toks)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ssm_decay_projection_stays_f32():
+    """``wa`` is f32 in a bf16 model, from JAX weights and from init."""
+    cfg = jconfigs.get_smoke_config("mamba2_130m")
+    jparams, _ = jm.init_model(jax.random.PRNGKey(5), cfg)
+    tcfg = tconfigs.get_smoke_config("mamba2_130m")
+    conv = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                           device="cpu")
+    init = tm.init_model(tcfg, seed=1, device="cpu")
+    for p in (conv, init):
+        assert p["layers"][0]["ssm"]["wa"].dtype == torch.float32
+        assert p["layers"][0]["ssm"]["wx"].dtype == torch.bfloat16
+        assert p["layers"][0]["ssm"]["a_bias"].dtype == torch.float32
+
+
+def _jax_cache_np(c):
+    return {k: np.asarray(v) for k, v in c.items()}
+
+
+def test_ssm_paged_prefill_then_decode_match(ssm_model):
+    """Chunked paged prefill of two sequences into slots 0 and 1, then
+    decode steps, against the JAX functions: logits, k/v pool and SSM
+    state."""
+    cfg, jp, tcfg, tp = ssm_model
+    ps = 4
+    jc = jm.init_paged_cache(cfg, 9, ps, 2, dtype=jnp.float32)
+    tc = tm.init_paged_cache(tcfg, 9, ps, 2, dtype=torch.float32,
+                             device="cpu")
+    assert set(tc) == set(jc)
+    rng = np.random.default_rng(8)
+    tables = np.array([[1, 2, 0, 0], [3, 4, 5, 0]], np.int32)
+    prompts = [rng.integers(0, cfg.vocab, 7), rng.integers(0, cfg.vocab, 9)]
+    for row, start, n in [(0, 0, 4), (1, 0, 8), (0, 4, 3), (1, 8, 1)]:
+        toks = prompts[row][None, start:start + n].astype(np.int32)
+        bt = tables[row][None]
+        jl, jc = jm.paged_prefill_chunk(jp, cfg, jnp.asarray(toks), jc,
+                                        jnp.int32(start), jnp.asarray(bt),
+                                        jnp.int32(row))
+        tl, tc = tm.paged_prefill_chunk(tp, tcfg, toks, tc, start, bt, row)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    for k, v in _jax_cache_np(jc).items():
+        np.testing.assert_allclose(tc[k].numpy(), v, **TOL)
+    idx = np.array([7, 9], np.int32)
+    last = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+    for _ in range(3):
+        jl, jc = jm.paged_decode_step(jp, cfg, jnp.asarray(last), jc,
+                                      jnp.asarray(idx), jnp.asarray(tables))
+        tl, tc = tm.paged_decode_step(tp, tcfg, last, tc, idx, tables)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        last = np.asarray(jnp.argmax(jl, -1), np.int32)[:, None]
+        idx = idx + 1
+    for k, v in _jax_cache_np(jc).items():
+        np.testing.assert_allclose(tc[k].numpy(), v, **TOL)
+
+
+def _port_chunked(tcfg, tp, prompt, chunks, ps=8):
+    nblk = -(-len(prompt) // ps)
+    cache = tm.init_paged_cache(tcfg, nblk + 1, ps, 1, dtype=torch.float32,
+                                device="cpu")
+    table = np.arange(1, nblk + 1, dtype=np.int32)[None]
+    logits, start = None, 0
+    for n in chunks:
+        logits, cache = tm.paged_prefill_chunk(
+            tp, tcfg, np.asarray(prompt)[None, start:start + n], cache,
+            start, table, 0)
+        start += n
+    return logits[0], cache
+
+
+def test_ssm_chunked_prefill_equals_whole_prompt(ssm_model):
+    """Chunks [8, 4, 1] thread the SSM state exactly: the last logits and
+    the state equal one whole-prompt chunk's, and the JAX whole-prompt
+    prefill's logits (as ``tests/test_chunked_prefill.py`` holds the JAX
+    model)."""
+    cfg, jp, tcfg, tp = ssm_model
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, 13)
+    whole, wc = _port_chunked(tcfg, tp, prompt, [13])
+    chunked, cc = _port_chunked(tcfg, tp, prompt, [8, 4, 1])
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), **TOL)
+    np.testing.assert_allclose(cc["ssm"].numpy(), wc["ssm"].numpy(), **TOL)
+    want, _ = jm.prefill(jp, cfg, jnp.asarray(prompt[None], jnp.int32),
+                         jm.init_cache(cfg, 1, 32, dtype=jnp.float32))
+    np.testing.assert_allclose(chunked.numpy(), np.asarray(want[0]), **TOL)
+
+
+def test_ssm_decode_keeps_state_of_rows_not_decoding(ssm_model):
+    """A row marked inactive keeps its SSM state bit for bit (the JAX
+    ``ssm_mask``); the active row steps as it would alone."""
+    _, _, tcfg, tp = ssm_model
+    tables = np.array([[1, 2], [3, 4]], np.int32)
+    idx = np.array([3, 5], np.int32)
+    toks = np.array([[5], [7]], np.int32)
+    c = tm.init_paged_cache(tcfg, 5, 4, 2, dtype=torch.float32, device="cpu")
+    c["ssm"].copy_(torch.from_numpy(_np_state(c["ssm"].shape)))
+    before = c["ssm"].clone()
+    alone = {k: v[:, :1].clone() if k == "ssm" else v.clone()
+             for k, v in c.items()}
+    l1, c = tm.paged_decode_step(tp, tcfg, toks, c, idx, tables,
+                                 active=np.array([True, False]))
+    l2, alone = tm.paged_decode_step(tp, tcfg, toks[:1], alone, idx[:1],
+                                     tables[:1])
+    assert torch.equal(c["ssm"][:, 1], before[:, 1])
+    assert not torch.equal(c["ssm"][:, 0], before[:, 0])
+    np.testing.assert_allclose(c["ssm"][:, :1].numpy(),
+                               alone["ssm"].numpy(), **TOL)
+    np.testing.assert_allclose(l1[:1].numpy(), l2.numpy(), **TOL)
+
+
+def _np_state(shape):
+    return np.random.default_rng(9).standard_normal(shape).astype(np.float32)

@@ -1,9 +1,10 @@
 """The port's ServeEngine against the JAX ServeEngine on the CPU.
 
-f32 llama3 smoke config, the same weights (JAX init -> numpy -> port), the
-same prompts; ``prefill_chunk`` below some prompt lengths and more requests
-than slots, so chunked prefill, slot reuse and mid-prefill decode all run.
-The greedy tokens must be equal.
+f32 llama3, mamba2 and hymba smoke configs, the same weights (JAX init ->
+numpy -> port), the same prompts; ``prefill_chunk`` below some prompt
+lengths and more requests than slots, so chunked prefill, slot reuse (and
+with it the SSM state reset) and mid-prefill decode all run.  The greedy
+tokens must be equal.
 """
 import jax
 import numpy as np
@@ -143,3 +144,73 @@ def test_launcher_serves_smoke_on_cpu(monkeypatch, capsys, fresh_cache):
     out = capsys.readouterr().out
     assert "3 requests, 6 tokens" in out
     assert "cold dispatch builds during the run: 0" in out
+
+
+# ---------------------------------------------------------------------------
+# SSM (mamba2) and hybrid (hymba)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["mamba2_130m", "hymba_1p5b"])
+def ssm_weights(request):
+    cfg = jconfigs.get_smoke_config(request.param).scaled(dtype="float32")
+    jparams, _ = j_init(jax.random.PRNGKey(13), cfg)
+    tcfg = get_smoke_config(request.param).scaled(dtype="float32")
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return cfg, jparams, tcfg, tparams
+
+
+def test_ssm_engine_tokens_equal_jax_engine(ssm_weights, fresh_cache):
+    """Five requests through three slots: two slots are reused, so a stale
+    SSM state would change the later requests' tokens.  The warmed engine
+    resolves nothing cold during the run."""
+    cfg, jp, tcfg, tp = ssm_weights
+    prompts = _prompts(cfg.vocab)
+    jeng = JEngine(cfg, jp, **ENGINE)
+    jr = [jeng.submit(p, max_new=6) for p in prompts]
+    jdone = {r.rid: r.out for r in jeng.run_until_drained()}
+
+    teng = ServeEngine(tcfg, tp, warm_kernels=True, device="cpu", **ENGINE)
+    cold = fresh_cache.stats.cold_builds
+    tr = [teng.submit(p, max_new=6) for p in prompts]
+    tdone = {r.rid: r.out for r in teng.run_until_drained()}
+    assert fresh_cache.stats.cold_builds == cold
+    assert teng.sched.stats.prefill_chunks > len(prompts)
+    assert [tdone[r] for r in tr] == [jdone[r] for r in jr]
+    assert all(len(tdone[r]) == 6 for r in tr)
+
+
+def test_ssm_traced_warm_set_holds_what_the_engine_dispatches(ssm_weights,
+                                                              fresh_cache):
+    """The trace covers every (family, data) the SSM and hybrid models ask
+    for, the f32 decay projection and the SSD scan included (ROADMAP F5)."""
+    from repro_torch.plans.trace import trace_warm_set
+    _, _, tcfg, tp = ssm_weights
+    eng = ServeEngine(tcfg, tp, device="cpu", **ENGINE)
+    with fresh_cache.record() as rec:
+        for p in _prompts(tcfg.vocab):
+            eng.submit(p, max_new=4)
+        eng.run_until_drained()
+    traced = {(op.family, op.data) for op in trace_warm_set(
+        tcfg, max_len=ENGINE["max_len"], max_batch=ENGINE["max_batch"],
+        prefill_chunk=ENGINE["prefill_chunk"])}
+    seen = {(f, items) for f, _, items in rec.requests}
+    want = {"matmul_h100", "ssd_scan_h100"} | (
+        {"flash_attention_h100"} if tcfg.block == "hybrid" else set())
+    assert {f for f, _ in seen} == want
+    assert ("matmul_h100", (("K", tcfg.d_model), ("M", ENGINE["max_batch"]),
+                            ("N", tcfg.ssm.heads))) in seen
+    assert seen <= traced, seen - traced
+
+
+def test_admission_zeroes_the_slot_state(ssm_weights):
+    """A sequence admitted to a slot starts from a zero SSM state: the same
+    prompt gives the same tokens in a slot another sequence used before."""
+    _, _, tcfg, tp = ssm_weights
+    eng = ServeEngine(tcfg, tp, device="cpu", **dict(ENGINE, max_batch=1))
+    prompt = _prompts(tcfg.vocab)[0]
+    first = eng.submit(prompt, max_new=4)
+    eng.submit(_prompts(tcfg.vocab)[1], max_new=4)
+    again = eng.submit(prompt, max_new=4)
+    out = {r.rid: r.out for r in eng.run_until_drained()}
+    assert out[first] == out[again]
