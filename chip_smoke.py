@@ -7,7 +7,7 @@ Phases print on their own lines; any failure raises and exits non-zero, and
 no phase is caught.
 
 1. device: torch and CUDA versions, the card's name and power limit.
-2. build: ``nvcc`` builds the three kernels (``csrc/*.cu``), one process
+2. build: ``nvcc`` builds the six kernels (``csrc/*.cu``), one process
    each, all started together; the build time.
 3. K1 ``matmul_h100`` against its plain version in bf16, at every matmul
    triple of the full llama3-8b serve path at M = 4 and 32 through the leaf
@@ -22,10 +22,29 @@ no phase is caught.
    the state in, every chunk length 1..256 with the state in, seq 200 (no
    multiple of any chunk) with and without a state, through the leaf the
    dispatch picks; and at five feasible leaves of different (chunk, bd).
-6. serve parity: the llama3, mamba2 and hymba SMOKE configs in f32, each
+6. case studies, the paper's own evaluation through the port's ``ops``
+   (``DispatchCache.warm_callable`` -> the family's tree under ``H100_SXM``
+   -> memoized ``instantiate`` -> the kernel), at the paper's sizes: the
+   four dispatch triples are frozen, every launch counter is set to 0, then
+   ``ops.matadd`` at 8192 x 8192 f32 (Fig. 2), ``ops.transpose`` at 16384
+   x 16384 f32 (Table 3), ``ops.jacobi1d`` at n = 2^15 + 2 (Table 2) and
+   at n = 2^21 + 2 (the largest Jacobi bucket of the JAX artifacts), 4
+   sweeps each.  Each call moves its counter by 1, 1 and 4; no dispatch
+   leaves the frozen lane; each result agrees with the plain version.
+   Then matadd and transpose in bf16 at 8192 x 8192, each family at a
+   ragged shape (300 x 700; n = 1026), and matadd at 1 x 2^25 and
+   transpose at 4 x 2^25, whose picks have more than 65,535 column
+   blocks; and at each of the four sizes up to eight leaves of different
+   formats, each held against the plain version and timed, with the
+   napkin's rank beside the card's: the leaves live under ``H100_SXM``
+   (matadd: grain 2; transpose and Jacobi: cached, case 1, grains 1-8) and
+   the leaves the tree keeps for a smaller machine (matadd's grain-1 case
+   C2 at G = 12; the uncached case 3 of transpose and Jacobi at V = 0),
+   which ``H100_SXM`` never picks.
+7. serve parity: the llama3, mamba2 and hymba SMOKE configs in f32, each
    served on ``cuda`` (the kernels) and on ``cpu`` (their plain versions)
    from the same weights; the greedy tokens are equal.
-7. serve, the main paths, each through ``init_model`` (bf16, random weights
+8. serve, the main paths, each through ``init_model`` (bf16, random weights
    from a seeded ``torch.Generator`` on the card) and
    ``ServeEngine(warm_kernels=True)``, 4 requests of 8 new tokens, every
    launch counter set to 0 just before and read just after each path:
@@ -37,7 +56,7 @@ no phase is caught.
    (K1 and K3; K1, K2 and K3; K1 and K2), the launch counts match the steps
    run, no dispatch resolved cold after warm-up, and a full-width forward
    gives finite logits.
-8. main-path shapes: every launch signature of phase 7 is run again on
+9. main-path shapes: every launch signature of phase 8 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
    kernel, plain version, the library call, and the bound.
 
@@ -47,22 +66,32 @@ fastest): one mean over one batch let a single slow batch set a row.  A
 matmul cycles through copies of its weight operand so that each launch
 reads it from device memory, as the serve path does (attention reads K/V
 and the SSD scan reads x, b, c that the serve path has just written, so
-repeated launches on the same inputs stand for it).  The bound of a launch
+repeated launches on the same inputs stand for it).  A Jacobi sweep is
+timed alone (one launch of ``jacobi1d.sweep``) and cycles through copies of
+its two buffers, 2^15 + 2 and 2^21 + 2 alike, so that each launch reads and
+writes memory the L2 does not hold; matadd and transpose move 0.8 and 2 GB
+a launch, far past the L2.  The bound of a launch
 is max(bytes / 3.35 TB/s, flops / peak), with each input read once and each
 output written once, the flops of the keys the masks leave visible, the
 recurrence's 5·state·hd flops a step and head for the SSD scan, and the
 peak of the H100 SXM data sheet for the arithmetic's type (989 TFLOP/s bf16
 on the tensor cores, 67 TFLOP/s f32; the SSD scan's decay products and
-state are f32).  The library call is a yardstick timed only here:
-``torch.matmul`` (its output is bf16, the kernel's f32) and
-``scaled_dot_product_attention``; no single PyTorch call computes the SSD
-scan, so K3 has none.
+state are f32), a sum or a Jacobi point in f32, a transpose none.  The
+library call is a yardstick timed only here: ``torch.matmul`` (its output
+is bf16, the kernel's f32), ``scaled_dot_product_attention``, ``torch.add``
+for matadd and ``a.t().contiguous()`` for transpose (the plain versions of
+K5 and K4 are those very calls), and for a Jacobi sweep ``avg_pool1d(x, 3,
+stride=1)``, the sweep's interior as a new vector (its largest difference
+from the plain sweep is printed, not held); no single PyTorch call computes
+the SSD scan, so K3 has none.
 
-The line before the last is the kernels' JSON record.  For each kernel
-``launches`` is phase 7's count over the three paths; ``ms``, ``plain_ms``,
-``library_ms`` and ``bound_ms`` are sums over those launches, each timed at
-its own signature in phase 8; ``max_abs_err`` is the largest error against
-the plain version over phases 3-5 and 8.  The last line is the device
+The line before the last is the kernels' JSON record.  For K1-K3
+``launches`` is phase 8's count over the three serve paths; ``ms``,
+``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over those
+launches, each timed at its own signature in phase 9.  For K4-K6 the same
+numbers come from phase 6's case-study path (1, 1 and 8 launches), each
+signature timed in phase 6.  ``max_abs_err`` is the largest error against
+the plain version over phases 3-6 and 9.  The last line is the device
 record.
 
 Tolerances, kernel against plain version on the same inputs:
@@ -77,12 +106,19 @@ Tolerances, kernel against plain version on the same inputs:
   by the same chunk math in another order of sums (at most 256 + state
   terms of O(1)) and with ``expf``/``logf`` against ``torch.exp``/``log``;
   rtol = atol = 1e-2 on the bf16 y, one bf16 step as for attention.
+- matadd and transpose: bit for bit (``torch.equal``): a transpose moves
+  raw bits, and a sum is one f32 add rounded once to the element type on
+  both sides.
+- Jacobi, rtol = atol = 1e-5 (the JAX test's): both add the left pair
+  first and divide by 3 as IEEE says, so the error printed should be 0;
+  the tolerance allows the one-bit roundings of a reciprocal multiply.
 
 TF32 is off for the plain versions (``allow_tf32 = False``), so their f32
 products on the card are full f32.
 """
 from __future__ import annotations
 
+import importlib
 import itertools
 import json
 import math
@@ -103,6 +139,8 @@ MM_TOL = dict(rtol=1e-4, atol=1e-3)
 FA_TOL = dict(rtol=1e-2, atol=1e-2)
 SSD_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 SSD_Y_TOL = dict(rtol=1e-2, atol=1e-2)
+JACOBI_TOL = dict(rtol=1e-5, atol=1e-5)
+JACOBI_STEPS = 4
 BATCHES = 5
 MAX_NEW = 8
 # (arch, engine sizes, prompt lengths [lo, hi)) of the main paths
@@ -121,7 +159,22 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                              "src/repro/kernels/flash_attention.py:75"),
     "ssd_scan_h100": ("src/repro_torch/csrc/ssd_scan.cu",
                       "src/repro/kernels/ssd_scan.py:70"),
+    "transpose_h100": ("src/repro_torch/csrc/transpose.cu",
+                       "src/repro/kernels/transpose.py:46"),
+    "matadd_h100": ("src/repro_torch/csrc/matadd.cu",
+                    "src/repro/kernels/matadd.py:37"),
+    "jacobi1d_h100": ("src/repro_torch/csrc/jacobi1d.cu",
+                      "src/repro/kernels/jacobi1d.py:51"),
 }
+SERVE_KERNELS = ("matmul_h100", "flash_attention_h100", "ssd_scan_h100")
+CASE_KERNELS = ("transpose_h100", "matadd_h100", "jacobi1d_h100")
+#: The case-study path (phase 6): (family, data) at the paper's sizes.
+CASE_PATH = (
+    ("matadd_h100", {"M": 8192, "N": 8192}),             # Fig. 2
+    ("transpose_h100", {"M": 16384, "N": 16384}),        # Table 3
+    ("jacobi1d_h100", {"N": (1 << 15) + 2}),             # Table 2
+    ("jacobi1d_h100", {"N": (1 << 21) + 2}),             # largest bucket
+)
 
 
 def say(*parts) -> None:
@@ -171,12 +224,22 @@ def work(name: str, sig) -> tuple:
     each input read once, each output written once; attention counts the
     query-key pairs its masks leave visible, the SSD scan the recurrence's
     multiply-adds (S = a·S + b⊗x, y = c·S: 5·state·hd flops a step and
-    head) at the f32 rate."""
+    head) at the f32 rate, matadd one f32 add an element, a Jacobi sweep
+    two adds and a division a point, a transpose none."""
     esz = torch.empty((), dtype=sig[-1]).element_size()
     if name == "matmul_h100":
         M, N, K = sig[:3]
         return ((M * K + K * N) * esz + M * N * 4, 2.0 * M * N * K,
                 PEAK_FLOPS[sig[-1]])
+    if name == "matadd_h100":
+        M, N = sig[:2]
+        return 3 * M * N * esz, float(M * N), PEAK_FLOPS[torch.float32]
+    if name == "transpose_h100":
+        M, N = sig[:2]
+        return 2 * M * N * esz, 0.0, PEAK_FLOPS[torch.float32]
+    if name == "jacobi1d_h100":          # one sweep: n read, n - 2 written
+        n = sig[0]
+        return (2 * n - 2) * esz, 3.0 * (n - 2), PEAK_FLOPS[torch.float32]
     if name == "ssd_scan_h100":
         R, S, H, hd, n, _, _, with_state, _ = sig
         state_bytes = 4 * R * H * n * hd
@@ -288,8 +351,84 @@ def ssd_case(sig, gen, *, timed: bool):
     return row
 
 
+def exact(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """0.0; raises unless ``got`` equals ``want`` bit for bit."""
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(
+            got, want):
+        raise AssertionError(f"{name}: not equal to the plain version")
+    return 0.0
+
+
+def _cold_copies(tensors, nbytes: int):
+    """A cycle over copies of ``tensors`` (the originals first), enough
+    that ``L2_FLUSH_BYTES`` lie between two uses of one copy."""
+    n = max(1, math.ceil(L2_FLUSH_BYTES / nbytes))
+    return itertools.cycle([tensors] + [tuple(t.clone() for t in tensors)
+                                        for _ in range(n - 1)])
+
+
+def matadd_case(sig, gen, *, timed: bool):
+    from repro_torch.kernels.matadd import matadd_h100, matadd_plain
+    M, N, bm, bn, s, dtype = sig
+    a = torch.randn((M, N), generator=gen, device=DEV).to(dtype)
+    b = torch.randn((M, N), generator=gen, device=DEV).to(dtype)
+    kw = dict(bm=bm, bn=bn, s=s)
+    got = matadd_h100(a, b, **kw)
+    torch.cuda.synchronize()
+    row = {"err": exact(f"matadd {sig}", got, matadd_plain(a, b, **kw))}
+    if timed:
+        time_into(row, "ms", lambda: matadd_h100(a, b, **kw), 10)
+        time_into(row, "plain_ms", lambda: matadd_plain(a, b, **kw), 10)
+        time_into(row, "library_ms", lambda: torch.add(a, b), 10)
+        row["bound_ms"] = max(bound_terms_ms("matadd_h100", sig))
+    return row
+
+
+def transpose_case(sig, gen, *, timed: bool):
+    from repro_torch.kernels.transpose import transpose_h100, transpose_plain
+    M, N, bm, bn, s, cached, dtype = sig
+    a = torch.randn((M, N), generator=gen, device=DEV).to(dtype)
+    kw = dict(bm=bm, bn=bn, s=s, cached=cached)
+    got = transpose_h100(a, **kw)
+    torch.cuda.synchronize()
+    row = {"err": exact(f"transpose {sig}", got, transpose_plain(a, **kw))}
+    if timed:
+        time_into(row, "ms", lambda: transpose_h100(a, **kw), 10)
+        time_into(row, "plain_ms", lambda: transpose_plain(a, **kw), 10)
+        time_into(row, "library_ms", lambda: a.t().contiguous(), 10)
+        row["bound_ms"] = max(bound_terms_ms("transpose_h100", sig))
+    return row
+
+
+def jacobi_case(sig, gen, *, timed: bool):
+    """K6 at (n, B, s, cached, dtype): ``JACOBI_STEPS`` sweeps against the
+    plain version; timed a sweep (one launch) at a time."""
+    from repro_torch.kernels.jacobi1d import (jacobi1d_h100, jacobi1d_plain,
+                                              sweep)
+    n, B, s, cached, _ = sig
+    x = torch.randn((n,), generator=gen, device=DEV)
+    kw = dict(B=B, s=s, cached=cached)
+    got = jacobi1d_h100(x, JACOBI_STEPS, **kw)
+    torch.cuda.synchronize()
+    row = {"err": held(f"jacobi {sig}", got,
+                       jacobi1d_plain(x, JACOBI_STEPS, **kw), JACOBI_TOL)}
+    if timed:
+        bufs = _cold_copies((x, x.clone()), 8 * n)
+        time_into(row, "ms", lambda: sweep(*next(bufs), **kw), 10)
+        time_into(row, "plain_ms",
+                  lambda: jacobi1d_plain(next(bufs)[0], 1, **kw), 10)
+        time_into(row, "library_ms", lambda: F.avg_pool1d(
+            next(bufs)[0].view(1, 1, -1), 3, 1), 10)
+        one = jacobi1d_plain(x, 1, **kw)[1:-1]
+        row["library_err"] = float(
+            (F.avg_pool1d(x.view(1, 1, -1), 3, 1).view(-1) - one).abs().max())
+        row["bound_ms"] = max(bound_terms_ms("jacobi1d_h100", sig))
+    return row
+
+
 CASES = {"matmul_h100": matmul_case, "flash_attention_h100": flash_case,
-         "ssd_scan_h100": ssd_case}
+         "ssd_scan_h100": ssd_case, "transpose_h100": transpose_case,
+         "matadd_h100": matadd_case, "jacobi1d_h100": jacobi_case}
 
 
 def fmt(row) -> str:
@@ -299,6 +438,8 @@ def fmt(row) -> str:
             out += f" {key} {row[key]:.4f}"
             if key + "_spread" in row:
                 out += f" (spread {row[key + '_spread']:.4f})"
+    if "library_err" in row:
+        out += f" library_err {row['library_err']:.3e}"
     return out
 
 
@@ -422,6 +563,209 @@ def phase_k3(gen) -> float:
     return err
 
 
+def _format(family, cand) -> tuple:
+    """The launch format of a candidate: its program parameters with the
+    grain the kernel runs, and whether it stages in shared memory."""
+    from repro_torch.kernels.instantiate_cache import grain
+    a, plan = cand.assignment, cand.plan
+    if family.name == "matadd_h100":
+        return a["bm"], a["bn"], a["s"], True
+    cached = bool(plan.flags["smem_cache"])
+    if family.name == "transpose_h100":
+        return a["bm"], a["bn"], grain(plan, a["s"]), cached
+    return a["B"], grain(plan, a["s"]), cached
+
+
+def _feasible_formats(family, machine, data) -> dict:
+    """{launch format: its best-scored candidate} over the tree's feasible
+    candidates for ``machine`` and ``data``."""
+    from repro_torch.core.select import rank_candidates
+    out = {}
+    for cand in rank_candidates(family, machine, data, max_per_leaf=4096):
+        out.setdefault(_format(family, cand), cand)
+    return out
+
+
+#: Leaves timed at each size of the case-study path (phase 6), as launch
+#: formats: (bm, bn, grain, cached) for matadd and transpose, (B, grain,
+#: cached) for Jacobi.  The H100_SXM pick is timed first, then these
+#: formats feasible under H100_SXM, then those of the leaves only a
+#: smaller machine keeps (matadd's grain-1 case C2 at G = 12, the uncached
+#: case 3 at V = 0), which H100_SXM never picks.
+CASE_LEAVES = {
+    "matadd_h100": (
+        [(1, 32, 2, True), (4, 64, 2, True), (8, 128, 2, True),
+         (32, 32, 2, True), (1, 1024, 2, True)],
+        ("G = 12", dict(vreg_budget=12),
+         [(1, 256, 1, True), (32, 32, 1, True)])),
+    "transpose_h100": (
+        [(32, 32, 1, True), (32, 32, 4, True), (32, 32, 8, True),
+         (8, 128, 2, True), (16, 64, 1, True), (1, 1024, 1, True)],
+        ("V = 0", dict(vmem_bytes=0),
+         [(32, 32, 1, False), (1, 1024, 1, False)])),
+    "jacobi1d_h100": (
+        [(32, 1, True), (128, 2, True), (256, 4, True), (1024, 8, True),
+         (512, 1, True)],
+        ("V = 0", dict(vmem_bytes=0), [(256, 1, False)])),
+}
+
+
+def _sig(name, data, form, dtype) -> tuple:
+    """The launch signature (the wrapper's ``shapes`` key) of the launch
+    format ``form``."""
+    if name == "jacobi1d_h100":
+        return (data["N"], *form, dtype)
+    if name == "matadd_h100":
+        return (data["M"], data["N"], *form[:3], dtype)
+    return (data["M"], data["N"], *form, dtype)
+
+
+def case_leaf_rows(name, data, gen) -> dict:
+    """Time up to eight leaves of different launch formats at one size of
+    the case-study path; print each beside the napkin's and the card's
+    rank.  Returns {signature: row}."""
+    import dataclasses
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.kernels import ops
+    family = ops.FAMILIES[name]
+    live, (label, change, small) = CASE_LEAVES[name]
+    picks = _feasible_formats(family, H100_SXM, data)
+    pick = _format(family, ops.select(name, data))
+    runs = [(pick, picks[pick], "H100_SXM pick")]
+    runs += [(f, picks.get(f), "live under H100_SXM") for f in live
+             if f != pick]
+    others = _feasible_formats(family, dataclasses.replace(H100_SXM,
+                                                           **change), data)
+    runs += [(f, others.get(f), f"live only at {label}") for f in small]
+    rows = {}
+    for form, cand, why in runs:
+        if cand is None:
+            raise AssertionError(f"{name} {form} is no feasible leaf at "
+                                 f"{data} ({why})")
+        sig = _sig(name, data, form, torch.float32)
+        rows[sig] = dict(CASES[name](sig, gen, timed=True),
+                         score=cand.score, why=why)
+    by_score = sorted(rows, key=lambda k: -rows[k]["score"])
+    by_ms = sorted(rows, key=lambda k: rows[k]["ms"])
+    for sig, row in rows.items():
+        say(f"[cases] leaf {name} {sig[:-1]} ({row['why']}): {fmt(row)}; "
+            f"napkin score {row['score']:.4g} rank "
+            f"{by_score.index(sig) + 1}, card rank {by_ms.index(sig) + 1} "
+            f"of {len(rows)}")
+    return rows
+
+
+def _counters(names) -> dict:
+    """{name: the kernel's public wrapper, which carries its launch
+    counter}, each from the module named after its CUDA source."""
+    return {n: getattr(importlib.import_module(
+        "repro_torch.kernels." + Path(KERNELS[n][0]).stem), n) for n in names}
+
+
+def phase_cases(gen) -> dict:
+    """The case-study path at the paper's sizes (phase 6); returns each
+    kernel's launches and launch shapes on the path, the rows timed at
+    those shapes and the largest error of each kernel."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.jacobi1d import jacobi1d_plain
+    from repro_torch.kernels.matadd import matadd_plain
+    from repro_torch.kernels.transpose import transpose_plain
+    t0 = time.perf_counter()
+    cache = get_default_cache()
+    cache.freeze([(ops.FAMILIES[f], H100_SXM, d) for f, d in CASE_PATH])
+    stats = cache.stats
+    resolved0 = (stats.cold_builds, stats.memory_hits)
+    (_, add_d), (_, tr_d) = CASE_PATH[:2]
+    a = torch.randn(add_d["M"], add_d["N"], generator=gen, device=DEV)
+    b = torch.randn(add_d["M"], add_d["N"], generator=gen, device=DEV)
+    t = torch.randn(tr_d["M"], tr_d["N"], generator=gen, device=DEV)
+    xs = [torch.randn((d["N"],), generator=gen, device=DEV)
+          for _, d in CASE_PATH[2:]]
+
+    kernels = _counters(CASE_KERNELS)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+        k.shapes.clear()
+
+    def counted(name, want, fn):
+        n0 = kernels[name].launches
+        out = fn()
+        if kernels[name].launches - n0 != want:
+            raise AssertionError(f"{name}: {kernels[name].launches - n0} "
+                                 f"launches, want {want}")
+        return out
+
+    add = counted("matadd_h100", 1, lambda: ops.matadd(a, b))
+    tr = counted("transpose_h100", 1, lambda: ops.transpose(t))
+    jac = [counted("jacobi1d_h100", JACOBI_STEPS,
+                   lambda x=x: ops.jacobi1d(x, JACOBI_STEPS)) for x in xs]
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    shapes = {n: dict(k.shapes) for n, k in kernels.items()}
+    wall = time.perf_counter() - t0
+    resolved = (stats.cold_builds - resolved0[0],
+                stats.memory_hits - resolved0[1])
+    say(f"[cases] path: matadd {tuple(a.shape)}, transpose "
+        f"{tuple(t.shape)}, jacobi n {[x.numel() for x in xs]} x "
+        f"{JACOBI_STEPS} sweeps; launches {json.dumps(launches)}; "
+        f"dispatches outside the frozen lane (cold, LRU): {resolved}")
+    if any(resolved):
+        raise AssertionError(f"{resolved} dispatches left the frozen lane")
+    errs = {"matadd_h100": exact("ops.matadd", add, a + b),
+            "transpose_h100": exact("ops.transpose", tr,
+                                    t.t().contiguous())}
+    errs["jacobi1d_h100"] = max(
+        held(f"ops.jacobi1d n {x.numel()}", y,
+             jacobi1d_plain(x, JACOBI_STEPS, B=32, s=1), JACOBI_TOL)
+        for x, y in zip(xs, jac))
+    say(f"[cases] path agrees with the plain versions: matadd and "
+        f"transpose bit for bit, jacobi max_abs_err "
+        f"{errs['jacobi1d_h100']:.3e}")
+    del add, tr, jac
+
+    # bf16 at 8192² and ragged shapes, through the same ops
+    ab = a.bfloat16()
+    tb = t[:add_d["M"], :add_d["N"]].contiguous().bfloat16()
+    exact("ops.matadd bf16", ops.matadd(ab, ab.flip(0)), ab + ab.flip(0))
+    exact("ops.transpose bf16", ops.transpose(tb), tb.t().contiguous())
+    r = a[:300, :700].contiguous()
+    exact("ops.matadd 300x700", ops.matadd(r, r.flip(1)), r + r.flip(1))
+    exact("ops.transpose 300x700", ops.transpose(r), r.t().contiguous())
+    x = xs[0][:1026].contiguous()
+    errs["jacobi1d_h100"] = max(errs["jacobi1d_h100"], held(
+        "ops.jacobi1d n 1026", ops.jacobi1d(x, JACOBI_STEPS),
+        jacobi1d_plain(x, JACOBI_STEPS, B=32, s=1), JACOBI_TOL))
+    # thin operands whose picks have more than 65,535 column blocks
+    w = torch.randn((1 << 25,), generator=gen, device=DEV)
+    exact("ops.matadd 1x2^25", ops.matadd(w[None], w.flip(0)[None]),
+          w[None] + w.flip(0)[None])
+    w = w.repeat(4).view(4, 1 << 25)
+    exact("ops.transpose 4x2^25", ops.transpose(w), w.t().contiguous())
+    del w
+    say(f"[cases] bf16 matadd and transpose at {tuple(ab.shape)}, f32 at "
+        f"{tuple(r.shape)} and n {x.numel()}, matadd at (1, 2^25) and "
+        f"transpose at (4, 2^25): agree")
+    del a, b, t, xs, ab, tb
+    torch.cuda.empty_cache()
+
+    rows = {name: {} for name in kernels}
+    for name, data in CASE_PATH:
+        rows[name].update(case_leaf_rows(name, data, gen))
+    for name, by_sig in shapes.items():
+        for sig in by_sig:
+            if sig not in rows[name]:          # the pick, timed above
+                raise AssertionError(f"{name} {sig} was not timed")
+            errs[name] = max(errs[name], rows[name][sig]["err"])
+    torch.cuda.empty_cache()
+    say(f"[cases] phase {time.perf_counter() - t0:.1f} s (the path itself "
+        f"{1e3 * wall:.1f} ms)")
+    return {"launches": launches, "shapes": shapes, "rows": rows,
+            "errs": errs}
+
+
 def _serve(cfg, params, prompts, device, **kw):
     from repro_torch.runtime import ServeEngine
     eng = ServeEngine(cfg, params, device=device, **kw)
@@ -461,14 +805,6 @@ def phase_parity() -> None:
                                  "versions on cpu")
 
 
-def _counters():
-    from repro_torch.kernels.flash_attention import flash_attention_h100
-    from repro_torch.kernels.matmul import matmul_h100
-    from repro_torch.kernels.ssd_scan import ssd_scan_h100
-    return {k.__name__: k for k in (matmul_h100, flash_attention_h100,
-                                    ssd_scan_h100)}
-
-
 def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
     """One main path: ``arch`` at full width through ServeEngine; returns
     its name, wall time and each kernel's launches and launch shapes."""
@@ -495,7 +831,7 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
     prompts = [rng.integers(0, cfg.vocab, int(n))
                for n in rng.integers(*prompt_lens, 4)]
 
-    kernels = _counters()
+    kernels = _counters(SERVE_KERNELS)
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
@@ -614,14 +950,16 @@ def main() -> int:
     errs = {"matmul_h100": phase_k1(gen),
             "flash_attention_h100": phase_k2(gen),
             "ssd_scan_h100": phase_k3(gen)}
+    cases = phase_cases(gen)
+    errs.update(cases["errs"])
     phase_parity()
-    launches = {name: 0 for name in KERNELS}
-    shapes = {name: {} for name in KERNELS}
+    launches = {name: 0 for name in SERVE_KERNELS}
+    shapes = {name: {} for name in SERVE_KERNELS}
     paths = []
     for arch, serve_kw, prompt_lens in PATHS:
         path = phase_serve(arch, serve_kw, prompt_lens)
         paths.append(path)
-        for name in KERNELS:
+        for name in SERVE_KERNELS:
             launches[name] += path["launches"][name]
             for sig, n in path["shapes"][name].items():
                 shapes[name][sig] = shapes[name].get(sig, 0) + n
@@ -632,6 +970,13 @@ def main() -> int:
             f"{_sums_line(launch_sums(path['shapes'], rows))}")
     totals = launch_sums(shapes, rows)
     say(f"[shapes] all main paths: {_sums_line(totals)}")
+    case_sums = launch_sums(cases["shapes"], cases["rows"])
+    say(f"[cases] kernel time over the case-study path's launches: "
+        f"{_sums_line(case_sums)}")
+    launches.update(cases["launches"])
+    shapes.update(cases["shapes"])
+    rows.update(cases["rows"])
+    totals.update(case_sums)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

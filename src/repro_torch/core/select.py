@@ -95,10 +95,28 @@ class Candidate:
         return f"{self.plan.describe()} @ {{{asg}}} score={self.score:.4g}"
 
 
+def bind(machine: MachineDescription,
+         data: Mapping[str, int]) -> Dict[str, int]:
+    """The machine bindings with the data parameters beside them.
+
+    Raises ``ValueError`` when a data key names a machine symbol: merged
+    over the machine it would silently replace the machine's limit (a
+    Jacobi step count passed as ``"T"`` would become the threads a block).
+    The JAX package merges without this check; its machines bind no ``T``.
+    """
+    machine_values = machine.bindings()
+    clash = sorted(set(data) & set(machine_values))
+    if clash:
+        raise ValueError(
+            f"data keys {clash} name machine symbols of {machine.name} "
+            f"({sorted(machine_values)}); pass only data parameters")
+    return {**machine_values, **{k: int(v) for k, v in data.items()}}
+
+
 def specialize(leaves: Sequence[Leaf], machine: MachineDescription,
                data: Mapping[str, int]) -> List[Tuple[int, Leaf, ConstraintSystem]]:
     """Bind machine + data parameters; keep not-provably-inconsistent leaves."""
-    binding = {**machine.bindings(), **{k: int(v) for k, v in data.items()}}
+    binding = bind(machine, data)
     kept = []
     for i, leaf in enumerate(leaves):
         C = leaf.constraints.subs(binding)
@@ -273,7 +291,7 @@ def enumerate_candidates(family: FamilySpec,
     t0 = time.perf_counter()
     if use_compiled is None:
         use_compiled = USE_COMPILED
-    binding = {**machine.bindings(), **{k: int(v) for k, v in data.items()}}
+    binding = bind(machine, data)
     if leaves is None:
         leaves = comprehensive_tree(family)
     out: List[Candidate] = []

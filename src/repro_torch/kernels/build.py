@@ -23,7 +23,8 @@ from pathlib import Path
 from typing import Callable, Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("matmul", "flash_attention", "ssd_scan")
+SOURCES = ("matmul", "flash_attention", "ssd_scan", "matadd", "transpose",
+           "jacobi1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

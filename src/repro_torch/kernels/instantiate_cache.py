@@ -16,6 +16,12 @@ so repeated resolutions of the same triple return the *same object*.  The
 JAX package keys the last slot on ``interpret``; here it is the device type
 (``"cuda"``: the hand-written kernel, ``"cpu"``: its plain version).
 
+A family whose program parameter for the grain stays in the domain after
+``reduce_granularity`` (K4, K6: it then stands for the source grain that did
+not fit, and the kernel runs grain 1) names it in ``phantom_grain``; its
+candidates that differ only there are keyed and built once, with the grain
+the kernel runs (:func:`grain`).
+
 Thread notes: reads are lock-free (GIL-atomic ``dict.get``); misses take a
 per-cache lock, double-check, build once, and publish.  Eviction is
 insertion-order (FIFO) at ``maxsize``.  ``hits`` is maintained without the
@@ -31,6 +37,14 @@ from ..core.plan import KernelPlan
 
 InstantiationKey = Tuple[str, Optional[int], Tuple[Tuple[str, Any], ...],
                          Tuple[Tuple[str, int], ...], str]
+
+
+def grain(plan: KernelPlan, s):
+    """The grain the kernel runs: ``s`` at the source, 1 once
+    reduce_granularity applied.  Over ints, or over polynomials for a
+    counter."""
+    return s if plan.flags.get("granularity_level", 0) == 0 else 1
+
 
 def freeze_flags(flags: Mapping[str, Any]) -> Tuple[Tuple[str, Any], ...]:
     """Canonical hashable form of a plan's flag dict."""
@@ -89,6 +103,7 @@ class CachedInstantiationMixin:
     entry point."""
 
     name: str
+    phantom_grain: Optional[str] = None
 
     @property
     def instantiation_cache(self) -> InstantiationCache:
@@ -101,6 +116,9 @@ class CachedInstantiationMixin:
     def instantiate(self, plan: KernelPlan, assignment: Mapping[str, int],
                     device: str = "cuda", *,
                     leaf_index: Optional[int] = None) -> Callable:
+        g = self.phantom_grain
+        if g is not None:
+            assignment = {**assignment, g: grain(plan, assignment[g])}
         key = instantiation_key(self.name, plan, assignment, device,
                                 leaf_index)
         return self.instantiation_cache.get_or_build(

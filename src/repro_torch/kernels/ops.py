@@ -20,10 +20,14 @@ from ..artifacts.dispatch import get_default_cache
 from ..core.params import H100_SXM, MachineDescription
 from ..core.select import Candidate
 from .flash_attention import FAMILY as FLASH_FAMILY
+from .jacobi1d import FAMILY as JACOBI_FAMILY
+from .matadd import FAMILY as MATADD_FAMILY
 from .matmul import FAMILY as MATMUL_FAMILY
 from .ssd_scan import FAMILY as SSD_FAMILY
+from .transpose import FAMILY as TRANSPOSE_FAMILY
 
-FAMILIES = {f.name: f for f in (MATMUL_FAMILY, FLASH_FAMILY, SSD_FAMILY)}
+FAMILIES = {f.name: f for f in (MATMUL_FAMILY, MATADD_FAMILY, JACOBI_FAMILY,
+                                TRANSPOSE_FAMILY, FLASH_FAMILY, SSD_FAMILY)}
 
 
 def select(family_name: str, data: Mapping[str, int],
@@ -41,6 +45,34 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     fn = get_default_cache().warm_callable(
         MATMUL_FAMILY, machine, (("M", M), ("N", N), ("K", K)), a.device.type)
     return fn(a, b)
+
+
+def matadd(a: torch.Tensor, b: torch.Tensor, *,
+           machine: MachineDescription = H100_SXM) -> torch.Tensor:
+    """C = A + B over [M, N], f32 or bf16 (K5)."""
+    M, N = a.shape
+    fn = get_default_cache().warm_callable(
+        MATADD_FAMILY, machine, (("M", M), ("N", N)), a.device.type)
+    return fn(a, b)
+
+
+def jacobi1d(x: torch.Tensor, steps: int, *,
+             machine: MachineDescription = H100_SXM) -> torch.Tensor:
+    """``steps`` sweeps of the 1D Jacobi stencil over the f32 vector x, ends
+    fixed (K6), keyed on N alone as the JAX op is."""
+    (n,) = x.shape
+    fn = get_default_cache().warm_callable(
+        JACOBI_FAMILY, machine, (("N", n),), x.device.type)
+    return fn(x, steps)
+
+
+def transpose(a: torch.Tensor, *,
+              machine: MachineDescription = H100_SXM) -> torch.Tensor:
+    """B = Aᵀ as a new [N, M] tensor, bit-exact (K4)."""
+    M, N = a.shape
+    fn = get_default_cache().warm_callable(
+        TRANSPOSE_FAMILY, machine, (("M", M), ("N", N)), a.device.type)
+    return fn(a)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

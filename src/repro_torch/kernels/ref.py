@@ -1,9 +1,8 @@
 """PyTorch oracles for the port's kernel families.
 
 The semantic ground truth the kernels and their plain versions are held
-against (code soundness, paper Def. 2 ii): ports of ``matmul``,
-``flash_attention`` and ``ssd_scan`` in the JAX package's
-``kernels/ref.py``, held against those on the CPU by
+against (code soundness, paper Def. 2 ii): ports of the six oracles in the
+JAX package's ``kernels/ref.py``, held against those on the CPU by
 ``tests/test_torch_kernels.py``.
 """
 from __future__ import annotations
@@ -18,6 +17,33 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """C = A @ B with f32 accumulation (paper Fig. 3/4)."""
     return (a.float() @ b.float()).to(out_dtype)
+
+
+def matadd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A + B (paper Fig. 1/2)."""
+    return a + b
+
+
+def jacobi1d(a: torch.Tensor, steps: int) -> torch.Tensor:
+    """1D Jacobi with fixed boundary (paper Fig. 7).
+
+    ``a`` has length n; interior points are averaged over the 3-stencil for
+    ``steps`` time iterations; boundary values stay fixed.  The left sum
+    comes first, then a true division by 3, as in the JAX oracle.  The 3 is
+    a tensor on a's device: PyTorch's CUDA kernel for a division by a
+    Python or CPU scalar multiplies by its reciprocal, which can round one
+    bit apart from the IEEE division."""
+    three = torch.tensor(3.0, dtype=a.dtype, device=a.device)
+    for _ in range(steps):
+        nxt = a.clone()
+        nxt[1:-1] = (a[:-2] + a[1:-1] + a[2:]) / three
+        a = nxt
+    return a
+
+
+def transpose(a: torch.Tensor) -> torch.Tensor:
+    """B = A^T (paper Fig. 8)."""
+    return a.t()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,6 +1,9 @@
-"""The port's copy of the symbolic core is the JAX package's core, and the
-port's three families build non-trivial trees that resolve the whole serve
-warm sets of llama3-8b, mamba2-130m and hymba-1.5b on an H100."""
+"""The port's copy of the symbolic core is the JAX package's core, the
+port's families build non-trivial trees that resolve the whole serve warm
+sets of llama3-8b, mamba2-130m and hymba-1.5b on an H100, and the case-study
+families show the paper's case discussions in the port's symbols."""
+import dataclasses
+
 import pytest
 
 import repro.core as jcore
@@ -9,11 +12,18 @@ from repro.core.comprehensive import comprehensive_optimization as j_opt
 from repro_torch.artifacts.dispatch import DispatchCache
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.comprehensive import comprehensive_optimization as t_opt
+from repro_torch.core.constraints import Verdict
+from repro_torch.kernels import jacobi1d as jacobi_mod
+from repro_torch.kernels import transpose as transpose_mod
 from repro_torch.kernels.flash_attention import FAMILY as FLASH
+from repro_torch.kernels.instantiate_cache import grain
+from repro_torch.kernels.jacobi1d import FAMILY as JACOBI
+from repro_torch.kernels.matadd import FAMILY as MATADD
 from repro_torch.kernels.matmul import FAMILY as MATMUL
 from repro_torch.kernels.ops import FAMILIES
 from repro_torch.kernels.ssd_scan import FAMILY as SSD
 from repro_torch.kernels.ssd_scan import smem_bytes
+from repro_torch.kernels.transpose import FAMILY as TRANSPOSE
 from repro_torch.plans.trace import chunk_lengths, trace_warm_set
 
 
@@ -97,8 +107,8 @@ def test_h100_machine_binds_the_papers_gpu_limits():
         assert {k: tb[k] for k in jb} == jb
 
 
-@pytest.mark.parametrize("family", [MATMUL, FLASH, SSD],
-                         ids=lambda f: f.name)
+@pytest.mark.parametrize("family", [MATMUL, FLASH, SSD, MATADD, TRANSPOSE,
+                                    JACOBI], ids=lambda f: f.name)
 def test_port_trees_are_non_trivial(family):
     leaves = tcore.comprehensive_tree(family)
     assert len(leaves) > 1
@@ -202,3 +212,135 @@ def test_ssd_shared_memory_cuts_the_domain():
     assert got == want
     assert (128, 32) in got and (128, 64) not in got
     assert not any(c == 256 for c, _ in got)
+
+
+# ---------------------------------------------------------------------------
+# The paper's case studies (K4-K6) and the F6 repair
+# ---------------------------------------------------------------------------
+
+def _live(family, machine, data, point):
+    """The indices of the leaves whose constraint systems the machine, the
+    data and the program point leave consistent."""
+    binding = {**machine.bindings(), **data, **point}
+    return {i for i, leaf in enumerate(tcore.comprehensive_tree(family))
+            if leaf.constraints.subs(binding).check()
+            is not Verdict.INCONSISTENT}
+
+
+def _kinds(family, idx):
+    """(cached, grain reduced) of each leaf in ``idx``."""
+    leaves = tcore.comprehensive_tree(family)
+    return {(leaves[i].plan.flags["smem_cache"],
+             leaves[i].plan.flags["granularity_level"] == 1) for i in idx}
+
+
+@pytest.mark.parametrize("case", ["matadd_G", "transpose_V", "jacobi_V"])
+def test_case_discussions_of_the_paper(case):
+    """matadd: two cases on R = G (grain 2 at the estimate 14, grain 1 at
+    10 <= G < 14; paper Fig. 2).  transpose and jacobi: for one program
+    point, three values of Z_B = V leave live in turn cached grain s, cached
+    grain 1 but not grain s, and uncached only (paper Figs. 7 and 8)."""
+    from repro_torch.core.select import enumerate_candidates
+    if case == "matadd_G":
+        data = {"M": 1024, "N": 1024}
+        for G, grains in ((12, {1}), (14, {2}), (255, {2})):
+            machine = dataclasses.replace(tcore.H100_SXM, vreg_budget=G)
+            got = enumerate_candidates(MATADD, machine, data)
+            assert got and {c.assignment["s"] for c in got} == grains, G
+        return
+    if case == "transpose_V":
+        family, point, data = TRANSPOSE, {"bm": 32, "bn": 32, "s": 4}, \
+            {"M": 16384, "N": 16384}
+        z = lambda g: transpose_mod.smem_bytes(32, 32, g)
+    else:
+        family, point, data = JACOBI, {"B": 256, "s": 4}, {"N": 32770}
+        z = lambda g: jacobi_mod.smem_bytes(256, g)
+    want = {z(4): {(True, False)},              # case 1: grain s fits
+            z(4) - 1: {(True, True)},           # case 2: only grain 1
+            z(1): {(True, True)},
+            z(1) - 1: {(False, True)}}          # case 3: nothing staged
+    for V, kinds in want.items():
+        machine = dataclasses.replace(tcore.H100_SXM, vmem_bytes=V)
+        assert _kinds(family, _live(family, machine, data, point)) == kinds, V
+    # on both real machines a whole tile fits: only case 1 is live
+    for machine in (tcore.H100_SXM, tcore.PAPER_M2050):
+        assert _kinds(family, _live(family, machine, data, point)) == {
+            (True, False)}
+
+
+@pytest.mark.parametrize("family,data", [
+    (MATADD, {"M": 1 << 13, "N": 1 << 13}), (MATADD, {"M": 300, "N": 700}),
+    (TRANSPOSE, {"M": 1 << 14, "N": 1 << 14}),
+    (TRANSPOSE, {"M": 300, "N": 700}), (JACOBI, {"N": (1 << 15) + 2}),
+    (JACOBI, {"N": (1 << 21) + 2}), (JACOBI, {"N": 1026})],
+    ids=lambda v: getattr(v, "name", None) or "-".join(map(str, v.values())))
+def test_table_picks_fit_the_h100(family, data):
+    """Every pick under H100_SXM at the paper's Table sizes (and a ragged
+    shape) has at most 1024 threads a block and stages what fits V."""
+    cand = DispatchCache().best_variant(family, tcore.H100_SXM, data)
+    a, flags = cand.assignment, cand.plan.flags
+    threads = a["B"] if family is JACOBI else a["bm"] * a["bn"]
+    assert threads <= 1024
+    if family is TRANSPOSE and flags["smem_cache"]:
+        g = grain(cand.plan, a["s"])
+        assert transpose_mod.smem_bytes(a["bm"], a["bn"], g) <= 232_448
+    if family is JACOBI and flags["smem_cache"]:
+        g = grain(cand.plan, a["s"])
+        assert jacobi_mod.smem_bytes(a["B"], g) <= 232_448
+
+
+@pytest.mark.parametrize("family,point", [
+    (TRANSPOSE, {"bm": 32, "bn": 32}), (JACOBI, {"B": 256})],
+    ids=lambda v: getattr(v, "name", None) or "point")
+def test_phantom_grain_is_built_once(family, point):
+    """Once reduce_granularity applied, s only names the source grain that
+    did not fit and the kernel runs grain 1: the candidates that differ in
+    s alone are keyed and built once, with s = 1.  At the source plan each
+    s is its own kernel."""
+    leaves = tcore.comprehensive_tree(family)
+    for i, leaf in enumerate(leaves):
+        fns = {family.instantiate(leaf.plan, {**point, "s": s}, "cpu",
+                                  leaf_index=i) for s in (1, 2, 4, 8)}
+        if leaf.plan.flags["granularity_level"]:
+            (fn,) = fns
+            assert fn.keywords["s"] == 1
+        else:
+            assert sorted(f.keywords["s"] for f in fns) == [1, 2, 4, 8]
+
+
+@pytest.mark.parametrize("how", ["select", "best_variant", "rank",
+                                 "cache"])
+def test_data_key_naming_a_machine_symbol_raises(how):
+    """F6: a data key that names a machine symbol ("T", threads a block) is
+    refused by name instead of silently replacing the machine's value; the
+    same data without it picks a leaf."""
+    from repro_torch.core.select import best_variant, rank_candidates
+    from repro_torch.kernels import ops
+    bad, good = {"N": 32770, "T": 4}, {"N": 32770}
+    call = {"select": lambda d: ops.select("jacobi1d_h100", d),
+            "best_variant": lambda d: best_variant(JACOBI, tcore.H100_SXM, d),
+            "rank": lambda d: rank_candidates(JACOBI, tcore.H100_SXM, d)[0],
+            "cache": lambda d: DispatchCache().best_variant(
+                JACOBI, tcore.H100_SXM, d)}[how]
+    with pytest.raises(ValueError, match="'T'"):
+        call(bad)
+    assert call(good).assignment["B"] <= 1024
+    with pytest.raises(ValueError, match="'T'"):
+        best_variant(MATMUL, tcore.H100_SXM,
+                     {"M": 1024, "N": 1024, "K": 1024, "T": 4})
+
+
+def test_case_study_launcher_names_every_family():
+    """``python -m repro_torch.launch.case_study`` runs on the CPU: each of
+    the four families with its case count and a pick under both machines."""
+    from repro_torch.launch import case_study
+    lines = case_study.report()
+    text = "\n".join(lines)
+    for family in (MATADD, MATMUL, JACOBI, TRANSPOSE):
+        n = len(tcore.comprehensive_tree(family))
+        assert f"{family.name}: {n} cases in the comprehensive tree" in text
+        for machine in ("h100_sxm", "paper_m2050"):
+            assert any(l.startswith(f"  {machine} input")
+                       and f"-> {family.name}[" in l for l in lines), \
+                (family.name, machine)
+    assert "Paper Table-1 analogue" in text

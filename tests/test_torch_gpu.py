@@ -2,9 +2,10 @@
 
 These tests need a CUDA device and ``nvcc``: they carry the ``gpu`` marker
 and skip where there is no card.  The file imports nothing of JAX, so it
-runs on a machine that has only PyTorch:
+runs on a machine that has only PyTorch (``--noconftest`` skips
+``tests/conftest.py``, which imports JAX):
 
-    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+    PYTHONPATH=src python -m pytest -q -m gpu --noconftest tests/test_torch_gpu.py
 
 Tolerances, kernel against plain version on the same inputs:
 
@@ -19,16 +20,26 @@ Tolerances, kernel against plain version on the same inputs:
   summed in another order, ``expf``/``logf`` against ``torch.exp``/``log``,
   over sums of up to ``chunk`` terms of O(1)); 1e-2 on a bf16 y, one bf16
   step, as for attention.
+- matadd and transpose: bit for bit (``torch.equal``).  A transpose moves
+  raw bits; a sum is one f32 add rounded once to the element type on both
+  sides.
+- Jacobi: bit for bit.  Both add the left pair first and divide by 3 as
+  IEEE says (the kernel is built without fast math; the plain version
+  divides by a tensor, not by a Python scalar).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import (flash_attention_h100,
                                                  flash_attention_plain)
+from repro_torch.kernels.instantiate_cache import grain
+from repro_torch.kernels.jacobi1d import jacobi1d_h100, jacobi1d_plain
+from repro_torch.kernels.matadd import matadd_h100, matadd_plain
 from repro_torch.kernels.matmul import matmul_h100, matmul_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
+from repro_torch.kernels.transpose import transpose_h100, transpose_plain
 
 
 @pytest.fixture
@@ -135,6 +146,73 @@ def test_gpu_ssd_kernel_per_head_bc_equals_shared(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,bm,bn,s", [
+    (1024, 1024, 1, 256, 2), (300, 700, 1, 256, 2), (300, 700, 32, 32, 1),
+    (37, 1000, 8, 128, 1), (513, 65, 2, 512, 2),
+    (1, 1 << 25, 1, 256, 2)])                  # 65,536 column blocks
+def test_gpu_matadd_kernel_matches_plain(cuda, dtype, M, N, bm, bn, s):
+    a, b = _t((M, N), 12, cuda, dtype), _t((M, N), 13, cuda, dtype)
+    n0 = matadd_h100.launches
+    got = matadd_h100(a, b, bm=bm, bn=bn, s=s)
+    torch.cuda.synchronize()
+    assert matadd_h100.launches == n0 + 1 and got.dtype == dtype
+    assert torch.equal(got, matadd_plain(a, b, bm=bm, bn=bn, s=s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,bm,bn,s,cached", [
+    (1024, 1024, 32, 32, 1, True), (300, 700, 32, 32, 4, True),
+    (300, 700, 8, 128, 2, True), (300, 700, 1, 1024, 8, True),
+    (300, 700, 32, 32, 1, False), (77, 1000, 4, 64, 2, False),
+    (3, (1 << 22) + 5, 8, 32, 1, True), (4, 1 << 22, 8, 32, 1, False)])
+def test_gpu_transpose_kernel_matches_plain(cuda, dtype, M, N, bm, bn, s,
+                                            cached):
+    a = _t((M, N), 14, cuda, dtype)
+    n0 = transpose_h100.launches
+    got = transpose_h100(a, bm=bm, bn=bn, s=s, cached=cached)
+    torch.cuda.synchronize()
+    assert transpose_h100.launches == n0 + 1 and got.shape == (N, M)
+    assert torch.equal(got, transpose_plain(a, bm=bm, bn=bn, s=s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,shape", [("matadd", (1, 1 << 25)),
+                                      ("transpose", (4, 1 << 25))])
+def test_gpu_ops_launch_past_65535_column_blocks(cuda, op, shape):
+    """A thin operand whose pick has more than 65,535 column blocks (the
+    cap of a grid's y count) launches through ``ops``: the entry point
+    then launches once for each 65,535 column blocks."""
+    M, N = shape
+    cand = ops.select(f"{op}_h100", {"M": M, "N": N})
+    a = cand.assignment
+    assert -(-N // (a["bn"] * grain(cand.plan, a["s"]))) > 65535
+    x = _t(shape, 16, cuda)
+    if op == "matadd":
+        got, want = ops.matadd(x, x.flip(1)), x + x.flip(1)
+    else:
+        got, want = ops.transpose(x), x.t().contiguous()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,steps,B,s,cached", [
+    (32770, 4, 256, 1, True), (1026, 3, 128, 4, True), (3, 2, 32, 1, True),
+    (1000, 5, 1024, 8, True), (1026, 3, 64, 1, False),
+    (32770, 2, 128, 2, False), (1026, 0, 256, 1, True)])
+def test_gpu_jacobi_kernel_matches_plain(cuda, n, steps, B, s, cached):
+    x = _t((n,), 15, cuda)
+    n0 = jacobi1d_h100.launches
+    got = jacobi1d_h100(x, steps, B=B, s=s, cached=cached)
+    torch.cuda.synchronize()
+    assert jacobi1d_h100.launches == n0 + steps
+    want = jacobi1d_plain(x, steps, B=B, s=s, cached=cached)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     a = _t((8, 16), 1, cuda)
     with pytest.raises(ValueError):                     # not contiguous
@@ -149,3 +227,16 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
         ssd_scan_h100(x, a.bfloat16(), b, c, chunk=16, bd=16)
     with pytest.raises(RuntimeError):                   # 256² scores > V
         ssd_scan_h100(x, a, b, c, chunk=256, bd=16)
+    m = _t((8, 64), 3, cuda)
+    with pytest.raises(TypeError):                      # mixed types
+        matadd_h100(m, m.bfloat16(), bm=1, bn=32, s=2)
+    with pytest.raises(ValueError):                     # not contiguous
+        matadd_h100(m.T, m.T, bm=1, bn=32, s=2)
+    with pytest.raises(TypeError):                      # 8-byte elements
+        transpose_h100(m.double(), bm=32, bn=32, s=1)
+    with pytest.raises(RuntimeError):                   # 2048 threads > T
+        transpose_h100(m, bm=32, bn=64, s=1)
+    with pytest.raises(TypeError):                      # f32 only
+        jacobi1d_h100(m[0].bfloat16(), 2, B=32, s=1)
+    with pytest.raises(ValueError):                     # not a vector
+        jacobi1d_h100(m, 2, B=32, s=1)

@@ -1,4 +1,4 @@
-"""K1, K2 and K3 of the port against the JAX package, on the CPU.
+"""K1-K6 of the port against the JAX package, on the CPU.
 
 The same inputs, drawn with numpy from a seed, go through the JAX op (its
 Pallas kernel in interpret mode, as ``tests/test_kernels.py`` runs it) and
@@ -14,10 +14,14 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import pallas_flash_attention
+from repro.kernels.jacobi1d import pallas_jacobi1d
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_h100
+from repro_torch.kernels.jacobi1d import jacobi1d_h100, jacobi1d_plain
+from repro_torch.kernels.matadd import matadd_h100, matadd_plain
 from repro_torch.kernels.matmul import matmul_h100, matmul_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
+from repro_torch.kernels.transpose import transpose_h100, transpose_plain
 
 SEED = 20260
 
@@ -262,6 +266,118 @@ def test_ssd_keeps_x_type_and_f32_state():
 
 
 # ---------------------------------------------------------------------------
+# The paper's case studies: K5 matadd_h100, K4 transpose_h100, K6 jacobi1d_h100
+# ---------------------------------------------------------------------------
+
+def _bits(x):
+    """The raw bits of a torch or numpy array of 2- or 4-byte elements, as
+    numpy integers (bit-exact comparison, bf16 included)."""
+    if isinstance(x, torch.Tensor):
+        return x.contiguous().view({2: torch.int16, 4: torch.int32}[
+            x.element_size()]).numpy()
+    x = np.ascontiguousarray(x)
+    return x.view({2: np.int16, 4: np.int32}[x.dtype.itemsize])
+
+
+@pytest.mark.parametrize("name", ["matadd", "transpose_f32",
+                                  "transpose_bf16", "jacobi"])
+def test_case_study_oracle_matches_jax_oracle(name):
+    """The three oracles equal the JAX ones bit for bit; the Jacobi oracle
+    keeps the JAX order (left sum first, then a true division by 3)."""
+    x = _np((37, 53), SEED + 140)
+    y = _np((37, 53), SEED + 141)
+    if name == "matadd":
+        (jx, tx), (jy, ty) = _pair(x, "float32"), _pair(y, "float32")
+        got, want = ref.matadd(tx, ty), jref.matadd(jx, jy)
+    elif name.startswith("transpose"):
+        jx, tx = _pair(x, "bfloat16" if name.endswith("bf16") else "float32")
+        got, want = ref.transpose(tx), jref.transpose(jx)
+    else:
+        jx, tx = _pair(_np((1026,), SEED + 142), "float32")
+        got, want = ref.jacobi1d(tx, 5), jref.jacobi1d(jx, 5)
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(want)))
+
+
+@pytest.mark.parametrize("M,N", [(128, 128), (257, 511), (1024, 256)])
+def test_matadd_matches_jax_pallas(M, N):
+    """The JAX test's shapes, bit for bit."""
+    (ja, ta), (jb, tb) = (_pair(_np((M, N), SEED + 150), "float32"),
+                          _pair(_np((M, N), SEED + 151), "float32"))
+    want = jops.matadd(ja, jb, impl="pallas", interpret=True)
+    got = ops.matadd(ta, tb)
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(want)))
+
+
+@pytest.mark.parametrize("M,N", [(128, 128), (512, 256), (300, 700)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transpose_matches_jax_pallas(M, N, dtype):
+    """The JAX test's shapes and types, bit for bit."""
+    ja, ta = _pair(_np((M, N), SEED + 160), dtype)
+    want = jops.transpose(ja, impl="pallas", interpret=True)
+    got = ops.transpose(ta)
+    assert got.shape == (N, M) and got.dtype == ta.dtype
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(want)))
+
+
+@pytest.mark.parametrize("n,steps", [(1026, 1), (4098, 4), (32770, 2),
+                                     (3, 4), (1026, 0)])
+def test_jacobi_matches_jax_pallas(n, steps):
+    """The JAX test's (n, steps), plus a single interior point and no step,
+    within the JAX test's 1e-5 of the Pallas kernel and equal to the JAX
+    oracle.  The JAX dispatch has no TPU leaf at n = 3, so there the Pallas
+    kernel is called directly."""
+    jx, tx = _pair(_np((n,), SEED + 170 + n), "float32")
+    if n == 3:
+        want = pallas_jacobi1d(jx, steps, B=128, s=1, interpret=True)
+    else:
+        want = jops.jacobi1d(jx, steps, impl="pallas", interpret=True)
+    got = ops.jacobi1d(tx, steps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jref.jacobi1d(jx, steps)))
+
+
+@pytest.mark.parametrize("bm,bn,s", [(1, 32, 2), (4, 256, 2), (32, 32, 1),
+                                     (8, 128, 1), (2, 1024, 2)])
+def test_matadd_every_block_format_same_sum(bm, bn, s):
+    (ja, ta), (jb, tb) = (_pair(_np((45, 301), SEED + 180), "float32"),
+                          _pair(_np((45, 301), SEED + 181), "float32"))
+    got = matadd_h100(ta, tb, bm=bm, bn=bn, s=s)
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(np.asarray(jref.matadd(ja, jb))))
+
+
+@pytest.mark.parametrize("bm,bn,s,cached", [
+    (32, 32, 4, True), (8, 128, 1, True), (1, 1024, 8, True),
+    (32, 32, 1, False), (4, 64, 2, False)])
+def test_transpose_every_block_format_same_result(bm, bn, s, cached):
+    ja, ta = _pair(_np((45, 301), SEED + 190), "bfloat16")
+    got = transpose_h100(ta, bm=bm, bn=bn, s=s, cached=cached)
+    np.testing.assert_array_equal(_bits(got),
+                                  _bits(np.asarray(jref.transpose(ja))))
+
+
+@pytest.mark.parametrize("B,s,cached", [
+    (256, 1, True), (32, 8, True), (1024, 2, True), (64, 1, False),
+    (128, 4, False)])
+def test_jacobi_every_block_format_same_result(B, s, cached):
+    jx, tx = _pair(_np((1000,), SEED + 200), "float32")
+    got = jacobi1d_h100(tx, 3, B=B, s=s, cached=cached)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jref.jacobi1d(jx, 3)))
+
+
+@pytest.mark.parametrize("n", [0, 1, 2])
+def test_jacobi_without_interior_returns_x(n):
+    """n < 3 has no interior point: x comes back, as from the oracle."""
+    x = torch.from_numpy(_np((n,), SEED + 210))
+    got = ops.jacobi1d(x, 3)
+    assert torch.equal(got, x) and got is not x
+    assert torch.equal(ref.jacobi1d(x, 3), x)
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: plain version only for CPU tensors, kernel or raise otherwise
 # ---------------------------------------------------------------------------
 
@@ -278,8 +394,19 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     x = torch.ones(1, 3, 2, 8)
     ssd_scan_h100(x, torch.full((1, 3, 2), 0.5), x[..., :4], x[..., :4],
                   chunk=16, bd=8)
+    c0 = (matadd_h100.launches, transpose_h100.launches,
+          jacobi1d_h100.launches)
+    assert torch.equal(matadd_h100(a, a, bm=1, bn=32, s=2),
+                       matadd_plain(a, a, bm=1, bn=32, s=2))
+    assert torch.equal(transpose_h100(a, bm=32, bn=32, s=1),
+                       transpose_plain(a, bm=32, bn=32, s=1))
+    v = torch.arange(10.0)
+    assert torch.equal(jacobi1d_h100(v, 2, B=32, s=1),
+                       jacobi1d_plain(v, 2, B=32, s=1))
     assert (matmul_h100.launches, flash_attention_h100.launches,
             ssd_scan_h100.launches) == (m0, f0, s0)
+    assert (matadd_h100.launches, transpose_h100.launches,
+            jacobi1d_h100.launches) == c0
 
 
 def test_kernel_path_refuses_cpu_tensors():
@@ -295,3 +422,12 @@ def test_kernel_path_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         ssd_mod._launch(x, torch.full((1, 3, 2), 0.5), x[..., :4],
                         x[..., :4], chunk=16, bd=8)
+    from repro_torch.kernels import jacobi1d as jac_mod
+    from repro_torch.kernels import matadd as add_mod
+    from repro_torch.kernels import transpose as tr_mod
+    with pytest.raises(ValueError):
+        add_mod._launch(a, a, bm=1, bn=32, s=2)
+    with pytest.raises(ValueError):
+        tr_mod._launch(a, bm=32, bn=32, s=1)
+    with pytest.raises(ValueError):
+        jac_mod._launch(torch.ones(10), 2, B=32, s=1)
