@@ -9,11 +9,17 @@ no phase is caught.
 1. device: torch and CUDA versions, the card's name and power limit.
 2. build: ``nvcc`` builds the six kernels (``csrc/*.cu``), one process
    each, all started together; the build time.
-3. K1 ``matmul_h100`` against its plain version in bf16, at every matmul
+3. K1 ``matmul_h100`` against its plain version: in bf16 at every matmul
    triple of the full llama3-8b serve path at M = 4 and 32 through the leaf
-   the dispatch picks, and at six feasible leaves of the tree of different
-   (bm, bn, bk, s, cached) at one shape (the paper's code soundness,
-   Def. 2 ii).
+   the dispatch picks; through the pick at N = 25 in f32 and N = 32001 in
+   bf16 at M = 1 and 4, and with both operands one element past a 16-byte
+   boundary, all of which take the masked loads; five launches of one
+   split-K pick compared bit for bit; and at the six signatures of
+   ``MM_SIGNATURES``, twelve feasible leaves of different (bm, bn, bk, s,
+   kb, stages, cached) each (the pick, the leaves one step from it, the
+   napkin's two worst and its best others), each held against the plain
+   version (the paper's code soundness, Def. 2 ii) and timed, eagerly and
+   as device time, with the napkin's rank beside the card's.
 4. K2 ``flash_attention_h100`` against its plain version in bf16: prefill
    chunk, decode over a ragged cache, non-causal sk = 200, window 128.
 5. K3 ``ssd_scan_h100`` against its plain version in bf16 with an f32
@@ -58,11 +64,17 @@ no phase is caught.
    gives finite logits.
 9. main-path shapes: every launch signature of phase 8 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
-   kernel, plain version, the library call, and the bound.
+   kernel, plain version, the library call, and the bound.  Then K1's host
+   cost a launch: the host clock over 1000 launches at M = 1, N = 32,
+   K = 32 with no synchronise inside the loop, through the wrapper, through
+   ``ops.matmul`` and, beside them, ``torch.matmul``.
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
 fastest): one mean over one batch let a single slow batch set a row.  A
+launch whose host cost exceeds its device time reads its host cost this
+way, so K1 and ``torch.matmul`` also print ``device_ms``: 20 launches
+captured in one CUDA graph, replayed in 5 batches, the median over 20.  A
 matmul cycles through copies of its weight operand so that each launch
 reads it from device memory, as the serve path does (attention reads K/V
 and the SSD scan reads x, b, c that the serve path has just written, so
@@ -85,7 +97,8 @@ stride=1)``, the sweep's interior as a new vector (its largest difference
 from the plain sweep is printed, not held); no single PyTorch call computes
 the SSD scan, so K3 has none.
 
-The line before the last is the kernels' JSON record.  For K1-K3
+The line before the last is the kernels' JSON record (its ``ms`` are the
+eager times above, as in every earlier run).  For K1-K3
 ``launches`` is phase 8's count over the three serve paths; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over those
 launches, each timed at its own signature in phase 9.  For K4-K6 the same
@@ -96,10 +109,13 @@ record.
 
 Tolerances, kernel against plain version on the same inputs:
 
-- matmul (bf16 in, f32 out), rtol 1e-4 / atol 1e-3: a bf16 product is
-  exact in f32, so the two differ only in the order of K f32 additions;
-  with B scaled by 1/sqrt(K), as the model's weights are, outputs are O(1)
-  and K <= 14336 additions drift by at most K * 2^-24 ~ 1e-3.
+- matmul (bf16 or f32 in, f32 out), rtol 1e-4 / atol 1e-3: a bf16 product
+  is exact in f32, so the two differ only in the order of K f32 additions
+  inside a k tile (tensor cores or FMA against cuBLAS); both add the tiles
+  of a split in order and the split-K partials in split order 0..kb-1, so
+  split-K changes only which sums are grouped; with B scaled by
+  1/sqrt(K), as the model's weights are, outputs are O(1) and K <= 14336
+  additions drift by at most K * 2^-24 ~ 1e-3.
 - attention in bf16, rtol = atol = 1e-2: both compute in f32 and round the
   output to bf16 once; the two may round apart by one bf16 step (2^-7).
 - SSD scan: rtol = atol = 1e-3 on the f32 state, which both compute in f32
@@ -205,6 +221,23 @@ def time_into(row: dict, key: str, fn, reps: int) -> None:
     row[key], row[key + "_spread"] = time_ms(fn, reps)
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time a launch: ``reps`` launches captured in one CUDA graph,
+    replayed in ``BATCHES`` CUDA-event batches, the median over ``reps``.
+    The host enqueues one graph, so a launch's host cost drops out."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    ms = time_ms(g.replay, 1)[0] / reps
+    del g
+    return ms
+
+
 def held(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict
          ) -> float:
     """Max |got - want|; raises unless every element is within tol."""
@@ -261,13 +294,19 @@ def bound_terms_ms(name: str, sig) -> tuple:
 # K1, K2 and K3 at one signature: check against plain, time, bound
 # ---------------------------------------------------------------------------
 
-def matmul_case(sig, gen, *, timed: bool):
+def matmul_case(sig, gen, *, timed: bool, leaf_only: bool = False,
+                a=None, b=None):
+    """K1 at (M, N, K, bm, bn, bk, s, kb, stages, cached, dtype), the
+    wrapper's ``shapes`` key, on fresh inputs (or ``a``, ``b``): held
+    against the plain version; timed when ``timed`` (the kernel alone when
+    ``leaf_only``)."""
     from repro_torch.kernels.matmul import matmul_h100, matmul_plain
-    M, N, K, bm, bn, bk, s, cached, dtype = sig
-    a = torch.randn((M, K), generator=gen, device=DEV).to(dtype)
-    b = (torch.randn((K, N), generator=gen, device=DEV)
-         / math.sqrt(K)).to(dtype)
-    kw = dict(bm=bm, bn=bn, bk=bk, s=s, cached=cached)
+    M, N, K, bm, bn, bk, s, kb, stages, cached, dtype = sig
+    if a is None:
+        a = torch.randn((M, K), generator=gen, device=DEV).to(dtype)
+        b = (torch.randn((K, N), generator=gen, device=DEV)
+             / math.sqrt(K)).to(dtype)
+    kw = dict(bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages, cached=cached)
     got = matmul_h100(a, b, **kw)
     torch.cuda.synchronize()
     want = matmul_plain(a, b, **kw)
@@ -278,9 +317,14 @@ def matmul_case(sig, gen, *, timed: bool):
         bs = itertools.cycle([b] + [b.clone() for _ in range(
             math.ceil(L2_FLUSH_BYTES / (b.numel() * b.element_size())) - 1)])
         time_into(row, "ms", lambda: matmul_h100(a, next(bs), **kw), 10)
-        time_into(row, "plain_ms",
-                  lambda: matmul_plain(a, next(bs), **kw), 2)
-        time_into(row, "library_ms", lambda: torch.matmul(a, next(bs)), 10)
+        row["device_ms"] = graph_ms(lambda: matmul_h100(a, next(bs), **kw))
+        if not leaf_only:
+            time_into(row, "plain_ms",
+                      lambda: matmul_plain(a, next(bs), **kw), 2)
+            time_into(row, "library_ms",
+                      lambda: torch.matmul(a, next(bs)), 10)
+            row["library_device_ms"] = graph_ms(
+                lambda: torch.matmul(a, next(bs)))
         row["bound_ms"] = max(bound_terms_ms("matmul_h100", sig))
     return row
 
@@ -433,7 +477,8 @@ CASES = {"matmul_h100": matmul_case, "flash_attention_h100": flash_case,
 
 def fmt(row) -> str:
     out = f"max_abs_err {row['err']:.3e}"
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                "library_device_ms", "bound_ms"):
         if row.get(key) is not None:
             out += f" {key} {row[key]:.4f}"
             if key + "_spread" in row:
@@ -465,12 +510,76 @@ def phase_build() -> None:
         f"{secs:.1f} s")
 
 
+#: The K1 signatures PERF.md follows (M, N, K), bf16: decode and prefill
+#: projections of the three models, each timed at the pick and eleven
+#: other leaves.
+MM_SIGNATURES = (
+    ("llama decode q/o proj", (4, 4096, 4096)),
+    ("llama decode lm_head", (4, 128256, 4096)),
+    ("llama prefill MLP down", (1, 4096, 14336)),
+    ("hymba decode B/C proj", (4, 16, 1600)),
+    ("hymba decode MLP up", (4, 5504, 1600)),
+    ("mamba prefill x proj", (256, 1536, 768)),
+)
+MM_PARAMS = ("bm", "bn", "bk", "s", "kb", "stages")
+
+
+def _mm_sig(data, cand, dtype) -> tuple:
+    """The launch signature of candidate ``cand`` (an uncached leaf runs
+    one stage)."""
+    from repro_torch.kernels.matmul import FAMILY
+    fn = FAMILY.instantiate(cand.plan, cand.assignment, "cuda",
+                            leaf_index=cand.leaf_index)
+    return (data["M"], data["N"], data["K"],
+            *(fn.keywords[n] for n in MM_PARAMS), fn.keywords["cached"],
+            dtype)
+
+
+def _mm_leaves(data, want: int = 12) -> list:
+    """The pick, then the feasible leaves one step from it (kb, stages, bn,
+    bm, s or bk changed), then the napkin's two worst, then its best others:
+    ``want`` candidates of different (bm, bn, bk, s, kb, stages, cached)."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import rank_candidates
+    from repro_torch.kernels.matmul import FAMILY
+    ranked = rank_candidates(FAMILY, H100_SXM, data)
+    key = lambda c: (*(c.assignment[n] for n in MM_PARAMS),
+                     c.plan.flags["smem_cache"])
+    by_key = {}
+    for c in ranked:
+        by_key.setdefault(key(c), c)
+    pick = ranked[0]
+    order = [pick]
+    p = dict(pick.assignment)
+    steps = [("kb", 2), ("kb", 0.5), ("stages", None), ("bn", 2),
+             ("bn", 0.5), ("bm", 2), ("s", None), ("bk", None)]
+    for name, f in steps:
+        near = dict(p)
+        if f is None:
+            dom = sorted({c.assignment[name] for c in ranked})
+            others = [x for x in dom if x != p[name]]
+            if not others:
+                continue
+            near[name] = others[0]
+        else:
+            near[name] = int(p[name] * f)
+        c = by_key.get((*(near[n] for n in MM_PARAMS), True))
+        if c is not None:
+            order.append(c)
+    order += ranked[:-3:-1] + ranked[1:]
+    out, seen = [], set()
+    for c in order:
+        if key(c) not in seen:
+            seen.add(key(c))
+            out.append(c)
+        if len(out) == want:
+            break
+    return out
+
+
 def phase_k1(gen) -> float:
     from repro_torch.configs import get_config
-    from repro_torch.core.params import H100_SXM
-    from repro_torch.core.select import enumerate_candidates
     from repro_torch.kernels import ops
-    from repro_torch.kernels.matmul import FAMILY as MATMUL
     cfg = get_config("llama3_8b")
     d, hd = cfg.d_model, cfg.hd
     err = 0.0
@@ -479,30 +588,88 @@ def phase_k1(gen) -> float:
                    (cfg.d_ff, d), (d, cfg.d_ff), (cfg.vocab, d)]
         for N, K in triples:                  # q and out proj are 4096²
             m = 1 if (N == cfg.vocab and M == 32) else M  # prefill lm_head
-            cand = ops.select("matmul_h100", {"M": m, "N": N, "K": K})
-            a = cand.assignment
-            sig = (m, N, K, a["bm"], a["bn"], a["bk"], a["s"],
-                   bool(cand.plan.flags["smem_cache"]), torch.bfloat16)
-            row = matmul_case(sig, gen, timed=False)
+            data = {"M": m, "N": N, "K": K}
+            cand = ops.select("matmul_h100", data)
+            row = matmul_case(_mm_sig(data, cand, torch.bfloat16), gen,
+                              timed=False)
             err = max(err, row["err"])
-            say(f"[K1] M{m} N{N} K{K} leaf {dict(a)} cached {sig[7]}: "
-                f"{fmt(row)}")
-    data = {"M": 32, "N": 4096, "K": 4096}
-    feasible = {(c.assignment["bm"], c.assignment["bn"], c.assignment["bk"],
-                 c.assignment["s"], bool(c.plan.flags["smem_cache"]))
-                for c in enumerate_candidates(MATMUL, H100_SXM, data,
-                                              max_per_leaf=4096)}
-    for leaf in [(1, 32, 16, 1, True), (4, 64, 32, 2, True),
-                 (2, 256, 128, 2, False), (16, 64, 32, 16, True),
-                 (32, 32, 64, 1, True), (4, 256, 128, 2, False)]:
-        if leaf not in feasible:
-            raise AssertionError(f"{leaf} is no feasible leaf at {data}")
-        bm, bn, bk, s, cached = leaf
-        sig = (32, 4096, 4096, bm, bn, bk, s, cached, torch.bfloat16)
-        row = matmul_case(sig, gen, timed=True)
+            say(f"[K1] M{m} N{N} K{K} leaf {dict(cand.assignment)} cached "
+                f"{cand.plan.flags['smem_cache']}: {fmt(row)}")
+
+    # ragged and misaligned: N = 25 (f32, the decay projection) and N =
+    # 32001 (bf16, hymba's lm_head) take the masked load of B; M = 1; a
+    # storage offset of one element takes the masked load of A and B
+    for (M, N, K), dtype in [((4, 25, 1600), torch.float32),
+                             ((1, 25, 1600), torch.float32),
+                             ((4, 32001, 1600), torch.bfloat16),
+                             ((1, 32001, 1600), torch.bfloat16)]:
+        data = {"M": M, "N": N, "K": K}
+        cand = ops.select("matmul_h100", data)
+        row = matmul_case(_mm_sig(data, cand, dtype), gen, timed=False)
         err = max(err, row["err"])
-        say(f"[K1] leaf bm{bm} bn{bn} bk{bk} s{s} cached {cached} at M32 "
-            f"N4096 K4096: {fmt(row)}")
+        say(f"[K1] ragged {dtype} M{M} N{N} K{K} leaf "
+            f"{dict(cand.assignment)}: {fmt(row)}")
+    for dtype in (torch.float32, torch.bfloat16):
+        M, N, K = 5, 4096, 1000
+        a = torch.randn((M * K + 1,), generator=gen, device=DEV).to(dtype)
+        b = (torch.randn((K * N + 1,), generator=gen, device=DEV)
+             / math.sqrt(K)).to(dtype)
+        a, b = a[1:].view(M, K), b[1:].view(K, N)
+        sig = (M, N, K, 16, 128, 32, 1, 8, 4, True, dtype)
+        row = matmul_case(sig, gen, timed=False, a=a, b=b)
+        err = max(err, row["err"])
+        say(f"[K1] misaligned {dtype} (storage offset 1) {sig[:-1]}: "
+            f"{fmt(row)}")
+
+    # two launches bit for bit, through the split-K combine
+    data = dict(zip("MNK", MM_SIGNATURES[0][1]))
+    cand = ops.select("matmul_h100", data)
+    a = torch.randn((data["M"], data["K"]), generator=gen, device=DEV
+                    ).bfloat16()
+    b = torch.randn((data["K"], data["N"]), generator=gen, device=DEV
+                    ).bfloat16()
+    fn = ops.FAMILIES["matmul_h100"].instantiate(cand.plan, cand.assignment,
+                                                 "cuda")
+    first = fn(a, b)
+    same = all(torch.equal(first, fn(a, b)) for _ in range(4))
+    say(f"[K1] five launches of {dict(cand.assignment)} at {data}: bit for "
+        f"bit equal {same}")
+    if not same:
+        raise AssertionError("K1: two launches on the same inputs differ")
+
+    # leaves of the tree at each signature: napkin rank, card rank
+    for name, (M, N, K) in MM_SIGNATURES:
+        data = {"M": M, "N": N, "K": K}
+        leaves = _mm_leaves(data)
+        if len(leaves) < 8:
+            raise AssertionError(f"{name}: only {len(leaves)} leaves")
+        a = torch.randn((M, K), generator=gen, device=DEV).bfloat16()
+        b = (torch.randn((K, N), generator=gen, device=DEV)
+             / math.sqrt(K)).bfloat16()
+        rows = {}
+        for cand in leaves:
+            sig = _mm_sig(data, cand, torch.bfloat16)
+            rows[sig] = dict(matmul_case(sig, gen, timed=True,
+                                         leaf_only=True, a=a, b=b),
+                             score=cand.score)
+            err = max(err, rows[sig]["err"])
+        del a, b
+        torch.cuda.empty_cache()
+        rank = {key: sorted(rows, key=lambda k: rows[k][key])
+                for key in ("ms", "device_ms")}
+        by_score = sorted(rows, key=lambda k: -rows[k]["score"])
+        for i, (sig, row) in enumerate(rows.items()):
+            leaf = dict(zip(MM_PARAMS + ("cached",), sig[3:10]))
+            say(f"[K1] leaf {name} M{M} N{N} K{K} {leaf}"
+                f"{' (pick)' if i == 0 else ''}: {fmt(row)}; napkin score "
+                f"{row['score']:.4g} rank {by_score.index(sig) + 1}, card "
+                f"rank {rank['ms'].index(sig) + 1} (device "
+                f"{rank['device_ms'].index(sig) + 1}) of {len(rows)}")
+        pick = rows[next(iter(rows))]
+        for key in ("ms", "device_ms"):
+            best = rows[rank[key][0]][key]
+            say(f"[K1] {name}: {key} pick {pick[key]:.4f}, fastest of "
+                f"{len(rows)} leaves {best:.4f} ({pick[key] / best:.2f}x)")
     return err
 
 
@@ -906,16 +1073,53 @@ def phase_shapes(shapes, gen):
     return rows
 
 
+def phase_host_cost(gen) -> None:
+    """Host clock over 1000 launches at M = 1, N = 32, K = 32 with no
+    synchronise inside the loop: what a launch costs the host through the
+    wrapper, through ``ops.matmul`` (dispatch and wrapper) and, beside
+    them, ``torch.matmul``; then two parts of the wrapper alone, the C
+    entry point (checks and the launch) and the output's ``torch.empty``."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops
+    a = torch.randn((1, 32), generator=gen, device=DEV).bfloat16()
+    b = torch.randn((32, 32), generator=gen, device=DEV).bfloat16()
+    cand = ops.select("matmul_h100", {"M": 1, "N": 32, "K": 32})
+    fn = ops.FAMILIES["matmul_h100"].instantiate(cand.plan, cand.assignment,
+                                                 "cuda")
+    c = torch.empty((1, 32), device=DEV)
+    kw = fn.keywords
+    args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), None, None, 1, 32, 32,
+            kw["bm"], kw["bn"], kw["bk"], kw["s"], 1, kw["stages"],
+            int(kw["cached"]), 1, torch.cuda.current_stream().cuda_stream)
+    for label, call in (("wrapper", lambda: fn(a, b)),
+                        ("ops.matmul", lambda: ops.matmul(a, b)),
+                        ("torch.matmul", lambda: torch.matmul(a, b)),
+                        ("of which the C entry alone",
+                         lambda: mm._entry()(*args)),
+                        ("of which torch.empty", lambda: torch.empty(
+                            (1, 32), dtype=torch.float32, device=DEV))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            call()
+        host = (time.perf_counter() - t0) / 1000
+        torch.cuda.synchronize()
+        say(f"[shapes] K1 host cost a launch, {label}, M1 N32 K32 (leaf "
+            f"{dict(cand.assignment)}): {1e3 * host:.4f} ms")
+
+
 def launch_sums(shapes, rows) -> dict:
     """{name: {key: sum over the launches in ``shapes`` of the key's time
     at each launch's signature}} (None where a signature has none)."""
     out = {}
     for name, by_sig in shapes.items():
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "library_device_ms": 0.0,
                "bound_ms": 0.0}
         for sig, n in by_sig.items():
             for key in tot:
-                val = rows[name][sig][key]
+                val = rows[name][sig].get(key)
                 tot[key] = (None if tot[key] is None or val is None
                             else tot[key] + n * val)
         out[name] = tot
@@ -964,6 +1168,7 @@ def main() -> int:
             for sig, n in path["shapes"][name].items():
                 shapes[name][sig] = shapes[name].get(sig, 0) + n
     rows = phase_shapes(shapes, gen)
+    phase_host_cost(gen)
     for path in paths:
         say(f"[shapes] {path['name']} ({path['wall_ms']:.1f} ms wall), "
             f"kernel time over its launches: "

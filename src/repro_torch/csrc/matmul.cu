@@ -1,137 +1,385 @@
-// K1 matmul_h100: C[M,N] (f32) = A[M,K] @ B[K,N], A and B both f32 or bf16.
+// K1 matmul_h100: C[M,N] (f32) = A[M,K] @ B[K,N], A and B both bf16 or both
+// f32, B row-major [K, N] as the model stores its weights.
 //
-// Replaces the TPU kernel pallas_matmul (src/repro/kernels/matmul.py,
+// Replaces the TPU kernel pallas_matmul (src/repro/kernels/matmul.py:73,
 // _mm_kernel_cached / _mm_kernel_uncached).  The TPU walks k as the last,
 // sequential grid axis and carries the sum in VMEM scratch; blocks on the card
-// run in no order, so here the k loop runs inside the block and the sum lives
-// in registers.
+// run in no order, so a block walks its k tiles in a loop and keeps the sum in
+// registers, and a sum split across blocks is combined in a fixed order.
 //
-// Layout: grid (ceil(M/bm), ceil(N/(s*bn))), bm*bn threads a block.  Thread
-// (ty, tx) owns the paper's grain: the s outputs C[i0+ty, j0+tx+t*bn],
-// t < s, spaced bn apart, so a warp's stores and B loads are coalesced.
-//   cached   : each k step stages an A tile [bm x bk] and a B tile
-//              [bk x s*bn] in dynamic shared memory (the paper's cache(a)).
-//   uncached : operands are read from global memory directly (L1/L2 only).
-// Ragged edges are masked in the kernel: nothing is padded.
-//
-// Bound on the card: at the serving shapes (M = 4..32 rows against weight
-// matrices of 4096 x 4096..128256) the product reads every weight byte once
-// and does 2*M flops per weight, far below the ~295 flop/byte at which the
-// H100's bf16 rate would bind, so it is bound by bytes.  The design reads
-// each weight once per row block (bm >= M keeps it to one pass) with
-// coalesced loads; it does not use the tensor cores (wgmma) or TMA yet.
-// What holds it far from that bound at decode is parallelism: the grid has
-// only M*N/s working threads, each walking all of K in order, so at M = 1..4
-// a few thousand threads must keep 3.35 TB/s of loads in flight.  Splitting
-// K across blocks (a second pass or atomics to combine) is the next step.
+// Bound on the card: every main-path call has M <= 256 rows, so the product
+// does at most M flops a byte of bf16 weight, at or below the H100's ridge of
+// ~295 flop/byte: it is bound by the bytes of B, read once when bm >= M.  At
+// M = 1..32 the card needs ~3.35 TB/s x ~1 us = ~3.4 MB of loads in flight
+// to reach that bound, from a grid of a few column blocks.  The design:
+//   - ring: `stages` A/B tiles in dynamic shared memory, filled by 16-byte
+//     cp.async copies; the loads of tile k+stages-1 are in flight while tile
+//     k is computed (the paper's cache(a), Z_B = stages*(bm*bk + bk*bn)*DIN).
+//     Uncached leaves run one stage: load, barrier, compute.
+//   - split-K: kb blocks an output tile, each over a contiguous run of k
+//     tiles, grid (ceil(M/bm), ceil(N/bn), kb), so a decode step still puts
+//     hundreds of blocks on the 132 SMs.  The combine is deterministic: each
+//     split writes its f32 partial to a workspace [kb, M, N]; the last block
+//     of a tile to take its ticket sums the partials in split order 0..kb-1,
+//     writes C and resets the ticket to 0.  No float atomics.
+//   - tensor cores for bf16: mma.sync m16n8k16 with f32 accumulators, A
+//     fragments by ldmatrix, B fragments by ldmatrix.trans from the [k][n]
+//     tile.  A warp owns a 16 x 8s tile of C (s, the paper's grain, is the
+//     n8 tiles a warp owns, 4s f32 a thread); (bm/16)*(bn/(8s)) warps a
+//     block.  f32 runs the same tiles, ring and split with FMA from shared
+//     memory, never TF32.  Tiles are XOR-swizzled by 16-byte chunk, so the
+//     8 rows an ldmatrix reads fall in 8 different bank groups.
+// Ragged edges: rows, columns and k past the matrix are zero-filled in
+// shared memory (cp.async with a source size of 0) and never stored.  The
+// 16-byte copies need N (for B) and K (for A) multiples of 8 bf16 or 4 f32
+// and 16-byte-aligned bases; an operand that breaks this is loaded element
+// by element, masked and synchronously (no overlap, never past the end).
 #include "common.cuh"
 
-template <typename T, int S, bool CACHED>
-__global__ void matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                              float* __restrict__ C, int M, int N, int K,
-                              int bm, int bn, int bk) {
-  extern __shared__ unsigned char smem_raw[];
-  const int tx = threadIdx.x % bn;
-  const int ty = threadIdx.x / bn;
-  const int row = blockIdx.x * bm + ty;
-  const int col0 = blockIdx.y * (S * bn) + tx;
-  float acc[S];
-#pragma unroll
-  for (int t = 0; t < S; ++t) acc[t] = 0.f;
+#include <cstdint>
 
-  if (CACHED) {
-    T* As = reinterpret_cast<T*>(smem_raw);          // [bm][bk]
-    T* Bs = As + bm * bk;                            // [bk][S*bn]
-    const int nthreads = bm * bn;
-    const int wide = S * bn;
-    const int arow0 = blockIdx.x * bm;
-    const int bcol0 = blockIdx.y * wide;
-    for (int k0 = 0; k0 < K; k0 += bk) {
-      for (int i = threadIdx.x; i < bm * bk; i += nthreads) {
-        const int r = i / bk, c = i % bk;
-        const int gr = arow0 + r, gc = k0 + c;
-        As[i] = (gr < M && gc < K) ? A[(size_t)gr * K + gc] : T(0.f);
-      }
-      for (int i = threadIdx.x; i < bk * wide; i += nthreads) {
-        const int r = i / wide, c = i % wide;
-        const int gr = k0 + r, gc = bcol0 + c;
-        Bs[i] = (gr < K && gc < N) ? B[(size_t)gr * N + gc] : T(0.f);
-      }
-      __syncthreads();
-      const int kn = min(bk, K - k0);
-      for (int kk = 0; kk < kn; ++kk) {
-        const float a = to_f32(As[ty * bk + kk]);
-#pragma unroll
-        for (int t = 0; t < S; ++t)
-          acc[t] += a * to_f32(Bs[kk * wide + tx + t * bn]);
-      }
-      __syncthreads();
-    }
-  } else if (row < M) {
-    const T* arow = A + (size_t)row * K;
-    for (int k = 0; k < K; ++k) {
-      const float a = to_f32(arow[k]);
-      const T* brow = B + (size_t)k * N;
-#pragma unroll
-      for (int t = 0; t < S; ++t) {
-        const int col = col0 + t * bn;
-        if (col < N) acc[t] += a * to_f32(brow[col]);
-      }
-    }
-  }
+namespace {
 
-  if (row < M) {
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxSmem = 232448;      // bytes a block may opt into on an H100
+constexpr int kMaxGridYZ = 65535;
+constexpr int kMaxDevices = 16;
+
+struct Args {
+  const void* a;
+  const void* b;
+  float* c;
+  float* ws;           // [kb, M, N] partials (kb > 1)
+  int* tickets;        // one a (row block, column block), 0 at rest
+  int M, N, K, bm, bn, bk, kb;
+  int per;             // k tiles a split
+  int a_vec, b_vec;    // 16-byte copies allowed for A, for B
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Physical 16-byte chunk of logical chunk c in row r of a tile w chunks
+// wide (w a power of two >= 4).
+__device__ __forceinline__ int swz(int r, int c, int w) {
+  return w >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// A tile [rows][cols] of g (leading dimension ld) from (r0, c0), swizzled,
+// zero outside [nrows, ncols).  cols is a power of two, a whole number of
+// 16-byte chunks.
+template <typename T>
+__device__ __forceinline__ void load_tile(const T* __restrict__ g, T* s,
+                                          int rows, int cols, int r0, int c0,
+                                          int nrows, int ncols, int ld,
+                                          bool vec) {
+  constexpr int EPC = 16 / sizeof(T);           // elements a chunk
+  const int w = cols / EPC;
+  const int lw = __ffs(w) - 1;
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * w; i += blockDim.x) {
+      const int r = i >> lw, c = i & (w - 1);
+      const int gr = r0 + r, gc = c0 + c * EPC;
+      const bool ok = gr < nrows && gc < ncols;
+      const T* src = ok ? g + (size_t)gr * ld + gc : g;
+      cp_async16(s + (r * w + swz(r, c, w)) * EPC, src, ok);
+    }
+  } else {
+    // element by element, eight loads in flight a thread before any store
+    constexpr int kBatch = 8;
+    const int lc = __ffs(cols) - 1, total = rows * cols;
+    for (int i0 = threadIdx.x; i0 < total; i0 += kBatch * blockDim.x) {
+      T v[kBatch];
 #pragma unroll
-    for (int t = 0; t < S; ++t) {
-      const int col = col0 + t * bn;
-      if (col < N) C[(size_t)row * N + col] = acc[t];
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * blockDim.x;
+        const int gr = r0 + (i >> lc), gc = c0 + (i & (cols - 1));
+        v[j] = (i < total && gr < nrows && gc < ncols)
+                   ? g[(size_t)gr * ld + gc] : T(0.f);
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int i = i0 + j * blockDim.x;
+        const int r = i >> lc, e = i & (cols - 1);
+        if (i < total) s[(r * w + swz(r, e / EPC, w)) * EPC + e % EPC] = v[j];
+      }
     }
   }
 }
 
-template <typename T, int S, bool CACHED>
-static cudaError_t launch(const void* a, const void* b, float* c, int M, int N,
-                          int K, int bm, int bn, int bk, cudaStream_t stream) {
-  auto kernel = matmul_kernel<T, S, CACHED>;
-  const size_t smem =
-      CACHED ? (size_t)(bm * bk + bk * S * bn) * sizeof(T) : 0;
-  cudaError_t err = allow_smem(kernel, smem);
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One k tile on the tensor cores: the warp's 16 x 8S tile of C.
+// Fragments of m16n8k16 (g = lane / 4, q = lane % 4): a thread holds
+// A[g | g+8][2q, 2q+1 | +8], B[2q, 2q+1 | +8][g], C[g | g+8][2q, 2q+1].
+template <int S>
+__device__ __forceinline__ void compute(const __nv_bfloat16* As,
+                                        const __nv_bfloat16* Bs, int bk,
+                                        int bn, int wm, int wn, int lane,
+                                        float (&acc)[S][4]) {
+  const int wa = bk / 8, wb = bn / 8;
+  const int j = lane >> 3, rr = lane & 7;
+  const int ar = wm * 16 + (j & 1) * 8 + rr;   // A row this lane addresses
+  for (int kk = 0; kk < bk; kk += 16) {
+    unsigned a[4];
+    const int ac = (kk >> 3) + (j >> 1);
+    ldmatrix_x4(a, As + (ar * wa + swz(ar, ac, wa)) * 8);
+    const int k = kk + (j & 1) * 8 + rr;       // B row this lane addresses
+    if constexpr (S == 1) {
+      unsigned b[2];
+      const int c = wn;
+      ldmatrix_x2_trans(b, Bs + (k * wb + swz(k, c, wb)) * 8);
+      mma_bf16(acc[0], a, b[0], b[1]);
+    } else {
+#pragma unroll
+      for (int t = 0; t < S; t += 2) {          // two n8 tiles a load
+        unsigned b[4];
+        const int c = wn * S + t + (j >> 1);
+        ldmatrix_x4_trans(b, Bs + (k * wb + swz(k, c, wb)) * 8);
+        mma_bf16(acc[t], a, b[0], b[1]);
+        mma_bf16(acc[t + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// One k tile in f32 FMA, the same fragment layout, k in order.
+template <int S>
+__device__ __forceinline__ void compute(const float* As, const float* Bs,
+                                        int bk, int bn, int wm, int wn,
+                                        int lane, float (&acc)[S][4]) {
+  const int wa = bk / 4, wb = bn / 4;
+  const int r0 = wm * 16 + (lane >> 2), r1 = r0 + 8;
+  const int q2 = 2 * (lane & 3);
+  for (int k = 0; k < bk; ++k) {
+    const int c = k >> 2, e = k & 3;
+    const float a0 = As[(r0 * wa + swz(r0, c, wa)) * 4 + e];
+    const float a1 = As[(r1 * wa + swz(r1, c, wa)) * 4 + e];
+#pragma unroll
+    for (int t = 0; t < S; ++t) {
+      const int n = (wn * S + t) * 8 + q2;     // even: n, n+1 in one chunk
+      const float2 bv = *reinterpret_cast<const float2*>(
+          Bs + (k * wb + swz(k, n >> 2, wb)) * 4 + (n & 3));
+      acc[t][0] = fmaf(a0, bv.x, acc[t][0]);
+      acc[t][1] = fmaf(a0, bv.y, acc[t][1]);
+      acc[t][2] = fmaf(a1, bv.x, acc[t][2]);
+      acc[t][3] = fmaf(a1, bv.y, acc[t][3]);
+    }
+  }
+}
+
+template <typename T, int S, int STAGES>
+__global__ void __launch_bounds__(kMaxThreads) matmul_kernel(const Args p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int a_elems = p.bm * p.bk, b_elems = p.bk * p.bn;
+  T* As = reinterpret_cast<T*>(smem_raw);       // [STAGES][bm][bk]
+  T* Bs = As + STAGES * a_elems;                // [STAGES][bk][bn]
+  const T* A = static_cast<const T*>(p.a);
+  const T* B = static_cast<const T*>(p.b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wcols = p.bn / (8 * S);
+  const int wm = warp / wcols, wn = warp % wcols;
+  const int m0 = blockIdx.x * p.bm, n0 = blockIdx.y * p.bn;
+  const int nkt = (p.K + p.bk - 1) / p.bk;
+  const int kt0 = blockIdx.z * p.per;
+  const int nt = max(0, min(nkt, kt0 + p.per) - kt0);
+  // a warp whose rows or columns all lie past the matrix only loads
+  const bool live = m0 + wm * 16 < p.M && n0 + wn * 8 * S < p.N;
+  float acc[S][4];
+#pragma unroll
+  for (int t = 0; t < S; ++t)
+    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  auto load = [&](int kt, int slot) {
+    const int k0 = (kt0 + kt) * p.bk;
+    load_tile(A, As + slot * a_elems, p.bm, p.bk, m0, k0, p.M, p.K, p.K,
+              p.a_vec);
+    load_tile(B, Bs + slot * b_elems, p.bk, p.bn, k0, n0, p.K, p.N, p.N,
+              p.b_vec);
+  };
+  if constexpr (STAGES == 1) {
+    for (int i = 0; i < nt; ++i) {
+      __syncthreads();
+      load(i, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (live) compute<S>(As, Bs, p.bk, p.bn, wm, wn, lane, acc);
+    }
+  } else {
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < nt) load(i, i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < nt; ++i) {
+      cp_async_wait<STAGES - 2>();    // tile i has landed (this thread)
+      __syncthreads();                // ... every thread's; slot i-1 free
+      if (i + STAGES - 1 < nt) load(i + STAGES - 1, (i + STAGES - 1) % STAGES);
+      cp_async_commit();
+      const int slot = i % STAGES;
+      if (live)
+        compute<S>(As + slot * a_elems, Bs + slot * b_elems, p.bk, p.bn, wm,
+                   wn, lane, acc);
+    }
+    cp_async_wait<0>();
+  }
+
+  const int r0 = m0 + wm * 16 + (lane >> 2);
+  const int cq = n0 + wn * 8 * S + 2 * (lane & 3);
+  const size_t MN = (size_t)p.M * p.N;
+  float* out = p.kb == 1 ? p.c : p.ws + blockIdx.z * MN;
+#pragma unroll
+  for (int t = 0; t < S; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (e >> 1) * 8, c = cq + t * 8 + (e & 1);
+      if (live && r < p.M && c < p.N) out[(size_t)r * p.N + c] = acc[t][e];
+    }
+  if (p.kb == 1) return;
+
+  // split-K: the last of the tile's kb blocks sums the partials in order
+  __threadfence();                     // this thread's partials, then ...
+  __syncthreads();                     // ... every thread's, before the ticket
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  int ticket = 0;
+  if (threadIdx.x == 0) ticket = atomicAdd(&p.tickets[tile], 1);
+  if (!__syncthreads_or(threadIdx.x == 0 && ticket == p.kb - 1)) return;
+  __threadfence();
+#pragma unroll
+  for (int t = 0; t < S; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + (e >> 1) * 8, c = cq + t * 8 + (e & 1);
+      if (!(live && r < p.M && c < p.N)) continue;
+      const size_t at = (size_t)r * p.N + c;
+      float v = 0.f;
+      for (int z = 0; z < p.kb; ++z)
+        v += z == (int)blockIdx.z ? acc[t][e] : __ldcg(p.ws + z * MN + at);
+      p.c[at] = v;
+    }
+  if (threadIdx.x == 0) p.tickets[tile] = 0;
+}
+
+template <typename T, int S, int STAGES>
+cudaError_t launch(const Args& p, cudaStream_t stream) {
+  auto kernel = matmul_kernel<T, S, STAGES>;
+  const size_t smem = (size_t)STAGES * (p.bm * p.bk + p.bk * p.bn) * sizeof(T);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  // the opt-in above 48 KB costs a CUDA runtime call: make it once a kernel
+  // and device for the largest ring asked so far
+  static size_t granted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  dim3 grid((M + bm - 1) / bm, (N + S * bn - 1) / (S * bn));
-  kernel<<<grid, bm * bn, smem, stream>>>(static_cast<const T*>(a),
-                                          static_cast<const T*>(b), c, M, N, K,
-                                          bm, bn, bk);
+  if (dev >= kMaxDevices || smem > granted[dev]) {
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) granted[dev] = smem;
+  }
+  const dim3 grid((p.M + p.bm - 1) / p.bm, (p.N + p.bn - 1) / p.bn, p.kb);
+  const int threads = 32 * (p.bm / 16) * (p.bn / (8 * S));
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, bool CACHED>
-static cudaError_t by_grain(const void* a, const void* b, float* c, int M,
-                            int N, int K, int bm, int bn, int bk, int s,
-                            cudaStream_t st) {
-  switch (s) {
-    case 1: return launch<T, 1, CACHED>(a, b, c, M, N, K, bm, bn, bk, st);
-    case 2: return launch<T, 2, CACHED>(a, b, c, M, N, K, bm, bn, bk, st);
-    case 4: return launch<T, 4, CACHED>(a, b, c, M, N, K, bm, bn, bk, st);
-    case 8: return launch<T, 8, CACHED>(a, b, c, M, N, K, bm, bn, bk, st);
-    case 16: return launch<T, 16, CACHED>(a, b, c, M, N, K, bm, bn, bk, st);
+template <typename T, int S>
+cudaError_t by_stages(const Args& p, int stages, cudaStream_t st) {
+  switch (stages) {
+    case 1: return launch<T, S, 1>(p, st);
+    case 2: return launch<T, S, 2>(p, st);
+    case 4: return launch<T, S, 4>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-extern "C" int matmul_h100_launch(const void* a, const void* b, void* c, int M,
-                                  int N, int K, int bm, int bn, int bk, int s,
-                                  int cached, int elem, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || bm <= 0 || bn <= 0 || bk <= 0 ||
-      bm * bn > 1024)
+template <typename T>
+cudaError_t by_grain(const Args& p, int s, int stages, cudaStream_t st) {
+  switch (s) {
+    case 1: return by_stages<T, 1>(p, stages, st);
+    case 2: return by_stages<T, 2>(p, stages, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool pow2_at_least(int x, int lo) { return x >= lo && (x & (x - 1)) == 0; }
+
+}  // namespace
+
+// Formats it takes (kernels/matmul.py: format_error mirrors these checks):
+// bm a multiple of 16; bn and bk powers of two >= 32; s in {1, 2};
+// stages in {1, 2, 4} (an uncached leaf runs 1); kb >= 1 with a workspace
+// and tickets when kb > 1; at most 1024 threads, 65,535 column blocks and
+// 65,535 splits; the ring within 232,448 bytes of shared memory.
+extern "C" int matmul_h100_launch(const void* a, const void* b, void* c,
+                                  void* ws, void* tickets, int M, int N, int K,
+                                  int bm, int bn, int bk, int s, int kb,
+                                  int stages, int cached, int elem,
+                                  void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || bm < 16 || bm % 16 != 0 ||
+      !pow2_at_least(bn, 32) || !pow2_at_least(bk, 32) ||
+      (s != 1 && s != 2) || kb < 1 || kb > kMaxGridYZ ||
+      (stages != 1 && stages != 2 && stages != 4) ||
+      32 * (bm / 16) * (bn / (8 * s)) > kMaxThreads ||
+      (N + bn - 1) / bn > kMaxGridYZ ||
+      (kb > 1 && (ws == nullptr || tickets == nullptr)) ||
+      (elem != ELEM_F32 && elem != ELEM_BF16))
     return cudaErrorInvalidValue;
+  const int epc = elem == ELEM_BF16 ? 8 : 4;
+  const int nkt = (K + bk - 1) / bk;
+  Args p{a, b, static_cast<float*>(c), static_cast<float*>(ws),
+         static_cast<int*>(tickets), M, N, K, bm, bn, bk, kb,
+         (nkt + kb - 1) / kb,
+         K % epc == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0,
+         N % epc == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0};
+  const int run = cached ? stages : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(c);
-  if (elem == ELEM_F32)
-    return cached ? by_grain<float, true>(a, b, out, M, N, K, bm, bn, bk, s, st)
-                  : by_grain<float, false>(a, b, out, M, N, K, bm, bn, bk, s, st);
-  if (elem == ELEM_BF16)
-    return cached
-        ? by_grain<__nv_bfloat16, true>(a, b, out, M, N, K, bm, bn, bk, s, st)
-        : by_grain<__nv_bfloat16, false>(a, b, out, M, N, K, bm, bn, bk, s, st);
-  return cudaErrorInvalidValue;
+  return elem == ELEM_BF16 ? by_grain<__nv_bfloat16>(p, s, run, st)
+                           : by_grain<float>(p, s, run, st);
 }

@@ -3,27 +3,38 @@
 Replaces the TPU kernel ``pallas_matmul`` (``src/repro/kernels/matmul.py``,
 ``_mm_kernel_cached`` / ``_mm_kernel_uncached``) with the hand-written CUDA
 kernel in ``csrc/matmul.cu``: C[M,N] = A[M,K] @ B[K,N], A and B both f32 or
-bf16, f32 accumulation, f32 output.  This is a return home for the paper: its
-thread-block format ``bm × bn`` with grain ``s`` (coefficients per thread,
-spaced ``bn`` apart) is the kernel's launch shape, and ``cached`` is its
-``__shared__`` staging of A and B tiles.
+bf16, B in the model's [K, N] row-major layout, f32 accumulation, f32
+output.
 
-Bound on the card: at the serving shapes (M = 4..32) every weight byte is
-read once for 2·M flops — bound by bytes.  The design reads each weight once
-per row block with coalesced loads (see the note in the CUDA source); tensor
-cores and TMA are left to later work.
+Bound on the card: every serve-path call has M <= 256, so the product is
+bound by the bytes of B.  The kernel keeps those bytes in flight with a ring
+of ``stages`` shared-memory tiles filled by ``cp.async`` and splits K over
+``kb`` blocks an output tile (combined in split order, deterministically);
+bf16 runs on the tensor cores (``mma.sync`` m16n8k16), f32 in FMA.  See the
+note in the CUDA source.
 
-Program parameters:  bm, bn, bk, s   (all symbolic during tree construction)
+The paper's block format is the launch shape: a block computes a bm × bn
+tile of C with (bm/16)·(bn/(8·s)) warps, each owning a 16 × 8·s tile (grain
+s: its n8 tensor-core tiles, 4·s f32 a thread).  ``uncache`` keeps the
+domain of ``stages`` (the ring depth that did not fit) and the kernel runs
+one stage: load, barrier, compute, with nothing in flight.
+
+Program parameters:  bm, bn, bk, s, kb, stages (all symbolic during tree
+                     construction)
 Data parameters:     M, N, K
 Machine parameters:  V (shared bytes a block), G (registers a thread),
                      T (threads a block), CORES (SMs)
+
+The split-K workspace (f32 partials and per-tile tickets) is one per device,
+grows on demand and is used by one launch at a time: the port launches on
+one stream.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
-from typing import Callable, Mapping, Sequence, Tuple
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,30 +50,107 @@ from .instantiate_cache import CachedInstantiationMixin
 #: input type (f32), so a leaf chosen for a triple launches for either type.
 DIN = 4
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
-#: matmul_h100_launch(a, b, c, M, N, K, bm, bn, bk, s, cached, elem, stream)
-_ARGTYPES = ((ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 9
+#: matmul_h100_launch(a, b, c, ws, tickets, M, N, K, bm, bn, bk, s, kb,
+#: stages, cached, elem, stream)
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 11
              + (ctypes.c_void_p,))
+#: The C entry point's limits (``csrc/matmul.cu``).
+MAX_THREADS = 1024
+MAX_SMEM = 232_448
+MAX_GRID_YZ = 65_535
 
 
 # =============================================================================
 # Kernel wrapper, plain version, launch counter
 # =============================================================================
 
+def split_tiles(K: int, bk: int, kb: int) -> list:
+    """The k tiles of each of the ``kb`` splits, as ``range``s: ceil(K/bk)
+    tiles of ``bk``, split into contiguous runs of ceil(tiles/kb) (the last
+    splits may be empty), as the kernel walks them."""
+    nkt = -(-K // bk)
+    per = -(-nkt // kb)
+    return [range(z * per, min(nkt, (z + 1) * per)) for z in range(kb)]
+
+
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
-                 bk: int, s: int, cached: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: f32 sums over k tiles of ``bk``,
-    the kernel's accumulation order across tiles.  The block format does not
-    change the result (paper Def. 2 ii), so ``bm``/``bn``/``s``/``cached``
-    are taken and ignored."""
+                 bk: int, s: int, kb: int = 1, stages: int = 2,
+                 cached: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the kernel in its order of sums: each split
+    sums its k tiles of ``bk`` in f32 in order, then the splits are added in
+    order 0..kb-1.  The block format does not change the result (paper
+    Def. 2 ii), so ``bm``/``bn``/``s``/``stages``/``cached`` are taken and
+    ignored."""
     M, K = a.shape
-    out = torch.zeros((M, b.shape[1]), dtype=torch.float32, device=a.device)
-    for k0 in range(0, K, bk):
-        out += a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
+    N = b.shape[1]
+    out = torch.zeros((M, N), dtype=torch.float32, device=a.device)
+    for tiles in split_tiles(K, bk, kb):
+        part = torch.zeros_like(out)
+        for t in tiles:
+            part += a[:, t * bk:(t + 1) * bk].float() @ \
+                b[t * bk:(t + 1) * bk].float()
+        out += part
     return out
 
 
+def format_error(M: int, N: int, K: int, bm: int, bn: int, bk: int, s: int,
+                 kb: int, stages: int, cached: bool,
+                 dtype: torch.dtype) -> Optional[str]:
+    """Why ``matmul_h100_launch`` refuses this launch, or None: the C entry
+    point's checks (``csrc/matmul.cu``) in Python."""
+    def pow2(x):
+        return x >= 32 and x & (x - 1) == 0
+    esz = 2 if dtype == torch.bfloat16 else 4
+    run = stages if cached else 1
+    checks = [
+        (min(M, N, K) > 0, "empty operand"),
+        (bm >= 16 and bm % 16 == 0, "bm not a multiple of 16"),
+        (pow2(bn) and pow2(bk), "bn or bk not a power of two >= 32"),
+        (s in (1, 2), "s not in {1, 2}"),
+        (stages in (1, 2, 4), "stages not in {1, 2, 4}"),
+        (1 <= kb <= MAX_GRID_YZ, "kb out of range"),
+        (dtype in _ELEM, "not f32 or bf16"),
+    ]
+    for ok, why in checks:
+        if not ok:
+            return why
+    if 32 * (bm // 16) * (bn // (8 * s)) > MAX_THREADS:
+        return "more than 1024 threads"
+    if -(-N // bn) > MAX_GRID_YZ:
+        return "more than 65,535 column blocks"
+    if run * (bm * bk + bk * bn) * esz > MAX_SMEM:
+        return "ring larger than 232,448 bytes"
+    return None
+
+
+_WORKSPACE = {}                  # device -> (f32 partials, int32 tickets)
+
+
+@functools.cache
+def _entry() -> Callable[..., int]:
+    """The C entry point, resolved once a process."""
+    return build.entry("matmul", "matmul_h100_launch", _ARGTYPES)
+
+
+def workspace(device: torch.device, floats: int, tiles: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's split-K workspace, grown to at least ``floats`` f32
+    partials and ``tiles`` tickets.  Tickets are zeroed when allocated; each
+    launch leaves them at 0."""
+    part, tick = _WORKSPACE.get(device, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                           device=device)
+    if tick is None or tick.numel() < tiles:
+        tick = torch.zeros(max(tiles, 1 << 12), dtype=torch.int32,
+                           device=device)
+    _WORKSPACE[device] = (part, tick)
+    return part, tick
+
+
 def _launch(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
-            s: int, cached: bool) -> torch.Tensor:
+            s: int, kb: int = 1, stages: int = 2,
+            cached: bool = True) -> torch.Tensor:
     if not (a.is_cuda and b.is_cuda and a.device == b.device):
         raise ValueError("matmul_h100 kernel needs both operands on one "
                          f"CUDA device: {a.device}, {b.device}")
@@ -76,27 +164,37 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
         raise ValueError("matmul_h100 needs contiguous operands")
     M, K = a.shape
     N = b.shape[1]
-    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    fn = build.entry("matmul", "matmul_h100_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, bm, bn, bk,
-             s, int(cached), _ELEM[a.dtype], stream)
-    build.check(err, f"matmul_h100(bm={bm}, bn={bn}, bk={bk}, s={s}, "
-                     f"cached={cached})")
+    dev = a.device
+    c = torch.empty((M, N), dtype=torch.float32, device=dev)
+    ws = tickets = None
+    if kb > 1:
+        part, tick = workspace(dev, kb * M * N,
+                               -(-M // max(bm, 1)) * -(-N // max(bn, 1)))
+        ws, tickets = part.data_ptr(), tick.data_ptr()
+    err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), ws, tickets,
+                   M, N, K, bm, bn, bk, s, kb, stages, int(cached),
+                   _ELEM[a.dtype], torch._C._cuda_getCurrentRawStream(
+                       dev.index))
+    if err:
+        build.check(err, f"matmul_h100(bm={bm}, bn={bn}, bk={bk}, s={s}, "
+                         f"kb={kb}, stages={stages}, cached={cached})")
     matmul_h100.launches += 1
-    matmul_h100.shapes[(M, N, K, bm, bn, bk, s, bool(cached), a.dtype)] += 1
+    matmul_h100.shapes[(M, N, K, bm, bn, bk, s, kb, stages, bool(cached),
+                        a.dtype)] += 1
     return c
 
 
 def matmul_h100(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
-                bk: int, s: int, cached: bool = True) -> torch.Tensor:
+                bk: int, s: int, kb: int = 1, stages: int = 2,
+                cached: bool = True) -> torch.Tensor:
     """C = A @ B.  CUDA tensors launch the kernel (or raise); CPU tensors run
     :func:`matmul_plain`.  ``matmul_h100.launches`` counts kernel launches,
-    ``matmul_h100.shapes`` the same launches by (M, N, K, bm, bn, bk, s,
-    cached, dtype)."""
+    ``matmul_h100.shapes`` the same launches by (M, N, K, bm, bn, bk, s, kb,
+    stages, cached, dtype)."""
+    kw = dict(bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages, cached=cached)
     if a.device.type == "cpu" and b.device.type == "cpu":
-        return matmul_plain(a, b, bm=bm, bn=bn, bk=bk, s=s, cached=cached)
-    return _launch(a, b, bm=bm, bn=bn, bk=bk, s=s, cached=cached)
+        return matmul_plain(a, b, **kw)
+    return _launch(a, b, **kw)
 
 
 matmul_h100.launches = 0
@@ -107,58 +205,109 @@ matmul_h100.shapes = collections.Counter()
 # FamilySpec — the paper's GPU counters for the comprehensive tree
 # =============================================================================
 
-_S_DOMAIN_BY_LEVEL = {0: (1, 2, 4, 8, 16), 1: (1, 2)}
+#: Domains, their product 3·4·2·2·5·2 = 480 points a leaf, within
+#: ``select``'s cap of 512 candidates a leaf (``tests/test_torch_core.py``).
+_DOMAINS = {"bm": (16, 32, 64), "bn": (32, 64, 128, 256), "bk": (32, 64),
+            "s": (1, 2), "kb": (1, 2, 4, 8, 16), "stages": (2, 4)}
+_S_DOMAIN_BY_LEVEL = {0: _DOMAINS["s"], 1: (1,)}
+
+# Napkin constants of an H100 SXM: HBM and the tensor-core peak from
+# NVIDIA's data sheet; the latency, the per-tile costs and the shared-memory
+# rate are round values chosen so that the model ranks the leaves timed at
+# the llama lm_head (4, 128256, 4096) and MLP down (1, 4096, 14336)
+# projections as the card did (chip_smoke.py phase 3; PERF.md).
+_HBM = 3.35e12                   # device memory, bytes/s
+_LATENCY = 1e-6                  # s from a tile's copy to its use
+_TILE_S = 0.4e-6                 # s a block spends on a k tile at least ...
+_WARP_S = 0.02e-6                # ... and this more for each of its warps
+_SMEM_BW = 100e9                 # shared-memory bytes/s an SM moves
+_TC = 0.5 * 989e12               # bf16 flop/s of mma.sync (half of wgmma's)
+_SMEM_SM = 228 * 1024            # shared bytes an SM holds
+_THREADS_SM = 2048
+_ESZ = 2                         # bytes an element on the serve path (bf16)
 
 
 def _score(v: Mapping[str, object]):
-    """Napkin model of the simple kernel on an H100, over scalars or NumPy
-    columns: a row block of ``bm`` re-reads all of B once, so ``bm >= M``
-    reads each weight once; the grid should give every SM a block; a block
-    of fewer than 256 threads leaves an SM's issue slots idle; staging in
-    shared memory keeps more loads in flight than direct loads; short k tiles
-    pay a barrier each."""
+    """Napkin model of the kernel on an H100, over scalars or NumPy columns:
+    1 / (estimated µs), so higher is better.
+
+    - bytes: B is read ceil(M/bm) times and A ceil(N/bn) times, C written
+      once, and a split tile writes and reads kb f32 partials;
+    - a block's rate: one k tile (its bytes of A and B, idle rows and
+      columns not loaded) each max(step, latency / tiles ahead), where a
+      step is a fixed cost, a cost a warp (the barrier) and the tile's
+      shared-memory traffic (cp.async writes, every warp's A fragments, the
+      B fragments) over the SM's share; tiles ahead = stages − 1 (one stage:
+      latency and step add up);
+    - the card's rate: the resident blocks' rates up to device memory, wave
+      after wave (the last wave has fewer blocks), plus a latency a wave and
+      one for a split tile's combine;
+    - tensor cores: the padded bm × bn tiles at half the bf16 peak;
+    - idle rows and columns count against a leaf: min(1, M/bm)·min(1, N/bn)
+      of its warps do work, the others still load and wait.
+    """
     bm, bn = np.asarray(v["bm"]), np.asarray(v["bn"])
     bk, s = np.asarray(v["bk"]), np.asarray(v["s"])
-    M = v.get("M", 4096)
-    N = v.get("N", 4096)
+    kb, stages = np.asarray(v["kb"]), np.asarray(v["stages"])
+    M, N, K = v.get("M", 4096), v.get("N", 4096), v.get("K", 4096)
     cores = max(1, v.get("CORES", 1))
-    row_blocks = np.ceil(M / bm)
-    blocks = row_blocks * np.ceil(N / (bn * s))
-    fill = np.minimum(1.0, blocks / cores)
-    reread = 1.0 / row_blocks
-    width = np.minimum(1.0, (bm * bn) / 256.0)
-    idle = np.minimum(1.0, M / bm)                  # rows of the block in use
-    return fill * reread * width * idle * (0.5 + 0.5 * np.minimum(1.0, bk / 64))
+    rows, cols = np.ceil(M / bm), np.ceil(N / bn)
+    blocks = rows * cols * kb
+    nbytes = (_ESZ * (K * N * rows + M * K * cols) + 4 * M * N
+              + np.where(kb > 1, 8.0 * kb * M * N, 0.0))
+    threads = bm * bn / (4 * s)
+    warps = threads / 32
+    per_sm = np.minimum(np.minimum(
+        np.floor(_SMEM_SM / (stages * (bm * bk + bk * bn) * _ESZ)),
+        np.floor(_THREADS_SM / threads)), 32)
+    resident = np.minimum(blocks, cores * per_sm)
+    ahead = np.minimum(stages - 1, np.ceil(np.ceil(K / bk) / kb))
+    tile = bk * (np.minimum(bn, N) + np.minimum(bm, M)) * _ESZ
+    traffic = (warps * bk / 16 * 512 + bk * bn * _ESZ
+               + (bm * bk + bk * bn) * _ESZ)
+    sharing = np.minimum(per_sm, np.ceil(blocks / cores))
+    step = _TILE_S + _WARP_S * warps + traffic * sharing / _SMEM_BW
+    per_tile = np.where(ahead <= 0, step + _LATENCY,
+                        np.maximum(step, _LATENCY / np.maximum(ahead, 1)))
+    rate = tile / per_tile                      # bytes/s a block
+    per_block = nbytes / blocks
+    full = np.floor(blocks / resident)
+    rest = blocks - full * resident
+    t_mem = (full * resident * per_block / np.minimum(_HBM, resident * rate)
+             + rest * per_block / np.minimum(_HBM, np.maximum(rest, 1) * rate)
+             + (full + (rest > 0)) * _LATENCY
+             + np.where(kb > 1, _LATENCY, 0.0))
+    t_tc = 2.0 * rows * bm * cols * bn * K / _TC
+    t = np.maximum(t_mem, t_tc)
+    fill = np.minimum(1.0, M / bm) * np.minimum(1.0, N / bn)
+    return (0.75 + 0.25 * fill) * 1e-6 / t
 
 
 class MatmulH100Family(CachedInstantiationMixin):
     name = "matmul_h100"
 
     def initial_plan(self) -> KernelPlan:
+        params = {n: ParamDomain(n, d) for n, d in _DOMAINS.items()}
         return KernelPlan(
             family=self.name,
             flags={"smem_cache": True, "granularity_level": 0,
                    "pressure_level": 0, "cse_level": 0},
-            program_params={
-                "bm": ParamDomain("bm", (1, 2, 4, 8, 16, 32, 64)),
-                "bn": ParamDomain("bn", (32, 64, 128, 256), align=32),
-                "bk": ParamDomain("bk", (16, 32, 64, 128)),
-                "s": ParamDomain("s", _S_DOMAIN_BY_LEVEL[0]),
-            },
+            program_params=params,
         )
 
     # -- counters (order: resources r_i first, then performance p_i) ---------
     def counters(self) -> Sequence[Counter]:
         return [
-            resource("smem_bytes", "V", ("reduce_granularity", "uncache"),
-                     "shared memory a block stages (paper: Z_B)"),
+            resource("smem_bytes", "V", ("uncache",),
+                     "shared memory the ring takes, stages·(bm·bk + bk·bn)"
+                     "·DIN (paper: Z_B)"),
             resource("threads", "T", (),
-                     "threads a block, bm·bn (paper: T)"),
+                     "threads a block, 32·(bm/16)·(bn/(8·s)) (paper: T)"),
             resource("registers", "G",
-                     ("pressure_1", "pressure_2", "pressure_3",
-                      "cse_1", "cse_2"),
+                     ("reduce_granularity", "pressure_1", "pressure_2",
+                      "pressure_3", "cse_1", "cse_2"),
                      "registers a thread (paper: R)"),
-            performance("occupancy", "P_occ", ("reduce_granularity",),
+            performance("occupancy", "P_occ", (),
                         "share of the SMs a grid of blocks leaves idle"),
         ]
 
@@ -174,7 +323,7 @@ class MatmulH100Family(CachedInstantiationMixin):
         def uncache(plan: KernelPlan):
             if not plan.flags.get("smem_cache", True):
                 return None
-            return plan.with_flag("smem_cache", False, "drop shared staging")
+            return plan.with_flag("smem_cache", False, "one stage, no ring")
 
         def pressure(level):
             def apply(plan: KernelPlan):
@@ -207,40 +356,55 @@ class MatmulH100Family(CachedInstantiationMixin):
         bm, bn, bk, s = V("bm"), V("bn"), V("bk"), V("s")
         one = Poly.const(1)
         if counter == "smem_bytes":
+            tile = DIN * (bm * bk + bk * bn)
             if plan.flags.get("smem_cache", True):
-                return DIN * (bm * bk + bk * bn * s), one
-            return Poly.const(0), one
+                return V("stages") * tile, one
+            return tile, one
         if counter == "threads":
-            return bm * bn, one
+            return bm * bn, 4 * s              # 32·(bm/16)·(bn/(8·s))
         if counter == "registers":
-            # s f32 accumulators, s staged B values per k step (split per
-            # pressure level), and the index arithmetic CSE trims.  As in the
-            # JAX family the levels change the estimate, not the kernel.
+            # 4·s f32 accumulators; the A fragment (4) and s B fragments
+            # (2 each), split per pressure level; the addressing CSE trims.
+            # As in the JAX family the levels change the estimate, not the
+            # kernel.
             p = plan.flags.get("pressure_level", 0)
             c = plan.flags.get("cse_level", 0)
-            return s + s * 4 / (2 ** p) + Poly.const(24 - 4 * c), one
+            return (4 * s + (2 * s + 4) / (2 ** p)
+                    + Poly.const(24 - 4 * c)), one
         if counter == "occupancy":
-            # CORES / (CORES + blocks), blocks = M·N / (bm·bn·s): near 1 when
-            # the grid starves the SMs, near 0 when it fills them
-            tile = bm * bn * s
-            return V("CORES") * tile, V("CORES") * tile + V("M") * V("N")
+            # CORES / (CORES + blocks), blocks = M·N·kb / (bm·bn): near 1
+            # when the grid starves the SMs, near 0 when it fills them
+            tile = bm * bn
+            return V("CORES") * tile, V("CORES") * tile + V("M") * V("N") * \
+                V("kb")
         raise KeyError(counter)
 
+    @staticmethod
+    def _run_stages(plan: KernelPlan, v: Mapping[str, object]):
+        return v["stages"] if plan.flags.get("smem_cache", True) else 1
+
     def score(self, plan: KernelPlan, v: Mapping[str, int]) -> float:
-        base = float(_score(v))
-        return base if plan.flags.get("smem_cache", True) else 0.5 * base
+        return float(_score({**v, "stages": self._run_stages(plan, v)}))
 
     def score_batch(self, plan: KernelPlan, v: Mapping[str, object]):
-        base = _score(v)
-        return base if plan.flags.get("smem_cache", True) else 0.5 * base
+        return _score({**v, "stages": self._run_stages(plan, v)})
 
     # -- instantiation (memoized by CachedInstantiationMixin.instantiate) ----
+    def instantiate(self, plan: KernelPlan, assignment: Mapping[str, int],
+                    device: str = "cuda", *,
+                    leaf_index: Optional[int] = None) -> Callable:
+        """An uncached leaf's ``stages`` names the ring that did not fit; it
+        runs one stage, so its candidates build one callable."""
+        if not plan.flags.get("smem_cache", True):
+            assignment = {**assignment, "stages": 1}
+        return super().instantiate(plan, assignment, device,
+                                   leaf_index=leaf_index)
+
     def _build(self, plan: KernelPlan, assignment: Mapping[str, int],
                device: str = "cuda") -> Callable:
         fn = _launch if device == "cuda" else matmul_plain
         return functools.partial(
-            fn, bm=int(assignment["bm"]), bn=int(assignment["bn"]),
-            bk=int(assignment["bk"]), s=int(assignment["s"]),
+            fn, **{n: int(assignment[n]) for n in _DOMAINS},
             cached=bool(plan.flags.get("smem_cache", True)))
 
 

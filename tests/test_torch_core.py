@@ -3,8 +3,10 @@ port's families build non-trivial trees that resolve the whole serve warm
 sets of llama3-8b, mamba2-130m and hymba-1.5b on an H100, and the case-study
 families show the paper's case discussions in the port's symbols."""
 import dataclasses
+import math
 
 import pytest
+import torch
 
 import repro.core as jcore
 import repro_torch.core as tcore
@@ -14,6 +16,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.comprehensive import comprehensive_optimization as t_opt
 from repro_torch.core.constraints import Verdict
 from repro_torch.kernels import jacobi1d as jacobi_mod
+from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import transpose as transpose_mod
 from repro_torch.kernels.flash_attention import FAMILY as FLASH
 from repro_torch.kernels.instantiate_cache import grain
@@ -74,6 +77,17 @@ def make_family(ns):
 
 
 DATA = [{"N": 1024}, {"N": 4096}, {"N": 16384}, {"N": 65536}]
+MM_PARAMS = ("bm", "bn", "bk", "s", "kb", "stages")
+
+
+def _mm_threads(a):
+    """K1's threads a block: 32·(bm/16)·(bn/(8·s))."""
+    return 32 * (a["bm"] // 16) * (a["bn"] // (8 * a["s"]))
+
+
+def _mm_smem(a):
+    """K1's ring as the counter takes it: stages·(bm·bk + bk·bn)·4 B."""
+    return a["stages"] * (a["bm"] * a["bk"] + a["bk"] * a["bn"]) * 4
 
 
 def test_core_copy_builds_identical_trees_and_picks():
@@ -128,10 +142,14 @@ def test_llama3_warm_set_resolves_within_gpu_limits(arch_cfg):
                                   op.data_dict())
         a = cand.assignment
         if op.family == "matmul_h100":
-            assert a["bm"] * a["bn"] <= 1024                       # T
+            assert _mm_threads(a) <= 1024                           # T
             if cand.plan.flags["smem_cache"]:
-                assert 4 * (a["bm"] * a["bk"]
-                            + a["bk"] * a["bn"] * a["s"]) <= 232_448  # V
+                assert _mm_smem(a) <= 232_448                       # V
+            d = op.data_dict()
+            for dtype in (torch.float32, torch.bfloat16):
+                assert mm_mod.format_error(
+                    d["M"], d["N"], d["K"], *(a[n] for n in MM_PARAMS),
+                    cand.plan.flags["smem_cache"], dtype) is None
         else:
             hd = dict(op.data)["HD"]
             assert 32 * a["bq"] <= 1024
@@ -158,8 +176,15 @@ def test_binding_constraints_prune_somewhere():
     from repro_torch.core.select import enumerate_candidates
     mm = enumerate_candidates(MATMUL, tcore.H100_SXM,
                               {"M": 32, "N": 4096, "K": 4096})
-    assert all(c.assignment["bm"] * c.assignment["bn"] <= 1024 for c in mm)
-    assert any(c.assignment["bm"] * c.assignment["bn"] == 1024 for c in mm)
+    assert all(_mm_threads(c.assignment) <= 1024 for c in mm)
+    assert any(_mm_threads(c.assignment) == 1024 for c in mm)
+    cached = {tuple(c.assignment[n] for n in MM_PARAMS) for c in mm
+              if c.plan.flags["smem_cache"]}
+    assert all(_mm_smem(dict(zip(MM_PARAMS, p))) <= 232_448 for p in cached)
+    # 1024 threads either way; a 4-stage ring of 32 x 64 and 64 x 256 f32
+    # tiles (288 KB) exceeds V, a 2-stage one (144 KB) fits
+    assert (32, 256, 64, 2, 1, 4) not in cached
+    assert (32, 256, 64, 2, 1, 2) in cached
     fa = enumerate_candidates(FLASH, tcore.H100_SXM, {"SQ": 32, "HD": 128})
     # a 256-key tile at HD 128 needs >= 264 KB of shared memory: V binds
     assert {c.assignment["bkv"] for c in fa} == {32, 64, 128}
@@ -344,3 +369,89 @@ def test_case_study_launcher_names_every_family():
                        and f"-> {family.name}[" in l for l in lines), \
                 (family.name, machine)
     assert "Paper Table-1 analogue" in text
+
+
+# ---------------------------------------------------------------------------
+# K1's domains, napkin and leaves at the serve triples
+# ---------------------------------------------------------------------------
+
+SERVE_SETS = {
+    "llama3_8b": dict(max_len=256, max_batch=4, prefill_chunk=32),
+    "hymba_1p5b": dict(max_len=256, max_batch=4, prefill_chunk=32),
+    "mamba2_130m": dict(max_len=1024, max_batch=4, prefill_chunk=256),
+}
+
+
+def test_matmul_domains_fit_the_select_cap():
+    """``select`` enumerates at most 512 candidates a leaf, in the order of
+    the domain product: every leaf's product stays within it, so the
+    napkin ranks the whole domain."""
+    for leaf in tcore.comprehensive_tree(MATMUL):
+        sizes = [len(d.feasible()) for d in leaf.plan.program_params.values()]
+        assert set(leaf.plan.program_params) == set(MM_PARAMS)
+        assert math.prod(sizes) <= 512, (leaf.applied, sizes)
+    source = tcore.comprehensive_tree(MATMUL)[0].plan.program_params
+    assert math.prod(len(d.feasible()) for d in source.values()) == 480
+
+
+@pytest.mark.parametrize("arch", sorted(SERVE_SETS))
+def test_matmul_pick_equals_the_uncapped_pick(arch):
+    """For every K1 triple of the full-width serve warm set, the pick under
+    select's default cap is the pick over the whole domain."""
+    from repro_torch.core.select import rank_candidates
+    for op in trace_warm_set(get_config(arch), **SERVE_SETS[arch]):
+        if op.family != "matmul_h100":
+            continue
+        data = op.data_dict()
+        capped = rank_candidates(MATMUL, tcore.H100_SXM, data)[0]
+        whole = rank_candidates(MATMUL, tcore.H100_SXM, data,
+                                max_per_leaf=10 ** 9)[0]
+        assert (capped.leaf_index, capped.assignment) == (
+            whole.leaf_index, whole.assignment), data
+
+
+@pytest.mark.parametrize("data,check", [
+    ({"M": 4, "N": 4096, "K": 4096}, "blocks"),
+    ({"M": 1, "N": 4096, "K": 14336}, "blocks"),
+    ({"M": 4, "N": 16, "K": 1600}, "columns"),
+    ({"M": 4, "N": 25, "K": 1600}, "columns")],
+    ids=["q_proj", "down_proj_m1", "bc_proj", "decay_proj"])
+def test_matmul_napkin_at_decode(data, check):
+    """At a decode projection the pick splits K until the grid covers the
+    132 SMs; at the SSM's narrow projections it takes no block wider than
+    32 columns (no 240 of 256 columns idle)."""
+    a = DispatchCache().best_variant(MATMUL, tcore.H100_SXM, data).assignment
+    if check == "blocks":
+        blocks = (-(-data["M"] // a["bm"]) * -(-data["N"] // a["bn"])
+                  * a["kb"])
+        assert blocks >= 132, a
+    else:
+        assert a["bn"] <= 32, a
+
+
+def test_matmul_every_feasible_leaf_launches():
+    """Every feasible leaf at a serve triple (hymba's B/C projection) passes
+    the C entry point's checks for both types, and its ``instantiate`` on
+    the CPU gives the product within rtol 1e-4 / atol 1e-3."""
+    import numpy as np
+    from repro_torch.core.select import enumerate_candidates
+    data = {"M": 4, "N": 16, "K": 1600}
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((4, 1600)).astype(np.float32))
+    b = torch.from_numpy((rng.standard_normal((1600, 16))
+                          / 40).astype(np.float32))
+    want = a.double() @ b.double()
+    cands = enumerate_candidates(MATMUL, tcore.H100_SXM, data)
+    assert len(cands) >= 100
+    assert {c.plan.flags["smem_cache"] for c in cands} == {True, False}
+    for c in cands:
+        asg, cached = c.assignment, c.plan.flags["smem_cache"]
+        for dtype in (torch.float32, torch.bfloat16):
+            assert mm_mod.format_error(4, 16, 1600, *(asg[n] for n in
+                                                       MM_PARAMS),
+                                       cached, dtype) is None, asg
+        fn = MATMUL.instantiate(c.plan, asg, "cpu", leaf_index=c.leaf_index)
+        if not cached:
+            assert fn.keywords["stages"] == 1
+        torch.testing.assert_close(fn(a, b).double(), want, rtol=1e-4,
+                                   atol=1e-3)

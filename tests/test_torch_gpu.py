@@ -10,8 +10,10 @@ runs on a machine that has only PyTorch (``--noconftest`` skips
 Tolerances, kernel against plain version on the same inputs:
 
 - f32 and bf16 matmul: rtol 1e-4 / atol 8e-4.  A bf16 product is exact in
-  f32, so both types differ only by the order of the f32 sums (the plain
-  version sums each k tile with cuBLAS, TF32 off; the kernel sums in order).
+  f32, so both types differ only by the order of the f32 sums inside a k
+  tile (the plain version sums each tile with cuBLAS, TF32 off; the kernel
+  on the tensor cores or in FMA); both add the tiles of a split, then the
+  splits, in the same order.
 - f32 attention: 1e-4, the same online softmax with ``expf`` against
   ``torch.exp`` and another summation order.
 - bf16 attention: 1e-2, one bf16 rounding step (2^-7) of the output, which
@@ -61,20 +63,100 @@ def test_gpu_kernels_build(cuda):
     assert set(build.SOURCES) <= set(build._LIBS)
 
 
+#: (bm, bn, bk, s) formats the K1 tests cycle through: both grains, both
+#: depths, 64 to 1024 threads a block.
+MM_FORMATS = [(16, 32, 32, 1), (16, 128, 64, 2), (32, 64, 32, 2),
+              (64, 128, 64, 2), (16, 256, 32, 1), (48, 64, 64, 1)]
+
+
+def _mm_inputs(M, K, N, dev, dtype, seed=7):
+    return _t((M, K), seed, dev, dtype), _t((K, N), seed + 1, dev, dtype)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bm,bn,bk,s,cached", [
-    (8, 64, 32, 2, True), (8, 64, 32, 2, False), (1, 256, 64, 1, True),
-    (4, 32, 16, 16, True), (32, 32, 128, 4, True), (16, 64, 64, 8, False)])
-def test_gpu_matmul_kernel_matches_plain(cuda, dtype, bm, bn, bk, s, cached):
-    a = _t((37, 300), 7, cuda, dtype)
-    b = _t((300, 333), 8, cuda, dtype)
-    n0 = matmul_h100.launches
-    got = matmul_h100(a, b, bm=bm, bn=bn, bk=bk, s=s, cached=cached)
-    torch.cuda.synchronize()
-    assert matmul_h100.launches == n0 + 1
-    want = matmul_plain(a, b, bm=bm, bn=bn, bk=bk, s=s)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=8e-4)
+@pytest.mark.parametrize("M", [1, 4, 17, 256])
+@pytest.mark.parametrize("N", [25, 333, 32001])
+def test_gpu_matmul_kernel_matches_plain(cuda, dtype, M, N):
+    """Every split (kb 1, 3, 16: K = 300 is 10 tiles of 32 or 5 of 64, so
+    kb 16 leaves empty splits) and ring depth (stages 1, 2, 4) at ragged M
+    and N; N = 25 and 32001 take the masked load of B."""
+    a, b = _mm_inputs(M, 300, N, cuda, dtype)
+    for i, (kb, stages) in enumerate([(kb, st) for kb in (1, 3, 16)
+                                      for st in (1, 2, 4)]):
+        bm, bn, bk, s = MM_FORMATS[(i + M + N) % len(MM_FORMATS)]
+        kw = dict(bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages)
+        n0 = matmul_h100.launches
+        got = matmul_h100(a, b, **kw)
+        torch.cuda.synchronize()
+        assert matmul_h100.launches == n0 + 1
+        torch.testing.assert_close(got, matmul_plain(a, b, **kw), rtol=1e-4,
+                                   atol=8e-4, msg=str(kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_matmul_misaligned_operands(cuda, dtype):
+    """Operands whose storage starts 2 or 4 bytes past a 16-byte boundary,
+    and K no multiple of 8, take the masked loads and agree."""
+    M, K, N = 5, 203, 96
+    a0 = _t((M * K + 1,), 3, cuda, dtype)[1:].view(M, K)
+    b0 = _t((K * N + 1,), 4, cuda, dtype)[1:].view(K, N)
+    assert a0.data_ptr() % 16 and b0.data_ptr() % 16
+    kw = dict(bm=16, bn=64, bk=32, s=2, kb=3, stages=4)
+    torch.testing.assert_close(matmul_h100(a0, b0, **kw),
+                               matmul_plain(a0, b0, **kw), rtol=1e-4,
+                               atol=8e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_matmul_two_launches_bit_identical(cuda, dtype):
+    """The split-K combine sums the partials in split order, never with
+    float atomics: two launches give the same bits."""
+    a, b = _mm_inputs(4, 4096, 4096, cuda, dtype)
+    kw = dict(bm=16, bn=128, bk=32, s=1, kb=16, stages=4)
+    first = matmul_h100(a, b, **kw)
+    for _ in range(3):
+        assert torch.equal(first, matmul_h100(a, b, **kw))
+
+
+@pytest.mark.gpu
+def test_gpu_matmul_workspace_grows_and_tickets_reset(cuda):
+    """A large split, a small one and the large one again: the workspace
+    grows on demand, every result agrees, and each launch leaves every
+    ticket at 0."""
+    from repro_torch.kernels import matmul as mm_mod
+    for M, N, K, kb in [(32, 4096, 1024, 16), (3, 40, 200, 2),
+                        (256, 2048, 512, 8), (32, 4096, 1024, 16)]:
+        a, b = _mm_inputs(M, K, N, cuda, torch.bfloat16)
+        kw = dict(bm=32, bn=64, bk=32, s=1, kb=kb, stages=2)
+        got = matmul_h100(a, b, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, matmul_plain(a, b, **kw), rtol=1e-4,
+                                   atol=8e-4)
+        part, tickets = mm_mod._WORKSPACE[a.device]
+        assert part.numel() >= kb * M * N
+        assert int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_gpu_matmul_invalid_format_raises(cuda):
+    """The entry point refuses what it does not take, as ``format_error``
+    says it will; the wrapper raises."""
+    from repro_torch.kernels.matmul import format_error
+    a, b = _mm_inputs(4, 64, 64, cuda, torch.bfloat16)
+    good = dict(bm=16, bn=32, bk=32, s=1, kb=2, stages=2)
+    assert format_error(4, 64, 64, **good, cached=True,
+                        dtype=torch.bfloat16) is None
+    matmul_h100(a, b, **good)
+    for bad in (dict(bm=8), dict(bn=48), dict(bk=16), dict(s=4),
+                dict(stages=3), dict(kb=0), dict(bm=64, bn=256)):
+        kw = {**good, **bad}
+        assert format_error(4, 64, 64, **kw, cached=True,
+                            dtype=torch.bfloat16) is not None
+        with pytest.raises(RuntimeError):
+            matmul_h100(a, b, **kw)
 
 
 @pytest.mark.gpu
@@ -216,9 +298,9 @@ def test_gpu_jacobi_kernel_matches_plain(cuda, n, steps, B, s, cached):
 def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     a = _t((8, 16), 1, cuda)
     with pytest.raises(ValueError):                     # not contiguous
-        matmul_h100(a.T, a, bm=4, bn=32, bk=16, s=1)
+        matmul_h100(a.T, a, bm=16, bn=32, bk=32, s=1)
     with pytest.raises(TypeError):                      # mixed types
-        matmul_h100(a, a.T.contiguous().half(), bm=4, bn=32, bk=16, s=1)
+        matmul_h100(a, a.T.contiguous().half(), bm=16, bn=32, bk=32, s=1)
     q = _t((2, 4, 256), 2, cuda)                        # head dim > 128
     with pytest.raises(ValueError):
         flash_attention_h100(q, q, q, bq=1, bkv=32)

@@ -15,6 +15,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro.kernels.jacobi1d import pallas_jacobi1d
+from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_h100
 from repro_torch.kernels.jacobi1d import jacobi1d_h100, jacobi1d_plain
@@ -57,17 +58,73 @@ def test_matmul_matches_jax_pallas(M, K, N, dtype):
     np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol * 8)
 
 
-@pytest.mark.parametrize("bm,bn,bk,s,cached", [
-    (1, 32, 16, 1, True), (4, 64, 32, 2, True), (8, 32, 64, 4, False),
-    (16, 64, 128, 16, True), (64, 256, 16, 1, False)])
-def test_matmul_every_block_format_same_product(bm, bn, bk, s, cached):
-    """Every (block format, grain, caching) leaf computes the same product
-    (paper Def. 2 ii), held against the JAX oracle."""
-    ja, ta = _pair(_np((96, 200), SEED + 2), "float32")
-    jb, tb = _pair(_np((200, 130), SEED + 3), "float32")
-    got = matmul_h100(ta, tb, bm=bm, bn=bn, bk=bk, s=s, cached=cached)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,bm,bn,bk,s,kb,stages,cached", [
+    (96, 200, 130, 16, 32, 32, 1, 1, 2, True),
+    (96, 200, 130, 64, 128, 64, 2, 1, 4, True),
+    (5, 200, 130, 16, 256, 32, 2, 3, 4, True),    # M < 16, 7 tiles / 3
+    (5, 200, 20, 16, 32, 64, 1, 2, 2, True),      # N < bn, 4 tiles / 2
+    (96, 1000, 25, 32, 64, 32, 1, 16, 4, True),   # 32 tiles / 16
+    (3, 300, 130, 16, 64, 64, 2, 4, 1, False),    # one stage, 5 tiles / 4
+    (17, 333, 70, 16, 32, 32, 1, 8, 1, False),    # 11 tiles / 8: 2 empty
+    (1, 250, 1, 16, 128, 32, 1, 5, 2, True)])
+def test_matmul_every_block_format_same_product(M, K, N, bm, bn, bk, s, kb,
+                                                stages, cached, dtype):
+    """Every (block format, grain, split, ring) leaf computes the same
+    product (paper Def. 2 ii), held against the JAX oracle: ragged M, N and
+    K, K no multiple of kb·bk, one stage, f32 and bf16."""
+    ja, ta = _pair(_np((M, K), SEED + 2), dtype)
+    jb, tb = _pair(_np((K, N), SEED + 3), dtype)
+    got = matmul_h100(ta, tb, bm=bm, bn=bn, bk=bk, s=s, kb=kb,
+                      stages=stages, cached=cached)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
     np.testing.assert_allclose(got.numpy(), np.asarray(jref.matmul(ja, jb)),
                                rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("K,bk,kb", [(1000, 32, 16), (333, 64, 3),
+                                     (64, 32, 8), (4096, 64, 8)])
+def test_matmul_plain_sums_splits_in_order(K, bk, kb):
+    """The plain version is deterministic (two calls equal bit for bit), sums
+    each split's k tiles and then the splits in order 0..kb-1 (an empty
+    split adds zero), and that order is within rtol 1e-4 / atol 1e-3 of a
+    float64 sum."""
+    a = torch.from_numpy(_np((7, K), SEED + 6))
+    b = torch.from_numpy(_np((K, 45), SEED + 7) / np.float32(np.sqrt(K)))
+    kw = dict(bm=16, bn=64, bk=bk, s=1, kb=kb, stages=2)
+    got = matmul_plain(a, b, **kw)
+    assert torch.equal(got, matmul_plain(a, b, **kw))
+    splits = mm_mod.split_tiles(K, bk, kb)
+    assert len(splits) == kb
+    assert [t for r in splits for t in r] == list(range(-(-K // bk)))
+    want = torch.zeros(7, 45)
+    for tiles in splits:
+        part = torch.zeros(7, 45)
+        for t in tiles:
+            part += a[:, t * bk:(t + 1) * bk] @ b[t * bk:(t + 1) * bk]
+        want += part
+    assert torch.equal(got, want)
+    exact = (a.double() @ b.double()).numpy()
+    np.testing.assert_allclose(got.numpy(), exact, rtol=1e-4, atol=1e-3)
+
+
+def test_matmul_format_error_mirrors_the_entry_point():
+    """The C entry point's checks in Python: what it takes and what it
+    refuses (the GPU tests hold the two against each other on the card)."""
+    ok = dict(M=4, N=4096, K=4096, bm=16, bn=128, bk=64, s=1, kb=8,
+              stages=4, cached=True, dtype=torch.bfloat16)
+    assert mm_mod.format_error(**ok) is None
+    assert mm_mod.format_error(**{**ok, "dtype": torch.float32}) is None
+    for bad in (dict(bm=8), dict(bm=24), dict(bn=48), dict(bk=16), dict(s=4),
+                dict(stages=3), dict(kb=0), dict(bm=64, bn=256, s=1),
+                dict(bn=32, N=32 * 65536), dict(bm=32, bn=256, bk=64, s=2,
+                                                dtype=torch.float32),
+                dict(dtype=torch.float16)):
+        assert mm_mod.format_error(**{**ok, **bad}) is not None, bad
+    # an uncached leaf runs one stage, so a ring too deep for V launches
+    deep = dict(ok, bm=32, bn=256, bk=64, s=2, stages=4,
+                dtype=torch.float32)
+    assert mm_mod.format_error(**{**deep, "cached": False}) is None
 
 
 def test_matmul_oracle_matches_jax_oracle():
@@ -385,10 +442,10 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
     m0, f0 = matmul_h100.launches, flash_attention_h100.launches
     s0 = ssd_scan_h100.launches
     a = torch.ones(4, 8)
-    assert torch.equal(matmul_h100(a, a.T.contiguous(), bm=4, bn=32, bk=16,
-                                   s=1),
-                       matmul_plain(a, a.T.contiguous(), bm=4, bn=32, bk=16,
-                                    s=1))
+    assert torch.equal(matmul_h100(a, a.T.contiguous(), bm=16, bn=32, bk=32,
+                                   s=1, kb=2, stages=4),
+                       matmul_plain(a, a.T.contiguous(), bm=16, bn=32, bk=32,
+                                    s=1, kb=2, stages=4))
     q = torch.ones(1, 2, 8)
     flash_attention_h100(q, q, q, bq=1, bkv=32)
     x = torch.ones(1, 3, 2, 8)
@@ -411,11 +468,11 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
 
 def test_kernel_path_refuses_cpu_tensors():
     from repro_torch.kernels import flash_attention as fa_mod
-    from repro_torch.kernels import matmul as mm_mod
     from repro_torch.kernels import ssd_scan as ssd_mod
     a = torch.ones(4, 8)
     with pytest.raises(ValueError):
-        mm_mod._launch(a, a.T, bm=4, bn=32, bk=16, s=1, cached=True)
+        mm_mod._launch(a, a.T, bm=16, bn=32, bk=32, s=1, kb=2, stages=4,
+                       cached=True)
     with pytest.raises(ValueError):
         fa_mod._launch(a[None], a[None], a[None], bq=1, bkv=32)
     x = torch.ones(1, 3, 2, 8)
