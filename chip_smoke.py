@@ -20,8 +20,20 @@ no phase is caught.
    napkin's two worst and its best others), each held against the plain
    version (the paper's code soundness, Def. 2 ii) and timed, eagerly and
    as device time, with the napkin's rank beside the card's.
-4. K2 ``flash_attention_h100`` against its plain version in bf16: prefill
-   chunk, decode over a ragged cache, non-causal sk = 200, window 128.
+4. K2 ``flash_attention_h100`` against its plain version in bf16, through
+   the leaf the dispatch picks: with one KV head a query head, a prefill
+   chunk, decode over a ragged cache, non-causal sk = 200, window 128; GQA
+   at the llama3-8b (32/8) and hymba-1.5b (25/5, window 1024) groupings;
+   and at sk 4096 a llama decode, a 256-row causal llama prefill chunk and
+   a hymba decode (its window reads 1024 of the 4096 keys).  A pick with
+   more than one key split is launched three times, bit for bit.  Each
+   row is timed eagerly and as device time beside SDPA (``enable_gqa`` where
+   the installed PyTorch takes it), and under ``torch.profiler`` each
+   kernel's device time a call (K2's attention and split combine, SDPA's
+   own).  Then at four llama3-8b signatures and the hymba decode at sk
+   4096 (``K2_LEAF_ROWS``) ten feasible leaves of different (bq, bkv,
+   kv_chunk, stages) each, held against the plain version and timed, with
+   the napkin's rank beside the card's.
 5. K3 ``ssd_scan_h100`` against its plain version in bf16 with an f32
    state, at the mamba2-130m (24 heads of 64, state 128) and hymba-1.5b (25
    heads of 64, state 16) signatures: a decode step of 4 rows at seq 1 with
@@ -39,8 +51,10 @@ no phase is caught.
    leaves the frozen lane; each result agrees with the plain version.
    Then matadd and transpose in bf16 at 8192 x 8192, each family at a
    ragged shape (300 x 700; n = 1026), and matadd at 1 x 2^25 and
-   transpose at 4 x 2^25, whose picks have more than 65,535 column
-   blocks; and at each of the four sizes up to eight leaves of different
+   2^22 x 8 and transpose at 4 x 2^25, the last two with more than 65,535
+   blocks on the grid's y; matadd's pick timed at 8192² in bf16 and in f32 one element off
+   the 16-byte boundary; and at each of the four sizes up to eight leaves
+   of different
    formats, each held against the plain version and timed, with the
    napkin's rank beside the card's: the leaves live under ``H100_SXM``
    (matadd: grain 2; transpose and Jacobi: cached, case 1, grains 1-8) and
@@ -73,7 +87,8 @@ Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
 fastest): one mean over one batch let a single slow batch set a row.  A
 launch whose host cost exceeds its device time reads its host cost this
-way, so K1 and ``torch.matmul`` also print ``device_ms``: 20 launches
+way, so K1, K2, K5, ``torch.matmul`` and SDPA also print ``device_ms``
+(``library_device_ms`` for the library call): 20 launches
 captured in one CUDA graph, replayed in 5 batches, the median over 20.  A
 matmul cycles through copies of its weight operand so that each launch
 reads it from device memory, as the serve path does (attention reads K/V
@@ -117,7 +132,14 @@ Tolerances, kernel against plain version on the same inputs:
   1/sqrt(K), as the model's weights are, outputs are O(1) and K <= 14336
   additions drift by at most K * 2^-24 ~ 1e-3.
 - attention in bf16, rtol = atol = 1e-2: both compute in f32 and round the
-  output to bf16 once; the two may round apart by one bf16 step (2^-7).
+  output to bf16 once; the two may round apart by one bf16 step (2^-7);
+  the kernel also rounds P to bf16 for the tensor cores (2^-9 relative,
+  averaged over the keys), and combines the key splits in the same order.
+  At sk 4096 an output element is about 0.02, so 1e-2 barely tells a
+  dropped split from rounding: a launch over more than one split is also
+  held to ||got - want|| / ||want|| <= 2^-6 (rounding gives a few 2^-9),
+  and the same check must refuse a planted fault, the reference computed
+  without the first split some query sees.
 - SSD scan: rtol = atol = 1e-3 on the f32 state, which both compute in f32
   by the same chunk math in another order of sums (at most 256 + state
   terms of O(1)) and with ``expf``/``logf`` against ``torch.exp``/``log``;
@@ -153,6 +175,7 @@ L2_FLUSH_BYTES = 128 * 2**20          # more than twice the H100's 50 MB L2
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 MM_TOL = dict(rtol=1e-4, atol=1e-3)
 FA_TOL = dict(rtol=1e-2, atol=1e-2)
+FA_REL = 2.0 ** -6                    # relative Frobenius error, split rows
 SSD_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 SSD_Y_TOL = dict(rtol=1e-2, atol=1e-2)
 JACOBI_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -257,7 +280,8 @@ def work(name: str, sig) -> tuple:
     each input read once, each output written once; attention counts the
     query-key pairs its masks leave visible, the SSD scan the recurrence's
     multiply-adds (S = a·S + b⊗x, y = c·S: 5·state·hd flops a step and
-    head) at the f32 rate, matadd one f32 add an element, a Jacobi sweep
+    head) at the f32 rate, attention's K/V bytes over its hk KV heads and
+    only the keys some query can see (a window's), matadd one f32 add an element, a Jacobi sweep
     two adds and a division a point, a transpose none."""
     esz = torch.empty((), dtype=sig[-1]).element_size()
     if name == "matmul_h100":
@@ -279,9 +303,12 @@ def work(name: str, sig) -> tuple:
         return (2 * R * S * H * hd * esz + 4 * R * S * H + 2 * R * S * n * esz
                 + state_bytes * (2 if with_state else 1),
                 5.0 * R * S * H * n * hd, PEAK_FLOPS[torch.float32])
-    h, sq, sk, d, _, _, causal, window, _ = sig
-    pairs = int(_visible(sq, sk, causal, window).sum())
-    return (2 * (h * sq * d + h * sk * d) * esz, 4.0 * h * pairs * d,
+    h, hk, sq, sk, d = sig[:5]
+    causal, window = sig[9:11]
+    mask = _visible(sq, sk, causal, window)
+    keys = int(mask.any(0).sum())           # keys some query can see
+    pairs = int(mask.sum())
+    return (2 * (h * sq * d + hk * keys * d) * esz, 4.0 * h * pairs * d,
             PEAK_FLOPS[sig[-1]])
 
 
@@ -340,28 +367,129 @@ def _visible(sq: int, sk: int, causal: bool, window) -> torch.Tensor:
     return mask
 
 
-def flash_case(sig, gen, *, timed: bool):
+_SDPA_GQA = []
+
+
+def sdpa_gqa() -> bool:
+    """Whether the installed ``scaled_dot_product_attention`` takes
+    ``enable_gqa`` (K/V with fewer heads than q); else phase 4 and 9 time it
+    on K/V broadcast outside the timed loop."""
+    if not _SDPA_GQA:
+        q = torch.zeros((1, 2, 1, 8), device=DEV)
+        try:
+            F.scaled_dot_product_attention(q, q[:, :1], q[:, :1],
+                                           enable_gqa=True)
+            _SDPA_GQA.append(True)
+        except TypeError:
+            _SDPA_GQA.append(False)
+    return _SDPA_GQA[0]
+
+
+def _masked_attention(q, k, v, mask) -> torch.Tensor:
+    """f32 attention of q [h, sq, d] over the keys ``mask`` [sq, sk] leaves,
+    K/V broadcast to q's heads; a row that sees no key gives 0."""
+    group = q.shape[0] // k.shape[0]
+    s = (q.float() @ k.float().repeat_interleave(group, 0).transpose(1, 2)
+         / math.sqrt(q.shape[-1])).masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, -1).nan_to_num(0.0)
+    return p @ v.float().repeat_interleave(group, 0)
+
+
+def split_held(name, q, k, v, got, want, kv_chunk, causal, window) -> tuple:
+    """(relative error, planted fault's relative error) of a launch over
+    more than one key split: ||got - want|| / ||want|| within ``FA_REL``,
+    and the same check refusing the reference computed without the first
+    split some query sees."""
+    def rel(x):
+        return float((x.float() - want.float()).norm()
+                     / want.float().norm())
+    err = rel(got)
+    if err > FA_REL:
+        raise AssertionError(f"{name}: relative error {err:.3e} > {FA_REL}")
+    sq, sk = q.shape[1], k.shape[1]
+    mask = _visible(sq, sk, causal, window)
+    z0 = int(mask.any(0).nonzero()[0]) // kv_chunk * kv_chunk
+    keys = torch.arange(sk, device=DEV)
+    fault = rel(_masked_attention(
+        q, k, v, mask & ((keys < z0) | (keys >= z0 + kv_chunk))).to(q.dtype))
+    if fault <= FA_REL:
+        raise AssertionError(f"{name}: the relative check passes a launch "
+                             f"without split {z0 // kv_chunk} ({fault:.3e})")
+    return err, fault
+
+
+def kernel_us(fn, calls: int = 20) -> dict:
+    """{kernel name: device µs a call} of ``fn`` under ``torch.profiler``,
+    over ``calls`` calls after 3 warm-up calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if e.count and t:
+            out[e.key] = out.get(e.key, 0.0) + t / calls
+    return out
+
+
+def flash_case(sig, gen, *, timed: bool, launches: int = 1,
+               leaf_only: bool = False, profiled: bool = False):
+    """K2 at (h, hk, sq, sk, d, bq, bkv, kv_chunk, stages, causal, window,
+    dtype), the wrapper's ``shapes`` key, on fresh inputs: held against the
+    plain version (and ``launches`` launches equal bit for bit; over more
+    than one split also by ``split_held``); timed eagerly and as device
+    time beside SDPA when ``timed`` (the kernel alone when ``leaf_only``),
+    each kernel's device time under the profiler when ``profiled``."""
     from repro_torch.kernels.flash_attention import (flash_attention_h100,
                                                      flash_attention_plain)
-    h, sq, sk, d, bq, bkv, causal, window, dtype = sig
+    h, hk, sq, sk, d, bq, bkv, kv_chunk, stages, causal, window, dtype = sig
     q = torch.randn((h, sq, d), generator=gen, device=DEV).to(dtype)
-    k = torch.randn((h, sk, d), generator=gen, device=DEV).to(dtype)
-    v = torch.randn((h, sk, d), generator=gen, device=DEV).to(dtype)
-    kw = dict(bq=bq, bkv=bkv, causal=causal, window=window)
+    k = torch.randn((hk, sk, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((hk, sk, d), generator=gen, device=DEV).to(dtype)
+    kw = dict(bq=bq, bkv=bkv, kv_chunk=kv_chunk, stages=stages,
+              causal=causal, window=window)
     got = flash_attention_h100(q, k, v, **kw)
     torch.cuda.synchronize()
     want = flash_attention_plain(q, k, v, **kw)
     row = {"err": held(f"flash {sig}", got, want, FA_TOL)}
+    if sk > kv_chunk:
+        row["rel"], row["fault_rel"] = split_held(
+            f"flash {sig}", q, k, v, got, want, kv_chunk, causal, window)
+    for _ in range(launches - 1):
+        if not torch.equal(got, flash_attention_h100(q, k, v, **kw)):
+            raise AssertionError(f"flash {sig}: two launches differ")
     if timed:
         mask = _visible(sq, sk, causal, window)
         sdpa_mask = None if bool(mask.all()) else mask
+        if sdpa_gqa():
+            ks, vs, extra = k[None], v[None], {"enable_gqa": h != hk}
+        else:
+            ks = k.repeat_interleave(h // hk, 0)[None]
+            vs = v.repeat_interleave(h // hk, 0)[None]
+            extra = {}
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q[None], ks, vs, attn_mask=sdpa_mask, **extra)
         time_into(row, "ms",
                   lambda: flash_attention_h100(q, k, v, **kw), 10)
+        row["device_ms"] = graph_ms(
+            lambda: flash_attention_h100(q, k, v, **kw))
+        row["bound_ms"] = max(bound_terms_ms("flash_attention_h100", sig))
+        if leaf_only:
+            return row
         time_into(row, "plain_ms",
                   lambda: flash_attention_plain(q, k, v, **kw), 2)
-        time_into(row, "library_ms", lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], attn_mask=sdpa_mask), 10)
-        row["bound_ms"] = max(bound_terms_ms("flash_attention_h100", sig))
+        time_into(row, "library_ms", sdpa, 10)
+        row["library_device_ms"] = graph_ms(sdpa)
+    if profiled:
+        row["k2_us"] = kernel_us(lambda: flash_attention_h100(q, k, v, **kw))
+        row["sdpa_us"] = kernel_us(sdpa)
     return row
 
 
@@ -411,17 +539,20 @@ def _cold_copies(tensors, nbytes: int):
                                         for _ in range(n - 1)])
 
 
-def matadd_case(sig, gen, *, timed: bool):
+def matadd_case(sig, gen, *, timed: bool, shift: int = 0):
+    """K5 at (M, N, bm, bn, s, dtype); ``shift`` 1 puts A and B one element
+    into their buffers, off the 16-byte boundary the vector loads need."""
     from repro_torch.kernels.matadd import matadd_h100, matadd_plain
     M, N, bm, bn, s, dtype = sig
-    a = torch.randn((M, N), generator=gen, device=DEV).to(dtype)
-    b = torch.randn((M, N), generator=gen, device=DEV).to(dtype)
+    a, b = (torch.randn((M * N + shift,), generator=gen, device=DEV).to(
+        dtype)[shift:].view(M, N) for _ in range(2))
     kw = dict(bm=bm, bn=bn, s=s)
     got = matadd_h100(a, b, **kw)
     torch.cuda.synchronize()
     row = {"err": exact(f"matadd {sig}", got, matadd_plain(a, b, **kw))}
     if timed:
         time_into(row, "ms", lambda: matadd_h100(a, b, **kw), 10)
+        row["device_ms"] = graph_ms(lambda: matadd_h100(a, b, **kw))
         time_into(row, "plain_ms", lambda: matadd_plain(a, b, **kw), 10)
         time_into(row, "library_ms", lambda: torch.add(a, b), 10)
         row["bound_ms"] = max(bound_terms_ms("matadd_h100", sig))
@@ -485,6 +616,9 @@ def fmt(row) -> str:
                 out += f" (spread {row[key + '_spread']:.4f})"
     if "library_err" in row:
         out += f" library_err {row['library_err']:.3e}"
+    if "rel" in row:
+        out += (f" rel_err {row['rel']:.3e} (without a split "
+                f"{row['fault_rel']:.3e})")
     return out
 
 
@@ -673,22 +807,138 @@ def phase_k1(gen) -> float:
     return err
 
 
-def phase_k2(gen) -> float:
+#: Phase 4's rows: (name, h, hk, sq, sk, d, causal, window).  One KV head
+#: a query head (the old contract), GQA at the llama3-8b (32/8) and
+#: hymba-1.5b (25/5, d 64, window 1024) groupings, and the long-context
+#: rows at sk 4096 the serve path's short prompts never reach.
+K2_ROWS = (
+    ("prefill chunk", 32, 32, 32, 96, 128, True, None),
+    ("decode", 32, 32, 1, 77, 128, True, None),
+    ("non-causal sk 200", 32, 32, 32, 200, 128, False, None),
+    ("window 128", 32, 32, 32, 300, 128, True, 128),
+    ("llama GQA prefill chunk", 32, 8, 32, 96, 128, True, None),
+    ("llama GQA decode", 32, 8, 1, 77, 128, True, None),
+    ("hymba GQA prefill chunk", 25, 5, 32, 96, 64, True, 1024),
+    ("hymba GQA decode", 25, 5, 1, 77, 64, True, 1024),
+    ("llama decode sk 4096", 32, 8, 1, 4096, 128, True, None),
+    ("llama 256-row prefill sk 4096", 32, 8, 256, 4096, 128, True, None),
+    ("hymba decode sk 4096, window 1024", 25, 5, 1, 4096, 64, True, 1024),
+)
+
+
+def _fa_sig(h, hk, sq, sk, d, causal, window, dtype=torch.bfloat16):
+    """The launch signature of the dispatch's pick for these shapes."""
     from repro_torch.kernels import ops
+    a = ops.select("flash_attention_h100",
+                   {"SQ": sq, "HD": d, "GROUP": h // hk, "HK": hk}
+                   ).assignment
+    return (h, hk, sq, sk, d, a["bq"], a["bkv"], a["kv_chunk"], a["stages"],
+            causal, window, dtype)
+
+
+#: The K2 signatures whose leaves phase 4 times (name, h, hk, sq, sk, d,
+#: causal, window): a serve decode step and prefill chunk of llama3-8b,
+#: the two llama rows at sk 4096 and hymba-1.5b's windowed decode there.
+K2_LEAF_ROWS = (
+    ("llama decode sk 64", 32, 8, 1, 64, 128, True, None),
+    ("llama prefill chunk sq 32 sk 64", 32, 8, 32, 64, 128, True, None),
+    ("llama decode sk 4096", 32, 8, 1, 4096, 128, True, None),
+    ("llama 256-row prefill sk 4096", 32, 8, 256, 4096, 128, True, None),
+    ("hymba decode sk 4096, window 1024", 25, 5, 1, 4096, 64, True, 1024),
+)
+FA_PARAMS = ("bq", "bkv", "kv_chunk", "stages")
+
+
+def _fa_leaves(data, want: int = 10) -> list:
+    """The pick, then the feasible leaves one step from it (bq, kv_chunk
+    doubled and halved, the other bkv and stages), then the napkin's two
+    worst, then its best others: ``want`` candidates of different formats."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import rank_candidates
+    from repro_torch.kernels.flash_attention import FAMILY
+    ranked = rank_candidates(FAMILY, H100_SXM, data)
+    key = lambda c: tuple(c.assignment[n] for n in FA_PARAMS)
+    by_key = {}
+    for c in ranked:
+        by_key.setdefault(key(c), c)
+    pick = ranked[0]
+    p = dict(pick.assignment)
+    order = [pick]
+    for name, vals in (("bq", (2 * p["bq"], p["bq"] // 2)),
+                       ("kv_chunk", (2 * p["kv_chunk"], p["kv_chunk"] // 2)),
+                       ("bkv", (96 - p["bkv"],)),
+                       ("stages", (2, 3, 4))):
+        for val in vals:
+            c = by_key.get(tuple({**p, name: val}[n] for n in FA_PARAMS))
+            if c is not None:
+                order.append(c)
+    order += ranked[:-3:-1] + ranked[1:]
+    out, seen = [], set()
+    for c in order:
+        if key(c) not in seen:
+            seen.add(key(c))
+            out.append(c)
+        if len(out) == want:
+            break
+    return out
+
+
+def _profile_line(times: dict) -> str:
+    """'total: kernel t; ...' of ``kernel_us``, longest first, K2's two
+    kernels by their short names."""
+    def short(name):
+        return next((k for k in ("combine_kernel", "flash_kernel")
+                     if k in name), name[:48])
+    parts = "; ".join(f"{short(n)} {t:.2f}" for n, t in
+                      sorted(times.items(), key=lambda kv: -kv[1]))
+    return f"{sum(times.values()):.2f} ({parts})"
+
+
+def phase_k2(gen) -> float:
     err = 0.0
-    for name, sq, sk, causal, window in [
-            ("prefill chunk", 32, 96, True, None),
-            ("decode", 1, 77, True, None),
-            ("non-causal sk 200", 32, 200, False, None),
-            ("window 128", 32, 300, True, 128)]:
-        a = ops.select("flash_attention_h100", {"SQ": sq, "HD": 128}
-                       ).assignment
-        sig = (32, sq, sk, 128, a["bq"], a["bkv"], causal, window,
-               torch.bfloat16)
-        row = flash_case(sig, gen, timed=True)
+    for name, h, hk, sq, sk, d, causal, window in K2_ROWS:
+        sig = _fa_sig(h, hk, sq, sk, d, causal, window)
+        # a split pick (sk past kv_chunk) is launched three times, bit for bit
+        splits = -(-sk // sig[7])
+        row = flash_case(sig, gen, timed=True,
+                         launches=3 if splits > 1 else 1, profiled=True)
         err = max(err, row["err"])
-        say(f"[K2] {name}: h32 sq{sq} sk{sk} d128 leaf {dict(a)}: "
+        leaf = dict(zip(("bq", "bkv", "kv_chunk", "stages"), sig[5:9]))
+        say(f"[K2] {name}: h{h} hk{hk} sq{sq} sk{sk} d{d} window {window} "
+            f"leaf {leaf}, {splits} split(s)"
+            f"{', three launches bit for bit equal' if splits > 1 else ''}: "
             f"{fmt(row)}")
+        say(f"[K2] {name}: device us a call (profiler): K2 "
+            f"{_profile_line(row['k2_us'])}; SDPA "
+            f"{_profile_line(row['sdpa_us'])}")
+    say(f"[K2] SDPA timed with enable_gqa: {sdpa_gqa()}")
+
+    # leaves of the tree at each signature: napkin rank, card rank
+    for name, h, hk, sq, sk, d, causal, window in K2_LEAF_ROWS:
+        rows = {}
+        for cand in _fa_leaves({"SQ": sq, "HD": d, "GROUP": h // hk,
+                                "HK": hk}):
+            sig = (h, hk, sq, sk, d,
+                   *(cand.assignment[n] for n in FA_PARAMS), causal, window,
+                   torch.bfloat16)
+            rows[sig] = dict(flash_case(sig, gen, timed=True,
+                                        leaf_only=True), score=cand.score)
+            err = max(err, rows[sig]["err"])
+        rank = {k: sorted(rows, key=lambda s: rows[s][k])
+                for k in ("ms", "device_ms")}
+        by_score = sorted(rows, key=lambda s: -rows[s]["score"])
+        for i, (sig, row) in enumerate(rows.items()):
+            leaf = dict(zip(FA_PARAMS, sig[5:9]))
+            say(f"[K2] leaf {name} {leaf}{' (pick)' if i == 0 else ''}: "
+                f"{fmt(row)}; napkin score {row['score']:.4g} rank "
+                f"{by_score.index(sig) + 1}, card rank "
+                f"{rank['ms'].index(sig) + 1} (device "
+                f"{rank['device_ms'].index(sig) + 1}) of {len(rows)}")
+        pick = rows[next(iter(rows))]
+        for k in ("ms", "device_ms"):
+            best = rows[rank[k][0]][k]
+            say(f"[K2] {name}: {k} pick {pick[k]:.4f}, fastest of "
+                f"{len(rows)} leaves {best:.4f} ({pick[k] / best:.2f}x)")
     return err
 
 
@@ -905,22 +1155,37 @@ def phase_cases(gen) -> dict:
     errs["jacobi1d_h100"] = max(errs["jacobi1d_h100"], held(
         "ops.jacobi1d n 1026", ops.jacobi1d(x, JACOBI_STEPS),
         jacobi1d_plain(x, JACOBI_STEPS, B=32, s=1), JACOBI_TOL))
-    # thin operands whose picks have more than 65,535 column blocks
+    # thin operands: matadd's (1, 2^25) has 16,384 column blocks (on the
+    # grid's x), its (2^22, 8) and transpose's (4, 2^25) more than 65,535
+    # blocks on the grid's y (one launch a 65,535)
     w = torch.randn((1 << 25,), generator=gen, device=DEV)
     exact("ops.matadd 1x2^25", ops.matadd(w[None], w.flip(0)[None]),
           w[None] + w.flip(0)[None])
+    t8 = w.view(1 << 22, 8)
+    exact("ops.matadd 2^22x8", ops.matadd(t8, t8.flip(0)), t8 + t8.flip(0))
     w = w.repeat(4).view(4, 1 << 25)
     exact("ops.transpose 4x2^25", ops.transpose(w), w.t().contiguous())
-    del w
+    del w, t8
     say(f"[cases] bf16 matadd and transpose at {tuple(ab.shape)}, f32 at "
         f"{tuple(r.shape)} and n {x.numel()}, matadd at (1, 2^25) and "
-        f"transpose at (4, 2^25): agree")
+        f"(2^22, 8) and transpose at (4, 2^25): agree")
     del a, b, t, xs, ab, tb
     torch.cuda.empty_cache()
 
     rows = {name: {} for name in kernels}
     for name, data in CASE_PATH:
         rows[name].update(case_leaf_rows(name, data, gen))
+    # K5's pick at 8192² in bf16, and in f32 with A and B one element into
+    # their buffers (the masked scalar path), bit for bit and timed
+    pick = _format(ops.FAMILIES["matadd_h100"],
+                   ops.select("matadd_h100", add_d))
+    for dtype, shift in ((torch.bfloat16, 0), (torch.float32, 1)):
+        sig = _sig("matadd_h100", add_d, pick, dtype)
+        row = matadd_case(sig, gen, timed=True, shift=shift)
+        if not shift:
+            rows["matadd_h100"][sig] = row
+        say(f"[cases] matadd pick {sig[:-1]} {dtype}"
+            f"{', misaligned by one element' if shift else ''}: {fmt(row)}")
     for name, by_sig in shapes.items():
         for sig in by_sig:
             if sig not in rows[name]:          # the pick, timed above

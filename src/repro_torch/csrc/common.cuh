@@ -27,6 +27,7 @@ static cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// gridDim.y is capped at 65,535: a grid whose y counts column blocks is
-// launched once for each 65,535 of them, the kernel taking the first.
+// gridDim.y is capped at 65,535: a grid whose y counts column blocks (K4)
+// or row blocks (K5) is launched once for each 65,535 of them, the kernel
+// taking the first.
 constexpr long long kMaxGridY = 65535;

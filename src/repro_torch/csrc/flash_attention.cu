@@ -1,187 +1,781 @@
 // K2 flash_attention_h100: online-softmax attention over q [h, sq, d] and
-// k, v [h, sk, d] (sq <= sk, ends aligned: query i sits at key position
-// i + sk - sq), causal and sliding-window masks, scale 1/sqrt(d) by default;
-// output [h, sq, d] in q's type.  d <= 128.
+// k, v [hk, sk, d] with h % hk == 0 (grouped-query attention: query head i
+// reads KV head i / (h/hk)); sq <= sk, ends aligned (query i sits at key
+// position i + sk - sq); causal and sliding-window masks; scale 1/sqrt(d) by
+// default; m, l and acc in f32; output [h, sq, d] in q's type.  d <= 128.
 //
 // Replaces the TPU kernel pallas_flash_attention
-// (src/repro/kernels/flash_attention.py, _fa_kernel).  The TPU walks kv tiles
-// as the last, sequential grid axis and carries m, l and acc in VMEM scratch;
-// here each block walks its kv tiles in order in a loop and keeps m, l and
-// acc in registers.  Keys at or past sk are never read, so padded keys cannot
-// enter the softmax even without a causal mask (the TPU kernel lets them in
-// when causal=False).
+// (src/repro/kernels/flash_attention.py:75, _fa_kernel).  The TPU walks kv
+// tiles as the last, sequential grid axis and carries m, l and acc in VMEM
+// scratch, over K/V broadcast to every query head.  Here a block walks its kv
+// tiles in a loop and keeps m, l and acc in registers, and reads each K/V
+// tile once for the whole group of query heads that shares it.  Keys at or
+// past sk are never read, so padded keys cannot enter the softmax even
+// without a causal mask (the TPU kernel lets them in when causal=False).
 //
-// Layout: grid (h, ceil(sq/bq)), one warp per query row (32*bq threads).
-// Each kv tile of bkv keys is staged in shared memory as f32 (K rows padded
-// to d+1 floats so that lanes reading different keys hit different banks).
-// Lane j scores keys j, j+32, ...; the tile max and sum are warp reductions;
-// the probabilities go through a per-warp row of shared memory, and lane j
-// then accumulates output dims j, j+32, j+64, j+96.  Tiles wholly past the
-// causal limit, or wholly before the window, of every row of the block are
-// skipped.
-//
-// Bound on the card: the prefill chunk (h 32, sq 32, sk <= 256, d 128) does
-// 4*h*sq*sk*d flops on 2*h*sk*d*2 bytes of K and V, about sq flops a byte,
-// and decode (sq 1) about one: both below the ~295 flop/byte where the bf16
-// tensor-core rate would bind, so it is bound by bytes.  This first kernel
-// runs on the CUDA cores in f32 and reads K/V once per block of bq rows.
+// Bound on the card: a decode step (sq 1) does 4*h*sk*d flops on 2*hk*sk*d
+// bf16 bytes of K and V, 4*group flops a byte, and a prefill chunk sq times
+// that: far below the ~295 flop/byte where the bf16 tensor cores would bind
+// until sq*group reaches the hundreds.  So it is bound by the bytes of K/V,
+// which must be read once and with enough of them in flight (~3.4 MB over
+// the card).  The design:
+//   - GQA packed into M: a block owns one KV head and bq "packed rows", row
+//     r = query (r / group) of query head (kvh*group + r % group); a warp
+//     owns 16 of them, the tensor-core M.  Decode of llama3-8b puts its 4
+//     query heads into one warp's 16 rows and reads K/V 4x less than with
+//     the heads broadcast.
+//   - a ring of `stages` K/V tiles of bkv keys in shared memory, in the
+//     inputs' own type, filled by 16-byte cp.async and XOR-swizzled by
+//     16-byte chunk so that the 8 rows an ldmatrix reads fall in 8 bank
+//     groups; the copies of tile i+stages-1 are in flight while tile i is
+//     computed, and are issued between its products (K after the scores, V
+//     after the softmax), since issuing a tile's 16-byte copies takes the
+//     SM's load unit about as long as a decode block's products of a tile.
+//     Operands whose d or base breaks 16-byte alignment are loaded element
+//     by element, masked, synchronously.
+//   - bf16 on the tensor cores: S = Q K^T by mma.sync m16n8k16 (Q and K
+//     fragments by ldmatrix from their [row][d] tiles), the online
+//     softmax on the f32 accumulator fragments (row max and sum over the
+//     quad of lanes that share a row), P rounded to bf16 and fed from the
+//     registers as the A operand of O += P V (V by ldmatrix.trans).  f32
+//     runs the same tiles, ring and fragments with FMA from shared memory
+//     (P through a per-warp row of shared memory), never TF32.
+//   - key warps: a decode block's few packed rows (bq 16 or 32) would be
+//     one or two warps, each alone on its scheduler and waiting on every
+//     latency; 64 / bq warps a row warp each take a slice (>= 16 keys) of
+//     every tile with their own m, l and acc, combined in key-warp order at
+//     the end through shared memory, so that a decode block has 4 warps.
+//   - split-KV: the keys are cut into runs of kv_chunk; grid (row blocks,
+//     hk, ceil(sk/kv_chunk)), so a decode step over a long cache still puts
+//     a hundred blocks on the 132 SMs.  Each split writes its rows' m, l and
+//     unnormalised acc to a workspace; a second small launch combines them
+//     per output element in split order 0..n-1 (no float atomics: two
+//     launches give the same bits).  One split writes O directly.
+//   - a block skips the tiles no row of it can see (causal limit, window),
+//     and a split that no row of the block can see returns at once, so a
+//     windowed decode reads only the window's keys.
 #include "common.cuh"
 
-#define WARP 32
-#define DMAX 128
+#include <cstdint>
 
-template <typename T>
-__global__ void flash_kernel(const T* __restrict__ Q, const T* __restrict__ K,
-                             const T* __restrict__ V, T* __restrict__ O, int sq,
-                             int sk, int d, int bq, int bkv, float scale,
-                             int causal, int window) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [bq][d], pre-scaled
-  float* Ks = Qs + bq * d;               // [bkv][d+1]
-  float* Vs = Ks + bkv * (d + 1);        // [bkv][d]
-  float* Ps = Vs + bkv * d;              // [bq][bkv]
+namespace {
 
-  const int h = blockIdx.x;
-  const int q0 = blockIdx.y * bq;
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x % WARP;
-  const int nthreads = blockDim.x;
-  const int offset = sk - sq;
-  const size_t qbase = (size_t)h * sq * d;
-  const size_t kbase = (size_t)h * sk * d;
+constexpr int kMaxSmem = 232448;      // bytes a block may opt into on an H100
+constexpr int kMaxGridYZ = 65535;
+constexpr int kMaxDevices = 16;
+constexpr int kCombineThreads = 256;
 
-  for (int i = threadIdx.x; i < bq * d; i += nthreads) {
-    const int r = i / d, c = i % d;
-    Qs[i] = (q0 + r < sq) ? to_f32(Q[qbase + (size_t)(q0 + r) * d + c]) * scale
-                          : 0.f;
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* ws;           // [nsplit][h][sq][D] acc, then [nsplit][h][sq][2] m, l
+  int h, hk, group, sq, sk, d;
+  int bq, kv_chunk, stages, nsplit;
+  float scale, inv_group;
+  int causal, window;  // window 0: none
+  int vec;             // 16-byte copies allowed for q, k, v
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Physical 16-byte chunk of logical chunk c in row r (rows are >= 8 chunks).
+__device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Wait until at most stages - 2 groups of this thread are pending.
+__device__ __forceinline__ void cp_async_wait_ring(int stages) {
+  switch (stages) {
+    case 2: cp_async_wait<0>(); break;
+    case 3: cp_async_wait<1>(); break;
+    default: cp_async_wait<2>(); break;
   }
+}
 
-  // key range any row of this block can see
-  const int last_row = min(q0 + bq, sq) - 1;
-  const int kend = causal ? min(sk, last_row + offset + 1) : sk;
-  const int kbeg = window > 0 ? max(0, q0 + offset - window + 1) : 0;
-
-  const int qi = q0 + warp;                 // this warp's query row
-  const bool live = qi < sq;
-  const int qpos = qi + offset;
-  const int klo = window > 0 ? qpos - window + 1 : 0;   // first visible key
-  const int khi = causal ? qpos : sk - 1;               // last visible key
-
-  float m = -INFINITY, l = 0.f;
-  float acc[DMAX / WARP];
-#pragma unroll
-  for (int t = 0; t < DMAX / WARP; ++t) acc[t] = 0.f;
-  float* prow = Ps + warp * bkv;
-  const float* qrow = Qs + warp * d;
-
-  for (int k0 = kbeg; k0 < kend; k0 += bkv) {
-    const int n = min(bkv, kend - k0);
-    __syncthreads();                        // previous tile fully consumed
-    for (int i = threadIdx.x; i < n * d; i += nthreads) {
-      const int r = i / d, c = i % d;
-      const size_t g = kbase + (size_t)(k0 + r) * d + c;
-      Ks[r * (d + 1) + c] = to_f32(K[g]);
-      Vs[r * d + c] = to_f32(V[g]);
+// Rows [0, rows) of a [rows][D] tile, swizzled; row r comes from row_ptr(r)
+// (nullptr: zero), columns at or past d are zero.
+template <typename T, int D, typename RowPtr>
+__device__ __forceinline__ void load_rows(T* s, int rows, int d, bool vec,
+                                          const T* any, RowPtr row_ptr) {
+  constexpr int EPC = 16 / sizeof(T);
+  constexpr int W = D / EPC;                   // chunks a row, a power of 2
+  if (vec) {
+    for (int i = threadIdx.x; i < rows * W; i += blockDim.x) {
+      const int r = i / W, c = i % W;
+      const T* src = row_ptr(r);
+      const bool ok = src != nullptr && c * EPC < d;
+      cp_async16(s + (r * W + swz(r, c)) * EPC, ok ? src + c * EPC : any, ok);
     }
-    __syncthreads();
-    if (!live) continue;
-    if (k0 > khi || k0 + n - 1 < klo) continue;   // whole tile masked
-
-    float sc[8];                            // bkv <= 256 keys, 8 per lane
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int j = lane + i * WARP;
-      sc[i] = -INFINITY;
-      if (j < n) {
-        const int kp = k0 + j;
-        if (kp >= klo && kp <= khi) {
-          const float* krow = Ks + j * (d + 1);
-          float s = 0.f;
-          for (int c = 0; c < d; ++c) s += qrow[c] * krow[c];
-          sc[i] = s;
-          mx = fmaxf(mx, s);
-        }
-      }
-    }
-#pragma unroll
-    for (int o = WARP / 2; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    if (mx == -INFINITY) continue;          // no visible key for this row
-    const float m_new = fmaxf(m, mx);
-    const float corr = expf(m - m_new);     // m = -inf on the first tile: 0
-    float psum = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int j = lane + i * WARP;
-      if (j < n) {
-        const float p = sc[i] == -INFINITY ? 0.f : expf(sc[i] - m_new);
-        prow[j] = p;
-        psum += p;
-      }
-    }
-#pragma unroll
-    for (int o = WARP / 2; o > 0; o >>= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < DMAX / WARP; ++t) {
-      const int c = lane + t * WARP;
-      if (c < d) {
-        float a = acc[t] * corr;
-        for (int j = 0; j < n; ++j) a += prow[j] * Vs[j * d + c];
-        acc[t] = a;
-      }
-    }
-    __syncwarp();
-  }
-
-  if (live) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int t = 0; t < DMAX / WARP; ++t) {
-      const int c = lane + t * WARP;
-      if (c < d) from_f32(acc[t] * inv, &O[qbase + (size_t)qi * d + c]);
+  } else {
+    for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
+      const int r = i / D, e = i % D;
+      const T* src = row_ptr(r);
+      s[(r * W + swz(r, e / EPC)) * EPC + e % EPC] =
+          (src != nullptr && e < d) ? src[e] : T(0.f);
     }
   }
 }
 
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+// Fragments of m16n8k16 (g = lane / 4, q = lane % 4): a thread holds rows g
+// and g + 8 of its warp's 16, and of each n8 tile of S (keys) or O (dims)
+// the columns 2q and 2q + 1: x[t][0..1] on row g, x[t][2..3] on row g + 8.
+// A warp scores the nt n8 tiles of keys kofs.. of the kv tile (its slice;
+// nt even, at most BKV / 8).
+
+// bf16: S[16][8 nt] = Q K^T from the [bq][D] Q tile and the [BKV][D] K
+// tile (nt <= NTMAX).  Fragments load ahead of their products: each k step's
+// Q fragment and K fragments, and for a warp's slice of two n8 tiles (decode)
+// four k steps' at once, so that the products wait on one another and not on
+// each load.
+template <int D, int BKV, int NTMAX>
+__device__ __forceinline__ void scores(const __nv_bfloat16* Ks, int kofs,
+                                       int nt, int w0,
+                                       const __nv_bfloat16* Qs, int lane,
+                                       float (&s)[BKV / 8][4]) {
+  constexpr int W = D / 8, KB = NTMAX == 2 ? 4 : 1;
+  const int j = lane >> 3, rr = lane & 7;
+  const int qrow = w0 + (j & 1) * 8 + rr;
+#pragma unroll
+  for (int k0 = 0; k0 < D / 16; k0 += KB) {
+    unsigned a[KB][4], b[KB][NTMAX / 2][4];
+#pragma unroll
+    for (int u = 0; u < KB; ++u) {
+      const int kk = k0 + u;
+      ldmatrix_x4(a[u], Qs + (qrow * W + swz(qrow, kk * 2 + (j >> 1))) * 8);
+#pragma unroll
+      for (int t = 0; t < NTMAX; t += 2) {
+        if (t >= nt) break;
+        const int key = kofs + (t + (j >> 1)) * 8 + rr;
+        ldmatrix_x4(b[u][t / 2],
+                    Ks + (key * W + swz(key, kk * 2 + (j & 1))) * 8);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < KB; ++u)
+#pragma unroll
+      for (int t = 0; t < NTMAX; t += 2) {
+        if (t >= nt) break;
+        mma_bf16(s[t], a[u], b[u][t / 2][0], b[u][t / 2][1]);
+        mma_bf16(s[t + 1], a[u], b[u][t / 2][2], b[u][t / 2][3]);
+      }
+  }
+}
+
+// f32: the same S by FMA, Q read from its shared tile (warp rows w0..w0+15).
+template <int D, int BKV, int NTMAX>
+__device__ __forceinline__ void scores(const float* Ks, int kofs, int nt,
+                                       int w0, const float* Qs, int lane,
+                                       float (&s)[BKV / 8][4]) {
+  constexpr int W = D / 4;
+  const int r0 = w0 + (lane >> 2), r1 = r0 + 8, q2 = 2 * (lane & 3);
+  for (int c = 0; c < W; ++c) {
+    const float4 a0 =
+        *reinterpret_cast<const float4*>(Qs + (r0 * W + swz(r0, c)) * 4);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(Qs + (r1 * W + swz(r1, c)) * 4);
+#pragma unroll
+    for (int t = 0; t < BKV / 8; ++t) {
+      if (t >= nt) break;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kofs + t * 8 + q2 + e;
+        const float4 b =
+            *reinterpret_cast<const float4*>(Ks + (key * W + swz(key, c)) * 4);
+        float x = s[t][e], y = s[t][2 + e];
+        x = fmaf(a0.x, b.x, x); x = fmaf(a0.y, b.y, x);
+        x = fmaf(a0.z, b.z, x); x = fmaf(a0.w, b.w, x);
+        y = fmaf(a1.x, b.x, y); y = fmaf(a1.y, b.y, y);
+        y = fmaf(a1.z, b.z, y); y = fmaf(a1.w, b.w, y);
+        s[t][e] = x;
+        s[t][2 + e] = y;
+      }
+    }
+  }
+}
+
+// bf16: O[16][D] += P V over the warp's keys, P from the score fragments
+// (rounded to bf16), V by ldmatrix.trans from the [BKV][D] tile, up to four
+// fragment loads ahead of their products.
+template <int D, int BKV>
+__device__ __forceinline__ void pv(const float (&p)[BKV / 8][4],
+                                   const __nv_bfloat16* Vs, int kofs, int nt,
+                                   float*, int lane, float (&acc)[D / 8][4]) {
+  constexpr int W = D / 8, PAIRS = D / 16, BATCH = PAIRS < 4 ? PAIRS : 4;
+  const int j = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    if (2 * kk >= nt) break;
+    const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const int key = kofs + kk * 16 + (j & 1) * 8 + rr;
+#pragma unroll
+    for (int c0 = 0; c0 < PAIRS; c0 += BATCH) {
+      unsigned b[BATCH][4];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+        ldmatrix_x4_trans(
+            b[u], Vs + (key * W + swz(key, 2 * (c0 + u) + (j >> 1))) * 8);
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        mma_bf16(acc[2 * (c0 + u)], a, b[u][0], b[u][1]);
+        mma_bf16(acc[2 * (c0 + u) + 1], a, b[u][2], b[u][3]);
+      }
+    }
+  }
+}
+
+// f32: the same by FMA, P through the warp's [16][BKV + 4] row of shared
+// memory.
+template <int D, int BKV>
+__device__ __forceinline__ void pv(const float (&p)[BKV / 8][4],
+                                   const float* Vs, int kofs, int nt,
+                                   float* Ps, int lane,
+                                   float (&acc)[D / 8][4]) {
+  constexpr int W = D / 4, LD = BKV + 4;
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < BKV / 8; ++t) {
+    if (t >= nt) break;
+    Ps[g * LD + t * 8 + q2] = p[t][0];
+    Ps[g * LD + t * 8 + q2 + 1] = p[t][1];
+    Ps[(g + 8) * LD + t * 8 + q2] = p[t][2];
+    Ps[(g + 8) * LD + t * 8 + q2 + 1] = p[t][3];
+  }
+  __syncwarp();
+  for (int i = 0; i < nt * 8; ++i) {
+    const int key = kofs + i;
+    const float p0 = Ps[g * LD + i], p1 = Ps[(g + 8) * LD + i];
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = c * 8 + q2;             // even: col, col+1 in a chunk
+      const float2 v = *reinterpret_cast<const float2*>(
+          Vs + (key * W + swz(key, col >> 2)) * 4 + (col & 3));
+      acc[c][0] = fmaf(p0, v.x, acc[c][0]);
+      acc[c][1] = fmaf(p0, v.y, acc[c][1]);
+      acc[c][2] = fmaf(p1, v.x, acc[c][2]);
+      acc[c][3] = fmaf(p1, v.y, acc[c][3]);
+    }
+  }
+}
+
+// Key warps a block gives each row warp: decode's few rows (bq 16 or 32)
+// take 64 / bq warps each on a slice of every kv tile, at least 16 keys.
+__host__ __device__ __forceinline__ int key_warps(int bq, int bkv) {
+  if (bq >= 64) return 1;
+  const int kw = 64 / bq;
+  return kw < bkv / 16 ? kw : bkv / 16;
+}
+
+// r / group for a packed row r < 2^24 (its head in the group is r - q *
+// group): a float product and one correction step in place of an integer
+// division.
+__device__ __forceinline__ int div_group(int r, const Args& p) {
+  int q = __float2int_rz((float)r * p.inv_group);
+  if ((q + 1) * p.group <= r) ++q;
+  else if (q * p.group > r) --q;
+  return q;
+}
+
+// Two neighbouring columns (col even) of an output row: one 4- or 8-byte
+// store where d is even, else element by element.
 template <typename T>
-static cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                          int h, int sq, int sk, int d, int bq, int bkv,
-                          float scale, int causal, int window,
-                          cudaStream_t stream) {
-  auto kernel = flash_kernel<T>;
-  const size_t smem =
-      sizeof(float) * ((size_t)bq * d + (size_t)bkv * (d + 1) +
-                       (size_t)bkv * d + (size_t)bq * bkv);
-  cudaError_t err = allow_smem(kernel, smem);
+__device__ __forceinline__ void store2(T* o, int col, int d, float x,
+                                       float y) {
+  if ((d & 1) == 0 && col + 1 < d) {
+    if constexpr (sizeof(T) == 2)
+      *reinterpret_cast<__nv_bfloat162*>(o + col) =
+          __floats2bfloat162_rn(x, y);
+    else
+      *reinterpret_cast<float2*>(o + col) = make_float2(x, y);
+  } else {
+    if (col < d) from_f32(x, o + col);
+    if (col + 1 < d) from_f32(y, o + col + 1);
+  }
+}
+
+template <typename T, int D, int BKV>
+__global__ void __launch_bounds__(256) flash_kernel(const Args p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr int EPC = 16 / sizeof(T), W = D / EPC;  // chunks a tile row
+  const T* Q = static_cast<const T*>(p.q);
+  const T* K = static_cast<const T*>(p.k);
+  const T* V = static_cast<const T*>(p.v);
+  T* Qs = reinterpret_cast<T*>(smem_raw);                  // [bq][D]
+  T* ring = Qs + p.bq * D;                                 // [stages][2][BKV][D]
+  float* Ps = reinterpret_cast<float*>(ring + p.stages * 2 * BKV * D);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nrw = p.bq / 16, nkw = key_warps(p.bq, BKV);
+  const int rw = warp % nrw, kw = warp / nrw;   // row warp, key warp
+  const int nt = BKV / 8 / nkw, kofs = kw * nt * 8;
+  const int rows = p.group * p.sq;
+  const int r0 = blockIdx.x * p.bq;
+  const int kvh = blockIdx.y, z = blockIdx.z;
+  const int off = p.sk - p.sq;
+
+  // keys any row of the block can see, within this split
+  const int qi_lo = div_group(r0, p);
+  const int qi_hi = div_group(min(r0 + p.bq, rows) - 1, p);
+  const int kend = p.causal ? min(p.sk, qi_hi + off + 1) : p.sk;
+  const int kbeg = p.window > 0 ? max(0, qi_lo + off - p.window + 1) : 0;
+  const int zs = z * p.kv_chunk;
+  const int lo = max(kbeg, zs);
+  const int hi = min(kend, min(p.sk, zs + p.kv_chunk));
+  if (p.nsplit > 1 && lo >= hi) return;     // the combine skips this split
+  const int ntiles = hi > lo ? (hi - lo + BKV - 1) / BKV : 0;
+
+  // this thread's two rows
+  const int w0 = rw * 16;
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  int head[2], qi[2], klo[2], khi[2];
+  bool live[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + w0 + g + 8 * i;
+    live[i] = r < rows;
+    qi[i] = div_group(r, p);
+    head[i] = kvh * p.group + (r - qi[i] * p.group);
+    const int qpos = qi[i] + off;
+    klo[i] = p.window > 0 ? qpos - p.window + 1 : 0;
+    khi[i] = p.causal ? qpos : p.sk - 1;
+  }
+
+  // a thread copies chunk lc of tile rows lr0, lr0 + rstep, ... (blockDim
+  // is a multiple of W)
+  const int lc = threadIdx.x % W, lr0 = threadIdx.x / W;
+  const int rstep = blockDim.x / W;
+  const bool lc_ok = lc * EPC < p.d;
+  // tile i's K (part 1), V (part 2) or both (3) into its ring slot
+  auto load_tile = [&](int i, int part) {
+    const int k0 = lo + i * BKV;
+    T* Ks = ring + (i % p.stages) * 2 * BKV * D;
+    const T* kb = K + ((size_t)kvh * p.sk + k0) * p.d;
+    const T* vb = V + ((size_t)kvh * p.sk + k0) * p.d;
+    const int n = hi - k0;
+    if (p.vec) {
+      for (int r = lr0; r < BKV; r += rstep) {
+        const bool ok = lc_ok && r < n;
+        const int at = r * p.d + lc * EPC;
+        const int dst = (r * W + (lc ^ (r & 7))) * EPC;
+        if (part & 1) cp_async16(Ks + dst, ok ? kb + at : K, ok);
+        if (part & 2) cp_async16(Ks + BKV * D + dst, ok ? vb + at : V, ok);
+      }
+    } else {
+      if (part & 1)
+        load_rows<T, D>(Ks, BKV, p.d, false, K, [&](int r) -> const T* {
+          return r < n ? kb + (size_t)r * p.d : nullptr;
+        });
+      if (part & 2)
+        load_rows<T, D>(Ks + BKV * D, BKV, p.d, false, V,
+                        [&](int r) -> const T* {
+                          return r < n ? vb + (size_t)r * p.d : nullptr;
+                        });
+    }
+  };
+
+  load_rows<T, D>(Qs, p.bq, p.d, p.vec, Q, [&](int r) -> const T* {
+    const int rr = r0 + r;
+    if (rr >= rows) return nullptr;
+    const int qq = div_group(rr, p);
+    const int hq = kvh * p.group + (rr - qq * p.group);
+    return Q + ((size_t)hq * p.sq + qq) * p.d;
+  });
+  for (int i = 0; i < p.stages - 1; ++i) {
+    if (i < ntiles) load_tile(i, 3);
+    cp_async_commit();                      // group 0 also holds Q
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) acc[c][0] = acc[c][1] = acc[c][2] =
+      acc[c][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float* Pw = Ps + warp * 16 * (BKV + 4);
+
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait_ring(p.stages);           // tile i (and Q) landed, here
+    __syncthreads();                        // ... everywhere; slot i-1 free
+    const bool more = i + p.stages - 1 < ntiles;
+    const T* Ks = ring + (i % p.stages) * 2 * BKV * D;
+    const T* Vs = Ks + BKV * D;
+    const int k0 = lo + i * BKV + kofs;     // this warp's first key
+
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int t = 0; t < BKV / 8; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] =
+        0.f;
+    if (nt == 2)
+      scores<D, BKV, 2>(Ks, kofs, nt, w0, Qs, lane, s);
+    else
+      scores<D, BKV, BKV / 8>(Ks, kofs, nt, w0, Qs, lane, s);
+    if (more) load_tile(i + p.stages - 1, 1);       // next K, behind them
+
+    // scale and mask (no mask where every live row of the warp sees all of
+    // its keys); the rows' maxima over the warp's keys
+    const int k1 = k0 + nt * 8;             // past the warp's last key
+    bool all = k1 <= hi;
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2)
+      all = all && (!live[i2] || (klo[i2] <= k0 && k1 - 1 <= khi[i2]));
+    all = __all_sync(0xffffffffu, all);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < BKV / 8; ++t) {
+      if (t >= nt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1;
+        const int kp = k0 + t * 8 + q2 + (e & 1);
+        const bool ok = all || (live[i2] && kp < hi && kp >= klo[i2] &&
+                                kp <= khi[i2]);
+        s[t][e] = ok ? s[t][e] * p.scale : -INFINITY;
+        mx[i2] = fmaxf(mx[i2], s[t][e]);
+      }
+    }
+    float corr[2], ms[2];
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 1));
+      mx[i2] = fmaxf(mx[i2], __shfl_xor_sync(0xffffffffu, mx[i2], 2));
+      const float m_new = fmaxf(m[i2], mx[i2]);
+      ms[i2] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i2] = __expf(m[i2] - ms[i2]);    // m = -inf on the first tile: 0
+      m[i2] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int t = 0; t < BKV / 8; ++t) {
+      if (t >= nt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i2 = e >> 1;
+        s[t][e] = __expf(s[t][e] - ms[i2]);   // masked: exp(-inf) = 0
+        sum[i2] += s[t][e];
+      }
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      sum[i2] += __shfl_xor_sync(0xffffffffu, sum[i2], 1);
+      sum[i2] += __shfl_xor_sync(0xffffffffu, sum[i2], 2);
+      l[i2] = l[i2] * corr[i2] + sum[i2];
+    }
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        acc[c][0] *= corr[0];
+        acc[c][1] *= corr[0];
+        acc[c][2] *= corr[1];
+        acc[c][3] *= corr[1];
+      }
+    }
+    if (more) load_tile(i + p.stages - 1, 2);       // next V
+    cp_async_commit();
+    pv<D, BKV>(s, Vs, kofs, nt, Pw, lane, acc);
+  }
+  cp_async_wait<0>();
+
+  const size_t hsq = (size_t)p.h * p.sq;
+  float* wacc = p.ws + (size_t)z * hsq * D;
+  float* wml = p.ws + (size_t)p.nsplit * hsq * D + (size_t)z * hsq * 2;
+  if (nkw == 1) {
+    // one split: O = acc / l; else this split's m, l and acc to the
+    // workspace
+#pragma unroll
+    for (int i2 = 0; i2 < 2; ++i2) {
+      if (!live[i2]) continue;
+      const size_t row = (size_t)head[i2] * p.sq + qi[i2];
+      if (p.nsplit == 1) {
+        T* O = static_cast<T*>(p.o) + row * p.d;
+        const float inv = l[i2] > 0.f ? 1.f / l[i2] : 0.f;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          store2(O, c * 8 + q2, p.d, acc[c][2 * i2] * inv,
+                 acc[c][2 * i2 + 1] * inv);
+      } else {
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          store2(wacc + row * D, c * 8 + q2, D, acc[c][2 * i2],
+                 acc[c][2 * i2 + 1]);
+        if ((lane & 3) == 0)
+          *reinterpret_cast<float2*>(wml + row * 2) =
+              make_float2(m[i2], l[i2]);
+      }
+    }
+    return;
+  }
+
+  // key warps: every warp's slice partials (m, l, acc) go to shared memory,
+  // then the block combines them in key-warp order, row by row, and stores
+  // the rows with neighbouring threads on neighbouring columns
+  __syncthreads();                          // the ring is free
+  const int prow = nrw * 16;                // the block's packed rows
+  float* cacc = reinterpret_cast<float*>(ring);           // [warps][16][D]
+  float* cml = cacc + nrw * nkw * 16 * D;                 // [warps][16][2]
+  float* cw = cml + nrw * nkw * 16 * 2;                   // [prow][nkw]
+#pragma unroll
+  for (int i2 = 0; i2 < 2; ++i2) {
+    const int row = warp * 16 + g + 8 * i2;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(cacc + row * D + c * 8 + q2) =
+          make_float2(acc[c][2 * i2], acc[c][2 * i2 + 1]);
+    if ((lane & 3) == 0)
+      *reinterpret_cast<float2*>(cml + row * 2) = make_float2(m[i2], l[i2]);
+  }
+  __syncthreads();
+  // a row's weights e^(m_k - M) (over l for one split), M and L
+  for (int rl = threadIdx.x; rl < prow; rl += blockDim.x) {
+    const int rwi = rl / 16, rr = rl % 16;
+    float top = -INFINITY;
+    for (int k = 0; k < nkw; ++k)
+      top = fmaxf(top, cml[((k * nrw + rwi) * 16 + rr) * 2]);
+    float big = 0.f;
+    for (int k = 0; k < nkw; ++k) {
+      const float2 ml = *reinterpret_cast<const float2*>(
+          cml + ((k * nrw + rwi) * 16 + rr) * 2);
+      const float e = ml.x == -INFINITY ? 0.f : __expf(ml.x - top);
+      cw[rl * nkw + k] = e;
+      big += ml.y * e;
+    }
+    const int r = r0 + rl;
+    if (p.nsplit == 1) {
+      const float inv = big > 0.f ? 1.f / big : 0.f;
+      for (int k = 0; k < nkw; ++k) cw[rl * nkw + k] *= inv;
+    } else if (r < rows) {
+      const int qq = div_group(r, p);
+      const size_t row =
+          (size_t)(kvh * p.group + (r - qq * p.group)) * p.sq + qq;
+      *reinterpret_cast<float2*>(wml + row * 2) = make_float2(top, big);
+    }
+  }
+  __syncthreads();
+  const int cols = p.nsplit == 1 ? p.d : D;
+  for (int idx = threadIdx.x; idx < prow * (D / 2); idx += blockDim.x) {
+    const int rl = idx / (D / 2), col = 2 * (idx % (D / 2));
+    const int r = r0 + rl;
+    if (r >= rows || col >= cols) continue;
+    const int rwi = rl / 16, rr = rl % 16;
+    float x = 0.f, y = 0.f;
+    for (int k = 0; k < nkw; ++k) {
+      const float e = cw[rl * nkw + k];
+      const float2 a = *reinterpret_cast<const float2*>(
+          cacc + ((k * nrw + rwi) * 16 + rr) * D + col);
+      x += a.x * e;
+      y += a.y * e;
+    }
+    const int qq = div_group(r, p);
+    const size_t row = (size_t)(kvh * p.group + (r - qq * p.group)) * p.sq +
+                       qq;
+    if (p.nsplit == 1)
+      store2(static_cast<T*>(p.o) + row * p.d, col, p.d, x, y);
+    else
+      *reinterpret_cast<float2*>(wacc + row * D + col) = make_float2(x, y);
+  }
+}
+
+// The splits' partials of one output element, combined in split order.  A
+// split none of whose keys the row can see was never written and is skipped.
+// Loads go B splits at a time, ahead of their maxima and sums (B = 32 when
+// the row sees more than 16 splits, 16 when more than 4, else 4: a decode
+// over 32 splits waits for two round trips to the L2, a prefill chunk's few
+// splits of many rows issue few idle loads).
+template <int D, int B>
+__device__ __forceinline__ float2 combine_splits(const float* wacc,
+                                                 const float* wml, size_t hsq,
+                                                 size_t row, int col, int z0,
+                                                 int z1) {
+  float mx = -INFINITY;
+  for (int zb = z0; zb < z1; zb += B) {
+    float mv[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      mv[u] = zb + u < z1 ? __ldg(wml + ((size_t)(zb + u) * hsq + row) * 2)
+                          : -INFINITY;
+#pragma unroll
+    for (int u = 0; u < B; ++u) mx = fmaxf(mx, mv[u]);
+  }
+  float L = 0.f, acc = 0.f;
+  for (int zb = z0; zb < z1; zb += B) {
+    float2 ml[B];
+    float a[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const bool in = zb + u < z1;
+      const size_t at = (size_t)(zb + u) * hsq + row;
+      ml[u] = in ? __ldg(reinterpret_cast<const float2*>(wml + at * 2))
+                 : make_float2(-INFINITY, 0.f);
+      a[u] = in ? __ldg(wacc + at * D + col) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      const float e = ml[u].x == -INFINITY ? 0.f : __expf(ml[u].x - mx);
+      L += ml[u].y * e;
+      acc += a[u] * e;
+    }
+  }
+  return make_float2(L, acc);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kCombineThreads)
+    combine_kernel(const Args p) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t hsq = (size_t)p.h * p.sq;
+  if (idx >= (long long)hsq * p.d) return;
+  const size_t row = idx / p.d;
+  const int col = (int)(idx % p.d);
+  const int qpos = (int)(row % p.sq) + p.sk - p.sq;
+  const int klo = p.window > 0 ? max(0, qpos - p.window + 1) : 0;
+  const int khi = p.causal ? qpos : p.sk - 1;
+  const float* wml = p.ws + (size_t)p.nsplit * hsq * D;
+  // the splits the row sees: z0 <= z < z1
+  const int z0 = klo / p.kv_chunk, z1 = min(p.nsplit, khi / p.kv_chunk + 1);
+  const int n = z1 - z0;
+  const float2 la =
+      n > 16  ? combine_splits<D, 32>(p.ws, wml, hsq, row, col, z0, z1)
+      : n > 4 ? combine_splits<D, 16>(p.ws, wml, hsq, row, col, z0, z1)
+              : combine_splits<D, 4>(p.ws, wml, hsq, row, col, z0, z1);
+  from_f32(la.x > 0.f ? la.y / la.x : 0.f,
+           static_cast<T*>(p.o) + row * p.d + col);
+}
+
+// Shared memory: the Q tile, then the ring (and for f32 each warp's row of
+// probabilities), which the key warps' combine reuses at the end.
+template <typename T, int D, int BKV>
+size_t smem_bytes(int bq, int stages) {
+  const size_t warps = (size_t)(bq / 16) * key_warps(bq, BKV);
+  const size_t ring =
+      sizeof(T) * (size_t)stages * 2 * BKV * D +
+      (sizeof(T) == 4 ? sizeof(float) * warps * 16 * (BKV + 4) : 0);
+  const size_t combine =
+      key_warps(bq, BKV) > 1 ? sizeof(float) * warps * 16 * (D + 6) : 0;
+  return sizeof(T) * (size_t)bq * D + (ring > combine ? ring : combine);
+}
+
+template <typename T, int D, int BKV>
+cudaError_t launch(const Args& p, cudaStream_t stream) {
+  auto kernel = flash_kernel<T, D, BKV>;
+  const size_t smem = smem_bytes<T, D, BKV>(p.bq, p.stages);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  // the opt-in above 48 KB costs a CUDA runtime call: make it once a kernel
+  // and device for the largest size asked so far
+  static size_t granted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  dim3 grid(h, (sq + bq - 1) / bq);
-  kernel<<<grid, bq * WARP, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, bq, bkv, scale,
-      causal, window);
+  if (dev >= kMaxDevices || smem > granted[dev]) {
+    err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) granted[dev] = smem;
+  }
+  const dim3 grid((p.group * p.sq + p.bq - 1) / p.bq, p.hk, p.nsplit);
+  kernel<<<grid, 32 * (p.bq / 16) * key_warps(p.bq, BKV), smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.nsplit == 1) return err;
+  const long long n = (long long)p.h * p.sq * p.d;
+  combine_kernel<T, D><<<(unsigned)((n + kCombineThreads - 1) /
+                                    kCombineThreads),
+                         kCombineThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-extern "C" int flash_attention_h100_launch(const void* q, const void* k,
-                                           const void* v, void* o, int h,
-                                           int sq, int sk, int d, int bq,
-                                           int bkv, float scale, int causal,
-                                           int window, int elem,
-                                           void* stream) {
-  if (h <= 0 || sq <= 0 || sk < sq || d <= 0 || d > DMAX || bq <= 0 ||
-      bq * WARP > 1024 || bkv <= 0 || bkv > 8 * WARP)
+template <typename T, int D>
+cudaError_t by_bkv(const Args& p, int bkv, cudaStream_t st) {
+  switch (bkv) {
+    case 32: return launch<T, D, 32>(p, st);
+    case 64: return launch<T, D, 64>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t by_dim(const Args& p, int bkv, cudaStream_t st) {
+  return p.d <= 64 ? by_bkv<T, 64>(p, bkv, st) : by_bkv<T, 128>(p, bkv, st);
+}
+
+bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+}  // namespace
+
+// Formats it takes (kernels/flash_attention.py: format_error mirrors these
+// checks): h a multiple of hk; 1 <= sq <= sk; (h / hk) * sq packed rows
+// below 2^24; 1 <= d <= 128; bq in {16, 32, 64, 128} (packed rows a block,
+// 16 a warp); bkv in {32, 64}; kv_chunk a positive multiple of bkv; stages
+// in {2, 3, 4}; at most 65,535 KV heads and splits, and a workspace when
+// there is more than one split; the tiles within 232,448 bytes of shared
+// memory.
+extern "C" int flash_attention_h100_launch(
+    const void* q, const void* k, const void* v, void* o, void* ws, int h,
+    int hk, int sq, int sk, int d, int bq, int bkv, int kv_chunk, int stages,
+    float scale, int causal, int window, int elem, void* stream) {
+  if (h <= 0 || hk <= 0 || h % hk != 0 || sq <= 0 || sk < sq || d <= 0 ||
+      d > 128 || (bq != 16 && bq != 32 && bq != 64 && bq != 128) ||
+      (bkv != 32 && bkv != 64) || kv_chunk <= 0 || kv_chunk % bkv != 0 ||
+      stages < 2 || stages > 4 || hk > kMaxGridYZ ||
+      (elem != ELEM_F32 && elem != ELEM_BF16))
     return cudaErrorInvalidValue;
+  const int nsplit = (sk + kv_chunk - 1) / kv_chunk;
+  if (nsplit > kMaxGridYZ || (nsplit > 1 && ws == nullptr) ||
+      (long long)(h / hk) * sq >= (1 << 24))
+    return cudaErrorInvalidValue;
+  const int epc = elem == ELEM_BF16 ? 8 : 4;
+  Args p{q, k, v, o, static_cast<float*>(ws), h, hk, h / hk, sq, sk, d, bq,
+         kv_chunk, stages, nsplit, scale, 1.f / (h / hk), causal,
+         window > 0 ? window : 0,
+         d % epc == 0 && aligned16(q) && aligned16(k) && aligned16(v)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (elem == ELEM_F32)
-    return launch<float>(q, k, v, o, h, sq, sk, d, bq, bkv, scale, causal,
-                         window, st);
-  if (elem == ELEM_BF16)
-    return launch<__nv_bfloat16>(q, k, v, o, h, sq, sk, d, bq, bkv, scale,
-                                 causal, window, st);
-  return cudaErrorInvalidValue;
+  return elem == ELEM_BF16 ? by_dim<__nv_bfloat16>(p, bkv, st)
+                           : by_dim<float>(p, bkv, st);
 }

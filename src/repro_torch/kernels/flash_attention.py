@@ -3,25 +3,35 @@
 Replaces the TPU kernel ``pallas_flash_attention``
 (``src/repro/kernels/flash_attention.py``, ``_fa_kernel``) with the
 hand-written CUDA kernel in ``csrc/flash_attention.cu``: q [h, sq, d],
-k, v [h, sk, d] with sq <= sk and ends aligned (query i at key i + sk − sq),
-causal and sliding-window masks, scale 1/√d, m/l/acc in f32, output in q's
-type.  GQA heads are broadcast by the caller, as in the JAX contract.
+k, v [hk, sk, d] with h a multiple of hk (query head i reads KV head
+i // (h/hk), the JAX grouping), sq <= sk and ends aligned (query i at key
+i + sk − sq), causal and sliding-window masks, scale 1/√d, m/l/acc in f32,
+output in q's type.  The JAX kernel takes K/V broadcast to every query
+head; nothing in the function it computes needs that, and the kernel reads
+each K/V tile once for the group of query heads that shares it.
 
 Unlike the TPU kernel, keys at or past ``sk`` never enter the softmax when
 ``causal=False`` (the TPU kernel pads K/V to a whole tile and scores the
 padding: ROADMAP F1); this kernel and its plain version compute
 ``ref.flash_attention``.
 
-Bound on the card: the serve path's prefill chunks (sq 32) and decode rows
-(sq 1) do one to a few dozen flops per K/V byte — bound by bytes.  The
-kernel reads K/V once per block of ``bq`` query rows through shared memory
-and skips tiles no row of the block can see (see the note in the CUDA
-source); tensor cores are left to later work.
+Bound on the card: the serve path's prefill chunks and decode rows do a
+few to a few hundred flops per K/V byte — bound by the bytes of K/V.  The
+kernel packs the group's query heads × query rows into the tensor-core M
+(bf16 on ``mma.sync``, f32 in FMA), streams K/V through a ``cp.async`` ring
+of ``stages`` tiles of ``bkv`` keys, and splits the keys into runs of
+``kv_chunk`` over blocks, combined in split order by a second small launch
+(see the note in the CUDA source).  The number of splits comes from each
+call's own sk, so decode steps with a growing cache share one dispatch key.
 
-Program parameters:  bq (query rows a block, one warp each), bkv (kv tile)
-Data parameters:     SQ, HD
-Machine parameters:  V (shared bytes a block), T (threads a block), LANE,
-                     CORES
+Program parameters:  bq (packed rows a block, 16 a warp), bkv (keys a
+                     tile), kv_chunk (keys a split), stages (ring depth)
+Data parameters:     SQ, HD, GROUP (query heads a KV head), HK (KV heads)
+Machine parameters:  V (shared bytes a block), T (threads a block),
+                     G (registers a thread), LANE, CORES
+
+The split workspace (f32 partials) is one per device, grows on demand and
+is used by one launch at a time: the port launches on one stream.
 """
 from __future__ import annotations
 
@@ -42,12 +52,63 @@ from . import build
 from .instantiate_cache import CachedInstantiationMixin
 
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
-#: flash_attention_h100_launch(q, k, v, o, h, sq, sk, d, bq, bkv, scale,
-#: causal, window, elem, stream)
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
+#: flash_attention_h100_launch(q, k, v, o, ws, h, hk, sq, sk, d, bq, bkv,
+#: kv_chunk, stages, scale, causal, window, elem, stream)
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
-#: largest head dim the kernel takes (four output dims a lane)
+#: The C entry point's limits (``csrc/flash_attention.cu``).
 MAX_HD = 128
+MAX_SMEM = 232_448
+MAX_GRID_YZ = 65_535
+BQ = (16, 32, 64, 128)
+BKV = (32, 64)
+STAGES = (2, 3, 4)
+
+
+def tile_dim(d: int) -> int:
+    """The head dim the kernel's tiles are built for: 64 or 128 (d <= 64
+    runs in the 64-wide tiles, its columns past d zero)."""
+    return 64 if d <= 64 else 128
+
+
+def key_warps(bq: int, bkv: int) -> int:
+    """Warps a block gives each row warp: decode's few rows (bq 16 or 32)
+    take 64 / bq warps each, on a slice of at least 16 keys of every kv
+    tile, so that a block has 4 warps; bq >= 64 runs one."""
+    return 1 if bq >= 64 else min(64 // bq, bkv // 16)
+
+
+def threads(bq: int, bkv: int) -> int:
+    """Threads a block: a warp for every 16 packed rows and key warp."""
+    return 32 * (bq // 16) * key_warps(bq, bkv)
+
+
+def _warp_rows() -> Poly:
+    """The rows of all a block's warps, 16 a warp (bq · key_warps), as the
+    counters' polynomial in bq: 64 + (bq − 32)(bq − 64)/96 is exact at bq
+    32, 64 and 128 (64, 64, 128) and 72 at bq 16, where the kernel has 32
+    or 64."""
+    bq = V("bq")
+    return (bq * bq - 96 * bq + Poly.const(8192)) / 96
+
+
+def smem_bytes(bq: int, bkv: int, stages: int, d: int,
+               dtype: torch.dtype) -> int:
+    """Shared memory of a launch: the Q tile and the ring of K/V tiles in
+    the inputs' type (for f32 also each warp's row of probabilities), which
+    the key warps' f32 partials reuse at the end."""
+    esz, dt = (2 if dtype == torch.bfloat16 else 4), tile_dim(d)
+    warps = threads(bq, bkv) // 32
+    ring = esz * stages * 2 * bkv * dt + (4 * warps * 16 * (bkv + 4)
+                                          if esz == 4 else 0)
+    combine = 4 * warps * 16 * (dt + 6) if key_warps(bq, bkv) > 1 else 0
+    return esz * bq * dt + max(ring, combine)
+
+
+def splits(sk: int, kv_chunk: int) -> list:
+    """The key ranges of the splits: runs of ``kv_chunk`` keys, the last cut
+    at sk."""
+    return [range(z, min(sk, z + kv_chunk)) for z in range(0, sk, kv_chunk)]
 
 
 # =============================================================================
@@ -55,62 +116,130 @@ MAX_HD = 128
 # =============================================================================
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, bq: int, bkv: int, causal: bool = True,
+                          *, bq: int, bkv: int, kv_chunk: int,
+                          stages: int = 2, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's arithmetic: query blocks of
-    ``bq`` rows walk kv tiles of ``bkv`` keys in order with the online
-    softmax (running max ``m``, sum ``l``, ``acc``, all f32), masking keys
-    past the causal limit, before the window and at or past ``sk``."""
+    """Plain PyTorch version of the kernel's arithmetic.  Each split of
+    ``kv_chunk`` keys walks its tiles of ``bkv`` keys in order with the
+    online softmax (running max ``m``, sum ``l``, ``acc``, all f32, scores
+    q·k scaled after the product), masking keys past the causal limit,
+    before the window and at or past ``sk``; then the splits' (m, l, acc)
+    are combined in split order: M = max m_z, O = Σ acc_z·e^(m_z − M) /
+    Σ l_z·e^(m_z − M).  One split: O = acc / l.  K/V are [hk, sk, d] and
+    query head i reads KV head i // (h/hk).  ``bq`` and ``stages`` shape the
+    launch only and are taken and ignored."""
     h, sq, d = q.shape
-    sk = k.shape[1]
+    hk, sk = k.shape[0], k.shape[1]
+    group = h // hk
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qf = q.float() * scale
-    kf, vf = k.float(), v.float()
-    out = torch.empty((h, sq, d), dtype=q.dtype, device=q.device)
-    kidx_all = torch.arange(sk, device=q.device)
-    for q0 in range(0, sq, bq):
-        qb = qf[:, q0:q0 + bq]
-        qpos = torch.arange(q0, q0 + qb.shape[1], device=q.device) + sk - sq
-        m = torch.full((h, qb.shape[1], 1), -math.inf, device=q.device)
-        l = torch.zeros((h, qb.shape[1], 1), device=q.device)
-        acc = torch.zeros((h, qb.shape[1], d), device=q.device)
-        for k0 in range(0, sk, bkv):
-            kidx = kidx_all[k0:k0 + bkv]
-            mask = torch.ones((qb.shape[1], kidx.shape[0]), dtype=torch.bool,
-                              device=q.device)
+    dev = q.device
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=0)
+    vf = v.float().repeat_interleave(group, dim=0)
+    qpos = torch.arange(sq, device=dev) + sk - sq
+    parts = []
+    for run in splits(sk, kv_chunk):
+        m = torch.full((h, sq, 1), -math.inf, device=dev)
+        l = torch.zeros((h, sq, 1), device=dev)
+        acc = torch.zeros((h, sq, d), device=dev)
+        for k0 in range(run.start, run.stop, bkv):
+            k1 = min(run.stop, k0 + bkv)
+            kidx = torch.arange(k0, k1, device=dev)
+            mask = torch.ones((sq, k1 - k0), dtype=torch.bool, device=dev)
             if causal:
                 mask &= kidx[None, :] <= qpos[:, None]
             if window is not None:
                 mask &= kidx[None, :] > qpos[:, None] - window
             if not bool(mask.any()):
                 continue
-            s = qb @ kf[:, k0:k0 + bkv].transpose(1, 2)
+            s = (qf @ kf[:, k0:k1].transpose(1, 2)) * scale
             s = s.masked_fill(~mask, -math.inf)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             m_safe = torch.where(m_new == -math.inf, 0.0, m_new)
             p = torch.exp(s - m_safe)
             corr = torch.exp(m - m_safe)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p @ vf[:, k0:k0 + bkv]
+            acc = acc * corr + p @ vf[:, k0:k1]
             m = m_new
-        out[:, q0:q0 + bq] = (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
-    return out
+        parts.append((m, l, acc))
+    if len(parts) == 1:
+        m, l, acc = parts[0]
+        return (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
+    top = parts[0][0]
+    for m, _, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    big = torch.zeros((h, sq, 1), device=dev)
+    out = torch.zeros((h, sq, d), device=dev)
+    for m, l, acc in parts:
+        e = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
+        big = big + l * e
+        out = out + acc * e
+    return (out / torch.where(big > 0, big, 1.0)).to(q.dtype)
+
+
+def format_error(h: int, hk: int, sq: int, sk: int, d: int, bq: int,
+                 bkv: int, kv_chunk: int, stages: int,
+                 dtype: torch.dtype) -> Optional[str]:
+    """Why ``flash_attention_h100_launch`` refuses this launch, or None: the
+    C entry point's checks (``csrc/flash_attention.cu``) in Python."""
+    checks = [
+        (h > 0 and hk > 0 and h % hk == 0, "h not a multiple of hk"),
+        (0 < sq <= sk, "not 1 <= sq <= sk"),
+        (hk == 0 or h // hk * sq < 1 << 24, "2^24 packed rows or more"),
+        (0 < d <= MAX_HD, f"d not in 1..{MAX_HD}"),
+        (bq in BQ, f"bq not in {BQ}"),
+        (bkv in BKV, f"bkv not in {BKV}"),
+        (kv_chunk > 0 and kv_chunk % max(bkv, 1) == 0,
+         "kv_chunk not a positive multiple of bkv"),
+        (stages in STAGES, f"stages not in {STAGES}"),
+        (dtype in _ELEM, "not f32 or bf16"),
+    ]
+    for ok, why in checks:
+        if not ok:
+            return why
+    if hk > MAX_GRID_YZ or -(-sk // kv_chunk) > MAX_GRID_YZ:
+        return "more than 65,535 KV heads or splits"
+    if smem_bytes(bq, bkv, stages, d, dtype) > MAX_SMEM:
+        return "tiles larger than 232,448 bytes"
+    return None
+
+
+_WORKSPACE = {}                  # device -> f32 split partials
+
+
+@functools.cache
+def _entry() -> Callable[..., int]:
+    """The C entry point, resolved once a process."""
+    return build.entry("flash_attention", "flash_attention_h100_launch",
+                       _ARGTYPES)
+
+
+def workspace(device: torch.device, floats: int) -> torch.Tensor:
+    """The device's split workspace, grown to at least ``floats`` f32."""
+    ws = _WORKSPACE.get(device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                         device=device)
+        _WORKSPACE[device] = ws
+    return ws
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, bq: int,
-            bkv: int, causal: bool = True, window: Optional[int] = None,
+            bkv: int, kv_chunk: int, stages: int = 2, causal: bool = True,
+            window: Optional[int] = None,
             scale: Optional[float] = None) -> torch.Tensor:
     if not (q.is_cuda and k.is_cuda and v.is_cuda
             and q.device == k.device == v.device):
         raise ValueError("flash_attention_h100 kernel needs q, k, v on one "
                          "CUDA device")
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+            or k.shape[0] == 0 or q.shape[0] % k.shape[0] \
+            or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention_h100: bad shapes q{tuple(q.shape)}"
                          f" k{tuple(k.shape)} v{tuple(v.shape)}")
     h, sq, d = q.shape
-    sk = k.shape[1]
+    hk, sk = k.shape[0], k.shape[1]
     if sq > sk or d > MAX_HD:
         raise ValueError(f"flash_attention_h100 needs sq <= sk and d <= "
                          f"{MAX_HD}: sq={sq} sk={sk} d={d}")
@@ -119,32 +248,39 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, bq: int,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_h100 needs contiguous q, k, v")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dev = q.device
     o = torch.empty_like(q)
-    fn = build.entry("flash_attention", "flash_attention_h100_launch",
-                     _ARGTYPES)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), h, sq,
-             sk, d, bq, bkv, scale, int(causal),
-             int(window) if window is not None else 0, _ELEM[q.dtype],
-             stream)
-    build.check(err, f"flash_attention_h100(bq={bq}, bkv={bkv})")
+    nsplit = -(-sk // kv_chunk) if kv_chunk > 0 else 0
+    ws = None
+    if nsplit > 1:
+        ws = workspace(dev, nsplit * h * sq * (tile_dim(d) + 2)).data_ptr()
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   ws, h, hk, sq, sk, d, bq, bkv, kv_chunk, stages, scale,
+                   int(causal), int(window) if window is not None else 0,
+                   _ELEM[q.dtype], torch._C._cuda_getCurrentRawStream(
+                       dev.index))
+    if err:
+        build.check(err, f"flash_attention_h100(bq={bq}, bkv={bkv}, "
+                         f"kv_chunk={kv_chunk}, stages={stages})")
     flash_attention_h100.launches += 1
-    flash_attention_h100.shapes[(h, sq, sk, d, bq, bkv, bool(causal), window,
-                                 q.dtype)] += 1
+    flash_attention_h100.shapes[(h, hk, sq, sk, d, bq, bkv, kv_chunk, stages,
+                                 bool(causal), window, q.dtype)] += 1
     return o
 
 
 def flash_attention_h100(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, bq: int, bkv: int, causal: bool = True,
+                         *, bq: int, bkv: int, kv_chunk: int,
+                         stages: int = 2, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
     """CUDA tensors launch the kernel (or raise); CPU tensors run
     :func:`flash_attention_plain`.  ``flash_attention_h100.launches`` counts
-    kernel launches, ``flash_attention_h100.shapes`` the same launches by
-    (h, sq, sk, d, bq, bkv, causal, window, dtype)."""
+    kernel launches (a split launch and its combine count once),
+    ``flash_attention_h100.shapes`` the same launches by (h, hk, sq, sk, d,
+    bq, bkv, kv_chunk, stages, causal, window, dtype)."""
     fn = flash_attention_plain if q.device.type == "cpu" else _launch
-    return fn(q, k, v, bq=bq, bkv=bkv, causal=causal, window=window,
-              scale=scale)
+    return fn(q, k, v, bq=bq, bkv=bkv, kv_chunk=kv_chunk, stages=stages,
+              causal=causal, window=window, scale=scale)
 
 
 flash_attention_h100.launches = 0
@@ -152,19 +288,86 @@ flash_attention_h100.shapes = collections.Counter()
 
 
 # =============================================================================
-# FamilySpec
+# FamilySpec — the paper's GPU counters for the comprehensive tree
 # =============================================================================
 
+#: Domains, their product 4·2·6·3 = 144 points a leaf, within ``select``'s
+#: cap of 512 candidates a leaf (``tests/test_torch_core.py``).
+_DOMAINS = {"bq": BQ, "bkv": BKV,
+            "kv_chunk": (128, 256, 512, 1024, 2048, 4096), "stages": STAGES}
+_BQ_REDUCED = (16, 32)
+
+# Napkin constants of an H100 SXM: HBM from NVIDIA's data sheet; the rest
+# fitted to the kernel's own device times on an H100 (torch.profiler, as
+# chip_smoke.py's phase 4 prints them; PERF.md): a block's fixed cost
+# (launch, Q and the first tile's latency, the epilogue), the time a warp
+# alone takes for its slice of a kv tile (a latency and a cost a unit of 16
+# rows x keys x HD), the units an SM gets through when many warps share it,
+# and the split combine's fixed cost and rate.  The context is what the
+# napkin plans for, since the dispatch key cannot hold it (a decode step's
+# sk grows under one key): 4096 keys.  The KV heads come with the key.
+_HBM = 3.35e12                   # device memory, bytes/s
+_BLOCK_S = 4.5e-6                # s a block costs besides its tiles
+_WTILE_S = 1.23e-6               # s a warp alone spends on a tile slice ...
+_UNIT_S = 2.03e-11               # ... and this more a unit of its slice,
+_STAGE_S = 0.2e-6                #     and this more for each stage below 4
+_SM_UNIT_S = 4.3e-12             # s an SM needs a unit, with warps to spare
+_KW_SM = 1.5                     # ... times this with key warps (bq 32 at
+                                 # the 256-row prefill: 3.37 against 2.25 µs)
+_COMBINE_S = 2.6e-6              # s of the split combine's launch ...
+_COMBINE_BW = 0.65e12            # ... and its rate over the partials, B/s
+_SMEM_SM = 228 * 1024            # shared bytes an SM holds
+_REGS_SM = 65536
+_THREADS_SM = 2048
+_ESZ = 2                         # bytes an element on the serve path (bf16)
+_SK = 4096                       # keys the napkin plans for
+
+
 def _score(v: Mapping[str, object]):
-    """Napkin model: warps past ``SQ`` idle; K/V tiles are re-read once per
-    block, so more rows a block amortize them (up to 8); long kv tiles pay
-    fewer barriers; among equals, fewer rows a block give more blocks."""
+    """Napkin model of the kernel on an H100, over scalars or NumPy columns:
+    1 / (estimated µs), so higher is better.
+
+    - grid: ceil(GROUP·SQ/bq) row blocks × HK KV heads × ceil(``_SK``/
+      kv_chunk) splits; a block walks min(kv_chunk, ``_SK``) keys in tiles
+      of bkv (causal prefill sees about as many), each of its warps a slice
+      of bkv / key_warps keys of 16 rows;
+    - residency: the blocks an SM holds by shared memory (bf16 tiles),
+      registers (about 224 a thread at HD 128, 168 at 64) and threads;
+    - a tile round on an SM: the slower of one warp's slice alone (less
+      with more tiles in flight ahead of it) and the
+      units of all the warps sharing the SM at the SM's rate (slower with
+      key warps, as measured); a block pays its fixed cost and its tiles'
+      rounds, wave after wave;
+    - device memory: K/V and Q/O once, as a floor;
+    - a split launch adds the combine: a fixed cost and the f32 partials
+      written and read at its rate.
+    """
     bq, bkv = np.asarray(v["bq"]), np.asarray(v["bkv"])
-    sq = v.get("SQ", 4096)
-    qfill = np.minimum(1.0, sq / bq)
-    reuse = np.minimum(1.0, bq / 8.0)
-    tile = np.minimum(1.0, bkv / 64.0)
-    return qfill * (0.5 + 0.5 * reuse) * (0.5 + 0.5 * tile) * (1 - bq / 2048)
+    chunk, stages = np.asarray(v["kv_chunk"]), np.asarray(v["stages"])
+    sq, hd, group, hk = v["SQ"], v["HD"], v["GROUP"], v["HK"]
+    cores = max(1, v.get("CORES", 1))
+    rows = group * sq
+    nsplit = np.ceil(_SK / chunk)
+    blocks = hk * np.ceil(rows / bq) * nsplit
+    tiles = np.ceil(np.minimum(chunk, _SK) / bkv)
+    kw = np.where(bq >= 64, 1, np.minimum(64 // bq, bkv // 16))
+    warps = bq / 16 * kw
+    unit = 16.0 * bkv / kw * hd                 # a warp's slice of a tile
+    regs = 224 if hd > 64 else 168
+    smem = _ESZ * (bq * hd + stages * 2 * bkv * hd)
+    per_sm = np.maximum(1, np.minimum.reduce([
+        np.floor(_SMEM_SM / smem), np.floor(_REGS_SM / (32 * warps * regs)),
+        np.floor(_THREADS_SM / (32 * warps))]))
+    resident = np.minimum(blocks, cores * per_sm)
+    share = np.minimum(per_sm, np.ceil(blocks / cores))
+    rnd = np.maximum(_WTILE_S + _UNIT_S * unit + _STAGE_S * (4 - stages),
+                     share * warps * unit * _SM_UNIT_S
+                     * np.where(kw > 1, _KW_SM, 1.0))
+    t_blocks = np.ceil(blocks / resident) * (_BLOCK_S + tiles * rnd)
+    t_mem = (2.0 * hk * _SK * hd + 2.0 * hk * rows * hd) * _ESZ / _HBM
+    part = 4.0 * hk * rows * (hd + 2) * nsplit
+    t_comb = np.where(nsplit > 1, _COMBINE_S + 2 * part / _COMBINE_BW, 0.0)
+    return 1e-6 / (np.maximum(t_blocks, t_mem) + t_comb)
 
 
 class FlashAttentionH100Family(CachedInstantiationMixin):
@@ -174,46 +377,60 @@ class FlashAttentionH100Family(CachedInstantiationMixin):
         return KernelPlan(
             family=self.name,
             flags={"granularity_level": 0},
-            program_params={
-                "bq": ParamDomain("bq", (1, 2, 4, 8, 16, 32, 64)),
-                "bkv": ParamDomain("bkv", (32, 64, 128, 256), align=32),
-            },
+            program_params={n: ParamDomain(n, d)
+                            for n, d in _DOMAINS.items()},
         )
 
+    # -- counters (order: resources r_i first, then performance p_i) ---------
     def counters(self) -> Sequence[Counter]:
         return [
             resource("smem_bytes", "V", ("reduce_q_block",),
-                     "Q, K (padded), V and score tiles in f32 (paper: Z_B)"),
-            resource("threads", "T", (), "one warp a query row (paper: T)"),
+                     "Q tile, stages K/V tiles and every warp's probability"
+                     " rows, counted in f32 (paper: Z_B)"),
+            resource("threads", "T", ("reduce_q_block",),
+                     "a lane for every row of a warp's 16 and key warp"
+                     " (paper: T)"),
             resource("registers", "G", (),
-                     "scores, output dims and softmax state a lane"),
+                     "score, output and Q fragments and softmax state a "
+                     "thread (paper: R)"),
             performance("occupancy", "P_occ", ("reduce_q_block",),
                         "share of the SMs a grid of blocks leaves idle"),
         ]
 
+    # -- strategies ------------------------------------------------------------
     def strategies(self) -> Sequence[Strategy]:
         def reduce_q_block(plan: KernelPlan):
             if plan.flags.get("granularity_level", 0) >= 1:
                 return None
             p = plan.with_flag("granularity_level", 1, "reduce q block")
-            p.program_params["bq"] = ParamDomain("bq", (1, 2, 4, 8))
+            p.program_params["bq"] = ParamDomain("bq", _BQ_REDUCED)
             return p
 
         return [Strategy("reduce_q_block", reduce_q_block)]
 
+    # -- symbolic counter evaluation (paper §3.3: f_i, g_i) -------------------
     def counter_value(self, plan: KernelPlan, counter: str
                       ) -> Tuple[Poly, Poly]:
         bq, bkv, hd = V("bq"), V("bkv"), V("HD")
         one = Poly.const(1)
         if counter == "smem_bytes":
-            return 4 * (bq * hd + bkv * (2 * hd + 1) + bq * bkv), one
+            # smem_bytes() in f32, the widest input type, so a leaf launches
+            # for either type: Q, the ring and a row of probabilities (bkv
+            # + 4 floats) for each of the warps' rows; the key warps' combine
+            # reuses the ring, which is larger at every point of the domain
+            return 4 * (bq * hd + V("stages") * 2 * bkv * hd
+                        + _warp_rows() * (bkv + 4)), one
         if counter == "threads":
-            return V("LANE") * bq, one
+            # threads(): two lanes a warp row (a warp is 16 rows)
+            return V("LANE") * _warp_rows(), Poly.const(16)
         if counter == "registers":
-            # bkv/LANE scores + HD/LANE output dims + state and indices
-            return bkv / 32 + hd / 32 + Poly.const(32), one
+            # bkv/2 score and HD/2 output accumulators, HD/4 Q fragment
+            # registers, softmax state, indices and addresses
+            return (bkv + hd) / 2 + hd / 4 + Poly.const(40), one
         if counter == "occupancy":
-            return V("CORES") * bq, V("CORES") * bq + V("SQ")
+            # CORES / (CORES + row blocks): near 1 when a few packed row
+            # blocks leave the SMs idle, near 0 when they fill them
+            return V("CORES") * bq, V("CORES") * bq + V("GROUP") * V("SQ")
         raise KeyError(counter)
 
     def score(self, plan: KernelPlan, v: Mapping[str, int]) -> float:
@@ -225,8 +442,8 @@ class FlashAttentionH100Family(CachedInstantiationMixin):
     def _build(self, plan: KernelPlan, assignment: Mapping[str, int],
                device: str = "cuda") -> Callable:
         fn = _launch if device == "cuda" else flash_attention_plain
-        return functools.partial(fn, bq=int(assignment["bq"]),
-                                 bkv=int(assignment["bkv"]))
+        return functools.partial(fn, **{n: int(assignment[n])
+                                        for n in _DOMAINS})
 
 
 FAMILY = FlashAttentionH100Family()

@@ -4,7 +4,10 @@ Replaces the TPU kernel ``pallas_matadd`` (``src/repro/kernels/matadd.py``,
 ``_add_kernel``) with the hand-written CUDA kernel in ``csrc/matadd.cu``:
 C = A + B over [M, N], f32 or bf16, with no padding copies.  The paper's
 thread-block format is the launch shape: a block of bm × bn threads, each
-writing ``s`` elements of its row spaced bn apart.
+writing ``s`` 16-byte vectors of its row (4 f32 or 8 bf16 values each)
+spaced bn vectors apart.  The vector width is fixed by the kernel, not a
+program parameter; operands whose row length or base pointers break
+16-byte alignment take masked scalar loads over the same grid.
 
 The comprehensive tree reproduces the paper's two-case discussion on R:
 the source plan has grain s = 2 (register estimate 14); reduce_granularity
@@ -45,6 +48,9 @@ from .instantiate_cache import CachedInstantiationMixin
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
 #: matadd_h100_launch(a, b, c, M, N, bm, bn, s, elem, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+#: Elements a thread moves in one 16-byte vector, in the napkin: f32's 4
+#: (bf16's 8 halve the column blocks again; the ranking does not change).
+VEC = 4
 
 
 # =============================================================================
@@ -57,6 +63,12 @@ def matadd_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     one ``a + b``.  The block format does not change the sum (paper Def. 2
     ii), so ``bm``/``bn``/``s`` are taken and ignored."""
     return ref.matadd(a, b)
+
+
+@functools.cache
+def _entry() -> Callable[..., int]:
+    """The C entry point, resolved once a process."""
+    return build.entry("matadd", "matadd_h100_launch", _ARGTYPES)
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
@@ -76,11 +88,11 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     c = torch.empty_like(a)
     if a.numel() == 0:
         return c
-    fn = build.entry("matadd", "matadd_h100_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, bm, bn, s,
-             _ELEM[a.dtype], stream)
-    build.check(err, f"matadd_h100(bm={bm}, bn={bn}, s={s})")
+    err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, bm, bn, s,
+                   _ELEM[a.dtype],
+                   torch._C._cuda_getCurrentRawStream(a.device.index))
+    if err:
+        build.check(err, f"matadd_h100(bm={bm}, bn={bn}, s={s})")
     matadd_h100.launches += 1
     matadd_h100.shapes[(M, N, bm, bn, s, a.dtype)] += 1
     return c
@@ -108,15 +120,17 @@ def _score(v: Mapping[str, object]):
     """Napkin model, over scalars or NumPy columns, higher is better: a
     block of fewer than 256 threads leaves an SM's issue slots idle; the
     grid should give every SM a block; threads past the ragged edge of the
-    data do no work.  Every bn is a whole number of warps on neighbouring
-    addresses, so coalescing does not separate the leaves."""
+    data do no work, where a block covers bm · bn · s · VEC elements.  Every
+    bn is a whole number of warps on neighbouring 16-byte vectors, so
+    coalescing does not separate the leaves."""
     bm, bn, s = np.asarray(v["bm"]), np.asarray(v["bn"]), np.asarray(v["s"])
     M, N = v.get("M", 4096), v.get("N", 4096)
     cores = max(1, v.get("CORES", 1))
-    row_blocks, col_blocks = np.ceil(M / bm), np.ceil(N / (bn * s))
+    span = bn * s * VEC
+    row_blocks, col_blocks = np.ceil(M / bm), np.ceil(N / span)
     fill = np.minimum(1.0, row_blocks * col_blocks / cores)
     width = np.minimum(1.0, (bm * bn) / 256.0)
-    used = (M * N) / (row_blocks * bm * col_blocks * bn * s)
+    used = (M * N) / (row_blocks * bm * col_blocks * span)
     return fill * width * used
 
 

@@ -78,10 +78,16 @@ def transpose(a: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     machine: MachineDescription = H100_SXM) -> torch.Tensor:
-    """Attention over q [h, sq, d], k, v [h, sk, d], ends aligned (K2)."""
+    """Attention over q [h, sq, d], k, v [hk, sk, d] (query head i reads KV
+    head i // (h/hk)), ends aligned (K2), keyed on (SQ, HD, GROUP, HK):
+    the number of key splits follows each call's own sk, so a decode step's
+    growing cache keeps one key."""
     h, sq, d = q.shape
+    hk = k.shape[0]
     fn = get_default_cache().warm_callable(
-        FLASH_FAMILY, machine, (("SQ", sq), ("HD", d)), q.device.type)
+        FLASH_FAMILY, machine,
+        (("SQ", sq), ("HD", d), ("GROUP", h // hk), ("HK", hk)),
+        q.device.type)
     return fn(q, k, v, causal=causal, window=window)
 
 

@@ -67,12 +67,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 def _core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
     """One sequence's attention through K2: q (Sq, nh, hd), k/v (Sk, nk, hd)
-    with Sq <= Sk, ends aligned.  KV heads are broadcast to the query heads
-    here (query head h reads kv head h // group, the JAX grouping)."""
-    group = cfg.heads // cfg.kv_heads
+    with Sq <= Sk, ends aligned.  K2 takes the nk KV heads as they are and
+    query head h reads kv head h // (nh/nk), the JAX grouping; nothing is
+    broadcast."""
     qh = q.permute(1, 0, 2).contiguous()
-    kh = k.permute(1, 0, 2).repeat_interleave(group, dim=0).contiguous()
-    vh = v.permute(1, 0, 2).repeat_interleave(group, dim=0).contiguous()
+    kh = k.permute(1, 0, 2).contiguous()
+    vh = v.permute(1, 0, 2).contiguous()
     out = ops.flash_attention(qh, kh, vh, causal=True, window=cfg.window)
     return out.permute(1, 0, 2)
 

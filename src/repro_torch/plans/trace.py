@@ -9,8 +9,10 @@ SSM decay projection (ROADMAP F5).  The paged serve path of
 
 - **prefill chunk** of length C (one sequence): the q/kv/out projections,
   the SSM x/B/C/decay/out projections and the MLP at ``M = C``, the
-  attention core at ``SQ = C``, the SSD scan at ``SQ = C``, and the lm_head
-  at ``M = 1`` (only the last token is unembedded);
+  attention core at ``SQ = C`` (with ``GROUP`` = heads / kv_heads and
+  ``HK`` = kv_heads, since K/V reach it unbroadcast), the SSD scan at
+  ``SQ = C``, and the lm_head at ``M = 1`` (only the last token is
+  unembedded);
 - **decode step** over the whole pool: projections, MLP and lm_head at
   ``M = max_batch``, one attention core per decoding row at ``SQ = 1``, and
   one SSD scan over all rows at ``SQ = 1``.
@@ -73,7 +75,8 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str
         yield (f"{prefix}.attn.out_proj", "matmul_h100",
                {"M": M, "N": d, "K": cfg.heads * hd})
         yield (f"{prefix}.attn.core", "flash_attention_h100",
-               {"SQ": SQ, "HD": hd})
+               {"SQ": SQ, "HD": hd, "GROUP": cfg.heads // cfg.kv_heads,
+                "HK": cfg.kv_heads})
     if has_ssm(cfg):
         s = cfg.ssm
         di = s.heads * s.head_dim

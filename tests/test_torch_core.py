@@ -3,6 +3,7 @@ port's families build non-trivial trees that resolve the whole serve warm
 sets of llama3-8b, mamba2-130m and hymba-1.5b on an H100, and the case-study
 families show the paper's case discussions in the port's symbols."""
 import dataclasses
+import itertools
 import math
 
 import pytest
@@ -15,6 +16,7 @@ from repro_torch.artifacts.dispatch import DispatchCache
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.comprehensive import comprehensive_optimization as t_opt
 from repro_torch.core.constraints import Verdict
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import jacobi1d as jacobi_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import transpose as transpose_mod
@@ -151,10 +153,14 @@ def test_llama3_warm_set_resolves_within_gpu_limits(arch_cfg):
                     d["M"], d["N"], d["K"], *(a[n] for n in MM_PARAMS),
                     cand.plan.flags["smem_cache"], dtype) is None
         else:
-            hd = dict(op.data)["HD"]
-            assert 32 * a["bq"] <= 1024
-            assert 4 * (a["bq"] * hd + a["bkv"] * (2 * hd + 1)
-                        + a["bq"] * a["bkv"]) <= 232_448
+            d = op.data_dict()
+            assert fa_mod.threads(a["bq"], a["bkv"]) <= 1024        # T
+            for dtype in (torch.float32, torch.bfloat16):
+                assert fa_mod.smem_bytes(a["bq"], a["bkv"], a["stages"],
+                                         d["HD"], dtype) <= 232_448  # V
+                assert fa_mod.format_error(
+                    cfg.heads, cfg.kv_heads, d["SQ"], 256, d["HD"],
+                    *(a[n] for n in FA_PARAMS), dtype) is None
 
 
 def test_trace_holds_exactly_the_dispatched_shapes():
@@ -172,7 +178,8 @@ def test_trace_holds_exactly_the_dispatched_shapes():
 
 
 def test_binding_constraints_prune_somewhere():
-    """T and Z_B each rule out part of the matmul and attention domains."""
+    """T and Z_B each rule out part of the matmul domain, and Z_B part of
+    the attention domain (its blocks have at most 256 threads)."""
     from repro_torch.core.select import enumerate_candidates
     mm = enumerate_candidates(MATMUL, tcore.H100_SXM,
                               {"M": 32, "N": 4096, "K": 4096})
@@ -185,10 +192,18 @@ def test_binding_constraints_prune_somewhere():
     # tiles (288 KB) exceeds V, a 2-stage one (144 KB) fits
     assert (32, 256, 64, 2, 1, 4) not in cached
     assert (32, 256, 64, 2, 1, 2) in cached
-    fa = enumerate_candidates(FLASH, tcore.H100_SXM, {"SQ": 32, "HD": 128})
-    # a 256-key tile at HD 128 needs >= 264 KB of shared memory: V binds
-    assert {c.assignment["bkv"] for c in fa} == {32, 64, 128}
-    assert max(c.assignment["bq"] for c in fa) == 32   # 64 warps > T
+    fa = enumerate_candidates(FLASH, tcore.H100_SXM,
+                              {"SQ": 32, "HD": 128, "GROUP": 4, "HK": 8})
+    kept = {tuple(c.assignment[n] for n in FA_PARAMS) for c in fa}
+    # f32 tiles at HD 128: 128 rows with a 3-stage ring of 64-key tiles
+    # (328 KB) exceed V, with a 2-stage one (231 KB) they fit
+    assert not any(k[:2] == (128, 64) and k[3] == 3 for k in kept)
+    assert any(k[:2] == (128, 64) and k[3] == 2 for k in kept)
+    assert {k[0] for k in kept} == {16, 32, 64, 128}   # T never binds
+    for c in fa:
+        a = c.assignment
+        assert fa_mod.smem_bytes(a["bq"], a["bkv"], a["stages"], 128,
+                                 torch.float32) <= 232_448
 
 
 def test_instantiate_is_memoized_per_device():
@@ -427,6 +442,78 @@ def test_matmul_napkin_at_decode(data, check):
         assert blocks >= 132, a
     else:
         assert a["bn"] <= 32, a
+
+
+FA_PARAMS = ("bq", "bkv", "kv_chunk", "stages")
+
+
+def test_flash_domains_fit_the_select_cap():
+    """Every K2 leaf's domain product stays within select's cap of 512, so
+    the napkin ranks the whole domain."""
+    for leaf in tcore.comprehensive_tree(FLASH):
+        sizes = [len(d.feasible()) for d in leaf.plan.program_params.values()]
+        assert set(leaf.plan.program_params) == set(FA_PARAMS)
+        assert math.prod(sizes) <= 512, (leaf.applied, sizes)
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "hymba_1p5b"])
+def test_flash_pick_equals_the_uncapped_pick(arch):
+    """At every K2 key of the full-width serve warm set the pick under
+    select's default cap is the pick over the whole domain, and a format
+    the C entry point takes for both types at the smoke path's contexts and
+    at sk 4096."""
+    from repro_torch.core.select import rank_candidates
+    cfg = get_config(arch)
+    keys = [op.data_dict() for op in trace_warm_set(cfg, **SERVE_SETS[arch])
+            if op.family == "flash_attention_h100"]
+    assert {d["GROUP"] for d in keys} == {cfg.heads // cfg.kv_heads}
+    assert {d["HK"] for d in keys} == {cfg.kv_heads}
+    assert {d["SQ"] for d in keys} == {32, 16, 8, 4, 2, 1}
+    for data in keys:
+        capped = rank_candidates(FLASH, tcore.H100_SXM, data)[0]
+        whole = rank_candidates(FLASH, tcore.H100_SXM, data,
+                                max_per_leaf=10 ** 9)[0]
+        assert (capped.leaf_index, capped.assignment) == (
+            whole.leaf_index, whole.assignment), data
+        a = capped.assignment
+        for sk in (data["SQ"] + 15, 4096):
+            for dtype in (torch.float32, torch.bfloat16):
+                assert fa_mod.format_error(
+                    cfg.heads, cfg.kv_heads, data["SQ"], sk, data["HD"],
+                    *(a[n] for n in FA_PARAMS), dtype) is None, (data, a)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_counters_are_the_kernels_own(hd):
+    """Z_B is ``smem_bytes`` in f32 and T is ``threads`` at every point of
+    the domain where bq >= 32; at bq 16, where the kernel's warps hold 32 or
+    64 rows, the counters' polynomial counts 72, so they bound it."""
+    plan = FLASH.initial_plan()
+    smem, den = FLASH.counter_value(plan, "smem_bytes")
+    thr, thr_den = FLASH.counter_value(plan, "threads")
+    for bq, bkv, stages in itertools.product(fa_mod.BQ, fa_mod.BKV,
+                                             fa_mod.STAGES):
+        pt = {"bq": bq, "bkv": bkv, "stages": stages, "HD": hd, "LANE": 32}
+        z_b = smem.eval(pt) / den.eval(pt)
+        t = thr.eval(pt) / thr_den.eval(pt)
+        kernel = fa_mod.smem_bytes(bq, bkv, stages, hd, torch.float32)
+        if bq >= 32:
+            assert (z_b, t) == (kernel, fa_mod.threads(bq, bkv)), pt
+        else:
+            assert kernel <= z_b <= kernel + 4 * 40 * (bkv + 4), pt
+            assert fa_mod.threads(bq, bkv) <= t == 144, pt
+
+
+def test_flash_napkin_at_decode():
+    """At a decode step (SQ 1) the group's few packed rows take one row
+    warp (bq 16, its key warps reading slices of each tile), and the keys
+    are split so that a long cache covers the SMs."""
+    for group, hd, hk in ((4, 128, 8), (5, 64, 5)):
+        a = DispatchCache().best_variant(
+            FLASH, tcore.H100_SXM,
+            {"SQ": 1, "HD": hd, "GROUP": group, "HK": hk}).assignment
+        assert a["bq"] == 16 and fa_mod.key_warps(a["bq"], a["bkv"]) > 1, a
+        assert a["kv_chunk"] <= 1024, a
 
 
 def test_matmul_every_feasible_leaf_launches():

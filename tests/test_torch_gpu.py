@@ -14,10 +14,11 @@ Tolerances, kernel against plain version on the same inputs:
   tile (the plain version sums each tile with cuBLAS, TF32 off; the kernel
   on the tensor cores or in FMA); both add the tiles of a split, then the
   splits, in the same order.
-- f32 attention: 1e-4, the same online softmax with ``expf`` against
-  ``torch.exp`` and another summation order.
+- f32 attention: 1e-4, the same online softmax and split combine with
+  ``expf`` against ``torch.exp`` and another summation order.
 - bf16 attention: 1e-2, one bf16 rounding step (2^-7) of the output, which
-  both versions compute in f32 and round once.
+  both versions compute in f32 and round once, and the kernel's P rounded
+  to bf16 for the tensor cores (2^-9 relative, averaged over the keys).
 - SSD scan: 1e-3 on the f32 state and on an f32 y (the same chunk math
   summed in another order, ``expf``/``logf`` against ``torch.exp``/``log``,
   over sums of up to ``chunk`` terms of O(1)); 1e-2 on a bf16 y, one bf16
@@ -159,26 +160,107 @@ def test_gpu_matmul_invalid_format_raises(cuda):
             matmul_h100(a, b, **kw)
 
 
+#: (h, hk, sq, sk, bq, bkv, kv_chunk, stages, causal, window): one KV head
+#: a query head and GQA at the llama (32/8) and hymba (25/5) groupings;
+#: decode, prefill chunks and sk no multiple of bkv; non-causal; windows;
+#: one split and several (the combine), ring depths 2-4.
+FA_CASES = [
+    (4, 4, 9, 70, 16, 32, 4096, 2, True, None),
+    (4, 4, 9, 70, 16, 32, 4096, 3, False, None),
+    (4, 4, 9, 70, 16, 32, 4096, 4, True, 16),
+    (4, 4, 1, 200, 16, 64, 4096, 2, True, None),
+    (4, 4, 3, 61, 128, 64, 4096, 2, True, None),
+    (4, 4, 32, 200, 64, 64, 4096, 2, False, None),
+    (32, 8, 1, 77, 16, 64, 512, 3, True, None),        # llama decode
+    (32, 8, 32, 96, 128, 32, 512, 4, True, None),      # llama prefill chunk
+    (25, 5, 1, 300, 16, 64, 64, 3, True, 128),         # hymba decode, split
+    (25, 5, 32, 300, 64, 64, 128, 2, True, 128),       # hymba chunk, split
+    (8, 2, 17, 1000, 32, 32, 256, 4, False, None),     # split, non-causal
+    (8, 1, 5, 333, 16, 64, 128, 2, True, 40)]          # split, window
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("sq,sk,bq,bkv,causal,window", [
-    (9, 70, 4, 32, True, None), (9, 70, 4, 32, False, None),
-    (9, 70, 4, 32, True, 16), (1, 200, 1, 64, True, None),
-    (3, 61, 8, 128, True, None), (32, 200, 8, 64, False, None)])
-def test_gpu_flash_kernel_matches_plain(cuda, dtype, tol, sq, sk, bq, bkv,
-                                        causal, window):
-    q = _t((4, sq, 128), 9, cuda, dtype)
-    k = _t((4, sk, 128), 10, cuda, dtype)
-    v = _t((4, sk, 128), 11, cuda, dtype)
+@pytest.mark.parametrize("h,hk,sq,sk,bq,bkv,kv_chunk,stages,causal,window",
+                         FA_CASES)
+def test_gpu_flash_kernel_matches_plain(cuda, dtype, tol, h, hk, sq, sk, bq,
+                                        bkv, kv_chunk, stages, causal,
+                                        window):
+    d = 64 if h == 25 else 128
+    q = _t((h, sq, d), 9, cuda, dtype)
+    k = _t((hk, sk, d), 10, cuda, dtype)
+    v = _t((hk, sk, d), 11, cuda, dtype)
+    kw = dict(bq=bq, bkv=bkv, kv_chunk=kv_chunk, stages=stages,
+              causal=causal, window=window)
     n0 = flash_attention_h100.launches
-    got = flash_attention_h100(q, k, v, bq=bq, bkv=bkv, causal=causal,
-                               window=window)
+    got = flash_attention_h100(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention_h100.launches == n0 + 1 and got.dtype == dtype
-    want = flash_attention_plain(q, k, v, bq=bq, bkv=bkv, causal=causal,
-                                 window=window)
+    want = flash_attention_plain(q, k, v, **kw)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 80, 128])
+def test_gpu_flash_misaligned_and_narrow_heads(cuda, dtype, d):
+    """q, k, v one element past a 16-byte boundary take the masked element
+    loads; d = 16 and 80 run in the 64- and 128-wide tiles with the columns
+    past d zero."""
+    h, hk, sq, sk = 6, 2, 7, 150
+    q = _t((h * sq * d + 1,), 1, cuda, dtype)[1:].view(h, sq, d)
+    k = _t((hk * sk * d + 1,), 2, cuda, dtype)[1:].view(hk, sk, d)
+    v = _t((hk * sk * d + 1,), 3, cuda, dtype)[1:].view(hk, sk, d)
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for kv_chunk in (64, 4096):
+        kw = dict(bq=32, bkv=32, kv_chunk=kv_chunk, stages=3, causal=True)
+        torch.testing.assert_close(
+            flash_attention_h100(q, k, v, **kw).float(),
+            flash_attention_plain(q, k, v, **kw).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,bq,window", [(1, 16, None), (256, 64, None),
+                                          (1, 16, 1024)])
+def test_gpu_flash_split_kv_two_launches_bit_identical(cuda, sq, bq, window):
+    """A long cache (sk 4096) over 16 splits at the llama3-8b decode and a
+    256-row prefill chunk, and a windowed decode: within tolerance of the
+    plain version, and two launches give the same bits (the combine sums
+    the splits in order, never with float atomics)."""
+    h, hk, sk, d = 32, 8, 4096, 128
+    q = _t((h, sq, d), 20, cuda, torch.bfloat16)
+    k = _t((hk, sk, d), 21, cuda, torch.bfloat16)
+    v = _t((hk, sk, d), 22, cuda, torch.bfloat16)
+    kw = dict(bq=bq, bkv=64, kv_chunk=256, stages=3, causal=True,
+              window=window)
+    first = flash_attention_h100(q, k, v, **kw)
+    torch.testing.assert_close(first.float(),
+                               flash_attention_plain(q, k, v, **kw).float(),
+                               rtol=1e-2, atol=1e-2)
+    for _ in range(2):
+        assert torch.equal(first, flash_attention_h100(q, k, v, **kw))
+
+
+@pytest.mark.gpu
+def test_gpu_flash_invalid_format_raises(cuda):
+    """The entry point refuses what it does not take, as ``format_error``
+    says it will; the wrapper raises."""
+    from repro_torch.kernels.flash_attention import format_error
+    q = _t((4, 2, 64), 1, cuda, torch.bfloat16)
+    k = _t((2, 40, 64), 2, cuda, torch.bfloat16)
+    good = dict(bq=16, bkv=32, kv_chunk=32, stages=2)
+    assert format_error(4, 2, 2, 40, 64, **good,
+                        dtype=torch.bfloat16) is None
+    flash_attention_h100(q, k, k, **good)
+    for bad in (dict(bq=8), dict(bkv=128), dict(kv_chunk=48),
+                dict(stages=1), dict(stages=5)):
+        kw = {**good, **bad}
+        assert format_error(4, 2, 2, 40, 64, **kw,
+                            dtype=torch.bfloat16) is not None
+        with pytest.raises(RuntimeError):
+            flash_attention_h100(q, k, k, **kw)
 
 
 def _ssd_inputs(rows, seq, heads, hd, state, dev, dtype, shared=True):
@@ -232,14 +314,49 @@ def test_gpu_ssd_kernel_per_head_bc_equals_shared(cuda):
 @pytest.mark.parametrize("M,N,bm,bn,s", [
     (1024, 1024, 1, 256, 2), (300, 700, 1, 256, 2), (300, 700, 32, 32, 1),
     (37, 1000, 8, 128, 1), (513, 65, 2, 512, 2),
-    (1, 1 << 25, 1, 256, 2)])                  # 65,536 column blocks
+    (1, 1 << 25, 1, 256, 2),
+    (1, 1 << 25, 1, 32, 1),                    # > 65,535 column blocks
+    (1 << 17, 8, 1, 32, 1),                    # > 65,535 row blocks
+    (5, 1001, 4, 64, 2)])                      # no whole 16-byte rows
 def test_gpu_matadd_kernel_matches_plain(cuda, dtype, M, N, bm, bn, s):
+    """Bit for bit.  Rows of 700 bf16, 65 or 1001 elements are no multiple
+    of 16 bytes and take the masked scalar path, the others the 16-byte
+    vectors; (1, 2^25) at bn 32, s 1 has 262,144 (f32) or 131,072 (bf16)
+    column blocks (the grid's x), (2^17, 8) at bm 1 131,072 row blocks,
+    launched a 65,535 at a time."""
     a, b = _t((M, N), 12, cuda, dtype), _t((M, N), 13, cuda, dtype)
     n0 = matadd_h100.launches
     got = matadd_h100(a, b, bm=bm, bn=bn, s=s)
     torch.cuda.synchronize()
     assert matadd_h100.launches == n0 + 1 and got.dtype == dtype
     assert torch.equal(got, matadd_plain(a, b, bm=bm, bn=bn, s=s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["a", "b", "c", "all"])
+def test_gpu_matadd_misaligned_bases(cuda, dtype, which):
+    """An operand or the output one element into its buffer breaks 16-byte
+    alignment: the masked scalar path, bit for bit."""
+    M, N = 64, 1024
+    def view(seed, shift):
+        return _t((M * N + 1,), seed, cuda, dtype)[shift:shift + M * N
+                                                    ].view(M, N)
+    a = view(12, 1 if which in ("a", "all") else 0)
+    b = view(13, 1 if which in ("b", "all") else 0)
+    kw = dict(bm=4, bn=64, s=2)
+    if which in ("c", "all"):
+        from repro_torch.kernels import matadd as add_mod
+        out = torch.empty(M * N + 1, dtype=dtype, device=cuda)[1:].view(M, N)
+        err = add_mod._entry()(a.data_ptr(), b.data_ptr(), out.data_ptr(), M,
+                               N, 4, 64, 2, add_mod._ELEM[dtype],
+                               torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+        got = out
+    else:
+        got = matadd_h100(a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, matadd_plain(a, b, **kw))
 
 
 @pytest.mark.gpu
@@ -260,16 +377,21 @@ def test_gpu_transpose_kernel_matches_plain(cuda, dtype, M, N, bm, bn, s,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op,shape", [("matadd", (1, 1 << 25)),
+@pytest.mark.parametrize("op,shape", [("matadd", (1 << 22, 8)),
                                       ("transpose", (4, 1 << 25))])
 def test_gpu_ops_launch_past_65535_column_blocks(cuda, op, shape):
-    """A thin operand whose pick has more than 65,535 column blocks (the
-    cap of a grid's y count) launches through ``ops``: the entry point
-    then launches once for each 65,535 column blocks."""
+    """A thin operand whose pick has more than 65,535 blocks on the grid's
+    y (its cap) launches through ``ops``: the entry point then launches
+    once for each 65,535 of them.  Transpose counts column blocks on y;
+    matadd counts row blocks there (its column blocks are on x, whose cap
+    is 2^31 - 1), so its thin operand is a tall one."""
     M, N = shape
     cand = ops.select(f"{op}_h100", {"M": M, "N": N})
     a = cand.assignment
-    assert -(-N // (a["bn"] * grain(cand.plan, a["s"]))) > 65535
+    if op == "matadd":
+        assert -(-M // a["bm"]) > 65535
+    else:
+        assert -(-N // (a["bn"] * grain(cand.plan, a["s"]))) > 65535
     x = _t(shape, 16, cuda)
     if op == "matadd":
         got, want = ops.matadd(x, x.flip(1)), x + x.flip(1)
@@ -303,7 +425,10 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
         matmul_h100(a, a.T.contiguous().half(), bm=16, bn=32, bk=32, s=1)
     q = _t((2, 4, 256), 2, cuda)                        # head dim > 128
     with pytest.raises(ValueError):
-        flash_attention_h100(q, q, q, bq=1, bkv=32)
+        flash_attention_h100(q, q, q, bq=16, bkv=32, kv_chunk=64)
+    q = _t((3, 4, 64), 2, cuda)                         # 3 heads over 2
+    with pytest.raises(ValueError):
+        flash_attention_h100(q, q[:2], q[:2], bq=16, bkv=32, kv_chunk=64)
     x, a, b, c, _ = _ssd_inputs(1, 300, 2, 16, 8, cuda, torch.float32)
     with pytest.raises(TypeError):                      # bf16 decay
         ssd_scan_h100(x, a.bfloat16(), b, c, chunk=16, bd=16)

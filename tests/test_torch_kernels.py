@@ -192,14 +192,98 @@ def test_flash_non_causal_ragged_matches_oracle(sq):
                                atol=2e-3)
 
 
-@pytest.mark.parametrize("bq,bkv", [(1, 32), (8, 64), (32, 128), (2, 256)])
-def test_flash_every_tile_shape_same_result(bq, bkv):
+@pytest.mark.parametrize("bq,bkv,kv_chunk,stages", [
+    (16, 32, 4096, 2), (32, 64, 64, 3), (64, 32, 96, 4), (128, 64, 128, 2)])
+def test_flash_every_tile_shape_same_result(bq, bkv, kv_chunk, stages):
+    """Every launch format, one split and several, gives the oracle's
+    attention: the format shapes the launch, the splits are combined."""
     (jq, tq), (jk, tk), (jv, tv) = _qkv(3, 40, 130, 16, SEED + 50)
     want = jref.flash_attention(jq, jk, jv, causal=True, window=50)
-    got = flash_attention_h100(tq, tk, tv, bq=bq, bkv=bkv, causal=True,
+    got = flash_attention_h100(tq, tk, tv, bq=bq, bkv=bkv,
+                               kv_chunk=kv_chunk, stages=stages, causal=True,
                                window=50)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
                                atol=2e-3)
+
+
+def _gqa(h, hk, sq, sk, d, seed):
+    """q [h, sq, d] and k, v [hk, sk, d] from numpy; JAX gets K/V broadcast
+    to the query heads with ``jnp.repeat`` (query head i reads KV head
+    i // (h/hk)), the port takes them as they are."""
+    (jq, tq) = _pair(_np((h, sq, d), seed), "float32")
+    (jk, tk) = _pair(_np((hk, sk, d), seed + 1), "float32")
+    (jv, tv) = _pair(_np((hk, sk, d), seed + 2), "float32")
+    jk, jv = jnp.repeat(jk, h // hk, axis=0), jnp.repeat(jv, h // hk, axis=0)
+    return (jq, tq), (jk, tk), (jv, tv)
+
+
+@pytest.mark.parametrize("h,hk,sq,sk,causal,window", [
+    (8, 2, 128, 128, True, None), (8, 2, 1, 200, True, None),
+    (10, 5, 16, 61, True, None), (8, 4, 32, 300, True, 40),
+    (4, 1, 1, 256, True, 128)])
+def test_flash_gqa_matches_jax_pallas(h, hk, sq, sk, causal, window):
+    """K/V with fewer heads than q through ``ops.flash_attention`` (the
+    tree's pick at (SQ, HD, GROUP, HK)) against the Pallas kernel in interpret
+    mode on K/V broadcast with ``jnp.repeat``, and against the oracle."""
+    (jq, tq), (jk, tk), (jv, tv) = _gqa(h, hk, sq, sk, 32, SEED + 300 + sq)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    want = pallas_flash_attention(jq, jk, jv, bq=128, bk=128, causal=causal,
+                                  window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.flash_attention(jq, jk, jv, causal,
+                                                     window)),
+        rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("sq", [200, 1])
+def test_flash_gqa_non_causal_ragged_matches_oracle(sq):
+    """Non-causal GQA over sk = 200, no multiple of any kv tile (F1): held
+    against the oracle, which the Pallas kernel is not there."""
+    (jq, tq), (jk, tk), (jv, tv) = _gqa(6, 2, sq, 200, 64, SEED + 310)
+    want = jref.flash_attention(jq, jk, jv, causal=False)
+    for bkv in (32, 64):
+        got = flash_attention_h100(tq, tk, tv, bq=32, bkv=bkv, kv_chunk=4096,
+                                   causal=False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                                   atol=2e-3)
+
+
+@pytest.mark.parametrize("kv_chunk", [32, 64, 128, 192, 4096])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 70)])
+def test_flash_split_kv_matches_oracle(kv_chunk, causal, window):
+    """Split-KV at several ``kv_chunk`` (one split at 4096): each split's
+    (m, l, acc) combined in split order is the oracle's attention, decode
+    and prefill chunk alike, a window leaving whole splits unseen."""
+    for sq in (1, 37):
+        (jq, tq), (jk, tk), (jv, tv) = _gqa(8, 2, sq, 333, 16,
+                                            SEED + 320 + sq)
+        want = jref.flash_attention(jq, jk, jv, causal, window)
+        got = flash_attention_h100(tq, tk, tv, bq=16, bkv=32,
+                                   kv_chunk=kv_chunk, causal=causal,
+                                   window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_flash_format_error_mirrors_the_entry_point():
+    """The C entry point's checks, in Python: the formats the tree offers
+    pass, the others name why they are refused."""
+    from repro_torch.kernels.flash_attention import format_error
+    ok = dict(bq=16, bkv=64, kv_chunk=512, stages=3, dtype=torch.bfloat16)
+    assert format_error(32, 8, 1, 4096, 128, **ok) is None
+    for bad, why in [(dict(bq=8), "bq"), (dict(bkv=128), "bkv"),
+                     (dict(kv_chunk=96), "kv_chunk"), (dict(stages=1),
+                                                       "stages"),
+                     (dict(dtype=torch.float16), "f32 or bf16")]:
+        assert why in format_error(32, 8, 1, 4096, 128, **{**ok, **bad})
+    assert "multiple" in format_error(32, 7, 1, 64, 128, **ok)
+    assert "sq <= sk" in format_error(32, 8, 65, 64, 128, **ok)
+    assert "232,448" in format_error(32, 8, 32, 64, 128, bq=128, bkv=64,
+                                     kv_chunk=512, stages=4,
+                                     dtype=torch.float32)
 
 
 def test_flash_oracle_matches_jax_oracle():
@@ -447,7 +531,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
                        matmul_plain(a, a.T.contiguous(), bm=16, bn=32, bk=32,
                                     s=1, kb=2, stages=4))
     q = torch.ones(1, 2, 8)
-    flash_attention_h100(q, q, q, bq=1, bkv=32)
+    flash_attention_h100(q, q, q, bq=16, bkv=32, kv_chunk=64)
     x = torch.ones(1, 3, 2, 8)
     ssd_scan_h100(x, torch.full((1, 3, 2), 0.5), x[..., :4], x[..., :4],
                   chunk=16, bd=8)
@@ -474,7 +558,8 @@ def test_kernel_path_refuses_cpu_tensors():
         mm_mod._launch(a, a.T, bm=16, bn=32, bk=32, s=1, kb=2, stages=4,
                        cached=True)
     with pytest.raises(ValueError):
-        fa_mod._launch(a[None], a[None], a[None], bq=1, bkv=32)
+        fa_mod._launch(a[None], a[None], a[None], bq=16, bkv=32,
+                       kv_chunk=64)
     x = torch.ones(1, 3, 2, 8)
     with pytest.raises(ValueError):
         ssd_mod._launch(x, torch.full((1, 3, 2), 0.5), x[..., :4],

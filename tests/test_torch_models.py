@@ -104,6 +104,38 @@ def test_decode_skips_rows_not_decoding(model):
     torch.testing.assert_close(c1["k"][:, 1:], c2["k"][:, 1:])
 
 
+def test_attention_core_takes_kv_heads_unbroadcast(model, monkeypatch):
+    """``_core`` hands K2 the config's KV heads as they are (no
+    ``repeat_interleave`` to the query heads) on the no-cache path and the
+    paged path, and the logits still match the JAX model's."""
+    from repro_torch.kernels import ops
+    cfg, jp, tcfg, tp = model
+    seen = []
+    real = ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[0], k.shape[0], v.shape[0]))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 9))
+    want, _ = jm.forward(jp, cfg, jnp.asarray(toks, jnp.int32))
+    got, _ = tm.forward(tp, tcfg, toks)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tc = tm.init_paged_cache(tcfg, 5, 4, 2, dtype=torch.float32,
+                             device="cpu")
+    jc = jm.init_paged_cache(cfg, 5, 4, 2, dtype=jnp.float32)
+    bt = np.array([[1, 2, 3, 4]], np.int32)
+    jl, _ = jm.paged_prefill_chunk(jp, cfg, jnp.asarray(toks[:1, :6]), jc,
+                                   jnp.int32(0), jnp.asarray(bt),
+                                   jnp.int32(0))
+    tl, _ = tm.paged_prefill_chunk(tp, tcfg, toks[:1, :6], tc, 0, bt, 0)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert tcfg.kv_heads < tcfg.heads
+    assert seen and set(seen) == {(tcfg.heads, tcfg.kv_heads,
+                                   tcfg.kv_heads)}
+
+
 def test_init_model_seeded_and_bf16():
     cfg = tconfigs.get_smoke_config("llama3_8b")
     a = tm.init_model(cfg, seed=1, device="cpu")
