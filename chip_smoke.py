@@ -35,11 +35,17 @@ no phase is caught.
    kv_chunk, stages) each, held against the plain version and timed, with
    the napkin's rank beside the card's.
 5. K3 ``ssd_scan_h100`` against its plain version in bf16 with an f32
-   state, at the mamba2-130m (24 heads of 64, state 128) and hymba-1.5b (25
-   heads of 64, state 16) signatures: a decode step of 4 rows at seq 1 with
-   the state in, every chunk length 1..256 with the state in, seq 200 (no
-   multiple of any chunk) with and without a state, through the leaf the
-   dispatch picks; and at five feasible leaves of different (chunk, bd).
+   state, updated in place as the serve path does, at the mamba2-130m (24
+   heads of 64, state 128) and hymba-1.5b (25 heads of 64, state 16)
+   signatures: a decode step of 4 rows at seq 1 with a mask of every row,
+   and again with row 2 masked out (its state must stay bit for bit),
+   every chunk length 1..256 with the state in, seq 200 (no multiple of
+   any chunk) with and without a state, through the leaf the dispatch
+   picks; each row also held by relative error (``SSD_REL``) against a
+   planted fault; and every feasible leaf (chunk, bd) at a one-row
+   256-step mamba chunk, timed eagerly and as device time, with the
+   napkin's rank beside the card's and the pick's time as a multiple of
+   the fastest leaf's.
 6. case studies, the paper's own evaluation through the port's ``ops``
    (``DispatchCache.warm_callable`` -> the family's tree under ``H100_SXM``
    -> memoized ``instantiate`` -> the kernel), at the paper's sizes: the
@@ -56,7 +62,8 @@ no phase is caught.
    the 16-byte boundary; and at each of the four sizes up to eight leaves
    of different
    formats, each held against the plain version and timed, with the
-   napkin's rank beside the card's: the leaves live under ``H100_SXM``
+   napkin's rank beside the card's (a Jacobi sweep also as device time):
+   the leaves live under ``H100_SXM``
    (matadd: grain 2; transpose and Jacobi: cached, case 1, grains 1-8) and
    the leaves the tree keeps for a smaller machine (matadd's grain-1 case
    C2 at G = 12; the uncached case 3 of transpose and Jacobi at V = 0),
@@ -78,16 +85,20 @@ no phase is caught.
    gives finite logits.
 9. main-path shapes: every launch signature of phase 8 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
-   kernel, plain version, the library call, and the bound.  Then K1's host
-   cost a launch: the host clock over 1000 launches at M = 1, N = 32,
-   K = 32 with no synchronise inside the loop, through the wrapper, through
-   ``ops.matmul`` and, beside them, ``torch.matmul``.
+   kernel, plain version, the library call, and the bound.  Then the host
+   cost a launch: the host clock over 1000 launches with no synchronise
+   inside the loop, of K1 at M = 1, N = 32, K = 32 through the wrapper,
+   ``ops.matmul`` and, beside them, ``torch.matmul``, and of K3 at
+   mamba2-130m's decode signature (4, 1, 24, 64, 128), in place with a
+   mask as the decode step calls it, through the wrapper, ``ops.ssd_scan``
+   and the C entry alone.
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
 fastest): one mean over one batch let a single slow batch set a row.  A
 launch whose host cost exceeds its device time reads its host cost this
-way, so K1, K2, K5, ``torch.matmul`` and SDPA also print ``device_ms``
+way, so K1-K3, K5, K6, ``torch.matmul`` and SDPA also print
+``device_ms``
 (``library_device_ms`` for the library call): 20 launches
 captured in one CUDA graph, replayed in 5 batches, the median over 20.  A
 matmul cycles through copies of its weight operand so that each launch
@@ -101,9 +112,12 @@ a launch, far past the L2.  The bound of a launch
 is max(bytes / 3.35 TB/s, flops / peak), with each input read once and each
 output written once, the flops of the keys the masks leave visible, the
 recurrence's 5·state·hd flops a step and head for the SSD scan, and the
-peak of the H100 SXM data sheet for the arithmetic's type (989 TFLOP/s bf16
-on the tensor cores, 67 TFLOP/s f32; the SSD scan's decay products and
-state are f32), a sum or a Jacobi point in f32, a transpose none.  The
+peak of the H100 SXM data sheet for the unit that does the arithmetic (989
+TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32: a bf16 SSD chunk of more
+than one step runs its products on the tensor cores, a step or f32 on the
+CUDA cores, and ``bound_f32_ms`` gives a chunk's bound with every flop at
+the f32 rate beside it), a sum or a Jacobi point in f32, a transpose
+none.  The
 library call is a yardstick timed only here: ``torch.matmul`` (its output
 is bf16, the kernel's f32), ``scaled_dot_product_attention``, ``torch.add``
 for matadd and ``a.t().contiguous()`` for transpose (the plain versions of
@@ -141,9 +155,14 @@ Tolerances, kernel against plain version on the same inputs:
   and the same check must refuse a planted fault, the reference computed
   without the first split some query sees.
 - SSD scan: rtol = atol = 1e-3 on the f32 state, which both compute in f32
-  by the same chunk math in another order of sums (at most 256 + state
+  by the same recurrence in another order of sums (at most 256 + state
   terms of O(1)) and with ``expf``/``logf`` against ``torch.exp``/``log``;
-  rtol = atol = 1e-2 on the bf16 y, one bf16 step as for attention.
+  rtol = atol = 1e-2 on the bf16 y, one bf16 step as for attention.  The
+  bf16 chunk body feeds G, the state and w⊙b to the tensor cores as a high
+  and a low bf16 part (~16 bits; one rounding of G would break the 1e-2),
+  and every bf16 launch is also held to ||got - want|| / ||want|| <= 2^-6
+  (the split gives ~1e-4), a check that must refuse a planted fault: the
+  plain version with one step's decay set to 1.
 - matadd and transpose: bit for bit (``torch.equal``): a transpose moves
   raw bits, and a sum is one f32 add rounded once to the element type on
   both sides.
@@ -178,6 +197,7 @@ FA_TOL = dict(rtol=1e-2, atol=1e-2)
 FA_REL = 2.0 ** -6                    # relative Frobenius error, split rows
 SSD_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 SSD_Y_TOL = dict(rtol=1e-2, atol=1e-2)
+SSD_REL = 2.0 ** -6                   # relative Frobenius error, bf16 y
 JACOBI_TOL = dict(rtol=1e-5, atol=1e-5)
 JACOBI_STEPS = 4
 BATCHES = 5
@@ -280,7 +300,10 @@ def work(name: str, sig) -> tuple:
     each input read once, each output written once; attention counts the
     query-key pairs its masks leave visible, the SSD scan the recurrence's
     multiply-adds (S = a·S + b⊗x, y = c·S: 5·state·hd flops a step and
-    head) at the f32 rate, attention's K/V bytes over its hk KV heads and
+    head) at the rate of the unit that does them (the bf16 tensor cores
+    for a bf16 chunk, f32 for a step or f32; :func:`ssd_f32_bound_ms`
+    gives a bf16 chunk's bound at the f32 rate), attention's K/V bytes over
+    its hk KV heads and
     only the keys some query can see (a window's), matadd one f32 add an element, a Jacobi sweep
     two adds and a division a point, a transpose none."""
     esz = torch.empty((), dtype=sig[-1]).element_size()
@@ -298,11 +321,14 @@ def work(name: str, sig) -> tuple:
         n = sig[0]
         return (2 * n - 2) * esz, 3.0 * (n - 2), PEAK_FLOPS[torch.float32]
     if name == "ssd_scan_h100":
-        R, S, H, hd, n, _, _, with_state, _ = sig
+        R, S, H, hd, n, _, _, with_state, masked, dtype = sig
         state_bytes = 4 * R * H * n * hd
+        # a bf16 chunk runs its products on the tensor cores; the step body
+        # and f32 run on the CUDA cores in f32
+        peak = PEAK_FLOPS[dtype if S > 1 else torch.float32]
         return (2 * R * S * H * hd * esz + 4 * R * S * H + 2 * R * S * n * esz
-                + state_bytes * (2 if with_state else 1),
-                5.0 * R * S * H * n * hd, PEAK_FLOPS[torch.float32])
+                + R * masked + state_bytes * (2 if with_state else 1),
+                5.0 * R * S * H * n * hd, peak)
     h, hk, sq, sk, d = sig[:5]
     causal, window = sig[9:11]
     mask = _visible(sq, sk, causal, window)
@@ -315,6 +341,14 @@ def work(name: str, sig) -> tuple:
 def bound_terms_ms(name: str, sig) -> tuple:
     nbytes, flops, peak = work(name, sig)
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
+
+
+def ssd_f32_bound_ms(sig) -> float:
+    """K3's bound at ``sig`` with every flop at the f32 rate, as the
+    parent's kernel (all on the CUDA cores) was bound."""
+    nbytes, flops, _ = work("ssd_scan_h100", sig)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                     flops / PEAK_FLOPS[torch.float32])
 
 
 # ---------------------------------------------------------------------------
@@ -493,13 +527,35 @@ def flash_case(sig, gen, *, timed: bool, launches: int = 1,
     return row
 
 
-def ssd_case(sig, gen, *, timed: bool):
-    """K3 at (rows, seq, heads, hd, state, chunk, bd, state given, dtype)
-    on inputs shaped as the model makes them: x, b, c in the compute type,
-    b and c one [rows, seq, state] projection shared across heads, the
-    decay in (0.05, 0.95) and the state in f32."""
+def ssd_rel_held(name, y, want, fault) -> tuple:
+    """(relative error, planted fault's relative error) of a bf16 launch:
+    ||y - want|| / ||want|| within ``SSD_REL``, and the same check refusing
+    ``fault``, the plain version's y with one step's decay set to 1."""
+    def rel(t):
+        return float((t.float() - want.float()).norm()
+                     / want.float().norm())
+    err, bad = rel(y), rel(fault)
+    if err > SSD_REL:
+        raise AssertionError(f"{name}: relative error {err:.3e} > {SSD_REL}")
+    if bad <= SSD_REL:
+        raise AssertionError(f"{name}: the relative check passes a launch "
+                             f"with one step's decay set to 1 ({bad:.3e})")
+    return err, bad
+
+
+def ssd_case(sig, gen, *, timed: bool, leaf_only: bool = False,
+             drop: int = -1):
+    """K3 at (rows, seq, heads, hd, state, chunk, bd, state given, masked,
+    dtype), the wrapper's ``shapes`` key, on inputs shaped as the model
+    makes them: x, b, c in the compute type, b and c one [rows, seq, state]
+    projection shared across heads, the decay in (0.05, 0.95) and the state
+    in f32, updated in place as the serve path does, with a mask of every
+    row but ``drop`` (none when -1) when masked.  Held against the plain
+    version (a row left out bit for bit; a bf16 launch also by relative
+    error, against a planted fault); timed eagerly and as device time when
+    ``timed`` (the kernel alone when ``leaf_only``)."""
     from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
-    R, S, H, hd, n, chunk, bd, with_state, dtype = sig
+    R, S, H, hd, n, chunk, bd, with_state, masked, dtype = sig
     x = torch.randn((R, S, H, hd), generator=gen, device=DEV).to(dtype)
     a = torch.sigmoid(torch.randn((R, S, H), generator=gen,
                                   device=DEV)) * 0.9 + 0.05
@@ -507,19 +563,41 @@ def ssd_case(sig, gen, *, timed: bool):
     c = torch.randn((R, S, n), generator=gen, device=DEV).to(dtype)
     s0 = (torch.randn((R, H, n, hd), generator=gen, device=DEV)
           if with_state else None)
-    kw = dict(chunk=chunk, bd=bd)
-    y, s1 = ssd_scan_h100(x, a, b, c, s0, **kw)
+    mask = (torch.arange(R, device=DEV) != drop) if masked else None
+    kw = dict(chunk=chunk, bd=bd, mask=mask)
+
+    def state():                             # a copy to update in place
+        return s0.clone() if with_state else None
+
+    st = state()
+    y, s1 = ssd_scan_h100(x, a, b, c, st, out_state=st, **kw)
     torch.cuda.synchronize()
-    wy, ws = ssd_scan_plain(x, a, b, c, s0, **kw)
+    ws = state()
+    wy, ws = ssd_scan_plain(x, a, b, c, ws, out_state=ws, **kw)
     row = {"err": max(held(f"ssd state {sig}", s1, ws, SSD_STATE_TOL),
                       held(f"ssd y {sig}", y, wy, SSD_Y_TOL))}
+    if drop >= 0:
+        exact(f"ssd state of masked row {drop} {sig}", s1[drop], s0[drop])
+    if dtype == torch.bfloat16:
+        af = a.clone()
+        af[:, S // 2] = 1.0                  # step S // 2 forgets no state
+        fs = state()
+        fault, _ = ssd_scan_plain(x, af, b, c, fs, out_state=fs, **kw)
+        row["rel"], row["fault_rel"] = ssd_rel_held(f"ssd {sig}", y, wy,
+                                                    fault)
+        row["fault"] = "one decay set to 1"
     if timed:
-        time_into(row, "ms",
-                  lambda: ssd_scan_h100(x, a, b, c, s0, **kw), 10)
-        time_into(row, "plain_ms",
-                  lambda: ssd_scan_plain(x, a, b, c, s0, **kw), 2)
-        row["library_ms"] = None
+        def launch():
+            return ssd_scan_h100(x, a, b, c, st, out_state=st, **kw)
+        time_into(row, "ms", launch, 10)
+        row["device_ms"] = graph_ms(launch)
         row["bound_ms"] = max(bound_terms_ms("ssd_scan_h100", sig))
+        row["bound_f32_ms"] = ssd_f32_bound_ms(sig)
+        if not leaf_only:
+            ps = state()
+            time_into(row, "plain_ms", lambda: ssd_scan_plain(
+                x, a, b, c, ps, out_state=ps, **kw), 2)
+            row["library_ms"] = None
     return row
 
 
@@ -590,6 +668,7 @@ def jacobi_case(sig, gen, *, timed: bool):
     if timed:
         bufs = _cold_copies((x, x.clone()), 8 * n)
         time_into(row, "ms", lambda: sweep(*next(bufs), **kw), 10)
+        row["device_ms"] = graph_ms(lambda: sweep(*next(bufs), **kw))
         time_into(row, "plain_ms",
                   lambda: jacobi1d_plain(next(bufs)[0], 1, **kw), 10)
         time_into(row, "library_ms", lambda: F.avg_pool1d(
@@ -609,7 +688,7 @@ CASES = {"matmul_h100": matmul_case, "flash_attention_h100": flash_case,
 def fmt(row) -> str:
     out = f"max_abs_err {row['err']:.3e}"
     for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                "library_device_ms", "bound_ms"):
+                "library_device_ms", "bound_ms", "bound_f32_ms"):
         if row.get(key) is not None:
             out += f" {key} {row[key]:.4f}"
             if key + "_spread" in row:
@@ -617,8 +696,8 @@ def fmt(row) -> str:
     if "library_err" in row:
         out += f" library_err {row['library_err']:.3e}"
     if "rel" in row:
-        out += (f" rel_err {row['rel']:.3e} (without a split "
-                f"{row['fault_rel']:.3e})")
+        fault = row.get("fault", "without a split")
+        out += f" rel_err {row['rel']:.3e} ({fault} {row['fault_rel']:.3e})"
     return out
 
 
@@ -942,41 +1021,72 @@ def phase_k2(gen) -> float:
     return err
 
 
+#: Phase 5's leaf rows: a one-row 256-step mamba2-130m prefill chunk.
+K3_LEAF_SIG = (1, 256, 24, 64, 128)
+K3_PARAMS = ("chunk", "bd")
+
+
 def phase_k3(gen) -> float:
     from repro_torch.configs import get_config
     from repro_torch.core.params import H100_SXM
-    from repro_torch.core.select import enumerate_candidates
+    from repro_torch.core.select import rank_candidates
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import FAMILY as SSD
     err = 0.0
     for arch in ("mamba2_130m", "hymba_1p5b"):
         s = get_config(arch).ssm
-        cases = [("decode, 4 rows", 4, 1, True)]
-        cases += [(f"chunk {n}", 1, n, True) for n in
+        cases = [("decode, 4 rows, in place", 4, 1, True, True, -1),
+                 ("decode, 4 rows, in place, row 2 masked out", 4, 1, True,
+                  True, 2)]
+        cases += [(f"chunk {n}", 1, n, True, False, -1) for n in
                   (1, 2, 4, 8, 16, 32, 64, 128, 256)]
-        cases += [("seq 200, no state", 1, 200, False),
-                  ("seq 200, state in", 1, 200, True)]
-        for name, rows, seq, with_state in cases:
+        cases += [("seq 200, no state", 1, 200, False, False, -1),
+                  ("seq 200, state in", 1, 200, True, False, -1)]
+        for name, rows, seq, with_state, masked, drop in cases:
             a = ops.select("ssd_scan_h100", {"SQ": seq, "HD": s.head_dim,
                                              "STATE": s.state}).assignment
             sig = (rows, seq, s.heads, s.head_dim, s.state, a["chunk"],
-                   a["bd"], with_state, torch.bfloat16)
-            row = ssd_case(sig, gen, timed=False)
+                   a["bd"], with_state, masked, torch.bfloat16)
+            row = ssd_case(sig, gen, timed=False, drop=drop)
             err = max(err, row["err"])
             say(f"[K3] {arch} {name}: heads {s.heads} hd {s.head_dim} state "
-                f"{s.state} leaf {dict(a)}: {fmt(row)}")
-    data = {"SQ": 256, "HD": 64, "STATE": 128}
-    feasible = {(c.assignment["chunk"], c.assignment["bd"])
-                for c in enumerate_candidates(SSD, H100_SXM, data)}
-    for chunk, bd in [(16, 8), (32, 16), (64, 64), (128, 32), (64, 16)]:
-        if (chunk, bd) not in feasible:
-            raise AssertionError(f"chunk {chunk} bd {bd} is no feasible leaf "
-                                 f"at {data}")
-        sig = (1, 256, 24, 64, 128, chunk, bd, True, torch.bfloat16)
-        row = ssd_case(sig, gen, timed=True)
-        err = max(err, row["err"])
-        say(f"[K3] leaf chunk {chunk} bd {bd} at seq 256, heads 24, hd 64, "
-            f"state 128: {fmt(row)}")
+                f"{s.state} leaf {dict(a)}: {fmt(row)}"
+                f"{'; the masked row kept its state bit for bit' if drop >= 0 else ''}")
+
+    # every feasible leaf at one 256-step mamba chunk: napkin rank, card rank
+    R, S, H, hd, n = K3_LEAF_SIG
+    data = {"SQ": S, "HD": hd, "STATE": n}
+    ranked = rank_candidates(SSD, H100_SXM, data)
+    leaves, seen = [], set()
+    for cand in ranked:
+        key = tuple(cand.assignment[k] for k in K3_PARAMS)
+        if key not in seen:
+            seen.add(key)
+            leaves.append(cand)
+    if len(leaves) < 5:
+        raise AssertionError(f"only {len(leaves)} K3 leaves at {data}")
+    rows = {}
+    for cand in leaves:
+        sig = (R, S, H, hd, n, cand.assignment["chunk"],
+               cand.assignment["bd"], True, False, torch.bfloat16)
+        rows[sig] = dict(ssd_case(sig, gen, timed=True, leaf_only=True),
+                         score=cand.score)
+        err = max(err, rows[sig]["err"])
+    rank = {k: sorted(rows, key=lambda g: rows[g][k])
+            for k in ("ms", "device_ms")}
+    by_score = sorted(rows, key=lambda g: -rows[g]["score"])
+    for i, (sig, row) in enumerate(rows.items()):
+        leaf = dict(zip(K3_PARAMS, sig[5:7]))
+        say(f"[K3] leaf {leaf}{' (pick)' if i == 0 else ''} at rows {R} seq "
+            f"{S} heads {H} hd {hd} state {n}: {fmt(row)}; napkin score "
+            f"{row['score']:.4g} rank {by_score.index(sig) + 1}, card rank "
+            f"{rank['ms'].index(sig) + 1} (device "
+            f"{rank['device_ms'].index(sig) + 1}) of {len(rows)}")
+    pick = rows[next(iter(rows))]
+    for k in ("ms", "device_ms"):
+        best = rows[rank[k][0]][k]
+        say(f"[K3] seq {S} chunk: {k} pick {pick[k]:.4f}, fastest of "
+            f"{len(rows)} leaves {best:.4f} ({pick[k] / best:.2f}x)")
     return err
 
 
@@ -1373,6 +1483,43 @@ def phase_host_cost(gen) -> None:
         say(f"[shapes] K1 host cost a launch, {label}, M1 N32 K32 (leaf "
             f"{dict(cand.assignment)}): {1e3 * host:.4f} ms")
 
+    # K3 at mamba2-130m's decode signature (4, 1, 24, 64, 128), as the
+    # decode step calls it: in place, with a device mask of the rows
+    from repro_torch.kernels import ssd_scan as ssd
+    R, S, H, hd, N = 4, 1, 24, 64, 128
+    x = torch.randn((R, S, H, hd), generator=gen, device=DEV).bfloat16()
+    av = torch.full((R, S, H), 0.5, device=DEV)
+    bc = torch.randn((R, S, N), generator=gen, device=DEV).bfloat16()
+    st = torch.randn((R, H, N, hd), generator=gen, device=DEV)
+    mask = torch.ones((R,), dtype=torch.bool, device=DEV)
+    cand = ops.select("ssd_scan_h100", {"SQ": S, "HD": hd, "STATE": N})
+    fn = ops.FAMILIES["ssd_scan_h100"].instantiate(cand.plan,
+                                                   cand.assignment, "cuda")
+    y = torch.empty_like(x)
+    bx = bc[:, :, None, :].expand(R, S, H, N)
+    args = (x.data_ptr(), av.data_ptr(), bc.data_ptr(), bc.data_ptr(),
+            st.data_ptr(), y.data_ptr(), st.data_ptr(), mask.data_ptr(), R,
+            S, H, hd, N, 1, fn.keywords["bd"], *bx.stride()[:3],
+            *bx.stride()[:3], 1, torch.cuda.current_stream().cuda_stream)
+    for label, call in (("wrapper",
+                         lambda: fn(x, av, bc, bc, st, out_state=st,
+                                    mask=mask)),
+                        ("ops.ssd_scan",
+                         lambda: ops.ssd_scan(x, av, bc, bc, st,
+                                              out_state=st, mask=mask)),
+                        ("of which the C entry alone",
+                         lambda: ssd._entry()(*args))):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            call()
+        host = (time.perf_counter() - t0) / 1000
+        torch.cuda.synchronize()
+        say(f"[shapes] K3 host cost a launch, {label}, rows {R} seq {S} "
+            f"heads {H} hd {hd} state {N}, in place, masked (leaf "
+            f"{dict(cand.assignment)}): {1e3 * host:.4f} ms")
+
 
 def launch_sums(shapes, rows) -> dict:
     """{name: {key: sum over the launches in ``shapes`` of the key's time
@@ -1381,7 +1528,7 @@ def launch_sums(shapes, rows) -> dict:
     for name, by_sig in shapes.items():
         tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
                "library_ms": 0.0, "library_device_ms": 0.0,
-               "bound_ms": 0.0}
+               "bound_ms": 0.0, "bound_f32_ms": 0.0}
         for sig, n in by_sig.items():
             for key in tot:
                 val = rows[name][sig].get(key)

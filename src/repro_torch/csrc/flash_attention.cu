@@ -60,9 +60,7 @@
 
 namespace {
 
-constexpr int kMaxSmem = 232448;      // bytes a block may opt into on an H100
 constexpr int kMaxGridYZ = 65535;
-constexpr int kMaxDevices = 16;
 constexpr int kCombineThreads = 256;
 
 struct Args {
@@ -78,28 +76,8 @@ struct Args {
   int vec;             // 16-byte copies allowed for q, k, v
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 // Physical 16-byte chunk of logical chunk c in row r (rows are >= 8 chunks).
 __device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Wait until at most stages - 2 groups of this thread are pending.
 __device__ __forceinline__ void cp_async_wait_ring(int stages) {
@@ -132,35 +110,6 @@ __device__ __forceinline__ void load_rows(T* s, int rows, int d, bool vec,
           (src != nullptr && e < d) ? src[e] : T(0.f);
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&p);
 }
 
 // Fragments of m16n8k16 (g = lane / 4, q = lane % 4): a thread holds rows g
@@ -707,17 +656,9 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   auto kernel = flash_kernel<T, D, BKV>;
   const size_t smem = smem_bytes<T, D, BKV>(p.bq, p.stages);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  // the opt-in above 48 KB costs a CUDA runtime call: make it once a kernel
-  // and device for the largest size asked so far
   static size_t granted[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem_once(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || smem > granted[dev]) {
-    err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) granted[dev] = smem;
-  }
   const dim3 grid((p.group * p.sq + p.bq - 1) / p.bq, p.hk, p.nsplit);
   kernel<<<grid, 32 * (p.bq / 16) * key_warps(p.bq, BKV), smem, stream>>>(p);
   err = cudaGetLastError();

@@ -4,10 +4,11 @@
 // Replaces the TPU kernel pallas_jacobi1d (src/repro/kernels/jacobi1d.py,
 // _jacobi_kernel_cached / _jacobi_kernel_uncached), the paper's Fig. 7 /
 // Table 2.  One launch is one sweep; the paper's t-loop stays outside, in the
-// wrapper, which ping-pongs two buffers that both hold the fixed ends.  The
+// wrapper: the first sweep reads x itself, then two buffers ping-pong.  The
 // TPU pads x to whole blocks and writes the interior back with a scatter;
-// here the last block is cut at n - 2 and each sweep writes the interior of
-// the other buffer in place.
+// here the last block is cut at n - 2, each sweep writes the interior of
+// the other buffer, and its first thread copies the two fixed ends, so no
+// buffer needs a copy of x.
 //
 // Layout: grid ceil((n-2) / (B*s)), B threads a block; a block computes the
 // B*s interior points base+1 .. base+B*s, thread tid the points spaced B
@@ -39,6 +40,10 @@ __global__ void jacobi_cached(const float* __restrict__ X,
   const int bs = B * s;
   const int base = blockIdx.x * bs;
   const int span = min(bs, inner - base) + 2;     // window values in range
+  if (blockIdx.x == 0 && threadIdx.x == 0) {       // the fixed ends
+    Y[0] = X[0];
+    Y[inner + 1] = X[inner + 1];
+  }
   for (int e = threadIdx.x; e < span; e += B) win[e] = X[base + e];
   __syncthreads();
   for (int t = 0; t < s; ++t) {
@@ -52,13 +57,17 @@ __global__ void jacobi_uncached(const float* __restrict__ X,
                                 float* __restrict__ Y, int inner, int B,
                                 int s) {
   const int base = blockIdx.x * B * s;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {       // the fixed ends
+    Y[0] = X[0];
+    Y[inner + 1] = X[inner + 1];
+  }
   for (int t = 0; t < s; ++t) {
     const int i = base + threadIdx.x + t * B;
     if (i < inner) Y[i + 1] = mean3(X[i], X[i + 1], X[i + 2]);
   }
 }
 
-// x, y: n floats; writes y[1 .. n-2] from x.  The caller keeps y's ends.
+// x, y: n floats; writes y[1 .. n-2] from x, and y's two ends from x's.
 extern "C" int jacobi1d_h100_launch(const void* x, void* y, int n, int B,
                                     int s, int cached, void* stream) {
   const int inner = n - 2;
@@ -74,8 +83,9 @@ extern "C" int jacobi1d_h100_launch(const void* x, void* y, int n, int B,
     return cudaGetLastError();
   }
   const size_t smem = sizeof(float) * ((size_t)bs + 2);
-  if (smem > 232448) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(jacobi_cached, smem);
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  static size_t granted[kMaxDevices] = {};
+  cudaError_t err = allow_smem_once(jacobi_cached, smem, granted);
   if (err != cudaSuccess) return err;
   jacobi_cached<<<blocks, B, smem, st>>>(src, dst, inner, B, s);
   return cudaGetLastError();

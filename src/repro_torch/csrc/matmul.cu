@@ -41,9 +41,7 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxSmem = 232448;      // bytes a block may opt into on an H100
 constexpr int kMaxGridYZ = 65535;
-constexpr int kMaxDevices = 16;
 
 struct Args {
   const void* a;
@@ -56,30 +54,10 @@ struct Args {
   int a_vec, b_vec;    // 16-byte copies allowed for A, for B
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 // Physical 16-byte chunk of logical chunk c in row r of a tile w chunks
 // wide (w a power of two >= 4).
 __device__ __forceinline__ int swz(int r, int c, int w) {
   return w >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // A tile [rows][cols] of g (leading dimension ld) from (r0, c0), swizzled,
@@ -122,38 +100,6 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ g, T* s,
       }
     }
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One k tile on the tensor cores: the warp's 16 x 8S tile of C.
@@ -312,17 +258,9 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   auto kernel = matmul_kernel<T, S, STAGES>;
   const size_t smem = (size_t)STAGES * (p.bm * p.bk + p.bk * p.bn) * sizeof(T);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  // the opt-in above 48 KB costs a CUDA runtime call: make it once a kernel
-  // and device for the largest ring asked so far
   static size_t granted[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem_once(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || smem > granted[dev]) {
-    err = allow_smem(kernel, smem);
-    if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) granted[dev] = smem;
-  }
   const dim3 grid((p.M + p.bm - 1) / p.bm, (p.N + p.bn - 1) / p.bn, p.kb);
   const int threads = 32 * (p.bm / 16) * (p.bn / (8 * S));
   kernel<<<grid, threads, smem, stream>>>(p);

@@ -5,7 +5,9 @@ jacobi1d.py``, ``_jacobi_kernel_cached`` / ``_jacobi_kernel_uncached``) with
 the hand-written CUDA kernel in ``csrc/jacobi1d.cu``: ``steps`` sweeps of
 the 3-point mean over an f32 vector with fixed ends, one launch a sweep
 (the paper's t-loop stays outside the kernel, as on the TPU).  A block of B
-threads computes B·s interior points; no padding copies.
+threads computes B·s interior points; no padding copies.  The first sweep
+reads x itself and two work buffers ping-pong after it, each sweep copying
+the two fixed ends into its destination, so x is never copied whole.
 
 The comprehensive tree reproduces the paper's three cases on Z_B = V, with
 the smem counter Z(g) = 4·(B·g + 2) bytes, the staged window
@@ -37,7 +39,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Callable, Mapping, Sequence, Tuple
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,15 +76,24 @@ def jacobi1d_plain(x: torch.Tensor, steps: int, *, B: int, s: int,
     return ref.jacobi1d(x.clone(), steps)
 
 
+@functools.cache
+def _entry() -> Callable[..., int]:
+    """The C entry point, resolved once a process."""
+    return build.entry("jacobi1d", "jacobi1d_h100_launch", _ARGTYPES)
+
+
 def sweep(src: torch.Tensor, dst: torch.Tensor, *, B: int, s: int,
-          cached: bool = True) -> None:
-    """One launch: write dst's interior from src (both n f32 on one CUDA
-    device, n >= 3; dst's ends are left as they are)."""
+          cached: bool = True, stream: Optional[int] = None) -> None:
+    """One launch: write dst's interior from src and copy src's two ends
+    into dst (both n f32 on one CUDA device, n >= 3), on ``stream`` (the
+    raw handle; the current stream when None)."""
     n = src.numel()
-    fn = build.entry("jacobi1d", "jacobi1d_h100_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    err = fn(src.data_ptr(), dst.data_ptr(), n, B, s, int(cached), stream)
-    build.check(err, f"jacobi1d_h100(B={B}, s={s}, cached={cached})")
+    if stream is None:
+        stream = torch._C._cuda_getCurrentRawStream(src.device.index)
+    err = _entry()(src.data_ptr(), dst.data_ptr(), n, B, s, int(cached),
+                   stream)
+    if err:
+        build.check(err, f"jacobi1d_h100(B={B}, s={s}, cached={cached})")
     jacobi1d_h100.launches += 1
     jacobi1d_h100.shapes[(n, B, s, bool(cached), src.dtype)] += 1
 
@@ -103,12 +114,14 @@ def _launch(x: torch.Tensor, steps: int, *, B: int, s: int,
         raise ValueError(f"jacobi1d_h100: steps {steps} < 0")
     if steps == 0 or x.numel() < 3:           # no interior: x comes back
         return x.clone()
-    # both buffers hold the fixed ends; the sweeps ping-pong between them on
-    # the stream, with no host sync
-    src, dst = x.clone(), x.clone()
-    for _ in range(steps):
-        sweep(src, dst, B=B, s=s, cached=cached)
-        src, dst = dst, src
+    # the first sweep reads x; then two buffers ping-pong on the stream, with
+    # no host sync, each sweep copying the fixed ends into its destination
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    bufs = [torch.empty_like(x) for _ in range(min(steps, 2))]
+    src = x
+    for k in range(steps):
+        sweep(src, bufs[k % 2], B=B, s=s, cached=cached, stream=stream)
+        src = bufs[k % 2]
     return src
 
 

@@ -93,19 +93,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
+             out_state: Optional[torch.Tensor] = None,
+             mask: Optional[torch.Tensor] = None,
              machine: MachineDescription = H100_SXM
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, final state) of the Mamba-2 SSD scan (K3), keyed on (SQ, HD,
     STATE).  x [seq, heads, hd], a [seq, heads], b, c [seq, heads, state]
     and state0 [heads, state, hd] as in the JAX op, or each with a leading
-    rows dim (b, c then also [rows, seq, state], shared across heads)."""
+    rows dim (b, c then also [rows, seq, state], shared across heads).  The
+    final state goes into ``out_state`` when given (``state0`` itself
+    updates in place); rows that ``mask`` [rows] (bool) leaves out keep
+    theirs."""
     unbatched = x.dim() == 3
     if unbatched:
         x, a, b, c = x[None], a[None], b[None], c[None]
         state0 = state0[None] if state0 is not None else None
+        out_state = out_state[None] if out_state is not None else None
     seq, hd, state = x.shape[1], x.shape[3], b.shape[-1]
     fn = get_default_cache().warm_callable(
         SSD_FAMILY, machine, (("SQ", seq), ("HD", hd), ("STATE", state)),
         x.device.type)
-    y, s = fn(x, a, b, c, state0)
+    y, s = fn(x, a, b, c, state0, out_state=out_state, mask=mask)
     return (y[0], s[0]) if unbatched else (y, s)

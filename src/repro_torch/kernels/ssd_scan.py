@@ -15,12 +15,33 @@ a decode step is the scan at seq 1 (the JAX model threads the state through
 ``pallas_ssd_scan`` is the case ``state0 = None`` with S_final dropped.  The
 last chunk is cut at seq, where the TPU pads with a = 1 and x = b = c = 0.
 
+**The state is updated in place.**  ``out_state`` may be ``state0``
+itself: the kernel reads each (row, head) state tile fully before it writes
+any of it.  ``mask`` [rows] (bool, on the tensors' device) leaves rows out:
+a row left out keeps its ``out_state`` bit for bit and gets y = 0.  The
+serving engine hands its per-slot cache ``ssm[i, :B]`` in as both, with
+the decoding rows as the mask, so a decode step allocates and scatters no
+state.  This is an in-place update of an f32 buffer only the engine owns;
+the JAX model returns a new state and masks it with ``ssm_mask``.  The
+plain version does the same on the CPU, in place and masked.
+
 B and C are shared across heads (ngroups = 1): the wrapper takes them as
 [rows, seq, state] or as a [rows, seq, heads, state] view with head stride 0
 and passes strides, so no per-head copy is made.
 
+Which body runs (see the CUDA source): at seq 1 every leaf runs the step
+body, since ck = min(chunk, seq) is 1 there: the recurrence itself, no
+scan, no score tile, no chunk loop, the state read and written once.  The
+step body also takes chunks of up to 8 steps (:func:`step_body`), the
+state held in registers across them.  Longer chunks run a chunk body:
+bf16 the tensor-core body, with G, S and w⊙b fed as a high and a low bf16
+part, f32 an FMA body (never TF32).  A block owns ``bd`` columns of one
+(row, head), so at hd 64 and bd 64 the C×C scores are computed once a
+chunk.
+
 Bound on the card: bytes at decode (the f32 state is read and written every
-step), operations for a prefill chunk at state 128 (see the CUDA source).
+step), operations for a prefill chunk at state 128, on the bf16 tensor
+cores.
 
 Program parameters:  chunk (steps a chunk), bd (hd columns a block)
 Data parameters:     SQ, HD, STATE
@@ -45,12 +66,64 @@ from . import build
 from .instantiate_cache import CachedInstantiationMixin
 
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
-#: ssd_scan_h100_launch(x, a, b, c, s0, y, s1, rows, seq, heads, hd, state,
-#: ck, bd, sb_r, sb_t, sb_h, sc_r, sc_t, sc_h, elem, stream)
-_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 7
+#: ssd_scan_h100_launch(x, a, b, c, s0, y, s1, mask, rows, seq, heads, hd,
+#: state, ck, bd, sb_r, sb_t, sb_h, sc_r, sc_t, sc_h, elem, stream)
+_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
              + (ctypes.c_longlong,) * 6 + (ctypes.c_int, ctypes.c_void_p))
-#: threads a block (``NT`` in the CUDA source)
+#: threads a block (``kThreads`` in the CUDA source), every body
 THREADS = 256
+#: The C entry point's limits (``csrc/ssd_scan.cu``).
+MAX_CHUNK = 128
+MAX_SMEM = 232_448
+BD = (32, 64)
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(chunk, bd, np_):
+    """Shared bytes of the tensor-core body (bf16) for ``chunk`` steps (a
+    multiple of 16) and ``np_`` state rows (state rounded up to 16): two
+    slots of x, b and c tiles in bf16 with rows padded by 8 elements, the
+    state in f32 and as a high and a low bf16 part, and the decays, their
+    log prefix, exp(cum) and the weights w.  Over ints, or over polynomials
+    for the smem counter."""
+    return (4 * chunk * (bd + 8) + 8 * chunk * (np_ + 8)
+            + 8 * np_ * (bd + 8) + 20 * chunk)
+
+
+def fma_smem_bytes(chunk, bd, state):
+    """Shared bytes of the FMA body (f32): the state tile, the x tile, b
+    and c rows padded to state + 1, the chunk×chunk scores and the
+    log-decay prefix.  Over ints, or over polynomials."""
+    return 4 * (state * bd + chunk * bd + 2 * chunk * (state + 1)
+                + chunk * chunk + chunk)
+
+
+#: Steps the step body takes, and state rows a thread of it holds
+#: (``kStepSeq``, ``kRows`` in the CUDA source).
+STEP_SEQ = 8
+STEP_ROWS = 8
+
+
+def step_body(seq: int, state: int, bd: int, vec: bool = True) -> bool:
+    """Whether a launch runs the step body: at most 8 steps, and the state
+    within the rows its threads hold (8 each, THREADS / (bd / 4) state
+    groups with 16-byte vectors, THREADS / bd without)."""
+    groups = THREADS // (bd // 4 if vec else bd)
+    return seq <= STEP_SEQ and state <= groups * STEP_ROWS
+
+
+def launch_smem(seq: int, ck: int, bd: int, state: int,
+                dtype: torch.dtype) -> int:
+    """Shared bytes one launch takes in dynamic memory: 0 for the step body
+    (its 4 KB are static), else its chunk body's."""
+    if step_body(seq, state, bd):
+        return 0
+    if dtype == torch.bfloat16:
+        return smem_bytes(_round16(ck), bd, _round16(state))
+    return fma_smem_bytes(ck, bd, state)
 
 
 # =============================================================================
@@ -82,47 +155,66 @@ def ssd_chunk(xc: torch.Tensor, ac: torch.Tensor, bc: torch.Tensor,
 
 
 def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-           c: torch.Tensor, state0: Optional[torch.Tensor]
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Validate shapes; returns b, c as [rows, seq, heads, state] views."""
+           c: torch.Tensor, state0: Optional[torch.Tensor],
+           out_state: Optional[torch.Tensor], mask: Optional[torch.Tensor]
+           ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...]]:
+    """Validate shapes; returns the state dim and b's and c's (row, step,
+    head) strides, the head stride 0 for a [rows, seq, state] projection
+    shared across heads (no view is made: a view costs the host more than
+    the rest of a launch)."""
     if x.dim() != 4:
         raise ValueError(f"ssd_scan_h100: x must be [rows, seq, heads, hd]: "
                          f"{tuple(x.shape)}")
     R, S, H, hd = x.shape
-    if tuple(a.shape) != (R, S, H):
-        raise ValueError(f"ssd_scan_h100: a {tuple(a.shape)} for x "
-                         f"{tuple(x.shape)}")
-    if b.shape != c.shape or b.dim() not in (3, 4) \
-            or tuple(b.shape[:2]) != (R, S) \
-            or (b.dim() == 4 and b.shape[2] != H):
-        raise ValueError(f"ssd_scan_h100: b {tuple(b.shape)} / c "
-                         f"{tuple(c.shape)} for x {tuple(x.shape)}")
-    if b.dim() == 3:
-        b = b[:, :, None, :].expand(R, S, H, b.shape[-1])
-        c = c[:, :, None, :].expand(R, S, H, c.shape[-1])
-    if state0 is not None and tuple(state0.shape) != (R, H, b.shape[-1], hd):
-        raise ValueError(f"ssd_scan_h100: state0 {tuple(state0.shape)}, "
-                         f"want {(R, H, b.shape[-1], hd)}")
-    return b, c
+    bs = b.shape
+    N = bs[-1]
+    four = len(bs) == 4
+    if a.shape != (R, S, H) or bs != c.shape or len(bs) not in (3, 4) \
+            or bs[0] != R or bs[1] != S or (four and bs[2] != H):
+        raise ValueError(f"ssd_scan_h100: a {tuple(a.shape)}, b {tuple(bs)}, "
+                         f"c {tuple(c.shape)} for x {tuple(x.shape)}")
+    want = (R, H, N, hd)
+    for name, st in (("state0", state0), ("out_state", out_state)):
+        if st is not None and st.shape != want:
+            raise ValueError(f"ssd_scan_h100: {name} {tuple(st.shape)}, "
+                             f"want {want}")
+    if mask is not None and (mask.shape != (R,) or out_state is None):
+        raise ValueError(f"ssd_scan_h100: mask {tuple(mask.shape)} needs "
+                         f"the shape ({R},) and an out_state")
+    sb, sc = b.stride(), c.stride()
+    if four:
+        return N, sb[:3], sc[:3]
+    return N, (sb[0], sb[1], 0), (sc[0], sc[1], 0)
+
+
+def _per_head(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """b or c as [rows, seq, heads, state] (a view)."""
+    return t if t.dim() == 4 else t[:, :, None, :].expand(
+        t.shape[0], t.shape[1], heads, t.shape[2])
 
 
 def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, state0: Optional[torch.Tensor] = None,
-                   *, chunk: int, bd: int
+                   *, chunk: int, bd: int,
+                   out_state: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: chunks of ``min(chunk, seq)``
     steps (the last one cut at seq) through :func:`ssd_chunk` in f32, from
     ``state0`` (zero when None).  The hd tile ``bd`` does not change the
-    result (paper Def. 2 ii) and is taken and ignored.  Returns (y in x's
-    type, final state f32)."""
-    b, c = _check(x, a, b, c, state0)
+    result (paper Def. 2 ii) and is taken and ignored.  The final state
+    goes into ``out_state`` when given (which may be ``state0``: the whole
+    scan reads state0 before anything is written), rows that ``mask``
+    leaves out keeping theirs and getting y = 0, as the kernel does.
+    Returns (y in x's type, final state f32)."""
+    N = _check(x, a, b, c, state0, out_state, mask)[0]
     R, S, H, hd = x.shape
     xf = x.float().transpose(1, 2)                     # (R, H, S, hd)
     af = a.float().transpose(1, 2)                     # (R, H, S)
-    bf = b.float().transpose(1, 2)                     # (R, H, S, N)
-    cf = c.float().transpose(1, 2)
+    bf = _per_head(b, H).float().transpose(1, 2)       # (R, H, S, N)
+    cf = _per_head(c, H).float().transpose(1, 2)
     St = (state0.float() if state0 is not None else torch.zeros(
-        (R, H, b.shape[-1], hd), dtype=torch.float32, device=x.device))
+        (R, H, N, hd), dtype=torch.float32, device=x.device))
     ck = min(chunk, S)
     ys = []
     for t0 in range(0, S, ck):
@@ -130,59 +222,114 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                           bf[:, :, t0:t0 + ck], cf[:, :, t0:t0 + ck], St)
         ys.append(y)
     y = torch.cat(ys, dim=2).transpose(1, 2).to(x.dtype)
-    return y, St
+    if out_state is None:
+        return y, St
+    if mask is None:
+        out_state.copy_(St)
+    else:
+        keep = mask.to(torch.bool)
+        out_state[keep] = St[keep]
+        y[~keep] = 0
+    return y, out_state
+
+
+def format_error(rows: int, seq: int, heads: int, hd: int, state: int,
+                 ck: int, bd: int, dtype: torch.dtype) -> Optional[str]:
+    """Why ``ssd_scan_h100_launch`` refuses this launch, or None: the C
+    entry point's checks (``csrc/ssd_scan.cu``) in Python."""
+    checks = [
+        (min(rows, seq, heads, hd, state) > 0, "empty operand"),
+        (1 <= ck <= min(seq, MAX_CHUNK), f"ck not in 1..min(seq, "
+                                         f"{MAX_CHUNK})"),
+        (bd in BD, f"bd not in {BD}"),
+        (rows * heads < 1 << 31, "2^31 (row, head) pairs or more"),
+        (dtype in _ELEM, "not f32 or bf16"),
+    ]
+    for ok, why in checks:
+        if not ok:
+            return why
+    if launch_smem(seq, ck, bd, state, dtype) > MAX_SMEM:
+        return "chunk body larger than 232,448 bytes"
+    return None
+
+
+@functools.cache
+def _entry() -> Callable[..., int]:
+    """The C entry point, resolved once a process."""
+    return build.entry("ssd_scan", "ssd_scan_h100_launch", _ARGTYPES)
 
 
 def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
-            chunk: int, bd: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    tensors = [x, a, b, c] + ([state0] if state0 is not None else [])
-    if not all(t.is_cuda and t.device == x.device for t in tensors):
-        raise ValueError("ssd_scan_h100 kernel needs x, a, b, c (and "
-                         "state0) on one CUDA device")
-    b, c = _check(x, a, b, c, state0)
-    if x.dtype not in _ELEM or b.dtype != x.dtype or c.dtype != x.dtype:
+            chunk: int, bd: int, out_state: Optional[torch.Tensor] = None,
+            mask: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    dev = x.device
+    if not (x.is_cuda and a.device == dev and b.device == dev
+            and c.device == dev
+            and (state0 is None or state0.device == dev)
+            and (out_state is None or out_state.device == dev)
+            and (mask is None or mask.device == dev)):
+        raise ValueError("ssd_scan_h100 kernel needs x, a, b, c (state0, "
+                         "out_state, mask) on one CUDA device")
+    N, sb, sc = _check(x, a, b, c, state0, out_state, mask)
+    dtype = x.dtype
+    if dtype not in _ELEM or b.dtype != dtype or c.dtype != dtype:
         raise TypeError(f"ssd_scan_h100 takes x, b, c of one type, f32 or "
-                        f"bf16: {x.dtype}, {b.dtype}, {c.dtype}")
-    if a.dtype != torch.float32 or (state0 is not None
-                                    and state0.dtype != torch.float32):
+                        f"bf16: {dtype}, {b.dtype}, {c.dtype}")
+    if a.dtype != torch.float32 or (
+            state0 is not None and state0.dtype != torch.float32) or (
+            out_state is not None and out_state.dtype != torch.float32):
         raise TypeError("ssd_scan_h100 takes the decay a and the state in "
                         "f32")
     if not (x.is_contiguous() and a.is_contiguous()
             and (state0 is None or state0.is_contiguous())
+            and (out_state is None or out_state.is_contiguous())
+            and (mask is None or (mask.dtype == torch.bool
+                                  and mask.is_contiguous()))
             and b.stride(-1) == 1 and c.stride(-1) == 1):
-        raise ValueError("ssd_scan_h100 needs contiguous x, a, state0 and "
-                         "b, c contiguous in the state dim")
+        raise ValueError("ssd_scan_h100 needs contiguous x, a, states and a "
+                         "bool mask, and b, c contiguous in the state dim")
     R, S, H, hd = x.shape
-    N = b.shape[-1]
     ck = min(chunk, S)
     y = torch.empty_like(x)
-    s1 = torch.empty((R, H, N, hd), dtype=torch.float32, device=x.device)
-    fn = build.entry("ssd_scan", "ssd_scan_h100_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-             state0.data_ptr() if state0 is not None else None,
-             y.data_ptr(), s1.data_ptr(), R, S, H, hd, N, ck, bd,
-             *b.stride()[:3], *c.stride()[:3], _ELEM[x.dtype], stream)
-    build.check(err, f"ssd_scan_h100(chunk={chunk}, bd={bd})")
+    if out_state is None:
+        out_state = torch.empty((R, H, N, hd), dtype=torch.float32,
+                                device=dev)
+    err = _entry()(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   state0.data_ptr() if state0 is not None else None,
+                   y.data_ptr(), out_state.data_ptr(),
+                   mask.data_ptr() if mask is not None else None,
+                   R, S, H, hd, N, ck, bd, *sb, *sc, _ELEM[dtype],
+                   torch._C._cuda_getCurrentRawStream(dev.index))
+    if err:
+        build.check(err, f"ssd_scan_h100(chunk={chunk}, bd={bd}): "
+                         f"{format_error(R, S, H, hd, N, ck, bd, dtype)}")
     ssd_scan_h100.launches += 1
     ssd_scan_h100.shapes[(R, S, H, hd, N, chunk, bd, state0 is not None,
-                          x.dtype)] += 1
-    return y, s1
+                          mask is not None, dtype)] += 1
+    return y, out_state
 
 
 def ssd_scan_h100(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
-                  chunk: int, bd: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  chunk: int, bd: int,
+                  out_state: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, S_final) of the scan over x [rows, seq, heads, hd], a [rows, seq,
     heads] f32, b, c [rows, seq, state] or [rows, seq, heads, state], from
-    ``state0`` [rows, heads, state, hd] f32 (zero when None).  CUDA tensors
-    launch the kernel (or raise); CPU tensors run :func:`ssd_scan_plain`.
-    ``ssd_scan_h100.launches`` counts kernel launches,
-    ``ssd_scan_h100.shapes`` the same launches by (rows, seq, heads, hd,
-    state, chunk, bd, state given, dtype)."""
+    ``state0`` [rows, heads, state, hd] f32 (zero when None), the final
+    state written into ``out_state`` when given (``state0`` itself updates
+    in place), rows that ``mask`` [rows] (bool, with an ``out_state``)
+    leaves out untouched.  CUDA
+    tensors launch the kernel (or raise); CPU tensors run
+    :func:`ssd_scan_plain`.  ``ssd_scan_h100.launches`` counts kernel
+    launches, ``ssd_scan_h100.shapes`` the same launches by (rows, seq,
+    heads, hd, state, chunk, bd, state given, masked, dtype)."""
     fn = ssd_scan_plain if x.device.type == "cpu" else _launch
-    return fn(x, a, b, c, state0, chunk=chunk, bd=bd)
+    return fn(x, a, b, c, state0, chunk=chunk, bd=bd, out_state=out_state,
+              mask=mask)
 
 
 ssd_scan_h100.launches = 0
@@ -194,20 +341,34 @@ ssd_scan_h100.shapes = collections.Counter()
 # =============================================================================
 
 #: Napkin constants of :func:`_score`: (row, head) pairs a one-row prefill
-#: chunk gives (the served configs have 24 and 25 heads); f32 multiply-adds
-#: an SM issues a cycle from shared memory, about one per lane of its four
-#: schedulers; cycles a chunk costs in barriers and load latency.
+#: chunk gives (the served configs have 24 and 25 heads); tensor-core
+#: multiply-adds a block of 8 warps does a cycle through ``mma.sync``
+#: (each product counted twice, for its high and low part) and cycles a
+#: chunk costs in barriers, the decay scan and load latency, both fitted
+#: (least squares, at 1.755 GHz) to the device times of the seven leaves
+#: ``chip_smoke.py`` phase 5 times at a 256-step mamba2-130m chunk on an
+#: H100 (PERF.md); state bytes a step block moves a cycle, and cycles it
+#: spends on a step (its loads, the reduction of y, one barrier).
 PAIRS = 24
-MACS_PER_CYCLE = 128
-CHUNK_CYCLES = 3000
+MACS_PER_CYCLE = 205
+CHUNK_CYCLES = 5750
+STEP_BYTES_PER_CYCLE = 16
+STEP_CYCLES = 600
+#: Registers a thread, the most of the three bodies as ``ptxas -v`` reports
+#: them for sm_90a.
+REGISTERS = 128
 
 
 def _score(v: Mapping[str, object]):
     """Napkin model, higher is better: the inverse of the cycles of one
-    (row, head) pair's blocks.  A block does SQ·(ck·STATE + ck·w +
-    2·STATE·w) multiply-adds for its w = min(bd, HD) columns (G is
-    recomputed by each of the HD/w tiles) plus a fixed cost a chunk; the
-    tiles of ``PAIRS`` pairs run in waves over the SMs."""
+    (row, head) pair's blocks.  Up to 8 steps (the step body, whatever the
+    chunk) a block reads and writes its 4·N·w bytes of state for its w =
+    min(bd, HD) columns and pays a fixed cost a step.  Past that, a chunk
+    of ck = min(chunk, SQ) steps does ck·N·w multiply-adds (c·S), the
+    lower-triangular 16×16 score slabs of its 16-row tiles over N, once for
+    each 32-column group (c·bᵀ), the same slabs × w (G·x) and N·w·ck (the
+    state), every product but c·bᵀ twice, plus a fixed cost a chunk.  The
+    HD/w tiles of ``PAIRS`` pairs run in waves over the SMs."""
     chunk, bd = np.asarray(v["chunk"]), np.asarray(v["bd"])
     sq, hd = v.get("SQ", 256), v.get("HD", 64)
     n = v.get("STATE", 64)
@@ -215,18 +376,13 @@ def _score(v: Mapping[str, object]):
     ck = np.minimum(chunk, sq)
     w = np.minimum(bd, hd)
     waves = np.ceil(PAIRS * np.ceil(hd / w) / cores)
-    macs = sq * (ck * n + ck * w + 2 * n * w)
-    cycles = waves * macs / MACS_PER_CYCLE + np.ceil(sq / ck) * CHUNK_CYCLES
-    return 1e3 / cycles
-
-
-def smem_bytes(chunk, bd, state):
-    """Shared bytes a block of the kernel takes, f32 throughout: the state
-    tile, the x tile, b and c rows padded to state + 1, the chunk×chunk
-    scores and the log-decay prefix.  Over ints, or over polynomials for
-    the smem counter."""
-    return 4 * (state * bd + chunk * bd + 2 * chunk * (state + 1)
-                + chunk * chunk + chunk)
+    slabs = (ck / 16) * (ck / 16 + 1) / 2 * 256
+    macs = (2 * ck * n * w + slabs * n * np.ceil(w / 32) + 2 * slabs * w
+            + 2 * n * w * ck)
+    chunked = np.ceil(sq / ck) * (macs / MACS_PER_CYCLE + CHUNK_CYCLES)
+    stepped = 8.0 * n * w / STEP_BYTES_PER_CYCLE + sq * STEP_CYCLES
+    step = (sq <= STEP_SEQ) & (n <= THREADS // (bd // 4) * STEP_ROWS)
+    return 1e3 / (waves * np.where(step, stepped, chunked))
 
 
 class SsdScanH100Family(CachedInstantiationMixin):
@@ -237,19 +393,24 @@ class SsdScanH100Family(CachedInstantiationMixin):
             family=self.name,
             flags={"granularity_level": 0, "tile_level": 0},
             program_params={
-                "chunk": ParamDomain("chunk", (16, 32, 64, 128, 256)),
-                "bd": ParamDomain("bd", (8, 16, 32, 64)),
+                "chunk": ParamDomain("chunk", (16, 32, 64, 128)),
+                "bd": ParamDomain("bd", BD),
             },
         )
 
     def counters(self) -> Sequence[Counter]:
         return [
             resource("smem_bytes", "V", ("reduce_chunk", "narrow_tile"),
-                     "state tile, x tile, padded b/c rows, the C×C decay "
-                     "scores and the log-decay prefix in f32 (paper: Z_B)"),
+                     "the tensor-core body (bf16): two slots of padded x, "
+                     "b, c tiles, the state in f32 and as two bf16 parts, "
+                     "the decays (paper: Z_B)"),
+            resource("fma_smem_bytes", "V", ("reduce_chunk", "narrow_tile"),
+                     "the FMA body (f32): state tile, x tile, padded b/c "
+                     "rows, the C×C scores and the log-decay prefix "
+                     "(paper: Z_B)"),
             resource("threads", "T", (), "a fixed 256 threads a block"),
             resource("registers", "G", (),
-                     "40 a thread, as ptxas reports for both types"),
+                     "the most of the bodies' ptxas counts"),
             performance("occupancy", "P_occ", ("narrow_tile",),
                         "share of the SMs one (row, head) pair's hd tiles "
                         "leave idle"),
@@ -267,7 +428,7 @@ class SsdScanH100Family(CachedInstantiationMixin):
             if plan.flags.get("tile_level", 0) >= 1:
                 return None
             p = plan.with_flag("tile_level", 1, "narrow hd tile")
-            p.program_params["bd"] = ParamDomain("bd", (8, 16))
+            p.program_params["bd"] = ParamDomain("bd", (32,))
             return p
 
         return [Strategy("reduce_chunk", reduce_chunk),
@@ -277,11 +438,14 @@ class SsdScanH100Family(CachedInstantiationMixin):
                       ) -> Tuple[Poly, Poly]:
         one = Poly.const(1)
         if counter == "smem_bytes":
-            return smem_bytes(V("chunk"), V("bd"), V("STATE")), one
+            # the kernel's np = STATE rounded up to 16 is at most STATE + 15
+            return smem_bytes(V("chunk"), V("bd"), V("STATE") + 15), one
+        if counter == "fma_smem_bytes":
+            return fma_smem_bytes(V("chunk"), V("bd"), V("STATE")), one
         if counter == "threads":
             return Poly.const(THREADS), one
         if counter == "registers":
-            return Poly.const(40), one
+            return Poly.const(REGISTERS), one
         if counter == "occupancy":
             return V("CORES") * V("bd"), V("CORES") * V("bd") + V("HD")
         raise KeyError(counter)

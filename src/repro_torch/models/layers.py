@@ -141,10 +141,14 @@ def ssm_decays(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-              state: Optional[torch.Tensor] = None
+              state: Optional[torch.Tensor] = None,
+              out_state: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD block over x (B, S, d) from ``state`` (B, heads, state, hd) f32
-    (zero when None); returns (out (B, S, d), final state).  B and C are
+    (zero when None); returns (out (B, S, d), final state), the state
+    written into ``out_state`` when given (``state`` itself updates in
+    place), rows that ``mask`` (B,) leaves out keeping theirs.  B and C are
     projected once and shared across heads (ngroups = 1); the scan, prefill
     chunk or decode step alike, is one K3 call over all rows."""
     s = cfg.ssm
@@ -152,7 +156,8 @@ def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xi = proj(x, p["wx"]).reshape(B, S, s.heads, s.head_dim)
     b = proj(x, p["wb"])                                    # (B, S, state)
     c = proj(x, p["wc"])
-    y, new_state = ops.ssd_scan(xi, ssm_decays(p, x), b, c, state)
+    y, new_state = ops.ssd_scan(xi, ssm_decays(p, x), b, c, state,
+                                out_state=out_state, mask=mask)
     return proj(y.reshape(B, S, s.heads * s.head_dim), p["wo"]), new_state
 
 

@@ -13,7 +13,9 @@ in f32 from f32 weights whatever the compute type: it stays f32.
 
 The paged serving functions update the KV pool and the per-slot SSM state
 **in place** (the JAX ones return a new cache); they still return it, so
-callers read the same.
+callers read the same.  The SSM state is updated in place by the K3 launch
+itself: each layer hands its cache slice in as the scan's state and its
+output state, so no step allocates or scatters a state.
 """
 from __future__ import annotations
 
@@ -120,26 +122,27 @@ def _device(params: Params) -> torch.device:
 
 
 def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
-           ssm_state: Optional[torch.Tensor] = None, **attn_kw
-           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block; returns (x, the SSD core's final state or None).  The
-    hybrid block runs attention and SSD in parallel on separately normed
-    inputs and adds both to the residual, then the MLP, as the JAX
-    ``block_apply`` does."""
-    new_state = None
+           ssm_state: Optional[torch.Tensor] = None,
+           ssm_mask: Optional[torch.Tensor] = None, **attn_kw
+           ) -> torch.Tensor:
+    """One block.  The SSD core's final state is written into
+    ``ssm_state`` itself (none is kept when it is None), rows that
+    ``ssm_mask`` leaves out keeping theirs.  The hybrid block runs
+    attention and SSD in parallel on separately normed inputs and adds both
+    to the residual, then the MLP, as the JAX ``block_apply`` does."""
     h = x
     if has_attn(cfg):
         h = h + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
                             cfg, **attn_kw)
     if has_ssm(cfg):
-        ssd, new_state = L.ssm_block(
+        ssd, _ = L.ssm_block(
             lp["ssm"], L.rmsnorm(lp["lns"], x, cfg.norm_eps), cfg,
-            state=ssm_state)
+            state=ssm_state, out_state=ssm_state, mask=ssm_mask)
         h = h + ssd
     x = h
     if "mlp" in lp:
         x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
-    return x, new_state
+    return x
 
 
 def _long(x, dev: torch.device) -> torch.Tensor:
@@ -163,7 +166,7 @@ def forward(params: Params, cfg: ModelConfig, tokens
     x = L.embed(params["embed"], tokens, _dtype(cfg))
     positions = torch.arange(S, device=dev)
     for lp in params["layers"]:
-        x, _ = _block(lp, x, cfg, positions=positions)
+        x = _block(lp, x, cfg, positions=positions)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x), torch.zeros((), device=dev)
 
@@ -218,7 +221,7 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
     (1, nblk) and whose SSM state is row ``slot``.  The chunk attends over
     keys 0 .. cache_index + C - 1, so end alignment reproduces the causal
     mask of the JAX layer; the SSD core resumes from the slot's state and
-    writes its final state back, so chunks thread the recurrence exactly.
+    updates it in place, so chunks thread the recurrence exactly.
     Returns (last-token logits (1, V), cache)."""
     dev = _device(params)
     tokens = _long(tokens, dev)
@@ -231,13 +234,11 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
     idx = torch.tensor([start], dtype=torch.long, device=dev)
     ssm = cache.get("ssm")
     for i, lp in enumerate(params["layers"]):
-        x, new_state = _block(
+        x = _block(
             lp, x, cfg,
             ssm_state=ssm[i, slot:slot + 1] if ssm is not None else None,
             positions=positions, cache=_layer_kv(cache, i),
             cache_index=idx, block_tables=bt, spans=[(0, start + C)])
-        if ssm is not None:
-            ssm[i, slot] = new_state[0]
     x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache
 
@@ -253,7 +254,8 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens,
     attention read and keep their SSM state (the JAX ``ssm_mask``: dead
     slots, and slots whose chunked prefill is still in flight); their
     logits are meaningless and ignored.  The SSD step is one K3 launch a
-    layer over all rows."""
+    layer over all rows, which updates the layer's ``cache["ssm"]`` slice
+    in place for the active rows (a device mask)."""
     dev = _device(params)
     tokens = _long(tokens, dev)
     B = tokens.shape[0]
@@ -266,13 +268,12 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens,
     x = L.embed(params["embed"], tokens, _dtype(cfg))
     positions = idx[:, None]
     ssm = cache.get("ssm")
-    keep = torch.tensor(rows, dtype=torch.long, device=dev)
+    mask = (None if active is None
+            else torch.as_tensor(np.asarray(active, dtype=bool), device=dev))
     for i, lp in enumerate(params["layers"]):
-        x, new_state = _block(
+        x = _block(
             lp, x, cfg, ssm_state=ssm[i, :B] if ssm is not None else None,
-            positions=positions, cache=_layer_kv(cache, i),
+            ssm_mask=mask, positions=positions, cache=_layer_kv(cache, i),
             cache_index=idx, block_tables=bt, spans=spans)
-        if ssm is not None:
-            ssm[i, keep] = new_state[keep]
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache

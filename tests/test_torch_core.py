@@ -239,19 +239,89 @@ def test_ssm_warm_sets_resolve_within_gpu_limits(arch, size):
             if o.family == "ssd_scan_h100"} == set(chunk_lengths(256, 1024))
 
 
-def test_ssd_shared_memory_cuts_the_domain():
-    """V rules out part of the SSD scan's domain (paper Z_B): at state 128
-    a 128-step chunk fits only with hd tiles of at most 32 columns, and a
-    256-step chunk (its 256² f32 scores alone are 256 KB) never fits."""
+@pytest.mark.parametrize("state", [128, 16])
+def test_ssd_shared_memory_cuts_the_domain(state):
+    """V rules out part of the SSD scan's domain (paper Z_B), through the
+    two bodies' smem counters: at state 128 a 128-step chunk fits only with
+    hd tiles of 32 columns (at bd 64 the tensor-core body's padded tiles
+    and the FMA body's 128² f32 scores both pass V), and at hymba-1.5b's
+    state 16 every leaf fits."""
     from repro_torch.core.select import enumerate_candidates
+    from repro_torch.kernels.ssd_scan import fma_smem_bytes
     got = {(c.assignment["chunk"], c.assignment["bd"])
            for c in enumerate_candidates(SSD, tcore.H100_SXM,
-                                         {"SQ": 256, "HD": 64, "STATE": 128})}
-    domain = {(c, b) for c in (16, 32, 64, 128, 256) for b in (8, 16, 32, 64)}
-    want = {(c, b) for c, b in domain if smem_bytes(c, b, 128) <= 232_448}
+                                         {"SQ": 256, "HD": 64,
+                                          "STATE": state})}
+    domain = {(c, b) for c in (16, 32, 64, 128) for b in (32, 64)}
+    want = {(c, b) for c, b in domain
+            if smem_bytes(c, b, state + 15) <= 232_448
+            and fma_smem_bytes(c, b, state) <= 232_448}
     assert got == want
-    assert (128, 32) in got and (128, 64) not in got
-    assert not any(c == 256 for c, _ in got)
+    if state == 128:
+        assert (128, 32) in got and (128, 64) not in got
+        assert smem_bytes(128, 64, 128) > 232_448
+        assert fma_smem_bytes(128, 64, 128) > 232_448
+    else:
+        assert got == domain
+
+
+def test_ssd_counters_are_the_kernels_own():
+    """The FMA body's Z_B is ``fma_smem_bytes`` and the tensor-core body's
+    bounds ``smem_bytes`` at the kernel's np = STATE rounded up to 16 (equal
+    when STATE is a multiple of 16), at every point of the domain."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    plan = SSD.initial_plan()
+    tc, tc_den = SSD.counter_value(plan, "smem_bytes")
+    fma, fma_den = SSD.counter_value(plan, "fma_smem_bytes")
+    for chunk, bd, state in itertools.product((16, 32, 64, 128), (32, 64),
+                                              (8, 16, 20, 128)):
+        pt = {"chunk": chunk, "bd": bd, "STATE": state}
+        kernel_tc = ssd_mod.smem_bytes(chunk, bd, -(-state // 16) * 16)
+        assert kernel_tc <= tc.eval(pt) / tc_den.eval(pt), pt
+        if state % 16 == 0:
+            assert tc.eval(pt) / tc_den.eval(pt) == ssd_mod.smem_bytes(
+                chunk, bd, state + 15), pt
+        assert fma.eval(pt) / fma_den.eval(pt) == ssd_mod.fma_smem_bytes(
+            chunk, bd, state), pt
+
+
+@pytest.mark.parametrize("arch", ["mamba2_130m", "hymba_1p5b"])
+def test_ssd_feasible_leaves_and_picks_at_served_signatures(arch):
+    """At every K3 key of the full-width serve warm set, every feasible leaf
+    passes the C entry point's checks for both types, and the pick runs
+    the step body at up to 8 steps (bd 32: twice the blocks, half the state
+    each) and, at a 256-step chunk, chunk 128 with bd 32 (the fastest of
+    the seven leaves on the card, PERF.md)."""
+    from repro_torch.core.select import enumerate_candidates
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    cfg = get_config(arch)
+    kw = dict(max_len=1024, max_batch=4, prefill_chunk=256) \
+        if arch == "mamba2_130m" else dict(max_len=256, max_batch=4,
+                                           prefill_chunk=32)
+    keys = {tuple(sorted(op.data_dict().items()))
+            for op in trace_warm_set(cfg, **kw)
+            if op.family == "ssd_scan_h100"}
+    assert {dict(k)["SQ"] for k in keys} == set(
+        chunk_lengths(kw["prefill_chunk"], kw["max_len"]))
+    for key in keys:
+        data = dict(key)
+        sq = data["SQ"]
+        leaves = enumerate_candidates(SSD, tcore.H100_SXM, data)
+        assert leaves
+        for c in leaves:
+            for rows in (1, 4):
+                for dtype in (torch.float32, torch.bfloat16):
+                    assert ssd_mod.format_error(
+                        rows, sq, cfg.ssm.heads, data["HD"], data["STATE"],
+                        min(c.assignment["chunk"], sq), c.assignment["bd"],
+                        dtype) is None, (data, c.assignment)
+        pick = DispatchCache().best_variant(SSD, tcore.H100_SXM,
+                                            data).assignment
+        if sq <= ssd_mod.STEP_SEQ:
+            assert ssd_mod.step_body(sq, data["STATE"], pick["bd"])
+            assert pick["bd"] == 32, (data, pick)
+        if sq == 256:
+            assert (pick["chunk"], pick["bd"]) == (128, 32), pick
 
 
 # ---------------------------------------------------------------------------

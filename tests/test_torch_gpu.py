@@ -19,10 +19,13 @@ Tolerances, kernel against plain version on the same inputs:
 - bf16 attention: 1e-2, one bf16 rounding step (2^-7) of the output, which
   both versions compute in f32 and round once, and the kernel's P rounded
   to bf16 for the tensor cores (2^-9 relative, averaged over the keys).
-- SSD scan: 1e-3 on the f32 state and on an f32 y (the same chunk math
-  summed in another order, ``expf``/``logf`` against ``torch.exp``/``log``,
-  over sums of up to ``chunk`` terms of O(1)); 1e-2 on a bf16 y, one bf16
-  step, as for attention.
+- SSD scan: 1e-3 on the f32 state and on an f32 y (the same recurrence,
+  chunk math or step by step, summed in another order, ``expf``/``logf``
+  against ``torch.exp``/``log``, over sums of up to ``chunk`` terms of
+  O(1)); 1e-2 on a bf16 y, one bf16 step, as for attention.  The bf16
+  chunk body feeds G, S and w⊙b to the tensor cores as a high and a low
+  bf16 part (~16 bits), so it also holds y within 2^-6 by relative
+  Frobenius error.
 - matadd and transpose: bit for bit (``torch.equal``).  A transpose moves
   raw bits; a sum is one f32 add rounded once to the element type on both
   sides.
@@ -278,10 +281,10 @@ def _ssd_inputs(rows, seq, heads, hd, state, dev, dtype, shared=True):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
                                        (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("rows,seq,heads,hd,state,chunk,bd,with_state", [
-    (4, 1, 24, 64, 128, 64, 16, True),        # mamba decode step
-    (1, 256, 24, 64, 128, 64, 16, True),      # mamba prefill chunk
-    (1, 200, 25, 64, 16, 128, 16, False),     # hymba, seq no chunk multiple
-    (2, 37, 3, 20, 8, 16, 8, True),           # ragged hd tile
+    (4, 1, 24, 64, 128, 64, 32, True),        # mamba decode step
+    (1, 256, 24, 64, 128, 64, 64, True),      # mamba prefill chunk
+    (1, 200, 25, 64, 16, 128, 32, False),     # hymba, seq no chunk multiple
+    (2, 37, 3, 20, 8, 16, 32, True),          # ragged hd tile, state 8
     (1, 77, 2, 64, 128, 128, 32, False),      # largest chunk V allows
     (3, 5, 4, 16, 8, 32, 64, True)])          # tile wider than hd
 def test_gpu_ssd_kernel_matches_plain(cuda, dtype, tol, rows, seq, heads, hd,
@@ -298,13 +301,75 @@ def test_gpu_ssd_kernel_matches_plain(cuda, dtype, tol, rows, seq, heads, hd,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("heads,state,bd", [(24, 128, 32), (24, 128, 64),
+                                            (25, 16, 32), (25, 16, 64)])
+@pytest.mark.parametrize("seq", [1, 5, 8])
+def test_gpu_ssd_step_in_place_keeps_masked_rows(cuda, dtype, tol, heads,
+                                                 state, bd, seq):
+    """The step body at mamba2-130m's and hymba-1.5b's decode shapes (seq
+    1) and over 5 and 8 steps, run in place on the state with rows 1 and
+    2 of 4 masked out: masked rows keep their state bit for bit and get
+    y = 0; the others equal the plain version."""
+    x, a, b, c, s0 = _ssd_inputs(4, seq, heads, 64, state, cuda, dtype)
+    mask = torch.tensor([True, False, False, True], device=cuda)
+    s = s0.clone()
+    y, s1 = ssd_scan_h100(x, a, b, c, s, chunk=16, bd=bd, out_state=s,
+                          mask=mask)
+    torch.cuda.synchronize()
+    assert s1 is s
+    wy, ws = ssd_scan_plain(x, a, b, c, s0, chunk=16, bd=bd)
+    assert torch.equal(s[1:3], s0[1:3])
+    assert not bool(y[1:3].any())
+    torch.testing.assert_close(s[mask], ws[mask], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(y[mask].float(), wy[mask].float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq", [256, 200, 37])
+@pytest.mark.parametrize("chunk,bd", [(64, 64), (128, 32), (16, 32)])
+def test_gpu_ssd_tensor_core_body_in_place(cuda, seq, chunk, bd):
+    """The bf16 chunk body on the tensor cores at mamba2-130m's widths
+    (24 heads of 64, state 128), in place: within the elementwise
+    tolerances and within 2^-6 of the plain version's y by relative
+    Frobenius error."""
+    x, a, b, c, s0 = _ssd_inputs(1, seq, 24, 64, 128, cuda, torch.bfloat16)
+    s = s0.clone()
+    y, s1 = ssd_scan_h100(x, a, b, c, s, chunk=chunk, bd=bd, out_state=s)
+    torch.cuda.synchronize()
+    wy, ws = ssd_scan_plain(x, a, b, c, s0, chunk=chunk, bd=bd)
+    torch.testing.assert_close(s, ws, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(y.float(), wy.float(), rtol=1e-2, atol=1e-2)
+    rel = float((y.float() - wy.float()).norm() / wy.float().norm())
+    assert rel < 2.0 ** -6
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_wrapper_resolves_its_entry_once(cuda, monkeypatch):
+    """The C entry point is looked up once a process, not once a launch."""
+    from repro_torch.kernels import ssd_scan as ssd_mod
+    calls = []
+    real = build.entry
+    monkeypatch.setattr(build, "entry",
+                        lambda *args: calls.append(args) or real(*args))
+    ssd_mod._entry.cache_clear()
+    x, a, b, c, s0 = _ssd_inputs(4, 1, 24, 64, 128, cuda, torch.bfloat16)
+    for _ in range(3):
+        ssd_scan_h100(x, a, b, c, s0, chunk=16, bd=32, out_state=s0)
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+
+
+@pytest.mark.gpu
 def test_gpu_ssd_kernel_per_head_bc_equals_shared(cuda):
     x, a, b, c, s0 = _ssd_inputs(2, 40, 3, 32, 16, cuda, torch.float32)
     heads = x.shape[2]
-    y1, s1 = ssd_scan_h100(x, a, b, c, s0, chunk=16, bd=16)
+    y1, s1 = ssd_scan_h100(x, a, b, c, s0, chunk=16, bd=32)
     full = [t[:, :, None, :].expand(-1, -1, heads, -1).contiguous()
             for t in (b, c)]
-    y2, s2 = ssd_scan_h100(x, a, *full, s0, chunk=16, bd=16)
+    y2, s2 = ssd_scan_h100(x, a, *full, s0, chunk=16, bd=32)
     torch.testing.assert_close(y1, y2, rtol=0, atol=0)
     torch.testing.assert_close(s1, s2, rtol=0, atol=0)
 
@@ -417,6 +482,21 @@ def test_gpu_jacobi_kernel_matches_plain(cuda, n, steps, B, s, cached):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, 2, 3])
+def test_gpu_jacobi_leaves_x_and_copies_only_the_ends(cuda, steps):
+    """The first sweep reads x itself and every sweep writes its buffer's
+    two fixed ends: x is untouched, the result is a new tensor whose ends
+    are x's, and it equals the plain version bit for bit."""
+    x = _t((2 ** 21 + 2,), 17, cuda)
+    before = x.clone()
+    got = jacobi1d_h100(x, steps, B=1024, s=8)
+    torch.cuda.synchronize()
+    assert torch.equal(x, before) and got.data_ptr() != x.data_ptr()
+    assert torch.equal(got[[0, -1]], x[[0, -1]])
+    assert torch.equal(got, jacobi1d_plain(x, steps, B=1024, s=8))
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     a = _t((8, 16), 1, cuda)
     with pytest.raises(ValueError):                     # not contiguous
@@ -432,8 +512,10 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
     x, a, b, c, _ = _ssd_inputs(1, 300, 2, 16, 8, cuda, torch.float32)
     with pytest.raises(TypeError):                      # bf16 decay
         ssd_scan_h100(x, a.bfloat16(), b, c, chunk=16, bd=16)
-    with pytest.raises(RuntimeError):                   # 256² scores > V
-        ssd_scan_h100(x, a, b, c, chunk=256, bd=16)
+    with pytest.raises(RuntimeError):                   # chunk past 128
+        ssd_scan_h100(x, a, b, c, chunk=256, bd=32)
+    with pytest.raises(RuntimeError):                   # bd not 32 or 64
+        ssd_scan_h100(x, a, b, c, chunk=16, bd=16)
     m = _t((8, 64), 3, cuda)
     with pytest.raises(TypeError):                      # mixed types
         matadd_h100(m, m.bfloat16(), bm=1, bn=32, s=2)

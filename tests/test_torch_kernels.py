@@ -366,8 +366,9 @@ def test_ssd_state_threads_a_split_sequence(split):
                                rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("chunk,bd", [(1, 8), (16, 16), (32, 64), (64, 8),
-                                      (128, 32), (256, 16)])
+@pytest.mark.parametrize("chunk,bd", [(16, 32), (16, 64), (32, 32),
+                                      (32, 64), (64, 32), (64, 64),
+                                      (128, 32), (128, 64)])
 def test_ssd_every_chunk_same_result(chunk, bd):
     """Every (chunk, hd tile) leaf computes the same scan (paper Def. 2
     ii), held against the JAX oracle."""
@@ -391,6 +392,110 @@ def test_ssd_shared_bc_equals_per_head_bc():
                               chunk=16, bd=8)
     for got, want in zip(shared, per_head):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seq", [1, 8, 37])
+def test_ssd_plain_in_place_and_masked_equals_out_of_place(seq):
+    """The plain version updating the state in place with rows 1 and 3 of 4
+    masked out: the active rows' y and state equal the out-of-place call's,
+    the masked rows keep their state bit for bit and get y = 0 (the
+    kernel's contract)."""
+    rng = np.random.default_rng(SEED + 140 + seq)
+    x = torch.from_numpy(rng.standard_normal((4, seq, 3, 16), np.float32))
+    a = torch.from_numpy(rng.uniform(0.05, 0.95, (4, seq, 3)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.standard_normal((4, seq, 8), np.float32))
+    c = torch.from_numpy(rng.standard_normal((4, seq, 8), np.float32))
+    s0 = torch.from_numpy(rng.standard_normal((4, 3, 8, 16), np.float32))
+    want_y, want_s = ssd_scan_h100(x, a, b, c, s0, chunk=16, bd=32)
+    mask = torch.tensor([True, False, True, False])
+    st = s0.clone()
+    y, s1 = ssd_scan_h100(x, a, b, c, st, chunk=16, bd=32, out_state=st,
+                          mask=mask)
+    assert s1 is st
+    assert torch.equal(y[mask], want_y[mask])
+    assert torch.equal(st[mask], want_s[mask])
+    assert torch.equal(st[~mask], s0[~mask]) and not bool(y[~mask].any())
+
+
+def _kernel_rounding(x, a, b, c, ck, one_g=False):
+    """The tensor-core body's rounding points, emulated in f32 from a zero
+    state (``csrc/ssd_scan.cu``): c·bᵀ from the bf16 inputs as they are; G,
+    the state S and w⊙b each fed to a bf16 product as a high and a low
+    bf16 part (``one_g``: G rounded once, the rounding the body does not
+    use); exp(cum_t) applied to rows of the f32 c·S; y rounded to bf16."""
+    def hi_lo(v):
+        hi = v.bfloat16().float()
+        return hi, (v - hi).bfloat16().float()
+    seq, heads, hd = x.shape
+    xf, bf, cf = x.float(), b.float(), c.float()
+    S = torch.zeros((heads, b.shape[-1], hd))
+    ys = []
+    for t0 in range(0, seq, ck):
+        xc = xf[t0:t0 + ck].transpose(0, 1)
+        cum = torch.cumsum(torch.log(a[t0:t0 + ck].T), -1)
+        n = xc.shape[1]
+        tri = torch.ones(n, n, dtype=torch.bool).tril()
+        L = torch.exp((cum[:, :, None] - cum[:, None, :]).masked_fill(
+            ~tri, -torch.inf))
+        G = (cf[t0:t0 + ck] @ bf[t0:t0 + ck].T)[None] * L
+        if one_g:
+            y = G.bfloat16().float() @ xc
+        else:
+            gh, gl = hi_lo(G)
+            y = gh @ xc + gl @ xc
+        sh, sl = hi_lo(S)
+        cc = cf[t0:t0 + ck][None]
+        y = y + (cc @ sh + cc @ sl) * torch.exp(cum)[..., None]
+        ys.append(y)
+        wh, wl = hi_lo(bf[t0:t0 + ck][None]
+                       * torch.exp(cum[:, -1:] - cum)[..., None])
+        S = (torch.exp(cum[:, -1:])[..., None] * S
+             + wh.transpose(1, 2) @ xc + wl.transpose(1, 2) @ xc)
+    return torch.cat(ys, 1).transpose(0, 1).bfloat16()
+
+
+def test_ssd_kernel_rounding_points_hold_the_relative_check():
+    """At mamba2-130m's widths (24 heads of 64, state 128, a 256-step chunk
+    in chunks of 128, the pick): the emulated rounding points stay well
+    under ``SSD_REL`` = 2^-6 of the JAX oracle's y, by relative Frobenius
+    error, while the planted fault the smoke run plants (one step's decay
+    set to 1) goes over it; G rounded once to bf16 would put y elements
+    outside the 1e-2 tolerance that the split keeps."""
+    ssd_rel = 2.0 ** -6
+    seq, heads, hd, state = 256, 24, 64, 128
+    rng = np.random.default_rng(SEED + 150)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16()
+    x = bf(rng.standard_normal((seq, heads, hd)))
+    b = bf(rng.standard_normal((seq, state)))
+    c = bf(rng.standard_normal((seq, state)))
+    a = torch.from_numpy(rng.uniform(0.05, 0.95, (seq, heads)).astype(
+        np.float32))
+    per_head = lambda t: t.float()[:, None, :].expand(seq, heads, state)
+
+    def oracle(decay):
+        return torch.from_numpy(np.array(jref.ssd_scan(
+            jnp.asarray(x.float().numpy()), jnp.asarray(decay.numpy()),
+            jnp.asarray(per_head(b).numpy()),
+            jnp.asarray(per_head(c).numpy()))))
+
+    want = oracle(a)
+
+    def rel(y):
+        return float((y.float() - want).norm() / want.norm())
+
+    got = _kernel_rounding(x, a, b, c, 128)
+    assert rel(got) < ssd_rel / 8
+    faulty = a.clone()
+    faulty[seq // 2] = 1.0
+    assert rel(oracle(faulty)) > ssd_rel
+    plain, _ = ssd_scan_plain(x[None], a[None], b[None], c[None], chunk=128,
+                              bd=32)
+    torch.testing.assert_close(got.float(), plain[0].float(), rtol=1e-2,
+                               atol=1e-2)
+    once = _kernel_rounding(x, a, b, c, 128, one_g=True)
+    assert not torch.allclose(once.float(), plain[0].float(), rtol=1e-2,
+                              atol=1e-2)
 
 
 def test_ssd_oracle_matches_jax_oracle():

@@ -300,3 +300,39 @@ def test_ssm_decode_keeps_state_of_rows_not_decoding(ssm_model):
 
 def _np_state(shape):
     return np.random.default_rng(9).standard_normal(shape).astype(np.float32)
+
+
+def test_ssm_steps_update_the_cache_in_place(ssm_model, monkeypatch):
+    """Each layer of a decode step hands its cache slice ``ssm[i, :B]`` to
+    K3 as both the state and the output state, with the decoding rows as a
+    bool mask on the state's device, and a prefill chunk hands the slot's
+    ``ssm[i, slot:slot+1]`` with no mask: no step allocates or scatters an
+    SSM state."""
+    from repro_torch.kernels import ops
+    _, _, tcfg, tp = ssm_model
+    calls = []
+    real = ops.ssd_scan
+
+    def spy(x, a, b, c, state0=None, **kw):
+        calls.append((state0, kw.get("out_state"), kw.get("mask")))
+        return real(x, a, b, c, state0, **kw)
+
+    monkeypatch.setattr(ops, "ssd_scan", spy)
+    c = tm.init_paged_cache(tcfg, 5, 4, 2, dtype=torch.float32, device="cpu")
+    ssm = c["ssm"]
+    tables = np.array([[1, 2], [3, 4]], np.int32)
+    tm.paged_prefill_chunk(tp, tcfg, np.array([[3, 5, 7]]), c, 0,
+                           tables[1:], 1)
+    assert len(calls) == tcfg.layers
+    for i, (st, out, mask) in enumerate(calls):
+        assert out is st and mask is None
+        assert st.data_ptr() == ssm[i, 1].data_ptr() and st.shape[0] == 1
+    calls.clear()
+    tm.paged_decode_step(tp, tcfg, np.array([[5], [7]]), c,
+                         np.array([3, 3], np.int32), tables,
+                         active=np.array([False, True]))
+    assert len(calls) == tcfg.layers
+    for i, (st, out, mask) in enumerate(calls):
+        assert out is st and st.data_ptr() == ssm[i].data_ptr()
+        assert mask.dtype == torch.bool and mask.tolist() == [False, True]
+    assert c["ssm"] is ssm
