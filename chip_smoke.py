@@ -33,7 +33,15 @@ no phase is caught.
    own).  Then at four llama3-8b signatures and the hymba decode at sk
    4096 (``K2_LEAF_ROWS``) ten feasible leaves of different (bq, bkv,
    kv_chunk, stages) each, held against the plain version and timed, with
-   the napkin's rank beside the card's.
+   the napkin's rank beside the card's.  Then the paged entry (one launch
+   for every row, through the block tables, lengths on the device) against
+   its plain version on a bf16 pool (``K2_PAGED_ROWS``): decode over 4 rows
+   of ragged lengths, one of them 0 (all zeros), at the llama and hymba
+   groupings over a 4096-key pool, launched three times bit for bit over
+   its several splits; a prefill chunk at each grouping; f32 q on the bf16
+   pool.  Each row timed eagerly and as device time beside SDPA over the
+   K/V gathered out of the pool beforehand (SDPA's time leaves out the
+   gather).
 5. K3 ``ssd_scan_h100`` against its plain version in bf16 with an f32
    state, updated in place as the serve path does, at the mamba2-130m (24
    heads of 64, state 128) and hymba-1.5b (25 heads of 64, state 16)
@@ -69,8 +77,10 @@ no phase is caught.
    C2 at G = 12; the uncached case 3 of transpose and Jacobi at V = 0),
    which ``H100_SXM`` never picks.
 7. serve parity: the llama3, mamba2 and hymba SMOKE configs in f32, each
-   served on ``cuda`` (the kernels) and on ``cpu`` (their plain versions)
-   from the same weights; the greedy tokens are equal.
+   served on ``cuda`` (the kernels, the decode tick replayed from its CUDA
+   graph, at ``async_depth`` 1 and 2) and on ``cpu`` (their plain
+   versions) from the same weights; the greedy tokens are equal, and the
+   graph replays once a decode tick.
 8. serve, the main paths, each through ``init_model`` (bf16, random weights
    from a seeded ``torch.Generator`` on the card) and
    ``ServeEngine(warm_kernels=True)``, 4 requests of 8 new tokens, every
@@ -78,14 +88,26 @@ no phase is caught.
    mamba2-130m at full width (24 layers; prompts of 200-500 tokens,
    ``prefill_chunk`` 256, ``max_len`` 1024), hymba-1.5b at full width (32
    layers) and llama3-8b at full width (32 layers), the last two with
-   prompts of 16-64 tokens, ``prefill_chunk`` 32, ``max_len`` 256.  Every
-   request returns ``max_new`` tokens, each kernel of the path launched
-   (K1 and K3; K1, K2 and K3; K1 and K2), the launch counts match the steps
-   run, no dispatch resolved cold after warm-up, and a full-width forward
-   gives finite logits.
+   prompts of 16-64 tokens, ``prefill_chunk`` 32, ``max_len`` 256.  Each
+   engine captures its decode tick in a CUDA graph at construction (the
+   time printed).  Every request returns ``max_new`` tokens, each kernel
+   of the path launched (K1 and K3; K1, K2 and K3; K1 and K2), the graph
+   replayed once a decode tick, the launch counts (a replay counting its
+   captured launches) match the steps run — K1 per projection, K2 and K3
+   one a layer, for every prefill chunk and decode step — no dispatch
+   resolved cold after warm-up, and a full-width forward gives finite
+   logits.  The decode tick's host time (from ``step()`` to the replay's
+   return) is printed beside its device time (CUDA events around the
+   replay), over the ticks that ran no prefill chunk.  llama3-8b then
+   serves the same prompts at ``async_depth`` 2: its tokens equal those at
+   depth 1.
 9. main-path shapes: every launch signature of phase 8 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
-   kernel, plain version, the library call, and the bound.  Then the host
+   kernel, plain version, the library call, and the bound.  A paged K2
+   signature runs through the paged entry over a pool and tables at the
+   served lengths: a decode step's rows each halfway through its request's
+   new tokens, a prefill chunk at the mean prompt length (the lengths on
+   the device during the run are not read back).  Then the host
    cost a launch: the host clock over 1000 launches with no synchronise
    inside the loop, of K1 at M = 1, N = 32, K = 32 through the wrapper,
    ``ops.matmul`` and, beside them, ``torch.matmul``, and of K3 at
@@ -97,10 +119,10 @@ Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
 fastest): one mean over one batch let a single slow batch set a row.  A
 launch whose host cost exceeds its device time reads its host cost this
-way, so K1-K3, K5, K6, ``torch.matmul`` and SDPA also print
-``device_ms``
-(``library_device_ms`` for the library call): 20 launches
-captured in one CUDA graph, replayed in 5 batches, the median over 20.  A
+way, so K1-K6, ``torch.matmul`` and SDPA also print ``device_ms``
+(``library_device_ms`` for the library call): 20 launches (K4's 1 GB
+transposes 5) captured in one CUDA graph, replayed in 5 batches, the
+median over them.  A
 matmul cycles through copies of its weight operand so that each launch
 reads it from device memory, as the serve path does (attention reads K/V
 and the SSD scan reads x, b, c that the serve path has just written, so
@@ -145,7 +167,8 @@ Tolerances, kernel against plain version on the same inputs:
   split-K changes only which sums are grouped; with B scaled by
   1/sqrt(K), as the model's weights are, outputs are O(1) and K <= 14336
   additions drift by at most K * 2^-24 ~ 1e-3.
-- attention in bf16, rtol = atol = 1e-2: both compute in f32 and round the
+- attention in bf16, rtol = atol = 1e-2 (the paged entry alike): both
+  compute in f32 and round the
   output to bf16 once; the two may round apart by one bf16 step (2^-7);
   the kernel also rounds P to bf16 for the tensor cores (2^-9 relative,
   averaged over the keys), and combines the key splits in the same order.
@@ -234,6 +257,9 @@ CASE_PATH = (
     ("jacobi1d_h100", {"N": (1 << 15) + 2}),             # Table 2
     ("jacobi1d_h100", {"N": (1 << 21) + 2}),             # largest bucket
 )
+#: {paged K2 signature: the rows' lengths it is timed and bound at}: phase
+#: 4's own, and for phase 9 the lengths phase 8 served at it.
+PAGED_LENS = {}
 
 
 def say(*parts) -> None:
@@ -305,8 +331,11 @@ def work(name: str, sig) -> tuple:
     gives a bf16 chunk's bound at the f32 rate), attention's K/V bytes over
     its hk KV heads and
     only the keys some query can see (a window's), matadd one f32 add an element, a Jacobi sweep
-    two adds and a division a point, a transpose none."""
-    esz = torch.empty((), dtype=sig[-1]).element_size()
+    two adds and a division a point, a transpose none.  A paged K2 launch
+    counts each row at its length in ``PAGED_LENS`` (its q and output, and
+    the pool's bytes of the keys it can see)."""
+    esz = torch.empty((), dtype=sig[-2 if sig[0] == "paged" else -1]
+                      ).element_size()
     if name == "matmul_h100":
         M, N, K = sig[:3]
         return ((M * K + K * N) * esz + M * N * 4, 2.0 * M * N * K,
@@ -329,6 +358,17 @@ def work(name: str, sig) -> tuple:
         return (2 * R * S * H * hd * esz + 4 * R * S * H + 2 * R * S * n * esz
                 + R * masked + state_bytes * (2 if with_state else 1),
                 5.0 * R * S * H * n * hd, peak)
+    if sig[0] == "paged":
+        _, rows, h, hk, sq, _, d, _, _, _, _, _, causal, window, dtype, kv = sig
+        kv_esz = torch.empty((), dtype=kv).element_size()
+        nbytes, flops = 0, 0.0
+        for n in PAGED_LENS[sig]:            # each row at its own length
+            mask = _visible(sq, n, causal, window) if n else None
+            keys = int(mask.any(0).sum()) if n else 0
+            pairs = int(mask.sum()) if n else 0
+            nbytes += 2 * h * sq * d * esz + 2 * hk * keys * d * kv_esz
+            flops += 4.0 * h * pairs * d
+        return nbytes, flops, PEAK_FLOPS[dtype]
     h, hk, sq, sk, d = sig[:5]
     causal, window = sig[9:11]
     mask = _visible(sq, sk, causal, window)
@@ -482,6 +522,8 @@ def flash_case(sig, gen, *, timed: bool, launches: int = 1,
     each kernel's device time under the profiler when ``profiled``."""
     from repro_torch.kernels.flash_attention import (flash_attention_h100,
                                                      flash_attention_plain)
+    if sig[0] == "paged":
+        return paged_case(sig, gen, timed=timed, launches=launches)
     h, hk, sq, sk, d, bq, bkv, kv_chunk, stages, causal, window, dtype = sig
     q = torch.randn((h, sq, d), generator=gen, device=DEV).to(dtype)
     k = torch.randn((hk, sk, d), generator=gen, device=DEV).to(dtype)
@@ -524,6 +566,93 @@ def flash_case(sig, gen, *, timed: bool, launches: int = 1,
     if profiled:
         row["k2_us"] = kernel_us(lambda: flash_attention_h100(q, k, v, **kw))
         row["sdpa_us"] = kernel_us(sdpa)
+    return row
+
+
+def paged_case(sig, gen, *, timed: bool, launches: int = 1):
+    """K2's paged entry at ("paged", rows, h, hk, sq, nblk·page, d, page,
+    bq, bkv, kv_chunk, stages, causal, window, dtype, pool dtype), its
+    ``shapes`` key, each row at its length in ``PAGED_LENS``: a pool of
+    rows · nblk + 1 blocks, each row's table a random draw of them.  Held
+    against the paged plain version (a row of length 0 all zeros; each row
+    over more than one split also by ``split_held`` on its gathered keys;
+    ``launches`` launches bit for bit); timed eagerly and as device time
+    beside SDPA over the gathered K/V with each row's mask (SDPA's time
+    leaves out the gather) when ``timed``."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_h100_paged, flash_attention_paged_plain)
+    (_, rows, h, hk, sq, keys, d, page, bq, bkv, kv_chunk, stages, causal,
+     window, dtype, kv_dtype) = sig
+    lens = PAGED_LENS[sig]
+    nblk = keys // page
+    nb = rows * nblk + 1
+    q = torch.randn((rows, h, sq, d), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((nb, page, hk, d), generator=gen, device=DEV).to(kv_dtype)
+    v = torch.randn((nb, page, hk, d), generator=gen, device=DEV).to(kv_dtype)
+    tables = (torch.randperm(nb - 1, generator=gen, device=DEV) + 1).view(
+        rows, nblk).to(torch.int32)
+    tl = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    kw = dict(bq=bq, bkv=bkv, kv_chunk=kv_chunk, stages=stages,
+              causal=causal, window=window)
+
+    def launch():
+        return flash_attention_h100_paged(q, k, v, tables, tl, **kw)
+
+    got = launch()
+    torch.cuda.synchronize()
+    want = flash_attention_paged_plain(q, k, v, tables, tl, **kw)
+    row = {"err": held(f"paged flash {sig[:-2]} lens {lens}", got, want,
+                       FA_TOL)}
+
+    def gathered(pool, b, n):
+        return pool[tables[b].long()].reshape(-1, hk, d)[:n].permute(
+            1, 0, 2).contiguous()
+
+    rels = []
+    for b, n in enumerate(lens):
+        if n == 0:
+            exact(f"paged flash {sig[:-2]} row {b} of length 0", got[b],
+                  torch.zeros_like(got[b]))
+        elif n > kv_chunk:
+            rels.append(split_held(
+                f"paged flash {sig[:-2]} row {b}", q[b], gathered(k, b, n),
+                gathered(v, b, n), got[b], want[b], kv_chunk, causal,
+                window))
+    if rels:
+        row["rel"] = max(r[0] for r in rels)
+        row["fault_rel"] = min(r[1] for r in rels)
+    for _ in range(launches - 1):
+        if not torch.equal(got, launch()):
+            raise AssertionError(f"paged flash {sig[:-2]}: two launches "
+                                 "differ")
+    if timed:
+        kpos = torch.arange(keys, device=DEV)
+        qpos = (torch.arange(sq, device=DEV)[None, :, None]
+                + tl[:, None, None] - sq)                 # [rows, sq, 1]
+        mask = (kpos < tl[:, None, None]) & (kpos <= qpos)
+        if window is not None:
+            mask &= kpos > qpos - window
+        kg = k[tables.long()].reshape(rows, keys, hk, d).permute(0, 2, 1, 3)
+        vg = v[tables.long()].reshape(rows, keys, hk, d).permute(0, 2, 1, 3)
+        kg, vg = kg.to(dtype).contiguous(), vg.to(dtype).contiguous()
+        if sdpa_gqa():
+            extra = {"enable_gqa": h != hk}
+        else:
+            kg = kg.repeat_interleave(h // hk, 1)
+            vg = vg.repeat_interleave(h // hk, 1)
+            extra = {}
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, kg, vg,
+                                                  attn_mask=mask[:, None],
+                                                  **extra)
+        time_into(row, "ms", launch, 10)
+        row["device_ms"] = graph_ms(launch)
+        row["bound_ms"] = max(bound_terms_ms("flash_attention_h100", sig))
+        time_into(row, "plain_ms", lambda: flash_attention_paged_plain(
+            q, k, v, tables, tl, **kw), 2)
+        time_into(row, "library_ms", sdpa, 10)
+        row["library_device_ms"] = graph_ms(sdpa)
     return row
 
 
@@ -647,6 +776,7 @@ def transpose_case(sig, gen, *, timed: bool):
     row = {"err": exact(f"transpose {sig}", got, transpose_plain(a, **kw))}
     if timed:
         time_into(row, "ms", lambda: transpose_h100(a, **kw), 10)
+        row["device_ms"] = graph_ms(lambda: transpose_h100(a, **kw), 5)
         time_into(row, "plain_ms", lambda: transpose_plain(a, **kw), 10)
         time_into(row, "library_ms", lambda: a.t().contiguous(), 10)
         row["bound_ms"] = max(bound_terms_ms("transpose_h100", sig))
@@ -926,6 +1056,34 @@ K2_LEAF_ROWS = (
     ("hymba decode sk 4096, window 1024", 25, 5, 1, 4096, 64, True, 1024),
 )
 FA_PARAMS = ("bq", "bkv", "kv_chunk", "stages")
+#: Phase 4's paged rows: (name, h, hk, d, window, rows, sq, lengths, nblk,
+#: page, q dtype), on a bf16 pool: decode over 4 rows of ragged lengths,
+#: one of them 0, at both groupings over a 4096-key pool (more than one
+#: split), a prefill chunk at the served pool of 256 keys, and f32 q on the
+#: bf16 pool (the f32 models of phase 7).
+K2_PAGED_ROWS = (
+    ("llama paged decode", 32, 8, 128, None, 4, 1, (77, 0, 1000, 4096), 256,
+     16, torch.bfloat16),
+    ("hymba paged decode", 25, 5, 64, 1024, 4, 1, (77, 0, 1500, 4096), 256,
+     16, torch.bfloat16),
+    ("llama paged prefill chunk", 32, 8, 128, None, 1, 32, (96,), 16, 16,
+     torch.bfloat16),
+    ("hymba paged prefill chunk", 25, 5, 64, 1024, 1, 32, (200,), 16, 16,
+     torch.bfloat16),
+    ("llama paged decode, f32 q on the bf16 pool", 32, 8, 128, None, 4, 1,
+     (77, 0, 150, 256), 16, 16, torch.float32),
+)
+
+
+def _paged_sig(h, hk, d, window, rows, sq, nblk, page, dtype) -> tuple:
+    """The paged launch signature of the dispatch's pick for these shapes
+    (a bf16 pool)."""
+    from repro_torch.kernels import ops
+    a = ops.select("flash_attention_h100",
+                   {"SQ": sq, "HD": d, "GROUP": h // hk, "HK": hk}
+                   ).assignment
+    return ("paged", rows, h, hk, sq, nblk * page, d, page,
+            *(a[n] for n in FA_PARAMS), True, window, dtype, torch.bfloat16)
 
 
 def _fa_leaves(data, want: int = 10) -> list:
@@ -991,6 +1149,24 @@ def phase_k2(gen) -> float:
             f"{_profile_line(row['k2_us'])}; SDPA "
             f"{_profile_line(row['sdpa_us'])}")
     say(f"[K2] SDPA timed with enable_gqa: {sdpa_gqa()}")
+
+    # the paged entry: every row of a layer in one launch, through the
+    # tables, at the lengths on the device
+    for name, h, hk, d, window, rows, sq, lens, nblk, page, dtype in \
+            K2_PAGED_ROWS:
+        sig = _paged_sig(h, hk, d, window, rows, sq, nblk, page, dtype)
+        PAGED_LENS[sig] = lens
+        nsplit = -(-nblk * page // sig[10])
+        row = paged_case(sig, gen, timed=True,
+                         launches=3 if nsplit > 1 else 1)
+        err = max(err, row["err"])
+        leaf = dict(zip(FA_PARAMS, sig[8:12]))
+        say(f"[K2] {name}: rows {rows} h{h} hk{hk} sq{sq} d{d} window "
+            f"{window} lengths {list(lens)}, pool {nblk} x {page} keys, "
+            f"{dtype} q, leaf {leaf}, {nsplit} split(s)"
+            f"{', three launches bit for bit equal' if nsplit > 1 else ''}"
+            f", row of length 0 all zeros: {fmt(row)} (SDPA over K/V "
+            f"gathered beforehand: its time leaves out the gather)")
 
     # leaves of the tree at each signature: napkin rank, card rank
     for name, h, hk, sq, sk, d, causal, window in K2_LEAF_ROWS:
@@ -1335,21 +1511,103 @@ def phase_parity() -> None:
         prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 19, 11, 3, 26)]
         kw = dict(max_batch=3, max_len=48, page_size=8, prefill_chunk=8,
                   warm_kernels=True)
-        _, on_gpu = _serve(cfg, params_gpu, prompts, DEV, **kw)
         _, on_cpu = _serve(cfg, params_cpu, prompts, "cpu", **kw)
-        gpu_toks = [r.out for r in on_gpu]
         cpu_toks = [r.out for r in on_cpu]
-        say(f"[parity] {cfg.name} f32, cuda kernels: {gpu_toks}")
         say(f"[parity] {cfg.name} f32, cpu plain:    {cpu_toks}")
-        if gpu_toks != cpu_toks or any(len(t) != MAX_NEW for t in gpu_toks):
-            raise AssertionError(f"serve parity ({cfg.name}): tokens differ "
-                                 "between the kernels on cuda and the plain "
-                                 "versions on cpu")
+        for depth in (1, 2):
+            eng, on_gpu = _serve(cfg, params_gpu, prompts, DEV,
+                                 async_depth=depth, **kw)
+            gpu_toks = [r.out for r in on_gpu]
+            say(f"[parity] {cfg.name} f32, cuda kernels, decode graph "
+                f"replayed {eng.graph.replays} times, async_depth {depth}: "
+                f"{gpu_toks}")
+            if eng.graph.replays != eng.sched.stats.decode_ticks:
+                raise AssertionError(f"{cfg.name}: {eng.graph.replays} "
+                                     "graph replays, "
+                                     f"{eng.sched.stats.decode_ticks} decode "
+                                     "ticks")
+            eng.close()
+            if gpu_toks != cpu_toks or any(len(t) != MAX_NEW
+                                           for t in gpu_toks):
+                raise AssertionError(
+                    f"serve parity ({cfg.name}, async_depth {depth}): "
+                    "tokens differ between the kernels on cuda and the "
+                    "plain versions on cpu")
 
 
-def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
+class _TickClock:
+    """Times an engine's decode ticks: the host clock from ``step()``'s
+    start to the graph replay's return, and CUDA events around the replay
+    (the tick's device time), for ticks that ran no prefill chunk."""
+
+    def __init__(self, eng):
+        self.eng, self.graph = eng, eng.graph
+        self.host, self.events = [], []
+        self._t0 = self._chunks = None
+        step = eng.step
+
+        def timed_step():
+            self._t0 = time.perf_counter()
+            self._chunks = eng.sched.stats.prefill_chunks
+            return step()
+        eng.step = timed_step
+        eng.graph = self
+
+    def __call__(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph()
+        end.record()
+        if self.eng.sched.stats.prefill_chunks == self._chunks:
+            self.host.append(time.perf_counter() - self._t0)
+            self.events.append((start, end))
+
+    def __getattr__(self, name):               # replays, release, delta
+        return getattr(self.graph, name)
+
+    def profile(self) -> str:
+        """The decode tick's device time by kernel under ``torch.profiler``
+        (20 replays of the graph on the last tick's inputs, uncounted):
+        K1-K3 and the rest, with the rest's largest kernels."""
+        times = kernel_us(self.graph.graph.replay)
+        groups = {"K1": ("matmul_kernel",),
+                  "K2": ("flash_kernel", "combine_kernel"),
+                  "K3": ("ssd_",)}
+        sums = {g: 0.0 for g in list(groups) + ["other"]}
+        other = {}
+        for name, t in times.items():
+            g = next((g for g, keys in groups.items()
+                      if any(k in name for k in keys)), "other")
+            sums[g] += t
+            if g == "other":
+                other[name[:60]] = t
+        top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
+        return (f"decode tick device us by kernel (profiler, a replay): "
+                f"total {sum(sums.values()):.1f}; "
+                + ", ".join(f"{g} {t:.1f}" for g, t in sums.items())
+                + "; largest other: "
+                + "; ".join(f"{n} {t:.1f}" for n, t in top))
+
+    def line(self) -> str:
+        torch.cuda.synchronize()
+        dev = sorted(s.elapsed_time(e) for s, e in self.events)
+        host = sorted(1e3 * t for t in self.host)
+        if not dev:
+            return "no decode-only tick"
+        return (f"decode tick (no prefill chunk in it, {len(dev)} ticks): "
+                f"host {host[len(host) // 2]:.3f} ms median (from step() to "
+                f"the replay's return; {host[0]:.3f}-{host[-1]:.3f}), device "
+                f"{dev[len(dev) // 2]:.3f} ms median (CUDA events around the "
+                f"replay; {dev[0]:.3f}-{dev[-1]:.3f})")
+
+
+def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
+                depths: tuple = (1,)) -> dict:
     """One main path: ``arch`` at full width through ServeEngine; returns
-    its name, wall time and each kernel's launches and launch shapes."""
+    its name, wall time and each kernel's launches and launch shapes.  Each
+    depth of ``depths`` past the first serves the same prompts once more at
+    that ``async_depth``: its tokens must equal the first run's."""
     from repro_torch.artifacts.dispatch import get_default_cache
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_model
@@ -1367,13 +1625,16 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
     eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV, **serve_kw)
     stats = get_default_cache().stats
     cold0 = stats.cold_builds
-    say(f"[serve] warm-up: {len(eng.kernel_plan)} kernel picks frozen in "
-        f"{time.perf_counter() - t0:.1f} s; engine {serve_kw}")
+    say(f"[serve] warm-up: {len(eng.kernel_plan)} kernel picks frozen and "
+        f"the decode tick captured in {time.perf_counter() - t0:.1f} s "
+        f"(workspaces, eager step and capture {eng.capture_s:.3f} s); "
+        f"engine {serve_kw}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n))
                for n in rng.integers(*prompt_lens, 4)]
 
     kernels = _counters(SERVE_KERNELS)
+    clock = _TickClock(eng)
     torch.cuda.synchronize()
     for k in kernels.values():
         k.launches = 0
@@ -1385,6 +1646,7 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
     wall = time.perf_counter() - t0
     launches = {n: k.launches for n, k in kernels.items()}
     shapes = {n: dict(k.shapes) for n, k in kernels.items()}
+    replays = eng.graph.replays
 
     outs = [done[r] for r in rids]
     for r, p in zip(outs, prompts):
@@ -1403,10 +1665,13 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
     steps = st.prefill_chunks + st.decode_ticks
     say(f"[serve] {cfg.name}: {len(outs)} requests, {ntok} tokens in "
         f"{wall:.3f} s: {ntok / wall:.2f} tokens/s; {st.prefill_chunks} "
-        f"prefill chunks, {st.decode_ticks} decode steps")
+        f"prefill chunks, {st.decode_ticks} decode steps, {replays} graph "
+        f"replays")
+    say(f"[serve] {cfg.name} {clock.line()}")
+    say(f"[serve] {cfg.name} {clock.profile()}")
     say(f"[serve] {cfg.name} launches: {json.dumps(launches)}; matmul per "
-        f"prefill chunk or decode step {per_step_mm}; cold dispatch builds "
-        f"after warm-up: {cold}")
+        f"prefill chunk or decode step {per_step_mm}, K2 and K3 one a layer "
+        f"each; cold dispatch builds after warm-up: {cold}")
     used = ["matmul_h100"] + ["flash_attention_h100"] * attn \
         + ["ssd_scan_h100"] * ssm
     if any(launches[n] == 0 for n in used):
@@ -1414,10 +1679,43 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple) -> dict:
                              f"{launches}")
     if cold:
         raise AssertionError(f"{cold} dispatches resolved cold after warm-up")
+    if replays != st.decode_ticks:
+        raise AssertionError(f"{replays} graph replays for {st.decode_ticks}"
+                             " decode ticks")
     if launches["matmul_h100"] != per_step_mm * steps:
         raise AssertionError("matmul launches do not match the steps run")
+    if launches["flash_attention_h100"] != cfg.layers * steps * attn:
+        raise AssertionError("attention launches do not match the steps run")
     if launches["ssd_scan_h100"] != cfg.layers * steps * ssm:
         raise AssertionError("SSD scan launches do not match the steps run")
+    # the lengths phase 9 times each paged signature at: a decode step's
+    # rows halfway through their new tokens, a prefill chunk at the mean
+    # prompt length (the served lengths; the device's own are not read)
+    for sig in shapes["flash_attention_h100"]:
+        rows, sq = sig[1], sig[4]
+        PAGED_LENS[sig] = (
+            tuple(len(p) + MAX_NEW // 2 for p in prompts)[:rows]
+            if sq == 1 and rows == len(prompts)
+            else (max(sq, round(np.mean([len(p) for p in prompts]))),))
+    eng.close()
+
+    for depth in depths[1:]:
+        again = ServeEngine(cfg, params, warm_kernels=True, device=DEV,
+                            async_depth=depth, **serve_kw)
+        t0 = time.perf_counter()
+        rids = [again.submit(p, max_new=MAX_NEW) for p in prompts]
+        redo = {r.rid: r.out for r in again.run_until_drained()}
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        toks = [redo[r] for r in rids]
+        say(f"[serve] {cfg.name} at async_depth {depth}: {ntok} tokens in "
+            f"{dt:.3f} s: {ntok / dt:.2f} tokens/s; tokens equal to "
+            f"async_depth {depths[0]}: {toks == [r.out for r in outs]}")
+        if toks != [r.out for r in outs]:
+            raise AssertionError(f"{cfg.name}: async_depth {depth} tokens "
+                                 "differ")
+        again.close()
+        del again
 
     # one full-width forward through the kernels: finite logits of the
     # expected shape
@@ -1573,7 +1871,8 @@ def main() -> int:
     shapes = {name: {} for name in SERVE_KERNELS}
     paths = []
     for arch, serve_kw, prompt_lens in PATHS:
-        path = phase_serve(arch, serve_kw, prompt_lens)
+        path = phase_serve(arch, serve_kw, prompt_lens,
+                           depths=(1, 2) if arch == "llama3_8b" else (1,))
         paths.append(path)
         for name in SERVE_KERNELS:
             launches[name] += path["launches"][name]

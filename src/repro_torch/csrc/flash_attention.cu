@@ -54,9 +54,26 @@
 //   - a block skips the tiles no row of it can see (causal limit, window),
 //     and a split that no row of the block can see returns at once, so a
 //     windowed decode reads only the window's keys.
+//
+// The paged entry (flash_attention_h100_paged_launch) is the same kernel
+// over the serve path's KV pool: q [rows, h, sq, d], one layer's pools k, v
+// [num_blocks, page, hk, d] read in place through the block tables [rows,
+// nblk] (int32), and the rows' lengths [rows] (int32) read on the device,
+// so one launch covers every row of a layer and a CUDA graph can replay it
+// while the lengths and tables change.  Row r attends over its keys 0 ..
+// len[r] - 1, its sq queries ending at len[r] - 1; a row of length 0 reads
+// nothing and gives zeros.  The grid's y runs over (row, KV head); a key
+// tile's rows are gathered page by page through the table, each row by
+// 16-byte cp.async as in the dense entry.  The number of splits comes from
+// the pool (ceil(nblk * page / kv_chunk)), not from the lengths: a split
+// past a row's length returns at once and the combine reads only the splits
+// the row's own length reaches.  With f32 q and a bf16 pool (the f32 model
+// serves from the bf16 pool) the tiles are f32 and the pool's elements are
+// upcast as they are loaded.
 #include "common.cuh"
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -68,13 +85,36 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  float* ws;           // [nsplit][h][sq][D] acc, then [nsplit][h][sq][2] m, l
-  int h, hk, group, sq, sk, d;
+  float* ws;           // [nsplit][batch·h·sq][D] acc, then [..][2] m, l
+  int h, hk, group, sq, sk, d;   // paged: sk is the pool's nblk * page
   int bq, kv_chunk, stages, nsplit;
   float scale, inv_group;
   int causal, window;  // window 0: none
   int vec;             // 16-byte copies allowed for q, k, v
+  // paged entry only (dense: batch 1, no tables)
+  const int* tables;   // [batch][nblk]
+  const int* lens;     // [batch]
+  int batch, page, nblk, num_blocks;
 };
+
+// A row's key count: the dense entry's sk, or the paged row's length read
+// on the device, within 0 .. nblk * page.
+template <bool PAGED>
+__device__ __forceinline__ int row_keys(const Args& p, int b) {
+  if constexpr (PAGED) return min(max(__ldg(p.lens + b), 0), p.sk);
+  else return p.sk;
+}
+
+template <typename T, typename S>
+__device__ __forceinline__ T convert(S x) {
+  if constexpr (std::is_same<T, S>::value) {
+    return x;
+  } else {
+    T y;
+    from_f32(to_f32(x), &y);
+    return y;
+  }
+}
 
 // Physical 16-byte chunk of logical chunk c in row r (rows are >= 8 chunks).
 __device__ __forceinline__ int swz(int r, int c) { return c ^ (r & 7); }
@@ -292,13 +332,18 @@ __device__ __forceinline__ void store2(T* o, int col, int d, float x,
   }
 }
 
-template <typename T, int D, int BKV>
+template <typename T, typename KV, int D, int BKV, bool PAGED>
 __global__ void __launch_bounds__(256) flash_kernel(const Args p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr int EPC = 16 / sizeof(T), W = D / EPC;  // chunks a tile row
-  const T* Q = static_cast<const T*>(p.q);
-  const T* K = static_cast<const T*>(p.k);
-  const T* V = static_cast<const T*>(p.v);
+  constexpr bool SAME = std::is_same<T, KV>::value;
+  const int kvh = PAGED ? blockIdx.y % p.hk : blockIdx.y;
+  const int b = PAGED ? blockIdx.y / p.hk : 0;     // the paged row
+  const int sk = row_keys<PAGED>(p, b);
+  const size_t rb = (size_t)b * p.h * p.sq;        // the row's first q row
+  const T* Q = static_cast<const T*>(p.q) + rb * p.d;
+  const KV* K = static_cast<const KV*>(p.k);
+  const KV* V = static_cast<const KV*>(p.v);
   T* Qs = reinterpret_cast<T*>(smem_raw);                  // [bq][D]
   T* ring = Qs + p.bq * D;                                 // [stages][2][BKV][D]
   float* Ps = reinterpret_cast<float*>(ring + p.stages * 2 * BKV * D);
@@ -309,17 +354,17 @@ __global__ void __launch_bounds__(256) flash_kernel(const Args p) {
   const int nt = BKV / 8 / nkw, kofs = kw * nt * 8;
   const int rows = p.group * p.sq;
   const int r0 = blockIdx.x * p.bq;
-  const int kvh = blockIdx.y, z = blockIdx.z;
-  const int off = p.sk - p.sq;
+  const int z = blockIdx.z;
+  const int off = sk - p.sq;
 
   // keys any row of the block can see, within this split
   const int qi_lo = div_group(r0, p);
   const int qi_hi = div_group(min(r0 + p.bq, rows) - 1, p);
-  const int kend = p.causal ? min(p.sk, qi_hi + off + 1) : p.sk;
+  const int kend = p.causal ? min(sk, qi_hi + off + 1) : sk;
   const int kbeg = p.window > 0 ? max(0, qi_lo + off - p.window + 1) : 0;
   const int zs = z * p.kv_chunk;
   const int lo = max(kbeg, zs);
-  const int hi = min(kend, min(p.sk, zs + p.kv_chunk));
+  const int hi = min(kend, min(sk, zs + p.kv_chunk));
   if (p.nsplit > 1 && lo >= hi) return;     // the combine skips this split
   const int ntiles = hi > lo ? (hi - lo + BKV - 1) / BKV : 0;
 
@@ -336,8 +381,22 @@ __global__ void __launch_bounds__(256) flash_kernel(const Args p) {
     head[i] = kvh * p.group + (r - qi[i] * p.group);
     const int qpos = qi[i] + off;
     klo[i] = p.window > 0 ? qpos - p.window + 1 : 0;
-    khi[i] = p.causal ? qpos : p.sk - 1;
+    khi[i] = p.causal ? qpos : sk - 1;
   }
+
+  // element offset of key kp's row of this KV head in K and V: dense
+  // [hk][sk][d], paged [num_blocks][page][hk][d] through the row's table
+  // (an entry out of the pool is clamped into it, as a gather clamps)
+  const int* table = PAGED ? p.tables + (size_t)b * p.nblk : nullptr;
+  auto key_row = [&](int kp) -> size_t {
+    if constexpr (PAGED) {
+      const int blk = min(max(__ldg(table + kp / p.page), 0),
+                          p.num_blocks - 1);
+      return (((size_t)blk * p.page + kp % p.page) * p.hk + kvh) * p.d;
+    } else {
+      return ((size_t)kvh * p.sk + kp) * p.d;
+    }
+  };
 
   // a thread copies chunk lc of tile rows lr0, lr0 + rstep, ... (blockDim
   // is a multiple of W)
@@ -348,27 +407,28 @@ __global__ void __launch_bounds__(256) flash_kernel(const Args p) {
   auto load_tile = [&](int i, int part) {
     const int k0 = lo + i * BKV;
     T* Ks = ring + (i % p.stages) * 2 * BKV * D;
-    const T* kb = K + ((size_t)kvh * p.sk + k0) * p.d;
-    const T* vb = V + ((size_t)kvh * p.sk + k0) * p.d;
     const int n = hi - k0;
-    if (p.vec) {
-      for (int r = lr0; r < BKV; r += rstep) {
-        const bool ok = lc_ok && r < n;
-        const int at = r * p.d + lc * EPC;
-        const int dst = (r * W + (lc ^ (r & 7))) * EPC;
-        if (part & 1) cp_async16(Ks + dst, ok ? kb + at : K, ok);
-        if (part & 2) cp_async16(Ks + BKV * D + dst, ok ? vb + at : V, ok);
+    if constexpr (SAME) {
+      if (p.vec) {
+        for (int r = lr0; r < BKV; r += rstep) {
+          const bool ok = lc_ok && r < n;
+          const size_t at = ok ? key_row(k0 + r) + lc * EPC : 0;
+          const int dst = (r * W + (lc ^ (r & 7))) * EPC;
+          if (part & 1) cp_async16(Ks + dst, K + at, ok);
+          if (part & 2) cp_async16(Ks + BKV * D + dst, V + at, ok);
+        }
+        return;
       }
-    } else {
-      if (part & 1)
-        load_rows<T, D>(Ks, BKV, p.d, false, K, [&](int r) -> const T* {
-          return r < n ? kb + (size_t)r * p.d : nullptr;
-        });
-      if (part & 2)
-        load_rows<T, D>(Ks + BKV * D, BKV, p.d, false, V,
-                        [&](int r) -> const T* {
-                          return r < n ? vb + (size_t)r * p.d : nullptr;
-                        });
+    }
+    // element by element, upcast to the tiles' type where the pool's
+    // differs, masked, synchronously
+    for (int e = threadIdx.x; e < BKV * D; e += blockDim.x) {
+      const int r = e / D, c = e % D;
+      const bool ok = r < n && c < p.d;
+      const size_t at = ok ? key_row(k0 + r) + c : 0;
+      const int dst = (r * W + swz(r, c / EPC)) * EPC + c % EPC;
+      if (part & 1) Ks[dst] = ok ? convert<T>(K[at]) : T(0.f);
+      if (part & 2) Ks[BKV * D + dst] = ok ? convert<T>(V[at]) : T(0.f);
     }
   };
 
@@ -473,22 +533,22 @@ __global__ void __launch_bounds__(256) flash_kernel(const Args p) {
   }
   cp_async_wait<0>();
 
-  const size_t hsq = (size_t)p.h * p.sq;
+  const size_t hsq = (size_t)p.batch * p.h * p.sq;
   float* wacc = p.ws + (size_t)z * hsq * D;
   float* wml = p.ws + (size_t)p.nsplit * hsq * D + (size_t)z * hsq * 2;
+  T* const O = static_cast<T*>(p.o);
   if (nkw == 1) {
     // one split: O = acc / l; else this split's m, l and acc to the
     // workspace
 #pragma unroll
     for (int i2 = 0; i2 < 2; ++i2) {
       if (!live[i2]) continue;
-      const size_t row = (size_t)head[i2] * p.sq + qi[i2];
+      const size_t row = rb + (size_t)head[i2] * p.sq + qi[i2];
       if (p.nsplit == 1) {
-        T* O = static_cast<T*>(p.o) + row * p.d;
         const float inv = l[i2] > 0.f ? 1.f / l[i2] : 0.f;
 #pragma unroll
         for (int c = 0; c < D / 8; ++c)
-          store2(O, c * 8 + q2, p.d, acc[c][2 * i2] * inv,
+          store2(O + row * p.d, c * 8 + q2, p.d, acc[c][2 * i2] * inv,
                  acc[c][2 * i2 + 1] * inv);
       } else {
 #pragma unroll
@@ -543,7 +603,7 @@ __global__ void __launch_bounds__(256) flash_kernel(const Args p) {
     } else if (r < rows) {
       const int qq = div_group(r, p);
       const size_t row =
-          (size_t)(kvh * p.group + (r - qq * p.group)) * p.sq + qq;
+          rb + (size_t)(kvh * p.group + (r - qq * p.group)) * p.sq + qq;
       *reinterpret_cast<float2*>(wml + row * 2) = make_float2(top, big);
     }
   }
@@ -563,10 +623,10 @@ __global__ void __launch_bounds__(256) flash_kernel(const Args p) {
       y += a.y * e;
     }
     const int qq = div_group(r, p);
-    const size_t row = (size_t)(kvh * p.group + (r - qq * p.group)) * p.sq +
-                       qq;
+    const size_t row =
+        rb + (size_t)(kvh * p.group + (r - qq * p.group)) * p.sq + qq;
     if (p.nsplit == 1)
-      store2(static_cast<T*>(p.o) + row * p.d, col, p.d, x, y);
+      store2(O + row * p.d, col, p.d, x, y);
     else
       *reinterpret_cast<float2*>(wacc + row * D + col) = make_float2(x, y);
   }
@@ -615,17 +675,23 @@ __device__ __forceinline__ float2 combine_splits(const float* wacc,
   return make_float2(L, acc);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAGED>
 __global__ void __launch_bounds__(kCombineThreads)
     combine_kernel(const Args p) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t hsq = (size_t)p.h * p.sq;
+  const size_t hsq = (size_t)p.batch * p.h * p.sq;
   if (idx >= (long long)hsq * p.d) return;
-  const size_t row = idx / p.d;
+  const size_t row = idx / p.d;            // [batch][h][sq]
   const int col = (int)(idx % p.d);
-  const int qpos = (int)(row % p.sq) + p.sk - p.sq;
+  const int sk = row_keys<PAGED>(p, (int)(row / ((size_t)p.h * p.sq)));
+  const int qpos = (int)(row % p.sq) + sk - p.sq;
   const int klo = p.window > 0 ? max(0, qpos - p.window + 1) : 0;
-  const int khi = p.causal ? qpos : p.sk - 1;
+  const int khi = min(p.causal ? qpos : sk - 1, sk - 1);
+  T* out = static_cast<T*>(p.o) + row * p.d + col;
+  if (khi < klo) {                         // a paged row that sees no key
+    from_f32(0.f, out);
+    return;
+  }
   const float* wml = p.ws + (size_t)p.nsplit * hsq * D;
   // the splits the row sees: z0 <= z < z1
   const int z0 = klo / p.kv_chunk, z1 = min(p.nsplit, khi / p.kv_chunk + 1);
@@ -634,8 +700,7 @@ __global__ void __launch_bounds__(kCombineThreads)
       n > 16  ? combine_splits<D, 32>(p.ws, wml, hsq, row, col, z0, z1)
       : n > 4 ? combine_splits<D, 16>(p.ws, wml, hsq, row, col, z0, z1)
               : combine_splits<D, 4>(p.ws, wml, hsq, row, col, z0, z1);
-  from_f32(la.x > 0.f ? la.y / la.x : 0.f,
-           static_cast<T*>(p.o) + row * p.d + col);
+  from_f32(la.x > 0.f ? la.y / la.x : 0.f, out);
 }
 
 // Shared memory: the Q tile, then the ring (and for f32 each warp's row of
@@ -651,37 +716,49 @@ size_t smem_bytes(int bq, int stages) {
   return sizeof(T) * (size_t)bq * D + (ring > combine ? ring : combine);
 }
 
-template <typename T, int D, int BKV>
+template <typename T, typename KV, int D, int BKV, bool PAGED>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
-  auto kernel = flash_kernel<T, D, BKV>;
+  auto kernel = flash_kernel<T, KV, D, BKV, PAGED>;
   const size_t smem = smem_bytes<T, D, BKV>(p.bq, p.stages);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   static size_t granted[kMaxDevices] = {};
   cudaError_t err = allow_smem_once(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.group * p.sq + p.bq - 1) / p.bq, p.hk, p.nsplit);
+  const dim3 grid((p.group * p.sq + p.bq - 1) / p.bq, p.hk * p.batch,
+                  p.nsplit);
   kernel<<<grid, 32 * (p.bq / 16) * key_warps(p.bq, BKV), smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return err;
-  const long long n = (long long)p.h * p.sq * p.d;
-  combine_kernel<T, D><<<(unsigned)((n + kCombineThreads - 1) /
-                                    kCombineThreads),
-                         kCombineThreads, 0, stream>>>(p);
+  const long long n = (long long)p.batch * p.h * p.sq * p.d;
+  combine_kernel<T, D, PAGED><<<(unsigned)((n + kCombineThreads - 1) /
+                                           kCombineThreads),
+                                kCombineThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename KV, bool PAGED, int D>
 cudaError_t by_bkv(const Args& p, int bkv, cudaStream_t st) {
   switch (bkv) {
-    case 32: return launch<T, D, 32>(p, st);
-    case 64: return launch<T, D, 64>(p, st);
+    case 32: return launch<T, KV, D, 32, PAGED>(p, st);
+    case 64: return launch<T, KV, D, 64, PAGED>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
+template <typename T, typename KV, bool PAGED>
 cudaError_t by_dim(const Args& p, int bkv, cudaStream_t st) {
-  return p.d <= 64 ? by_bkv<T, 64>(p, bkv, st) : by_bkv<T, 128>(p, bkv, st);
+  return p.d <= 64 ? by_bkv<T, KV, PAGED, 64>(p, bkv, st)
+                   : by_bkv<T, KV, PAGED, 128>(p, bkv, st);
+}
+
+bool format_ok(int h, int hk, int sq, int d, int bq, int bkv, int kv_chunk,
+               int stages, int elem) {
+  return h > 0 && hk > 0 && h % hk == 0 && sq > 0 && d > 0 && d <= 128 &&
+         (bq == 16 || bq == 32 || bq == 64 || bq == 128) &&
+         (bkv == 32 || bkv == 64) && kv_chunk > 0 && kv_chunk % bkv == 0 &&
+         stages >= 2 && stages <= 4 &&
+         (elem == ELEM_F32 || elem == ELEM_BF16) &&
+         (long long)(h / hk) * sq < (1 << 24);
 }
 
 bool aligned16(const void* x) {
@@ -701,22 +778,57 @@ extern "C" int flash_attention_h100_launch(
     const void* q, const void* k, const void* v, void* o, void* ws, int h,
     int hk, int sq, int sk, int d, int bq, int bkv, int kv_chunk, int stages,
     float scale, int causal, int window, int elem, void* stream) {
-  if (h <= 0 || hk <= 0 || h % hk != 0 || sq <= 0 || sk < sq || d <= 0 ||
-      d > 128 || (bq != 16 && bq != 32 && bq != 64 && bq != 128) ||
-      (bkv != 32 && bkv != 64) || kv_chunk <= 0 || kv_chunk % bkv != 0 ||
-      stages < 2 || stages > 4 || hk > kMaxGridYZ ||
-      (elem != ELEM_F32 && elem != ELEM_BF16))
+  if (!format_ok(h, hk, sq, d, bq, bkv, kv_chunk, stages, elem) || sk < sq ||
+      hk > kMaxGridYZ)
     return cudaErrorInvalidValue;
   const int nsplit = (sk + kv_chunk - 1) / kv_chunk;
-  if (nsplit > kMaxGridYZ || (nsplit > 1 && ws == nullptr) ||
-      (long long)(h / hk) * sq >= (1 << 24))
+  if (nsplit > kMaxGridYZ || (nsplit > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   const int epc = elem == ELEM_BF16 ? 8 : 4;
   Args p{q, k, v, o, static_cast<float*>(ws), h, hk, h / hk, sq, sk, d, bq,
          kv_chunk, stages, nsplit, scale, 1.f / (h / hk), causal,
          window > 0 ? window : 0,
-         d % epc == 0 && aligned16(q) && aligned16(k) && aligned16(v)};
+         d % epc == 0 && aligned16(q) && aligned16(k) && aligned16(v),
+         nullptr, nullptr, 1, 0, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return elem == ELEM_BF16 ? by_dim<__nv_bfloat16>(p, bkv, st)
-                           : by_dim<float>(p, bkv, st);
+  return elem == ELEM_BF16 ? by_dim<__nv_bfloat16, __nv_bfloat16, false>(
+                                 p, bkv, st)
+                           : by_dim<float, float, false>(p, bkv, st);
+}
+
+// The paged entry: q, o [rows][h][sq][d] (elem), the pools k, v
+// [num_blocks][page][hk][d] (kv_elem: bf16 under either q, or f32 under
+// f32 q), tables [rows][nblk] and lens [rows] int32 on the device.  Takes
+// the dense entry's formats with sq <= nblk * page in place of sq <= sk,
+// at most 65,535 (row, KV head) pairs, and a pool of at most 2^31 - 1
+// positions (kernels/flash_attention.py: format_error mirrors the checks).
+extern "C" int flash_attention_h100_paged_launch(
+    const void* q, const void* k, const void* v, void* o, void* ws,
+    const void* tables, const void* lens, int rows, int h, int hk, int sq,
+    int d, int num_blocks, int page, int nblk, int bq, int bkv, int kv_chunk,
+    int stages, float scale, int causal, int window, int elem, int kv_elem,
+    void* stream) {
+  if (!format_ok(h, hk, sq, d, bq, bkv, kv_chunk, stages, elem) ||
+      rows <= 0 || num_blocks <= 0 || page <= 0 || nblk <= 0 ||
+      (long long)nblk * page > 0x7fffffffLL || sq > nblk * page ||
+      (long long)hk * rows > kMaxGridYZ || tables == nullptr ||
+      lens == nullptr || (kv_elem != ELEM_F32 && kv_elem != ELEM_BF16) ||
+      (elem == ELEM_BF16 && kv_elem != ELEM_BF16))
+    return cudaErrorInvalidValue;
+  const int keys = nblk * page;
+  const int nsplit = (keys + kv_chunk - 1) / kv_chunk;
+  if (nsplit > kMaxGridYZ || (nsplit > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
+  const int epc = elem == ELEM_BF16 ? 8 : 4;
+  Args p{q, k, v, o, static_cast<float*>(ws), h, hk, h / hk, sq, keys, d,
+         bq, kv_chunk, stages, nsplit, scale, 1.f / (h / hk), causal,
+         window > 0 ? window : 0,
+         d % epc == 0 && aligned16(q) && aligned16(k) && aligned16(v),
+         static_cast<const int*>(tables), static_cast<const int*>(lens), rows,
+         page, nblk, num_blocks};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (elem == ELEM_BF16)
+    return by_dim<__nv_bfloat16, __nv_bfloat16, true>(p, bkv, st);
+  return kv_elem == ELEM_BF16 ? by_dim<float, __nv_bfloat16, true>(p, bkv, st)
+                              : by_dim<float, float, true>(p, bkv, st);
 }

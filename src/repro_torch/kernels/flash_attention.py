@@ -24,14 +24,23 @@ of ``stages`` tiles of ``bkv`` keys, and splits the keys into runs of
 (see the note in the CUDA source).  The number of splits comes from each
 call's own sk, so decode steps with a growing cache share one dispatch key.
 
+The paged entry (:func:`flash_attention_h100_paged`) is the same kernel over
+the serve path's KV pool: q [rows, h, sq, d], one layer's pools [num_blocks,
+page, hk, d] read in place through device block tables [rows, nblk], and the
+rows' lengths [rows] on the device, one launch a layer for every row.  Row r
+attends over keys 0 .. len[r] − 1 with its queries ends-aligned at
+len[r] − 1; a row of length 0 gives zeros.  Its number of splits comes from
+the pool (ceil(nblk · page / kv_chunk)), so a CUDA graph can replay it while
+the lengths change.  A bf16 pool serves f32 q too, upcast as it is loaded.
+
 Program parameters:  bq (packed rows a block, 16 a warp), bkv (keys a
                      tile), kv_chunk (keys a split), stages (ring depth)
 Data parameters:     SQ, HD, GROUP (query heads a KV head), HK (KV heads)
 Machine parameters:  V (shared bytes a block), T (threads a block),
                      G (registers a thread), LANE, CORES
 
-The split workspace (f32 partials) is one per device, grows on demand and
-is used by one launch at a time: the port launches on one stream.
+The split workspace (f32 partials) is one per device (:mod:`.workspace`):
+it grows on demand until a captured CUDA graph holds it.
 """
 from __future__ import annotations
 
@@ -50,12 +59,19 @@ from ..core.polynomial import Poly, V
 from ..core.strategies import Strategy
 from . import build
 from .instantiate_cache import CachedInstantiationMixin
+from .workspace import Workspace
 
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
 #: flash_attention_h100_launch(q, k, v, o, ws, h, hk, sq, sk, d, bq, bkv,
 #: kv_chunk, stages, scale, causal, window, elem, stream)
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_float,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+#: flash_attention_h100_paged_launch(q, k, v, o, ws, tables, lens, rows, h,
+#: hk, sq, d, num_blocks, page, nblk, bq, bkv, kv_chunk, stages, scale,
+#: causal, window, elem, kv_elem, stream)
+_PAGED_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 12
+                   + (ctypes.c_float,) + (ctypes.c_int,) * 4
+                   + (ctypes.c_void_p,))
 #: The C entry point's limits (``csrc/flash_attention.cu``).
 MAX_HD = 128
 MAX_SMEM = 232_448
@@ -120,69 +136,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           stages: int = 2, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's arithmetic.  Each split of
-    ``kv_chunk`` keys walks its tiles of ``bkv`` keys in order with the
-    online softmax (running max ``m``, sum ``l``, ``acc``, all f32, scores
-    q·k scaled after the product), masking keys past the causal limit,
-    before the window and at or past ``sk``; then the splits' (m, l, acc)
-    are combined in split order: M = max m_z, O = Σ acc_z·e^(m_z − M) /
-    Σ l_z·e^(m_z − M).  One split: O = acc / l.  K/V are [hk, sk, d] and
-    query head i reads KV head i // (h/hk).  ``bq`` and ``stages`` shape the
-    launch only and are taken and ignored."""
-    h, sq, d = q.shape
-    hk, sk = k.shape[0], k.shape[1]
-    group = h // hk
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    """Plain PyTorch version of the dense entry: q [h, sq, d] over K/V
+    [hk, sk, d] (query head i reads KV head i // (h/hk)) is the paged plain
+    version (:func:`flash_attention_paged_plain`) over a pool of one block
+    that holds all sk keys, one row of length sk: the same splits of
+    ``kv_chunk`` keys, tiles of ``bkv``, masks and split-order combine.
+    ``bq`` and ``stages`` shape the launch only and are taken and
+    ignored."""
     dev = q.device
-    qf = q.float()
-    kf = k.float().repeat_interleave(group, dim=0)
-    vf = v.float().repeat_interleave(group, dim=0)
-    qpos = torch.arange(sq, device=dev) + sk - sq
-    parts = []
-    for run in splits(sk, kv_chunk):
-        m = torch.full((h, sq, 1), -math.inf, device=dev)
-        l = torch.zeros((h, sq, 1), device=dev)
-        acc = torch.zeros((h, sq, d), device=dev)
-        for k0 in range(run.start, run.stop, bkv):
-            k1 = min(run.stop, k0 + bkv)
-            kidx = torch.arange(k0, k1, device=dev)
-            mask = torch.ones((sq, k1 - k0), dtype=torch.bool, device=dev)
-            if causal:
-                mask &= kidx[None, :] <= qpos[:, None]
-            if window is not None:
-                mask &= kidx[None, :] > qpos[:, None] - window
-            if not bool(mask.any()):
-                continue
-            s = (qf @ kf[:, k0:k1].transpose(1, 2)) * scale
-            s = s.masked_fill(~mask, -math.inf)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            m_safe = torch.where(m_new == -math.inf, 0.0, m_new)
-            p = torch.exp(s - m_safe)
-            corr = torch.exp(m - m_safe)
-            l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p @ vf[:, k0:k1]
-            m = m_new
-        parts.append((m, l, acc))
-    if len(parts) == 1:
-        m, l, acc = parts[0]
-        return (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
-    top = parts[0][0]
-    for m, _, _ in parts[1:]:
-        top = torch.maximum(top, m)
-    big = torch.zeros((h, sq, 1), device=dev)
-    out = torch.zeros((h, sq, d), device=dev)
-    for m, l, acc in parts:
-        e = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
-        big = big + l * e
-        out = out + acc * e
-    return (out / torch.where(big > 0, big, 1.0)).to(q.dtype)
+    one = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    sk = torch.full((1,), k.shape[1], dtype=torch.int32, device=dev)
+    return flash_attention_paged_plain(
+        q[None], k.transpose(0, 1)[None], v.transpose(0, 1)[None], one, sk,
+        bq=bq, bkv=bkv, kv_chunk=kv_chunk, stages=stages, causal=causal,
+        window=window, scale=scale)[0]
 
 
 def format_error(h: int, hk: int, sq: int, sk: int, d: int, bq: int,
                  bkv: int, kv_chunk: int, stages: int,
-                 dtype: torch.dtype) -> Optional[str]:
+                 dtype: torch.dtype, *, rows: int = 1,
+                 kv_dtype: Optional[torch.dtype] = None) -> Optional[str]:
     """Why ``flash_attention_h100_launch`` refuses this launch, or None: the
-    C entry point's checks (``csrc/flash_attention.cu``) in Python."""
+    C entry point's checks (``csrc/flash_attention.cu``) in Python.  For the
+    paged entry pass ``rows`` and the pool's ``kv_dtype``, with sk = nblk ·
+    page."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
     checks = [
         (h > 0 and hk > 0 and h % hk == 0, "h not a multiple of hk"),
         (0 < sq <= sk, "not 1 <= sq <= sk"),
@@ -194,18 +172,23 @@ def format_error(h: int, hk: int, sq: int, sk: int, d: int, bq: int,
          "kv_chunk not a positive multiple of bkv"),
         (stages in STAGES, f"stages not in {STAGES}"),
         (dtype in _ELEM, "not f32 or bf16"),
+        (kv_dtype in _ELEM and (kv_dtype == dtype
+                                or kv_dtype == torch.bfloat16),
+         "K/V neither q's type nor a bf16 pool"),
+        (rows > 0 and sk < 1 << 31, "no rows, or a pool of 2^31 keys"),
     ]
     for ok, why in checks:
         if not ok:
             return why
-    if hk > MAX_GRID_YZ or -(-sk // kv_chunk) > MAX_GRID_YZ:
-        return "more than 65,535 KV heads or splits"
+    if hk * rows > MAX_GRID_YZ or -(-sk // kv_chunk) > MAX_GRID_YZ:
+        return "more than 65,535 (row, KV head) pairs or splits"
     if smem_bytes(bq, bkv, stages, d, dtype) > MAX_SMEM:
         return "tiles larger than 232,448 bytes"
     return None
 
 
-_WORKSPACE = {}                  # device -> f32 split partials
+PARTIALS = Workspace("flash_attention_h100 split partials", torch.float32,
+                     1 << 20)
 
 
 @functools.cache
@@ -215,14 +198,18 @@ def _entry() -> Callable[..., int]:
                        _ARGTYPES)
 
 
-def workspace(device: torch.device, floats: int) -> torch.Tensor:
-    """The device's split workspace, grown to at least ``floats`` f32."""
-    ws = _WORKSPACE.get(device)
-    if ws is None or ws.numel() < floats:
-        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
-                         device=device)
-        _WORKSPACE[device] = ws
-    return ws
+@functools.cache
+def _paged_entry() -> Callable[..., int]:
+    return build.entry("flash_attention", "flash_attention_h100_paged_launch",
+                       _PAGED_ARGTYPES)
+
+
+def workspace_need(rows: int, h: int, sq: int, sk: int, d: int,
+                   kv_chunk: int) -> int:
+    """f32 partials a launch over ``rows`` rows of h x sq queries and sk keys
+    (the paged entry: the pool's nblk · page) needs: none for one split."""
+    nsplit = -(-sk // kv_chunk)
+    return nsplit * rows * h * sq * (tile_dim(d) + 2) if nsplit > 1 else 0
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, bq: int,
@@ -250,10 +237,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, bq: int,
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     dev = q.device
     o = torch.empty_like(q)
-    nsplit = -(-sk // kv_chunk) if kv_chunk > 0 else 0
-    ws = None
-    if nsplit > 1:
-        ws = workspace(dev, nsplit * h * sq * (tile_dim(d) + 2)).data_ptr()
+    need = workspace_need(1, h, sq, sk, d, kv_chunk) if kv_chunk > 0 else 0
+    ws = PARTIALS.get(dev, need).data_ptr() if need else None
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    ws, h, hk, sq, sk, d, bq, bkv, kv_chunk, stages, scale,
                    int(causal), int(window) if window is not None else 0,
@@ -285,6 +270,172 @@ def flash_attention_h100(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_h100.launches = 0
 flash_attention_h100.shapes = collections.Counter()
+
+
+def flash_attention_paged_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, tables: torch.Tensor,
+                                lens: torch.Tensor, *, bq: int, bkv: int,
+                                kv_chunk: int, stages: int = 2,
+                                causal: bool = True,
+                                window: Optional[int] = None,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's arithmetic, over every row at
+    once and with the lengths read from the tensor on its device (no host
+    read).  Each row's table gathers its nblk · page keys out of the pools
+    (upcast to f32 whatever their type), and keys at or past the row's
+    length are masked and zeroed, so nothing a block past the length holds
+    can reach the sums.  Each split of ``kv_chunk`` keys walks its tiles of
+    ``bkv`` keys in order with the online softmax (running max ``m``, sum
+    ``l``, ``acc``, all f32, scores q·k scaled after the product), masking
+    keys past the causal limit, before the window and at or past the
+    length; then the splits' (m, l, acc) are combined in split order: M =
+    max m_z, O = Σ acc_z·e^(m_z − M) / Σ l_z·e^(m_z − M).  One split: O =
+    acc / l.  A row of length 0 gives zeros.  q [rows, h, sq, d], k, v
+    [num_blocks, page, hk, d], tables [rows, nblk], lens [rows]; query head
+    i reads KV head i // (h/hk).  ``bq`` and ``stages`` shape the launch
+    only and are taken and ignored."""
+    rows, h, sq, d = q.shape
+    page, hk = k.shape[1], k.shape[2]
+    nblk = tables.shape[1]
+    keys = nblk * page
+    group = h // hk
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    dev = q.device
+    blk = tables.long().clamp(0, k.shape[0] - 1)
+    lens = lens.long().clamp(0, keys)[:, None, None, None]   # [rows,1,1,1]
+    kpos = torch.arange(keys, device=dev)
+    valid = (kpos[None, :] < lens[:, 0, 0])[:, None, :, None]
+
+    def gather(pool):
+        x = pool[blk].reshape(rows, keys, hk, d).permute(0, 2, 1, 3).float()
+        return x.masked_fill(~valid, 0.0).repeat_interleave(group, dim=1)
+
+    kf, vf = gather(k), gather(v)                         # [rows, h, keys, d]
+    qf = q.float()
+    qpos = torch.arange(sq, device=dev)[:, None] + lens - sq  # [rows,1,sq,1]
+    parts = []
+    for run in splits(keys, kv_chunk):
+        m = torch.full((rows, h, sq, 1), -math.inf, device=dev)
+        l = torch.zeros((rows, h, sq, 1), device=dev)
+        acc = torch.zeros((rows, h, sq, d), device=dev)
+        for k0 in range(run.start, run.stop, bkv):
+            k1 = min(run.stop, k0 + bkv)
+            kidx = kpos[k0:k1]
+            mask = kidx < lens                            # [rows,1,1,bk]
+            if causal:
+                mask = mask & (kidx <= qpos)
+            if window is not None:
+                mask = mask & (kidx > qpos - window)
+            s = (qf @ kf[:, :, k0:k1].transpose(-1, -2)) * scale
+            s = s.masked_fill(~mask, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            m_safe = torch.where(m_new == -math.inf, 0.0, m_new)
+            p = torch.exp(s - m_safe)
+            corr = torch.exp(m - m_safe)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p @ vf[:, :, k0:k1]
+            m = m_new
+        parts.append((m, l, acc))
+    if len(parts) == 1:
+        m, l, acc = parts[0]
+        return (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
+    top = parts[0][0]
+    for m, _, _ in parts[1:]:
+        top = torch.maximum(top, m)
+    big = torch.zeros((rows, h, sq, 1), device=dev)
+    out = torch.zeros((rows, h, sq, d), device=dev)
+    for m, l, acc in parts:
+        e = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
+        big = big + l * e
+        out = out + acc * e
+    return (out / torch.where(big > 0, big, 1.0)).to(q.dtype)
+
+
+def _launch_paged(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  tables: torch.Tensor, lens: torch.Tensor, *, bq: int,
+                  bkv: int, kv_chunk: int, stages: int = 2,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    dev = q.device
+    if not (q.is_cuda and all(t.device == dev
+                              for t in (k, v, tables, lens))):
+        raise ValueError("flash_attention_h100 paged kernel needs q, the "
+                         "pools, the tables and the lengths on one CUDA "
+                         "device")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[3] != q.shape[3] or tables.dim() != 2 \
+            or tables.shape[0] != q.shape[0] \
+            or tuple(lens.shape) != (q.shape[0],) or k.shape[2] == 0 \
+            or q.shape[1] % k.shape[2]:
+        raise ValueError(f"flash_attention_h100 paged: bad shapes "
+                         f"q{tuple(q.shape)} k{tuple(k.shape)} "
+                         f"v{tuple(v.shape)} tables{tuple(tables.shape)} "
+                         f"lens{tuple(lens.shape)}")
+    rows, h, sq, d = q.shape
+    num_blocks, page, hk = k.shape[:3]
+    nblk = tables.shape[1]
+    if q.dtype not in _ELEM or k.dtype != v.dtype or k.dtype not in _ELEM \
+            or tables.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise TypeError(f"flash_attention_h100 paged takes f32 or bf16 q "
+                        f"and pools and int32 tables and lengths: {q.dtype}"
+                        f", {k.dtype}, {tables.dtype}, {lens.dtype}")
+    if not all(t.is_contiguous() for t in (q, k, v, tables, lens)):
+        raise ValueError("flash_attention_h100 paged needs contiguous q, "
+                         "pools, tables and lengths")
+    why = format_error(h, hk, sq, nblk * page, d, bq, bkv, kv_chunk, stages,
+                       q.dtype, rows=rows, kv_dtype=k.dtype)
+    if why:
+        raise ValueError(f"flash_attention_h100 paged: {why}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    need = workspace_need(rows, h, sq, nblk * page, d, kv_chunk)
+    ws = PARTIALS.get(dev, need).data_ptr() if need else None
+    err = _paged_entry()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ws,
+        tables.data_ptr(), lens.data_ptr(), rows, h, hk, sq, d, num_blocks,
+        page, nblk, bq, bkv, kv_chunk, stages, scale, int(causal),
+        int(window) if window is not None else 0, _ELEM[q.dtype],
+        _ELEM[k.dtype], torch._C._cuda_getCurrentRawStream(dev.index))
+    if err:
+        build.check(err, f"flash_attention_h100 paged(bq={bq}, bkv={bkv}, "
+                         f"kv_chunk={kv_chunk}, stages={stages})")
+    flash_attention_h100.launches += 1
+    flash_attention_h100.shapes[paged_signature(
+        q, k, tables, bq=bq, bkv=bkv, kv_chunk=kv_chunk, stages=stages,
+        causal=causal, window=window)] += 1
+    return o
+
+
+def paged_signature(q: torch.Tensor, k: torch.Tensor, tables: torch.Tensor,
+                    *, bq: int, bkv: int, kv_chunk: int, stages: int,
+                    causal: bool, window: Optional[int]) -> tuple:
+    """A paged launch's key in ``flash_attention_h100.shapes``: ("paged",
+    rows, h, hk, sq, nblk · page, d, page, bq, bkv, kv_chunk, stages,
+    causal, window, q's dtype, the pool's dtype).  The lengths are on the
+    device and are not in it."""
+    rows, h, sq, d = q.shape
+    page, hk = k.shape[1], k.shape[2]
+    return ("paged", rows, h, hk, sq, tables.shape[1] * page, d, page, bq,
+            bkv, kv_chunk, stages, bool(causal), window, q.dtype, k.dtype)
+
+
+def flash_attention_h100_paged(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, tables: torch.Tensor,
+                               lens: torch.Tensor, *, bq: int, bkv: int,
+                               kv_chunk: int, stages: int = 2,
+                               causal: bool = True,
+                               window: Optional[int] = None,
+                               scale: Optional[float] = None
+                               ) -> torch.Tensor:
+    """The paged entry: CUDA tensors launch the kernel (or raise); CPU
+    tensors run :func:`flash_attention_paged_plain`.  A launch counts in
+    ``flash_attention_h100.launches`` and under :func:`paged_signature` in
+    ``flash_attention_h100.shapes``."""
+    fn = (flash_attention_paged_plain if q.device.type == "cpu"
+          else _launch_paged)
+    return fn(q, k, v, tables, lens, bq=bq, bkv=bkv, kv_chunk=kv_chunk,
+              stages=stages, causal=causal, window=window, scale=scale)
 
 
 # =============================================================================
@@ -441,9 +592,15 @@ class FlashAttentionH100Family(CachedInstantiationMixin):
 
     def _build(self, plan: KernelPlan, assignment: Mapping[str, int],
                device: str = "cuda") -> Callable:
-        fn = _launch if device == "cuda" else flash_attention_plain
-        return functools.partial(fn, **{n: int(assignment[n])
-                                        for n in _DOMAINS})
+        """The dense entry bound to the leaf's parameters; its ``paged``
+        attribute is the paged entry bound to the same."""
+        kw = {n: int(assignment[n]) for n in _DOMAINS}
+        cuda = device == "cuda"
+        fn = functools.partial(_launch if cuda else flash_attention_plain,
+                               **kw)
+        fn.paged = functools.partial(
+            _launch_paged if cuda else flash_attention_paged_plain, **kw)
+        return fn
 
 
 FAMILY = FlashAttentionH100Family()

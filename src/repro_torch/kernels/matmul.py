@@ -25,9 +25,9 @@ Data parameters:     M, N, K
 Machine parameters:  V (shared bytes a block), G (registers a thread),
                      T (threads a block), CORES (SMs)
 
-The split-K workspace (f32 partials and per-tile tickets) is one per device,
-grows on demand and is used by one launch at a time: the port launches on
-one stream.
+The split-K workspace (f32 partials and per-tile tickets) is one per device
+(:mod:`.workspace`): it grows on demand until a captured CUDA graph holds
+it, and :func:`workspace_need` says what a launch needs.
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ from ..core.polynomial import Poly, V
 from ..core.strategies import Strategy
 from . import build
 from .instantiate_cache import CachedInstantiationMixin
+from .workspace import Workspace
 
 #: Shared-memory bytes a staged element takes in the counters: the widest
 #: input type (f32), so a leaf chosen for a triple launches for either type.
@@ -123,7 +124,10 @@ def format_error(M: int, N: int, K: int, bm: int, bn: int, bk: int, s: int,
     return None
 
 
-_WORKSPACE = {}                  # device -> (f32 partials, int32 tickets)
+PARTIALS = Workspace("matmul_h100 split-K partials", torch.float32, 1 << 20)
+#: Tickets are zeroed when allocated; each launch leaves them at 0.
+TICKETS = Workspace("matmul_h100 split-K tickets", torch.int32, 1 << 12,
+                    zeroed=True)
 
 
 @functools.cache
@@ -132,20 +136,12 @@ def _entry() -> Callable[..., int]:
     return build.entry("matmul", "matmul_h100_launch", _ARGTYPES)
 
 
-def workspace(device: torch.device, floats: int, tiles: int
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The device's split-K workspace, grown to at least ``floats`` f32
-    partials and ``tiles`` tickets.  Tickets are zeroed when allocated; each
-    launch leaves them at 0."""
-    part, tick = _WORKSPACE.get(device, (None, None))
-    if part is None or part.numel() < floats:
-        part = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
-                           device=device)
-    if tick is None or tick.numel() < tiles:
-        tick = torch.zeros(max(tiles, 1 << 12), dtype=torch.int32,
-                           device=device)
-    _WORKSPACE[device] = (part, tick)
-    return part, tick
+def workspace_need(M: int, N: int, *, bm: int, bn: int, kb: int = 1,
+                   **_) -> Tuple[int, int]:
+    """(f32 partials, tickets) a launch at M x N with this format needs."""
+    if kb <= 1:
+        return 0, 0
+    return kb * M * N, -(-M // max(bm, 1)) * -(-N // max(bn, 1))
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
@@ -168,9 +164,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
     c = torch.empty((M, N), dtype=torch.float32, device=dev)
     ws = tickets = None
     if kb > 1:
-        part, tick = workspace(dev, kb * M * N,
-                               -(-M // max(bm, 1)) * -(-N // max(bn, 1)))
-        ws, tickets = part.data_ptr(), tick.data_ptr()
+        floats, tiles = workspace_need(M, N, bm=bm, bn=bn, kb=kb)
+        ws = PARTIALS.get(dev, floats).data_ptr()
+        tickets = TICKETS.get(dev, tiles).data_ptr()
     err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), ws, tickets,
                    M, N, K, bm, bn, bk, s, kb, stages, int(cached),
                    _ELEM[a.dtype], torch._C._cuda_getCurrentRawStream(

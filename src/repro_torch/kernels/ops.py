@@ -91,6 +91,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return fn(q, k, v, causal=causal, window=window)
 
 
+def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    tables: torch.Tensor, lens: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    machine: MachineDescription = H100_SXM) -> torch.Tensor:
+    """Attention of q [rows, h, sq, d] over one layer's KV pools k, v
+    [num_blocks, page, hk, d], read through the block tables [rows, nblk]
+    (int32) up to each row's length ``lens`` [rows] (int32, on the device),
+    queries ends-aligned at len − 1 (K2's paged entry, one launch for all
+    rows).  Keyed on (SQ, HD, GROUP, HK) as :func:`flash_attention`, through
+    the same frozen lane."""
+    h, d = q.shape[1], q.shape[3]
+    hk = k.shape[2]
+    fn = get_default_cache().warm_callable(
+        FLASH_FAMILY, machine,
+        (("SQ", q.shape[2]), ("HD", d), ("GROUP", h // hk), ("HK", hk)),
+        q.device.type)
+    return fn.paged(q, k, v, tables, lens, causal=causal, window=window)
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
              out_state: Optional[torch.Tensor] = None,

@@ -7,10 +7,11 @@
 
 ``--arch`` takes llama3-8b, mamba2-130m or hymba-1.5b.
 
-The options of the JAX launcher that this slice does not serve yet
-(``--prefix-sharing``, ``--async-depth`` above 1, ``--monitor``,
-``--degrade``, ``--plan-dir``/``--strict-plans``, ``--trace``) are accepted
-and refused by the engine with the slice they wait for.
+``--async-depth`` keeps that many ticks in flight (1: synchronous).  The
+options of the JAX launcher that the port does not serve yet
+(``--prefix-sharing``, ``--monitor``, ``--degrade``,
+``--plan-dir``/``--strict-plans``, ``--trace``) are accepted and refused by
+the engine with the slice they wait for.
 """
 from __future__ import annotations
 

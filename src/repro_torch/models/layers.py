@@ -4,7 +4,8 @@ Parameters are plain dicts of tensors with the JAX package's names and
 layouts (``wq`` is [d_model, heads·hd], ...), so a JAX pytree converts leaf
 for leaf (:mod:`repro_torch.convert`).  Every projection goes through
 ``ops.matmul`` (K1), every attention core through ``ops.flash_attention``
-(K2) and every SSD core through ``ops.ssd_scan`` (K3): the design the JAX
+or, over the paged pool, ``ops.paged_attention`` (K2), and every SSD core
+through ``ops.ssd_scan`` (K3): the design the JAX
 layers state and their warm set traces, although their forward is einsum
 on every backend (ROADMAP F3).  The port is held against that einsum math.
 
@@ -14,7 +15,7 @@ the SwiGLU MLP, embed and unembed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -82,7 +83,7 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_index: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
-              spans: Optional[Sequence[Tuple[int, int]]] = None,
+              lengths: Optional[torch.Tensor] = None,
               ) -> torch.Tensor:
     """Causal self-attention over x (B, Sq, d).
 
@@ -90,13 +91,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     0..Sq-1).  With a paged ``cache`` — block pools {"k","v"} of shape
     (num_blocks, page_size, nk, hd), written **in place** — this call's K/V
     are scattered into the rows' physical blocks at logical positions
-    ``cache_index + i`` (``block_tables`` (B, nblk) maps logical to
-    physical blocks), then each row ``b`` of ``spans`` = [(b, length), ...]
-    gathers only its first ``ceil(length / page_size)`` blocks, cut to
-    ``length`` positions, and attends over them with the queries' ends
-    aligned to position ``length - 1``.  Rows not in ``spans`` (not
-    decoding) get a zero output and are never read: garbage-block positions
-    never enter an attention."""
+    ``cache_index + i`` (``block_tables`` (B, nblk) int32 maps logical to
+    physical blocks), then one K2 launch reads every row's keys through its
+    table, in place, up to its length ``lengths`` (B,) int32, with the
+    queries' ends aligned to position ``length - 1``.  A row of length 0
+    (not decoding) reads nothing and gets a zero output: garbage-block
+    positions never enter an attention.  Every index stays on the device."""
     B, Sq, d = x.shape
     nh, nk, hd = cfg.heads, cfg.kv_heads, cfg.hd
     q = proj(x, p["wq"])
@@ -121,12 +121,9 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         slot = ptok % ps
         ck[phys, slot] = k.to(ck.dtype)
         cv[phys, slot] = v.to(cv.dtype)
-        out = torch.zeros_like(q)
-        for b, length in spans:
-            blocks = block_tables[b, :-(-length // ps)]
-            ka = ck[blocks].reshape(-1, nk, hd)[:length].to(x.dtype)
-            va = cv[blocks].reshape(-1, nk, hd)[:length].to(x.dtype)
-            out[b] = _core(q[b], ka, va, cfg)
+        out = ops.paged_attention(q.permute(0, 2, 1, 3).contiguous(), ck, cv,
+                                  block_tables, lengths, causal=True,
+                                  window=cfg.window).permute(0, 2, 1, 3)
     return proj(out.reshape(B, Sq, nh * hd), p["wo"])
 
 

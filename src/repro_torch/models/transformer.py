@@ -145,10 +145,14 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x
 
 
-def _long(x, dev: torch.device) -> torch.Tensor:
+def _as(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
-        return x.to(device=dev, dtype=torch.long)
-    return torch.tensor(np.asarray(x), dtype=torch.long, device=dev)
+        return x.to(device=dev, dtype=dtype)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+def _long(x, dev: torch.device) -> torch.Tensor:
+    return _as(x, dev, torch.long)
 
 
 # ---------------------------------------------------------------------------
@@ -219,10 +223,11 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
     """One chunk of a paged prefill: ``tokens`` (1, C) at logical offset
     ``cache_index`` of the sequence whose block table is ``block_table``
     (1, nblk) and whose SSM state is row ``slot``.  The chunk attends over
-    keys 0 .. cache_index + C - 1, so end alignment reproduces the causal
-    mask of the JAX layer; the SSD core resumes from the slot's state and
-    updates it in place, so chunks thread the recurrence exactly.
-    Returns (last-token logits (1, V), cache)."""
+    keys 0 .. cache_index + C - 1 (its length, a one-element device tensor),
+    so end alignment reproduces the causal mask of the JAX layer; the SSD
+    core resumes from the slot's state and updates it in place, so chunks
+    thread the recurrence exactly.  Returns (last-token logits (1, V),
+    cache)."""
     dev = _device(params)
     tokens = _long(tokens, dev)
     start = int(cache_index)
@@ -230,50 +235,48 @@ def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
     C = tokens.shape[1]
     x = L.embed(params["embed"], tokens, _dtype(cfg))
     positions = start + torch.arange(C, device=dev)
-    bt = _long(block_table, dev)
-    idx = torch.tensor([start], dtype=torch.long, device=dev)
+    bt = _as(block_table, dev, torch.int32)
+    idx = torch.full((1,), start, dtype=torch.long, device=dev)
+    lens = torch.full((1,), start + C, dtype=torch.int32, device=dev)
     ssm = cache.get("ssm")
     for i, lp in enumerate(params["layers"]):
         x = _block(
             lp, x, cfg,
             ssm_state=ssm[i, slot:slot + 1] if ssm is not None else None,
             positions=positions, cache=_layer_kv(cache, i),
-            cache_index=idx, block_tables=bt, spans=[(0, start + C)])
+            cache_index=idx, block_tables=bt, lengths=lens)
     x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache
 
 
-def paged_decode_step(params: Params, cfg: ModelConfig, tokens,
-                      cache: Dict[str, torch.Tensor], cache_index,
-                      block_tables, *, active=None
+def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: Dict[str, torch.Tensor],
+                      cache_index: torch.Tensor, block_tables: torch.Tensor,
+                      *, active: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One decode step over the paged pool: ``tokens`` (B, 1) with per-row
-    ``cache_index`` (B,) and ``block_tables`` (B, nblk), both host arrays.
-    ``active`` (B,) bool marks the decoding rows (default: all).  Rows not
-    decoding write the garbage block, as in the JAX step, skip the
-    attention read and keep their SSM state (the JAX ``ssm_mask``: dead
-    slots, and slots whose chunked prefill is still in flight); their
-    logits are meaningless and ignored.  The SSD step is one K3 launch a
-    layer over all rows, which updates the layer's ``cache["ssm"]`` slice
-    in place for the active rows (a device mask)."""
-    dev = _device(params)
-    tokens = _long(tokens, dev)
+    """One decode step over the paged pool: ``tokens`` (B, 1) int, per-row
+    ``cache_index`` (B,) int, ``block_tables`` (B, nblk) int32 and
+    ``active`` (B,) bool (None: every row decodes), all tensors on the
+    params' device.  The step reads them there and does no host work and no
+    host-device copy, so a CUDA graph can capture it once and replay it on
+    new contents of the same tensors.  Rows not decoding get length 0: they
+    write the garbage block, as in the JAX step, read nothing and keep
+    their SSM state (the JAX ``ssm_mask``: dead slots, and slots whose
+    chunked prefill is still in flight); their logits are meaningless and
+    ignored.  Each layer makes one K2 launch (every row through its table)
+    and one K3 launch over all rows, which updates the layer's
+    ``cache["ssm"]`` slice in place for the active rows."""
     B = tokens.shape[0]
-    host_idx = np.asarray(cache_index).reshape(B)
-    rows = (list(range(B)) if active is None
-            else np.flatnonzero(np.asarray(active)).tolist())
-    spans = [(int(b), int(host_idx[b]) + 1) for b in rows]
-    idx = _long(host_idx, dev)
-    bt = _long(block_tables, dev)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    idx = cache_index.long()
+    lens = idx + 1 if active is None else torch.where(active, idx + 1, 0)
+    lens = lens.to(torch.int32)
+    x = L.embed(params["embed"], tokens.long(), _dtype(cfg))
     positions = idx[:, None]
     ssm = cache.get("ssm")
-    mask = (None if active is None
-            else torch.as_tensor(np.asarray(active, dtype=bool), device=dev))
     for i, lp in enumerate(params["layers"]):
         x = _block(
             lp, x, cfg, ssm_state=ssm[i, :B] if ssm is not None else None,
-            ssm_mask=mask, positions=positions, cache=_layer_kv(cache, i),
-            cache_index=idx, block_tables=bt, spans=spans)
+            ssm_mask=active, positions=positions, cache=_layer_kv(cache, i),
+            cache_index=idx, block_tables=block_tables, lengths=lens)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache

@@ -14,8 +14,8 @@ SSM decay projection (ROADMAP F5).  The paged serve path of
   ``SQ = C``, and the lm_head at ``M = 1`` (only the last token is
   unembedded);
 - **decode step** over the whole pool: projections, MLP and lm_head at
-  ``M = max_batch``, one attention core per decoding row at ``SQ = 1``, and
-  one SSD scan over all rows at ``SQ = 1``.
+  ``M = max_batch``, one paged attention core over all rows at ``SQ = 1``,
+  and one SSD scan over all rows at ``SQ = 1``.
 
 C ranges over the scheduler's quantized chunk lengths: ``prefill_chunk``
 and every power of two below it (capped by ``max_len``).  Nothing is

@@ -1,8 +1,8 @@
-"""Paged serving engine of the port: block KV pool + chunked prefill +
-kernel dispatch frozen at start.
+"""Paged serving engine of the port: block KV pool + chunked prefill + a
+compiled decode tick + async tick overlap, with kernel dispatch frozen at
+start.
 
-The port of ``runtime/serving.py`` at what the serve launcher's defaults
-use: one synchronous tick at a time (``async_depth=1``), a paged KV pool
+The port of ``runtime/serving.py``: a paged KV pool
 (:class:`repro_torch.runtime.kv_pool.PagedKVPool` owns the accounting,
 :func:`repro_torch.models.init_paged_cache` the device layout), chunked
 prefill with quantized chunk lengths, and ``warm_kernels``: the traced warm
@@ -16,15 +16,49 @@ decode over the whole pool with per-row block tables) -> commit (the one
 host sync: sampled tokens land in request outputs; EOS / ``max_new``
 retire).  It serves the ``attn_mlp``, ``ssm`` and ``hybrid`` blocks; a
 slot's SSM state is zeroed when a sequence is admitted to it, as the JAX
-``_reset_slot`` does.  Prefix sharing, async depth 2, the kernel monitor,
-degradation, serve-plan artifacts and tracing are later slices of the port
-and are refused by name (the JAX engine turns prefix sharing off for SSM
-blocks in any case: their state must see every prompt token).
+``_reset_slot`` does.
+
+**The compiled decode tick** (the JAX engine's ``jax.jit(_decode)``).  The
+decode step reads and writes static device buffers only — ``last_tok``, the
+rows' ``cache_index``, ``block_tables`` and ``active`` mask, and the sampled
+tokens — so on ``cuda`` the engine captures it once, at construction, in
+one CUDA graph: the step itself (:func:`~repro_torch.models.
+paged_decode_step`, one K1 launch a projection, one K2 and one K3 launch a
+layer), the greedy sample and the device-side chain ``last_tok = where(
+active, sampled, last_tok)``.  Before the capture it sizes every split
+workspace for the serve path's picks (they cannot grow under a graph) and
+runs the step once eagerly with every row inactive, which writes only the
+garbage block, keeps every SSM state and resolves every kernel entry and
+shared-memory opt-in.  Each decode tick then copies the tick's inputs in
+from pinned host staging, replays the graph and copies the sampled tokens
+out to pinned host memory, all on the stream; nothing else is launched for
+the step.  The CPU runs the very same function eagerly on the same buffers,
+so the CPU tests hold its logic; on ``cuda`` there is no eager decode.
+Prefill chunks stay eager.
+
+**Async tick overlap** (``async_depth``, as the JAX engine has it): a tick
+is dispatched without a host sync, and up to ``async_depth - 1`` ticks stay
+in flight across :meth:`ServeEngine.step`'s return, so the host plans and
+dispatches tick t+1 while the card runs tick t; committing a tick (waiting
+on its event and reading its tokens) is the only sync.  Each in-flight tick
+owns one of ``async_depth`` host slots: its staged inputs and its sampled
+tokens.  A slot is reused ``async_depth`` ticks later, after the tick that
+used it was committed, so its staging is never written while a copy out of
+it may still be pending, and the graph's output buffer is copied out before
+the next tick's replay overwrites it.  The scheduler's dispatch guard and
+``dead`` marks bound the speculation, as in the JAX engine.
+
+Prefix sharing, the kernel monitor, degradation, serve-plan artifacts and
+tracing are later slices of the port and are refused by name (the JAX
+engine turns prefix sharing off for SSM blocks in any case: their state
+must see every prompt token).
 """
 from __future__ import annotations
 
+import collections
 import time
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,12 +66,15 @@ import torch
 from ..artifacts.dispatch import get_default_cache
 from ..core.params import H100_SXM, MachineDescription
 from ..device import DeviceLike, resolve_device
-from ..kernels.ops import FAMILIES
+from ..kernels import flash_attention as fa
+from ..kernels import matmul as mm
+from ..kernels.ops import FAMILIES, select
 from ..models import (init_paged_cache, paged_copy_block, paged_decode_step,
                       paged_prefill_chunk)
 from ..models.config import ModelConfig
 from ..models.transformer import check_block
 from ..plans.trace import trace_warm_set
+from .graph import CapturedStep, CudaGraph
 from .kv_pool import GARBAGE_BLOCK, PagedKVPool
 from .scheduler import Clock, Request, Scheduler, SeqState, TickPlan
 from .steps import greedy_sample
@@ -65,6 +102,33 @@ def warm_kernel_dispatch(cfg: ModelConfig, *,
     return picks
 
 
+@dataclass
+class _InFlight:
+    """One dispatched-but-uncommitted tick: the host slot its sampled tokens
+    land in, the event after which they are there (None on the CPU), and
+    the sequences they belong to.  Committing it is the pipeline's only
+    host sync."""
+
+    slot: int = 0
+    event: Optional[torch.cuda.Event] = None
+    seed_seq: Optional[SeqState] = None
+    decode_seqs: List[SeqState] = field(default_factory=list)
+
+
+class _HostSlot:
+    """One in-flight tick's host memory (pinned on ``cuda``): the decode
+    inputs staged for their copy in, and the sampled tokens copied out."""
+
+    def __init__(self, batch: int, nblk: int, pin: bool):
+        def buf(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+        self.idx = buf((batch,), torch.int32)
+        self.bts = buf((batch, nblk), torch.int32)
+        self.active = buf((batch,), torch.bool)
+        self.seed = buf((1, 1), torch.int32)
+        self.toks = buf((batch, 1), torch.int32)
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
                  max_batch: int = 8, max_len: int = 512,
@@ -85,10 +149,10 @@ class ServeEngine:
                  clock: Clock = time.monotonic,
                  machine: MachineDescription = H100_SXM,
                  device: DeviceLike = None):
+        if async_depth < 1:
+            raise ValueError(f"async_depth must be >= 1: {async_depth}")
         refused = [
             (prefix_sharing, "prefix_sharing", "the prefix-sharing slice"),
-            (async_depth != 1, f"async_depth={async_depth}",
-             "the async-overlap slice"),
             (monitor, "monitor", "the adaptive-loop slice (CUDA-event "
              "timer)"),
             (degrade, "degrade", "the fault-tolerance slice"),
@@ -128,10 +192,77 @@ class ServeEngine:
                                max_queue=max_queue, clock=clock)
         self.cache = init_paged_cache(cfg, num_blocks, page_size, max_batch,
                                       device=self.device)
-        self.last_tok = torch.zeros((max_batch, 1), dtype=torch.int32,
-                                    device=self.device)
+        self.async_depth = async_depth
+        # the decode step's static buffers: the captured graph reads and
+        # writes these addresses every tick
+        B, nblk, dev = max_batch, self.blocks_per_seq, self.device
+        self.last_tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        self._idx = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self._bts = torch.full((B, nblk), GARBAGE_BLOCK, dtype=torch.int32,
+                               device=dev)
+        self._active = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self._nxt = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+        cuda = dev.type == "cuda"
+        self._slots = [_HostSlot(B, nblk, pin=cuda)
+                       for _ in range(async_depth)]
+        self._ticks = 0
+        self._inflight: Deque[_InFlight] = collections.deque()
         self._rid = 0
         self._rejected: List[Request] = []
+        self.graph: Optional[CapturedStep] = None
+        self.capture_s = 0.0
+        if cuda:
+            t0 = time.perf_counter()
+            self._reserve_workspaces(prefill_chunk)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._decode_body()          # every row inactive
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = CapturedStep(self._decode_body, CudaGraph())
+            torch.cuda.synchronize(dev)
+            self.capture_s = time.perf_counter() - t0
+
+    def _reserve_workspaces(self, prefill_chunk: int) -> None:
+        """Size the split workspaces for every launch the serve path makes
+        (the traced warm set at the picks it resolves to: K1's split-K at
+        each projection, K2's splits over the pool at decode's max_batch
+        rows and a chunk's one row), before a graph holds them."""
+        keys = self.blocks_per_seq * self.page_size
+        for op in trace_warm_set(self.cfg, max_len=self.max_len,
+                                 max_batch=self.max_batch,
+                                 prefill_chunk=prefill_chunk):
+            data = op.data_dict()
+            a = select(op.family, data, self.machine).assignment
+            if op.family == "matmul_h100":
+                floats, tiles = mm.workspace_need(data["M"], data["N"], **a)
+                mm.PARTIALS.get(self.device, floats)
+                mm.TICKETS.get(self.device, tiles)
+            elif op.family == "flash_attention_h100":
+                rows = self.max_batch if data["SQ"] == 1 else 1
+                fa.PARTIALS.get(self.device, fa.workspace_need(
+                    rows, data["GROUP"] * data["HK"], data["SQ"], keys,
+                    data["HD"], a["kv_chunk"]))
+
+    def _decode_body(self) -> None:
+        """The decode step on the static buffers, the JAX ``_decode``: what
+        the graph captures on ``cuda`` and the CPU runs eagerly."""
+        logits, _ = paged_decode_step(self.params, self.cfg, self.last_tok,
+                                      self.cache, self._idx, self._bts,
+                                      active=self._active)
+        nxt = greedy_sample(logits)
+        self._nxt.copy_(nxt)
+        # chain last_tok on the device: decoding rows advance to their
+        # sampled token, every other row keeps its value
+        self.last_tok.copy_(torch.where(self._active[:, None], nxt,
+                                        self.last_tok))
+
+    def close(self) -> None:
+        """Release the captured graph (and with it the workspaces, which may
+        then grow for another engine)."""
+        if self.graph is not None:
+            self.graph.release()
+            self.graph = None
 
     # -- client API -----------------------------------------------------------
     def submit(self, prompt: np.ndarray, max_new: int = 16,
@@ -156,25 +287,38 @@ class ServeEngine:
         return bt
 
     def step(self) -> List[Request]:
-        """One engine tick: plan, dispatch, commit."""
+        """One engine tick: plan + dispatch the next tick, then commit the
+        oldest in-flight tick(s) down to the pipeline depth.  At
+        ``async_depth=1`` the dispatched tick commits at once (synchronous
+        engine); at depth ``d`` the newest ``d − 1`` ticks stay in flight
+        across the return."""
         done: List[Request] = []
         if self._rejected:
             done.extend(self._rejected)
             self._rejected.clear()
         plan = self.sched.tick()
         done.extend(plan.cancelled)
-        seed, decoding, toks = self._dispatch(plan)
-        done.extend(self._commit(seed, decoding, toks))
+        self._dispatch(plan)
+        while len(self._inflight) > self.async_depth - 1:
+            done.extend(self._commit(self._inflight.popleft()))
         return done
 
-    def _dispatch(self, plan: TickPlan):
+    def _dispatch(self, plan: TickPlan) -> None:
+        """Enqueue one tick plan: the admissions' slot resets, the CoW
+        copies, at most one prefill chunk and the batched decode, then the
+        copies of the sampled tokens to the tick's host slot; record it as
+        in flight.  No host sync: positions advance speculatively
+        (note_prefill / note_decode), outputs land at commit."""
         for seq in plan.admitted:
             self.last_tok[seq.slot] = 0
             if "ssm" in self.cache:
                 self.cache["ssm"][:, seq.slot] = 0.0
         for src, dst in plan.cow:
             paged_copy_block(self.cache, src, dst)
-        seed = None
+        # the slot's last user, async_depth ticks ago, has been committed
+        rec = _InFlight(slot=self._ticks % self.async_depth)
+        self._ticks += 1
+        host = self._slots[rec.slot]
         if plan.prefill is not None and not plan.prefill[0].dead:
             seq, start, chunk = plan.prefill
             logits, self.cache = paged_prefill_chunk(
@@ -185,38 +329,53 @@ class ServeEngine:
                 # final chunk: its last-token logits seed decode
                 tok = greedy_sample(logits)
                 self.last_tok[seq.slot] = tok[0]
-                seed = (seq, tok)
+                host.seed.copy_(tok, non_blocking=True)
+                rec.seed_seq = seq
         decoding = [s for s in plan.decode if not s.dead]
-        toks = None
         if decoding:
-            bts = np.full((self.max_batch, self.blocks_per_seq),
-                          GARBAGE_BLOCK, np.int32)
-            idx = np.zeros(self.max_batch, np.int32)
-            mask = np.zeros(self.max_batch, bool)
+            bts = host.bts.numpy()
+            idx = host.idx.numpy()
+            active = host.active.numpy()
+            bts.fill(GARBAGE_BLOCK)
+            idx.fill(0)
+            active.fill(False)
             for seq in decoding:
                 bts[seq.slot, :len(seq.blocks)] = seq.blocks
                 idx[seq.slot] = seq.pos
-                mask[seq.slot] = True
-            logits, self.cache = paged_decode_step(
-                self.params, self.cfg, self.last_tok, self.cache, idx, bts,
-                active=mask)
-            toks = greedy_sample(logits)
-            m = torch.as_tensor(mask, device=self.device)[:, None]
-            self.last_tok = torch.where(m, toks, self.last_tok)
+                active[seq.slot] = True
+            self._bts.copy_(host.bts, non_blocking=True)
+            self._idx.copy_(host.idx, non_blocking=True)
+            self._active.copy_(host.active, non_blocking=True)
+            if self.graph is not None:
+                self.graph()
+            else:
+                self._decode_body()
+            host.toks.copy_(self._nxt, non_blocking=True)
             for seq in decoding:
                 self.sched.note_decode(seq)
-        return seed, decoding, toks
+            rec.decode_seqs = decoding
+        if self.device.type == "cuda" and (rec.seed_seq is not None
+                                          or rec.decode_seqs):
+            rec.event = torch.cuda.Event()
+            rec.event.record()
+        self._inflight.append(rec)
 
-    def _commit(self, seed, decoding: List[SeqState],
-                toks: Optional[torch.Tensor]) -> List[Request]:
-        """Commit barrier: the tick's one host sync."""
-        if seed is not None:
-            seq, tok = seed
-            if not seq.dead and not seq.req.done:
-                seq.req.out.append(int(tok.cpu()[0, 0]))
-        if decoding:
-            nxt = toks.cpu().numpy()
-            for seq in decoding:
+    def _commit(self, rec: _InFlight) -> List[Request]:
+        """Commit barrier: wait for one tick's sampled tokens (the
+        pipeline's only host sync), append them to request outputs —
+        skipping sequences preempted (dead: greedy recompute regenerates
+        their tokens) or already finished (EOS found by an earlier commit:
+        later speculative tokens are discarded) — then reconcile EOS /
+        ``max_new`` and retire."""
+        if rec.event is not None:
+            rec.event.synchronize()
+        host = self._slots[rec.slot]
+        seq = rec.seed_seq
+        if seq is not None and not seq.dead and not seq.req.done:
+            seq.req.out.append(int(host.seed[0, 0]))
+        if rec.decode_seqs:
+            nxt = host.toks.numpy()
+            for seq in rec.decode_seqs:
                 if seq.dead or seq.req.done:
                     continue
                 seq.req.out.append(int(nxt[seq.slot, 0]))
@@ -245,4 +404,8 @@ class ServeEngine:
             finished.extend(self.step())
             if not self.sched.has_work():
                 break
+        # drain the pipeline: ticks still in flight when the queue empties
+        # carry the final tokens of the last requests
+        while self._inflight:
+            finished.extend(self._commit(self._inflight.popleft()))
         return finished

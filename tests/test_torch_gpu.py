@@ -15,7 +15,8 @@ Tolerances, kernel against plain version on the same inputs:
   on the tensor cores or in FMA); both add the tiles of a split, then the
   splits, in the same order.
 - f32 attention: 1e-4, the same online softmax and split combine with
-  ``expf`` against ``torch.exp`` and another summation order.
+  ``expf`` against ``torch.exp`` and another summation order; the paged
+  entry the same, with a bf16 pool upcast alike on both sides.
 - bf16 attention: 1e-2, one bf16 rounding step (2^-7) of the output, which
   both versions compute in f32 and round once, and the kernel's P rounded
   to bf16 for the tensor cores (2^-9 relative, averaged over the keys).
@@ -39,6 +40,8 @@ import torch
 
 from repro_torch.kernels import build, ops
 from repro_torch.kernels.flash_attention import (flash_attention_h100,
+                                                 flash_attention_h100_paged,
+                                                 flash_attention_paged_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.instantiate_cache import grain
 from repro_torch.kernels.jacobi1d import jacobi1d_h100, jacobi1d_plain
@@ -139,7 +142,8 @@ def test_gpu_matmul_workspace_grows_and_tickets_reset(cuda):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, matmul_plain(a, b, **kw), rtol=1e-4,
                                    atol=8e-4)
-        part, tickets = mm_mod._WORKSPACE[a.device]
+        part = mm_mod.PARTIALS.bufs[a.device]
+        tickets = mm_mod.TICKETS.bufs[a.device]
         assert part.numel() >= kb * M * N
         assert int(tickets.abs().sum()) == 0
 
@@ -264,6 +268,121 @@ def test_gpu_flash_invalid_format_raises(cuda):
                             dtype=torch.bfloat16) is not None
         with pytest.raises(RuntimeError):
             flash_attention_h100(q, k, k, **kw)
+
+
+#: The paged entry at chip_smoke's phase-4 groupings: (h, hk, d, window,
+#: rows, sq, lens, nblk, page, bq, bkv, kv_chunk): llama3-8b (32/8) and
+#: hymba-1.5b (25/5, window 1024) decode over 4 rows of ragged lengths,
+#: one of them 0, and a prefill chunk; pools of 256 and 4096 keys, one
+#: split and several.
+FA_PAGED_CASES = [
+    (32, 8, 128, None, 4, 1, [77, 0, 200, 256], 16, 16, 16, 64, 4096),
+    (32, 8, 128, None, 4, 1, [77, 0, 3000, 4096], 256, 16, 16, 64, 256),
+    (25, 5, 64, 1024, 4, 1, [77, 0, 1500, 4096], 256, 16, 16, 64, 512),
+    (32, 8, 128, None, 1, 32, [96], 16, 16, 128, 32, 4096),
+    (32, 8, 128, None, 1, 256, [3000], 256, 16, 64, 64, 1024),
+    (25, 5, 64, 1024, 1, 32, [1900], 256, 16, 64, 64, 512)]
+
+
+def _paged_inputs(h, hk, d, rows, sq, lens, nblk, page, dev, q_dtype, seed=0):
+    num_blocks = rows * nblk + 1
+    rng = np.random.default_rng(seed)
+    q = _t((rows, h, sq, d), seed + 1, dev, q_dtype)
+    k = _t((num_blocks, page, hk, d), seed + 2, dev, torch.bfloat16)
+    v = _t((num_blocks, page, hk, d), seed + 3, dev, torch.bfloat16)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, num_blocks))
+                              .reshape(rows, nblk).astype(np.int32)).to(dev)
+    return q, k, v, tables, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_dtype,tol", [(torch.float32, 1e-4),
+                                         (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize(
+    "h,hk,d,window,rows,sq,lens,nblk,page,bq,bkv,kv_chunk", FA_PAGED_CASES)
+def test_gpu_flash_paged_kernel_matches_plain(cuda, q_dtype, tol, h, hk, d,
+                                              window, rows, sq, lens, nblk,
+                                              page, bq, bkv, kv_chunk):
+    """The paged entry on a bf16 pool (f32 q upcasts it) against its plain
+    version: one launch for every row, a row of length 0 all zeros, and
+    over more than one split three launches bit for bit."""
+    q, k, v, tables, tl = _paged_inputs(h, hk, d, rows, sq, lens, nblk, page,
+                                        cuda, q_dtype)
+    kw = dict(bq=bq, bkv=bkv, kv_chunk=kv_chunk, causal=True, window=window,
+              stages=3 if q_dtype == torch.bfloat16 else 2)   # f32 smem
+    n0 = flash_attention_h100.launches
+    got = flash_attention_h100_paged(q, k, v, tables, tl, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_h100.launches == n0 + 1 and got.dtype == q_dtype
+    want = flash_attention_paged_plain(q, k, v, tables, tl, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not got[b].any()
+    if nblk * page > kv_chunk:
+        for _ in range(2):
+            assert torch.equal(got, flash_attention_h100_paged(
+                q, k, v, tables, tl, **kw))
+
+
+def _engine(arch, dev, **kw):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.runtime import ServeEngine
+    cfg = get_smoke_config(arch)
+    params = init_model(cfg, seed=5, device=dev)
+    return cfg, ServeEngine(cfg, params, device=dev, max_batch=3, max_len=48,
+                            page_size=8, prefill_chunk=8, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3_8b", "mamba2_130m", "hymba_1p5b"])
+def test_gpu_graph_replay_equals_the_eager_step(cuda, arch):
+    """The captured decode tick against the same step run eagerly on the
+    card: two engines on the same weights serve five requests through three
+    slots (rows join and leave), one replaying its graph, the other with
+    its graph dropped running the captured function itself.  Tokens, SSM
+    states and every pool block but the garbage block (where rows not
+    decoding all write) are equal bit for bit; one replay a decode tick."""
+    cfg, graphed = _engine(arch, cuda)
+    _, eager = _engine(arch, cuda)
+    eager.close()
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 19, 11, 3, 26)]
+    outs = []
+    for eng in (graphed, eager):
+        rids = [eng.submit(p, max_new=6) for p in prompts]
+        done = {r.rid: r.out for r in eng.run_until_drained()}
+        outs.append([done[r] for r in rids])
+    assert outs[0] == outs[1] and all(len(o) == 6 for o in outs[0])
+    assert graphed.graph.replays == graphed.sched.stats.decode_ticks
+    for key in graphed.cache:
+        a, b = graphed.cache[key], eager.cache[key]
+        if key in ("k", "v"):
+            a, b = a[:, 1:], b[:, 1:]
+        assert torch.equal(a, b), key
+    graphed.close()
+
+
+@pytest.mark.gpu
+def test_gpu_workspace_cannot_grow_under_a_graph(cuda):
+    """Once an engine has captured its decode tick, a launch that would need
+    a larger split workspace raises; closing the engine lets it grow.  The
+    engine reserves under ``cuda``, a launch asks under ``cuda:0``: one
+    buffer."""
+    from repro_torch.kernels import matmul as mm_mod
+    _, eng = _engine("llama3_8b", cuda)
+    have = mm_mod.PARTIALS.get(cuda, 0).numel()
+    assert mm_mod.PARTIALS.get(torch.device("cuda", 0), 0).numel() == have
+    M = -(-have // (16 * 4096)) + 1
+    a, b = _mm_inputs(M, 256, 4096, cuda, torch.bfloat16)
+    kw = dict(bm=16, bn=64, bk=32, s=1, kb=16, stages=2)
+    with pytest.raises(RuntimeError, match="size it before the capture"):
+        matmul_h100(a, b, **kw)
+    eng.close()
+    torch.testing.assert_close(matmul_h100(a, b, **kw), matmul_plain(a, b,
+                                                                     **kw),
+                               rtol=1e-4, atol=8e-4)
 
 
 def _ssd_inputs(rows, seq, heads, hd, state, dev, dtype, shared=True):

@@ -15,9 +15,14 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro.kernels.jacobi1d import pallas_jacobi1d
+from repro.models.layers import _sdpa as j_sdpa
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_h100
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention import (flash_attention_h100,
+                                                 flash_attention_h100_paged,
+                                                 flash_attention_paged_plain,
+                                                 flash_attention_plain)
 from repro_torch.kernels.jacobi1d import jacobi1d_h100, jacobi1d_plain
 from repro_torch.kernels.matadd import matadd_h100, matadd_plain
 from repro_torch.kernels.matmul import matmul_h100, matmul_plain
@@ -284,6 +289,123 @@ def test_flash_format_error_mirrors_the_entry_point():
     assert "232,448" in format_error(32, 8, 32, 64, 128, bq=128, bkv=64,
                                      kv_chunk=512, stages=4,
                                      dtype=torch.float32)
+
+
+def _paged_case(rows, sq, h, hk, d, lens, *, nblk=6, page=4,
+                num_blocks=16, q_dtype="float32", pool="float32", seed=0):
+    """q [rows, h, sq, d] and pools [num_blocks, page, hk, d] from numpy,
+    each row's table a random draw of blocks 1.. (block 0 the garbage
+    block, which tables never name for a position below the length)."""
+    rng = np.random.default_rng(SEED + 400 + seed)
+    q = _np((rows, h, sq, d), SEED + 401 + seed)
+    k = _np((num_blocks, page, hk, d), SEED + 402 + seed)
+    v = _np((num_blocks, page, hk, d), SEED + 403 + seed)
+    tables = np.stack([rng.permutation(np.arange(1, num_blocks))[:nblk]
+                       for _ in range(rows)]).astype(np.int32)
+    lens = np.asarray(lens, np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(q, q_dtype), _pair(k, pool),
+                                    _pair(v, pool))
+    return (jq, jk, jv), (tq, tk, tv, torch.from_numpy(tables),
+                          torch.from_numpy(lens)), tables, lens
+
+
+def _jax_paged(jq, jk, jv, tables, lens, window):
+    """The JAX layer's paged read: gather each row's table view of the pool,
+    upcast to q's type, and ``_sdpa`` with the queries at positions len −
+    sq .. len − 1 over key positions 0 .. nblk · page − 1."""
+    rows, h, sq, d = jq.shape
+    hk, page = jk.shape[2], jk.shape[1]
+    keys = tables.shape[1] * page
+    k_att = jk[tables].reshape(rows, keys, hk, d).astype(jq.dtype)
+    v_att = jv[tables].reshape(rows, keys, hk, d).astype(jq.dtype)
+    qpos = jnp.asarray(lens)[:, None] - sq + jnp.arange(sq)[None]
+    out = j_sdpa(jnp.transpose(jq, (0, 2, 1, 3)), k_att, v_att, causal=True,
+                 window=window, q_positions=qpos,
+                 k_positions=jnp.arange(keys))
+    return np.asarray(jnp.transpose(out, (0, 2, 1, 3)).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "hymba_1p5b"])
+@pytest.mark.parametrize("case", ["decode", "chunk"])
+@pytest.mark.parametrize("q_dtype,pool", [("float32", "float32"),
+                                          ("float32", "bfloat16"),
+                                          ("bfloat16", "bfloat16")])
+def test_paged_attention_matches_jax_paged_read(arch, case, q_dtype, pool):
+    """``ops.paged_attention`` (the pick at (SQ, HD, GROUP, HK), its paged
+    plain version on the CPU) against the JAX layer's paged read at the
+    smoke configs' groupings (hymba's with its window): a decode over 4
+    rows of ragged lengths, one of them 0 (a row not decoding: zeros), and
+    a prefill chunk; f32 q on an f32 and on a bf16 pool, and bf16."""
+    cfg = get_smoke_config(arch)
+    h, hk, d = cfg.heads, cfg.kv_heads, cfg.hd
+    rows, sq, lens = ((4, 1, [7, 0, 19, 24]) if case == "decode"
+                      else (1, 8, [13]))
+    (jq, jk, jv), targs, tables, lens = _paged_case(
+        rows, sq, h, hk, d, lens, q_dtype=q_dtype, pool=pool)
+    got = ops.paged_attention(*targs, causal=True, window=cfg.window)
+    assert got.dtype == targs[0].dtype and got.shape == (rows, h, sq, d)
+    want = _jax_paged(jq, jk, jv, tables, lens, cfg.window)
+    live = lens > 0
+    tol = 2e-2 if q_dtype == "bfloat16" else 2e-4
+    np.testing.assert_allclose(got.float().numpy()[live], want[live],
+                               rtol=tol, atol=tol)
+    assert not got[~torch.from_numpy(live)].any()       # length 0: zeros
+
+
+@pytest.mark.parametrize("kv_chunk", [32, 64, 4096])
+@pytest.mark.parametrize("window", [None, 21])
+def test_paged_plain_is_the_dense_plain_per_row(kv_chunk, window):
+    """Over a pool of 80 keys (3 splits at kv_chunk 32), each row of the
+    paged plain version equals the dense plain version over that row's
+    gathered keys with the same kv_chunk: the same splits and tiles in the
+    same order, the empty ones past the length carrying no weight; the
+    f32 upcast of a bf16 pool is the gather's."""
+    lens = [80, 33, 1, 0, 64]
+    _, (q, k, v, tables, tl), nt, _ = _paged_case(
+        5, 1, 8, 2, 16, lens, nblk=20, num_blocks=24, pool="bfloat16",
+        seed=7)
+    kw = dict(bq=16, bkv=32, kv_chunk=kv_chunk, causal=True, window=window)
+    got = flash_attention_h100_paged(q, k, v, tables, tl, **kw)
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert not got[b].any()
+            continue
+        kb = k[nt[b]].reshape(-1, 2, 16)[:n].permute(1, 0, 2).float()
+        vb = v[nt[b]].reshape(-1, 2, 16)[:n].permute(1, 0, 2).float()
+        want = flash_attention_plain(q[b], kb.contiguous(), vb.contiguous(),
+                                     **kw)
+        torch.testing.assert_close(got[b], want, rtol=1e-6, atol=1e-6)
+
+
+def test_paged_plain_ignores_what_lies_past_the_length():
+    """F1 on the paged read: NaN and huge values written into every pool
+    position at or past a row's length (the garbage block, stale blocks)
+    change nothing."""
+    lens = [9, 0, 17]
+    _, (q, k, v, tables, tl), nt, _ = _paged_case(3, 1, 4, 2, 16, lens,
+                                                  seed=9)
+    kw = dict(bq=16, bkv=32, kv_chunk=4096, causal=True)
+    want = flash_attention_paged_plain(q, k, v, tables, tl, **kw)
+    k2, v2 = k.clone(), v.clone()
+    used = {int(nt[b, p // 4]) for b, n in enumerate(lens) for p in range(n)}
+    for blk in set(range(k.shape[0])) - used:
+        k2[blk], v2[blk] = float("nan"), 1e30
+    got = flash_attention_paged_plain(q, k2, v2, tables, tl, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_paged_format_error_mirrors_the_entry_point():
+    """The paged entry's checks: (row, KV head) pairs on the grid's y, and
+    K/V of q's type or a bf16 pool."""
+    from repro_torch.kernels.flash_attention import format_error
+    ok = dict(bq=16, bkv=64, kv_chunk=512, stages=3, dtype=torch.float32)
+    assert format_error(32, 8, 1, 4096, 128, **ok, rows=8,
+                        kv_dtype=torch.bfloat16) is None
+    assert "65,535" in format_error(32, 8, 1, 4096, 128, **ok, rows=9000)
+    assert "bf16 pool" in format_error(32, 8, 1, 4096, 128,
+                                       **{**ok, "dtype": torch.bfloat16},
+                                       kv_dtype=torch.float32)
 
 
 def test_flash_oracle_matches_jax_oracle():

@@ -26,6 +26,17 @@ from repro_torch.convert import from_jax_params
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+def _decode(params, cfg, toks, cache, idx, tables, active=None):
+    """The port's decode step on tensors, as the engine's static buffers
+    hand them over (the step itself converts nothing from the host)."""
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype)
+    return tm.paged_decode_step(
+        params, cfg, t(toks, torch.int32), cache, t(idx, torch.int32),
+        t(tables, torch.int32),
+        active=None if active is None else t(active, torch.bool))
+
+
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
 def test_llama3_config_equals_jax_config(which):
     j = (jconfigs.get_config("llama3_8b") if which == "CONFIG"
@@ -79,12 +90,57 @@ def test_paged_prefill_then_decode_match(model):
     for _ in range(3):
         jl, jc = jm.paged_decode_step(jp, cfg, jnp.asarray(last), jc,
                                       jnp.asarray(idx), jnp.asarray(tables))
-        tl, tc = tm.paged_decode_step(tp, tcfg, last, tc, idx, tables)
+        tl, tc = _decode(tp, tcfg, last, tc, idx, tables)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         last = np.asarray(jnp.argmax(jl, -1), np.int32)[:, None]
         idx = idx + 1
     for k in ("k", "v"):
         np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]), **TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "hymba_1p5b"])
+def test_paged_decode_on_device_tensors_matches_jax(arch):
+    """The f32 model on a bf16 pool (the engine's default layout), decoding
+    from device tensors with a row not decoding (length 0: it writes the
+    garbage block, reads nothing and keeps its SSM state) against the JAX
+    ``paged_decode_step`` with the same ``ssm_mask``; the decoding rows'
+    logits and the pools agree."""
+    cfg = jconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    jparams, _ = jm.init_model(jax.random.PRNGKey(4), cfg)
+    tcfg = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    tp = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                         device="cpu")
+    jc = jm.init_paged_cache(cfg, 9, 4, 3)
+    tc = tm.init_paged_cache(tcfg, 9, 4, 3, device="cpu")
+    assert tc["k"].dtype == torch.bfloat16
+    rng = np.random.default_rng(16)
+    tables = np.array([[1, 2, 3], [0, 0, 0], [4, 5, 6]], np.int32)
+    for row, n in ((0, 6), (2, 9)):
+        toks = rng.integers(0, cfg.vocab, (1, n)).astype(np.int32)
+        _, jc = jm.paged_prefill_chunk(jparams, cfg, jnp.asarray(toks), jc,
+                                       jnp.int32(0),
+                                       jnp.asarray(tables[row][None]),
+                                       jnp.int32(row))
+        tm.paged_prefill_chunk(tp, tcfg, toks, tc, 0, tables[row][None], row)
+    idx = np.array([6, 0, 9], np.int32)
+    active = np.array([True, False, True])
+    last = rng.integers(0, cfg.vocab, (3, 1)).astype(np.int32)
+    for _ in range(3):
+        jl, jc = jm.paged_decode_step(jparams, cfg, jnp.asarray(last), jc,
+                                      jnp.asarray(idx), jnp.asarray(tables),
+                                      ssm_mask=jnp.asarray(active))
+        tl, tc = _decode(tp, tcfg, last, tc, idx, tables, active)
+        np.testing.assert_allclose(tl.numpy()[active],
+                                   np.asarray(jl)[active], **TOL)
+        last = np.asarray(jnp.argmax(jl, -1), np.int32)[:, None]
+        idx = idx + active
+    for k in set(tc) & {"k", "v"}:
+        np.testing.assert_allclose(tc[k][:, 1:].float().numpy(),
+                                   np.asarray(jc[k][:, 1:], np.float32),
+                                   **TOL)
+    if "ssm" in tc:
+        np.testing.assert_allclose(tc["ssm"].numpy(), np.asarray(jc["ssm"]),
+                                   **TOL)
 
 
 def test_decode_skips_rows_not_decoding(model):
@@ -96,28 +152,32 @@ def test_decode_skips_rows_not_decoding(model):
     toks = np.array([[5], [7]], np.int32)
     c1 = tm.init_paged_cache(tcfg, 3, 4, 2, dtype=torch.float32, device="cpu")
     c2 = tm.init_paged_cache(tcfg, 3, 4, 2, dtype=torch.float32, device="cpu")
-    l1, c1 = tm.paged_decode_step(tp, tcfg, toks, c1, idx, tables,
-                                  active=np.array([True, False]))
-    l2, c2 = tm.paged_decode_step(tp, tcfg, toks[:1], c2, idx[:1],
-                                  tables[:1])
+    l1, c1 = _decode(tp, tcfg, toks, c1, idx, tables,
+                     active=np.array([True, False]))
+    l2, c2 = _decode(tp, tcfg, toks[:1], c2, idx[:1], tables[:1])
     np.testing.assert_allclose(l1[:1].numpy(), l2.numpy(), **TOL)
     torch.testing.assert_close(c1["k"][:, 1:], c2["k"][:, 1:])
 
 
 def test_attention_core_takes_kv_heads_unbroadcast(model, monkeypatch):
-    """``_core`` hands K2 the config's KV heads as they are (no
-    ``repeat_interleave`` to the query heads) on the no-cache path and the
-    paged path, and the logits still match the JAX model's."""
+    """K2 gets the config's KV heads as they are (no ``repeat_interleave``
+    to the query heads) on the no-cache path (``_core``) and the paged path
+    (the pools' KV heads), and the logits still match the JAX model's."""
     from repro_torch.kernels import ops
     cfg, jp, tcfg, tp = model
-    seen = []
-    real = ops.flash_attention
+    seen, paged = [], []
+    real, real_paged = ops.flash_attention, ops.paged_attention
 
     def spy(q, k, v, **kw):
         seen.append((q.shape[0], k.shape[0], v.shape[0]))
         return real(q, k, v, **kw)
 
+    def spy_paged(q, k, v, tables, lens, **kw):
+        paged.append((q.shape[1], k.shape[2], v.shape[2]))
+        return real_paged(q, k, v, tables, lens, **kw)
+
     monkeypatch.setattr(ops, "flash_attention", spy)
+    monkeypatch.setattr(ops, "paged_attention", spy_paged)
     toks = np.random.default_rng(8).integers(0, cfg.vocab, (2, 9))
     want, _ = jm.forward(jp, cfg, jnp.asarray(toks, jnp.int32))
     got, _ = tm.forward(tp, tcfg, toks)
@@ -134,6 +194,7 @@ def test_attention_core_takes_kv_heads_unbroadcast(model, monkeypatch):
     assert tcfg.kv_heads < tcfg.heads
     assert seen and set(seen) == {(tcfg.heads, tcfg.kv_heads,
                                    tcfg.kv_heads)}
+    assert len(paged) == tcfg.layers and set(paged) == set(seen)
 
 
 def test_init_model_seeded_and_bf16():
@@ -237,7 +298,7 @@ def test_ssm_paged_prefill_then_decode_match(ssm_model):
     for _ in range(3):
         jl, jc = jm.paged_decode_step(jp, cfg, jnp.asarray(last), jc,
                                       jnp.asarray(idx), jnp.asarray(tables))
-        tl, tc = tm.paged_decode_step(tp, tcfg, last, tc, idx, tables)
+        tl, tc = _decode(tp, tcfg, last, tc, idx, tables)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         last = np.asarray(jnp.argmax(jl, -1), np.int32)[:, None]
         idx = idx + 1
@@ -287,10 +348,9 @@ def test_ssm_decode_keeps_state_of_rows_not_decoding(ssm_model):
     before = c["ssm"].clone()
     alone = {k: v[:, :1].clone() if k == "ssm" else v.clone()
              for k, v in c.items()}
-    l1, c = tm.paged_decode_step(tp, tcfg, toks, c, idx, tables,
-                                 active=np.array([True, False]))
-    l2, alone = tm.paged_decode_step(tp, tcfg, toks[:1], alone, idx[:1],
-                                     tables[:1])
+    l1, c = _decode(tp, tcfg, toks, c, idx, tables,
+                    active=np.array([True, False]))
+    l2, alone = _decode(tp, tcfg, toks[:1], alone, idx[:1], tables[:1])
     assert torch.equal(c["ssm"][:, 1], before[:, 1])
     assert not torch.equal(c["ssm"][:, 0], before[:, 0])
     np.testing.assert_allclose(c["ssm"][:, :1].numpy(),
@@ -328,9 +388,8 @@ def test_ssm_steps_update_the_cache_in_place(ssm_model, monkeypatch):
         assert out is st and mask is None
         assert st.data_ptr() == ssm[i, 1].data_ptr() and st.shape[0] == 1
     calls.clear()
-    tm.paged_decode_step(tp, tcfg, np.array([[5], [7]]), c,
-                         np.array([3, 3], np.int32), tables,
-                         active=np.array([False, True]))
+    _decode(tp, tcfg, np.array([[5], [7]]), c, np.array([3, 3], np.int32),
+            tables, active=np.array([False, True]))
     assert len(calls) == tcfg.layers
     for i, (st, out, mask) in enumerate(calls):
         assert out is st and st.data_ptr() == ssm[i].data_ptr()

@@ -106,13 +106,19 @@ def test_engine_without_warmup_resolves_cold_once_per_shape(weights,
 
 
 @pytest.mark.parametrize("kw", [dict(prefix_sharing=True),
-                                dict(async_depth=2), dict(monitor=True),
-                                dict(degrade=True), dict(plan_store="x"),
-                                dict(trace=True)])
+                                dict(monitor=True), dict(degrade=True),
+                                dict(plan_store="x"), dict(trace=True)])
 def test_later_slices_are_refused_by_name(weights, kw):
     _, _, tcfg, tp = weights
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServeEngine(tcfg, tp, device="cpu", **kw)
+
+
+def test_async_depth_below_one_raises(weights):
+    """As in the JAX engine: a pipeline needs at least the tick it runs."""
+    _, _, tcfg, tp = weights
+    with pytest.raises(ValueError, match="async_depth"):
+        ServeEngine(tcfg, tp, device="cpu", async_depth=0)
 
 
 def test_engine_needs_cuda_unless_cpu_is_asked(weights):
@@ -214,3 +220,138 @@ def test_admission_zeroes_the_slot_state(ssm_weights):
     again = eng.submit(prompt, max_new=4)
     out = {r.rid: r.out for r in eng.run_until_drained()}
     assert out[first] == out[again]
+
+
+# ---------------------------------------------------------------------------
+# The compiled decode tick and async_depth
+# ---------------------------------------------------------------------------
+
+def _serve_both(cfg, jp, tcfg, tp, prompts, *, max_new, eos=None, **kw):
+    """The JAX engine and the port's on the CPU, the same prompts submitted
+    at once; outputs in submit order and the port's engine."""
+    outs = []
+    for make in (lambda: JEngine(cfg, jp, **kw),
+                 lambda: ServeEngine(tcfg, tp, device="cpu", **kw)):
+        eng = make()
+        rids = [eng.submit(p, max_new=max_new, eos=eos) for p in prompts]
+        done = {r.rid: r.out for r in eng.run_until_drained()}
+        outs.append([done[r] for r in rids])
+    return outs[0], outs[1], eng
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_async_depth_equals_jax_engine_with_eos_and_preemption(weights,
+                                                               depth):
+    """At ``async_depth`` 1, 2 and 3 the port commits the JAX engine's
+    tokens at the same depth, as ``tests/test_prefix_sharing.py`` sweeps
+    the JAX engine: EOS found at a commit truncates the speculative tokens
+    dispatched past it, and under a tight pool the in-flight tokens of a
+    preempted sequence are dropped and regenerated."""
+    cfg, jp, tcfg, tp = weights
+    probe = ServeEngine(tcfg, tp, device="cpu", max_batch=2, max_len=48)
+    probe.submit(np.arange(6), max_new=1)
+    first = probe.run_until_drained()[0].out[0]
+    want, got, _ = _serve_both(cfg, jp, tcfg, tp, [np.arange(6)],
+                               max_new=16, eos=first, max_batch=2,
+                               max_len=48, async_depth=depth)
+    assert want == got == [[first]]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, 8).astype(np.int32)
+               for _ in range(2)]
+    want, got, eng = _serve_both(cfg, jp, tcfg, tp, prompts, max_new=12,
+                                 max_batch=2, max_len=24, page_size=4,
+                                 prefill_chunk=8, watermark_blocks=0,
+                                 num_blocks=7, async_depth=depth)
+    assert eng.sched.stats.preemptions > 0
+    assert got == want and all(len(o) == 12 for o in got)
+    assert not eng._inflight
+
+
+def test_decode_step_makes_no_host_sync_or_upload(weights, monkeypatch):
+    """The captured function reads and writes device buffers only: while it
+    runs, every way of reading a tensor on the host or making one from host
+    data raises."""
+    _, _, tcfg, tp = weights
+    eng = ServeEngine(tcfg, tp, device="cpu", **ENGINE)
+    eng._active[:2] = True
+    eng._idx[:2] = torch.tensor([3, 5], dtype=torch.int32)
+    eng._bts[:2, :1] = torch.tensor([[1], [2]], dtype=torch.int32)
+
+    def refuse(*a, **k):
+        raise AssertionError("host sync or upload inside the decode step")
+
+    for name in ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+                 "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    for name in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, refuse)
+    before = eng.last_tok.clone()
+    eng._decode_body()
+    monkeypatch.undo()
+    assert not torch.equal(eng.last_tok[:2], before[:2])
+    assert torch.equal(eng.last_tok[2:], before[2:])
+
+
+class _StandInGraph:
+    """A CUDA graph's behaviour on the CPU: the capture runs the step once
+    (its wrappers count there), a replay runs nothing in Python."""
+
+    def capture(self, fn):
+        fn()
+
+    def replay(self):
+        pass
+
+
+def test_launch_counters_advance_per_replay():
+    """Under a graph a wrapper counts its launch once, at the capture, and
+    the launch runs at every replay: the captured step takes the capture's
+    counts back out and adds them at each replay.  A stand-in graph runs
+    the step's counting at the capture and nothing at a replay, as a CUDA
+    graph would."""
+    from repro_torch.kernels.flash_attention import flash_attention_h100
+    from repro_torch.kernels.matmul import matmul_h100
+    from repro_torch.kernels.ssd_scan import ssd_scan_h100
+    from repro_torch.runtime.graph import CapturedStep
+
+    def step():                         # what the wrappers count at capture
+        matmul_h100.launches += 3
+        matmul_h100.shapes[("mm", 4)] += 3
+        flash_attention_h100.launches += 2
+        flash_attention_h100.shapes[("paged", 4)] += 2
+
+    kernels = (matmul_h100, flash_attention_h100, ssd_scan_h100)
+    before = [(k.launches, dict(k.shapes)) for k in kernels]
+    cs = CapturedStep(step, _StandInGraph())
+    assert [(k.launches, dict(k.shapes)) for k in kernels] == before
+    for _ in range(5):
+        cs()
+    assert cs.replays == 5
+    assert matmul_h100.launches == before[0][0] + 15
+    assert flash_attention_h100.launches == before[1][0] + 10
+    assert ssd_scan_h100.launches == before[2][0]
+    assert matmul_h100.shapes[("mm", 4)] == before[0][1].get(("mm", 4),
+                                                             0) + 15
+    for k in kernels:
+        k.shapes.pop(("mm", 4), None)
+        k.shapes.pop(("paged", 4), None)
+    cs.release()
+
+
+def test_a_held_workspace_refuses_to_grow():
+    """While a captured step holds the split workspaces, a launch that
+    would need more raises instead of moving the buffer under the graph;
+    released, it grows again."""
+    from repro_torch.kernels.workspace import WORKSPACES, Workspace
+    from repro_torch.runtime.graph import CapturedStep
+
+    ws = Workspace("test", torch.float32, 8)
+    dev = torch.device("cpu")
+    buf = ws.get(dev, 4)
+    cs = CapturedStep(lambda: ws.get(dev, 8), _StandInGraph())
+    assert ws.get(dev, 8) is buf
+    with pytest.raises(RuntimeError, match="size it before the capture"):
+        ws.get(dev, 9)
+    cs.release()
+    assert ws.get(dev, 9).numel() == 9
+    WORKSPACES.remove(ws)
