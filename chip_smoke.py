@@ -48,9 +48,12 @@ no phase is caught.
    signatures: a decode step of 4 rows at seq 1 with a mask of every row,
    and again with row 2 masked out (its state must stay bit for bit),
    every chunk length 1..256 with the state in, seq 200 (no multiple of
-   any chunk) with and without a state, through the leaf the dispatch
-   picks; each row also held by relative error (``SSD_REL``) against a
-   planted fault; and every feasible leaf (chunk, bd) at a one-row
+   any chunk) with and without a state, and a prefill chunk's launch (the
+   whole 4-slot state, ``state_rows`` picking slot 3 on the device; the
+   other slots' states bit for bit) in the step body (4 steps) and the
+   chunk body (256 steps for mamba, 32 for hymba), through the leaf the
+   dispatch picks; each row also held by relative error (``SSD_REL``)
+   against a planted fault; and every feasible leaf (chunk, bd) at a one-row
    256-step mamba chunk, timed eagerly and as device time, with the
    napkin's rank beside the card's and the pick's time as a multiple of
    the fastest leaf's.
@@ -77,10 +80,11 @@ no phase is caught.
    C2 at G = 12; the uncached case 3 of transpose and Jacobi at V = 0),
    which ``H100_SXM`` never picks.
 7. serve parity: the llama3, mamba2 and hymba SMOKE configs in f32, each
-   served on ``cuda`` (the kernels, the decode tick replayed from its CUDA
-   graph, at ``async_depth`` 1 and 2) and on ``cpu`` (their plain
-   versions) from the same weights; the greedy tokens are equal, and the
-   graph replays once a decode tick.
+   served on ``cuda`` (the kernels, the decode tick and every prefill
+   chunk replayed from their CUDA graphs, at ``async_depth`` 1 and 2) and
+   on ``cpu`` (their plain versions) from the same weights; the greedy
+   tokens are equal, the decode graph replays once a decode tick, the
+   prefill graphs once a chunk, and no prefill body runs eagerly.
 8. serve, the main paths, each through ``init_model`` (bf16, random weights
    from a seeded ``torch.Generator`` on the card) and
    ``ServeEngine(warm_kernels=True)``, 4 requests of 8 new tokens, every
@@ -89,18 +93,27 @@ no phase is caught.
    ``prefill_chunk`` 256, ``max_len`` 1024), hymba-1.5b at full width (32
    layers) and llama3-8b at full width (32 layers), the last two with
    prompts of 16-64 tokens, ``prefill_chunk`` 32, ``max_len`` 256.  Each
-   engine captures its decode tick in a CUDA graph at construction (the
+   engine captures its decode tick and one prefill graph for each
+   quantized chunk length (nine for mamba2's 256: 256 down to 1; six for
+   32) at construction, all sharing one memory pool (each graph's capture
    time printed).  Every request returns ``max_new`` tokens, each kernel
-   of the path launched (K1 and K3; K1, K2 and K3; K1 and K2), the graph
-   replayed once a decode tick, the launch counts (a replay counting its
+   of the path launched (K1 and K3; K1, K2 and K3; K1 and K2), the decode
+   graph replayed once a decode tick and the prefill graphs once a chunk
+   with no eager prefill body, the launch counts (a replay counting its
    captured launches) match the steps run — K1 per projection, K2 and K3
    one a layer, for every prefill chunk and decode step — no dispatch
    resolved cold after warm-up, and a full-width forward gives finite
-   logits.  The decode tick's host time (from ``step()`` to the replay's
-   return) is printed beside its device time (CUDA events around the
-   replay), over the ticks that ran no prefill chunk.  llama3-8b then
-   serves the same prompts at ``async_depth`` 2: its tokens equal those at
-   depth 1.
+   logits.  The host time of a decode tick (over the ticks that ran no
+   prefill chunk) and of a prefill chunk (by its length), from
+   ``step()`` to the replay's return, is printed beside its device time
+   (CUDA events around the replay), medians.  llama3-8b then serves the
+   same prompts at ``async_depth`` 2: its tokens equal those at depth 1.
+   Then it serves them four times more on its engine, untraced, under
+   ``obs.tracing()`` twice, untraced (the walls with and without the
+   trace; a ``TickSpan`` each tick, nothing but tick spans and admission
+   decisions after warm-up), and once traced under ``torch.profiler``:
+   the device's idle share, 1 − (the device time of every kernel and copy
+   the profiler lists) / the run's wall.
 9. main-path shapes: every launch signature of phase 8 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
    kernel, plain version, the library call, and the bound.  A paged K2
@@ -350,13 +363,14 @@ def work(name: str, sig) -> tuple:
         n = sig[0]
         return (2 * n - 2) * esz, 3.0 * (n - 2), PEAK_FLOPS[torch.float32]
     if name == "ssd_scan_h100":
-        R, S, H, hd, n, _, _, with_state, masked, dtype = sig
-        state_bytes = 4 * R * H * n * hd
+        R, S, H, hd, n, _, _, with_state, masked, srows, dtype = sig
+        state_bytes = 4 * R * H * n * hd          # the R rows read, written
         # a bf16 chunk runs its products on the tensor cores; the step body
         # and f32 run on the CUDA cores in f32
         peak = PEAK_FLOPS[dtype if S > 1 else torch.float32]
         return (2 * R * S * H * hd * esz + 4 * R * S * H + 2 * R * S * n * esz
-                + R * masked + state_bytes * (2 if with_state else 1),
+                + R * masked + 4 * R * (srows > 0)
+                + state_bytes * (2 if with_state else 1),
                 5.0 * R * S * H * n * hd, peak)
     if sig[0] == "paged":
         _, rows, h, hk, sq, _, d, _, _, _, _, _, causal, window, dtype, kv = sig
@@ -675,49 +689,63 @@ def ssd_rel_held(name, y, want, fault) -> tuple:
 def ssd_case(sig, gen, *, timed: bool, leaf_only: bool = False,
              drop: int = -1):
     """K3 at (rows, seq, heads, hd, state, chunk, bd, state given, masked,
-    dtype), the wrapper's ``shapes`` key, on inputs shaped as the model
-    makes them: x, b, c in the compute type, b and c one [rows, seq, state]
-    projection shared across heads, the decay in (0.05, 0.95) and the state
-    in f32, updated in place as the serve path does, with a mask of every
-    row but ``drop`` (none when -1) when masked.  Held against the plain
-    version (a row left out bit for bit; a bf16 launch also by relative
-    error, against a planted fault); timed eagerly and as device time when
-    ``timed`` (the kernel alone when ``leaf_only``)."""
+    state rows, dtype), the wrapper's ``shapes`` key, on inputs shaped as
+    the model makes them: x, b, c in the compute type, b and c one [rows,
+    seq, state] projection shared across heads, the decay in (0.05, 0.95)
+    and the state in f32, updated in place as the serve path does, with a
+    mask of every row but ``drop`` (none when -1) when masked.  With state
+    rows > 0 the state has that many rows and ``state_rows`` sends row r to
+    state row (state rows − 1 − r), as a prefill chunk of slot 3 of 4 is
+    sent; the state rows no index names must stay bit for bit.  Held
+    against the plain version (a row left out bit for bit; a bf16 launch
+    also by relative error, against a planted fault); timed eagerly and as
+    device time when ``timed`` (the kernel alone when ``leaf_only``)."""
     from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
-    R, S, H, hd, n, chunk, bd, with_state, masked, dtype = sig
+    R, S, H, hd, n, chunk, bd, with_state, masked, srows, dtype = sig
     x = torch.randn((R, S, H, hd), generator=gen, device=DEV).to(dtype)
     a = torch.sigmoid(torch.randn((R, S, H), generator=gen,
                                   device=DEV)) * 0.9 + 0.05
     b = torch.randn((R, S, n), generator=gen, device=DEV).to(dtype)
     c = torch.randn((R, S, n), generator=gen, device=DEV).to(dtype)
-    s0 = (torch.randn((R, H, n, hd), generator=gen, device=DEV)
-          if with_state else None)
+    s0 = (torch.randn((srows or R, H, n, hd), generator=gen, device=DEV)
+          if with_state or srows else None)
     mask = (torch.arange(R, device=DEV) != drop) if masked else None
-    kw = dict(chunk=chunk, bd=bd, mask=mask)
+    rows = (srows - 1 - torch.arange(R, device=DEV)).int() if srows else None
+    kw = dict(chunk=chunk, bd=bd, mask=mask, state_rows=rows)
 
     def state():                             # a copy to update in place
-        return s0.clone() if with_state else None
+        return s0.clone() if s0 is not None else None
+
+    def start(st):                           # state0 is None: no state in
+        return st if with_state else None
 
     st = state()
-    y, s1 = ssd_scan_h100(x, a, b, c, st, out_state=st, **kw)
+    y, s1 = ssd_scan_h100(x, a, b, c, start(st), out_state=st, **kw)
     torch.cuda.synchronize()
     ws = state()
-    wy, ws = ssd_scan_plain(x, a, b, c, ws, out_state=ws, **kw)
+    wy, ws = ssd_scan_plain(x, a, b, c, start(ws), out_state=ws, **kw)
     row = {"err": max(held(f"ssd state {sig}", s1, ws, SSD_STATE_TOL),
                       held(f"ssd y {sig}", y, wy, SSD_Y_TOL))}
     if drop >= 0:
-        exact(f"ssd state of masked row {drop} {sig}", s1[drop], s0[drop])
+        kept = int(rows[drop]) if srows else drop
+        exact(f"ssd state of masked row {drop} {sig}", s1[kept], s0[kept])
+    if srows:
+        named = set(rows.tolist())
+        for r in range(srows):
+            if r not in named:
+                exact(f"ssd state row {r} no index names {sig}", s1[r],
+                      s0[r])
     if dtype == torch.bfloat16:
         af = a.clone()
         af[:, S // 2] = 1.0                  # step S // 2 forgets no state
         fs = state()
-        fault, _ = ssd_scan_plain(x, af, b, c, fs, out_state=fs, **kw)
+        fault, _ = ssd_scan_plain(x, af, b, c, start(fs), out_state=fs, **kw)
         row["rel"], row["fault_rel"] = ssd_rel_held(f"ssd {sig}", y, wy,
                                                     fault)
         row["fault"] = "one decay set to 1"
     if timed:
         def launch():
-            return ssd_scan_h100(x, a, b, c, st, out_state=st, **kw)
+            return ssd_scan_h100(x, a, b, c, start(st), out_state=st, **kw)
         time_into(row, "ms", launch, 10)
         row["device_ms"] = graph_ms(launch)
         row["bound_ms"] = max(bound_terms_ms("ssd_scan_h100", sig))
@@ -725,7 +753,7 @@ def ssd_case(sig, gen, *, timed: bool, leaf_only: bool = False,
         if not leaf_only:
             ps = state()
             time_into(row, "plain_ms", lambda: ssd_scan_plain(
-                x, a, b, c, ps, out_state=ps, **kw), 2)
+                x, a, b, c, start(ps), out_state=ps, **kw), 2)
             row["library_ms"] = None
     return row
 
@@ -1218,16 +1246,22 @@ def phase_k3(gen) -> float:
                   (1, 2, 4, 8, 16, 32, 64, 128, 256)]
         cases += [("seq 200, no state", 1, 200, False, False, -1),
                   ("seq 200, state in", 1, 200, True, False, -1)]
-        for name, rows, seq, with_state, masked, drop in cases:
+        # a prefill chunk's launch: the whole 4-slot state, slot 3 picked
+        # on the device, in the step body and in the chunk body
+        cases += [(f"chunk {n}, state row 3 of 4 by state_rows", 1, n, True,
+                   False, -1, 4) for n in (4, 32 if s.state < 64 else 256)]
+        for name, rows, seq, with_state, masked, drop, *srows in cases:
             a = ops.select("ssd_scan_h100", {"SQ": seq, "HD": s.head_dim,
                                              "STATE": s.state}).assignment
             sig = (rows, seq, s.heads, s.head_dim, s.state, a["chunk"],
-                   a["bd"], with_state, masked, torch.bfloat16)
+                   a["bd"], with_state, masked, srows[0] if srows else 0,
+                   torch.bfloat16)
             row = ssd_case(sig, gen, timed=False, drop=drop)
             err = max(err, row["err"])
             say(f"[K3] {arch} {name}: heads {s.heads} hd {s.head_dim} state "
                 f"{s.state} leaf {dict(a)}: {fmt(row)}"
-                f"{'; the masked row kept its state bit for bit' if drop >= 0 else ''}")
+                f"{'; the masked row kept its state bit for bit' if drop >= 0 else ''}"
+                f"{'; the other state rows kept theirs bit for bit' if srows else ''}")
 
     # every feasible leaf at one 256-step mamba chunk: napkin rank, card rank
     R, S, H, hd, n = K3_LEAF_SIG
@@ -1244,7 +1278,7 @@ def phase_k3(gen) -> float:
     rows = {}
     for cand in leaves:
         sig = (R, S, H, hd, n, cand.assignment["chunk"],
-               cand.assignment["bd"], True, False, torch.bfloat16)
+               cand.assignment["bd"], True, False, 0, torch.bfloat16)
         rows[sig] = dict(ssd_case(sig, gen, timed=True, leaf_only=True),
                          score=cand.score)
         err = max(err, rows[sig]["err"])
@@ -1518,14 +1552,22 @@ def phase_parity() -> None:
             eng, on_gpu = _serve(cfg, params_gpu, prompts, DEV,
                                  async_depth=depth, **kw)
             gpu_toks = [r.out for r in on_gpu]
+            st = eng.sched.stats
+            prefills = sum(g.replays for g in eng.prefill_graphs.values())
             say(f"[parity] {cfg.name} f32, cuda kernels, decode graph "
-                f"replayed {eng.graph.replays} times, async_depth {depth}: "
+                f"replayed {eng.graph.replays} times, prefill graphs "
+                f"{prefills} times for {st.prefill_chunks} chunks, eager "
+                f"prefill bodies {eng.eager_prefills}, async_depth {depth}: "
                 f"{gpu_toks}")
-            if eng.graph.replays != eng.sched.stats.decode_ticks:
+            if eng.graph.replays != st.decode_ticks:
                 raise AssertionError(f"{cfg.name}: {eng.graph.replays} "
                                      "graph replays, "
-                                     f"{eng.sched.stats.decode_ticks} decode "
-                                     "ticks")
+                                     f"{st.decode_ticks} decode ticks")
+            if prefills != st.prefill_chunks or eng.eager_prefills:
+                raise AssertionError(f"{cfg.name}: {prefills} prefill graph "
+                                     f"replays and {eng.eager_prefills} eager"
+                                     f" prefills for {st.prefill_chunks} "
+                                     "chunks")
             eng.close()
             if gpu_toks != cpu_toks or any(len(t) != MAX_NEW
                                            for t in gpu_toks):
@@ -1536,13 +1578,14 @@ def phase_parity() -> None:
 
 
 class _TickClock:
-    """Times an engine's decode ticks: the host clock from ``step()``'s
-    start to the graph replay's return, and CUDA events around the replay
-    (the tick's device time), for ticks that ran no prefill chunk."""
+    """Times an engine's steps: the host clock from ``step()``'s start to a
+    graph replay's return, and CUDA events around the replay (its device
+    time), for each prefill chunk (by its length) and for each decode tick
+    that ran no prefill chunk."""
 
     def __init__(self, eng):
-        self.eng, self.graph = eng, eng.graph
-        self.host, self.events = [], []
+        self.eng, self.decode_graph = eng, eng.graph
+        self.host, self.events = {}, {}
         self._t0 = self._chunks = None
         step = eng.step
 
@@ -1551,26 +1594,15 @@ class _TickClock:
             self._chunks = eng.sched.stats.prefill_chunks
             return step()
         eng.step = timed_step
-        eng.graph = self
-
-    def __call__(self):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        self.graph()
-        end.record()
-        if self.eng.sched.stats.prefill_chunks == self._chunks:
-            self.host.append(time.perf_counter() - self._t0)
-            self.events.append((start, end))
-
-    def __getattr__(self, name):               # replays, release, delta
-        return getattr(self.graph, name)
+        eng.graph = _Timed(self, "decode", eng.graph)
+        eng.prefill_graphs = {C: _Timed(self, C, g)
+                              for C, g in eng.prefill_graphs.items()}
 
     def profile(self) -> str:
         """The decode tick's device time by kernel under ``torch.profiler``
         (20 replays of the graph on the last tick's inputs, uncounted):
         K1-K3 and the rest, with the rest's largest kernels."""
-        times = kernel_us(self.graph.graph.replay)
+        times = kernel_us(self.decode_graph.graph.replay)
         groups = {"K1": ("matmul_kernel",),
                   "K2": ("flash_kernel", "combine_kernel"),
                   "K3": ("ssd_",)}
@@ -1589,25 +1621,119 @@ class _TickClock:
                 + "; largest other: "
                 + "; ".join(f"{n} {t:.1f}" for n, t in top))
 
-    def line(self) -> str:
+    def lines(self) -> list:
+        """One line for the decode ticks, one a prefill chunk length:
+        host and device medians (and ranges) in ms."""
         torch.cuda.synchronize()
-        dev = sorted(s.elapsed_time(e) for s, e in self.events)
-        host = sorted(1e3 * t for t in self.host)
-        if not dev:
-            return "no decode-only tick"
-        return (f"decode tick (no prefill chunk in it, {len(dev)} ticks): "
-                f"host {host[len(host) // 2]:.3f} ms median (from step() to "
-                f"the replay's return; {host[0]:.3f}-{host[-1]:.3f}), device "
+        out = []
+        for key in sorted(self.events, key=lambda k: (k != "decode", k)):
+            dev = sorted(s.elapsed_time(e) for s, e in self.events[key])
+            host = sorted(1e3 * t for t in self.host[key])
+            what = ("decode tick (no prefill chunk in it" if key == "decode"
+                    else f"prefill chunk of {key} tokens (one graph replay")
+            out.append(
+                f"{what}, {len(dev)} of them): host {host[len(host) // 2]:.3f}"
+                f" ms median (from step() to the replay's return; "
+                f"{host[0]:.3f}-{host[-1]:.3f}), device "
                 f"{dev[len(dev) // 2]:.3f} ms median (CUDA events around the "
                 f"replay; {dev[0]:.3f}-{dev[-1]:.3f})")
+        return out or ["no step timed"]
+
+
+class _Timed:
+    """One captured step of an engine, timed by ``clock`` under ``key`` at
+    each replay."""
+
+    def __init__(self, clock: _TickClock, key, step):
+        self.clock, self.key, self.step = clock, key, step
+
+    def __call__(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.step()
+        end.record()
+        c = self.clock
+        if self.key != "decode" or \
+                c.eng.sched.stats.prefill_chunks == c._chunks:
+            c.host.setdefault(self.key, []).append(
+                time.perf_counter() - c._t0)
+            c.events.setdefault(self.key, []).append((start, end))
+
+    def __getattr__(self, name):               # replays, graph, delta
+        return getattr(self.step, name)
+
+
+def _serve_wall(eng, prompts) -> tuple:
+    """Serve ``prompts`` on ``eng``; (wall s, outputs, ticks)."""
+    ticks = eng.sched.ticks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
+    done = {r.rid: r.out for r in eng.run_until_drained()}
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, [done[r] for r in rids],
+            eng.sched.ticks - ticks)
+
+
+def phase_trace(eng, prompts, outs) -> None:
+    """llama3-8b served again on its engine under ``obs.tracing()``: the
+    tick count against the ``TickSpan`` count, the wall with and without
+    the trace (alternated, two runs each), and the device's idle share
+    over a traced run under ``torch.profiler``: 1 − (the device time of
+    every kernel and copy it lists) / that run's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    walls = {False: [], True: []}
+    for traced in (False, True, True, False):
+        if traced:
+            with obs.tracing() as rec:
+                wall, toks, ticks = _serve_wall(eng, prompts)
+            spans = [r for r in rec.records() if r["etype"] == "tick_span"]
+            bad = [r for r in rec.records() if r["etype"] not in (
+                "tick_span", "admission_decision")]
+            say(f"[trace] {eng.cfg.name}: {ticks} ticks, {len(spans)} "
+                f"TickSpan records, {len(rec)} records in all "
+                f"({rec.dropped} dropped); median span "
+                f"{sorted(r['duration_us'] for r in spans)[len(spans) // 2]:.1f}"
+                f" us on the engine's clock; other records: {len(bad)}")
+            if len(spans) != ticks or rec.dropped:
+                raise AssertionError(f"{ticks} ticks, {len(spans)} spans")
+            if bad:
+                raise AssertionError(f"records past warm-up: {bad[:2]}")
+        else:
+            wall, toks, ticks = _serve_wall(eng, prompts)
+        walls[traced].append(wall)
+        if toks != outs:
+            raise AssertionError("tokens of a repeated run differ")
+    say(f"[trace] {eng.cfg.name} wall s untraced "
+        f"{', '.join(f'{w:.3f}' for w in walls[False])}, traced "
+        f"{', '.join(f'{w:.3f}' for w in walls[True])} (runs in the order "
+        "untraced, traced, traced, untraced)")
+    with obs.tracing(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall, toks, _ = _serve_wall(eng, prompts)
+    busy_us = 0.0                     # self times: nothing counted twice
+    for e in prof.key_averages():
+        busy_us += (getattr(e, "self_device_time_total", 0)
+                    or getattr(e, "self_cuda_time_total", 0) or 0)
+    if not busy_us or toks != outs:
+        raise AssertionError("the profiler saw no device time, or the "
+                             "profiled run's tokens differ")
+    idle = 1.0 - busy_us / 1e6 / wall
+    say(f"[trace] {eng.cfg.name} device idle share over a traced run under "
+        f"torch.profiler: {idle:.4f} (device busy {busy_us / 1e3:.3f} ms of "
+        f"{1e3 * wall:.3f} ms wall; against the faster traced wall without "
+        f"the profiler {1.0 - busy_us / 1e6 / min(walls[True]):.4f})")
 
 
 def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
-                depths: tuple = (1,)) -> dict:
+                depths: tuple = (1,), traced: bool = False) -> dict:
     """One main path: ``arch`` at full width through ServeEngine; returns
     its name, wall time and each kernel's launches and launch shapes.  Each
     depth of ``depths`` past the first serves the same prompts once more at
-    that ``async_depth``: its tokens must equal the first run's."""
+    that ``async_depth``: its tokens must equal the first run's.  With
+    ``traced``, :func:`phase_trace` serves them again on the engine."""
     from repro_torch.artifacts.dispatch import get_default_cache
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_model
@@ -1626,9 +1752,11 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     stats = get_default_cache().stats
     cold0 = stats.cold_builds
     say(f"[serve] warm-up: {len(eng.kernel_plan)} kernel picks frozen and "
-        f"the decode tick captured in {time.perf_counter() - t0:.1f} s "
-        f"(workspaces, eager step and capture {eng.capture_s:.3f} s); "
-        f"engine {serve_kw}")
+        f"{1 + len(eng.prefill_graphs)} steps captured in "
+        f"{time.perf_counter() - t0:.1f} s (workspaces, eager runs and "
+        f"captures {eng.capture_s:.3f} s); engine {serve_kw}")
+    say(f"[serve] {cfg.name} capture s a graph (its eager run and capture): "
+        + ", ".join(f"{k} {t:.3f}" for k, t in eng.capture_times.items()))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n))
                for n in rng.integers(*prompt_lens, 4)]
@@ -1647,6 +1775,7 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     launches = {n: k.launches for n, k in kernels.items()}
     shapes = {n: dict(k.shapes) for n, k in kernels.items()}
     replays = eng.graph.replays
+    prefill_replays = {C: g.replays for C, g in eng.prefill_graphs.items()}
 
     outs = [done[r] for r in rids]
     for r, p in zip(outs, prompts):
@@ -1665,9 +1794,11 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     steps = st.prefill_chunks + st.decode_ticks
     say(f"[serve] {cfg.name}: {len(outs)} requests, {ntok} tokens in "
         f"{wall:.3f} s: {ntok / wall:.2f} tokens/s; {st.prefill_chunks} "
-        f"prefill chunks, {st.decode_ticks} decode steps, {replays} graph "
-        f"replays")
-    say(f"[serve] {cfg.name} {clock.line()}")
+        f"prefill chunks, {st.decode_ticks} decode steps, {replays} decode "
+        f"graph replays, prefill graph replays by chunk length "
+        f"{prefill_replays}, eager prefill bodies {eng.eager_prefills}")
+    for line in clock.lines():
+        say(f"[serve] {cfg.name} {line}")
     say(f"[serve] {cfg.name} {clock.profile()}")
     say(f"[serve] {cfg.name} launches: {json.dumps(launches)}; matmul per "
         f"prefill chunk or decode step {per_step_mm}, K2 and K3 one a layer "
@@ -1682,6 +1813,11 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     if replays != st.decode_ticks:
         raise AssertionError(f"{replays} graph replays for {st.decode_ticks}"
                              " decode ticks")
+    if sum(prefill_replays.values()) != st.prefill_chunks \
+            or eng.eager_prefills:
+        raise AssertionError(f"prefill graph replays {prefill_replays} and "
+                             f"{eng.eager_prefills} eager prefill bodies for"
+                             f" {st.prefill_chunks} chunks")
     if launches["matmul_h100"] != per_step_mm * steps:
         raise AssertionError("matmul launches do not match the steps run")
     if launches["flash_attention_h100"] != cfg.layers * steps * attn:
@@ -1697,6 +1833,8 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
             tuple(len(p) + MAX_NEW // 2 for p in prompts)[:rows]
             if sq == 1 and rows == len(prompts)
             else (max(sq, round(np.mean([len(p) for p in prompts]))),))
+    if traced:
+        phase_trace(eng, prompts, [r.out for r in outs])
     eng.close()
 
     for depth in depths[1:]:
@@ -1796,8 +1934,8 @@ def phase_host_cost(gen) -> None:
     y = torch.empty_like(x)
     bx = bc[:, :, None, :].expand(R, S, H, N)
     args = (x.data_ptr(), av.data_ptr(), bc.data_ptr(), bc.data_ptr(),
-            st.data_ptr(), y.data_ptr(), st.data_ptr(), mask.data_ptr(), R,
-            S, H, hd, N, 1, fn.keywords["bd"], *bx.stride()[:3],
+            st.data_ptr(), y.data_ptr(), st.data_ptr(), mask.data_ptr(),
+            None, R, 0, S, H, hd, N, 1, fn.keywords["bd"], *bx.stride()[:3],
             *bx.stride()[:3], 1, torch.cuda.current_stream().cuda_stream)
     for label, call in (("wrapper",
                          lambda: fn(x, av, bc, bc, st, out_state=st,
@@ -1872,7 +2010,8 @@ def main() -> int:
     paths = []
     for arch, serve_kw, prompt_lens in PATHS:
         path = phase_serve(arch, serve_kw, prompt_lens,
-                           depths=(1, 2) if arch == "llama3_8b" else (1,))
+                           depths=(1, 2) if arch == "llama3_8b" else (1,),
+                           traced=arch == "llama3_8b")
         paths.append(path)
         for name in SERVE_KERNELS:
             launches[name] += path["launches"][name]

@@ -15,9 +15,14 @@ through a frozen fast lane plus two tiers:
      recurring triple (the serving steady state) costs one dict lookup;
   2. **cold rebuild** — full ``rank_candidates`` over the tree.
 
-The disk tier (precompiled per-machine dispatch tables and trees), runtime
-demotion and the trace hooks of the JAX package's cache are left to later
-slices of the port.
+The disk tier (precompiled per-machine dispatch tables and trees) and
+runtime demotion of the JAX package's cache are left to later slices of the
+port.  Its trace hooks are here: with a flight recorder installed
+(:mod:`repro_torch.obs`) every resolution through the tiers and every
+counted frozen-plan hit emits a ``DispatchDecision``, and
+``sample_frozen_every`` samples the ``warm_callable`` lane, which with
+tracing off stays one module-global load and an ``is None`` test.  Under a
+captured CUDA graph the model dispatches at the capture, not at a replay.
 
 Invariant (tests enforce it): **frozen parity** — ``freeze`` snapshots
 resolutions produced by the very tiers above, so with and without a frozen
@@ -35,6 +40,8 @@ from typing import (Any, Callable, Dict, FrozenSet, Iterable, Iterator, List,
 from ..core.params import MachineDescription
 from ..core.plan import FamilySpec
 from ..core.select import Candidate, rank_candidates
+from ..obs import recorder as obs
+from ..obs.events import DispatchDecision
 
 DispatchKey = Tuple[str, str, Tuple[Tuple[str, int], ...]]
 FrozenKey = Tuple[str, str, FrozenSet[Tuple[str, int]]]
@@ -145,6 +152,15 @@ class DispatchRecord:
         return len(self.requests)
 
 
+def bucket_key(data: Mapping[str, int]) -> str:
+    """Canonical data-shape bucket: each dim rounded up to a power of two."""
+    parts = []
+    for k in sorted(data):
+        v = max(1, int(data[k]))
+        parts.append(f"{k}{1 << (v - 1).bit_length()}")
+    return "|".join(parts)
+
+
 @dataclass
 class DispatchStats:
     """Per-cache resolution counters.  ``memory_hits``/``cold_builds`` are
@@ -168,6 +184,9 @@ class DispatchCache:
         self._lock = threading.Lock()
         self._recorder: Optional[DispatchRecord] = None
         self.frozen_plan: Optional[FrozenDispatchPlan] = None
+        # demotion comes with the fault-tolerance slice: none is recorded
+        # yet, and the metrics registry reads these as the JAX cache's
+        self.degrade_events: List[Any] = []
 
     # -- public API ----------------------------------------------------------
     def best_variant(self, family: FamilySpec, machine: MachineDescription,
@@ -186,6 +205,12 @@ class DispatchCache:
             ent = frozen.get(family.name, machine.name, data)
             if ent is not None:
                 self.stats.frozen_hits += 1   # lock-free => approximate
+                if obs._recorder is not None:
+                    key = (family.name, machine.name,
+                           tuple(sorted((k, int(v))
+                                        for k, v in data.items())))
+                    self._emit_decision(key, ent.candidate, ent.source,
+                                        surface="frozen")
                 return ent.candidate, ent.source
         return self._resolve_tiers(family, machine, data)
 
@@ -199,6 +224,7 @@ class DispatchCache:
             if hit is not None:
                 self._lru.move_to_end(key)
                 self.stats.memory_hits += 1
+                self._emit_decision(key, hit[0], hit[1])
                 return hit
         cand = rank_candidates(family, machine, data)[0]
         with self._lock:
@@ -207,7 +233,31 @@ class DispatchCache:
             self._lru.move_to_end(key)
             while len(self._lru) > self.maxsize:
                 self._lru.popitem(last=False)
+        self._emit_decision(key, cand, "cold")
         return cand, "cold"
+
+    def _emit_decision(self, key: DispatchKey, cand: Candidate, source: str,
+                       surface: str = "resolve") -> None:
+        """Trace one resolution as a :class:`DispatchDecision` — the
+        decision-provenance record (tree leaf + assignment + bucket +
+        deciding ranking).  Every pick is the ranking's top (rank 0) and no
+        demotion marks exist until demotion is ported.  One module-global
+        load when tracing is off."""
+        rec = obs._recorder
+        if rec is None:
+            return
+        rec.emit(DispatchDecision(
+            tick=rec.tick, family=key[0], machine=key[1], data=key[2],
+            bucket=bucket_key(dict(key[2])), leaf=int(cand.leaf_index),
+            assignment=tuple(sorted((k, int(v))
+                             for k, v in cand.assignment.items())),
+            source=source, surface=surface, rank=0, demoted=0))
+
+    def demoted_keys(self, family_name: str, machine_name: str,
+                     data: Mapping[str, int]) -> FrozenSet[Any]:
+        """The triple's demotion marks in effect: none until demotion is
+        ported."""
+        return frozenset()
 
     def __len__(self) -> int:
         return len(self._lru)
@@ -258,10 +308,16 @@ class DispatchCache:
         """The warm op path (``kernels.ops`` wrappers call this per op):
         resolve (family, machine, items) straight to a ready kernel
         callable.  Frozen hit: one alias-dict get, no lock.  Miss: locked
-        LRU (or cold) resolve plus the family's memoized ``instantiate``."""
+        LRU (or cold) resolve plus the family's memoized ``instantiate``.
+        With tracing off (or on at the default sampling) each recorder
+        check is one module-global load and an ``is None`` test;
+        ``FlightRecorder(sample_frozen_every=N)`` samples 1 in N calls."""
         rec = self._recorder
         if rec is not None:
             rec.add(family.name, machine.name, dict(items))
+        orec = obs._recorder
+        if orec is not None and orec.sample_frozen_every:
+            orec.sample_warm(family.name, machine.name, items)
         frozen = self.frozen_plan
         if frozen is not None:
             fn = frozen._fns.get((family, machine.name, items, device))

@@ -9,7 +9,12 @@
 // whole (row, head, hd tile) of S0 before it writes any of it, and no other
 // block touches that tile, so the state is updated in place.  An optional
 // mask [rows] (bytes, 0 = left out) skips rows: a row left out keeps S1 as
-// it was and gets y = 0.
+// it was and gets y = 0.  An optional state_rows [rows] (int32) maps row r
+// of x to row state_rows[r] of S0 and S1, which then hold srows rows; the
+// indices must differ (each names the one block set that touches its
+// tiles), and one outside [0, srows) leaves its row out as the mask does.
+// A prefill chunk passes its layer's whole per-slot state with the slot as
+// the one index, read on the device.
 //
 // Replaces the TPU kernel pallas_ssd_scan (src/repro/kernels/ssd_scan.py:70,
 // _ssd_kernel over ssd_chunk).  The TPU walks chunks as the last, sequential
@@ -84,6 +89,8 @@ struct Args {
   void* y;
   float* s1;
   const unsigned char* mask;            // [rows] or nullptr
+  const int* srow;                      // [rows] state row of each, or nullptr
+  int srows;                            // rows of S0 / S1 when srow is given
   int seq, heads, hd, N, ck, bd;
   long long sb_r, sb_t, sb_h, sc_r, sc_t, sc_h;
   int vec_x, vec_bc;                    // 16-byte copies allowed (bf16)
@@ -100,7 +107,16 @@ size_t fma_smem(int ck, int N, int bd) {
                           2 * (size_t)ck * (N + 1) + (size_t)ck * ck + ck);
 }
 
-// y = 0 for every step of a row the mask leaves out (its columns j0..j0+w).
+// The state row x row r reads and writes: state_rows[r] when given, else r;
+// -1 for a row left out (by the mask, or by an index outside the state).
+__device__ __forceinline__ int state_row(const Args& p, int r) {
+  if (p.mask != nullptr && !p.mask[r]) return -1;
+  if (p.srow == nullptr) return r;
+  const int s = p.srow[r];
+  return s >= 0 && s < p.srows ? s : -1;
+}
+
+// y = 0 for every step of a row left out (its columns j0..j0+w).
 template <typename T>
 __device__ void zero_y(const Args& p, int r, int h, int j0, int w) {
   T* Y = static_cast<T*>(p.y);
@@ -156,7 +172,8 @@ __global__ void __launch_bounds__(kThreads) ssd_step_kernel(const Args p) {
   const int r = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
   const int j0 = blockIdx.y * BD;
   const int w = min(BD, p.hd - j0);
-  if (p.mask != nullptr && !p.mask[r]) {
+  const int sr = state_row(p, r);
+  if (sr < 0) {
     zero_y<T>(p, r, h, j0, w);
     return;
   }
@@ -166,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) ssd_step_kernel(const Args p) {
   const int np = kr * GROUPS;
   const size_t xstep = (size_t)p.heads * p.hd;
   const size_t x0 = (size_t)r * p.seq * xstep + (size_t)h * p.hd + j0;
-  const size_t so = ((size_t)r * p.heads + h) * p.N * p.hd + j0 + v * V;
+  const size_t so = ((size_t)sr * p.heads + h) * p.N * p.hd + j0 + v * V;
 
   float sv[kRows][V];
 #pragma unroll
@@ -286,7 +303,8 @@ __global__ void __launch_bounds__(kThreads) ssd_tc_kernel(const Args p) {
   const int r = blockIdx.x / p.heads, h = blockIdx.x % p.heads;
   const int j0 = blockIdx.y * p.bd;
   const int w = min(p.bd, p.hd - j0);
-  if (p.mask != nullptr && !p.mask[r]) {
+  const int sr = state_row(p, r);
+  if (sr < 0) {
     zero_y<bf16>(p, r, h, j0, w);
     return;
   }
@@ -299,7 +317,7 @@ __global__ void __launch_bounds__(kThreads) ssd_tc_kernel(const Args p) {
   const float* A = p.a + (size_t)r * p.seq * p.heads + h;
   const bf16* B = static_cast<const bf16*>(p.b) + r * p.sb_r + h * p.sb_h;
   const bf16* C = static_cast<const bf16*>(p.c) + r * p.sc_r + h * p.sc_h;
-  const size_t sbase = ((size_t)r * p.heads + h) * p.N * p.hd + j0;
+  const size_t sbase = ((size_t)sr * p.heads + h) * p.N * p.hd + j0;
 
   // chunk k's x, b, c and decays into slot k & 1; rows past its n steps
   // (and columns past w or N) zero, decays past n one
@@ -559,7 +577,8 @@ __global__ void __launch_bounds__(kThreads) ssd_fma_kernel(const Args p) {
   const int h = blockIdx.x % p.heads;
   const int j0 = blockIdx.y * bd;
   const int w = min(bd, p.hd - j0);      // columns of this tile
-  if (p.mask != nullptr && !p.mask[r]) {
+  const int sr = state_row(p, r);
+  if (sr < 0) {
     zero_y<float>(p, r, h, j0, w);
     return;
   }
@@ -569,7 +588,7 @@ __global__ void __launch_bounds__(kThreads) ssd_fma_kernel(const Args p) {
   const float* Cm = static_cast<const float*>(p.c);
   float* Y = static_cast<float*>(p.y);
 
-  const size_t sbase = ((size_t)r * p.heads + h) * N * p.hd + j0;
+  const size_t sbase = ((size_t)sr * p.heads + h) * N * p.hd + j0;
   for (int e = tid; e < N * bd; e += kThreads) {
     const int s = e / bd, j = e % bd;
     Ss[e] = (p.s0 != nullptr && j < w) ? p.s0[sbase + (size_t)s * p.hd + j]
@@ -677,14 +696,16 @@ cudaError_t launch_smem(Kernel kernel, size_t smem,
 
 // Formats it takes (kernels/ssd_scan.py: format_error mirrors these checks):
 // rows, seq, heads, hd, state > 0; 1 <= ck <= min(seq, 128); bd 32 or 64;
-// rows * heads < 2^31; f32 or bf16; s1 given; the chunk body's shared
+// rows * heads and srows * heads < 2^31, srows >= 0 (0 without state_rows);
+// f32 or bf16; s1 given; the chunk body's shared
 // memory within 232,448 bytes.  Up to 8 steps run the step body whatever
 // ck is, when a thread's rows hold the state (state <= 8 * 256 / (bd / 4),
 // or 8 * 256 / bd without 16-byte vectors).
 extern "C" int ssd_scan_h100_launch(const void* x, const void* a,
                                     const void* b, const void* c,
                                     const void* s0, void* y, void* s1,
-                                    const void* mask, int rows, int seq,
+                                    const void* mask, const void* srow,
+                                    int rows, int srows, int seq,
                                     int heads, int hd, int state, int ck,
                                     int bd, long long sb_r, long long sb_t,
                                     long long sb_h, long long sc_r,
@@ -692,13 +713,15 @@ extern "C" int ssd_scan_h100_launch(const void* x, const void* a,
                                     void* stream) {
   if (rows <= 0 || seq <= 0 || heads <= 0 || hd <= 0 || state <= 0 ||
       ck <= 0 || ck > seq || ck > kMaxChunk || (bd != 32 && bd != 64) ||
-      (long long)rows * heads > 0x7fffffff || s1 == nullptr ||
+      (long long)rows * heads > 0x7fffffff || srows < 0 ||
+      (long long)srows * heads > 0x7fffffff || s1 == nullptr ||
       (elem != ELEM_F32 && elem != ELEM_BF16))
     return cudaErrorInvalidValue;
   Args p{x, static_cast<const float*>(a), b, c,
          static_cast<const float*>(s0), y, static_cast<float*>(s1),
-         static_cast<const unsigned char*>(mask), seq, heads, hd, state, ck,
-         bd, sb_r, sb_t, sb_h, sc_r, sc_t, sc_h, 0, 0};
+         static_cast<const unsigned char*>(mask),
+         static_cast<const int*>(srow), srows, seq, heads, hd, state, ck, bd,
+         sb_r, sb_t, sb_h, sc_r, sc_t, sc_h, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(rows * heads, (hd + bd - 1) / bd);
   // the step body while a thread's rows hold the state, with 16-byte

@@ -114,6 +114,7 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
              out_state: Optional[torch.Tensor] = None,
              mask: Optional[torch.Tensor] = None,
+             state_rows: Optional[torch.Tensor] = None,
              machine: MachineDescription = H100_SXM
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, final state) of the Mamba-2 SSD scan (K3), keyed on (SQ, HD,
@@ -122,7 +123,8 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     rows dim (b, c then also [rows, seq, state], shared across heads).  The
     final state goes into ``out_state`` when given (``state0`` itself
     updates in place); rows that ``mask`` [rows] (bool) leaves out keep
-    theirs."""
+    theirs; ``state_rows`` [rows] (int32, batched calls) picks the state
+    row each row reads and writes."""
     unbatched = x.dim() == 3
     if unbatched:
         x, a, b, c = x[None], a[None], b[None], c[None]
@@ -132,5 +134,6 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     fn = get_default_cache().warm_callable(
         SSD_FAMILY, machine, (("SQ", seq), ("HD", hd), ("STATE", state)),
         x.device.type)
-    y, s = fn(x, a, b, c, state0, out_state=out_state, mask=mask)
+    y, s = fn(x, a, b, c, state0, out_state=out_state, mask=mask,
+              state_rows=state_rows)
     return (y[0], s[0]) if unbatched else (y, s)

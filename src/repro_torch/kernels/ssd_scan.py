@@ -25,6 +25,15 @@ state.  This is an in-place update of an f32 buffer only the engine owns;
 the JAX model returns a new state and masks it with ``ssm_mask``.  The
 plain version does the same on the CPU, in place and masked.
 
+**The state row is chosen on the device.**  ``state_rows`` [rows] (int32,
+on the tensors' device, with an ``out_state``) maps each row of x to the
+row of ``state0`` / ``out_state`` it reads and updates in place; the two
+states then have any number of rows, and the indices must differ.  A
+prefill chunk hands in the whole of its layer's per-slot cache with its
+slot as the one index, so the chunk stays one launch and a CUDA graph
+reads the slot from a buffer.  An index outside the state's rows leaves
+its row out, as a mask would (the plain version raises).
+
 B and C are shared across heads (ngroups = 1): the wrapper takes them as
 [rows, seq, state] or as a [rows, seq, heads, state] view with head stride 0
 and passes strides, so no per-head copy is made.
@@ -66,9 +75,10 @@ from . import build
 from .instantiate_cache import CachedInstantiationMixin
 
 _ELEM = {torch.float32: 0, torch.bfloat16: 1}
-#: ssd_scan_h100_launch(x, a, b, c, s0, y, s1, mask, rows, seq, heads, hd,
-#: state, ck, bd, sb_r, sb_t, sb_h, sc_r, sc_t, sc_h, elem, stream)
-_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7
+#: ssd_scan_h100_launch(x, a, b, c, s0, y, s1, mask, state_rows, rows,
+#: srows, seq, heads, hd, state, ck, bd, sb_r, sb_t, sb_h, sc_r, sc_t, sc_h,
+#: elem, stream)
+_ARGTYPES = ((ctypes.c_void_p,) * 9 + (ctypes.c_int,) * 8
              + (ctypes.c_longlong,) * 6 + (ctypes.c_int, ctypes.c_void_p))
 #: threads a block (``kThreads`` in the CUDA source), every body
 THREADS = 256
@@ -156,7 +166,8 @@ def ssd_chunk(xc: torch.Tensor, ac: torch.Tensor, bc: torch.Tensor,
 
 def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
            c: torch.Tensor, state0: Optional[torch.Tensor],
-           out_state: Optional[torch.Tensor], mask: Optional[torch.Tensor]
+           out_state: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+           state_rows: Optional[torch.Tensor] = None
            ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...]]:
     """Validate shapes; returns the state dim and b's and c's (row, step,
     head) strides, the head stride 0 for a [rows, seq, state] projection
@@ -173,9 +184,17 @@ def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             or bs[0] != R or bs[1] != S or (four and bs[2] != H):
         raise ValueError(f"ssd_scan_h100: a {tuple(a.shape)}, b {tuple(bs)}, "
                          f"c {tuple(c.shape)} for x {tuple(x.shape)}")
-    want = (R, H, N, hd)
+    if state_rows is not None and (state_rows.shape != (R,)
+                                   or out_state is None):
+        raise ValueError(f"ssd_scan_h100: state_rows "
+                         f"{tuple(state_rows.shape)} needs the shape ({R},) "
+                         "and an out_state")
     for name, st in (("state0", state0), ("out_state", out_state)):
-        if st is not None and st.shape != want:
+        if st is None:
+            continue
+        want = ((st.shape[0] if state_rows is not None else R), H, N, hd)
+        if st.shape != want or (state_rows is not None
+                                and out_state.shape != st.shape):
             raise ValueError(f"ssd_scan_h100: {name} {tuple(st.shape)}, "
                              f"want {want}")
     if mask is not None and (mask.shape != (R,) or out_state is None):
@@ -197,7 +216,8 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, state0: Optional[torch.Tensor] = None,
                    *, chunk: int, bd: int,
                    out_state: Optional[torch.Tensor] = None,
-                   mask: Optional[torch.Tensor] = None
+                   mask: Optional[torch.Tensor] = None,
+                   state_rows: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: chunks of ``min(chunk, seq)``
     steps (the last one cut at seq) through :func:`ssd_chunk` in f32, from
@@ -205,16 +225,21 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     result (paper Def. 2 ii) and is taken and ignored.  The final state
     goes into ``out_state`` when given (which may be ``state0``: the whole
     scan reads state0 before anything is written), rows that ``mask``
-    leaves out keeping theirs and getting y = 0, as the kernel does.
-    Returns (y in x's type, final state f32)."""
-    N = _check(x, a, b, c, state0, out_state, mask)[0]
+    leaves out keeping theirs and getting y = 0, as the kernel does; with
+    ``state_rows`` row r reads and writes state row ``state_rows[r]`` by
+    indexing.  Returns (y in x's type, final state f32)."""
+    N = _check(x, a, b, c, state0, out_state, mask, state_rows)[0]
     R, S, H, hd = x.shape
+    rows = state_rows.long() if state_rows is not None else None
     xf = x.float().transpose(1, 2)                     # (R, H, S, hd)
     af = a.float().transpose(1, 2)                     # (R, H, S)
     bf = _per_head(b, H).float().transpose(1, 2)       # (R, H, S, N)
     cf = _per_head(c, H).float().transpose(1, 2)
-    St = (state0.float() if state0 is not None else torch.zeros(
-        (R, H, N, hd), dtype=torch.float32, device=x.device))
+    if state0 is None:
+        St = torch.zeros((R, H, N, hd), dtype=torch.float32, device=x.device)
+    else:
+        St = (state0 if rows is None else state0.index_select(0, rows)
+              ).float()
     ck = min(chunk, S)
     ys = []
     for t0 in range(0, S, ck):
@@ -224,7 +249,13 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y = torch.cat(ys, dim=2).transpose(1, 2).to(x.dtype)
     if out_state is None:
         return y, St
-    if mask is None:
+    if rows is not None:
+        if mask is not None:
+            keep = mask.to(torch.bool)[:, None, None, None]
+            St = torch.where(keep, St, out_state.index_select(0, rows))
+            y[~mask.to(torch.bool)] = 0
+        out_state.index_copy_(0, rows, St)
+    elif mask is None:
         out_state.copy_(St)
     else:
         keep = mask.to(torch.bool)
@@ -234,15 +265,19 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 def format_error(rows: int, seq: int, heads: int, hd: int, state: int,
-                 ck: int, bd: int, dtype: torch.dtype) -> Optional[str]:
+                 ck: int, bd: int, dtype: torch.dtype, srows: int = 0
+                 ) -> Optional[str]:
     """Why ``ssd_scan_h100_launch`` refuses this launch, or None: the C
-    entry point's checks (``csrc/ssd_scan.cu``) in Python."""
+    entry point's checks (``csrc/ssd_scan.cu``) in Python.  ``srows`` is
+    the state's row count when ``state_rows`` picks the rows, else 0."""
     checks = [
         (min(rows, seq, heads, hd, state) > 0, "empty operand"),
         (1 <= ck <= min(seq, MAX_CHUNK), f"ck not in 1..min(seq, "
                                          f"{MAX_CHUNK})"),
         (bd in BD, f"bd not in {BD}"),
-        (rows * heads < 1 << 31, "2^31 (row, head) pairs or more"),
+        (max(rows, srows) * heads < 1 << 31,
+         "2^31 (row, head) pairs or more"),
+        (srows >= 0, "negative state rows"),
         (dtype in _ELEM, "not f32 or bf16"),
     ]
     for ok, why in checks:
@@ -262,17 +297,19 @@ def _entry() -> Callable[..., int]:
 def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
             chunk: int, bd: int, out_state: Optional[torch.Tensor] = None,
-            mask: Optional[torch.Tensor] = None
+            mask: Optional[torch.Tensor] = None,
+            state_rows: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = x.device
     if not (x.is_cuda and a.device == dev and b.device == dev
             and c.device == dev
             and (state0 is None or state0.device == dev)
             and (out_state is None or out_state.device == dev)
-            and (mask is None or mask.device == dev)):
+            and (mask is None or mask.device == dev)
+            and (state_rows is None or state_rows.device == dev)):
         raise ValueError("ssd_scan_h100 kernel needs x, a, b, c (state0, "
-                         "out_state, mask) on one CUDA device")
-    N, sb, sc = _check(x, a, b, c, state0, out_state, mask)
+                         "out_state, mask, state_rows) on one CUDA device")
+    N, sb, sc = _check(x, a, b, c, state0, out_state, mask, state_rows)
     dtype = x.dtype
     if dtype not in _ELEM or b.dtype != dtype or c.dtype != dtype:
         raise TypeError(f"ssd_scan_h100 takes x, b, c of one type, f32 or "
@@ -287,11 +324,15 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             and (out_state is None or out_state.is_contiguous())
             and (mask is None or (mask.dtype == torch.bool
                                   and mask.is_contiguous()))
+            and (state_rows is None or (state_rows.dtype == torch.int32
+                                        and state_rows.is_contiguous()))
             and b.stride(-1) == 1 and c.stride(-1) == 1):
-        raise ValueError("ssd_scan_h100 needs contiguous x, a, states and a "
-                         "bool mask, and b, c contiguous in the state dim")
+        raise ValueError("ssd_scan_h100 needs contiguous x, a, states, a "
+                         "bool mask and int32 state_rows, and b, c "
+                         "contiguous in the state dim")
     R, S, H, hd = x.shape
     ck = min(chunk, S)
+    srows = out_state.shape[0] if state_rows is not None else 0
     y = torch.empty_like(x)
     if out_state is None:
         out_state = torch.empty((R, H, N, hd), dtype=torch.float32,
@@ -300,14 +341,15 @@ def _launch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    state0.data_ptr() if state0 is not None else None,
                    y.data_ptr(), out_state.data_ptr(),
                    mask.data_ptr() if mask is not None else None,
-                   R, S, H, hd, N, ck, bd, *sb, *sc, _ELEM[dtype],
+                   state_rows.data_ptr() if state_rows is not None else None,
+                   R, srows, S, H, hd, N, ck, bd, *sb, *sc, _ELEM[dtype],
                    torch._C._cuda_getCurrentRawStream(dev.index))
     if err:
-        build.check(err, f"ssd_scan_h100(chunk={chunk}, bd={bd}): "
-                         f"{format_error(R, S, H, hd, N, ck, bd, dtype)}")
+        why = format_error(R, S, H, hd, N, ck, bd, dtype, srows)
+        build.check(err, f"ssd_scan_h100(chunk={chunk}, bd={bd}): {why}")
     ssd_scan_h100.launches += 1
     ssd_scan_h100.shapes[(R, S, H, hd, N, chunk, bd, state0 is not None,
-                          mask is not None, dtype)] += 1
+                          mask is not None, srows, dtype)] += 1
     return y, out_state
 
 
@@ -315,21 +357,24 @@ def ssd_scan_h100(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   c: torch.Tensor, state0: Optional[torch.Tensor] = None, *,
                   chunk: int, bd: int,
                   out_state: Optional[torch.Tensor] = None,
-                  mask: Optional[torch.Tensor] = None
+                  mask: Optional[torch.Tensor] = None,
+                  state_rows: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y, S_final) of the scan over x [rows, seq, heads, hd], a [rows, seq,
     heads] f32, b, c [rows, seq, state] or [rows, seq, heads, state], from
     ``state0`` [rows, heads, state, hd] f32 (zero when None), the final
     state written into ``out_state`` when given (``state0`` itself updates
     in place), rows that ``mask`` [rows] (bool, with an ``out_state``)
-    leaves out untouched.  CUDA
-    tensors launch the kernel (or raise); CPU tensors run
-    :func:`ssd_scan_plain`.  ``ssd_scan_h100.launches`` counts kernel
-    launches, ``ssd_scan_h100.shapes`` the same launches by (rows, seq,
-    heads, hd, state, chunk, bd, state given, masked, dtype)."""
+    leaves out untouched; with ``state_rows`` [rows] (int32, with an
+    ``out_state``) row r reads and writes state row ``state_rows[r]`` of
+    states of any row count.  CUDA tensors launch the kernel (or raise);
+    CPU tensors run :func:`ssd_scan_plain`.  ``ssd_scan_h100.launches``
+    counts kernel launches, ``ssd_scan_h100.shapes`` the same launches by
+    (rows, seq, heads, hd, state, chunk, bd, state given, masked, state
+    rows picked from (0: none), dtype)."""
     fn = ssd_scan_plain if x.device.type == "cpu" else _launch
     return fn(x, a, b, c, state0, chunk=chunk, bd=bd, out_state=out_state,
-              mask=mask)
+              mask=mask, state_rows=state_rows)
 
 
 ssd_scan_h100.launches = 0

@@ -7,11 +7,14 @@
 
 ``--arch`` takes llama3-8b, mamba2-130m or hymba-1.5b.
 
-``--async-depth`` keeps that many ticks in flight (1: synchronous).  The
-options of the JAX launcher that the port does not serve yet
+``--async-depth`` keeps that many ticks in flight (1: synchronous).
+``--trace PATH`` installs a flight recorder before the engine is built and
+writes the run's trace as JSONL to PATH (``scripts/trace_report.py`` reads
+it); ``--trace-sample N`` also samples 1 in N hits of the frozen dispatch
+lane.  The options of the JAX launcher that the port does not serve yet
 (``--prefix-sharing``, ``--monitor``, ``--degrade``,
-``--plan-dir``/``--strict-plans``, ``--trace``) are accepted and refused by
-the engine with the slice they wait for.
+``--plan-dir``/``--strict-plans``) are accepted and refused by the engine
+with the slice they wait for.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.kernels.flash_attention import flash_attention_h100
 from repro_torch.kernels.matmul import matmul_h100
 from repro_torch.kernels.ssd_scan import ssd_scan_h100
 from repro_torch.models import init_model
+from repro_torch.obs import FlightRecorder, install
 from repro_torch.runtime import ServeEngine
 
 
@@ -60,10 +64,26 @@ def main() -> None:
     ap.add_argument("--degrade", action="store_true")
     ap.add_argument("--max-queue", type=int, default=None)
     ap.add_argument("--deadline-ms", type=float, default=None)
-    ap.add_argument("--trace", default=None, metavar="PATH")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="flight recorder: write the run's trace "
+                         "(scheduling decisions, dispatch resolutions, tick "
+                         "spans) as JSONL to PATH; feed it to "
+                         "scripts/trace_report.py")
+    ap.add_argument("--trace-sample", type=int, default=0, metavar="N",
+                    help="with --trace: sample 1-in-N hits of the frozen "
+                         "warm_callable lane as dispatch_decision records "
+                         "(default 0 = the warm lane stays uncounted)")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="flight-recorder ring size in events; the oldest "
+                         "age out first and are counted as dropped")
     args = ap.parse_args()
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    recorder = None
+    if args.trace:
+        recorder = FlightRecorder(capacity=args.trace_capacity,
+                                  sample_frozen_every=args.trace_sample)
+        install(recorder)
     params = init_model(cfg, seed=args.seed, device=args.device)
     eng = ServeEngine(cfg, params, max_batch=args.max_batch,
                       max_len=args.max_len, page_size=args.block_size,
@@ -75,7 +95,6 @@ def main() -> None:
                       plan_store=args.plan_dir,
                       strict_plans=args.strict_plans,
                       monitor=args.monitor, degrade=args.degrade,
-                      trace=args.trace is not None,
                       max_queue=args.max_queue,
                       deadline_ms=args.deadline_ms, device=args.device)
     if eng.kernel_plan:
@@ -107,6 +126,15 @@ def main() -> None:
           + " ".join(f"{k.__name__}={k.launches}" for k in kernels)
           + f"; cold dispatch builds during the run: "
           f"{stats.cold_builds - cold0}")
+    reg = eng.registry()
+    print(reg.summary_line())
+    for line in reg.kernel_report():
+        print(line)
+    if recorder is not None:
+        with open(args.trace, "w") as fh:
+            fh.write(recorder.export_jsonl())
+        print(f"trace: {recorder.emitted} events "
+              f"({recorder.dropped} dropped) -> {args.trace}")
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 from .config import ModelConfig
 from .transformer import (forward, init_model, init_paged_cache,
                           paged_copy_block, paged_decode_step,
-                          paged_prefill_chunk)
+                          paged_prefill_chunk, paged_prefill_step)
 
 __all__ = [
     "ModelConfig", "forward", "init_model", "init_paged_cache",
     "paged_copy_block", "paged_decode_step", "paged_prefill_chunk",
+    "paged_prefill_step",
 ]

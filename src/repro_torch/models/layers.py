@@ -140,21 +140,25 @@ def ssm_decays(p: Params, x: torch.Tensor) -> torch.Tensor:
 def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               state: Optional[torch.Tensor] = None,
               out_state: Optional[torch.Tensor] = None,
-              mask: Optional[torch.Tensor] = None
+              mask: Optional[torch.Tensor] = None,
+              state_rows: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """SSD block over x (B, S, d) from ``state`` (B, heads, state, hd) f32
     (zero when None); returns (out (B, S, d), final state), the state
     written into ``out_state`` when given (``state`` itself updates in
-    place), rows that ``mask`` (B,) leaves out keeping theirs.  B and C are
-    projected once and shared across heads (ngroups = 1); the scan, prefill
-    chunk or decode step alike, is one K3 call over all rows."""
+    place), rows that ``mask`` (B,) leaves out keeping theirs; with
+    ``state_rows`` (B,) int32 row b reads and writes state row
+    ``state_rows[b]`` of states of any row count.  B and C are projected
+    once and shared across heads (ngroups = 1); the scan, prefill chunk or
+    decode step alike, is one K3 call over all rows."""
     s = cfg.ssm
     B, S, _ = x.shape
     xi = proj(x, p["wx"]).reshape(B, S, s.heads, s.head_dim)
     b = proj(x, p["wb"])                                    # (B, S, state)
     c = proj(x, p["wc"])
     y, new_state = ops.ssd_scan(xi, ssm_decays(p, x), b, c, state,
-                                out_state=out_state, mask=mask)
+                                out_state=out_state, mask=mask,
+                                state_rows=state_rows)
     return proj(y.reshape(B, S, s.heads * s.head_dim), p["wo"]), new_state
 
 

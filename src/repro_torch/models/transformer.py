@@ -19,6 +19,7 @@ output state, so no step allocates or scatters a state.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -123,11 +124,13 @@ def _device(params: Params) -> torch.device:
 
 def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
            ssm_state: Optional[torch.Tensor] = None,
-           ssm_mask: Optional[torch.Tensor] = None, **attn_kw
+           ssm_mask: Optional[torch.Tensor] = None,
+           ssm_rows: Optional[torch.Tensor] = None, **attn_kw
            ) -> torch.Tensor:
     """One block.  The SSD core's final state is written into
     ``ssm_state`` itself (none is kept when it is None), rows that
-    ``ssm_mask`` leaves out keeping theirs.  The hybrid block runs
+    ``ssm_mask`` leaves out keeping theirs, row b at ``ssm_rows[b]`` when
+    given.  The hybrid block runs
     attention and SSD in parallel on separately normed inputs and adds both
     to the residual, then the MLP, as the JAX ``block_apply`` does."""
     h = x
@@ -137,7 +140,8 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if has_ssm(cfg):
         ssd, _ = L.ssm_block(
             lp["ssm"], L.rmsnorm(lp["lns"], x, cfg.norm_eps), cfg,
-            state=ssm_state, out_state=ssm_state, mask=ssm_mask)
+            state=ssm_state, out_state=ssm_state, mask=ssm_mask,
+            state_rows=ssm_rows)
         h = h + ssd
     x = h
     if "mlp" in lp:
@@ -216,37 +220,53 @@ def _layer_kv(cache: Dict[str, torch.Tensor], i: int
     return {"k": cache["k"][i], "v": cache["v"][i]} if "k" in cache else None
 
 
+def paged_prefill_step(params: Params, cfg: ModelConfig,
+                       tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
+                       start: torch.Tensor, block_table: torch.Tensor,
+                       slot: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One chunk of a paged prefill on device inputs only: ``tokens`` (1,
+    C) int at logical offset ``start`` (1,) int32 of the sequence whose
+    block table is ``block_table`` (1, nblk) int32 and whose SSM state is
+    row ``slot`` (1,) int32 of the cache.  The chunk's positions are start
+    + arange(C), its K/V go in at ``start`` and it attends over keys 0 ..
+    start + C - 1 (its length), so end alignment reproduces the causal mask
+    of the JAX layer; each layer hands its whole per-slot SSM state to K3
+    with ``slot`` as the one state row, which resumes from it and updates
+    it in place, so chunks thread the recurrence exactly.  The step reads
+    its inputs on the device and does no host work and no host-device
+    copy, so a CUDA graph can capture it once a chunk length and replay it
+    on new contents of the same tensors.  Returns (last-token logits (1,
+    V), cache)."""
+    C = tokens.shape[1]
+    idx = start.long()
+    positions = idx + torch.arange(C, device=tokens.device)
+    lens = (start + C).to(torch.int32)
+    x = L.embed(params["embed"], tokens.long(), _dtype(cfg))
+    ssm = cache.get("ssm")
+    for i, lp in enumerate(params["layers"]):
+        x = _block(
+            lp, x, cfg, ssm_state=ssm[i] if ssm is not None else None,
+            ssm_rows=slot, positions=positions, cache=_layer_kv(cache, i),
+            cache_index=idx, block_tables=block_table, lengths=lens)
+    x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    return L.unembed(params["embed"], x)[:, 0], cache
+
+
 def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
                         cache: Dict[str, torch.Tensor], cache_index: int,
                         block_table, slot: int = 0
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One chunk of a paged prefill: ``tokens`` (1, C) at logical offset
-    ``cache_index`` of the sequence whose block table is ``block_table``
-    (1, nblk) and whose SSM state is row ``slot``.  The chunk attends over
-    keys 0 .. cache_index + C - 1 (its length, a one-element device tensor),
-    so end alignment reproduces the causal mask of the JAX layer; the SSD
-    core resumes from the slot's state and updates it in place, so chunks
-    thread the recurrence exactly.  Returns (last-token logits (1, V),
-    cache)."""
+    """:func:`paged_prefill_step` from host values, as the JAX function
+    takes them: ``tokens`` (1, C), the offset ``cache_index`` and the
+    ``slot`` as ints, the ``block_table`` (1, nblk); each is uploaded to the
+    params' device first."""
     dev = _device(params)
-    tokens = _long(tokens, dev)
-    start = int(cache_index)
-    slot = int(slot)
-    C = tokens.shape[1]
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
-    positions = start + torch.arange(C, device=dev)
-    bt = _as(block_table, dev, torch.int32)
-    idx = torch.full((1,), start, dtype=torch.long, device=dev)
-    lens = torch.full((1,), start + C, dtype=torch.int32, device=dev)
-    ssm = cache.get("ssm")
-    for i, lp in enumerate(params["layers"]):
-        x = _block(
-            lp, x, cfg,
-            ssm_state=ssm[i, slot:slot + 1] if ssm is not None else None,
-            positions=positions, cache=_layer_kv(cache, i),
-            cache_index=idx, block_tables=bt, lengths=lens)
-    x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params["embed"], x)[:, 0], cache
+    one = functools.partial(torch.full, (1,), dtype=torch.int32, device=dev)
+    return paged_prefill_step(params, cfg, _long(tokens, dev), cache,
+                              one(int(cache_index)),
+                              _as(block_table, dev, torch.int32),
+                              one(int(slot)))
 
 
 def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,26 +1,36 @@
-"""A step captured once in a CUDA graph and replayed every tick (the port's
-counterpart of ``jax.jit`` on the decode step).
+"""Steps captured once in CUDA graphs and replayed every tick (the port's
+counterpart of ``jax.jit`` on the decode step and on each quantized prefill
+chunk length).
 
 :class:`CapturedStep` captures a function that reads and writes only
-static device buffers, then replays it.  Two things a graph changes are
-kept right here:
+static device buffers, then replays it; :class:`StepGraphs` holds an
+engine's captured steps.  Three things graphs change are kept right here:
 
+- **memory**: the steps share one memory pool (on the card,
+  ``torch.cuda.graph_pool_handle()``), so the prefill graphs add no more
+  than the largest one's intermediates.  Replays come in any order, which
+  is safe because every tensor a later step reads (the cache, ``last_tok``,
+  the staging and output buffers) is allocated before any capture: a
+  graph's pool memory holds only intermediates that die within its replay;
 - **workspaces**: the split kernels' scratch buffers
-  (:mod:`repro_torch.kernels.workspace`) are held for as long as the step
-  lives, so none of them can grow (and free the address the graph holds);
-  the caller sizes them before the capture;
+  (:mod:`repro_torch.kernels.workspace`) are held once for all the steps,
+  for as long as they live, so none of them can grow (and free the address
+  a graph holds); the caller sizes them before the first capture;
 - **launch counters**: the kernel wrappers count a launch where they make
   it, which under a capture happens once and runs nothing.  The capture's
   own counts are taken back out and kept as the step's delta, and every
   replay adds the delta: the counters count launches that ran.
 
-The graph is a small object with ``capture(fn)`` and ``replay()``
-(:class:`CudaGraph` on the card), so the CPU tests can stand one in.
+Kernel dispatch (``DispatchCache.warm_callable``) runs at the capture too,
+not at a replay.  A graph is a small object with ``capture(fn)`` and
+``replay()`` (:class:`CudaGraph` on the card), so the CPU tests can stand
+one in.
 """
 from __future__ import annotations
 
 import collections
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Hashable, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -34,14 +44,17 @@ COUNTED = (matmul_h100, flash_attention_h100, ssd_scan_h100)
 
 
 class CudaGraph:
-    """``torch.cuda.CUDAGraph`` behind ``capture(fn)`` / ``replay()``; the
-    capture runs on the side stream ``torch.cuda.graph`` requires."""
+    """``torch.cuda.CUDAGraph`` behind ``capture(fn)`` / ``replay()``, its
+    memory from ``pool`` (a ``torch.cuda.graph_pool_handle()`` the graphs
+    of one engine share); the capture runs on the side stream
+    ``torch.cuda.graph`` requires."""
 
-    def __init__(self) -> None:
+    def __init__(self, pool) -> None:
         self._g = torch.cuda.CUDAGraph()
+        self._pool = pool
 
     def capture(self, fn: Callable[[], None]) -> None:
-        with torch.cuda.graph(self._g):
+        with torch.cuda.graph(self._g, pool=self._pool):
             fn()
 
     def replay(self) -> None:
@@ -51,20 +64,16 @@ class CudaGraph:
 class CapturedStep:
     """``fn`` captured in ``graph``; calling the step replays it.  ``delta``
     holds, per counted wrapper, the launches and launch shapes one replay
-    makes."""
+    makes.  The workspaces must be held while it lives
+    (:class:`StepGraphs` holds them)."""
 
     def __init__(self, fn: Callable[[], None], graph,
                  counted: Sequence[Callable] = COUNTED):
         self.replays = 0
         before = [(k.launches, collections.Counter(k.shapes))
                   for k in counted]
-        self._held: List[torch.Tensor] = [
-            t for ws in WORKSPACES for t in ws.hold(self)]
         try:
             graph.capture(fn)
-        except BaseException:
-            self.release()
-            raise
         finally:
             self.delta: List[Tuple[Callable, int, collections.Counter]] = []
             for k, (n, shapes) in zip(counted, before):
@@ -82,8 +91,35 @@ class CapturedStep:
             k.shapes.update(shapes)
 
     def release(self) -> None:
-        """Drop the graph and let the workspaces grow again."""
+        """Drop the graph."""
+        self.graph = None
+
+
+class StepGraphs:
+    """An engine's captured steps, keyed by name: each captured in a graph
+    from ``make_graph()`` (on the card, one sharing the set's memory pool),
+    the workspaces held once for all of them until :meth:`release`."""
+
+    def __init__(self, make_graph: Callable[[], object]):
+        self._make_graph = make_graph
+        self.steps: Dict[Hashable, CapturedStep] = {}
+        self._held: List[torch.Tensor] = [
+            t for ws in WORKSPACES for t in ws.hold(self)]
+
+    def capture(self, key: Hashable, fn: Callable[[], None]) -> CapturedStep:
+        try:
+            step = CapturedStep(fn, self._make_graph())
+        except BaseException:
+            self.release()
+            raise
+        self.steps[key] = step
+        return step
+
+    def release(self) -> None:
+        """Drop every graph and let the workspaces grow again."""
+        for step in self.steps.values():
+            step.release()
+        self.steps = {}
         for ws in WORKSPACES:
             ws.release(self)
         self._held = []
-        self.graph = None

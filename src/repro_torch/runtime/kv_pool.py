@@ -47,6 +47,8 @@ import collections
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
+from ..obs import recorder as obs
+from ..obs.events import PrefixHit
 
 GARBAGE_BLOCK = 0
 
@@ -281,6 +283,10 @@ class PagedKVPool:
                 self._index.move_to_end(h)
             self.stats.prefix_hits += len(blocks)
             self.stats.prefix_tokens_saved += matched
+            if obs._recorder is not None:     # pool has no tick: use cursor
+                obs._recorder.emit(PrefixHit(tick=obs._recorder.tick,
+                                             blocks=len(blocks),
+                                             tokens=int(matched)))
         return blocks, matched, hashes[min(len(hashes) - 1, matched // ps)]
 
     def release_prefix_cache(self) -> int:

@@ -62,6 +62,8 @@ from typing import Callable, Deque, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import recorder as obs
+from ..obs.events import AdmissionDecision
 from .kv_pool import PREFIX_ROOT, PagedKVPool
 
 Clock = Callable[[], float]
@@ -194,6 +196,20 @@ class Scheduler:
         self.ticks = 0
         self.stats = SchedStats()
 
+    def _emit(self, action: str, rid: int, slot: int = -1) -> None:
+        """Trace one scheduling decision; every action maps 1:1 onto its
+        :class:`SchedStats` counter (``admit``/``wait``/``shed``/
+        ``preempt``/``poison``/``cancel``), so a trace reconstructs the
+        stats exactly.  Tick ids come from the recorder's cursor — the
+        engine advances it every step, so scheduler and dispatch events
+        join on the same tick numbering.  One module-global load when
+        tracing is off."""
+        rec = obs._recorder
+        if rec is not None:
+            rec.emit(AdmissionDecision(tick=rec.tick, action=action,
+                                       rid=int(rid), slot=int(slot),
+                                       queue_depth=len(self.queue)))
+
     # -- client side ----------------------------------------------------------
     def submit(self, req: Request) -> Optional[RequestError]:
         """Queue a request.
@@ -238,6 +254,7 @@ class Scheduler:
             req.error = err
             req.done = True
             self.stats.shed += 1
+            self._emit("shed", req.rid)
             return err
         self.queue.append(req)
         return None
@@ -305,6 +322,7 @@ class Scheduler:
                         continue
                 victim = self._youngest_running()
                 self._preempt(victim)
+                self._emit("preempt", victim.req.rid, victim.slot)
                 plan.preempted.append(victim)
                 if victim is seq:
                     break
@@ -342,6 +360,7 @@ class Scheduler:
                      + max(0, self.pool.num_reclaimable - len(probe)))
             if avail - committed < needed + reserve:
                 self.stats.admission_waits += 1
+                self._emit("wait", req.rid)
                 break                          # strict FIFO: head blocks
             self.queue.popleft()
             seq = SeqState(req=req, slot=slot, target=target,
@@ -356,6 +375,7 @@ class Scheduler:
             self.slots[slot] = seq
             plan.admitted.append(seq)
             self.stats.admissions += 1
+            self._emit("admit", req.rid, slot)
 
         # 3. one prefill chunk: oldest admitted sequence still prefilling.
         # The chunk's write range must be private: shared blocks in it are
@@ -451,6 +471,7 @@ class Scheduler:
         req.done = True
         plan.cancelled.append(req)
         self.stats.cancelled += 1
+        self._emit("cancel", req.rid)
 
     def poison(self, seq: SeqState) -> bool:
         """Reconcile a sequence whose in-flight work faulted: preempt it by
@@ -466,6 +487,7 @@ class Scheduler:
         self._preempt(seq)
         self.stats.preemptions -= 1          # reattribute: fault, not pressure
         self.stats.poisoned += 1
+        self._emit("poison", seq.req.rid, seq.slot)
         return True
 
     # -- internals ------------------------------------------------------------

@@ -365,6 +365,65 @@ def test_gpu_graph_replay_equals_the_eager_step(cuda, arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3_8b", "mamba2_130m", "hymba_1p5b"])
+def test_gpu_prefill_graphs_out_of_capture_order_give_eager_tokens(cuda,
+                                                                   arch):
+    """The prefill graphs share one memory pool and are captured longest
+    chunk first; prompts of 3, 5, 13 and 2 tokens replay them 2, 1, 4, 1,
+    8, 4, 1, 2.  The tokens, SSM states and pool blocks equal an engine
+    that runs every step eagerly, bit for bit; every chunk is one replay
+    and none runs eagerly."""
+    cfg, graphed = _engine(arch, cuda)
+    _, eager = _engine(arch, cuda)
+    eager.close()
+    order = []
+
+    class Logged:
+        def __init__(self, key, step):
+            self.key, self.step = key, step
+
+        def __call__(self):
+            order.append(self.key)
+            self.step()
+
+    capture_order = list(graphed.prefill_graphs)
+    graphed.prefill_graphs = {C: Logged(C, g)
+                              for C, g in graphed.prefill_graphs.items()}
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (3, 5, 13, 2)]
+    outs = []
+    for eng in (graphed, eager):
+        rids = [eng.submit(p, max_new=5) for p in prompts]
+        done = {r.rid: r.out for r in eng.run_until_drained()}
+        outs.append([done[r] for r in rids])
+    assert capture_order == [8, 4, 2, 1]
+    assert order[:len(capture_order)] != capture_order
+    assert sorted(set(order)) == [1, 2, 4, 8]
+    assert outs[0] == outs[1] and all(len(o) == 5 for o in outs[0])
+    assert graphed.eager_prefills == 0
+    assert len(order) == graphed.sched.stats.prefill_chunks
+    assert eager.eager_prefills == eager.sched.stats.prefill_chunks
+    for key in graphed.cache:
+        a, b = graphed.cache[key], eager.cache[key]
+        if key in ("k", "v"):
+            a, b = a[:, 1:], b[:, 1:]
+        assert torch.equal(a, b), key
+    graphed.close()
+
+
+@pytest.mark.gpu
+def test_gpu_chunk_length_without_a_graph_raises(cuda):
+    """On the card a prefill chunk never falls back to an eager step."""
+    _, eng = _engine("mamba2_130m", cuda)
+    del eng.prefill_graphs[2]
+    eng.submit(np.arange(2), max_new=1)
+    with pytest.raises(RuntimeError, match="no prefill graph"):
+        eng.run_until_drained()
+    assert eng.eager_prefills == 0
+    eng.close()
+
+
+@pytest.mark.gpu
 def test_gpu_workspace_cannot_grow_under_a_graph(cuda):
     """Once an engine has captured its decode tick, a launch that would need
     a larger split workspace raises; closing the engine lets it grow.  The
@@ -463,6 +522,36 @@ def test_gpu_ssd_tensor_core_body_in_place(cuda, seq, chunk, bd):
     torch.testing.assert_close(y.float(), wy.float(), rtol=1e-2, atol=1e-2)
     rel = float((y.float() - wy.float()).norm() / wy.float().norm())
     assert rel < 2.0 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("heads,state", [(24, 128), (25, 16)])
+@pytest.mark.parametrize("seq", [1, 5, 64, 200])
+def test_gpu_ssd_state_rows_match_plain(cuda, dtype, tol, heads, state, seq):
+    """``state_rows`` picks rows 4, 0 and 2 of a 5-row state for the 3 rows
+    of x, with x row 1 masked out, in place: the step body (seq 1, 5), the
+    bf16 tensor-core body and the f32 FMA body (64, 200) equal the plain
+    version; the masked row's state and the rows no index names stay bit
+    for bit, and the masked row's y is 0."""
+    x, a, b, c, _ = _ssd_inputs(3, seq, heads, 64, state, cuda, dtype)
+    pool = _t((5, heads, state, 64), 9, cuda)
+    rows = torch.tensor([4, 0, 2], dtype=torch.int32, device=cuda)
+    mask = torch.tensor([True, False, True], device=cuda)
+    kw = dict(chunk=64, bd=32, mask=mask, state_rows=rows)
+    st = pool.clone()
+    n0 = ssd_scan_h100.launches
+    y, s1 = ssd_scan_h100(x, a, b, c, st, out_state=st, **kw)
+    torch.cuda.synchronize()
+    assert s1 is st and ssd_scan_h100.launches == n0 + 1
+    ws = pool.clone()
+    wy, _ = ssd_scan_plain(x, a, b, c, ws, out_state=ws, **kw)
+    for r in (0, 1, 3):
+        assert torch.equal(st[r], pool[r]), r
+    assert not bool(y[1].any())
+    torch.testing.assert_close(st, ws, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(y.float(), wy.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu

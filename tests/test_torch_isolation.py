@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package."""
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+its copy of the observability package ``repro_torch.obs`` included."""
 import os
 import pathlib
 import re
@@ -15,10 +16,13 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax...` now raises
 sys.modules["repro"] = None        # ...and so does `import repro...`
 import repro_torch
+import repro_torch.obs
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
+        "repro_torch.obs.registry"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 assert all(sys.modules[m] is None for m in bad), bad

@@ -540,6 +540,46 @@ def test_ssd_plain_in_place_and_masked_equals_out_of_place(seq):
     assert torch.equal(st[~mask], s0[~mask]) and not bool(y[~mask].any())
 
 
+@pytest.mark.parametrize("seq", [1, 8, 37])
+@pytest.mark.parametrize("masked", [False, True])
+def test_ssd_plain_state_rows_equal_the_gathered_rows(seq, masked):
+    """``state_rows`` maps rows 0-2 of x to rows 4, 0 and 2 of a 5-row
+    state: the result equals the call without it on the gathered rows, in
+    place, and the state rows no index names (1, 3) stay bit for bit; with
+    a mask leaving x row 1 out, its state row (0) also stays and its y is
+    0.  The launch keeps the kernel's launch signature checks."""
+    from repro_torch.kernels.ssd_scan import format_error
+    rng = np.random.default_rng(SEED + 150 + seq)
+    x = torch.from_numpy(rng.standard_normal((3, seq, 3, 16), np.float32))
+    a = torch.from_numpy(rng.uniform(0.05, 0.95, (3, seq, 3)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.standard_normal((3, seq, 8), np.float32))
+    c = torch.from_numpy(rng.standard_normal((3, seq, 8), np.float32))
+    pool = torch.from_numpy(rng.standard_normal((5, 3, 8, 16), np.float32))
+    rows = torch.tensor([4, 0, 2], dtype=torch.int32)
+    mask = torch.tensor([True, False, True]) if masked else None
+    gathered = pool[rows.long()].clone()
+    want_y, want_s = ssd_scan_h100(x, a, b, c, gathered, chunk=16, bd=32,
+                                   out_state=gathered, mask=mask)
+    st = pool.clone()
+    y, s1 = ssd_scan_h100(x, a, b, c, st, chunk=16, bd=32, out_state=st,
+                          mask=mask, state_rows=rows)
+    assert s1 is st
+    assert torch.equal(y, want_y)
+    assert torch.equal(st[rows.long()], want_s)
+    assert torch.equal(st[[1, 3]], pool[[1, 3]])
+    if masked:
+        assert torch.equal(st[0], pool[0]) and not bool(y[1].any())
+    with pytest.raises(ValueError, match="state_rows"):
+        ssd_scan_h100(x, a, b, c, st, chunk=16, bd=32, state_rows=rows)
+    assert format_error(3, seq, 3, 16, 8, min(16, seq), 32, torch.float32,
+                        5) is None
+    assert format_error(3, seq, 3, 16, 8, min(16, seq), 32, torch.float32,
+                        -1) == "negative state rows"
+    assert "2^31" in format_error(3, seq, 3, 16, 8, min(16, seq), 32,
+                                  torch.float32, 1 << 30)
+
+
 def _kernel_rounding(x, a, b, c, ck, one_g=False):
     """The tensor-core body's rounding points, emulated in f32 from a zero
     state (``csrc/ssd_scan.cu``): c·bᵀ from the bf16 inputs as they are; G,

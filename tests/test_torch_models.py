@@ -365,16 +365,17 @@ def _np_state(shape):
 def test_ssm_steps_update_the_cache_in_place(ssm_model, monkeypatch):
     """Each layer of a decode step hands its cache slice ``ssm[i, :B]`` to
     K3 as both the state and the output state, with the decoding rows as a
-    bool mask on the state's device, and a prefill chunk hands the slot's
-    ``ssm[i, slot:slot+1]`` with no mask: no step allocates or scatters an
-    SSM state."""
+    bool mask on the state's device, and a prefill chunk hands the whole
+    ``ssm[i]`` with no mask and its slot as the one int32 state row, on the
+    state's device: no step allocates or scatters an SSM state."""
     from repro_torch.kernels import ops
     _, _, tcfg, tp = ssm_model
     calls = []
     real = ops.ssd_scan
 
     def spy(x, a, b, c, state0=None, **kw):
-        calls.append((state0, kw.get("out_state"), kw.get("mask")))
+        calls.append((state0, kw.get("out_state"), kw.get("mask"),
+                      kw.get("state_rows")))
         return real(x, a, b, c, state0, **kw)
 
     monkeypatch.setattr(ops, "ssd_scan", spy)
@@ -384,14 +385,16 @@ def test_ssm_steps_update_the_cache_in_place(ssm_model, monkeypatch):
     tm.paged_prefill_chunk(tp, tcfg, np.array([[3, 5, 7]]), c, 0,
                            tables[1:], 1)
     assert len(calls) == tcfg.layers
-    for i, (st, out, mask) in enumerate(calls):
+    for i, (st, out, mask, rows) in enumerate(calls):
         assert out is st and mask is None
-        assert st.data_ptr() == ssm[i, 1].data_ptr() and st.shape[0] == 1
+        assert st.data_ptr() == ssm[i].data_ptr() and st.shape == ssm[i].shape
+        assert rows.dtype == torch.int32 and rows.tolist() == [1]
     calls.clear()
     _decode(tp, tcfg, np.array([[5], [7]]), c, np.array([3, 3], np.int32),
             tables, active=np.array([False, True]))
     assert len(calls) == tcfg.layers
-    for i, (st, out, mask) in enumerate(calls):
+    for i, (st, out, mask, rows) in enumerate(calls):
         assert out is st and st.data_ptr() == ssm[i].data_ptr()
         assert mask.dtype == torch.bool and mask.tolist() == [False, True]
+        assert rows is None
     assert c["ssm"] is ssm

@@ -6,6 +6,8 @@ lengths and more requests than slots, so chunked prefill, slot reuse (and
 with it the SSM state reset) and mid-prefill decode all run.  The greedy
 tokens must be equal.
 """
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from repro.runtime import ServeEngine as JEngine
 from repro_torch.artifacts.dispatch import DispatchCache, set_default_cache
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_jax_params
+from repro_torch.models import init_model
+from repro_torch.plans.trace import chunk_lengths
 from repro_torch.runtime import ServeEngine, warm_kernel_dispatch
 
 ENGINE = dict(max_batch=3, max_len=48, page_size=8, prefill_chunk=8)
@@ -107,7 +111,7 @@ def test_engine_without_warmup_resolves_cold_once_per_shape(weights,
 
 @pytest.mark.parametrize("kw", [dict(prefix_sharing=True),
                                 dict(monitor=True), dict(degrade=True),
-                                dict(plan_store="x"), dict(trace=True)])
+                                dict(plan_store="x")])
 def test_later_slices_are_refused_by_name(weights, kw):
     _, _, tcfg, tp = weights
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -267,6 +271,17 @@ def test_async_depth_equals_jax_engine_with_eos_and_preemption(weights,
     assert not eng._inflight
 
 
+def _refuse_host_reads(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("host sync or upload inside the step")
+
+    for name in ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
+                 "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    for name in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, refuse)
+
+
 def test_decode_step_makes_no_host_sync_or_upload(weights, monkeypatch):
     """The captured function reads and writes device buffers only: while it
     runs, every way of reading a tensor on the host or making one from host
@@ -276,16 +291,8 @@ def test_decode_step_makes_no_host_sync_or_upload(weights, monkeypatch):
     eng._active[:2] = True
     eng._idx[:2] = torch.tensor([3, 5], dtype=torch.int32)
     eng._bts[:2, :1] = torch.tensor([[1], [2]], dtype=torch.int32)
-
-    def refuse(*a, **k):
-        raise AssertionError("host sync or upload inside the decode step")
-
-    for name in ("cpu", "item", "tolist", "numpy", "__bool__", "__int__",
-                 "__float__", "__index__"):
-        monkeypatch.setattr(torch.Tensor, name, refuse)
-    for name in ("tensor", "as_tensor", "from_numpy"):
-        monkeypatch.setattr(torch, name, refuse)
     before = eng.last_tok.clone()
+    _refuse_host_reads(monkeypatch)
     eng._decode_body()
     monkeypatch.undo()
     assert not torch.equal(eng.last_tok[:2], before[:2])
@@ -339,19 +346,169 @@ def test_launch_counters_advance_per_replay():
 
 
 def test_a_held_workspace_refuses_to_grow():
-    """While a captured step holds the split workspaces, a launch that
-    would need more raises instead of moving the buffer under the graph;
-    released, it grows again."""
+    """While an engine's captured steps hold the split workspaces (once for
+    all of them), a launch that would need more raises instead of moving
+    the buffer under a graph; released, it grows again."""
     from repro_torch.kernels.workspace import WORKSPACES, Workspace
-    from repro_torch.runtime.graph import CapturedStep
+    from repro_torch.runtime.graph import StepGraphs
 
     ws = Workspace("test", torch.float32, 8)
     dev = torch.device("cpu")
     buf = ws.get(dev, 4)
-    cs = CapturedStep(lambda: ws.get(dev, 8), _StandInGraph())
+    graphs = StepGraphs(_StandInGraph)
+    for key in ("decode", 4, 2):
+        graphs.capture(key, lambda: ws.get(dev, 8))
     assert ws.get(dev, 8) is buf
     with pytest.raises(RuntimeError, match="size it before the capture"):
         ws.get(dev, 9)
-    cs.release()
+    graphs.release()
     assert ws.get(dev, 9).numel() == 9
     WORKSPACES.remove(ws)
+
+
+# ---------------------------------------------------------------------------
+# Prefill chunks on device inputs, one captured step a chunk length
+# ---------------------------------------------------------------------------
+
+ARCHS = ("llama3_8b", "mamba2_130m", "hymba_1p5b")
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def smoke_model(request):
+    cfg = get_smoke_config(request.param).scaled(dtype="float32")
+    return cfg, init_model(cfg, seed=5, device="cpu")
+
+
+def _clone(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("chunk", chunk_lengths(8, 48))
+def test_device_prefill_equals_host_int_path(smoke_model, chunk):
+    """A chunk at ``start`` > 0 for the sequence in slot 2 of 3: the step on
+    device tensors gives the host-int path's logits and cache bit for bit,
+    and both equal the same chunk run on a one-slot SSM state cut out of
+    the cache at that slot (K3's device state row against slicing), the
+    other slots' states untouched."""
+    from repro_torch.models import (init_paged_cache, paged_prefill_chunk,
+                                    paged_prefill_step)
+    cfg, params = smoke_model
+    rng = np.random.default_rng(chunk)
+    start, slot = 5, 2
+    toks = rng.integers(0, cfg.vocab, (1, start + chunk))
+    table = np.array([[3, 1, 4, 0, 0, 0]], np.int32)
+    base = init_paged_cache(cfg, 7, 4, 3, dtype=torch.float32, device="cpu")
+    paged_prefill_chunk(params, cfg, toks[:, :start], base, 0, table, slot)
+    if "ssm" in base:
+        base["ssm"][:, [0, 1]] = torch.randn(base["ssm"][:, :2].shape)
+    host, dev, one = _clone(base), _clone(base), _clone(base)
+    want, _ = paged_prefill_chunk(params, cfg, toks[:, start:], host, start,
+                                  table, slot)
+    i32 = functools.partial(torch.tensor, dtype=torch.int32)
+    got, _ = paged_prefill_step(params, cfg, i32(toks[:, start:]), dev,
+                                i32([start]), i32(table), i32([slot]))
+    assert torch.equal(got, want)
+    for k in base:
+        assert torch.equal(dev[k], host[k]), k
+    if "ssm" in one:
+        one["ssm"] = one["ssm"][:, slot:slot + 1].clone()
+        cut, _ = paged_prefill_chunk(params, cfg, toks[:, start:], one,
+                                     start, table, 0)
+        assert torch.equal(cut, want)
+        assert torch.equal(one["ssm"][:, 0], dev["ssm"][:, slot])
+        assert torch.equal(dev["ssm"][:, :slot], base["ssm"][:, :slot])
+        assert not torch.equal(dev["ssm"][:, slot], base["ssm"][:, slot])
+
+
+def _stage_prefill(eng, seq_blocks, toks, start, slot, final):
+    """What ``_dispatch`` stages for a chunk, written straight into the
+    engine's device buffers (the CPU's)."""
+    eng._pbt.fill_(0)
+    eng._pbt[0, :len(seq_blocks)] = torch.tensor(seq_blocks)
+    eng._ptoks[0, :len(toks)] = torch.tensor(toks)
+    eng._pstart.fill_(start)
+    eng._pslot.fill_(slot)
+    eng._pfinal.fill_(int(final))
+
+
+@pytest.mark.parametrize("final", [False, True])
+def test_prefill_body_makes_no_host_sync_or_upload(smoke_model, monkeypatch,
+                                                   final):
+    """The prefill body reads its tokens, start, slot, block table and
+    final flag on the device, as ``test_decode_step_makes_no_host_sync_or_
+    upload`` holds the decode step: while it runs every way of reading a
+    tensor on the host or making one from host data raises.  Only the
+    chunk that ends the prompt sets ``last_tok[slot]``."""
+    cfg, params = smoke_model
+    eng = ServeEngine(cfg, params, device="cpu", **ENGINE)
+    _stage_prefill(eng, [1, 2], [3, 1, 4, 1], start=3, slot=1, final=final)
+    eng.last_tok.fill_(-1)
+    before = eng.last_tok.clone()
+    _refuse_host_reads(monkeypatch)
+    eng._prefill_body(4)
+    monkeypatch.undo()
+    assert torch.equal(eng.last_tok[1:2], eng._pseed) == final
+    assert torch.equal(eng.last_tok[[0, 2]], before[[0, 2]])
+    assert 0 <= int(eng._pseed) < cfg.vocab
+
+
+def test_prefill_graphs_one_a_chunk_length_and_replays_count(
+        weights, monkeypatch):
+    """With stand-in graphs on the CPU the engine captures the decode step
+    and one prefill step for each chunk length the scheduler can return;
+    every prefill chunk is one replay of its length's step (none runs
+    eagerly), every decode tick one replay of the decode step, and the
+    launch counters (bumped here at each K1, K2 and K3 call, as the
+    wrappers count a launch on the card) move by one replay's launches a
+    replay: K1 a projection, K2 one a layer, per chunk and step.  A chunk
+    length with no step raises."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_h100
+    from repro_torch.kernels.matmul import matmul_h100
+    from repro_torch.runtime.graph import StepGraphs
+    _, _, tcfg, tp = weights
+
+    def counting(name, kernel):
+        real = getattr(ops, name)
+
+        def call(*a, **k):
+            kernel.launches += 1
+            return real(*a, **k)
+        monkeypatch.setattr(ops, name, call)
+
+    counting("matmul", matmul_h100)
+    counting("paged_attention", flash_attention_h100)
+    eng = ServeEngine(tcfg, tp, device="cpu", **ENGINE)
+    eng._capture(StepGraphs(_StandInGraph))
+    assert sorted(eng.prefill_graphs) == sorted(
+        chunk_lengths(ENGINE["prefill_chunk"], ENGINE["max_len"]))
+    assert set(eng.capture_times) == {"decode", *eng.prefill_graphs}
+    for k in (matmul_h100, flash_attention_h100):
+        k.launches = 0
+    for p in _prompts(tcfg.vocab):
+        eng.submit(p, max_new=3)
+    eng.run_until_drained()
+    st = eng.sched.stats
+    assert eng.eager_prefills == 0
+    assert sum(g.replays for g in eng.prefill_graphs.values()) \
+        == st.prefill_chunks > len(_prompts(tcfg.vocab))
+    assert eng.graph.replays == st.decode_ticks
+    steps = st.prefill_chunks + st.decode_ticks
+    assert matmul_h100.launches == (tcfg.layers * 7 + 1) * steps
+    assert flash_attention_h100.launches == tcfg.layers * steps
+    del eng.prefill_graphs[2]
+    eng.submit(np.arange(2), max_new=1)
+    with pytest.raises(RuntimeError, match="no prefill graph for a chunk "
+                                           "of 2 tokens"):
+        eng.run_until_drained()
+    eng.close()
+
+
+def test_ssm_engine_async_depth_2_equals_jax_engine(ssm_weights):
+    """At ``async_depth`` 2 the SSM and hybrid engines commit the JAX
+    engine's tokens, every prefill chunk run through ``_prefill_body``."""
+    cfg, jp, tcfg, tp = ssm_weights
+    want, got, eng = _serve_both(cfg, jp, tcfg, tp, _prompts(cfg.vocab),
+                                 max_new=6, async_depth=2, **ENGINE)
+    assert got == want and all(len(o) == 6 for o in got)
+    assert eng.eager_prefills == eng.sched.stats.prefill_chunks
