@@ -127,6 +127,41 @@ no phase is caught.
    mamba2-130m's decode signature (4, 1, 24, 64, 128), in place with a
    mask as the decode step calls it, through the wrapper, ``ops.ssd_scan``
    and the C entry alone.
+10. the engine options: (b) the port's dispatch tables for ``h100_sxm``
+   (``--quick``) and a llama3-8b serve plan at phase 8's settings, built
+   into a temporary directory by ``python -m
+   repro_torch.launch.compile_artifacts`` and ``plan_artifacts`` (called
+   in-process); an online-warmed and a plan-backed llama3-8b engine
+   (full width, bf16), each start's warm and capture seconds; the
+   plan-backed start makes 0 cold builds and 0 online enumerations
+   (``core.select.STATS``), every pick equals the online pick, and both
+   engines give the same tokens bit for bit on phase 8's prompts; then
+   one table rewritten: the start warns (``StalePlanWarning``) and warms
+   online, and ``strict_plans`` raises ``StalePlanError``.  (a) prefix
+   sharing at full width: eight requests of 8 new tokens whose prompts
+   share a 48-token prefix (three full blocks) and have 8-24 tokens of
+   their own, two of them diverging mid-block (so CoW copies run), served
+   with the leader first, sharing on and off, on the same weights, every
+   launch counter set to 0 just before each run and read just after:
+   prefix hits, tokens saved, CoW copies, prefill chunks, launches and
+   walls; every request returns 8 tokens, the pool's invariants hold, the
+   prefill tokens computed equal the prompt tokens less the tokens saved,
+   a prefill graph replays once a chunk, and the launches match the steps
+   run; bf16 tokens with and without sharing are printed as an agreement
+   count, not held (a tail chunk has another M).  (c) the plan-backed
+   llama3-8b engine, given ``degrade``, takes a ``serve.decode`` fault
+   mid-run: one K1 triple demoted, the steps that launch it captured
+   again (seconds printed), every request finishes, tokens printed as an
+   agreement count.  Then the degrade drill on phase 7's f32 smoke
+   configs at ``async_depth`` 1 and 2, each engine warmed and with
+   ``degrade``: schedule A (a ``serve.prefill`` error at tick 1, a
+   ``serve.decode`` error at tick 6) demotes and recaptures exactly the
+   steps whose recorded triples hold the demoted one (printed by key with
+   seconds), the KV pool, SSM state and ``last_tok`` bit for bit across
+   each recapture, tokens equal to the fault-free run; schedule B (two
+   ``serve.decode`` errors at one tick) poisons and recomputes with equal
+   tokens; schedule C (a fatal fault) propagates, then the engine drains.
+   The pool's invariants are proved every tick.
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -1980,6 +2015,369 @@ def _sums_line(sums) -> str:
         for name, tot in sums.items() if tot["ms"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the engine options on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 8's llama3-8b engine settings, which phase 10 serves at, and the
+#: three of them a serve plan is traced for.
+LLAMA_KW = dict(PATHS[2][1])
+LLAMA_SIZES = {k: LLAMA_KW[k] for k in ("max_len", "max_batch",
+                                        "prefill_chunk")}
+#: Phase 7's smoke engine settings and prompt lengths, for the drill.
+DRILL_KW = dict(max_batch=3, max_len=48, page_size=8, prefill_chunk=8)
+DRILL_LENS = (5, 19, 11, 3, 26)
+
+
+def _fresh_cache(root=None):
+    """A new process-wide dispatch cache (on the tables under ``root``)."""
+    from repro_torch.artifacts import ArtifactStore, DispatchCache
+    from repro_torch.artifacts.dispatch import set_default_cache
+    cache = DispatchCache(store=ArtifactStore(root) if root else None)
+    set_default_cache(cache)
+    return cache
+
+
+def _serve_timed(eng, prompts, staged: bool = False) -> tuple:
+    """Serve ``prompts`` on ``eng`` (``staged``: the first to completion,
+    then the rest); (wall s, outputs in submit order)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids, outs = [], {}
+    batches = [prompts[:1], prompts[1:]] if staged else [prompts]
+    for batch in batches:
+        rids += [eng.submit(p, max_new=MAX_NEW) for p in batch]
+        for r in eng.run_until_drained():
+            if r.error is not None:
+                raise AssertionError(f"request {r.rid}: {r.error}")
+            outs[r.rid] = r.out
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, [outs[r] for r in rids]
+
+
+def _agree(a, b) -> str:
+    same = sum(x == y for p, q in zip(a, b) for x, y in zip(p, q))
+    return f"{same} of {sum(len(p) for p in a)} tokens agree"
+
+
+def _shared_prompts(vocab: int) -> list:
+    """Eight prompts: a 48-token prefix (three full 16-token blocks) and
+    8-24 tokens of their own; the leader's own 16 fill block 3, and two
+    followers take its first 8 of them before they diverge, mid-block, so
+    they map block 3 and copy it on write."""
+    rng = np.random.default_rng(10)
+    prefix = rng.integers(0, vocab, 48)
+    lead_tail = rng.integers(0, vocab, 16)
+    prompts = [np.concatenate([prefix, lead_tail])]
+    for i in range(7):
+        own = rng.integers(0, vocab, int(rng.integers(8, 25)))
+        head = lead_tail[:8] if i < 2 else own[:0]
+        prompts.append(np.concatenate([prefix, head, own]))
+    return prompts
+
+
+def _check_pool(eng) -> None:
+    eng.pool.check_invariants([s.blocks for s in eng.sched.running()])
+
+
+def phase_options() -> None:
+    """The engine options of this slice on the card: (a) prefix sharing at
+    full width, (b) a plan-backed start, (c) the degrade drill."""
+    import tempfile
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import select as tselect
+    from repro_torch.launch import compile_artifacts, plan_artifacts
+    from repro_torch.models import init_model
+    from repro_torch.plans import PlanStore, StalePlanError, StalePlanWarning
+    from repro_torch.runtime import ServeEngine
+    from repro_torch.runtime.serving import warm_kernel_dispatch
+
+    cfg = get_config("llama3_8b")
+    params = init_model(cfg, seed=0, device=DEV)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, int(n))
+               for n in rng.integers(*PATHS[2][2], 4)]
+    kernels = _counters(("matmul_h100", "flash_attention_h100"))
+    with tempfile.TemporaryDirectory() as root:
+        # (b) the disk tier and a serve plan, built by the two CLIs
+        t0 = time.perf_counter()
+        if compile_artifacts.main(["--machine", "h100_sxm", "--out", root,
+                                   "--quick"]) != 0:
+            raise AssertionError("compile_artifacts failed")
+        t_tables = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if plan_artifacts.main([
+                "--config", "llama3_8b", "--out", root,
+                "--max-len", str(LLAMA_KW["max_len"]),
+                "--max-batch", str(LLAMA_KW["max_batch"]),
+                "--prefill-chunk", str(LLAMA_KW["prefill_chunk"])]) != 0:
+            raise AssertionError("plan_artifacts failed")
+        say(f"[options] (b) tables for h100_sxm (--quick) in {t_tables:.3f}"
+            f" s, llama3-8b serve plan in {time.perf_counter() - t0:.3f} s")
+        starts = {}
+        engines = {}
+        for how in ("online", "plan"):
+            cache = _fresh_cache(root)
+            calls = tselect.STATS.enumerate_calls
+            t0 = time.perf_counter()
+            eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV,
+                              plan_store=(PlanStore(root) if how == "plan"
+                                          else False), **LLAMA_KW)
+            total = time.perf_counter() - t0
+            starts[how] = (total - eng.capture_s, eng.capture_s,
+                           cache.stats.cold_builds,
+                           tselect.STATS.enumerate_calls - calls)
+            engines[how] = (eng, cache)
+            say(f"[options] (b) {how} start: warm {starts[how][0]:.3f} s, "
+                f"capture {eng.capture_s:.3f} s ({len(eng.capture_times)} "
+                f"graphs); cold builds {starts[how][2]}, online "
+                f"enumerations {starts[how][3]}; sources "
+                f"{sorted({p['rank_source'] for p in eng.kernel_plan.values()})}")
+        online, plan = engines["online"][0], engines["plan"][0]
+        if starts["plan"][2:] != (0, 0):
+            raise AssertionError(f"plan-backed start resolved: {starts}")
+        diff = [k for k, p in plan.kernel_plan.items()
+                if p["candidate"] != online.kernel_plan[k]["candidate"]]
+        if diff or plan.kernel_plan.keys() != online.kernel_plan.keys():
+            raise AssertionError(f"plan picks differ from online: {diff}")
+        w_on, t_on = _serve_timed(online, prompts)
+        w_plan, t_plan = _serve_timed(plan, prompts)
+        say(f"[options] (b) {len(plan.kernel_plan)} picks equal; tokens "
+            f"bit for bit: {t_plan == t_on} ({_agree(t_on, t_plan)}); "
+            f"walls online {w_on:.3f} s, plan-backed {w_plan:.3f} s; cold "
+            f"builds while serving {engines['plan'][1].stats.cold_builds}")
+        if t_plan != t_on or engines["plan"][1].stats.cold_builds:
+            raise AssertionError("plan-backed tokens differ, or it "
+                                 "resolved cold while serving")
+        # a rewritten table: the start warns and warms online; strict
+        # refuses
+        from repro_torch.artifacts import ArtifactStore
+        store = ArtifactStore(root)
+        table = store.load_dispatch("matmul_h100", "h100_sxm")
+        bucket = next(iter(table["buckets"]))
+        table["buckets"][bucket][0]["score"] += 1.0
+        store.save_dispatch(table)
+        _fresh_cache(root)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            picks = warm_kernel_dispatch(cfg, plan_store=PlanStore(root),
+                                         **LLAMA_SIZES)
+        stale = [w for w in caught
+                 if issubclass(w.category, StalePlanWarning)]
+        _fresh_cache(root)
+        try:
+            warm_kernel_dispatch(cfg, plan_store=PlanStore(root),
+                                 strict_plans=True, **LLAMA_SIZES)
+            refused = False
+        except StalePlanError:
+            refused = True
+        say(f"[options] (b) stale table: {len(stale)} StalePlanWarning, "
+            f"{len(picks)} picks warmed online "
+            f"({sorted({p['rank_source'] for p in picks.values()})}); "
+            f"strict_plans raised StalePlanError: {refused}")
+        if len(stale) != 1 or not picks or not refused:
+            raise AssertionError("the stale plan was not refused")
+        online.close()
+
+        # (a) prefix sharing at full width, on and off, the same weights
+        shared = _shared_prompts(cfg.vocab)
+        runs = {}
+        for share in (False, True):
+            _fresh_cache(root)
+            eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV,
+                              prefix_sharing=share, plan_store=False,
+                              **LLAMA_KW)
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+            wall, toks = _serve_timed(eng, shared, staged=True)
+            launches = {n: k.launches for n, k in kernels.items()}
+            _check_pool(eng)
+            runs[share] = (eng, wall, toks, launches)
+        for share, (eng, wall, toks, launches) in runs.items():
+            st, ps = eng.sched.stats, eng.pool.stats
+            replays = sum(g.replays for g in eng.prefill_graphs.values())
+            steps = st.prefill_chunks + st.decode_ticks
+            say(f"[options] (a) llama3-8b sharing "
+                f"{'on ' if share else 'off'}: {len(toks)} requests, wall "
+                f"{wall:.3f} s; prefill chunks {st.prefill_chunks} (graph "
+                f"replays {replays}), prefill tokens {st.prefill_tokens} of "
+                f"{sum(map(len, shared))}, decode steps {st.decode_ticks}; "
+                f"prefix_hits {ps.prefix_hits}, prefix_tokens_saved "
+                f"{ps.prefix_tokens_saved}, cow_copies {ps.cow_copies}; "
+                f"launches {json.dumps(launches)}")
+            if any(len(t) != MAX_NEW for t in toks):
+                raise AssertionError("a shared-prefix request came back "
+                                     "short")
+            if st.prefill_tokens != sum(map(len, shared)) \
+                    - ps.prefix_tokens_saved:
+                raise AssertionError("prefill tokens computed != prompt "
+                                     "tokens - tokens saved")
+            if replays != st.prefill_chunks or eng.eager_prefills:
+                raise AssertionError("a prefill chunk did not replay once")
+            if launches["matmul_h100"] != (cfg.layers * 7 + 1) * steps or \
+                    launches["flash_attention_h100"] != cfg.layers * steps:
+                raise AssertionError(f"launches {launches} do not match "
+                                     f"{steps} steps")
+        on, off = runs[True], runs[False]
+        ps = on[0].pool.stats
+        if not (on[0].sched.stats.prefill_chunks
+                < off[0].sched.stats.prefill_chunks
+                and ps.cow_copies > 0 and ps.prefix_hits > 0):
+            raise AssertionError("sharing saved no chunk or copied nothing")
+        say(f"[options] (a) sharing saved "
+            f"{off[0].sched.stats.prefill_chunks - on[0].sched.stats.prefill_chunks}"
+            f" prefill chunks and {off[1] - on[1]:.3f} s of wall; bf16 "
+            f"tokens on against off: {_agree(off[2], on[2])} (not held: a "
+            f"tail chunk has another M, so K1 may pick another split)")
+        for eng, *_ in runs.values():
+            eng.close()
+
+        # (c) full width: one K1 triple demoted mid-run, the graphs that
+        # launch it captured again (the model dispatches through the
+        # process-wide cache: the engine's own again)
+        from repro_torch.artifacts.dispatch import set_default_cache
+        from repro_torch.runtime import faults
+        from repro_torch.runtime.faults import FaultSpec
+        eng, cache = engines["plan"]
+        set_default_cache(cache)
+        eng.degrade = True
+        with faults.inject([FaultSpec("serve.decode",
+                                      eng.sched.ticks + 6, "error")]) as inj:
+            wall, toks = _serve_timed(eng, prompts)
+        (ev,) = eng.degrade_events
+        (rec,) = eng.recapture_log
+        say(f"[options] (c) llama3-8b bf16 full width: {len(inj.fired)} "
+            f"fault, {ev.describe()}; recaptured "
+            f"{', '.join(f'{k} {s:.3f} s' for k, s in rec.seconds.items())}"
+            f" (grew workspaces: {rec.grew}; all 7 graphs took "
+            f"{eng.capture_s:.3f} s at start); wall {wall:.3f} s; tokens "
+            f"against the run before: {_agree(t_plan, toks)}")
+        if ev.family != "matmul_h100" or not rec.seconds or any(
+                len(t) != MAX_NEW for t in toks):
+            raise AssertionError("the full-width demotion did not recapture "
+                                 "a K1 step or a request came back short")
+        eng.close()
+    del params, engines, online, plan, eng, runs, on, off
+    torch.cuda.empty_cache()
+    _fresh_cache()
+    phase_drill()
+
+
+def _drill_engine(cfg, params, depth, **kw):
+    from repro_torch.runtime import ServeEngine
+    _fresh_cache()
+    return ServeEngine(cfg, params, device=DEV, warm_kernels=True,
+                       degrade=True, async_depth=depth, **DRILL_KW, **kw)
+
+
+def _drill_serve(eng, prompts, schedule=()):
+    """Serve under ``schedule`` with the pool's invariants proved every
+    tick; a recapture's live state (KV pool, SSM state, ``last_tok``) is
+    held bit for bit.  Returns the outputs in submit order."""
+    from repro_torch.runtime import faults
+    real = eng._recapture
+
+    def held(triple):
+        torch.cuda.synchronize()
+        before = ({k: v.clone() for k, v in eng.cache.items()},
+                  eng.last_tok.clone())
+        steps = {k: s.triples for k, s in eng._graphs.steps.items()}
+        rec = real(triple)
+        for k, v in before[0].items():
+            if not torch.equal(eng.cache[k], v):
+                raise AssertionError(f"a recapture moved the live {k}")
+        if not torch.equal(eng.last_tok, before[1]):
+            raise AssertionError("a recapture moved last_tok")
+        want = list(steps) if rec.grew else [
+            k for k, t in steps.items() if triple in t]
+        if list(rec.seconds) != want:
+            raise AssertionError(f"recaptured {list(rec.seconds)}, the "
+                                 f"steps that launch it are {want}")
+        return rec
+    eng._recapture = held
+    rids = [eng.submit(p, max_new=MAX_NEW) for p in prompts]
+    outs = {}
+    with faults.inject(list(schedule)) as inj:
+        for _ in range(500):
+            for r in eng.step():
+                outs[r.rid] = r.out
+            _check_pool(eng)
+            if not eng.sched.has_work():
+                break
+    for r in eng.run_until_drained():
+        outs[r.rid] = r.out
+    return [outs[r] for r in rids], inj
+
+
+def phase_drill() -> None:
+    """(c) The degrade drill on the f32 smoke configs of phase 7, at
+    ``async_depth`` 1 and 2: schedule A (a prefill error at tick 1, a
+    decode error at tick 6) demotes and recaptures, schedule B (two decode
+    errors at one tick) poisons and recomputes, both with the fault-free
+    tokens; schedule C (a fatal fault) propagates and the engine drains."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.runtime.faults import ANY_TICK, FatalFault, FaultSpec
+    sched_a = [FaultSpec("serve.prefill", 1, "error"),
+               FaultSpec("serve.decode", 6, "error")]
+    sched_b = [FaultSpec("serve.decode", 6, "error")] * 2
+    for arch, _, _ in PATHS:
+        cfg = get_smoke_config(arch).scaled(dtype="float32")
+        params = init_model(cfg, seed=7, device=DEV)
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in DRILL_LENS]
+        for depth in (1, 2):
+            eng = _drill_engine(cfg, params, depth)
+            ref, _ = _drill_serve(eng, prompts)
+            eng.close()
+            eng = _drill_engine(cfg, params, depth)
+            got_a, inj = _drill_serve(eng, prompts, sched_a)
+            recs = "; ".join(
+                f"tick {r.tick} {r.triple[0]}{dict(r.triple[2])}: "
+                + ", ".join(f"{k} {s * 1e3:.1f} ms"
+                            for k, s in r.seconds.items())
+                for r in eng.recapture_log)
+            say(f"[drill] {cfg.name} f32 async_depth {depth} A: "
+                f"{len(inj.fired)} faults, {len(eng.degrade_events)} "
+                f"demotions, recaptured {recs}; tokens equal to the "
+                f"fault-free run: {got_a == ref}")
+            if got_a != ref or not eng.degrade_events or not \
+                    eng.recapture_log:
+                raise AssertionError(f"{cfg.name} schedule A")
+            eng.close()
+            eng = _drill_engine(cfg, params, depth)
+            got_b, inj = _drill_serve(eng, prompts, sched_b)
+            say(f"[drill] {cfg.name} f32 async_depth {depth} B: "
+                f"{len(inj.fired)} faults, poisoned "
+                f"{eng.sched.stats.poisoned}, {len(eng.degrade_events)} "
+                f"demotions, {eng.recaptures} steps recaptured; tokens "
+                f"equal to the fault-free run: {got_b == ref}")
+            if got_b != ref or len(inj.fired) != 2 or \
+                    not eng.sched.stats.poisoned:
+                raise AssertionError(f"{cfg.name} schedule B")
+            eng.close()
+            eng = _drill_engine(cfg, params, depth)
+            try:
+                _drill_serve(eng, prompts,
+                             [FaultSpec("serve.decode", ANY_TICK, "fatal")])
+                raise AssertionError(f"{cfg.name}: the fatal fault did "
+                                     "not propagate")
+            except FatalFault:
+                pass
+            done = eng.run_until_drained()
+            say(f"[drill] {cfg.name} f32 async_depth {depth} C: FatalFault "
+                f"propagated; drained {len(done)} requests, "
+                f"{sum(len(r.out) for r in done)} tokens")
+            if len(done) != len(prompts) or any(len(r.out) != MAX_NEW
+                                                for r in done):
+                raise AssertionError(f"{cfg.name} schedule C: not drained")
+            eng.close()
+    _fresh_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2019,6 +2417,7 @@ def main() -> int:
                 shapes[name][sig] = shapes[name].get(sig, 0) + n
     rows = phase_shapes(shapes, gen)
     phase_host_cost(gen)
+    phase_options()
     for path in paths:
         say(f"[shapes] {path['name']} ({path['wall_ms']:.1f} ms wall), "
             f"kernel time over its launches: "

@@ -34,13 +34,23 @@ class Workspace:
         self._holders = weakref.WeakSet()
         WORKSPACES.append(self)
 
-    def get(self, device: torch.device, n: int) -> torch.Tensor:
-        """The device's buffer, grown to at least ``n`` elements; raises if
-        it would have to grow while a graph holds it.  ``cuda`` and
-        ``cuda:<current>`` name one buffer."""
+    @staticmethod
+    def _device(device) -> torch.device:
+        """``cuda`` and ``cuda:<current>`` name one buffer."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        return device
+
+    def size(self, device) -> int:
+        """Elements the device's buffer has now (0 before its first use)."""
+        buf = self.bufs.get(self._device(device))
+        return 0 if buf is None else buf.numel()
+
+    def get(self, device: torch.device, n: int) -> torch.Tensor:
+        """The device's buffer, grown to at least ``n`` elements; raises if
+        it would have to grow while a graph holds it."""
+        device = self._device(device)
         buf = self.bufs.get(device)
         if buf is None or buf.numel() < n:
             if len(self._holders):

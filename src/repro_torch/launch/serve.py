@@ -8,13 +8,19 @@
 ``--arch`` takes llama3-8b, mamba2-130m or hymba-1.5b.
 
 ``--async-depth`` keeps that many ticks in flight (1: synchronous).
-``--trace PATH`` installs a flight recorder before the engine is built and
-writes the run's trace as JSONL to PATH (``scripts/trace_report.py`` reads
-it); ``--trace-sample N`` also samples 1 in N hits of the frozen dispatch
-lane.  The options of the JAX launcher that the port does not serve yet
-(``--prefix-sharing``, ``--monitor``, ``--degrade``,
-``--plan-dir``/``--strict-plans``) are accepted and refused by the engine
-with the slice they wait for.
+``--prefix-sharing`` maps resident prompt blocks (off for SSM blocks);
+``--degrade`` demotes a failing frozen pick and retries (recapturing the
+steps that launch it); ``--plan-dir DIR`` starts ``--warm-kernels`` from a
+serve plan under DIR (``python -m repro_torch.launch.plan_artifacts``), and
+``--strict-plans`` refuses a stale one.  ``--trace PATH`` installs a flight
+recorder before the engine is built and writes the run's trace as JSONL to
+PATH (``scripts/trace_report.py`` reads it); ``--trace-sample N`` also
+samples 1 in N hits of the frozen dispatch lane.  ``--monitor`` and its
+knobs are accepted and refused by the engine: the kernel monitor is not
+ported yet.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --full --warm-kernels --prefix-sharing --degrade --plan-dir DIR
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.kernels.matmul import matmul_h100
 from repro_torch.kernels.ssd_scan import ssd_scan_h100
 from repro_torch.models import init_model
 from repro_torch.obs import FlightRecorder, install
+from repro_torch.plans import PlanStore
 from repro_torch.runtime import ServeEngine
 
 
@@ -52,16 +59,36 @@ def main() -> None:
                     help="KV pool size in blocks incl. the garbage block")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="max tokens prefilled per engine tick")
-    ap.add_argument("--prefix-sharing", action="store_true")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="map page-aligned prompt blocks already resident "
+                         "in the pool (refcounted, copy-on-write) instead "
+                         "of re-prefilling them; off for SSM-bearing "
+                         "configs")
     ap.add_argument("--async-depth", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--warm-kernels", action="store_true",
                     help="resolve and freeze the serve path's kernel picks "
                          "before the first request")
-    ap.add_argument("--plan-dir", default=None)
-    ap.add_argument("--strict-plans", action="store_true")
-    ap.add_argument("--monitor", action="store_true")
-    ap.add_argument("--degrade", action="store_true")
+    ap.add_argument("--plan-dir", default=None,
+                    help="artifact root holding serve plans (python -m "
+                         "repro_torch.launch.plan_artifacts output; "
+                         "default: $REPRO_ARTIFACT_DIR or ./artifacts)")
+    ap.add_argument("--strict-plans", action="store_true",
+                    help="refuse to start from a serve plan whose recorded "
+                         "dispatch-table digests no longer match this "
+                         "host's tables (default: warn and warm online)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="not ported yet: the engine refuses it, and any of "
+                         "its four knobs below")
+    ap.add_argument("--monitor-window", type=int, default=None)
+    ap.add_argument("--monitor-every", type=int, default=None)
+    ap.add_argument("--swap-threshold", type=float, default=None)
+    ap.add_argument("--swap-patience", type=int, default=None)
+    ap.add_argument("--degrade", action="store_true",
+                    help="graceful degradation: a failed stage demotes a "
+                         "frozen pick down the ranking, recaptures the "
+                         "steps that launch it and retries once; a second "
+                         "failure preempts the stage's sequences")
     ap.add_argument("--max-queue", type=int, default=None)
     ap.add_argument("--deadline-ms", type=float, default=None)
     ap.add_argument("--trace", default=None, metavar="PATH",
@@ -92,9 +119,14 @@ def main() -> None:
                       prefix_sharing=args.prefix_sharing,
                       async_depth=args.async_depth,
                       warm_kernels=args.warm_kernels,
-                      plan_store=args.plan_dir,
+                      plan_store=(PlanStore(args.plan_dir)
+                                  if args.plan_dir else None),
                       strict_plans=args.strict_plans,
-                      monitor=args.monitor, degrade=args.degrade,
+                      monitor=args.monitor or any(
+                          v is not None for v in (
+                              args.monitor_window, args.monitor_every,
+                              args.swap_threshold, args.swap_patience)),
+                      degrade=args.degrade,
                       max_queue=args.max_queue,
                       deadline_ms=args.deadline_ms, device=args.device)
     if eng.kernel_plan:
@@ -130,6 +162,16 @@ def main() -> None:
     print(reg.summary_line())
     for line in reg.kernel_report():
         print(line)
+    print(eng.robustness_line())
+    if eng.prefix_sharing:
+        ps = eng.pool.stats
+        print(f"prefix sharing: hits={ps.prefix_hits} tokens saved="
+              f"{ps.prefix_tokens_saved} cow copies={ps.cow_copies}")
+    for ev in eng.degrade_events:
+        print(f"degrade {ev.describe()}")
+    for rc in eng.recapture_log:
+        print(f"recaptured {sorted(map(str, rc.seconds))} in "
+              f"{sum(rc.seconds.values()):.3f} s (tick {rc.tick})")
     if recorder is not None:
         with open(args.trace, "w") as fh:
             fh.write(recorder.export_jsonl())

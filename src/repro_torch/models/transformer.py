@@ -208,7 +208,11 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
 def paged_copy_block(cache: Dict[str, torch.Tensor], src: int,
                      dst: int) -> Dict[str, torch.Tensor]:
     """Copy physical block ``src`` into ``dst`` in every layer (in place);
-    the per-slot SSM state is not paged and does not move."""
+    the per-slot SSM state is not paged and does not move.  The engine's
+    copy-on-write for a shared prefix block: on the card two eager
+    launches (one for K, one for V, across every layer), enqueued on the
+    stream with no host sync, before the tick's captured steps; the JAX
+    counterpart is plain ``jnp`` too, not a Pallas kernel."""
     for key in ("k", "v"):
         if key in cache:
             cache[key][:, int(dst)] = cache[key][:, int(src)]

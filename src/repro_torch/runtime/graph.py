@@ -22,18 +22,25 @@ engine's captured steps.  Three things graphs change are kept right here:
   replay adds the delta: the counters count launches that ran.
 
 Kernel dispatch (``DispatchCache.warm_callable``) runs at the capture too,
-not at a replay.  A graph is a small object with ``capture(fn)`` and
-``replay()`` (:class:`CudaGraph` on the card), so the CPU tests can stand
-one in.
+not at a replay, so each capture records, under ``DispatchCache.record()``,
+the dispatch triples its step resolved (``CapturedStep.triples``).  A
+graph keeps the kernels it was captured with: when a frozen pick is
+demoted, the steps whose triples hold it are captured again
+(:meth:`StepGraphs.recapture`, in place: the step keeps its replay count),
+and if the new picks need larger workspaces every step is
+(:meth:`StepGraphs.regrow`).  A graph is a small object with
+``capture(fn)`` and ``replay()`` (:class:`CudaGraph` on the card), so the
+CPU tests can stand one in.
 """
 from __future__ import annotations
 
 import collections
-from typing import (Callable, Dict, Hashable, List, Optional,
+from typing import (Callable, Dict, FrozenSet, Hashable, List, Optional,
                     Sequence, Tuple)
 
 import torch
 
+from ..artifacts.dispatch import DispatchKey, get_default_cache
 from ..kernels.flash_attention import flash_attention_h100
 from ..kernels.matmul import matmul_h100
 from ..kernels.ssd_scan import ssd_scan_h100
@@ -64,26 +71,42 @@ class CudaGraph:
 class CapturedStep:
     """``fn`` captured in ``graph``; calling the step replays it.  ``delta``
     holds, per counted wrapper, the launches and launch shapes one replay
-    makes.  The workspaces must be held while it lives
-    (:class:`StepGraphs` holds them)."""
+    makes, and ``triples`` the dispatch triples (family, machine, sorted
+    data items) the capture resolved through the process-wide dispatch
+    cache, the one the model's ops consult.  The workspaces must be held
+    while it lives (:class:`StepGraphs` holds them)."""
 
     def __init__(self, fn: Callable[[], None], graph,
                  counted: Sequence[Callable] = COUNTED):
+        self.fn = fn
         self.replays = 0
+        self._counted = tuple(counted)
+        self.graph: Optional[object] = None
+        self.triples: FrozenSet[DispatchKey] = frozenset()
+        self.capture(graph)
+
+    def capture(self, graph) -> None:
+        """Capture ``fn`` into ``graph`` (the step's previous graph, if any,
+        must have been released)."""
         before = [(k.launches, collections.Counter(k.shapes))
-                  for k in counted]
+                  for k in self._counted]
         try:
-            graph.capture(fn)
+            with get_default_cache().record() as rec:
+                graph.capture(self.fn)
         finally:
             self.delta: List[Tuple[Callable, int, collections.Counter]] = []
-            for k, (n, shapes) in zip(counted, before):
+            for k, (n, shapes) in zip(self._counted, before):
                 self.delta.append((k, k.launches - n, k.shapes - shapes))
                 k.launches = n
                 k.shapes.clear()
                 k.shapes.update(shapes)
-        self.graph: Optional[object] = graph
+        self.triples = frozenset(rec.requests)
+        self.graph = graph
 
     def __call__(self) -> None:
+        if self.graph is None:
+            raise RuntimeError("this captured step was released: no graph "
+                               "to replay")
         self.graph.replay()
         self.replays += 1
         for k, n, shapes in self.delta:
@@ -98,15 +121,20 @@ class CapturedStep:
 class StepGraphs:
     """An engine's captured steps, keyed by name: each captured in a graph
     from ``make_graph()`` (on the card, one sharing the set's memory pool),
-    the workspaces held once for all of them until :meth:`release`."""
+    the workspaces held once for all of them from the first capture until
+    :meth:`release`."""
 
     def __init__(self, make_graph: Callable[[], object]):
         self._make_graph = make_graph
         self.steps: Dict[Hashable, CapturedStep] = {}
-        self._held: List[torch.Tensor] = [
-            t for ws in WORKSPACES for t in ws.hold(self)]
+        self._held: Optional[List[torch.Tensor]] = None
+
+    def _hold(self) -> None:
+        if self._held is None:
+            self._held = [t for ws in WORKSPACES for t in ws.hold(self)]
 
     def capture(self, key: Hashable, fn: Callable[[], None]) -> CapturedStep:
+        self._hold()
         try:
             step = CapturedStep(fn, self._make_graph())
         except BaseException:
@@ -115,6 +143,32 @@ class StepGraphs:
         self.steps[key] = step
         return step
 
+    def recapture(self, key: Hashable) -> CapturedStep:
+        """Capture step ``key`` again from its own function into a new graph
+        (after dropping its old one); its replay count carries on.  A
+        failed capture releases every step and raises."""
+        step = self.steps[key]
+        step.release()
+        self._hold()
+        try:
+            step.capture(self._make_graph())
+        except BaseException:
+            self.release()
+            raise
+        return step
+
+    def regrow(self, grow: Callable[[], None]) -> None:
+        """Drop every step's graph and the hold on the workspaces, run
+        ``grow`` (which may now enlarge them), and hold them again; the
+        caller then recaptures every step."""
+        for step in self.steps.values():
+            step.release()
+        for ws in WORKSPACES:
+            ws.release(self)
+        self._held = None
+        grow()
+        self._hold()
+
     def release(self) -> None:
         """Drop every graph and let the workspaces grow again."""
         for step in self.steps.values():
@@ -122,4 +176,4 @@ class StepGraphs:
         self.steps = {}
         for ws in WORKSPACES:
             ws.release(self)
-        self._held = []
+        self._held = None

@@ -49,6 +49,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from ..obs import recorder as obs
 from ..obs.events import PrefixHit
+from . import faults
 
 GARBAGE_BLOCK = 0
 
@@ -154,6 +155,12 @@ class PagedKVPool:
         prefix blocks (LRU) before refusing."""
         if n < 0:
             raise ValueError(f"alloc({n})")
+        spec = faults.maybe_fault("pool.alloc")
+        if spec is not None and spec.kind == "exhaust":
+            # injected burst pressure: refuse exactly like a real shortfall
+            # (the scheduler's head-room/preemption machinery must absorb it)
+            self.stats.alloc_failures += 1
+            return None
         if n > len(self._free) + self.num_reclaimable:
             self.stats.alloc_failures += 1
             return None

@@ -56,17 +56,15 @@ deterministically after re-admission).
 from __future__ import annotations
 
 import collections
-import time
 from dataclasses import dataclass, field
-from typing import Callable, Deque, List, Optional, Tuple
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 
 from ..obs import recorder as obs
 from ..obs.events import AdmissionDecision
+from . import faults
 from .kv_pool import PREFIX_ROOT, PagedKVPool
-
-Clock = Callable[[], float]
 
 
 class RequestError(ValueError):
@@ -177,7 +175,7 @@ class Scheduler:
                  watermark_blocks: Optional[int] = None,
                  prefix_sharing: bool = False,
                  max_queue: Optional[int] = None,
-                 clock: Clock = time.monotonic):
+                 clock: faults.Clock = faults.default_clock):
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1: {prefill_chunk}")
         if max_queue is not None and max_queue < 1:
@@ -201,9 +199,9 @@ class Scheduler:
         :class:`SchedStats` counter (``admit``/``wait``/``shed``/
         ``preempt``/``poison``/``cancel``), so a trace reconstructs the
         stats exactly.  Tick ids come from the recorder's cursor — the
-        engine advances it every step, so scheduler and dispatch events
-        join on the same tick numbering.  One module-global load when
-        tracing is off."""
+        engine advances it alongside the fault injector's, so scheduler,
+        fault, and dispatch events join on the same tick numbering.  One
+        module-global load when tracing is off."""
         rec = obs._recorder
         if rec is not None:
             rec.emit(AdmissionDecision(tick=rec.tick, action=action,

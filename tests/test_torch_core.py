@@ -612,3 +612,58 @@ def test_matmul_every_feasible_leaf_launches():
             assert fn.keywords["stages"] == 1
         torch.testing.assert_close(fn(a, b).double(), want, rtol=1e-4,
                                    atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Pure-Python copies: the originals' code, imports aside
+# ---------------------------------------------------------------------------
+
+COPIES = ("runtime/ft", "runtime/faults", "runtime/kv_pool",
+          "runtime/scheduler", "artifacts/serde", "artifacts/store",
+          "plans/store")
+
+
+def _code(path) -> str:
+    """The module's AST with docstrings and imports taken out: what a copy
+    must keep of the original (every import of these modules is relative,
+    so the imports are equal as well; comments are not in the AST)."""
+    import ast
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list):
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    body[0].value, ast.Constant) and isinstance(
+                    body[0].value.value, str):
+                body = body[1:]
+            node.body = [n for n in body if not isinstance(
+                n, (ast.Import, ast.ImportFrom))] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("module", COPIES)
+def test_pure_python_copies_equal_the_originals(module):
+    import pathlib
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    orig = src / "repro" / f"{module}.py"
+    copy = src / "repro_torch" / f"{module}.py"
+    assert _code(copy) == _code(orig)
+    imports = {l for l in orig.read_text().splitlines()
+               if l.startswith(("from ", "import "))}
+    assert imports == {l for l in copy.read_text().splitlines()
+                       if l.startswith(("from ", "import "))}
+
+
+def test_dispatch_cache_keeps_the_jax_caches_surface():
+    """The port's ``DispatchCache`` has every public method and property of
+    the JAX package's (the disk tier, demotion and the frozen lane's
+    republish among them); ``warm_callable`` keys on the device type."""
+    import inspect
+    from repro.artifacts.dispatch import DispatchCache as JCache
+    public = {n for n in dir(JCache) if not n.startswith("_")}
+    assert public <= {n for n in dir(DispatchCache) if not n.startswith("_")}
+    for name in ("demote", "freeze_resolved", "unfreeze", "frozen_entry",
+                 "rank_source", "attach_store", "clear"):
+        assert name in public
+    assert "device" in inspect.signature(
+        DispatchCache.warm_callable).parameters

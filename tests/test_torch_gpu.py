@@ -737,3 +737,147 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
         jacobi1d_h100(m[0].bfloat16(), 2, B=32, s=1)
     with pytest.raises(ValueError):                     # not a vector
         jacobi1d_h100(m, 2, B=32, s=1)
+
+
+# ---------------------------------------------------------------------------
+# The engine options on the card: degrade with recapture, prefix sharing,
+# serve plans
+# ---------------------------------------------------------------------------
+
+def _f32_engine(arch, dev, seed=5, **kw):
+    """An f32 smoke engine on ``dev`` with weights made on the CPU (the
+    same weights on either device)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    from repro_torch.runtime import ServeEngine
+
+    def to(node):
+        if isinstance(node, dict):
+            return {k: to(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to(v) for v in node]
+        return node.to(dev)
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    params = to(init_model(cfg, seed=seed, device="cpu"))
+    for k, v in dict(max_batch=3, max_len=64, page_size=4,
+                     prefill_chunk=8).items():
+        kw.setdefault(k, v)
+    return cfg, ServeEngine(cfg, params, device=dev, **kw)
+
+
+def _serve_all(eng, prompts, max_new=5):
+    rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    done = {r.rid: r.out for r in eng.run_until_drained()}
+    return [done[r] for r in rids]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3_8b", "mamba2_130m"])
+def test_gpu_mid_serve_demotion_recaptures_only_the_affected_steps(cuda,
+                                                                   arch):
+    """A ``serve.decode`` fault mid-serve under ``degrade`` demotes a
+    frozen pick on the card; the engine captures again only the steps
+    whose recorded triples hold it, the KV pool, SSM state and
+    ``last_tok`` stay bit for bit across the recapture, and the f32 tokens
+    equal the CPU engine's."""
+    from repro_torch.artifacts.dispatch import (DispatchCache,
+                                                set_default_cache)
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.faults import FaultSpec
+    set_default_cache(DispatchCache())
+    try:
+        cfg, cpu = _f32_engine(arch, "cpu", warm_kernels=True)
+        rng = np.random.default_rng(9)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (13, 7, 21)]
+        want = _serve_all(cpu, prompts)
+        set_default_cache(DispatchCache())
+        _, eng = _f32_engine(arch, cuda, warm_kernels=True, degrade=True)
+        triples = {k: s.triples for k, s in eng._graphs.steps.items()}
+        snaps = []
+        real = eng._recapture
+
+        def watched(triple):
+            torch.cuda.synchronize()
+            before = ({k: v.clone() for k, v in eng.cache.items()},
+                      eng.last_tok.clone())
+            rec = real(triple)
+            snaps.append((before, ({k: v.clone() for k, v in
+                                    eng.cache.items()},
+                                   eng.last_tok.clone())))
+            return rec
+        eng._recapture = watched
+        with faults.inject([FaultSpec("serve.decode", 6, "error")]) as inj:
+            got = _serve_all(eng, prompts)
+        assert len(inj.fired) == 1 and len(eng.degrade_events) == 1
+        (rec,) = eng.recapture_log
+        assert list(rec.seconds) == [k for k, t in triples.items()
+                                     if rec.triple in t] or rec.grew
+        assert 0 < len(rec.seconds) and eng.recapture_s > 0
+        (before, after), = snaps
+        for k in before[0]:
+            assert torch.equal(before[0][k], after[0][k]), k
+        assert torch.equal(before[1], after[1])
+        assert got == want
+        eng.close()
+    finally:
+        set_default_cache(None)
+        faults.install(None)
+
+
+@pytest.mark.gpu
+def test_gpu_prefix_shared_run_equals_cpu_and_sharing_off(cuda):
+    """A shared-prefix f32 llama smoke run on the card (mapped blocks read
+    through the tables, CoW copies on the device) gives the CPU run's
+    tokens and the sharing-off run's."""
+    rng = np.random.default_rng(0)
+    cfg, _ = _f32_engine("llama3_8b", "cpu")
+    lead = rng.integers(0, cfg.vocab, 24).astype(np.int32)
+    prompts = [lead] + [np.concatenate([lead[:22], rng.integers(
+        0, cfg.vocab, 6)]).astype(np.int32) for _ in range(3)]
+    outs = []
+    for dev, share in (("cpu", True), (cuda, True), (cuda, False)):
+        _, eng = _f32_engine("llama3_8b", dev, prefix_sharing=share,
+                             max_batch=4)
+        first = _serve_all(eng, prompts[:1])
+        outs.append(first + _serve_all(eng, prompts[1:]))
+        if share:
+            assert eng.pool.stats.prefix_hits > 0
+            assert eng.pool.stats.cow_copies >= 3
+        if dev != "cpu":
+            assert eng.eager_prefills == 0
+            eng.close()
+    assert outs[0] == outs[1] == outs[2]
+
+
+@pytest.mark.gpu
+def test_gpu_plan_backed_start_makes_no_cold_build(cuda, tmp_path):
+    """An engine on the card started from a serve plan resolves nothing
+    cold, before or while serving, and gives the online engine's tokens."""
+    from repro_torch.artifacts.dispatch import (DispatchCache,
+                                                set_default_cache)
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.plans import PlanStore, build_serve_plan
+    cfg = get_smoke_config("llama3_8b").scaled(dtype="float32")
+    sizes = dict(max_len=64, max_batch=3, prefill_chunk=8)
+    plan, dropped = build_serve_plan(cfg, cache=DispatchCache(), **sizes)
+    assert not dropped
+    store = PlanStore(tmp_path)
+    store.save_plan(plan)
+    try:
+        set_default_cache(DispatchCache())
+        _, online = _f32_engine("llama3_8b", cuda, warm_kernels=True,
+                                plan_store=False)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (9, 17)]
+        want = _serve_all(online, prompts)
+        online.close()
+        cache = DispatchCache()
+        set_default_cache(cache)
+        _, eng = _f32_engine("llama3_8b", cuda, warm_kernels=True,
+                             plan_store=store)
+        assert cache.stats.cold_builds == 0
+        assert _serve_all(eng, prompts) == want
+        assert cache.stats.cold_builds == 0
+        eng.close()
+    finally:
+        set_default_cache(None)

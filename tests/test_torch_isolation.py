@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-its copy of the observability package ``repro_torch.obs`` included."""
+its copies of the observability package ``repro_torch.obs``, the fault
+harness, the disk tier and the serve plans included."""
 import os
 import pathlib
 import re
@@ -22,7 +23,13 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
-        "repro_torch.obs.registry"} <= set(names), names
+        "repro_torch.obs.registry",
+        "repro_torch.runtime.ft", "repro_torch.runtime.faults",
+        "repro_torch.artifacts.serde", "repro_torch.artifacts.store",
+        "repro_torch.artifacts.compile", "repro_torch.plans.serde",
+        "repro_torch.plans.store", "repro_torch.plans.loader",
+        "repro_torch.launch.compile_artifacts",
+        "repro_torch.launch.plan_artifacts"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 assert all(sys.modules[m] is None for m in bad), bad
@@ -35,7 +42,7 @@ def test_port_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20       # every submodule was imported
+    assert int(out.stdout.strip()) >= 30       # every submodule was imported
 
 
 _IMPORT_RE = re.compile(

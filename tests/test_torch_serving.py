@@ -109,12 +109,13 @@ def test_engine_without_warmup_resolves_cold_once_per_shape(weights,
     assert fresh_cache.stats.cold_builds == first      # LRU serves repeats
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_sharing=True),
-                                dict(monitor=True), dict(degrade=True),
-                                dict(plan_store="x")])
+@pytest.mark.parametrize("kw", [dict(monitor=True)])
 def test_later_slices_are_refused_by_name(weights, kw):
+    """The kernel monitor is the one engine option still refused, naming
+    the queue item it waits for."""
     _, _, tcfg, tp = weights
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet.*Queue 1 item 7"):
         ServeEngine(tcfg, tp, device="cpu", **kw)
 
 
@@ -512,3 +513,169 @@ def test_ssm_engine_async_depth_2_equals_jax_engine(ssm_weights):
                                  max_new=6, async_depth=2, **ENGINE)
     assert got == want and all(len(o) == 6 for o in got)
     assert eng.eager_prefills == eng.sched.stats.prefill_chunks
+
+
+# ---------------------------------------------------------------------------
+# Prefix sharing (the sweep of tests/test_prefix_sharing.py, against the
+# JAX engine with sharing on)
+# ---------------------------------------------------------------------------
+
+SHARE = dict(max_batch=4, max_len=64, page_size=4, prefill_chunk=8)
+
+
+def _serve_shared(make, prompts, *, max_new=6, eos=None, staged=True):
+    """Drive one engine over ``prompts``; ``staged`` drains the leader
+    first, so followers admit against a populated prefix index.  Returns
+    (outputs in submit order, engine); the pool's invariants hold at the
+    end."""
+    eng = make()
+    outs = {}
+    rids = [eng.submit(prompts[0], max_new=max_new, eos=eos)]
+    if staged:
+        for r in eng.run_until_drained():
+            outs[r.rid] = r.out
+    for p in prompts[1:]:
+        rids.append(eng.submit(p, max_new=max_new, eos=eos))
+    for r in eng.run_until_drained():
+        outs[r.rid] = r.out
+    eng.pool.check_invariants([s.blocks for s in eng.sched.running()])
+    assert set(outs) == set(rids)
+    return [outs[r] for r in rids], eng
+
+
+def _both_shared(w, prompts, **kw):
+    """The JAX engine's and the port's outputs with ``kw``, and the port's
+    engine."""
+    cfg, jp, tcfg, tp = w
+    opts = {k: kw.pop(k) for k in ("max_new", "eos", "staged") if k in kw}
+    want, _ = _serve_shared(lambda: JEngine(cfg, jp, **kw), prompts, **opts)
+    got, eng = _serve_shared(
+        lambda: ServeEngine(tcfg, tp, device="cpu", **kw), prompts, **opts)
+    return want, got, eng
+
+
+def _shared_prefix_prompts(vocab, rng, *, n=3, shared=22, tail=6):
+    """A leader plus ``n`` followers sharing its first ``shared`` tokens;
+    22 % page_size (4) != 0 diverges mid-block, so followers map a partial
+    tail block and must copy it on write."""
+    lead = rng.integers(0, vocab, shared + 2).astype(np.int32)
+    return [lead] + [np.concatenate(
+        [lead[:shared], rng.integers(0, vocab, tail)]).astype(np.int32)
+        for _ in range(n)]
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_shared_prefix_parity_and_cow(weights, depth):
+    """With sharing on the port commits the JAX engine's tokens (and the
+    sharing-off engine's) with real prefix hits and CoW copies; the
+    prefill tokens computed are the prompts' less the tokens saved."""
+    prompts = _shared_prefix_prompts(weights[0].vocab,
+                                     np.random.default_rng(0))
+    want, got, eng = _both_shared(weights, prompts, prefix_sharing=True,
+                                  async_depth=depth, **SHARE)
+    off, _, _ = _both_shared(weights, prompts, **SHARE)
+    assert got == want == off
+    ps, st = eng.pool.stats, eng.sched.stats
+    assert ps.prefix_hits > 0 and ps.cow_copies >= len(prompts) - 1
+    assert st.prefill_tokens == sum(map(len, prompts)) \
+        - ps.prefix_tokens_saved
+
+
+def test_divergence_after_shared_prefix_leaves_sibling_intact(weights):
+    """Two concurrent followers diverge mid-block, each copies its own
+    partial tail block; a third, later follower still maps a pristine
+    prefix."""
+    rng = np.random.default_rng(2)
+    prompts = _shared_prefix_prompts(weights[0].vocab, rng, n=2)
+    late = np.concatenate([prompts[0][:22],
+                           rng.integers(0, weights[0].vocab, 7)])
+    want, got, eng = _both_shared(weights, prompts + [late.astype(np.int32)],
+                                  prefix_sharing=True, **SHARE)
+    assert got == want
+    assert eng.pool.stats.cow_copies >= 3
+
+
+def test_preempting_shared_block_holder_keeps_survivor_intact(weights):
+    """A pool too tight for both preempts the younger sequence while it
+    maps the survivor's prefix blocks; both still produce the JAX engine's
+    (and a roomy pool's) tokens."""
+    vocab = weights[0].vocab
+    rng = np.random.default_rng(3)
+    lead = rng.integers(0, vocab, 10).astype(np.int32)
+    follow = np.concatenate([lead[:8], rng.integers(0, vocab, 2)]
+                            ).astype(np.int32)
+    kw = dict(max_batch=2, max_len=28, page_size=4, prefill_chunk=8,
+              prefix_sharing=True, watermark_blocks=0, max_new=14,
+              staged=False)
+    want, got, eng = _both_shared(weights, [lead, follow], num_blocks=9,
+                                  **kw)
+    roomy, _, _ = _both_shared(weights, [lead, follow], num_blocks=100,
+                               **kw)
+    assert eng.sched.stats.preemptions > 0
+    assert got == want == roomy
+    assert eng.pool.num_live == eng.pool.num_reclaimable
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_shared_prefix_async_depth_with_eos_and_preemption(weights, depth):
+    """Sharing on at ``async_depth`` 1-3: EOS at a commit truncates the
+    speculative tokens past it, and under a tight pool a preempted
+    sequence's in-flight tokens are dropped and regenerated — the JAX
+    engine's tokens at the same depth."""
+    cfg, _, tcfg, tp = weights
+    probe = ServeEngine(tcfg, tp, device="cpu", max_batch=2, max_len=48)
+    probe.submit(np.arange(6), max_new=1)
+    first = probe.run_until_drained()[0].out[0]
+    want, got, _ = _both_shared(weights, [np.arange(6), np.arange(6)],
+                                eos=first, max_new=16, max_batch=2,
+                                max_len=48, prefix_sharing=True,
+                                async_depth=depth)
+    assert want == got == [[first], [first]]
+    rng = np.random.default_rng(4)
+    lead = rng.integers(0, cfg.vocab, 8).astype(np.int32)
+    prompts = [lead, np.concatenate([lead[:4], rng.integers(0, cfg.vocab,
+                                                            4)])]
+    want, got, eng = _both_shared(
+        weights, prompts, max_new=12, staged=False, max_batch=2, max_len=24,
+        page_size=4, prefill_chunk=8, watermark_blocks=0, num_blocks=7,
+        prefix_sharing=True, async_depth=depth)
+    assert eng.sched.stats.preemptions > 0
+    assert got == want and all(len(o) == 12 for o in got)
+
+
+def test_ssm_blocks_serve_with_sharing_forced_off(ssm_weights):
+    """An SSM state must see every prompt token: asked for sharing, the
+    SSM and hybrid engines turn it off, as the JAX engine does, and commit
+    its tokens."""
+    prompts = _shared_prefix_prompts(ssm_weights[0].vocab,
+                                     np.random.default_rng(1), n=2)
+    want, got, eng = _both_shared(ssm_weights, prompts, prefix_sharing=True,
+                                  async_depth=2, **SHARE)
+    assert got == want
+    assert not eng.prefix_sharing and eng.pool.stats.prefix_hits == 0
+
+
+def test_launcher_takes_the_engine_options(monkeypatch, capsys, fresh_cache,
+                                           tmp_path):
+    """``--prefix-sharing``, ``--degrade`` and ``--plan-dir`` reach the
+    engine; ``--monitor`` or one of its knobs is refused by name."""
+    from repro_torch.launch import plan_artifacts, serve
+    assert plan_artifacts.main([
+        "--config", "llama3_8b", "--smoke", "--max-len", "128",
+        "--max-batch", "4", "--prefill-chunk", "32", "--out",
+        str(tmp_path)]) == 0
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", "llama3-8b", "--device", "cpu", "--requests", "3",
+        "--max-new", "2", "--warm-kernels", "--prefix-sharing", "--degrade",
+        "--plan-dir", str(tmp_path)])
+    cold = fresh_cache.stats.cold_builds
+    serve.main()
+    out = capsys.readouterr().out
+    assert "3 requests, 6 tokens" in out and "prefix sharing: hits=" in out
+    assert "robustness shed=0" in out
+    assert fresh_cache.stats.cold_builds == cold          # from the plan
+    for extra in (["--monitor"], ["--swap-patience", "3"]):
+        monkeypatch.setattr("sys.argv", ["serve", "--arch", "llama3-8b",
+                                         "--device", "cpu"] + extra)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            serve.main()
