@@ -19,7 +19,15 @@ no phase is caught.
    kb, stages, cached) each (the pick, the leaves one step from it, the
    napkin's two worst and its best others), each held against the plain
    version (the paper's code soundness, Def. 2 ii) and timed, eagerly and
-   as device time, with the napkin's rank beside the card's.
+   as device time, with the napkin's rank beside the card's.  Then K1's
+   batched entry (one launch for every expert of a MoE layer) through the
+   pick of the per-expert key at the experts' signatures of llama4-scout
+   (E = 16, M = 4, N = 8192, K = 5120 up; N = 5120, K = 8192 down) and
+   kimi-k2 (E = 384, M = 4, N = 2048, K = 7168 up; N = 7168, K = 2048
+   down): held against the plain version (K1's, expert by expert) and
+   timed eagerly and as device time beside ``torch.bmm`` (a yardstick)
+   and the bound, every expert's weights read once (1.34 and 11.3 GB a
+   launch, too large to cycle through copies).
 4. K2 ``flash_attention_h100`` against its plain version in bf16, through
    the leaf the dispatch picks: with one KV head a query head, a prefill
    chunk, decode over a ragged cache, non-causal sk = 200, window 128; GQA
@@ -79,9 +87,12 @@ no phase is caught.
    the leaves the tree keeps for a smaller machine (matadd's grain-1 case
    C2 at G = 12; the uncached case 3 of transpose and Jacobi at V = 0),
    which ``H100_SXM`` never picks.
-7. serve parity: the llama3, mamba2 and hymba SMOKE configs in f32, each
-   served on ``cuda`` (the kernels, the decode tick and every prefill
-   chunk replayed from their CUDA graphs, at ``async_depth`` 1 and 2) and
+7. serve parity: the SMOKE configs of all nine served configs in f32
+   (llama3, mamba2, hymba, granite, yi, qwen with its q/k/v biases
+   planted non-zero, chameleon, and the MoE llama4-scout, top-1 of 4
+   experts, and kimi-k2, top-2 of 8), each served on ``cuda`` (the
+   kernels, the decode tick and every prefill chunk replayed from their
+   CUDA graphs, at ``async_depth`` 1 and 2) and
    on ``cpu`` (their plain versions) from the same weights; the greedy
    tokens are equal, the decode graph replays once a decode tick, the
    prefill graphs once a chunk, and no prefill body runs eagerly.
@@ -92,7 +103,17 @@ no phase is caught.
    mamba2-130m at full width (24 layers; prompts of 200-500 tokens,
    ``prefill_chunk`` 256, ``max_len`` 1024), hymba-1.5b at full width (32
    layers) and llama3-8b at full width (32 layers), the last two with
-   prompts of 16-64 tokens, ``prefill_chunk`` 32, ``max_len`` 256.  Each
+   prompts of 16-64 tokens, ``prefill_chunk`` 32, ``max_len`` 256.  Then
+   the six paths of the dense and MoE configs at those settings, each at
+   full width, its model freed before the next: granite-3-8b (40 of 40
+   layers, 16.7 GB of bf16 weights), yi-6b (32 of 32, 12.1 GB), qwen1.5-4b
+   (40 of 40, 7.9 GB, q/k/v biases, one query head a KV head),
+   chameleon-34b (48 of 48, 68.6 GB), llama4-scout-17b-a16e (12 of 48
+   layers, 54.0 GB: 48 would be 203.5 GB) and kimi-k2-1t-a32b (1 of 61
+   layers, 38.8 GB: every width, 384 experts and top-8 kept); the depth
+   cuts are one 80 GB card's, and each path prints its peak device memory.
+   The MoE paths launch K1's batched entry once a projection (wi, wg, wo)
+   a layer a step, and the router on K1.  Each
    engine captures its decode tick and one prefill graph for each
    quantized chunk length (nine for mamba2's 256: 256 down to 1; six for
    32) at construction, all sharing one memory pool (each graph's capture
@@ -100,8 +121,9 @@ no phase is caught.
    of the path launched (K1 and K3; K1, K2 and K3; K1 and K2), the decode
    graph replayed once a decode tick and the prefill graphs once a chunk
    with no eager prefill body, the launch counts (a replay counting its
-   captured launches) match the steps run — K1 per projection, K2 and K3
-   one a layer, for every prefill chunk and decode step — no dispatch
+   captured launches) match the steps run — K1 per projection and router,
+   the batched entry per expert projection, K2 and K3 one a layer, for
+   every prefill chunk and decode step — no dispatch
    resolved cold after warm-up, and a full-width forward gives finite
    logits.  The host time of a decode tick (over the ticks that ran no
    prefill chunk) and of a prefill chunk (by its length), from
@@ -116,7 +138,8 @@ no phase is caught.
    the profiler lists) / the run's wall.
 9. main-path shapes: every launch signature of phase 8 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
-   kernel, plain version, the library call, and the bound.  A paged K2
+   kernel, plain version, the library call, and the bound (a batched
+   signature phase 3 timed keeps its row).  A paged K2
    signature runs through the paged entry over a pool and tables at the
    served lengths: a decode step's rows each halfway through its request's
    new tokens, a prefill chunk at the mean prompt length (the lengths on
@@ -197,18 +220,21 @@ from the plain sweep is printed, not held); no single PyTorch call computes
 the SSD scan, so K3 has none.
 
 The line before the last is the kernels' JSON record (its ``ms`` are the
-eager times above, as in every earlier run).  For K1-K3
-``launches`` is phase 8's count over the three serve paths; ``ms``,
-``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over those
-launches, each timed at its own signature in phase 9.  For K4-K6 the same
-numbers come from phase 6's case-study path (1, 1 and 8 launches), each
-signature timed in phase 6.  ``max_abs_err`` is the largest error against
+eager times above, as in every earlier run).  For K1, K1's batched entry,
+K2 and K3 ``launches`` is phase 8's count over the nine serve paths;
+``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over those
+launches, each timed at its own signature in phase 9, and ``by_paths``
+gives the same sums (with ``device_ms``) over the three paths of earlier
+runs (mamba2, hymba, llama3) and over the six new ones apart.  For K4-K6
+the same numbers come from phase 6's case-study path (1, 1 and 8
+launches), each signature timed in phase 6.  ``max_abs_err`` is the largest error against
 the plain version over phases 3-6 and 9.  The last line is the device
 record.
 
 Tolerances, kernel against plain version on the same inputs:
 
-- matmul (bf16 or f32 in, f32 out), rtol 1e-4 / atol 1e-3: a bf16 product
+- matmul (bf16 or f32 in, f32 out; the batched entry alike, expert by
+  expert), rtol 1e-4 / atol 1e-3: a bf16 product
   is exact in f32, so the two differ only in the order of K f32 additions
   inside a k tile (tensor cores or FMA against cuBLAS); both add the tiles
   of a split in order and the split-K partials in split order 0..kb-1, so
@@ -246,6 +272,7 @@ products on the card are full f32.
 """
 from __future__ import annotations
 
+import gc
 import importlib
 import itertools
 import json
@@ -282,9 +309,27 @@ PATHS = (
     ("llama3_8b", dict(max_batch=4, max_len=256, page_size=16,
                        prefill_chunk=32), (16, 65)),
 )
+#: The six paths of the dense and MoE configs (arch, layers served, None
+#: for all), at llama3-8b's engine settings and prompt lengths.  Full width
+#: every one; the MoE paths' depth is cut to what one 80 GB card holds
+#: beside the pool and the graphs (bf16 weights: llama4-scout 4.15 GB a
+#: layer and 4.1 GB of embeddings, 12 of 48 layers 54.0 GB; kimi-k2 34.1
+#: GB a layer and 4.7 GB of embeddings, 1 of 61 layers 38.8 GB).
+NEW_PATHS = (
+    ("granite_3_8b", None),
+    ("yi_6b", None),
+    ("qwen1p5_4b", None),
+    ("chameleon_34b", None),
+    ("llama4_scout_17b_a16e", 12),
+    ("kimi_k2_1t_a32b", 1),
+)
+NEW_KW = dict(PATHS[2][1])
+NEW_LENS = PATHS[2][2]
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "matmul_h100": ("src/repro_torch/csrc/matmul.cu",
                     "src/repro/kernels/matmul.py:73"),
+    "matmul_h100_batched": ("src/repro_torch/csrc/matmul.cu",
+                            "src/repro/kernels/matmul.py:73"),
     "flash_attention_h100": ("src/repro_torch/csrc/flash_attention.cu",
                              "src/repro/kernels/flash_attention.py:75"),
     "ssd_scan_h100": ("src/repro_torch/csrc/ssd_scan.cu",
@@ -296,7 +341,8 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "jacobi1d_h100": ("src/repro_torch/csrc/jacobi1d.cu",
                       "src/repro/kernels/jacobi1d.py:51"),
 }
-SERVE_KERNELS = ("matmul_h100", "flash_attention_h100", "ssd_scan_h100")
+SERVE_KERNELS = ("matmul_h100", "matmul_h100_batched", "flash_attention_h100",
+                 "ssd_scan_h100")
 CASE_KERNELS = ("transpose_h100", "matadd_h100", "jacobi1d_h100")
 #: The case-study path (phase 6): (family, data) at the paper's sizes.
 CASE_PATH = (
@@ -388,6 +434,10 @@ def work(name: str, sig) -> tuple:
         M, N, K = sig[:3]
         return ((M * K + K * N) * esz + M * N * 4, 2.0 * M * N * K,
                 PEAK_FLOPS[sig[-1]])
+    if name == "matmul_h100_batched":       # every expert's A, B and C
+        E, M, N, K = sig[:4]
+        return (E * ((M * K + K * N) * esz + M * N * 4), 2.0 * E * M * N * K,
+                PEAK_FLOPS[sig[-1]])
     if name == "matadd_h100":
         M, N = sig[:2]
         return 3 * M * N * esz, float(M * N), PEAK_FLOPS[torch.float32]
@@ -476,6 +526,42 @@ def matmul_case(sig, gen, *, timed: bool, leaf_only: bool = False,
             row["library_device_ms"] = graph_ms(
                 lambda: torch.matmul(a, next(bs)))
         row["bound_ms"] = max(bound_terms_ms("matmul_h100", sig))
+    return row
+
+
+def batched_case(sig, gen, *, timed: bool):
+    """K1's batched entry at (E, M, N, K, bm, bn, bk, s, kb, stages, cached,
+    dtype), the wrapper's ``shapes`` key, on fresh inputs: held against
+    the plain version (the per-expert loop of K1's); timed when ``timed``,
+    the kernel eagerly and as device time, the plain version, and
+    ``torch.bmm`` as a yardstick.  B (every expert's weights) is cycled
+    through copies as in :func:`matmul_case`, which leaves an operand
+    past the flush size (both MoE paths' experts: 1.34 and 11.3 GB) alone:
+    it cannot stay in the L2."""
+    from repro_torch.kernels.matmul import (matmul_batched_plain,
+                                            matmul_h100_batched)
+    E, M, N, K, bm, bn, bk, s, kb, stages, cached, dtype = sig
+    a = torch.randn((E, M, K), generator=gen, device=DEV, dtype=dtype)
+    b = torch.randn((E, K, N), generator=gen, device=DEV, dtype=dtype)
+    b.div_(math.sqrt(K))
+    kw = dict(bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages, cached=cached)
+    got = matmul_h100_batched(a, b, **kw)
+    torch.cuda.synchronize()
+    want = matmul_batched_plain(a, b, **kw)
+    row = {"err": held(f"matmul batched {sig}", got, want, MM_TOL)}
+    del got, want
+    if timed:
+        bs = itertools.cycle([b] + [b.clone() for _ in range(
+            math.ceil(L2_FLUSH_BYTES / (b.numel() * b.element_size())) - 1)])
+        time_into(row, "ms", lambda: matmul_h100_batched(a, next(bs), **kw),
+                  10)
+        row["device_ms"] = graph_ms(
+            lambda: matmul_h100_batched(a, next(bs), **kw))
+        time_into(row, "plain_ms",
+                  lambda: matmul_batched_plain(a, next(bs), **kw), 1)
+        time_into(row, "library_ms", lambda: torch.bmm(a, next(bs)), 10)
+        row["library_device_ms"] = graph_ms(lambda: torch.bmm(a, next(bs)))
+        row["bound_ms"] = max(bound_terms_ms("matmul_h100_batched", sig))
     return row
 
 
@@ -873,7 +959,8 @@ def jacobi_case(sig, gen, *, timed: bool):
     return row
 
 
-CASES = {"matmul_h100": matmul_case, "flash_attention_h100": flash_case,
+CASES = {"matmul_h100": matmul_case, "matmul_h100_batched": batched_case,
+         "flash_attention_h100": flash_case,
          "ssd_scan_h100": ssd_case, "transpose_h100": transpose_case,
          "matadd_h100": matadd_case, "jacobi1d_h100": jacobi_case}
 
@@ -1077,6 +1164,37 @@ def phase_k1(gen) -> float:
             say(f"[K1] {name}: {key} pick {pick[key]:.4f}, fastest of "
                 f"{len(rows)} leaves {best:.4f} ({pick[key] / best:.2f}x)")
     return err
+
+
+#: K1's batched entry at the experts' signatures of the two MoE paths,
+#: (E, M, N, K) for up (wi, wg) and down (wo): M = 4 is the capacity of a
+#: decode step's 4 rows and of every chunk up to 32 tokens at both configs.
+BATCHED_SIGNATURES = (
+    ("llama4-scout expert up", (16, 4, 8192, 5120)),
+    ("llama4-scout expert down", (16, 4, 5120, 8192)),
+    ("kimi-k2 expert up", (384, 4, 2048, 7168)),
+    ("kimi-k2 expert down", (384, 4, 7168, 2048)),
+)
+
+
+def phase_k1_batched(gen) -> tuple:
+    """K1's batched entry through the pick of the per-expert key, at
+    ``BATCHED_SIGNATURES``: held against the plain version and timed
+    beside ``torch.bmm`` and the bound (every expert's weights read once);
+    returns (largest error, {sig: row}), the rows phase 9 reuses."""
+    from repro_torch.kernels import ops
+    err, rows = 0.0, {}
+    for name, (E, M, N, K) in BATCHED_SIGNATURES:
+        data = {"M": M, "N": N, "K": K}
+        cand = ops.select("matmul_h100", data)
+        sig = (E,) + _mm_sig(data, cand, torch.bfloat16)
+        row = rows[sig] = batched_case(sig, gen, timed=True)
+        err = max(err, row["err"])
+        say(f"[K1 batched] {name} E{E} M{M} N{N} K{K} leaf "
+            f"{dict(cand.assignment)} cached {cand.plan.flags['smem_cache']}"
+            f": {fmt(row)} (library: torch.bmm)")
+        torch.cuda.empty_cache()
+    return err, rows
 
 
 #: Phase 4's rows: (name, h, hk, sq, sk, d, causal, window).  One KV head
@@ -1572,9 +1690,14 @@ def phase_parity() -> None:
             return [to_cuda(v) for v in node]
         return node.to(DEV)
 
-    for arch, _, _ in PATHS:
+    for arch in [a for a, _, _ in PATHS] + [a for a, _ in NEW_PATHS]:
         cfg = get_smoke_config(arch).scaled(dtype="float32")
         params_cpu = init_model(cfg, seed=7, device="cpu")
+        if cfg.qkv_bias:          # init makes them zero: plant non-zero ones
+            g = torch.Generator().manual_seed(7)
+            for lp in params_cpu["layers"]:
+                for name in ("bq", "bk", "bv"):
+                    lp["attn"][name].normal_(generator=g)
         params_gpu = to_cuda(params_cpu)
         rng = np.random.default_rng(7)
         prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 19, 11, 3, 26)]
@@ -1763,24 +1886,34 @@ def phase_trace(eng, prompts, outs) -> None:
 
 
 def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
-                depths: tuple = (1,), traced: bool = False) -> dict:
-    """One main path: ``arch`` at full width through ServeEngine; returns
-    its name, wall time and each kernel's launches and launch shapes.  Each
+                depths: tuple = (1,), traced: bool = False,
+                layers=None) -> dict:
+    """One main path: ``arch`` at full width through ServeEngine (its depth
+    cut to ``layers`` when given); returns its name, wall time, peak
+    device memory and each kernel's launches and launch shapes.  Each
     depth of ``depths`` past the first serves the same prompts once more at
     that ``async_depth``: its tokens must equal the first run's.  With
     ``traced``, :func:`phase_trace` serves them again on the engine."""
     from repro_torch.artifacts.dispatch import get_default_cache
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_model
+    from repro_torch.models.transformer import has_attn, has_mlp, has_ssm
     from repro_torch.runtime import ServeEngine
 
     cfg = get_config(arch)
+    full = cfg.layers
+    if layers is not None:
+        cfg = cfg.scaled(layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
-    say(f"[serve] {cfg.name} full width: {cfg.layers} layers, {cfg.block} "
-        f"block, d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}; "
-        f"weights {torch.cuda.memory_allocated() / 2**30:.2f} GiB made in "
+    say(f"[serve] {cfg.name} full width: {cfg.layers} of {full} layers, "
+        f"{cfg.block} block, d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}; weights "
+        f"{(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB made in "
         f"{time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV, **serve_kw)
@@ -1822,10 +1955,12 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     cold = stats.cold_builds - cold0
     st = eng.sched.stats
     ntok = sum(len(r.out) for r in outs)
-    attn = cfg.block in ("attn_mlp", "hybrid")
-    ssm = cfg.block in ("ssm", "hybrid")
-    mlp = cfg.block == "attn_mlp" or cfg.d_ff > 0
-    per_step_mm = cfg.layers * (4 * attn + 5 * ssm + 3 * mlp) + 1
+    attn, ssm, mlp = has_attn(cfg), has_ssm(cfg), has_mlp(cfg)
+    moe = cfg.block == "attn_moe"
+    # K1: q, k, v, o; the SSM's x, B, C, decay and out; the MLP's wi, wg,
+    # wo; the MoE router, and its experts' wi, wg, wo on the batched entry
+    per_step_mm = cfg.layers * (4 * attn + 5 * ssm + 3 * mlp + moe) + 1
+    per_step_batched = cfg.layers * 3 * moe
     steps = st.prefill_chunks + st.decode_ticks
     say(f"[serve] {cfg.name}: {len(outs)} requests, {ntok} tokens in "
         f"{wall:.3f} s: {ntok / wall:.2f} tokens/s; {st.prefill_chunks} "
@@ -1836,10 +1971,11 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
         say(f"[serve] {cfg.name} {line}")
     say(f"[serve] {cfg.name} {clock.profile()}")
     say(f"[serve] {cfg.name} launches: {json.dumps(launches)}; matmul per "
-        f"prefill chunk or decode step {per_step_mm}, K2 and K3 one a layer "
-        f"each; cold dispatch builds after warm-up: {cold}")
-    used = ["matmul_h100"] + ["flash_attention_h100"] * attn \
-        + ["ssd_scan_h100"] * ssm
+        f"prefill chunk or decode step {per_step_mm}, batched matmul "
+        f"{per_step_batched}, K2 and K3 one a layer each; cold dispatch "
+        f"builds after warm-up: {cold}")
+    used = ["matmul_h100"] + ["matmul_h100_batched"] * moe \
+        + ["flash_attention_h100"] * attn + ["ssd_scan_h100"] * ssm
     if any(launches[n] == 0 for n in used):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -1855,6 +1991,9 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
                              f" {st.prefill_chunks} chunks")
     if launches["matmul_h100"] != per_step_mm * steps:
         raise AssertionError("matmul launches do not match the steps run")
+    if launches["matmul_h100_batched"] != per_step_batched * steps:
+        raise AssertionError("batched matmul launches do not match the "
+                             "steps run")
     if launches["flash_attention_h100"] != cfg.layers * steps * attn:
         raise AssertionError("attention launches do not match the steps run")
     if launches["ssd_scan_h100"] != cfg.layers * steps * ssm:
@@ -1900,22 +2039,35 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
                              f"{tuple(logits.shape)} not finite")
     say(f"[serve] {cfg.name} full-width forward: logits "
         f"{tuple(logits.shape)} finite")
-    del eng, params, logits
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    say(f"[serve] {cfg.name} peak device memory of the path (weights, pool, "
+        f"workspaces, graphs, forward): {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    # the engine and its tick clock refer to each other: collect the cycle
+    # so the next path gets this one's memory
+    del eng, clock, params, logits
+    gc.collect()
     torch.cuda.empty_cache()
     return {"name": cfg.name, "wall_ms": 1e3 * wall, "launches": launches,
-            "shapes": shapes}
+            "shapes": shapes, "peak_gib": peak}
 
 
-def phase_shapes(shapes, gen):
-    """Every launch signature of the main paths, checked and timed once;
-    returns {name: {sig: row}}."""
+def phase_shapes(shapes, gen, timed=None):
+    """Every launch signature of the main paths, checked and timed once (a
+    signature in ``timed`` {name: {sig: row}} was, in an earlier phase, and
+    keeps its row); returns {name: {sig: row}}."""
     rows = {}
     for name, by_sig in shapes.items():
         rows[name] = {}
         for sig, n in sorted(by_sig.items(), key=lambda kv: str(kv[0])):
-            row = CASES[name](sig, gen, timed=True)
+            row = (timed or {}).get(name, {}).get(sig)
+            again = row is not None
+            if row is None:
+                row = CASES[name](sig, gen, timed=True)
             rows[name][sig] = row
-            say(f"[shapes] {name} {sig[:-1]} x{n}: {fmt(row)}")
+            say(f"[shapes] {name} {sig[:-1]} x{n}"
+                f"{' (timed in phase 3)' if again else ''}: {fmt(row)}")
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -2397,33 +2549,63 @@ def main() -> int:
 
     phase_device()
     phase_build()
-    errs = {"matmul_h100": phase_k1(gen),
-            "flash_attention_h100": phase_k2(gen),
-            "ssd_scan_h100": phase_k3(gen)}
+    t0 = time.perf_counter()
+    errs = {"matmul_h100": phase_k1(gen)}
+    errs["matmul_h100_batched"], batched_rows = phase_k1_batched(gen)
+    say(f"[K1] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs["flash_attention_h100"] = phase_k2(gen)
+    say(f"[K2] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs["ssd_scan_h100"] = phase_k3(gen)
+    say(f"[K3] phase {time.perf_counter() - t0:.1f} s")
     cases = phase_cases(gen)
     errs.update(cases["errs"])
+    t0 = time.perf_counter()
     phase_parity()
-    launches = {name: 0 for name in SERVE_KERNELS}
-    shapes = {name: {} for name in SERVE_KERNELS}
+    say(f"[parity] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     paths = []
     for arch, serve_kw, prompt_lens in PATHS:
-        path = phase_serve(arch, serve_kw, prompt_lens,
-                           depths=(1, 2) if arch == "llama3_8b" else (1,),
-                           traced=arch == "llama3_8b")
-        paths.append(path)
-        for name in SERVE_KERNELS:
-            launches[name] += path["launches"][name]
-            for sig, n in path["shapes"][name].items():
-                shapes[name][sig] = shapes[name].get(sig, 0) + n
-    rows = phase_shapes(shapes, gen)
+        paths.append(phase_serve(
+            arch, serve_kw, prompt_lens,
+            depths=(1, 2) if arch == "llama3_8b" else (1,),
+            traced=arch == "llama3_8b"))
+    for arch, layers in NEW_PATHS:
+        paths.append(phase_serve(arch, NEW_KW, NEW_LENS, layers=layers))
+    say(f"[serve] phase {time.perf_counter() - t0:.1f} s; peak device "
+        f"memory a path, GiB: " + ", ".join(
+            f"{p['name']} {p['peak_gib']:.2f}" for p in paths))
+    # the three paths PR 19 served, the six this one adds, and all nine
+    groups = {"mamba2, hymba, llama3": paths[:len(PATHS)],
+              "six new": paths[len(PATHS):], "all": paths}
+    launches, shapes = {}, {}
+    for group, members in groups.items():
+        launches[group] = {n: sum(p["launches"][n] for p in members)
+                           for n in SERVE_KERNELS}
+        shapes[group] = {n: {} for n in SERVE_KERNELS}
+        for p in members:
+            for n in SERVE_KERNELS:
+                for sig, k in p["shapes"][n].items():
+                    shapes[group][n][sig] = shapes[group][n].get(sig, 0) + k
+    t0 = time.perf_counter()
+    rows = phase_shapes(shapes["all"], gen,
+                        timed={"matmul_h100_batched": batched_rows})
     phase_host_cost(gen)
+    say(f"[shapes] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_options()
+    say(f"[options] phase {time.perf_counter() - t0:.1f} s")
     for path in paths:
         say(f"[shapes] {path['name']} ({path['wall_ms']:.1f} ms wall), "
             f"kernel time over its launches: "
             f"{_sums_line(launch_sums(path['shapes'], rows))}")
-    totals = launch_sums(shapes, rows)
-    say(f"[shapes] all main paths: {_sums_line(totals)}")
+    sums = {g: launch_sums(shapes[g], rows) for g in groups}
+    for group in groups:
+        say(f"[shapes] main paths, {group}: {_sums_line(sums[group])}")
+    totals = sums["all"]
+    paths_shapes = shapes
+    launches, shapes = launches["all"], shapes["all"]
     case_sums = launch_sums(cases["shapes"], cases["rows"])
     say(f"[cases] kernel time over the case-study path's launches: "
         f"{_sums_line(case_sums)}")
@@ -2436,13 +2618,22 @@ def main() -> int:
     for name, (source, replaces) in KERNELS.items():
         t = totals[name]
         err = max([errs[name]] + [r["err"] for r in rows[name].values()])
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": "bytes" if _bytes_bound(name, shapes)
-                        else "operations",
-                        "library_ms": t["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"],
+               "bound_by": "bytes" if _bytes_bound(name, shapes)
+               else "operations",
+               "library_ms": t["library_ms"]}
+        if name in SERVE_KERNELS:
+            # PR 19's three paths and this slice's six, each apart
+            row["by_paths"] = {
+                g: {"launches": sum(paths_shapes[g][name].values()),
+                    **{k: sums[g][name][k] for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "library_ms")}}
+                for g in ("mamba2, hymba, llama3", "six new")}
+        kernels.append(row)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 Each module exports ``CONFIG`` (the published configuration) and ``SMOKE``
 (a reduced same-family configuration for CPU tests).  The port serves the
-dense ``attn_mlp``, the attention-free ``ssm`` and the ``hybrid`` blocks, so
-llama3-8b, mamba2-130m and hymba-1.5b are registered; the JAX package's
-other seven configs join with the slices that port their blocks.
+dense ``attn_mlp``, the mixture-of-experts ``attn_moe``, the attention-free
+``ssm`` and the ``hybrid`` blocks, so every config the JAX serving engine
+serves is registered; whisper-large-v3 (encoder-decoder) is refused by name
+until the slice that ports its encoder.
 """
 from __future__ import annotations
 
@@ -17,6 +18,12 @@ ARCH_IDS = (
     "llama3_8b",
     "mamba2_130m",
     "hymba_1p5b",
+    "granite_3_8b",
+    "yi_6b",
+    "qwen1p5_4b",
+    "chameleon_34b",
+    "llama4_scout_17b_a16e",
+    "kimi_k2_1t_a32b",
 )
 
 # canonical external ids -> module names
@@ -24,6 +31,12 @@ ALIASES = {
     "llama3-8b": "llama3_8b",
     "mamba2-130m": "mamba2_130m",
     "hymba-1.5b": "hymba_1p5b",
+    "granite-3-8b": "granite_3_8b",
+    "yi-6b": "yi_6b",
+    "qwen1.5-4b": "qwen1p5_4b",
+    "chameleon-34b": "chameleon_34b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 

@@ -1,12 +1,14 @@
 """Weights from the JAX package into the port.
 
 ``from_jax_params(np_params, cfg)`` takes the JAX parameter pytree of an
-``attn_mlp``, ``ssm`` or ``hybrid`` model with its leaves already turned
-into NumPy arrays (for example ``jax.tree.map(np.asarray, params)``) and
-returns the port's parameter dict: the stacked ``layers`` axis becomes a
-list, matrices take the compute dtype, norm scales and biases stay f32, and
-so does the SSM decay projection ``ssm.wa``, which the JAX layer runs in f32
-whatever the compute type.  No JAX is imported here.
+``attn_mlp``, ``attn_moe``, ``ssm`` or ``hybrid`` model with its leaves
+already turned into NumPy arrays (for example ``jax.tree.map(np.asarray,
+params)``) and returns the port's parameter dict: the stacked ``layers``
+axis becomes a list, matrices (and the MoE expert stacks) take the compute
+dtype, norm scales and the q/k/v biases stay f32, and so does the SSM decay
+projection ``ssm.wa``, which the JAX layer runs in f32 whatever the compute
+type.  Expert storage padded for the all-to-all schedule (more stored
+experts than the config routes to) is refused.  No JAX is imported here.
 """
 from __future__ import annotations
 
@@ -35,6 +37,13 @@ def from_jax_params(np_params: Dict[str, Any], cfg: ModelConfig, *,
         return leaf(node)
 
     stacked = np_params["layers"]
+    if "moe" in stacked:
+        stored = np.shape(stacked["moe"]["wi"])[1]
+        if stored != cfg.moe.num_experts:
+            raise NotImplementedError(
+                f"{stored} stored experts for {cfg.moe.num_experts} routed "
+                f"(config {cfg.name}): the all-to-all padded expert storage "
+                "of 'moe_a2a' is not ported yet")
     layers = []
     for i in range(cfg.layers):
         layers.append({blk: {k: leaf(np.asarray(v)[i],

@@ -29,6 +29,12 @@
 //     block.  f32 runs the same tiles, ring and split with FMA from shared
 //     memory, never TF32.  Tiles are XOR-swizzled by 16-byte chunk, so the
 //     8 rows an ldmatrix reads fall in 8 different bank groups.
+// Batched entry (the experts of a mixture-of-experts layer): E independent
+// products C[e] = A[e] @ B[e] over A [E, M, K], B [E, K, N], C [E, M, N], one
+// launch, the grid's z carrying E x kb blocks (expert-major); each block runs
+// the same body on its expert's operands, partials and tickets, so E = 1 is
+// the plain entry.  Every expert's weights are read, whether or not a token
+// reached it, as the JAX einsum over the capacity-padded dispatch reads them.
 // Ragged edges: rows, columns and k past the matrix are zero-filled in
 // shared memory (cp.async with a source size of 0) and never stored.  The
 // 16-byte copies need N (for B) and K (for A) multiples of 8 bf16 or 4 f32
@@ -49,7 +55,7 @@ struct Args {
   float* c;
   float* ws;           // [kb, M, N] partials (kb > 1)
   int* tickets;        // one a (row block, column block), 0 at rest
-  int M, N, K, bm, bn, bk, kb;
+  int E, M, N, K, bm, bn, bk, kb;
   int per;             // k tiles a split
   int a_vec, b_vec;    // 16-byte copies allowed for A, for B
 };
@@ -167,14 +173,19 @@ __global__ void __launch_bounds__(kMaxThreads) matmul_kernel(const Args p) {
   const int a_elems = p.bm * p.bk, b_elems = p.bk * p.bn;
   T* As = reinterpret_cast<T*>(smem_raw);       // [STAGES][bm][bk]
   T* Bs = As + STAGES * a_elems;                // [STAGES][bk][bn]
-  const T* A = static_cast<const T*>(p.a);
-  const T* B = static_cast<const T*>(p.b);
+  // blockIdx.z = expert * kb + split: the expert's operands, output,
+  // partials [kb, M, N] and tickets
+  const int split = blockIdx.z % p.kb, ex = blockIdx.z / p.kb;
+  const size_t MN = (size_t)p.M * p.N;
+  const T* A = static_cast<const T*>(p.a) + ex * (size_t)p.M * p.K;
+  const T* B = static_cast<const T*>(p.b) + ex * (size_t)p.K * p.N;
+  float* C = p.c + ex * MN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wcols = p.bn / (8 * S);
   const int wm = warp / wcols, wn = warp % wcols;
   const int m0 = blockIdx.x * p.bm, n0 = blockIdx.y * p.bn;
   const int nkt = (p.K + p.bk - 1) / p.bk;
-  const int kt0 = blockIdx.z * p.per;
+  const int kt0 = split * p.per;
   const int nt = max(0, min(nkt, kt0 + p.per) - kt0);
   // a warp whose rows or columns all lie past the matrix only loads
   const bool live = m0 + wm * 16 < p.M && n0 + wn * 8 * S < p.N;
@@ -219,8 +230,8 @@ __global__ void __launch_bounds__(kMaxThreads) matmul_kernel(const Args p) {
 
   const int r0 = m0 + wm * 16 + (lane >> 2);
   const int cq = n0 + wn * 8 * S + 2 * (lane & 3);
-  const size_t MN = (size_t)p.M * p.N;
-  float* out = p.kb == 1 ? p.c : p.ws + blockIdx.z * MN;
+  float* ws = p.kb == 1 ? nullptr : p.ws + (size_t)ex * p.kb * MN;
+  float* out = p.kb == 1 ? C : ws + split * MN;
 #pragma unroll
   for (int t = 0; t < S; ++t)
 #pragma unroll
@@ -233,7 +244,7 @@ __global__ void __launch_bounds__(kMaxThreads) matmul_kernel(const Args p) {
   // split-K: the last of the tile's kb blocks sums the partials in order
   __threadfence();                     // this thread's partials, then ...
   __syncthreads();                     // ... every thread's, before the ticket
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int tile = (ex * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   int ticket = 0;
   if (threadIdx.x == 0) ticket = atomicAdd(&p.tickets[tile], 1);
   if (!__syncthreads_or(threadIdx.x == 0 && ticket == p.kb - 1)) return;
@@ -247,8 +258,8 @@ __global__ void __launch_bounds__(kMaxThreads) matmul_kernel(const Args p) {
       const size_t at = (size_t)r * p.N + c;
       float v = 0.f;
       for (int z = 0; z < p.kb; ++z)
-        v += z == (int)blockIdx.z ? acc[t][e] : __ldcg(p.ws + z * MN + at);
-      p.c[at] = v;
+        v += z == split ? acc[t][e] : __ldcg(ws + z * MN + at);
+      C[at] = v;
     }
   if (threadIdx.x == 0) p.tickets[tile] = 0;
 }
@@ -261,7 +272,8 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   static size_t granted[kMaxDevices] = {};
   const cudaError_t err = allow_smem_once(kernel, smem, granted);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.M + p.bm - 1) / p.bm, (p.N + p.bn - 1) / p.bn, p.kb);
+  const dim3 grid((p.M + p.bm - 1) / p.bm, (p.N + p.bn - 1) / p.bn,
+                  p.E * p.kb);
   const int threads = 32 * (p.bm / 16) * (p.bn / (8 * S));
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -294,15 +306,14 @@ bool pow2_at_least(int x, int lo) { return x >= lo && (x & (x - 1)) == 0; }
 // bm a multiple of 16; bn and bk powers of two >= 32; s in {1, 2};
 // stages in {1, 2, 4} (an uncached leaf runs 1); kb >= 1 with a workspace
 // and tickets when kb > 1; at most 1024 threads, 65,535 column blocks and
-// 65,535 splits; the ring within 232,448 bytes of shared memory.
-extern "C" int matmul_h100_launch(const void* a, const void* b, void* c,
-                                  void* ws, void* tickets, int M, int N, int K,
-                                  int bm, int bn, int bk, int s, int kb,
-                                  int stages, int cached, int elem,
-                                  void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || bm < 16 || bm % 16 != 0 ||
+// 65,535 experts x splits; the ring within 232,448 bytes of shared memory.
+static int run(const void* a, const void* b, void* c, void* ws,
+               void* tickets, int E, int M, int N, int K, int bm, int bn,
+               int bk, int s, int kb, int stages, int cached, int elem,
+               void* stream) {
+  if (E <= 0 || M <= 0 || N <= 0 || K <= 0 || bm < 16 || bm % 16 != 0 ||
       !pow2_at_least(bn, 32) || !pow2_at_least(bk, 32) ||
-      (s != 1 && s != 2) || kb < 1 || kb > kMaxGridYZ ||
+      (s != 1 && s != 2) || kb < 1 || (long long)E * kb > kMaxGridYZ ||
       (stages != 1 && stages != 2 && stages != 4) ||
       32 * (bm / 16) * (bn / (8 * s)) > kMaxThreads ||
       (N + bn - 1) / bn > kMaxGridYZ ||
@@ -312,7 +323,7 @@ extern "C" int matmul_h100_launch(const void* a, const void* b, void* c,
   const int epc = elem == ELEM_BF16 ? 8 : 4;
   const int nkt = (K + bk - 1) / bk;
   Args p{a, b, static_cast<float*>(c), static_cast<float*>(ws),
-         static_cast<int*>(tickets), M, N, K, bm, bn, bk, kb,
+         static_cast<int*>(tickets), E, M, N, K, bm, bn, bk, kb,
          (nkt + kb - 1) / kb,
          K % epc == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0,
          N % epc == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0};
@@ -320,4 +331,26 @@ extern "C" int matmul_h100_launch(const void* a, const void* b, void* c,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return elem == ELEM_BF16 ? by_grain<__nv_bfloat16>(p, s, run, st)
                            : by_grain<float>(p, s, run, st);
+}
+
+// C [M, N] = A [M, K] @ B [K, N].
+extern "C" int matmul_h100_launch(const void* a, const void* b, void* c,
+                                  void* ws, void* tickets, int M, int N, int K,
+                                  int bm, int bn, int bk, int s, int kb,
+                                  int stages, int cached, int elem,
+                                  void* stream) {
+  return run(a, b, c, ws, tickets, 1, M, N, K, bm, bn, bk, s, kb, stages,
+             cached, elem, stream);
+}
+
+// C [E, M, N] = A [E, M, K] @ B [E, K, N], one launch; ws holds E x kb
+// partials [M, N] and tickets E x the tiles of one product.
+extern "C" int matmul_h100_batched_launch(const void* a, const void* b,
+                                          void* c, void* ws, void* tickets,
+                                          int E, int M, int N, int K, int bm,
+                                          int bn, int bk, int s, int kb,
+                                          int stages, int cached, int elem,
+                                          void* stream) {
+  return run(a, b, c, ws, tickets, E, M, N, K, bm, bn, bk, s, kb, stages,
+             cached, elem, stream);
 }

@@ -25,6 +25,13 @@ Data parameters:     M, N, K
 Machine parameters:  V (shared bytes a block), G (registers a thread),
                      T (threads a block), CORES (SMs)
 
+The batched entry (:func:`matmul_h100_batched`, the built callable's
+``.batched``) runs E independent products A [E, M, K] @ B [E, K, N] in one
+launch, E x kb blocks on the grid's z: a mixture-of-experts layer's expert
+projections, each expert at its capacity of M token rows.  It takes the
+pick of the per-expert key {M, N, K}, as the JAX trace keys the experts'
+matmuls.
+
 The split-K workspace (f32 partials and per-tile tickets) is one per device
 (:mod:`.workspace`): it grows on demand until a captured CUDA graph holds
 it, and :func:`workspace_need` says what a launch needs.
@@ -55,6 +62,10 @@ _ELEM = {torch.float32: 0, torch.bfloat16: 1}
 #: stages, cached, elem, stream)
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 11
              + (ctypes.c_void_p,))
+#: matmul_h100_batched_launch(a, b, c, ws, tickets, E, M, N, K, bm, bn, bk,
+#: s, kb, stages, cached, elem, stream)
+_ARGTYPES_BATCHED = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 12
+                     + (ctypes.c_void_p,))
 #: The C entry point's limits (``csrc/matmul.cu``).
 MAX_THREADS = 1024
 MAX_SMEM = 232_448
@@ -94,11 +105,20 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     return out
 
 
+def matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, **kw
+                         ) -> torch.Tensor:
+    """Plain version of the batched entry: :func:`matmul_plain` for each
+    expert, A [E, M, K] and B [E, K, N] -> C [E, M, N] f32."""
+    return torch.stack([matmul_plain(a[e], b[e], **kw)
+                        for e in range(a.shape[0])])
+
+
 def format_error(M: int, N: int, K: int, bm: int, bn: int, bk: int, s: int,
                  kb: int, stages: int, cached: bool,
-                 dtype: torch.dtype) -> Optional[str]:
-    """Why ``matmul_h100_launch`` refuses this launch, or None: the C entry
-    point's checks (``csrc/matmul.cu``) in Python."""
+                 dtype: torch.dtype, experts: int = 1) -> Optional[str]:
+    """Why ``matmul_h100_launch`` (``matmul_h100_batched_launch`` over
+    ``experts`` products) refuses this launch, or None: the C entry point's
+    checks (``csrc/matmul.cu``) in Python."""
     def pow2(x):
         return x >= 32 and x & (x - 1) == 0
     esz = 2 if dtype == torch.bfloat16 else 4
@@ -109,7 +129,8 @@ def format_error(M: int, N: int, K: int, bm: int, bn: int, bk: int, s: int,
         (pow2(bn) and pow2(bk), "bn or bk not a power of two >= 32"),
         (s in (1, 2), "s not in {1, 2}"),
         (stages in (1, 2, 4), "stages not in {1, 2, 4}"),
-        (1 <= kb <= MAX_GRID_YZ, "kb out of range"),
+        (experts >= 1 and 1 <= kb and experts * kb <= MAX_GRID_YZ,
+         "kb (times the experts) out of range"),
         (dtype in _ELEM, "not f32 or bf16"),
     ]
     for ok, why in checks:
@@ -136,48 +157,78 @@ def _entry() -> Callable[..., int]:
     return build.entry("matmul", "matmul_h100_launch", _ARGTYPES)
 
 
+@functools.cache
+def _batched_entry() -> Callable[..., int]:
+    return build.entry("matmul", "matmul_h100_batched_launch",
+                       _ARGTYPES_BATCHED)
+
+
 def workspace_need(M: int, N: int, *, bm: int, bn: int, kb: int = 1,
-                   **_) -> Tuple[int, int]:
-    """(f32 partials, tickets) a launch at M x N with this format needs."""
+                   experts: int = 1, **_) -> Tuple[int, int]:
+    """(f32 partials, tickets) a launch at M x N with this format needs;
+    the batched entry needs ``experts`` times as many."""
     if kb <= 1:
         return 0, 0
-    return kb * M * N, -(-M // max(bm, 1)) * -(-N // max(bn, 1))
+    return (experts * kb * M * N,
+            experts * -(-M // max(bm, 1)) * -(-N // max(bn, 1)))
+
+
+def _run(a: torch.Tensor, b: torch.Tensor, batched: bool, *, bm: int,
+         bn: int, bk: int, s: int, kb: int, stages: int,
+         cached: bool) -> torch.Tensor:
+    """Both entries: A [M, K] @ B [K, N], or A [E, M, K] @ B [E, K, N] in
+    one launch when ``batched``; counts the launch on its wrapper."""
+    what = "matmul_h100" + (" batched" if batched else "")
+    if not (a.is_cuda and b.is_cuda and a.device == b.device):
+        raise ValueError(f"{what} kernel needs both operands on one CUDA "
+                         f"device: {a.device}, {b.device}")
+    nd = 3 if batched else 2
+    if a.dim() != nd or b.dim() != nd or a.shape[:-2] != b.shape[:-2] \
+            or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"{what}: bad shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    if a.dtype != b.dtype or a.dtype not in _ELEM:
+        raise TypeError(f"{what} takes f32 or bf16 pairs: {a.dtype}, "
+                        f"{b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous operands")
+    E = a.shape[0] if batched else 1
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    dev = a.device
+    c = torch.empty((*a.shape[:-1], N), dtype=torch.float32, device=dev)
+    ws = tickets = None
+    if kb > 1:
+        floats, tiles = workspace_need(M, N, bm=bm, bn=bn, kb=kb, experts=E)
+        ws = PARTIALS.get(dev, floats).data_ptr()
+        tickets = TICKETS.get(dev, tiles).data_ptr()
+    ptrs = (a.data_ptr(), b.data_ptr(), c.data_ptr(), ws, tickets)
+    rest = (M, N, K, bm, bn, bk, s, kb, stages, int(cached), _ELEM[a.dtype],
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    err = (_batched_entry()(*ptrs, E, *rest) if batched
+           else _entry()(*ptrs, *rest))
+    if err:
+        build.check(err, f"{what}(E={E}, bm={bm}, bn={bn}, bk={bk}, s={s}, "
+                         f"kb={kb}, stages={stages}, cached={cached})")
+    wrapper = matmul_h100_batched if batched else matmul_h100
+    wrapper.launches += 1
+    wrapper.shapes[(E,) * batched + (M, N, K, bm, bn, bk, s, kb, stages,
+                                     bool(cached), a.dtype)] += 1
+    return c
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int, bk: int,
             s: int, kb: int = 1, stages: int = 2,
             cached: bool = True) -> torch.Tensor:
-    if not (a.is_cuda and b.is_cuda and a.device == b.device):
-        raise ValueError("matmul_h100 kernel needs both operands on one "
-                         f"CUDA device: {a.device}, {b.device}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"matmul_h100: bad shapes {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
-    if a.dtype != b.dtype or a.dtype not in _ELEM:
-        raise TypeError(f"matmul_h100 takes f32 or bf16 pairs: {a.dtype}, "
-                        f"{b.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("matmul_h100 needs contiguous operands")
-    M, K = a.shape
-    N = b.shape[1]
-    dev = a.device
-    c = torch.empty((M, N), dtype=torch.float32, device=dev)
-    ws = tickets = None
-    if kb > 1:
-        floats, tiles = workspace_need(M, N, bm=bm, bn=bn, kb=kb)
-        ws = PARTIALS.get(dev, floats).data_ptr()
-        tickets = TICKETS.get(dev, tiles).data_ptr()
-    err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), ws, tickets,
-                   M, N, K, bm, bn, bk, s, kb, stages, int(cached),
-                   _ELEM[a.dtype], torch._C._cuda_getCurrentRawStream(
-                       dev.index))
-    if err:
-        build.check(err, f"matmul_h100(bm={bm}, bn={bn}, bk={bk}, s={s}, "
-                         f"kb={kb}, stages={stages}, cached={cached})")
-    matmul_h100.launches += 1
-    matmul_h100.shapes[(M, N, K, bm, bn, bk, s, kb, stages, bool(cached),
-                        a.dtype)] += 1
-    return c
+    return _run(a, b, False, bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages,
+                cached=cached)
+
+
+def _launch_batched(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
+                    bk: int, s: int, kb: int = 1, stages: int = 2,
+                    cached: bool = True) -> torch.Tensor:
+    return _run(a, b, True, bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages,
+                cached=cached)
 
 
 def matmul_h100(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
@@ -195,6 +246,25 @@ def matmul_h100(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
 
 matmul_h100.launches = 0
 matmul_h100.shapes = collections.Counter()
+
+
+def matmul_h100_batched(a: torch.Tensor, b: torch.Tensor, *, bm: int,
+                        bn: int, bk: int, s: int, kb: int = 1,
+                        stages: int = 2, cached: bool = True
+                        ) -> torch.Tensor:
+    """C[e] = A[e] @ B[e] for every expert e, one launch.  CUDA tensors
+    launch the kernel (or raise); CPU tensors run
+    :func:`matmul_batched_plain`.  ``matmul_h100_batched.launches`` counts
+    its launches, ``.shapes`` them by (E, M, N, K, bm, bn, bk, s, kb,
+    stages, cached, dtype)."""
+    kw = dict(bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages, cached=cached)
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_batched_plain(a, b, **kw)
+    return _launch_batched(a, b, **kw)
+
+
+matmul_h100_batched.launches = 0
+matmul_h100_batched.shapes = collections.Counter()
 
 
 # =============================================================================
@@ -398,10 +468,15 @@ class MatmulH100Family(CachedInstantiationMixin):
 
     def _build(self, plan: KernelPlan, assignment: Mapping[str, int],
                device: str = "cuda") -> Callable:
-        fn = _launch if device == "cuda" else matmul_plain
-        return functools.partial(
-            fn, **{n: int(assignment[n]) for n in _DOMAINS},
-            cached=bool(plan.flags.get("smem_cache", True)))
+        """The 2-D entry bound to the leaf's parameters; its ``batched``
+        attribute is the batched entry bound to the same."""
+        kw = {n: int(assignment[n]) for n in _DOMAINS}
+        kw["cached"] = bool(plan.flags.get("smem_cache", True))
+        cuda = device == "cuda"
+        fn = functools.partial(_launch if cuda else matmul_plain, **kw)
+        fn.batched = functools.partial(
+            _launch_batched if cuda else matmul_batched_plain, **kw)
+        return fn
 
 
 FAMILY = MatmulH100Family()

@@ -47,6 +47,18 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     return fn(a, b)
 
 
+def matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
+                   machine: MachineDescription = H100_SXM) -> torch.Tensor:
+    """C[e] = A[e] @ B[e] in f32 over A [E, M, K], B [E, K, N] (K1's batched
+    entry, one launch for every e), keyed on the per-expert (M, N, K) as
+    :func:`matmul`, through the same frozen lane."""
+    _, M, K = a.shape
+    N = b.shape[2]
+    fn = get_default_cache().warm_callable(
+        MATMUL_FAMILY, machine, (("M", M), ("N", N), ("K", K)), a.device.type)
+    return fn.batched(a, b)
+
+
 def matadd(a: torch.Tensor, b: torch.Tensor, *,
            machine: MachineDescription = H100_SXM) -> torch.Tensor:
     """C = A + B over [M, N], f32 or bf16 (K5)."""

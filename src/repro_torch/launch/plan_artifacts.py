@@ -71,7 +71,7 @@ def main(argv=None) -> int:
     get = get_smoke_config if args.smoke else get_config
     try:
         cfgs = [get(n) for n in names]
-    except (KeyError, ModuleNotFoundError) as e:
+    except (KeyError, ModuleNotFoundError, ValueError) as e:
         ap.error(f"unknown config {e}; have {sorted(ARCH_IDS)}")
     machines = [MACHINES[m] for m in (args.machine or ["h100_sxm"])]
     trace_kw = dict(max_len=args.max_len, max_batch=args.max_batch,

@@ -5,7 +5,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --device cpu                               # smoke config, plain ops
 
-``--arch`` takes llama3-8b, mamba2-130m or hymba-1.5b.
+``--arch`` takes llama3-8b, granite-3-8b, yi-6b, qwen1.5-4b, chameleon-34b
+(dense), llama4-scout-17b-a16e, kimi-k2-1t-a32b (mixture of experts),
+mamba2-130m (SSM) or hymba-1.5b (hybrid); whisper-large-v3 is not ported
+yet.  ``--full`` serves the published config at full depth: llama4-scout's
+48 layers and kimi-k2's 61 do not fit one 80 GB card (``chip_smoke.py``
+cuts their depth).
 
 ``--async-depth`` keeps that many ticks in flight (1: synchronous).
 ``--prefix-sharing`` maps resident prompt blocks (off for SSM blocks);
@@ -33,7 +38,7 @@ import torch
 from repro_torch.artifacts.dispatch import get_default_cache
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import flash_attention_h100
-from repro_torch.kernels.matmul import matmul_h100
+from repro_torch.kernels.matmul import matmul_h100, matmul_h100_batched
 from repro_torch.kernels.ssd_scan import ssd_scan_h100
 from repro_torch.models import init_model
 from repro_torch.obs import FlightRecorder, install
@@ -133,7 +138,8 @@ def main() -> None:
         print(f"warm-up: {len(eng.kernel_plan)} kernel picks frozen")
     stats = get_default_cache().stats
     cold0 = stats.cold_builds
-    kernels = (matmul_h100, flash_attention_h100, ssd_scan_h100)
+    kernels = (matmul_h100, matmul_h100_batched, flash_attention_h100,
+               ssd_scan_h100)
     for k in kernels:
         k.launches = 0
 

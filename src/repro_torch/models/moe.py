@@ -1,0 +1,118 @@
+"""Mixture-of-experts layer (the port of ``models/moe.py``): GShard-style
+grouped dispatch with softmax top-k routing and capacity dropping.
+
+Tokens are processed in groups of ``min(MOE_GROUP_SIZE, T)`` (the last one
+padded with zero tokens, which route but are cut from the output), so the
+dispatch and combine one-hot tensors stay (G, gsz, E, C).  The router runs
+on K1 (``ops.matmul``, f32 out) from compute-dtype inputs and only the
+softmax is f32, as in the JAX layer; the expert SwiGLU runs on K1's batched
+entry (``ops.matmul_batched``), one launch a projection for all E experts
+at their capacity of C token rows.  The one-hot dispatch and combine
+contractions are plain ``torch.einsum``, as they are plain einsum outside
+any Pallas kernel in the JAX layer.  One card has no mesh, so the JAX
+layer's sharding constraints have no counterpart here.
+
+Shapes (per call):
+  x          (B, S, d)      -> tokens (G, gsz, d)
+  router     (d, E)
+  wi, wg     (E, d, f)      SwiGLU expert FFN
+  wo         (E, f, d)
+  dispatch   (G, gsz, E, C) combine weights; C = ceil(gsz*k*cf/E), >= 4
+
+Routing ties break toward the lower expert index, as ``jax.lax.top_k``
+does (a stable descending sort): zero padding tokens, for one, give every
+expert the same probability.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .config import ModelConfig
+
+Params = Dict[str, Any]
+
+#: Token-group size of the grouped dispatch (the JAX layer's); the trace
+#: derives the capacity-width expert matmul shapes from it.
+MOE_GROUP_SIZE = 1024
+
+
+def capacity(group_size: int, num_experts: int, top_k: int,
+             capacity_factor: float) -> int:
+    """Per-expert per-group token capacity (static)."""
+    c = math.ceil(group_size * top_k * capacity_factor / num_experts)
+    return max(4, c)
+
+
+def check_moe(cfg: ModelConfig) -> None:
+    """Raise for an ``attn_moe`` config the port does not serve: the
+    ``moe_a2a`` all-to-all schedule (and its padded expert storage) is a
+    multi-card path."""
+    if "moe_a2a" in cfg.perf_flags:
+        raise NotImplementedError(
+            f"perf flag 'moe_a2a' (config {cfg.name}) is not ported yet: "
+            "the all-to-all expert schedule is ROADMAP Queue 1 item 9")
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest along the last axis, equal values
+    in the order of their index, as ``jax.lax.top_k`` gives them."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              group_size: int = MOE_GROUP_SIZE
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B, S, d), Switch load-balance loss (f32 scalar))."""
+    m = cfg.moe
+    B, S, d = x.shape
+    E, k = m.num_experts, m.top_k
+    T = B * S
+    gsz = min(group_size, T)
+    G = -(-T // gsz)
+    Tp = G * gsz
+    C = capacity(gsz, E, k, m.capacity_factor)
+    xt = x.reshape(T, d).contiguous()
+
+    # ---- routing: a zero padding token has zero logits ---------------------
+    logits = ops.matmul(xt, p["router"].to(x.dtype))             # (T, E) f32
+    if Tp != T:
+        xt = F.pad(xt, (0, 0, 0, Tp - T))
+        logits = F.pad(logits, (0, 0, 0, Tp - T))
+    xg = xt.reshape(G, gsz, d)
+    probs = torch.softmax(logits.reshape(G, gsz, E), dim=-1)
+    gates, idx = top_k(probs, k)                                  # (G,gsz,k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # ---- capacity assignment (GShard), token-major priority -----------------
+    experts = torch.arange(E, device=x.device)
+    onehot = (idx[..., None] == experts).float()                 # (G,gsz,k,E)
+    flat = onehot.reshape(G, gsz * k, E)
+    pos = (flat.cumsum(1) - flat).reshape(G, gsz, k, E)
+    pos_k = (pos * onehot).sum(-1)                                # (G,gsz,k)
+    fits = (pos_k < C) & (onehot.sum(-1) > 0)
+    slots = torch.arange(C, device=x.device)
+    pos_oh = (pos_k.long()[..., None] == slots).float() * fits[..., None]
+    dispatch = torch.einsum("gtke,gtkc->gtec", onehot, pos_oh)    # (G,gsz,E,C)
+    combine = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gates)
+
+    # ---- expert SwiGLU: each projection one batched K1 launch ---------------
+    xin = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
+    xin = xin.reshape(E, G * C, d).contiguous()
+    h = ops.matmul_batched(xin, p["wi"].to(x.dtype)).to(x.dtype)
+    g = ops.matmul_batched(xin, p["wg"].to(x.dtype)).to(x.dtype)
+    out = ops.matmul_batched((F.silu(g) * h).contiguous(),
+                             p["wo"].to(x.dtype)).to(x.dtype)
+    y = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype),
+                     out.reshape(E, G, C, d))
+    y = y.reshape(Tp, d)[:T].reshape(B, S, d)
+
+    # ---- Switch aux loss: E * sum_e f_e * p_e -------------------------------
+    frac_tokens = onehot[:, :, 0, :].mean(dim=(0, 1))           # top-1 share
+    frac_probs = probs.mean(dim=(0, 1))
+    return y, E * (frac_tokens * frac_probs).sum()

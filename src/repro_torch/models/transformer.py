@@ -1,8 +1,9 @@
 """Model assembly (the port of ``models/transformer.py``).
 
-Serves the ``attn_mlp`` (dense GQA), ``ssm`` (attention-free Mamba-2 SSD)
-and ``hybrid`` (parallel attention + SSD heads) blocks; ``attn_moe`` and the
-encoder-decoder are later slices.  Parameters are a dict ``{"embed": {"tok",
+Serves the ``attn_mlp`` (dense GQA), ``attn_moe`` (GQA + mixture-of-experts
+FFN, :mod:`.moe`), ``ssm`` (attention-free Mamba-2 SSD) and ``hybrid``
+(parallel attention + SSD heads) blocks; the encoder-decoder is a later
+slice.  Parameters are a dict ``{"embed": {"tok",
 "out"}, "layers": [per-layer dicts], "ln_f": {"scale"}}``; the JAX package
 stacks layers on a leading axis and scans them, the port keeps a list and
 loops.  Weights (>= 2-D) are held in the compute dtype, norm scales and
@@ -29,21 +30,24 @@ import torch
 from ..device import DeviceLike, resolve_device, torch_dtype
 from . import layers as L
 from .config import ModelConfig
+from .moe import check_moe, moe_block
 
 Params = Dict[str, Any]
 
 
 def check_block(cfg: ModelConfig) -> None:
     """Raise for a config whose block the port does not serve yet."""
-    if cfg.block not in ("attn_mlp", "ssm", "hybrid") \
+    if cfg.block not in ("attn_mlp", "attn_moe", "ssm", "hybrid") \
             or cfg.encoder is not None:
         raise NotImplementedError(
             f"block {cfg.block!r} (config {cfg.name}) is not ported yet: "
-            "the port serves attn_mlp, ssm and hybrid decoders")
+            "the port serves attn_mlp, attn_moe, ssm and hybrid decoders")
+    if cfg.block == "attn_moe":
+        check_moe(cfg)
 
 
 def has_attn(cfg: ModelConfig) -> bool:
-    return cfg.block in ("attn_mlp", "hybrid")
+    return cfg.block in ("attn_mlp", "attn_moe", "hybrid")
 
 
 def has_ssm(cfg: ModelConfig) -> bool:
@@ -67,9 +71,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                device: DeviceLike = None) -> Params:
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
     card unless the caller passes ``"cpu"``): normal / sqrt(fan_in) for
-    matrices (0.1 / sqrt(fan_in) for the SSM decay projection), 0.02·normal
-    for the token table, ones for norm scales, 2.0 for the decay bias — the
-    JAX package's distributions, not its numbers."""
+    matrices (0.1 / sqrt(fan_in) for the SSM decay projection; an expert
+    stack (E, fan_in, fan_out) by its own fan_in), 0.02·normal for the
+    token table, ones for norm scales, zeros for q/k/v biases, 2.0 for the
+    decay bias — the JAX package's distributions, not its numbers."""
     check_block(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
@@ -112,6 +117,13 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
         if has_mlp(cfg):
             lp["ln2"] = norm()
             lp["mlp"] = {"wi": mat(d, f), "wg": mat(d, f), "wo": mat(f, d)}
+        if cfg.block == "attn_moe":
+            E, fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
+            lp["ln2"] = norm()
+            lp["moe"] = {"router": mat(d, E),
+                         "wi": mat(E, d, fe, scale=1 / math.sqrt(d)),
+                         "wg": mat(E, d, fe, scale=1 / math.sqrt(d)),
+                         "wo": mat(E, fe, d, scale=1 / math.sqrt(fe))}
         layers.append(lp)
     return {"embed": {"tok": mat(cfg.vocab, d, scale=0.02),
                       "out": mat(d, cfg.vocab)},
@@ -126,13 +138,15 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
            ssm_state: Optional[torch.Tensor] = None,
            ssm_mask: Optional[torch.Tensor] = None,
            ssm_rows: Optional[torch.Tensor] = None, **attn_kw
-           ) -> torch.Tensor:
-    """One block.  The SSD core's final state is written into
-    ``ssm_state`` itself (none is kept when it is None), rows that
-    ``ssm_mask`` leaves out keeping theirs, row b at ``ssm_rows[b]`` when
-    given.  The hybrid block runs
-    attention and SSD in parallel on separately normed inputs and adds both
-    to the residual, then the MLP, as the JAX ``block_apply`` does."""
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block: (x, the MoE layer's aux loss or None).  The SSD core's
+    final state is written into ``ssm_state`` itself (none is kept when it
+    is None), rows that ``ssm_mask`` leaves out keeping theirs, row b at
+    ``ssm_rows[b]`` when given.  The hybrid block runs attention and SSD in
+    parallel on separately normed inputs and adds both to the residual,
+    then the MLP or the MoE FFN, as the JAX ``block_apply`` does.  The MoE
+    FFN routes every row of x, rows not decoding included, as the JAX
+    decode step does: capacity is per routing call."""
     h = x
     if has_attn(cfg):
         h = h + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
@@ -144,9 +158,14 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
             state_rows=ssm_rows)
         h = h + ssd
     x = h
-    if "mlp" in lp:
+    aux = None
+    if "moe" in lp:
+        y, aux = moe_block(lp["moe"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                           cfg)
+        x = x + y
+    elif "mlp" in lp:
         x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
-    return x
+    return x, aux
 
 
 def _as(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -163,20 +182,28 @@ def _long(x, dev: torch.device) -> torch.Tensor:
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig, tokens
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, cfg: ModelConfig, tokens, *,
+            patch_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward: tokens (B, S) -> (logits (B, S, V),
-    aux loss 0)."""
+    the MoE layers' summed aux loss, f32; 0 without MoE).  ``patch_embeds``
+    (B', P, d), chameleon's precomputed VQ patch embeddings, replace the
+    token embeddings of rows :B' at positions :P (early fusion)."""
     check_block(cfg)
     dev = _device(params)
     tokens = _long(tokens, dev)
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens, _dtype(cfg))
+    if patch_embeds is not None:
+        pe = _as(patch_embeds, dev, x.dtype)
+        x[:pe.shape[0], :pe.shape[1]] = pe
     positions = torch.arange(S, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for lp in params["layers"]:
-        x = _block(lp, x, cfg, positions=positions)
+        x, aux_l = _block(lp, x, cfg, positions=positions)
+        if aux_l is not None:
+            aux = aux + aux_l
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x), torch.zeros((), device=dev)
+    return L.unembed(params["embed"], x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +276,7 @@ def paged_prefill_step(params: Params, cfg: ModelConfig,
     x = L.embed(params["embed"], tokens.long(), _dtype(cfg))
     ssm = cache.get("ssm")
     for i, lp in enumerate(params["layers"]):
-        x = _block(
+        x, _ = _block(
             lp, x, cfg, ssm_state=ssm[i] if ssm is not None else None,
             ssm_rows=slot, positions=positions, cache=_layer_kv(cache, i),
             cache_index=idx, block_tables=block_table, lengths=lens)
@@ -298,7 +325,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = idx[:, None]
     ssm = cache.get("ssm")
     for i, lp in enumerate(params["layers"]):
-        x = _block(
+        x, _ = _block(
             lp, x, cfg, ssm_state=ssm[i, :B] if ssm is not None else None,
             ssm_mask=active, positions=positions, cache=_layer_kv(cache, i),
             cache_index=idx, block_tables=block_tables, lengths=lens)

@@ -11,11 +11,17 @@ SSM decay projection (ROADMAP F5).  The paged serve path of
   the SSM x/B/C/decay/out projections and the MLP at ``M = C``, the
   attention core at ``SQ = C`` (with ``GROUP`` = heads / kv_heads and
   ``HK`` = kv_heads, since K/V reach it unbroadcast), the SSD scan at
-  ``SQ = C``, and the lm_head at ``M = 1`` (only the last token is
-  unembedded);
-- **decode step** over the whole pool: projections, MLP and lm_head at
-  ``M = max_batch``, one paged attention core over all rows at ``SQ = 1``,
-  and one SSD scan over all rows at ``SQ = 1``.
+  ``SQ = C``, the MoE router at ``M = C`` and the experts' SwiGLU at
+  ``M = capacity(C, E, k, cf)`` (a chunk is one routing group), and the
+  lm_head at ``M = 1`` (only the last token is unembedded);
+- **decode step** over the whole pool: projections, MLP, router and
+  lm_head at ``M = max_batch``, the experts at ``M = capacity(max_batch,
+  E, k, cf)``, one paged attention core over all rows at ``SQ = 1``, and
+  one SSD scan over all rows at ``SQ = 1``.
+
+The experts' ``expert_up`` (``wi`` and ``wg``) and ``expert_down`` keys are
+per expert, as the JAX trace keys them; the model launches each through
+K1's batched entry over all E experts (:meth:`TracedOp.experts`).
 
 C ranges over the scheduler's quantized chunk lengths: ``prefill_chunk``
 and every power of two below it (capped by ``max_len``).  Nothing is
@@ -27,6 +33,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Tuple
 
 from ..models.config import ModelConfig
+from ..models.moe import MOE_GROUP_SIZE, capacity
 from ..models.transformer import check_block, has_attn, has_mlp, has_ssm
 
 
@@ -48,6 +55,13 @@ class TracedOp:
 
     def data_dict(self) -> Dict[str, int]:
         return dict(self.data)
+
+    def experts(self, cfg: ModelConfig) -> int:
+        """The products one launch at this key makes: E where a site runs
+        K1's batched entry over the experts (a key a 2-D site shares needs
+        no more), else 1."""
+        return cfg.moe.num_experts if any(
+            ".moe.expert_" in s for s in self.sites) else 1
 
 
 def chunk_lengths(prefill_chunk: int, max_len: int) -> List[int]:
@@ -95,6 +109,17 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str
                {"M": M, "N": cfg.d_ff, "K": d})   # wi and wg share it
         yield (f"{prefix}.mlp.down_proj", "matmul_h100",
                {"M": M, "N": d, "K": cfg.d_ff})
+    if cfg.block == "attn_moe":
+        m = cfg.moe
+        yield (f"{prefix}.moe.router", "matmul_h100",
+               {"M": M, "N": m.num_experts, "K": d})
+        gsz = min(MOE_GROUP_SIZE, M)
+        cap = -(-M // gsz) * capacity(gsz, m.num_experts, m.top_k,
+                                      m.capacity_factor)
+        yield (f"{prefix}.moe.expert_up", "matmul_h100",
+               {"M": cap, "N": m.d_ff_expert, "K": d})   # wi and wg
+        yield (f"{prefix}.moe.expert_down", "matmul_h100",
+               {"M": cap, "N": d, "K": m.d_ff_expert})
 
 
 def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,

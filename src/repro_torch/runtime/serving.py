@@ -14,9 +14,15 @@ engine's, byte for byte (:mod:`repro_torch.runtime.scheduler`).
 Each tick: plan (scheduler) -> dispatch (at most one prefill chunk, then one
 decode over the whole pool with per-row block tables) -> commit (the one
 host sync: sampled tokens land in request outputs; EOS / ``max_new``
-retire).  It serves the ``attn_mlp``, ``ssm`` and ``hybrid`` blocks; a
-slot's SSM state is zeroed when a sequence is admitted to it, as the JAX
-``_reset_slot`` does.
+retire).  It serves the ``attn_mlp``, ``attn_moe``, ``ssm`` and ``hybrid``
+blocks, every config the JAX engine serves; a slot's SSM state is zeroed
+when a sequence is admitted to it, as the JAX ``_reset_slot`` does.  The
+decode step routes all ``max_batch`` rows through a MoE layer in row order,
+rows not decoding included, as the JAX step does (capacity is per routing
+call, so masking them out would change which live tokens it drops).  Such a
+row enters with K2's zeros where the JAX step attends it to the garbage
+block, so the two engines agree token for token while a decode step's
+capacity does not bind over it: always at ``max_batch`` <= 4 (ROADMAP F7).
 
 **Compiled steps** (the JAX engine's ``jax.jit(_decode)`` and
 ``jax.jit(_prefill)``, one compile a quantized chunk length).  Both steps
@@ -373,8 +379,9 @@ class ServeEngine:
     def _workspace_needs(self) -> List[Tuple[Workspace, int]]:
         """What every launch of the serve path needs of the split
         workspaces (the traced warm set at the picks it resolves to now:
-        K1's split-K at each projection, K2's splits over the pool at
-        decode's max_batch rows and a chunk's one row)."""
+        K1's split-K at each projection, E times that at the experts' batched
+        launches, K2's splits over the pool at decode's max_batch rows and a
+        chunk's one row)."""
         keys = self.blocks_per_seq * self.page_size
         needs: List[Tuple[Workspace, int]] = []
         for op in self._warm_ops:
@@ -382,7 +389,8 @@ class ServeEngine:
             a = self._cache.best_variant(FAMILIES[op.family], self.machine,
                                          data).assignment
             if op.family == "matmul_h100":
-                floats, tiles = mm.workspace_need(data["M"], data["N"], **a)
+                floats, tiles = mm.workspace_need(
+                    data["M"], data["N"], experts=op.experts(self.cfg), **a)
                 needs += [(mm.PARTIALS, floats), (mm.TICKETS, tiles)]
             elif op.family == "flash_attention_h100":
                 rows = self.max_batch if data["SQ"] == 1 else 1

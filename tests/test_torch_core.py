@@ -163,6 +163,45 @@ def test_llama3_warm_set_resolves_within_gpu_limits(arch_cfg):
                     *(a[n] for n in FA_PARAMS), dtype) is None
 
 
+NEW_ARCHS = ("granite_3_8b", "yi_6b", "qwen1p5_4b", "chameleon_34b",
+             "llama4_scout_17b_a16e", "kimi_k2_1t_a32b")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_warm_sets_resolve_within_gpu_limits(arch):
+    """At full width, every K1 triple of the serve warm set (the routers at
+    N = E, the experts' batched launches over all E experts, granite's odd
+    lm_head, qwen's and llama4's wide vocabularies) and every K2 key (qwen's
+    group 1 of 20 KV heads, llama4's group 5 at HD 128) resolves to a
+    format the C entry points take for both types."""
+    cfg = get_config(arch)
+    cache = DispatchCache()
+    ops = trace_warm_set(cfg, max_len=256, max_batch=4, prefill_chunk=32)
+    groups = set()
+    for op in ops:
+        cand = cache.best_variant(FAMILIES[op.family], tcore.H100_SXM,
+                                  op.data_dict())
+        a, d = cand.assignment, op.data_dict()
+        if op.family == "matmul_h100":
+            for dtype in (torch.float32, torch.bfloat16):
+                assert mm_mod.format_error(
+                    d["M"], d["N"], d["K"], *(a[n] for n in MM_PARAMS),
+                    cand.plan.flags["smem_cache"], dtype,
+                    experts=op.experts(cfg)) is None, (op.label, a)
+        else:
+            groups.add((d["GROUP"], d["HK"]))
+            for dtype in (torch.float32, torch.bfloat16):
+                assert fa_mod.format_error(
+                    cfg.heads, cfg.kv_heads, d["SQ"], 256, d["HD"],
+                    *(a[n] for n in FA_PARAMS), dtype) is None, (op.label, a)
+    assert groups == {(cfg.heads // cfg.kv_heads, cfg.kv_heads)}
+    n = {op.family for op in ops}
+    assert n == {"matmul_h100", "flash_attention_h100"}
+    if cfg.block == "attn_moe":
+        labels = {s.rsplit(".", 1)[-1] for op in ops for s in op.sites}
+        assert {"router", "expert_up", "expert_down"} <= labels
+
+
 def test_trace_holds_exactly_the_dispatched_shapes():
     cfg = get_config("llama3_8b")
     ops = trace_warm_set(cfg, max_len=256, max_batch=4, prefill_chunk=32)
@@ -464,6 +503,8 @@ SERVE_SETS = {
     "llama3_8b": dict(max_len=256, max_batch=4, prefill_chunk=32),
     "hymba_1p5b": dict(max_len=256, max_batch=4, prefill_chunk=32),
     "mamba2_130m": dict(max_len=1024, max_batch=4, prefill_chunk=256),
+    **{a: dict(max_len=256, max_batch=4, prefill_chunk=32)
+       for a in NEW_ARCHS},
 }
 
 
@@ -526,7 +567,7 @@ def test_flash_domains_fit_the_select_cap():
         assert math.prod(sizes) <= 512, (leaf.applied, sizes)
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "hymba_1p5b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "hymba_1p5b", *NEW_ARCHS])
 def test_flash_pick_equals_the_uncapped_pick(arch):
     """At every K2 key of the full-width serve warm set the pick under
     select's default cap is the pick over the whole domain, and a format
@@ -620,7 +661,9 @@ def test_matmul_every_feasible_leaf_launches():
 
 COPIES = ("runtime/ft", "runtime/faults", "runtime/kv_pool",
           "runtime/scheduler", "artifacts/serde", "artifacts/store",
-          "plans/store")
+          "plans/store", "configs/llama3_8b", "configs/granite_3_8b",
+          "configs/yi_6b", "configs/qwen1p5_4b", "configs/chameleon_34b",
+          "configs/llama4_scout_17b_a16e", "configs/kimi_k2_1t_a32b")
 
 
 def _code(path) -> str:

@@ -46,7 +46,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_h100,
 from repro_torch.kernels.instantiate_cache import grain
 from repro_torch.kernels.jacobi1d import jacobi1d_h100, jacobi1d_plain
 from repro_torch.kernels.matadd import matadd_h100, matadd_plain
-from repro_torch.kernels.matmul import matmul_h100, matmul_plain
+from repro_torch.kernels.matmul import (matmul_batched_plain, matmul_h100,
+                                        matmul_h100_batched, matmul_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan_h100, ssd_scan_plain
 from repro_torch.kernels.transpose import transpose_h100, transpose_plain
 
@@ -146,6 +147,54 @@ def test_gpu_matmul_workspace_grows_and_tickets_reset(cuda):
         tickets = mm_mod.TICKETS.bufs[a.device]
         assert part.numel() >= kb * M * N
         assert int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,N,K", [(4, 4, 96, 300), (16, 5, 333, 200),
+                                     (3, 17, 64, 1000)])
+def test_gpu_matmul_batched_matches_plain(cuda, dtype, E, M, N, K):
+    """The batched entry (E products, one launch) against its plain version
+    at every split and ring depth, each expert bit for bit the 2-D launch
+    of the same format on that expert's operands (the same body on offset
+    pointers); the tickets are left at 0."""
+    from repro_torch.kernels import matmul as mm_mod
+    a = _t((E, M, K), 11, cuda, dtype)
+    b = _t((E, K, N), 12, cuda, dtype)
+    for i, (kb, stages) in enumerate([(kb, st) for kb in (1, 3, 16)
+                                      for st in (1, 2, 4)]):
+        bm, bn, bk, s = MM_FORMATS[(i + M + N) % len(MM_FORMATS)]
+        kw = dict(bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages)
+        n0, m0 = matmul_h100_batched.launches, matmul_h100.launches
+        got = matmul_h100_batched(a, b, **kw)
+        torch.cuda.synchronize()
+        assert matmul_h100_batched.launches == n0 + 1
+        assert matmul_h100.launches == m0
+        torch.testing.assert_close(got, matmul_batched_plain(a, b, **kw),
+                                   rtol=1e-4, atol=8e-4, msg=str(kw))
+        for e in (0, E - 1):
+            assert torch.equal(got[e], matmul_h100(a[e].contiguous(),
+                                                   b[e].contiguous(), **kw))
+        if kb > 1:
+            assert int(mm_mod.TICKETS.bufs[a.device].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_gpu_matmul_batched_refuses_too_many_blocks_on_z(cuda):
+    """E x kb blocks ride the grid's z, at most 65,535; the wrapper raises
+    past it, as ``format_error(experts=E)`` says."""
+    from repro_torch.kernels.matmul import format_error
+    a = _t((4097, 1, 32), 13, cuda, torch.bfloat16)
+    b = _t((4097, 32, 32), 14, cuda, torch.bfloat16)
+    kw = dict(bm=16, bn=32, bk=32, s=1, kb=16, stages=2)
+    assert format_error(1, 32, 32, **kw, cached=True, dtype=torch.bfloat16,
+                        experts=4097) is not None
+    with pytest.raises(Exception):
+        matmul_h100_batched(a, b, **kw)
+    kw["kb"] = 1
+    torch.testing.assert_close(matmul_h100_batched(a, b, **kw),
+                               matmul_batched_plain(a, b, **kw), rtol=1e-4,
+                               atol=8e-4)
 
 
 @pytest.mark.gpu
@@ -274,14 +323,18 @@ def test_gpu_flash_invalid_format_raises(cuda):
 #: rows, sq, lens, nblk, page, bq, bkv, kv_chunk): llama3-8b (32/8) and
 #: hymba-1.5b (25/5, window 1024) decode over 4 rows of ragged lengths,
 #: one of them 0, and a prefill chunk; pools of 256 and 4096 keys, one
-#: split and several.
+#: split and several; qwen1.5-4b's one query head a KV head (20/20) and
+#: llama4-scout's group of 5 at head dim 128 (40/8).
 FA_PAGED_CASES = [
     (32, 8, 128, None, 4, 1, [77, 0, 200, 256], 16, 16, 16, 64, 4096),
     (32, 8, 128, None, 4, 1, [77, 0, 3000, 4096], 256, 16, 16, 64, 256),
     (25, 5, 64, 1024, 4, 1, [77, 0, 1500, 4096], 256, 16, 16, 64, 512),
     (32, 8, 128, None, 1, 32, [96], 16, 16, 128, 32, 4096),
     (32, 8, 128, None, 1, 256, [3000], 256, 16, 64, 64, 1024),
-    (25, 5, 64, 1024, 1, 32, [1900], 256, 16, 64, 64, 512)]
+    (25, 5, 64, 1024, 1, 32, [1900], 256, 16, 64, 64, 512),
+    (20, 20, 128, None, 4, 1, [77, 0, 200, 256], 16, 16, 16, 64, 4096),
+    (40, 8, 128, None, 4, 1, [77, 0, 3000, 4096], 256, 16, 16, 64, 256),
+    (40, 8, 128, None, 1, 32, [96], 16, 16, 64, 32, 4096)]
 
 
 def _paged_inputs(h, hk, d, rows, sq, lens, nblk, page, dev, q_dtype, seed=0):
@@ -336,7 +389,8 @@ def _engine(arch, dev, **kw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3_8b", "mamba2_130m", "hymba_1p5b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "mamba2_130m", "hymba_1p5b",
+                                  "kimi_k2_1t_a32b"])
 def test_gpu_graph_replay_equals_the_eager_step(cuda, arch):
     """The captured decode tick against the same step run eagerly on the
     card: two engines on the same weights serve five requests through three

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 its copies of the observability package ``repro_torch.obs``, the fault
-harness, the disk tier and the serve plans included."""
+harness, the disk tier, the serve plans, the MoE layer and the config
+modules included."""
 import os
 import pathlib
 import re
@@ -29,7 +30,11 @@ assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
         "repro_torch.artifacts.compile", "repro_torch.plans.serde",
         "repro_torch.plans.store", "repro_torch.plans.loader",
         "repro_torch.launch.compile_artifacts",
-        "repro_torch.launch.plan_artifacts"} <= set(names), names
+        "repro_torch.launch.plan_artifacts", "repro_torch.models.moe",
+        "repro_torch.configs.granite_3_8b", "repro_torch.configs.yi_6b",
+        "repro_torch.configs.qwen1p5_4b", "repro_torch.configs.chameleon_34b",
+        "repro_torch.configs.llama4_scout_17b_a16e",
+        "repro_torch.configs.kimi_k2_1t_a32b"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 assert all(sys.modules[m] is None for m in bad), bad

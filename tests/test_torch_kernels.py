@@ -64,6 +64,24 @@ def test_matmul_matches_jax_pallas(M, K, N, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,M,K,N", [(3, 128, 128, 128), (2, 300, 200, 150)])
+def test_matmul_batched_matches_jax_pallas_per_expert(E, M, K, N, dtype):
+    """K1's batched entry (the pick at the per-expert key, its plain version
+    on the CPU) against the JAX Pallas matmul of each expert, as the JAX
+    MoE layer's per-expert einsum is traced."""
+    ja, ta = _pair(_np((E, M, K), SEED + 2), dtype)
+    jb, tb = _pair(_np((E, K, N), SEED + 3), dtype)
+    got = ops.matmul_batched(ta, tb)
+    assert got.dtype == torch.float32 and got.shape == (E, M, N)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    for e in range(E):
+        want = np.asarray(jops.matmul(ja[e], jb[e], impl="pallas",
+                                      interpret=True))
+        np.testing.assert_allclose(got[e].numpy(), want, rtol=tol,
+                                   atol=tol * 8)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,K,N,bm,bn,bk,s,kb,stages,cached", [
     (96, 200, 130, 16, 32, 32, 1, 1, 2, True),
     (96, 200, 130, 64, 128, 64, 2, 1, 4, True),
@@ -325,7 +343,7 @@ def _jax_paged(jq, jk, jv, tables, lens, window):
     return np.asarray(jnp.transpose(out, (0, 2, 1, 3)).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "hymba_1p5b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "hymba_1p5b", "qwen1p5_4b"])
 @pytest.mark.parametrize("case", ["decode", "chunk"])
 @pytest.mark.parametrize("q_dtype,pool", [("float32", "float32"),
                                           ("float32", "bfloat16"),
@@ -333,7 +351,8 @@ def _jax_paged(jq, jk, jv, tables, lens, window):
 def test_paged_attention_matches_jax_paged_read(arch, case, q_dtype, pool):
     """``ops.paged_attention`` (the pick at (SQ, HD, GROUP, HK), its paged
     plain version on the CPU) against the JAX layer's paged read at the
-    smoke configs' groupings (hymba's with its window): a decode over 4
+    smoke configs' groupings (hymba's with its window, qwen's one query
+    head a KV head): a decode over 4
     rows of ragged lengths, one of them 0 (a row not decoding: zeros), and
     a prefill chunk; f32 q on an f32 and on a bf16 pool, and bf16."""
     cfg = get_smoke_config(arch)

@@ -398,3 +398,124 @@ def test_ssm_steps_update_the_cache_in_place(ssm_model, monkeypatch):
         assert mask.dtype == torch.bool and mask.tolist() == [False, True]
         assert rows is None
     assert c["ssm"] is ssm
+
+
+# ---------------------------------------------------------------------------
+# The four dense configs and the attn_moe block (llama4-scout, kimi-k2)
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ["granite_3_8b", "yi_6b", "qwen1p5_4b", "chameleon_34b",
+             "llama4_scout_17b_a16e", "kimi_k2_1t_a32b"]
+MOE_ARCHS = ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"]
+
+
+def _converted(arch, seed):
+    """The f32 smoke model in JAX and converted, with qwen's q/k/v biases
+    planted non-zero from a numpy seed in the JAX tree (the JAX init makes
+    them zero, which would hide a bias applied wrongly)."""
+    cfg = jconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    jparams, _ = jm.init_model(jax.random.PRNGKey(seed), cfg)
+    if cfg.qkv_bias:
+        rng = np.random.default_rng(seed)
+        attn = jparams["layers"]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jnp.asarray(
+                rng.standard_normal(attn[name].shape), jnp.float32)
+    tcfg = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return cfg, jparams, tcfg, tparams
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_configs_equal_jax_configs(arch, which):
+    get = "get_config" if which == "CONFIG" else "get_smoke_config"
+    j = getattr(jconfigs, get)(arch)
+    t = getattr(tconfigs, get)(j.name if which == "CONFIG" else arch)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
+
+
+def test_whisper_is_refused_by_name():
+    with pytest.raises(ValueError, match="not ported yet"):
+        tconfigs.get_config("whisper-large-v3")
+    cfg = jconfigs.get_smoke_config("whisper_large_v3")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tm.init_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch,patches", [(a, False) for a in NEW_ARCHS]
+                         + [("chameleon_34b", True)])
+def test_new_forward_logits_and_aux_match(arch, patches):
+    """Logits and the summed MoE aux loss against the JAX ``forward`` on
+    the f32 smoke model; chameleon also with early-fused patch embeddings
+    over the first 5 positions of the first row."""
+    cfg, jp, tcfg, tp = _converted(arch, 21)
+    rng = np.random.default_rng(22)
+    toks = rng.integers(0, cfg.vocab, (2, 13))
+    kw = {}
+    if patches:
+        kw["patch_embeds"] = rng.standard_normal(
+            (1, 5, cfg.d_model)).astype(np.float32)
+    want, want_aux = jm.forward(
+        jp, cfg, jnp.asarray(toks, jnp.int32),
+        **{k: jnp.asarray(v) for k, v in kw.items()})
+    got, aux = tm.forward(tp, tcfg, toks, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+    assert (float(aux) > 0) == (cfg.block == "attn_moe")
+    if patches:
+        plain, _ = tm.forward(tp, tcfg, toks)
+        assert not np.allclose(plain.numpy()[0, :5], got.numpy()[0, :5])
+        np.testing.assert_allclose(plain.numpy()[1], got.numpy()[1], **TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS + ["qwen1p5_4b"])
+def test_moe_paged_prefill_then_decode_match(arch):
+    """Chunks of two prompts (a chunk is one routing group: capacity
+    binds inside it), then decode steps over both rows, against the JAX
+    paged functions: logits and pools."""
+    cfg, jp, tcfg, tp = _converted(arch, 23)
+    jc = jm.init_paged_cache(cfg, 9, 4, 2, dtype=jnp.float32)
+    tc = tm.init_paged_cache(tcfg, 9, 4, 2, dtype=torch.float32,
+                             device="cpu")
+    rng = np.random.default_rng(24)
+    tables = np.array([[1, 2, 3, 0], [4, 5, 6, 7]], np.int32)
+    prompts = [rng.integers(0, cfg.vocab, 9), rng.integers(0, cfg.vocab, 12)]
+    for row, start, n in [(0, 0, 8), (0, 8, 1), (1, 0, 8), (1, 8, 4)]:
+        toks = prompts[row][None, start:start + n].astype(np.int32)
+        bt = tables[row][None]
+        jl, jc = jm.paged_prefill_chunk(jp, cfg, jnp.asarray(toks), jc,
+                                        jnp.int32(start), jnp.asarray(bt),
+                                        jnp.int32(row))
+        tl, tc = tm.paged_prefill_chunk(tp, tcfg, toks, tc, start, bt, row)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    idx = np.array([9, 12], np.int32)
+    last = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+    for _ in range(3):
+        jl, jc = jm.paged_decode_step(jp, cfg, jnp.asarray(last), jc,
+                                      jnp.asarray(idx), jnp.asarray(tables))
+        tl, tc = _decode(tp, tcfg, last, tc, idx, tables)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        last = np.asarray(jnp.argmax(jl, -1), np.int32)[:, None]
+        idx = idx + 1
+    for k in ("k", "v"):
+        np.testing.assert_allclose(tc[k].numpy(), np.asarray(jc[k]), **TOL)
+
+
+def test_moe_init_model_shapes_and_scales():
+    """``init_model`` gives an attn_moe layer ``ln2`` and the ``moe`` dict in
+    the JAX layouts, expert stacks scaled by their own fan-in."""
+    cfg = tconfigs.get_smoke_config("kimi_k2_1t_a32b")
+    p = tm.init_model(cfg, seed=2, device="cpu")["layers"][0]
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    assert "mlp" not in p and set(p) == {"ln1", "attn", "ln2", "moe"}
+    shapes = {k: tuple(v.shape) for k, v in p["moe"].items()}
+    assert shapes == {"router": (d, E), "wi": (E, d, f), "wg": (E, d, f),
+                      "wo": (E, f, d)}
+    assert p["moe"]["wi"].dtype == torch.bfloat16
+    for name, fan_in in (("wi", d), ("wo", f)):
+        std = p["moe"][name].float().std().item() * fan_in ** 0.5
+        assert 0.9 < std < 1.1, (name, std)

@@ -1,0 +1,227 @@
+"""The port's mixture-of-experts layer (``repro_torch.models.moe``) and K1's
+batched entry against the JAX package on the CPU.
+
+The same f32 inputs and weights, made from a numpy seed, go through the
+JAX ``moe_block`` and the port's: top-1 (llama4-scout's smoke shape) and
+top-2 (kimi-k2's), a group where capacity binds (the same assignments
+dropped), T not a multiple of the group (zero padding tokens that route),
+and a planted routing tie (two experts with the same router column: the
+lower index wins, as ``jax.lax.top_k`` has it).  Tolerance 1e-4: the same
+f32 math summed in another order (K1's plain version sums k tiles in
+order; the JAX layer is einsum).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro.models.moe as jmoe
+import repro_torch.configs as tconfigs
+import repro_torch.models.moe as tmoe
+from repro_torch.convert import from_jax_params
+from repro_torch.kernels import ops
+from repro_torch.kernels.matmul import (matmul_batched_plain,
+                                        matmul_h100_batched, matmul_plain)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _layer(arch, seed, *, tie=None):
+    """(JAX config, port config, JAX params, port params) of one MoE layer
+    of the f32 smoke config; ``tie`` = (i, j) copies router column i into
+    column j."""
+    cfg = jconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    tcfg = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.num_experts
+    rng = np.random.default_rng(seed)
+    p = {"router": rng.standard_normal((d, E)) / np.sqrt(d),
+         "wi": rng.standard_normal((E, d, f)) / np.sqrt(d),
+         "wg": rng.standard_normal((E, d, f)) / np.sqrt(d),
+         "wo": rng.standard_normal((E, f, d)) / np.sqrt(f)}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    if tie is not None:
+        p["router"][:, tie[1]] = p["router"][:, tie[0]]
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    return cfg, tcfg, jp, tp
+
+
+def _both(arch, x, seed=0, **kw):
+    cfg, tcfg, jp, tp = _layer(arch, seed, tie=kw.pop("tie", None))
+    want, want_aux = jmoe.moe_block(jp, jnp.asarray(x), cfg, **kw)
+    got, aux = tmoe.moe_block(tp, torch.from_numpy(x), tcfg, **kw)
+    return (got.numpy(), float(aux)), (np.asarray(want), float(want_aux)), tp
+
+
+def _x(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _assignments(tp, x, tcfg, gsz):
+    """Per group, how many (token, choice) pairs chose each expert."""
+    logits = x.reshape(-1, x.shape[-1]) @ tp["router"].numpy()
+    probs = torch.softmax(torch.from_numpy(logits), -1)
+    _, idx = tmoe.top_k(probs, tcfg.moe.top_k)
+    idx = idx.numpy().reshape(-1, gsz, tcfg.moe.top_k)
+    return np.stack([np.bincount(g.ravel(), minlength=tcfg.moe.num_experts)
+                     for g in idx])
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"],
+                         ids=["top1", "top2"])
+def test_moe_block_matches_jax(arch):
+    (y, aux), (want, want_aux), _ = _both(arch, _x((2, 7, 64), 1))
+    np.testing.assert_allclose(y, want, **TOL)
+    np.testing.assert_allclose(aux, want_aux, **TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"],
+                         ids=["top1", "top2"])
+def test_moe_capacity_binds_and_drops_the_same_tokens(arch):
+    """32 tokens in one group: capacity(32, E, k, 1.25) is below the
+    busiest expert's assignments, so later tokens are dropped; a dropped
+    token's output is exactly 0 on both sides."""
+    x = _x((1, 32, 64), 2)
+    (y, aux), (want, want_aux), tp = _both(arch, x, seed=3)
+    tcfg = tconfigs.get_smoke_config(arch)
+    m = tcfg.moe
+    cap = tmoe.capacity(32, m.num_experts, m.top_k, m.capacity_factor)
+    assert _assignments(tp, x, tcfg, 32).max() > cap      # capacity binds
+    np.testing.assert_allclose(y, want, **TOL)
+    np.testing.assert_allclose(aux, want_aux, **TOL)
+    if m.top_k == 1:
+        dropped = np.abs(want[0]).max(-1) == 0
+        assert dropped.any()
+        assert np.array_equal(np.abs(y[0]).max(-1) == 0, dropped)
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"],
+                         ids=["top1", "top2"])
+def test_moe_tokens_not_a_multiple_of_the_group(arch):
+    """T = 13 in groups of 8: the second group is padded with 3 zero
+    tokens, which route (every expert ties at probability 1/E) and count in
+    the aux loss but are cut from the output."""
+    (y, aux), (want, want_aux), _ = _both(arch, _x((1, 13, 64), 4),
+                                          group_size=8)
+    assert y.shape == (1, 13, 64)
+    np.testing.assert_allclose(y, want, **TOL)
+    np.testing.assert_allclose(aux, want_aux, **TOL)
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"],
+                         ids=["top1", "top2"])
+def test_moe_routing_tie_takes_the_lower_index(arch):
+    """Experts 1 and 3 share a router column, so they tie on every token;
+    where they are among the top k the lower index comes first, as in
+    ``jax.lax.top_k``, and the outputs agree."""
+    x = _x((2, 9, 64), 5)
+    (y, aux), (want, want_aux), tp = _both(arch, x, seed=6, tie=(1, 3))
+    np.testing.assert_allclose(y, want, **TOL)
+    np.testing.assert_allclose(aux, want_aux, **TOL)
+    k = tconfigs.get_smoke_config(arch).moe.top_k
+    probs = torch.softmax(torch.from_numpy(x.reshape(-1, 64))
+                          @ tp["router"], -1)
+    _, idx = tmoe.top_k(probs, k)
+    assert np.array_equal(idx.numpy(), jax_top_k(probs.numpy(), k)[1])
+    chose = (idx == 1).any(-1)
+    assert chose.any()                                # the tie is live
+    if k == 1:
+        assert not (idx == 3).any()
+
+
+def jax_top_k(a, k):
+    vals, idx = jax.lax.top_k(jnp.asarray(a), k)
+    return np.asarray(vals), np.asarray(idx)
+
+
+def test_top_k_breaks_ties_by_lower_index():
+    probs = torch.tensor([[0.25, 0.25, 0.25, 0.25],
+                          [0.1, 0.4, 0.1, 0.4],
+                          [0.3, 0.2, 0.3, 0.2]])
+    _, idx = tmoe.top_k(probs, 2)
+    _, jidx = jax_top_k(probs.numpy(), 2)
+    assert idx.tolist() == [[0, 1], [1, 3], [0, 2]] == jidx.tolist()
+
+
+def test_capacity_and_group_size_equal_the_jax_layer():
+    assert tmoe.MOE_GROUP_SIZE == jmoe.MOE_GROUP_SIZE
+    for args in [(1, 16, 1, 1.25), (32, 16, 1, 1.25), (4, 384, 8, 1.25),
+                 (1024, 384, 8, 1.25), (37, 8, 2, 1.0)]:
+        assert tmoe.capacity(*args) == jmoe.capacity(*args)
+
+
+# ---------------------------------------------------------------------------
+# K1's batched entry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,N,K,kb", [(4, 4, 96, 64, 1), (3, 5, 40, 200, 4),
+                                        (8, 16, 64, 96, 2)])
+def test_batched_plain_is_matmul_plain_per_expert(dtype, E, M, N, K, kb):
+    g = torch.Generator().manual_seed(E * M + K)
+    a = torch.randn((E, M, K), generator=g).to(dtype)
+    b = torch.randn((E, K, N), generator=g).to(dtype)
+    kw = dict(bm=16, bn=32, bk=32, s=1, kb=kb, stages=2)
+    got = matmul_batched_plain(a, b, **kw)
+    assert got.dtype == torch.float32 and got.shape == (E, M, N)
+    for e in range(E):
+        assert torch.equal(got[e], matmul_plain(a[e], b[e], **kw))
+    n0 = matmul_h100_batched.launches
+    assert torch.equal(matmul_h100_batched(a, b, **kw), got)
+    assert matmul_h100_batched.launches == n0     # the CPU launches nothing
+
+
+def test_ops_matmul_batched_takes_the_per_expert_pick():
+    """``ops.matmul_batched`` resolves the per-expert key {M, N, K} through
+    the frozen lane ``ops.matmul`` uses, and its result is the per-expert
+    ``ops.matmul``."""
+    from repro_torch.artifacts.dispatch import (DispatchCache,
+                                                set_default_cache)
+    g = torch.Generator().manual_seed(9)
+    a = torch.randn((6, 4, 128), generator=g)
+    b = torch.randn((6, 128, 48), generator=g)
+    cache = DispatchCache()
+    set_default_cache(cache)
+    try:
+        with cache.record() as rec:
+            got = ops.matmul_batched(a, b)
+            want = torch.stack([ops.matmul(a[e], b[e]) for e in range(6)])
+    finally:
+        set_default_cache(None)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, a @ b, **TOL)
+    assert {items for _, _, items in rec.requests} == {
+        (("K", 128), ("M", 4), ("N", 48))}
+
+
+def test_batched_format_error_counts_experts_times_splits():
+    from repro_torch.kernels.matmul import format_error, workspace_need
+    args = (4, 2048, 7168, 16, 128, 64, 1, 16, 4, True, torch.bfloat16)
+    assert format_error(*args) is None
+    assert format_error(*args, experts=384) is None       # 6144 z blocks
+    assert "experts" in format_error(*args, experts=4096)
+    one = workspace_need(4, 2048, bm=16, bn=128, kb=16)
+    assert workspace_need(4, 2048, bm=16, bn=128, kb=16, experts=384) == (
+        384 * one[0], 384 * one[1])
+
+
+def test_a2a_storage_and_flag_are_refused_by_name():
+    from repro_torch.models.transformer import check_block
+    cfg = tconfigs.get_smoke_config("kimi_k2_1t_a32b")
+    with pytest.raises(NotImplementedError, match="moe_a2a.*not ported"):
+        check_block(cfg.scaled(perf_flags=("moe_a2a",)))
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    L = cfg.layers
+    z = np.zeros
+    tree = {"embed": {"tok": z((cfg.vocab, d)), "out": z((d, cfg.vocab))},
+            "ln_f": {"scale": z(d)},
+            "layers": {"moe": {"router": z((L, d, E)),
+                               "wi": z((L, E + 8, d, f)),
+                               "wg": z((L, E + 8, d, f)),
+                               "wo": z((L, E + 8, f, d))}}}
+    with pytest.raises(NotImplementedError, match="stored experts"):
+        from_jax_params(tree, cfg, device="cpu")

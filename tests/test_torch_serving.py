@@ -157,6 +157,22 @@ def test_launcher_serves_smoke_on_cpu(monkeypatch, capsys, fresh_cache):
     assert "cold dispatch builds during the run: 0" in out
 
 
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "kimi-k2-1t-a32b"])
+def test_launcher_serves_new_configs_on_cpu(arch, monkeypatch, capsys,
+                                            fresh_cache):
+    """``--arch`` takes the new ids (a dense config with q/k/v biases, a MoE
+    config); the launcher counts the batched entry beside K1."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", arch, "--device", "cpu", "--requests", "3",
+        "--max-new", "2", "--warm-kernels"])
+    serve.main()
+    out = capsys.readouterr().out
+    assert "3 requests, 6 tokens" in out
+    assert "matmul_h100_batched=0" in out
+    assert "cold dispatch builds during the run: 0" in out
+
+
 # ---------------------------------------------------------------------------
 # SSM (mamba2) and hybrid (hymba)
 # ---------------------------------------------------------------------------
@@ -679,3 +695,111 @@ def test_launcher_takes_the_engine_options(monkeypatch, capsys, fresh_cache,
                                          "--device", "cpu"] + extra)
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             serve.main()
+
+
+# ---------------------------------------------------------------------------
+# The four dense configs and the attn_moe block (llama4-scout, kimi-k2)
+# ---------------------------------------------------------------------------
+
+NEW_ARCHS = ["granite_3_8b", "yi_6b", "qwen1p5_4b", "chameleon_34b",
+             "llama4_scout_17b_a16e", "kimi_k2_1t_a32b"]
+
+
+def _new_weights(arch, seed=17):
+    """The f32 smoke model in JAX and converted; qwen's q/k/v biases
+    planted non-zero in the JAX tree first."""
+    cfg = jconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    jparams, _ = j_init(jax.random.PRNGKey(seed), cfg)
+    if cfg.qkv_bias:
+        import jax.numpy as jnp
+        rng = np.random.default_rng(seed)
+        attn = jparams["layers"]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jnp.asarray(rng.standard_normal(attn[name].shape),
+                                     jnp.float32)
+    tcfg = get_smoke_config(arch).scaled(dtype="float32")
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return cfg, jparams, tcfg, tparams
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_config_engine_tokens_equal_jax_engine(arch, fresh_cache):
+    """Five requests through three slots, chunked prefill (a chunk of 8 is
+    one routing group, where capacity binds for the MoE configs) and
+    mid-prefill decode: the greedy tokens equal the JAX engine's, the
+    warmed engine resolves nothing cold, and every dispatched (family,
+    data) is in the traced warm set (ROADMAP F5)."""
+    from repro_torch.plans.trace import trace_warm_set
+    cfg, jp, tcfg, tp = _new_weights(arch)
+    prompts = _prompts(cfg.vocab)
+    jeng = JEngine(cfg, jp, **ENGINE)
+    jr = [jeng.submit(p, max_new=6) for p in prompts]
+    jdone = {r.rid: r.out for r in jeng.run_until_drained()}
+
+    teng = ServeEngine(tcfg, tp, warm_kernels=True, device="cpu", **ENGINE)
+    cold = fresh_cache.stats.cold_builds
+    with fresh_cache.record() as rec:
+        tr = [teng.submit(p, max_new=6) for p in prompts]
+        tdone = {r.rid: r.out for r in teng.run_until_drained()}
+    assert fresh_cache.stats.cold_builds == cold
+    assert [tdone[r] for r in tr] == [jdone[r] for r in jr]
+    assert all(len(tdone[r]) == 6 for r in tr)
+    traced = {(op.family, op.data) for op in trace_warm_set(
+        tcfg, max_len=ENGINE["max_len"], max_batch=ENGINE["max_batch"],
+        prefill_chunk=ENGINE["prefill_chunk"])}
+    seen = {(f, items) for f, _, items in rec.requests}
+    assert seen <= traced, seen - traced
+
+
+@pytest.mark.parametrize("how", ["async_depth_2", "prefix_sharing"])
+def test_moe_engine_options_equal_jax_engine(how):
+    """kimi-k2's smoke config (top-2 of 8 experts) at ``async_depth`` 2, and
+    with prefix sharing over prompts that share a 22-token prefix: the
+    tokens equal the JAX engine's with the same option (sharing changes
+    which tokens share a chunk, and with it what capacity drops, so it is
+    held against the JAX engine with sharing on, not against sharing
+    off)."""
+    w = _new_weights("kimi_k2_1t_a32b")
+    if how == "async_depth_2":
+        cfg, jp, tcfg, tp = w
+        prompts = _prompts(cfg.vocab)
+        want, got, eng = _serve_both(cfg, jp, tcfg, tp, prompts, max_new=6,
+                                     async_depth=2, **ENGINE)
+        assert not eng._inflight
+    else:
+        prompts = _shared_prefix_prompts(w[0].vocab,
+                                         np.random.default_rng(0))
+        want, got, eng = _both_shared(w, prompts, prefix_sharing=True,
+                                      **SHARE)
+        assert eng.pool.stats.prefix_hits > 0
+    assert got == want and all(len(o) == 6 for o in got)
+
+
+def test_moe_trace_keys_and_expert_workspaces():
+    """The MoE layer's traced keys: the router at the step's rows, the
+    experts at the per-expert capacity of one routing group (a prefill
+    chunk of C tokens, or the decode step's max_batch rows), the JAX
+    trace's keys; the engine sizes K1's split-K workspace for all E
+    experts of a batched launch."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.plans.trace import trace_warm_set
+    cfg = get_smoke_config("kimi_k2_1t_a32b")
+    m = cfg.moe
+    ops = trace_warm_set(cfg, max_len=48, max_batch=3, prefill_chunk=8)
+    by_site = {}
+    for op in ops:
+        for site in op.sites:
+            by_site[site] = op
+    for C in chunk_lengths(8, 48):
+        cap = capacity(C, m.num_experts, m.top_k, m.capacity_factor)
+        up = by_site[f"serve.prefill@{C}.moe.expert_up"].data_dict()
+        assert up == {"M": cap, "N": m.d_ff_expert, "K": cfg.d_model}
+        assert by_site[f"serve.prefill@{C}.moe.router"].data_dict() == {
+            "M": C, "N": m.num_experts, "K": cfg.d_model}
+    down = by_site["serve.decode.moe.expert_down"]
+    assert down.data_dict() == {"M": capacity(3, m.num_experts, m.top_k,
+                                              m.capacity_factor),
+                                "N": cfg.d_model, "K": m.d_ff_expert}
+    assert down.experts(cfg) == m.num_experts
+    assert by_site["serve.decode.moe.router"].experts(cfg) == 1
