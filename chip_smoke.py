@@ -185,6 +185,33 @@ no phase is caught.
    ``serve.decode`` errors at one tick) poisons and recomputes with equal
    tokens; schedule C (a fatal fault) propagates, then the engine drains.
    The pool's invariants are proved every tick.
+11. tuning and the kernel monitor, in a temporary artifact root, each
+   part's seconds printed: (a) the port's tables for ``h100_sxm`` compiled
+   over every K1, K2 and K3 signature phase 8 launched and every triple the
+   nine paths' engines resolve, K4-K6 at the case-study sizes, then
+   measure -> calibrate -> compact on the card (``DeviceTimer``: ten
+   launches a CUDA graph, replays between CUDA events; every candidate of
+   a bucket, no dim clamped); a line a family: buckets, samples timed and
+   failed, the fit, ``top1_agreement``, the compaction, and in how many
+   buckets the measured first pick is another than the symbolic one or
+   the table's last.  (b) At every phase-8 K1, K1b, K2 and K3 signature
+   whose pick the tuned tables change, the measured pick held against the
+   plain version and timed as phase 9 times a pick (the kernel alone), and
+   the sums over phase 8's launches beside the symbolic picks' (phase 9)
+   and the library's, K1 and K1b also by the symbolic pick's kb; then
+   llama3-8b at phase 8's settings from the tuned tables: every warm pick
+   ``measured``, 0 cold builds, its bf16 tokens against phase 8's
+   (reported, with the first difference).  (c) llama3-8b at phase 8's
+   settings without and with the monitor at its defaults (the CUDA timer),
+   at ``async_depth`` 1 and 2: the stats line and any swap, host time and
+   CUDA-event span of a probe tick against a tick without one and an
+   unmonitored tick, each probe's host time (a triple's first probe builds
+   its challenger pool), the walls, the tokens.  (d) a forced swap: one K1
+   triple's frozen incumbent skewed slow by a deterministic timer (window
+   2, patience 2, a probe a tick), at full width in bf16 and on the f32
+   llama3-8b smoke config: the swap fires at tick 3 and the engine
+   captures again exactly the steps that launch the triple (seconds
+   printed); f32 tokens equal the unmonitored run's, bf16 reported.
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -529,7 +556,7 @@ def matmul_case(sig, gen, *, timed: bool, leaf_only: bool = False,
     return row
 
 
-def batched_case(sig, gen, *, timed: bool):
+def batched_case(sig, gen, *, timed: bool, leaf_only: bool = False):
     """K1's batched entry at (E, M, N, K, bm, bn, bk, s, kb, stages, cached,
     dtype), the wrapper's ``shapes`` key, on fresh inputs: held against
     the plain version (the per-expert loop of K1's); timed when ``timed``,
@@ -537,7 +564,7 @@ def batched_case(sig, gen, *, timed: bool):
     ``torch.bmm`` as a yardstick.  B (every expert's weights) is cycled
     through copies as in :func:`matmul_case`, which leaves an operand
     past the flush size (both MoE paths' experts: 1.34 and 11.3 GB) alone:
-    it cannot stay in the L2."""
+    it cannot stay in the L2.  ``leaf_only`` times the kernel alone."""
     from repro_torch.kernels.matmul import (matmul_batched_plain,
                                             matmul_h100_batched)
     E, M, N, K, bm, bn, bk, s, kb, stages, cached, dtype = sig
@@ -557,11 +584,13 @@ def batched_case(sig, gen, *, timed: bool):
                   10)
         row["device_ms"] = graph_ms(
             lambda: matmul_h100_batched(a, next(bs), **kw))
+        row["bound_ms"] = max(bound_terms_ms("matmul_h100_batched", sig))
+        if leaf_only:
+            return row
         time_into(row, "plain_ms",
                   lambda: matmul_batched_plain(a, next(bs), **kw), 1)
         time_into(row, "library_ms", lambda: torch.bmm(a, next(bs)), 10)
         row["library_device_ms"] = graph_ms(lambda: torch.bmm(a, next(bs)))
-        row["bound_ms"] = max(bound_terms_ms("matmul_h100_batched", sig))
     return row
 
 
@@ -658,7 +687,8 @@ def flash_case(sig, gen, *, timed: bool, launches: int = 1,
     from repro_torch.kernels.flash_attention import (flash_attention_h100,
                                                      flash_attention_plain)
     if sig[0] == "paged":
-        return paged_case(sig, gen, timed=timed, launches=launches)
+        return paged_case(sig, gen, timed=timed, launches=launches,
+                          leaf_only=leaf_only)
     h, hk, sq, sk, d, bq, bkv, kv_chunk, stages, causal, window, dtype = sig
     q = torch.randn((h, sq, d), generator=gen, device=DEV).to(dtype)
     k = torch.randn((hk, sk, d), generator=gen, device=DEV).to(dtype)
@@ -704,7 +734,8 @@ def flash_case(sig, gen, *, timed: bool, launches: int = 1,
     return row
 
 
-def paged_case(sig, gen, *, timed: bool, launches: int = 1):
+def paged_case(sig, gen, *, timed: bool, launches: int = 1,
+               leaf_only: bool = False):
     """K2's paged entry at ("paged", rows, h, hk, sq, nblk·page, d, page,
     bq, bkv, kv_chunk, stages, causal, window, dtype, pool dtype), its
     ``shapes`` key, each row at its length in ``PAGED_LENS``: a pool of
@@ -713,7 +744,8 @@ def paged_case(sig, gen, *, timed: bool, launches: int = 1):
     over more than one split also by ``split_held`` on its gathered keys;
     ``launches`` launches bit for bit); timed eagerly and as device time
     beside SDPA over the gathered K/V with each row's mask (SDPA's time
-    leaves out the gather) when ``timed``."""
+    leaves out the gather) when ``timed`` (the kernel alone when
+    ``leaf_only``)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_h100_paged, flash_attention_paged_plain)
     (_, rows, h, hk, sq, keys, d, page, bq, bkv, kv_chunk, stages, causal,
@@ -760,7 +792,11 @@ def paged_case(sig, gen, *, timed: bool, launches: int = 1):
         if not torch.equal(got, launch()):
             raise AssertionError(f"paged flash {sig[:-2]}: two launches "
                                  "differ")
-    if timed:
+    if timed and leaf_only:
+        time_into(row, "ms", launch, 10)
+        row["device_ms"] = graph_ms(launch)
+        row["bound_ms"] = max(bound_terms_ms("flash_attention_h100", sig))
+    elif timed:
         kpos = torch.arange(keys, device=DEV)
         qpos = (torch.arange(sq, device=DEV)[None, :, None]
                 + tl[:, None, None] - sq)                 # [rows, sq, 1]
@@ -2049,7 +2085,8 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": cfg.name, "wall_ms": 1e3 * wall, "launches": launches,
-            "shapes": shapes, "peak_gib": peak}
+            "shapes": shapes, "peak_gib": peak,
+            "tokens": [r.out for r in outs]}
 
 
 def phase_shapes(shapes, gen, timed=None):
@@ -2530,6 +2567,444 @@ def phase_drill() -> None:
     _fresh_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: tuning and the kernel monitor on the card
+# ---------------------------------------------------------------------------
+
+#: The families phase 11 tunes at the serve signatures (K4-K6 at their
+#: case-study sizes).
+TUNED = ("matmul_h100", "flash_attention_h100", "ssd_scan_h100")
+#: (a)'s measurement: every candidate of a bucket (the tables keep 8), no
+#: dim clamped, three timed replays of ten launches after one untimed.
+TUNE_CFG = dict(iters=3, warmup=1, trim=1, max_dim=1 << 30, top_k=8,
+                device="cuda")
+
+
+def _data_of(name: str, sig) -> dict:
+    """The dispatch key of a launch signature (the batched entry's is its
+    per-expert product's)."""
+    if name == "matmul_h100":
+        return dict(zip("MNK", sig[:3]))
+    if name == "matmul_h100_batched":
+        return dict(zip("MNK", sig[1:4]))
+    if name == "ssd_scan_h100":
+        return {"SQ": sig[1], "HD": sig[3], "STATE": sig[4]}
+    h, hk, sq, _, d = sig[2:7] if sig[0] == "paged" else sig[:5]
+    return {"SQ": sq, "HD": d, "GROUP": h // hk, "HK": hk}
+
+
+def _with_pick(name: str, sig, cand) -> tuple:
+    """``sig`` launched through candidate ``cand`` instead of its pick."""
+    if name == "matmul_h100":
+        return _mm_sig(_data_of(name, sig), cand, sig[-1])
+    if name == "matmul_h100_batched":
+        return sig[:1] + _mm_sig(_data_of(name, sig), cand, sig[-1])
+    a = cand.assignment
+    if name == "ssd_scan_h100":
+        return sig[:5] + (a["chunk"], a["bd"]) + sig[7:]
+    i = 8 if sig[0] == "paged" else 5
+    return sig[:i] + tuple(a[n] for n in FA_PARAMS) + sig[i + 4:]
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _llama_prompts(vocab: int) -> list:
+    """Phase 8's llama3-8b prompts."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, int(n))
+            for n in rng.integers(*PATHS[2][2], 4)]
+
+
+def _first_diff(a, b) -> str:
+    for r, (p, q) in enumerate(zip(a, b)):
+        for i, (x, y) in enumerate(zip(p, q)):
+            if x != y:
+                return f"first difference at request {r}, token {i}"
+    return "no difference"
+
+
+def tune_tables(root: str, shapes) -> None:
+    """(a) The port's tables for ``h100_sxm`` over every K1, K2 and K3
+    signature phase 8 launched and every triple the nine paths' engines
+    resolve (their warm sets), K4-K6 at the case-study sizes; then measure
+    -> calibrate -> compact with the CUDA timer, each table rewritten."""
+    from repro_torch.artifacts import ArtifactStore, compile_family, serde
+    from repro_torch.configs import get_config
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.kernels.ops import FAMILIES
+    from repro_torch.plans.trace import trace_warm_set
+    from repro_torch.tuning import (MeasureConfig, calibrate_table,
+                                    compact_table, measure_table)
+    from repro_torch.tuning.compact import compaction_summary
+    from repro_torch.tuning.measure import DeviceTimer
+    keys = {n: {} for n in TUNED + CASE_KERNELS}
+    for name, by_sig in shapes.items():
+        fam = "matmul_h100" if name == "matmul_h100_batched" else name
+        for sig in by_sig:
+            d = _data_of(name, sig)
+            keys[fam][tuple(sorted(d.items()))] = d
+    launched = {n: len(k) for n, k in keys.items()}
+    for arch, kw in [(a, k) for a, k, _ in PATHS] + [
+            (a, NEW_KW) for a, _ in NEW_PATHS]:
+        for op in trace_warm_set(get_config(arch), max_len=kw["max_len"],
+                                 max_batch=kw["max_batch"],
+                                 prefill_chunk=kw["prefill_chunk"]):
+            keys[op.family][op.data] = op.data_dict()
+    for name, data in CASE_PATH:
+        keys[name][tuple(sorted(data.items()))] = dict(data)
+    store = ArtifactStore(root)
+    cfg = MeasureConfig(**TUNE_CFG)
+    timer = DeviceTimer()
+    for name, by_key in keys.items():
+        fam = FAMILIES[name]
+        t0 = time.perf_counter()
+        compile_family(fam, store, machines=[H100_SXM],
+                       shapes=list(by_key.values()))
+        table = store.load_dispatch(name, H100_SXM.name)
+        t1 = time.perf_counter()
+        samples = measure_table(fam, table, cfg, timer=timer)
+        timer.clear()
+        t2 = time.perf_counter()
+        tuned = compact_table(calibrate_table(
+            fam, table, samples,
+            meta={**TUNE_CFG, "card": torch.cuda.get_device_name(0)}),
+            samples)
+        store.save_dispatch(tuned)
+        buckets = table["buckets"]
+        ranks = tuned["measured_ranks"]
+        failed = [s for s in samples if s.us is None]
+        moved = sum(r["order"][0] != 0 for r in ranks.values())
+        last = sum(len(buckets[b]) > 1
+                   and r["order"][0] == len(buckets[b]) - 1
+                   for b, r in ranks.items())
+        cal = tuned.get("calibration")
+        fit = ("no fit" if cal is None else
+               f"fit n {cal['n_samples']}, rms_log_residual "
+               f"{cal['rms_log_residual']:.4f}, top1_agreement "
+               f"{cal['top1_agreement']}")
+        say(f"[tune] (a) {name}: {len(by_key)} signatures "
+            f"({launched[name]} of them launched in phase 8), "
+            f"{len(buckets)} buckets; "
+            f"{len(samples) - len(failed)} samples timed, {len(failed)} "
+            f"failed; {fit}; compaction {compaction_summary(tuned)}; the "
+            f"measured first pick differs from the symbolic one in {moved} "
+            f"of {len(ranks)} buckets and is the table's last entry in "
+            f"{last}; compile {t1 - t0:.1f} s, measure {t2 - t1:.1f} s")
+        if failed:
+            # every entry of a table is feasible at its bucket's shape, so a
+            # failed sample is a fault: print the first one's error
+            s = failed[0]
+            leaf = serde.table_leaves(table)[s.leaf_index]
+            try:
+                timer(fam, leaf.plan, s.assignment, s.data, cfg)
+                why = "it ran when tried again"
+            except Exception as e:     # noqa: BLE001 — printed, then raised
+                why = repr(e)[:400]
+            timer.clear()
+            raise AssertionError(
+                f"{name}: {len(failed)} samples failed, first {s.bucket} "
+                f"{s.assignment}: {why}")
+    _free()
+
+
+def measured_picks(root: str, shapes, rows, gen) -> None:
+    """(b) At every phase-8 K1, K1b, K2 and K3 signature whose pick the
+    tuned tables change, the measured pick held against its plain version
+    and timed as phase 9 times a pick (the kernel alone); sums over phase
+    8's launches beside the symbolic picks' (phase 9's rows) and the
+    library's, K1's and K1b's also by the symbolic pick's kb."""
+    from repro_torch.artifacts import ArtifactStore, DispatchCache
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.kernels.ops import FAMILIES
+    cache = DispatchCache(store=ArtifactStore(root))
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms")
+    for name in SERVE_KERNELS:
+        fam = FAMILIES["matmul_h100" if name == "matmul_h100_batched"
+                       else name]
+        sym = {k: 0.0 for k in keys}
+        mea = {"ms": 0.0, "device_ms": 0.0}
+        by_kb = {}
+        changed = changed_launches = 0
+        err = 0.0
+        timed = {}
+        for sig, n in shapes[name].items():
+            new = _with_pick(name, sig,
+                             cache.best_variant(fam, H100_SXM,
+                                                _data_of(name, sig)))
+            old = rows[name][sig]
+            row = old
+            if new != sig:
+                changed += 1
+                changed_launches += n
+                if new not in timed:
+                    if name == "flash_attention_h100" and sig[0] == "paged":
+                        PAGED_LENS[new] = PAGED_LENS[sig]
+                    timed[new] = CASES[name](new, gen, timed=True,
+                                             leaf_only=True)
+                    err = max(err, timed[new]["err"])
+                    torch.cuda.empty_cache()
+                row = timed[new]
+            for k in keys:
+                sym[k] = (None if sym[k] is None or old.get(k) is None
+                          else sym[k] + n * old[k])
+            for k in mea:
+                mea[k] += n * row[k]
+            if name in ("matmul_h100", "matmul_h100_batched"):
+                kb = sig[8 if name == "matmul_h100_batched" else 7]
+                t = by_kb.setdefault(kb, [0, 0.0, 0.0, 0.0])
+                t[0] += n
+                t[1] += n * old["device_ms"]
+                t[2] += n * row["device_ms"]
+                t[3] += n * (old.get("library_device_ms") or 0.0)
+        lib = ", ".join(f"{k} {sym[k]:.3f}" for k in keys[2:]
+                        if sym[k] is not None)
+        say(f"[tune] (b) {name}: {len(shapes[name])} signatures, the "
+            f"measured pick differs at {changed} ({changed_launches} of "
+            f"{sum(shapes[name].values())} launches; largest error against "
+            f"the plain version {err:.3e}); ms over phase 8's launches: "
+            f"symbolic picks {sym['ms']:.3f}, measured picks "
+            f"{mea['ms']:.3f}; device_ms: symbolic {sym['device_ms']:.3f}, "
+            f"measured {mea['device_ms']:.3f}; library {lib or 'none'}")
+        for kb in sorted(by_kb):
+            c, s_dev, m_dev, l_dev = by_kb[kb]
+            say(f"[tune] (b) {name} launches whose symbolic pick has kb "
+                f"{kb}: {c}, device_ms symbolic {s_dev:.3f}, measured "
+                f"{m_dev:.3f}, library {l_dev:.3f} (gap symbolic "
+                f"{s_dev - l_dev:.3f}, measured {m_dev - l_dev:.3f})")
+    _free()
+
+
+def serve_tuned(root: str, cfg, params, want) -> None:
+    """(b) llama3-8b at phase 8's settings from the tuned tables: every warm
+    triple's rank_source is ``measured``, no cold build; bf16 tokens
+    against phase 8's."""
+    from repro_torch.runtime import ServeEngine
+    cache = _fresh_cache(root)
+    eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV,
+                      plan_store=False, **LLAMA_KW)
+    sources = sorted({p["rank_source"] for p in eng.kernel_plan.values()})
+    cold = cache.stats.cold_builds
+    wall, toks = _serve_timed(eng, _llama_prompts(cfg.vocab))
+    say(f"[tune] (b) llama3-8b bf16 from the tuned tables: "
+        f"{len(eng.kernel_plan)} warm picks, rank sources {sources}, cold "
+        f"builds {cold} at warm-up and {cache.stats.cold_builds - cold} "
+        f"while serving, measured hits {cache.stats.measured_hits}; wall "
+        f"{wall:.3f} s; tokens against phase 8: {_agree(want, toks)} "
+        f"({_first_diff(want, toks)})")
+    if sources != ["measured"] or cache.stats.cold_builds:
+        raise AssertionError("a warm pick did not come from a measured "
+                             "order, or a dispatch resolved cold")
+    eng.close()
+    _fresh_cache()
+
+
+class _StepTimes:
+    """Host and device time of each of an engine's steps (the host clock
+    around ``step()``, which at async_depth 1 returns after the tick's
+    commit, and CUDA events around it), and each probe's host time and
+    whether it was its triple's first (its challenger pool is built then:
+    a host enumeration)."""
+
+    def __init__(self, eng):
+        self.ticks, self.probes = [], []
+        step, mon = eng.step, eng.monitor
+        self._probed = False
+        if mon is not None:
+            probe = mon._probe
+
+            def timed_probe(st, tick):
+                first = st.pool is None
+                t0 = time.perf_counter()
+                probe(st, tick)
+                self.probes.append((st.family.name, first,
+                                    time.perf_counter() - t0))
+                self._probed = True
+            mon._probe = timed_probe
+
+        def timed_step():
+            self._probed = False
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = step()
+            end.record()
+            self.ticks.append((self._probed, time.perf_counter() - t0,
+                               start, end))
+            return out
+        eng.step = timed_step
+
+    def line(self, probed: bool) -> str:
+        torch.cuda.synchronize()
+        got = [(h, s.elapsed_time(e)) for p, h, s, e in self.ticks
+               if p == probed]
+        if not got:
+            return "none"
+        host = sorted(1e3 * h for h, _ in got)
+        dev = sorted(d for _, d in got)
+        return (f"{len(got)} ticks, host {host[len(host) // 2]:.3f} ms "
+                f"median ({host[0]:.3f}-{host[-1]:.3f}), device span "
+                f"{dev[len(dev) // 2]:.3f} ms median ({dev[0]:.3f}-"
+                f"{dev[-1]:.3f})")
+
+
+def monitor_defaults(cfg, params) -> list:
+    """(c) llama3-8b at phase 8's settings and picks, served without and
+    with the monitor at its defaults (the CUDA timer), at async_depth 1 and
+    2 (where a probe, which waits for its own timing, drains the tick in
+    flight); returns the unmonitored tokens at depth 1."""
+    from repro_torch.runtime import ServeEngine
+    prompts = _llama_prompts(cfg.vocab)
+    first = None
+    for depth in (1, 2):
+        runs = {}
+        for monitored in (False, True):
+            _fresh_cache()
+            eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV,
+                              plan_store=False, monitor=monitored,
+                              async_depth=depth, **LLAMA_KW)
+            clock = _StepTimes(eng)
+            wall, toks = _serve_timed(eng, prompts)
+            runs[monitored] = (eng, clock, wall, toks)
+        plain, pclock, pwall, ptoks = runs[False]
+        eng, clock, wall, toks = runs[True]
+        first = ptoks if first is None else first
+        mon = eng.monitor
+        say(f"[tune] (c) llama3-8b bf16 async_depth {depth}, monitor at its "
+            f"defaults (window {mon.window}, every {mon.probe_every} ticks, "
+            f"threshold {mon.threshold}, patience {mon.patience}, max_dim "
+            f"{mon.measure.max_dim}, {len(mon._triples)} triples tracked): "
+            f"{mon.stats_line()}; probe failures "
+            f"{mon.stats.probe_failures}; swaps: "
+            f"{[e.describe() for e in mon.events] or 'none'}; recaptures "
+            f"{eng.recaptures}")
+        say(f"[tune] (c) async_depth {depth}: unmonitored ticks: "
+            f"{pclock.line(False)}; monitored ticks without a probe: "
+            f"{clock.line(False)}; probe ticks: {clock.line(True)}")
+        firsts = sorted(1e3 * t for _, f, t in clock.probes if f)
+        again = sorted(1e3 * t for _, f, t in clock.probes if not f)
+        say(f"[tune] (c) async_depth {depth}: probes' host ms: first probe "
+            f"of a triple {[round(t, 3) for t in firsts]}, repeated "
+            f"{[round(t, 3) for t in again]}; families probed "
+            f"{sorted({n for n, _, _ in clock.probes})}")
+        say(f"[tune] (c) async_depth {depth}: walls: unmonitored "
+            f"{pwall:.3f} s, monitored {wall:.3f} s; tokens equal: "
+            f"{toks == ptoks} ({_agree(ptoks, toks)}); unmonitored against "
+            f"async_depth 1: {_agree(first, ptoks)}")
+        if mon.stats.probes == 0 or mon.stats.probe_failures:
+            raise AssertionError("the monitor probed nothing, or a probe "
+                                 "failed on the card")
+        plain.close()
+        eng.close()
+        del runs, plain, eng, clock, pclock
+        _free()
+    _fresh_cache()
+    return first
+
+
+class _SlowPick:
+    """(d)'s deterministic timer: the assignments in ``slow`` measure 8 ms,
+    every other candidate 4 ms (no kernel runs)."""
+
+    def __init__(self):
+        self.slow = set()
+
+    def __call__(self, family, plan, assignment, data, cfg):
+        key = tuple(sorted((k, int(v)) for k, v in assignment.items()))
+        return [8e-3 if key in self.slow else 4e-3] * max(1, cfg.iters)
+
+
+def forced_swap(cfg, params, prompts, kw, label) -> tuple:
+    """(d) One K1 triple's frozen incumbent skewed slow (window 2, patience
+    2, a probe every tick): the swap fires at tick 3 and the engine
+    captures again exactly the steps that launch the triple (every step if
+    a workspace grew).  Returns (unmonitored tokens, monitored tokens)."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.kernels.ops import FAMILIES
+    from repro_torch.runtime import KernelMonitor, ServeEngine, cand_key
+    _fresh_cache()
+    ref = ServeEngine(cfg, params, warm_kernels=True, device=DEV,
+                      plan_store=False, **kw)
+    _, want = _serve_timed(ref, prompts)
+    ref.close()
+    cache = _fresh_cache()
+    timer = _SlowPick()
+    eng = ServeEngine(cfg, params, warm_kernels=True, device=DEV,
+                      plan_store=False, monitor=True, monitor_timer=timer,
+                      **kw)
+    op = next(o for o in eng._warm_ops if o.family == "matmul_h100")
+    mon = KernelMonitor(cache, machine=H100_SXM, window=2, patience=2,
+                        probe_every=1, top_k=2, timer=timer)
+    mon.track(FAMILIES["matmul_h100"], op.data_dict())
+    inc = cache.frozen_entry("matmul_h100", H100_SXM.name, op.data_dict())
+    timer.slow.add(cand_key(inc.candidate)[1])
+    eng.monitor = mon
+    holding = {k: s.triples for k, s in eng._graphs.steps.items()}
+    wall, got = _serve_timed(eng, prompts)
+    triple = ("matmul_h100", H100_SXM.name, op.data)
+    (ev,) = mon.events
+    (rec,) = eng.recapture_log
+    want_keys = (list(holding) if rec.grew else
+                 [k for k, t in holding.items() if triple in t])
+    say(f"[tune] (d) {label}: {ev.describe()}; recaptured "
+        f"{', '.join(f'{k} {s:.3f} s' for k, s in rec.seconds.items())} "
+        f"(grew workspaces: {rec.grew}; {len(want_keys)} of "
+        f"{len(holding)} steps hold the triple); wall {wall:.3f} s")
+    if ev.tick != 3 or rec.tick != 3 or rec.triple != triple or \
+            list(rec.seconds) != want_keys:
+        raise AssertionError(f"{label}: the swap fired at tick {ev.tick} "
+                             f"or recaptured {list(rec.seconds)}, not "
+                             f"{want_keys} at tick 3")
+    eng.close()
+    _fresh_cache()
+    return want, got
+
+
+def phase_tune(shapes, rows, gen, llama_tokens) -> None:
+    """Phase 11: (a) tune the serve signatures, (b) what the measured picks
+    do, (c) the monitor at its defaults, (d) a forced swap; each part's
+    seconds printed."""
+    import tempfile
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import init_model
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        tune_tables(root, shapes)
+        say(f"[tune] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        measured_picks(root, shapes, rows, gen)
+        cfg = get_config("llama3_8b")
+        params = init_model(cfg, seed=0, device=DEV)
+        serve_tuned(root, cfg, params, llama_tokens)
+        say(f"[tune] (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    plain = monitor_defaults(cfg, params)
+    say(f"[tune] (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    want, got = forced_swap(cfg, params, _llama_prompts(cfg.vocab),
+                            LLAMA_KW, "llama3-8b bf16 full width")
+    say(f"[tune] (d) llama3-8b bf16 tokens against the unmonitored run: "
+        f"{_agree(want, got)} ({_first_diff(want, got)}); the unmonitored "
+        f"run against (c)'s: {_agree(plain, want)}")
+    del params
+    _free()
+    scfg = get_smoke_config("llama3_8b").scaled(dtype="float32")
+    sparams = init_model(scfg, seed=7, device=DEV)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, scfg.vocab, n) for n in DRILL_LENS]
+    want, got = forced_swap(scfg, sparams, prompts, DRILL_KW,
+                            "llama3-8b f32 smoke")
+    say(f"[tune] (d) f32 smoke tokens equal to the unmonitored run: "
+        f"{got == want}")
+    if got != want:
+        raise AssertionError("f32 tokens differ across the swap")
+    say(f"[tune] (d) {time.perf_counter() - t0:.1f} s")
+    _free()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -2596,6 +3071,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_options()
     say(f"[options] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_tune(shapes["all"], rows, gen, paths[len(PATHS) - 1]["tokens"])
+    say(f"[tune] phase {time.perf_counter() - t0:.1f} s")
     for path in paths:
         say(f"[shapes] {path['name']} ({path['wall_ms']:.1f} ms wall), "
             f"kernel time over its launches: "

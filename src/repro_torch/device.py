@@ -6,6 +6,7 @@ fall back to the CPU on their own.
 """
 from __future__ import annotations
 
+import re
 from typing import Optional, Union
 
 import torch
@@ -29,3 +30,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def device_error(e: BaseException) -> bool:
+    """Whether ``e`` is an error of the CUDA runtime (an illegal address, a
+    launch failure, ...): the context may be lost, so it is fatal, never
+    demoted or counted as data."""
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(e, accel):
+        return True
+    return isinstance(e, RuntimeError) and bool(
+        re.search(r"CUDA (\w+ )?error", str(e)))

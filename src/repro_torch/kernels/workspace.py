@@ -7,9 +7,12 @@ captured with, so while any graph holds the workspaces (:meth:`Workspace.
 hold`) none of them grows: a launch that would need more raises, and the
 engine sizes every workspace before it captures.  The holder keeps the
 buffers it was given, so they are not freed under it either.
+:func:`scratch` gives launches made beside such graphs (a timer's) buffers
+of their own.
 """
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Dict, List
 
@@ -73,3 +76,21 @@ class Workspace:
 
     def release(self, holder: object) -> None:
         self._holders.discard(holder)
+
+
+@contextlib.contextmanager
+def scratch():
+    """For the duration, every workspace starts with no buffer and no
+    holder, so launches inside size buffers of their own (a timer's probe
+    while a serving engine's graphs hold the engine's); on exit each gets
+    back the buffers and holders it had.  The launches inside must have
+    finished before the exit frees their buffers: launches on one stream,
+    or a synchronise, order them."""
+    saved = [(ws, ws.bufs, ws._holders) for ws in WORKSPACES]
+    for ws in WORKSPACES:
+        ws.bufs, ws._holders = {}, weakref.WeakSet()
+    try:
+        yield
+    finally:
+        for ws, bufs, holders in saved:
+            ws.bufs, ws._holders = bufs, holders

@@ -20,12 +20,15 @@ serve plan under DIR (``python -m repro_torch.launch.plan_artifacts``), and
 ``--strict-plans`` refuses a stale one.  ``--trace PATH`` installs a flight
 recorder before the engine is built and writes the run's trace as JSONL to
 PATH (``scripts/trace_report.py`` reads it); ``--trace-sample N`` also
-samples 1 in N hits of the frozen dispatch lane.  ``--monitor`` and its
-knobs are accepted and refused by the engine: the kernel monitor is not
-ported yet.
+samples 1 in N hits of the frozen dispatch lane.  ``--monitor`` (with
+``--warm-kernels``) probes the frozen picks while serving and hot-swaps a
+pick that measures slower than a challenger, recapturing the steps that
+launch it; each swap is printed after the run.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --full --warm-kernels --prefix-sharing --degrade --plan-dir DIR
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
+        --full --warm-kernels --monitor
 """
 from __future__ import annotations
 
@@ -83,12 +86,20 @@ def main() -> None:
                          "dispatch-table digests no longer match this "
                          "host's tables (default: warn and warm online)")
     ap.add_argument("--monitor", action="store_true",
-                    help="not ported yet: the engine refuses it, and any of "
-                         "its four knobs below")
-    ap.add_argument("--monitor-window", type=int, default=None)
-    ap.add_argument("--monitor-every", type=int, default=None)
-    ap.add_argument("--swap-threshold", type=float, default=None)
-    ap.add_argument("--swap-patience", type=int, default=None)
+                    help="adaptive loop: probe frozen kernel picks with "
+                         "cheap device timings during traffic and "
+                         "hot-swap any pick measurement persistently "
+                         "contradicts, recapturing the steps that launch "
+                         "it (requires --warm-kernels)")
+    ap.add_argument("--monitor-window", type=int, default=8,
+                    help="probes per decision window")
+    ap.add_argument("--monitor-every", type=int, default=4,
+                    help="engine ticks between probes")
+    ap.add_argument("--swap-threshold", type=float, default=1.25,
+                    help="challenger must beat the incumbent median by this "
+                         "ratio for a window to disagree")
+    ap.add_argument("--swap-patience", type=int, default=2,
+                    help="consecutive disagreeing windows before a hot-swap")
     ap.add_argument("--degrade", action="store_true",
                     help="graceful degradation: a failed stage demotes a "
                          "frozen pick down the ranking, recaptures the "
@@ -127,10 +138,11 @@ def main() -> None:
                       plan_store=(PlanStore(args.plan_dir)
                                   if args.plan_dir else None),
                       strict_plans=args.strict_plans,
-                      monitor=args.monitor or any(
-                          v is not None for v in (
-                              args.monitor_window, args.monitor_every,
-                              args.swap_threshold, args.swap_patience)),
+                      monitor=args.monitor,
+                      monitor_window=args.monitor_window,
+                      monitor_every=args.monitor_every,
+                      swap_threshold=args.swap_threshold,
+                      swap_patience=args.swap_patience,
                       degrade=args.degrade,
                       max_queue=args.max_queue,
                       deadline_ms=args.deadline_ms, device=args.device)
@@ -173,6 +185,9 @@ def main() -> None:
         ps = eng.pool.stats
         print(f"prefix sharing: hits={ps.prefix_hits} tokens saved="
               f"{ps.prefix_tokens_saved} cow copies={ps.cow_copies}")
+    if eng.monitor is not None:
+        for ev in eng.monitor.events:
+            print(f"swap {ev.describe()}")
     for ev in eng.degrade_events:
         print(f"degrade {ev.describe()}")
     for rc in eng.recapture_log:

@@ -1,5 +1,5 @@
 """Serving runtime of the port: KV pool, scheduler, engine, sampling, fault
-injection and the tick watchdog.
+injection, the tick watchdog and the kernel monitor.
 
 Exports resolve lazily (PEP 562), as the JAX package's do:
 :mod:`repro_torch.artifacts.store` imports :mod:`repro_torch.runtime.faults`
@@ -23,6 +23,9 @@ _EXPORTS: Dict[str, str] = {
     # kv_pool
     "GARBAGE_BLOCK": "kv_pool", "PREFIX_ROOT": "kv_pool",
     "PagedKVPool": "kv_pool", "PoolStats": "kv_pool",
+    # monitor
+    "KernelMonitor": "monitor", "MonitorStats": "monitor",
+    "SwapEvent": "monitor", "cand_key": "monitor",
     # scheduler
     "Request": "scheduler", "RequestError": "scheduler",
     "Scheduler": "scheduler", "SeqState": "scheduler",

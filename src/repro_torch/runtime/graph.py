@@ -109,6 +109,10 @@ class CapturedStep:
             raise RuntimeError("this captured step was released: no graph "
                                "to replay")
         self.graph.replay()
+        self.count()
+
+    def count(self) -> None:
+        """Count one replay: its launches into the wrappers' counters."""
         self.replays += 1
         for k, n, shapes in self.delta:
             k.launches += n

@@ -113,14 +113,23 @@ failure) leaves the context unusable, so it propagates as fatal and is
 never demoted, as does a demotion that cannot recapture; the engine never
 moves to the CPU.  The ``serve.tick`` slow fault and the
 :class:`~repro_torch.runtime.faults.TickWatchdog` read the engine's clock.
-The kernel monitor is not ported yet and is refused by name.
+
+**The kernel monitor** (``monitor=True`` with ``warm_kernels``, as in the
+JAX engine): :class:`~repro_torch.runtime.monitor.KernelMonitor` probes the
+frozen picks at the start of every ``monitor_every``-th tick, timing each
+tracked triple's incumbent against a challenger on the engine's device
+(``monitor_timer`` overrides the timer), and hot-swaps a pick that
+``swap_patience`` windows in a row measure slower by ``swap_threshold``.
+A graph keeps the kernel it captured, so after a swap of a triple this
+engine dispatches the engine captures again the steps that launch it, as
+a demotion does (``recaptures`` / ``recapture_log`` count both).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
-import re
 import time
 from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, Hashable, List, Optional, Tuple
@@ -130,7 +139,7 @@ import torch
 
 from ..artifacts.dispatch import DispatchKey, get_default_cache
 from ..core.params import H100_SXM, MachineDescription
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, device_error, resolve_device
 from ..kernels import flash_attention as fa
 from ..kernels import matmul as mm
 from ..kernels.ops import FAMILIES
@@ -147,6 +156,7 @@ from . import faults
 from .faults import TickWatchdog
 from .graph import CapturedStep, CudaGraph, StepGraphs
 from .kv_pool import GARBAGE_BLOCK, PagedKVPool
+from .monitor import KernelMonitor
 from .scheduler import Request, Scheduler, SeqState, TickPlan
 from .steps import greedy_sample
 
@@ -198,17 +208,6 @@ def warm_kernel_dispatch(cfg: ModelConfig, *,
     return picks
 
 
-def device_error(e: BaseException) -> bool:
-    """Whether ``e`` is an error of the CUDA runtime (an illegal address, a
-    launch failure, ...): the context may be lost, so it is fatal, never
-    demoted."""
-    accel = getattr(torch, "AcceleratorError", None)
-    if accel is not None and isinstance(e, accel):
-        return True
-    return isinstance(e, RuntimeError) and bool(
-        re.search(r"CUDA (\w+ )?error", str(e)))
-
-
 @dataclass
 class _InFlight:
     """One dispatched-but-uncommitted tick: the host slot its sampled tokens
@@ -241,7 +240,7 @@ class _HostSlot:
 
 @dataclass(frozen=True)
 class Recapture:
-    """One demotion's recapture: the tick, the demoted triple, whether the
+    """One demotion's or swap's recapture: the tick, the triple, whether the
     workspaces had to grow (then every step was captured again), and the
     seconds each recaptured step took (its scratch warm run, capture and
     synchronise)."""
@@ -265,6 +264,11 @@ class ServeEngine:
                  plan_store: Any = None,
                  strict_plans: bool = False,
                  monitor: bool = False,
+                 monitor_window: int = 8,
+                 monitor_every: int = 4,
+                 swap_threshold: float = 1.25,
+                 swap_patience: int = 2,
+                 monitor_timer: Any = None,
                  degrade: bool = False,
                  max_queue: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
@@ -274,11 +278,6 @@ class ServeEngine:
                  device: DeviceLike = None):
         if async_depth < 1:
             raise ValueError(f"async_depth must be >= 1: {async_depth}")
-        if monitor:
-            raise NotImplementedError(
-                "ServeEngine(monitor) is not ported yet: the kernel monitor "
-                "comes with Queue 1 item 7 of the port (tuning and the "
-                "adaptive loop on a CUDA-event timer)")
         check_block(cfg)
         self.device = resolve_device(device)
         pdev = params["embed"]["tok"].device
@@ -315,6 +314,18 @@ class ServeEngine:
         # its degrade events
         self._cache = get_default_cache()
         self._degrade_rr = 0
+        # the adaptive loop over the frozen picks (off by default: a probe
+        # runs kernels and waits for them), built only when warm-up froze a
+        # plan, its probes on this engine's device
+        self.monitor: Optional[KernelMonitor] = None
+        if monitor and self.kernel_plan is not None:
+            self.monitor = KernelMonitor(
+                self._cache, machine=machine, window=monitor_window,
+                probe_every=monitor_every, threshold=swap_threshold,
+                patience=swap_patience, timer=monitor_timer)
+            self.monitor.measure = dataclasses.replace(
+                self.monitor.measure, device=self.device.type)
+            self.monitor.track_frozen()
         # the triples this engine dispatches: the ones it may demote
         self._warm_ops = trace_warm_set(cfg, max_len=max_len,
                                         max_batch=max_batch,
@@ -456,13 +467,14 @@ class ServeEngine:
                                for C in self.chunk_lengths}
 
     def _recapture(self, triple: DispatchKey) -> Recapture:
-        """After ``triple``'s frozen pick was demoted: synchronise (ticks
-        in flight stay in flight), size the workspaces for the new picks
-        and capture again the steps whose recorded triples hold
-        ``triple`` — every step if a workspace must grow (their graphs are
-        dropped first).  Each capture follows a warm run on scratch state,
-        so the live state is left bit for bit.  A capture that fails
-        raises (the graphs are released: no step falls back)."""
+        """After ``triple``'s frozen pick was demoted or swapped:
+        synchronise (ticks in flight stay in flight), size the workspaces
+        for the new picks and capture again the steps whose recorded
+        triples hold ``triple`` — every step if a workspace must grow
+        (their graphs are dropped first).  Each capture follows a warm run
+        on scratch state, so the live state is left bit for bit.  A
+        capture that fails raises (the graphs are released: no step falls
+        back)."""
         graphs = self._graphs
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -558,6 +570,8 @@ class ServeEngine:
         if self._rejected:
             done.extend(self._rejected)
             self._rejected.clear()
+        if self.monitor is not None:
+            self._monitor_tick()
         tick = self.sched.ticks
         plan = self.sched.tick()
         done.extend(plan.cancelled)
@@ -581,6 +595,20 @@ class ServeEngine:
                     cancelled=len(plan.cancelled), finished=len(done),
                     duration_us=dt * 1e6))
         return done
+
+    def _monitor_tick(self) -> None:
+        """The monitor's tick (one modulo check on a tick without a probe);
+        under graphs, each swap of a triple this engine dispatches captures
+        again the steps that launch it (every step if a workspace must
+        grow), as a demotion does."""
+        swapped = len(self.monitor.events)
+        self.monitor.on_tick(self.sched.ticks)
+        if self._graphs is None:
+            return
+        for ev in self.monitor.events[swapped:]:
+            key = (ev.family, self.machine.name, ev.data)
+            if key in self._warm_keys:
+                self._recapture(key)
 
     def _guard(self, site: str, seqs: Tuple[SeqState, ...], fn, *args):
         """Run one guarded tick stage: consult the fault injector, then the

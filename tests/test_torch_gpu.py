@@ -935,3 +935,139 @@ def test_gpu_plan_backed_start_makes_no_cold_build(cuda, tmp_path):
         eng.close()
     finally:
         set_default_cache(None)
+
+
+# ---------------------------------------------------------------------------
+# Tuning and the kernel monitor on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_gpu_timer_agrees_with_a_graph_replay_at_a_decode_signature(cuda):
+    """The tuning timer reads device time: at K1 (4, 4096, 4096) (a llama
+    decode projection) its per-launch time is within 10 % of 20 launches
+    over cold weight copies replayed from one CUDA graph, and the launch
+    counters count the launches that ran (its warm launch and each
+    replay's ten), not the capture's."""
+    import math
+    from repro_torch.tuning.measure import (L2_FLUSH_BYTES, DeviceTimer,
+                                            MeasureConfig, trimmed_mean_us)
+    fam = ops.FAMILIES["matmul_h100"]
+    data = {"M": 4, "N": 4096, "K": 4096}
+    cand = ops.select("matmul_h100", data)
+    cfg = MeasureConfig(iters=5, warmup=1, trim=1, device="cuda")
+    before = matmul_h100.launches
+    timer = DeviceTimer()
+    got = trimmed_mean_us(timer(fam, cand.plan, cand.assignment, data, cfg),
+                          cfg.trim)
+    timer.clear()
+    assert matmul_h100.launches - before == 1 + 10 * (1 + 5)
+    fn = fam.instantiate(cand.plan, cand.assignment, "cuda")
+    a = _t((4, 4096), 1, cuda, torch.bfloat16)
+    b = _t((4096, 4096), 2, cuda, torch.bfloat16)
+    bs = [b] + [b.clone() for _ in range(
+        math.ceil(L2_FLUSH_BYTES / (b.numel() * 2)) - 1)]
+    fn(a, b)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(20):
+            fn(a, bs[i % len(bs)])
+    g.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) * 1e3 / 20)
+    want = sorted(per)[2]
+    assert abs(got - want) <= 0.1 * want, (got, want)
+
+
+class _SlowPick:
+    """A deterministic timer: the assignments in ``slow`` measure 8 ms,
+    every other 4 ms."""
+
+    def __init__(self):
+        self.slow = set()
+
+    def __call__(self, family, plan, assignment, data, cfg):
+        key = tuple(sorted((k, int(v)) for k, v in assignment.items()))
+        return [8e-3 if key in self.slow else 4e-3] * max(1, cfg.iters)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2])
+def test_gpu_forced_swap_recaptures_and_keeps_the_f32_tokens(cuda, depth):
+    """One K1 triple's frozen incumbent skewed slow: the monitor swaps it
+    at its first probe, the engine captures again exactly the steps whose
+    recorded triples hold it (every step if a workspace grew), and the
+    f32 smoke tokens equal the CPU engine's."""
+    from repro_torch.artifacts.dispatch import (DispatchCache,
+                                                set_default_cache)
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.runtime import KernelMonitor, cand_key
+    set_default_cache(DispatchCache())
+    try:
+        cfg, cpu = _f32_engine("llama3_8b", "cpu", warm_kernels=True)
+        rng = np.random.default_rng(9)
+        prompts = [rng.integers(0, cfg.vocab, n) for n in (13, 7, 21)]
+        want = _serve_all(cpu, prompts)
+        cache = DispatchCache()
+        set_default_cache(cache)
+        timer = _SlowPick()
+        _, eng = _f32_engine("llama3_8b", cuda, warm_kernels=True,
+                             monitor=True, monitor_timer=timer,
+                             async_depth=depth)
+        op = next(o for o in eng._warm_ops if o.family == "matmul_h100")
+        mon = KernelMonitor(cache, machine=H100_SXM, window=1, patience=1,
+                            probe_every=1, top_k=2, timer=timer)
+        mon.track(ops.FAMILIES["matmul_h100"], op.data_dict())
+        inc = cache.frozen_entry("matmul_h100", "h100_sxm", op.data_dict())
+        timer.slow.add(cand_key(inc.candidate)[1])
+        eng.monitor = mon
+        triples = {k: s.triples for k, s in eng._graphs.steps.items()}
+        got = _serve_all(eng, prompts)
+        (ev,) = mon.events
+        (rec,) = eng.recapture_log
+        triple = ("matmul_h100", "h100_sxm", op.data)
+        assert ev.tick == 0 and rec.triple == triple
+        assert list(rec.seconds) == ([k for k, t in triples.items()
+                                      if triple in t] if not rec.grew
+                                     else list(triples))
+        now = cache.frozen_entry("matmul_h100", "h100_sxm", op.data_dict())
+        assert cand_key(now.candidate) == ev.new != ev.old
+        assert got == want
+        eng.close()
+    finally:
+        set_default_cache(None)
+
+
+@pytest.mark.gpu
+def test_gpu_launcher_tunes_a_quick_table(cuda, tmp_path):
+    """``python -m repro_torch.launch.tune_artifacts`` on the card: one
+    quick K1 table measured, rewritten with its tuning sections, and served
+    from its measured order."""
+    from repro_torch.artifacts import ArtifactStore, DispatchCache
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.launch import tune_artifacts
+    from repro_torch.tuning import parse_bucket_key
+    assert tune_artifacts.main(["--family", "matmul_h100", "--out",
+                                str(tmp_path), "--quick", "--iters", "3",
+                                "--top-k", "4"]) == 0
+    store = ArtifactStore(tmp_path)
+    table = store.load_dispatch("matmul_h100", "h100_sxm")
+    (bucket,) = table["buckets"]
+    rec = table["measured_ranks"][bucket]
+    assert all(us is not None and us > 0 for us in rec["us"][:4])
+    assert table["calibration"]["meta"]["card"] == \
+        torch.cuda.get_device_name(0)
+    cache = DispatchCache(store=store)
+    data = parse_bucket_key(bucket)
+    fam = ops.FAMILIES["matmul_h100"]
+    assert cache.rank_source(fam, H100_SXM, data) == "measured"
+    cache.best_variant(fam, H100_SXM, data)
+    assert cache.stats.measured_hits > 0

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 its copies of the observability package ``repro_torch.obs``, the fault
-harness, the disk tier, the serve plans, the MoE layer and the config
-modules included."""
+harness, the disk tier, the serve plans, the MoE layer, the config
+modules, the tuning package and the kernel monitor included."""
 import os
 import pathlib
 import re
@@ -34,7 +34,10 @@ assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
         "repro_torch.configs.granite_3_8b", "repro_torch.configs.yi_6b",
         "repro_torch.configs.qwen1p5_4b", "repro_torch.configs.chameleon_34b",
         "repro_torch.configs.llama4_scout_17b_a16e",
-        "repro_torch.configs.kimi_k2_1t_a32b"} <= set(names), names
+        "repro_torch.configs.kimi_k2_1t_a32b",
+        "repro_torch.tuning.measure", "repro_torch.tuning.calibrate",
+        "repro_torch.tuning.compact", "repro_torch.runtime.monitor",
+        "repro_torch.launch.tune_artifacts"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 assert all(sys.modules[m] is None for m in bad), bad

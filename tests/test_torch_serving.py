@@ -111,12 +111,17 @@ def test_engine_without_warmup_resolves_cold_once_per_shape(weights,
 
 @pytest.mark.parametrize("kw", [dict(monitor=True)])
 def test_later_slices_are_refused_by_name(weights, kw):
-    """The kernel monitor is the one engine option still refused, naming
-    the queue item it waits for."""
+    """The engine takes every option of the JAX engine, the kernel monitor
+    (the last one ported) included; what the port still refuses is refused
+    by name: whisper-large-v3, which the JAX engine does not serve
+    either."""
+    from repro_torch.configs import get_config
     _, _, tcfg, tp = weights
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet.*Queue 1 item 7"):
-        ServeEngine(tcfg, tp, device="cpu", **kw)
+    eng = ServeEngine(tcfg, tp, device="cpu", warm_kernels=True,
+                      plan_store=False, **ENGINE, **kw)
+    assert eng.monitor is not None and eng.monitor.stats.probes == 0
+    with pytest.raises(ValueError, match="whisper-large-v3.*not ported yet"):
+        get_config("whisper-large-v3")
 
 
 def test_async_depth_below_one_raises(weights):
@@ -674,7 +679,7 @@ def test_ssm_blocks_serve_with_sharing_forced_off(ssm_weights):
 def test_launcher_takes_the_engine_options(monkeypatch, capsys, fresh_cache,
                                            tmp_path):
     """``--prefix-sharing``, ``--degrade`` and ``--plan-dir`` reach the
-    engine; ``--monitor`` or one of its knobs is refused by name."""
+    engine, and so do ``--monitor`` and its knobs (each swap printed)."""
     from repro_torch.launch import plan_artifacts, serve
     assert plan_artifacts.main([
         "--config", "llama3_8b", "--smoke", "--max-len", "128",
@@ -690,11 +695,25 @@ def test_launcher_takes_the_engine_options(monkeypatch, capsys, fresh_cache,
     assert "3 requests, 6 tokens" in out and "prefix sharing: hits=" in out
     assert "robustness shed=0" in out
     assert fresh_cache.stats.cold_builds == cold          # from the plan
-    for extra in (["--monitor"], ["--swap-patience", "3"]):
-        monkeypatch.setattr("sys.argv", ["serve", "--arch", "llama3-8b",
-                                         "--device", "cpu"] + extra)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            serve.main()
+    monkeypatch.setattr("sys.argv", [
+        "serve", "--arch", "llama3-8b", "--device", "cpu", "--requests", "2",
+        "--max-new", "3", "--warm-kernels", "--monitor", "--monitor-every",
+        "1", "--monitor-window", "2", "--swap-patience", "3",
+        "--swap-threshold", "1.5"])
+    seen = {}
+    real = ServeEngine.__init__
+
+    def spy(self, *a, **kw):
+        real(self, *a, **kw)
+        seen["monitor"] = self.monitor
+    monkeypatch.setattr(ServeEngine, "__init__", spy)
+    serve.main()
+    out = capsys.readouterr().out
+    mon = seen["monitor"]
+    assert (mon.probe_every, mon.window, mon.patience, mon.threshold) == (
+        1, 2, 3, 1.5)
+    assert mon.stats.probes > 0 and "monitor probes=" in out
+    assert out.count("swap ") == mon.stats.swaps
 
 
 # ---------------------------------------------------------------------------
