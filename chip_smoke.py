@@ -212,6 +212,34 @@ no phase is caught.
    llama3-8b smoke config: the swap fires at tick 3 and the engine
    captures again exactly the steps that launch the triple (seconds
    printed); f32 tokens equal the unmonitored run's, bf16 reported.
+12. whisper-large-v3 and the non-paged serve steps (``build_serve_steps``:
+   ``prefill`` then ``decode_step``, whisper's only serve path, as in the
+   JAX package).  (a) K2's four new kinds of call at whisper's shapes (20
+   query heads over 20 KV heads of 64, bf16) through the paged entry, a
+   row's K/V one block of the pool: the encoder's self-attention (4 rows,
+   sq = sk = 1500, non-causal), cross-attention at prefill (16 queries)
+   and at decode (1) over 1500 frames, and decoder self-attention at
+   decode over a 64-key cache (ragged lengths, one of them 0); each held
+   against the plain version and ``kernels.ref``, a split launch three
+   times bit for bit, timed eagerly and as device time beside SDPA and the
+   bound; then ten leaves of the encoder's signature with the napkin's
+   rank beside the card's.  (b) whisper-large-v3 at full width and depth
+   (32 + 32 layers, bf16, seeded weights made on the card): the warm set
+   of the steps frozen (``warm_steps_dispatch``), 4 requests of 1500
+   seeded frames and 16-token prompts, ``max_len`` 64, greedy 8 new
+   tokens: the prefill (encode included) eager, the 7 decode steps one
+   CUDA graph replay each; every launch counter set to 0 just before and
+   read just after; the launches match the steps (K1 a projection, K2 one
+   a layer for the encoder and two, self and cross, a decoder layer a
+   step), 0 cold builds, the replayed tokens equal an eager decode's;
+   encode, prefill and decode-tick host and device times, peak memory,
+   the decode tick by kernel under ``torch.profiler``, and reckonings from
+   the config (parameters, the cross cache a row, a tick's bytes, the
+   encoder's flops) printed as such.  Its launch signatures not timed in
+   phase 9 are timed as phase 9 times them.  (c) the f32 smoke config of
+   each of the ten archs through the non-paged steps (default bf16 cache,
+   a (B,) index; prompts of 28 tokens, so hymba's ring of 32 wraps) on
+   the card and on the CPU from the same weights: equal greedy tokens.
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -248,14 +276,16 @@ the SSD scan, so K3 has none.
 
 The line before the last is the kernels' JSON record (its ``ms`` are the
 eager times above, as in every earlier run).  For K1, K1's batched entry,
-K2 and K3 ``launches`` is phase 8's count over the nine serve paths;
-``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are sums over those
-launches, each timed at its own signature in phase 9, and ``by_paths``
-gives the same sums (with ``device_ms``) over the three paths of earlier
-runs (mamba2, hymba, llama3) and over the six new ones apart.  For K4-K6
+K2 and K3 ``launches`` is the count over the main paths: phase 8's nine
+engine paths and phase 12 (b)'s whisper path; ``ms``, ``plain_ms``,
+``library_ms`` and ``bound_ms`` are sums over those launches, each timed
+at its own signature in phase 9 (or 12), and ``by_paths`` gives the same
+sums (with ``device_ms``) over the three engine paths of earlier runs
+(mamba2, hymba, llama3), the six of PR 20 and whisper apart.  Phase 11
+tunes at the nine engine paths' signatures only.  For K4-K6
 the same numbers come from phase 6's case-study path (1, 1 and 8
 launches), each signature timed in phase 6.  ``max_abs_err`` is the largest error against
-the plain version over phases 3-6 and 9.  The last line is the device
+the plain version over phases 3-6, 9 and 12.  The last line is the device
 record.
 
 Tolerances, kernel against plain version on the same inputs:
@@ -299,6 +329,7 @@ products on the card are full f32.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import importlib
 import itertools
@@ -735,7 +766,7 @@ def flash_case(sig, gen, *, timed: bool, launches: int = 1,
 
 
 def paged_case(sig, gen, *, timed: bool, launches: int = 1,
-               leaf_only: bool = False):
+               leaf_only: bool = False, against_ref: bool = False):
     """K2's paged entry at ("paged", rows, h, hk, sq, nblk·page, d, page,
     bq, bkv, kv_chunk, stages, causal, window, dtype, pool dtype), its
     ``shapes`` key, each row at its length in ``PAGED_LENS``: a pool of
@@ -745,7 +776,10 @@ def paged_case(sig, gen, *, timed: bool, launches: int = 1,
     ``launches`` launches bit for bit); timed eagerly and as device time
     beside SDPA over the gathered K/V with each row's mask (SDPA's time
     leaves out the gather) when ``timed`` (the kernel alone when
-    ``leaf_only``)."""
+    ``leaf_only``).  With ``against_ref`` each row is also held against
+    ``kernels.ref.flash_attention`` over its gathered keys (one query head
+    a KV head)."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (
         flash_attention_h100_paged, flash_attention_paged_plain)
     (_, rows, h, hk, sq, keys, d, page, bq, bkv, kv_chunk, stages, causal,
@@ -777,6 +811,12 @@ def paged_case(sig, gen, *, timed: bool, launches: int = 1,
 
     rels = []
     for b, n in enumerate(lens):
+        if against_ref and n:
+            row["ref_err"] = max(row.get("ref_err", 0.0), held(
+                f"paged flash {sig[:-2]} row {b} against ref", got[b],
+                ref.flash_attention(q[b], gathered(k, b, n),
+                                    gathered(v, b, n), causal=causal,
+                                    window=window), FA_TOL))
         if n == 0:
             exact(f"paged flash {sig[:-2]} row {b} of length 0", got[b],
                   torch.zeros_like(got[b]))
@@ -800,9 +840,11 @@ def paged_case(sig, gen, *, timed: bool, launches: int = 1,
         kpos = torch.arange(keys, device=DEV)
         qpos = (torch.arange(sq, device=DEV)[None, :, None]
                 + tl[:, None, None] - sq)                 # [rows, sq, 1]
-        mask = (kpos < tl[:, None, None]) & (kpos <= qpos)
+        mask = kpos < tl[:, None, None]
+        if causal:
+            mask = mask & (kpos <= qpos)
         if window is not None:
-            mask &= kpos > qpos - window
+            mask = mask & (kpos > qpos - window)
         kg = k[tables.long()].reshape(rows, keys, hk, d).permute(0, 2, 1, 3)
         vg = v[tables.long()].reshape(rows, keys, hk, d).permute(0, 2, 1, 3)
         kg, vg = kg.to(dtype).contiguous(), vg.to(dtype).contiguous()
@@ -1009,6 +1051,8 @@ def fmt(row) -> str:
             out += f" {key} {row[key]:.4f}"
             if key + "_spread" in row:
                 out += f" (spread {row[key + '_spread']:.4f})"
+    if "ref_err" in row:
+        out += f" ref_err {row['ref_err']:.3e}"
     if "library_err" in row:
         out += f" library_err {row['library_err']:.3e}"
     if "rel" in row:
@@ -1292,15 +1336,17 @@ K2_PAGED_ROWS = (
 )
 
 
-def _paged_sig(h, hk, d, window, rows, sq, nblk, page, dtype) -> tuple:
+def _paged_sig(h, hk, d, window, rows, sq, nblk, page, dtype,
+               causal=True, assignment=None) -> tuple:
     """The paged launch signature of the dispatch's pick for these shapes
-    (a bf16 pool)."""
+    (or of the leaf ``assignment``), on a bf16 pool."""
     from repro_torch.kernels import ops
-    a = ops.select("flash_attention_h100",
-                   {"SQ": sq, "HD": d, "GROUP": h // hk, "HK": hk}
-                   ).assignment
+    a = assignment or ops.select(
+        "flash_attention_h100",
+        {"SQ": sq, "HD": d, "GROUP": h // hk, "HK": hk}).assignment
     return ("paged", rows, h, hk, sq, nblk * page, d, page,
-            *(a[n] for n in FA_PARAMS), True, window, dtype, torch.bfloat16)
+            *(a[n] for n in FA_PARAMS), causal, window, dtype,
+            torch.bfloat16)
 
 
 def _fa_leaves(data, want: int = 10) -> list:
@@ -1715,16 +1761,18 @@ def _serve(cfg, params, prompts, device, **kw):
     return eng, [done[r] for r in rids]
 
 
+def _to(node, device):
+    """A parameter tree (dicts, lists, tensors) copied to ``device``."""
+    if isinstance(node, dict):
+        return {k: _to(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, device) for v in node]
+    return node.to(device)
+
+
 def phase_parity() -> None:
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_model
-
-    def to_cuda(node):
-        if isinstance(node, dict):
-            return {k: to_cuda(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to_cuda(v) for v in node]
-        return node.to(DEV)
 
     for arch in [a for a, _, _ in PATHS] + [a for a, _ in NEW_PATHS]:
         cfg = get_smoke_config(arch).scaled(dtype="float32")
@@ -1734,7 +1782,7 @@ def phase_parity() -> None:
             for lp in params_cpu["layers"]:
                 for name in ("bq", "bk", "bv"):
                     lp["attn"][name].normal_(generator=g)
-        params_gpu = to_cuda(params_cpu)
+        params_gpu = _to(params_cpu, DEV)
         rng = np.random.default_rng(7)
         prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 19, 11, 3, 26)]
         kw = dict(max_batch=3, max_len=48, page_size=8, prefill_chunk=8,
@@ -1771,6 +1819,30 @@ def phase_parity() -> None:
                     "plain versions on cpu")
 
 
+def tick_profile(replay) -> str:
+    """A decode tick's device time by kernel under ``torch.profiler`` (20
+    calls of ``replay``, uncounted): K1-K3 and the rest, with the rest's
+    largest kernels."""
+    times = kernel_us(replay)
+    groups = {"K1": ("matmul_kernel",),
+              "K2": ("flash_kernel", "combine_kernel"),
+              "K3": ("ssd_",)}
+    sums = {g: 0.0 for g in list(groups) + ["other"]}
+    other = {}
+    for name, t in times.items():
+        g = next((g for g, keys in groups.items()
+                  if any(k in name for k in keys)), "other")
+        sums[g] += t
+        if g == "other":
+            other[name[:60]] = t
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
+    return (f"decode tick device us by kernel (profiler, a replay): "
+            f"total {sum(sums.values()):.1f}; "
+            + ", ".join(f"{g} {t:.1f}" for g, t in sums.items())
+            + "; largest other: "
+            + "; ".join(f"{n} {t:.1f}" for n, t in top))
+
+
 class _TickClock:
     """Times an engine's steps: the host clock from ``step()``'s start to a
     graph replay's return, and CUDA events around the replay (its device
@@ -1794,26 +1866,8 @@ class _TickClock:
 
     def profile(self) -> str:
         """The decode tick's device time by kernel under ``torch.profiler``
-        (20 replays of the graph on the last tick's inputs, uncounted):
-        K1-K3 and the rest, with the rest's largest kernels."""
-        times = kernel_us(self.decode_graph.graph.replay)
-        groups = {"K1": ("matmul_kernel",),
-                  "K2": ("flash_kernel", "combine_kernel"),
-                  "K3": ("ssd_",)}
-        sums = {g: 0.0 for g in list(groups) + ["other"]}
-        other = {}
-        for name, t in times.items():
-            g = next((g for g, keys in groups.items()
-                      if any(k in name for k in keys)), "other")
-            sums[g] += t
-            if g == "other":
-                other[name[:60]] = t
-        top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
-        return (f"decode tick device us by kernel (profiler, a replay): "
-                f"total {sum(sums.values()):.1f}; "
-                + ", ".join(f"{g} {t:.1f}" for g, t in sums.items())
-                + "; largest other: "
-                + "; ".join(f"{n} {t:.1f}" for n, t in top))
+        (20 replays of the graph on the last tick's inputs, uncounted)."""
+        return tick_profile(self.decode_graph.graph.replay)
 
     def lines(self) -> list:
         """One line for the decode ticks, one a prefill chunk length:
@@ -2089,10 +2143,10 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
             "tokens": [r.out for r in outs]}
 
 
-def phase_shapes(shapes, gen, timed=None):
+def phase_shapes(shapes, gen, timed=None, before="phase 3"):
     """Every launch signature of the main paths, checked and timed once (a
-    signature in ``timed`` {name: {sig: row}} was, in an earlier phase, and
-    keeps its row); returns {name: {sig: row}}."""
+    signature in ``timed`` {name: {sig: row}} was, in an earlier phase,
+    ``before``, and keeps its row); returns {name: {sig: row}}."""
     rows = {}
     for name, by_sig in shapes.items():
         rows[name] = {}
@@ -2103,7 +2157,7 @@ def phase_shapes(shapes, gen, timed=None):
                 row = CASES[name](sig, gen, timed=True)
             rows[name][sig] = row
             say(f"[shapes] {name} {sig[:-1]} x{n}"
-                f"{' (timed in phase 3)' if again else ''}: {fmt(row)}")
+                f"{f' (timed in {before})' if again else ''}: {fmt(row)}")
             torch.cuda.empty_cache()
     return rows
 
@@ -3005,6 +3059,339 @@ def phase_tune(shapes, rows, gen, llama_tokens) -> None:
     _free()
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: whisper-large-v3 and the non-paged serve steps on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 12 (b): whisper-large-v3's batch, prompt length and cache length.
+WHISPER_RUN = dict(batch=4, prompt_len=16, max_len=64)
+#: Phase 12 (a): K2's four new kinds of call at whisper's shapes (20 query
+#: heads over 20 KV heads of 64, bf16), through the paged entry: (name,
+#: rows, sq, page, causal, the rows' lengths).  A row's K/V are one block of
+#: the pool: the encoder's and the cross-attention's 1500 frames, the
+#: decoder's cache of ``max_len``.
+K2_WHISPER_ROWS = (
+    ("encoder self-attention", 4, 1500, 1500, False, (1500,) * 4),
+    ("cross-attention at prefill", 4, 16, 1500, False, (1500,) * 4),
+    ("cross-attention at decode", 4, 1, 1500, False, (1500,) * 4),
+    ("decoder self-attention at decode", 4, 1, 64, True, (23, 0, 40, 64)),
+)
+
+
+def phase_whisper_k2(gen) -> float:
+    """(a) K2's new signatures against the plain version and
+    ``kernels.ref``, timed eagerly and as device time beside SDPA and the
+    bound; ten leaves of the encoder's signature with the napkin's rank
+    beside the card's.  Returns the largest error."""
+    err = 0.0
+    for name, rows, sq, page, causal, lens in K2_WHISPER_ROWS:
+        sig = _paged_sig(20, 20, 64, None, rows, sq, 1, page, torch.bfloat16,
+                         causal=causal)
+        PAGED_LENS[sig] = lens
+        nsplit = -(-page // sig[10])
+        row = paged_case(sig, gen, timed=True,
+                         launches=3 if nsplit > 1 else 1, against_ref=True)
+        err = max(err, row["err"])
+        say(f"[whisper] (a) K2 {name}: rows {rows} sq {sq} page {page} "
+            f"causal {causal} lengths {list(lens)}, leaf "
+            f"{dict(zip(FA_PARAMS, sig[8:12]))}, {nsplit} split(s)"
+            f"{', three launches bit for bit equal' if nsplit > 1 else ''}:"
+            f" {fmt(row)}")
+    leaf_rows = {}
+    for cand in _fa_leaves({"SQ": 1500, "HD": 64, "GROUP": 1, "HK": 20}):
+        sig = _paged_sig(20, 20, 64, None, 4, 1500, 1, 1500, torch.bfloat16,
+                         causal=False, assignment=cand.assignment)
+        PAGED_LENS[sig] = (1500,) * 4
+        leaf_rows[sig] = dict(paged_case(sig, gen, timed=True,
+                                         leaf_only=True), score=cand.score)
+        err = max(err, leaf_rows[sig]["err"])
+    rank = {k: sorted(leaf_rows, key=lambda s: leaf_rows[s][k])
+            for k in ("ms", "device_ms")}
+    by_score = sorted(leaf_rows, key=lambda s: -leaf_rows[s]["score"])
+    for i, (sig, row) in enumerate(leaf_rows.items()):
+        say(f"[whisper] (a) leaf encoder self-attention "
+            f"{dict(zip(FA_PARAMS, sig[8:12]))}{' (pick)' if i == 0 else ''}"
+            f": {fmt(row)}; napkin score {row['score']:.4g} rank "
+            f"{by_score.index(sig) + 1}, card rank "
+            f"{rank['ms'].index(sig) + 1} (device "
+            f"{rank['device_ms'].index(sig) + 1}) of {len(leaf_rows)}")
+    pick = leaf_rows[next(iter(leaf_rows))]
+    for k in ("ms", "device_ms"):
+        best = leaf_rows[rank[k][0]][k]
+        say(f"[whisper] (a) encoder self-attention: {k} pick {pick[k]:.4f}, "
+            f"fastest of {len(leaf_rows)} leaves {best:.4f} "
+            f"({pick[k] / best:.2f}x)")
+    return err
+
+
+def _leaves(node):
+    """The tensors of a parameter tree."""
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def _nbytes(node) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(node))
+
+
+def _median_line(host_s, dev_pairs) -> str:
+    """Medians and ranges of host seconds and (start, end) event pairs."""
+    host = sorted(1e3 * t for t in host_s)
+    dev = sorted(s.elapsed_time(e) for s, e in dev_pairs)
+    return (f"host {host[len(host) // 2]:.3f} ms median ({host[0]:.3f}-"
+            f"{host[-1]:.3f}), device {dev[len(dev) // 2]:.3f} ms median "
+            f"({dev[0]:.3f}-{dev[-1]:.3f}) over {len(dev)}")
+
+
+def _timed(fn):
+    """(host seconds to the return, (start, end) CUDA events) of fn()."""
+    s_ = torch.cuda.Event(enable_timing=True)
+    e_ = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s_.record()
+    fn()
+    e_.record()
+    return time.perf_counter() - t0, (s_, e_)
+
+
+def phase_whisper(gen) -> dict:
+    """(b) whisper-large-v3 at full width and depth through
+    ``build_serve_steps``: 4 requests, 1500 seeded frames each and 16-token
+    prompts, greedy ``MAX_NEW`` new tokens (the first from the prefill, the
+    rest from decode steps replayed from one CUDA graph); encode and
+    prefill run eagerly.  Every launch counter is set to 0 just before the
+    path and read just after.  Returns the path's record as
+    :func:`phase_serve` does."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.configs import get_config
+    from repro_torch.models import encode, init_cache, init_model
+    from repro_torch.runtime import (build_serve_steps, greedy_sample,
+                                     warm_steps_dispatch)
+    from repro_torch.runtime.graph import CudaGraph, StepGraphs
+
+    cfg = get_config("whisper_large_v3")
+    B, S, L = (WHISPER_RUN[k] for k in ("batch", "prompt_len", "max_len"))
+    S_enc, d, f = cfg.encoder.seq_len, cfg.d_model, cfg.d_ff
+    nh, nk, hd, V = cfg.heads, cfg.kv_heads, cfg.hd, cfg.vocab
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    nparam = sum(t.numel() for t in _leaves(params))
+    say(f"[whisper] (b) {cfg.name}: {cfg.encoder.layers} encoder + "
+        f"{cfg.layers} decoder layers, d_model {d}, {nh} heads of {hd}, "
+        f"vocab {V}, {cfg.dtype}; {nparam / 1e9:.3f} B parameters, "
+        f"{_nbytes(params) / 1e9:.3f} GB made in "
+        f"{time.perf_counter() - t0:.3f} s")
+    # reckonings from the config (not measurements): the cross cache a row,
+    # the bytes a decode tick must read (the decoder's weights but the
+    # cross K/V projections, the lm_head, the cross cache and the self
+    # cache at half the new tokens), and the encoder's flops
+    attn_w = 2 * (d * nh * hd + nh * hd * d)          # q and o, bf16
+    kv_w = 2 * 2 * d * nk * hd
+    tick_bytes = (cfg.layers * (2 * attn_w + kv_w + 2 * 3 * d * f)
+                  + 2 * d * V
+                  + 2 * 2 * cfg.layers * B * (S_enc + S + MAX_NEW // 2)
+                  * nk * hd)
+    enc_flops = cfg.encoder.layers * (
+        2 * B * S_enc * (2 * d * nh * hd + 2 * d * nk * hd + 3 * d * f)
+        + 4 * B * nh * S_enc * S_enc * hd)
+    say(f"[whisper] (b) reckoned from the config, not measured: ck/cv "
+        f"{2 * 2 * cfg.layers * S_enc * nk * hd / 1e6:.1f} MB a row; a "
+        f"decode tick at {B} rows reads {tick_bytes / 1e9:.3f} GB, "
+        f"{1e3 * tick_bytes / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; "
+        f"encoding {B} rows is {enc_flops / 1e12:.2f} TFLOP, "
+        f"{1e3 * enc_flops / PEAK_FLOPS[torch.bfloat16]:.3f} ms at the "
+        f"dense bf16 peak")
+
+    t0 = time.perf_counter()
+    picks = warm_steps_dispatch(cfg, **WHISPER_RUN)
+    stats = get_default_cache().stats
+    cold0 = stats.cold_builds
+    say(f"[whisper] (b) warm-up: {len(picks)} kernel picks frozen in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prefill_step, decode_one = build_serve_steps(cfg)
+    rng = np.random.default_rng(0)
+    prompts = torch.tensor(rng.integers(0, V, (B, S)), dtype=torch.int32,
+                           device=DEV)
+    frames = torch.randn((B, S_enc, d), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    cache = init_cache(cfg, B, L, device=DEV)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=DEV)
+    idx = torch.zeros((B,), dtype=torch.int32, device=DEV)
+
+    def prefill_body():
+        last, _ = prefill_step(params, prompts, cache, enc_embeds=frames)
+        tok.copy_(greedy_sample(last))
+        idx.fill_(S)
+
+    def decode_body():
+        logits, _ = decode_one(params, tok, cache, idx)
+        tok.copy_(greedy_sample(logits))
+        idx.add_(1)
+
+    # one eager run of each body sizes the split workspaces, then the
+    # decode step is captured once
+    prefill_body()
+    decode_body()
+    torch.cuda.synchronize()
+    graphs = StepGraphs(functools.partial(CudaGraph,
+                                          torch.cuda.graph_pool_handle()))
+    t0 = time.perf_counter()
+    step = graphs.capture("decode", decode_body)
+    torch.cuda.synchronize()
+    say(f"[whisper] (b) decode step captured in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    kernels = _counters(SERVE_KERNELS)
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+        k.shapes.clear()
+    t0 = time.perf_counter()
+    pre_host, pre_ev = _timed(prefill_body)
+    out = [tok.clone()]
+    tick_host, tick_ev = [], []
+    for _ in range(MAX_NEW - 1):
+        h, ev = _timed(step)
+        tick_host.append(h)
+        tick_ev.append(ev)
+        out.append(tok.clone())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    shapes = {n: dict(k.shapes) for n, k in kernels.items()}
+    cold = stats.cold_builds - cold0
+    toks = torch.cat(out, 1).tolist()
+
+    # the same tokens from eager decode steps after a fresh prefill
+    prefill_body()
+    eager = [tok.clone()]
+    for _ in range(MAX_NEW - 1):
+        decode_body()
+        eager.append(tok.clone())
+    eager = torch.cat(eager, 1).tolist()
+    for b in range(B):
+        say(f"[whisper] (b) request {b}: prompt {S} tokens, 1500 frames -> "
+            f"{toks[b]} (eager decode: {eager[b]})")
+    ntok = B * MAX_NEW
+    say(f"[whisper] (b) {B} requests, {ntok} tokens in {wall:.3f} s: "
+        f"{ntok / wall:.2f} tokens/s; 1 prefill (encode included, eager), "
+        f"{step.replays} decode graph replays; launches "
+        f"{json.dumps(launches)}; cold dispatch builds after warm-up: "
+        f"{cold}")
+    # K1: the encoder's q, k, v, o and MLP; the prefill's self q, k, v, o,
+    # cross q, k, v, o and MLP; a decode step's self q, k, v, o, cross q, o
+    # and MLP; an lm_head a step.  K2: one a layer for the encoder, two (self
+    # and cross) a decoder layer a step
+    want_mm = (cfg.encoder.layers * 7 + cfg.layers * 11 + 1
+               + (MAX_NEW - 1) * (cfg.layers * 9 + 1))
+    want_fa = cfg.encoder.layers + 2 * cfg.layers * MAX_NEW
+    if step.replays != MAX_NEW - 1:
+        raise AssertionError(f"{step.replays} decode graph replays")
+    if (launches["matmul_h100"], launches["flash_attention_h100"]) != (
+            want_mm, want_fa) or launches["ssd_scan_h100"] \
+            or launches["matmul_h100_batched"]:
+        raise AssertionError(f"whisper launches {launches}, expected K1 "
+                             f"{want_mm} and K2 {want_fa}")
+    if cold:
+        raise AssertionError(f"{cold} dispatches resolved cold after warm-up")
+    if toks != eager or not all(0 <= t < V for row in toks for t in row):
+        raise AssertionError("whisper: the replayed decode's tokens differ "
+                             "from an eager decode's, or are not tokens")
+
+    # the times: the counted run's prefill and decode ticks, and encode
+    # and prefill again three times each, uncounted
+    enc_runs = [_timed(lambda: encode(params, cfg, frames))
+                for _ in range(3)]
+    pre_runs = [(pre_host, pre_ev)] + [_timed(prefill_body)
+                                       for _ in range(2)]
+    torch.cuda.synchronize()
+    say(f"[whisper] (b) encode ({B} x {S_enc} frames, eager): "
+        f"{_median_line([h for h, _ in enc_runs], [e for _, e in enc_runs])}")
+    say(f"[whisper] (b) prefill (encode, cross K/V and {S}-token prompts, "
+        f"eager): {_median_line([h for h, _ in pre_runs], [e for _, e in pre_runs])}")
+    say(f"[whisper] (b) decode tick (one graph replay): "
+        f"{_median_line(tick_host, tick_ev)}")
+    idx.fill_(S)
+    say(f"[whisper] (b) {tick_profile(step.graph.replay)}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    say(f"[whisper] (b) peak device memory (weights, cache, workspaces, "
+        f"graph, encoder activations): {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    # the lengths phase 9's timing of these signatures reads: every frame
+    # for the encoder and the cross-attention, the prompts for their own
+    # attention, a decode row halfway through its new tokens
+    for sig in shapes["flash_attention_h100"]:
+        rows, sq, page, causal = sig[1], sig[4], sig[7], sig[12]
+        PAGED_LENS[sig] = (((page,) if not causal else (S,) if sq > 1
+                            else (S + MAX_NEW // 2,)) * rows)
+    graphs.release()
+    del graphs, step, params, cache, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": cfg.name, "wall_ms": 1e3 * wall, "launches": launches,
+            "shapes": shapes, "peak_gib": peak, "tokens": toks}
+
+
+def phase_steps_parity() -> None:
+    """(c) The f32 smoke config of every arch through the non-paged steps
+    (``build_serve_steps``, the default bf16 cache, a (B,) cache index) on
+    the card and on the CPU (the plain versions) from the same weights:
+    equal greedy tokens.  Prompts of 28 tokens and 8 new ones wrap hymba's
+    ring of 32."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.runtime import build_serve_steps, greedy_sample
+    B, S, L = 2, 28, 40
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch).scaled(dtype="float32")
+        params = {"cpu": init_model(cfg, seed=7, device="cpu")}
+        if cfg.qkv_bias:          # init makes them zero: plant non-zero ones
+            g = torch.Generator().manual_seed(7)
+            for lp in params["cpu"]["layers"]:
+                for name in ("bq", "bk", "bv"):
+                    lp["attn"][name].normal_(generator=g)
+        params[DEV] = _to(params["cpu"], DEV)
+        rng = np.random.default_rng(7)
+        toks = rng.integers(0, cfg.vocab, (B, S))
+        extra = {}
+        if cfg.encoder is not None:
+            extra["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
+        elif cfg.frontend == "stub":
+            extra["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (B, 8, cfg.d_model)).astype(np.float32))
+        prefill_step, decode_one = build_serve_steps(cfg)
+        got = {}
+        for dev in ("cpu", DEV):
+            cache = init_cache(cfg, B, L, device=dev)
+            last, _ = prefill_step(params[dev], toks, cache,
+                                   **{k: v.to(dev) for k, v in extra.items()})
+            tok = greedy_sample(last)
+            out = [tok]
+            idx = torch.full((B,), S, dtype=torch.int32, device=dev)
+            for _ in range(MAX_NEW - 1):
+                logits, _ = decode_one(params[dev], tok, cache, idx)
+                tok = greedy_sample(logits)
+                out.append(tok)
+                idx += 1
+            got[dev] = torch.cat(out, 1).tolist()
+        say(f"[whisper] (c) {cfg.name} f32, non-paged steps: cpu plain "
+            f"{got['cpu']}, cuda kernels {got[DEV]}")
+        if got["cpu"] != got[DEV]:
+            raise AssertionError(f"{cfg.name}: the non-paged steps' tokens "
+                                 "differ between the card and the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3051,20 +3438,9 @@ def main() -> int:
     say(f"[serve] phase {time.perf_counter() - t0:.1f} s; peak device "
         f"memory a path, GiB: " + ", ".join(
             f"{p['name']} {p['peak_gib']:.2f}" for p in paths))
-    # the three paths PR 19 served, the six this one adds, and all nine
-    groups = {"mamba2, hymba, llama3": paths[:len(PATHS)],
-              "six new": paths[len(PATHS):], "all": paths}
-    launches, shapes = {}, {}
-    for group, members in groups.items():
-        launches[group] = {n: sum(p["launches"][n] for p in members)
-                           for n in SERVE_KERNELS}
-        shapes[group] = {n: {} for n in SERVE_KERNELS}
-        for p in members:
-            for n in SERVE_KERNELS:
-                for sig, k in p["shapes"][n].items():
-                    shapes[group][n][sig] = shapes[group][n].get(sig, 0) + k
+    engine = _group_shapes(paths)
     t0 = time.perf_counter()
-    rows = phase_shapes(shapes["all"], gen,
+    rows = phase_shapes(engine, gen,
                         timed={"matmul_h100_batched": batched_rows})
     phase_host_cost(gen)
     say(f"[shapes] phase {time.perf_counter() - t0:.1f} s")
@@ -3072,8 +3448,27 @@ def main() -> int:
     phase_options()
     say(f"[options] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_tune(shapes["all"], rows, gen, paths[len(PATHS) - 1]["tokens"])
+    phase_tune(engine, rows, gen, paths[len(PATHS) - 1]["tokens"])
     say(f"[tune] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs["flash_attention_h100"] = max(errs["flash_attention_h100"],
+                                       phase_whisper_k2(gen))
+    paths.append(phase_whisper(gen))
+    phase_steps_parity()
+    # phase 9's timing of whisper's launch signatures it has not timed
+    for name, row in phase_shapes(_group_shapes(paths[-1:]), gen,
+                                  timed=rows, before="phase 9").items():
+        rows[name].update(row)
+    say(f"[whisper] phase {time.perf_counter() - t0:.1f} s")
+    # the three paths PR 19 served, the six PR 20 added, whisper, and all
+    groups = {"mamba2, hymba, llama3": paths[:len(PATHS)],
+              "six new": paths[len(PATHS):-1], "whisper": paths[-1:],
+              "all": paths}
+    launches, shapes = {}, {}
+    for group, members in groups.items():
+        launches[group] = {n: sum(p["launches"][n] for p in members)
+                           for n in SERVE_KERNELS}
+        shapes[group] = _group_shapes(members)
     for path in paths:
         say(f"[shapes] {path['name']} ({path['wall_ms']:.1f} ms wall), "
             f"kernel time over its launches: "
@@ -3104,13 +3499,14 @@ def main() -> int:
                else "operations",
                "library_ms": t["library_ms"]}
         if name in SERVE_KERNELS:
-            # PR 19's three paths and this slice's six, each apart
+            # the three engine paths of PR 19, the six of PR 20 and
+            # whisper's non-paged steps, each apart
             row["by_paths"] = {
                 g: {"launches": sum(paths_shapes[g][name].values()),
                     **{k: sums[g][name][k] for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "library_ms")}}
-                for g in ("mamba2, hymba, llama3", "six new")}
+                for g in ("mamba2, hymba, llama3", "six new", "whisper")}
         kernels.append(row)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
@@ -3118,6 +3514,16 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _group_shapes(paths) -> dict:
+    """{kernel: {signature: launches}} summed over ``paths``."""
+    out = {n: {} for n in SERVE_KERNELS}
+    for p in paths:
+        for n in SERVE_KERNELS:
+            for sig, k in p["shapes"][n].items():
+                out[n][sig] = out[n].get(sig, 0) + k
+    return out
 
 
 def _bytes_bound(name, shapes) -> bool:

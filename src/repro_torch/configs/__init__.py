@@ -3,9 +3,10 @@
 Each module exports ``CONFIG`` (the published configuration) and ``SMOKE``
 (a reduced same-family configuration for CPU tests).  The port serves the
 dense ``attn_mlp``, the mixture-of-experts ``attn_moe``, the attention-free
-``ssm`` and the ``hybrid`` blocks, so every config the JAX serving engine
-serves is registered; whisper-large-v3 (encoder-decoder) is refused by name
-until the slice that ports its encoder.
+``ssm`` and the ``hybrid`` blocks and the whisper encoder-decoder, so every
+config of the JAX package is registered.  Whisper, as in the JAX package,
+is served through the non-paged steps (``runtime.steps.build_serve_steps``),
+not the engine.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ ARCH_IDS = (
     "chameleon_34b",
     "llama4_scout_17b_a16e",
     "kimi_k2_1t_a32b",
+    "whisper_large_v3",
 )
 
 # canonical external ids -> module names
@@ -37,6 +39,7 @@ ALIASES = {
     "chameleon-34b": "chameleon_34b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

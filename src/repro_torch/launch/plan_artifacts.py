@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", action="append", default=None,
                     help="model config to plan (repeatable; default: every "
-                         "config of the port)")
+                         "config the port's engine serves)")
     ap.add_argument("--machine", action="append", default=None,
                     choices=sorted(MACHINES),
                     help="target machine (repeatable; default h100_sxm)")
@@ -67,12 +67,17 @@ def main(argv=None) -> int:
                     help="with --check: exit 1 on any stale plan")
     args = ap.parse_args(argv)
 
-    names = args.config if args.config else list(ARCH_IDS)
     get = get_smoke_config if args.smoke else get_config
+    names = args.config if args.config else [
+        a for a in ARCH_IDS if get(a).encoder is None]
     try:
         cfgs = [get(n) for n in names]
     except (KeyError, ModuleNotFoundError, ValueError) as e:
         ap.error(f"unknown config {e}; have {sorted(ARCH_IDS)}")
+    for cfg in cfgs:
+        if cfg.encoder is not None:
+            ap.error(f"{cfg.name} is an encoder-decoder: the engine does not "
+                     "serve it, so it has no serve plan")
     machines = [MACHINES[m] for m in (args.machine or ["h100_sxm"])]
     trace_kw = dict(max_len=args.max_len, max_batch=args.max_batch,
                     prefill_chunk=args.prefill_chunk)

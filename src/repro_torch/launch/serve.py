@@ -7,8 +7,9 @@
 
 ``--arch`` takes llama3-8b, granite-3-8b, yi-6b, qwen1.5-4b, chameleon-34b
 (dense), llama4-scout-17b-a16e, kimi-k2-1t-a32b (mixture of experts),
-mamba2-130m (SSM) or hymba-1.5b (hybrid); whisper-large-v3 is not ported
-yet.  ``--full`` serves the published config at full depth: llama4-scout's
+mamba2-130m (SSM) or hymba-1.5b (hybrid); whisper-large-v3 is refused, as
+by the JAX launcher: the port serves it through the non-paged steps
+(``repro_torch.runtime.build_serve_steps``).  ``--full`` serves the published config at full depth: llama4-scout's
 48 layers and kimi-k2's 61 do not fit one 80 GB card (``chip_smoke.py``
 cuts their depth).
 
@@ -122,6 +123,9 @@ def main() -> None:
     args = ap.parse_args()
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    if cfg.encoder is not None:
+        raise SystemExit("enc-dec serving demo not wired for CLI; serve it "
+                         "through repro_torch.runtime.build_serve_steps")
     recorder = None
     if args.trace:
         recorder = FlightRecorder(capacity=args.trace_capacity,

@@ -1,11 +1,12 @@
 """LM substrate of the port: config, functional layers, model assembly."""
 from .config import ModelConfig
-from .transformer import (forward, init_model, init_paged_cache,
-                          paged_copy_block, paged_decode_step,
-                          paged_prefill_chunk, paged_prefill_step)
+from .transformer import (decode_step, encode, forward, init_cache,
+                          init_model, init_paged_cache, paged_copy_block,
+                          paged_decode_step, paged_prefill_chunk,
+                          paged_prefill_step, prefill)
 
 __all__ = [
-    "ModelConfig", "forward", "init_model", "init_paged_cache",
-    "paged_copy_block", "paged_decode_step", "paged_prefill_chunk",
-    "paged_prefill_step",
+    "ModelConfig", "decode_step", "encode", "forward", "init_cache",
+    "init_model", "init_paged_cache", "paged_copy_block", "paged_decode_step",
+    "paged_prefill_chunk", "paged_prefill_step", "prefill",
 ]

@@ -3,15 +3,18 @@
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts (``wq`` is [d_model, heads·hd], ...), so a JAX pytree converts leaf
 for leaf (:mod:`repro_torch.convert`).  Every projection goes through
-``ops.matmul`` (K1), every attention core through ``ops.flash_attention``
-or, over the paged pool, ``ops.paged_attention`` (K2), and every SSD core
-through ``ops.ssd_scan`` (K3): the design the JAX
+``ops.matmul`` (K1), every attention core through K2's paged entry
+``ops.paged_attention`` (over the paged pool, or over a batch's contiguous
+K/V read as a pool of one block a row: one launch a layer), and every SSD
+core through ``ops.ssd_scan`` (K3): the design the JAX
 layers state and their warm set traces, although their forward is einsum
 on every backend (ROADMAP F3).  The port is held against that einsum math.
 
-The layers of the ported blocks (``attn_mlp``, ``ssm``, ``hybrid``):
-RMSNorm, RoPE, attention (no-cache and paged paths), the Mamba-2 SSD block,
-the SwiGLU MLP, embed and unembed.
+The layers of the ported blocks (``attn_mlp``, ``attn_moe``, ``ssm``,
+``hybrid`` and whisper's encoder and decoder): RMSNorm, RoPE, attention
+(self- and cross-attention; no cache, the non-paged cache with its ring,
+and the paged pool), the Mamba-2 SSD block, the SwiGLU MLP, embed and
+unembed.
 """
 from __future__ import annotations
 
@@ -62,20 +65,92 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA + causal/window masks; no cache or paged KV pool)
+# Attention (GQA + causal/window masks; no cache, contiguous cache or paged
+# KV pool; self- or cross-attention)
 # ---------------------------------------------------------------------------
 
-def _core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          cfg: ModelConfig) -> torch.Tensor:
-    """One sequence's attention through K2: q (Sq, nh, hd), k/v (Sk, nk, hd)
-    with Sq <= Sk, ends aligned.  K2 takes the nk KV heads as they are and
-    query head h reads kv head h // (nh/nk), the JAX grouping; nothing is
-    broadcast."""
-    qh = q.permute(1, 0, 2).contiguous()
-    kh = k.permute(1, 0, 2).contiguous()
-    vh = v.permute(1, 0, 2).contiguous()
-    out = ops.flash_attention(qh, kh, vh, causal=True, window=cfg.window)
-    return out.permute(1, 0, 2)
+def _readable(kv: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """K/V in a type K2 reads under queries of ``dtype``: their own, or a
+    bf16 pool, which f32 queries upcast as they load it (the exact cast
+    ``astype(x.dtype)`` of the JAX layer); anything else is cast."""
+    return kv if kv.dtype in (dtype, torch.bfloat16) else kv.to(dtype)
+
+
+def _rows_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lens: torch.Tensor, *, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """q (B, Sq, nh, hd) of row b over the first ``lens[b]`` keys of k, v
+    (B, P, nk, hd), queries ends-aligned at ``lens[b] - 1``: the rows' K/V
+    are a pool of B blocks of page P, row b's table ``[[b]]``, read in place
+    by one launch of K2's paged entry (the lengths stay on the device).  K2
+    takes at most P queries a launch: a longer non-causal, unwindowed
+    attention (cross-attention over a short context) runs its queries in
+    runs of at most P, which are independent rows of the softmax."""
+    B, Sq = q.shape[:2]
+    P = k.shape[1]
+    tables = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    if Sq <= P:
+        out = ops.paged_attention(qh, k, v, tables, lens, causal=causal,
+                                  window=window)
+    elif causal or window is not None:
+        raise ValueError(f"{Sq} queries over {P} keys: only a non-causal, "
+                         "unwindowed attention takes more queries than keys")
+    else:
+        out = torch.cat([ops.paged_attention(
+            qh[:, :, s:s + P].contiguous(), k, v, tables, lens,
+            causal=False, window=None) for s in range(0, Sq, P)], dim=2)
+    return out.permute(0, 2, 1, 3)
+
+
+def _full(B: int, n, device: torch.device) -> torch.Tensor:
+    return torch.full((B,), n, dtype=torch.int32, device=device)
+
+
+def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cache: Dict[str, torch.Tensor],
+                     cache_index: torch.Tensor, cfg: ModelConfig, *,
+                     causal: bool) -> torch.Tensor:
+    """Self-attention over the non-paged cache {"k","v"} (B, W, nk, hd),
+    written in place at positions ``cache_index + i`` (``cache_index`` a 0-d
+    or (B,) integer tensor on the device).  A windowed config whose cache
+    is no longer than its window keeps a ring: token t in slot t % W (a
+    prompt of at least W tokens writes only its last W).  A prompt (more
+    than one query) on the ring attends within itself, over its unrounded
+    K/V, as the JAX layer does; one query reads the first min(idx + 1, W)
+    slots unmasked: every written slot holds a token inside the window, so
+    this is the JAX layer's masked softmax over the ring, summed in slot
+    order.  Any other cache is read up to ``cache_index + Sq`` with the
+    causal (and window) mask, queries ends-aligned, in the cache's type."""
+    ck, cv = cache["k"], cache["v"]
+    B, Sq = q.shape[:2]
+    W = ck.shape[1]
+    dev = q.device
+    idx = cache_index.long().reshape(-1).expand(B)
+    rows = torch.arange(B, device=dev)[:, None]
+    steps = torch.arange(Sq, device=dev)[None]
+    if cfg.window is not None and W <= cfg.window:
+        if Sq >= W:
+            kw_, vw_ = k[:, -W:], v[:, -W:]
+            slots = (idx[:, None] + Sq - W + steps[:, :W]) % W
+        else:
+            kw_, vw_ = k, v
+            slots = (idx[:, None] + steps) % W
+        ck[rows, slots] = kw_.to(ck.dtype)
+        cv[rows, slots] = vw_.to(cv.dtype)
+        if Sq > 1:
+            return _rows_attention(q, k, v, _full(B, Sq, dev), causal=causal,
+                                   window=cfg.window)
+        lens = torch.clamp(idx + 1, max=W).to(torch.int32)
+        return _rows_attention(q, _readable(ck, q.dtype),
+                               _readable(cv, q.dtype), lens, causal=False,
+                               window=None)
+    slots = idx[:, None] + steps
+    ck[rows, slots] = k.to(ck.dtype)
+    cv[rows, slots] = v.to(cv.dtype)
+    return _rows_attention(q, _readable(ck, q.dtype), _readable(cv, q.dtype),
+                           (idx + Sq).to(torch.int32), causal=causal,
+                           window=cfg.window)
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -84,13 +159,26 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               cache_index: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
               lengths: Optional[torch.Tensor] = None,
-              ) -> torch.Tensor:
-    """Causal self-attention over x (B, Sq, d).
+              causal: bool = True,
+              context: Optional[torch.Tensor] = None,
+              precomputed_kv: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+              return_kv: bool = False):
+    """Self-attention over x (B, Sq, d), or cross-attention when
+    ``context`` (B, Sk, d) or ``precomputed_kv`` (k, v) (B, Sk, nk, hd) is
+    given; returns the output (B, Sq, d), or (output, (k, v)) with the
+    projected, unrounded K/V of ``context`` under ``return_kv``.
 
-    Without ``cache`` every row attends over its own Sq tokens (positions
-    0..Sq-1).  With a paged ``cache`` — block pools {"k","v"} of shape
-    (num_blocks, page_size, nk, hd), written **in place** — this call's K/V
-    are scattered into the rows' physical blocks at logical positions
+    Cross-attention projects K/V from ``context`` (or reads them as given,
+    whisper's cross cache, cast to x's type), puts RoPE on neither q nor k,
+    and is never causal or windowed.  Self-attention puts RoPE on q and k at
+    ``positions`` and masks causally (when ``causal``) and by the config's
+    window.  Without ``cache`` every row attends over its own Sq tokens,
+    one K2 launch for all rows.  A non-paged ``cache`` {"k","v"} (B, W, nk,
+    hd) is written in place and read as :func:`_cache_attention` says.
+    With a paged ``cache`` — block pools {"k","v"} of shape (num_blocks,
+    page_size, nk, hd), written **in place** — this call's K/V are
+    scattered into the rows' physical blocks at logical positions
     ``cache_index + i`` (``block_tables`` (B, nblk) int32 maps logical to
     physical blocks), then one K2 launch reads every row's keys through its
     table, in place, up to its length ``lengths`` (B,) int32, with the
@@ -100,18 +188,36 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     B, Sq, d = x.shape
     nh, nk, hd = cfg.heads, cfg.kv_heads, cfg.hd
     q = proj(x, p["wq"])
-    k = proj(x, p["wk"])
-    v = proj(x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
-        k = k + p["bk"].to(x.dtype)
-        v = v + p["bv"].to(x.dtype)
-    q = rope(q.reshape(B, Sq, nh, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, Sq, nk, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, Sq, nk, hd)
+    q = q.reshape(B, Sq, nh, hd)
+    cross = context is not None or precomputed_kv is not None
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+    else:
+        src = x if context is None else context
+        k = proj(src, p["wk"])
+        v = proj(src, p["wv"])
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(x.dtype)
+            v = v + p["bv"].to(x.dtype)
+        k = k.reshape(B, -1, nk, hd)
+        v = v.reshape(B, -1, nk, hd)
+    if not cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
-    if cache is None:
-        out = torch.stack([_core(q[b], k[b], v[b], cfg) for b in range(B)])
+    if cross:
+        out = _rows_attention(q, _readable(k, x.dtype),
+                              _readable(v, x.dtype),
+                              _full(B, k.shape[1], x.device), causal=False,
+                              window=None)
+    elif cache is None:
+        out = _rows_attention(q, k, v, _full(B, Sq, x.device), causal=causal,
+                              window=cfg.window)
+    elif block_tables is None:
+        out = _cache_attention(q, k, v, cache, cache_index, cfg,
+                               causal=causal)
     else:
         ck, cv = cache["k"], cache["v"]
         ps = ck.shape[1]
@@ -122,9 +228,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         ck[phys, slot] = k.to(ck.dtype)
         cv[phys, slot] = v.to(cv.dtype)
         out = ops.paged_attention(q.permute(0, 2, 1, 3).contiguous(), ck, cv,
-                                  block_tables, lengths, causal=True,
+                                  block_tables, lengths, causal=causal,
                                   window=cfg.window).permute(0, 2, 1, 3)
-    return proj(out.reshape(B, Sq, nh * hd), p["wo"])
+    y = proj(out.reshape(B, Sq, nh * hd), p["wo"])
+    return (y, (k, v)) if return_kv else y
 
 
 # ---------------------------------------------------------------------------

@@ -2,19 +2,22 @@
 
 Serves the ``attn_mlp`` (dense GQA), ``attn_moe`` (GQA + mixture-of-experts
 FFN, :mod:`.moe`), ``ssm`` (attention-free Mamba-2 SSD) and ``hybrid``
-(parallel attention + SSD heads) blocks; the encoder-decoder is a later
-slice.  Parameters are a dict ``{"embed": {"tok",
-"out"}, "layers": [per-layer dicts], "ln_f": {"scale"}}``; the JAX package
-stacks layers on a leading axis and scans them, the port keeps a list and
-loops.  Weights (>= 2-D) are held in the compute dtype, norm scales and
+(parallel attention + SSD heads) blocks, and the whisper encoder-decoder
+(``encode`` over precomputed frame embeddings, cross-attention in every
+decoder block).  Parameters are a dict ``{"embed": {"tok", "out"},
+"layers": [per-layer dicts], "ln_f": {"scale"}}``, with ``"enc_layers"``
+and ``"enc_ln_f"`` for an encoder; the JAX package stacks layers on a
+leading axis and scans them, the port keeps a list and loops.  Weights (>= 2-D) are held in the compute dtype, norm scales and
 biases in f32: the JAX forward casts every weight to ``x.dtype`` before use,
 so the numbers are the same and a bf16 model takes half the memory.  The
 one exception is the SSM decay projection ``wa``, which the JAX layer runs
 in f32 from f32 weights whatever the compute type: it stays f32.
 
-The paged serving functions update the KV pool and the per-slot SSM state
-**in place** (the JAX ones return a new cache); they still return it, so
-callers read the same.  The SSM state is updated in place by the K3 launch
+Two serve paths: the non-paged steps (``init_cache``, ``prefill``,
+``decode_step``: one contiguous cache row a sequence, whisper's only way to
+serve) and the paged ones the engine runs.  Both update the cache and the
+SSM state **in place** (the JAX ones return a new cache); they still
+return it, so callers read the same.  The SSM state is updated in place by the K3 launch
 itself: each layer hands its cache slice in as the scan's state and its
 output state, so no step allocates or scatters a state.
 """
@@ -36,14 +39,22 @@ Params = Dict[str, Any]
 
 
 def check_block(cfg: ModelConfig) -> None:
-    """Raise for a config whose block the port does not serve yet."""
-    if cfg.block not in ("attn_mlp", "attn_moe", "ssm", "hybrid") \
-            or cfg.encoder is not None:
+    """Raise for a config whose block the port does not serve."""
+    if cfg.block not in ("attn_mlp", "attn_moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"block {cfg.block!r} (config {cfg.name}) is not ported yet: "
-            "the port serves attn_mlp, attn_moe, ssm and hybrid decoders")
+            f"block {cfg.block!r} (config {cfg.name}) is not ported: the "
+            "port serves attn_mlp, attn_moe, ssm and hybrid blocks")
     if cfg.block == "attn_moe":
         check_moe(cfg)
+
+
+def check_paged(cfg: ModelConfig) -> None:
+    """Raise, as the JAX package does, for a config the paged serve path
+    does not take: an encoder-decoder."""
+    check_block(cfg)
+    if cfg.encoder is not None:
+        raise ValueError("paged serving does not support encoder-decoder "
+                         "configs")
 
 
 def has_attn(cfg: ModelConfig) -> bool:
@@ -74,7 +85,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     matrices (0.1 / sqrt(fan_in) for the SSM decay projection; an expert
     stack (E, fan_in, fan_out) by its own fan_in), 0.02·normal for the
     token table, ones for norm scales, zeros for q/k/v biases, 2.0 for the
-    decay bias — the JAX package's distributions, not its numbers."""
+    decay bias — the JAX package's distributions, not its numbers.  An
+    encoder config also gets cross-attention (``lnx``, ``xattn``) in every
+    decoder layer, ``cfg.encoder.layers`` encoder layers and ``enc_ln_f``."""
     check_block(cfg)
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
@@ -91,18 +104,20 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                                     device=dev)}
 
     d, f, nh, nk, hd = cfg.d_model, cfg.d_ff, cfg.heads, cfg.kv_heads, cfg.hd
-    layers = []
-    for _ in range(cfg.layers):
+
+    def attention():
+        attn = {"wq": mat(d, nh * hd), "wk": mat(d, nk * hd),
+                "wv": mat(d, nk * hd), "wo": mat(nh * hd, d)}
+        if cfg.qkv_bias:
+            for name, n in (("bq", nh * hd), ("bk", nk * hd),
+                            ("bv", nk * hd)):
+                attn[name] = torch.zeros(n, dtype=torch.float32, device=dev)
+        return attn
+
+    def layer(cross: bool) -> Params:
         lp: Params = {}
         if has_attn(cfg):
-            attn = {"wq": mat(d, nh * hd), "wk": mat(d, nk * hd),
-                    "wv": mat(d, nk * hd), "wo": mat(nh * hd, d)}
-            if cfg.qkv_bias:
-                for name, n in (("bq", nh * hd), ("bk", nk * hd),
-                                ("bv", nk * hd)):
-                    attn[name] = torch.zeros(n, dtype=torch.float32,
-                                             device=dev)
-            lp["ln1"], lp["attn"] = norm(), attn
+            lp["ln1"], lp["attn"] = norm(), attention()
         if has_ssm(cfg):
             s = cfg.ssm
             di = s.heads * s.head_dim
@@ -114,6 +129,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                 "wo": mat(di, d),
                 "a_bias": torch.full((s.heads,), 2.0, dtype=torch.float32,
                                      device=dev)}
+        if cross:
+            lp["lnx"], lp["xattn"] = norm(), attention()
         if has_mlp(cfg):
             lp["ln2"] = norm()
             lp["mlp"] = {"wi": mat(d, f), "wg": mat(d, f), "wo": mat(f, d)}
@@ -124,10 +141,20 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
                          "wi": mat(E, d, fe, scale=1 / math.sqrt(d)),
                          "wg": mat(E, d, fe, scale=1 / math.sqrt(d)),
                          "wo": mat(E, fe, d, scale=1 / math.sqrt(fe))}
-        layers.append(lp)
-    return {"embed": {"tok": mat(cfg.vocab, d, scale=0.02),
-                      "out": mat(d, cfg.vocab)},
-            "layers": layers, "ln_f": norm()}
+        return lp
+
+    cross = cfg.encoder is not None
+    params = {"embed": {"tok": mat(cfg.vocab, d, scale=0.02),
+                        "out": mat(d, cfg.vocab)},
+              "layers": [layer(cross) for _ in range(cfg.layers)],
+              "ln_f": norm()}
+    if cross:
+        # encoder blocks share the decoder backbone's dims, without
+        # cross-attention
+        params["enc_layers"] = [layer(False)
+                                for _ in range(cfg.encoder.layers)]
+        params["enc_ln_f"] = norm()
+    return params
 
 
 def _device(params: Params) -> torch.device:
@@ -137,16 +164,22 @@ def _device(params: Params) -> torch.device:
 def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
            ssm_state: Optional[torch.Tensor] = None,
            ssm_mask: Optional[torch.Tensor] = None,
-           ssm_rows: Optional[torch.Tensor] = None, **attn_kw
+           ssm_rows: Optional[torch.Tensor] = None,
+           enc_out: Optional[torch.Tensor] = None,
+           xcache: Optional[Dict[str, torch.Tensor]] = None, **attn_kw
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block: (x, the MoE layer's aux loss or None).  The SSD core's
     final state is written into ``ssm_state`` itself (none is kept when it
     is None), rows that ``ssm_mask`` leaves out keeping theirs, row b at
     ``ssm_rows[b]`` when given.  The hybrid block runs attention and SSD in
-    parallel on separately normed inputs and adds both to the residual,
-    then the MLP or the MoE FFN, as the JAX ``block_apply`` does.  The MoE
-    FFN routes every row of x, rows not decoding included, as the JAX
-    decode step does: capacity is per routing call."""
+    parallel on separately normed inputs and adds both to the residual;
+    a whisper decoder block then runs cross-attention; then the MLP or the
+    MoE FFN, as the JAX ``block_apply`` does.  Cross-attention projects K/V
+    from ``enc_out`` and writes them into the layer's cross cache
+    ``xcache`` {"ck","cv"} (B, S_enc, nk, hd) when given, or, with no
+    ``enc_out``, reads them from it (a decode step).  The MoE FFN routes
+    every row of x, rows not decoding included, as the JAX decode step
+    does: capacity is per routing call."""
     h = x
     if has_attn(cfg):
         h = h + L.attention(lp["attn"], L.rmsnorm(lp["ln1"], x, cfg.norm_eps),
@@ -158,6 +191,21 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
             state_rows=ssm_rows)
         h = h + ssd
     x = h
+    if "xattn" in lp:
+        xn = L.rmsnorm(lp["lnx"], x, cfg.norm_eps)
+        pos = attn_kw["positions"]
+        if enc_out is None:
+            xa = L.attention(lp["xattn"], xn, cfg, positions=pos,
+                             causal=False,
+                             precomputed_kv=(xcache["ck"], xcache["cv"]))
+        else:
+            xa, (k, v) = L.attention(lp["xattn"], xn, cfg, positions=pos,
+                                     causal=False, context=enc_out,
+                                     return_kv=True)
+            if xcache is not None:
+                xcache["ck"].copy_(k)
+                xcache["cv"].copy_(v)
+        x = x + xa
     aux = None
     if "moe" in lp:
         y, aux = moe_block(lp["moe"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
@@ -182,28 +230,159 @@ def _long(x, dev: torch.device) -> torch.Tensor:
 # Full-sequence forward
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, cfg: ModelConfig, tokens, *,
-            patch_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward: tokens (B, S) -> (logits (B, S, V),
-    the MoE layers' summed aux loss, f32; 0 without MoE).  ``patch_embeds``
-    (B', P, d), chameleon's precomputed VQ patch embeddings, replace the
-    token embeddings of rows :B' at positions :P (early fusion)."""
-    check_block(cfg)
+def _embed(params: Params, cfg: ModelConfig, tokens,
+           patch_embeds) -> torch.Tensor:
+    """Token embeddings (B, S, d) in the compute type; ``patch_embeds``
+    (B', P, d), chameleon's precomputed VQ patch embeddings, replace those
+    of rows :B' at positions :P (early fusion)."""
     dev = _device(params)
-    tokens = _long(tokens, dev)
-    B, S = tokens.shape
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], _long(tokens, dev), _dtype(cfg))
     if patch_embeds is not None:
         pe = _as(patch_embeds, dev, x.dtype)
         x[:pe.shape[0], :pe.shape[1]] = pe
-    positions = torch.arange(S, device=dev)
+    return x
+
+
+def encode(params: Params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings (B, S_enc, d):
+    non-causal self-attention blocks at positions 0..S_enc-1, then
+    ``enc_ln_f``; each layer's attention one K2 launch over all rows."""
+    check_block(cfg)
+    dev = _device(params)
+    x = _as(enc_embeds, dev, _dtype(cfg))
+    positions = torch.arange(x.shape[1], device=dev)
+    for lp in params["enc_layers"]:
+        x, _ = _block(lp, x, cfg, positions=positions, causal=False)
+    return L.rmsnorm(params["enc_ln_f"], x, cfg.norm_eps)
+
+
+def _encoded(params: Params, cfg: ModelConfig,
+             enc_embeds) -> Optional[torch.Tensor]:
+    if cfg.encoder is None:
+        return None
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} needs encoder embeddings (enc_embeds)")
+    return encode(params, cfg, enc_embeds)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens, *, enc_embeds=None,
+            patch_embeds=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward: tokens (B, S) -> (logits (B, S, V),
+    the MoE layers' summed aux loss, f32; 0 without MoE).  ``enc_embeds``
+    (B, S_enc, d), whisper's precomputed frame embeddings, go through the
+    encoder first; ``patch_embeds`` as :func:`_embed` takes them."""
+    check_block(cfg)
+    dev = _device(params)
+    x = _embed(params, cfg, tokens, patch_embeds)
+    enc_out = _encoded(params, cfg, enc_embeds)
+    positions = torch.arange(x.shape[1], device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for lp in params["layers"]:
-        x, aux_l = _block(lp, x, cfg, positions=positions)
+        x, aux_l = _block(lp, x, cfg, positions=positions, enc_out=enc_out)
         if aux_l is not None:
             aux = aux + aux_l
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x), aux
+
+
+# ---------------------------------------------------------------------------
+# Non-paged serving path: one contiguous cache row a sequence
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, *,
+               device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The non-paged decode cache, stacked over layers, with the JAX leaves
+    and shapes: attention configs get "k", "v" (layers, batch, W, kv_heads,
+    hd), W = min(window, max_len) for a windowed config (a ring) else
+    max_len; SSM configs "ssm" (layers, batch, heads, state, hd) in f32;
+    an encoder "ck", "cv" (layers, batch, S_enc, kv_heads, hd).  bf16 by
+    default whatever ``cfg.dtype`` is, as in the JAX package."""
+    check_block(cfg)
+    dev = resolve_device(device)
+    c: Dict[str, torch.Tensor] = {}
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if has_attn(cfg):
+        W = min(cfg.window, max_len) if cfg.window else max_len
+        c["k"] = zeros(cfg.layers, batch, W, cfg.kv_heads, cfg.hd)
+        c["v"] = zeros(cfg.layers, batch, W, cfg.kv_heads, cfg.hd)
+    if has_ssm(cfg):
+        s = cfg.ssm
+        c["ssm"] = zeros(cfg.layers, batch, s.heads, s.state, s.head_dim,
+                         dtype=torch.float32)
+    if cfg.encoder is not None:
+        S_enc = cfg.encoder.seq_len
+        c["ck"] = zeros(cfg.layers, batch, S_enc, cfg.kv_heads, cfg.hd)
+        c["cv"] = zeros(cfg.layers, batch, S_enc, cfg.kv_heads, cfg.hd)
+    return c
+
+
+def _layer_cache(cache: Dict[str, torch.Tensor], i: int,
+                 keys: Tuple[str, ...]) -> Optional[Dict[str, torch.Tensor]]:
+    """Layer i's slices of the cache leaves ``keys`` (views, written in
+    place), or None when the cache has none."""
+    return {k: cache[k][i] for k in keys} if keys[0] in cache else None
+
+
+def _steps(params: Params, cfg: ModelConfig, x: torch.Tensor,
+           cache: Dict[str, torch.Tensor], idx: torch.Tensor,
+           positions: torch.Tensor,
+           enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The decoder layers over x at cache offset ``idx`` (0-d or (B,)),
+    each writing its cache slices in place; returns the last rows'
+    normed hidden state (B, 1, d)."""
+    ssm = cache.get("ssm")
+    for i, lp in enumerate(params["layers"]):
+        x, _ = _block(lp, x, cfg, ssm_state=ssm[i] if ssm is not None
+                      else None, enc_out=enc_out,
+                      xcache=_layer_cache(cache, i, ("ck", "cv")),
+                      positions=positions,
+                      cache=_layer_cache(cache, i, ("k", "v")),
+                      cache_index=idx)
+    return L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+
+
+def prefill(params: Params, cfg: ModelConfig, tokens,
+            cache: Dict[str, torch.Tensor], *, enc_embeds=None,
+            patch_embeds=None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill (B, S) prompts into a fresh :func:`init_cache` cache: their
+    K/V go in at 0..S-1 (a ring keeps the last W), the SSM state of each
+    row runs from the cache's, and with an encoder ``enc_embeds`` are
+    encoded and each layer's cross K/V written to "ck"/"cv" in the cache's
+    type.  As in the JAX layer, the prefill's cross-attention reads the
+    unrounded cross K/V, a prompt on a ring its own unrounded K/V, and any
+    other self-attention the cache it has just written.  Returns (last-token
+    logits (B, V), cache); the next cache index is S."""
+    check_block(cfg)
+    dev = _device(params)
+    x = _embed(params, cfg, tokens, patch_embeds)
+    enc_out = _encoded(params, cfg, enc_embeds)
+    positions = torch.arange(x.shape[1], device=dev)
+    idx0 = torch.zeros((), dtype=torch.long, device=dev)
+    x = _steps(params, cfg, x, cache, idx0, positions, enc_out)
+    return L.unembed(params["embed"], x)[:, 0], cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens,
+                cache: Dict[str, torch.Tensor], cache_index
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step: ``tokens`` (B, 1) at ``cache_index``, a scalar
+    (every row at one offset) or (B,) (each row at its own, continuous
+    batching) -> (logits (B, V), cache).  Cross-attention reads the cross
+    K/V that :func:`prefill` cached, cast to the compute type.  Given
+    tensors on the params' device, the step reads its index there and does
+    no host work and no host-device copy, so a CUDA graph can capture it
+    once and replay it on new contents of the same tensors."""
+    dev = _device(params)
+    x = L.embed(params["embed"], _long(tokens, dev), _dtype(cfg))
+    idx = _long(cache_index, dev)
+    positions = idx[:, None] if idx.dim() == 1 else idx.reshape(1)
+    x = _steps(params, cfg, x, cache, idx, positions, None)
+    return L.unembed(params["embed"], x)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +396,9 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, page_size: int,
     pool {"k", "v"} of shape (layers, num_blocks, page_size, kv_heads, hd),
     bf16 by default as in the JAX package, block 0 the garbage block; SSM
     configs get the per-slot recurrent state "ssm" (layers, batch, heads,
-    state, hd) in f32.  An SSM-only config holds no k/v pool."""
-    check_block(cfg)
+    state, hd) in f32.  An SSM-only config holds no k/v pool; an
+    encoder-decoder config is refused, as in the JAX package."""
+    check_paged(cfg)
     dev = resolve_device(device)
     c: Dict[str, torch.Tensor] = {}
     if has_attn(cfg):
@@ -244,11 +424,6 @@ def paged_copy_block(cache: Dict[str, torch.Tensor], src: int,
         if key in cache:
             cache[key][:, int(dst)] = cache[key][:, int(src)]
     return cache
-
-
-def _layer_kv(cache: Dict[str, torch.Tensor], i: int
-              ) -> Optional[Dict[str, torch.Tensor]]:
-    return {"k": cache["k"][i], "v": cache["v"][i]} if "k" in cache else None
 
 
 def paged_prefill_step(params: Params, cfg: ModelConfig,
@@ -278,7 +453,8 @@ def paged_prefill_step(params: Params, cfg: ModelConfig,
     for i, lp in enumerate(params["layers"]):
         x, _ = _block(
             lp, x, cfg, ssm_state=ssm[i] if ssm is not None else None,
-            ssm_rows=slot, positions=positions, cache=_layer_kv(cache, i),
+            ssm_rows=slot, positions=positions,
+            cache=_layer_cache(cache, i, ("k", "v")),
             cache_index=idx, block_tables=block_table, lengths=lens)
     x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache
@@ -327,7 +503,8 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, lp in enumerate(params["layers"]):
         x, _ = _block(
             lp, x, cfg, ssm_state=ssm[i, :B] if ssm is not None else None,
-            ssm_mask=active, positions=positions, cache=_layer_kv(cache, i),
+            ssm_mask=active, positions=positions,
+            cache=_layer_cache(cache, i, ("k", "v")),
             cache_index=idx, block_tables=block_tables, lengths=lens)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x)[:, 0], cache

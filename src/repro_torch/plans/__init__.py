@@ -1,7 +1,7 @@
 """Traced warm sets and serve-plan artifacts of the port.
 
-- :mod:`repro_torch.plans.trace`  — the exact (family, data) warm set the
-  port's paged serve path dispatches
+- :mod:`repro_torch.plans.trace`  — the exact (family, data) warm sets the
+  port's paged serve path and its non-paged steps dispatch
 - :mod:`repro_torch.plans.serde`  — ``PLAN_FORMAT_VERSION``-stamped,
   byte-deterministic payloads of the port's own kind
 - :mod:`repro_torch.plans.store`  — ``<root>/plans/<config>/serve-v<V>-
@@ -11,7 +11,8 @@
 """
 from .serde import PLAN_FORMAT_VERSION, PLAN_KIND, PlanEntry, ServePlan
 from .store import PlanStore, resolve_env_store
-from .trace import TracedOp, chunk_lengths, op_label, trace_warm_set
+from .trace import (TracedOp, chunk_lengths, op_label, trace_steps_warm_set,
+                    trace_warm_set)
 from .loader import (StalePlanError, StalePlanWarning, apply_serve_plan,
                      build_serve_plan, load_serve_plan, plan_staleness,
                      table_digest, warm_from_plan)
@@ -19,7 +20,8 @@ from .loader import (StalePlanError, StalePlanWarning, apply_serve_plan,
 __all__ = [
     "PLAN_FORMAT_VERSION", "PLAN_KIND", "PlanEntry", "ServePlan",
     "PlanStore", "resolve_env_store",
-    "TracedOp", "chunk_lengths", "op_label", "trace_warm_set",
+    "TracedOp", "chunk_lengths", "op_label", "trace_steps_warm_set",
+    "trace_warm_set",
     "StalePlanError", "StalePlanWarning",
     "apply_serve_plan", "build_serve_plan", "load_serve_plan",
     "plan_staleness", "table_digest", "warm_from_plan",

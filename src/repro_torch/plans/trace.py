@@ -1,4 +1,6 @@
-"""Trace the exact kernel warm set the port's paged serve path dispatches.
+"""Trace the exact kernel warm set the port's serve paths dispatch: the
+paged engine's (:func:`trace_warm_set`) and the non-paged steps'
+(:func:`trace_steps_warm_set`).
 
 The port's ops key dispatch on each call's own shape, as the JAX ops do, so
 the warm set must hold exactly the shapes the port's model asks for — the
@@ -24,8 +26,23 @@ per expert, as the JAX trace keys them; the model launches each through
 K1's batched entry over all E experts (:meth:`TracedOp.experts`).
 
 C ranges over the scheduler's quantized chunk lengths: ``prefill_chunk``
-and every power of two below it (capped by ``max_len``).  Nothing is
-executed — this is an abstract walk of the step over shapes.
+and every power of two below it (capped by ``max_len``).
+
+The non-paged steps (``models.transformer.prefill`` and ``decode_step``,
+whisper's only serve path) of a batch of B prompts of S tokens ask for:
+
+- **encode** (an encoder config): every encoder layer's projections and
+  MLP at ``M = B·S_enc``, its attention core at ``SQ = S_enc`` (one launch
+  over all rows), where the JAX trace lists ``M = S_enc``;
+- **prefill**: each decoder layer's requests at ``M = B·S``, its cores at
+  ``SQ = S``; the cross-attention's q and out projections at ``M = B·S``,
+  its K/V projection over the encoder output at ``M = B·S_enc``, its core
+  at ``SQ`` = each run of at most S_enc queries; the lm_head at ``M = B``;
+- **decode step**: the layers at ``M = B``, every core at ``SQ = 1``, the
+  cross-attention's q and out projections (its K/V are cached) and the
+  lm_head at ``M = B``.
+
+Nothing is executed — this is an abstract walk of the step over shapes.
 """
 from __future__ import annotations
 
@@ -34,7 +51,8 @@ from typing import Dict, Iterator, List, Tuple
 
 from ..models.config import ModelConfig
 from ..models.moe import MOE_GROUP_SIZE, capacity
-from ..models.transformer import check_block, has_attn, has_mlp, has_ssm
+from ..models.transformer import (check_block, check_paged, has_attn,
+                                  has_mlp, has_ssm)
 
 
 def op_label(family: str, data: Dict[str, int]) -> str:
@@ -135,17 +153,55 @@ def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,
            {"M": max_batch, "N": cfg.vocab, "K": cfg.d_model})
 
 
-def trace_warm_set(cfg: ModelConfig, *, max_len: int = 512,
-                   max_batch: int = 8, prefill_chunk: int = 32
-                   ) -> List[TracedOp]:
-    """The config's paged serve warm set: ordered, deduplicated by
-    (family, data), deterministic."""
-    check_block(cfg)
+def _cross_requests(cfg: ModelConfig, M: int, SQ: int, kv_rows: int,
+                    prefix: str
+                    ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+    """A whisper decoder layer's cross-attention over ``M`` token rows of
+    ``SQ`` queries a sequence: q and out projections, the K/V projection
+    over ``kv_rows`` encoder rows (none at decode: they are cached), and
+    the core at each query run of at most S_enc."""
+    d, hd, sk = cfg.d_model, cfg.hd, cfg.encoder.seq_len
+    yield (f"{prefix}.xattn.q_proj", "matmul_h100",
+           {"M": M, "N": cfg.heads * hd, "K": d})
+    if kv_rows:
+        yield (f"{prefix}.xattn.kv_proj", "matmul_h100",
+               {"M": kv_rows, "N": cfg.kv_heads * hd, "K": d})
+    yield (f"{prefix}.xattn.out_proj", "matmul_h100",
+           {"M": M, "N": d, "K": cfg.heads * hd})
+    for run in sorted({min(sk, SQ - s) for s in range(0, SQ, sk)},
+                      reverse=True):
+        yield (f"{prefix}.xattn.core", "flash_attention_h100",
+               {"SQ": run, "HD": hd, "GROUP": cfg.heads // cfg.kv_heads,
+                "HK": cfg.kv_heads})
+
+
+def _iter_step_requests(cfg: ModelConfig, *, batch: int, prompt_len: int
+                        ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+    enc = cfg.encoder
+    enc_rows = batch * enc.seq_len if enc is not None else 0
+    if enc is not None:
+        yield from _layer_requests(cfg, enc_rows, enc.seq_len, "serve.encode")
+    pre = f"serve.prefill@{prompt_len}"
+    yield from _layer_requests(cfg, batch * prompt_len, prompt_len, pre)
+    if enc is not None:
+        yield from _cross_requests(cfg, batch * prompt_len, prompt_len,
+                                   enc_rows, pre)
+    yield (f"{pre}.lm_head", "matmul_h100",
+           {"M": batch, "N": cfg.vocab, "K": cfg.d_model})
+    yield from _layer_requests(cfg, batch, 1, "serve.decode")
+    if enc is not None:
+        yield from _cross_requests(cfg, batch, 1, 0, "serve.decode")
+    yield ("serve.decode.lm_head", "matmul_h100",
+           {"M": batch, "N": cfg.vocab, "K": cfg.d_model})
+
+
+def _dedup(requests: Iterator[Tuple[str, str, Dict[str, int]]]
+           ) -> List[TracedOp]:
+    """Ordered, deduplicated by (family, data), each op with every site
+    asking for it."""
     out: List[TracedOp] = []
     index: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], int] = {}
-    for site, family, data in _iter_requests(
-            cfg, max_len=max_len, max_batch=max_batch,
-            prefill_chunk=prefill_chunk):
+    for site, family, data in requests:
         items = tuple(sorted((k, int(v)) for k, v in data.items()))
         key = (family, items)
         at = index.get(key)
@@ -158,3 +214,26 @@ def trace_warm_set(cfg: ModelConfig, *, max_len: int = 512,
             out[at] = TracedOp(label=prev.label, family=prev.family,
                                data=prev.data, sites=prev.sites + (site,))
     return out
+
+
+def trace_warm_set(cfg: ModelConfig, *, max_len: int = 512,
+                   max_batch: int = 8, prefill_chunk: int = 32
+                   ) -> List[TracedOp]:
+    """The config's paged serve warm set: ordered, deduplicated by
+    (family, data), deterministic.  An encoder-decoder config is refused:
+    the paged path does not serve it."""
+    check_paged(cfg)
+    return _dedup(_iter_requests(cfg, max_len=max_len, max_batch=max_batch,
+                                 prefill_chunk=prefill_chunk))
+
+
+def trace_steps_warm_set(cfg: ModelConfig, *, batch: int, prompt_len: int,
+                         max_len: int) -> List[TracedOp]:
+    """The warm set of the non-paged steps for ``batch`` prompts of
+    ``prompt_len`` tokens prefilled into a cache of ``max_len`` and then
+    decoded: ordered, deduplicated by (family, data), deterministic."""
+    check_block(cfg)
+    if not 0 < prompt_len <= max_len:
+        raise ValueError(f"prompt length {prompt_len} not in 1..{max_len}")
+    return _dedup(_iter_step_requests(cfg, batch=batch,
+                                      prompt_len=prompt_len))

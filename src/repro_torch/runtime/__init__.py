@@ -11,7 +11,8 @@ from typing import Dict
 
 _EXPORTS: Dict[str, str] = {
     # steps
-    "greedy_sample": "steps",
+    "build_serve_steps": "steps", "greedy_sample": "steps",
+    "warm_steps_dispatch": "steps",
     # ft
     "StragglerMonitor": "ft", "TrainController": "ft",
     "elastic_mesh_shape": "ft",

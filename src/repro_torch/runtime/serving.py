@@ -158,7 +158,7 @@ from .graph import CapturedStep, CudaGraph, StepGraphs
 from .kv_pool import GARBAGE_BLOCK, PagedKVPool
 from .monitor import KernelMonitor
 from .scheduler import Request, Scheduler, SeqState, TickPlan
-from .steps import greedy_sample
+from .steps import freeze_traced, greedy_sample
 
 
 def warm_kernel_dispatch(cfg: ModelConfig, *,
@@ -196,16 +196,10 @@ def warm_kernel_dispatch(cfg: ModelConfig, *,
                                strict=strict_plans)
         if picks is not None:
             return picks
-    ops = trace_warm_set(cfg, max_len=max_len, max_batch=max_batch,
-                         prefill_chunk=prefill_chunk)
-    plan = cache.freeze(
-        [(FAMILIES[op.family], machine, op.data_dict()) for op in ops])
-    picks: Dict[str, Any] = {}
-    for op in ops:
-        ent = plan.get(op.family, machine.name, op.data_dict())
-        picks[op.label] = {"candidate": ent.candidate,
-                           "rank_source": ent.source}
-    return picks
+    return freeze_traced(trace_warm_set(cfg, max_len=max_len,
+                                        max_batch=max_batch,
+                                        prefill_chunk=prefill_chunk),
+                         machine)
 
 
 @dataclass
@@ -276,6 +270,9 @@ class ServeEngine:
                  clock: faults.Clock = faults.default_clock,
                  machine: MachineDescription = H100_SXM,
                  device: DeviceLike = None):
+        if cfg.encoder is not None:
+            raise ValueError("ServeEngine does not serve encoder-decoder "
+                             "configs")
         if async_depth < 1:
             raise ValueError(f"async_depth must be >= 1: {async_depth}")
         check_block(cfg)

@@ -663,7 +663,8 @@ COPIES = ("runtime/ft", "runtime/faults", "runtime/kv_pool",
           "runtime/scheduler", "artifacts/serde", "artifacts/store",
           "plans/store", "configs/llama3_8b", "configs/granite_3_8b",
           "configs/yi_6b", "configs/qwen1p5_4b", "configs/chameleon_34b",
-          "configs/llama4_scout_17b_a16e", "configs/kimi_k2_1t_a32b")
+          "configs/llama4_scout_17b_a16e", "configs/kimi_k2_1t_a32b",
+          "configs/whisper_large_v3")
 
 
 def _code(path) -> str:

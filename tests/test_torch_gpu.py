@@ -798,21 +798,23 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
 # serve plans
 # ---------------------------------------------------------------------------
 
+def _to(node, dev):
+    """A parameter tree (dicts, lists, tensors) copied to ``dev``."""
+    if isinstance(node, dict):
+        return {k: _to(v, dev) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to(v, dev) for v in node]
+    return node.to(dev)
+
+
 def _f32_engine(arch, dev, seed=5, **kw):
     """An f32 smoke engine on ``dev`` with weights made on the CPU (the
     same weights on either device)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_model
     from repro_torch.runtime import ServeEngine
-
-    def to(node):
-        if isinstance(node, dict):
-            return {k: to(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to(v) for v in node]
-        return node.to(dev)
     cfg = get_smoke_config(arch).scaled(dtype="float32")
-    params = to(init_model(cfg, seed=seed, device="cpu"))
+    params = _to(init_model(cfg, seed=seed, device="cpu"), dev)
     for k, v in dict(max_batch=3, max_len=64, page_size=4,
                      prefill_chunk=8).items():
         kw.setdefault(k, v)
@@ -1071,3 +1073,87 @@ def test_gpu_launcher_tunes_a_quick_table(cuda, tmp_path):
     assert cache.rank_source(fam, H100_SXM, data) == "measured"
     cache.best_variant(fam, H100_SXM, data)
     assert cache.stats.measured_hits > 0
+
+
+# ---------------------------------------------------------------------------
+# whisper and the non-paged serve steps on the card
+# ---------------------------------------------------------------------------
+
+def _steps_tokens(cfg, params, device, toks, extra, graph=False):
+    """Greedy tokens of the non-paged steps (prefill, then 5 decode steps
+    at a (B,) index), the decode steps eager or replayed from one CUDA
+    graph."""
+    from repro_torch.models import init_cache
+    from repro_torch.runtime import build_serve_steps, greedy_sample
+    from repro_torch.runtime.graph import CudaGraph, StepGraphs
+    B, S = toks.shape
+    prefill_step, decode_one = build_serve_steps(cfg)
+    cache = init_cache(cfg, B, S + 8, device=device)
+    last, _ = prefill_step(params, toks, cache,
+                           **{k: v.to(device) for k, v in extra.items()})
+    tok = greedy_sample(last)
+    idx = torch.full((B,), S, dtype=torch.int32, device=device)
+
+    def body():
+        logits, _ = decode_one(params, tok, cache, idx)
+        tok.copy_(greedy_sample(logits))
+        idx.add_(1)
+
+    out = [tok.clone()]
+    step = body
+    graphs = None
+    if graph:
+        graphs = StepGraphs(lambda: CudaGraph(torch.cuda.graph_pool_handle()))
+        step = graphs.capture("decode", body)
+    for _ in range(5):
+        step()
+        out.append(tok.clone())
+    if graphs is not None:
+        assert step.replays == 5
+        graphs.release()
+    return torch.cat(out, 1).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "hymba_1p5b"])
+def test_gpu_non_paged_steps_equal_cpu(cuda, arch):
+    """The f32 smoke config through the non-paged steps on the card, the
+    decode steps eager and replayed from a CUDA graph, gives the CPU plain
+    versions' tokens (whisper: encoder, cross cache; hymba: its ring of 32
+    wrapped by a 30-token prompt)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_model
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    params = init_model(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 30))
+    extra = {}
+    if cfg.encoder is not None:
+        extra["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
+    want = _steps_tokens(cfg, params, "cpu", toks, extra)
+    gp = _to(params, cuda)
+    assert _steps_tokens(cfg, gp, cuda, toks, extra) == want
+    assert _steps_tokens(cfg, gp, cuda, toks, extra, graph=True) == want
+
+
+@pytest.mark.gpu
+def test_gpu_cross_attention_longer_than_its_context(cuda):
+    """40 queries over whisper's 32-frame smoke context run in two launches
+    of the paged entry (32 and 8) and match the CPU plain versions."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import forward, init_model
+    cfg = get_smoke_config("whisper_large_v3").scaled(dtype="float32")
+    params = init_model(cfg, seed=4, device="cpu")
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (2, 40))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
+    want, _ = forward(params, cfg, toks, enc_embeds=frames)
+    n0 = flash_attention_h100.launches
+    got, _ = forward(_to(params, cuda), cfg, toks,
+                     enc_embeds=frames.to(cuda))
+    torch.cuda.synchronize()
+    # encoder 2 layers, decoder 2 layers of self (1) and cross (2) launches
+    assert flash_attention_h100.launches == n0 + 2 + 2 * 3
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

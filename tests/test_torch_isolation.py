@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
 its copies of the observability package ``repro_torch.obs``, the fault
 harness, the disk tier, the serve plans, the MoE layer, the config
-modules, the tuning package and the kernel monitor included."""
+modules (whisper-large-v3's too), the non-paged serve steps, the tuning
+package and the kernel monitor included."""
 import os
 import pathlib
 import re
@@ -37,7 +38,9 @@ assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
         "repro_torch.configs.kimi_k2_1t_a32b",
         "repro_torch.tuning.measure", "repro_torch.tuning.calibrate",
         "repro_torch.tuning.compact", "repro_torch.runtime.monitor",
-        "repro_torch.launch.tune_artifacts"} <= set(names), names
+        "repro_torch.launch.tune_artifacts",
+        "repro_torch.configs.whisper_large_v3", "repro_torch.runtime.steps",
+        "repro_torch.plans.trace"} <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 assert all(sys.modules[m] is None for m in bad), bad

@@ -161,8 +161,10 @@ def test_decode_skips_rows_not_decoding(model):
 
 def test_attention_core_takes_kv_heads_unbroadcast(model, monkeypatch):
     """K2 gets the config's KV heads as they are (no ``repeat_interleave``
-    to the query heads) on the no-cache path (``_core``) and the paged path
-    (the pools' KV heads), and the logits still match the JAX model's."""
+    to the query heads) on the no-cache path (the rows' K/V read as a pool
+    of one block a row) and the paged path (the pools' KV heads), one launch
+    of the paged entry a layer on each, and the logits still match the JAX
+    model's."""
     from repro_torch.kernels import ops
     cfg, jp, tcfg, tp = model
     seen, paged = [], []
@@ -192,9 +194,9 @@ def test_attention_core_takes_kv_heads_unbroadcast(model, monkeypatch):
     tl, _ = tm.paged_prefill_chunk(tp, tcfg, toks[:1, :6], tc, 0, bt, 0)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert tcfg.kv_heads < tcfg.heads
-    assert seen and set(seen) == {(tcfg.heads, tcfg.kv_heads,
-                                   tcfg.kv_heads)}
-    assert len(paged) == tcfg.layers and set(paged) == set(seen)
+    assert not seen and set(paged) == {(tcfg.heads, tcfg.kv_heads,
+                                        tcfg.kv_heads)}
+    assert len(paged) == 2 * tcfg.layers
 
 
 def test_init_model_seeded_and_bf16():
@@ -439,11 +441,28 @@ def test_new_configs_equal_jax_configs(arch, which):
 
 
 def test_whisper_is_refused_by_name():
-    with pytest.raises(ValueError, match="not ported yet"):
-        tconfigs.get_config("whisper-large-v3")
-    cfg = jconfigs.get_smoke_config("whisper_large_v3")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tm.init_model(cfg, device="cpu")
+    """What stays refused of whisper: ``init_model`` takes it (encoder
+    layers, ``enc_ln_f`` and cross-attention in every decoder layer), but
+    ``from_jax_params`` refuses its tree under a config without the
+    encoder, naming the leaves it does not expect, and a config with one
+    whose tree lacks them."""
+    cfg = tconfigs.get_smoke_config("whisper-large-v3").scaled(
+        dtype="float32")
+    params = tm.init_model(cfg, device="cpu")
+    assert len(params["enc_layers"]) == cfg.encoder.layers
+    assert "enc_ln_f" in params
+    assert all({"lnx", "xattn"} <= set(lp) for lp in params["layers"])
+    assert not any("xattn" in lp for lp in params["enc_layers"])
+    jcfg = jconfigs.get_smoke_config("whisper_large_v3").scaled(
+        dtype="float32")
+    jparams, _ = jm.init_model(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, jparams)
+    bare = dataclasses.replace(cfg, encoder=None)
+    with pytest.raises(ValueError, match="enc_layers.*no encoder"):
+        from_jax_params(tree, bare, device="cpu")
+    with pytest.raises(ValueError, match="lacks"):
+        from_jax_params({k: v for k, v in tree.items() if k != "enc_ln_f"},
+                        cfg, device="cpu")
 
 
 @pytest.mark.parametrize("arch,patches", [(a, False) for a in NEW_ARCHS]

@@ -110,18 +110,36 @@ def test_engine_without_warmup_resolves_cold_once_per_shape(weights,
 
 
 @pytest.mark.parametrize("kw", [dict(monitor=True)])
-def test_later_slices_are_refused_by_name(weights, kw):
+def test_later_slices_are_refused_by_name(weights, kw, monkeypatch):
     """The engine takes every option of the JAX engine, the kernel monitor
-    (the last one ported) included; what the port still refuses is refused
-    by name: whisper-large-v3, which the JAX engine does not serve
-    either."""
+    (the last one ported) included; what it refuses, it refuses as the JAX
+    package does: whisper-large-v3, an encoder-decoder, which the engine
+    (``ValueError``), the paged cache and trace, and the launcher
+    (``SystemExit``) turn away; it is served through the non-paged
+    steps."""
+    import sys
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import init_paged_cache
+    from repro_torch.plans.trace import trace_warm_set
     _, _, tcfg, tp = weights
     eng = ServeEngine(tcfg, tp, device="cpu", warm_kernels=True,
                       plan_store=False, **ENGINE, **kw)
     assert eng.monitor is not None and eng.monitor.stats.probes == 0
-    with pytest.raises(ValueError, match="whisper-large-v3.*not ported yet"):
-        get_config("whisper-large-v3")
+    wcfg = get_smoke_config("whisper-large-v3").scaled(dtype="float32")
+    assert get_config("whisper-large-v3").encoder.seq_len == 1500
+    with pytest.raises(ValueError, match="ServeEngine does not serve "
+                                         "encoder-decoder configs"):
+        ServeEngine(wcfg, init_model(wcfg, device="cpu"), device="cpu",
+                    **ENGINE, **kw)
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        init_paged_cache(wcfg, 4, 8, 2, device="cpu")
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        trace_warm_set(wcfg)
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "whisper-large-v3",
+                                      "--device", "cpu"])
+    with pytest.raises(SystemExit, match="enc-dec serving"):
+        launcher.main()
 
 
 def test_async_depth_below_one_raises(weights):
