@@ -240,6 +240,36 @@ no phase is caught.
    each of the ten archs through the non-paged steps (default bf16 cache,
    a (B,) index; prompts of 28 tokens, so hymba's ring of 32 wraps) on
    the card and on the CPU from the same weights: equal greedy tokens.
+13. training (``runtime/steps.py`` ``build_train_step``: K1 forward and
+   backward over K4's transposes, K2 forward, K2b backward), on split
+   workspaces of its own after every engine is closed.  (a) K2b
+   (``flash_attention_bwd_h100``) through the pick of each key of
+   ``BWD_SIGNATURES`` (llama3-8b's training key, whisper's encoder,
+   cross-attention of 64 queries over 1500 keys, ragged lengths with a 0
+   row, window 256), bf16 and f32: held against its plain version and
+   against ``torch.autograd`` of K2's paged plain version, a 0 row all
+   zeros, two launches bit for bit; timed eagerly and as device time
+   beside the plain version and SDPA's backward (a yardstick) and its
+   bound (2.5 times the forward's flops of the visible pairs at the
+   peak of the inputs' type, or the bytes).  (b) llama3-8b at full width,
+   4 of 32 layers (reduced: depth only), bf16 compute, f32 masters and
+   AdamW state: 6 steps of 8 x 1024 ``SyntheticLM`` tokens in 2
+   microbatches after ``warm_train_dispatch``; each step's loss and
+   grad_norm (finite), host and CUDA-event time, its launches against the
+   step's products and cores (K1 3·(7L+1)·mb, K4 2·(7L+1)·mb, K2 L·mb,
+   K2b 2·L·mb), 0 cold builds; tokens/s, model flops against the bf16
+   peak, peak memory; a checkpoint of step 3 (``CheckpointManager``,
+   async) restored and steps 3-4 replayed with losses equal bit for bit,
+   then step 5 replayed under ``torch.profiler`` (device time by kernel,
+   its loss equal too).  (c) whisper-large-v3 at full width, 4 + 4 layers,
+   2 rows of 1500 frames and 64 tokens, two steps: finite losses, times,
+   launches.  (d) One f32 train step of the five dense smoke configs and
+   whisper's on the card against the CPU (tolerances at
+   ``phase_train_parity``).  Every launch counter is set to 0 just before
+   (b) and (c) and read just after; their launch signatures are then
+   timed as phase 9 times a pick (K2b's of (a) and K4's of phase 6 keep
+   their rows), and (b) and (c) are main paths of K1, K2, K4 and K2b in
+   the kernels' line (``by_paths`` "training").
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -323,6 +353,13 @@ Tolerances, kernel against plain version on the same inputs:
 - Jacobi, rtol = atol = 1e-5 (the JAX test's): both add the left pair
   first and divide by 3 as IEEE says, so the error printed should be 0;
   the tolerance allows the one-bit roundings of a reciprocal multiply.
+- attention backward (K2b), against its plain version and autograd: each
+  gradient within 2e-2 (bf16) or 1e-4 (f32) of its largest element, and
+  of itself.  All compute in f32; in bf16 each gradient is rounded once
+  (2^-8 of an element), and autograd of the plain forward rounds its
+  intermediate casts too; in f32 only the order of sums differs (FMA over
+  tiles of keys and queries against whole-row products, ``expf`` against
+  ``torch.exp``).
 
 TF32 is off for the plain versions (``allow_tf32 = False``), so their f32
 products on the card are full f32.
@@ -398,6 +435,10 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                     "src/repro/kernels/matadd.py:37"),
     "jacobi1d_h100": ("src/repro_torch/csrc/jacobi1d.cu",
                       "src/repro/kernels/jacobi1d.py:51"),
+    # K2b: the JAX package has no kernel backward (it differentiates einsum
+    # attention); this is the backward of K2's function
+    "flash_attention_bwd_h100": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                 "src/repro/kernels/flash_attention.py:75"),
 }
 SERVE_KERNELS = ("matmul_h100", "matmul_h100_batched", "flash_attention_h100",
                  "ssd_scan_h100")
@@ -515,6 +556,12 @@ def work(name: str, sig) -> tuple:
                 + R * masked + 4 * R * (srows > 0)
                 + state_bytes * (2 if with_state else 1),
                 5.0 * R * S * H * n * hd, peak)
+    if name == "flash_attention_bwd_h100":    # 2.5 times the forward's flops
+        rows, h, hk, sq, page, d, _, _, causal, window, _ = sig
+        pairs = sum(int(_visible(sq, n, causal, window).sum())
+                    for n in BWD_LENS[sig])
+        return (esz * 4 * rows * d * (h * sq + hk * page) + 8 * rows * h * sq,
+                2.5 * 4.0 * h * pairs * d, PEAK_FLOPS[sig[-1]])
     if sig[0] == "paged":
         _, rows, h, hk, sq, _, d, _, _, _, _, _, causal, window, dtype, kv = sig
         kv_esz = torch.empty((), dtype=kv).element_size()
@@ -3392,6 +3439,528 @@ def phase_steps_parity() -> None:
                                  "differ between the card and the CPU")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+#: K2b's signatures in 13 (a): (label, rows, h, hk, sq, page, d, causal,
+#: window, the rows' lengths or None for full rows).
+BWD_SIGNATURES = (
+    ("llama3-8b training", 4, 32, 8, 1024, 1024, 128, True, None, None),
+    ("whisper encoder", 2, 20, 20, 1500, 1500, 64, False, None, None),
+    ("cross-attention", 2, 20, 20, 64, 1500, 64, False, None, None),
+    ("ragged lengths", 4, 32, 8, 256, 256, 128, True, None,
+     (256, 100, 0, 17)),
+    ("window 256", 2, 32, 8, 1024, 1024, 128, True, 256, None),
+)
+#: K2b against its plain version and autograd: a share of each gradient's
+#: largest element (module docstring).
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: {K2b signature: the rows' lengths it is checked, timed and bound at}
+BWD_LENS = {}
+#: 13 (b): llama3-8b at full width, its depth cut to what one card holds.
+TRAIN_LAYERS = 4
+TRAIN_RUN = dict(seq=1024, batch=8, microbatches=2, steps=6, ckpt_at=3,
+                 lr=1e-4)
+#: 13 (c): whisper-large-v3 at full width, 4 + 4 layers.
+WHISPER_TRAIN = dict(layers=4, batch=2, seq=64, steps=2, lr=3e-4)
+#: 13 (d): the f32 smoke configs, card against CPU.
+TRAIN_PARITY = ("llama3_8b", "granite_3_8b", "yi_6b", "qwen1p5_4b",
+                "chameleon_34b", "whisper_large_v3")
+TRAIN_KERNELS = ("matmul_h100", "transpose_h100", "flash_attention_h100",
+                 "flash_attention_bwd_h100")
+
+
+def held_rel(name: str, got: torch.Tensor, want: torch.Tensor,
+             tol: float) -> float:
+    """Max |got - want|; raises unless every element is within ``tol`` of
+    ``want``'s largest element (and ``tol`` of itself)."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol * scale):
+        raise AssertionError(f"{name}: max_abs_err {err:.3e} outside "
+                             f"{tol} of the largest element {scale:.3e}")
+    return err
+
+
+def bwd_case(sig, gen, *, timed: bool):
+    """K2b at (rows, h, hk, sq, page, d, bq, bkv, causal, window, dtype),
+    the wrapper's ``shapes`` key, each row at its length in ``BWD_LENS``:
+    o from K2's paged plain version; held against K2b's plain version and
+    against ``torch.autograd`` of K2's paged plain version (``BWD_TOL``),
+    a row of length 0 all zeros, two launches bit for bit; timed eagerly
+    and as device time beside the plain version and SDPA's backward (a
+    yardstick: ``torch.autograd.grad`` of SDPA over the same inputs and
+    mask) when ``timed``."""
+    from repro_torch.kernels.flash_attention import flash_attention_paged_plain
+    from repro_torch.kernels.flash_attention_bwd import (
+        _masks, flash_attention_bwd_h100, flash_attention_bwd_plain)
+    R, h, hk, sq, page, d, bq, bkv, causal, window, dtype = sig
+    lens = BWD_LENS[sig]
+    q = torch.randn((R, h, sq, d), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((R, page, hk, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((R, page, hk, d), generator=gen, device=DEV).to(dtype)
+    do = torch.randn((R, h, sq, d), generator=gen, device=DEV).to(dtype)
+    tl = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    tables = torch.arange(R, dtype=torch.int32, device=DEV)[:, None]
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    o = flash_attention_paged_plain(qg, kg, vg, tables, tl, bq=16, bkv=64,
+                                    kv_chunk=4096, causal=causal,
+                                    window=window)
+    auto = torch.autograd.grad(o, (qg, kg, vg), do)
+    o = o.detach()
+    del qg, kg, vg
+    kw = dict(bq=bq, bkv=bkv, causal=causal, window=window)
+
+    def launch():
+        return flash_attention_bwd_h100(q, k, v, o, do, tl, **kw)
+
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K2b {sig}: two launches differ")
+    want = flash_attention_bwd_plain(q, k, v, o, do, tl, **kw)
+    tol = BWD_TOL[dtype]
+    names = ("dq", "dk", "dv")
+    row = {"err": max(held_rel(f"K2b {sig} {n}", g, w, tol)
+                      for n, g, w in zip(names, got, want)),
+           "autograd_err": max(held_rel(f"K2b {sig} {n} against autograd",
+                                        g, a, tol)
+                               for n, g, a in zip(names, got, auto))}
+    for b, n in enumerate(lens):
+        if n == 0:
+            for name, g in zip(names, got):
+                exact(f"K2b {sig} row {b} of length 0 {name}", g[b],
+                      torch.zeros_like(g[b]))
+    del got, again, want, auto
+    if timed:
+        time_into(row, "ms", launch, 5)
+        row["device_ms"] = graph_ms(launch, 5)
+        time_into(row, "plain_ms", lambda: flash_attention_bwd_plain(
+            q, k, v, o, do, tl, **kw), 2)
+        qs = q.detach().requires_grad_()
+        ks, vs = (x.permute(0, 2, 1, 3).contiguous() for x in (k, v))
+        extra = {}
+        if sdpa_gqa():
+            extra["enable_gqa"] = h != hk
+        else:
+            ks, vs = (x.repeat_interleave(h // hk, 1) for x in (ks, vs))
+        ks, vs = ks.requires_grad_(), vs.requires_grad_()
+        full = all(n == page for n in lens) and window is None
+        if full and (not causal or sq == page):
+            mkw = {"is_causal": causal}
+        else:
+            mkw = {"attn_mask": _masks(tl, sq, page, causal, window)}
+        out = F.scaled_dot_product_attention(qs, ks, vs, **mkw, **extra)
+        time_into(row, "library_ms", lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), 5)
+        row["bound_ms"] = max(bound_terms_ms("flash_attention_bwd_h100",
+                                             sig))
+    return row
+
+
+CASES["flash_attention_bwd_h100"] = bwd_case
+
+
+def phase_train_k2b(gen) -> tuple:
+    """(a) K2b through the pick of each signature's key in bf16 and f32;
+    returns (largest error against the plain version, {sig: row})."""
+    from repro_torch.kernels import ops
+    err, rows = 0.0, {}
+    for label, R, h, hk, sq, page, d, causal, window, lens in BWD_SIGNATURES:
+        pick = ops.select("flash_attention_bwd_h100", {
+            "SQ": sq, "HD": d, "GROUP": h // hk, "HK": hk}).assignment
+        for dtype in (torch.bfloat16, torch.float32):
+            sig = (R, h, hk, sq, page, d, pick["bq"], pick["bkv"], causal,
+                   window, dtype)
+            BWD_LENS[sig] = tuple(lens or (page,) * R)
+            row = bwd_case(sig, gen, timed=True)
+            rows[sig] = row
+            err = max(err, row["err"])
+            say(f"[train] (a) K2b {label}, rows {R}, {h} over {hk} heads, "
+                f"sq {sq}, keys {page} (lengths {BWD_LENS[sig]}), d {d}, "
+                f"causal {causal}, window {window}, {dtype}, pick bq "
+                f"{pick['bq']} bkv {pick['bkv']}: {fmt(row)} "
+                f"autograd_err {row['autograd_err']:.3e}; two launches "
+                f"equal bit for bit")
+            torch.cuda.empty_cache()
+    return err, rows
+
+
+def _train_counts(cfg, mb: int) -> dict:
+    """Launches a train step of an ``attn_mlp`` config (and whisper's
+    encoder-decoder) makes: each K1 product of the forward and its dA and
+    dB, two K4 transposes a product, one K2 and one K2b (two kernels) an
+    attention core, a microbatch each."""
+    prods = 7 * cfg.layers + 1
+    cores = cfg.layers
+    if cfg.encoder is not None:
+        prods += 7 * cfg.encoder.layers + 4 * cfg.layers
+        cores += cfg.encoder.layers + cfg.layers
+    return {"matmul_h100": 3 * prods * mb, "transpose_h100": 2 * prods * mb,
+            "flash_attention_h100": cores * mb,
+            "flash_attention_bwd_h100": 2 * cores * mb}
+
+
+def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:
+    """One train step: (params, opt_state, metrics as floats, host s,
+    CUDA-event ms)."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    params, opt_state, m = step_fn(params, opt_state, batch, step)
+    end.record()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    return (params, opt_state, {k: float(v) for k, v in m.items()}, host,
+            start.elapsed_time(end))
+
+
+def _profile_step(fn) -> str:
+    """One call of ``fn`` under ``torch.profiler``: device ms by kernel
+    group (K1, K4, K2, K2b, the rest) and the rest's largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    groups = {"K1": ("matmul_kernel",), "K4": ("transpose_",),
+              "K2": ("flash_kernel", "combine_kernel"),
+              "K2b": ("fa_bwd_",)}
+    sums = {g: 0.0 for g in list(groups) + ["other"]}
+    other = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        if not (e.count and t):
+            continue
+        g = next((g for g, keys in groups.items()
+                  if any(s in e.key for s in keys)), "other")
+        sums[g] += t / 1e3
+        if g == "other":
+            other[e.key[:50]] = other.get(e.key[:50], 0.0) + t / 1e3
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
+    return (f"device ms by kernel (profiler, one step): total "
+            f"{sum(sums.values()):.1f}; "
+            + ", ".join(f"{g} {t:.1f}" for g, t in sums.items())
+            + "; largest other: " + "; ".join(f"{n} {t:.1f}"
+                                              for n, t in top))
+
+
+def _model_flops(cfg, rows: int, seq: int) -> float:
+    """A train step's model flops over ``rows`` rows of ``seq`` tokens: 6
+    flops a token per weight of every product (forward, dA, dB) and the
+    causal attention's 4·h·d a visible pair, 3 times (forward, K2b's
+    2.5 rounded up by its recomputed scores)."""
+    d, hd, nh, nk = cfg.d_model, cfg.hd, cfg.heads, cfg.kv_heads
+    per_layer = d * (nh + 2 * nk) * hd + nh * hd * d + 3 * d * cfg.d_ff
+    weights = cfg.layers * per_layer + d * cfg.vocab
+    pairs = seq * (seq + 1) // 2
+    return (6.0 * weights * rows * seq
+            + 3 * 4.0 * nh * hd * pairs * rows * cfg.layers)
+
+
+def _train_lens(shapes) -> None:
+    """Every row of a training launch at its full length: the lengths the
+    timing of its K2 and K2b signatures reads."""
+    for sig in shapes["flash_attention_h100"]:
+        PAGED_LENS.setdefault(sig, (sig[7],) * sig[1])
+    for sig in shapes["flash_attention_bwd_h100"]:
+        BWD_LENS.setdefault(sig, (sig[4],) * sig[0])
+
+
+def _count_reset(kernels) -> None:
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+        k.shapes.clear()
+
+
+def phase_train_llama(gen) -> dict:
+    """(b) llama3-8b at full width, ``TRAIN_LAYERS`` of 32 layers: bf16
+    compute, f32 masters and AdamW state, ``TRAIN_RUN``'s steps on
+    ``SyntheticLM``, every kernel through the dispatch's frozen picks (0
+    cold after ``warm_train_dispatch``); launches a step against
+    :func:`_train_counts`; a checkpoint after ``ckpt_at`` steps, restored,
+    and the next steps replayed bit for bit; one more step under the
+    profiler.  Every launch counter is set to 0 just before the path and
+    read just after.  Returns the path's record."""
+    import tempfile
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import adamw, tree_leaves, warmup_cosine
+    from repro_torch.runtime import build_train_step, warm_train_dispatch
+
+    run = TRAIN_RUN
+    cfg = get_config("llama3_8b").scaled(layers=TRAIN_LAYERS)
+    rows = run["batch"] // run["microbatches"]
+    stats = get_default_cache().stats
+    t0 = time.perf_counter()
+    picks = warm_train_dispatch(cfg, global_batch=run["batch"],
+                                seq=run["seq"],
+                                microbatches=run["microbatches"])
+    say(f"[train] (b) warm_train_dispatch: {len(picks)} (family, key) "
+        f"pairs frozen in {time.perf_counter() - t0:.2f} s")
+    cold0 = stats.cold_builds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_train_state(cfg, seed=0, device=DEV)
+    # the launcher's schedule (launch/train.py)
+    opt = adamw(warmup_cosine(run["lr"], 10, run["steps"]))
+    opt_state = opt.init(params)
+    step_fn = build_train_step(cfg, opt, microbatches=run["microbatches"])
+    n = sum(t.numel() for t in tree_leaves(params))
+    state_gb = (_nbytes(params) + _nbytes(opt_state)) / 1e9
+    say(f"[train] (b) {cfg.name} at full width (d {cfg.d_model}, "
+        f"{cfg.heads} over {cfg.kv_heads} heads, ffn {cfg.d_ff}, vocab "
+        f"{cfg.vocab}), {cfg.layers} of 32 layers (reduced: depth only), "
+        f"bf16 compute, f32 masters: {n / 1e9:.3f} B parameters; state "
+        f"(masters and AdamW's two moments) {state_gb:.2f} GB, with f32 "
+        f"gradients {16 * n / 1e9:.2f} GB reckoned")
+    ds = SyntheticLM(DataConfig(cfg.vocab, run["seq"], run["batch"],
+                                seed=0))
+    batches = [{k: torch.from_numpy(v).to(DEV)
+                for k, v in ds.batch_at(s).items()}
+               for s in range(run["steps"])]
+    kernels = _counters(TRAIN_KERNELS)
+    want = _train_counts(cfg, run["microbatches"])
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    ckpt = CheckpointManager(ckpt_dir, keep=1)
+    losses, host, dev_ms = [], [], []
+    _count_reset(kernels)
+    t_run = time.perf_counter()
+    for step in range(run["steps"]):
+        if step == run["ckpt_at"]:
+            t0 = time.perf_counter()
+            ckpt.save_async(step, (params, opt_state))
+            say(f"[train] (b) checkpoint of step {step}: host copy "
+                f"{time.perf_counter() - t0:.2f} s (written in the "
+                f"background)")
+        c0 = {n_: k.launches for n_, k in kernels.items()}
+        params, opt_state, m, h, ev = _step_timed(step_fn, params, opt_state,
+                                                  batches[step], step)
+        got = {n_: k.launches - c0[n_] for n_, k in kernels.items()}
+        if got != want:
+            raise AssertionError(f"step {step} launches {got}, expected "
+                                 f"{want}")
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"step {step}: non-finite {m}")
+        losses.append(m["loss"])
+        host.append(h)
+        dev_ms.append(ev)
+        say(f"[train] (b) step {step}: loss {m['loss']!r} nll "
+            f"{m['nll']!r} grad_norm {m['grad_norm']!r}; host "
+            f"{1e3 * h:.1f} ms, CUDA events {ev:.1f} ms")
+    wall = time.perf_counter() - t_run
+    launches = {n_: k.launches for n_, k in kernels.items()}
+    shapes = {n_: dict(k.shapes) for n_, k in kernels.items()}
+    _train_lens(shapes)
+    cold = stats.cold_builds - cold0
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    tokens = run["batch"] * run["seq"]
+    med = sorted(dev_ms[1:])[len(dev_ms[1:]) // 2]
+    flops = _model_flops(cfg, run["batch"], run["seq"])
+    say(f"[train] (b) {run['steps']} steps of {run['batch']} x "
+        f"{run['seq']} tokens, {run['microbatches']} microbatches: "
+        f"{wall:.2f} s; median step (after the first) {med:.1f} ms of "
+        f"CUDA-event time, {tokens / med * 1e3:.1f} tokens/s; model flops "
+        f"{flops / 1e12:.2f} T a step, {flops / med / 1e9:.1f} TFLOP/s, "
+        f"{100 * flops / (med * 1e-3) / PEAK_FLOPS[torch.bfloat16]:.2f} % "
+        f"of the bf16 dense peak (989 TFLOP/s); peak device memory "
+        f"{peak:.2f} GB (torch.cuda.max_memory_allocated); launches a "
+        f"step {json.dumps(want)}; launches {json.dumps(launches)}; cold "
+        f"dispatch builds after warm-up: {cold}")
+    if cold:
+        raise AssertionError(f"{cold} dispatches resolved cold after warm-up")
+    if not losses[-1] < losses[0]:
+        say(f"[train] (b) note: loss did not fall over {run['steps']} "
+            f"steps ({losses[0]!r} -> {losses[-1]!r})")
+
+    # restart: restore the checkpoint and replay the steps after it
+    t0 = time.perf_counter()
+    step0, restored = ckpt.restore_latest((params, opt_state))
+    restore_s = time.perf_counter() - t0
+    if step0 != run["ckpt_at"]:
+        raise AssertionError(f"restored step {step0}")
+    params, opt_state = restored
+    del restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    replay = []
+    for step in range(step0, run["steps"] - 1):
+        params, opt_state, m, _, _ = _step_timed(step_fn, params, opt_state,
+                                                 batches[step], step)
+        replay.append(m["loss"])
+    if replay != losses[step0:run["steps"] - 1]:
+        raise AssertionError(f"replayed losses {replay} differ from "
+                             f"{losses[step0:run['steps'] - 1]}")
+    say(f"[train] (b) restart: checkpoint of step {step0} restored in "
+        f"{restore_s:.2f} s (read, CRC32, to the card); steps "
+        f"{step0}..{run['steps'] - 2} replayed: losses {replay} equal the "
+        f"uninterrupted run's bit for bit")
+    last = run["steps"] - 1
+    out = {}
+
+    def profiled():
+        out["m"] = step_fn(params, opt_state, batches[last], last)[2]
+
+    say(f"[train] (b) step {last} replayed under torch.profiler: "
+        f"{_profile_step(profiled)}")
+    if float(out["m"]["loss"]) != losses[last]:
+        raise AssertionError("the profiled step's loss differs")
+    del params, opt_state, batches, out
+    import shutil
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
+            "launches": launches, "shapes": shapes}
+
+
+def phase_train_whisper(gen) -> dict:
+    """(c) whisper-large-v3 at full width, ``WHISPER_TRAIN``'s layers of
+    32 + 32, rows of 1500 seeded frames and 64-token prompts: finite losses
+    and step times.  Counters as in (b)."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import adamw, constant
+    from repro_torch.runtime import build_train_step, warm_train_dispatch
+    import dataclasses
+    run = WHISPER_TRAIN
+    base_cfg = get_config("whisper_large_v3")
+    cfg = base_cfg.scaled(layers=run["layers"], encoder=dataclasses.replace(
+        base_cfg.encoder, layers=run["layers"]))
+    stats = get_default_cache().stats
+    warm_train_dispatch(cfg, global_batch=run["batch"], seq=run["seq"])
+    cold0 = stats.cold_builds
+    params = init_train_state(cfg, seed=0, device=DEV)
+    opt = adamw(constant(run["lr"]))
+    opt_state = opt.init(params)
+    step_fn = build_train_step(cfg, opt)
+    ds = SyntheticLM(DataConfig(cfg.vocab, run["seq"], run["batch"],
+                                seed=0))
+    kernels = _counters(TRAIN_KERNELS)
+    want = _train_counts(cfg, 1)
+    _count_reset(kernels)
+    t0 = time.perf_counter()
+    for step in range(run["steps"]):
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in ds.batch_at(step).items()}
+        batch["enc_embeds"] = torch.randn(
+            (run["batch"], cfg.encoder.seq_len, cfg.d_model), generator=gen,
+            device=DEV)
+        c0 = {n_: k.launches for n_, k in kernels.items()}
+        params, opt_state, m, h, ev = _step_timed(step_fn, params, opt_state,
+                                                  batch, step)
+        got = {n_: k.launches - c0[n_] for n_, k in kernels.items()}
+        if got != want or not math.isfinite(m["loss"]):
+            raise AssertionError(f"whisper step {step}: launches {got} "
+                                 f"(expected {want}), metrics {m}")
+        say(f"[train] (c) {cfg.name}, {cfg.encoder.layers} + {cfg.layers} "
+            f"of 32 + 32 layers (reduced: depth only), {run['batch']} rows "
+            f"of 1500 frames and {run['seq']} tokens, step {step}: loss "
+            f"{m['loss']!r} grad_norm {m['grad_norm']!r}; host "
+            f"{1e3 * h:.1f} ms, CUDA events {ev:.1f} ms")
+    wall = time.perf_counter() - t0
+    launches = {n_: k.launches for n_, k in kernels.items()}
+    shapes = {n_: dict(k.shapes) for n_, k in kernels.items()}
+    _train_lens(shapes)
+    cold = stats.cold_builds - cold0
+    say(f"[train] (c) launches {json.dumps(launches)}; cold dispatch "
+        f"builds after warm-up: {cold}")
+    if cold:
+        raise AssertionError(f"{cold} dispatches resolved cold after warm-up")
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
+            "launches": launches, "shapes": shapes}
+
+
+def phase_train_parity() -> None:
+    """(d) One f32 train step (AdamW, microbatches 2) of each smoke config
+    of ``TRAIN_PARITY`` on the card against the CPU plain versions from the
+    same state: the loss at rtol 1e-5, grad_norm at 1e-4 (sums in another
+    order); the updated parameters within 1e-6, but for at most one
+    element in a thousand, which may differ by up to 2·lr where its
+    gradient rounds to the other sign (AdamW moves every element by about
+    ±lr whatever the gradient's size)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import adamw, constant, tree_leaves
+    from repro_torch.runtime import build_train_step
+    lr = 1e-3
+    for arch in TRAIN_PARITY:
+        cfg = get_smoke_config(arch).scaled(dtype="float32")
+        rng = np.random.default_rng(5)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)),
+                 "labels": rng.integers(0, cfg.vocab, (4, 32))}
+        if cfg.encoder is not None:
+            batch["enc_embeds"] = rng.standard_normal(
+                (4, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+        out = {}
+        for dev in ("cpu", DEV):
+            params = _to(init_train_state(cfg, seed=2, device="cpu"), dev)
+            opt = adamw(constant(lr))
+            tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            params, _, m = build_train_step(cfg, opt, microbatches=2)(
+                params, opt.init(params), tb, 0)
+            out[dev] = ({k: float(v) for k, v in m.items()},
+                        [p.detach().cpu() for p in tree_leaves(params)])
+        (gm, gp), (wm, wp) = out[DEV], out["cpu"]
+        flips = total = 0
+        worst = 0.0
+        for g, w in zip(gp, wp):
+            diff = (g - w).abs()
+            worst = max(worst, float(diff.max()))
+            flips += int((diff > 1e-6).sum())
+            total += diff.numel()
+        ok = (math.isclose(gm["loss"], wm["loss"], rel_tol=1e-5)
+              and math.isclose(gm["grad_norm"], wm["grad_norm"],
+                               rel_tol=1e-4)
+              and worst <= 2 * lr + 1e-6 and flips <= total / 1000)
+        say(f"[train] (d) {cfg.name} f32, one step on the card against the "
+            f"CPU: loss {gm['loss']!r} vs {wm['loss']!r}, grad_norm "
+            f"{gm['grad_norm']!r} vs {wm['grad_norm']!r}, parameters: "
+            f"largest difference {worst:.3e}, {flips} of {total} past 1e-6")
+        if not ok:
+            raise AssertionError(f"{cfg.name}: the card's train step differs "
+                                 "from the CPU's")
+
+
+def phase_train(gen) -> tuple:
+    """Phase 13, on split workspaces of its own (no engine's graph holds
+    them): (a) K2b; (b) llama3-8b training; (c) whisper-large-v3 training;
+    (d) the smoke configs' train steps, card against CPU.  Returns (K2b's
+    largest error, K2b's rows, the two training paths' records)."""
+    from repro_torch.kernels.workspace import scratch
+    with scratch():
+        t0 = time.perf_counter()
+        err, rows = phase_train_k2b(gen)
+        say(f"[train] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths = [phase_train_llama(gen)]
+        say(f"[train] (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.append(phase_train_whisper(gen))
+        say(f"[train] (c) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_train_parity()
+        say(f"[train] (d) {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+    return err, rows, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -3460,6 +4029,21 @@ def main() -> int:
                                   timed=rows, before="phase 9").items():
         rows[name].update(row)
     say(f"[whisper] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    errs["flash_attention_bwd_h100"], bwd_rows, train_paths = phase_train(gen)
+    train = _group_shapes(train_paths, TRAIN_KERNELS)
+    # the training paths' signatures timed as phase 9 times a pick (K2b's
+    # of 13 (a) and K4's of phase 6 keep their rows)
+    timed = {**rows, "transpose_h100": cases["rows"]["transpose_h100"],
+             "flash_attention_bwd_h100": bwd_rows}
+    for name, row in phase_shapes(train, gen, timed=timed,
+                                  before="phase 6, 9, 12 or 13 (a)"
+                                  ).items():
+        rows.setdefault(name, {}).update(row)
+    train_sums = launch_sums(train, rows)
+    say(f"[train] kernel time over the training paths' launches: "
+        f"{_sums_line(train_sums)}")
+    say(f"[train] phase {time.perf_counter() - t0:.1f} s")
     # the three paths PR 19 served, the six PR 20 added, whisper, and all
     groups = {"mamba2, hymba, llama3": paths[:len(PATHS)],
               "six new": paths[len(PATHS):-1], "whisper": paths[-1:],
@@ -3484,8 +4068,22 @@ def main() -> int:
         f"{_sums_line(case_sums)}")
     launches.update(cases["launches"])
     shapes.update(cases["shapes"])
-    rows.update(cases["rows"])
+    for name, row in cases["rows"].items():
+        rows.setdefault(name, {}).update(row)
     totals.update(case_sums)
+    # the training paths (phase 13 (b) and (c)) are main paths of K1, K2,
+    # K4 and K2b: their launches and sums go into the kernels' lines
+    for name in TRAIN_KERNELS:
+        launches[name] = launches.get(name, 0) + sum(
+            p["launches"][name] for p in train_paths)
+        merged = dict(shapes.get(name, {}))
+        for sig, n in train[name].items():
+            merged[sig] = merged.get(sig, 0) + n
+        shapes[name] = merged
+        before = totals.get(name)
+        totals[name] = dict(train_sums[name]) if before is None else {
+            k: (None if v is None or train_sums[name][k] is None
+                else v + train_sums[name][k]) for k, v in before.items()}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -3498,15 +4096,24 @@ def main() -> int:
                "bound_by": "bytes" if _bytes_bound(name, shapes)
                else "operations",
                "library_ms": t["library_ms"]}
+        by_paths = {}
         if name in SERVE_KERNELS:
             # the three engine paths of PR 19, the six of PR 20 and
             # whisper's non-paged steps, each apart
-            row["by_paths"] = {
+            by_paths = {
                 g: {"launches": sum(paths_shapes[g][name].values()),
                     **{k: sums[g][name][k] for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "library_ms")}}
                 for g in ("mamba2, hymba, llama3", "six new", "whisper")}
+        if name in TRAIN_KERNELS:
+            by_paths["training"] = {
+                "launches": sum(p["launches"][name] for p in train_paths),
+                **{k: train_sums[name][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms",
+                    "library_ms")}}
+        if by_paths:
+            row["by_paths"] = by_paths
         kernels.append(row)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
@@ -3516,11 +4123,11 @@ def main() -> int:
     return 0
 
 
-def _group_shapes(paths) -> dict:
+def _group_shapes(paths, names=SERVE_KERNELS) -> dict:
     """{kernel: {signature: launches}} summed over ``paths``."""
-    out = {n: {} for n in SERVE_KERNELS}
+    out = {n: {} for n in names}
     for p in paths:
-        for n in SERVE_KERNELS:
+        for n in names:
             for sig, k in p["shapes"][n].items():
                 out[n][sig] = out[n].get(sig, 0) + k
     return out

@@ -53,6 +53,12 @@ DEFAULT_DATA_GRIDS: Dict[str, List[Dict[str, int]]] = {
                              for hd, g, hk in ((128, 4, 8), (64, 5, 5))],
     "ssd_scan_h100": [{"SQ": sq, "HD": 64, "STATE": st}
                       for sq in (1, 32, 256) for st in (128, 16)],
+    # the training keys: llama3-8b at seq 1024, whisper's encoder (1500
+    # frames) and its decoder's cross-attention at 64 tokens
+    "flash_attention_bwd_h100": [
+        {"SQ": 1024, "HD": 128, "GROUP": 4, "HK": 8},
+        {"SQ": 1500, "HD": 64, "GROUP": 1, "HK": 20},
+        {"SQ": 64, "HD": 64, "GROUP": 1, "HK": 20}],
 }
 
 

@@ -1,0 +1,87 @@
+"""Gradients through the port's kernels: ``torch.autograd.Function``s whose
+forward and backward are kernels of the port.
+
+The JAX package differentiates einsum math (ROADMAP F3); the port's forward
+launches K1 and K2 through ``ctypes``, which autograd cannot see, and a
+plain version never runs on a CUDA tensor.  So:
+
+- :class:`MatmulFn`: C = A·B through K1 (f32 out); its backward is K1
+  again, dA = dC·Bᵀ and dB = Aᵀ·dC, with each transposed operand made by K4
+  (``transpose_h100``, bit-exact).  K1 takes two operands of one type, so
+  dC is cast to the operands' type first, as the JAX bf16 einsum's
+  cotangent is bf16; the gradients come back in the operands' type.
+- :class:`AttentionFn`: K2's paged entry over a batch's K/V read as a pool
+  of one block a row (the table ``[[b]]``); it saves q, k, v, o and the
+  lengths, and its backward is K2b (``flash_attention_bwd_h100``).  A real
+  paged pool (any other table) is refused: K2b reads the rows' own K/V.
+
+On CPU tensors the same functions run the kernels' plain versions, as every
+wrapper does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import ops
+
+
+class MatmulFn(torch.autograd.Function):
+    """C[M, N] = A[M, K]·B[K, N] in f32 (K1), differentiable."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return ops.matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, dc: torch.Tensor):
+        a, b = ctx.saved_tensors
+        dc = dc.to(a.dtype).contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ops.matmul(dc, ops.transpose(b)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = ops.matmul(ops.transpose(a), dc).to(b.dtype)
+        return da, db
+
+
+def _identity_tables(rows: int, device) -> torch.Tensor:
+    return torch.arange(rows, dtype=torch.int32, device=device)[:, None]
+
+
+class AttentionFn(torch.autograd.Function):
+    """K2 over q [rows, h, sq, d] and each row's own K/V k, v [rows, page,
+    hk, d] up to its length ``lens`` [rows] (int32, on the device), queries
+    ends-aligned; the backward is K2b.  ``tables`` None is the table
+    ``[[b]]``; a table given is checked to be it (one host read), and any
+    other, a paged pool K2b cannot differentiate, raises."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                tables: Optional[torch.Tensor], lens: torch.Tensor,
+                causal: bool, window: Optional[int]) -> torch.Tensor:
+        rows = q.shape[0]
+        if tables is not None and (
+                tuple(tables.shape) != (rows, 1) or k.shape[0] != rows
+                or not torch.equal(tables.cpu(),
+                                   _identity_tables(rows, "cpu"))):
+            raise ValueError("attention backward takes a pool of one block "
+                             "a row (the table [[b]]); a paged pool has no "
+                             "backward")
+        if k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError(f"attention backward needs q, k, v of one "
+                            f"type: {q.dtype}, {k.dtype}, {v.dtype}")
+        o = ops.paged_attention(q, k, v, _identity_tables(rows, q.device),
+                                lens, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lens)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        q, k, v, o, lens = ctx.saved_tensors
+        dq, dk, dv = ops.attention_bwd(q, k, v, o, do.contiguous(), lens,
+                                       causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None

@@ -20,6 +20,7 @@ from ..artifacts.dispatch import get_default_cache
 from ..core.params import H100_SXM, MachineDescription
 from ..core.select import Candidate
 from .flash_attention import FAMILY as FLASH_FAMILY
+from .flash_attention_bwd import FAMILY as FLASH_BWD_FAMILY
 from .jacobi1d import FAMILY as JACOBI_FAMILY
 from .matadd import FAMILY as MATADD_FAMILY
 from .matmul import FAMILY as MATMUL_FAMILY
@@ -27,7 +28,8 @@ from .ssd_scan import FAMILY as SSD_FAMILY
 from .transpose import FAMILY as TRANSPOSE_FAMILY
 
 FAMILIES = {f.name: f for f in (MATMUL_FAMILY, MATADD_FAMILY, JACOBI_FAMILY,
-                                TRANSPOSE_FAMILY, FLASH_FAMILY, SSD_FAMILY)}
+                                TRANSPOSE_FAMILY, FLASH_FAMILY, SSD_FAMILY,
+                                FLASH_BWD_FAMILY)}
 
 
 def select(family_name: str, data: Mapping[str, int],
@@ -113,13 +115,32 @@ def paged_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     queries ends-aligned at len − 1 (K2's paged entry, one launch for all
     rows).  Keyed on (SQ, HD, GROUP, HK) as :func:`flash_attention`, through
     the same frozen lane."""
+    fn = get_default_cache().warm_callable(
+        FLASH_FAMILY, machine, attention_key(q, k), q.device.type)
+    return fn.paged(q, k, v, tables, lens, causal=causal, window=window)
+
+
+def attention_key(q: torch.Tensor, k: torch.Tensor
+                  ) -> Tuple[Tuple[str, int], ...]:
+    """K2's and K2b's dispatch key of q [rows, h, sq, d] over a pool k
+    [num_blocks, page, hk, d]: (SQ, HD, GROUP, HK)."""
     h, d = q.shape[1], q.shape[3]
     hk = k.shape[2]
+    return (("SQ", q.shape[2]), ("HD", d), ("GROUP", h // hk), ("HK", hk))
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, do: torch.Tensor, lens: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  machine: MachineDescription = H100_SXM
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`paged_attention` over a pool of one block a
+    row (the table ``[[b]]``): q, o, dO [rows, h, sq, d], k, v [rows, page,
+    hk, d], ``lens`` [rows] int32 on the device (K2b), keyed on K2's (SQ,
+    HD, GROUP, HK), through the same frozen lane."""
     fn = get_default_cache().warm_callable(
-        FLASH_FAMILY, machine,
-        (("SQ", q.shape[2]), ("HD", d), ("GROUP", h // hk), ("HK", hk)),
-        q.device.type)
-    return fn.paged(q, k, v, tables, lens, causal=causal, window=window)
+        FLASH_BWD_FAMILY, machine, attention_key(q, k), q.device.type)
+    return fn(q, k, v, o, do, lens, causal=causal, window=window)
 
 
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

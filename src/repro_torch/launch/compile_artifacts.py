@@ -30,7 +30,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--family", action="append", default=None,
                     help="kernel family to compile (repeatable; default "
-                         "all six)")
+                         "all seven)")
     ap.add_argument("--machine", action="append", default=None,
                     choices=sorted(MACHINES),
                     help="target machine (repeatable; default h100_sxm and "

@@ -1,0 +1,125 @@
+"""Training launcher of the port: the JAX launcher's loop on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --smoke --steps 100 --device cpu          # plain versions, CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --layers 4 --seq-len 1024 --global-batch 8 --microbatches 2 \
+        --steps 6                                  # full width, on the card
+
+The flags are the JAX launcher's (``repro.launch.train``), plus
+``--device`` (default: the card) and ``--layers``, which cuts the depth of
+the config (and of whisper's encoder) to fit one card: llama3-8b's training
+state is 16 bytes a parameter (f32 masters, gradients, AdamW's two
+moments), 128 GB at its 32 layers.  The loop: the stateless
+``SyntheticLM`` batches, the train step (K1, K4, K2 and K2b on the card),
+``warmup_cosine(lr, 10, steps)``, async checkpoints every ``--ckpt-every``
+steps under ``--ckpt-dir`` and a resume from the newest, the
+``TrainController``'s restart on failure.  Whisper's ``enc_embeds`` come
+from a ``torch.Generator`` seeded by (seed, step): not the JAX launcher's
+numbers.  The dense ``attn_mlp`` configs and whisper-large-v3 train; the
+``ssm``, ``hybrid`` and ``attn_moe`` configs are refused.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import tempfile
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.device import resolve_device
+from repro_torch.launch.specs import grad_dtype_for
+from repro_torch.models import init_train_state
+from repro_torch.optim import make_optimizer, warmup_cosine
+from repro_torch.runtime import (TrainController, build_train_step,
+                                 warm_train_dispatch)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-trainable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--ckpt-dir", type=str, default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "kernels' plain versions)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (decoder and encoder) to fit one "
+                         "card")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        kw = {"layers": args.layers}
+        if cfg.encoder is not None:
+            kw["encoder"] = dataclasses.replace(cfg.encoder,
+                                                layers=args.layers)
+        cfg = cfg.scaled(**kw)
+    dev = resolve_device(args.device)
+    opt = make_optimizer(cfg.optimizer,
+                         warmup_cosine(args.lr, 10, args.steps))
+    step_fn = build_train_step(cfg, opt, microbatches=args.microbatches,
+                               grad_dtype=grad_dtype_for(cfg))
+    params = init_train_state(cfg, seed=args.seed, device=dev)
+    opt_state = opt.init(params)
+    warm_train_dispatch(cfg, global_batch=args.global_batch,
+                        seq=args.seq_len, microbatches=args.microbatches)
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                                global_batch=args.global_batch,
+                                seed=args.seed))
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+
+    def run_step(state, step):
+        params, opt_state = state
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in ds.batch_at(step).items()}
+        if cfg.encoder is not None:
+            g = torch.Generator(device=dev)
+            g.manual_seed(args.seed * 1_000_003 + step)
+            batch["enc_embeds"] = torch.randn(
+                (args.global_batch, cfg.encoder.seq_len, cfg.d_model),
+                generator=g, device=dev)
+        params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+        return (params, opt_state), {k: float(v) for k, v in metrics.items()}
+
+    # resume if a checkpoint exists
+    start = 0
+    restored_step, restored = ckpt.restore_latest((params, opt_state))
+    if restored is not None:
+        params, opt_state = restored
+        start = restored_step
+        print(f"resumed from step {start}")
+
+    ctl = TrainController(run_step, ckpt, ckpt_every=args.ckpt_every)
+    t0 = time.time()
+    (params, opt_state), hist = ctl.run(
+        (params, opt_state), start_step=start, num_steps=args.steps)
+    dt = time.time() - t0
+
+    for h in hist[::max(1, len(hist) // (args.steps // args.log_every or 1))]:
+        print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
+              f"gnorm {h['grad_norm']:.3f}  {h['step_time_s']*1e3:.0f}ms")
+    toks = args.steps * args.global_batch * args.seq_len
+    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+             else "cpu")
+    print(f"done: {len(hist)} steps on {where}, {toks/dt:.0f} tok/s, "
+          f"final loss {hist[-1]['loss']:.4f}")
+
+
+if __name__ == "__main__":
+    main()

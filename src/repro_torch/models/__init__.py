@@ -1,12 +1,14 @@
 """LM substrate of the port: config, functional layers, model assembly."""
 from .config import ModelConfig
-from .transformer import (decode_step, encode, forward, init_cache,
-                          init_model, init_paged_cache, paged_copy_block,
+from .transformer import (check_train, decode_step, encode, forward,
+                          init_cache, init_model, init_paged_cache,
+                          init_train_state, paged_copy_block,
                           paged_decode_step, paged_prefill_chunk,
                           paged_prefill_step, prefill)
 
 __all__ = [
-    "ModelConfig", "decode_step", "encode", "forward", "init_cache",
-    "init_model", "init_paged_cache", "paged_copy_block", "paged_decode_step",
-    "paged_prefill_chunk", "paged_prefill_step", "prefill",
+    "ModelConfig", "check_train", "decode_step", "encode", "forward",
+    "init_cache", "init_model", "init_paged_cache", "init_train_state",
+    "paged_copy_block", "paged_decode_step", "paged_prefill_chunk",
+    "paged_prefill_step", "prefill",
 ]

@@ -24,16 +24,26 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.autograd import AttentionFn, MatmulFn
 from .config import ModelConfig
 
 Params = Dict[str, Any]
+
+
+def recording(*ts: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``ts``: the kernels then run
+    through their autograd functions (:mod:`repro_torch.kernels.autograd`),
+    and otherwise, on every serve path, through ``ops`` as they always
+    have."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] through K1; the result takes x's type, as the
     JAX einsum over ``w.astype(x.dtype)`` does."""
     lead = x.shape[:-1]
-    y = ops.matmul(x.reshape(-1, x.shape[-1]).contiguous(), w.to(x.dtype))
+    a, b = x.reshape(-1, x.shape[-1]).contiguous(), w.to(x.dtype)
+    y = MatmulFn.apply(a, b) if recording(a, b) else ops.matmul(a, b)
     return y.to(x.dtype).reshape(*lead, w.shape[1])
 
 
@@ -85,21 +95,29 @@ def _rows_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by one launch of K2's paged entry (the lengths stay on the device).  K2
     takes at most P queries a launch: a longer non-causal, unwindowed
     attention (cross-attention over a short context) runs its queries in
-    runs of at most P, which are independent rows of the softmax."""
+    runs of at most P, which are independent rows of the softmax.  While
+    autograd records, each launch goes through ``AttentionFn`` (K2 forward,
+    K2b backward) and ``torch.cat`` joins the runs."""
     B, Sq = q.shape[:2]
     P = k.shape[1]
     tables = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
     qh = q.permute(0, 2, 1, 3).contiguous()
+    grad = recording(q, k, v)
+
+    def core(qr, causal, window):
+        if grad:
+            return AttentionFn.apply(qr, k, v, None, lens, causal, window)
+        return ops.paged_attention(qr, k, v, tables, lens, causal=causal,
+                                   window=window)
+
     if Sq <= P:
-        out = ops.paged_attention(qh, k, v, tables, lens, causal=causal,
-                                  window=window)
+        out = core(qh, causal, window)
     elif causal or window is not None:
         raise ValueError(f"{Sq} queries over {P} keys: only a non-causal, "
                          "unwindowed attention takes more queries than keys")
     else:
-        out = torch.cat([ops.paged_attention(
-            qh[:, :, s:s + P].contiguous(), k, v, tables, lens,
-            causal=False, window=None) for s in range(0, Sq, P)], dim=2)
+        out = torch.cat([core(qh[:, :, s:s + P].contiguous(), False, None)
+                         for s in range(0, Sq, P)], dim=2)
     return out.permute(0, 2, 1, 3)
 
 

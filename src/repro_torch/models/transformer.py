@@ -7,11 +7,15 @@ FFN, :mod:`.moe`), ``ssm`` (attention-free Mamba-2 SSD) and ``hybrid``
 decoder block).  Parameters are a dict ``{"embed": {"tok", "out"},
 "layers": [per-layer dicts], "ln_f": {"scale"}}``, with ``"enc_layers"``
 and ``"enc_ln_f"`` for an encoder; the JAX package stacks layers on a
-leading axis and scans them, the port keeps a list and loops.  Weights (>= 2-D) are held in the compute dtype, norm scales and
-biases in f32: the JAX forward casts every weight to ``x.dtype`` before use,
-so the numbers are the same and a bf16 model takes half the memory.  The
-one exception is the SSM decay projection ``wa``, which the JAX layer runs
-in f32 from f32 weights whatever the compute type: it stays f32.
+leading axis and scans them, the port's serve tree keeps a list and loops.
+The training state (:func:`init_train_state`) keeps the JAX layout, f32
+masters stacked [L, ...], which :func:`forward` reads through per-layer
+views (:func:`layer_list`).  The serve tree holds weights (>= 2-D) in the
+compute dtype, norm scales and biases in f32: the JAX forward casts every
+weight to ``x.dtype`` before use, so the numbers are the same and a bf16
+model takes half the memory.  The one exception is the SSM decay
+projection ``wa``, which the JAX layer runs in f32 from f32 weights
+whatever the compute type: it stays f32.
 
 Two serve paths: the non-paged steps (``init_cache``, ``prefill``,
 ``decode_step``: one contiguous cache row a sequence, whisper's only way to
@@ -29,8 +33,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device, torch_dtype
+from ..optim import tree_leaves
 from . import layers as L
 from .config import ModelConfig
 from .moe import check_moe, moe_block
@@ -46,6 +52,25 @@ def check_block(cfg: ModelConfig) -> None:
             "port serves attn_mlp, attn_moe, ssm and hybrid blocks")
     if cfg.block == "attn_moe":
         check_moe(cfg)
+
+
+def check_train(cfg: ModelConfig) -> None:
+    """Raise for a config the port cannot train (on every device): its
+    blocks need kernels without a backward yet (K3, K1's batched entry and
+    the router), or a remat policy no config uses."""
+    check_block(cfg)
+    if cfg.block in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"training the {cfg.block!r} block (config {cfg.name}) needs a "
+            "backward of the SSD scan K3: ROADMAP Queue 1 item 3b")
+    if cfg.block == "attn_moe":
+        raise NotImplementedError(
+            f"training the 'attn_moe' block (config {cfg.name}) needs a "
+            "backward of K1's batched entry, the router and the capacity: "
+            "ROADMAP Queue 1 item 3c")
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat {cfg.remat!r} (config {cfg.name}) "
+                                  "is not ported: 'none' or 'full'")
 
 
 def check_paged(cfg: ModelConfig) -> None:
@@ -89,12 +114,22 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     encoder config also gets cross-attention (``lnx``, ``xattn``) in every
     decoder layer, ``cfg.encoder.layers`` encoder layers and ``enc_ln_f``."""
     check_block(cfg)
-    dev = resolve_device(device)
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    wdt = _dtype(cfg)
+    return _init(cfg, seed, resolve_device(device), _dtype(cfg))
+
+
+def _init(cfg: ModelConfig, seed: int, dev: torch.device,
+          wdt: torch.dtype) -> Params:
+    """:func:`init_model`'s tree with matrices in ``wdt``; on the ``meta``
+    device (no generator lives there) the leaves have shapes and types
+    only."""
+    g = None
+    if dev.type != "meta":
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
 
     def mat(*shape, scale=None, dtype=wdt):
+        if g is None:
+            return torch.empty(shape, device=dev, dtype=dtype)
         w = torch.randn(shape, generator=g, device=dev, dtype=dtype)
         return w.mul_(scale if scale is not None
                       else 1.0 / math.sqrt(max(1, shape[0])))
@@ -157,6 +192,63 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def stack_layers(layers: list) -> Params:
+    """Per-layer dicts -> one dict of leaves stacked on a leading [L] axis
+    (the JAX package's layout)."""
+    return {k: (stack_layers([lp[k] for lp in layers])
+                if isinstance(layers[0][k], dict)
+                else torch.stack([lp[k] for lp in layers]))
+            for k in layers[0]}
+
+
+def init_train_state(cfg: ModelConfig, *, seed: int = 0,
+                     device: DeviceLike = None) -> Params:
+    """Training parameters from a seed: :func:`init_model`'s distributions
+    in the JAX package's training layout, every leaf in ``param_dtype``
+    (f32 masters) and ``layers`` / ``enc_layers`` stacked [L, ...], so the
+    optimizer, the global norm and checkpoint names match the JAX tree's
+    leaf for leaf.  ``device="meta"`` gives shapes only (no allocation).
+    Any config has a state; a train step refuses the configs the port does
+    not train (:func:`check_train`)."""
+    check_block(cfg)
+    params = _init(cfg, seed, resolve_device(device),
+                   torch_dtype(cfg.param_dtype))
+    for key in ("layers", "enc_layers"):
+        if key in params:
+            params[key] = stack_layers(params[key])
+    return params
+
+
+def layer_list(stack, n: int, name: str = "layers") -> list:
+    """The per-layer dicts of a serve tree's list, as it is, or views of a
+    training tree's stacked leaves (``unbind``: no copy, and their gradients
+    land on the stacked leaves as one stack); raises when the depth is not
+    ``n``."""
+    if isinstance(stack, list):
+        return stack
+
+    def leaves(node, path=()):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,), v
+
+    flat = list(leaves(stack))
+    depths = {v.shape[0] for _, v in flat}
+    if depths != {n}:
+        raise ValueError(f"{name} stacked over {sorted(depths)} layers, "
+                         f"the config has {n}")
+    out = [{} for _ in range(n)]
+    for path, v in flat:
+        for i, view in enumerate(torch.unbind(v, 0)):
+            node = out[i]
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = view
+    return out
+
+
 def _device(params: Params) -> torch.device:
     return params["embed"]["tok"].device
 
@@ -216,6 +308,17 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x, aux
 
 
+def _remat(cfg: ModelConfig, lp: Params, x: torch.Tensor, **kw):
+    """:func:`_block` of a full-sequence forward; under ``remat="full"``,
+    while autograd records, through ``torch.utils.checkpoint``: the block's
+    activations are dropped and recomputed (the same kernel launches) in
+    the backward, as ``jax.checkpoint`` does."""
+    if cfg.remat == "full" and L.recording(x, *tree_leaves(lp)):
+        return torch.utils.checkpoint.checkpoint(
+            _block, lp, x, cfg, use_reentrant=False, **kw)
+    return _block(lp, x, cfg, **kw)
+
+
 def _as(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=dev, dtype=dtype)
@@ -251,8 +354,9 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
     dev = _device(params)
     x = _as(enc_embeds, dev, _dtype(cfg))
     positions = torch.arange(x.shape[1], device=dev)
-    for lp in params["enc_layers"]:
-        x, _ = _block(lp, x, cfg, positions=positions, causal=False)
+    for lp in layer_list(params["enc_layers"], cfg.encoder.layers,
+                         "enc_layers"):
+        x, _ = _remat(cfg, lp, x, positions=positions, causal=False)
     return L.rmsnorm(params["enc_ln_f"], x, cfg.norm_eps)
 
 
@@ -277,8 +381,8 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, enc_embeds=None,
     enc_out = _encoded(params, cfg, enc_embeds)
     positions = torch.arange(x.shape[1], device=dev)
     aux = torch.zeros((), dtype=torch.float32, device=dev)
-    for lp in params["layers"]:
-        x, aux_l = _block(lp, x, cfg, positions=positions, enc_out=enc_out)
+    for lp in layer_list(params["layers"], cfg.layers):
+        x, aux_l = _remat(cfg, lp, x, positions=positions, enc_out=enc_out)
         if aux_l is not None:
             aux = aux + aux_l
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)

@@ -42,6 +42,16 @@ whisper's only serve path) of a batch of B prompts of S tokens ask for:
   cross-attention's q and out projections (its K/V are cached) and the
   lm_head at ``M = B``.
 
+A train step (:func:`trace_train_warm_set`) of ``global_batch`` rows of
+``seq`` tokens in ``microbatches`` runs each microbatch of R = global_batch
+/ microbatches rows forward and backward: the layers' requests at ``M =
+R·seq`` (an encoder's at ``M = R·S_enc``, its cores at ``SQ = S_enc``; the
+cross-attention's K/V over ``M = R·S_enc``), the cores at ``SQ = seq``, and
+the lm_head over every token, ``M = R·seq``.  Every K1 request (M, N, K) of
+the forward also asks, in the backward (``kernels/autograd.py``), for dA =
+dC·Bᵀ at (M, K, N) and dB = Aᵀ·dC at (K, N, M), and for K4's transposes of
+B [K, N] and of A [M, K]; every attention core asks for K2b at K2's key.
+
 Nothing is executed — this is an abstract walk of the step over shapes.
 """
 from __future__ import annotations
@@ -51,8 +61,8 @@ from typing import Dict, Iterator, List, Tuple
 
 from ..models.config import ModelConfig
 from ..models.moe import MOE_GROUP_SIZE, capacity
-from ..models.transformer import (check_block, check_paged, has_attn,
-                                  has_mlp, has_ssm)
+from ..models.transformer import (check_block, check_paged, check_train,
+                                  has_attn, has_mlp, has_ssm)
 
 
 def op_label(family: str, data: Dict[str, int]) -> str:
@@ -237,3 +247,45 @@ def trace_steps_warm_set(cfg: ModelConfig, *, batch: int, prompt_len: int,
         raise ValueError(f"prompt length {prompt_len} not in 1..{max_len}")
     return _dedup(_iter_step_requests(cfg, batch=batch,
                                       prompt_len=prompt_len))
+
+
+def _iter_train_requests(cfg: ModelConfig, *, rows: int, seq: int
+                         ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+    """A microbatch's forward requests."""
+    enc = cfg.encoder
+    enc_rows = rows * enc.seq_len if enc is not None else 0
+    if enc is not None:
+        yield from _layer_requests(cfg, enc_rows, enc.seq_len, "train.encode")
+    yield from _layer_requests(cfg, rows * seq, seq, "train.layer")
+    if enc is not None:
+        yield from _cross_requests(cfg, rows * seq, seq, enc_rows,
+                                   "train.layer")
+    yield ("train.lm_head", "matmul_h100",
+           {"M": rows * seq, "N": cfg.vocab, "K": cfg.d_model})
+
+
+def _with_backward(requests: Iterator[Tuple[str, str, Dict[str, int]]]
+                   ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+    """Each forward request, then what its backward asks for."""
+    for site, family, data in requests:
+        yield site, family, data
+        if family == "matmul_h100":
+            M, N, K = data["M"], data["N"], data["K"]
+            yield f"{site}.dA", family, {"M": M, "N": K, "K": N}
+            yield f"{site}.dB", family, {"M": K, "N": N, "K": M}
+            yield f"{site}.wT", "transpose_h100", {"M": K, "N": N}
+            yield f"{site}.xT", "transpose_h100", {"M": M, "N": K}
+        else:
+            yield f"{site}.bwd", "flash_attention_bwd_h100", data
+
+
+def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
+                         microbatches: int = 1) -> List[TracedOp]:
+    """The warm set of a train step: ordered, deduplicated by (family,
+    data), deterministic.  A config the port does not train is refused."""
+    check_train(cfg)
+    if global_batch % microbatches:
+        raise ValueError(f"batch {global_batch} not a multiple of "
+                         f"{microbatches} microbatches")
+    return _dedup(_with_backward(_iter_train_requests(
+        cfg, rows=global_batch // microbatches, seq=seq)))

@@ -1,5 +1,6 @@
-"""Serving runtime of the port: KV pool, scheduler, engine, sampling, fault
-injection, the tick watchdog and the kernel monitor.
+"""Runtime of the port: the train and eval steps, the KV pool, scheduler,
+engine, sampling, fault injection and the restartable training loop, the
+tick watchdog and the kernel monitor.
 
 Exports resolve lazily (PEP 562), as the JAX package's do:
 :mod:`repro_torch.artifacts.store` imports :mod:`repro_torch.runtime.faults`
@@ -11,8 +12,10 @@ from typing import Dict
 
 _EXPORTS: Dict[str, str] = {
     # steps
-    "build_serve_steps": "steps", "greedy_sample": "steps",
-    "warm_steps_dispatch": "steps",
+    "build_eval_step": "steps", "build_serve_steps": "steps",
+    "build_train_step": "steps", "cross_entropy": "steps",
+    "greedy_sample": "steps", "loss_fn": "steps",
+    "warm_steps_dispatch": "steps", "warm_train_dispatch": "steps",
     # ft
     "StragglerMonitor": "ft", "TrainController": "ft",
     "elastic_mesh_shape": "ft",

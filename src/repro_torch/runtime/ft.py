@@ -108,8 +108,13 @@ class TrainController:
 
     def run(self, state: PyTree, *, start_step: int, num_steps: int
             ) -> Tuple[PyTree, List[Dict[str, float]]]:
+        # ft stays the JAX module's copy outside this method
+        from ..checkpoint.manager import host_copy, restore_like
+        from ..device import device_error
         history: List[Dict[str, float]] = []
-        initial = state            # pre-first-checkpoint restarts replay this
+        # pre-first-checkpoint restarts replay this: a host copy, since the
+        # port's train step updates the state in place
+        initial = host_copy(state)
         step = start_step
         retries = 0
         while step < start_step + num_steps:
@@ -134,6 +139,8 @@ class TrainController:
             except KeyboardInterrupt:
                 raise
             except Exception as e:           # noqa: BLE001 — restart path
+                if device_error(e):          # the context may be lost
+                    raise
                 retries += 1
                 if retries > self.max_retries:
                     raise
@@ -146,7 +153,7 @@ class TrainController:
                     # rewinding the step counter alone would re-apply
                     # updates already folded into the live state
                     step = start_step
-                    state = initial
+                    state = restore_like(initial, state)
                 else:
                     state = restored
                     step = restored_step

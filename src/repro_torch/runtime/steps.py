@@ -1,6 +1,14 @@
-"""Step helpers of the port (``runtime/steps.py``): the non-paged serve
-steps, their kernel warm-up, and greedy sampling; the train and eval steps
-come with the training slice.
+"""Step builders of the port (``runtime/steps.py``): the train and eval
+steps, the non-paged serve steps, their kernel warm-up, and greedy
+sampling.
+
+``build_train_step`` is the JAX package's: microbatched gradient
+accumulation in ``grad_dtype``, the mean over the microbatches, global-norm
+clipping, the MoE auxiliary loss and the z-loss in the loss, and the
+optimizer's update.  The port runs the microbatches in a Python loop
+(autograd over K1, K2, K4 and K2b: :mod:`repro_torch.kernels.autograd`)
+and updates the parameters and the optimizer state **in place**: a
+functional update would hold two or three copies of the training state.
 
 ``build_serve_steps(cfg)`` is how whisper-large-v3 is served, as in the JAX
 package (whose engine and launcher refuse encoder-decoder configs):
@@ -20,8 +28,130 @@ from ..artifacts.dispatch import get_default_cache
 from ..core.params import H100_SXM, MachineDescription
 from ..kernels.ops import FAMILIES
 from ..models.config import ModelConfig
-from ..models.transformer import decode_step, prefill
-from ..plans.trace import TracedOp, trace_steps_warm_set
+from ..models.transformer import check_train, decode_step, forward, prefill
+from ..optim import Optimizer, clip_by_global_norm, tree_leaves, tree_map
+from ..plans.trace import (TracedOp, trace_steps_warm_set,
+                           trace_train_warm_set)
+
+MOE_AUX_WEIGHT = 0.01
+Z_LOSS_WEIGHT = 1e-4
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean token NLL and z-loss (log^2 Z), both in f32: (nll, z)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold), torch.mean(torch.square(logz))
+
+
+def _batch_extras(cfg: ModelConfig, batch: Dict[str, Any]) -> Dict:
+    kw = {}
+    if cfg.encoder is not None:
+        kw["enc_embeds"] = batch["enc_embeds"]
+    elif cfg.frontend == "stub" and "patch_embeds" in batch:
+        kw["patch_embeds"] = batch["patch_embeds"]
+    return kw
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, {"nll", "moe_aux", "z"}) of a batch {"tokens", "labels"[,
+    "enc_embeds" | "patch_embeds"]} (tensors or numpy arrays): nll + 0.01 *
+    aux + 1e-4 * z.  While autograd records, the config must be one the
+    port trains (:func:`~repro_torch.models.transformer.check_train`)."""
+    if torch.is_grad_enabled():
+        check_train(cfg)
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          **_batch_extras(cfg, batch))
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    nll, z = cross_entropy(logits, labels)
+    loss = nll + MOE_AUX_WEIGHT * aux + Z_LOSS_WEIGHT * z
+    return loss, {"nll": nll, "moe_aux": aux, "z": z}
+
+
+def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
+                     microbatches: int = 1, clip_norm: float = 1.0,
+                     grad_dtype: torch.dtype = torch.float32) -> Callable:
+    """Returns ``train_step(params, opt_state, batch, step) -> (params,
+    opt_state, metrics)``: ``params`` and ``opt_state`` are updated in
+    place and returned; ``metrics`` {"loss", "nll", "moe_aux",
+    "grad_norm"} are 0-d f32 tensors on the device (no host read).  The
+    batch's rows split into ``microbatches`` consecutive groups; each
+    group's gradients (autograd's, accumulated in the parameters' ``.grad``,
+    or in ``grad_dtype`` accumulators where that differs from a
+    parameter's type) are summed, divided by ``microbatches``, clipped to
+    ``clip_norm`` by their global norm, and handed to ``optimizer.update``.
+    Raises at build time for a config the port does not train."""
+    check_train(cfg)
+
+    def train_step(params, opt_state, batch, step):
+        B = batch["tokens"].shape[0]
+        if B % microbatches:
+            raise ValueError(f"batch {B} not a multiple of {microbatches} "
+                             "microbatches")
+        mb = B // microbatches
+        leaves = tree_leaves(params)
+        native = all(p.dtype == grad_dtype for p in leaves)
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        acc: Dict[int, torch.Tensor] = {}
+        dev = leaves[0].device
+        sums = torch.zeros(3, dtype=torch.float32, device=dev)
+        for i in range(microbatches):
+            mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, metr = loss_fn(params, cfg, mbatch)
+            loss.backward()
+            sums += torch.stack([loss, metr["nll"], metr["moe_aux"]]).detach()
+            if not native:
+                for p in leaves:
+                    g = (p.grad if p.grad is not None
+                         else torch.zeros_like(p)).to(grad_dtype)
+                    acc[id(p)] = g if id(p) not in acc else acc[id(p)].add_(g)
+                    p.grad = None
+        with torch.no_grad():
+            if native:
+                acc = {id(p): p.grad if p.grad is not None
+                       else torch.zeros_like(p) for p in leaves}
+            for g in acc.values():
+                g.div_(microbatches)
+            grads, gnorm = clip_by_global_norm(
+                tree_map(lambda p: acc[id(p)], params), clip_norm)
+            optimizer.update(grads, opt_state, params, step)
+        for p in leaves:
+            p.grad = None
+        sums /= microbatches
+        metrics = {"loss": sums[0], "nll": sums[1], "moe_aux": sums[2],
+                   "grad_norm": gnorm}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def build_eval_step(cfg: ModelConfig) -> Callable:
+    """``eval_step(params, batch) -> {"loss", "nll", "moe_aux", "z"}``,
+    with autograd off."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, metr = loss_fn(params, cfg, batch)
+        return {"loss": loss, **metr}
+    return eval_step
+
+
+def warm_train_dispatch(cfg: ModelConfig, *, global_batch: int, seq: int,
+                        microbatches: int = 1,
+                        machine: MachineDescription = H100_SXM
+                        ) -> Dict[str, Any]:
+    """Freeze every kernel pick a train step over ``global_batch`` rows of
+    ``seq`` tokens in ``microbatches`` asks for
+    (:func:`~repro_torch.plans.trace.trace_train_warm_set`): K1's forward
+    and backward products, K4's transposes, K2 and K2b; after it a step
+    resolves nothing cold."""
+    return freeze_traced(trace_train_warm_set(
+        cfg, global_batch=global_batch, seq=seq,
+        microbatches=microbatches), machine)
 
 
 def build_serve_steps(cfg: ModelConfig) -> Tuple[Callable, Callable]:

@@ -90,6 +90,8 @@ def _block_minima(family_name: str,
             need("N", a["B"] * a["s"] + 2)
         elif family_name == "flash_attention_h100":
             need("SQ", a["bq"])
+        elif family_name == "flash_attention_bwd_h100":
+            need("SQ", max(a["bq"], a["bkv"]))
         elif family_name == "ssd_scan_h100":
             need("SQ", a["chunk"])
     return req
@@ -100,6 +102,7 @@ def _block_minima(family_name: str,
 #: never touches them (measuring a 64-wide head for a 128-wide bucket would
 #: time another tile shape).
 _LAYOUT_DIMS = {"flash_attention_h100": ("HD", "GROUP", "HK"),
+                "flash_attention_bwd_h100": ("HD", "GROUP", "HK"),
                 "ssd_scan_h100": ("HD", "STATE")}
 
 
@@ -182,6 +185,9 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
       heads over HK KV heads of ``FA_KEYS`` keys (SQ if more); at SQ 1 the
       paged entry the decode step launches (one row, ``FA_PAGE``-token
       blocks, the row at its full length), else the dense entry, causal;
+    - ``flash_attention_bwd_h100`` {SQ, HD, GROUP, HK}: bf16, one row of
+      SQ queries of GROUP·HK heads over its own SQ keys, causal, as a
+      training step's self-attention (o and dO drawn as q is);
     - ``ssd_scan_h100`` {SQ, HD, STATE}: one row of ``SSD_PAIRS`` heads,
       x, b, c bf16 with b and c shared across heads, the decay in (0, 1),
       the f32 state updated in place as the serve path does;
@@ -215,6 +221,13 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
         sk = max(FA_KEYS, sq)                 # K2 takes sq <= sk
         return [(normal((h, sq, hd), bf16), normal((hk, sk, hd), bf16),
                  normal((hk, sk, hd), bf16))], {"causal": True}, ""
+    if family_name == "flash_attention_bwd_h100":
+        sq, hd, hk = data["SQ"], data["HD"], data["HK"]
+        h = data["GROUP"] * hk
+        q, o, do = (normal((1, h, sq, hd), bf16) for _ in range(3))
+        k, v = (normal((1, sq, hk, hd), bf16) for _ in range(2))
+        lens = torch.full((1,), sq, dtype=torch.int32, device=device)
+        return [(q, k, v, o, do, lens)], {"causal": True}, ""
     if family_name == "ssd_scan_h100":
         sq, hd, st = data["SQ"], data["HD"], data["STATE"]
         x = normal((1, sq, SSD_PAIRS, hd), bf16)

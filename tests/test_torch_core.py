@@ -667,12 +667,26 @@ COPIES = ("runtime/ft", "runtime/faults", "runtime/kv_pool",
           "configs/whisper_large_v3")
 
 
-def _code(path) -> str:
+#: Methods a copy repairs on purpose, left out of the comparison and held by
+#: tests of their own: ``TrainController.run`` keeps a host copy of the
+#: initial state (the port's train step updates it in place) and re-raises a
+#: CUDA runtime error (tests/test_torch_train.py).
+REPAIRED = {"runtime/ft": ("TrainController", "run")}
+
+
+def _code(path, repaired=None) -> str:
     """The module's AST with docstrings and imports taken out: what a copy
     must keep of the original (every import of these modules is relative,
-    so the imports are equal as well; comments are not in the AST)."""
+    so the imports are equal as well; comments are not in the AST), less
+    the ``repaired`` (class, method)."""
     import ast
     tree = ast.parse(path.read_text())
+    if repaired is not None:
+        cls, meth = repaired
+        for node in tree.body:
+            if isinstance(node, ast.ClassDef) and node.name == cls:
+                node.body = [n for n in node.body if not (
+                    isinstance(n, ast.FunctionDef) and n.name == meth)]
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list):
@@ -691,7 +705,8 @@ def test_pure_python_copies_equal_the_originals(module):
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     orig = src / "repro" / f"{module}.py"
     copy = src / "repro_torch" / f"{module}.py"
-    assert _code(copy) == _code(orig)
+    repaired = REPAIRED.get(module)
+    assert _code(copy, repaired) == _code(orig, repaired)
     imports = {l for l in orig.read_text().splitlines()
                if l.startswith(("from ", "import "))}
     assert imports == {l for l in copy.read_text().splitlines()

@@ -1157,3 +1157,149 @@ def test_gpu_cross_attention_longer_than_its_context(cuda):
     # encoder 2 layers, decoder 2 layers of self (1) and cross (2) launches
     assert flash_attention_h100.launches == n0 + 2 + 2 * 3
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Training: K2b, K1's backward, the train step (card against CPU)
+# ---------------------------------------------------------------------------
+
+def _bwd_inputs(rows, h, hk, sq, page, d, lens, dev, dtype, seed=21):
+    from repro_torch.kernels.flash_attention import flash_attention_paged_plain
+    q = _t((rows, h, sq, d), seed, dev, dtype)
+    k = _t((rows, page, hk, d), seed + 1, dev, dtype)
+    v = _t((rows, page, hk, d), seed + 2, dev, dtype)
+    do = _t((rows, h, sq, d), seed + 3, dev, dtype)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
+    o = flash_attention_paged_plain(q, k, v, tables, ln, bq=16, bkv=64,
+                                    kv_chunk=4096, causal=True)
+    return q, k, v, o, do, ln
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,h,hk,sq,page,d,causal,window,lens,bq,bkv", [
+    (2, 8, 2, 100, 100, 128, True, None, [100, 77], 64, 64),
+    (3, 4, 4, 20, 70, 64, False, None, [70, 0, 45], 32, 32),
+    (2, 6, 3, 64, 64, 16, True, 16, [64, 64], 16, 16),
+])
+def test_gpu_flash_bwd_kernel_matches_plain(cuda, dtype, tol, rows, h, hk,
+                                            sq, page, d, causal, window,
+                                            lens, bq, bkv):
+    """K2b against its plain version on the same inputs: f32 at 1e-4 of
+    the largest gradient (FMA sums in another order, ``expf`` against
+    ``torch.exp``), bf16 at 2e-2 of it (both compute in f32 from the same
+    bf16 inputs and round each gradient once: 2^-8 of an element).  Two
+    launches give the same bits (no atomics), and a row of length 0 gets
+    zeros."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_h100, flash_attention_bwd_plain)
+    q, k, v, _, do, ln = _bwd_inputs(rows, h, hk, sq, page, d, lens, cuda,
+                                     dtype)
+    o = _t((rows, h, sq, d), 40, cuda, dtype)
+    kw = dict(bq=bq, bkv=bkv, causal=causal, window=window)
+    n0 = flash_attention_bwd_h100.launches
+    got = flash_attention_bwd_h100(q, k, v, o, do, ln, **kw)
+    again = flash_attention_bwd_h100(q, k, v, o, do, ln, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_h100.launches == n0 + 4
+    want = flash_attention_bwd_plain(q, k, v, o, do, ln, **kw)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and torch.equal(g, a)
+        w = w.float()
+        torch.testing.assert_close(g.float(), w, rtol=tol,
+                                   atol=tol * float(w.abs().max()))
+    if 0 in lens:
+        r = lens.index(0)
+        assert not any(x[r].any() for x in got)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_bwd_refuses_instead_of_falling_back(cuda):
+    """On CUDA tensors K2b launches or raises: a paged pool (a table other
+    than [[b]]), mixed types and a CPU length tensor all raise."""
+    from repro_torch.kernels.autograd import AttentionFn
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_h100
+    q, k, v, o, do, ln = _bwd_inputs(2, 4, 2, 16, 16, 64, [16, 16], cuda,
+                                     torch.float32)
+    swapped = torch.tensor([[1], [0]], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="paged pool has no backward"):
+        AttentionFn.apply(q, k, v, swapped, ln, True, None)
+    kw = dict(bq=16, bkv=16)
+    with pytest.raises(TypeError):
+        flash_attention_bwd_h100(q, k.bfloat16(), v, o, do, ln, **kw)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_h100(q, k, v, o, do, ln.cpu(), **kw)
+    with pytest.raises(ValueError):
+        flash_attention_bwd_h100(q, k, v, o, do, ln, bq=128, bkv=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_gpu_matmul_fn_backward_matches_autograd_of_plain(cuda, dtype, tol):
+    """``MatmulFn`` on the card (K1 forward; K1 over K4's transposes
+    backward) against autograd of K1's plain version, at a training shape
+    whose reduction dimension (dB's: the token count) is long."""
+    from repro_torch.kernels.autograd import MatmulFn
+    from repro_torch.kernels.transpose import transpose_h100
+    a0 = _t((512, 256), 30, cuda)
+    b0 = _t((256, 384), 31, cuda) / 16
+    dc = _t((512, 384), 32, cuda)
+    a, b = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    t0 = transpose_h100.launches
+    m0 = matmul_h100.launches
+    MatmulFn.apply(a, b).backward(dc)
+    torch.cuda.synchronize()
+    assert (matmul_h100.launches - m0, transpose_h100.launches - t0) == (3, 2)
+    a2, b2 = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    matmul_plain(a2, b2, bm=16, bn=32, bk=32, s=1).backward(dc)
+    for got, want in ((a.grad, a2.grad), (b.grad, b2.grad)):
+        want = want.float()
+        torch.testing.assert_close(got.float(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b",
+                                  "chameleon_34b", "whisper_large_v3"])
+def test_gpu_train_step_equals_cpu(cuda, arch):
+    """One f32 train step (AdamW, microbatches 2) of the smoke config on
+    the card against the CPU plain versions from the same state: loss at
+    rtol 1e-5, grad_norm at 1e-4 (sums in another order), the updated
+    parameters within 1e-6 except at most one element in a thousand,
+    which may differ by up to 2·lr where its gradient rounds to the other
+    sign (AdamW moves every element by about ±lr)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import adamw, constant, tree_leaves
+    from repro_torch.runtime import build_train_step
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    lr = 1e-3
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)),
+             "labels": rng.integers(0, cfg.vocab, (4, 32))}
+    if cfg.encoder is not None:
+        batch["enc_embeds"] = rng.standard_normal(
+            (4, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = init_train_state(cfg, seed=2, device="cpu")
+        params = _to(params, dev)
+        opt = adamw(constant(lr))
+        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        params, _, m = build_train_step(cfg, opt, microbatches=2)(
+            params, opt.init(params), tb, 0)
+        out[str(dev)] = ({k: float(v) for k, v in m.items()},
+                         [p.detach().cpu() for p in tree_leaves(params)])
+    (gm, gp), (wm, wp) = out[str(cuda)], out["cpu"]
+    assert gm["loss"] == pytest.approx(wm["loss"], rel=1e-5)
+    assert gm["grad_norm"] == pytest.approx(wm["grad_norm"], rel=1e-4)
+    flips = total = 0
+    for g, w in zip(gp, wp):
+        d = (g - w).abs()
+        assert float(d.max()) <= 2 * lr + 1e-6
+        flips += int((d > 1e-6).sum())
+        total += d.numel()
+    assert flips <= total / 1000

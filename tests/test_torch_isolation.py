@@ -2,7 +2,8 @@
 its copies of the observability package ``repro_torch.obs``, the fault
 harness, the disk tier, the serve plans, the MoE layer, the config
 modules (whisper-large-v3's too), the non-paged serve steps, the tuning
-package and the kernel monitor included."""
+package and the kernel monitor, and the training path (optimizers, data,
+checkpoints, the autograd functions and K2b, the train launcher) included."""
 import os
 import pathlib
 import re
@@ -40,7 +41,12 @@ assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
         "repro_torch.tuning.compact", "repro_torch.runtime.monitor",
         "repro_torch.launch.tune_artifacts",
         "repro_torch.configs.whisper_large_v3", "repro_torch.runtime.steps",
-        "repro_torch.plans.trace"} <= set(names), names
+        "repro_torch.plans.trace", "repro_torch.optim.optimizers",
+        "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+        "repro_torch.kernels.autograd",
+        "repro_torch.kernels.flash_attention_bwd",
+        "repro_torch.launch.train", "repro_torch.launch.specs"
+        } <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 assert all(sys.modules[m] is None for m in bad), bad

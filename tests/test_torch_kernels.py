@@ -859,3 +859,197 @@ def test_kernel_path_refuses_cpu_tensors():
         tr_mod._launch(a, bm=32, bn=32, s=1)
     with pytest.raises(ValueError):
         jac_mod._launch(torch.ones(10), 2, B=32, s=1)
+
+
+# ---------------------------------------------------------------------------
+# Training: K2b's plain version, K1's backward, K2b's tree, the warm set
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attention_bwd as fab
+from repro_torch.kernels.autograd import AttentionFn, MatmulFn
+
+
+def _bwd_case(rows, h, hk, sq, page, d, lens, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    return (t(rows, h, sq, d), t(rows, page, hk, d), t(rows, page, hk, d),
+            t(rows, h, sq, d), torch.tensor(lens, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("rows,h,hk,sq,page,d,causal,window,lens", [
+    (2, 8, 2, 24, 24, 16, True, None, [24, 24]),       # GQA, causal
+    (2, 4, 4, 20, 20, 32, False, None, [20, 20]),      # non-causal
+    (2, 6, 3, 40, 40, 16, True, 9, [40, 31]),          # window
+    (3, 4, 2, 12, 30, 16, True, None, [30, 0, 17]),    # ragged, a 0 row
+    (2, 4, 2, 7, 33, 16, False, None, [33, 20]),       # sq < page
+])
+def test_flash_bwd_plain_matches_autograd_of_k2_plain(rows, h, hk, sq, page,
+                                                      d, causal, window,
+                                                      lens):
+    """K2b's plain version (direct softmax gradients) against autograd of
+    K2's paged plain version (online softmax over key tiles and splits),
+    f32, ``rtol = atol = 1e-5``: the same function's gradients summed in
+    another order.  A row of length 0 gets zero gradients."""
+    q, k, v, do, ln = _bwd_case(rows, h, hk, sq, page, d, lens, 11)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    tables = torch.arange(rows, dtype=torch.int32)[:, None]
+    o = flash_attention_paged_plain(q, k, v, tables, ln, bq=16, bkv=32,
+                                    kv_chunk=64, causal=causal,
+                                    window=window)
+    o.backward(do)
+    got = fab.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                        o.detach(), do, ln, bq=16, bkv=16,
+                                        causal=causal, window=window)
+    for g, x in zip(got, (q, k, v)):
+        torch.testing.assert_close(g, x.grad, rtol=1e-5, atol=1e-5)
+    if 0 in lens:
+        r = lens.index(0)
+        assert not got[0][r].any() and not got[1][r].any() \
+            and not got[2][r].any()
+
+
+def test_attention_fn_bwd_is_k2b_through_ops():
+    """``AttentionFn``: K2's paged entry forward, K2b's backward, through
+    the dispatch (plain versions on the CPU)."""
+    q, k, v, do, ln = _bwd_case(2, 4, 2, 16, 16, 16, [16, 11], 12)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o = AttentionFn.apply(q, k, v, None, ln, True, None)
+    o.backward(do)
+    want = ops.attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(),
+                             do, ln, causal=True)
+    for g, x in zip(want, (q, k, v)):
+        assert torch.equal(g, x.grad)
+
+
+def test_attention_fn_bwd_refuses_a_paged_pool():
+    q, k, v, _, ln = _bwd_case(2, 4, 2, 8, 8, 16, [8, 8], 13)
+    swapped = torch.tensor([[1], [0]], dtype=torch.int32)
+    with pytest.raises(ValueError, match="paged pool has no backward"):
+        AttentionFn.apply(q, k, v, swapped, ln, True, None)
+    AttentionFn.apply(q, k, v, torch.tensor([[0], [1]], dtype=torch.int32),
+                      ln, True, None)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_matmul_fn_bwd_matches_autograd_of_matmul_plain(dtype, tol):
+    """dA = K1(dC, K4(B)) and dB = K1(K4(A), dC) against autograd of
+    ``matmul_plain``.  f32 at 1e-5 of the largest gradient (sums in
+    another order); bf16 at 2e-2 of it, since ``MatmulFn`` rounds dC to
+    the operands' type first (a bf16 cotangent, as the JAX bf16 einsum's)
+    and its gradients to bf16 (2^-8 of an element)."""
+    rng = np.random.default_rng(5)
+    a0 = torch.from_numpy(rng.standard_normal((48, 80)).astype(np.float32))
+    b0 = torch.from_numpy((rng.standard_normal((80, 40)) / 9
+                           ).astype(np.float32))
+    dc = torch.from_numpy(rng.standard_normal((48, 40)).astype(np.float32))
+    a, b = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    MatmulFn.apply(a, b).backward(dc)
+    a2, b2 = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    matmul_plain(a2, b2, bm=16, bn=32, bk=32, s=1).backward(dc)
+    assert a.grad.dtype == b.grad.dtype == dtype
+    for got, want in ((a.grad, a2.grad), (b.grad, b2.grad)):
+        want = want.float()
+        torch.testing.assert_close(got.float(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("data", [
+    {"SQ": 24, "HD": 16, "GROUP": 4, "HK": 2},
+    {"SQ": 100, "HD": 128, "GROUP": 4, "HK": 8},
+    {"SQ": 64, "HD": 64, "GROUP": 1, "HK": 20}])
+def test_flash_bwd_every_feasible_leaf_same_gradients(data):
+    """Every candidate of K2b's tree at a key passes the entry point's
+    checks (``format_error``) and, through ``instantiate(..., "cpu")``,
+    gives the plain version's gradients: the tiles shape the launch only."""
+    from repro_torch.core.select import enumerate_candidates
+    from repro_torch.core.params import H100_SXM
+    sq, d, hk = data["SQ"], data["HD"], data["HK"]
+    h = data["GROUP"] * hk
+    q, k, v, do, ln = _bwd_case(2, h, hk, sq, sq, d, [sq, sq - 3], 14)
+    o = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        q.shape).astype(np.float32))
+    cands = enumerate_candidates(fab.FAMILY, H100_SXM, data)
+    assert len(cands) == len(fab.BQ) * len(fab.BKV)
+    want = None
+    for c in cands:
+        a = c.assignment
+        assert fab.format_error(2, h, hk, sq, sq, d, a["bq"], a["bkv"],
+                                torch.bfloat16) is None
+        fn = fab.FAMILY.instantiate(c.plan, a, "cpu",
+                                    leaf_index=c.leaf_index)
+        got = fn(q, k, v, o, do, ln, causal=True)
+        want = want or got
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_flash_bwd_format_error_mirrors_the_entry_point():
+    ok = dict(rows=2, h=8, hk=2, sq=64, page=64, d=128, bq=64, bkv=64,
+              dtype=torch.bfloat16)
+    assert fab.format_error(**ok) is None
+    for bad, why in (({"h": 6, "hk": 4}, "multiple"), ({"d": 160}, "d not"),
+                     ({"bq": 128}, "bq not"), ({"dtype": torch.float16},
+                                               "f32 or bf16"),
+                     ({"rows": 70_000}, "65,535")):
+        assert why in fab.format_error(**{**ok, **bad})
+    assert fab.smem_bytes(64, 64, 128) <= 232_448
+
+
+def test_flash_bwd_tunes_on_the_cpu(tmp_path, capsys):
+    """``tune_artifacts`` over K2b's family (``--device cpu``: the plain
+    version timed, a smoke): its table compiles, every candidate measures
+    and the table comes back with the tuning sections."""
+    from repro_torch.artifacts.store import ArtifactStore
+    from repro_torch.launch import tune_artifacts
+    assert tune_artifacts.main([
+        "--family", "flash_attention_bwd_h100", "--out", str(tmp_path),
+        "--quick", "--device", "cpu", "--iters", "1", "--top-k", "2"]) == 0
+    assert "[OK] flash_attention_bwd_h100/h100_sxm: 2/2 candidates " \
+        "measured" in capsys.readouterr().out
+    table = ArtifactStore(tmp_path).load_dispatch("flash_attention_bwd_h100",
+                                                  "h100_sxm")
+    assert table["measured_ranks"] and "compaction" in table
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "whisper_large_v3"])
+def test_train_warm_set_leaves_no_cold_build(arch):
+    """After ``warm_train_dispatch`` a train step (microbatches 2) resolves
+    nothing cold, and the (family, key) pairs it asks for are exactly the
+    traced ones (F5): K1's forward, dA and dB keys, K4's transposes, K2's
+    and K2b's keys."""
+    from repro_torch.artifacts.dispatch import DispatchCache, set_default_cache
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import adamw, constant
+    from repro_torch.plans.trace import trace_train_warm_set
+    from repro_torch.runtime import build_train_step, warm_train_dispatch
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    cache = DispatchCache()
+    set_default_cache(cache)
+    try:
+        warm_train_dispatch(cfg, global_batch=4, seq=16, microbatches=2)
+        cold = cache.stats.cold_builds
+        params = init_train_state(cfg, device="cpu")
+        opt = adamw(constant(1e-3))
+        step = build_train_step(cfg, opt, microbatches=2)
+        rng = np.random.default_rng(3)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (4, 16)),
+                 "labels": rng.integers(0, cfg.vocab, (4, 16))}
+        if cfg.encoder is not None:
+            batch["enc_embeds"] = rng.standard_normal(
+                (4, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+        with cache.record() as rec:
+            step(params, opt.init(params), batch, 0)
+        assert cache.stats.cold_builds == cold
+        traced = {(op.family, op.data) for op in trace_train_warm_set(
+            cfg, global_batch=4, seq=16, microbatches=2)}
+        seen = {(f, items) for f, _, items in rec.requests}
+        assert seen == traced
+        families = {f for f, _ in seen}
+        assert families == {"matmul_h100", "transpose_h100",
+                            "flash_attention_h100",
+                            "flash_attention_bwd_h100"}
+    finally:
+        set_default_cache(None)

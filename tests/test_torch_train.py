@@ -1,0 +1,352 @@
+"""The port's training path against the JAX package's, on the CPU.
+
+f32 ``SMOKE`` configs; the JAX training tree (``repro.models.init_model``)
+carried through numpy into ``repro_torch.convert.train_params_from_jax``
+(the same stacked tree, f32 masters); batches from numpy.  The port runs
+every projection through K1 and every attention core through K2, and their
+gradients through K1, K4 and K2b (``kernels/autograd.py``), each in its
+plain version on the CPU; the JAX step is ``jax.value_and_grad`` of einsum
+math (ROADMAP F3).  Tolerances:
+
+- the loss, ``rtol 1e-5``, and every gradient leaf, ``rtol 1e-4`` with
+  ``atol 1e-5`` times the leaf's largest gradient: the same f32 math
+  summed in another order (K1's k tiles, K2's online softmax, K2b's
+  recomputed probabilities) over 2 + 2 layers; the measured worst is about
+  2e-6 of the leaf's largest;
+- a whole train step (AdamW, microbatches 2): the metrics at ``rtol 1e-5``;
+  the parameters at ``atol 1e-6``, except that an element may differ by up
+  to 2·lr a step where its gradient is within the gradients' rounding of 0:
+  AdamW's first steps move every element by about ±lr whatever its
+  gradient's size, so such an element can take the other sign.  At most
+  one element in a thousand may do so.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as jconfigs
+import repro.models as jm
+import repro.optim as jopt
+from repro.runtime import steps as jsteps
+import repro_torch.configs as tconfigs
+import repro_torch.models as tm
+import repro_torch.optim as topt
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.convert import train_params_from_jax
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.launch import specs as tspecs
+from repro_torch.plans.trace import trace_train_warm_set
+from repro_torch.runtime import (TrainController, build_eval_step,
+                                 build_train_step, loss_fn)
+
+DENSE = ["llama3_8b", "granite_3_8b", "yi_6b", "qwen1p5_4b", "chameleon_34b"]
+WHISPER = "whisper_large_v3"
+REFUSED = ["mamba2_130m", "hymba_1p5b", "llama4_scout_17b_a16e",
+           "kimi_k2_1t_a32b"]
+B, S = 4, 16
+LR = 1e-3
+
+
+def _setup(arch, seed=0, **replace):
+    """(JAX config, JAX params, port config, port training state) from one
+    JAX init; qwen's q/k/v biases (zeros at init) are planted so that they
+    move the forward."""
+    cfg = jconfigs.get_smoke_config(arch).scaled(dtype="float32", **replace)
+    tcfg = tconfigs.get_smoke_config(arch).scaled(dtype="float32", **replace)
+    jp, _ = jm.init_model(jax.random.PRNGKey(seed), cfg)
+    if cfg.qkv_bias:
+        rng = np.random.default_rng(seed + 100)
+        attn = jp["layers"]["attn"]
+        for name in ("bq", "bk", "bv"):
+            attn[name] = jnp.asarray(0.1 * rng.standard_normal(
+                attn[name].shape), jnp.float32)
+    tp = train_params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                               device="cpu")
+    return cfg, jp, tcfg, tp
+
+
+def _batch(cfg, seed=1, rows=B):
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(0, cfg.vocab, (rows, S)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, (rows, S)).astype(np.int32)}
+    if cfg.encoder is not None:
+        b["enc_embeds"] = rng.standard_normal(
+            (rows, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _jbatch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _grads(tcfg, tp, batch):
+    for p in topt.tree_leaves(tp):
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = loss_fn(tp, tcfg, batch)
+    loss.backward()
+    return float(loss.detach()), [p.grad.clone() for p in topt.tree_leaves(tp)]
+
+
+@pytest.mark.parametrize("arch,remat", [(a, "none") for a in DENSE]
+                         + [("chameleon_34b", "full"), (WHISPER, "none")])
+def test_loss_and_gradients_match_jax(arch, remat):
+    cfg, jp, tcfg, tp = _setup(arch, remat=remat)
+    batch = _batch(cfg)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: jsteps.loss_fn(p, cfg, _jbatch(batch)), has_aux=True)(jp)
+    tl, tg = _grads(tcfg, tp, batch)
+    np.testing.assert_allclose(tl, float(jl), rtol=1e-5)
+    jleaves = jax.tree_util.tree_leaves_with_path(jg)
+    assert len(jleaves) == len(tg)
+    for (path, j), t in zip(jleaves, tg):
+        j = np.asarray(j)
+        np.testing.assert_allclose(t.numpy(), j, rtol=1e-4,
+                                   atol=1e-5 * np.abs(j).max(),
+                                   err_msg=str(path))
+
+
+def test_remat_full_gives_the_same_gradients_as_none():
+    """Chameleon's ``remat="full"`` recomputes each block in the backward
+    through the same kernels: the gradients equal ``"none"``'s bit for
+    bit."""
+    cfg, _, tcfg, tp = _setup("chameleon_34b")
+    batch = _batch(cfg)
+    want = _grads(tcfg, tp, batch)
+    got = _grads(dataclasses.replace(tcfg, remat="full"), tp, batch)
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
+def _jax_steps(cfg, jp, batches, microbatches=2, **kw):
+    opt = jopt.adamw(jopt.constant(LR))
+    step_fn = jax.jit(jsteps.build_train_step(
+        cfg, opt, microbatches=microbatches, **kw))
+    state = opt.init(jp)
+    out = []
+    for i, b in enumerate(batches):
+        jp, state, m = step_fn(jp, state, _jbatch(b), jnp.asarray(i))
+        out.append(({k: float(v) for k, v in m.items()}, jp))
+    return out
+
+
+def _port_steps(tcfg, tp, batches, microbatches=2, **kw):
+    opt = topt.adamw(topt.constant(LR))
+    step_fn = build_train_step(tcfg, opt, microbatches=microbatches, **kw)
+    state = opt.init(tp)
+    out = []
+    for i, b in enumerate(batches):
+        tp, state, m = step_fn(tp, state, b, i)
+        out.append(({k: float(v) for k, v in m.items()},
+                    [p.detach().clone() for p in topt.tree_leaves(tp)]))
+    return out
+
+
+def _params_close(got, want, steps):
+    """The whole-step tolerance of the module docstring."""
+    flips = total = 0
+    for t, j in zip(got, jax.tree.leaves(want)):
+        d = np.abs(t.numpy() - np.asarray(j))
+        assert d.max() <= 2 * LR * steps + 1e-6
+        flips += int((d > 1e-6).sum())
+        total += d.size
+    assert flips <= total / 1000, (flips, total)
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b", WHISPER])
+@pytest.mark.parametrize("steps", [1, 2])
+def test_train_step_matches_the_jitted_jax_step(arch, steps):
+    cfg, jp, tcfg, tp = _setup(arch)
+    batches = [_batch(cfg, seed=10 + i) for i in range(steps)]
+    want = _jax_steps(cfg, jp, batches)
+    got = _port_steps(tcfg, tp, batches)
+    for (gm, gp), (wm, wp) in zip(got, want):
+        for key in ("loss", "nll", "moe_aux", "grad_norm"):
+            np.testing.assert_allclose(gm[key], wm[key], rtol=1e-5,
+                                       atol=1e-7, err_msg=key)
+    _params_close(got[-1][1], want[-1][1], steps)
+
+
+def test_train_step_with_bf16_accumulators_matches_jax():
+    """``grad_dtype`` bf16 (the 1T MoE's accumulators, here on a dense
+    config): each microbatch's gradients rounded to bf16 and summed in
+    bf16, as the JAX step sums them.  The metrics at rtol 1e-5 but the
+    grad norm, which reads the bf16-rounded gradients, at 1e-2 (a gradient
+    within the two packages' f32 difference of a bf16 rounding boundary
+    rounds to a neighbour: 2^-8 of it); the parameters as for the f32
+    step."""
+    cfg, jp, tcfg, tp = _setup("llama3_8b")
+    batches = [_batch(cfg, seed=20)]
+    want = _jax_steps(cfg, jp, batches, grad_dtype=jnp.bfloat16)
+    got = _port_steps(tcfg, tp, batches, grad_dtype=torch.bfloat16)
+    (gm, gp), (wm, wp) = got[0], want[0]
+    for key in ("loss", "nll", "moe_aux"):
+        np.testing.assert_allclose(gm[key], wm[key], rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(gm["grad_norm"], wm["grad_norm"], rtol=1e-2)
+    _params_close(gp, wp, 1)
+
+
+def test_train_step_updates_in_place():
+    cfg, _, tcfg, tp = _setup("llama3_8b")
+    opt = topt.adamw(topt.constant(LR))
+    state = opt.init(tp)
+    leaves = topt.tree_leaves((tp, state))
+    before = [t.detach().clone() for t in leaves]
+    tp2, state2, _ = build_train_step(tcfg, opt, microbatches=2)(
+        tp, state, _batch(cfg), 0)
+    assert tp2 is tp and state2 is state
+    after = topt.tree_leaves((tp, state))
+    assert all(a is b for a, b in zip(after, leaves))
+    assert all(not torch.equal(a, b) for a, b in zip(after, before))
+    assert all(p.grad is None for p in topt.tree_leaves(tp))
+
+
+@pytest.mark.parametrize("arch", ["llama3_8b", WHISPER])
+def test_eval_step_matches_jax(arch):
+    cfg, jp, tcfg, tp = _setup(arch)
+    batch = _batch(cfg, seed=3)
+    want = jsteps.build_eval_step(cfg)(jp, _jbatch(batch))
+    got = build_eval_step(tcfg)(tp, batch)
+    for key in ("loss", "nll", "moe_aux", "z"):
+        np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                   rtol=1e-5, atol=1e-7, err_msg=key)
+    assert not got["loss"].requires_grad
+
+
+@pytest.mark.parametrize("arch", REFUSED)
+def test_train_refuses_ssm_hybrid_and_moe_on_the_cpu(arch):
+    tcfg = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    opt = topt.adamw(topt.constant(LR))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        build_train_step(tcfg, opt)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        trace_train_warm_set(tcfg, global_batch=2, seq=8)
+    params = tm.init_train_state(tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        loss_fn(params, tcfg, _batch(tcfg, rows=2))
+
+
+def test_remat_dots_is_refused():
+    tcfg = tconfigs.get_smoke_config("llama3_8b").scaled(remat="dots")
+    with pytest.raises(NotImplementedError, match="remat 'dots'"):
+        build_train_step(tcfg, topt.adamw(topt.constant(LR)))
+
+
+def _data_step(tcfg, ds, step_fn):
+    def run_step(state, step):
+        params, opt_state = state
+        params, opt_state, m = step_fn(params, opt_state, ds.batch_at(step),
+                                       step)
+        return (params, opt_state), {k: float(v) for k, v in m.items()}
+    return run_step
+
+
+def test_loss_falls_over_30_steps_on_synthetic_lm():
+    tcfg = tconfigs.get_smoke_config("llama3_8b").scaled(dtype="float32")
+    ds = SyntheticLM(DataConfig(tcfg.vocab, 32, 8, seed=0))
+    opt = topt.adamw(topt.warmup_cosine(3e-3, 5, 30))
+    run = _data_step(tcfg, ds, build_train_step(tcfg, opt, microbatches=2))
+    params = tm.init_train_state(tcfg, seed=0, device="cpu")
+    state = (params, opt.init(params))
+    losses = []
+    for step in range(30):
+        state, m = run(state, step)
+        losses.append(m["loss"])
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]) - 0.5, losses
+
+
+class _FaultOnce:
+    def __init__(self, at):
+        self.at, self.fired = at, False
+
+    def __call__(self, step):
+        if step == self.at and not self.fired:
+            self.fired = True
+            raise RuntimeError(f"injected fault at step {step}")
+
+
+def _controller_run(tmp_path, ckpt_every, fault_hook=None, steps=6):
+    tcfg = tconfigs.get_smoke_config("llama3_8b").scaled(dtype="float32")
+    ds = SyntheticLM(DataConfig(tcfg.vocab, 16, 4, seed=2))
+    opt = topt.adamw(topt.warmup_cosine(1e-3, 2, steps))
+    run = _data_step(tcfg, ds, build_train_step(tcfg, opt, microbatches=2))
+    params = tm.init_train_state(tcfg, seed=1, device="cpu")
+    ctl = TrainController(run, CheckpointManager(str(tmp_path)),
+                          ckpt_every=ckpt_every, fault_hook=fault_hook)
+    (params, state), hist = ctl.run((params, opt.init(params)),
+                                    start_step=0, num_steps=steps)
+    return topt.tree_leaves((params, state)), hist
+
+
+@pytest.mark.parametrize("ckpt_every,fault_at", [(2, 3), (10, 2)])
+def test_restart_is_bit_exact_through_the_controller(tmp_path, ckpt_every,
+                                                     fault_at):
+    """A fault after a checkpoint replays from it; one before the first
+    checkpoint replays from the host copy of the initial state (the step
+    updates the state in place, so the state object itself is no longer
+    the initial one).  Either way the final state and every step's loss
+    equal the uninterrupted run's bit for bit."""
+    want, want_hist = _controller_run(tmp_path / "ref", ckpt_every)
+    got, hist = _controller_run(tmp_path / "fault", ckpt_every,
+                                _FaultOnce(fault_at))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    by_step = {h["step"]: h["loss"] for h in hist}
+    assert by_step == {h["step"]: h["loss"] for h in want_hist}
+    assert len(hist) == len(want_hist) + (fault_at - (
+        fault_at // ckpt_every) * ckpt_every)
+
+
+def test_controller_reraises_a_cuda_error(tmp_path):
+    """A CUDA runtime error is fatal: the controller re-raises it at once,
+    with no restore and no retry."""
+    calls = []
+
+    def run_step(state, step):
+        calls.append(step)
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    ckpt = CheckpointManager(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        TrainController(run_step, ckpt).run(
+            {"w": torch.zeros(2)}, start_step=0, num_steps=3)
+    assert calls == [0]
+
+
+def test_train_launcher_cli_at_smoke_size(tmp_path, capsys):
+    from repro_torch.launch import train
+    args = ["--arch", "llama3-8b", "--smoke", "--steps", "4", "--seq-len",
+            "16", "--global-batch", "4", "--microbatches", "2",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
+            "--log-every", "2", "--device", "cpu"]
+    train.main(args)
+    out = capsys.readouterr().out
+    assert "done: 4 steps on cpu" in out
+    assert CheckpointManager(str(tmp_path)).available_steps() == [2, 4]
+    train.main(args[:4] + ["6"] + args[5:])
+    assert "resumed from step 4" in capsys.readouterr().out
+
+
+def test_abstract_state_allocates_nothing_and_matches_jax_shapes():
+    from repro.launch import specs as jspecs
+    cfg = jconfigs.get_config("llama3_8b")
+    tcfg = tconfigs.get_config("llama3_8b")
+    jsds, _, jopt_sds = jspecs.abstract_state(cfg, jopt.adamw(
+        jopt.constant(LR)))
+    params, opt_state = tspecs.abstract_state(tcfg, topt.adamw(
+        topt.constant(LR)))
+    leaves = topt.tree_leaves((params, opt_state))
+    assert all(t.device.type == "meta" for t in leaves)
+    assert [tuple(t.shape) for t in leaves] == [
+        tuple(x.shape) for x in jax.tree.leaves((jsds, jopt_sds))]
+    # the analytic count leaves out the norm scales
+    assert sum(t.numel() for t in topt.tree_leaves(params)) == \
+        tcfg.param_count() + (2 * tcfg.layers + 1) * tcfg.d_model
+    assert tspecs.grad_dtype_for(tcfg) == torch.float32
+    assert tspecs.grad_dtype_for(tconfigs.get_config(
+        "kimi_k2_1t_a32b")) == torch.bfloat16
