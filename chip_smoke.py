@@ -251,14 +251,21 @@ no phase is caught.
    zeros, two launches bit for bit; timed eagerly and as device time
    beside the plain version and SDPA's backward (a yardstick) and its
    bound (2.5 times the forward's flops of the visible pairs at the
-   peak of the inputs' type, or the bytes).  (b) llama3-8b at full width,
-   4 of 32 layers (reduced: depth only), bf16 compute, f32 masters and
-   AdamW state: 6 steps of 8 x 1024 ``SyntheticLM`` tokens in 2
+   peak of the inputs' type, or the bytes); the f32 rows time the FMA
+   body, the bf16 rows the tensor-core body.  Then, in a process of its
+   own, every leaf of K2b's tree at llama3-8b's training key and whisper's
+   encoder key in bf16: held against the plain version, two launches bit
+   for bit, CUDA-graph device time and each kernel's under
+   ``torch.profiler`` (the lse recompute's share of the dQ kernel's
+   time), the napkin's rank beside the card's.  The build prints each K2b kernel's ``ptxas`` registers and
+   spills and fails if a tensor-core kernel spills.  (b) llama3-8b at full
+   width, 4 of 32 layers (reduced: depth only), bf16 compute, f32 masters
+   and AdamW state: 6 steps of 8 x 1024 ``SyntheticLM`` tokens in 2
    microbatches after ``warm_train_dispatch``; each step's loss and
    grad_norm (finite), host and CUDA-event time, its launches against the
    step's products and cores (K1 3·(7L+1)·mb, K4 2·(7L+1)·mb, K2 L·mb,
-   K2b 2·L·mb), 0 cold builds; tokens/s, model flops against the bf16
-   peak, peak memory; a checkpoint of step 3 (``CheckpointManager``,
+   K2b 3·L·mb in bf16), 0 cold builds; tokens/s, model flops against the
+   bf16 peak, peak memory; a checkpoint of step 3 (``CheckpointManager``,
    async) restored and steps 3-4 replayed with losses equal bit for bit,
    then step 5 replayed under ``torch.profiler`` (device time by kernel,
    its loss equal too).  (c) whisper-large-v3 at full width, 4 + 4 layers,
@@ -355,11 +362,12 @@ Tolerances, kernel against plain version on the same inputs:
   the tolerance allows the one-bit roundings of a reciprocal multiply.
 - attention backward (K2b), against its plain version and autograd: each
   gradient within 2e-2 (bf16) or 1e-4 (f32) of its largest element, and
-  of itself.  All compute in f32; in bf16 each gradient is rounded once
-  (2^-8 of an element), and autograd of the plain forward rounds its
-  intermediate casts too; in f32 only the order of sums differs (FMA over
-  tiles of keys and queries against whole-row products, ``expf`` against
-  ``torch.exp``).
+  of itself.  All sum in f32; in bf16 each gradient is rounded once
+  (2^-8 of an element), the tensor-core body also rounds P and dS to bf16
+  before their products (as K2 rounds P), and autograd of the plain
+  forward rounds its intermediate casts too; in f32 only the order of sums
+  differs (FMA over tiles of keys and queries against whole-row products,
+  ``expf`` against ``torch.exp``).
 
 TF32 is off for the plain versions (``allow_tf32 = False``), so their f32
 products on the card are full f32.
@@ -372,6 +380,7 @@ import importlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1123,11 +1132,49 @@ def phase_device() -> None:
         f"{torch.cuda.device_count()} visible")
 
 
+def ptxas_lines(log: str, prefix: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    kernel whose name holds ``prefix`` in an ``nvcc -Xptxas -v`` log."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if prefix in m.group(1) else None
+            spill = None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and spill is not None:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     secs = build.build_all()
     say(f"[build] nvcc sm_90a, {len(build.SOURCES)} sources in parallel: "
         f"{secs:.1f} s")
+    # K2b's kernels: registers and spills, none allowed in the tensor-core
+    # body (lse, dq_tc, dkdv_tc; the f32 FMA body is printed as it is)
+    lines = ptxas_lines(build.build_log("flash_attention_bwd"), "fa_bwd")
+    if len(lines) != 10:
+        raise AssertionError(f"K2b: ptxas reported {len(lines)} of its 10 "
+                             f"kernels")
+    for name, regs, st, ld in lines:
+        short = re.search(r"fa_bwd_\w+?kernelI\w*?Li(\d+)", name)
+        label = (re.search(r"fa_bwd_\w+?kernel", name).group(0) +
+                 f"<{'f32, ' if 'kernelIf' in name else ''}D "
+                 f"{short.group(1)}>")
+        say(f"[build] K2b {label}: ptxas {regs} registers, spill stores "
+            f"{st} bytes, spill loads {ld} bytes")
+        if ("_tc_" in name or "_lse_" in name) and (st or ld):
+            raise AssertionError(f"K2b {label} spills registers")
 
 
 #: The K1 signatures PERF.md follows (M, N, K), bf16: decode and prefill
@@ -3566,9 +3613,109 @@ def bwd_case(sig, gen, *, timed: bool):
 CASES["flash_attention_bwd_h100"] = bwd_case
 
 
+#: The K2b keys whose every leaf 13 (a) times in bf16: the labels of
+#: ``BWD_SIGNATURES`` rows.
+BWD_LEAF_ROWS = ("llama3-8b training", "whisper encoder")
+BWD_KERNELS = ("fa_bwd_lse_kernel", "fa_bwd_dq_tc_kernel",
+               "fa_bwd_dkdv_tc_kernel")
+
+
+def bwd_kernel_us(launch, calls: int = 5):
+    """[lse, dQ, dK/dV] device µs a call of K2b's bf16 body under
+    ``torch.profiler``, over ``calls`` calls after 3 warm-up calls; None
+    unless the profiler recorded each kernel once a call."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            launch()
+        torch.cuda.synchronize()
+    out = []
+    for kn in BWD_KERNELS:
+        evs = [e for e in prof.key_averages() if kn in e.key]
+        if sum(e.count for e in evs) != calls:
+            return None
+        out.append(sum(getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0) for e in evs) / calls)
+    return out
+
+
+def bwd_leaf_rows(label, R, h, hk, sq, page, d, causal, window, gen
+                  ) -> float:
+    """Every leaf of K2b's tree at one key, bf16, full rows: each held
+    against the plain version (``BWD_TOL``), two launches bit for bit,
+    timed as CUDA-graph device time and each of its three kernels under
+    ``torch.profiler``; printed with the napkin's rank beside the card's.
+    Returns the largest error."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import rank_candidates
+    from repro_torch.kernels.flash_attention import flash_attention_paged_plain
+    from repro_torch.kernels.flash_attention_bwd import (
+        FAMILY, flash_attention_bwd_h100, flash_attention_bwd_plain)
+    dtype = torch.bfloat16
+    q = torch.randn((R, h, sq, d), generator=gen, device=DEV).to(dtype)
+    k = torch.randn((R, page, hk, d), generator=gen, device=DEV).to(dtype)
+    v = torch.randn((R, page, hk, d), generator=gen, device=DEV).to(dtype)
+    do = torch.randn((R, h, sq, d), generator=gen, device=DEV).to(dtype)
+    tl = torch.full((R,), page, dtype=torch.int32, device=DEV)
+    tables = torch.arange(R, dtype=torch.int32, device=DEV)[:, None]
+    o = flash_attention_paged_plain(q, k, v, tables, tl, bq=16, bkv=64,
+                                    kv_chunk=4096, causal=causal,
+                                    window=window)
+    want = flash_attention_bwd_plain(q, k, v, o, do, tl, bq=16, bkv=16,
+                                     causal=causal, window=window)
+    ranked = rank_candidates(FAMILY, H100_SXM, {
+        "SQ": sq, "HD": d, "GROUP": h // hk, "HK": hk})
+    rows, err = {}, 0.0
+    for cand in ranked:
+        kw = dict(bq=cand.assignment["bq"], bkv=cand.assignment["bkv"],
+                  causal=causal, window=window)
+
+        def launch():
+            return flash_attention_bwd_h100(q, k, v, o, do, tl, **kw)
+
+        got, again = launch(), launch()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K2b leaf {label} {kw}: two launches "
+                                 f"differ")
+        e = max(held_rel(f"K2b leaf {label} {kw} {n}", g, w,
+                         BWD_TOL[dtype])
+                for n, g, w in zip(("dq", "dk", "dv"), got, want))
+        err = max(err, e)
+        del got, again
+        rows[(kw["bq"], kw["bkv"])] = {
+            "err": e, "device_ms": graph_ms(launch, 5), "score": cand.score,
+            "us": bwd_kernel_us(launch)}
+    by_card = sorted(rows, key=lambda x: rows[x]["device_ms"])
+    for i, (leaf, row) in enumerate(rows.items()):
+        if row["us"] is None:
+            split = "the profiler missed some of its launches"
+        else:
+            lse_us, dq_us, kv_us = row["us"]
+            split = (f"lse {lse_us / 1e3:.4f}, dq {dq_us / 1e3:.4f}, dkdv "
+                     f"{kv_us / 1e3:.4f} under the profiler; the lse "
+                     f"recompute {100 * lse_us / dq_us:.1f} % of the dQ "
+                     f"kernel's time")
+        say(f"[train] (a) K2b leaf {label} bq {leaf[0]} bkv {leaf[1]}"
+            f"{' (pick)' if i == 0 else ''}: device_ms "
+            f"{row['device_ms']:.4f} ({split}), err {row['err']:.3e}; "
+            f"napkin score "
+            f"{row['score']:.4g} rank {i + 1}, card rank "
+            f"{by_card.index(leaf) + 1} of {len(rows)}")
+    pick, best = rows[next(iter(rows))], rows[by_card[0]]
+    say(f"[train] (a) K2b {label}: device_ms pick {pick['device_ms']:.4f}, "
+        f"fastest of {len(rows)} leaves {best['device_ms']:.4f} "
+        f"({pick['device_ms'] / best['device_ms']:.2f}x)")
+    return err
+
+
 def phase_train_k2b(gen) -> tuple:
-    """(a) K2b through the pick of each signature's key in bf16 and f32;
-    returns (largest error against the plain version, {sig: row})."""
+    """(a) K2b through the pick of each signature's key in bf16 and f32,
+    then every leaf at the keys of ``BWD_LEAF_ROWS`` in bf16; returns
+    (largest error against the plain version, {sig: row})."""
     from repro_torch.kernels import ops
     err, rows = 0.0, {}
     for label, R, h, hk, sq, page, d, causal, window, lens in BWD_SIGNATURES:
@@ -3588,14 +3735,47 @@ def phase_train_k2b(gen) -> tuple:
                 f"autograd_err {row['autograd_err']:.3e}; two launches "
                 f"equal bit for bit")
             torch.cuda.empty_cache()
-    return err, rows
+    # the leaf tables run in a fresh process: late in a whole run
+    # torch.profiler has recorded a few of a session's kernels or none
+    # (PERF.md §7), where a new process records them all
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    errs = ctx.Queue()
+    child = ctx.Process(target=_bwd_leaf_child,
+                        args=(str(Path(__file__).resolve().parent / "src"),
+                              errs))
+    child.start()
+    child.join()
+    if child.exitcode != 0:
+        raise AssertionError(f"K2b's leaf tables: the process exited "
+                             f"{child.exitcode}")
+    return max(err, errs.get(timeout=60)), rows
+
+
+def _bwd_leaf_child(src: str, errs) -> None:
+    """The process of 13 (a)'s leaf tables: ``bwd_leaf_rows`` at each key
+    of ``BWD_LEAF_ROWS``; puts the largest error on ``errs``."""
+    sys.path.insert(0, src)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    err = 0.0
+    for label, R, h, hk, sq, page, d, causal, window, _ in BWD_SIGNATURES:
+        if label in BWD_LEAF_ROWS:
+            err = max(err, bwd_leaf_rows(label, R, h, hk, sq, page, d,
+                                         causal, window, gen))
+            torch.cuda.empty_cache()
+    errs.put(err)
 
 
 def _train_counts(cfg, mb: int) -> dict:
     """Launches a train step of an ``attn_mlp`` config (and whisper's
     encoder-decoder) makes: each K1 product of the forward and its dA and
-    dB, two K4 transposes a product, one K2 and one K2b (two kernels) an
-    attention core, a microbatch each."""
+    dB, two K4 transposes a product, one K2 and one K2b call (three kernels
+    in bf16, two in f32: ``launches_a_call``) an attention core, a
+    microbatch each."""
+    from repro_torch.kernels.flash_attention_bwd import launches_a_call
     prods = 7 * cfg.layers + 1
     cores = cfg.layers
     if cfg.encoder is not None:
@@ -3603,7 +3783,8 @@ def _train_counts(cfg, mb: int) -> dict:
         cores += cfg.encoder.layers + cfg.layers
     return {"matmul_h100": 3 * prods * mb, "transpose_h100": 2 * prods * mb,
             "flash_attention_h100": cores * mb,
-            "flash_attention_bwd_h100": 2 * cores * mb}
+            "flash_attention_bwd_h100":
+                launches_a_call(getattr(torch, cfg.dtype)) * cores * mb}
 
 
 def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:

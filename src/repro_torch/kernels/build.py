@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("matmul", "flash_attention", "flash_attention_bwd", "ssd_scan",
            "matadd", "transpose", "jacobi1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -90,7 +90,18 @@ def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed on {name}.cu:\n{log}")
+    log_tmp = tmp.with_suffix(".log")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, out.with_suffix(".log"))
     os.replace(tmp, out)                      # atomic: racing builds agree
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the built library of ``csrc/<name>.cu``, kept
+    beside it (``-Xptxas -v``: each kernel's registers, shared memory and
+    spills); empty when it was not built here."""
+    path = _lib_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def build_all() -> float:

@@ -15,11 +15,19 @@ f32, outputs in the inputs' type.
 
 Bound on the card: a training layer does about 2.5 times the forward's
 flops over the same bytes, hundreds of flops a byte at sq 1024: bound by
-operations.  This first kernel is simple and right (f32 tiles and FMA, no
-tensor cores): two kernels, a dQ sweep (one block a query tile, which
-recomputes each query's log-sum-exp) and a dK/dV sweep (one block a key
-tile, over the group's query heads), with no atomics, so two launches give
-the same bits.
+operations, which in bf16 only the tensor cores reach.  Two bodies, both
+without atomics, so two launches give the same bits:
+
+- bf16, on the tensor cores, three kernels: lse and δ (a block a
+  query tile: S = Q·Kᵀ by ``mma.sync`` and each query's log-sum-exp, δ =
+  rowsum(dO∘O)), dQ (the same blocks: S and dP = dO·Vᵀ by ``mma.sync``, P
+  and dS on the f32 fragments, dQ += dS·K with dS rounded to bf16) and
+  dK/dV (a block a key tile over the group's query heads: Sᵀ, dPᵀ, dV +=
+  Pᵀ·dO, dK += dSᵀ·Q), from XOR-swizzled bf16 tiles (K2's, in
+  ``csrc/attention_tiles.cuh``) fed by a two-stage ``cp.async`` ring; a
+  warp owns 16 rows of its block.
+- f32, FMA on f32 tiles, never TF32, two kernels: dQ (recomputing
+  each query's log-sum-exp in a first sweep) and dK/dV.
 
 Program parameters:  bq (queries a tile), bkv (keys a tile)
 Data parameters:     SQ, HD, GROUP (query heads a KV head), HK (KV heads),
@@ -65,13 +73,39 @@ def tile_dim(d: int) -> int:
     return 64 if d <= 64 else 128
 
 
-def smem_bytes(bq, bkv, d):
-    """Shared bytes of the larger of the two kernels (dK/dV): f32 tiles of
+def f32_smem_bytes(bq, bkv, d):
+    """Shared bytes of the FMA body's larger kernel (dK/dV): f32 tiles of
     K and V (bkv rows), Q and dO (bq rows), each row D + 1 words, P and dS
     (bq rows of bkv + 1) and two words a query.  Over ints (``d`` the head
     dim) or over polynomials for the counter."""
     dp = (tile_dim(d) if isinstance(d, int) else d) + 1
     return 4 * (2 * bkv * dp + 2 * bq * dp + 2 * bq * (bkv + 1) + 2 * bq)
+
+
+def tc_kernel_smem(bq, bkv, dt):
+    """Shared bytes of each of the tensor-core body's kernels at tile dim
+    ``dt``, bf16 [row][dt] tiles: (lse: Q and two K tiles of the ring, dQ:
+    Q, dO and two K and V tiles, dK/dV: K, V and two Q and dO tiles with
+    their f32 lse and delta).  Over ints or NumPy columns."""
+    return (2 * (bq * dt + 2 * bkv * dt), 2 * (2 * bq * dt + 4 * bkv * dt),
+            2 * (2 * bkv * dt + 4 * bq * dt) + 16 * bq)
+
+
+def tc_smem_bytes(bq: int, bkv: int, d: int) -> int:
+    """Shared bytes of the tensor-core body's largest kernel."""
+    return max(tc_kernel_smem(bq, bkv, tile_dim(d)))
+
+
+def smem_bytes(bq: int, bkv: int, d: int) -> int:
+    """Shared bytes of the larger of the two bodies (the FMA body's at every
+    point of the domain)."""
+    return max(f32_smem_bytes(bq, bkv, d), tc_smem_bytes(bq, bkv, d))
+
+
+def launches_a_call(dtype: torch.dtype) -> int:
+    """Kernel launches of one call: bf16 runs the tensor-core body's three
+    (lse and delta, dQ, dK/dV), f32 the FMA body's two (dQ, dK/dV)."""
+    return 3 if dtype == torch.bfloat16 else 2
 
 
 def format_error(rows: int, h: int, hk: int, sq: int, page: int, d: int,
@@ -212,7 +246,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _ELEM[q.dtype], torch._C._cuda_getCurrentRawStream(dev.index))
     if err:
         build.check(err, f"flash_attention_bwd_h100(bq={bq}, bkv={bkv})")
-    flash_attention_bwd_h100.launches += 2
+    flash_attention_bwd_h100.launches += launches_a_call(q.dtype)
     flash_attention_bwd_h100.shapes[signature(
         q, k, bq=bq, bkv=bkv, causal=causal, window=window)] += 1
     return dq, dk, dv
@@ -226,11 +260,12 @@ def flash_attention_bwd_h100(q: torch.Tensor, k: torch.Tensor,
                              scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """(dq, dk, dv).  CUDA tensors launch the two kernels (or raise); CPU
-    tensors run :func:`flash_attention_bwd_plain`.
-    ``flash_attention_bwd_h100.launches`` counts kernel launches, two a
-    call (dQ, then dK/dV); ``flash_attention_bwd_h100.shapes`` counts the
-    calls by :func:`signature`."""
+    """(dq, dk, dv).  CUDA tensors launch the kernels of their type's body
+    (or raise); CPU tensors run :func:`flash_attention_bwd_plain`.
+    ``flash_attention_bwd_h100.launches`` counts kernel launches,
+    :func:`launches_a_call` a call (bf16: lse and δ, dQ, dK/dV; f32: dQ,
+    dK/dV); ``flash_attention_bwd_h100.shapes`` counts the calls by
+    :func:`signature`."""
     fn = flash_attention_bwd_plain if q.device.type == "cpu" else _launch
     return fn(q, k, v, o, do, lens, bq=bq, bkv=bkv, causal=causal,
               window=window, scale=scale)
@@ -246,32 +281,60 @@ flash_attention_bwd_h100.shapes = collections.Counter()
 
 _DOMAINS = {"bq": BQ, "bkv": BKV}
 _CLOCK = 1.7e9                   # SM cycles a second (H100 SXM boost)
+#: Registers a thread of the tensor-core body's kernels (lse, dQ, dK/dV) at
+#: tile dim 64 and 128, as ``ptxas -v`` reports them (sm_90a, no spills),
+#: rounded up to the allocation unit of 8.
+TC_REGISTERS = {64: (72, 128, 128), 128: (56, 160, 240)}
+#: The napkin's constants, SM cycles, fitted to the card's per-kernel times
+#: of every leaf at llama3-8b's training key (``chip_smoke.py`` phase 13
+#: (a)): the dependent chain of one warp's 16 x 16 block of pairs in each
+#: kernel, which the SM's resident warps overlap, and the cost a block's
+#: 16-byte ring copy adds to each such block.
+_CHAIN = (3700.0, 3700.0, 5000.0)
+_COPY = (19.0, 19.0, 53.0)
 
 
 def _score(v: Mapping[str, object]):
-    """Napkin model of the two kernels on an H100, over scalars or NumPy
-    columns: 1 / (estimated µs), higher is better.  A block of 256 threads
-    spends, on each (query tile, key tile) pair it visits, D·(16 + bq/16 +
-    bkv/16) thread cycles a score product (every thread runs 16 FMAs a
-    column whatever the tile, and loads bq/16 + bkv/16 words), five score
-    products a pair over the two kernels, and the output sums: bkv·D/16·(1
-    + bq/16) for dQ, 2·bq·D/16·(1 + bkv/16) for dK and dV.  Pairs: the
-    tiles of SQ queries against SQ keys (the training forward's key count)
-    over GROUP·HK heads.  The blocks an SM holds share its FMA pipes, so
-    the grid's blocks run at one block's rate an SM (on an H100 at the
-    llama3-8b training key, bq 32 with two blocks an SM took 20.1 ms against
-    16.4 for bq 64 with one)."""
+    """Napkin model of the tensor-core body on an H100, over scalars or
+    NumPy columns: 1 / (estimated µs), higher is better; the FMA body takes
+    the same pick.  Work: the 16 x 16 blocks of query-key pairs, a warp's
+    unit, of SQ queries against SQ keys (the training forward's key count)
+    over GROUP·HK heads, each visited once by each of the three kernels.
+    On an SM a unit costs the larger of its shared-memory reads (``ldmatrix``
+    x4 of 512 bytes at 128 bytes a cycle: S costs 2·D/16 of them, dP as
+    much, a product from the fragments D/16) and its kernel's dependent
+    chain over the SM's resident warps (``mma.sync`` issue and latency,
+    the exponentials), plus the ring's copies a unit: 2·D over the block's
+    rows (the two-stage ring overlaps a tile's copies with the last
+    tile's products, but a thread issues them).  Resident warps: blocks an
+    SM by registers (``TC_REGISTERS``), shared memory
+    (:func:`tc_smem_bytes`' kernels), 32 blocks and 64 warps, and no more
+    than the grid's blocks spread over the SMs; the grid's blocks also cap
+    the SMs in use: lse and dQ run (SQ/bq)·GROUP·HK blocks of bq/16 warps,
+    dK/dV (SQ/bkv)·HK blocks of bkv/16 warps."""
     bq, bkv = np.asarray(v["bq"], float), np.asarray(v["bkv"], float)
     sq, hd, group, hk = v["SQ"], v["HD"], v["GROUP"], v["HK"]
     cores = max(1, v.get("CORES", 1))
     dt = tile_dim(int(hd))
-    ri, rj = bq / 16, bkv / 16
+    units = np.ceil(sq / 16) ** 2 * group * hk
     tq, tk = np.ceil(sq / bq), np.ceil(sq / bkv)
-    pair = (5 * dt * (16 + ri + rj) + bkv * dt / 16 * (1 + ri)
-            + 2 * bq * dt / 16 * (1 + rj))
-    blocks = tq * group * hk + tk * hk
-    cycles = tq * tk * group * hk * pair
-    return 1e-6 / (cycles / np.minimum(cores, blocks) / _CLOCK + 5e-6)
+    ldm = (2 * dt / 16, 5 * dt / 16, 6 * dt / 16)
+    smem = tc_kernel_smem(bq, bkv, dt)
+    rows = (bq, bq, bkv)                      # a block's rows: 16 a warp
+    copies = (dt / bq, 2 * dt / bq, 2 * dt / bkv)
+    blocks = (tq * group * hk, tq * group * hk, tk * hk)
+    us = 0.0
+    for k in range(3):
+        wpb = rows[k] / 16
+        bps = np.minimum.reduce([
+            np.full_like(wpb, 32.0), np.floor(64 / wpb),
+            np.floor(65536 / (TC_REGISTERS[dt][k] * 32 * wpb)),
+            np.floor(232448 / smem[k])])
+        warps = wpb * np.minimum(bps, np.maximum(1.0, blocks[k] / cores))
+        unit = (np.maximum(4 * ldm[k], _CHAIN[k] / warps)
+                + _COPY[k] * copies[k])
+        us = us + units * unit / np.minimum(cores, blocks[k]) / _CLOCK * 1e6
+    return 1.0 / (us + 3 * 2.0)               # a launch's ~2 µs each
 
 
 class FlashAttentionBwdH100Family(CachedInstantiationMixin):
@@ -289,12 +352,17 @@ class FlashAttentionBwdH100Family(CachedInstantiationMixin):
     def counters(self) -> Sequence[Counter]:
         return [
             resource("smem_bytes", "V", (),
-                     "f32 K, V, Q, dO, P and dS tiles of the dK/dV kernel, "
-                     "the larger of the two (paper: Z_B)"),
-            resource("threads", "T", (), "16 x 16 threads a block (paper: T)"),
+                     "shared bytes of the larger body: the FMA body's f32 "
+                     "K, V, Q, dO, P and dS tiles of its dK/dV kernel "
+                     "(paper: Z_B)"),
+            resource("threads", "T", (),
+                     "threads a block of the larger body: the FMA body's "
+                     "16 x 16 (the tensor-core body's at most 4 warps) "
+                     "(paper: T)"),
             resource("registers", "G", (),
-                     "dK and dV sums, the score and dP tiles, indices "
-                     "(paper: R)"),
+                     "registers a thread of the larger body: the "
+                     "tensor-core dK/dV kernel's, whose dK and dV sums "
+                     "alone take HD a thread (paper: R)"),
         ]
 
     def strategies(self) -> Sequence[Strategy]:
@@ -306,16 +374,17 @@ class FlashAttentionBwdH100Family(CachedInstantiationMixin):
         bq, bkv, hd = V("bq"), V("bkv"), V("HD")
         one = Poly.const(1)
         if counter == "smem_bytes":
-            # smem_bytes() with the head dim for the tile width (the tile is
-            # 64 or 128 wide; every point of the domain fits at 128)
-            return smem_bytes(bq, bkv, hd), one
+            # the FMA body's, the larger (f32_smem_bytes with the head dim
+            # for the tile width: the tile is 64 or 128 wide; every point of
+            # the domain fits at 128)
+            return f32_smem_bytes(bq, bkv, hd), one
         if counter == "threads":
             return Poly.const(THREADS), one
         if counter == "registers":
-            # 2·(bkv/16)·(HD/16) dK and dV sums, 2·(bq/16)·(bkv/16) score
-            # and dP entries, HD/16 loaded columns, indices and addresses
-            return (bkv * hd / 128 + bq * bkv / 128 + hd / 16
-                    + Poly.const(48)), one
+            # the tensor-core dK/dV kernel's ptxas count, linear in the tile
+            # dim through TC_REGISTERS' 128 at 64 and 240 at 128 (the FMA
+            # body's kernels take at most 128)
+            return hd * 7 / 4 + Poly.const(16), one
         raise KeyError(counter)
 
     def score(self, plan: KernelPlan, v: Mapping[str, int]) -> float:

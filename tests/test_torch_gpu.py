@@ -1176,25 +1176,43 @@ def _bwd_inputs(rows, h, hk, sq, page, d, lens, dev, dtype, seed=21):
     return q, k, v, o, do, ln
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("rows,h,hk,sq,page,d,causal,window,lens,bq,bkv", [
+#: K2b's cases on the card (rows, h, hk, sq, page, d, causal, window,
+#: lens, bq, bkv): three of its first kernel's, then every leaf of the
+#: domain at a d 128 GQA signature (group 4) and at a d 64 one, a d that is
+#: not a multiple of 8 (element loads), a window, ragged lengths with a row
+#: of length 0, and sq < page without a causal mask.
+_BWD_CASES = [
     (2, 8, 2, 100, 100, 128, True, None, [100, 77], 64, 64),
     (3, 4, 4, 20, 70, 64, False, None, [70, 0, 45], 32, 32),
     (2, 6, 3, 64, 64, 16, True, 16, [64, 64], 16, 16),
-])
+    *[(2, 8, 2, 96, 96, 128, True, None, [96, 61], bq, bkv)
+      for bq in (16, 32, 64) for bkv in (16, 32, 64)],
+    *[(2, 4, 4, 80, 80, 64, False, None, [80, 80], bq, bkv)
+      for bq in (16, 32, 64) for bkv in (16, 32, 64)],
+    (2, 8, 2, 50, 50, 100, True, None, [50, 33], 32, 16),
+    (2, 8, 2, 90, 90, 128, True, 24, [90, 90], 32, 32),
+    (4, 8, 2, 64, 64, 128, True, None, [64, 30, 0, 9], 64, 16),
+    (2, 4, 2, 24, 100, 64, False, None, [100, 77], 16, 64),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows,h,hk,sq,page,d,causal,window,lens,bq,bkv",
+                         _BWD_CASES)
 def test_gpu_flash_bwd_kernel_matches_plain(cuda, dtype, tol, rows, h, hk,
                                             sq, page, d, causal, window,
                                             lens, bq, bkv):
-    """K2b against its plain version on the same inputs: f32 at 1e-4 of
-    the largest gradient (FMA sums in another order, ``expf`` against
-    ``torch.exp``), bf16 at 2e-2 of it (both compute in f32 from the same
-    bf16 inputs and round each gradient once: 2^-8 of an element).  Two
-    launches give the same bits (no atomics), and a row of length 0 gets
-    zeros."""
+    """K2b against its plain version on the same inputs: f32 (the FMA
+    body) at 1e-4 of the largest gradient (sums in another order, ``expf``
+    against ``torch.exp``), bf16 (the tensor-core body) at 2e-2 of it (both
+    sum in f32 from the same bf16 inputs and round each gradient once,
+    2^-8 of an element; the kernel also rounds P and dS to bf16 before
+    their products).  Two launches give the same bits (no atomics), and a
+    row of length 0 gets zeros."""
     from repro_torch.kernels.flash_attention_bwd import (
-        flash_attention_bwd_h100, flash_attention_bwd_plain)
+        flash_attention_bwd_h100, flash_attention_bwd_plain, launches_a_call)
     q, k, v, _, do, ln = _bwd_inputs(rows, h, hk, sq, page, d, lens, cuda,
                                      dtype)
     o = _t((rows, h, sq, d), 40, cuda, dtype)
@@ -1203,7 +1221,8 @@ def test_gpu_flash_bwd_kernel_matches_plain(cuda, dtype, tol, rows, h, hk,
     got = flash_attention_bwd_h100(q, k, v, o, do, ln, **kw)
     again = flash_attention_bwd_h100(q, k, v, o, do, ln, **kw)
     torch.cuda.synchronize()
-    assert flash_attention_bwd_h100.launches == n0 + 4
+    assert flash_attention_bwd_h100.launches == n0 + 2 * launches_a_call(
+        dtype)
     want = flash_attention_bwd_plain(q, k, v, o, do, ln, **kw)
     for g, a, w in zip(got, again, want):
         assert g.dtype == dtype and torch.equal(g, a)
@@ -1213,6 +1232,28 @@ def test_gpu_flash_bwd_kernel_matches_plain(cuda, dtype, tol, rows, h, hk,
     if 0 in lens:
         r = lens.index(0)
         assert not any(x[r].any() for x in got)
+
+
+@pytest.mark.gpu
+def test_gpu_attention_fn_bf16_bwd_is_k2b_through_ops(cuda):
+    """``AttentionFn`` in bf16 on the card: its backward gives the bits of
+    K2b's tensor-core body called through ``ops.attention_bwd`` on the
+    saved forward output, in three launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autograd import AttentionFn
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_h100
+    q, k, v, _, do, ln = _bwd_inputs(2, 8, 2, 64, 64, 128, [64, 41], cuda,
+                                     torch.bfloat16)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o = AttentionFn.apply(q, k, v, None, ln, True, None)
+    n0 = flash_attention_bwd_h100.launches
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_h100.launches == n0 + 3
+    want = ops.attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(),
+                             do, ln, causal=True)
+    for g, x in zip(want, (q, k, v)):
+        assert x.grad.dtype == torch.bfloat16 and torch.equal(g, x.grad)
 
 
 @pytest.mark.gpu

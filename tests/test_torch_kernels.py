@@ -6,6 +6,8 @@ the port's op, which on CPU tensors runs the kernel's plain version under
 the leaf the H100 dispatch picks.  The CUDA kernels themselves are checked
 on the card (``tests/test_torch_gpu.py`` and ``chip_smoke.py``).
 """
+import itertools
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -993,9 +995,62 @@ def test_flash_bwd_format_error_mirrors_the_entry_point():
     for bad, why in (({"h": 6, "hk": 4}, "multiple"), ({"d": 160}, "d not"),
                      ({"bq": 128}, "bq not"), ({"dtype": torch.float16},
                                                "f32 or bf16"),
-                     ({"rows": 70_000}, "65,535")):
+                     ({"rows": 70_000}, "65,535"), ({"bkv": 128}, "bkv not"),
+                     ({"d": 0}, "d not"), ({"sq": 0}, "empty"),
+                     ({"h": 70_000, "hk": 70_000}, "65,535")):
         assert why in fab.format_error(**{**ok, **bad})
     assert fab.smem_bytes(64, 64, 128) <= 232_448
+    # a d off the 16-byte grain (the element loads) and f32 are taken
+    assert fab.format_error(**{**ok, "d": 100}) is None
+    assert fab.format_error(**{**ok, "dtype": torch.float32}) is None
+
+
+@pytest.mark.parametrize("name,data", [
+    ("llama3-8b training", {"SQ": 1024, "HD": 128, "GROUP": 4, "HK": 8}),
+    ("whisper encoder", {"SQ": 1500, "HD": 64, "GROUP": 1, "HK": 20})])
+def test_flash_bwd_napkin_pick_is_a_feasible_leaf_that_fits(name, data):
+    """The napkin's pick at llama3-8b's training key and whisper's encoder
+    key is a leaf of the domain that the entry point takes, whose counters
+    (shared bytes, threads, registers of the larger body) fit the H100, and
+    whose blocks of each kernel fit an SM by shared memory and registers."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import rank_candidates
+    pick = rank_candidates(fab.FAMILY, H100_SXM, data)[0]
+    a = pick.assignment
+    assert a["bq"] in fab.BQ and a["bkv"] in fab.BKV
+    h = data["GROUP"] * data["HK"]
+    assert fab.format_error(4, h, data["HK"], data["SQ"], data["SQ"],
+                            data["HD"], a["bq"], a["bkv"],
+                            torch.bfloat16) is None
+    pt = {**a, **data, **H100_SXM.bindings()}
+    limits = {"smem_bytes": H100_SXM.vmem_bytes,
+              "threads": H100_SXM.threads_per_block,
+              "registers": H100_SXM.vreg_budget}
+    for counter, limit in limits.items():
+        num, den = fab.FAMILY.counter_value(pick.plan, counter)
+        assert num.eval(pt) / den.eval(pt) <= limit, (name, counter)
+    dt = fab.tile_dim(data["HD"])
+    assert fab.tc_smem_bytes(a["bq"], a["bkv"], dt) <= H100_SXM.vmem_bytes
+    assert max(fab.TC_REGISTERS[dt]) <= H100_SXM.vreg_budget
+    # at both keys the napkin takes the largest tiles, as the card does
+    assert (a["bq"], a["bkv"]) == (64, 64)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_bwd_smem_counter_is_the_larger_body(hd):
+    """At every leaf the ``smem_bytes`` counter equals the shared bytes of
+    the larger of K2b's two bodies: the FMA body's, which is at least the
+    tensor-core body's largest kernel."""
+    plan = fab.FAMILY.initial_plan()
+    num, den = fab.FAMILY.counter_value(plan, "smem_bytes")
+    for bq, bkv in itertools.product(fab.BQ, fab.BKV):
+        pt = {"bq": bq, "bkv": bkv, "HD": hd}
+        larger = max(fab.f32_smem_bytes(bq, bkv, hd),
+                     fab.tc_smem_bytes(bq, bkv, hd))
+        assert num.eval(pt) / den.eval(pt) == larger \
+            == fab.smem_bytes(bq, bkv, hd), (bq, bkv)
+        assert fab.f32_smem_bytes(bq, bkv, hd) >= \
+            fab.tc_smem_bytes(bq, bkv, hd)
 
 
 def test_flash_bwd_tunes_on_the_cpu(tmp_path, capsys):
