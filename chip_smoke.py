@@ -7,8 +7,10 @@ Phases print on their own lines; any failure raises and exits non-zero, and
 no phase is caught.
 
 1. device: torch and CUDA versions, the card's name and power limit.
-2. build: ``nvcc`` builds the six kernels (``csrc/*.cu``), one process
-   each, all started together; the build time.
+2. build: ``nvcc`` builds the kernels (``csrc/*.cu``), one process
+   each, all started together; the build time; each K2b and K4 kernel's
+   ``ptxas`` registers and spills (a K4 kernel, or a K2b tensor-core
+   kernel, that spills fails the run).
 3. K1 ``matmul_h100`` against its plain version: in bf16 at every matmul
    triple of the full llama3-8b serve path at M = 4 and 32 through the leaf
    the dispatch picks; through the pick at N = 25 in f32 and N = 32001 in
@@ -273,27 +275,35 @@ no phase is caught.
    launches.  (d) One f32 train step of the five dense smoke configs and
    whisper's on the card against the CPU (tolerances at
    ``phase_train_parity``).  Every launch counter is set to 0 just before
-   (b) and (c) and read just after; their launch signatures are then
-   timed as phase 9 times a pick (K2b's of (a) and K4's of phase 6 keep
-   their rows), and (b) and (c) are main paths of K1, K2, K4 and K2b in
-   the kernels' line (``by_paths`` "training").
+   (b) and (c) and read just after.  (e) K4 at each launch signature of
+   (b) and (c), bf16: launches a step, the pick eagerly and as device
+   time beside its byte bound, ``a.t().contiguous()`` (both ways) and
+   ``a.clone()`` (the same bytes untransposed, device time), and
+   the pick with the leaves of ``K4_TRAIN_LEAVES``, each bit for bit and
+   as device time, the napkin's rank beside the card's.  The launch
+   signatures of (b) and (c) are then timed as phase 9 times a pick
+   (K2b's of (a) and K4's of phase 6 and (e) keep their rows), and (b)
+   and (c) are main paths of K1, K2, K4 and K2b in the kernels' line
+   (``by_paths`` "training").
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
 fastest): one mean over one batch let a single slow batch set a row.  A
 launch whose host cost exceeds its device time reads its host cost this
-way, so K1-K6, ``torch.matmul`` and SDPA also print ``device_ms``
-(``library_device_ms`` for the library call): 20 launches (K4's 1 GB
-transposes 5) captured in one CUDA graph, replayed in 5 batches, the
-median over them.  A
+way, so K1-K6, ``torch.matmul``, SDPA and ``a.t().contiguous()`` also
+print ``device_ms`` (``library_device_ms`` for the library call): 20
+launches (K4's 5 at 64 MB or more, up to 1 GB each) captured in one CUDA
+graph, replayed in 5 batches, the median over them.  A
 matmul cycles through copies of its weight operand so that each launch
 reads it from device memory, as the serve path does (attention reads K/V
 and the SSD scan reads x, b, c that the serve path has just written, so
 repeated launches on the same inputs stand for it).  A Jacobi sweep is
 timed alone (one launch of ``jacobi1d.sweep``) and cycles through copies of
 its two buffers, 2^15 + 2 and 2^21 + 2 alike, so that each launch reads and
-writes memory the L2 does not hold; matadd and transpose move 0.8 and 2 GB
-a launch, far past the L2.  The bound of a launch
+writes memory the L2 does not hold; a transpose likewise cycles through
+copies of its input and keeps as many of its outputs alive (the training
+signatures move 0.5 MB to 1 GB a launch); matadd moves 0.8 GB a launch,
+far past the L2.  The bound of a launch
 is max(bytes / 3.35 TB/s, flops / peak), with each input read once and each
 output written once, the flops of the keys the masks leave visible, the
 recurrence's 5·state·hd flops a step and head for the SSD scan, and the
@@ -374,6 +384,7 @@ products on the card are full f32.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import gc
 import importlib
@@ -1049,6 +1060,29 @@ def matadd_case(sig, gen, *, timed: bool, shift: int = 0):
     return row
 
 
+def _k4_graph_reps(a: torch.Tensor) -> int:
+    """Launches a K4 graph holds: 5 of 64 MB or more (up to 1 GB each),
+    else 20, which a launch of a few microseconds needs to average out."""
+    return 5 if a.numel() * a.element_size() >= 1 << 26 else 20
+
+
+def _cold_launches(a: torch.Tensor):
+    """Wraps a transpose ``fn(x)`` into a launch on the next of enough
+    copies of ``a`` that ``L2_FLUSH_BYTES`` lie between two uses of one,
+    with as many of its outputs kept alive: each launch reads its input
+    from device memory and writes lines the L2 does not hold, as the byte
+    bound counts (an 8 or 13 MB transpose repeated on one input and output
+    reads 98-105 % of its bound)."""
+    nbytes = a.numel() * a.element_size()
+    ins = _cold_copies((a,), nbytes)
+    keep = max(1, math.ceil(L2_FLUSH_BYTES / nbytes))
+
+    def cold(fn):
+        outs = collections.deque(maxlen=keep)
+        return lambda: outs.append(fn(next(ins)[0]))
+    return cold
+
+
 def transpose_case(sig, gen, *, timed: bool):
     from repro_torch.kernels.transpose import transpose_h100, transpose_plain
     M, N, bm, bn, s, cached, dtype = sig
@@ -1058,10 +1092,18 @@ def transpose_case(sig, gen, *, timed: bool):
     torch.cuda.synchronize()
     row = {"err": exact(f"transpose {sig}", got, transpose_plain(a, **kw))}
     if timed:
-        time_into(row, "ms", lambda: transpose_h100(a, **kw), 10)
-        row["device_ms"] = graph_ms(lambda: transpose_h100(a, **kw), 5)
-        time_into(row, "plain_ms", lambda: transpose_plain(a, **kw), 10)
-        time_into(row, "library_ms", lambda: a.t().contiguous(), 10)
+        reps, cold = _k4_graph_reps(a), _cold_launches(a)
+        kernel = cold(lambda x: transpose_h100(x, **kw))
+        library = cold(lambda x: x.t().contiguous())
+        time_into(row, "ms", kernel, 10)
+        row["device_ms"] = graph_ms(kernel, reps)
+        time_into(row, "plain_ms",
+                  cold(lambda x: transpose_plain(x, **kw)), 10)
+        time_into(row, "library_ms", library, 10)
+        row["library_device_ms"] = graph_ms(library, reps)
+        # the same bytes moved without the transpose: what the card gives
+        # a launch of this size
+        row["copy_device_ms"] = graph_ms(cold(lambda x: x.clone()), reps)
         row["bound_ms"] = max(bound_terms_ms("transpose_h100", sig))
     return row
 
@@ -1175,6 +1217,20 @@ def phase_build() -> None:
             f"{st} bytes, spill loads {ld} bytes")
         if ("_tc_" in name or "_lse_" in name) and (st or ld):
             raise AssertionError(f"K2b {label} spills registers")
+    # K4's sixteen kernels (cached and uncached, two element sizes, four
+    # grains): registers and spills, none allowed
+    lines = ptxas_lines(build.build_log("transpose"), "transpose_")
+    if len(lines) != 16:
+        raise AssertionError(f"K4: ptxas reported {len(lines)} of its 16 "
+                             f"kernels")
+    for name, regs, st, ld in lines:
+        kind, elem, s = re.search(r"(transpose_(?:un)?cached)I([tj])Li(\d)",
+                                  name).groups()
+        label = f"{kind}<{'bf16' if elem == 't' else 'f32'}, s {s}>"
+        say(f"[build] K4 {label}: ptxas {regs} registers, spill stores "
+            f"{st} bytes, spill loads {ld} bytes")
+        if st or ld:
+            raise AssertionError(f"K4 {label} spills registers")
 
 
 #: The K1 signatures PERF.md follows (M, N, K), bf16: decode and prefill
@@ -4003,7 +4059,7 @@ def phase_train_llama(gen) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
-            "launches": launches, "shapes": shapes}
+            "launches": launches, "shapes": shapes, "steps": run["steps"]}
 
 
 def phase_train_whisper(gen) -> dict:
@@ -4065,7 +4121,7 @@ def phase_train_whisper(gen) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
-            "launches": launches, "shapes": shapes}
+            "launches": launches, "shapes": shapes, "steps": run["steps"]}
 
 
 def phase_train_parity() -> None:
@@ -4117,6 +4173,85 @@ def phase_train_parity() -> None:
         if not ok:
             raise AssertionError(f"{cfg.name}: the card's train step differs "
                                  "from the CPU's")
+
+
+#: 13 (e): the leaves of K4 timed beside its pick at each training
+#: signature, as launch formats (bm, bn, s, cached): 1024, 512 and 256
+#: threads a block at 16-byte loads, 8-byte loads, and a wide short tile.
+K4_TRAIN_LEAVES = ((32, 32, 8, True), (16, 32, 8, True), (8, 32, 8, True),
+                   (16, 64, 8, True), (32, 32, 4, True), (16, 32, 4, True),
+                   (8, 64, 4, True), (4, 256, 8, True))
+
+
+def k4_leaves(sig, gen, label: str) -> dict:
+    """K4 at ``sig`` = (M, N, bm, bn, s, cached, dtype), its pick: the pick
+    timed as :func:`transpose_case` times it, then the pick and every leaf
+    of ``K4_TRAIN_LEAVES`` on one input, each bit for bit and as cold
+    device time, with the napkin's rank (H100_SXM) beside the card's.
+    Prints one line after ``label``; returns the pick's row with
+    ``leaves`` {format: device ms}, ``napkin`` (the formats by score) and
+    ``first_over_fastest``."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.transpose import transpose_h100, transpose_plain
+    M, N, dtype = sig[0], sig[1], sig[-1]
+    row = transpose_case(sig, gen, timed=True)
+    scored = _feasible_formats(ops.FAMILIES["transpose_h100"], H100_SXM,
+                               {"M": M, "N": N})
+    pick = sig[2:6]
+    forms = [pick] + [f for f in K4_TRAIN_LEAVES if f != pick]
+    a = torch.randn((M, N), generator=gen, device=DEV).to(dtype)
+    cold = _cold_launches(a)
+    dev = {}
+    for bm, bn, s, cached in forms:
+        kw = dict(bm=bm, bn=bn, s=s, cached=cached)
+        # new bits each leaf (the sign flipped), so that an output block
+        # the allocator hands back from the last leaf cannot already hold
+        # the transpose
+        a.neg_()
+        exact(f"K4 leaf {(bm, bn, s, cached)} at {(M, N)}",
+              transpose_h100(a, **kw), transpose_plain(a, **kw))
+        dev[(bm, bn, s, cached)] = graph_ms(
+            cold(lambda x: transpose_h100(x, **kw)), _k4_graph_reps(a))
+    del a, cold
+    by_score = sorted(forms, key=lambda f: -scored[f].score)
+    by_dev = sorted(forms, key=lambda f: dev[f])
+    leaves = "; ".join(
+        f"{f[:3]}{'' if f[3] else ' uncached'} {dev[f]:.4f} "
+        f"({by_score.index(f) + 1} / {by_dev.index(f) + 1})"
+        for f in by_score)
+    row.update(leaves=dev, napkin=by_score,
+               first_over_fastest=dev[by_score[0]] / dev[by_dev[0]])
+    say(f"{label}: pick {pick[:3]}: ms {row['ms']:.4f}, device_ms "
+        f"{row['device_ms']:.4f}; byte bound {row['bound_ms']:.4f} ms, "
+        f"{100 * row['bound_ms'] / row['device_ms']:.1f} % of it; "
+        f"a.t().contiguous() {row['library_ms']:.4f} ms, device "
+        f"{row['library_device_ms']:.4f}; a.clone() device "
+        f"{row['copy_device_ms']:.4f}, "
+        f"{100 * row['bound_ms'] / row['copy_device_ms']:.1f} % of the "
+        f"bound; leaves by napkin score, device "
+        f"ms (napkin rank / card rank): {leaves}; the napkin's first at "
+        f"{row['first_over_fastest']:.3f} x the card's fastest")
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_train_k4(paths, gen) -> dict:
+    """(e) K4 at each launch signature of the training paths, bf16:
+    launches a step, then :func:`k4_leaves` at the pick.  Returns
+    {signature: the pick's row}, which the timing of the training
+    signatures keeps."""
+    per_step, owner = {}, {}
+    for p in paths:
+        for sig, n in p["shapes"]["transpose_h100"].items():
+            per_step[sig] = per_step.get(sig, 0) + n / p["steps"]
+            owner.setdefault(sig, p["name"])
+    rows = {}
+    for sig in sorted(per_step, key=lambda k: (owner[k], k[:2])):
+        rows[sig] = k4_leaves(
+            sig, gen, f"[train] (e) K4 {owner[sig]} {sig[:2]} {sig[-1]}: "
+                      f"{per_step[sig]:g} launches a step")
+    return rows
 
 
 def phase_train(gen) -> tuple:
@@ -4213,12 +4348,16 @@ def main() -> int:
     t0 = time.perf_counter()
     errs["flash_attention_bwd_h100"], bwd_rows, train_paths = phase_train(gen)
     train = _group_shapes(train_paths, TRAIN_KERNELS)
+    t1 = time.perf_counter()
+    k4_rows = phase_train_k4(train_paths, gen)
+    say(f"[train] (e) {time.perf_counter() - t1:.1f} s")
     # the training paths' signatures timed as phase 9 times a pick (K2b's
-    # of 13 (a) and K4's of phase 6 keep their rows)
-    timed = {**rows, "transpose_h100": cases["rows"]["transpose_h100"],
+    # of 13 (a), K4's of phase 6 and 13 (e) keep their rows)
+    timed = {**rows, "transpose_h100": {**cases["rows"]["transpose_h100"],
+                                        **k4_rows},
              "flash_attention_bwd_h100": bwd_rows}
     for name, row in phase_shapes(train, gen, timed=timed,
-                                  before="phase 6, 9, 12 or 13 (a)"
+                                  before="phase 6, 9, 12 or 13 (a) or (e)"
                                   ).items():
         rows.setdefault(name, {}).update(row)
     train_sums = launch_sums(train, rows)

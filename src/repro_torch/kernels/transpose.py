@@ -4,11 +4,18 @@ Replaces the TPU kernel ``pallas_transpose`` (``src/repro/kernels/
 transpose.py``, ``_tr_kernel_cached`` / ``_tr_kernel_uncached``) with the
 hand-written CUDA kernel in ``csrc/transpose.cu``: B = Aᵀ for elements of 2
 or 4 bytes (f32, bf16), moved as raw bits, so bit-exact, with no padding
-copies.  A block of bm × bn threads owns a bm × (s·bn) tile.
+copies.  A block of bm × bn threads owns a bm × (s·bn) tile; each thread
+loads its s neighbouring elements of a tile row in accesses of up to 16
+bytes, the tile is staged at the element's width (XOR-swizzled 16-byte
+chunks, bm·s·bn·size bytes), and the transposed tile is written in accesses
+of up to 16 bytes along B's rows.  The C entry point chooses the access
+widths per launch: what the base address and the row's bytes allow.
 
 The comprehensive tree reproduces the paper's three cases on Z_B = V, with
-the smem counter Z(g) = 4·bm·(g·bn + 1) bytes, the staged tile padded by one
-column (:func:`smem_bytes`, also the kernel's allocation):
+the smem counter Z(g) = 4·bm·(g·bn + 1) bytes (:func:`smem_bytes`), the
+paper's staged tile of 32-bit words padded by one column.  The kernel
+allocates bm·g·bn·size bytes, never more than Z(g), so the counter stays
+the bound the tree reasons about:
 
   case 1:  Z(s) <= V              cached, grain s
   case 2:  Z(1) <= V < Z(s)       cached, grain 1   (reduce_granularity)
@@ -35,6 +42,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import math
 from typing import Callable, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -52,11 +60,11 @@ _ARGTYPES = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
 
 
 def smem_bytes(bm, bn, g):
-    """Shared bytes of the cached kernel's tile: bm rows of g·bn elements
-    plus one padding column, each element a 32-bit word (both element
-    sizes).  Over ints, or over polynomials for the smem counter."""
+    """The smem counter Z(g): the paper's staged tile, bm rows of g·bn
+    32-bit words plus one padding column.  The cached kernel allocates
+    bm·g·bn·size bytes, at most this.  Over ints, or over polynomials for
+    the smem counter."""
     return 4 * bm * (g * bn + 1)
-
 
 
 # =============================================================================
@@ -69,6 +77,12 @@ def transpose_plain(a: torch.Tensor, *, bm: int, bn: int, s: int,
     :func:`ref.transpose`, ``a.t()``.  The block format does not change the
     result (paper Def. 2 ii), so it is taken and ignored."""
     return ref.transpose(a).contiguous()
+
+
+@functools.cache
+def _entry() -> Callable[..., int]:
+    """The C entry point, resolved once a process."""
+    return build.entry("transpose", "transpose_h100_launch", _ARGTYPES)
 
 
 def _launch(a: torch.Tensor, *, bm: int, bn: int, s: int,
@@ -87,12 +101,12 @@ def _launch(a: torch.Tensor, *, bm: int, bn: int, s: int,
     b = torch.empty((N, M), dtype=a.dtype, device=a.device)
     if a.numel() == 0:
         return b
-    fn = build.entry("transpose", "transpose_h100_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), b.data_ptr(), M, N, bm, bn, s, int(cached),
-             a.element_size(), stream)
-    build.check(err, f"transpose_h100(bm={bm}, bn={bn}, s={s}, "
-                     f"cached={cached})")
+    err = _entry()(a.data_ptr(), b.data_ptr(), M, N, bm, bn, s, int(cached),
+                   a.element_size(),
+                   torch._C._cuda_getCurrentRawStream(a.device.index))
+    if err:
+        build.check(err, f"transpose_h100(bm={bm}, bn={bn}, s={s}, "
+                         f"cached={cached})")
     transpose_h100.launches += 1
     transpose_h100.shapes[(M, N, bm, bn, s, bool(cached), a.dtype)] += 1
     return b
@@ -117,32 +131,55 @@ transpose_h100.shapes = collections.Counter()
 # FamilySpec — the paper's GPU counters for the comprehensive tree
 # =============================================================================
 
+#: Threads an H100 SM holds: 2048 / (bm·bn) blocks share one.
+_SM_THREADS = 2048
+
+
+def _sector_fill(M, seg_bytes):
+    """The useful share of the 32-byte sectors that a segment of
+    ``seg_bytes`` bytes of a B row touches, averaged over where B's rows
+    (2·M bytes apart at bf16) start within a sector."""
+    offsets = np.arange(0, 32, math.gcd(2 * int(M), 32))
+    seg = np.asarray(seg_bytes, dtype=np.float64)
+    sectors = np.ceil((offsets + seg[..., None]) / 32.0).mean(axis=-1)
+    return seg / (32.0 * sectors)
+
+
 def _score(v: Mapping[str, object], g, cached: bool):
     """Napkin model at grain ``g``, over scalars or NumPy columns, higher is
-    better.  Cached: a warp writes 32/bm output rows of bm elements, so
-    bm >= 8 (f32) fills the 32-byte sectors, and reads shared memory
-    conflict-free only at bm = 32.  Uncached: every store lands in its own
-    sector (a quarter).  Then the bytes a thread has in flight, 4·g of f32
-    issued together (before the cached tile's barrier): by Little's law
-    HBM3 needs about 25 KB in flight an SM, some 12 bytes for each of its
-    2048 threads, twice that where the barrier idles the loads half the
-    time, so the term is full at 32 bytes (g = 8).  Then the grid's fill of
-    the SMs, blocks of at least 256 threads, and threads past the ragged
-    edge doing no work."""
+    better.  The dispatch key has no element type, so it scores bf16, the
+    type of every training product; its constants are fitted by hand to
+    the card's device times of the cached leaves at the training
+    signatures and at Table 3's 16384² (``chip_smoke.py`` phase 13 (e) and
+    phase 6 time leaves beside the napkin's rank; ``chip_k4.py`` also at
+    keys held out of the fit: the other dense configs' and f32).  The
+    product of:
+    - loads: a thread's run of 2·g bytes, in flight before the barrier,
+      x / (x + 2) against 16 bytes' 16 / 18 (Little's law saturating);
+    - stores: the useful share of the 32-byte sectors a B row segment of
+      2·bm bytes (one element uncached) touches: bm 8 writes half sectors
+      and an M whose rows start mid-sector costs bm 16 a third of its
+      bytes; 64-byte segments (bm 32) gain 5 % over 32-byte ones;
+    - wide tiles: 1 / (1 + 0.05·log2(bn / 32)), 1 KB row pieces (bn 64)
+      lose to 512-byte ones;
+    - the grid's fill, (blocks / CORES)^0.2 up to 1;
+    - residency: 2048 / (bm·bn) blocks share an SM, so that one's loads
+      overlap another's stores once the grid runs in w waves:
+      1 + 0.1·(1 − 2 / R)·w / (w + 5)."""
     bm, bn, g = np.asarray(v["bm"]), np.asarray(v["bn"]), np.asarray(g)
     M, N = v.get("M", 4096), v.get("N", 4096)
     cores = max(1, v.get("CORES", 1))
-    row_blocks, col_blocks = np.ceil(M / bm), np.ceil(N / (bn * g))
-    fill = np.minimum(1.0, row_blocks * col_blocks / cores)
-    width = np.minimum(1.0, (bm * bn) / 256.0)
-    used = (M * N) / (row_blocks * bm * col_blocks * bn * g)
-    inflight = np.minimum(1.0, 4.0 * g / 32.0)
-    if cached:
-        store = np.minimum(1.0, bm / 8.0) * (0.5 + 0.5 * np.minimum(
-            1.0, bm / 32.0))
-    else:
-        store = 0.25
-    return fill * width * used * store * inflight
+    x = np.minimum(16.0, 2.0 * g)
+    load = (x / (x + 2.0)) / (16.0 / 18.0)
+    seg = 2.0 * bm if cached else np.full(np.shape(bm), 2.0)
+    store = _sector_fill(M, seg) * (0.95 + 0.05 * np.minimum(1.0, seg / 64.0))
+    wide = 1.0 / (1.0 + 0.05 * np.log2(bn / 32.0))
+    blocks = np.ceil(M / bm) * np.ceil(N / (bn * g))
+    fill = np.minimum(1.0, blocks / cores) ** 0.2
+    resident = np.minimum(_SM_THREADS // (bm * bn), 32)
+    waves = blocks / (cores * resident)
+    overlap = 1.0 + 0.1 * (1.0 - 2.0 / resident) * waves / (waves + 5.0)
+    return load * store * wide * fill * overlap
 
 
 class TransposeH100Family(CachedInstantiationMixin):

@@ -692,15 +692,118 @@ def test_gpu_matadd_misaligned_bases(cuda, dtype, which):
     (1024, 1024, 32, 32, 1, True), (300, 700, 32, 32, 4, True),
     (300, 700, 8, 128, 2, True), (300, 700, 1, 1024, 8, True),
     (300, 700, 32, 32, 1, False), (77, 1000, 4, 64, 2, False),
-    (3, (1 << 22) + 5, 8, 32, 1, True), (4, 1 << 22, 8, 32, 1, False)])
+    (3, (1 << 22) + 5, 8, 32, 1, True), (4, 1 << 22, 8, 32, 1, False),
+    # llama3-8b's weight signatures of the training path, at their picks
+    (4096, 4096, 16, 32, 8, True), (4096, 1024, 32, 32, 8, True),
+    (4096, 14336, 16, 32, 8, True), (14336, 4096, 16, 32, 8, True),
+    (4096, 128256, 16, 32, 8, True), (4096, 4096, 32, 32, 8, True),
+    # rows whose bytes are no multiple of 16: narrower loads or stores
+    (64, 4097, 32, 32, 8, True), (1001, 1001, 16, 64, 4, True),
+    (33, 4097, 32, 32, 8, False), (1280, 51866, 32, 32, 8, True),
+    # a single row or column
+    (1, 4096, 32, 32, 8, True), (4096, 1, 32, 32, 8, True),
+    (1, 1, 1, 32, 1, True), (1, 1, 32, 32, 8, False),
+    # every bm of the domain, at 16-byte and at narrower accesses
+    (1000, 4096, 1, 1024, 8, True), (1000, 4096, 2, 512, 4, True),
+    (1000, 4096, 4, 256, 2, True), (1000, 4096, 8, 128, 8, True),
+    (1000, 4096, 16, 64, 1, True), (1000, 4096, 32, 32, 8, True),
+    (300, 700, 2, 256, 8, True), (300, 700, 4, 32, 8, True),
+    (300, 700, 16, 32, 8, True)])
 def test_gpu_transpose_kernel_matches_plain(cuda, dtype, M, N, bm, bn, s,
                                             cached):
     a = _t((M, N), 14, cuda, dtype)
+    _poison_next(a.numel() * a.element_size(), cuda)
     n0 = transpose_h100.launches
     got = transpose_h100(a, bm=bm, bn=bn, s=s, cached=cached)
     torch.cuda.synchronize()
     assert transpose_h100.launches == n0 + 1 and got.shape == (N, M)
     assert torch.equal(got, transpose_plain(a, bm=bm, bn=bn, s=s))
+
+
+def _poison_next(nbytes, dev):
+    """Frees a block of ``nbytes`` all-ones bytes, which PyTorch's caching
+    allocator hands to the next allocation of that size: an element the
+    kernel leaves unwritten then shows as a NaN pattern, not as what an
+    earlier launch left there."""
+    torch.full((nbytes,), 255, dtype=torch.uint8, device=dev)
+
+
+def _bit_view(x):
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
+
+
+def _random_bits(shape, seed, dev, dtype):
+    """Random bit patterns of ``dtype`` (NaNs with payloads among them),
+    with a −0.0 and two NaN payloads planted."""
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
+    info = torch.iinfo(ints)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(info.min, info.max, shape, generator=g,
+                      dtype=torch.int64).to(ints)
+    neg0, nan1, nan2 = ((-0x8000, 0x7FC1, -0x5B) if dtype == torch.bfloat16
+                        else (-0x80000000, 0x7FC00001, -0x7FFEDD))
+    x.view(-1)[:3] = torch.tensor([neg0, nan1, nan2], dtype=ints)
+    return x.to(dev).view(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm,bn,s,cached", [
+    (32, 32, 8, True), (16, 32, 8, True), (2, 128, 4, True),
+    (32, 32, 1, False)])
+def test_gpu_transpose_moves_raw_bits(cuda, dtype, bm, bn, s, cached):
+    """NaN payloads, −0.0 and every other bit pattern come through as they
+    are: compared as integers, since NaN != NaN."""
+    a = _random_bits((517, 1040), 21, cuda, dtype)
+    assert torch.isnan(a).any() and (_bit_view(a) == _bit_view(
+        torch.tensor(-0.0, dtype=dtype, device=cuda))).any()
+    _poison_next(a.numel() * a.element_size(), cuda)
+    got = transpose_h100(a, bm=bm, bn=bn, s=s, cached=cached)
+    torch.cuda.synchronize()
+    assert torch.equal(_bit_view(got), _bit_view(a).t().contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("how", ["buffer", "row_slice"])
+def test_gpu_transpose_misaligned_base(cuda, dtype, how):
+    """A contiguous operand whose storage starts off the 16-byte boundary
+    (one element into its buffer, or rows 1.. of an odd-width matrix)
+    takes narrower loads and agrees bit for bit."""
+    if how == "buffer":
+        a = _t((300 * 4096 + 1,), 22, cuda, dtype)[1:].view(300, 4096)
+    else:
+        a = _t((301, 1001), 22, cuda, dtype)[1:]
+    assert a.is_contiguous() and a.data_ptr() % 16
+    for bm, bn, s, cached in ((32, 32, 8, True), (8, 64, 4, True),
+                              (32, 32, 8, False)):
+        _poison_next(a.numel() * a.element_size(), cuda)
+        got = transpose_h100(a, bm=bm, bn=bn, s=s, cached=cached)
+        torch.cuda.synchronize()
+        assert torch.equal(got, transpose_plain(a, bm=bm, bn=bn, s=s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_transpose_in_a_cuda_graph(cuda, dtype):
+    """A launch captured in a CUDA graph and replayed on new contents of
+    its input gives their transpose bit for bit; the counter moves at the
+    capture, not at the replays."""
+    a = _t((4096, 1024), 24, cuda, dtype)
+    kw = dict(bm=32, bn=32, s=8)
+    transpose_h100(a, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    n0 = transpose_h100.launches
+    with torch.cuda.graph(g):
+        out = transpose_h100(a, **kw)
+    assert transpose_h100.launches == n0 + 1
+    for seed in (25, 26):
+        a.copy_(_random_bits(tuple(a.shape), seed, cuda, dtype))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(_bit_view(out), _bit_view(a).t().contiguous())
+    assert transpose_h100.launches == n0 + 1
 
 
 @pytest.mark.gpu

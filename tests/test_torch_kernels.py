@@ -20,6 +20,7 @@ from repro.kernels.jacobi1d import pallas_jacobi1d
 from repro.models.layers import _sdpa as j_sdpa
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import transpose as tr_mod
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import (flash_attention_h100,
                                                  flash_attention_h100_paged,
@@ -785,6 +786,76 @@ def test_transpose_every_block_format_same_result(bm, bn, s, cached):
     got = transpose_h100(ta, bm=bm, bn=bn, s=s, cached=cached)
     np.testing.assert_array_equal(_bits(got),
                                   _bits(np.asarray(jref.transpose(ja))))
+
+
+#: K4's picks under H100_SXM at the training paths' transposes (llama3-8b at
+#: 4 × 1024 rows a microbatch, whisper-large-v3 at 2 × 64 tokens over 2 ×
+#: 1500 frames) and at Table 3's 16384²: (M, N) -> (bm, bn, s).
+K4_PICKS = {
+    (4096, 4096): (16, 32, 8), (4096, 1024): (32, 32, 8),
+    (4096, 14336): (16, 32, 8), (14336, 4096): (16, 32, 8),
+    (4096, 128256): (16, 32, 8),
+    (1280, 1280): (32, 32, 8), (3000, 1280): (32, 32, 8),
+    (1280, 5120): (32, 32, 8), (5120, 1280): (32, 32, 8),
+    (3000, 5120): (32, 32, 8), (128, 1280): (16, 32, 4),
+    (128, 5120): (16, 32, 8), (1280, 51866): (16, 32, 8),
+    (16384, 16384): (16, 32, 8)}
+
+
+def test_transpose_picks_cover_the_training_signatures():
+    """``K4_PICKS`` holds every K4 key the two training warm sets trace."""
+    from repro_torch.configs import get_config
+    from repro_torch.plans.trace import trace_train_warm_set
+    keys = set()
+    for name, kw in (("llama3_8b", dict(global_batch=8, seq=1024,
+                                        microbatches=2)),
+                     ("whisper_large_v3", dict(global_batch=2, seq=64))):
+        for op in trace_train_warm_set(get_config(name), **kw):
+            if op.family == "transpose_h100":
+                d = op.data_dict()
+                keys.add((d["M"], d["N"]))
+    assert keys == set(K4_PICKS) - {(16384, 16384)}
+
+
+@pytest.mark.parametrize("M,N", sorted(K4_PICKS))
+def test_transpose_picks_at_the_training_signatures(M, N):
+    """The refitted napkin's picks, cached at full grain (case 1)."""
+    from repro_torch.kernels.instantiate_cache import grain
+    cand = ops.select("transpose_h100", {"M": M, "N": N})
+    a = cand.assignment
+    assert cand.plan.flags["smem_cache"]
+    assert (a["bm"], a["bn"], grain(cand.plan, a["s"])) == K4_PICKS[(M, N)]
+
+
+@pytest.mark.parametrize("M,N", [(4096, 128256), (4096, 4096),
+                                 (16384, 16384)])
+def test_transpose_napkin_ranks_the_leaves_as_fitted(M, N):
+    """At the large signatures the napkin orders the leaves as the card's
+    device times did (warm when its constants were set, and again with
+    every launch on a cold copy of its input): 16-byte runs before 8-byte
+    ones, bm 16 (512 threads) before bm 32 before bn 64 at each, and every
+    leaf whose bm writes partial 32-byte sectors after them."""
+    leaves = [(16, 32, 8), (32, 32, 8), (16, 64, 8), (16, 32, 4),
+              (32, 32, 4), (16, 64, 4), (8, 32, 4), (8, 64, 4),
+              (4, 256, 8), (2, 512, 8), (1, 1024, 8)]
+    score = {f: float(tr_mod._score({"bm": f[0], "bn": f[1], "M": M,
+                                     "N": N, "CORES": 132}, f[2], True))
+             for f in leaves}
+    assert sorted(leaves[:6], key=lambda f: -score[f]) == leaves[:6]
+    assert min(score[f] for f in leaves[:6]) > max(score[f]
+                                                    for f in leaves[6:])
+    assert sorted(leaves[8:], key=lambda f: -score[f]) == leaves[8:]
+
+
+@pytest.mark.parametrize("M,bm,want", [(4096, 16, 1.0), (4096, 8, 0.5),
+                                       (4096, 1, 1 / 16), (3000, 16, 2 / 3),
+                                       (3000, 32, 0.8), (1001, 32, 32 / 47)])
+def test_transpose_napkin_sector_fill(M, bm, want):
+    """The stores' useful share of the 32-byte sectors they touch: a bf16
+    B row segment of 2·bm bytes, B's rows 2·M bytes apart (3000 rows start
+    16 bytes into a sector every other row, 1001 rows on any even byte).
+    """
+    assert tr_mod._sector_fill(M, 2 * bm) == pytest.approx(want)
 
 
 @pytest.mark.parametrize("B,s,cached", [
