@@ -8,9 +8,9 @@ no phase is caught.
 
 1. device: torch and CUDA versions, the card's name and power limit.
 2. build: ``nvcc`` builds the kernels (``csrc/*.cu``), one process
-   each, all started together; the build time; each K2b and K4 kernel's
-   ``ptxas`` registers and spills (a K4 kernel, or a K2b tensor-core
-   kernel, that spills fails the run).
+   each, all started together; the build time; each K2b, K3b and K4
+   kernel's ``ptxas`` registers and spills (a K3b or K4 kernel, or a K2b
+   tensor-core kernel, that spills fails the run).
 3. K1 ``matmul_h100`` against its plain version: in bf16 at every matmul
    triple of the full llama3-8b serve path at M = 4 and 32 through the leaf
    the dispatch picks; through the pick at N = 25 in f32 and N = 32001 in
@@ -272,19 +272,42 @@ no phase is caught.
    then step 5 replayed under ``torch.profiler`` (device time by kernel,
    its loss equal too).  (c) whisper-large-v3 at full width, 4 + 4 layers,
    2 rows of 1500 frames and 64 tokens, two steps: finite losses, times,
-   launches.  (d) One f32 train step of the five dense smoke configs and
-   whisper's on the card against the CPU (tolerances at
-   ``phase_train_parity``).  Every launch counter is set to 0 just before
-   (b) and (c) and read just after.  (e) K4 at each launch signature of
-   (b) and (c), bf16: launches a step, the pick eagerly and as device
+   launches.  (d) One f32 train step of the five dense smoke configs,
+   whisper's, and mamba2's and hymba's (40 tokens: past their chunk of 16
+   and hymba's window of 32) on the card against the CPU (tolerances at
+   ``phase_train_parity``).  (f) K3b (``ssd_scan_bwd_h100``) through the
+   pick of each key of ``SSD_BWD_SIGNATURES`` (mamba2-130m's and
+   hymba-1.5b's training microbatches, a ragged seq of 1000 and seq 1 with
+   a state0 and a final state's gradient), bf16 and f32: held against its
+   plain version and against ``torch.autograd`` of K3's plain version,
+   two launches bit for bit, timed eagerly and as device time on copies of
+   its inputs cold to the L2 beside the plain version and its bound (the
+   chunk formulas' flops at the inputs' peak, ``bound_f32_ms`` at the f32
+   rate, or the bytes); then, in a process of its own, every leaf of its
+   tree at (g)'s and (h)'s keys in bf16, each held, bit for bit twice,
+   timed as cold device time and each of its three kernels under
+   ``torch.profiler``, the napkin's rank beside the card's; the build
+   prints its six kernels' ``ptxas`` registers and spills and fails if one
+   spills.  (g) mamba2-130m at full width and depth (24 layers): 4 steps of 8 x 1024 tokens in 2 microbatches, a checkpoint of
+   step 2 restored and step 2 replayed bit for bit, step 3 under the
+   profiler; (h) hymba-1.5b at full width, 4 of 32 layers (reduced: depth
+   only), 2 steps of 4 x 2048 tokens in 2 microbatches (the window of 1024
+   binds in K2 and K2b), a third under the profiler; both with (b)'s
+   records (launches against the step's products, cores and scans: K1
+   3·(pL+1)·mb, K4 2·(pL+1)·mb with p = 5 for mamba and 12 for hymba, K2
+   L·mb, K2b 3·L·mb, K3 L·mb, K3b 3·L·mb) and the share of the profiled
+   step K3 and K3b take.  Every launch counter is set to 0 just before
+   (b), (c), (g) and (h) and read just after.  (e) K4 at each launch
+   signature of (b), (c), (g) and (h), bf16 and f32: launches a step, the
+   pick eagerly and as device
    time beside its byte bound, ``a.t().contiguous()`` (both ways) and
    ``a.clone()`` (the same bytes untransposed, device time), and
    the pick with the leaves of ``K4_TRAIN_LEAVES``, each bit for bit and
    as device time, the napkin's rank beside the card's.  The launch
-   signatures of (b) and (c) are then timed as phase 9 times a pick
-   (K2b's of (a) and K4's of phase 6 and (e) keep their rows), and (b)
-   and (c) are main paths of K1, K2, K4 and K2b in the kernels' line
-   (``by_paths`` "training").
+   signatures of (b), (c), (g) and (h) are then timed as phase 9 times a
+   pick (K2b's of (a), K3b's of (f) and K4's of phase 6 and (e) keep their
+   rows), and the four are main paths of K1, K2, K2b, K3, K3b and K4 in
+   the kernels' line (``by_paths`` "training").
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -361,9 +384,11 @@ Tolerances, kernel against plain version on the same inputs:
   rtol = atol = 1e-2 on the bf16 y, one bf16 step as for attention.  The
   bf16 chunk body feeds G, the state and w⊙b to the tensor cores as a high
   and a low bf16 part (~16 bits; one rounding of G would break the 1e-2),
-  and every bf16 launch is also held to ||got - want|| / ||want|| <= 2^-6
-  (the split gives ~1e-4), a check that must refuse a planted fault: the
-  plain version with one step's decay set to 1.
+  and every bf16 launch is also held to ||got - want|| / ||want|| <= 2^-9
+  (sound launches read at most 1.3e-4), a check that must refuse a planted
+  fault: the plain version with one step's decay set to 1 (its least
+  reading, 1.1e-2, is at a 2048-step hymba row, whose state of 16 forgets
+  the fault within a few steps; 2^-6 passed it).
 - matadd and transpose: bit for bit (``torch.equal``): a transpose moves
   raw bits, and a sum is one f32 add rounded once to the element type on
   both sides.
@@ -378,6 +403,13 @@ Tolerances, kernel against plain version on the same inputs:
   forward rounds its intermediate casts too; in f32 only the order of sums
   differs (FMA over tiles of keys and queries against whole-row products,
   ``expf`` against ``torch.exp``).
+- SSD scan backward (K3b), against its plain version and autograd: each
+  gradient within 2e-2 (bf16 dx, db, dc) or 1e-4 (f32, and the f32 da and
+  d(state0) whatever the inputs' type) of its largest element, and of
+  itself.  All sum in f32 from the same inputs (the same chunk formulas
+  in another order, or autograd's step recurrence through the chunked
+  forward) and round dx, db and dc once to bf16 (2^-8 of an element);
+  ``expf``/``logf`` against ``torch.exp``/``log``.
 
 TF32 is off for the plain versions (``allow_tf32 = False``), so their f32
 products on the card are full f32.
@@ -410,7 +442,7 @@ FA_TOL = dict(rtol=1e-2, atol=1e-2)
 FA_REL = 2.0 ** -6                    # relative Frobenius error, split rows
 SSD_STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 SSD_Y_TOL = dict(rtol=1e-2, atol=1e-2)
-SSD_REL = 2.0 ** -6                   # relative Frobenius error, bf16 y
+SSD_REL = 2.0 ** -9                   # relative Frobenius error, bf16 y
 JACOBI_TOL = dict(rtol=1e-5, atol=1e-5)
 JACOBI_STEPS = 4
 BATCHES = 5
@@ -459,6 +491,10 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     # attention); this is the backward of K2's function
     "flash_attention_bwd_h100": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                  "src/repro/kernels/flash_attention.py:75"),
+    # K3b: the JAX package has no kernel backward (it differentiates
+    # ssd_chunk's einsum math); this is the backward of K3's function
+    "ssd_scan_bwd_h100": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                          "src/repro/kernels/ssd_scan.py:70"),
 }
 SERVE_KERNELS = ("matmul_h100", "matmul_h100_batched", "flash_attention_h100",
                  "ssd_scan_h100")
@@ -576,6 +612,8 @@ def work(name: str, sig) -> tuple:
                 + R * masked + 4 * R * (srows > 0)
                 + state_bytes * (2 if with_state else 1),
                 5.0 * R * S * H * n * hd, peak)
+    if name == "ssd_scan_bwd_h100":
+        return ssd_bwd_work(sig)
     if name == "flash_attention_bwd_h100":    # 2.5 times the forward's flops
         rows, h, hk, sq, page, d, _, _, causal, window, _ = sig
         pairs = sum(int(_visible(sq, n, causal, window).sum())
@@ -605,6 +643,34 @@ def work(name: str, sig) -> tuple:
 def bound_terms_ms(name: str, sig) -> tuple:
     nbytes, flops, peak = work(name, sig)
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
+
+
+def ssd_bwd_work(sig) -> tuple:
+    """(bytes, flops, peak) of one K3b call at (rows, seq, heads, hd, state,
+    chunk, shared, state0 given, dS_final given, dtype): x, dy, b, c,
+    the decay and the given states read once, dx, da, db, dc and d(state0)
+    written once; the flops of the chunk formulas (kernels/ssd_scan_bwd.py)
+    over the call's own chunks of n <= min(chunk, seq) steps, 10·n·N·hd +
+    n²·(3N + 2hd) a (row, head), at the bf16 tensor-core peak for bf16
+    inputs (:func:`ssd_bwd_f32_bound_ms` gives them at the f32 rate)."""
+    R, S, H, hd, n, chunk, shared, with_state, with_dsf, dtype = sig
+    esz = torch.empty((), dtype=dtype).element_size()
+    nb = n if shared else H * n
+    ck = min(chunk, S)
+    steps = [min(ck, S - t0) for t0 in range(0, S, ck)]
+    flops = R * H * sum(10.0 * m * n * hd + m * m * (3 * n + 2 * hd)
+                        for m in steps)
+    nbytes = (3 * R * S * H * hd * esz + 8 * R * S * H + 4 * R * S * nb * esz
+              + 4 * R * H * n * hd * (1 + with_state + with_dsf))
+    return nbytes, flops, PEAK_FLOPS[dtype]
+
+
+def ssd_bwd_f32_bound_ms(sig) -> float:
+    """K3b's bound at ``sig`` with every flop at the f32 rate, the rate of
+    its FMA body."""
+    nbytes, flops, _ = ssd_bwd_work(sig)
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                     flops / PEAK_FLOPS[torch.float32])
 
 
 def ssd_f32_bound_ms(sig) -> float:
@@ -1231,6 +1297,19 @@ def phase_build() -> None:
             f"{st} bytes, spill loads {ld} bytes")
         if st or ld:
             raise AssertionError(f"K4 {label} spills registers")
+    # K3b's three kernels in two element types: registers and spills,
+    # none allowed
+    lines = ptxas_lines(build.build_log("ssd_scan_bwd"), "ssd_bwd_")
+    if len(lines) != 6:
+        raise AssertionError(f"K3b: ptxas reported {len(lines)} of its 6 "
+                             f"kernels")
+    for name, regs, st, ld in lines:
+        kind = re.search(r"ssd_bwd_\w+?_kernel", name).group(0)
+        label = f"{kind}<{'f32' if 'kernelIf' in name else 'bf16'}>"
+        say(f"[build] K3b {label}: ptxas {regs} registers, spill stores "
+            f"{st} bytes, spill loads {ld} bytes")
+        if st or ld:
+            raise AssertionError(f"K3b {label} spills registers")
 
 
 #: The K1 signatures PERF.md follows (M, N, K), bf16: decode and prefill
@@ -3567,11 +3646,33 @@ TRAIN_RUN = dict(seq=1024, batch=8, microbatches=2, steps=6, ckpt_at=3,
                  lr=1e-4)
 #: 13 (c): whisper-large-v3 at full width, 4 + 4 layers.
 WHISPER_TRAIN = dict(layers=4, batch=2, seq=64, steps=2, lr=3e-4)
-#: 13 (d): the f32 smoke configs, card against CPU.
+#: 13 (d): the f32 smoke configs, card against CPU, at 32 tokens (40 for
+#: the SSM and hybrid configs: past their chunk of 16 and hymba's window
+#: of 32).
 TRAIN_PARITY = ("llama3_8b", "granite_3_8b", "yi_6b", "qwen1p5_4b",
-                "chameleon_34b", "whisper_large_v3")
+                "chameleon_34b", "whisper_large_v3", "mamba2_130m",
+                "hymba_1p5b")
 TRAIN_KERNELS = ("matmul_h100", "transpose_h100", "flash_attention_h100",
-                 "flash_attention_bwd_h100")
+                 "flash_attention_bwd_h100", "ssd_scan_h100",
+                 "ssd_scan_bwd_h100")
+#: K3b's keys in 13 (f): (label, rows, seq, heads, hd, state, state0
+#: given, dS_final given), b and c shared across heads as the model passes
+#: them; the first two are (g)'s and (h)'s microbatches.
+SSD_BWD_SIGNATURES = (
+    ("mamba2-130m training", 4, 1024, 24, 64, 128, False, False),
+    ("hymba-1.5b training", 2, 2048, 25, 64, 16, False, False),
+    ("ragged seq 1000, state0 and dS_final", 2, 1000, 24, 64, 128, True,
+     True),
+    ("seq 1, state0 and dS_final", 4, 1, 24, 64, 128, True, True),
+)
+#: 13 (g): mamba2-130m at full width and depth; (h): hymba-1.5b at full
+#: width, its depth cut as llama3-8b's is, 2048 tokens a row so that the
+#: window of 1024 binds.
+MAMBA_TRAIN = dict(seq=1024, batch=8, microbatches=2, steps=4, ckpt_at=2,
+                   lr=1e-4)
+HYMBA_LAYERS = 4
+HYMBA_TRAIN = dict(seq=2048, batch=4, microbatches=2, steps=2, ckpt_at=None,
+                   lr=1e-4)
 
 
 def held_rel(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -3669,6 +3770,87 @@ def bwd_case(sig, gen, *, timed: bool):
 CASES["flash_attention_bwd_h100"] = bwd_case
 
 
+#: K3b against its plain version and autograd: a share of each gradient's
+#: largest element (module docstring); da and d(state0) are f32 whatever
+#: the inputs' type.
+SSD_BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def ssd_bwd_case(sig, gen, *, timed: bool):
+    """K3b at (rows, seq, heads, hd, state, chunk, shared, state0 given,
+    dS_final given, dtype), the wrapper's ``shapes`` key, on inputs
+    shaped as the model makes them (x, b, c, dy in the compute type, b and
+    c shared across heads when ``shared``, the decay in (0.05, 0.95), the
+    states f32): held against the plain version and against
+    ``torch.autograd`` of K3's plain version (``SSD_BWD_TOL``), two
+    launches bit for bit; timed eagerly and as device time on copies of
+    the inputs cold to the L2 (``_cold_copies``), beside the plain version
+    and the bound, when ``timed``.  No single PyTorch call computes it:
+    ``library_ms`` is None."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.ssd_scan_bwd import (ssd_scan_bwd_h100,
+                                                  ssd_scan_bwd_plain)
+    R, S, H, hd, n, chunk, shared, with_state, with_dsf, dtype = sig
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=DEV).to(dt)
+
+    x, dy = randn(R, S, H, hd), randn(R, S, H, hd)
+    a = torch.sigmoid(randn(R, S, H, dt=torch.float32)) * 0.9 + 0.05
+    bc = (R, S, n) if shared else (R, S, H, n)
+    b, c = randn(*bc), randn(*bc)
+    s0 = randn(R, H, n, hd, dt=torch.float32) if with_state else None
+    dsf = randn(R, H, n, hd, dt=torch.float32) if with_dsf else None
+
+    def launch(x=x, a=a, b=b, c=c, dy=dy):
+        return ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, chunk=chunk)
+
+    got, again = launch(), launch()
+    torch.cuda.synchronize()
+    if not with_state and not (got[4] is None and again[4] is None):
+        raise AssertionError(f"K3b {sig}: a d(state0) without a state0")
+    got, again = got[:4 + with_state], again[:4 + with_state]
+    if not all(torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"K3b {sig}: two launches differ")
+    want = ssd_scan_bwd_plain(x, a, b, c, s0, dy, dsf, chunk=chunk)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, a, b, c) + ((s0,) if with_state else ())]
+    y, sf = ssd_scan_plain(*leaves[:4], leaves[4] if with_state else None,
+                           chunk=chunk, bd=32)
+    loss = (y.float() * dy.float()).sum()
+    if with_dsf:
+        loss = loss + (sf * dsf).sum()
+    auto = list(torch.autograd.grad(loss, leaves))
+    del y, sf, loss, leaves
+    names = ("dx", "da", "db", "dc", "dstate0")
+    f32 = SSD_BWD_TOL[torch.float32]
+    tols = [SSD_BWD_TOL[dtype], f32, SSD_BWD_TOL[dtype], SSD_BWD_TOL[dtype],
+            f32]
+    row = {"err": max(held_rel(f"K3b {sig} {nm}", g, w, t)
+                      for nm, g, w, t in zip(names, got, want, tols)),
+           "autograd_err": max(held_rel(f"K3b {sig} {nm} against autograd",
+                                        g, w, t)
+                               for nm, g, w, t in zip(names, got, auto,
+                                                      tols))}
+    del got, again, want, auto
+    if timed:
+        cold = _cold_copies((x, a, b, c, dy),
+                            sum(t.numel() * t.element_size()
+                                for t in (x, a, b, c, dy)))
+        time_into(row, "ms", lambda: launch(*next(cold)), 5)
+        row["device_ms"] = graph_ms(lambda: launch(*next(cold)), 5)
+        del cold
+        time_into(row, "plain_ms", lambda: ssd_scan_bwd_plain(
+            x, a, b, c, s0, dy, dsf, chunk=chunk), 2)
+        row["library_ms"] = None
+        row["bound_ms"] = max(bound_terms_ms("ssd_scan_bwd_h100", sig))
+        row["bound_f32_ms"] = ssd_bwd_f32_bound_ms(sig)
+    return row
+
+
+CASES["ssd_scan_bwd_h100"] = ssd_bwd_case
+
+
 #: The K2b keys whose every leaf 13 (a) times in bf16: the labels of
 #: ``BWD_SIGNATURES`` rows.
 BWD_LEAF_ROWS = ("llama3-8b training", "whisper encoder")
@@ -3676,10 +3858,11 @@ BWD_KERNELS = ("fa_bwd_lse_kernel", "fa_bwd_dq_tc_kernel",
                "fa_bwd_dkdv_tc_kernel")
 
 
-def bwd_kernel_us(launch, calls: int = 5):
-    """[lse, dQ, dK/dV] device µs a call of K2b's bf16 body under
-    ``torch.profiler``, over ``calls`` calls after 3 warm-up calls; None
-    unless the profiler recorded each kernel once a call."""
+def bwd_kernel_us(launch, calls: int = 5, names=BWD_KERNELS):
+    """[lse, dQ, dK/dV] device µs a call of K2b's bf16 body (or of the
+    kernels ``names``) under ``torch.profiler``, over ``calls`` calls after
+    3 warm-up calls; None unless the profiler recorded each kernel once a
+    call."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         launch()
@@ -3689,7 +3872,7 @@ def bwd_kernel_us(launch, calls: int = 5):
             launch()
         torch.cuda.synchronize()
     out = []
-    for kn in BWD_KERNELS:
+    for kn in names:
         evs = [e for e in prof.key_averages() if kn in e.key]
         if sum(e.count for e in evs) != calls:
             return None
@@ -3791,31 +3974,42 @@ def phase_train_k2b(gen) -> tuple:
                 f"autograd_err {row['autograd_err']:.3e}; two launches "
                 f"equal bit for bit")
             torch.cuda.empty_cache()
-    # the leaf tables run in a fresh process: late in a whole run
-    # torch.profiler has recorded a few of a session's kernels or none
-    # (PERF.md §7), where a new process records them all
+    return max(err, in_child(_bwd_leaf_child, "K2b's leaf tables")), rows
+
+
+def in_child(target, what: str) -> float:
+    """``target(src, errs)`` in a fresh process; returns the largest error
+    it puts on ``errs``.  The leaf tables run so: late in a whole run
+    torch.profiler has recorded a few of a session's kernels or none
+    (PERF.md §7), where a new process records them all."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     errs = ctx.Queue()
-    child = ctx.Process(target=_bwd_leaf_child,
+    child = ctx.Process(target=target,
                         args=(str(Path(__file__).resolve().parent / "src"),
                               errs))
     child.start()
     child.join()
     if child.exitcode != 0:
-        raise AssertionError(f"K2b's leaf tables: the process exited "
-                             f"{child.exitcode}")
-    return max(err, errs.get(timeout=60)), rows
+        raise AssertionError(f"{what}: the process exited {child.exitcode}")
+    return errs.get(timeout=60)
 
 
-def _bwd_leaf_child(src: str, errs) -> None:
-    """The process of 13 (a)'s leaf tables: ``bwd_leaf_rows`` at each key
-    of ``BWD_LEAF_ROWS``; puts the largest error on ``errs``."""
+def _child_gen(src: str):
+    """A leaf-table process's set-up: the port's sources on the path, TF32
+    off, a seeded generator on the card."""
     sys.path.insert(0, src)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
+    return gen
+
+
+def _bwd_leaf_child(src: str, errs) -> None:
+    """The process of 13 (a)'s leaf tables: ``bwd_leaf_rows`` at each key
+    of ``BWD_LEAF_ROWS``; puts the largest error on ``errs``."""
+    gen = _child_gen(src)
     err = 0.0
     for label, R, h, hk, sq, page, d, causal, window, _ in BWD_SIGNATURES:
         if label in BWD_LEAF_ROWS:
@@ -3825,22 +4019,40 @@ def _bwd_leaf_child(src: str, errs) -> None:
     errs.put(err)
 
 
+def _k3b_leaf_child(src: str, errs) -> None:
+    """The process of 13 (f)'s leaf tables: ``k3b_leaf_rows`` at (g)'s and
+    (h)'s keys; puts the largest error on ``errs``."""
+    gen = _child_gen(src)
+    err = 0.0
+    for label, R, S, H, hd, n, _, _ in SSD_BWD_SIGNATURES[:2]:
+        err = max(err, k3b_leaf_rows(label, R, S, H, hd, n, gen))
+        torch.cuda.empty_cache()
+    errs.put(err)
+
+
 def _train_counts(cfg, mb: int) -> dict:
-    """Launches a train step of an ``attn_mlp`` config (and whisper's
-    encoder-decoder) makes: each K1 product of the forward and its dA and
-    dB, two K4 transposes a product, one K2 and one K2b call (three kernels
-    in bf16, two in f32: ``launches_a_call``) an attention core, a
-    microbatch each."""
+    """Launches a train step makes, a microbatch each: each K1 product of
+    the forward (a layer's 4 of attention, 5 of the SSM block and 3 of the
+    MLP, and the lm_head; whisper's encoder layers and cross-attention too)
+    and its dA and dB, two K4 transposes a product, one K2 and one K2b call
+    (three kernels in bf16, two in f32: ``launches_a_call``) an attention
+    core, one K3 and one K3b call (three kernels) an SSD core."""
+    from repro_torch.kernels import ssd_scan_bwd
     from repro_torch.kernels.flash_attention_bwd import launches_a_call
-    prods = 7 * cfg.layers + 1
-    cores = cfg.layers
+    from repro_torch.models.transformer import has_attn, has_mlp, has_ssm
+    per_layer = 4 * has_attn(cfg) + 5 * has_ssm(cfg) + 3 * has_mlp(cfg)
+    prods = per_layer * cfg.layers + 1
+    cores = cfg.layers if has_attn(cfg) else 0
+    scans = cfg.layers if has_ssm(cfg) else 0
     if cfg.encoder is not None:
         prods += 7 * cfg.encoder.layers + 4 * cfg.layers
         cores += cfg.encoder.layers + cfg.layers
     return {"matmul_h100": 3 * prods * mb, "transpose_h100": 2 * prods * mb,
             "flash_attention_h100": cores * mb,
             "flash_attention_bwd_h100":
-                launches_a_call(getattr(torch, cfg.dtype)) * cores * mb}
+                launches_a_call(getattr(torch, cfg.dtype)) * cores * mb,
+            "ssd_scan_h100": scans * mb,
+            "ssd_scan_bwd_h100": ssd_scan_bwd.LAUNCHES_A_CALL * scans * mb}
 
 
 def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:
@@ -3858,16 +4070,19 @@ def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:
             start.elapsed_time(end))
 
 
-def _profile_step(fn) -> str:
-    """One call of ``fn`` under ``torch.profiler``: device ms by kernel
-    group (K1, K4, K2, K2b, the rest) and the rest's largest kernels."""
+def _profile_step(fn) -> tuple:
+    """One call of ``fn`` under ``torch.profiler``: (a line of device ms by
+    kernel group (K1, K4, K2, K2b, K3, K3b, the rest) and the rest's
+    largest kernels, {group: device ms})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     groups = {"K1": ("matmul_kernel",), "K4": ("transpose_",),
               "K2": ("flash_kernel", "combine_kernel"),
-              "K2b": ("fa_bwd_",)}
+              "K2b": ("fa_bwd_",),
+              "K3": ("ssd_step_kernel", "ssd_tc_kernel", "ssd_fma_kernel"),
+              "K3b": ("ssd_bwd_",)}
     sums = {g: 0.0 for g in list(groups) + ["other"]}
     other = {}
     for e in prof.key_averages():
@@ -3885,20 +4100,36 @@ def _profile_step(fn) -> str:
             f"{sum(sums.values()):.1f}; "
             + ", ".join(f"{g} {t:.1f}" for g, t in sums.items())
             + "; largest other: " + "; ".join(f"{n} {t:.1f}"
-                                              for n, t in top))
+                                              for n, t in top)), sums
 
 
 def _model_flops(cfg, rows: int, seq: int) -> float:
     """A train step's model flops over ``rows`` rows of ``seq`` tokens: 6
-    flops a token per weight of every product (forward, dA, dB) and the
-    causal attention's 4·h·d a visible pair, 3 times (forward, K2b's
-    2.5 rounded up by its recomputed scores)."""
+    flops a token per weight of every product (forward, dA, dB), the
+    causal attention's 4·h·d a pair its window leaves visible, 3 times
+    (forward, K2b's 2.5 rounded up by its recomputed scores), and the SSD
+    recurrence's 5·state·hd a step and head, 3 times (forward, backward
+    twice the forward, as for a product)."""
+    from repro_torch.models.transformer import has_attn, has_mlp, has_ssm
     d, hd, nh, nk = cfg.d_model, cfg.hd, cfg.heads, cfg.kv_heads
-    per_layer = d * (nh + 2 * nk) * hd + nh * hd * d + 3 * d * cfg.d_ff
+    per_layer = 0
+    if has_attn(cfg):
+        per_layer += d * (nh + 2 * nk) * hd + nh * hd * d
+    if has_mlp(cfg):
+        per_layer += 3 * d * cfg.d_ff
+    scan = 0.0
+    if has_ssm(cfg):
+        s = cfg.ssm
+        di = s.heads * s.head_dim
+        per_layer += 2 * d * di + 2 * d * s.state + d * s.heads
+        scan = 3 * 5.0 * s.state * s.head_dim * s.heads * rows * seq
     weights = cfg.layers * per_layer + d * cfg.vocab
-    pairs = seq * (seq + 1) // 2
+    window = cfg.window or seq
+    pairs = sum(min(i + 1, window) for i in range(seq)) if has_attn(cfg) \
+        else 0
     return (6.0 * weights * rows * seq
-            + 3 * 4.0 * nh * hd * pairs * rows * cfg.layers)
+            + 3 * 4.0 * nh * hd * pairs * rows * cfg.layers
+            + scan * cfg.layers)
 
 
 def _train_lens(shapes) -> None:
@@ -3918,32 +4149,55 @@ def _count_reset(kernels) -> None:
 
 
 def phase_train_llama(gen) -> dict:
-    """(b) llama3-8b at full width, ``TRAIN_LAYERS`` of 32 layers: bf16
-    compute, f32 masters and AdamW state, ``TRAIN_RUN``'s steps on
-    ``SyntheticLM``, every kernel through the dispatch's frozen picks (0
-    cold after ``warm_train_dispatch``); launches a step against
-    :func:`_train_counts`; a checkpoint after ``ckpt_at`` steps, restored,
+    """(b) llama3-8b at full width, ``TRAIN_LAYERS`` of 32 layers, on
+    ``TRAIN_RUN``: :func:`train_path`."""
+    from repro_torch.configs import get_config
+    return train_path("(b)", get_config("llama3_8b"), TRAIN_LAYERS,
+                      TRAIN_RUN)
+
+
+def _widths(cfg) -> str:
+    """A config's widths, for a path's first line."""
+    out = f"d {cfg.d_model}"
+    if cfg.block != "ssm":
+        out += (f", {cfg.heads} over {cfg.kv_heads} heads of {cfg.hd}"
+                + (f", window {cfg.window}" if cfg.window else ""))
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out += (f", SSD {s.heads} heads of {s.head_dim}, state {s.state}")
+    if cfg.d_ff:
+        out += f", ffn {cfg.d_ff}"
+    return out + f", vocab {cfg.vocab}"
+
+
+def train_path(tag: str, full_cfg, layers, run) -> dict:
+    """A training main path at full width, ``layers`` of the config's
+    layers (None for all): bf16 compute, f32 masters and AdamW state,
+    ``run``'s steps on ``SyntheticLM``, every kernel through the dispatch's
+    frozen picks (0 cold after ``warm_train_dispatch``); launches a step
+    against :func:`_train_counts`; tokens/s, model flops and peak memory;
+    with ``run["ckpt_at"]`` a checkpoint after that many steps, restored,
     and the next steps replayed bit for bit; one more step under the
-    profiler.  Every launch counter is set to 0 just before the path and
-    read just after.  Returns the path's record."""
+    profiler, its loss equal.  Every launch counter is set to 0 just
+    before the path and read just after.  Returns the path's record."""
     import tempfile
     from repro_torch.artifacts.dispatch import get_default_cache
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import init_train_state
     from repro_torch.optim import adamw, tree_leaves, warmup_cosine
     from repro_torch.runtime import build_train_step, warm_train_dispatch
 
-    run = TRAIN_RUN
-    cfg = get_config("llama3_8b").scaled(layers=TRAIN_LAYERS)
-    rows = run["batch"] // run["microbatches"]
+    cfg = full_cfg.scaled(layers=layers) if layers else full_cfg
+    depth = (f"{cfg.layers} of {full_cfg.layers} layers (reduced: depth "
+             f"only)" if layers else f"{cfg.layers} layers (nothing "
+             f"reduced)")
     stats = get_default_cache().stats
     t0 = time.perf_counter()
     picks = warm_train_dispatch(cfg, global_batch=run["batch"],
                                 seq=run["seq"],
                                 microbatches=run["microbatches"])
-    say(f"[train] (b) warm_train_dispatch: {len(picks)} (family, key) "
+    say(f"[train] {tag} warm_train_dispatch: {len(picks)} (family, key) "
         f"pairs frozen in {time.perf_counter() - t0:.2f} s")
     cold0 = stats.cold_builds
     torch.cuda.synchronize()
@@ -3956,12 +4210,10 @@ def phase_train_llama(gen) -> dict:
     step_fn = build_train_step(cfg, opt, microbatches=run["microbatches"])
     n = sum(t.numel() for t in tree_leaves(params))
     state_gb = (_nbytes(params) + _nbytes(opt_state)) / 1e9
-    say(f"[train] (b) {cfg.name} at full width (d {cfg.d_model}, "
-        f"{cfg.heads} over {cfg.kv_heads} heads, ffn {cfg.d_ff}, vocab "
-        f"{cfg.vocab}), {cfg.layers} of 32 layers (reduced: depth only), "
-        f"bf16 compute, f32 masters: {n / 1e9:.3f} B parameters; state "
-        f"(masters and AdamW's two moments) {state_gb:.2f} GB, with f32 "
-        f"gradients {16 * n / 1e9:.2f} GB reckoned")
+    say(f"[train] {tag} {cfg.name} at full width ({_widths(cfg)}), "
+        f"{depth}, bf16 compute, f32 masters: {n / 1e9:.3f} B parameters; "
+        f"state (masters and AdamW's two moments) {state_gb:.2f} GB, with "
+        f"f32 gradients {16 * n / 1e9:.2f} GB reckoned")
     ds = SyntheticLM(DataConfig(cfg.vocab, run["seq"], run["batch"],
                                 seed=0))
     batches = [{k: torch.from_numpy(v).to(DEV)
@@ -3969,16 +4221,17 @@ def phase_train_llama(gen) -> dict:
                for s in range(run["steps"])]
     kernels = _counters(TRAIN_KERNELS)
     want = _train_counts(cfg, run["microbatches"])
+    ckpt_at = run.get("ckpt_at")
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     ckpt = CheckpointManager(ckpt_dir, keep=1)
     losses, host, dev_ms = [], [], []
     _count_reset(kernels)
     t_run = time.perf_counter()
     for step in range(run["steps"]):
-        if step == run["ckpt_at"]:
+        if step == ckpt_at:
             t0 = time.perf_counter()
             ckpt.save_async(step, (params, opt_state))
-            say(f"[train] (b) checkpoint of step {step}: host copy "
+            say(f"[train] {tag} checkpoint of step {step}: host copy "
                 f"{time.perf_counter() - t0:.2f} s (written in the "
                 f"background)")
         c0 = {n_: k.launches for n_, k in kernels.items()}
@@ -3986,14 +4239,14 @@ def phase_train_llama(gen) -> dict:
                                                   batches[step], step)
         got = {n_: k.launches - c0[n_] for n_, k in kernels.items()}
         if got != want:
-            raise AssertionError(f"step {step} launches {got}, expected "
-                                 f"{want}")
+            raise AssertionError(f"{cfg.name} step {step} launches {got}, "
+                                 f"expected {want}")
         if not (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
-            raise AssertionError(f"step {step}: non-finite {m}")
+            raise AssertionError(f"{cfg.name} step {step}: non-finite {m}")
         losses.append(m["loss"])
         host.append(h)
         dev_ms.append(ev)
-        say(f"[train] (b) step {step}: loss {m['loss']!r} nll "
+        say(f"[train] {tag} step {step}: loss {m['loss']!r} nll "
             f"{m['nll']!r} grad_norm {m['grad_norm']!r}; host "
             f"{1e3 * h:.1f} ms, CUDA events {ev:.1f} ms")
     wall = time.perf_counter() - t_run
@@ -4005,7 +4258,7 @@ def phase_train_llama(gen) -> dict:
     tokens = run["batch"] * run["seq"]
     med = sorted(dev_ms[1:])[len(dev_ms[1:]) // 2]
     flops = _model_flops(cfg, run["batch"], run["seq"])
-    say(f"[train] (b) {run['steps']} steps of {run['batch']} x "
+    say(f"[train] {tag} {run['steps']} steps of {run['batch']} x "
         f"{run['seq']} tokens, {run['microbatches']} microbatches: "
         f"{wall:.2f} s; median step (after the first) {med:.1f} ms of "
         f"CUDA-event time, {tokens / med * 1e3:.1f} tokens/s; model flops "
@@ -4018,48 +4271,57 @@ def phase_train_llama(gen) -> dict:
     if cold:
         raise AssertionError(f"{cold} dispatches resolved cold after warm-up")
     if not losses[-1] < losses[0]:
-        say(f"[train] (b) note: loss did not fall over {run['steps']} "
+        say(f"[train] {tag} note: loss did not fall over {run['steps']} "
             f"steps ({losses[0]!r} -> {losses[-1]!r})")
 
-    # restart: restore the checkpoint and replay the steps after it
-    t0 = time.perf_counter()
-    step0, restored = ckpt.restore_latest((params, opt_state))
-    restore_s = time.perf_counter() - t0
-    if step0 != run["ckpt_at"]:
-        raise AssertionError(f"restored step {step0}")
-    params, opt_state = restored
-    del restored
-    gc.collect()
-    torch.cuda.empty_cache()
-    replay = []
-    for step in range(step0, run["steps"] - 1):
-        params, opt_state, m, _, _ = _step_timed(step_fn, params, opt_state,
-                                                 batches[step], step)
-        replay.append(m["loss"])
-    if replay != losses[step0:run["steps"] - 1]:
-        raise AssertionError(f"replayed losses {replay} differ from "
-                             f"{losses[step0:run['steps'] - 1]}")
-    say(f"[train] (b) restart: checkpoint of step {step0} restored in "
-        f"{restore_s:.2f} s (read, CRC32, to the card); steps "
-        f"{step0}..{run['steps'] - 2} replayed: losses {replay} equal the "
-        f"uninterrupted run's bit for bit")
-    last = run["steps"] - 1
+    if ckpt_at is not None:
+        # restart: restore the checkpoint and replay the steps after it
+        t0 = time.perf_counter()
+        step0, restored = ckpt.restore_latest((params, opt_state))
+        restore_s = time.perf_counter() - t0
+        if step0 != ckpt_at:
+            raise AssertionError(f"restored step {step0}")
+        params, opt_state = restored
+        del restored
+        gc.collect()
+        torch.cuda.empty_cache()
+        replay = []
+        for step in range(step0, run["steps"] - 1):
+            params, opt_state, m, _, _ = _step_timed(
+                step_fn, params, opt_state, batches[step], step)
+            replay.append(m["loss"])
+        if replay != losses[step0:run["steps"] - 1]:
+            raise AssertionError(f"replayed losses {replay} differ from "
+                                 f"{losses[step0:run['steps'] - 1]}")
+        say(f"[train] {tag} restart: checkpoint of step {step0} restored "
+            f"in {restore_s:.2f} s (read, CRC32, to the card); steps "
+            f"{step0}..{run['steps'] - 2} replayed: losses {replay} equal "
+            f"the uninterrupted run's bit for bit")
+        last = run["steps"] - 1
+    else:
+        last = run["steps"]
+        batches.append({k: torch.from_numpy(v).to(DEV)
+                        for k, v in ds.batch_at(last).items()})
     out = {}
 
     def profiled():
         out["m"] = step_fn(params, opt_state, batches[last], last)[2]
 
-    say(f"[train] (b) step {last} replayed under torch.profiler: "
-        f"{_profile_step(profiled)}")
-    if float(out["m"]["loss"]) != losses[last]:
+    line, kernel_ms = _profile_step(profiled)
+    say(f"[train] {tag} step {last} under torch.profiler: {line}")
+    if ckpt_at is not None and float(out["m"]["loss"]) != losses[last]:
         raise AssertionError("the profiled step's loss differs")
+    if not math.isfinite(float(out["m"]["loss"])):
+        raise AssertionError("the profiled step's loss is not finite")
     del params, opt_state, batches, out
     import shutil
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
-            "launches": launches, "shapes": shapes, "steps": run["steps"]}
+            "launches": launches, "shapes": shapes, "steps": run["steps"],
+            "step_ms": med, "peak_gb": peak, "kernel_ms": kernel_ms,
+            "profiled_ms": sum(kernel_ms.values())}
 
 
 def phase_train_whisper(gen) -> dict:
@@ -4140,8 +4402,9 @@ def phase_train_parity() -> None:
     for arch in TRAIN_PARITY:
         cfg = get_smoke_config(arch).scaled(dtype="float32")
         rng = np.random.default_rng(5)
-        batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)),
-                 "labels": rng.integers(0, cfg.vocab, (4, 32))}
+        seq = 40 if cfg.ssm is not None else 32
+        batch = {"tokens": rng.integers(0, cfg.vocab, (4, seq)),
+                 "labels": rng.integers(0, cfg.vocab, (4, seq))}
         if cfg.encoder is not None:
             batch["enc_embeds"] = rng.standard_normal(
                 (4, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
@@ -4254,11 +4517,110 @@ def phase_train_k4(paths, gen) -> dict:
     return rows
 
 
+#: K3b's three kernels, as the profiler names them.
+SSD_BWD_KERNELS = ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
+                   "ssd_bwd_heads_kernel")
+
+
+def k3b_leaf_rows(label, R, S, H, hd, n, gen) -> float:
+    """Every leaf of K3b's tree at one key, bf16, b and c shared, no state
+    given: each held against the plain version (``SSD_BWD_TOL``), two
+    launches bit for bit, timed as CUDA-graph device time on copies cold to
+    the L2 and each of its three kernels under ``torch.profiler``; printed
+    with the napkin's rank beside the card's.  Returns the largest
+    error."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import rank_candidates
+    from repro_torch.kernels.ssd_scan_bwd import (FAMILY, ssd_scan_bwd_h100,
+                                                  ssd_scan_bwd_plain)
+    dtype = torch.bfloat16
+    x, dy = (torch.randn((R, S, H, hd), generator=gen, device=DEV).to(dtype)
+             for _ in range(2))
+    a = torch.sigmoid(torch.randn((R, S, H), generator=gen,
+                                  device=DEV)) * 0.9 + 0.05
+    b, c = (torch.randn((R, S, n), generator=gen, device=DEV).to(dtype)
+            for _ in range(2))
+    ranked = rank_candidates(FAMILY, H100_SXM, {"SQ": S, "HD": hd,
+                                                "STATE": n})
+    cold = _cold_copies((x, a, b, c, dy), sum(
+        t.numel() * t.element_size() for t in (x, a, b, c, dy)))
+    rows, err = {}, 0.0
+    f32 = SSD_BWD_TOL[torch.float32]
+    for cand in ranked:
+        kw = {"chunk": cand.assignment["chunk"]}
+
+        def launch(x=x, a=a, b=b, c=c, dy=dy):
+            return ssd_scan_bwd_h100(x, a, b, c, None, dy, None, **kw)
+
+        got, again = launch()[:4], launch()[:4]
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
+            raise AssertionError(f"K3b leaf {label} {kw}: two launches "
+                                 f"differ")
+        want = ssd_scan_bwd_plain(x, a, b, c, None, dy, None, **kw)[:4]
+        tols = (SSD_BWD_TOL[dtype], f32, SSD_BWD_TOL[dtype],
+                SSD_BWD_TOL[dtype])
+        e = max(held_rel(f"K3b leaf {label} {kw} {i}", g, w, t)
+                for i, (g, w, t) in enumerate(zip(got, want, tols)))
+        err = max(err, e)
+        del got, again, want
+        rows[kw["chunk"]] = {
+            "err": e, "device_ms": graph_ms(lambda: launch(*next(cold)), 5),
+            "score": cand.score,
+            "us": bwd_kernel_us(launch, names=SSD_BWD_KERNELS)}
+    by_card = sorted(rows, key=lambda k: rows[k]["device_ms"])
+    for i, (leaf, row) in enumerate(rows.items()):
+        split = ("the profiler missed some of its launches"
+                 if row["us"] is None else
+                 "states {:.4f}, chunks {:.4f}, heads {:.4f} under the "
+                 "profiler".format(*(u / 1e3 for u in row["us"])))
+        say(f"[train] (f) K3b leaf {label} chunk {leaf}"
+            f"{' (pick)' if i == 0 else ''}: device_ms "
+            f"{row['device_ms']:.4f} ({split}), err {row['err']:.3e}; "
+            f"napkin score {row['score']:.4g} rank {i + 1}, card rank "
+            f"{by_card.index(leaf) + 1} of {len(rows)}")
+    pick, best = rows[next(iter(rows))], rows[by_card[0]]
+    say(f"[train] (f) K3b {label}: device_ms pick {pick['device_ms']:.4f}, "
+        f"fastest of {len(rows)} leaves {best['device_ms']:.4f} "
+        f"({pick['device_ms'] / best['device_ms']:.2f}x)")
+    return err
+
+
+def phase_train_k3b(gen) -> tuple:
+    """(f) K3b through the pick of each key of ``SSD_BWD_SIGNATURES`` in
+    bf16 and f32 (:func:`ssd_bwd_case`), then, in a process of its own,
+    every leaf at (g)'s and (h)'s keys in bf16 (:func:`k3b_leaf_rows`);
+    returns (largest error against the plain version, {sig: row})."""
+    from repro_torch.kernels import ops
+    err, rows = 0.0, {}
+    for label, R, S, H, hd, n, ws, wd in SSD_BWD_SIGNATURES:
+        pick = ops.select("ssd_scan_bwd_h100", {
+            "SQ": S, "HD": hd, "STATE": n}).assignment
+        for dtype in (torch.bfloat16, torch.float32):
+            sig = (R, S, H, hd, n, pick["chunk"], True, ws, wd, dtype)
+            row = ssd_bwd_case(sig, gen, timed=True)
+            rows[sig] = row
+            err = max(err, row["err"])
+            say(f"[train] (f) K3b {label}, rows {R}, seq {S}, {H} heads of "
+                f"{hd}, state {n}, {dtype}, pick chunk {pick['chunk']}: "
+                f"{fmt(row)} autograd_err "
+                f"{row['autograd_err']:.3e}; two launches equal bit for "
+                f"bit; device time "
+                f"{row['bound_ms'] / row['device_ms']:.4f} of the bound, "
+                f"{row['bound_f32_ms'] / row['device_ms']:.4f} of the f32 "
+                f"bound")
+            torch.cuda.empty_cache()
+    return max(err, in_child(_k3b_leaf_child, "K3b's leaf tables")), rows
+
+
 def phase_train(gen) -> tuple:
     """Phase 13, on split workspaces of its own (no engine's graph holds
     them): (a) K2b; (b) llama3-8b training; (c) whisper-large-v3 training;
-    (d) the smoke configs' train steps, card against CPU.  Returns (K2b's
-    largest error, K2b's rows, the two training paths' records)."""
+    (d) the smoke configs' train steps, card against CPU; (f) K3b; (g)
+    mamba2-130m training; (h) hymba-1.5b training.  Returns (K2b's largest
+    error, K2b's rows, the four training paths' records, K3b's largest
+    error, K3b's rows)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.workspace import scratch
     with scratch():
         t0 = time.perf_counter()
@@ -4273,8 +4635,26 @@ def phase_train(gen) -> tuple:
         t0 = time.perf_counter()
         phase_train_parity()
         say(f"[train] (d) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ssd_err, ssd_rows = phase_train_k3b(gen)
+        say(f"[train] (f) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.append(train_path("(g)", get_config("mamba2_130m"), None,
+                                MAMBA_TRAIN))
+        say(f"[train] (g) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.append(train_path("(h)", get_config("hymba_1p5b"),
+                                HYMBA_LAYERS, HYMBA_TRAIN))
+        say(f"[train] (h) {time.perf_counter() - t0:.1f} s")
+        for p in paths[2:]:
+            share = {n: p["kernel_ms"][n] / p["profiled_ms"]
+                     for n in ("K3", "K3b")}
+            say(f"[train] {p['name']}: median step {p['step_ms']:.1f} ms "
+                f"(CUDA events), peak {p['peak_gb']:.2f} GB; share of the "
+                f"profiled step's device time: " + ", ".join(
+                    f"{n} {100 * v:.1f} %" for n, v in share.items()))
         torch.cuda.synchronize()
-    return err, rows, paths
+    return err, rows, paths, ssd_err, ssd_rows
 
 
 def main() -> int:
@@ -4346,7 +4726,8 @@ def main() -> int:
         rows[name].update(row)
     say(f"[whisper] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    errs["flash_attention_bwd_h100"], bwd_rows, train_paths = phase_train(gen)
+    (errs["flash_attention_bwd_h100"], bwd_rows, train_paths,
+     errs["ssd_scan_bwd_h100"], ssd_bwd_rows) = phase_train(gen)
     train = _group_shapes(train_paths, TRAIN_KERNELS)
     t1 = time.perf_counter()
     k4_rows = phase_train_k4(train_paths, gen)
@@ -4355,10 +4736,11 @@ def main() -> int:
     # of 13 (a), K4's of phase 6 and 13 (e) keep their rows)
     timed = {**rows, "transpose_h100": {**cases["rows"]["transpose_h100"],
                                         **k4_rows},
-             "flash_attention_bwd_h100": bwd_rows}
+             "flash_attention_bwd_h100": bwd_rows,
+             "ssd_scan_bwd_h100": ssd_bwd_rows}
     for name, row in phase_shapes(train, gen, timed=timed,
-                                  before="phase 6, 9, 12 or 13 (a) or (e)"
-                                  ).items():
+                                  before="phase 6, 9, 12 or 13 (a), (e) or "
+                                         "(f)").items():
         rows.setdefault(name, {}).update(row)
     train_sums = launch_sums(train, rows)
     say(f"[train] kernel time over the training paths' launches: "

@@ -5,7 +5,7 @@ paper, persisted for the port's kernel families.
 and for each target machine emits a *dispatch table*: the
 machine-consistent leaves plus, per representative data-shape bucket, the
 top-k candidates pre-ranked by the offline performance model.
-``compile_all`` sweeps every registered family: the port's six ``*_h100``
+``compile_all`` sweeps every registered family: the port's eight ``*_h100``
 families, by default for ``H100_SXM`` and ``PAPER_M2050`` (the JAX package
 compiles its two machines, ``TPU_V5E`` and ``PAPER_M2050``).
 ``python -m repro_torch.launch.compile_artifacts`` drives it.
@@ -59,6 +59,9 @@ DEFAULT_DATA_GRIDS: Dict[str, List[Dict[str, int]]] = {
         {"SQ": 1024, "HD": 128, "GROUP": 4, "HK": 8},
         {"SQ": 1500, "HD": 64, "GROUP": 1, "HK": 20},
         {"SQ": 64, "HD": 64, "GROUP": 1, "HK": 20}],
+    # the training keys: mamba2-130m at seq 1024, hymba-1.5b at 2048
+    "ssd_scan_bwd_h100": [{"SQ": 1024, "HD": 64, "STATE": 128},
+                          {"SQ": 2048, "HD": 64, "STATE": 16}],
 }
 
 

@@ -2,7 +2,7 @@
 forward and backward are kernels of the port.
 
 The JAX package differentiates einsum math (ROADMAP F3); the port's forward
-launches K1 and K2 through ``ctypes``, which autograd cannot see, and a
+launches K1, K2 and K3 through ``ctypes``, which autograd cannot see, and a
 plain version never runs on a CUDA tensor.  So:
 
 - :class:`MatmulFn`: C = A·B through K1 (f32 out); its backward is K1
@@ -14,6 +14,11 @@ plain version never runs on a CUDA tensor.  So:
   of one block a row (the table ``[[b]]``); it saves q, k, v, o and the
   lengths, and its backward is K2b (``flash_attention_bwd_h100``).  A real
   paged pool (any other table) is refused: K2b reads the rows' own K/V.
+- :class:`SsdScanFn`: K3 (``ops.ssd_scan``) from a state (None is zero),
+  returning (y, final state); it saves x, a, b, c and the state, and its
+  backward is K3b (``ssd_scan_bwd_h100``), which recomputes the states
+  entering each chunk.  The serve-only in-place updates (``out_state``,
+  ``mask``, ``state_rows``) are refused.
 
 On CPU tensors the same functions run the kernels' plain versions, as every
 wrapper does.
@@ -85,3 +90,39 @@ class AttentionFn(torch.autograd.Function):
         dq, dk, dv = ops.attention_bwd(q, k, v, o, do.contiguous(), lens,
                                        causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None, None
+
+
+class SsdScanFn(torch.autograd.Function):
+    """K3 over x [rows, seq, heads, hd], a [rows, seq, heads] f32, b, c
+    [rows, seq, state] (shared across heads) or [rows, seq, heads, state],
+    from ``state0`` [rows, heads, state, hd] f32 or None (zero); returns (y,
+    final state).  The backward is K3b, given dy and the final state's
+    gradient (zero when it has none); it returns dx, da, db, dc and
+    d(state0) in the inputs' types and shapes.  ``out_state``, ``mask``
+    and ``state_rows``, the serve path's in-place updates of an engine's
+    cache, have no backward and raise."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, state0: Optional[torch.Tensor],
+                out_state: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                state_rows: Optional[torch.Tensor] = None):
+        if out_state is not None or mask is not None \
+                or state_rows is not None:
+            raise ValueError("the SSD scan's backward takes no out_state, "
+                             "mask or state_rows: they update a serving "
+                             "cache in place and have no backward")
+        y, s = ops.ssd_scan(x, a, b, c, state0)
+        ctx.save_for_backward(x, a, b, c, state0)
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy: Optional[torch.Tensor],
+                 ds: Optional[torch.Tensor]):
+        x, a, b, c, state0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        ds = None if ds is None else ds.contiguous()
+        dx, da, db, dc, ds0 = ops.ssd_scan_bwd(x, a, b, c, state0, dy, ds)
+        return dx, da, db, dc, ds0, None, None, None

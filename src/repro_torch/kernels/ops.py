@@ -25,11 +25,12 @@ from .jacobi1d import FAMILY as JACOBI_FAMILY
 from .matadd import FAMILY as MATADD_FAMILY
 from .matmul import FAMILY as MATMUL_FAMILY
 from .ssd_scan import FAMILY as SSD_FAMILY
+from .ssd_scan_bwd import FAMILY as SSD_BWD_FAMILY
 from .transpose import FAMILY as TRANSPOSE_FAMILY
 
 FAMILIES = {f.name: f for f in (MATMUL_FAMILY, MATADD_FAMILY, JACOBI_FAMILY,
                                 TRANSPOSE_FAMILY, FLASH_FAMILY, SSD_FAMILY,
-                                FLASH_BWD_FAMILY)}
+                                FLASH_BWD_FAMILY, SSD_BWD_FAMILY)}
 
 
 def select(family_name: str, data: Mapping[str, int],
@@ -170,3 +171,21 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     y, s = fn(x, a, b, c, state0, out_state=out_state, mask=mask,
               state_rows=state_rows)
     return (y[0], s[0]) if unbatched else (y, s)
+
+
+def ssd_scan_bwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, state0: Optional[torch.Tensor],
+                 dy: torch.Tensor, dS_final: Optional[torch.Tensor], *,
+                 machine: MachineDescription = H100_SXM
+                 ) -> Tuple[torch.Tensor, ...]:
+    """(dx, da, db, dc, d(state0)) of :func:`ssd_scan`'s batched form
+    from ``state0`` (zero when None), given dy and the final state's
+    gradient ``dS_final`` (zero when None) (K3b), keyed on K3's (SQ, HD,
+    STATE), through the same frozen lane; b and c shared across heads
+    ([rows, seq, state]) or per head, and their gradients in the same
+    form."""
+    seq, hd, state = x.shape[1], x.shape[3], b.shape[-1]
+    fn = get_default_cache().warm_callable(
+        SSD_BWD_FAMILY, machine, (("SQ", seq), ("HD", hd), ("STATE", state)),
+        x.device.type)
+    return fn(x, a, b, c, state0, dy, dS_final)

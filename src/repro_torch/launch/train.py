@@ -11,13 +11,14 @@ The flags are the JAX launcher's (``repro.launch.train``), plus
 the config (and of whisper's encoder) to fit one card: llama3-8b's training
 state is 16 bytes a parameter (f32 masters, gradients, AdamW's two
 moments), 128 GB at its 32 layers.  The loop: the stateless
-``SyntheticLM`` batches, the train step (K1, K4, K2 and K2b on the card),
-``warmup_cosine(lr, 10, steps)``, async checkpoints every ``--ckpt-every``
-steps under ``--ckpt-dir`` and a resume from the newest, the
+``SyntheticLM`` batches, the train step (K1, K4, K2, K2b, K3 and K3b on
+the card), ``warmup_cosine(lr, 10, steps)``, async checkpoints every
+``--ckpt-every`` steps under ``--ckpt-dir`` and a resume from the newest, the
 ``TrainController``'s restart on failure.  Whisper's ``enc_embeds`` come
 from a ``torch.Generator`` seeded by (seed, step): not the JAX launcher's
-numbers.  The dense ``attn_mlp`` configs and whisper-large-v3 train; the
-``ssm``, ``hybrid`` and ``attn_moe`` configs are refused.
+numbers.  The dense ``attn_mlp`` configs, the ``ssm`` and ``hybrid`` ones
+(mamba2-130m, hymba-1.5b: K3 and K3b on the card) and whisper-large-v3
+train; the ``attn_moe`` configs are refused.
 """
 from __future__ import annotations
 

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..kernels.autograd import AttentionFn, MatmulFn
+from ..kernels.autograd import AttentionFn, MatmulFn, SsdScanFn
 from .config import ModelConfig
 
 Params = Dict[str, Any]
@@ -275,15 +275,22 @@ def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``state_rows`` (B,) int32 row b reads and writes state row
     ``state_rows[b]`` of states of any row count.  B and C are projected
     once and shared across heads (ngroups = 1); the scan, prefill chunk or
-    decode step alike, is one K3 call over all rows."""
+    decode step alike, is one K3 call over all rows.  While autograd
+    records, the scan goes through ``SsdScanFn`` (K3 forward, K3b
+    backward), which refuses the serve-only ``out_state``, ``mask`` and
+    ``state_rows``."""
     s = cfg.ssm
     B, S, _ = x.shape
     xi = proj(x, p["wx"]).reshape(B, S, s.heads, s.head_dim)
     b = proj(x, p["wb"])                                    # (B, S, state)
     c = proj(x, p["wc"])
-    y, new_state = ops.ssd_scan(xi, ssm_decays(p, x), b, c, state,
-                                out_state=out_state, mask=mask,
-                                state_rows=state_rows)
+    a = ssm_decays(p, x)
+    if recording(xi, a, b, c, *([state] if state is not None else [])):
+        y, new_state = SsdScanFn.apply(xi, a, b, c, state, out_state, mask,
+                                       state_rows)
+    else:
+        y, new_state = ops.ssd_scan(xi, a, b, c, state, out_state=out_state,
+                                    mask=mask, state_rows=state_rows)
     return proj(y.reshape(B, S, s.heads * s.head_dim), p["wo"]), new_state
 
 

@@ -55,7 +55,7 @@ def check_moe(cfg: ModelConfig) -> None:
     if "moe_a2a" in cfg.perf_flags:
         raise NotImplementedError(
             f"perf flag 'moe_a2a' (config {cfg.name}) is not ported yet: "
-            "the all-to-all expert schedule is ROADMAP Queue 1 item 9")
+            "the all-to-all expert schedule is ROADMAP Queue 1 item 4")
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

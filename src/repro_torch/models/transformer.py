@@ -56,13 +56,9 @@ def check_block(cfg: ModelConfig) -> None:
 
 def check_train(cfg: ModelConfig) -> None:
     """Raise for a config the port cannot train (on every device): its
-    blocks need kernels without a backward yet (K3, K1's batched entry and
-    the router), or a remat policy no config uses."""
+    blocks need kernels without a backward yet (K1's batched entry and the
+    router), or a remat policy no config uses."""
     check_block(cfg)
-    if cfg.block in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"training the {cfg.block!r} block (config {cfg.name}) needs a "
-            "backward of the SSD scan K3: ROADMAP Queue 1 item 3b")
     if cfg.block == "attn_moe":
         raise NotImplementedError(
             f"training the 'attn_moe' block (config {cfg.name}) needs a "

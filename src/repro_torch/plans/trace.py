@@ -50,7 +50,8 @@ cross-attention's K/V over ``M = R·S_enc``), the cores at ``SQ = seq``, and
 the lm_head over every token, ``M = R·seq``.  Every K1 request (M, N, K) of
 the forward also asks, in the backward (``kernels/autograd.py``), for dA =
 dC·Bᵀ at (M, K, N) and dB = Aᵀ·dC at (K, N, M), and for K4's transposes of
-B [K, N] and of A [M, K]; every attention core asks for K2b at K2's key.
+B [K, N] and of A [M, K]; every attention core asks for K2b at K2's key,
+and every SSD scan for K3b at K3's.
 
 Nothing is executed — this is an abstract walk of the step over shapes.
 """
@@ -264,9 +265,16 @@ def _iter_train_requests(cfg: ModelConfig, *, rows: int, seq: int
            {"M": rows * seq, "N": cfg.vocab, "K": cfg.d_model})
 
 
+#: The backward family of each forward family but K1's, at the forward's
+#: key: K2b for K2, K3b for K3.
+BACKWARD = {"flash_attention_h100": "flash_attention_bwd_h100",
+            "ssd_scan_h100": "ssd_scan_bwd_h100"}
+
+
 def _with_backward(requests: Iterator[Tuple[str, str, Dict[str, int]]]
                    ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
-    """Each forward request, then what its backward asks for."""
+    """Each forward request, then what its backward asks for; raises for
+    a family whose backward it does not know."""
     for site, family, data in requests:
         yield site, family, data
         if family == "matmul_h100":
@@ -275,8 +283,11 @@ def _with_backward(requests: Iterator[Tuple[str, str, Dict[str, int]]]
             yield f"{site}.dB", family, {"M": K, "N": N, "K": M}
             yield f"{site}.wT", "transpose_h100", {"M": K, "N": N}
             yield f"{site}.xT", "transpose_h100", {"M": M, "N": K}
+        elif family in BACKWARD:
+            yield f"{site}.bwd", BACKWARD[family], data
         else:
-            yield f"{site}.bwd", "flash_attention_bwd_h100", data
+            raise ValueError(f"{site}: no backward of family {family!r} "
+                             "is known")
 
 
 def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,

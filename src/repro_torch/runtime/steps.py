@@ -6,7 +6,8 @@ sampling.
 accumulation in ``grad_dtype``, the mean over the microbatches, global-norm
 clipping, the MoE auxiliary loss and the z-loss in the loss, and the
 optimizer's update.  The port runs the microbatches in a Python loop
-(autograd over K1, K2, K4 and K2b: :mod:`repro_torch.kernels.autograd`)
+(autograd over K1, K2, K3, K4, K2b and K3b:
+:mod:`repro_torch.kernels.autograd`)
 and updates the parameters and the optimizer state **in place**: a
 functional update would hold two or three copies of the training state.
 
@@ -147,8 +148,8 @@ def warm_train_dispatch(cfg: ModelConfig, *, global_batch: int, seq: int,
     """Freeze every kernel pick a train step over ``global_batch`` rows of
     ``seq`` tokens in ``microbatches`` asks for
     (:func:`~repro_torch.plans.trace.trace_train_warm_set`): K1's forward
-    and backward products, K4's transposes, K2 and K2b; after it a step
-    resolves nothing cold."""
+    and backward products, K4's transposes, K2 and K2b, K3 and K3b; after
+    it a step resolves nothing cold."""
     return freeze_traced(trace_train_warm_set(
         cfg, global_batch=global_batch, seq=seq,
         microbatches=microbatches), machine)

@@ -92,7 +92,7 @@ def _block_minima(family_name: str,
             need("SQ", a["bq"])
         elif family_name == "flash_attention_bwd_h100":
             need("SQ", max(a["bq"], a["bkv"]))
-        elif family_name == "ssd_scan_h100":
+        elif family_name in ("ssd_scan_h100", "ssd_scan_bwd_h100"):
             need("SQ", a["chunk"])
     return req
 
@@ -103,7 +103,8 @@ def _block_minima(family_name: str,
 #: time another tile shape).
 _LAYOUT_DIMS = {"flash_attention_h100": ("HD", "GROUP", "HK"),
                 "flash_attention_bwd_h100": ("HD", "GROUP", "HK"),
-                "ssd_scan_h100": ("HD", "STATE")}
+                "ssd_scan_h100": ("HD", "STATE"),
+                "ssd_scan_bwd_h100": ("HD", "STATE")}
 
 
 def measure_shape(family_name: str, data: Mapping[str, int],
@@ -158,7 +159,8 @@ def _seed_for(family_name: str, bucket: str, base: int) -> int:
 
 #: Keys K2 is timed over and (row, head) pairs K3 is timed at: what each
 #: family's napkin plans for (``kernels/flash_attention.py`` ``_SK``,
-#: ``kernels/ssd_scan.py`` ``PAIRS``).
+#: ``kernels/ssd_scan.py`` ``PAIRS``); K3b over a training microbatch of
+#: ``kernels/ssd_scan_bwd.py`` ``TOKENS`` tokens, rows of SQ.
 FA_KEYS = 4096
 FA_PAGE = 16
 SSD_PAIRS = 24
@@ -191,6 +193,10 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
     - ``ssd_scan_h100`` {SQ, HD, STATE}: one row of ``SSD_PAIRS`` heads,
       x, b, c bf16 with b and c shared across heads, the decay in (0, 1),
       the f32 state updated in place as the serve path does;
+    - ``ssd_scan_bwd_h100`` {SQ, HD, STATE}: TOKENS / SQ rows (at least
+      one) of ``SSD_PAIRS`` heads from a zero state, as a training step's scan:
+      x, b, c and dy bf16, b and c shared across heads, the decay in (0,
+      1), no final state's gradient;
     - ``matadd_h100`` / ``transpose_h100`` {M, N} f32; ``jacobi1d_h100``
       {N} f32, 4 sweeps.
     """
@@ -235,6 +241,14 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
         b, c = normal((1, sq, st), bf16), normal((1, sq, st), bf16)
         state = normal((1, SSD_PAIRS, st, hd))
         return [(x, a, b, c, state)], {"out_state": state}, ""
+    if family_name == "ssd_scan_bwd_h100":
+        sq, hd, st = data["SQ"], data["HD"], data["STATE"]
+        from ..kernels.ssd_scan_bwd import TOKENS
+        R = max(1, TOKENS // sq)
+        x, dy = (normal((R, sq, SSD_PAIRS, hd), bf16) for _ in range(2))
+        a = torch.sigmoid(normal((R, sq, SSD_PAIRS)))      # decay in (0, 1)
+        b, c = normal((R, sq, st), bf16), normal((R, sq, st), bf16)
+        return [(x, a, b, c, None, dy, None)], {}, ""
     if family_name == "matadd_h100":
         M, N = data["M"], data["N"]
         return [(normal((M, N)), normal((M, N)))], {}, ""

@@ -1407,7 +1407,8 @@ def test_gpu_matmul_fn_backward_matches_autograd_of_plain(cuda, dtype, tol):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b",
-                                  "chameleon_34b", "whisper_large_v3"])
+                                  "chameleon_34b", "whisper_large_v3",
+                                  "mamba2_130m", "hymba_1p5b"])
 def test_gpu_train_step_equals_cpu(cuda, arch):
     """One f32 train step (AdamW, microbatches 2) of the smoke config on
     the card against the CPU plain versions from the same state: loss at
@@ -1447,3 +1448,201 @@ def test_gpu_train_step_equals_cpu(cuda, arch):
         flips += int((d > 1e-6).sum())
         total += d.numel()
     assert flips <= total / 1000
+
+
+# ---------------------------------------------------------------------------
+# K3b, the SSD scan's backward, and the SSM and hybrid configs' training
+# ---------------------------------------------------------------------------
+
+def _ssd_bwd_inputs(rows, seq, heads, hd, state, dev, dtype, *, shared=True,
+                    with_state=False, with_dsf=False, seed=50):
+    """x, a in (0.05, 0.95), b, c ([rows, seq, state] when shared), state0,
+    dy and dS_final, from numpy with a seed."""
+    x = _t((rows, seq, heads, hd), seed, dev, dtype)
+    a = torch.sigmoid(_t((rows, seq, heads), seed + 1, dev)) * 0.9 + 0.05
+    bc = (rows, seq, state) if shared else (rows, seq, heads, state)
+    b, c = _t(bc, seed + 2, dev, dtype), _t(bc, seed + 3, dev, dtype)
+    s0 = _t((rows, heads, state, hd), seed + 4, dev) if with_state else None
+    dy = _t((rows, seq, heads, hd), seed + 5, dev, dtype)
+    dsf = _t((rows, heads, state, hd), seed + 6, dev) if with_dsf else None
+    return x, a, b, c, s0, dy, dsf
+
+
+#: K3b's cases on the card (rows, seq, heads, hd, state, chunk, shared,
+#: state0 given, dS_final given): the training keys of mamba2-130m (state
+#: 128, 24 heads) and hymba-1.5b (state 16, 25 heads) at every chunk of the
+#: domain, seq 1, 8, 200 and 1000 (ragged last chunks), b and c per head, a
+#: given state0 and dS_final, an hd of 100 (the states kernel's last tile
+#: of 32 columns cut).
+_SSD_BWD_CASES = [
+    (4, 1024, 24, 64, 128, 64, True, False, False),
+    (2, 2048, 25, 64, 16, 64, True, False, False),
+    (2, 256, 24, 64, 128, 16, True, False, False),
+    (2, 256, 25, 64, 16, 32, True, False, False),
+    (3, 1, 24, 64, 128, 64, True, True, True),
+    (3, 8, 25, 64, 16, 64, True, True, True),
+    (2, 200, 24, 64, 128, 64, True, True, True),
+    (2, 1000, 25, 64, 16, 64, True, False, True),
+    (2, 40, 4, 16, 8, 16, False, True, False),
+    (1, 100, 3, 100, 20, 32, True, True, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize(
+    "rows,seq,heads,hd,state,chunk,shared,with_state,with_dsf",
+    _SSD_BWD_CASES)
+def test_gpu_ssd_bwd_kernel_matches_plain(cuda, dtype, tol, rows, seq, heads,
+                                          hd, state, chunk, shared,
+                                          with_state, with_dsf):
+    """K3b against its plain version on the same inputs, each gradient
+    within ``tol`` of its largest element: f32 at 1e-4 (the same chunk
+    formulas summed in another order, ``expf``/``logf`` against
+    ``torch.exp``/``log``), bf16 inputs at 2e-2 (both sum in f32 from the
+    same bf16 values and round dx, db, dc once to bf16; da and d(state0)
+    are f32 on both sides and held at 1e-4).  Two launches give the same
+    bits (no atomics), three kernels a call; no state0, no d(state0)."""
+    from repro_torch.kernels.ssd_scan_bwd import (
+        LAUNCHES_A_CALL, ssd_scan_bwd_h100, ssd_scan_bwd_plain)
+    x, a, b, c, s0, dy, dsf = _ssd_bwd_inputs(
+        rows, seq, heads, hd, state, cuda, dtype, shared=shared,
+        with_state=with_state, with_dsf=with_dsf)
+    kw = dict(chunk=chunk)
+    n0 = ssd_scan_bwd_h100.launches
+    got = ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, **kw)
+    again = ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, **kw)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd_h100.launches == n0 + 2 * LAUNCHES_A_CALL
+    want = ssd_scan_bwd_plain(x, a, b, c, s0, dy, dsf, **kw)
+    for i, (g, ag, w) in enumerate(zip(got, again, want)):
+        if w is None:
+            assert i == 4 and s0 is None and g is None and ag is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape and \
+            torch.equal(g, ag), i
+        t = tol if i in (0, 2, 3) else 1e-4
+        w = w.float()
+        torch.testing.assert_close(g.float(), w, rtol=t,
+                                   atol=t * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_bwd_in_a_cuda_graph(cuda):
+    """K3b captured in a CUDA graph (its workspace sized by an eager call
+    first) replays the eager call's bits."""
+    from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd_h100
+    x, a, b, c, s0, dy, dsf = _ssd_bwd_inputs(2, 300, 24, 64, 128, cuda,
+                                              torch.bfloat16, with_dsf=True)
+    kw = dict(chunk=32)
+    want = ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, **kw)
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got[:4], want[:4]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_ssd_scan_fn_bwd_is_k3b_through_ops(cuda, dtype):
+    """``SsdScanFn`` on the card: its backward gives the bits of K3b
+    called through ``ops.ssd_scan_bwd`` on the saved inputs, in three
+    launches, with gradients in the inputs' types and shapes."""
+    from repro_torch.kernels.autograd import SsdScanFn
+    from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd_h100
+    x, a, b, c, _, dy, _ = _ssd_bwd_inputs(2, 256, 24, 64, 128, cuda, dtype)
+    leaves = [t.requires_grad_() for t in (x, a, b, c)]
+    y, _ = SsdScanFn.apply(*leaves, None)
+    n0 = ssd_scan_bwd_h100.launches
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert ssd_scan_bwd_h100.launches == n0 + 3
+    want = ops.ssd_scan_bwd(*(t.detach() for t in leaves), None, dy, None)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype and torch.equal(leaf.grad, w)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_bwd_refuses_instead_of_falling_back(cuda):
+    """On CUDA tensors K3b launches or raises: mixed types, a CPU decay, a
+    chunk over 64 and an hd over 128 all raise; the autograd function
+    refuses the serve path's in-place updates."""
+    from repro_torch.kernels.autograd import SsdScanFn
+    from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd_h100
+    x, a, b, c, s0, dy, _ = _ssd_bwd_inputs(1, 200, 2, 16, 8, cuda,
+                                            torch.float32, with_state=True)
+    kw = dict(chunk=16)
+    with pytest.raises(TypeError):
+        ssd_scan_bwd_h100(x, a, b.bfloat16(), c, None, dy, None, **kw)
+    with pytest.raises(ValueError):
+        ssd_scan_bwd_h100(x, a.cpu(), b, c, None, dy, None, **kw)
+    with pytest.raises(ValueError, match="ck not in"):
+        ssd_scan_bwd_h100(x, a, b, c, None, dy, None, chunk=128)
+    big = _ssd_bwd_inputs(1, 16, 1, 160, 8, cuda, torch.float32)
+    with pytest.raises(ValueError, match="hd over"):
+        ssd_scan_bwd_h100(*big, **kw)
+    with pytest.raises(ValueError, match="no backward"):
+        SsdScanFn.apply(x.requires_grad_(), a, b, c, s0, s0, None, None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,dtype", [
+    (4096, 768, 24, torch.float32),       # mamba2-130m's decay projection
+    (8192, 1600, 25, torch.float32),      # hymba-1.5b's
+    (8192, 1600, 16, torch.bfloat16),     # hymba-1.5b's b and c
+    (4096, 768, 128, torch.bfloat16)])    # mamba2-130m's b and c
+def test_gpu_matmul_fn_backward_at_the_ssm_projections(cuda, M, K, N, dtype):
+    """``MatmulFn``'s backward at the SSM projections' training shapes,
+    whose dA product has an inner dimension of 16-128 and whose f32
+    transposes are (768, 24) and (1600, 25): K1 and K4 against autograd of
+    K1's plain version (f32 at 1e-4 of the largest element, bf16 at
+    2e-2), and each K4 transpose bit for bit."""
+    from repro_torch.kernels.autograd import MatmulFn
+    a0 = _t((M, K), 60, cuda)
+    b0 = _t((K, N), 61, cuda) / 16
+    dc = _t((M, N), 62, cuda)
+    a, b = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    MatmulFn.apply(a, b).backward(dc)
+    a2, b2 = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    matmul_plain(a2, b2, bm=16, bn=32, bk=32, s=1).backward(dc)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((a.grad, a2.grad), (b.grad, b2.grad)):
+        want = want.float()
+        torch.testing.assert_close(got.float(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+    for t in (a.detach(), b.detach()):
+        assert torch.equal(ops.transpose(t), t.t().contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_gpu_flash_bwd_at_hymbas_group_and_window(cuda, dtype, tol):
+    """K2b at hymba-1.5b's training signature: 25 query heads over 5 KV
+    heads (group 5), head dim 64, a window of 1024 over 2048 keys, through
+    the pick of its key; against the plain version as
+    ``test_gpu_flash_bwd_kernel_matches_plain`` holds it, two launches bit
+    for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention_paged_plain
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_h100, flash_attention_bwd_plain)
+    pick = ops.select("flash_attention_bwd_h100", {
+        "SQ": 2048, "HD": 64, "GROUP": 5, "HK": 5}).assignment
+    q, k, v, _, do, ln = _bwd_inputs(1, 25, 5, 2048, 2048, 64, [2048], cuda,
+                                     dtype)
+    tables = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    o = flash_attention_paged_plain(q, k, v, tables, ln, bq=16, bkv=64,
+                                    kv_chunk=4096, causal=True, window=1024)
+    kw = dict(bq=pick["bq"], bkv=pick["bkv"], causal=True, window=1024)
+    got = flash_attention_bwd_h100(q, k, v, o, do, ln, **kw)
+    again = flash_attention_bwd_h100(q, k, v, o, do, ln, **kw)
+    want = flash_attention_bwd_plain(q, k, v, o, do, ln, **kw)
+    for g, ag, w in zip(got, again, want):
+        assert torch.equal(g, ag)
+        w = w.float()
+        torch.testing.assert_close(g.float(), w, rtol=tol,
+                                   atol=tol * float(w.abs().max()))

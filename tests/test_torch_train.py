@@ -45,9 +45,13 @@ from repro_torch.runtime import (TrainController, build_eval_step,
 
 DENSE = ["llama3_8b", "granite_3_8b", "yi_6b", "qwen1p5_4b", "chameleon_34b"]
 WHISPER = "whisper_large_v3"
-REFUSED = ["mamba2_130m", "hymba_1p5b", "llama4_scout_17b_a16e",
-           "kimi_k2_1t_a32b"]
+SSM = ["mamba2_130m", "hymba_1p5b"]
+REFUSED = ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"]
 B, S = 4, 16
+#: The SSM and hybrid configs' sequence: longer than their chunk (16) and
+#: hymba's window (32), so that the scan carries a state between chunks
+#: and the window binds.
+S_SSM = 40
 LR = 1e-3
 
 
@@ -69,10 +73,15 @@ def _setup(arch, seed=0, **replace):
     return cfg, jp, tcfg, tp
 
 
+def _seq(cfg):
+    return S_SSM if cfg.ssm is not None else S
+
+
 def _batch(cfg, seed=1, rows=B):
     rng = np.random.default_rng(seed)
-    b = {"tokens": rng.integers(0, cfg.vocab, (rows, S)).astype(np.int32),
-         "labels": rng.integers(0, cfg.vocab, (rows, S)).astype(np.int32)}
+    seq = _seq(cfg)
+    b = {"tokens": rng.integers(0, cfg.vocab, (rows, seq)).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, (rows, seq)).astype(np.int32)}
     if cfg.encoder is not None:
         b["enc_embeds"] = rng.standard_normal(
             (rows, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32)
@@ -92,7 +101,7 @@ def _grads(tcfg, tp, batch):
     return float(loss.detach()), [p.grad.clone() for p in topt.tree_leaves(tp)]
 
 
-@pytest.mark.parametrize("arch,remat", [(a, "none") for a in DENSE]
+@pytest.mark.parametrize("arch,remat", [(a, "none") for a in DENSE + SSM]
                          + [("chameleon_34b", "full"), (WHISPER, "none")])
 def test_loss_and_gradients_match_jax(arch, remat):
     cfg, jp, tcfg, tp = _setup(arch, remat=remat)
@@ -115,6 +124,17 @@ def test_remat_full_gives_the_same_gradients_as_none():
     through the same kernels: the gradients equal ``"none"``'s bit for
     bit."""
     cfg, _, tcfg, tp = _setup("chameleon_34b")
+    batch = _batch(cfg)
+    want = _grads(tcfg, tp, batch)
+    got = _grads(dataclasses.replace(tcfg, remat="full"), tp, batch)
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
+def test_remat_full_gives_mambas_gradients_bit_for_bit():
+    """mamba's ``remat="full"`` runs K3 again in the backward before K3b:
+    the gradients equal ``"none"``'s bit for bit."""
+    cfg, _, tcfg, tp = _setup("mamba2_130m")
     batch = _batch(cfg)
     want = _grads(tcfg, tp, batch)
     got = _grads(dataclasses.replace(tcfg, remat="full"), tp, batch)
@@ -157,7 +177,7 @@ def _params_close(got, want, steps):
     assert flips <= total / 1000, (flips, total)
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b", WHISPER])
+@pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b", WHISPER] + SSM)
 @pytest.mark.parametrize("steps", [1, 2])
 def test_train_step_matches_the_jitted_jax_step(arch, steps):
     cfg, jp, tcfg, tp = _setup(arch)
@@ -219,6 +239,8 @@ def test_eval_step_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", REFUSED)
 def test_train_refuses_ssm_hybrid_and_moe_on_the_cpu(arch):
+    """The ``attn_moe`` configs (ROADMAP Queue 1 item 3c); the ``ssm`` and
+    ``hybrid`` ones train since item 3b."""
     tcfg = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
     opt = topt.adamw(topt.constant(LR))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
