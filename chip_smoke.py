@@ -9,8 +9,8 @@ no phase is caught.
 1. device: torch and CUDA versions, the card's name and power limit.
 2. build: ``nvcc`` builds the kernels (``csrc/*.cu``), one process
    each, all started together; the build time; each K2b, K3b and K4
-   kernel's ``ptxas`` registers and spills (a K3b or K4 kernel, or a K2b
-   tensor-core kernel, that spills fails the run).
+   kernel's ``ptxas`` registers and spills (any of K3b's eight kernels or
+   K4's, or a K2b tensor-core kernel, that spills fails the run).
 3. K1 ``matmul_h100`` against its plain version: in bf16 at every matmul
    triple of the full llama3-8b serve path at M = 4 and 32 through the leaf
    the dispatch picks; through the pick at N = 25 in f32 and N = 32001 in
@@ -278,17 +278,21 @@ no phase is caught.
    ``phase_train_parity``).  (f) K3b (``ssd_scan_bwd_h100``) through the
    pick of each key of ``SSD_BWD_SIGNATURES`` (mamba2-130m's and
    hymba-1.5b's training microbatches, a ragged seq of 1000 and seq 1 with
-   a state0 and a final state's gradient), bf16 and f32: held against its
-   plain version and against ``torch.autograd`` of K3's plain version,
-   two launches bit for bit, timed eagerly and as device time on copies of
-   its inputs cold to the L2 beside the plain version and its bound (the
-   chunk formulas' flops at the inputs' peak, ``bound_f32_ms`` at the f32
-   rate, or the bytes); then, in a process of its own, every leaf of its
-   tree at (g)'s and (h)'s keys in bf16, each held, bit for bit twice,
-   timed as cold device time and each of its three kernels under
-   ``torch.profiler``, the napkin's rank beside the card's; the build
-   prints its six kernels' ``ptxas`` registers and spills and fails if one
-   spills.  (g) mamba2-130m at full width and depth (24 layers): 4 steps of 8 x 1024 tokens in 2 microbatches, a checkpoint of
+   a state0 and a final state's gradient), bf16 (the tensor-core body) and
+   f32 (the FMA body): held against its plain version and against
+   ``torch.autograd`` of K3's plain version, two launches bit for bit,
+   timed eagerly and as device time on copies of its inputs cold to the L2
+   beside the plain version and its bound (the chunk formulas' flops at
+   the inputs' peak, ``bound_f32_ms`` at the f32 rate, or the bytes), the
+   bf16 body's device time over the f32 body's at each key; then, in a
+   process of its own, every leaf of its tree, and chunk 128 outside it,
+   at (g)'s and (h)'s keys and the three of ``K3B_HELD_OUT`` in bf16, each
+   held, bit for bit twice, timed as cold device time and each of its
+   three kernels under ``torch.profiler``, the napkin's rank beside the
+   card's; the build prints its eight kernels' ``ptxas`` registers and
+   spills and fails if one spills.  (g) mamba2-130m at full width and
+   depth (24 layers): 4 steps of 8 x 1024 tokens in 2 microbatches, a
+   checkpoint of
    step 2 restored and step 2 replayed bit for bit, step 3 under the
    profiler; (h) hymba-1.5b at full width, 4 of 32 layers (reduced: depth
    only), 2 steps of 4 x 2048 tokens in 2 microbatches (the window of 1024
@@ -409,7 +413,11 @@ Tolerances, kernel against plain version on the same inputs:
   itself.  All sum in f32 from the same inputs (the same chunk formulas
   in another order, or autograd's step recurrence through the chunked
   forward) and round dx, db and dc once to bf16 (2^-8 of an element);
-  ``expf``/``logf`` against ``torch.exp``/``log``.
+  ``expf``/``logf`` against ``torch.exp``/``log``.  The bf16 body on the
+  tensor cores also rounds M, P⊙L and dS_out (in dX) once to bf16 before
+  their products, and feeds S_in, dS_out (in U and V) and the walks'
+  weighted b and c as a high and a low part, which keeps da at 1e-4
+  (``csrc/ssd_scan_bwd.cu``'s header gives the error one rounding makes).
 
 TF32 is off for the plain versions (``allow_tf32 = False``), so their f32
 products on the card are full f32.
@@ -1297,15 +1305,18 @@ def phase_build() -> None:
             f"{st} bytes, spill loads {ld} bytes")
         if st or ld:
             raise AssertionError(f"K4 {label} spills registers")
-    # K3b's three kernels in two element types: registers and spills,
-    # none allowed
+    # K3b's eight kernels (the bf16 body's walk and chunk kernels, each for
+    # at most 4 and 8 tiles or items a warp; the f32 body's states and
+    # chunks; heads in both types): registers and spills, none allowed
     lines = ptxas_lines(build.build_log("ssd_scan_bwd"), "ssd_bwd_")
-    if len(lines) != 6:
-        raise AssertionError(f"K3b: ptxas reported {len(lines)} of its 6 "
+    if len(lines) != 8:
+        raise AssertionError(f"K3b: ptxas reported {len(lines)} of its 8 "
                              f"kernels")
     for name, regs, st, ld in lines:
         kind = re.search(r"ssd_bwd_\w+?_kernel", name).group(0)
-        label = f"{kind}<{'f32' if 'kernelIf' in name else 'bf16'}>"
+        items = re.search(r"kernelILi(\d+)E", name)
+        label = (f"{kind}<{items.group(1)} a warp>" if items else
+                 f"{kind}<{'f32' if 'kernelIf' in name else 'bf16'}>")
         say(f"[build] K3b {label}: ptxas {regs} registers, spill stores "
             f"{st} bytes, spill loads {ld} bytes")
         if st or ld:
@@ -4021,10 +4032,12 @@ def _bwd_leaf_child(src: str, errs) -> None:
 
 def _k3b_leaf_child(src: str, errs) -> None:
     """The process of 13 (f)'s leaf tables: ``k3b_leaf_rows`` at (g)'s and
-    (h)'s keys; puts the largest error on ``errs``."""
+    (h)'s keys and at the keys of ``K3B_HELD_OUT``; puts the largest error
+    on ``errs``."""
     gen = _child_gen(src)
     err = 0.0
-    for label, R, S, H, hd, n, _, _ in SSD_BWD_SIGNATURES[:2]:
+    keys = [k[:6] for k in SSD_BWD_SIGNATURES[:2]] + list(K3B_HELD_OUT)
+    for label, R, S, H, hd, n in keys:
         err = max(err, k3b_leaf_rows(label, R, S, H, hd, n, gen))
         torch.cuda.empty_cache()
     errs.put(err)
@@ -4517,22 +4530,33 @@ def phase_train_k4(paths, gen) -> dict:
     return rows
 
 
-#: K3b's three kernels, as the profiler names them.
-SSD_BWD_KERNELS = ("ssd_bwd_states_kernel", "ssd_bwd_chunk_kernel",
+#: K3b's bf16 body's three kernels, as the profiler names them.
+SSD_BWD_KERNELS = ("ssd_bwd_walk_tc_kernel", "ssd_bwd_chunk_tc_kernel",
                    "ssd_bwd_heads_kernel")
+#: Keys held out of the napkin's fit (``kernels/ssd_scan_bwd.py``), whose
+#: leaves 13 (f) times beside the two training keys': (label, rows, seq,
+#: heads, hd, state).
+K3B_HELD_OUT = (
+    ("mamba2-130m, 2 rows of 2048 (held out)", 2, 2048, 24, 64, 128),
+    ("hymba-1.5b, 4 rows of 1024 (held out)", 4, 1024, 25, 64, 16),
+    ("ragged seq 1000 (held out)", 2, 1000, 24, 64, 128),
+)
 
 
 def k3b_leaf_rows(label, R, S, H, hd, n, gen) -> float:
     """Every leaf of K3b's tree at one key, bf16, b and c shared, no state
-    given: each held against the plain version (``SSD_BWD_TOL``), two
-    launches bit for bit, timed as CUDA-graph device time on copies cold to
-    the L2 and each of its three kernels under ``torch.profiler``; printed
-    with the napkin's rank beside the card's.  Returns the largest
+    given, and each chunk the bf16 body takes outside the tree (128: the
+    tree stops at the f32 body's 64): each held against the plain
+    version (``SSD_BWD_TOL``), two launches bit for bit, timed as CUDA-graph
+    device time on copies cold to the L2 and each of its three kernels under
+    ``torch.profiler``; printed with the napkin's rank beside the card's
+    and the pick's time over the fastest leaf's.  Returns the largest
     error."""
     from repro_torch.core.params import H100_SXM
     from repro_torch.core.select import rank_candidates
-    from repro_torch.kernels.ssd_scan_bwd import (FAMILY, ssd_scan_bwd_h100,
-                                                  ssd_scan_bwd_plain)
+    from repro_torch.kernels.ssd_scan_bwd import (
+        FAMILY, MAX_CHUNK_TC, format_error, ssd_scan_bwd_h100,
+        ssd_scan_bwd_plain)
     dtype = torch.bfloat16
     x, dy = (torch.randn((R, S, H, hd), generator=gen, device=DEV).to(dtype)
              for _ in range(2))
@@ -4542,12 +4566,16 @@ def k3b_leaf_rows(label, R, S, H, hd, n, gen) -> float:
             for _ in range(2))
     ranked = rank_candidates(FAMILY, H100_SXM, {"SQ": S, "HD": hd,
                                                 "STATE": n})
+    leaves = [(cand.assignment["chunk"], cand.score) for cand in ranked]
+    outside = [(ck, None) for ck in (MAX_CHUNK_TC,)
+               if ck not in dict(leaves) and ck <= S
+               and format_error(R, S, H, hd, n, ck, H, dtype) is None]
     cold = _cold_copies((x, a, b, c, dy), sum(
         t.numel() * t.element_size() for t in (x, a, b, c, dy)))
     rows, err = {}, 0.0
     f32 = SSD_BWD_TOL[torch.float32]
-    for cand in ranked:
-        kw = {"chunk": cand.assignment["chunk"]}
+    for chunk, score in leaves + outside:
+        kw = {"chunk": chunk}
 
         def launch(x=x, a=a, b=b, c=c, dy=dy):
             return ssd_scan_bwd_h100(x, a, b, c, None, dy, None, **kw)
@@ -4564,42 +4592,52 @@ def k3b_leaf_rows(label, R, S, H, hd, n, gen) -> float:
                 for i, (g, w, t) in enumerate(zip(got, want, tols)))
         err = max(err, e)
         del got, again, want
-        rows[kw["chunk"]] = {
+        rows[chunk] = {
             "err": e, "device_ms": graph_ms(lambda: launch(*next(cold)), 5),
-            "score": cand.score,
+            "score": score,
             "us": bwd_kernel_us(launch, names=SSD_BWD_KERNELS)}
-    by_card = sorted(rows, key=lambda k: rows[k]["device_ms"])
-    for i, (leaf, row) in enumerate(rows.items()):
+    tree = [ck for ck, _ in leaves]
+    by_card = sorted(tree, key=lambda k: rows[k]["device_ms"])
+    best = rows[by_card[0]]["device_ms"]
+    for chunk, row in rows.items():
         split = ("the profiler missed some of its launches"
                  if row["us"] is None else
-                 "states {:.4f}, chunks {:.4f}, heads {:.4f} under the "
+                 "walk {:.4f}, chunks {:.4f}, heads {:.4f} under the "
                  "profiler".format(*(u / 1e3 for u in row["us"])))
-        say(f"[train] (f) K3b leaf {label} chunk {leaf}"
-            f"{' (pick)' if i == 0 else ''}: device_ms "
+        if chunk in tree:
+            i = tree.index(chunk)
+            rank = (f"napkin score {row['score']:.4g} rank {i + 1}, card "
+                    f"rank {by_card.index(chunk) + 1} of {len(tree)}")
+        else:
+            rank = (f"outside the tree, {row['device_ms'] / best:.2f}x the "
+                    f"fastest leaf")
+        say(f"[train] (f) K3b leaf {label} chunk {chunk}"
+            f"{' (pick)' if chunk == tree[0] else ''}: device_ms "
             f"{row['device_ms']:.4f} ({split}), err {row['err']:.3e}; "
-            f"napkin score {row['score']:.4g} rank {i + 1}, card rank "
-            f"{by_card.index(leaf) + 1} of {len(rows)}")
-    pick, best = rows[next(iter(rows))], rows[by_card[0]]
-    say(f"[train] (f) K3b {label}: device_ms pick {pick['device_ms']:.4f}, "
-        f"fastest of {len(rows)} leaves {best['device_ms']:.4f} "
-        f"({pick['device_ms'] / best['device_ms']:.2f}x)")
+            f"{rank}")
+    say(f"[train] (f) K3b {label}: device_ms pick "
+        f"{rows[tree[0]]['device_ms']:.4f}, fastest of {len(tree)} leaves "
+        f"{best:.4f} ({rows[tree[0]]['device_ms'] / best:.2f}x)")
     return err
 
 
 def phase_train_k3b(gen) -> tuple:
     """(f) K3b through the pick of each key of ``SSD_BWD_SIGNATURES`` in
-    bf16 and f32 (:func:`ssd_bwd_case`), then, in a process of its own,
-    every leaf at (g)'s and (h)'s keys in bf16 (:func:`k3b_leaf_rows`);
-    returns (largest error against the plain version, {sig: row})."""
+    bf16 (the tensor-core body) and f32 (the FMA body) (:func:`ssd_bwd_case`),
+    the first's device time over the second's; then, in a process of its
+    own, every leaf at (g)'s and (h)'s keys and the held-out keys in bf16
+    (:func:`k3b_leaf_rows`); returns (largest error against the plain
+    version, {sig: row})."""
     from repro_torch.kernels import ops
     err, rows = 0.0, {}
     for label, R, S, H, hd, n, ws, wd in SSD_BWD_SIGNATURES:
         pick = ops.select("ssd_scan_bwd_h100", {
             "SQ": S, "HD": hd, "STATE": n}).assignment
+        by_type = {}
         for dtype in (torch.bfloat16, torch.float32):
             sig = (R, S, H, hd, n, pick["chunk"], True, ws, wd, dtype)
             row = ssd_bwd_case(sig, gen, timed=True)
-            rows[sig] = row
+            rows[sig] = by_type[dtype] = row
             err = max(err, row["err"])
             say(f"[train] (f) K3b {label}, rows {R}, seq {S}, {H} heads of "
                 f"{hd}, state {n}, {dtype}, pick chunk {pick['chunk']}: "
@@ -4610,6 +4648,11 @@ def phase_train_k3b(gen) -> tuple:
                 f"{row['bound_f32_ms'] / row['device_ms']:.4f} of the f32 "
                 f"bound")
             torch.cuda.empty_cache()
+        tc, fma = by_type[torch.bfloat16], by_type[torch.float32]
+        say(f"[train] (f) K3b {label}: the bf16 body (tensor cores) "
+            f"{tc['device_ms']:.4f} ms of device time, the f32 FMA body "
+            f"{fma['device_ms']:.4f} (f32 inputs), ratio "
+            f"{tc['device_ms'] / fma['device_ms']:.3f}")
     return max(err, in_child(_k3b_leaf_child, "K3b's leaf tables")), rows
 
 

@@ -69,6 +69,7 @@
 // which are the family's two smem counters (kernels/ssd_scan.py).  The
 // opt-in above 48 KB is made once a kernel instance and device.
 #include "common.cuh"
+#include "ssd_tiles.cuh"
 
 #include <cstdint>
 
@@ -268,23 +269,6 @@ cudaError_t launch_step(const Args& p, bool v4, dim3 grid, cudaStream_t st) {
 // tensor-core body: bf16, seq > 1
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
-// v as a high and a low bf16 part, hi + lo = v to ~16 bits.
-__device__ __forceinline__ void split2(float v0, float v1, unsigned& hi,
-                                       unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
-}
-
-// The two bf16 of a packed pair, each times its weight, split in two.
-__device__ __forceinline__ void scale_split(unsigned pair, float w0, float w1,
-                                            unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&pair);
-  split2(__low2float(t) * w0, __high2float(t) * w1, hi, lo);
-}
-
 __global__ void __launch_bounds__(kThreads) ssd_tc_kernel(const Args p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int ck16 = (p.ck + 15) / 16 * 16, np = (p.N + 15) / 16 * 16;
@@ -323,48 +307,14 @@ __global__ void __launch_bounds__(kThreads) ssd_tc_kernel(const Args p) {
   // (and columns past w or N) zero, decays past n one
   auto load_chunk = [&](int k) {
     const int slot = k & 1, t0 = k * p.ck, n = min(p.ck, p.seq - t0);
-    bf16* xs = Xs + slot * ck16 * PX;
-    bf16* bs = Bs + slot * ck16 * PB;
-    bf16* cs = Cs + slot * ck16 * PB;
-    const int xw = p.bd / 8;
-    if (p.vec_x) {
-      for (int i = threadIdx.x; i < ck16 * xw; i += kThreads) {
-        const int t = i / xw, c = i % xw;
-        const bool ok = t < n && c * 8 < w;
-        cp_async16(xs + t * PX + c * 8,
-                   ok ? X + (size_t)(t0 + t) * xstep + c * 8 : X, ok);
-      }
-    } else {
-      for (int i = threadIdx.x; i < ck16 * p.bd; i += kThreads) {
-        const int t = i / p.bd, c = i % p.bd;
-        xs[t * PX + c] = (t < n && c < w) ? X[(size_t)(t0 + t) * xstep + c]
-                                          : __float2bfloat16(0.f);
-      }
-    }
-    const int bw = np / 8;
-    if (p.vec_bc) {
-      for (int i = threadIdx.x; i < ck16 * bw; i += kThreads) {
-        const int t = i / bw, c = i % bw;
-        const bool ok = t < n && c * 8 < p.N;
-        cp_async16(bs + t * PB + c * 8,
-                   ok ? B + (t0 + t) * p.sb_t + c * 8 : B, ok);
-        cp_async16(cs + t * PB + c * 8,
-                   ok ? C + (t0 + t) * p.sc_t + c * 8 : C, ok);
-      }
-    } else {
-      for (int i = threadIdx.x; i < ck16 * np; i += kThreads) {
-        const int t = i / np, s = i % np;
-        const bool ok = t < n && s < p.N;
-        bs[t * PB + s] = ok ? B[(t0 + t) * p.sb_t + s] : __float2bfloat16(0.f);
-        cs[t * PB + s] = ok ? C[(t0 + t) * p.sc_t + s] : __float2bfloat16(0.f);
-      }
-    }
-    for (int t = threadIdx.x; t < ck16; t += kThreads) {
-      if (t < n)
-        cp_async4(Ar + slot * ck16 + t, A + (size_t)(t0 + t) * p.heads);
-      else
-        Ar[slot * ck16 + t] = 1.f;
-    }
+    load_padded(Xs + slot * ck16 * PX, PX, ck16, p.bd, n, w,
+                X + (size_t)t0 * xstep, (long long)xstep, p.vec_x);
+    load_padded(Bs + slot * ck16 * PB, PB, ck16, np, n, p.N,
+                B + t0 * p.sb_t, p.sb_t, p.vec_bc);
+    load_padded(Cs + slot * ck16 * PB, PB, ck16, np, n, p.N,
+                C + t0 * p.sc_t, p.sc_t, p.vec_bc);
+    load_decays(Ar + slot * ck16, ck16, n, A + (size_t)t0 * p.heads,
+                p.heads);
   };
 
   const int nchunks = (p.seq + p.ck - 1) / p.ck;

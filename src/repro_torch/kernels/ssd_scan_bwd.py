@@ -26,21 +26,28 @@ itself, not its log: ROADMAP F2).  b and c given as [rows, seq, state]
 (shared across heads, as the model passes them) get their gradients summed
 over the heads in head order; da stays per head.
 
-Three kernels a call, every sum in f32 on the CUDA cores (FMA, never TF32),
-no atomics, so two launches give the same bits:
+Two bodies, three kernels a call each, every sum in f32 in a fixed order
+and no atomics, so two launches give the same bits:
 
-1. states: a block a (row, head, hd tile of 32 columns) and direction;
-   forward, the state entering each chunk (K3's recurrence, recomputed
-   rather than kept by K3's serve kernels); in reverse, dS_out of each
-   chunk, and d(state0) where a state0 was given.  Both into an f32
-   workspace (:mod:`.workspace`).
-2. chunks: a block a (row, head, chunk) owning all of hd: dx, da, and each
-   head's db and dc into the workspace.
-3. heads: db and dc summed over the heads in order, in b's type.
+- bf16, on the tensor cores (``mma.sync``, chunks up to 128 steps):
+  1. walk: a block a (row, head, 32 hd columns) and direction walks its
+     chunks in order as K3's bf16 body does, the state tile in f32
+     accumulators and the next chunk's tiles arriving by ``cp.async``;
+     forward, the state entering each chunk (K3's recurrence, recomputed
+     rather than kept by K3's serve kernels); in reverse, dS_out of each
+     chunk, and d(state0) where a state0 was given.  Both into an f32
+     workspace (:mod:`.workspace`).
+  2. chunks: a block a (row, head, chunk) owning all of hd: every product
+     of the formulas above on the tensor cores, S_in and dS_out where they
+     reach da fed as a high and a low bf16 part; dx, da, and each head's db
+     and dc into the workspace.
+- f32, on the CUDA cores (FMA, never TF32; chunks up to 64 steps): states
+  (the two walks) and chunks, as first written.
+- Both: heads, db and dc summed over the heads in order, in b's type.
 
 Bound on the card: a chunk does about 10·n·N·hd + n²·(3N + 2hd) flops
 (the products above) over 2(hd + N) input elements a step: bound by
-operations, which the FMA body reaches only at the f32 rate.
+operations, at the tensor cores' rate in bf16 and the f32 rate in f32.
 
 Program parameters:  chunk (steps a chunk)
 Data parameters:     SQ, HD, STATE, the key of K3, which a forward and its
@@ -75,20 +82,40 @@ _ARGTYPES = ((ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 7
              + (ctypes.c_longlong,) * 6 + (ctypes.c_int, ctypes.c_void_p))
 #: threads a block (``kThreads`` in the CUDA source), every kernel
 THREADS = 256
-#: The C entry point's limits (``csrc/ssd_scan_bwd.cu``).
+#: The C entry point's limits (``csrc/ssd_scan_bwd.cu``): the f32 FMA body
+#: takes chunks up to 64 steps, the bf16 body up to 128 and a state up to
+#: 256, at most ``MAX_ITEMS`` items a warp (:func:`tc_items`).
 MAX_CHUNK = 64
+MAX_CHUNK_TC = 128
+MAX_STATE_TC = 256
+MAX_ITEMS = 8
 MAX_HD = 128
 MAX_SMEM = 232_448
+#: The chunk lengths of the family's tree.  A leaf must suit both bodies
+#: (the key has no type), so the tree stops at the f32 body's 64; the bf16
+#: body runs 128 when called with it.
 CHUNKS = (16, 32, 64)
-#: hd columns a states block (``kBd``)
+#: hd columns a block of the f32 states kernel (``kBd``) and of the bf16
+#: walk (``kWalkBd``)
 STATES_COLUMNS = 32
 #: The f32 workspace of the states and of each head's db and dc.
 WORKSPACE = Workspace("ssd_scan_bwd states", torch.float32, 0)
 
 
+def _up16(v):
+    """v rounded up to a multiple of 16 over ints or numpy arrays; over a
+    polynomial (a counter) v + 15, a bound above it."""
+    return v + 15 if isinstance(v, Poly) else (v + 15) // 16 * 16
+
+
+def _slabs(v):
+    """16-wide slabs of a multiple of 16 (or of its polynomial bound)."""
+    return v / 16 if isinstance(v, Poly) else v // 16
+
+
 def chunk_smem_bytes(chunk, hd, state):
-    """Shared bytes of the chunk kernel: x and dy tiles (rows of hd + 1),
-    b and c (rows of state + 1), S_in and dS_out (state rows of hd + 1),
+    """Shared bytes of the f32 chunk kernel: x and dy tiles (rows of hd +
+    1), b and c (rows of state + 1), S_in and dS_out (state rows of hd + 1),
     the chunk×chunk M, (dY Xᵀ)⊙L and Q (rows of chunk + 1), six vectors of
     the chunk and eight words of warp sums.  Over ints, or over
     polynomials for the counter."""
@@ -98,20 +125,45 @@ def chunk_smem_bytes(chunk, hd, state):
 
 
 def states_smem_bytes(chunk, state):
-    """Shared bytes of the states kernel: the state tile and an x (or dy)
-    tile of ``STATES_COLUMNS`` columns, b (or c) rows padded to state + 1
-    and the log-decay prefix."""
+    """Shared bytes of the f32 states kernel: the state tile and an x (or
+    dy) tile of ``STATES_COLUMNS`` columns, b (or c) rows padded to state +
+    1 and the log-decay prefix."""
     return 4 * (state * STATES_COLUMNS + chunk * STATES_COLUMNS
                 + chunk * (state + 1) + chunk)
 
 
-def smem_bytes(chunk: int, hd: int, state: int) -> int:
-    """Shared bytes of the larger of the kernels."""
-    return max(chunk_smem_bytes(chunk, hd, state),
-               states_smem_bytes(chunk, state))
+def tc_chunk_smem_bytes(chunk, hd, state):
+    """Shared bytes of the bf16 chunk kernel, with c16, np and hp the chunk,
+    state and hd rounded up to 16: bf16 tiles of x and dy (rows of hp + 8),
+    b and c (rows of np + 8), dS_out's high part (np rows of hp + 8), M and
+    P⊙L (rows of c16 + 8); six f32 vectors of the chunk, Q's row and column
+    sums and the ⟨C, U⟩, ⟨B, V⟩ rows by 16-wide slab, eight warp sums."""
+    c16, n16, h16 = _up16(chunk), _up16(state), _up16(hd)
+    return (2 * (2 * c16 * (h16 + 8) + 2 * c16 * (n16 + 8) + n16 * (h16 + 8)
+                 + 2 * c16 * (c16 + 8))
+            + 4 * (6 * c16 + 2 * _slabs(c16) * c16 + 2 * _slabs(n16) * c16
+                   + 8))
 
 
-#: Kernel launches of one call: states, chunks, heads.
+def walk_smem_bytes(chunk, state):
+    """Shared bytes of the bf16 walk: two slots of a bf16 x (or dy) tile of
+    ``STATES_COLUMNS`` columns (rows of 40), of b (or c) (rows of np + 8)
+    and of the scale vector and exp(cum_last), and the log-decay prefix."""
+    c16, n16 = _up16(chunk), _up16(state)
+    return (2 * (2 * c16 * (STATES_COLUMNS + 8) + 2 * c16 * (n16 + 8))
+            + 4 * (3 * c16 + 2))
+
+
+def tc_items(chunk: int, hd: int, state: int) -> int:
+    """Items a warp of the bf16 chunk kernel holds in its linear phases:
+    (16 rows, 16 columns) tiles of dX [ck][hd] and of dC, dB [ck][state]
+    over 8 warps (``chunk_tc_items``); at most 4 runs two blocks an SM."""
+    most = _up16(chunk) // 16 * max(_up16(state), _up16(hd)) // 16
+    return -(-most // 8)
+
+
+#: Kernel launches of one call in either body: walk (or states), chunks,
+#: heads.
 LAUNCHES_A_CALL = 3
 
 
@@ -130,18 +182,33 @@ def format_error(rows: int, seq: int, heads: int, hd: int, state: int,
     entry point's checks in Python."""
     checks = [
         (min(rows, seq, heads, hd, state) > 0, "empty operand"),
-        (1 <= ck <= min(seq, MAX_CHUNK), f"ck not in 1..min(seq, "
-                                         f"{MAX_CHUNK})"),
+        (dtype in _ELEM, "not f32 or bf16"),
+    ]
+    f32 = dtype == torch.float32
+    top = MAX_CHUNK if f32 else MAX_CHUNK_TC
+    checks += [
+        (1 <= ck <= min(seq, top), f"ck not in 1..min(seq, {top})"
+                                   f"{' (the f32 body)' if f32 else ''}"),
         (hd <= MAX_HD, f"hd over {MAX_HD}"),
         (hsum in (1, heads), "heads summed neither 1 nor all"),
         (rows * heads < 1 << 31, "2^31 (row, head) pairs or more"),
         (-(-seq // ck) <= 65_535, "more than 65,535 chunks"),
-        (dtype in _ELEM, "not f32 or bf16"),
     ]
+    if not f32:
+        checks += [
+            (state <= MAX_STATE_TC, f"state over {MAX_STATE_TC} (the bf16 "
+                                    f"body)"),
+            (tc_items(ck, hd, state) <= MAX_ITEMS,
+             f"more than {MAX_ITEMS} items a warp (the bf16 body)"),
+        ]
     for ok, why in checks:
         if not ok:
             return why
-    if smem_bytes(ck, hd, state) > MAX_SMEM:
+    smem = (max(chunk_smem_bytes(ck, hd, state),
+                states_smem_bytes(ck, state)) if f32 else
+            max(tc_chunk_smem_bytes(ck, hd, state),
+                walk_smem_bytes(ck, state)))
+    if smem > MAX_SMEM:
         return "a kernel larger than 232,448 bytes of shared memory"
     return None
 
@@ -324,47 +391,66 @@ ssd_scan_bwd_h100.shapes = collections.Counter()
 # =============================================================================
 
 #: Napkin constants of :func:`_score`, least-squares fits to the card's
-#: device time of each kernel of every leaf at mamba2-130m's and
-#: hymba-1.5b's training keys (``chip_smoke.py`` phase 13 (f), each kernel
-#: under ``torch.profiler``; H100 SXM at 700 W).  The key has no rows and
-#: no heads: a call is taken as a training microbatch of ``TOKENS`` tokens
-#: (both training paths' 8 x 1024 and 4 x 2048 in two microbatches) over
-#: ``HEADS`` heads.
+#: device time of the bf16 body's walk and chunk kernels, each under
+#: ``torch.profiler``, at the three leaves of mamba2-130m's and hymba-1.5b's
+#: training keys (``chip_k3b.py``, which runs ``chip_smoke.py`` phase 13
+#: (f); NVIDIA H100 80GB HBM3 at 700 W); its picks held at three keys out
+#: of the fit.  The key has no rows and no heads: a call is taken as a
+#: training microbatch of ``TOKENS`` tokens (both training paths' 8 x 1024
+#: and 4 x 2048 in two microbatches) over ``HEADS`` heads.
 TOKENS = 4096
 HEADS = 24
-#: states kernel, µs a chunk of its serial walk: fixed, a state row, a
-#: step·state row.
-STATES_US = (0.6156, 0.06971, 0.003903)
-#: chunk kernel, SM-µs a block: a ck·STATE·HD product, a ck²·HD product,
-#: divided by the square root of the blocks an SM holds (1 or 2, by its
-#: shared memory and its 128 registers: a second block hides part of the
-#: first's latency).
-CHUNK_US = (1.807e-4, 1.566e-4)
-#: Registers a thread, the most of the six kernels' ptxas counts (the f32
-#: chunk kernel's; ``chip_smoke.py`` phase 2 prints them all, CUDA 12.8).
-REGISTERS = 128
+#: walk, µs a chunk of its serial walk, in each wave of its blocks: fixed
+#: (the barrier, the copies' and the decays' wait, the prefix), a warp's
+#: 16-step product of its n8 tiles, a state row stored.
+WALK_US = (1.605, 0.1158, 0.002463)
+#: Blocks of the walk an SM holds (its ``__launch_bounds__``; 124 registers
+#: a thread).
+WALK_BLOCKS = 2
+#: chunk kernel, SM-µs a block: fixed (its loads, five barriers, the dcum
+#: rows), and a multiply-add of its products (:func:`_chunk_macs`).
+CHUNK_US = (12.45, 7.839e-6)
+#: Registers a thread, the most of the eight kernels' ptxas counts (the
+#: bf16 chunk kernel's for 8 items a warp; ``chip_smoke.py`` phase 2 prints
+#: them all, CUDA 12.8).
+REGISTERS = 191
+
+
+def _chunk_macs(c16, n16, h16):
+    """Multiply-adds of a bf16 chunk block, its split parts counted: C·Bᵀ,
+    dY·Xᵀ, Mᵀ·dY, (P⊙L)·B and (P⊙L)ᵀ·C over the causal half of the chunk,
+    B·dS_out once and U, V twice (high and low)."""
+    return c16 * c16 * (3 * n16 + 2 * h16) / 2 + 5 * c16 * n16 * h16
 
 
 def _score(v: Mapping[str, object]):
-    """Napkin model, higher is better: 1000 / (µs of a call's states and
-    chunk kernels; the heads kernel is a few percent and the same for every
-    leaf).  The states kernel's blocks walk their ceil(SQ/ck) chunks in
-    order; the chunk kernel runs pairs·ceil(SQ/ck) blocks, pairs =
-    TOKENS / SQ · HEADS, over the SMs, as many an SM as its shared memory
-    allows, up to 2."""
+    """Napkin model of the bf16 body, higher is better: 1000 / (µs of a
+    call's walk and chunk kernels; the heads kernel is a few percent and
+    the same for every leaf).  The walk's blocks, pairs·ceil(HD/32)·2 with
+    pairs = TOKENS / SQ · HEADS, walk their ceil(SQ/ck) chunks in order in
+    whole waves of ``WALK_BLOCKS`` an SM, a warp's n8 tiles the power of
+    two at or above ceil(STATE/32).  The chunk kernel runs pairs·ceil(SQ/ck)
+    blocks over the SMs, as many an SM as its shared memory and its items a
+    warp (:func:`tc_items`) allow, up to 2."""
     chunk = np.asarray(v["chunk"])
     sq, hd = v.get("SQ", 1024), v.get("HD", 64)
     n = v.get("STATE", 128)
     cores = max(1, v.get("CORES", 1))
     ck = np.minimum(chunk, sq)
+    c16, n16, h16 = _up16(ck), _up16(n), _up16(hd)
     nc = np.ceil(sq / ck)
-    s0, s1, s2 = STATES_US
-    states = nc * (s0 + s1 * n + s2 * ck * n)
-    per_sm = np.clip(np.floor(MAX_SMEM / chunk_smem_bytes(ck, hd, n)), 1, 2)
-    c1, c2 = CHUNK_US
-    block = (c1 * ck * n * hd + c2 * ck * ck * hd) / np.sqrt(per_sm)
-    chunks = TOKENS / sq * HEADS * nc / cores * block
-    return 1e3 / (states + chunks)
+    pairs = TOKENS / sq * HEADS
+    waves = np.ceil(pairs * np.ceil(hd / STATES_COLUMNS) * 2
+                    / (cores * WALK_BLOCKS))
+    per = np.exp2(np.ceil(np.log2(np.maximum(1, np.ceil(n16 / 32)))))
+    w0, w1, w2 = WALK_US
+    walk = nc * waves * (w0 + w1 * c16 / 16 * per + w2 * n16)
+    per_sm = np.clip(np.floor(MAX_SMEM / tc_chunk_smem_bytes(ck, hd, n)), 1,
+                     np.where(tc_items(ck, hd, n) <= 4, 2, 1))
+    b0, b1 = CHUNK_US
+    chunks = (pairs * nc / (cores * per_sm)
+              * (b0 + b1 * _chunk_macs(c16, n16, h16)))
+    return 1e3 / (walk + chunks)
 
 
 class SsdScanBwdH100Family(CachedInstantiationMixin):
@@ -380,15 +466,23 @@ class SsdScanBwdH100Family(CachedInstantiationMixin):
     def counters(self) -> Sequence[Counter]:
         return [
             resource("smem_bytes", "V", (),
-                     "the chunk kernel's: x, dy, b, c tiles, S_in and "
+                     "the f32 chunk kernel's: x, dy, b, c tiles, S_in and "
                      "dS_out, the chunk×chunk M, (dY Xᵀ)⊙L and Q (paper: "
-                     "Z_B)"),
+                     "Z_B); the largest of the four at every leaf both "
+                     "bodies take"),
             resource("states_smem_bytes", "V", (),
-                     "the states kernel's: state tile, x or dy tile, b or "
-                     "c rows, the log-decay prefix (paper: Z_B)"),
+                     "the f32 states kernel's: state tile, x or dy tile, b "
+                     "or c rows, the log-decay prefix (paper: Z_B)"),
+            resource("tc_smem_bytes", "V", (),
+                     "the bf16 chunk kernel's, each size rounded up by 15 "
+                     "(a bound above it): x, dy, b, c, dS_out's high part, "
+                     "M and P⊙L in bf16, the f32 vectors (paper: Z_B)"),
+            resource("walk_smem_bytes", "V", (),
+                     "the bf16 walk's, sizes rounded up by 15: two slots of "
+                     "x or dy, b or c and decays (paper: Z_B)"),
             resource("threads", "T", (), "a fixed 256 threads a block"),
             resource("registers", "G", (),
-                     "the most of the three kernels' ptxas counts"),
+                     "the most of the seven kernels' ptxas counts"),
         ]
 
     def strategies(self) -> Sequence[Strategy]:
@@ -401,6 +495,10 @@ class SsdScanBwdH100Family(CachedInstantiationMixin):
             return chunk_smem_bytes(V("chunk"), V("HD"), V("STATE")), one
         if counter == "states_smem_bytes":
             return states_smem_bytes(V("chunk"), V("STATE")), one
+        if counter == "tc_smem_bytes":
+            return tc_chunk_smem_bytes(V("chunk"), V("HD"), V("STATE")), one
+        if counter == "walk_smem_bytes":
+            return walk_smem_bytes(V("chunk"), V("STATE")), one
         if counter == "threads":
             return Poly.const(THREADS), one
         if counter == "registers":

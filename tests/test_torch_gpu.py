@@ -1488,6 +1488,22 @@ _SSD_BWD_CASES = [
 ]
 
 
+def _held_to_plain(got, again, want, s0, tol):
+    """Each gradient equal over two launches and within ``tol`` (dx, db,
+    dc) or 1e-4 (da, d(state0): f32 in both types) of its largest element
+    against the plain version; no state0, no d(state0)."""
+    for i, (g, ag, w) in enumerate(zip(got, again, want)):
+        if w is None:
+            assert i == 4 and s0 is None and g is None and ag is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape and \
+            torch.equal(g, ag), i
+        t = tol if i in (0, 2, 3) else 1e-4
+        w = w.float()
+        torch.testing.assert_close(g.float(), w, rtol=t,
+                                   atol=t * float(w.abs().max()))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
@@ -1501,7 +1517,8 @@ def test_gpu_ssd_bwd_kernel_matches_plain(cuda, dtype, tol, rows, seq, heads,
     within ``tol`` of its largest element: f32 at 1e-4 (the same chunk
     formulas summed in another order, ``expf``/``logf`` against
     ``torch.exp``/``log``), bf16 inputs at 2e-2 (both sum in f32 from the
-    same bf16 values and round dx, db, dc once to bf16; da and d(state0)
+    same bf16 values and round dx, db, dc once to bf16; the tensor cores'
+    products split S_in and dS_out where they reach da; da and d(state0)
     are f32 on both sides and held at 1e-4).  Two launches give the same
     bits (no atomics), three kernels a call; no state0, no d(state0)."""
     from repro_torch.kernels.ssd_scan_bwd import (
@@ -1516,26 +1533,51 @@ def test_gpu_ssd_bwd_kernel_matches_plain(cuda, dtype, tol, rows, seq, heads,
     torch.cuda.synchronize()
     assert ssd_scan_bwd_h100.launches == n0 + 2 * LAUNCHES_A_CALL
     want = ssd_scan_bwd_plain(x, a, b, c, s0, dy, dsf, **kw)
-    for i, (g, ag, w) in enumerate(zip(got, again, want)):
-        if w is None:
-            assert i == 4 and s0 is None and g is None and ag is None
-            continue
-        assert g.dtype == w.dtype and g.shape == w.shape and \
-            torch.equal(g, ag), i
-        t = tol if i in (0, 2, 3) else 1e-4
-        w = w.float()
-        torch.testing.assert_close(g.float(), w, rtol=t,
-                                   atol=t * float(w.abs().max()))
+    _held_to_plain(got, again, want, s0, tol)
+
+
+#: The bf16 body at every chunk it takes, 128 (outside the family's tree,
+#: which stops at the f32 body's 64) included, at each case's shape.
+_SSD_BWD_TC_CASES = [
+    case[:5] + (chunk,) + case[6:] for case in _SSD_BWD_CASES
+    for chunk in (16, 32, 64, 128) if chunk != case[5]
+] + [(2, 999, 24, 64, 128, 64, True, True, True),   # last chunk of 39 steps
+     (2, 999, 25, 64, 16, 128, True, False, True)]
 
 
 @pytest.mark.gpu
-def test_gpu_ssd_bwd_in_a_cuda_graph(cuda):
+@pytest.mark.parametrize(
+    "rows,seq,heads,hd,state,chunk,shared,with_state,with_dsf",
+    _SSD_BWD_TC_CASES)
+def test_gpu_ssd_bwd_tc_body_at_every_chunk(cuda, rows, seq, heads, hd,
+                                            state, chunk, shared,
+                                            with_state, with_dsf):
+    """K3b's bf16 body on the tensor cores at each case's shape and every
+    other chunk of its domain, and at a seq of 999 (a last chunk that is
+    no multiple of 16): held against the plain version at the same chunk
+    as ``test_gpu_ssd_bwd_kernel_matches_plain`` holds it, two launches bit
+    for bit."""
+    from repro_torch.kernels.ssd_scan_bwd import (ssd_scan_bwd_h100,
+                                                  ssd_scan_bwd_plain)
+    x, a, b, c, s0, dy, dsf = _ssd_bwd_inputs(
+        rows, seq, heads, hd, state, cuda, torch.bfloat16, shared=shared,
+        with_state=with_state, with_dsf=with_dsf)
+    got = ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, chunk=chunk)
+    again = ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, chunk=chunk)
+    torch.cuda.synchronize()
+    want = ssd_scan_bwd_plain(x, a, b, c, s0, dy, dsf, chunk=chunk)
+    _held_to_plain(got, again, want, s0, 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_gpu_ssd_bwd_in_a_cuda_graph(cuda, chunk):
     """K3b captured in a CUDA graph (its workspace sized by an eager call
     first) replays the eager call's bits."""
     from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd_h100
     x, a, b, c, s0, dy, dsf = _ssd_bwd_inputs(2, 300, 24, 64, 128, cuda,
                                               torch.bfloat16, with_dsf=True)
-    kw = dict(chunk=32)
+    kw = dict(chunk=chunk)
     want = ssd_scan_bwd_h100(x, a, b, c, s0, dy, dsf, **kw)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
@@ -1569,8 +1611,9 @@ def test_gpu_ssd_scan_fn_bwd_is_k3b_through_ops(cuda, dtype):
 @pytest.mark.gpu
 def test_gpu_ssd_bwd_refuses_instead_of_falling_back(cuda):
     """On CUDA tensors K3b launches or raises: mixed types, a CPU decay, a
-    chunk over 64 and an hd over 128 all raise; the autograd function
-    refuses the serve path's in-place updates."""
+    chunk over 64 in f32 (over 128 in bf16), an hd over 128 and a bf16
+    state over 256 all raise; the autograd function refuses the serve
+    path's in-place updates."""
     from repro_torch.kernels.autograd import SsdScanFn
     from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd_h100
     x, a, b, c, s0, dy, _ = _ssd_bwd_inputs(1, 200, 2, 16, 8, cuda,
@@ -1585,6 +1628,14 @@ def test_gpu_ssd_bwd_refuses_instead_of_falling_back(cuda):
     big = _ssd_bwd_inputs(1, 16, 1, 160, 8, cuda, torch.float32)
     with pytest.raises(ValueError, match="hd over"):
         ssd_scan_bwd_h100(*big, **kw)
+    # the bf16 body: a chunk over 128, a state over 256
+    x, a, b, c, _, dy, _ = _ssd_bwd_inputs(1, 300, 2, 16, 8, cuda,
+                                           torch.bfloat16)
+    with pytest.raises(ValueError, match="ck not in"):
+        ssd_scan_bwd_h100(x, a, b, c, None, dy, None, chunk=256)
+    wide = _ssd_bwd_inputs(1, 32, 1, 16, 272, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="state over"):
+        ssd_scan_bwd_h100(*wide, **kw)
     with pytest.raises(ValueError, match="no backward"):
         SsdScanFn.apply(x.requires_grad_(), a, b, c, s0, s0, None, None)
 

@@ -92,6 +92,8 @@ def _autograd(x, a, b, c, s0, dy, dsf, chunk):
     (40, 16, True, True, True),              # state0 and dS_final given
     (1, 16, False, True, True),              # one step from a state
     (33, 8, True, False, True),              # dS_final alone
+    (200, 128, True, True, True),            # a chunk of 128, cut at 200
+    (130, 64, False, False, True),           # chunks of 64, the last of 2
 ])
 def test_ssd_bwd_plain_matches_autograd(dtype, seq, chunk, shared,
                                         with_state, with_dsf):
@@ -111,7 +113,7 @@ def test_ssd_bwd_plain_matches_autograd(dtype, seq, chunk, shared,
 
 
 @pytest.mark.parametrize("seq,chunk", [(1, 16), (16, 16), (40, 16),
-                                       (37, 8)])
+                                       (37, 8), (150, 64), (300, 128)])
 def test_ssd_bwd_matches_jax_vjp_of_the_oracle(seq, chunk):
     """The unbatched op form (b, c per head, zero state) against
     ``jax.vjp`` of the JAX package's sequential oracle."""
@@ -194,7 +196,7 @@ def test_ssd_bwd_wrapper_counts_nothing_on_the_cpu():
 
 
 def test_ssd_bwd_counters_and_format_checks():
-    """The family's shared-memory counter is the chunk kernel's formula;
+    """The family's shared-memory counter is the f32 chunk kernel's formula;
     ``format_error`` refuses what the C entry point refuses; the training
     keys of mamba2-130m and hymba-1.5b have feasible picks within both
     kernels' shared memory."""
@@ -209,13 +211,15 @@ def test_ssd_bwd_counters_and_format_checks():
     assert sb.chunk_smem_bytes(64, 64, 128) <= sb.MAX_SMEM
     assert sb.format_error(4, 1024, 24, 64, 128, 64, 24,
                            torch.bfloat16) is None
-    bad = [((4, 1024, 24, 64, 128, 128, 24), "ck not in"),
-           ((4, 1024, 24, 256, 16, 64, 24), "hd over"),
-           ((4, 2 ** 20, 24, 64, 16, 8, 24), "65,535 chunks"),
-           ((4, 1024, 24, 64, 16, 64, 2), "heads summed"),
-           ((4, 1024, 24, 128, 128, 64, 24), "shared memory")]
-    for args, why in bad:
-        assert why in sb.format_error(*args, torch.bfloat16)
+    f32, bf16 = torch.float32, torch.bfloat16
+    bad = [((4, 1024, 24, 64, 128, 128, 24), f32, "ck not in"),
+           ((4, 1024, 24, 64, 128, 256, 24), bf16, "ck not in"),
+           ((4, 1024, 24, 256, 16, 64, 24), bf16, "hd over"),
+           ((4, 2 ** 20, 24, 64, 16, 8, 24), bf16, "65,535 chunks"),
+           ((4, 1024, 24, 64, 16, 64, 2), bf16, "heads summed"),
+           ((4, 1024, 24, 128, 128, 64, 24), f32, "shared memory")]
+    for args, dtype, why in bad:
+        assert why in sb.format_error(*args, dtype)
     for key in ({"SQ": 1024, "HD": 64, "STATE": 128},
                 {"SQ": 2048, "HD": 64, "STATE": 16}):
         pick = ops.select("ssd_scan_bwd_h100", key, H100_SXM).assignment
@@ -225,9 +229,104 @@ def test_ssd_bwd_counters_and_format_checks():
         2 * 2 * 3 * 3 * 5 * 8 + 2 * 2 * 40 * 3 * 5
 
 
+def test_ssd_bwd_domains_of_the_two_bodies():
+    """The bf16 body takes chunks up to 128 and a state up to 256, the f32
+    FMA body chunks up to 64: ``format_error`` refuses a leaf the f32 body
+    cannot take, and the family's tree, whose leaves must suit both bodies,
+    holds the chunks of 16, 32 and 64 at the training keys."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import rank_candidates
+    assert sb.CHUNKS == (16, 32, 64)
+    assert (sb.MAX_CHUNK, sb.MAX_CHUNK_TC) == (64, 128)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for rows, seq, heads, state in ((4, 1024, 24, 128), (2, 2048, 25, 16),
+                                    (2, 1000, 24, 128)):
+        for ck in sb.CHUNKS + (128,):
+            assert sb.format_error(rows, seq, heads, 64, state, ck, heads,
+                                   bf16) is None
+            why = sb.format_error(rows, seq, heads, 64, state, ck, heads,
+                                  f32)
+            assert (why is None) == (ck in sb.CHUNKS)
+        assert "ck not in 1..min(seq, 64) (the f32 body)" == \
+            sb.format_error(rows, seq, heads, 64, state, 128, heads, f32)
+        leaves = rank_candidates(sb.FAMILY, H100_SXM, {
+            "SQ": seq, "HD": 64, "STATE": state})
+        assert sorted(c.assignment["chunk"] for c in leaves) == \
+            list(sb.CHUNKS)
+    # the wrapper cuts a chunk at seq: 128 over 40 steps is one chunk of
+    # 40, which the f32 body takes
+    assert sb.format_error(1, 40, 2, 64, 16, 40, 2, f32) is None
+    assert "state over 256" in sb.format_error(1, 64, 2, 64, 272, 16, 2,
+                                               bf16)
+    assert "items a warp" in sb.format_error(1, 1024, 2, 64, 256, 128, 2,
+                                             bf16)
+    assert sb.format_error(1, 1024, 2, 64, 256, 64, 2, bf16) is None
+    assert "shared memory" in sb.format_error(1, 1024, 2, 128, 128, 128, 2,
+                                              bf16)
+
+
+@pytest.mark.parametrize("key,want", [
+    # mamba2-130m's training key, chunk 64: c16 = 64, np = 128, hp = 64
+    ((64, 64, 128), {
+        "chunk": 4 * (2 * 64 * 65 + 2 * 64 * 129 + 2 * 128 * 65
+                      + 3 * 64 * 65 + 6 * 64 + 8),
+        "states": 4 * (128 * 32 + 64 * 32 + 64 * 129 + 64),
+        "tc": 2 * (2 * 64 * 72 + 2 * 64 * 136 + 128 * 72 + 2 * 64 * 72)
+              + 4 * (6 * 64 + 2 * 4 * 64 + 2 * 8 * 64 + 8),
+        "walk": 2 * (2 * 64 * 40 + 2 * 64 * 136) + 4 * (3 * 64 + 2)}),
+    # hymba-1.5b's, chunk 32: c16 = 32, np = 16, hp = 64
+    ((32, 64, 16), {
+        "chunk": 4 * (2 * 32 * 65 + 2 * 32 * 17 + 2 * 16 * 65
+                      + 3 * 32 * 33 + 6 * 32 + 8),
+        "states": 4 * (16 * 32 + 32 * 32 + 32 * 17 + 32),
+        "tc": 2 * (2 * 32 * 72 + 2 * 32 * 24 + 16 * 72 + 2 * 32 * 40)
+              + 4 * (6 * 32 + 2 * 2 * 32 + 2 * 1 * 32 + 8),
+        "walk": 2 * (2 * 32 * 40 + 2 * 32 * 24) + 4 * (3 * 32 + 2)}),
+    # a chunk of 128 in bf16 at mamba2-130m's widths, and one of 1 step
+    ((128, 64, 128), {
+        "tc": 2 * (2 * 128 * 72 + 2 * 128 * 136 + 128 * 72
+                   + 2 * 128 * 136)
+              + 4 * (6 * 128 + 2 * 8 * 128 + 2 * 8 * 128 + 8),
+        "walk": 2 * (2 * 128 * 40 + 2 * 128 * 136) + 4 * (3 * 128 + 2)}),
+    ((1, 64, 128), {
+        "tc": 2 * (2 * 16 * 72 + 2 * 16 * 136 + 128 * 72 + 2 * 16 * 24)
+              + 4 * (6 * 16 + 2 * 1 * 16 + 2 * 8 * 16 + 8),
+        "walk": 2 * (2 * 16 * 40 + 2 * 16 * 136) + 4 * (3 * 16 + 2)}),
+])
+def test_ssd_bwd_smem_counters_against_hand_sums(key, want):
+    """Each kernel's shared bytes against a hand sum; the family's counters
+    are the f32 kernels' formulas and, for the bf16 kernels, the same sums
+    with every size rounded up by 15 instead of to 16 (a bound above)."""
+    chunk, hd, state = key
+    got = {"chunk": sb.chunk_smem_bytes(chunk, hd, state),
+           "states": sb.states_smem_bytes(chunk, state),
+           "tc": sb.tc_chunk_smem_bytes(chunk, hd, state),
+           "walk": sb.walk_smem_bytes(chunk, state)}
+    for name, value in want.items():
+        assert got[name] == value, name
+    fam, plan = sb.FAMILY, sb.FAMILY.initial_plan()
+    pt = {"chunk": chunk, "HD": hd, "STATE": state}
+    for counter, exact in (("smem_bytes", got["chunk"]),
+                           ("states_smem_bytes", got["states"])):
+        num, den = fam.counter_value(plan, counter)
+        assert num.eval(pt) / den.eval(pt) == exact
+    for counter, fn in (("tc_smem_bytes", sb.tc_chunk_smem_bytes),
+                        ("walk_smem_bytes", sb.walk_smem_bytes)):
+        num, den = fam.counter_value(plan, counter)
+        bound = num.eval(pt) / den.eval(pt)
+        exact = got["tc" if counter == "tc_smem_bytes" else "walk"]
+        assert bound >= exact
+        if chunk % 16 == hd % 16 == state % 16 == 1:
+            assert bound == exact
+
+
 #: The card's fastest chunk at each training key, of the leaves timed in
 #: ``chip_smoke.py`` phase 13 (f) (H100 SXM, 700 W): the napkin's fit.
-K3B_PICKS = {(1024, 64, 128): 16, (2048, 64, 16): 32}
+K3B_PICKS = {(1024, 64, 128): 64, (2048, 64, 16): 64}
+#: The napkin's picks at keys held out of its fit (13 (f)'s
+#: ``K3B_HELD_OUT``), each within 1.10x of the card's fastest leaf there.
+K3B_HELD_OUT_PICKS = {(2048, 64, 128): 64, (1024, 64, 16): 64,
+                      (1000, 64, 128): 64}
 
 
 @pytest.mark.parametrize("sq,hd,state", sorted(K3B_PICKS))
@@ -236,6 +335,14 @@ def test_ssd_bwd_napkin_picks_the_cards_fastest_leaf(sq, hd, state):
     pick = ops.select("ssd_scan_bwd_h100", {"SQ": sq, "HD": hd,
                                             "STATE": state}, H100_SXM)
     assert pick.assignment["chunk"] == K3B_PICKS[(sq, hd, state)]
+
+
+@pytest.mark.parametrize("sq,hd,state", sorted(K3B_HELD_OUT_PICKS))
+def test_ssd_bwd_napkin_picks_at_held_out_keys(sq, hd, state):
+    from repro_torch.core.params import H100_SXM
+    pick = ops.select("ssd_scan_bwd_h100", {"SQ": sq, "HD": hd,
+                                            "STATE": state}, H100_SXM)
+    assert pick.assignment["chunk"] == K3B_HELD_OUT_PICKS[(sq, hd, state)]
 
 
 def test_ssd_bwd_tunes_on_the_cpu(tmp_path, capsys):
