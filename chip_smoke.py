@@ -273,11 +273,13 @@ no phase is caught.
    its loss equal too).  (c) whisper-large-v3 at full width, 4 + 4 layers,
    2 rows of 1500 frames and 64 tokens, two steps: finite losses, times,
    launches.  (d) One f32 train step of the five dense smoke configs,
-   whisper's, and mamba2's and hymba's (40 tokens: past their chunk of 16
-   and hymba's window of 32) on the card against the CPU (tolerances at
-   ``phase_train_parity``).  (f) K3b (``ssd_scan_bwd_h100``) through the
-   pick of each key of ``SSD_BWD_SIGNATURES`` (mamba2-130m's and
-   hymba-1.5b's training microbatches, a ragged seq of 1000 and seq 1 with
+   whisper's, mamba2's and hymba's (40 tokens: past their chunk of 16
+   and hymba's window of 32) and the two MoE configs' on the card against
+   the CPU, and one of kimi-k2's smoke config with its own Adafactor and
+   bf16 accumulators (tolerances at ``phase_train_parity``).  (f) K3b
+   (``ssd_scan_bwd_h100``) through the pick of each key of
+   ``SSD_BWD_SIGNATURES`` (mamba2-130m's and hymba-1.5b's training
+   microbatches, a ragged seq of 1000 and seq 1 with
    a state0 and a final state's gradient), bf16 (the tensor-core body) and
    f32 (the FMA body): held against its plain version and against
    ``torch.autograd`` of K3's plain version, two launches bit for bit,
@@ -300,18 +302,36 @@ no phase is caught.
    records (launches against the step's products, cores and scans: K1
    3·(pL+1)·mb, K4 2·(pL+1)·mb with p = 5 for mamba and 12 for hymba, K2
    L·mb, K2b 3·L·mb, K3 L·mb, K3b 3·L·mb) and the share of the profiled
-   step K3 and K3b take.  Every launch counter is set to 0 just before
-   (b), (c), (g) and (h) and read just after.  (e) K4 at each launch
-   signature of (b), (c), (g) and (h), bf16 and f32: launches a step, the
+   step K3 and K3b take.  (i) K1's and K4's batched entries (K1b, K4b)
+   at the MoE experts' training keys of one routing group of 1024 tokens
+   (``moe_bwd_keys``): llama4-scout's (E 16, C 80: the forward and dA
+   products (80, 8192, 5120) and (80, 5120, 8192), dB (5120, 8192, 80)
+   and (8192, 5120, 80), transposes (5120, 8192), (80, 5120), (8192,
+   5120), (80, 8192)) and kimi-k2's held out (E 384, C 27; dB's f32
+   output 22.5 GB): two launches bit for bit, K1b held expert by expert
+   against K1's plain version, K4b bit for bit against its own, each
+   timed eagerly and as device time on inputs cold to the L2 beside its
+   bound and ``torch.bmm`` or ``a.transpose(1, 2).contiguous()``.  (j)
+   llama4-scout at full width, 1 of 48 layers (reduced: depth only; 4.1 B
+   parameters, 66.3 GB of state), ``remat="full"``: the router's K1
+   launched twice bit for bit, then (b)'s records over 4 steps of 2 x
+   1024 tokens in 2 microbatches (launches a microbatch: K1 (2+2)·5 + 3,
+   K4 2·6, K1b (2+2)·3, K4b 6, K2 2, K2b 3: a block's forward runs twice
+   under remat), a fifth under the profiler, peak memory beside the
+   reckoned state; no checkpoint (the state has no second copy on the
+   card).  Every launch counter is set to 0 just before (b), (c), (g), (h)
+   and (j) and read just after.  (e) K4 at each launch signature of (b),
+   (c), (g), (h) and (j), bf16 and f32: launches a step, the
    pick eagerly and as device
    time beside its byte bound, ``a.t().contiguous()`` (both ways) and
    ``a.clone()`` (the same bytes untransposed, device time), and
    the pick with the leaves of ``K4_TRAIN_LEAVES``, each bit for bit and
    as device time, the napkin's rank beside the card's.  The launch
-   signatures of (b), (c), (g) and (h) are then timed as phase 9 times a
-   pick (K2b's of (a), K3b's of (f) and K4's of phase 6 and (e) keep their
-   rows), and the four are main paths of K1, K2, K2b, K3, K3b and K4 in
-   the kernels' line (``by_paths`` "training").
+   signatures of (b), (c), (g), (h) and (j) are then timed as phase 9
+   times a pick (K2b's of (a), K3b's of (f), K1b's and K4b's of (i) and
+   K4's of phase 6 and (e) keep their rows), and the five are main paths
+   of K1, K1b, K2, K2b, K3, K3b, K4 and K4b in the kernels' line
+   (``by_paths`` "training").
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -358,8 +378,12 @@ sums (with ``device_ms``) over the three engine paths of earlier runs
 (mamba2, hymba, llama3), the six of PR 20 and whisper apart.  Phase 11
 tunes at the nine engine paths' signatures only.  For K4-K6
 the same numbers come from phase 6's case-study path (1, 1 and 8
-launches), each signature timed in phase 6.  ``max_abs_err`` is the largest error against
-the plain version over phases 3-6, 9 and 12.  The last line is the device
+launches), each signature timed in phase 6.  The training paths of phase
+13 ((b), (c), (g), (h), (j)) are main paths too: their launches and sums
+are added to those of K1, K1b, K2, K2b, K3, K3b, K4 and K4b (K4's batched
+entry, which only training launches), and ``by_paths`` "training" gives
+them apart.  ``max_abs_err`` is the largest error against the plain
+version over phases 3-6, 9, 12 and 13.  The last line is the device
 record.
 
 Tolerances, kernel against plain version on the same inputs:
@@ -393,7 +417,8 @@ Tolerances, kernel against plain version on the same inputs:
   fault: the plain version with one step's decay set to 1 (its least
   reading, 1.1e-2, is at a 2048-step hymba row, whose state of 16 forgets
   the fault within a few steps; 2^-6 passed it).
-- matadd and transpose: bit for bit (``torch.equal``): a transpose moves
+- matadd and transpose (K4's batched entry alike): bit for bit
+  (``torch.equal``): a transpose moves
   raw bits, and a sum is one f32 add rounded once to the element type on
   both sides.
 - Jacobi, rtol = atol = 1e-5 (the JAX test's): both add the left pair
@@ -444,6 +469,9 @@ import torch.nn.functional as F
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 L2_FLUSH_BYTES = 128 * 2**20          # more than twice the H100's 50 MB L2
+#: Outputs of this many bytes or more get two launches a CUDA graph (a
+#: 22.5 GB dB of kimi-k2 fits the card twice, not twenty times).
+BIG_OUTPUT = 1 << 30
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 MM_TOL = dict(rtol=1e-4, atol=1e-3)
 FA_TOL = dict(rtol=1e-2, atol=1e-2)
@@ -491,6 +519,9 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                       "src/repro/kernels/ssd_scan.py:70"),
     "transpose_h100": ("src/repro_torch/csrc/transpose.cu",
                        "src/repro/kernels/transpose.py:46"),
+    # K4b: K4's batched entry (the experts' transposes of the MoE backward)
+    "transpose_h100_batched": ("src/repro_torch/csrc/transpose.cu",
+                               "src/repro/kernels/transpose.py:46"),
     "matadd_h100": ("src/repro_torch/csrc/matadd.cu",
                     "src/repro/kernels/matadd.py:37"),
     "jacobi1d_h100": ("src/repro_torch/csrc/jacobi1d.cu",
@@ -607,6 +638,9 @@ def work(name: str, sig) -> tuple:
     if name == "transpose_h100":
         M, N = sig[:2]
         return 2 * M * N * esz, 0.0, PEAK_FLOPS[torch.float32]
+    if name == "transpose_h100_batched":
+        E, M, N = sig[:3]
+        return 2 * E * M * N * esz, 0.0, PEAK_FLOPS[torch.float32]
     if name == "jacobi1d_h100":          # one sweep: n read, n - 2 written
         n = sig[0]
         return (2 * n - 2) * esz, 3.0 * (n - 2), PEAK_FLOPS[torch.float32]
@@ -728,41 +762,54 @@ def matmul_case(sig, gen, *, timed: bool, leaf_only: bool = False,
     return row
 
 
-def batched_case(sig, gen, *, timed: bool, leaf_only: bool = False):
+def batched_case(sig, gen, *, timed: bool, leaf_only: bool = False,
+                 plain_timed: bool = True):
     """K1's batched entry at (E, M, N, K, bm, bn, bk, s, kb, stages, cached,
-    dtype), the wrapper's ``shapes`` key, on fresh inputs: held against
-    the plain version (the per-expert loop of K1's); timed when ``timed``,
-    the kernel eagerly and as device time, the plain version, and
-    ``torch.bmm`` as a yardstick.  B (every expert's weights) is cycled
-    through copies as in :func:`matmul_case`, which leaves an operand
-    past the flush size (both MoE paths' experts: 1.34 and 11.3 GB) alone:
-    it cannot stay in the L2.  ``leaf_only`` times the kernel alone."""
+    dtype), the wrapper's ``shapes`` key, on fresh inputs (B over
+    1/sqrt(K)): two launches bit for bit, each expert held against K1's
+    plain version one at a time (a 22.5 GB output of kimi-k2's training
+    needs no second copy beside it); timed when ``timed``, the kernel
+    eagerly and as device time on copies of the inputs cold to the L2 (an
+    operand past the flush size, both MoE paths' experts at 1.34 and 11.3
+    GB, alone: it cannot stay in the L2) beside the byte and flop bound,
+    and unless ``leaf_only`` ``torch.bmm`` as a yardstick (bf16 out) and,
+    when ``plain_timed``, the plain version.  Outputs of ``BIG_OUTPUT``
+    bytes or more get two launches a graph."""
     from repro_torch.kernels.matmul import (matmul_batched_plain,
-                                            matmul_h100_batched)
+                                            matmul_h100_batched, matmul_plain)
     E, M, N, K, bm, bn, bk, s, kb, stages, cached, dtype = sig
     a = torch.randn((E, M, K), generator=gen, device=DEV, dtype=dtype)
     b = torch.randn((E, K, N), generator=gen, device=DEV, dtype=dtype)
     b.div_(math.sqrt(K))
     kw = dict(bm=bm, bn=bn, bk=bk, s=s, kb=kb, stages=stages, cached=cached)
     got = matmul_h100_batched(a, b, **kw)
+    again = matmul_h100_batched(a, b, **kw)
     torch.cuda.synchronize()
-    want = matmul_batched_plain(a, b, **kw)
-    row = {"err": held(f"matmul batched {sig}", got, want, MM_TOL)}
-    del got, want
-    if timed:
-        bs = itertools.cycle([b] + [b.clone() for _ in range(
-            math.ceil(L2_FLUSH_BYTES / (b.numel() * b.element_size())) - 1)])
-        time_into(row, "ms", lambda: matmul_h100_batched(a, next(bs), **kw),
-                  10)
-        row["device_ms"] = graph_ms(
-            lambda: matmul_h100_batched(a, next(bs), **kw))
-        row["bound_ms"] = max(bound_terms_ms("matmul_h100_batched", sig))
-        if leaf_only:
-            return row
+    if not torch.equal(got, again):
+        raise AssertionError(f"matmul batched {sig}: two launches differ")
+    del again
+    row = {"err": max(held(f"matmul batched {sig} expert {e}", got[e],
+                           matmul_plain(a[e], b[e], **kw), MM_TOL)
+                      for e in range(E))}
+    del got
+    torch.cuda.empty_cache()
+    if not timed:
+        return row
+    ins = _cold_copies((a, b), (a.numel() + b.numel()) * a.element_size())
+    reps = 2 if E * M * N * 4 >= BIG_OUTPUT else 20
+    kernel = lambda: matmul_h100_batched(*next(ins), **kw)  # noqa: E731
+    time_into(row, "ms", kernel, min(reps, 10))
+    row["device_ms"] = graph_ms(kernel, reps)
+    row["bound_ms"] = max(bound_terms_ms("matmul_h100_batched", sig))
+    if leaf_only:
+        return row
+    if plain_timed:
         time_into(row, "plain_ms",
-                  lambda: matmul_batched_plain(a, next(bs), **kw), 1)
-        time_into(row, "library_ms", lambda: torch.bmm(a, next(bs)), 10)
-        row["library_device_ms"] = graph_ms(lambda: torch.bmm(a, next(bs)))
+                  lambda: matmul_batched_plain(*next(ins), **kw), 1)
+    library = lambda: torch.bmm(*next(ins))  # noqa: E731
+    time_into(row, "library_ms", library, min(reps, 10))
+    row["library_device_ms"] = graph_ms(library, reps)
+    torch.cuda.empty_cache()
     return row
 
 
@@ -3662,10 +3709,11 @@ WHISPER_TRAIN = dict(layers=4, batch=2, seq=64, steps=2, lr=3e-4)
 #: of 32).
 TRAIN_PARITY = ("llama3_8b", "granite_3_8b", "yi_6b", "qwen1p5_4b",
                 "chameleon_34b", "whisper_large_v3", "mamba2_130m",
-                "hymba_1p5b")
+                "hymba_1p5b", "llama4_scout_17b_a16e", "kimi_k2_1t_a32b")
 TRAIN_KERNELS = ("matmul_h100", "transpose_h100", "flash_attention_h100",
                  "flash_attention_bwd_h100", "ssd_scan_h100",
-                 "ssd_scan_bwd_h100")
+                 "ssd_scan_bwd_h100", "matmul_h100_batched",
+                 "transpose_h100_batched")
 #: K3b's keys in 13 (f): (label, rows, seq, heads, hd, state, state0
 #: given, dS_final given), b and c shared across heads as the model passes
 #: them; the first two are (g)'s and (h)'s microbatches.
@@ -3681,6 +3729,20 @@ SSD_BWD_SIGNATURES = (
 #: window of 1024 binds.
 MAMBA_TRAIN = dict(seq=1024, batch=8, microbatches=2, steps=4, ckpt_at=2,
                    lr=1e-4)
+#: 13 (i): the MoE configs whose experts' training keys K1's and K4's
+#: batched entries are checked and timed at, one microbatch of 1 x 1024
+#: tokens (one routing group: C = capacity(1024, E, k, 1.25) rows an
+#: expert): llama4-scout's, the keys (j) launches, and kimi-k2's, held out
+#: (its full width trains on no single card).  (config, held out).
+MOE_BWD_CONFIGS = (("llama4_scout_17b_a16e", False),
+                   ("kimi_k2_1t_a32b", True))
+#: 13 (j): llama4-scout at full width, 1 of 48 layers (4.1 B parameters,
+#: 66.3 GB of state at 16 B a parameter), 2 rows of 1024 tokens in 2
+#: microbatches; no checkpoint: the state has no second copy on the card.
+LLAMA4_LAYERS = 1
+LLAMA4_TRAIN = dict(seq=1024, batch=2, microbatches=2, steps=4, ckpt_at=None,
+                    lr=1e-4, note="no checkpoint and no bit-for-bit restart: "
+                    "a 66 GB state has no second copy on the card")
 HYMBA_LAYERS = 4
 HYMBA_TRAIN = dict(seq=2048, batch=4, microbatches=2, steps=2, ckpt_at=None,
                    lr=1e-4)
@@ -4045,27 +4107,38 @@ def _k3b_leaf_child(src: str, errs) -> None:
 
 def _train_counts(cfg, mb: int) -> dict:
     """Launches a train step makes, a microbatch each: each K1 product of
-    the forward (a layer's 4 of attention, 5 of the SSM block and 3 of the
-    MLP, and the lm_head; whisper's encoder layers and cross-attention too)
-    and its dA and dB, two K4 transposes a product, one K2 and one K2b call
-    (three kernels in bf16, two in f32: ``launches_a_call``) an attention
-    core, one K3 and one K3b call (three kernels) an SSD core."""
+    the forward (a layer's 4 of attention, 5 of the SSM block, 3 of the
+    MLP and the MoE router, and the lm_head; whisper's encoder layers and
+    cross-attention too) and its dA and dB, two K4 transposes a product,
+    one K2 and one K2b call (three kernels in bf16, two in f32:
+    ``launches_a_call``) an attention core, one K3 and one K3b call (three
+    kernels) an SSD core; an MoE layer's three expert products on K1's
+    batched entry, their dA and dB there too, and two K4b transposes a
+    product.  Under ``remat="full"`` a block's forward runs again in the
+    backward: its forward launches count twice (the lm_head's once)."""
     from repro_torch.kernels import ssd_scan_bwd
     from repro_torch.kernels.flash_attention_bwd import launches_a_call
     from repro_torch.models.transformer import has_attn, has_mlp, has_ssm
-    per_layer = 4 * has_attn(cfg) + 5 * has_ssm(cfg) + 3 * has_mlp(cfg)
-    prods = per_layer * cfg.layers + 1
+    fwd = 2 if cfg.remat == "full" else 1
+    moe = cfg.block == "attn_moe"
+    per_layer = (4 * has_attn(cfg) + 5 * has_ssm(cfg) + 3 * has_mlp(cfg)
+                 + moe)
+    prods = per_layer * cfg.layers
     cores = cfg.layers if has_attn(cfg) else 0
     scans = cfg.layers if has_ssm(cfg) else 0
+    experts = 3 * cfg.layers if moe else 0
     if cfg.encoder is not None:
         prods += 7 * cfg.encoder.layers + 4 * cfg.layers
         cores += cfg.encoder.layers + cfg.layers
-    return {"matmul_h100": 3 * prods * mb, "transpose_h100": 2 * prods * mb,
-            "flash_attention_h100": cores * mb,
+    return {"matmul_h100": ((fwd + 2) * prods + 3) * mb,
+            "transpose_h100": 2 * (prods + 1) * mb,
+            "flash_attention_h100": fwd * cores * mb,
             "flash_attention_bwd_h100":
                 launches_a_call(getattr(torch, cfg.dtype)) * cores * mb,
-            "ssd_scan_h100": scans * mb,
-            "ssd_scan_bwd_h100": ssd_scan_bwd.LAUNCHES_A_CALL * scans * mb}
+            "ssd_scan_h100": fwd * scans * mb,
+            "ssd_scan_bwd_h100": ssd_scan_bwd.LAUNCHES_A_CALL * scans * mb,
+            "matmul_h100_batched": (fwd + 2) * experts * mb,
+            "transpose_h100_batched": 2 * experts * mb}
 
 
 def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:
@@ -4118,7 +4191,9 @@ def _profile_step(fn) -> tuple:
 
 def _model_flops(cfg, rows: int, seq: int) -> float:
     """A train step's model flops over ``rows`` rows of ``seq`` tokens: 6
-    flops a token per weight of every product (forward, dA, dB), the
+    flops a token per weight of every product (forward, dA, dB; an MoE
+    layer's router and the k experts that a token routes to, not the
+    capacity's padding rows, nor remat's second forward), the
     causal attention's 4·h·d a pair its window leaves visible, 3 times
     (forward, K2b's 2.5 rounded up by its recomputed scores), and the SSD
     recurrence's 5·state·hd a step and head, 3 times (forward, backward
@@ -4130,6 +4205,9 @@ def _model_flops(cfg, rows: int, seq: int) -> float:
         per_layer += d * (nh + 2 * nk) * hd + nh * hd * d
     if has_mlp(cfg):
         per_layer += 3 * d * cfg.d_ff
+    if cfg.block == "attn_moe":        # the router and the k experts a token
+        m = cfg.moe
+        per_layer += d * m.num_experts + m.top_k * 3 * d * m.d_ff_expert
     scan = 0.0
     if has_ssm(cfg):
         s = cfg.ssm
@@ -4278,7 +4356,10 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
         f"{flops / 1e12:.2f} T a step, {flops / med / 1e9:.1f} TFLOP/s, "
         f"{100 * flops / (med * 1e-3) / PEAK_FLOPS[torch.bfloat16]:.2f} % "
         f"of the bf16 dense peak (989 TFLOP/s); peak device memory "
-        f"{peak:.2f} GB (torch.cuda.max_memory_allocated); launches a "
+        f"{peak:.2f} GB (torch.cuda.max_memory_allocated; "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved) against "
+        f"{16 * n / 1e9:.2f} GB of resident state reckoned (parameters, "
+        f"gradients and AdamW's two moments, 16 B a parameter); launches a "
         f"step {json.dumps(want)}; launches {json.dumps(launches)}; cold "
         f"dispatch builds after warm-up: {cold}")
     if cold:
@@ -4287,6 +4368,8 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
         say(f"[train] {tag} note: loss did not fall over {run['steps']} "
             f"steps ({losses[0]!r} -> {losses[-1]!r})")
 
+    if run.get("note"):
+        say(f"[train] {tag} {run['note']}")
     if ckpt_at is not None:
         # restart: restore the checkpoint and replay the steps after it
         t0 = time.perf_counter()
@@ -4399,20 +4482,26 @@ def phase_train_whisper(gen) -> dict:
             "launches": launches, "shapes": shapes, "steps": run["steps"]}
 
 
-def phase_train_parity() -> None:
+def phase_train_parity(archs=TRAIN_PARITY) -> None:
     """(d) One f32 train step (AdamW, microbatches 2) of each smoke config
-    of ``TRAIN_PARITY`` on the card against the CPU plain versions from the
+    of ``archs`` on the card against the CPU plain versions from the
     same state: the loss at rtol 1e-5, grad_norm at 1e-4 (sums in another
     order); the updated parameters within 1e-6, but for at most one
     element in a thousand, which may differ by up to 2·lr where its
     gradient rounds to the other sign (AdamW moves every element by about
-    ±lr whatever the gradient's size)."""
+    ±lr whatever the gradient's size).  Then kimi-k2's smoke config with
+    its own optimizer and accumulators (Adafactor, bf16) at the tolerances
+    of the CPU test against JAX: grad_norm at 1e-2 (a gradient near a bf16
+    rounding boundary rounds to a neighbour), the loss, nll and aux loss
+    at 1e-5, the parameters as above."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_train_state
-    from repro_torch.optim import adamw, constant, tree_leaves
+    from repro_torch.optim import constant, make_optimizer, tree_leaves
     from repro_torch.runtime import build_train_step
     lr = 1e-3
-    for arch in TRAIN_PARITY:
+    steps = ([(arch, "adamw", torch.float32) for arch in archs]
+             + [("kimi_k2_1t_a32b", "adafactor", torch.bfloat16)])
+    for arch, optimizer, grad_dtype in steps:
         cfg = get_smoke_config(arch).scaled(dtype="float32")
         rng = np.random.default_rng(5)
         seq = 40 if cfg.ssm is not None else 32
@@ -4424,9 +4513,10 @@ def phase_train_parity() -> None:
         out = {}
         for dev in ("cpu", DEV):
             params = _to(init_train_state(cfg, seed=2, device="cpu"), dev)
-            opt = adamw(constant(lr))
+            opt = make_optimizer(optimizer, constant(lr))
             tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-            params, _, m = build_train_step(cfg, opt, microbatches=2)(
+            params, _, m = build_train_step(
+                cfg, opt, microbatches=2, grad_dtype=grad_dtype)(
                 params, opt.init(params), tb, 0)
             out[dev] = ({k: float(v) for k, v in m.items()},
                         [p.detach().cpu() for p in tree_leaves(params)])
@@ -4438,17 +4528,173 @@ def phase_train_parity() -> None:
             worst = max(worst, float(diff.max()))
             flips += int((diff > 1e-6).sum())
             total += diff.numel()
-        ok = (math.isclose(gm["loss"], wm["loss"], rel_tol=1e-5)
+        bf16 = grad_dtype == torch.bfloat16
+        ok = (all(math.isclose(gm[k], wm[k], rel_tol=1e-5, abs_tol=1e-7)
+                  for k in ("loss", "nll", "moe_aux"))
               and math.isclose(gm["grad_norm"], wm["grad_norm"],
-                               rel_tol=1e-4)
+                               rel_tol=1e-2 if bf16 else 1e-4)
               and worst <= 2 * lr + 1e-6 and flips <= total / 1000)
-        say(f"[train] (d) {cfg.name} f32, one step on the card against the "
-            f"CPU: loss {gm['loss']!r} vs {wm['loss']!r}, grad_norm "
+        kind = (f"{optimizer}, {str(grad_dtype)[6:]} accumulators"
+                if bf16 else "f32")
+        say(f"[train] (d) {cfg.name} {kind}, one step on the card against "
+            f"the CPU: loss {gm['loss']!r} vs {wm['loss']!r}, moe_aux "
+            f"{gm['moe_aux']!r} vs {wm['moe_aux']!r}, grad_norm "
             f"{gm['grad_norm']!r} vs {wm['grad_norm']!r}, parameters: "
             f"largest difference {worst:.3e}, {flips} of {total} past 1e-6")
         if not ok:
             raise AssertionError(f"{cfg.name}: the card's train step differs "
                                  "from the CPU's")
+
+
+def k4b_case(sig, gen, *, timed: bool, plain_timed: bool = True):
+    """K4's batched entry at (E, M, N, bm, bn, s, cached, dtype), the
+    wrapper's ``shapes`` key: two launches and the plain version bit for
+    bit; when ``timed``, eagerly and as device time on copies of the input
+    cold to the L2 (as :func:`transpose_case`), beside the byte bound and
+    ``a.transpose(1, 2).contiguous()`` (a yardstick), and the plain
+    version when ``plain_timed``."""
+    from repro_torch.kernels.transpose import (transpose_batched_plain,
+                                               transpose_h100_batched)
+    E, M, N, bm, bn, s, cached, dtype = sig
+    a = torch.randn((E, M, N), generator=gen, device=DEV, dtype=dtype)
+    kw = dict(bm=bm, bn=bn, s=s, cached=cached)
+    got = transpose_h100_batched(a, **kw)
+    again = transpose_h100_batched(a, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"K4b {sig}: two launches differ")
+    del again
+    row = {"err": exact(f"K4b {sig}", got, transpose_batched_plain(a, **kw))}
+    del got
+    torch.cuda.empty_cache()
+    if not timed:
+        return row
+    big = a.numel() * a.element_size() >= BIG_OUTPUT
+    reps, cold = (2 if big else _k4_graph_reps(a)), _cold_launches(a)
+    kernel = cold(lambda x: transpose_h100_batched(x, **kw))
+    library = cold(lambda x: x.transpose(1, 2).contiguous())
+    time_into(row, "ms", kernel, 2 if big else 10)
+    row["device_ms"] = graph_ms(kernel, reps)
+    time_into(row, "library_ms", library, 2 if big else 10)
+    row["library_device_ms"] = graph_ms(library, reps)
+    if plain_timed:
+        time_into(row, "plain_ms",
+                  cold(lambda x: transpose_batched_plain(x, **kw)), 1)
+    row["bound_ms"] = max(bound_terms_ms("transpose_h100_batched", sig))
+    torch.cuda.empty_cache()
+    return row
+
+
+CASES["transpose_h100_batched"] = k4b_case
+
+
+def moe_bwd_keys(arch: str) -> tuple:
+    """(K1b signatures, K4b signatures) of an MoE config's expert products
+    in a train step over one routing group of 1024 tokens, in bf16, at the
+    picks of their per-expert keys: the forward and dA of each product
+    (the up projection's forward key is the down projection's dA key and
+    back), dB, and the transposes of each product's weights and
+    activations."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import capacity
+    cfg = get_config(arch)
+    m = cfg.moe
+    E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
+    C = capacity(1024, E, m.top_k, m.capacity_factor)
+    bf16 = torch.bfloat16
+    k1b = []
+    for M, N, K in ((C, f, d), (C, d, f), (d, f, C), (f, d, C)):
+        data = {"M": M, "N": N, "K": K}
+        k1b.append((E,) + _mm_sig(data, ops.select("matmul_h100", data),
+                                  bf16))
+    k4b = []
+    for M, N in ((d, f), (C, d), (f, d), (C, f)):
+        cand = ops.select("transpose_h100", {"M": M, "N": N})
+        k4b.append((E, M, N) + _format(ops.FAMILIES["transpose_h100"], cand)
+                   + (bf16,))
+    return k1b, k4b
+
+
+def phase_train_moe_kernels(gen) -> tuple:
+    """(i) K1's and K4's batched entries at each key of
+    ``MOE_BWD_CONFIGS`` (:func:`moe_bwd_keys`): :func:`batched_case`
+    and :func:`k4b_case`, each timed, the plain version timed at the keys
+    the path (j) runs (the held-out keys' plain versions are checked, not
+    timed); returns (largest K1b error, {sig: row}, largest K4b error,
+    {sig: row})."""
+    k1_err = k4_err = 0.0
+    k1_rows, k4_rows = {}, {}
+    for arch, held_out in MOE_BWD_CONFIGS:
+        k1b, k4b = moe_bwd_keys(arch)
+        what = "held out" if held_out else "(j)'s"
+        for sig in k1b:
+            row = batched_case(sig, gen, timed=True,
+                               plain_timed=not held_out)
+            k1_rows[sig] = row
+            k1_err = max(k1_err, row["err"])
+            say(f"[train] (i) K1b {arch} {what} key E {sig[0]} (M, N, K) "
+                f"{sig[1:4]}, pick {sig[4:10]}: {fmt(row)}; two launches "
+                f"equal bit for bit; device time "
+                f"{100 * row['bound_ms'] / row['device_ms']:.1f} % of the "
+                f"bound, torch.bmm (bf16 out) "
+                f"{row['library_device_ms'] / row['device_ms']:.3f} x its "
+                f"device time")
+        for sig in k4b:
+            row = k4b_case(sig, gen, timed=True, plain_timed=not held_out)
+            k4_rows[sig] = row
+            k4_err = max(k4_err, row["err"])
+            say(f"[train] (i) K4b {arch} {what} key E {sig[0]} (M, N) "
+                f"{sig[1:3]}, pick {sig[3:7]}: {fmt(row)}; bit for bit, "
+                f"two launches equal; device time "
+                f"{100 * row['bound_ms'] / row['device_ms']:.1f} % of the "
+                f"byte bound, a.transpose(1, 2).contiguous() "
+                f"{row['library_device_ms'] / row['device_ms']:.3f} x its "
+                f"device time")
+    return k1_err, k1_rows, k4_err, k4_rows
+
+
+def router_bits_once(gen) -> None:
+    """(j)'s router product, (T, E, d) = (1024, 16, 5120) in bf16 through
+    ``ops.matmul``, launched twice on the same inputs: equal bit for bit
+    (a split pick sums its splits in a fixed order), so the forward that
+    ``remat="full"`` runs again in the backward routes the same tokens."""
+    from repro_torch.kernels import ops
+    x = torch.randn((1024, 5120), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    w = torch.randn((5120, 16), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    one, two = ops.matmul(x, w), ops.matmul(x, w)
+    torch.cuda.synchronize()
+    if not torch.equal(one, two):
+        raise AssertionError("the router's K1 launches differ")
+    pick = dict(ops.select("matmul_h100", {"M": 1024, "N": 16,
+                                           "K": 5120}).assignment)
+    say(f"[train] (j) the router's K1 product (1024, 16, 5120), pick "
+        f"{pick}: two launches equal bit for bit")
+
+
+def phase_train_llama4(gen) -> dict:
+    """(j) llama4-scout at full width, ``LLAMA4_LAYERS`` of 48 layers, on
+    ``LLAMA4_TRAIN``: :func:`train_path` (K1b and K4b among its counted
+    kernels), after :func:`router_bits_once`."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.workspace import free_unheld
+    router_bits_once(gen)
+    # the 66 GB state and its transients leave a few GB of the card: the
+    # split workspaces earlier phases grew (2.4 GB after (i)) go first
+    torch.cuda.synchronize()
+    freed = free_unheld()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"[train] (j) device memory before the path: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved, "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free (split workspaces "
+        f"of {freed / 1e9:.2f} GB dropped)")
+    return train_path("(j)", get_config("llama4_scout_17b_a16e"),
+                      LLAMA4_LAYERS, LLAMA4_TRAIN)
 
 
 #: 13 (e): the leaves of K4 timed beside its pick at each training
@@ -4660,9 +4906,10 @@ def phase_train(gen) -> tuple:
     """Phase 13, on split workspaces of its own (no engine's graph holds
     them): (a) K2b; (b) llama3-8b training; (c) whisper-large-v3 training;
     (d) the smoke configs' train steps, card against CPU; (f) K3b; (g)
-    mamba2-130m training; (h) hymba-1.5b training.  Returns (K2b's largest
-    error, K2b's rows, the four training paths' records, K3b's largest
-    error, K3b's rows)."""
+    mamba2-130m training; (h) hymba-1.5b training; (i) K1b and K4b at the
+    MoE training keys; (j) llama4-scout training.  Returns (K2b's largest
+    error, K2b's rows, the five training paths' records, K3b's largest
+    error, K3b's rows, (i)'s errors and rows)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.workspace import scratch
     with scratch():
@@ -4689,15 +4936,30 @@ def phase_train(gen) -> tuple:
         paths.append(train_path("(h)", get_config("hymba_1p5b"),
                                 HYMBA_LAYERS, HYMBA_TRAIN))
         say(f"[train] (h) {time.perf_counter() - t0:.1f} s")
-        for p in paths[2:]:
+        t0 = time.perf_counter()
+        moe = phase_train_moe_kernels(gen)
+        say(f"[train] (i) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.append(phase_train_llama4(gen))
+        say(f"[train] (j) {time.perf_counter() - t0:.1f} s")
+        for p in paths[2:4]:
             share = {n: p["kernel_ms"][n] / p["profiled_ms"]
                      for n in ("K3", "K3b")}
             say(f"[train] {p['name']}: median step {p['step_ms']:.1f} ms "
                 f"(CUDA events), peak {p['peak_gb']:.2f} GB; share of the "
                 f"profiled step's device time: " + ", ".join(
                     f"{n} {100 * v:.1f} %" for n, v in share.items()))
+        p = paths[4]
+        # the profiler names K1's batched launches as K1's (one kernel) and
+        # K4b's as K4's
+        share = {n: p["kernel_ms"][n] / p["profiled_ms"]
+                 for n in ("K1", "K4", "K2", "K2b", "other")}
+        say(f"[train] {p['name']}: median step {p['step_ms']:.1f} ms "
+            f"(CUDA events), peak {p['peak_gb']:.2f} GB; share of the "
+            f"profiled step's device time: " + ", ".join(
+                f"{n} {100 * v:.1f} %" for n, v in share.items()))
         torch.cuda.synchronize()
-    return err, rows, paths, ssd_err, ssd_rows
+    return err, rows, paths, ssd_err, ssd_rows, moe
 
 
 def main() -> int:
@@ -4770,7 +5032,9 @@ def main() -> int:
     say(f"[whisper] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     (errs["flash_attention_bwd_h100"], bwd_rows, train_paths,
-     errs["ssd_scan_bwd_h100"], ssd_bwd_rows) = phase_train(gen)
+     errs["ssd_scan_bwd_h100"], ssd_bwd_rows, moe) = phase_train(gen)
+    k1b_err, k1b_rows, errs["transpose_h100_batched"], k4b_rows = moe
+    errs["matmul_h100_batched"] = max(errs["matmul_h100_batched"], k1b_err)
     train = _group_shapes(train_paths, TRAIN_KERNELS)
     t1 = time.perf_counter()
     k4_rows = phase_train_k4(train_paths, gen)
@@ -4780,10 +5044,13 @@ def main() -> int:
     timed = {**rows, "transpose_h100": {**cases["rows"]["transpose_h100"],
                                         **k4_rows},
              "flash_attention_bwd_h100": bwd_rows,
-             "ssd_scan_bwd_h100": ssd_bwd_rows}
+             "ssd_scan_bwd_h100": ssd_bwd_rows,
+             "matmul_h100_batched": {**rows["matmul_h100_batched"],
+                                     **k1b_rows},
+             "transpose_h100_batched": k4b_rows}
     for name, row in phase_shapes(train, gen, timed=timed,
-                                  before="phase 6, 9, 12 or 13 (a), (e) or "
-                                         "(f)").items():
+                                  before="phase 6, 9, 12 or 13 (a), (e), "
+                                         "(f) or (i)").items():
         rows.setdefault(name, {}).update(row)
     train_sums = launch_sums(train, rows)
     say(f"[train] kernel time over the training paths' launches: "

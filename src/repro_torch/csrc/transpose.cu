@@ -12,10 +12,13 @@
 // up to 16 bytes an access on both sides and keeps a block small enough that
 // several share an SM.
 //
-// Layout: grid (ceil(M/bm), ceil(N/(s*bn))), bm*bn threads a block (bm, bn
-// and s powers of two, bn >= 32, bm*bn <= 1024); past 65,535 column blocks,
-// one launch for each 65,535 (kMaxGridY).  A block owns the tile
-// A[i0 : i0+bm, j0 : j0+s*bn] and its image B[j0.., i0..].
+// Layout: grid (ceil(M/bm), ceil(N/(s*bn)), E), bm*bn threads a block (bm,
+// bn and s powers of two, bn >= 32, bm*bn <= 1024); past 65,535 column
+// blocks, one launch for each 65,535 (kMaxGridY).  A block owns the tile
+// A[e][i0 : i0+bm, j0 : j0+s*bn] and its image B[e][j0.., i0..], e =
+// blockIdx.z: the 2-D entry runs E = 1, the batched entry (a mixture of
+// experts' weights and activations, B[e] = A[e]^T for A [E, M, N]) one
+// expert a z, as K1's batched entry does.
 //   cached (the paper's case 1 and, at s = 1, case 2):
 //     - loads: thread (ty, tx) owns the run of s neighbouring elements
 //       A[i0+ty, j0 + tx*s ..], read in accesses of lw bytes, all issued
@@ -40,7 +43,10 @@
 // Access widths: lw (loads) and sw (stores) are chosen per launch by the
 // entry point (access_bytes): the widest power of two up to 16 bytes, and
 // up to the thread's run (lw) or the tile's bm rows (sw), that divides the
-// base address and the row's bytes (N*size for A, M*size for B).  A view
+// base address, the row's bytes (N*size for A, M*size for B) and the
+// expert's stride (M*N*size, a multiple of either row: it adds no
+// constraint, but says why expert e's rows start where expert 0's do).  A
+// view
 // one element into its buffer, or a row of 4097 bf16, takes narrower
 // accesses, down to one element; an access is then always whole or wholly
 // past the ragged edge.
@@ -169,6 +175,8 @@ __global__ void __launch_bounds__(1024)
   const int row_bytes = W * E;                       // a multiple of 64
   const int i0 = blockIdx.x << lbm;
   const int j0 = (cb0 + blockIdx.y) * W;
+  A += (size_t)blockIdx.z * M * N;                   // expert e's A and B
+  B += (size_t)blockIdx.z * M * N;
   const int tx = threadIdx.x & ((1 << lbn) - 1);
   const int ty = threadIdx.x >> lbn;
   // a store access covers sv = 2^lsv tile rows, a B row 2^lg accesses; a
@@ -218,6 +226,8 @@ __global__ void __launch_bounds__(1024)
                        int N, int lbm, int lbn, int lw, int cb0) {
   const int i = (blockIdx.x << lbm) + (threadIdx.x >> lbn);
   if (i >= M) return;
+  A += (size_t)blockIdx.z * M * N;
+  B += (size_t)blockIdx.z * M * N;
   const int j0 = ((cb0 + blockIdx.y) * S << lbn) +
                  (threadIdx.x & ((1 << lbn) - 1)) * S;
   Run<T, S> run = {};
@@ -228,8 +238,9 @@ __global__ void __launch_bounds__(1024)
 }
 
 template <typename T, int S>
-cudaError_t launch(const void* a, void* b, int M, int N, int lbm, int lbn,
-                   bool cached, int lw, int sw, cudaStream_t stream) {
+cudaError_t launch(const void* a, void* b, int E, int M, int N, int lbm,
+                   int lbn, bool cached, int lw, int sw,
+                   cudaStream_t stream) {
   const T* src = static_cast<const T*>(a);
   T* dst = static_cast<T*>(b);
   // at most 1024 threads of at most 8 elements of 4 bytes: 32 KB, under the
@@ -240,7 +251,7 @@ cudaError_t launch(const void* a, void* b, int M, int N, int lbm, int lbn,
   for (long long cb0 = 0; cb0 < col_blocks; cb0 += kMaxGridY) {
     const long long cols = col_blocks - cb0;
     dim3 grid((unsigned)(((long long)M + (1 << lbm) - 1) >> lbm),
-              (unsigned)(cols < kMaxGridY ? cols : kMaxGridY));
+              (unsigned)(cols < kMaxGridY ? cols : kMaxGridY), (unsigned)E);
     const int threads = 1 << (lbm + lbn);
     if (cached)
       transpose_cached<T, S><<<grid, threads, smem, stream>>>(
@@ -255,13 +266,14 @@ cudaError_t launch(const void* a, void* b, int M, int N, int lbm, int lbn,
 }
 
 template <typename T>
-cudaError_t launch_s(const void* a, void* b, int M, int N, int lbm, int lbn,
-                     int s, bool cached, int lw, int sw, cudaStream_t st) {
+cudaError_t launch_s(const void* a, void* b, int E, int M, int N, int lbm,
+                     int lbn, int s, bool cached, int lw, int sw,
+                     cudaStream_t st) {
   switch (s) {
-    case 1: return launch<T, 1>(a, b, M, N, lbm, lbn, cached, lw, sw, st);
-    case 2: return launch<T, 2>(a, b, M, N, lbm, lbn, cached, lw, sw, st);
-    case 4: return launch<T, 4>(a, b, M, N, lbm, lbn, cached, lw, sw, st);
-    case 8: return launch<T, 8>(a, b, M, N, lbm, lbn, cached, lw, sw, st);
+    case 1: return launch<T, 1>(a, b, E, M, N, lbm, lbn, cached, lw, sw, st);
+    case 2: return launch<T, 2>(a, b, E, M, N, lbm, lbn, cached, lw, sw, st);
+    case 4: return launch<T, 4>(a, b, E, M, N, lbm, lbn, cached, lw, sw, st);
+    case 8: return launch<T, 8>(a, b, E, M, N, lbm, lbn, cached, lw, sw, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -275,34 +287,53 @@ int log2i(int x) {
 }
 
 // The widest access, a power of two from one element up to min(16, cap)
-// bytes, that divides the address and the row's bytes: every row then
-// starts on such a boundary, and an access is whole or wholly past the
-// row's end.
-int access_bytes(const void* p, long long row_bytes, int esize, int cap) {
+// bytes, that divides the address, the row's bytes and the expert's
+// stride: every row of every expert then starts on such a boundary, and an
+// access is whole or wholly past the row's end.
+int access_bytes(const void* p, long long row_bytes, long long stride,
+                 int esize, int cap) {
   int w = 16;
-  while (w > esize &&
-         (w > cap || reinterpret_cast<uintptr_t>(p) % w || row_bytes % w))
+  while (w > esize && (w > cap || reinterpret_cast<uintptr_t>(p) % w ||
+                       row_bytes % w || stride % w))
     w >>= 1;
   return w;
 }
 
 }  // namespace
 
-// esize: bytes an element (2 or 4).
-extern "C" int transpose_h100_launch(const void* a, void* b, int M, int N,
-                                     int bm, int bn, int s, int cached,
-                                     int esize, void* stream) {
-  if (M <= 0 || N <= 0 || !pow2(bm) || !pow2(bn) || bn < 32 ||
-      bm > 1024 || bn > 1024 || bm * bn > 1024 || !pow2(s) || s > 8 ||
-      (esize != 2 && esize != 4))
+// Formats it takes (kernels/transpose.py: format_error mirrors these
+// checks): E in 1..65,535, M, N > 0, bm, bn and s powers of two, bn >= 32,
+// bm, bn <= 1024, bm*bn <= 1024, s <= 8, elements of 2 or 4 bytes.
+static int run(const void* a, void* b, int E, int M, int N, int bm, int bn,
+               int s, int cached, int esize, void* stream) {
+  if (E <= 0 || E > kMaxGridY || M <= 0 || N <= 0 || !pow2(bm) ||
+      !pow2(bn) || bn < 32 || bm > 1024 || bn > 1024 || bm * bn > 1024 ||
+      !pow2(s) || s > 8 || (esize != 2 && esize != 4))
     return cudaErrorInvalidValue;
+  const long long stride = (long long)M * N * esize;
   // an uncached launch stores single elements
-  const int lw = access_bytes(a, (long long)N * esize, esize, s * esize);
-  const int sw = access_bytes(b, (long long)M * esize, esize,
+  const int lw = access_bytes(a, (long long)N * esize, stride, esize,
+                              s * esize);
+  const int sw = access_bytes(b, (long long)M * esize, stride, esize,
                               cached ? bm * esize : esize);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int lbm = log2i(bm), lbn = log2i(bn);
   if (esize == 4)
-    return launch_s<uint32_t>(a, b, M, N, lbm, lbn, s, cached, lw, sw, st);
-  return launch_s<uint16_t>(a, b, M, N, lbm, lbn, s, cached, lw, sw, st);
+    return launch_s<uint32_t>(a, b, E, M, N, lbm, lbn, s, cached, lw, sw, st);
+  return launch_s<uint16_t>(a, b, E, M, N, lbm, lbn, s, cached, lw, sw, st);
+}
+
+// B [N, M] = A [M, N]^T; esize: bytes an element (2 or 4).
+extern "C" int transpose_h100_launch(const void* a, void* b, int M, int N,
+                                     int bm, int bn, int s, int cached,
+                                     int esize, void* stream) {
+  return run(a, b, 1, M, N, bm, bn, s, cached, esize, stream);
+}
+
+// B [E, N, M]: B[e] = A[e]^T for A [E, M, N], one launch.
+extern "C" int transpose_h100_batched_launch(const void* a, void* b, int E,
+                                             int M, int N, int bm, int bn,
+                                             int s, int cached, int esize,
+                                             void* stream) {
+  return run(a, b, E, M, N, bm, bn, s, cached, esize, stream);
 }

@@ -10,6 +10,14 @@ plain version never runs on a CUDA tensor.  So:
   (``transpose_h100``, bit-exact).  K1 takes two operands of one type, so
   dC is cast to the operands' type first, as the JAX bf16 einsum's
   cotangent is bf16; the gradients come back in the operands' type.
+- :class:`BatchedMatmulFn`: C[e] = A[e]·B[e] through K1's batched entry
+  (``ops.matmul_batched``, f32 out, one launch for every expert e); its
+  backward is the batched entry again, dA[e] = dC[e]·B[e]ᵀ and dB[e] =
+  A[e]ᵀ·dC[e], one launch each, over operands transposed by K4's batched
+  entry (``ops.transpose_batched``, one launch each).  dC is cast to the
+  operands' type first and the gradients come back in the operands'
+  types, as for :class:`MatmulFn`; each transposed operand is freed once
+  its product is made.
 - :class:`AttentionFn`: K2's paged entry over a batch's K/V read as a pool
   of one block a row (the table ``[[b]]``); it saves q, k, v, o and the
   lengths, and its backward is K2b (``flash_attention_bwd_h100``).  A real
@@ -49,6 +57,27 @@ class MatmulFn(torch.autograd.Function):
             da = ops.matmul(dc, ops.transpose(b)).to(a.dtype)
         if ctx.needs_input_grad[1]:
             db = ops.matmul(ops.transpose(a), dc).to(b.dtype)
+        return da, db
+
+
+class BatchedMatmulFn(torch.autograd.Function):
+    """C[E, M, N] = A[E, M, K]·B[E, K, N] in f32 (K1's batched entry),
+    differentiable."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        return ops.matmul_batched(a, b)
+
+    @staticmethod
+    def backward(ctx, dc: torch.Tensor):
+        a, b = ctx.saved_tensors
+        dc = dc.to(a.dtype).contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ops.matmul_batched(dc, ops.transpose_batched(b)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = ops.matmul_batched(ops.transpose_batched(a), dc).to(b.dtype)
         return da, db
 
 

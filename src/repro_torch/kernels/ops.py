@@ -90,6 +90,17 @@ def transpose(a: torch.Tensor, *,
     return fn(a)
 
 
+def transpose_batched(a: torch.Tensor, *,
+                      machine: MachineDescription = H100_SXM) -> torch.Tensor:
+    """B[e] = A[e]ᵀ over A [E, M, N] as a new [E, N, M] tensor, bit-exact
+    (K4's batched entry, one launch for every e), keyed on the per-expert
+    (M, N) as :func:`transpose`, through the same frozen lane."""
+    _, M, N = a.shape
+    fn = get_default_cache().warm_callable(
+        TRANSPOSE_FAMILY, machine, (("M", M), ("N", N)), a.device.type)
+    return fn.batched(a)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     machine: MachineDescription = H100_SXM) -> torch.Tensor:

@@ -32,6 +32,13 @@ cases 2 and 3 need a smaller V (``tests/test_torch_core.py``).
 
 Bound on the card: bytes (see the note in the CUDA source).
 
+The batched entry (:func:`transpose_h100_batched`, the built callable's
+``.batched``) writes B[e] = A[e]ᵀ for A [E, M, N] in one launch, the expert
+on the grid's z, as K1's batched entry has it: the backward of the experts'
+products (``kernels/autograd.py`` ``BatchedMatmulFn``) transposes every
+expert's weights and activations so.  It takes the pick of the per-expert
+key {M, N}.
+
 Program parameters:  bm, bn, s
 Data parameters:     M, N
 Machine parameters:  V (shared bytes a block), T (threads a block),
@@ -43,7 +50,7 @@ import collections
 import ctypes
 import functools
 import math
-from typing import Callable, Mapping, Sequence, Tuple
+from typing import Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +64,12 @@ from .instantiate_cache import CachedInstantiationMixin, grain
 
 #: transpose_h100_launch(a, b, M, N, bm, bn, s, cached, esize, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+#: transpose_h100_batched_launch(a, b, E, M, N, bm, bn, s, cached, esize,
+#: stream)
+_ARGTYPES_BATCHED = ((ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 8
+                     + (ctypes.c_void_p,))
+#: The C entry point's limit on E (the grid's z).
+MAX_EXPERTS = 65_535
 
 
 def smem_bytes(bm, bn, g):
@@ -79,37 +92,92 @@ def transpose_plain(a: torch.Tensor, *, bm: int, bn: int, s: int,
     return ref.transpose(a).contiguous()
 
 
+def transpose_batched_plain(a: torch.Tensor, *, bm: int, bn: int, s: int,
+                            cached: bool = True) -> torch.Tensor:
+    """Plain version of the batched entry: :func:`transpose_plain` for each
+    expert, A [E, M, N] -> B [E, N, M]."""
+    return torch.stack([transpose_plain(a[e], bm=bm, bn=bn, s=s,
+                                        cached=cached)
+                        for e in range(a.shape[0])])
+
+
+def format_error(M: int, N: int, bm: int, bn: int, s: int, esize: int,
+                 experts: int = 1) -> Optional[str]:
+    """Why ``transpose_h100_launch`` (``transpose_h100_batched_launch`` over
+    ``experts`` matrices) refuses this launch, or None: the C entry point's
+    checks (``csrc/transpose.cu``) in Python."""
+    def pow2(x):
+        return x > 0 and x & (x - 1) == 0
+    checks = [
+        (1 <= experts <= MAX_EXPERTS, "experts not in 1..65,535"),
+        (M > 0 and N > 0, "empty operand"),
+        (pow2(bm) and pow2(bn) and pow2(s), "bm, bn or s not a power of two"),
+        (bn >= 32, "bn below 32"),
+        (bm <= 1024 and bn <= 1024 and bm * bn <= 1024,
+         "more than 1024 threads"),
+        (s <= 8, "s above 8"),
+        (esize in (2, 4), "not 2- or 4-byte elements"),
+    ]
+    for ok, why in checks:
+        if not ok:
+            return why
+    return None
+
+
 @functools.cache
 def _entry() -> Callable[..., int]:
     """The C entry point, resolved once a process."""
     return build.entry("transpose", "transpose_h100_launch", _ARGTYPES)
 
 
-def _launch(a: torch.Tensor, *, bm: int, bn: int, s: int,
-            cached: bool = True) -> torch.Tensor:
+@functools.cache
+def _batched_entry() -> Callable[..., int]:
+    return build.entry("transpose", "transpose_h100_batched_launch",
+                       _ARGTYPES_BATCHED)
+
+
+def _run(a: torch.Tensor, batched: bool, *, bm: int, bn: int, s: int,
+         cached: bool) -> torch.Tensor:
+    """Both entries: B = Aᵀ for A [M, N], or B[e] = A[e]ᵀ for A [E, M, N]
+    in one launch when ``batched``; counts the launch on its wrapper."""
+    what = "transpose_h100" + (" batched" if batched else "")
     if not a.is_cuda:
-        raise ValueError(f"transpose_h100 kernel needs a CUDA tensor: "
-                         f"{a.device}")
-    if a.dim() != 2:
-        raise ValueError(f"transpose_h100: want [M, N], got {tuple(a.shape)}")
+        raise ValueError(f"{what} kernel needs a CUDA tensor: {a.device}")
+    nd = 3 if batched else 2
+    if a.dim() != nd:
+        raise ValueError(f"{what}: want [{'E, ' * batched}M, N], got "
+                         f"{tuple(a.shape)}")
     if a.element_size() not in (2, 4):
-        raise TypeError(f"transpose_h100 moves 2- or 4-byte elements: "
-                        f"{a.dtype}")
+        raise TypeError(f"{what} moves 2- or 4-byte elements: {a.dtype}")
     if not a.is_contiguous():
-        raise ValueError("transpose_h100 needs a contiguous operand")
-    M, N = a.shape
-    b = torch.empty((N, M), dtype=a.dtype, device=a.device)
+        raise ValueError(f"{what} needs a contiguous operand")
+    E = a.shape[0] if batched else 1
+    M, N = a.shape[-2:]
+    b = torch.empty((*a.shape[:-2], N, M), dtype=a.dtype, device=a.device)
     if a.numel() == 0:
         return b
-    err = _entry()(a.data_ptr(), b.data_ptr(), M, N, bm, bn, s, int(cached),
-                   a.element_size(),
-                   torch._C._cuda_getCurrentRawStream(a.device.index))
+    rest = (M, N, bm, bn, s, int(cached), a.element_size(),
+            torch._C._cuda_getCurrentRawStream(a.device.index))
+    err = (_batched_entry()(a.data_ptr(), b.data_ptr(), E, *rest) if batched
+           else _entry()(a.data_ptr(), b.data_ptr(), *rest))
     if err:
-        build.check(err, f"transpose_h100(bm={bm}, bn={bn}, s={s}, "
+        build.check(err, f"{what}(E={E}, bm={bm}, bn={bn}, s={s}, "
                          f"cached={cached})")
-    transpose_h100.launches += 1
-    transpose_h100.shapes[(M, N, bm, bn, s, bool(cached), a.dtype)] += 1
+    wrapper = transpose_h100_batched if batched else transpose_h100
+    wrapper.launches += 1
+    wrapper.shapes[(E,) * batched + (M, N, bm, bn, s, bool(cached),
+                                     a.dtype)] += 1
     return b
+
+
+def _launch(a: torch.Tensor, *, bm: int, bn: int, s: int,
+            cached: bool = True) -> torch.Tensor:
+    return _run(a, False, bm=bm, bn=bn, s=s, cached=cached)
+
+
+def _launch_batched(a: torch.Tensor, *, bm: int, bn: int, s: int,
+                    cached: bool = True) -> torch.Tensor:
+    return _run(a, True, bm=bm, bn=bn, s=s, cached=cached)
 
 
 def transpose_h100(a: torch.Tensor, *, bm: int, bn: int, s: int,
@@ -125,6 +193,22 @@ def transpose_h100(a: torch.Tensor, *, bm: int, bn: int, s: int,
 
 transpose_h100.launches = 0
 transpose_h100.shapes = collections.Counter()
+
+
+def transpose_h100_batched(a: torch.Tensor, *, bm: int, bn: int, s: int,
+                           cached: bool = True) -> torch.Tensor:
+    """B[e] = A[e]ᵀ for every expert e, one launch, as a new [E, N, M]
+    tensor.  CUDA tensors launch the kernel (or raise); CPU tensors run
+    :func:`transpose_batched_plain`.  ``transpose_h100_batched.launches``
+    counts its launches, ``.shapes`` them by (E, M, N, bm, bn, s, cached,
+    dtype)."""
+    fn = transpose_batched_plain if a.device.type == "cpu" \
+        else _launch_batched
+    return fn(a, bm=bm, bn=bn, s=s, cached=cached)
+
+
+transpose_h100_batched.launches = 0
+transpose_h100_batched.shapes = collections.Counter()
 
 
 # =============================================================================
@@ -254,12 +338,17 @@ class TransposeH100Family(CachedInstantiationMixin):
 
     def _build(self, plan: KernelPlan, assignment: Mapping[str, int],
                device: str = "cuda") -> Callable:
+        """The 2-D entry bound to the leaf's parameters; its ``batched``
+        attribute is the batched entry bound to the same."""
         # instantiate has put the grain the kernel runs in s (phantom_grain)
-        fn = _launch if device == "cuda" else transpose_plain
-        return functools.partial(
-            fn, bm=int(assignment["bm"]), bn=int(assignment["bn"]),
-            s=int(assignment["s"]),
-            cached=bool(plan.flags.get("smem_cache", True)))
+        kw = dict(bm=int(assignment["bm"]), bn=int(assignment["bn"]),
+                  s=int(assignment["s"]),
+                  cached=bool(plan.flags.get("smem_cache", True)))
+        cuda = device == "cuda"
+        fn = functools.partial(_launch if cuda else transpose_plain, **kw)
+        fn.batched = functools.partial(
+            _launch_batched if cuda else transpose_batched_plain, **kw)
+        return fn
 
 
 FAMILY = TransposeH100Family()

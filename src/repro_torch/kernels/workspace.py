@@ -78,6 +78,21 @@ class Workspace:
         self._holders.discard(holder)
 
 
+def free_unheld() -> int:
+    """Drop the buffers of every workspace that no captured graph holds
+    (they grow again on the next launch that needs them), for work that
+    needs the card's memory whole; returns the bytes dropped.  The
+    launches that used them must have finished (one stream, or a
+    synchronise)."""
+    freed = 0
+    for ws in WORKSPACES:
+        if not len(ws._holders):
+            freed += sum(b.numel() * b.element_size()
+                         for b in ws.bufs.values())
+            ws.bufs = {}
+    return freed
+
+
 @contextlib.contextmanager
 def scratch():
     """For the duration, every workspace starts with no buffer and no

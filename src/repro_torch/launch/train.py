@@ -11,14 +11,23 @@ The flags are the JAX launcher's (``repro.launch.train``), plus
 the config (and of whisper's encoder) to fit one card: llama3-8b's training
 state is 16 bytes a parameter (f32 masters, gradients, AdamW's two
 moments), 128 GB at its 32 layers.  The loop: the stateless
-``SyntheticLM`` batches, the train step (K1, K4, K2, K2b, K3 and K3b on
+``SyntheticLM`` batches, the train step (K1, K4, their batched entries,
+K2, K2b, K3 and K3b on
 the card), ``warmup_cosine(lr, 10, steps)``, async checkpoints every
 ``--ckpt-every`` steps under ``--ckpt-dir`` and a resume from the newest, the
 ``TrainController``'s restart on failure.  Whisper's ``enc_embeds`` come
 from a ``torch.Generator`` seeded by (seed, step): not the JAX launcher's
-numbers.  The dense ``attn_mlp`` configs, the ``ssm`` and ``hybrid`` ones
-(mamba2-130m, hymba-1.5b: K3 and K3b on the card) and whisper-large-v3
-train; the ``attn_moe`` configs are refused.
+numbers.  Every config trains: the dense ``attn_mlp`` ones, the ``ssm``
+and ``hybrid`` ones (mamba2-130m, hymba-1.5b: K3 and K3b on the card),
+whisper-large-v3 and the ``attn_moe`` ones (the experts on K1's and K4's
+batched entries).  On one card llama4-scout trains at full width with
+``--layers 1`` (4.1 B parameters, 66 GB of state); kimi-k2, whose one
+layer and embeddings are 19.4 B parameters, trains at ``--smoke`` size
+only (its full width is a multi-card path)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch llama4-scout-17b-a16e --layers 1 --seq-len 1024 \
+        --global-batch 2 --microbatches 2 --steps 4
 """
 from __future__ import annotations
 

@@ -12,6 +12,15 @@ contractions are plain ``torch.einsum``, as they are plain einsum outside
 any Pallas kernel in the JAX layer.  One card has no mesh, so the JAX
 layer's sharding constraints have no counterpart here.
 
+While autograd records (``layers.recording``: a train step), the router
+runs through ``MatmulFn`` (its backward K1 over K4 transposes, the logits
+still f32) and the three expert products through ``BatchedMatmulFn`` (its
+backward K1's batched entry over K4's batched transposes); the softmax,
+the top-k, the capacity assignment, the dispatch and combine einsums and
+the aux loss are PyTorch's own ops, differentiated as JAX differentiates
+the JAX layer's: a dropped token carries no gradient through the experts.
+Every serve path launches what it launched before.
+
 Shapes (per call):
   x          (B, S, d)      -> tokens (G, gsz, d)
   router     (d, E)
@@ -32,7 +41,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.autograd import BatchedMatmulFn, MatmulFn
 from .config import ModelConfig
+from .layers import recording
 
 Params = Dict[str, Any]
 
@@ -49,9 +60,9 @@ def capacity(group_size: int, num_experts: int, top_k: int,
 
 
 def check_moe(cfg: ModelConfig) -> None:
-    """Raise for an ``attn_moe`` config the port does not serve: the
-    ``moe_a2a`` all-to-all schedule (and its padded expert storage) is a
-    multi-card path."""
+    """Raise for an ``attn_moe`` config the port does not serve or train:
+    the ``moe_a2a`` all-to-all schedule (and its padded expert storage) is
+    a multi-card path."""
     if "moe_a2a" in cfg.perf_flags:
         raise NotImplementedError(
             f"perf flag 'moe_a2a' (config {cfg.name}) is not ported yet: "
@@ -79,8 +90,12 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     C = capacity(gsz, E, k, m.capacity_factor)
     xt = x.reshape(T, d).contiguous()
 
+    def matmul(a, b, fn, op):
+        return fn.apply(a, b) if recording(a, b) else op(a, b)
+
     # ---- routing: a zero padding token has zero logits ---------------------
-    logits = ops.matmul(xt, p["router"].to(x.dtype))             # (T, E) f32
+    logits = matmul(xt, p["router"].to(x.dtype), MatmulFn,
+                    ops.matmul)                                   # (T, E) f32
     if Tp != T:
         xt = F.pad(xt, (0, 0, 0, Tp - T))
         logits = F.pad(logits, (0, 0, 0, Tp - T))
@@ -104,10 +119,14 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     # ---- expert SwiGLU: each projection one batched K1 launch ---------------
     xin = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
     xin = xin.reshape(E, G * C, d).contiguous()
-    h = ops.matmul_batched(xin, p["wi"].to(x.dtype)).to(x.dtype)
-    g = ops.matmul_batched(xin, p["wg"].to(x.dtype)).to(x.dtype)
-    out = ops.matmul_batched((F.silu(g) * h).contiguous(),
-                             p["wo"].to(x.dtype)).to(x.dtype)
+
+    def expert(a, w):
+        return matmul(a, w.to(x.dtype), BatchedMatmulFn,
+                      ops.matmul_batched).to(x.dtype)
+
+    h = expert(xin, p["wi"])
+    g = expert(xin, p["wg"])
+    out = expert((F.silu(g) * h).contiguous(), p["wo"])
     y = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype),
                      out.reshape(E, G, C, d))
     y = y.reshape(Tp, d)[:T].reshape(B, S, d)

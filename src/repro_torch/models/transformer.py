@@ -55,15 +55,12 @@ def check_block(cfg: ModelConfig) -> None:
 
 
 def check_train(cfg: ModelConfig) -> None:
-    """Raise for a config the port cannot train (on every device): its
-    blocks need kernels without a backward yet (K1's batched entry and the
-    router), or a remat policy no config uses."""
+    """Raise for a config the port cannot train (on every device): one it
+    does not serve (:func:`check_block`: the ``moe_a2a`` schedule, a
+    multi-card path, among them), or a remat policy no config uses.  Every
+    block it serves trains: ``attn_mlp``, ``attn_moe``, ``ssm`` and
+    ``hybrid``."""
     check_block(cfg)
-    if cfg.block == "attn_moe":
-        raise NotImplementedError(
-            f"training the 'attn_moe' block (config {cfg.name}) needs a "
-            "backward of K1's batched entry, the router and the capacity: "
-            "ROADMAP Queue 1 item 3c")
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"remat {cfg.remat!r} (config {cfg.name}) "
                                   "is not ported: 'none' or 'full'")

@@ -131,12 +131,16 @@ def adamw(lr: Schedule, *, b1: float = 0.9, b2: float = 0.95,
         c2 = 1.0 - _f32(b2) ** stepf
 
         def upd(p, g, m, v):
+            # the JAX formulas, updated in place: two temporaries the size
+            # of the leaf at most (a 4 GB embedding adds 8 GB, not 16)
             g = g.float()
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            delta = (m / c1) / (torch.sqrt(v / c2) + eps) + \
-                weight_decay * p.float()
-            p.copy_((p - lr_t * delta).to(p.dtype))
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            denom = torch.sqrt(v / c2).add_(eps)
+            delta = torch.div(m, c1).div_(denom)
+            del denom
+            delta.add_(p.float(), alpha=weight_decay).mul_(lr_t)
+            p.sub_(delta)
 
         tree_map(upd, params, grads, state["m"], state["v"])
         return params, state

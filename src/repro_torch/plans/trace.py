@@ -51,7 +51,11 @@ the lm_head over every token, ``M = R·seq``.  Every K1 request (M, N, K) of
 the forward also asks, in the backward (``kernels/autograd.py``), for dA =
 dC·Bᵀ at (M, K, N) and dB = Aᵀ·dC at (K, N, M), and for K4's transposes of
 B [K, N] and of A [M, K]; every attention core asks for K2b at K2's key,
-and every SSD scan for K3b at K3's.
+and every SSD scan for K3b at K3's.  The MoE router is such a K1 request
+(its dA at (T, d, E), its dB at (d, E, T)); the experts' products ask for
+their dA, dB and transposes at the per-expert keys, and the model launches
+each through the batched entries of K1 and K4 (``BatchedMatmulFn``), so
+:meth:`TracedOp.experts` gives E for every one of those sites.
 
 Nothing is executed — this is an abstract walk of the step over shapes.
 """
@@ -86,9 +90,10 @@ class TracedOp:
         return dict(self.data)
 
     def experts(self, cfg: ModelConfig) -> int:
-        """The products one launch at this key makes: E where a site runs
-        K1's batched entry over the experts (a key a 2-D site shares needs
-        no more), else 1."""
+        """The products (or transposes) one launch at this key makes: E
+        where a site runs K1's or K4's batched entry over the experts (the
+        forward's and the backward's expert sites; a key a 2-D site shares
+        needs no more), else 1."""
         return cfg.moe.num_experts if any(
             ".moe.expert_" in s for s in self.sites) else 1
 

@@ -157,5 +157,8 @@ class TrainController:
                 else:
                     state = restored
                     step = restored_step
+        # the final save makes a host copy of its own: two of a 50 GB
+        # state would not fit a host of 96 GB
+        del initial
         self.ckpt.save(step, state)
         return state, history

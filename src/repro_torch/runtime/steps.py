@@ -6,7 +6,7 @@ sampling.
 accumulation in ``grad_dtype``, the mean over the microbatches, global-norm
 clipping, the MoE auxiliary loss and the z-loss in the loss, and the
 optimizer's update.  The port runs the microbatches in a Python loop
-(autograd over K1, K2, K3, K4, K2b and K3b:
+(autograd over K1, K2, K3, K4, their batched entries, K2b and K3b:
 :mod:`repro_torch.kernels.autograd`)
 and updates the parameters and the optimizer state **in place**: a
 functional update would hold two or three copies of the training state.

@@ -720,6 +720,47 @@ def test_gpu_transpose_kernel_matches_plain(cuda, dtype, M, N, bm, bn, s,
     assert torch.equal(got, transpose_plain(a, bm=bm, bn=bn, s=s))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,N,bm,bn,s,cached", [
+    # llama4-scout's expert keys, cut in E: 16-byte accesses
+    (2, 80, 5120, 16, 32, 8, True), (2, 5120, 80, 32, 32, 8, True),
+    # an expert's stride of 70 bytes at bf16 (140 at f32): M·N odd, so
+    # expert 1 starts off every boundary wider than an element
+    (3, 5, 7, 32, 32, 8, True), (3, 5, 7, 4, 64, 2, False),
+    # rows of no multiple of 16 bytes, a single row, column or element
+    (4, 33, 4097, 32, 32, 8, True), (5, 1, 4096, 32, 32, 8, True),
+    (5, 4096, 1, 16, 64, 4, True), (7, 1, 1, 1, 32, 1, True)])
+def test_gpu_transpose_batched_matches_plain(cuda, dtype, E, M, N, bm, bn,
+                                             s, cached):
+    """K4's batched entry: one launch, bit for bit its plain version, and
+    each expert bit for bit the 2-D launch of the same format on that
+    expert's matrix; the 2-D counter does not move."""
+    from repro_torch.kernels.transpose import (transpose_batched_plain,
+                                               transpose_h100_batched)
+    a = _t((E, M, N), 15, cuda, dtype)
+    kw = dict(bm=bm, bn=bn, s=s, cached=cached)
+    _poison_next(a.numel() * a.element_size(), cuda)
+    n0, t0 = transpose_h100_batched.launches, transpose_h100.launches
+    got = transpose_h100_batched(a, **kw)
+    torch.cuda.synchronize()
+    assert transpose_h100_batched.launches == n0 + 1
+    assert transpose_h100.launches == t0 and got.shape == (E, N, M)
+    assert torch.equal(got, transpose_batched_plain(a, **kw))
+    for e in (0, E - 1):
+        assert torch.equal(got[e], transpose_h100(a[e].contiguous(), **kw))
+
+
+@pytest.mark.gpu
+def test_gpu_transpose_batched_refuses_too_many_experts(cuda):
+    from repro_torch.kernels.transpose import (format_error,
+                                               transpose_h100_batched)
+    a = torch.zeros((65_536, 1, 2), dtype=torch.bfloat16, device=cuda)
+    assert format_error(1, 2, 32, 32, 8, 2, experts=65_536) is not None
+    with pytest.raises(Exception):
+        transpose_h100_batched(a, bm=32, bn=32, s=8)
+
+
 def _poison_next(nbytes, dev):
     """Frees a block of ``nbytes`` all-ones bytes, which PyTorch's caching
     allocator hands to the next allocation of that size: an element the
@@ -1406,9 +1447,44 @@ def test_gpu_matmul_fn_backward_matches_autograd_of_plain(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("E,M,N,K", [(16, 80, 384, 256), (3, 5, 40, 200)])
+def test_gpu_batched_matmul_fn_backward_matches_autograd_of_plain(
+        cuda, dtype, tol, E, M, N, K):
+    """``BatchedMatmulFn`` on the card (K1's batched entry forward; the
+    same over K4's batched transposes backward: three K1b and two K4b
+    launches, no 2-D launch) against autograd of the batched plain
+    version."""
+    from repro_torch.kernels.autograd import BatchedMatmulFn
+    from repro_torch.kernels.transpose import transpose_h100_batched
+    a0 = _t((E, M, K), 33, cuda)
+    b0 = _t((E, K, N), 34, cuda) / 16
+    dc = _t((E, M, N), 35, cuda)
+    a, b = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    c0 = (matmul_h100_batched.launches, transpose_h100_batched.launches,
+          matmul_h100.launches, transpose_h100.launches)
+    BatchedMatmulFn.apply(a, b).backward(dc)
+    torch.cuda.synchronize()
+    assert (matmul_h100_batched.launches - c0[0],
+            transpose_h100_batched.launches - c0[1],
+            matmul_h100.launches - c0[2],
+            transpose_h100.launches - c0[3]) == (3, 2, 0, 0)
+    a2, b2 = (x.to(dtype).requires_grad_() for x in (a0, b0))
+    matmul_batched_plain(a2, b2, bm=16, bn=32, bk=32, s=1).backward(
+        dc.to(dtype).float())
+    for got, want in ((a.grad, a2.grad), (b.grad, b2.grad)):
+        assert got.dtype == dtype
+        want = want.float()
+        torch.testing.assert_close(got.float(), want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b",
                                   "chameleon_34b", "whisper_large_v3",
-                                  "mamba2_130m", "hymba_1p5b"])
+                                  "mamba2_130m", "hymba_1p5b",
+                                  "llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
 def test_gpu_train_step_equals_cpu(cuda, arch):
     """One f32 train step (AdamW, microbatches 2) of the smoke config on
     the card against the CPU plain versions from the same state: loss at

@@ -68,7 +68,7 @@ _IMPORT_RE = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "chip_k4.py", "chip_k3b.py"]))
+    + ["chip_smoke.py", "chip_k4.py", "chip_k3b.py", "chip_moe.py"]))
 def test_no_source_imports_jax_or_repro(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT_RE.search(text), path

@@ -1140,12 +1140,14 @@ def test_flash_bwd_tunes_on_the_cpu(tmp_path, capsys):
     assert table["measured_ranks"] and "compaction" in table
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "whisper_large_v3"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "whisper_large_v3",
+                                  "llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
 def test_train_warm_set_leaves_no_cold_build(arch):
     """After ``warm_train_dispatch`` a train step (microbatches 2) resolves
     nothing cold, and the (family, key) pairs it asks for are exactly the
     traced ones (F5): K1's forward, dA and dB keys, K4's transposes, K2's
-    and K2b's keys."""
+    and K2b's keys; for the MoE configs the router's and, through the
+    batched entries of K1 and K4, the experts'."""
     from repro_torch.artifacts.dispatch import DispatchCache, set_default_cache
     from repro_torch.models import init_train_state
     from repro_torch.optim import adamw, constant

@@ -9,6 +9,11 @@ and a planted routing tie (two experts with the same router column: the
 lower index wins, as ``jax.lax.top_k`` has it).  Tolerance 1e-4: the same
 f32 math summed in another order (K1's plain version sums k tiles in
 order; the JAX layer is einsum).
+
+The layer's backward (the router through ``MatmulFn``, the experts through
+``BatchedMatmulFn``: K1's batched entry over K4's batched transposes, in
+their plain versions here) against ``jax.vjp`` of the JAX layer, where
+capacity binds too; K4's batched entry and the MoE training warm set.
 """
 import jax
 import jax.numpy as jnp
@@ -22,8 +27,13 @@ import repro_torch.configs as tconfigs
 import repro_torch.models.moe as tmoe
 from repro_torch.convert import from_jax_params
 from repro_torch.kernels import ops
+from repro_torch.kernels.autograd import BatchedMatmulFn
 from repro_torch.kernels.matmul import (matmul_batched_plain,
                                         matmul_h100_batched, matmul_plain)
+from repro_torch.kernels.transpose import (format_error as tr_format_error,
+                                           transpose_batched_plain,
+                                           transpose_h100_batched,
+                                           transpose_plain)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -225,3 +235,161 @@ def test_a2a_storage_and_flag_are_refused_by_name():
                                "wo": z((L, E + 8, f, d))}}}
     with pytest.raises(NotImplementedError, match="stored experts"):
         from_jax_params(tree, cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The layer's backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"],
+                         ids=["top1", "top2"])
+@pytest.mark.parametrize("shape,seed", [((2, 7, 64), 1), ((1, 32, 64), 2)],
+                         ids=["fits", "capacity_binds"])
+def test_moe_block_gradients_match_jax(arch, shape, seed):
+    """d(x) and every weight's gradient of sum(y·w) + aux, the port's
+    autograd against ``jax.grad`` of the JAX layer, also where capacity
+    binds and tokens are dropped (they reach the loss through the router
+    alone)."""
+    cfg, tcfg, jp, tp = _layer(arch, seed + 1)
+    x = _x(shape, seed)
+    w = _x(shape, seed + 10)
+
+    def jloss(p, xx):
+        y, aux = jmoe.moe_block(p, xx, cfg)
+        return jnp.sum(y * w) + aux
+
+    jg_p, jg_x = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    for v in tp.values():
+        v.requires_grad_()
+    y, aux = tmoe.moe_block(tp, tx, tcfg)
+    ((y * torch.from_numpy(w)).sum() + aux).backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg_x), rtol=1e-4,
+                               atol=1e-5 * np.abs(np.asarray(jg_x)).max())
+    for k, v in tp.items():
+        j = np.asarray(jg_p[k])
+        np.testing.assert_allclose(v.grad.numpy(), j, rtol=1e-4,
+                                   atol=1e-5 * np.abs(j).max(), err_msg=k)
+    assert np.abs(tp["wi"].grad.numpy()).max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,N,K", [(4, 4, 96, 64), (3, 5, 40, 200),
+                                     (8, 16, 64, 96)])
+def test_batched_matmul_fn_gradients(dtype, E, M, N, K):
+    """``BatchedMatmulFn``'s dA and dB against autograd of
+    ``matmul_batched_plain`` over the same operands: dC cast to the
+    operands' type first, as the function does, and the gradients in the
+    operands' type."""
+    g = torch.Generator().manual_seed(E * M + K)
+    a = torch.randn((E, M, K), generator=g).to(dtype)
+    b = (torch.randn((E, K, N), generator=g) / K ** 0.5).to(dtype)
+    dc = torch.randn((E, M, N), generator=g)
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    c = BatchedMatmulFn.apply(ta, tb)
+    assert c.dtype == torch.float32
+    c.backward(dc)
+    kw = dict(bm=16, bn=32, bk=32, s=1, kb=1, stages=2)
+    pa, pb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    want = matmul_batched_plain(pa, pb, **kw)
+    assert torch.equal(c.detach(), ops.matmul_batched(a, b))
+    want.backward(dc.to(dtype).float())
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else \
+        dict(rtol=2e-2, atol=2e-2)
+    for got, exp in ((ta.grad, pa.grad), (tb.grad, pb.grad)):
+        assert got.dtype == dtype and got.shape == exp.shape
+        torch.testing.assert_close(got.float(), exp.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,N", [(4, 80, 64), (3, 5, 7), (16, 33, 1)])
+def test_transpose_batched_plain_is_k4_plain_per_expert(dtype, E, M, N):
+    g = torch.Generator().manual_seed(E + M + N)
+    a = torch.randn((E, M, N), generator=g).to(dtype)
+    kw = dict(bm=16, bn=32, s=8, cached=True)
+    got = transpose_batched_plain(a, **kw)
+    assert got.shape == (E, N, M) and got.dtype == dtype
+    for e in range(E):
+        assert torch.equal(got[e], transpose_plain(a[e], **kw))
+    n0 = transpose_h100_batched.launches
+    assert torch.equal(transpose_h100_batched(a, **kw), got)
+    assert transpose_h100_batched.launches == n0   # the CPU launches nothing
+
+
+def test_transpose_batched_format_error_counts_experts():
+    assert tr_format_error(5120, 8192, 16, 32, 8, 2) is None
+    assert tr_format_error(7168, 2048, 16, 32, 8, 2, experts=384) is None
+    assert tr_format_error(3, 5, 16, 32, 8, 2, experts=65_535) is None
+    assert "experts" in tr_format_error(3, 5, 16, 32, 8, 2, experts=65_536)
+    assert "experts" in tr_format_error(3, 5, 16, 32, 8, 2, experts=0)
+    assert "threads" in tr_format_error(3, 5, 64, 32, 8, 2)
+    assert "bn below 32" in tr_format_error(3, 5, 16, 16, 8, 2)
+    assert "2- or 4-byte" in tr_format_error(3, 5, 16, 32, 8, 8)
+    assert "empty" in tr_format_error(0, 5, 16, 32, 8, 2)
+
+
+def test_ops_transpose_batched_takes_the_per_expert_pick():
+    """``ops.transpose_batched`` resolves the per-expert key {M, N}
+    through the frozen lane ``ops.transpose`` uses, bit for bit the
+    per-expert ``ops.transpose``."""
+    from repro_torch.artifacts.dispatch import (DispatchCache,
+                                                set_default_cache)
+    a = torch.randn((6, 80, 48), generator=torch.Generator().manual_seed(4))
+    cache = DispatchCache()
+    set_default_cache(cache)
+    try:
+        with cache.record() as rec:
+            got = ops.transpose_batched(a)
+            want = torch.stack([ops.transpose(a[e]) for e in range(6)])
+    finally:
+        set_default_cache(None)
+    assert torch.equal(got, want) and torch.equal(got, a.transpose(1, 2))
+    assert {(f, items) for f, _, items in rec.requests} == {
+        ("transpose_h100", (("M", 80), ("N", 48)))}
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
+def test_moe_train_warm_set_lists_the_expert_backward(arch):
+    """At the full config, 1 × 1024 tokens a microbatch: the router's dA
+    (T, d, E) and dB (d, E, T) and the experts' dA, dB and K4 transposes
+    at the per-expert keys, every expert site with ``experts() == E``;
+    K1 and K4 take each pick's format, at K = E the router's masked
+    loads included."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.matmul import format_error as mm_format_error
+    from repro_torch.plans.trace import trace_train_warm_set
+    cfg = get_config(arch).scaled(layers=1)
+    m = cfg.moe
+    E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
+    C = tmoe.capacity(1024, E, m.top_k, m.capacity_factor)
+    ops_ = trace_train_warm_set(cfg, global_batch=2, seq=1024,
+                                microbatches=2)
+    by_site = {s: op for op in ops_ for s in op.sites}
+    up, down = "train.layer.moe.expert_up", "train.layer.moe.expert_down"
+    want = {
+        "train.layer.moe.router.dA": ("matmul_h100", (1024, d, E)),
+        "train.layer.moe.router.dB": ("matmul_h100", (d, E, 1024)),
+        f"{up}.dA": ("matmul_h100", (C, d, f)),
+        f"{up}.dB": ("matmul_h100", (d, f, C)),
+        f"{down}.dA": ("matmul_h100", (C, f, d)),
+        f"{down}.dB": ("matmul_h100", (f, d, C)),
+        f"{up}.wT": ("transpose_h100", (d, f)),
+        f"{up}.xT": ("transpose_h100", (C, d)),
+        f"{down}.wT": ("transpose_h100", (f, d)),
+        f"{down}.xT": ("transpose_h100", (C, f)),
+    }
+    for site, (family, key) in want.items():
+        op = by_site[site]
+        data = op.data_dict()
+        names = ("M", "N", "K") if family == "matmul_h100" else ("M", "N")
+        assert op.family == family and tuple(data[n] for n in names) == key
+        assert op.experts(cfg) == (E if ".moe.expert_" in site else 1)
+        a = ops.select(family, data).assignment
+        if family == "matmul_h100":
+            assert mm_format_error(
+                *key, a["bm"], a["bn"], a["bk"], a["s"], a["kb"],
+                a["stages"], True, torch.bfloat16,
+                experts=op.experts(cfg)) is None, site
+        else:
+            assert tr_format_error(*key, a["bm"], a["bn"], a["s"], 2,
+                                   experts=op.experts(cfg)) is None, site

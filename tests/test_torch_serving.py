@@ -406,6 +406,32 @@ def test_a_held_workspace_refuses_to_grow():
     WORKSPACES.remove(ws)
 
 
+def test_free_unheld_drops_only_what_no_graph_holds():
+    """``free_unheld`` drops the buffers of the workspaces no captured step
+    holds (they grow again on demand) and keeps a held one's."""
+    from repro_torch.kernels.workspace import (WORKSPACES, Workspace,
+                                               free_unheld, scratch)
+
+    class Holder:
+        pass
+
+    dev = torch.device("cpu")
+    with scratch():
+        free, held = (Workspace(n, torch.float32, 8) for n in ("a", "b"))
+        try:
+            free.get(dev, 16)
+            kept = held.get(dev, 4)
+            holder = Holder()
+            held.hold(holder)
+            assert free_unheld() == 16 * 4
+            assert free.size(dev) == 0 and held.get(dev, 8) is kept
+            assert free.get(dev, 4).numel() == 8     # grows again
+            held.release(holder)
+        finally:
+            for ws in (free, held):
+                WORKSPACES.remove(ws)
+
+
 # ---------------------------------------------------------------------------
 # Prefill chunks on device inputs, one captured step a chunk length
 # ---------------------------------------------------------------------------

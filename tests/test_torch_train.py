@@ -13,6 +13,11 @@ math (ROADMAP F3).  Tolerances:
   summed in another order (K1's k tiles, K2's online softmax, K2b's
   recomputed probabilities) over 2 + 2 layers; the measured worst is about
   2e-6 of the leaf's largest;
+- the MoE configs (llama4-scout's top-1 and kimi-k2's top-2 smoke shapes)
+  at the same tolerances, once the JAX run shows that every token's top
+  k + 1 router probabilities lie more than 1e-5 apart: the routing, the
+  capacity's drops and the gates' order are then a property of the
+  inputs, not of the last bits of two libraries' sums;
 - a whole train step (AdamW, microbatches 2): the metrics at ``rtol 1e-5``;
   the parameters at ``atol 1e-6``, except that an element may differ by up
   to 2·lr a step where its gradient is within the gradients' rounding of 0:
@@ -30,6 +35,7 @@ import torch
 
 import repro.configs as jconfigs
 import repro.models as jm
+import repro.models.transformer as jtransformer
 import repro.optim as jopt
 from repro.runtime import steps as jsteps
 import repro_torch.configs as tconfigs
@@ -46,7 +52,7 @@ from repro_torch.runtime import (TrainController, build_eval_step,
 DENSE = ["llama3_8b", "granite_3_8b", "yi_6b", "qwen1p5_4b", "chameleon_34b"]
 WHISPER = "whisper_large_v3"
 SSM = ["mamba2_130m", "hymba_1p5b"]
-REFUSED = ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"]
+MOE = ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"]
 B, S = 4, 16
 #: The SSM and hybrid configs' sequence: longer than their chunk (16) and
 #: hymba's window (32), so that the scan carries a state between chunks
@@ -101,11 +107,35 @@ def _grads(tcfg, tp, batch):
     return float(loss.detach()), [p.grad.clone() for p in topt.tree_leaves(tp)]
 
 
+def _router_gap(monkeypatch, cfg, jp, batch) -> float:
+    """The least gap, over every MoE layer and token of the JAX forward,
+    between neighbours among the token's k + 1 largest router
+    probabilities (the JAX layer's own logits and softmax)."""
+    gaps = []
+    k = cfg.moe.top_k
+
+    def spy(p, x, cfg_, **kw):
+        logits = jnp.einsum("bsd,de->bse", x, p["router"].astype(x.dtype),
+                            preferred_element_type=jnp.float32)
+        top = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), k + 1)[0]
+        gaps.append(float(jnp.min(top[..., :-1] - top[..., 1:])))
+        return jm.moe.moe_block(p, x, cfg_, **kw)
+
+    monkeypatch.setattr(jtransformer, "moe_block", spy)
+    jm.forward(jp, cfg, jnp.asarray(batch["tokens"]), unroll=True)
+    monkeypatch.undo()
+    assert len(gaps) == cfg.layers
+    return min(gaps)
+
+
 @pytest.mark.parametrize("arch,remat", [(a, "none") for a in DENSE + SSM]
-                         + [("chameleon_34b", "full"), (WHISPER, "none")])
-def test_loss_and_gradients_match_jax(arch, remat):
+                         + [("chameleon_34b", "full"), (WHISPER, "none")]
+                         + [(a, "none") for a in MOE])
+def test_loss_and_gradients_match_jax(arch, remat, monkeypatch):
     cfg, jp, tcfg, tp = _setup(arch, remat=remat)
     batch = _batch(cfg)
+    if cfg.moe is not None:
+        assert _router_gap(monkeypatch, cfg, jp, batch) > 1e-5
     (jl, _), jg = jax.value_and_grad(
         lambda p: jsteps.loss_fn(p, cfg, _jbatch(batch)), has_aux=True)(jp)
     tl, tg = _grads(tcfg, tp, batch)
@@ -131,6 +161,20 @@ def test_remat_full_gives_the_same_gradients_as_none():
     assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
 
 
+@pytest.mark.parametrize("arch", MOE)
+def test_remat_full_routes_the_moe_the_same_bit_for_bit(arch):
+    """The MoE configs' ``remat="full"`` (both full configs') runs each
+    block's router, top-k and capacity again in the backward: the
+    recomputed forward routes the same tokens, so the gradients equal
+    ``"none"``'s bit for bit."""
+    cfg, _, tcfg, tp = _setup(arch)
+    batch = _batch(cfg)
+    want = _grads(dataclasses.replace(tcfg, remat="none"), tp, batch)
+    got = _grads(dataclasses.replace(tcfg, remat="full"), tp, batch)
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
 def test_remat_full_gives_mambas_gradients_bit_for_bit():
     """mamba's ``remat="full"`` runs K3 again in the backward before K3b:
     the gradients equal ``"none"``'s bit for bit."""
@@ -142,8 +186,8 @@ def test_remat_full_gives_mambas_gradients_bit_for_bit():
     assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
 
 
-def _jax_steps(cfg, jp, batches, microbatches=2, **kw):
-    opt = jopt.adamw(jopt.constant(LR))
+def _jax_steps(cfg, jp, batches, microbatches=2, optimizer="adamw", **kw):
+    opt = jopt.make_optimizer(optimizer, jopt.constant(LR))
     step_fn = jax.jit(jsteps.build_train_step(
         cfg, opt, microbatches=microbatches, **kw))
     state = opt.init(jp)
@@ -154,8 +198,9 @@ def _jax_steps(cfg, jp, batches, microbatches=2, **kw):
     return out
 
 
-def _port_steps(tcfg, tp, batches, microbatches=2, **kw):
-    opt = topt.adamw(topt.constant(LR))
+def _port_steps(tcfg, tp, batches, microbatches=2, optimizer="adamw",
+                **kw):
+    opt = topt.make_optimizer(optimizer, topt.constant(LR))
     step_fn = build_train_step(tcfg, opt, microbatches=microbatches, **kw)
     state = opt.init(tp)
     out = []
@@ -177,7 +222,8 @@ def _params_close(got, want, steps):
     assert flips <= total / 1000, (flips, total)
 
 
-@pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b", WHISPER] + SSM)
+@pytest.mark.parametrize("arch", ["llama3_8b", "qwen1p5_4b", WHISPER] + SSM
+                         + MOE)
 @pytest.mark.parametrize("steps", [1, 2])
 def test_train_step_matches_the_jitted_jax_step(arch, steps):
     cfg, jp, tcfg, tp = _setup(arch)
@@ -203,6 +249,27 @@ def test_train_step_with_bf16_accumulators_matches_jax():
     batches = [_batch(cfg, seed=20)]
     want = _jax_steps(cfg, jp, batches, grad_dtype=jnp.bfloat16)
     got = _port_steps(tcfg, tp, batches, grad_dtype=torch.bfloat16)
+    (gm, gp), (wm, wp) = got[0], want[0]
+    for key in ("loss", "nll", "moe_aux"):
+        np.testing.assert_allclose(gm[key], wm[key], rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(gm["grad_norm"], wm["grad_norm"], rtol=1e-2)
+    _params_close(gp, wp, 1)
+
+
+def test_moe_train_step_with_adafactor_and_bf16_accumulators_matches_jax():
+    """kimi-k2's own optimizer (Adafactor) and accumulators (bf16) on its
+    smoke MoE config, the optimizer passed to both packages by the full
+    config's name: the tolerances of
+    :func:`test_train_step_with_bf16_accumulators_matches_jax`."""
+    optimizer = jconfigs.get_config("kimi_k2_1t_a32b").optimizer
+    assert optimizer == "adafactor" == tconfigs.get_config(
+        "kimi_k2_1t_a32b").optimizer
+    cfg, jp, tcfg, tp = _setup("kimi_k2_1t_a32b")
+    batches = [_batch(cfg, seed=20)]
+    want = _jax_steps(cfg, jp, batches, optimizer=optimizer,
+                      grad_dtype=jnp.bfloat16)
+    got = _port_steps(tcfg, tp, batches, optimizer=optimizer,
+                      grad_dtype=torch.bfloat16)
     (gm, gp), (wm, wp) = got[0], want[0]
     for key in ("loss", "nll", "moe_aux"):
         np.testing.assert_allclose(gm[key], wm[key], rtol=1e-5, atol=1e-7)
@@ -237,18 +304,20 @@ def test_eval_step_matches_jax(arch):
     assert not got["loss"].requires_grad
 
 
-@pytest.mark.parametrize("arch", REFUSED)
-def test_train_refuses_ssm_hybrid_and_moe_on_the_cpu(arch):
-    """The ``attn_moe`` configs (ROADMAP Queue 1 item 3c); the ``ssm`` and
-    ``hybrid`` ones train since item 3b."""
-    tcfg = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
+@pytest.mark.parametrize("arch", MOE)
+def test_train_refuses_the_moe_a2a_schedule(arch):
+    """The MoE configs train, but not with ``perf_flags=("moe_a2a",)``:
+    the all-to-all expert schedule is a multi-card path (ROADMAP Queue 1
+    item 4), refused by the step, the warm set and the loss."""
+    base = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
+    tcfg = base.scaled(perf_flags=("moe_a2a",))
     opt = topt.adamw(topt.constant(LR))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         build_train_step(tcfg, opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         trace_train_warm_set(tcfg, global_batch=2, seq=8)
-    params = tm.init_train_state(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    params = tm.init_train_state(base, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
         loss_fn(params, tcfg, _batch(tcfg, rows=2))
 
 
@@ -323,6 +392,48 @@ def test_restart_is_bit_exact_through_the_controller(tmp_path, ckpt_every,
         fault_at // ckpt_every) * ckpt_every)
 
 
+def test_controller_drops_its_initial_copy_before_the_final_save(
+        tmp_path, monkeypatch):
+    """The controller's host copy of the initial state (for a restart
+    before the first checkpoint) is freed before the final save makes its
+    own: a full-width state (llama4-scout at one layer, 50 GB of
+    parameters and AdamW moments) has room for one host copy, not two."""
+    import gc
+    import weakref
+    from repro_torch.checkpoint import manager
+
+    class Snapshot(dict):
+        pass
+
+    copies = []
+    real = manager.host_copy
+
+    def host_copy(tree):
+        out = Snapshot(real(tree))
+        copies.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(manager, "host_copy", host_copy)
+    ckpt = CheckpointManager(str(tmp_path))
+    seen = []
+    save = ckpt.save
+
+    def checked_save(step, tree):
+        gc.collect()
+        seen.append([r() is None for r in copies])
+        save(step, tree)
+
+    ckpt.save = checked_save
+
+    def run_step(state, step):
+        return {"w": state["w"] + 1}, {"loss": 0.0}
+
+    state, hist = TrainController(run_step, ckpt).run(
+        {"w": torch.zeros(2)}, start_step=0, num_steps=2)
+    assert len(copies) == 1 and seen == [[True]]
+    assert torch.equal(state["w"], torch.full((2,), 2.0)) and len(hist) == 2
+
+
 def test_controller_reraises_a_cuda_error(tmp_path):
     """A CUDA runtime error is fatal: the controller re-raises it at once,
     with no restore and no retry."""
@@ -352,6 +463,17 @@ def test_train_launcher_cli_at_smoke_size(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path)).available_steps() == [2, 4]
     train.main(args[:4] + ["6"] + args[5:])
     assert "resumed from step 4" in capsys.readouterr().out
+
+
+def test_train_launcher_trains_a_moe_smoke_config(tmp_path, capsys):
+    from repro_torch.launch import train
+    train.main(["--arch", "kimi-k2-1t-a32b", "--smoke", "--steps", "2",
+                "--seq-len", "16", "--global-batch", "4", "--microbatches",
+                "2", "--ckpt-dir", str(tmp_path), "--log-every", "1",
+                "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "done: 2 steps on cpu" in out
+    assert "nan" not in out
 
 
 def test_abstract_state_allocates_nothing_and_matches_jax_shapes():
