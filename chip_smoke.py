@@ -332,6 +332,25 @@ no phase is caught.
    K4's of phase 6 and (e) keep their rows), and the five are main paths
    of K1, K1b, K2, K2b, K3, K3b, K4 and K4b in the kernels' line
    (``by_paths`` "training").
+14. multi-device at world size 1 (one card: NCCL refuses two ranks on one
+   GPU; 2-8 ranks are the CPU tests' business), on split workspaces of
+   its own: (a) NCCL started on a ``file://`` store in a temporary
+   directory (``launch.mesh.init_distributed``) and the mesh (1, 1) over
+   ("data", "model"); one ``all_to_all_single`` and one ``all_reduce``
+   over the a2a group bit for bit; NCCL's version.  (b) llama4-smoke and
+   kimi-smoke (its Adafactor) under ``moe_a2a``, ten f32 steps of the
+   mesh's step on the card over NCCL against the same on the CPU over a
+   gloo mesh of the same process, at 13 (d)'s tolerances.  (c) (j) again
+   through ``moe_a2a`` and the launcher's step over the NCCL mesh (the
+   communicator started in (a), before the state): step 0's loss and
+   grad_norm against (j)'s (rtol 1e-5 and 1e-4, and whether bit for bit),
+   the step's CUDA-event time, peak memory and launches beside (j)'s, 0
+   cold builds, NCCL's device time in the profiled step and one
+   all-to-all's CUDA-event time.  (d) kimi-k2, 1 of 61 layers, served as
+   phase 8 serves it from the same init with its experts zero-padded to
+   the 512 it stores under ``moe_a2a``: the tokens equal phase 8's,
+   request for request.  (c) is a training path and (d) an engine path
+   in the kernels' line (``by_paths`` "training" and "padded kimi").
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -371,7 +390,8 @@ the SSD scan, so K3 has none.
 The line before the last is the kernels' JSON record (its ``ms`` are the
 eager times above, as in every earlier run).  For K1, K1's batched entry,
 K2 and K3 ``launches`` is the count over the main paths: phase 8's nine
-engine paths and phase 12 (b)'s whisper path; ``ms``, ``plain_ms``,
+engine paths, phase 12 (b)'s whisper path and phase 14 (d)'s padded
+kimi-k2; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over those launches, each timed
 at its own signature in phase 9 (or 12), and ``by_paths`` gives the same
 sums (with ``device_ms``) over the three engine paths of earlier runs
@@ -379,10 +399,10 @@ sums (with ``device_ms``) over the three engine paths of earlier runs
 tunes at the nine engine paths' signatures only.  For K4-K6
 the same numbers come from phase 6's case-study path (1, 1 and 8
 launches), each signature timed in phase 6.  The training paths of phase
-13 ((b), (c), (g), (h), (j)) are main paths too: their launches and sums
-are added to those of K1, K1b, K2, K2b, K3, K3b, K4 and K4b (K4's batched
-entry, which only training launches), and ``by_paths`` "training" gives
-them apart.  ``max_abs_err`` is the largest error against the plain
+13 ((b), (c), (g), (h), (j)) and 14 (c) are main paths too: their
+launches and sums are added to those of K1, K1b, K2, K2b, K3, K3b, K4 and
+K4b (K4's batched entry, which only training launches), and ``by_paths``
+"training" gives them apart.  ``max_abs_err`` is the largest error against the plain
 version over phases 3-6, 9, 12 and 13.  The last line is the device
 record.
 
@@ -2264,13 +2284,16 @@ def phase_trace(eng, prompts, outs) -> None:
 
 def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
                 depths: tuple = (1,), traced: bool = False,
-                layers=None) -> dict:
+                layers=None, padded: bool = False) -> dict:
     """One main path: ``arch`` at full width through ServeEngine (its depth
     cut to ``layers`` when given); returns its name, wall time, peak
     device memory and each kernel's launches and launch shapes.  Each
     depth of ``depths`` past the first serves the same prompts once more at
     that ``async_depth``: its tokens must equal the first run's.  With
-    ``traced``, :func:`phase_trace` serves them again on the engine."""
+    ``traced``, :func:`phase_trace` serves them again on the engine.
+    With ``padded`` the config takes the ``moe_a2a`` flag and each layer's
+    expert stacks are padded with zero experts to the count it stores
+    (``a2a_padded_experts``) after the same init: phase 14 (d)."""
     from repro_torch.artifacts.dispatch import get_default_cache
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_model
@@ -2286,6 +2309,25 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device=DEV)
+    if padded:
+        from repro_torch.models.moe import a2a_padded_experts
+        cfg = cfg.scaled(perf_flags=("moe_a2a",))
+        for lp in params["layers"]:
+            for k in ("wi", "wg", "wo"):
+                w = lp["moe"][k]
+                pad = w.new_zeros((a2a_padded_experts(cfg) - w.shape[0],)
+                                  + tuple(w.shape[1:]))
+                lp["moe"][k] = torch.cat([w, pad])
+                del w, pad
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        say(f"[serve] {cfg.name} expert storage padded with zeros to "
+            f"{a2a_padded_experts(cfg)} of {cfg.moe.num_experts} experts "
+            f"(perf flag moe_a2a; the dense layer runs the first "
+            f"{cfg.moe.num_experts}); the padding's transient peak "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB,"
+            f" not counted in the path's peak below")
+        torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     say(f"[serve] {cfg.name} full width: {cfg.layers} of {full} layers, "
         f"{cfg.block} block, d_model {cfg.d_model}, vocab {cfg.vocab}, "
@@ -2425,7 +2467,8 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     del eng, clock, params, logits
     gc.collect()
     torch.cuda.empty_cache()
-    return {"name": cfg.name, "wall_ms": 1e3 * wall, "launches": launches,
+    return {"name": cfg.name + (" (padded storage)" if padded else ""),
+            "wall_ms": 1e3 * wall, "launches": launches,
             "shapes": shapes, "peak_gib": peak,
             "tokens": [r.out for r in outs]}
 
@@ -4158,8 +4201,8 @@ def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:
 
 def _profile_step(fn) -> tuple:
     """One call of ``fn`` under ``torch.profiler``: (a line of device ms by
-    kernel group (K1, K4, K2, K2b, K3, K3b, the rest) and the rest's
-    largest kernels, {group: device ms})."""
+    kernel group (K1, K4, K2, K2b, K3, K3b, NCCL's collectives, the rest)
+    and the rest's largest kernels, {group: device ms})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
@@ -4168,7 +4211,7 @@ def _profile_step(fn) -> tuple:
               "K2": ("flash_kernel", "combine_kernel"),
               "K2b": ("fa_bwd_",),
               "K3": ("ssd_step_kernel", "ssd_tc_kernel", "ssd_fma_kernel"),
-              "K3b": ("ssd_bwd_",)}
+              "K3b": ("ssd_bwd_",), "NCCL": ("nccl",)}
     sums = {g: 0.0 for g in list(groups) + ["other"]}
     other = {}
     for e in prof.key_averages():
@@ -4261,7 +4304,7 @@ def _widths(cfg) -> str:
     return out + f", vocab {cfg.vocab}"
 
 
-def train_path(tag: str, full_cfg, layers, run) -> dict:
+def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
     """A training main path at full width, ``layers`` of the config's
     layers (None for all): bf16 compute, f32 masters and AdamW state,
     ``run``'s steps on ``SyntheticLM``, every kernel through the dispatch's
@@ -4270,7 +4313,10 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
     with ``run["ckpt_at"]`` a checkpoint after that many steps, restored,
     and the next steps replayed bit for bit; one more step under the
     profiler, its loss equal.  Every launch counter is set to 0 just
-    before the path and read just after.  Returns the path's record."""
+    before the path and read just after.  With ``mesh`` the step is the
+    mesh's (``build_train_step(..., mesh=)``, the launcher's under
+    torchrun), the warm set its keys and the state the rank's part.
+    Returns the path's record."""
     import tempfile
     from repro_torch.artifacts.dispatch import get_default_cache
     from repro_torch.checkpoint import CheckpointManager
@@ -4287,7 +4333,7 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
     t0 = time.perf_counter()
     picks = warm_train_dispatch(cfg, global_batch=run["batch"],
                                 seq=run["seq"],
-                                microbatches=run["microbatches"])
+                                microbatches=run["microbatches"], mesh=mesh)
     say(f"[train] {tag} warm_train_dispatch: {len(picks)} (family, key) "
         f"pairs frozen in {time.perf_counter() - t0:.2f} s")
     cold0 = stats.cold_builds
@@ -4297,8 +4343,12 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
     params = init_train_state(cfg, seed=0, device=DEV)
     # the launcher's schedule (launch/train.py)
     opt = adamw(warmup_cosine(run["lr"], 10, run["steps"]))
+    if mesh is not None:
+        from repro_torch.launch.specs import state_layout
+        params = state_layout(cfg, mesh, params).shard(params)
     opt_state = opt.init(params)
-    step_fn = build_train_step(cfg, opt, microbatches=run["microbatches"])
+    step_fn = build_train_step(cfg, opt, microbatches=run["microbatches"],
+                               mesh=mesh)
     n = sum(t.numel() for t in tree_leaves(params))
     state_gb = (_nbytes(params) + _nbytes(opt_state)) / 1e9
     say(f"[train] {tag} {cfg.name} at full width ({_widths(cfg)}), "
@@ -4316,6 +4366,7 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
     ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     ckpt = CheckpointManager(ckpt_dir, keep=1)
     losses, host, dev_ms = [], [], []
+    first = None
     _count_reset(kernels)
     t_run = time.perf_counter()
     for step in range(run["steps"]):
@@ -4337,6 +4388,8 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
         losses.append(m["loss"])
         host.append(h)
         dev_ms.append(ev)
+        if step == 0:
+            first = m
         say(f"[train] {tag} step {step}: loss {m['loss']!r} nll "
             f"{m['nll']!r} grad_norm {m['grad_norm']!r}; host "
             f"{1e3 * h:.1f} ms, CUDA events {ev:.1f} ms")
@@ -4417,7 +4470,9 @@ def train_path(tag: str, full_cfg, layers, run) -> dict:
     return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
             "launches": launches, "shapes": shapes, "steps": run["steps"],
             "step_ms": med, "peak_gb": peak, "kernel_ms": kernel_ms,
-            "profiled_ms": sum(kernel_ms.values())}
+            "profiled_ms": sum(kernel_ms.values()), "first": first,
+            "per_step": want, "cold": cold,
+            "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
 
 
 def phase_train_whisper(gen) -> dict:
@@ -4962,6 +5017,217 @@ def phase_train(gen) -> tuple:
     return err, rows, paths, ssd_err, ssd_rows, moe
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: multi-device at world size 1 (the mesh, the a2a schedule)
+# ---------------------------------------------------------------------------
+
+#: 14 (b): the MoE smoke configs under ``moe_a2a``, ten f32 steps each.
+MULTI_PARITY = ("llama4_scout_17b_a16e", "kimi_k2_1t_a32b")
+MULTI_STEPS = 10
+
+
+def phase_multi_group(gen):
+    """(a) NCCL at world size 1 on a ``file://`` store in a temporary
+    directory, the mesh (1, 1) over ("data", "model"); one all-to-all and
+    one all-reduce over its a2a group, each bit for bit (at one rank both
+    give their input back).  Returns (the mesh, the store's directory)."""
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    store = tempfile.mkdtemp(prefix="repro_torch_store_")
+    t0 = time.perf_counter()
+    init_distributed(init_method=f"file://{store}/init", rank=0,
+                     world_size=1, backend="nccl")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    group = mesh.group(("data", "model"))
+    x = torch.randn((16 * 80, 5120), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    tdist.all_to_all_single(out, x, group=group)
+    y = x.float()
+    tdist.all_reduce(y, group=group)
+    torch.cuda.synchronize()
+    ok = torch.equal(out, x) and torch.equal(y, x.float())
+    say(f"[multi] (a) NCCL {'.'.join(map(str, torch.cuda.nccl.version()))} "
+        f"at world size {tdist.get_world_size()} (backend "
+        f"{tdist.get_backend()}, file:// store), mesh {mesh}: "
+        f"all_to_all_single of (1280, 5120) bf16 and all_reduce of it in "
+        f"f32 over the a2a group bit for bit: {ok}; "
+        f"{time.perf_counter() - t0:.2f} s with the communicator")
+    if not ok:
+        raise AssertionError("a collective at world size 1 changed its input")
+    return mesh, store
+
+
+def phase_multi_parity() -> None:
+    """(b) The MoE smoke configs under ``moe_a2a``, f32 (compute and
+    masters), each with its full config's optimizer (llama4's AdamW,
+    kimi's Adafactor): ``MULTI_STEPS`` steps of the mesh's step (2 microbatches,
+    4 x 32 tokens) on the card over the NCCL mesh, and the same on the CPU
+    over a gloo mesh of the same process, from one init.  13 (d)'s
+    tolerances: loss, nll and aux at rtol 1e-5 and grad_norm at 1e-4 each
+    step; the parameters within 1e-6 but for one element in a thousand,
+    which may differ by 2·lr a step (AdamW's sign flips)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import constant, make_optimizer, tree_leaves
+    from repro_torch.runtime import build_train_step
+    lr = 1e-3
+    meshes = {"cpu": make_mesh((1, 1), ("data", "model"), backend="gloo"),
+              DEV: make_mesh((1, 1), ("data", "model"))}
+    for arch in MULTI_PARITY:
+        cfg = get_smoke_config(arch).scaled(
+            dtype="float32", param_dtype="float32", perf_flags=("moe_a2a",),
+            optimizer=get_config(arch).optimizer)
+        rng = np.random.default_rng(7)
+        batches = [{k: rng.integers(0, cfg.vocab, (4, 32))
+                    for k in ("tokens", "labels")}
+                   for _ in range(MULTI_STEPS)]
+        out = {}
+        for dev in ("cpu", DEV):
+            params = _to(init_train_state(cfg, seed=2, device="cpu"), dev)
+            opt = make_optimizer(cfg.optimizer, constant(lr))
+            state = opt.init(params)
+            step_fn = build_train_step(cfg, opt, microbatches=2,
+                                       mesh=meshes[dev])
+            ms = []
+            for i, b in enumerate(batches):
+                tb = {k: torch.as_tensor(v).to(dev) for k, v in b.items()}
+                params, state, m = step_fn(params, state, tb, i)
+                ms.append({k: float(v) for k, v in m.items()})
+            out[dev] = ms, [p.detach().cpu() for p in tree_leaves(params)]
+        (gm, gp), (wm, wp) = out[DEV], out["cpu"]
+        worst, flips, total = 0.0, 0, 0
+        for g, w in zip(gp, wp):
+            diff = (g - w).abs()
+            worst = max(worst, float(diff.max()))
+            flips += int((diff > 1e-6).sum())
+            total += diff.numel()
+        ok = all(math.isclose(a[k], b[k], rel_tol=1e-5, abs_tol=1e-7)
+                 for a, b in zip(gm, wm) for k in ("loss", "nll", "moe_aux")
+                 ) and all(math.isclose(a["grad_norm"], b["grad_norm"],
+                                        rel_tol=1e-4) for a, b in zip(gm, wm))
+        ok = ok and worst <= 2 * lr * MULTI_STEPS + 1e-6 \
+            and flips <= total / 1000
+        loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(gm, wm))
+        say(f"[multi] (b) {cfg.name} moe_a2a, {cfg.optimizer}, "
+            f"{MULTI_STEPS} f32 steps of the mesh's step, card (NCCL) "
+            f"against CPU (gloo): losses {gm[0]['loss']!r} -> "
+            f"{gm[-1]['loss']!r} vs {wm[0]['loss']!r} -> "
+            f"{wm[-1]['loss']!r}, largest relative loss gap {loss_gap:.2e},"
+            f" moe_aux {gm[-1]['moe_aux']!r} vs {wm[-1]['moe_aux']!r}, "
+            f"grad_norm {gm[-1]['grad_norm']!r} vs {wm[-1]['grad_norm']!r};"
+            f" parameters: largest difference {worst:.3e}, {flips} of "
+            f"{total} past 1e-6")
+        if not ok:
+            raise AssertionError(f"{cfg.name}: the mesh's step on the card "
+                                 "differs from the CPU's")
+
+
+def a2a_event_ms(mesh, gen, reps: int = 20) -> float:
+    """CUDA-event ms of one ``all_to_all`` over the a2a group of (c)'s
+    dispatched tensor, (16, 80, 5120) bf16 (E experts, C rows a group, d),
+    the median of ``reps`` calls."""
+    from repro_torch.distributed.comm import all_to_all
+    x = torch.randn((16, 80, 5120), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    group = mesh.group(("data", "model"))
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        all_to_all(x, group)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def phase_multi_llama4(mesh, gen, ref: dict) -> dict:
+    """(c) llama4-scout at full width, 1 of 48 layers, ``moe_a2a`` through
+    the launcher's step over the NCCL mesh: (j)'s run (``LLAMA4_TRAIN``,
+    the same seed) by :func:`train_path`, after the split workspaces are
+    dropped as before (j).  Step 0's loss and grad_norm held to (j)'s at
+    rtol 1e-5 and 1e-4 (13 (d)'s; at one rank the routing is (j)'s, so
+    they should be equal bit for bit, which is printed); the step's time,
+    peak memory and launches beside (j)'s; 0 cold builds; the all-to-all's
+    time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.workspace import free_unheld
+    torch.cuda.synchronize()
+    free_unheld()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"[multi] (c) device memory before the path: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free (NCCL's "
+        f"communicator started in (a))")
+    cfg = get_config("llama4_scout_17b_a16e").scaled(
+        perf_flags=("moe_a2a",))
+    rec = train_path("(14 c)", cfg, LLAMA4_LAYERS, LLAMA4_TRAIN, mesh=mesh)
+    got, want = rec["first"], ref["first"]
+    bits = got["loss"] == want["loss"] and \
+        got["grad_norm"] == want["grad_norm"]
+    a2a_ms = a2a_event_ms(mesh, gen)
+    nccl = rec["kernel_ms"].get("NCCL", 0.0)
+    say(f"[multi] (c) step 0 through moe_a2a: loss {got['loss']!r}, "
+        f"grad_norm {got['grad_norm']!r}; 13 (j)'s dense step 0: loss "
+        f"{want['loss']!r}, grad_norm {want['grad_norm']!r}; bit for bit: "
+        f"{bits}")
+    say(f"[multi] (c) median step {rec['step_ms']:.1f} ms of CUDA-event "
+        f"time against (j)'s {ref['step_ms']:.1f} ms; peak {rec['peak_gb']:.2f}"
+        f" GB allocated ({rec['reserved_gb']:.2f} GB reserved) against "
+        f"(j)'s {ref['peak_gb']:.2f} GB ({ref['reserved_gb']:.2f} GB); "
+        f"launches a step {json.dumps(rec['per_step'])} against (j)'s "
+        f"{json.dumps(ref['per_step'])}; cold builds {rec['cold']}; NCCL's "
+        f"kernels in the profiled step {nccl:.3f} ms of device time; one "
+        f"all-to-all of (16, 80, 5120) bf16 {a2a_ms:.4f} ms (CUDA events, "
+        f"median of 20)")
+    if not (math.isclose(got["loss"], want["loss"], rel_tol=1e-5)
+            and math.isclose(got["grad_norm"], want["grad_norm"],
+                             rel_tol=1e-4)):
+        raise AssertionError("(c)'s step 0 differs from (j)'s")
+    if rec["per_step"] != ref["per_step"] or rec["cold"]:
+        raise AssertionError("(c)'s launches or cold builds differ")
+    return rec
+
+
+def phase_multi(gen, llama4_ref: dict, kimi_tokens) -> tuple:
+    """Phase 14, on split workspaces of its own: (a) the NCCL group and
+    mesh; (b) the MoE smoke configs' mesh step, card against CPU; (c)
+    llama4-scout's training through the a2a at full width; (d) kimi-k2
+    served from padded expert storage, its tokens phase 8's.  Returns
+    ((c)'s training path record, (d)'s serve path record)."""
+    import shutil
+    import torch.distributed as tdist
+    from repro_torch.kernels.workspace import scratch
+    with scratch():
+        t0 = time.perf_counter()
+        mesh, store = phase_multi_group(gen)
+        say(f"[multi] (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_multi_parity()
+        say(f"[multi] (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train = phase_multi_llama4(mesh, gen, llama4_ref)
+        say(f"[multi] (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    serve = phase_serve("kimi_k2_1t_a32b", NEW_KW, NEW_LENS, layers=1,
+                        padded=True)
+    same = serve["tokens"] == kimi_tokens
+    say(f"[multi] (d) kimi-k2 from 512 stored experts: tokens equal phase "
+        f"8's, request for request: {same}; peak {serve['peak_gib']:.2f} "
+        f"GiB; {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("padded storage changed kimi-k2's tokens")
+    tdist.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
+    return train, serve
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5035,10 +5301,21 @@ def main() -> int:
      errs["ssd_scan_bwd_h100"], ssd_bwd_rows, moe) = phase_train(gen)
     k1b_err, k1b_rows, errs["transpose_h100_batched"], k4b_rows = moe
     errs["matmul_h100_batched"] = max(errs["matmul_h100_batched"], k1b_err)
-    train = _group_shapes(train_paths, TRAIN_KERNELS)
+    t1 = time.perf_counter()
+    n_new = len(PATHS) + len(NEW_PATHS)
+    multi_train, multi_serve = phase_multi(gen, train_paths[4],
+                                           paths[n_new - 1]["tokens"])
+    multi_s = time.perf_counter() - t1
+    say(f"[multi] phase {multi_s:.1f} s")
+    t0 += multi_s
+    train = _group_shapes(train_paths + [multi_train], TRAIN_KERNELS)
     t1 = time.perf_counter()
     k4_rows = phase_train_k4(train_paths, gen)
     say(f"[train] (e) {time.perf_counter() - t1:.1f} s")
+    # phase 14's paths are main paths too: (c) among the training paths,
+    # (d) among the engine paths
+    train_paths.append(multi_train)
+    paths.append(multi_serve)
     # the training paths' signatures timed as phase 9 times a pick (K2b's
     # of 13 (a), K4's of phase 6 and 13 (e) keep their rows)
     timed = {**rows, "transpose_h100": {**cases["rows"]["transpose_h100"],
@@ -5056,10 +5333,12 @@ def main() -> int:
     say(f"[train] kernel time over the training paths' launches: "
         f"{_sums_line(train_sums)}")
     say(f"[train] phase {time.perf_counter() - t0:.1f} s")
-    # the three paths PR 19 served, the six PR 20 added, whisper, and all
+    # the three first engine paths, the six dense and MoE ones, whisper,
+    # phase 14 (d)'s padded kimi-k2, and all
     groups = {"mamba2, hymba, llama3": paths[:len(PATHS)],
-              "six new": paths[len(PATHS):-1], "whisper": paths[-1:],
-              "all": paths}
+              "six new": paths[len(PATHS):n_new],
+              "whisper": paths[n_new:n_new + 1],
+              "padded kimi": paths[n_new + 1:], "all": paths}
     launches, shapes = {}, {}
     for group, members in groups.items():
         launches[group] = {n: sum(p["launches"][n] for p in members)
@@ -5117,7 +5396,8 @@ def main() -> int:
                     **{k: sums[g][name][k] for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "library_ms")}}
-                for g in ("mamba2, hymba, llama3", "six new", "whisper")}
+                for g in ("mamba2, hymba, llama3", "six new", "whisper",
+                          "padded kimi")}
         if name in TRAIN_KERNELS:
             by_paths["training"] = {
                 "launches": sum(p["launches"][name] for p in train_paths),

@@ -28,6 +28,14 @@ Guarantees, as in the JAX package:
   flight.
 * **Restore** puts each leaf back on its template leaf's device and in its
   type (:func:`restore_like`).  numpy has no bf16, so a bf16 leaf raises.
+
+On more than one rank (``layout``: the saved tree's
+:class:`~repro_torch.distributed.sharding.Layout` over its mesh) rank 0
+writes the whole tree in the same format: a sharded leaf is gathered
+from every rank to rank 0, leaf by leaf, and the other ranks wait for
+the write of a synchronous save.  A restore reads on rank 0 (falling back past corrupt
+steps there) and scatters each rank its part of every sharded leaf; every
+rank takes part in a save or a restore, in the same order.
 """
 from __future__ import annotations
 
@@ -41,31 +49,12 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..distributed.sharding import tree_items as _items
+from ..distributed.sharding import tree_rebuild as _rebuild
+
 PyTree = Any
 
 _SEP = "::"
-
-
-def _items(tree: PyTree, path=()):
-    """(path, leaf) pairs in ``jax.tree_util``'s order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _items(tree[k], path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _items(v, path + (i,))
-    else:
-        yield path, tree
-
-
-def _rebuild(tree: PyTree, fn, path=()) -> PyTree:
-    """``tree`` with every leaf replaced by ``fn(path, leaf)``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, fn, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, fn, path + (i,))
-                          for i, v in enumerate(tree))
-    return fn(path, tree)
 
 
 def _name(path) -> str:
@@ -134,12 +123,16 @@ def _unflatten_like(template: PyTree, flat: Dict[str, np.ndarray]) -> PyTree:
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3, host_index: int = 0,
-                 host_count: int = 1):
+                 host_count: int = 1, layout=None):
         self.dir = directory
         self.keep = keep
         self.host_index = host_index
         self.host_count = host_count
-        os.makedirs(directory, exist_ok=True)
+        multi = layout is not None and layout.mesh.size > 1
+        self.layout = layout if multi else None
+        self.writer = self.layout is None or self.layout.mesh.rank == 0
+        if self.writer:
+            os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -185,16 +178,35 @@ class CheckpointManager:
         for d in steps[:-self.keep]:
             shutil.rmtree(os.path.join(self.dir, d), ignore_errors=True)
 
+    def _host_tree(self, tree: PyTree) -> Dict[str, np.ndarray]:
+        """{name: host array} of the whole tree (on rank 0; empty on the
+        others, which only send their parts)."""
+        if self.layout is None:
+            return _flatten(tree)
+        flat = {}
+        for path, leaf in _items(tree):
+            if self.layout.sharded(path):
+                leaf = self.layout.gather_leaf(path, leaf)
+            if self.writer:
+                flat[_name(path)] = _to_numpy(leaf)
+        return flat
+
     def save(self, step: int, tree: PyTree) -> None:
         """Synchronous save (used at job end and by tests)."""
         self.wait()
-        self._write(step, _flatten(tree))
+        flat = self._host_tree(tree)
+        if self.writer:
+            self._write(step, flat)
+        if self.layout is not None:
+            torch.distributed.barrier()
 
     def save_async(self, step: int, tree: PyTree) -> None:
         """Copy every leaf to host memory now, write in the background
         (at most one save in flight)."""
         self.wait()
-        flat = _flatten(tree)
+        flat = self._host_tree(tree)
+        if not self.writer:
+            return
 
         def run():
             try:
@@ -219,6 +231,9 @@ class CheckpointManager:
                       if d.startswith("step_"))
 
     def _load_step(self, step: int, template: PyTree) -> PyTree:
+        return _unflatten_like(template, self._load_flat(step))
+
+    def _load_flat(self, step: int) -> Dict[str, np.ndarray]:
         d = os.path.join(self.dir, f"step_{step:09d}")
         mpath = os.path.join(d, f"MANIFEST.h{self.host_index}.json")
         with open(mpath) as f:
@@ -229,15 +244,60 @@ class CheckpointManager:
             if zlib.crc32(arr.tobytes()) != meta["crc32"]:
                 raise IOError(f"crc mismatch for {name} at step {step}")
             flat[name] = arr
-        return _unflatten_like(template, flat)
+        return flat
 
     def restore_latest(self, template: PyTree
                        ) -> Tuple[Optional[int], Optional[PyTree]]:
         """Restore the newest valid checkpoint; fall back past corrupt ones."""
         self.wait()
+        if self.layout is not None:
+            return self._restore_scattered(template)
         for step in reversed(self.available_steps()):
             try:
                 return step, self._load_step(step, template)
             except BaseException:
                 continue            # corrupt / partial — try the previous one
         return None, None
+
+    def _restore_scattered(self, template: PyTree
+                           ) -> Tuple[Optional[int], Optional[PyTree]]:
+        """Rank 0 reads the newest valid step; every rank gets its part
+        of each leaf (a sharded leaf scattered, the others broadcast)."""
+        import torch.distributed as tdist
+        from ..distributed.sharding import local_shard
+        lay, mesh = self.layout, self.layout.mesh
+        found, flat = [None], {}
+        if self.writer:
+            for step in reversed(self.available_steps()):
+                try:
+                    flat, found[0] = self._load_flat(step), step
+                    break
+                except BaseException:
+                    continue
+        tdist.broadcast_object_list(found, src=0)
+        if found[0] is None:
+            return None, None
+
+        def leaf(path, want):
+            name = _name(path)
+            whole = None
+            if self.writer:
+                if name not in flat:
+                    raise KeyError(f"checkpoint missing leaf {name}")
+                if tuple(flat[name].shape) != lay.shapes[path]:
+                    raise ValueError(
+                        f"leaf {name}: checkpoint shape {flat[name].shape}"
+                        f" != expected {lay.shapes[path]}")
+                whole = torch.from_numpy(flat.pop(name)).to(
+                    device=want.device, dtype=want.dtype)
+            if not lay.sharded(path):
+                if whole is None:
+                    whole = torch.empty_like(want)
+                tdist.broadcast(whole, src=0)
+                return whole
+            out = torch.empty_like(want)
+            parts = ([local_shard(whole, lay.spec(path), mesh, r)
+                      for r in range(mesh.size)] if self.writer else None)
+            tdist.scatter(out, parts, src=0)
+            return out
+        return found[0], _rebuild(template, leaf)

@@ -10,8 +10,9 @@ decoder's cross-attention ``lnx`` and ``xattn`` pass through with the rest
 of each block, ``enc_ln_f`` as ``ln_f``; matrices (and the MoE expert stacks) take the compute
 dtype, norm scales and the q/k/v biases stay f32, and so does the SSM decay
 projection ``ssm.wa``, which the JAX layer runs in f32 whatever the compute
-type.  Expert storage padded for the all-to-all schedule (more stored
-experts than the config routes to) is refused, and so is a tree whose
+type.  Expert storage padded for the all-to-all schedule
+(:func:`~repro_torch.models.moe.a2a_padded_experts` stored) passes through
+as it is; any other stored count is refused, and so is a tree whose
 encoder leaves the config does not expect, or whose stacks are not as long
 as the config's layers.  No JAX is imported here.
 
@@ -29,20 +30,21 @@ import torch
 
 from .device import DeviceLike, resolve_device, torch_dtype
 from .models.config import ModelConfig
+from .models.moe import a2a_padded_experts
 
 
 def _check(np_params: Dict[str, Any], cfg: ModelConfig) -> None:
-    """Refuse a tree the config does not describe: padded expert storage,
-    encoder leaves the config lacks (or lacks them), stacks of the wrong
-    depth."""
+    """Refuse a tree the config does not describe: a stored expert count
+    that is neither E nor the ``moe_a2a`` padded one, encoder leaves the
+    config lacks (or lacks them), stacks of the wrong depth."""
     stacked = np_params["layers"]
     if "moe" in stacked:
         stored = np.shape(stacked["moe"]["wi"])[1]
-        if stored != cfg.moe.num_experts:
-            raise NotImplementedError(
+        if stored not in (cfg.moe.num_experts, a2a_padded_experts(cfg)):
+            raise ValueError(
                 f"{stored} stored experts for {cfg.moe.num_experts} routed "
-                f"(config {cfg.name}): the all-to-all padded expert storage "
-                "of 'moe_a2a' is not ported yet")
+                f"(config {cfg.name}): neither E nor the 'moe_a2a' padded "
+                f"count {a2a_padded_experts(cfg)}")
     enc = ("enc_layers", "enc_ln_f")
     if cfg.encoder is None:
         extra = [k for k in enc if k in np_params] + [

@@ -1,11 +1,13 @@
 """Device resolution for the port's entry points.
 
 Entry points run on the card unless the caller asks for the CPU: with no
-device given they take ``cuda``, and raise when there is no GPU.  They never
-fall back to the CPU on their own.
+device given they take ``cuda`` (``cuda:LOCAL_RANK`` under torchrun, one
+card a rank), and raise when there is no GPU.  They never fall back to the
+CPU on their own.
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Optional, Union
 
@@ -20,7 +22,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             raise RuntimeError("no CUDA device is available; pass "
                                "device='cpu' to run the plain versions on "
                                "the CPU")
-        return torch.device("cuda")
+        local = os.environ.get("LOCAL_RANK")
+        return torch.device("cuda" if local is None else f"cuda:{local}")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not "

@@ -28,6 +28,18 @@ only (its full width is a multi-card path)::
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch llama4-scout-17b-a16e --layers 1 --seq-len 1024 \
         --global-batch 2 --microbatches 2 --steps 4
+
+Under torchrun (``RANK`` and ``WORLD_SIZE`` in the environment) it starts
+the process group (NCCL on the cards, gloo with ``--device cpu``) and
+builds ``make_host_mesh()``, as the JAX launcher builds its mesh over the
+devices there are, and runs the step over it (``build_train_step(...,
+mesh=)``): the batch's rows over ``data``, a ``moe_a2a`` config's experts
+over the ranks (the flag comes from the config, as in the JAX launcher).
+Rank 0 alone prints and writes checkpoints (the whole tree, gathered)::
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --arch llama3-8b \
+        --smoke --steps 20 --device cpu
 """
 from __future__ import annotations
 
@@ -43,7 +55,8 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
-from repro_torch.launch.specs import grad_dtype_for
+from repro_torch.launch.mesh import init_distributed, make_host_mesh
+from repro_torch.launch.specs import grad_dtype_for, state_layout
 from repro_torch.models import init_train_state
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.runtime import (TrainController, build_train_step,
@@ -81,18 +94,28 @@ def main(argv=None) -> None:
                                                 layers=args.layers)
         cfg = cfg.scaled(**kw)
     dev = resolve_device(args.device)
+    mesh = None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        init_distributed(backend="nccl" if dev.type == "cuda" else "gloo")
+        mesh = make_host_mesh()
+    lead = mesh is None or mesh.rank == 0
     opt = make_optimizer(cfg.optimizer,
                          warmup_cosine(args.lr, 10, args.steps))
     step_fn = build_train_step(cfg, opt, microbatches=args.microbatches,
-                               grad_dtype=grad_dtype_for(cfg))
+                               grad_dtype=grad_dtype_for(cfg), mesh=mesh)
     params = init_train_state(cfg, seed=args.seed, device=dev)
     opt_state = opt.init(params)
+    layout = None
+    if mesh is not None:
+        layout = state_layout(cfg, mesh, (params, opt_state))
+        params, opt_state = layout.shard((params, opt_state))
     warm_train_dispatch(cfg, global_batch=args.global_batch,
-                        seq=args.seq_len, microbatches=args.microbatches)
+                        seq=args.seq_len, microbatches=args.microbatches,
+                        mesh=mesh)
     ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                                 global_batch=args.global_batch,
                                 seed=args.seed))
-    ckpt = CheckpointManager(args.ckpt_dir, keep=2)
+    ckpt = CheckpointManager(args.ckpt_dir, keep=2, layout=layout)
 
     def run_step(state, step):
         params, opt_state = state
@@ -113,13 +136,18 @@ def main(argv=None) -> None:
     if restored is not None:
         params, opt_state = restored
         start = restored_step
-        print(f"resumed from step {start}")
+        if lead:
+            print(f"resumed from step {start}")
 
     ctl = TrainController(run_step, ckpt, ckpt_every=args.ckpt_every)
     t0 = time.time()
     (params, opt_state), hist = ctl.run(
         (params, opt_state), start_step=start, num_steps=args.steps)
     dt = time.time() - t0
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    if not lead:
+        return
 
     for h in hist[::max(1, len(hist) // (args.steps // args.log_every or 1))]:
         print(f"step {h['step']:5d}  loss {h['loss']:.4f}  "
@@ -127,6 +155,8 @@ def main(argv=None) -> None:
     toks = args.steps * args.global_batch * args.seq_len
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
+    if mesh is not None:
+        where += f" on {mesh.size} ranks"
     print(f"done: {len(hist)} steps on {where}, {toks/dt:.0f} tok/s, "
           f"final loss {hist[-1]['loss']:.4f}")
 

@@ -39,7 +39,7 @@ from ..device import DeviceLike, resolve_device, torch_dtype
 from ..optim import tree_leaves
 from . import layers as L
 from .config import ModelConfig
-from .moe import check_moe, moe_block
+from .moe import a2a_padded_experts, moe_block
 
 Params = Dict[str, Any]
 
@@ -50,16 +50,13 @@ def check_block(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"block {cfg.block!r} (config {cfg.name}) is not ported: the "
             "port serves attn_mlp, attn_moe, ssm and hybrid blocks")
-    if cfg.block == "attn_moe":
-        check_moe(cfg)
 
 
 def check_train(cfg: ModelConfig) -> None:
     """Raise for a config the port cannot train (on every device): one it
-    does not serve (:func:`check_block`: the ``moe_a2a`` schedule, a
-    multi-card path, among them), or a remat policy no config uses.  Every
-    block it serves trains: ``attn_mlp``, ``attn_moe``, ``ssm`` and
-    ``hybrid``."""
+    does not serve (:func:`check_block`), or a remat policy no config
+    uses.  Every block it serves trains: ``attn_mlp``, ``attn_moe`` (with
+    the ``moe_a2a`` flag too), ``ssm`` and ``hybrid``."""
     check_block(cfg)
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(f"remat {cfg.remat!r} (config {cfg.name}) "
@@ -165,10 +162,11 @@ def _init(cfg: ModelConfig, seed: int, dev: torch.device,
         if cfg.block == "attn_moe":
             E, fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
             lp["ln2"] = norm()
+            Es = a2a_padded_experts(cfg)
             lp["moe"] = {"router": mat(d, E),
-                         "wi": mat(E, d, fe, scale=1 / math.sqrt(d)),
-                         "wg": mat(E, d, fe, scale=1 / math.sqrt(d)),
-                         "wo": mat(E, fe, d, scale=1 / math.sqrt(fe))}
+                         "wi": mat(Es, d, fe, scale=1 / math.sqrt(d)),
+                         "wg": mat(Es, d, fe, scale=1 / math.sqrt(d)),
+                         "wo": mat(Es, fe, d, scale=1 / math.sqrt(fe))}
         return lp
 
     cross = cfg.encoder is not None
@@ -293,12 +291,35 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         x = x + xa
     aux = None
     if "moe" in lp:
-        y, aux = moe_block(lp["moe"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
-                           cfg)
+        y, aux = _moe_fn(cfg, x)(
+            lp["moe"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
         x = x + y
     elif "mlp" in lp:
         x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
     return x, aux
+
+
+def _moe_fn(cfg: ModelConfig, x: torch.Tensor):
+    """The MoE layer a block runs, under the JAX model's condition: the
+    ``moe_a2a`` schedule when the flag is set, a mesh with ``data`` is
+    current and the tokens (the whole batch's: x holds this rank's data
+    shard) divide over the a2a group; the dense layer otherwise."""
+    if "moe_a2a" in cfg.perf_flags:
+        from ..distributed import sharding as dist
+        from .moe_a2a import a2a_active, a2a_axes, moe_block_a2a
+        mesh = dist.current_mesh()
+        if a2a_active(cfg, mesh):
+            T = x.shape[0] * x.shape[1] * mesh.axis_size(
+                [a for a in mesh.axis_names if a in ("pod", "data")])
+            n_dev = mesh.axis_size(a2a_axes(mesh))
+            if T % n_dev == 0 and T // n_dev >= 1:
+                return moe_block_a2a
+            if n_dev > 1:
+                raise NotImplementedError(
+                    f"{T} tokens do not divide over the {n_dev} ranks of "
+                    "the moe_a2a group: the dense layer needs every "
+                    "expert, and each rank holds its own")
+    return moe_block
 
 
 def _remat(cfg: ModelConfig, lp: Params, x: torch.Tensor, **kw):

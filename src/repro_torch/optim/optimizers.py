@@ -14,6 +14,12 @@ Interface, as in the JAX package::
     state = opt.init(params)
     params, state = opt.update(grads, state, params, step)
 
+``update`` also takes ``shards``, for a leaf that is one rank's part of a
+whole (the experts of the ``moe_a2a`` schedule): ``{id(param): (reduce,
+count)}``, ``reduce`` summing a 0-d tensor over the ranks that share the
+leaf and ``count`` the whole leaf's elements.  Adafactor takes its update's
+RMS over the whole leaf through it; AdamW is elementwise and needs none.
+
 ``update`` runs under ``torch.no_grad()`` and updates ``params`` and
 ``state`` **in place** (the JAX one returns new trees): a functional update
 would hold two or three copies of the training state.  It returns the same
@@ -24,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -91,11 +97,14 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: PyTree, max_norm: float
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[PyTree, torch.Tensor]:
     """Scales ``grads`` in place by min(1, max_norm / norm); returns
-    (grads, norm)."""
-    norm = global_norm(grads)
+    (grads, norm).  ``norm`` is :func:`global_norm` unless given (a
+    sharded tree's, summed over its ranks)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.copy_((g.float() * scale).to(g.dtype))
@@ -124,7 +133,7 @@ def adamw(lr: Schedule, *, b1: float = 0.9, b2: float = 0.95,
         return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         stepf = _f32(step) + 1.0
         lr_t = lr(step)
         c1 = 1.0 - _f32(b1) ** stepf
@@ -172,7 +181,7 @@ def adafactor(lr: Schedule, *, decay: float = 0.8, eps: float = 1e-30,
         return {"f": tree_map(per_leaf, params)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, shards=None):
         stepf = _f32(step) + 1.0
         lr_t = lr(step)
         beta = 1.0 - stepf ** (-decay)
@@ -192,7 +201,13 @@ def adafactor(lr: Schedule, *, decay: float = 0.8, eps: float = 1e-30,
                 s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g / torch.sqrt(s["v"] + eps)
             # update clipping (RMS over the whole leaf)
-            rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            part = (shards or {}).get(id(p))
+            if part is None:
+                rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+            else:
+                reduce, count = part
+                rms = torch.sqrt(reduce(torch.sum(torch.square(u))) / count
+                                 + 1e-12)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay:
                 u = u + weight_decay * p.float()

@@ -55,17 +55,21 @@ and every SSD scan for K3b at K3's.  The MoE router is such a K1 request
 (its dA at (T, d, E), its dB at (d, E, T)); the experts' products ask for
 their dA, dB and transposes at the per-expert keys, and the model launches
 each through the batched entries of K1 and K4 (``BatchedMatmulFn``), so
-:meth:`TracedOp.experts` gives E for every one of those sites.
+:meth:`TracedOp.experts` gives E for every one of those sites.  Under a
+mesh each rank runs its rows of a microbatch, and a ``moe_a2a`` config its
+routing groups: the router at the rank's T / n tokens, the experts at
+``M = G·C`` (every group's capacity rows of the rank's experts).
 
 Nothing is executed — this is an abstract walk of the step over shapes.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 from ..models.config import ModelConfig
 from ..models.moe import MOE_GROUP_SIZE, capacity
+from ..models.moe_a2a import a2a_active, a2a_axes
 from ..models.transformer import (check_block, check_paged, check_train,
                                   has_attn, has_mlp, has_ssm)
 
@@ -109,11 +113,13 @@ def chunk_lengths(prefill_chunk: int, max_len: int) -> List[int]:
     return sorted(out, reverse=True)
 
 
-def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str
+def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
+                    a2a: Optional[Tuple[int, int]] = None
                     ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
     """One layer's requests over ``M`` token rows whose cores run at
     sequence length ``SQ`` (a prefill chunk: M = SQ = C; a decode step:
-    M = max_batch, SQ = 1)."""
+    M = max_batch, SQ = 1).  ``a2a`` = (T, n): the MoE layer runs the
+    ``moe_a2a`` schedule over n ranks for a batch of T tokens."""
     d, hd = cfg.d_model, cfg.hd
     if has_attn(cfg):
         yield (f"{prefix}.attn.q_proj", "matmul_h100",
@@ -145,11 +151,17 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str
                {"M": M, "N": d, "K": cfg.d_ff})
     if cfg.block == "attn_moe":
         m = cfg.moe
+        if a2a is None:
+            gsz = min(MOE_GROUP_SIZE, M)
+            rows, groups = M, -(-M // gsz)
+        else:                         # this rank's groups; every group's
+            T, n = a2a                # rows of its experts
+            gsz = min(MOE_GROUP_SIZE, max(1, T // n))
+            rows, groups = T // n, T // gsz
         yield (f"{prefix}.moe.router", "matmul_h100",
-               {"M": M, "N": m.num_experts, "K": d})
-        gsz = min(MOE_GROUP_SIZE, M)
-        cap = -(-M // gsz) * capacity(gsz, m.num_experts, m.top_k,
-                                      m.capacity_factor)
+               {"M": rows, "N": m.num_experts, "K": d})
+        cap = groups * capacity(gsz, m.num_experts, m.top_k,
+                                m.capacity_factor)
         yield (f"{prefix}.moe.expert_up", "matmul_h100",
                {"M": cap, "N": m.d_ff_expert, "K": d})   # wi and wg
         yield (f"{prefix}.moe.expert_down", "matmul_h100",
@@ -255,14 +267,15 @@ def trace_steps_warm_set(cfg: ModelConfig, *, batch: int, prompt_len: int,
                                       prompt_len=prompt_len))
 
 
-def _iter_train_requests(cfg: ModelConfig, *, rows: int, seq: int
+def _iter_train_requests(cfg: ModelConfig, *, rows: int, seq: int,
+                         a2a: Optional[Tuple[int, int]] = None
                          ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
     """A microbatch's forward requests."""
     enc = cfg.encoder
     enc_rows = rows * enc.seq_len if enc is not None else 0
     if enc is not None:
         yield from _layer_requests(cfg, enc_rows, enc.seq_len, "train.encode")
-    yield from _layer_requests(cfg, rows * seq, seq, "train.layer")
+    yield from _layer_requests(cfg, rows * seq, seq, "train.layer", a2a)
     if enc is not None:
         yield from _cross_requests(cfg, rows * seq, seq, enc_rows,
                                    "train.layer")
@@ -296,12 +309,24 @@ def _with_backward(requests: Iterator[Tuple[str, str, Dict[str, int]]]
 
 
 def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
-                         microbatches: int = 1) -> List[TracedOp]:
+                         microbatches: int = 1, mesh=None) -> List[TracedOp]:
     """The warm set of a train step: ordered, deduplicated by (family,
-    data), deterministic.  A config the port does not train is refused."""
+    data), deterministic.  A config the port does not train is refused.
+    Under a ``mesh`` (the step's) a rank runs its rows of each microbatch,
+    and a ``moe_a2a`` config's MoE layers the schedule: the router at the
+    rank's tokens, the experts at every group's rows (G·C a key, over the
+    rank's E_l experts, which the trace does not count)."""
     check_train(cfg)
-    if global_batch % microbatches:
+    shards = 1
+    if mesh is not None:
+        shards = mesh.axis_size([a for a in ("pod", "data")
+                                 if a in mesh.axis_names])
+    if global_batch % (microbatches * shards):
         raise ValueError(f"batch {global_batch} not a multiple of "
-                         f"{microbatches} microbatches")
+                         f"{microbatches} microbatches of {shards} shards")
+    rows = global_batch // microbatches // shards
+    a2a = None
+    if a2a_active(cfg, mesh):
+        a2a = (rows * seq * shards, mesh.axis_size(a2a_axes(mesh)))
     return _dedup(_with_backward(_iter_train_requests(
-        cfg, rows=global_batch // microbatches, seq=seq)))
+        cfg, rows=rows, seq=seq, a2a=a2a)))

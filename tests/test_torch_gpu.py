@@ -1773,3 +1773,125 @@ def test_gpu_flash_bwd_at_hymbas_group_and_window(cuda, dtype, tol):
         w = w.float()
         torch.testing.assert_close(g.float(), w, rtol=tol,
                                    atol=tol * float(w.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Multi-device at world size 1 (chip_smoke.py phase 14 (a) and (b))
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """NCCL at world size 1 on a ``file://`` store, and its (1, 1) mesh
+    over ("data", "model"); the process group ends with the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs on the card")
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    store = tmp_path_factory.mktemp("nccl") / "init"
+    init_distributed(init_method=f"file://{store}", rank=0, world_size=1,
+                     backend="nccl")
+    yield make_mesh((1, 1), ("data", "model"))
+    tdist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_collectives_at_world_size_one_are_bit_for_bit(nccl_mesh, dtype):
+    """At one rank NCCL's all-to-all and all-reduce give their input
+    back, and so do their adjoints (the differentiable wrappers')."""
+    from repro_torch.distributed.comm import all_reduce_sum, all_to_all
+    group = nccl_mesh.group(("data", "model"))
+    x = torch.randn((16, 80, 64), device="cuda", dtype=dtype,
+                    requires_grad=True)
+    y = all_to_all(x, group)
+    z = all_reduce_sum(y.float(), group)
+    assert torch.equal(y, x) and torch.equal(z, x.float())
+    g = torch.randn_like(z)
+    z.backward(g)
+    assert torch.equal(x.grad, g.to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
+def test_gpu_moe_a2a_at_world_size_one_is_the_dense_layer(nccl_mesh, arch):
+    """Under the (1, 1) mesh the a2a schedule routes as the dense layer
+    does and runs the same kernels on the same rows: y, aux and the
+    gradients bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.models.moe import moe_block
+    from repro_torch.models.moe_a2a import moe_block_a2a
+    cfg = get_smoke_config(arch).scaled(dtype="float32",
+                                        perf_flags=("moe_a2a",))
+    m, d = cfg.moe, cfg.d_model
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                / shape[-2] ** 0.5)
+    E, f = m.num_experts, m.d_ff_expert
+    p = {"router": w(d, E), "wi": w(E, d, f), "wg": w(E, d, f),
+         "wo": w(E, f, d)}
+    x = torch.randn((2, 32, d), generator=gen, device="cuda")
+    out = []
+    for fn in (moe_block, moe_block_a2a):
+        q = {k: v.clone().requires_grad_() for k, v in p.items()}
+        with dist.use_mesh_rules(nccl_mesh, dist.rules_for(cfg, nccl_mesh)):
+            y, aux = fn(q, x, cfg)
+            ((y * y).sum() + 0.01 * aux).backward()
+        out.append((y.detach(), aux.detach(),
+                    {k: v.grad for k, v in q.items()}))
+    (y0, a0, g0), (y1, a1, g1) = out
+    assert torch.equal(y0, y1) and torch.equal(a0, a1)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
+def test_gpu_mesh_train_step_card_against_cpu(nccl_mesh, arch):
+    """Three f32 steps of the mesh's step under ``moe_a2a`` (each full
+    config's optimizer: kimi's Adafactor) on the card (NCCL) against the
+    CPU (a gloo mesh of the same process), from one init: chip_smoke.py
+    14 (b)'s tolerances."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import (constant, make_optimizer, tree_leaves,
+                                   tree_map)
+    from repro_torch.runtime import build_train_step
+    lr, steps = 1e-3, 3
+    cfg = get_smoke_config(arch).scaled(
+        dtype="float32", param_dtype="float32", perf_flags=("moe_a2a",),
+        optimizer=get_config(arch).optimizer)
+    meshes = {"cpu": make_mesh((1, 1), ("data", "model"), backend="gloo"),
+              "cuda": nccl_mesh}
+    rng = np.random.default_rng(7)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32)))
+                for k in ("tokens", "labels")} for _ in range(steps)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev),
+                          init_train_state(cfg, seed=2, device="cpu"))
+        opt = make_optimizer(cfg.optimizer, constant(lr))
+        state = opt.init(params)
+        step_fn = build_train_step(cfg, opt, microbatches=2,
+                                   mesh=meshes[dev])
+        ms = []
+        for i, b in enumerate(batches):
+            params, state, m = step_fn(
+                params, state, {k: v.to(dev) for k, v in b.items()}, i)
+            ms.append({k: float(v) for k, v in m.items()})
+        out[dev] = ms, [p.detach().cpu() for p in tree_leaves(params)]
+    (gm, gp), (wm, wp) = out["cuda"], out["cpu"]
+    for a, b in zip(gm, wm):
+        for k in ("loss", "nll", "moe_aux"):
+            assert a[k] == pytest.approx(b[k], rel=1e-5, abs=1e-7), k
+        assert a["grad_norm"] == pytest.approx(b["grad_norm"], rel=1e-4)
+    flips = total = 0
+    for g, w in zip(gp, wp):
+        diff = (g - w).abs()
+        assert float(diff.max()) <= 2 * lr * steps + 1e-6
+        flips += int((diff > 1e-6).sum())
+        total += diff.numel()
+    assert flips <= total / 1000

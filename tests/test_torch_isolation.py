@@ -3,7 +3,9 @@ its copies of the observability package ``repro_torch.obs``, the fault
 harness, the disk tier, the serve plans, the MoE layer, the config
 modules (whisper-large-v3's too), the non-paged serve steps, the tuning
 package and the kernel monitor, and the training path (optimizers, data,
-checkpoints, the autograd functions and K2b, the train launcher) included."""
+checkpoints, the autograd functions and K2b, the train launcher) and the
+multi-rank path (the mesh, the sharding rules, the collectives, the int8
+ring, the all-to-all MoE layer) included."""
 import os
 import pathlib
 import re
@@ -45,7 +47,11 @@ assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
         "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
         "repro_torch.kernels.autograd",
         "repro_torch.kernels.flash_attention_bwd",
-        "repro_torch.launch.train", "repro_torch.launch.specs"
+        "repro_torch.launch.train", "repro_torch.launch.specs",
+        "repro_torch.launch.mesh", "repro_torch.distributed",
+        "repro_torch.distributed.sharding",
+        "repro_torch.distributed.compression",
+        "repro_torch.distributed.comm", "repro_torch.models.moe_a2a"
         } <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]

@@ -219,11 +219,69 @@ def test_batched_format_error_counts_experts_times_splits():
         384 * one[0], 384 * one[1])
 
 
-def test_a2a_storage_and_flag_are_refused_by_name():
-    from repro_torch.models.transformer import check_block
+def _padded_config(mc):
+    """A one-layer ``moe_a2a`` config with E = 300 >= 256 (stored padded
+    to 512) at a tiny width, from the config module ``mc`` of either
+    package."""
+    return mc.ModelConfig(
+        name="a2a-padded", layers=1, d_model=16, heads=4, kv_heads=2,
+        d_ff=16, vocab=64, block="attn_moe", dtype="float32",
+        moe=mc.MoEConfig(num_experts=300, top_k=2, d_ff_expert=16,
+                         capacity_factor=2.0),
+        perf_flags=("moe_a2a",))
+
+
+def test_a2a_flag_and_padded_storage_are_accepted():
+    """The flag passes ``check_block``; both packages' inits store 512
+    experts for E = 300 under it (``a2a_padded_experts``), and E where the
+    flag is off or E < 256."""
+    import repro.models.config as jmc
+    import repro_torch.models.config as tmc
+    from repro_torch.models.transformer import check_block, init_train_state
+    tcfg, jcfg = _padded_config(tmc), _padded_config(jmc)
+    check_block(tcfg)
+    assert tmoe.a2a_padded_experts(tcfg) == jmoe.a2a_padded_experts(jcfg) \
+        == 512
+    assert tmoe.a2a_padded_experts(tcfg.scaled(perf_flags=())) == 300
+    kimi = tconfigs.get_smoke_config("kimi_k2_1t_a32b")
+    assert tmoe.a2a_padded_experts(kimi.scaled(perf_flags=("moe_a2a",))) \
+        == kimi.moe.num_experts                     # E = 8 < 256
+    state = init_train_state(tcfg, device="meta")
+    assert tuple(state["layers"]["moe"]["wi"].shape) == (1, 512, 16, 16)
+    assert tuple(state["layers"]["moe"]["router"].shape) == (1, 16, 300)
+
+
+def test_convert_and_dense_moe_on_padded_storage_match_jax():
+    """A JAX tree with 512 stored experts (``init_model`` under the flag)
+    converts as it is; the dense ``moe_block`` and the whole forward run
+    the first E of them, as the JAX layer slices them, and agree with
+    JAX."""
+    import repro.models.config as jmc
+    import repro.models as jmodels
+    import repro_torch.models.config as tmc
+    from repro_torch.models.transformer import forward
+    jcfg, tcfg = _padded_config(jmc), _padded_config(tmc)
+    jp, _ = jmodels.init_model(jax.random.PRNGKey(0), jcfg)
+    assert jp["layers"]["moe"]["wi"].shape == (1, 512, 16, 16)
+    tp = from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    assert tuple(tp["layers"][0]["moe"]["wi"].shape) == (512, 16, 16)
+    x = _x((2, 8, 16), 5)
+    jlayer = jax.tree.map(lambda a: a[0], jp["layers"]["moe"])
+    want, want_aux = jmoe.moe_block(jlayer, jnp.asarray(x), jcfg)
+    got, aux = tmoe.moe_block(tp["layers"][0]["moe"], torch.from_numpy(x),
+                              tcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+    tokens = np.random.default_rng(6).integers(0, 64, (2, 8)).astype(
+        np.int32)
+    jl, jaux = jmodels.forward(jp, jcfg, jnp.asarray(tokens))
+    tl, taux = forward(tp, tcfg, tokens)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+
+
+def test_a_stored_expert_count_neither_e_nor_padded_is_refused():
     cfg = tconfigs.get_smoke_config("kimi_k2_1t_a32b")
-    with pytest.raises(NotImplementedError, match="moe_a2a.*not ported"):
-        check_block(cfg.scaled(perf_flags=("moe_a2a",)))
     E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
     L = cfg.layers
     z = np.zeros
@@ -233,8 +291,9 @@ def test_a2a_storage_and_flag_are_refused_by_name():
                                "wi": z((L, E + 8, d, f)),
                                "wg": z((L, E + 8, d, f)),
                                "wo": z((L, E + 8, f, d))}}}
-    with pytest.raises(NotImplementedError, match="stored experts"):
-        from_jax_params(tree, cfg, device="cpu")
+    for flags in ((), ("moe_a2a",)):
+        with pytest.raises(ValueError, match="stored experts"):
+            from_jax_params(tree, cfg.scaled(perf_flags=flags), device="cpu")
 
 
 # ---------------------------------------------------------------------------

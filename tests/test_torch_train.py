@@ -306,19 +306,32 @@ def test_eval_step_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", MOE)
 def test_train_refuses_the_moe_a2a_schedule(arch):
-    """The MoE configs train, but not with ``perf_flags=("moe_a2a",)``:
-    the all-to-all expert schedule is a multi-card path (ROADMAP Queue 1
-    item 4), refused by the step, the warm set and the loss."""
+    """The schedule itself needs a mesh: ``moe_block_a2a`` refuses a call
+    without one.  Without a mesh a config with ``perf_flags=("moe_a2a",)``
+    trains through the dense layer (its storage unpadded at E < 256), the
+    step, the warm set and the loss bit for bit those of the config
+    without the flag; ``tests/test_torch_distributed.py`` holds the
+    schedule over a mesh against JAX's."""
+    from repro_torch.models.moe_a2a import moe_block_a2a
     base = tconfigs.get_smoke_config(arch).scaled(dtype="float32")
     tcfg = base.scaled(perf_flags=("moe_a2a",))
-    opt = topt.adamw(topt.constant(LR))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        build_train_step(tcfg, opt)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        trace_train_warm_set(tcfg, global_batch=2, seq=8)
-    params = tm.init_train_state(base, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        loss_fn(params, tcfg, _batch(tcfg, rows=2))
+    params = tm.init_train_state(tcfg, device="cpu")
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    with pytest.raises(ValueError, match="needs a current mesh"):
+        moe_block_a2a(lp, torch.zeros(1, 4, tcfg.d_model), tcfg)
+    assert [op.label for op in trace_train_warm_set(
+        tcfg, global_batch=2, seq=8)] == [
+        op.label for op in trace_train_warm_set(base, global_batch=2, seq=8)]
+    batch = _batch(tcfg, rows=2)
+    outs = []
+    for cfg in (base, tcfg):
+        p = tm.init_train_state(cfg, device="cpu")
+        opt = topt.adamw(topt.constant(LR))
+        st = opt.init(p)
+        p, st, m = build_train_step(cfg, opt)(p, st, batch, 0)
+        outs.append((float(m["loss"]), topt.tree_leaves(p)))
+    assert outs[0][0] == outs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1]))
 
 
 def test_remat_dots_is_refused():

@@ -1,0 +1,295 @@
+"""Rank processes of ``tests/test_torch_distributed.py``: the port over
+``torch.distributed`` with gloo on the CPU.
+
+This module imports torch and the port only (no JAX): every rank of a
+spawn imports it.  :func:`spawn` starts ``world`` ranks on a ``file://``
+store, each running :func:`rank_main` over a list of jobs; a job reads its
+inputs from an ``.npz`` the test wrote and rank 0 writes its outputs to
+another.
+"""
+from __future__ import annotations
+
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+SEP = "::"
+
+
+def flatten(tree, prefix=()):
+    """{"a::b::c": leaf} of a tree of dicts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, prefix + (k,)))
+        else:
+            out[SEP.join(prefix + (k,))] = v
+    return out
+
+
+def unflatten(flat):
+    out = {}
+    for name, v in flat.items():
+        node = out
+        keys = name.split(SEP)
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = v
+    return out
+
+
+def spawn(world, tmp_dir, jobs, timeout=240):
+    """Run ``jobs`` on ``world`` gloo ranks; raises on a rank's failure or
+    when the ranks outlive ``timeout`` seconds."""
+    import torch.multiprocessing as mp
+    init = os.path.join(tmp_dir, f"store_{world}_{time.monotonic_ns()}")
+    ctx = mp.start_processes(rank_main, args=(world, init, jobs),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{world} ranks still running after "
+                               f"{timeout} s")
+
+
+def rank_main(rank, world, init, jobs):
+    os.environ.setdefault("OMP_NUM_THREADS", "1")
+    torch.set_num_threads(1)
+    tdist.init_process_group("gloo", init_method=f"file://{init}",
+                             rank=rank, world_size=world)
+    try:
+        for job in jobs:
+            out = JOBS[job["kind"]](job)
+            if rank == 0 and out is not None:
+                np.savez(job["out"], **out)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        tdist.destroy_process_group()
+
+
+def _inputs(job):
+    with np.load(job["inputs"]) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _mesh(job):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(tuple(job["mesh"]), tuple(job["axes"]))
+
+
+# ---------------------------------------------------------------------------
+# moe_block_a2a: forward and gradients
+# ---------------------------------------------------------------------------
+
+def a2a_config(case):
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    return ModelConfig(
+        name="a2a-test", layers=1, d_model=case["d"], heads=4, kv_heads=2,
+        d_ff=case["f"], vocab=64, block="attn_moe",
+        moe=MoEConfig(num_experts=case["E"], top_k=case["k"],
+                      d_ff_expert=case["f"],
+                      capacity_factor=case["cf"]),
+        perf_flags=("moe_a2a",))
+
+
+def job_a2a(job):
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.models.moe_a2a import a2a_axes, moe_block_a2a
+    inp = _inputs(job)
+    case = job["case"]
+    cfg = a2a_config(case)
+    mesh = _mesh(job)
+    axes = a2a_axes(mesh)
+    espec = (axes if len(axes) > 1 else axes[0],)
+    n_dev, n_model = mesh.axis_size(axes), mesh.shape.get("model", 1)
+    x = dist.local_shard(torch.from_numpy(inp["x"]), ("data",), mesh)
+    p = {"router": torch.from_numpy(inp["router"]).requires_grad_()}
+    for k in ("wi", "wg", "wo"):
+        p[k] = dist.local_shard(torch.from_numpy(inp[k]), espec,
+                                mesh).requires_grad_()
+    with dist.use_mesh_rules(mesh, dist.rules_for(cfg, mesh)):
+        y, aux = moe_block_a2a(p, x, cfg, group_size=case["group_size"])
+        loss = (y * y).sum() / n_model + 0.01 * aux / n_dev
+        loss.backward()
+    g_router = p["router"].grad.clone()
+    tdist.all_reduce(g_router)
+    out = {"y": dist.gather_shard(y.detach(), ("data",), mesh).numpy(),
+           "aux": np.float32(aux.item()), "router": g_router.numpy()}
+    for k in ("wi", "wg", "wo"):
+        out[k] = dist.gather_shard(p[k].grad, espec, mesh,
+                                   inp[k].shape).numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The int8 ring
+# ---------------------------------------------------------------------------
+
+def job_ring(job):
+    from repro_torch.distributed import compressed_psum_pod
+    inp = _inputs(job)
+    mesh = _mesh(job)
+    grads = {k: torch.from_numpy(inp[k]) for k in ("w", "b")}
+    out = compressed_psum_pod(grads, mesh, seed=2)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# The train step
+# ---------------------------------------------------------------------------
+
+def train_config(job):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.config import MoEConfig
+    base = get_smoke_config(job["arch"])
+    cfg = base.scaled(
+        dtype="float32", param_dtype="float32",
+        perf_flags=tuple(job.get("flags", ())),
+        remat=job.get("remat", "none"),
+        optimizer=job.get("optimizer", base.optimizer))
+    if cfg.moe is not None and job.get("cf"):
+        m = cfg.moe
+        cfg = cfg.scaled(moe=MoEConfig(m.num_experts, m.top_k,
+                                       m.d_ff_expert, job["cf"]))
+    return cfg
+
+
+def job_train(job):
+    """``job["steps"]`` steps from the inputs' parameters: the whole
+    parameters after them, and each step's metrics."""
+    from repro_torch.launch.specs import state_layout
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import build_train_step
+    inp = _inputs(job)
+    cfg = train_config(job)
+    mesh = _mesh(job) if job.get("mesh") else None
+    params = unflatten({k[2:]: torch.from_numpy(v.copy())
+                        for k, v in inp.items() if k.startswith("p:")})
+    layout = None
+    if mesh is not None:
+        layout = state_layout(cfg, mesh, params)
+        params = layout.shard(params)
+    opt = make_optimizer(cfg.optimizer, constant(job["lr"]))
+    opt_state = opt.init(params)
+    step_fn = build_train_step(cfg, opt, microbatches=job["microbatches"],
+                               mesh=mesh)
+    metrics = []
+    for s in range(job["steps"]):
+        batch = {k: torch.from_numpy(inp[f"b{s}:{k}"])
+                 for k in ("tokens", "labels")}
+        params, opt_state, m = step_fn(params, opt_state, batch, s)
+        metrics.append([float(m[k]) for k in ("loss", "nll", "moe_aux",
+                                              "grad_norm")])
+    if layout is not None:
+        params = layout.gather(params)
+    out = {f"p:{k}": v.detach().numpy() for k, v in flatten(params).items()}
+    out["metrics"] = np.array(metrics, np.float64)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Restart through the controller, bit for bit
+# ---------------------------------------------------------------------------
+
+def job_restart(job):
+    """Two controller runs of a ``moe_a2a`` config over the mesh from one
+    initial state: one clean, one whose step ``fault_at`` fails on every
+    rank once; both whole states after the last step."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.specs import state_layout
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import TrainController, build_train_step
+    cfg = train_config(job)
+    mesh = _mesh(job)
+    opt = make_optimizer(cfg.optimizer, constant(job["lr"]))
+    step_fn = build_train_step(cfg, opt, microbatches=2, mesh=mesh)
+    ds = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=8,
+                                global_batch=4, seed=0))
+    out = {}
+    for tag, fault_at in (("clean", None), ("fault", job["fault_at"])):
+        whole = init_train_state(cfg, seed=0, device="cpu")
+        whole_opt = opt.init(whole)
+        layout = state_layout(cfg, mesh, (whole, whole_opt))
+        state = layout.shard((whole, whole_opt))
+        fired = []
+
+        def hook(step):
+            if step == fault_at and not fired:
+                fired.append(step)
+                raise RuntimeError("injected fault")
+
+        def run_step(state, step):
+            params, opt_state = state
+            batch = {k: torch.from_numpy(v)
+                     for k, v in ds.batch_at(step).items()}
+            params, opt_state, m = step_fn(params, opt_state, batch, step)
+            return (params, opt_state), {k: float(v) for k, v in m.items()}
+
+        ckpt = CheckpointManager(os.path.join(job["dir"], tag), keep=2,
+                                 layout=layout)
+        ctl = TrainController(run_step, ckpt, ckpt_every=2,
+                              fault_hook=hook)
+        state, hist = ctl.run(state, start_step=0, num_steps=job["steps"])
+        full = layout.gather(state)
+        for k, v in flatten(full[0]).items():
+            out[f"{tag}:{k}"] = v.detach().numpy()
+        out[f"{tag}:loss"] = np.array([h["loss"] for h in hist])
+        out[f"{tag}:fired"] = np.array(fired)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The warm set under a mesh (F5)
+# ---------------------------------------------------------------------------
+
+def job_warm(job):
+    """``warm_train_dispatch(..., mesh=)`` then one step over the mesh:
+    the cold builds the step made, and the (family, key) labels it asked
+    for and the trace lists."""
+    from repro_torch.artifacts.dispatch import (DispatchCache,
+                                                set_default_cache)
+    from repro_torch.launch.specs import state_layout
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import adamw, constant
+    from repro_torch.plans.trace import op_label, trace_train_warm_set
+    from repro_torch.runtime import build_train_step, warm_train_dispatch
+    cfg = train_config(job)
+    mesh = _mesh(job)
+    B, S = job["batch"], job["seq"]
+    cache = DispatchCache()
+    set_default_cache(cache)
+    try:
+        warm_train_dispatch(cfg, global_batch=B, seq=S, microbatches=2,
+                            mesh=mesh)
+        cold = cache.stats.cold_builds
+        params = init_train_state(cfg, device="cpu")
+        params = state_layout(cfg, mesh, params).shard(params)
+        opt = adamw(constant(1e-3))
+        step = build_train_step(cfg, opt, microbatches=2, mesh=mesh)
+        rng = np.random.default_rng(3)
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+                 for k in ("tokens", "labels")}
+        with cache.record() as rec:
+            step(params, opt.init(params), batch, 0)
+        cold = cache.stats.cold_builds - cold
+    finally:
+        set_default_cache(None)
+    seen = sorted({op_label(f, dict(items)) for f, _, items in rec.requests})
+    traced = sorted(op.label for op in trace_train_warm_set(
+        cfg, global_batch=B, seq=S, microbatches=2, mesh=mesh))
+    return {"cold": np.int64(cold), "seen": np.array(seen),
+            "traced": np.array(traced)}
+
+
+JOBS = {"a2a": job_a2a, "ring": job_ring, "train": job_train,
+        "restart": job_restart, "warm": job_warm}
