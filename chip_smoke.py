@@ -4315,7 +4315,8 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
     profiler, its loss equal.  Every launch counter is set to 0 just
     before the path and read just after.  With ``mesh`` the step is the
     mesh's (``build_train_step(..., mesh=)``, the launcher's under
-    torchrun), the warm set its keys and the state the rank's part.
+    torchrun), the warm set its keys and the state the rank's part
+    (``launch.specs.rank_state``, built leaf by leaf).
     Returns the path's record."""
     import tempfile
     from repro_torch.artifacts.dispatch import get_default_cache
@@ -4340,13 +4341,16 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    params = init_train_state(cfg, seed=0, device=DEV)
     # the launcher's schedule (launch/train.py)
     opt = adamw(warmup_cosine(run["lr"], 10, run["steps"]))
-    if mesh is not None:
-        from repro_torch.launch.specs import state_layout
-        params = state_layout(cfg, mesh, params).shard(params)
-    opt_state = opt.init(params)
+    if mesh is None:
+        params = init_train_state(cfg, seed=0, device=DEV)
+        opt_state = opt.init(params)
+    else:
+        # the launcher's state on a mesh: the rank's part, leaf by leaf
+        from repro_torch.launch.specs import rank_state
+        params, opt_state, _ = rank_state(cfg, mesh, opt, seed=0,
+                                          device=DEV)
     step_fn = build_train_step(cfg, opt, microbatches=run["microbatches"],
                                mesh=mesh)
     n = sum(t.numel() for t in tree_leaves(params))
@@ -5195,14 +5199,204 @@ def phase_multi_llama4(mesh, gen, ref: dict) -> dict:
     return rec
 
 
-def phase_multi(gen, llama4_ref: dict, kimi_tokens) -> tuple:
+#: 14 (e): 13 (b)'s llama3-8b run (its batch, full width, 4 of 32
+#: layers) through the mesh step; no checkpoint (13 (b) holds the restart).
+MESH_LLAMA_RUN = dict(TRAIN_RUN, steps=3, ckpt_at=None)
+#: 14 (g): the abstract meshes whose rank keys are warmed and launched.
+RANK_MESHES = ((1, 4), (1, 8))
+#: 14 (g): (config, layers, mesh) of the four-card cells the layout sizes
+#: (``Layout.rank_bytes()`` on the meta device; nothing allocated).
+CELL_SIZES = (("llama3_8b", None, (1, 4)),
+              ("llama4_scout_17b_a16e", 4, (4, 1)),
+              ("kimi_k2_1t_a32b", 1, (4, 1)))
+
+
+def same_as_one_card(tag: str, rec: dict, ref: dict, what: str) -> None:
+    """(e), (f): a mesh path against the one-card path ``ref`` of the same
+    run: step 0's loss and grad_norm bit for bit, the launches a step, 0
+    cold builds and the peak allocated within 0.1 GB; the step's time
+    beside it."""
+    got, want = rec["first"], ref["first"]
+    bits = got["loss"] == want["loss"] and \
+        got["grad_norm"] == want["grad_norm"]
+    gap = rec["peak_gb"] - ref["peak_gb"]
+    say(f"[multi] {tag} step 0 through the mesh step: loss {got['loss']!r},"
+        f" grad_norm {got['grad_norm']!r}; {what}'s: loss "
+        f"{want['loss']!r}, grad_norm {want['grad_norm']!r}; bit for bit: "
+        f"{bits}; median step {rec['step_ms']:.1f} ms of CUDA-event time "
+        f"against {what}'s {ref['step_ms']:.1f} ms; peak "
+        f"{rec['peak_gb']:.2f} GB allocated against {ref['peak_gb']:.2f} "
+        f"({gap:+.3f}); launches a step {json.dumps(rec['per_step'])} "
+        f"against {json.dumps(ref['per_step'])}; cold builds {rec['cold']}")
+    if not bits:
+        raise AssertionError(f"{tag}'s step 0 differs from {what}'s")
+    if rec["per_step"] != ref["per_step"] or rec["cold"]:
+        raise AssertionError(f"{tag}'s launches or cold builds differ")
+    if abs(gap) > 0.1:
+        raise AssertionError(f"{tag}'s peak is {gap:+.3f} GB off {what}'s")
+
+
+def layout_line(cfg, mesh) -> str:
+    """What a mesh's layout does to ``cfg``'s state: the parameter leaves
+    whose specs name the batch axes (FSDP) and ``model``, the
+    optimizer-state leaves whose specs name the batch axes, and
+    ``Layout.rank_bytes()`` against the whole state."""
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.launch.specs import abstract_state, state_layout
+    from repro_torch.optim import constant, make_optimizer
+    opt = make_optimizer(cfg.optimizer, constant(1e-4))
+    p_meta, o_meta = abstract_state(cfg, opt)
+    lay = state_layout(cfg, mesh, p_meta, o_meta)
+    batch = set(dist.batch_axes(mesh))
+
+    def axes(spec):
+        return {a for e in spec for a in dist.entry_axes(e)}
+    fsdp = sum(1 for p, sp in lay.specs.items() if p[0] == 0
+               and axes(sp) & batch and "moe" not in p)
+    tp = sum(1 for p, sp in lay.specs.items() if p[0] == 0
+             and "model" in axes(sp) and "moe" not in p)
+    zero = sum(1 for p, sp in lay.specs.items() if p[0] == 1
+               and axes(sp) & batch)
+    whole = sum(int(np.prod(sh)) * lay.itemsizes[p]
+                for p, sh in lay.shapes.items())
+    return (f"{cfg.name} ({cfg.layers} layers, {cfg.optimizer}) on {mesh}: "
+            f"{fsdp} parameter leaves over the batch axes (FSDP), {tp} over "
+            f"model, {zero} optimizer-state leaves over the batch axes "
+            f"(ZeRO-1 or FSDP); "
+            f"a rank holds {lay.rank_bytes() / 1e9:.2f} of "
+            f"{whole / 1e9:.2f} GB (parameters "
+            f"{lay.part(0).rank_bytes() / 1e9:.2f}, optimizer state "
+            f"{lay.part(1).rank_bytes() / 1e9:.2f})")
+
+
+def phase_multi_llama3(mesh, ref: dict) -> dict:
+    """(e) 13 (b)'s llama3-8b run (full width, 4 of 32 layers, its batch)
+    through the mesh step over the NCCL mesh, its tensor parallelism and
+    ZeRO-1 on the (1, 1) mesh (every spec whole at one rank):
+    :func:`same_as_one_card` against 13 (b), after the split
+    workspaces are dropped as before 13 (b) (they grow inside both)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.workspace import free_unheld
+    torch.cuda.synchronize()
+    free_unheld()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3_8b")
+    say(f"[multi] (e) {layout_line(cfg.scaled(layers=TRAIN_LAYERS), mesh)}")
+    rec = train_path("(14 e)", cfg, TRAIN_LAYERS, MESH_LLAMA_RUN, mesh=mesh)
+    same_as_one_card("(e)", rec, ref, "13 (b)")
+    return rec
+
+
+def _rank_launches(op, gen) -> None:
+    """What the model launches for a traced forward key of a train step,
+    as ``layers.proj`` and ``layers._rows_attention`` launch it while
+    autograd records: K1 at (M, N, K) bf16 through ``MatmulFn`` and its
+    backward (K1's dA and dB, K4's transposes); K2 at (SQ, HD, GROUP, HK)
+    through ``AttentionFn`` over rows of SQ keys, and K2b."""
+    from repro_torch.kernels.autograd import AttentionFn, MatmulFn
+    d = op.data_dict()
+    if op.family == "matmul_h100":
+        a = torch.randn((d["M"], d["K"]), generator=gen, device=DEV,
+                        dtype=torch.bfloat16).requires_grad_()
+        b = torch.randn((d["K"], d["N"]), generator=gen, device=DEV,
+                        dtype=torch.bfloat16).requires_grad_()
+        MatmulFn.apply(a, b).backward(torch.ones(
+            (d["M"], d["N"]), device=DEV, dtype=torch.float32))
+    else:
+        R, S = 4, d["SQ"]
+        h, hk = d["GROUP"] * d["HK"], d["HK"]
+        q = torch.randn((R, h, S, d["HD"]), generator=gen, device=DEV,
+                        dtype=torch.bfloat16).requires_grad_()
+        k, v = (torch.randn((R, S, hk, d["HD"]), generator=gen, device=DEV,
+                            dtype=torch.bfloat16).requires_grad_()
+                for _ in range(2))
+        lens = torch.full((R,), S, dtype=torch.int32, device=DEV)
+        AttentionFn.apply(q, k, v, None, lens, True, None).sum().backward()
+
+
+def phase_multi_keys(gen) -> dict:
+    """(g) The keys a four-card rank launches: llama3-8b at full width,
+    13 (b)'s batch, on the abstract meshes ``RANK_MESHES`` (a rank of
+    model 4 and 8); ``warm_train_dispatch(mesh=)`` freezes the rank's
+    keys, every traced forward key is launched as the model launches it
+    (its backward too) with no cold build, and every launch signature is
+    then held against its plain version at its tolerance on cold inputs
+    and timed beside ``torch.matmul``, ``a.t().contiguous()`` or SDPA
+    (:data:`CASES`).  Then ``Layout.rank_bytes()`` of the four-card
+    cells (:data:`CELL_SIZES`).  These launches check kernels: no main
+    path's.  Returns {name: {sig: row}}."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.plans.trace import trace_train_warm_set
+    from repro_torch.runtime import warm_train_dispatch
+    cfg = get_config("llama3_8b").scaled(layers=TRAIN_LAYERS)
+    kernels = _counters(("matmul_h100", "transpose_h100",
+                         "flash_attention_h100", "flash_attention_bwd_h100"))
+    stats = get_default_cache().stats
+    sigs = {n: {} for n in kernels}
+    run = dict(global_batch=TRAIN_RUN["batch"], seq=TRAIN_RUN["seq"],
+               microbatches=TRAIN_RUN["microbatches"])
+    for shape in RANK_MESHES:
+        mesh = abstract_mesh(shape, ("data", "model"))
+        t0 = time.perf_counter()
+        warm_train_dispatch(cfg, mesh=mesh, **run)
+        ops_ = trace_train_warm_set(cfg, mesh=mesh, **run)
+        fwd = [op for op in ops_ if any(
+            not s.endswith((".dA", ".dB", ".wT", ".xT", ".bwd"))
+            for s in op.sites)]
+        cold0 = stats.cold_builds
+        _count_reset(kernels)
+        for op in fwd:
+            _rank_launches(op, gen)
+        torch.cuda.synchronize()
+        cold = stats.cold_builds - cold0
+        for n, k in kernels.items():
+            for sig, c in k.shapes.items():
+                sigs[n][sig] = sigs[n].get(sig, 0) + c
+        keys = sorted(f"{op.family.replace('_h100', '')} "
+                      f"{dict(op.data)}" for op in fwd)
+        say(f"[multi] (g) mesh {shape}: {len(ops_)} (family, key) pairs "
+            f"traced and frozen, {len(fwd)} forward keys launched with "
+            f"their backwards in {time.perf_counter() - t0:.2f} s; cold "
+            f"builds {cold}; forward keys: {'; '.join(keys)}")
+        if cold:
+            raise AssertionError(f"(g) {shape}: {cold} cold builds")
+    _count_reset(kernels)
+    _train_lens(sigs)
+    rows = {}
+    for n, by_sig in sigs.items():
+        rows[n] = {}
+        for sig in sorted(by_sig, key=str):
+            row = CASES[n](sig, gen, timed=True)
+            rows[n][sig] = row
+            say(f"[multi] (g) {n} {sig[:-1]}: {fmt(row)}")
+            torch.cuda.empty_cache()
+    _count_reset(kernels)
+    for arch, layers, shape in CELL_SIZES:
+        c = get_config(arch)
+        c = c.scaled(layers=layers) if layers else c
+        if c.moe is not None:
+            c = c.scaled(perf_flags=("moe_a2a",))
+        cell = abstract_mesh(shape, ("data", "model"))
+        say(f"[multi] (g) four-card cell: {layout_line(c, cell)}")
+    return rows
+
+
+def phase_multi(gen, llama4_ref: dict, llama3_ref: dict,
+                kimi_tokens) -> tuple:
     """Phase 14, on split workspaces of its own: (a) the NCCL group and
     mesh; (b) the MoE smoke configs' mesh step, card against CPU; (c)
-    llama4-scout's training through the a2a at full width; (d) kimi-k2
-    served from padded expert storage, its tokens phase 8's.  Returns
-    ((c)'s training path record, (d)'s serve path record)."""
+    llama4-scout's training through the a2a at full width, on the layout
+    the mesh step realises (FSDP over the batch axes, ZeRO-1), which (f)
+    holds to (j); (e) llama3-8b's training through the mesh step, held to
+    13 (b); (g) a four-card rank's keys; (d) kimi-k2 served from padded
+    expert storage, its tokens phase 8's.  Returns ((c)'s and (e)'s
+    training path records, (d)'s serve path record, (g)'s rows)."""
     import shutil
     import torch.distributed as tdist
+    from repro_torch.configs import get_config
     from repro_torch.kernels.workspace import scratch
     with scratch():
         t0 = time.perf_counter()
@@ -5212,8 +5406,20 @@ def phase_multi(gen, llama4_ref: dict, kimi_tokens) -> tuple:
         phase_multi_parity()
         say(f"[multi] (b) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        train = phase_multi_llama4(mesh, gen, llama4_ref)
+        llama4 = phase_multi_llama4(mesh, gen, llama4_ref)
         say(f"[multi] (c) {time.perf_counter() - t0:.1f} s")
+        # (f): (c) ran llama4-scout under its FSDP rules and ZeRO-1 (the
+        # mesh step realises every spec): held to (j)
+        cfg = get_config("llama4_scout_17b_a16e").scaled(
+            layers=LLAMA4_LAYERS, perf_flags=("moe_a2a",))
+        say(f"[multi] (f) {layout_line(cfg, mesh)}")
+        same_as_one_card("(f)", llama4, llama4_ref, "13 (j)")
+        t0 = time.perf_counter()
+        llama3 = phase_multi_llama3(mesh, llama3_ref)
+        say(f"[multi] (e) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        keys = phase_multi_keys(gen)
+        say(f"[multi] (g) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serve = phase_serve("kimi_k2_1t_a32b", NEW_KW, NEW_LENS, layers=1,
                         padded=True)
@@ -5225,7 +5431,7 @@ def phase_multi(gen, llama4_ref: dict, kimi_tokens) -> tuple:
         raise AssertionError("padded storage changed kimi-k2's tokens")
     tdist.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)
-    return train, serve
+    return [llama4, llama3], serve, keys
 
 
 def main() -> int:
@@ -5303,18 +5509,21 @@ def main() -> int:
     errs["matmul_h100_batched"] = max(errs["matmul_h100_batched"], k1b_err)
     t1 = time.perf_counter()
     n_new = len(PATHS) + len(NEW_PATHS)
-    multi_train, multi_serve = phase_multi(gen, train_paths[4],
-                                           paths[n_new - 1]["tokens"])
+    multi_train, multi_serve, multi_rows = phase_multi(
+        gen, train_paths[4], train_paths[0], paths[n_new - 1]["tokens"])
+    for name, by_sig in multi_rows.items():
+        errs[name] = max([errs.get(name, 0.0)]
+                         + [r["err"] for r in by_sig.values()])
     multi_s = time.perf_counter() - t1
     say(f"[multi] phase {multi_s:.1f} s")
     t0 += multi_s
-    train = _group_shapes(train_paths + [multi_train], TRAIN_KERNELS)
+    train = _group_shapes(train_paths + multi_train, TRAIN_KERNELS)
     t1 = time.perf_counter()
     k4_rows = phase_train_k4(train_paths, gen)
     say(f"[train] (e) {time.perf_counter() - t1:.1f} s")
-    # phase 14's paths are main paths too: (c) among the training paths,
-    # (d) among the engine paths
-    train_paths.append(multi_train)
+    # phase 14's paths are main paths too: (c) and (e) among the training
+    # paths, (d) among the engine paths
+    train_paths.extend(multi_train)
     paths.append(multi_serve)
     # the training paths' signatures timed as phase 9 times a pick (K2b's
     # of 13 (a), K4's of phase 6 and 13 (e) keep their rows)

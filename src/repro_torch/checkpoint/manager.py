@@ -30,12 +30,14 @@ Guarantees, as in the JAX package:
   type (:func:`restore_like`).  numpy has no bf16, so a bf16 leaf raises.
 
 On more than one rank (``layout``: the saved tree's
-:class:`~repro_torch.distributed.sharding.Layout` over its mesh) rank 0
-writes the whole tree in the same format: a sharded leaf is gathered
-from every rank to rank 0, leaf by leaf, and the other ranks wait for
-the write of a synchronous save.  A restore reads on rank 0 (falling back past corrupt
-steps there) and scatters each rank its part of every sharded leaf; every
-rank takes part in a save or a restore, in the same order.
+:class:`~repro_torch.distributed.sharding.Layout` over its mesh: tensor-
+parallel, FSDP, ZeRO-1 and expert leaves alike) rank 0 writes the whole
+tree in the same format: a sharded leaf is gathered from every rank to
+rank 0 alone, leaf by leaf (``Layout.gather_leaf_to``), and the other
+ranks wait for the write of a synchronous save.  A restore reads on
+rank 0 (falling back past corrupt steps there) and scatters each rank
+its part of every sharded leaf; every rank takes part in a save or a
+restore, in the same order.
 """
 from __future__ import annotations
 
@@ -186,7 +188,7 @@ class CheckpointManager:
         flat = {}
         for path, leaf in _items(tree):
             if self.layout.sharded(path):
-                leaf = self.layout.gather_leaf(path, leaf)
+                leaf = self.layout.gather_leaf_to(path, leaf)
             if self.writer:
                 flat[_name(path)] = _to_numpy(leaf)
         return flat

@@ -17,8 +17,9 @@ tuple of the entries the JAX module's ``PartitionSpec`` holds (None, an
 axis name, or a tuple of names) and :func:`shardings_for` returns a tree of
 them.  :func:`local_shard` and :func:`gather_shard` realise a spec
 on a rank: the rank's slice of a whole tensor, and the whole tensor back
-from every rank's slice.  Which specs the port realises is
-:mod:`repro_torch.launch.specs`'s business.
+from every rank's slice; a :class:`Layout` holds a state tree's specs,
+and the leaves a layer gathers whole before use (FSDP).  Which spec each
+leaf takes is :mod:`repro_torch.launch.specs`'s business.
 """
 from __future__ import annotations
 
@@ -152,21 +153,24 @@ def zero1_shardings(param_specs: PyTree, params_tree: PyTree, mesh
 # Current-mesh registry
 # ---------------------------------------------------------------------------
 
-_CURRENT: Dict[str, Any] = {"mesh": None, "rules": None}
+_CURRENT: Dict[str, Any] = {"mesh": None, "rules": None, "layout": None}
 
 
 class use_mesh_rules:
-    """Context manager installing (mesh, rules): the model reads the mesh
-    to take the ``moe_a2a`` schedule."""
+    """Context manager installing (mesh, rules[, layout]): the model reads
+    the mesh to take the ``moe_a2a`` schedule and its ``model`` group, and
+    the parameters' :class:`Layout` to gather its FSDP leaves."""
 
-    def __init__(self, mesh, rules: Optional[Mapping] = None):
-        self.mesh, self.rules = mesh, rules
+    def __init__(self, mesh, rules: Optional[Mapping] = None,
+                 layout: Optional["Layout"] = None):
+        self.mesh, self.rules, self.layout = mesh, rules, layout
         self._saved = None
 
     def __enter__(self):
         self._saved = dict(_CURRENT)
         _CURRENT["mesh"] = self.mesh
         _CURRENT["rules"] = self.rules
+        _CURRENT["layout"] = self.layout
         return self
 
     def __exit__(self, *exc):
@@ -182,12 +186,17 @@ def current_rules() -> Optional[Mapping[str, MeshAxes]]:
     return _CURRENT["rules"]
 
 
+def current_layout() -> Optional["Layout"]:
+    return _CURRENT["layout"]
+
+
 def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]
               ) -> torch.Tensor:
     """The identity.  In the JAX package this is a layout hint to GSPMD
     (``with_sharding_constraint``); the port has no compiler that
     partitions a program, so a hint has nothing to act on: every layout
-    the port runs is realised by hand (:func:`local_shard`)."""
+    the port runs is realised by hand (:func:`local_shard`, the model's
+    tensor-parallel layers, :func:`gather_for_use`)."""
     return x
 
 
@@ -199,6 +208,17 @@ def entry_axes(entry: MeshAxes) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of a rank's part of a leaf of ``shape`` under ``spec``
+    (a dim that does not divide is padded up, as :func:`local_shard`
+    pads it)."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        n = mesh.axis_size(entry_axes(entry))
+        out[dim] = -(-out[dim] // n)
+    return tuple(out)
 
 
 def local_shard(x: torch.Tensor, spec: Spec, mesh,
@@ -248,6 +268,33 @@ def gather_shard(x: torch.Tensor, spec: Spec, mesh,
     return out
 
 
+def gather_to(x: torch.Tensor, spec: Spec, mesh, shape: Sequence[int],
+              dst: int = 0) -> Optional[torch.Tensor]:
+    """The whole tensor on rank ``dst`` (None on the others) from every
+    rank's part under ``spec``: one ``gather`` over the mesh's ranks, each
+    part put at its block, cut back to ``shape`` where
+    :func:`local_shard` padded.  Only ``dst`` holds more than its part."""
+    x = x.contiguous()
+    parts = ([torch.empty_like(x) for _ in range(mesh.size)]
+             if mesh.rank == dst else None)
+    dist.gather(x, parts, dst=dst, group=mesh.world)
+    if parts is None:
+        return None
+    out = x.new_empty([n * mesh.axis_size(entry_axes(spec[d]))
+                       if d < len(spec) else n
+                       for d, n in enumerate(x.shape)])
+    for r, part in enumerate(parts):
+        view = out
+        for d, entry in enumerate(spec):
+            i = mesh.axis_index(entry_axes(entry), r)
+            view = view.narrow(d, i * x.shape[d], x.shape[d])
+        view.copy_(part)
+    for d, n in enumerate(shape):
+        if out.shape[d] != n:
+            out = out.narrow(d, 0, n)
+    return out.contiguous()
+
+
 def tree_items(tree: PyTree, path: Tuple = ()):
     """(path, leaf) pairs of a tree of dicts, lists and tuples, in
     ``jax.tree_util``'s order (dict keys sorted)."""
@@ -272,15 +319,38 @@ def tree_rebuild(tree: PyTree, fn, path: Tuple = ()) -> PyTree:
 
 
 class Layout:
-    """How a state tree lies on a mesh: the spec and the whole shape of
-    each leaf, by its path (:func:`tree_items`)."""
+    """How a state tree lies on a mesh: the spec, the whole shape and the
+    element size of each leaf, by its path (:func:`tree_items`), and for
+    each leaf a layer gathers whole before use (FSDP) the dims it gathers
+    and their axes (``gathered``)."""
 
     def __init__(self, mesh, specs: Dict[Tuple, Spec],
-                 shapes: Dict[Tuple, Tuple[int, ...]]):
+                 shapes: Dict[Tuple, Tuple[int, ...]],
+                 itemsizes: Optional[Dict[Tuple, int]] = None,
+                 gathered: Optional[Dict[Tuple, Tuple]] = None):
         self.mesh, self.specs, self.shapes = mesh, specs, shapes
+        self.itemsizes = itemsizes or {}
+        self.gathered = gathered or {}
 
     def spec(self, path: Tuple) -> Spec:
         return self.specs[path]
+
+    def part(self, i: int) -> "Layout":
+        """The layout of element ``i`` of a tuple tree, its paths without
+        the index."""
+        def sub(d):
+            return {p[1:]: v for p, v in d.items() if p[0] == i}
+        return Layout(self.mesh, sub(self.specs), sub(self.shapes),
+                      sub(self.itemsizes), sub(self.gathered))
+
+    def shard_shape(self, path: Tuple) -> Tuple[int, ...]:
+        return shard_shape(self.shapes[path], self.specs[path], self.mesh)
+
+    def rank_bytes(self) -> int:
+        """The bytes each rank holds: every leaf's part (the parts of one
+        leaf have one shape on every rank)."""
+        return sum(int(np.prod(self.shard_shape(p))) * self.itemsizes[p]
+                   for p in self.specs)
 
     def sharded(self, path: Tuple) -> bool:
         return any(self.mesh.axis_size(entry_axes(e)) > 1
@@ -296,6 +366,37 @@ class Layout:
         return gather_shard(x, self.specs[path], self.mesh,
                             self.shapes[path])
 
+    def gather_leaf_to(self, path: Tuple, x: torch.Tensor,
+                       dst: int = 0) -> Optional[torch.Tensor]:
+        """The whole leaf on rank ``dst``, None on the others
+        (collective)."""
+        return gather_to(x, self.specs[path], self.mesh, self.shapes[path],
+                         dst)
+
     def gather(self, tree: PyTree) -> PyTree:
         """The whole tree from every rank's parts (collective)."""
         return tree_rebuild(tree, self.gather_leaf)
+
+    def zeros(self, tree: PyTree, device) -> PyTree:
+        """This rank's parts of a tree of zeros with ``tree``'s leaves'
+        whole shapes and types (``tree`` on ``meta``: an optimizer's
+        initial state)."""
+        return tree_rebuild(tree, lambda path, x: torch.zeros(
+            self.shard_shape(path), dtype=x.dtype, device=device))
+
+
+def gather_for_use(tree: PyTree, layout: Layout, prefix: Tuple = (),
+                   lead: int = 0) -> PyTree:
+    """``tree`` (the subtree of the parameters at ``prefix``; with
+    ``lead`` leading dims dropped from its leaves: a layer's views of the
+    stacked leaves) with each FSDP leaf gathered whole along its
+    batch-axis entries (:func:`~repro_torch.distributed.comm.gather`, whose
+    backward reduce-scatters the gradient); the other leaves as they
+    are."""
+    from .comm import gather
+
+    def one(path, x):
+        for dim, axes in layout.gathered.get(prefix + path, ()):
+            x = gather(x, dim - lead, layout.mesh.group(axes))
+        return x
+    return tree_rebuild(tree, one)

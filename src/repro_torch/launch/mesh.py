@@ -44,6 +44,7 @@ class Mesh:
         self.abstract = abstract
         self.backend = backend
         self._groups: Dict[Axes, object] = {}
+        self._by_ranks: Dict[Tuple[int, ...], object] = {}
         self.rank = 0
         if abstract:
             return
@@ -104,7 +105,10 @@ class Mesh:
         """This rank's process group over ``axes`` (their ranks in
         :meth:`ranks_along`'s order, which must be ascending: the axes in
         mesh order).  The first call for a set of axes is collective: every
-        rank builds every group of the set, in one order."""
+        rank builds every group of the set, in one order.  Sets of axes
+        over the same ranks share one group (on a mesh of one rank, all of
+        them): NCCL gives each group a communicator and its buffers on the
+        card."""
         axes = tuple(axes)
         if self.abstract:
             raise RuntimeError(f"{self!r} has no process groups")
@@ -120,7 +124,10 @@ class Mesh:
                 if ranks in seen:
                     continue
                 seen.add(ranks)
-                g = dist.new_group(list(ranks), backend=self.backend)
+                g = self._by_ranks.get(ranks)
+                if g is None:
+                    g = dist.new_group(list(ranks), backend=self.backend)
+                    self._by_ranks[ranks] = g
                 if self.rank in ranks:
                     mine = g
             self._groups[axes] = mine

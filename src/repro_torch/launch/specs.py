@@ -12,12 +12,16 @@ trees: :func:`state_shardings` (parameters by their logical axes,
 ZeRO-1), :func:`train_batch_specs`, :func:`cache_specs` and
 :func:`default_microbatches`.  They equal the JAX specs leaf for leaf.
 
-What this slice realises on the ranks (:func:`state_layout`) is less: the
-batch's rows by :func:`train_batch_specs`, and the expert stacks of a
-``moe_a2a`` config over the all-to-all's group, as the JAX schedule's
-``shard_map`` takes them (:func:`expert_spec`).  Every other leaf is
-replicated on every rank: tensor parallelism over ``model``, FSDP over
-``embed`` and ZeRO-1 are computed here and realised in the next slice.
+What the ranks hold (:func:`state_layout`) is the JAX layout itself:
+each parameter by its spec (tensor parallelism over ``model``, FSDP of
+``embed`` over the batch axes for :data:`~repro_torch.distributed.
+sharding.FSDP_ARCHS`), each optimizer-state leaf by its ZeRO-1 spec, the
+batch's rows by :func:`train_batch_specs`.  The one exception is the
+expert stacks of a ``moe_a2a`` config, held over the all-to-all's group
+as the JAX schedule's ``shard_map`` takes them (:func:`expert_spec`);
+the JAX rules would put llama4-scout's experts over ``data`` and their
+``ff`` over ``model``.  :func:`rank_state` builds a rank's state leaf by
+leaf, never the whole tree.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..distributed import sharding as dist
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.moe_a2a import a2a_active, a2a_axes
@@ -281,16 +286,80 @@ def _is_expert(path: Tuple) -> bool:
             and path[path.index("moe") + 1] in ("wi", "wg", "wo"))
 
 
-def state_layout(cfg: ModelConfig, mesh, tree: PyTree) -> dist.Layout:
-    """The layout of a whole state ``tree`` (parameters, optimizer state,
-    or a tuple of both; on ``meta`` or not) that this slice realises:
-    under the ``moe_a2a`` schedule the expert stacks and their optimizer
-    state by :func:`expert_spec` (padded to a multiple of the group where
-    E does not divide), every other leaf replicated."""
-    a2a = a2a_active(cfg, mesh)
-    specs, shapes = {}, {}
-    for path, leaf in dist.tree_items(tree):
-        specs[path] = expert_spec(mesh) if a2a and _is_expert(path) else ()
-        shapes[path] = tuple(leaf.shape)
-    return dist.Layout(mesh, specs, shapes)
+def _spec_items(tree: PyTree, path: Tuple = ()):
+    """(path, spec) pairs of a spec tree (dicts whose leaves are specs)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_items(tree[k], path + (k,))
+    else:
+        yield path, tree
 
+
+def update_spec(cfg: ModelConfig, mesh, path: Tuple, spec, shape
+                ) -> Tuple:
+    """The spec of the slice of a parameter (at ``path``, held by
+    ``spec``) a rank updates under ZeRO-1: ``spec`` extended over the batch
+    axes, as its AdamW moments are; an expert stack of a ``moe_a2a``
+    config as it is held."""
+    if a2a_active(cfg, mesh) and _is_expert(path):
+        return tuple(spec)
+    return _zero1_one(tuple(spec), tuple(shape), mesh)
+
+
+def state_layout(cfg: ModelConfig, mesh, params: PyTree,
+                 opt_state: Optional[PyTree] = None) -> dist.Layout:
+    """The layout of a whole state (on ``meta`` or not): of ``params``
+    alone, or of the tuple ``(params, opt_state)``.  Parameters take
+    :func:`state_shardings`' specs and optimizer-state leaves its ZeRO-1
+    specs, but for a ``moe_a2a`` config's expert stacks and their state,
+    held by :func:`expert_spec` (padded to a multiple of the group where E
+    does not divide).  ``gathered`` lists the FSDP entries (over the batch
+    axes, of more than one rank) of each parameter but those experts."""
+    a2a = a2a_active(cfg, mesh)
+    p_sh, o_sh, _ = state_shardings(cfg, mesh, params, param_axes(cfg),
+                                    opt_state)
+    if opt_state is None:
+        tree, trees = params, {(): p_sh}
+    else:
+        tree, trees = (params, opt_state), {(0,): p_sh, (1,): o_sh}
+    specs, gathered = {}, {}
+    batch = set(dist.batch_axes(mesh))
+    for prefix, sh in trees.items():
+        for path, spec in _spec_items(sh):
+            expert = a2a and _is_expert(path)
+            specs[prefix + path] = expert_spec(mesh) if expert else spec
+            entries = tuple((dim, dist.entry_axes(e)) for dim, e in
+                            enumerate(spec) if dist.entry_axes(e)
+                            and set(dist.entry_axes(e)) <= batch
+                            and mesh.axis_size(dist.entry_axes(e)) > 1)
+            if prefix in ((), (0,)) and entries and not expert:
+                gathered[prefix + path] = entries
+    items = list(dist.tree_items(tree))
+    return dist.Layout(mesh, specs,
+                       {path: tuple(leaf.shape) for path, leaf in items},
+                       {path: leaf.element_size() for path, leaf in items},
+                       gathered)
+
+
+def rank_state(cfg: ModelConfig, mesh, optimizer: Optimizer, *,
+               seed: int = 0, device=None
+               ) -> Tuple[PyTree, PyTree, dist.Layout]:
+    """(this rank's parameters, its optimizer state, the layout of both):
+    each parameter leaf built whole from the seed (the generator's draws
+    of :func:`~repro_torch.models.init_train_state`, in its order), the
+    rank's part kept and the whole freed before the next leaf, so the
+    peak is the rank's state and one whole leaf a layer; the parameters
+    equal ``layout.shard(init_train_state(cfg, seed=seed))`` bit for bit.
+    The optimizer state is zeros (every optimizer's initial state) of the
+    rank's part of each leaf."""
+    p_meta, o_meta = abstract_state(cfg, optimizer)
+    layout = state_layout(cfg, mesh, p_meta, o_meta)
+    params_lay = layout.part(0)
+
+    def keep(path, x, lead):
+        spec = params_lay.spec(path)[lead:]
+        return dist.local_shard(x, spec, mesh)
+
+    dev = resolve_device(device)
+    params = init_train_state(cfg, seed=seed, device=dev, keep=keep)
+    return params, layout.part(1).zeros(o_meta, dev), layout

@@ -33,8 +33,12 @@ Under torchrun (``RANK`` and ``WORLD_SIZE`` in the environment) it starts
 the process group (NCCL on the cards, gloo with ``--device cpu``) and
 builds ``make_host_mesh()``, as the JAX launcher builds its mesh over the
 devices there are, and runs the step over it (``build_train_step(...,
-mesh=)``): the batch's rows over ``data``, a ``moe_a2a`` config's experts
-over the ranks (the flag comes from the config, as in the JAX launcher).
+mesh=)``) on the JAX launcher's layout (``launch.specs.state_layout``):
+the batch's rows over ``data``, FSDP of ``embed`` over the ranks for
+chameleon-34b, llama4-scout and kimi-k2, ZeRO-1 of the optimizer state, a
+``moe_a2a`` config's experts over the ranks (the flag comes from the
+config, as in the JAX launcher).  Each rank builds its part of the state
+leaf by leaf (``launch.specs.rank_state``: one whole leaf at a time).
 Rank 0 alone prints and writes checkpoints (the whole tree, gathered)::
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
@@ -56,7 +60,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import init_distributed, make_host_mesh
-from repro_torch.launch.specs import grad_dtype_for, state_layout
+from repro_torch.launch.specs import grad_dtype_for, rank_state
 from repro_torch.models import init_train_state
 from repro_torch.optim import make_optimizer, warmup_cosine
 from repro_torch.runtime import (TrainController, build_train_step,
@@ -103,12 +107,13 @@ def main(argv=None) -> None:
                          warmup_cosine(args.lr, 10, args.steps))
     step_fn = build_train_step(cfg, opt, microbatches=args.microbatches,
                                grad_dtype=grad_dtype_for(cfg), mesh=mesh)
-    params = init_train_state(cfg, seed=args.seed, device=dev)
-    opt_state = opt.init(params)
     layout = None
-    if mesh is not None:
-        layout = state_layout(cfg, mesh, (params, opt_state))
-        params, opt_state = layout.shard((params, opt_state))
+    if mesh is None:
+        params = init_train_state(cfg, seed=args.seed, device=dev)
+        opt_state = opt.init(params)
+    else:
+        params, opt_state, layout = rank_state(cfg, mesh, opt,
+                                               seed=args.seed, device=dev)
     warm_train_dispatch(cfg, global_batch=args.global_batch,
                         seq=args.seq_len, microbatches=args.microbatches,
                         mesh=mesh)

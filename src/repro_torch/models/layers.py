@@ -15,6 +15,20 @@ The layers of the ported blocks (``attn_mlp``, ``attn_moe``, ``ssm``,
 (self- and cross-attention; no cache, the non-paged cache with its ring,
 and the paged pool), the Mamba-2 SSD block, the SwiGLU MLP, embed and
 unembed.
+
+Tensor parallelism over the current mesh's ``model`` axis (the training
+forward of a mesh step) is read off each leaf: a weight whose column dim
+(``q_proj``, ``kv_proj``, ``ff``, ``vocab``) is a ``1 / model`` part of
+the config's is the rank's columns, as its spec shards it.  Attention's
+``wq``, ``wk``, ``wv`` (and qwen's biases) and the MLP's ``wi``, ``wg``
+are then column-parallel and ``wo`` row-parallel, with one all-reduce of
+the output over ``model``; ``embed`` looks up the rows the rank holds and
+all-reduces, ``unembed`` gives the rank's vocab columns.  The rank
+computes the heads its ``wo`` rows need (:func:`tp_heads`); where its
+columns do not hold whole heads and their KV heads, the projections'
+outputs are gathered over ``model`` first.  The collectives are
+:mod:`repro_torch.distributed.comm`'s Megatron pair, so every rank along
+``model`` backpropagates the one loss they compute together.
 """
 from __future__ import annotations
 
@@ -23,6 +37,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as dist
+from ..distributed.comm import copy_to, gather, reduce_from
 from ..kernels import ops
 from ..kernels.autograd import AttentionFn, MatmulFn, SsdScanFn
 from .config import ModelConfig
@@ -171,6 +187,93 @@ def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            window=cfg.window)
 
 
+def model_split(w: torch.Tensor, dim: int, whole: int) -> int:
+    """How many ranks of the current mesh's ``model`` axis share ``w``'s
+    ``dim``, whose whole size is ``whole``: 1 where the leaf is whole;
+    raises where its part is not ``1 / model`` of it."""
+    n = w.shape[dim]
+    if n == whole:
+        return 1
+    mesh = dist.current_mesh()
+    t = mesh.shape.get("model", 1) if mesh is not None else 1
+    if t == 1 or n * t != whole:
+        raise ValueError(f"a leaf of {n} columns of {whole} on a mesh of "
+                         f"model {t}: not its spec's part")
+    return t
+
+
+def tp_heads(cfg: ModelConfig, t: int, j: int) -> Dict[str, int]:
+    """The attention heads rank ``j`` of ``t`` along ``model`` computes:
+    its ``wo`` rows are the ``q_proj`` columns [c0, c1), which the query
+    heads [h0, h1) cover, over the KV heads [k0, k1) they read.  ``group``
+    is the query heads a KV head in K2's launch: their GQA group when the
+    rank's heads map onto its KV heads as K2 maps them (head i to KV head
+    i // group), else 1, the KV heads then repeated for each query head."""
+    nq = cfg.heads * cfg.hd // t
+    c0, c1 = j * nq, (j + 1) * nq
+    h0, h1 = c0 // cfg.hd, -(-c1 // cfg.hd)
+    g = cfg.heads // cfg.kv_heads
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    h, hk = h1 - h0, k1 - k0
+    group = h // hk if h % hk == 0 and all(
+        (h0 + i) // g - k0 == i // (h // hk) for i in range(h)) else 1
+    return {"c0": c0, "c1": c1, "h0": h0, "h1": h1, "k0": k0, "k1": k1,
+            "group": group}
+
+
+def _tp_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, t: int,
+                  *, positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    """:func:`attention` without a cache over ``model`` ranks: each
+    column-parallel projection of ``copy_to(x)`` gives the rank's columns
+    (a weight whose ``kv_proj`` does not divide is whole, and enters
+    through ``copy_to`` too: the rank reads only some of its heads); the
+    columns of the heads :func:`tp_heads` names come from the rank's own
+    where it holds them, else from the projection's output gathered over
+    ``model``; the output columns of its ``wo`` rows go through ``wo`` and
+    one all-reduce (``reduce_from``)."""
+    B, Sq, _ = x.shape
+    hd = cfg.hd
+    mesh = dist.current_mesh()
+    group = mesh.group(("model",))
+    plan = tp_heads(cfg, t, mesh.coords()["model"])
+    xin = copy_to(x, group)
+
+    def column(wname: str, bname: str, whole: int, lo: int, hi: int
+               ) -> torch.Tensor:
+        w, b = p[wname], p.get(bname) if cfg.qkv_bias else None
+        if model_split(w, 1, whole) == 1:
+            w = copy_to(w, group)
+            b = copy_to(b, group) if b is not None else None
+            c0 = 0
+        else:
+            c0 = mesh.coords()["model"] * w.shape[1]
+        y = proj(xin, w)
+        if b is not None:
+            y = y + b.to(x.dtype)
+        if not (c0 <= lo and hi <= c0 + y.shape[-1]):
+            y, c0 = gather(y, -1, group), 0
+        return y[..., lo - c0:hi - c0]
+
+    h0, h1, k0, k1 = plan["h0"], plan["h1"], plan["k0"], plan["k1"]
+    nq, nk = cfg.heads * hd, cfg.kv_heads * hd
+    q = column("wq", "bq", nq, h0 * hd, h1 * hd).reshape(B, Sq, h1 - h0, hd)
+    k = column("wk", "bk", nk, k0 * hd, k1 * hd).reshape(B, Sq, k1 - k0, hd)
+    v = column("wv", "bv", nk, k0 * hd, k1 * hd).reshape(B, Sq, k1 - k0, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if plan["group"] == 1 and k1 - k0 != h1 - h0:
+        g = cfg.heads // cfg.kv_heads
+        idx = torch.tensor([(h0 + i) // g - k0 for i in range(h1 - h0)],
+                           device=x.device)
+        k, v = k[:, :, idx], v[:, :, idx]
+    out = _rows_attention(q, k, v.contiguous(), _full(B, Sq, x.device),
+                          causal=causal, window=cfg.window)
+    lo = plan["c0"] - h0 * hd
+    out = out.reshape(B, Sq, (h1 - h0) * hd)[..., lo:lo + plan["c1"]
+                                             - plan["c0"]]
+    return reduce_from(proj(out, p["wo"]), group)
+
+
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor,
               cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -205,6 +308,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     positions never enter an attention.  Every index stays on the device."""
     B, Sq, d = x.shape
     nh, nk, hd = cfg.heads, cfg.kv_heads, cfg.hd
+    t = model_split(p["wq"], 1, nh * hd)
+    if t > 1:
+        if cache is not None or context is not None \
+                or precomputed_kv is not None or return_kv:
+            raise NotImplementedError(
+                "tensor parallelism covers self-attention without a cache "
+                "(the training forward)")
+        return _tp_attention(p, x, cfg, t, positions=positions,
+                             causal=causal)
     q = proj(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
@@ -298,15 +410,40 @@ def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # SwiGLU MLP, embedding
 # ---------------------------------------------------------------------------
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, d_ff: int) -> torch.Tensor:
+    """SwiGLU; where ``wi`` holds the rank's columns of ``d_ff`` (the
+    config's), ``wi`` and ``wg`` column-parallel and ``wo`` row-parallel
+    over the mesh's ``model`` axis."""
+    group = None
+    if model_split(p["wi"], 1, d_ff) > 1:
+        group = dist.current_mesh().group(("model",))
+        x = copy_to(x, group)
     h = proj(x, p["wi"])
     g = proj(x, p["wg"])
-    return proj(F.silu(g) * h, p["wo"])
+    y = proj(F.silu(g) * h, p["wo"])
+    return y if group is None else reduce_from(y, group)
 
 
-def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return p["tok"][tokens].to(dtype)
+def embed(p: Params, tokens: torch.Tensor, dtype: torch.dtype,
+          vocab: int) -> torch.Tensor:
+    """Token rows; where ``tok`` holds the rank's rows of ``vocab`` (the
+    config's), vocab-parallel: the rank looks up the tokens it holds,
+    zeroes the others, and the ranks along ``model`` all-reduce."""
+    tok = p["tok"]
+    if model_split(tok, 0, vocab) == 1:
+        return tok[tokens].to(dtype)
+    mesh = dist.current_mesh()
+    local = tokens - mesh.coords()["model"] * tok.shape[0]
+    held = (local >= 0) & (local < tok.shape[0])
+    rows = tok[torch.where(held, local, 0)] * held[..., None]
+    return reduce_from(rows.to(dtype), mesh.group(("model",)))
 
 
-def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return proj(x, p["out"])
+def unembed(p: Params, x: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Logits; where ``out`` holds the rank's columns of ``vocab`` (the
+    config's), the rank's vocab columns (the loss is then vocab-parallel:
+    ``runtime.steps.cross_entropy``)."""
+    out = p["out"]
+    if model_split(out, 1, vocab) > 1:
+        x = copy_to(x, dist.current_mesh().group(("model",)))
+    return proj(x, out)

@@ -23,11 +23,16 @@ The JAX module writes the expert-parallel schedule with ``shard_map`` and
   the activations outside the block stay the data shard's.
 
 Every collective is an autograd function whose backward is its adjoint
-(:mod:`repro_torch.distributed.comm`), and every one runs at every group
-size: at one rank the exchange still goes through the backend's
-all-to-all.  A mesh with a ``pod`` axis of more than one rank is refused:
-the JAX schedule replicates its groups over pods, which the next slice
-ports with the rest of the GSPMD layouts.
+(:mod:`repro_torch.distributed.comm`), and the exchange runs at every
+group size: at one rank it still goes through the backend's all-to-all.
+Ranks along ``model`` compute one loss together (the model's tensor
+parallelism), so there the block's input and router enter through
+``copy_to`` (each rank routes only its groups), the groups come back
+through ``reduce_from`` of the rank's rows in place, and the statistics
+sum over ``model`` through ``reduce_from`` before the data ranks' sum.
+
+A mesh with a ``pod`` axis of more than one rank is refused: the JAX
+schedule replicates its groups over pods (ROADMAP Queue 1 item 4c).
 """
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed import sharding as dist
-from ..distributed.comm import all_gather, all_reduce_sum, all_to_all
+from ..distributed.comm import (all_reduce_sum, all_to_all, copy_to,
+                                reduce_from)
 from .config import ModelConfig
 from .moe import (MOE_GROUP_SIZE, capacity, experts_swiglu, route,
                   router_logits)
@@ -94,10 +100,14 @@ def moe_block_a2a(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     G_l = G // n_dev
     C = capacity(gsz, E, k, m.capacity_factor)
     j = mesh.coords()["model"] if "model" in axes else 0
+    router = p["router"]
+    if n_model > 1:
+        mgroup = mesh.group(("model",))
+        x, router = copy_to(x, mgroup), copy_to(router, mgroup)
     xt = x.reshape(T_l, d)[j * G_l * gsz:(j + 1) * G_l * gsz].contiguous()
 
     dispatch, combine, probs, onehot = route(
-        router_logits(p["router"], xt).reshape(G_l, gsz, E), k, C)
+        router_logits(router, xt).reshape(G_l, gsz, E), k, C)
     xg = xt.reshape(G_l, gsz, d)
     xin = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
     if E_pad > E:                          # phantom experts: no tokens
@@ -113,12 +123,15 @@ def moe_block_a2a(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     out = all_to_all(out, group).reshape(E_pad, G_l, C, d)[:E]
     y = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype), out)
     y = y.reshape(G_l * gsz, d)
-    if n_model > 1:
-        y = all_gather(y, mesh.group(("model",)))
-
-    # load-balance stats: the group's means (pmean)
     stats = torch.stack([onehot[:, :, 0, :].mean(dim=(0, 1)),
                          probs.mean(dim=(0, 1))])
+    if n_model > 1:
+        rows = G_l * gsz
+        y = reduce_from(F.pad(y, (0, 0, j * rows, (n_model - 1 - j) * rows)),
+                        mgroup)
+        stats = reduce_from(stats, mgroup)
+        group = mesh.group(("data",))
+    # load-balance stats: the group's means (pmean)
     stats = all_reduce_sum(stats, group) / n_dev
     aux = E * (stats[0] * stats[1]).sum()
     return y.reshape(B, S, d), aux

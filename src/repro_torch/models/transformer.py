@@ -63,6 +63,29 @@ def check_train(cfg: ModelConfig) -> None:
                                   "is not ported: 'none' or 'full'")
 
 
+def check_mesh(cfg: ModelConfig, mesh) -> None:
+    """Raise for a config the mesh train step does not cover on ``mesh``:
+    the ``ssm`` and ``hybrid`` blocks and whisper's encoder-decoder on a
+    ``model`` axis of more than one rank (their tensor parallelism is
+    ROADMAP Queue 1 item 4c; they train on a data-only mesh), and an
+    ``attn_moe`` config on more than one rank without ``moe_a2a``."""
+    from .moe_a2a import a2a_active
+    t = mesh.shape.get("model", 1)
+    if t > 1 and (cfg.block in ("ssm", "hybrid") or cfg.encoder is not None):
+        raise NotImplementedError(
+            f"config {cfg.name} (block {cfg.block}"
+            f"{', encoder-decoder' if cfg.encoder is not None else ''}) on "
+            f"a mesh with model {t}: tensor parallelism of the SSM, hybrid "
+            "and whisper blocks is ROADMAP Queue 1 item 4c; a mesh with "
+            "model 1 trains them")
+    if cfg.block == "attn_moe" and not a2a_active(cfg, mesh) \
+            and mesh.size > 1:
+        raise NotImplementedError(
+            f"config {cfg.name} on {mesh.size} ranks needs perf flag "
+            "'moe_a2a': the dense MoE layer routes each rank's rows, the "
+            "JAX layer the whole batch's")
+
+
 def check_paged(cfg: ModelConfig) -> None:
     """Raise, as the JAX package does, for a config the paged serve path
     does not take: an encoder-decoder."""
@@ -108,10 +131,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 
 def _init(cfg: ModelConfig, seed: int, dev: torch.device,
-          wdt: torch.dtype) -> Params:
+          wdt: torch.dtype, keep=None) -> Params:
     """:func:`init_model`'s tree with matrices in ``wdt``; on the ``meta``
     device (no generator lives there) the leaves have shapes and types
-    only."""
+    only.  ``keep(path, leaf, lead)``, when given, replaces each leaf as
+    soon as it is built (``lead``: 1 for a layer's leaf, whose path is its
+    stacked leaf's, 0 otherwise), in the generator's order."""
     g = None
     if dev.type != "meta":
         g = torch.Generator(device=dev)
@@ -128,58 +153,84 @@ def _init(cfg: ModelConfig, seed: int, dev: torch.device,
         return {"scale": torch.ones(cfg.d_model, dtype=torch.float32,
                                     device=dev)}
 
+    def kept(path, x, lead=1):
+        return x if keep is None else keep(path, x, lead)
+
     d, f, nh, nk, hd = cfg.d_model, cfg.d_ff, cfg.heads, cfg.kv_heads, cfg.hd
 
-    def attention():
-        attn = {"wq": mat(d, nh * hd), "wk": mat(d, nk * hd),
-                "wv": mat(d, nk * hd), "wo": mat(nh * hd, d)}
+    # each dict's values are built in order, so a leaf is kept before the
+    # next one is drawn
+    def attention(pre):
+        attn = {"wq": kept(pre + ("wq",), mat(d, nh * hd)),
+                "wk": kept(pre + ("wk",), mat(d, nk * hd)),
+                "wv": kept(pre + ("wv",), mat(d, nk * hd)),
+                "wo": kept(pre + ("wo",), mat(nh * hd, d))}
         if cfg.qkv_bias:
             for name, n in (("bq", nh * hd), ("bk", nk * hd),
                             ("bv", nk * hd)):
-                attn[name] = torch.zeros(n, dtype=torch.float32, device=dev)
+                attn[name] = kept(pre + (name,), torch.zeros(
+                    n, dtype=torch.float32, device=dev))
         return attn
 
-    def layer(cross: bool) -> Params:
+    def norm_at(path, lead=1):
+        return {"scale": kept(path + ("scale",), norm()["scale"], lead)}
+
+    def layer(key: str, cross: bool) -> Params:
         lp: Params = {}
         if has_attn(cfg):
-            lp["ln1"], lp["attn"] = norm(), attention()
+            lp["ln1"] = norm_at((key, "ln1"))
+            lp["attn"] = attention((key, "attn"))
         if has_ssm(cfg):
             s = cfg.ssm
             di = s.heads * s.head_dim
-            lp["lns"] = norm()
+            sp = (key, "ssm")
+            lp["lns"] = norm_at((key, "lns"))
             lp["ssm"] = {
-                "wx": mat(d, di), "wb": mat(d, s.state), "wc": mat(d, s.state),
-                "wa": mat(d, s.heads, scale=0.1 / math.sqrt(d),
-                          dtype=torch.float32),
-                "wo": mat(di, d),
-                "a_bias": torch.full((s.heads,), 2.0, dtype=torch.float32,
-                                     device=dev)}
+                "wx": kept(sp + ("wx",), mat(d, di)),
+                "wb": kept(sp + ("wb",), mat(d, s.state)),
+                "wc": kept(sp + ("wc",), mat(d, s.state)),
+                "wa": kept(sp + ("wa",), mat(d, s.heads,
+                                             scale=0.1 / math.sqrt(d),
+                                             dtype=torch.float32)),
+                "wo": kept(sp + ("wo",), mat(di, d)),
+                "a_bias": kept(sp + ("a_bias",), torch.full(
+                    (s.heads,), 2.0, dtype=torch.float32, device=dev))}
         if cross:
-            lp["lnx"], lp["xattn"] = norm(), attention()
+            lp["lnx"] = norm_at((key, "lnx"))
+            lp["xattn"] = attention((key, "xattn"))
         if has_mlp(cfg):
-            lp["ln2"] = norm()
-            lp["mlp"] = {"wi": mat(d, f), "wg": mat(d, f), "wo": mat(f, d)}
+            mp = (key, "mlp")
+            lp["ln2"] = norm_at((key, "ln2"))
+            lp["mlp"] = {"wi": kept(mp + ("wi",), mat(d, f)),
+                         "wg": kept(mp + ("wg",), mat(d, f)),
+                         "wo": kept(mp + ("wo",), mat(f, d))}
         if cfg.block == "attn_moe":
             E, fe = cfg.moe.num_experts, cfg.moe.d_ff_expert
-            lp["ln2"] = norm()
+            mp = (key, "moe")
+            lp["ln2"] = norm_at((key, "ln2"))
             Es = a2a_padded_experts(cfg)
-            lp["moe"] = {"router": mat(d, E),
-                         "wi": mat(Es, d, fe, scale=1 / math.sqrt(d)),
-                         "wg": mat(Es, d, fe, scale=1 / math.sqrt(d)),
-                         "wo": mat(Es, fe, d, scale=1 / math.sqrt(fe))}
+            lp["moe"] = {
+                "router": kept(mp + ("router",), mat(d, E)),
+                "wi": kept(mp + ("wi",), mat(Es, d, fe,
+                                             scale=1 / math.sqrt(d))),
+                "wg": kept(mp + ("wg",), mat(Es, d, fe,
+                                             scale=1 / math.sqrt(d))),
+                "wo": kept(mp + ("wo",), mat(Es, fe, d,
+                                             scale=1 / math.sqrt(fe)))}
         return lp
 
     cross = cfg.encoder is not None
-    params = {"embed": {"tok": mat(cfg.vocab, d, scale=0.02),
-                        "out": mat(d, cfg.vocab)},
-              "layers": [layer(cross) for _ in range(cfg.layers)],
-              "ln_f": norm()}
+    params = {"embed": {"tok": kept(("embed", "tok"),
+                                    mat(cfg.vocab, d, scale=0.02), 0),
+                        "out": kept(("embed", "out"), mat(d, cfg.vocab), 0)},
+              "layers": [layer("layers", cross) for _ in range(cfg.layers)],
+              "ln_f": norm_at(("ln_f",), 0)}
     if cross:
         # encoder blocks share the decoder backbone's dims, without
         # cross-attention
-        params["enc_layers"] = [layer(False)
+        params["enc_layers"] = [layer("enc_layers", False)
                                 for _ in range(cfg.encoder.layers)]
-        params["enc_ln_f"] = norm()
+        params["enc_ln_f"] = norm_at(("enc_ln_f",), 0)
     return params
 
 
@@ -193,17 +244,20 @@ def stack_layers(layers: list) -> Params:
 
 
 def init_train_state(cfg: ModelConfig, *, seed: int = 0,
-                     device: DeviceLike = None) -> Params:
+                     device: DeviceLike = None, keep=None) -> Params:
     """Training parameters from a seed: :func:`init_model`'s distributions
     in the JAX package's training layout, every leaf in ``param_dtype``
     (f32 masters) and ``layers`` / ``enc_layers`` stacked [L, ...], so the
     optimizer, the global norm and checkpoint names match the JAX tree's
     leaf for leaf.  ``device="meta"`` gives shapes only (no allocation).
     Any config has a state; a train step refuses the configs the port does
-    not train (:func:`check_train`)."""
+    not train (:func:`check_train`).  ``keep(path, leaf, lead)`` replaces
+    each leaf as it is built, before the next one is drawn (a rank's part:
+    ``launch.specs.rank_state``); ``lead`` is 1 for a layer's leaf, 0 for
+    the others, and ``path`` the stacked leaf's."""
     check_block(cfg)
     params = _init(cfg, seed, resolve_device(device),
-                   torch_dtype(cfg.param_dtype))
+                   torch_dtype(cfg.param_dtype), keep)
     for key in ("layers", "enc_layers"):
         if key in params:
             params[key] = stack_layers(params[key])
@@ -295,7 +349,8 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
             lp["moe"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps), cfg)
         x = x + y
     elif "mlp" in lp:
-        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps))
+        x = x + L.mlp(lp["mlp"], L.rmsnorm(lp["ln2"], x, cfg.norm_eps),
+                      cfg.d_ff)
     return x, aux
 
 
@@ -322,15 +377,35 @@ def _moe_fn(cfg: ModelConfig, x: torch.Tensor):
     return moe_block
 
 
-def _remat(cfg: ModelConfig, lp: Params, x: torch.Tensor, **kw):
-    """:func:`_block` of a full-sequence forward; under ``remat="full"``,
+def _used(tree: Params, prefix: Tuple, lead: int = 0) -> Params:
+    """``tree`` (the parameters' subtree at ``prefix``) as a layer uses
+    it: under a mesh step's layout each FSDP leaf gathered whole along its
+    batch-axis entries (``distributed.sharding.gather_for_use``), every
+    other leaf as it is."""
+    from ..distributed import sharding as dist
+    layout = dist.current_layout()
+    if layout is None or not layout.gathered:
+        return tree
+    return dist.gather_for_use(tree, layout, prefix, lead)
+
+
+def _layer(lp: Params, x: torch.Tensor, cfg: ModelConfig, key: str, **kw):
+    """:func:`_block` of layer views ``lp`` of the stack at ``key``, its
+    FSDP leaves gathered first (:func:`_used`)."""
+    return _block(_used(lp, (key,), 1), x, cfg, **kw)
+
+
+def _remat(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+           key: str = "layers", **kw):
+    """:func:`_layer` of a full-sequence forward; under ``remat="full"``,
     while autograd records, through ``torch.utils.checkpoint``: the block's
     activations are dropped and recomputed (the same kernel launches) in
-    the backward, as ``jax.checkpoint`` does."""
+    the backward, as ``jax.checkpoint`` does, and so are the layer's FSDP
+    gathers: one layer's leaves are whole at a time."""
     if cfg.remat == "full" and L.recording(x, *tree_leaves(lp)):
         return torch.utils.checkpoint.checkpoint(
-            _block, lp, x, cfg, use_reentrant=False, **kw)
-    return _block(lp, x, cfg, **kw)
+            _layer, lp, x, cfg, key, use_reentrant=False, **kw)
+    return _layer(lp, x, cfg, key, **kw)
 
 
 def _as(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -353,7 +428,8 @@ def _embed(params: Params, cfg: ModelConfig, tokens,
     (B', P, d), chameleon's precomputed VQ patch embeddings, replace those
     of rows :B' at positions :P (early fusion)."""
     dev = _device(params)
-    x = L.embed(params["embed"], _long(tokens, dev), _dtype(cfg))
+    tok = _used({"tok": params["embed"]["tok"]}, ("embed",))
+    x = L.embed(tok, _long(tokens, dev), _dtype(cfg), cfg.vocab)
     if patch_embeds is not None:
         pe = _as(patch_embeds, dev, x.dtype)
         x[:pe.shape[0], :pe.shape[1]] = pe
@@ -370,8 +446,10 @@ def encode(params: Params, cfg: ModelConfig, enc_embeds) -> torch.Tensor:
     positions = torch.arange(x.shape[1], device=dev)
     for lp in layer_list(params["enc_layers"], cfg.encoder.layers,
                          "enc_layers"):
-        x, _ = _remat(cfg, lp, x, positions=positions, causal=False)
-    return L.rmsnorm(params["enc_ln_f"], x, cfg.norm_eps)
+        x, _ = _remat(cfg, lp, x, "enc_layers", positions=positions,
+                      causal=False)
+    return L.rmsnorm(_used(params["enc_ln_f"], ("enc_ln_f",)), x,
+                     cfg.norm_eps)
 
 
 def _encoded(params: Params, cfg: ModelConfig,
@@ -388,7 +466,11 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, enc_embeds=None,
     """Full-sequence causal forward: tokens (B, S) -> (logits (B, S, V),
     the MoE layers' summed aux loss, f32; 0 without MoE).  ``enc_embeds``
     (B, S_enc, d), whisper's precomputed frame embeddings, go through the
-    encoder first; ``patch_embeds`` as :func:`_embed` takes them."""
+    encoder first; ``patch_embeds`` as :func:`_embed` takes them.  In a
+    mesh step (``distributed.sharding.use_mesh_rules`` with a layout)
+    ``params`` are the rank's parts: each layer gathers its FSDP leaves on
+    entry, and a vocab-sharded ``out`` gives the rank's vocab columns of
+    the logits."""
     check_block(cfg)
     dev = _device(params)
     x = _embed(params, cfg, tokens, patch_embeds)
@@ -399,8 +481,9 @@ def forward(params: Params, cfg: ModelConfig, tokens, *, enc_embeds=None,
         x, aux_l = _remat(cfg, lp, x, positions=positions, enc_out=enc_out)
         if aux_l is not None:
             aux = aux + aux_l
-    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x), aux
+    x = L.rmsnorm(_used(params["ln_f"], ("ln_f",)), x, cfg.norm_eps)
+    out = _used({"out": params["embed"]["out"]}, ("embed",))
+    return L.unembed(out, x, cfg.vocab), aux
 
 
 # ---------------------------------------------------------------------------
@@ -482,7 +565,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens,
     positions = torch.arange(x.shape[1], device=dev)
     idx0 = torch.zeros((), dtype=torch.long, device=dev)
     x = _steps(params, cfg, x, cache, idx0, positions, enc_out)
-    return L.unembed(params["embed"], x)[:, 0], cache
+    return L.unembed(params["embed"], x, cfg.vocab)[:, 0], cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens,
@@ -496,11 +579,11 @@ def decode_step(params: Params, cfg: ModelConfig, tokens,
     no host work and no host-device copy, so a CUDA graph can capture it
     once and replay it on new contents of the same tensors."""
     dev = _device(params)
-    x = L.embed(params["embed"], _long(tokens, dev), _dtype(cfg))
+    x = L.embed(params["embed"], _long(tokens, dev), _dtype(cfg), cfg.vocab)
     idx = _long(cache_index, dev)
     positions = idx[:, None] if idx.dim() == 1 else idx.reshape(1)
     x = _steps(params, cfg, x, cache, idx, positions, None)
-    return L.unembed(params["embed"], x)[:, 0], cache
+    return L.unembed(params["embed"], x, cfg.vocab)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -566,7 +649,7 @@ def paged_prefill_step(params: Params, cfg: ModelConfig,
     idx = start.long()
     positions = idx + torch.arange(C, device=tokens.device)
     lens = (start + C).to(torch.int32)
-    x = L.embed(params["embed"], tokens.long(), _dtype(cfg))
+    x = L.embed(params["embed"], tokens.long(), _dtype(cfg), cfg.vocab)
     ssm = cache.get("ssm")
     for i, lp in enumerate(params["layers"]):
         x, _ = _block(
@@ -575,7 +658,7 @@ def paged_prefill_step(params: Params, cfg: ModelConfig,
             cache=_layer_cache(cache, i, ("k", "v")),
             cache_index=idx, block_tables=block_table, lengths=lens)
     x = L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params["embed"], x)[:, 0], cache
+    return L.unembed(params["embed"], x, cfg.vocab)[:, 0], cache
 
 
 def paged_prefill_chunk(params: Params, cfg: ModelConfig, tokens,
@@ -615,7 +698,7 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     idx = cache_index.long()
     lens = idx + 1 if active is None else torch.where(active, idx + 1, 0)
     lens = lens.to(torch.int32)
-    x = L.embed(params["embed"], tokens.long(), _dtype(cfg))
+    x = L.embed(params["embed"], tokens.long(), _dtype(cfg), cfg.vocab)
     positions = idx[:, None]
     ssm = cache.get("ssm")
     for i, lp in enumerate(params["layers"]):
@@ -625,4 +708,4 @@ def paged_decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache=_layer_cache(cache, i, ("k", "v")),
             cache_index=idx, block_tables=block_tables, lengths=lens)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x)[:, 0], cache
+    return L.unembed(params["embed"], x, cfg.vocab)[:, 0], cache

@@ -14,11 +14,12 @@ Interface, as in the JAX package::
     state = opt.init(params)
     params, state = opt.update(grads, state, params, step)
 
-``update`` also takes ``shards``, for a leaf that is one rank's part of a
-whole (the experts of the ``moe_a2a`` schedule): ``{id(param): (reduce,
-count)}``, ``reduce`` summing a 0-d tensor over the ranks that share the
-leaf and ``count`` the whole leaf's elements.  Adafactor takes its update's
-RMS over the whole leaf through it; AdamW is elementwise and needs none.
+``update`` also takes ``shards``, for a leaf of which a rank updates a
+slice (its part of a sharded leaf, ZeRO-1's slice of that part, the
+experts of the ``moe_a2a`` schedule): ``{id(param): Part}``, the param
+and its gradient being the slice.  Adafactor takes its factored moments
+and its update's RMS over the whole leaf through it (:class:`Part`);
+AdamW is elementwise and needs none.
 
 ``update`` runs under ``torch.no_grad()`` and updates ``params`` and
 ``state`` **in place** (the JAX one returns new trees): a functional update
@@ -115,6 +116,48 @@ def clip_by_global_norm(grads: PyTree, max_norm: float,
 # Optimizer container
 # ---------------------------------------------------------------------------
 
+def _narrow(t: torch.Tensor, start, size) -> torch.Tensor:
+    for dim, (a, n) in enumerate(zip(start, size)):
+        t = t.narrow(dim, a, n)
+    return t
+
+
+def _drop(seq, dims) -> list:
+    keep = set(range(len(seq))) - {d % len(seq) for d in dims}
+    return [v for i, v in enumerate(seq) if i in keep]
+
+
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """The slice of a leaf a rank updates, within the whole leaf (an entry
+    of ``update``'s ``shards``).  ``shape`` is the whole leaf's (padded
+    where its parts are padded), ``start`` the slice's first index along
+    each dim, ``count`` the whole leaf's elements.  ``total(t)`` sums a
+    statistic of the slice over every rank, each slice of the leaf once
+    (its replicas add nothing); ``whole(key, s)`` is the leaf's state
+    leaf ``s`` (``"vr"``, ``"vc"``) whole, from every rank's part, and
+    ``keep(key, s, w)`` stores the rank's part of the whole ``w`` in
+    ``s``."""
+    shape: Tuple[int, ...]
+    start: Tuple[int, ...]
+    count: int
+    total: Callable[[torch.Tensor], torch.Tensor]
+    whole: Callable[[str, torch.Tensor], torch.Tensor]
+    keep: Callable[[str, torch.Tensor, torch.Tensor], None]
+
+    def place(self, t: torch.Tensor, drop: int) -> torch.Tensor:
+        """``t``, a statistic of the slice reduced over dim ``drop``, in
+        zeros of the whole leaf's shape without that dim."""
+        out = t.new_zeros(_drop(self.shape, [drop]))
+        _narrow(out, _drop(self.start, [drop]), t.shape).copy_(t)
+        return out
+
+    def cut(self, w: torch.Tensor, drop, size) -> torch.Tensor:
+        """The slice's part of ``w``, a statistic of the whole leaf
+        reduced over the dims ``drop``; ``size``: the slice's shape."""
+        return _narrow(w, _drop(self.start, drop), _drop(size, drop))
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     name: str
@@ -187,9 +230,28 @@ def adafactor(lr: Schedule, *, decay: float = 0.8, eps: float = 1e-30,
         beta = 1.0 - stepf ** (-decay)
 
         def upd(p, g, s):
+            part = (shards or {}).get(id(p))
             g = g.float()
             g2 = g * g + eps
-            if _factored(p):
+            if _factored(p) and part is not None:
+                # the whole leaf's moments: each mean sums the slices' sums
+                # across the ranks that split the dim it reduces
+                rows = part.total(part.place(g2.sum(-1), -1))
+                cols = part.total(part.place(g2.sum(-2), -2))
+                vr = beta * part.whole("vr", s["vr"]) + (1 - beta) * (
+                    rows / part.shape[-1])
+                vc = beta * part.whole("vc", s["vc"]) + (1 - beta) * (
+                    cols / part.shape[-2])
+                part.keep("vr", s["vr"], vr)
+                part.keep("vc", s["vc"], vc)
+                denom = torch.clamp(vr.mean(-1), min=eps)
+                size = g.shape
+                vr, vc = part.cut(vr, [-1], size), part.cut(vc, [-2], size)
+                denom = part.cut(denom, [-2, -1], size)
+                vhat = (vr[..., :, None] * vc[..., None, :]) / \
+                    denom[..., None, None]
+                u = g / torch.sqrt(vhat + eps)
+            elif _factored(p):
                 s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(-1))
                 s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(-2))
                 vr, vc = s["vr"], s["vc"]
@@ -201,13 +263,11 @@ def adafactor(lr: Schedule, *, decay: float = 0.8, eps: float = 1e-30,
                 s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g / torch.sqrt(s["v"] + eps)
             # update clipping (RMS over the whole leaf)
-            part = (shards or {}).get(id(p))
             if part is None:
                 rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
             else:
-                reduce, count = part
-                rms = torch.sqrt(reduce(torch.sum(torch.square(u))) / count
-                                 + 1e-12)
+                rms = torch.sqrt(part.total(torch.sum(torch.square(u)))
+                                 / part.count + 1e-12)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay:
                 u = u + weight_decay * p.float()

@@ -58,7 +58,11 @@ each through the batched entries of K1 and K4 (``BatchedMatmulFn``), so
 :meth:`TracedOp.experts` gives E for every one of those sites.  Under a
 mesh each rank runs its rows of a microbatch, and a ``moe_a2a`` config its
 routing groups: the router at the rank's T / n tokens, the experts at
-``M = G·C`` (every group's capacity rows of the rank's experts).
+``M = G·C`` (every group's capacity rows of the rank's experts); on a
+``model`` axis of t ranks its tensor-parallel keys: ``wq``, ``wk``,
+``wv``, ``wi``, ``wg`` and the lm_head at N / t, the row-parallel ``wo``s
+at K / t (a dim t does not divide stays whole), K2 and K2b at the heads
+the rank computes.
 
 Nothing is executed — this is an abstract walk of the step over shapes.
 """
@@ -68,10 +72,11 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from ..models.config import ModelConfig
+from ..models.layers import tp_heads
 from ..models.moe import MOE_GROUP_SIZE, capacity
 from ..models.moe_a2a import a2a_active, a2a_axes
-from ..models.transformer import (check_block, check_paged, check_train,
-                                  has_attn, has_mlp, has_ssm)
+from ..models.transformer import (check_block, check_mesh, check_paged,
+                                  check_train, has_attn, has_mlp, has_ssm)
 
 
 def op_label(family: str, data: Dict[str, int]) -> str:
@@ -113,24 +118,40 @@ def chunk_lengths(prefill_chunk: int, max_len: int) -> List[int]:
     return sorted(out, reverse=True)
 
 
+def _split(n: int, tp: Optional[Tuple[int, int]]) -> int:
+    """A dim of ``n`` as a rank of ``tp`` = (t, j) along ``model`` holds
+    it: ``n / t`` where t divides it (its spec shards it), else whole."""
+    return n // tp[0] if tp is not None and n % tp[0] == 0 else n
+
+
 def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
-                    a2a: Optional[Tuple[int, int]] = None
+                    a2a: Optional[Tuple[int, int]] = None,
+                    tp: Optional[Tuple[int, int]] = None
                     ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
     """One layer's requests over ``M`` token rows whose cores run at
     sequence length ``SQ`` (a prefill chunk: M = SQ = C; a decode step:
     M = max_batch, SQ = 1).  ``a2a`` = (T, n): the MoE layer runs the
-    ``moe_a2a`` schedule over n ranks for a batch of T tokens."""
+    ``moe_a2a`` schedule over n ranks for a batch of T tokens.  ``tp`` =
+    (t, j): rank j of t along ``model`` (tensor parallelism): the
+    column-parallel projections at their N / t, the row-parallel at their
+    K / t, the attention core at the rank's heads (``layers.tp_heads``)."""
     d, hd = cfg.d_model, cfg.hd
     if has_attn(cfg):
+        nq, nk = cfg.heads * hd, cfg.kv_heads * hd
+        heads = {"SQ": SQ, "HD": hd, "GROUP": cfg.heads // cfg.kv_heads,
+                 "HK": cfg.kv_heads}
+        if tp is not None and _split(nq, tp) != nq:
+            plan = tp_heads(cfg, *tp)
+            h = plan["h1"] - plan["h0"]
+            hk = h // plan["group"]
+            heads = {"SQ": SQ, "HD": hd, "GROUP": plan["group"], "HK": hk}
         yield (f"{prefix}.attn.q_proj", "matmul_h100",
-               {"M": M, "N": cfg.heads * hd, "K": d})
+               {"M": M, "N": _split(nq, tp), "K": d})
         yield (f"{prefix}.attn.kv_proj", "matmul_h100",
-               {"M": M, "N": cfg.kv_heads * hd, "K": d})
+               {"M": M, "N": _split(nk, tp), "K": d})
         yield (f"{prefix}.attn.out_proj", "matmul_h100",
-               {"M": M, "N": d, "K": cfg.heads * hd})
-        yield (f"{prefix}.attn.core", "flash_attention_h100",
-               {"SQ": SQ, "HD": hd, "GROUP": cfg.heads // cfg.kv_heads,
-                "HK": cfg.kv_heads})
+               {"M": M, "N": d, "K": _split(nq, tp)})
+        yield (f"{prefix}.attn.core", "flash_attention_h100", heads)
     if has_ssm(cfg):
         s = cfg.ssm
         di = s.heads * s.head_dim
@@ -146,9 +167,9 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
                {"SQ": SQ, "HD": s.head_dim, "STATE": s.state})
     if has_mlp(cfg):
         yield (f"{prefix}.mlp.up_proj", "matmul_h100",
-               {"M": M, "N": cfg.d_ff, "K": d})   # wi and wg share it
+               {"M": M, "N": _split(cfg.d_ff, tp), "K": d})  # wi and wg
         yield (f"{prefix}.mlp.down_proj", "matmul_h100",
-               {"M": M, "N": d, "K": cfg.d_ff})
+               {"M": M, "N": d, "K": _split(cfg.d_ff, tp)})
     if cfg.block == "attn_moe":
         m = cfg.moe
         if a2a is None:
@@ -268,19 +289,21 @@ def trace_steps_warm_set(cfg: ModelConfig, *, batch: int, prompt_len: int,
 
 
 def _iter_train_requests(cfg: ModelConfig, *, rows: int, seq: int,
-                         a2a: Optional[Tuple[int, int]] = None
+                         a2a: Optional[Tuple[int, int]] = None,
+                         tp: Optional[Tuple[int, int]] = None
                          ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
-    """A microbatch's forward requests."""
+    """A microbatch's forward requests (``tp``: a rank's, as
+    :func:`_layer_requests` takes it; the lm_head at its vocab / t)."""
     enc = cfg.encoder
     enc_rows = rows * enc.seq_len if enc is not None else 0
     if enc is not None:
         yield from _layer_requests(cfg, enc_rows, enc.seq_len, "train.encode")
-    yield from _layer_requests(cfg, rows * seq, seq, "train.layer", a2a)
+    yield from _layer_requests(cfg, rows * seq, seq, "train.layer", a2a, tp)
     if enc is not None:
         yield from _cross_requests(cfg, rows * seq, seq, enc_rows,
                                    "train.layer")
     yield ("train.lm_head", "matmul_h100",
-           {"M": rows * seq, "N": cfg.vocab, "K": cfg.d_model})
+           {"M": rows * seq, "N": _split(cfg.vocab, tp), "K": cfg.d_model})
 
 
 #: The backward family of each forward family but K1's, at the forward's
@@ -315,12 +338,17 @@ def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
     Under a ``mesh`` (the step's) a rank runs its rows of each microbatch,
     and a ``moe_a2a`` config's MoE layers the schedule: the router at the
     rank's tokens, the experts at every group's rows (G·C a key, over the
-    rank's E_l experts, which the trace does not count)."""
+    rank's E_l experts, which the trace does not count); with ``model`` >
+    1 the rank's tensor-parallel keys (:func:`_layer_requests`' ``tp``,
+    the mesh's rank: rank 0 of an abstract mesh)."""
     check_train(cfg)
-    shards = 1
+    shards, tp = 1, None
     if mesh is not None:
+        check_mesh(cfg, mesh)
         shards = mesh.axis_size([a for a in ("pod", "data")
                                  if a in mesh.axis_names])
+        if mesh.shape.get("model", 1) > 1:
+            tp = (mesh.shape["model"], mesh.coords()["model"])
     if global_batch % (microbatches * shards):
         raise ValueError(f"batch {global_batch} not a multiple of "
                          f"{microbatches} microbatches of {shards} shards")
@@ -329,4 +357,4 @@ def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
     if a2a_active(cfg, mesh):
         a2a = (rows * seq * shards, mesh.axis_size(a2a_axes(mesh)))
     return _dedup(_with_backward(_iter_train_requests(
-        cfg, rows=rows, seq=seq, a2a=a2a)))
+        cfg, rows=rows, seq=seq, a2a=a2a, tp=tp)))

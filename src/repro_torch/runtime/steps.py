@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as tdist
 
@@ -30,8 +31,10 @@ from ..artifacts.dispatch import get_default_cache
 from ..core.params import H100_SXM, MachineDescription
 from ..kernels.ops import FAMILIES
 from ..models.config import ModelConfig
-from ..models.transformer import check_train, decode_step, forward, prefill
-from ..optim import Optimizer, clip_by_global_norm, tree_leaves, tree_map
+from ..models.transformer import (check_mesh, check_train, decode_step,
+                                  forward, prefill)
+from ..optim import (Optimizer, Part, clip_by_global_norm, tree_leaves,
+                     tree_map)
 from ..plans.trace import (TracedOp, trace_steps_warm_set,
                            trace_train_warm_set)
 
@@ -39,12 +42,31 @@ MOE_AUX_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean token NLL and z-loss (log^2 Z), both in f32: (nll, z)."""
+    """Mean token NLL and z-loss (log^2 Z), both in f32: (nll, z).  Where
+    ``logits`` are the rank's columns of ``vocab`` (the config's; a
+    vocab-parallel ``unembed``), vocab-parallel over the current mesh's
+    ``model`` axis: the max and the sum of exponentials all-reduced, the
+    gold logit taken from the rank that holds it."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if logits.shape[-1] == vocab:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.mean(logz - gold), torch.mean(torch.square(logz))
+    from ..distributed import sharding as dist
+    from ..distributed.comm import reduce_from
+    mesh = dist.current_mesh()
+    group = mesh.group(("model",))
+    n = logits.shape[-1]
+    top = logits.detach().amax(dim=-1)
+    tdist.all_reduce(top, op=tdist.ReduceOp.MAX, group=group)
+    sums = reduce_from(torch.exp(logits - top[..., None]).sum(-1), group)
+    logz = top + torch.log(sums)
+    local = labels.long() - mesh.coords()["model"] * n
+    held = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(held, local, 0)[..., None])
+    gold = reduce_from(gold[..., 0] * held, group)
     return torch.mean(logz - gold), torch.mean(torch.square(logz))
 
 
@@ -68,7 +90,7 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any]
     logits, aux = forward(params, cfg, batch["tokens"],
                           **_batch_extras(cfg, batch))
     labels = torch.as_tensor(batch["labels"], device=logits.device)
-    nll, z = cross_entropy(logits, labels)
+    nll, z = cross_entropy(logits, labels, cfg.vocab)
     loss = nll + MOE_AUX_WEIGHT * aux + Z_LOSS_WEIGHT * z
     return loss, {"nll": nll, "moe_aux": aux, "z": z}
 
@@ -89,21 +111,27 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     Raises at build time for a config the port does not train.
 
     With a ``mesh`` (:mod:`repro_torch.launch.mesh`) the step is the JAX
-    step over that mesh, data parallel: every rank gets the whole batch
-    and takes its rows of each microbatch by the batch spec
-    (``launch.specs.train_batch_specs``), so a microbatch holds the rows
-    the JAX step's does; ``params`` and ``opt_state`` are the rank's parts
-    of the state (``launch.specs.state_layout``: the experts of a
-    ``moe_a2a`` config sharded over the all-to-all's group, every other
-    leaf whole), and the model runs under ``use_mesh_rules(mesh)``.  Each
-    rank's loss is its rows' mean, so the gradient of the whole batch's
-    loss is the sum of every rank's over the number of ranks: a
-    replicated leaf's gradient is all-reduced (GSPMD's psum), an expert
-    shard's already holds every rank's tokens (the all-to-all's adjoint)
-    and is only scaled.  The clipping norm sums the shards' squares over
-    their group, Adafactor's RMS too.  An ``attn_moe`` config trains on
-    more than one rank through ``moe_a2a`` only: without it the JAX layer
-    routes the whole batch's groups, each rank here would route its own.
+    step jitted with ``state_shardings``' shardings over that mesh: every
+    rank gets the whole batch and takes its rows of each microbatch by the
+    batch spec (``launch.specs.train_batch_specs``), so a microbatch holds
+    the rows the JAX step's does; ``params`` and ``opt_state`` are the
+    rank's parts of the state (``launch.specs.state_layout``,
+    ``launch.specs.rank_state``), and the model runs under
+    ``use_mesh_rules(mesh, rules, layout)``: tensor parallelism over
+    ``model`` (``models.layers``), each layer's FSDP leaves gathered on
+    entry (``models.transformer``), the ``moe_a2a`` schedule.  Each rank's
+    loss is its rows' mean, the ranks along ``model`` computing one loss
+    together, so a gradient is summed over the batch axes on which its
+    leaf is replicated (not over those an FSDP gather's adjoint already
+    summed) and divided by the number of row shards; the loss and the
+    metrics count each row once.  ZeRO-1: a leaf whose update spec
+    (``launch.specs.update_spec``) shards a dim over the batch axes gets
+    its gradient reduce-scattered along it, the optimizer updates the
+    rank's slice from the rank's state (``optim.Part`` carries the whole
+    leaf's statistics), and the slices are all-gathered back into the
+    parameter.  The clipping norm counts each element's square once.
+    Raises for what the mesh step does not cover
+    (:func:`~repro_torch.models.transformer.check_mesh`).
     Without a mesh nothing changes."""
     check_train(cfg)
     if mesh is not None:
@@ -163,31 +191,86 @@ def _accumulate(params, cfg: ModelConfig, grad_dtype: torch.dtype,
     return sums, acc
 
 
+class _LeafPlan:
+    """How the mesh step reduces and updates one parameter leaf."""
+
+    def __init__(self, cfg, mesh, path, layout, opt_layout):
+        from ..distributed import sharding as dist
+        from ..launch.specs import update_spec
+        batch = dist.batch_axes(mesh)
+        spec = layout.spec(path)
+        held = {a for e in spec for a in dist.entry_axes(e)}
+        upd = update_spec(cfg, mesh, path, spec, layout.shapes[path])
+        used = {a for e in upd for a in dist.entry_axes(e)}
+        before = tuple(spec) + (None,) * (len(upd) - len(spec))
+        self.zdim = next((d for d, (e, f) in enumerate(zip(upd, before))
+                          if dist.entry_axes(e) != dist.entry_axes(f)), None)
+        if mesh.axis_size(batch) == 1:
+            self.zdim = None
+        self.batch_group = mesh.group(batch) if batch else None
+        # summed over the batch axes the leaf is replicated on; an FSDP
+        # leaf's gather and an expert shard's all-to-all summed the rest
+        rest = tuple(a for a in batch if a not in held)
+        self.sum_group = mesh.group(rest) if rest else None
+        self.owner = all(c == 0 for a, c in mesh.coords().items()
+                         if a not in used)
+        self.shape = dist.shard_shape(layout.shapes[path], spec, mesh)
+        self.part = None
+        states = {k: opt_layout.spec(sp) for k in ("vr", "vc", "v")
+                  for sp in [("f",) + path + (k,)] if sp in opt_layout.specs}
+        split = [e for sp in [upd, *states.values()] for e in sp
+                 if mesh.axis_size(dist.entry_axes(e)) > 1]
+        if split:
+            self.part = self._part(mesh, upd, states, layout.shapes[path],
+                                   self.owner)
+
+    @staticmethod
+    def _part(mesh, upd, states, whole, owner) -> Part:
+        """The optimizer's view of the slice ``upd`` gives the rank."""
+        from ..distributed import sharding as dist
+        shape = dist.shard_shape(whole, upd, mesh)
+        start = [0] * len(whole)
+        padded = list(shape)
+        for d, e in enumerate(upd):
+            axes = dist.entry_axes(e)
+            start[d] = mesh.axis_index(axes) * shape[d]
+            padded[d] = shape[d] * mesh.axis_size(axes)
+
+        def total(t):
+            t = t if owner else torch.zeros_like(t)
+            tdist.all_reduce(t, group=mesh.world)
+            return t
+
+        def whole_of(key, s):
+            return dist.gather_shard(s, states[key], mesh)
+
+        def keep(key, s, w):
+            s.copy_(dist.local_shard(w, states[key], mesh))
+
+        return Part(tuple(padded), tuple(start),
+                    int(np.prod(whole)), total, whole_of, keep)
+
+
 def _mesh_train_step(cfg: ModelConfig, optimizer: Optimizer,
                      microbatches: int, clip_norm: float,
                      grad_dtype: torch.dtype, mesh) -> Callable:
     """:func:`build_train_step`'s step over ``mesh``."""
     from ..distributed import sharding as dist
-    from ..launch.specs import row_spec, state_layout
-    from ..models.moe import a2a_padded_experts
-    from ..models.moe_a2a import a2a_active
+    from ..distributed.comm import gather_along, reduce_scatter
+    from ..launch.specs import abstract_state, row_spec, state_layout
 
-    n = mesh.size
-    if cfg.block == "attn_moe" and not a2a_active(cfg, mesh) and n > 1:
-        raise NotImplementedError(
-            f"config {cfg.name} on {n} ranks needs perf flag 'moe_a2a': "
-            "the dense MoE layer routes each rank's rows, the JAX layer "
-            "the whole batch's")
+    check_mesh(cfg, mesh)
     rules = dist.rules_for(cfg, mesh)
     row = row_spec(mesh)
     shards_of_rows = mesh.axis_size(dist.batch_axes(mesh))
-
-    def reduce_over(group):
-        def reduce(t):
-            t = t.clone()
-            tdist.all_reduce(t, group=group)
-            return t
-        return reduce
+    p_meta, o_meta = abstract_state(cfg, optimizer)
+    full = state_layout(cfg, mesh, p_meta, o_meta)
+    layout, opt_layout = full.part(0), full.part(1)
+    paths = [path for path, _ in dist.tree_items(p_meta)]
+    plans = [_LeafPlan(cfg, mesh, path, layout, opt_layout)
+             for path in paths]
+    batch_group = mesh.group(dist.batch_axes(mesh)) \
+        if dist.batch_axes(mesh) else mesh.world
 
     def train_step(params, opt_state, batch, step):
         B = batch["tokens"].shape[0]
@@ -195,40 +278,52 @@ def _mesh_train_step(cfg: ModelConfig, optimizer: Optimizer,
             raise ValueError(f"batch {B} not a multiple of {microbatches} "
                              "microbatches of the mesh's batch shards")
         mb = B // microbatches
-        layout = state_layout(cfg, mesh, params)
-        # the sharded leaves (experts): id -> (group, whole leaf's count)
-        shards = {}
-        for path, p in dist.tree_items(params):
-            if layout.sharded(path):
-                group = mesh.group(dist.entry_axes(layout.spec(path)[1]))
-                whole = p.numel() // p.shape[1] * a2a_padded_experts(cfg)
-                shards[id(p)] = (group, whole)
         leaves = tree_leaves(params)
-        with dist.use_mesh_rules(mesh, rules):
+        for path, plan, p in zip(paths, plans, leaves):
+            if tuple(p.shape) != plan.shape:
+                raise ValueError(f"parameter {path} of shape "
+                                 f"{tuple(p.shape)}: its part under the "
+                                 f"mesh's layout is {plan.shape}")
+        with dist.use_mesh_rules(mesh, rules, layout):
             sums, acc = _accumulate(params, cfg, grad_dtype, (
                 {k: dist.local_shard(
                     torch.as_tensor(v)[i * mb:(i + 1) * mb], row, mesh)
                  for k, v in batch.items()}
                 for i in range(microbatches)))
         with torch.no_grad():
-            sq = []
-            for p in leaves:
+            sq, views, grads, shards = [], {}, {}, {}
+            for p, plan in zip(leaves, plans):
                 g = acc[id(p)]
-                if id(p) not in shards:
-                    tdist.all_reduce(g, group=mesh.world)
-                g.div_(microbatches * n)
-                part = torch.sum(torch.square(g.float()))
-                if id(p) in shards:
-                    tdist.all_reduce(part, group=shards[id(p)][0])
-                sq.append(part)
+                if plan.zdim is not None:
+                    g = reduce_scatter(g, plan.zdim, plan.batch_group)
+                    n = g.shape[plan.zdim]
+                    idx = mesh.axis_index(dist.batch_axes(mesh))
+                    view = p.narrow(plan.zdim, idx * n, n)
+                else:
+                    if plan.sum_group is not None:
+                        tdist.all_reduce(g, group=plan.sum_group)
+                    view = p
+                g.div_(microbatches * shards_of_rows)
+                views[id(p)], grads[id(p)] = view, g
+                if plan.part is not None:
+                    shards[id(view)] = plan.part
+                sq.append(torch.sum(torch.square(g.float())) if plan.owner
+                          else torch.zeros((), dtype=torch.float32,
+                                           device=g.device))
+            total = torch.sum(torch.stack(sq))
+            tdist.all_reduce(total, group=mesh.world)
             grads, gnorm = clip_by_global_norm(
-                tree_map(lambda p: acc[id(p)], params), clip_norm,
-                torch.sqrt(torch.sum(torch.stack(sq))))
-            optimizer.update(grads, opt_state, params, step, shards={
-                k: (reduce_over(g), whole)
-                for k, (g, whole) in shards.items()})
-            tdist.all_reduce(sums, group=mesh.world)
-            sums /= microbatches * n
+                tree_map(lambda p: grads[id(p)], params), clip_norm,
+                torch.sqrt(total))
+            optimizer.update(grads, opt_state,
+                             tree_map(lambda p: views[id(p)], params), step,
+                             shards=shards)
+            for p, plan in zip(leaves, plans):
+                if plan.zdim is not None:
+                    p.copy_(gather_along(views[id(p)], plan.zdim,
+                                         plan.batch_group))
+            tdist.all_reduce(sums, group=batch_group)
+            sums /= microbatches * shards_of_rows
         for p in leaves:
             p.grad = None
         metrics = {"loss": sums[0], "nll": sums[1], "moe_aux": sums[2],

@@ -112,6 +112,12 @@ def test_spec_trees_equal_jax(arch):
         assert trules == jrules
         assert _port_named(tp) == _jax_named(jp), shape
         assert _port_named(to) == _jax_named(jo), shape
+        # what the ranks hold: JAX's p_sh and o_sh (no config has moe_a2a)
+        lay = tspecs.state_layout(tcfg, tmesh, tps, tos)
+        for i, want in enumerate((jp, jo)):
+            held = {W.SEP.join(map(str, path)): tuple(spec) for path, spec
+                    in lay.part(i).specs.items()}
+            assert held == _jax_named(want), (shape, i)
         for js, ts in zip(JSHAPES, TSHAPES):
             assert tspecs.default_microbatches(tcfg, ts, tmesh) == \
                 jspecs.default_microbatches(cfg, js, jmesh)
@@ -130,6 +136,35 @@ def test_spec_trees_equal_jax(arch):
         assert {k: tuple(v.shape) for k, v in tc.items()} == {
             k: tuple(v.shape) for k, v in jc.items()}
         assert tcsh == {k: tuple(v.spec) for k, v in jcsh.items()}
+
+
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
+def test_state_layout_under_moe_a2a_is_jax_bar_the_experts(arch):
+    """With ``moe_a2a`` the layout holds JAX's specs but for the expert
+    stacks and their state, held over the all-to-all's group
+    (``expert_spec``), as the schedule's ``shard_map`` consumes them."""
+    cfg = jconfigs.get_config(arch).scaled(perf_flags=("moe_a2a",))
+    tcfg = tconfigs.get_config(arch).scaled(perf_flags=("moe_a2a",))
+    jps, jaxes, jos = jspecs.abstract_state(
+        cfg, jopt.make_optimizer(cfg.optimizer, jopt.constant(LR)))
+    tps, tos = tspecs.abstract_state(
+        tcfg, topt.make_optimizer(tcfg.optimizer, topt.constant(LR)))
+    for shape, axes in MESHES[1:3]:
+        jmesh, tmesh = AbstractMesh(shape, axes), abstract_mesh(shape, axes)
+        jp, jo, _ = jspecs.state_shardings(cfg, jmesh, jps, jaxes, jos)
+        lay = tspecs.state_layout(tcfg, tmesh, tps, tos)
+        experts = 0
+        for i, want in enumerate((_jax_named(jp), _jax_named(jo))):
+            for path, spec in lay.part(i).specs.items():
+                name = W.SEP.join(map(str, path))
+                moe = "moe" in path and path[path.index("moe") + 1] in (
+                    "wi", "wg", "wo")
+                if moe:
+                    experts += 1
+                    assert tuple(spec) == tspecs.expert_spec(tmesh), name
+                else:
+                    assert tuple(spec) == want[name], name
+        assert experts
 
 
 # ---------------------------------------------------------------------------

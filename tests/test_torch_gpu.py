@@ -1895,3 +1895,50 @@ def test_gpu_mesh_train_step_card_against_cpu(nccl_mesh, arch):
         flips += int((diff > 1e-6).sum())
         total += diff.numel()
     assert flips <= total / 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3_8b", "chameleon_34b"])
+def test_gpu_sharded_mesh_step_at_world_size_one_is_the_one_card_step(
+        nccl_mesh, arch):
+    """chip_smoke.py 14 (e) at smoke size: the mesh step over NCCL at world
+    size 1 (tensor parallelism, FSDP for chameleon-34b's name and ZeRO-1
+    realised on the (1, 1) mesh, every spec whole) from
+    ``launch.specs.rank_state``, three bf16 steps, bit for bit with the
+    one-card step: metrics and every parameter."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.specs import rank_state
+    from repro_torch.models import init_train_state
+    from repro_torch.optim import adamw, constant, tree_leaves
+    from repro_torch.runtime import build_train_step
+    cfg = get_smoke_config(arch)
+    if arch == "chameleon_34b":
+        cfg = cfg.scaled(name="chameleon-34b")
+    rng = np.random.default_rng(11)
+    S = 272 if cfg.frontend == "stub" else 32
+    batches = []
+    for _ in range(3):
+        b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, S))).cuda()
+             for k in ("tokens", "labels")}
+        if cfg.frontend == "stub":
+            b["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (4, 256, cfg.d_model)).astype(np.float32)).cuda()
+        batches.append(b)
+    out = []
+    for mesh in (None, nccl_mesh):
+        opt = adamw(constant(1e-3))
+        if mesh is None:
+            params = init_train_state(cfg, seed=4, device="cuda")
+            state = opt.init(params)
+        else:
+            params, state, _ = rank_state(cfg, mesh, opt, seed=4,
+                                          device="cuda")
+        step = build_train_step(cfg, opt, microbatches=2, mesh=mesh)
+        ms = []
+        for i, b in enumerate(batches):
+            params, state, m = step(params, state, b, i)
+            ms.append({k: float(v) for k, v in m.items()})
+        out.append((ms, [p.detach().clone() for p in tree_leaves(params)]))
+    (wm, wp), (gm, gp) = out
+    assert gm == wm
+    assert all(torch.equal(g, w) for g, w in zip(gp, wp))

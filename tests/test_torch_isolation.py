@@ -5,7 +5,9 @@ modules (whisper-large-v3's too), the non-paged serve steps, the tuning
 package and the kernel monitor, and the training path (optimizers, data,
 checkpoints, the autograd functions and K2b, the train launcher) and the
 multi-rank path (the mesh, the sharding rules, the collectives, the int8
-ring, the all-to-all MoE layer) included."""
+ring, the all-to-all MoE layer; the tensor-parallel layers, FSDP's
+gathers, the sharded step and ZeRO-1) included.  Each module the
+sharded step changed also imports first, alone, in a fresh process."""
 import os
 import pathlib
 import re
@@ -51,7 +53,8 @@ assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
         "repro_torch.launch.mesh", "repro_torch.distributed",
         "repro_torch.distributed.sharding",
         "repro_torch.distributed.compression",
-        "repro_torch.distributed.comm", "repro_torch.models.moe_a2a"
+        "repro_torch.distributed.comm", "repro_torch.models.moe_a2a",
+        "repro_torch.models.layers", "repro_torch.models.transformer"
         } <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
@@ -66,6 +69,32 @@ def test_port_imports_with_jax_and_repro_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30       # every submodule was imported
+
+
+#: the modules the sharded step (tensor parallelism, FSDP, ZeRO-1) changed
+SHARDED_STEP = ["repro_torch.distributed.comm",
+                "repro_torch.distributed.sharding",
+                "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                "repro_torch.launch.train",
+                "repro_torch.models.layers", "repro_torch.models.transformer",
+                "repro_torch.models.moe_a2a", "repro_torch.runtime.steps",
+                "repro_torch.optim.optimizers",
+                "repro_torch.checkpoint.manager", "repro_torch.plans.trace"]
+
+
+@pytest.mark.parametrize("module", SHARDED_STEP)
+def test_sharded_step_module_imports_first_with_jax_and_repro_blocked(
+        module):
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            f"import {module}; "
+            "assert not [m for m in sys.modules if (m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))"
+            " and sys.modules[m] is not None]")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 _IMPORT_RE = re.compile(

@@ -109,7 +109,7 @@ def job_a2a(job):
     mesh = _mesh(job)
     axes = a2a_axes(mesh)
     espec = (axes if len(axes) > 1 else axes[0],)
-    n_dev, n_model = mesh.axis_size(axes), mesh.shape.get("model", 1)
+    n_data = mesh.shape["data"]
     x = dist.local_shard(torch.from_numpy(inp["x"]), ("data",), mesh)
     p = {"router": torch.from_numpy(inp["router"]).requires_grad_()}
     for k in ("wi", "wg", "wo"):
@@ -117,10 +117,12 @@ def job_a2a(job):
                                 mesh).requires_grad_()
     with dist.use_mesh_rules(mesh, dist.rules_for(cfg, mesh)):
         y, aux = moe_block_a2a(p, x, cfg, group_size=case["group_size"])
-        loss = (y * y).sum() / n_model + 0.01 * aux / n_dev
+        # the data shards' losses add; the ranks along model compute one
+        # (the aux loss is the whole group's, in every shard's loss)
+        loss = (y * y).sum() + 0.01 * aux / n_data
         loss.backward()
     g_router = p["router"].grad.clone()
-    tdist.all_reduce(g_router)
+    tdist.all_reduce(g_router, group=mesh.group(("data",)))
     out = {"y": dist.gather_shard(y.detach(), ("data",), mesh).numpy(),
            "aux": np.float32(aux.item()), "router": g_router.numpy()}
     for k in ("wi", "wg", "wo"):
@@ -159,13 +161,20 @@ def train_config(job):
         m = cfg.moe
         cfg = cfg.scaled(moe=MoEConfig(m.num_experts, m.top_k,
                                        m.d_ff_expert, job["cf"]))
+    if job.get("name"):                 # FSDP_ARCHS keys on the name
+        cfg = cfg.scaled(name=job["name"])
     return cfg
+
+
+BATCH_KEYS = ("tokens", "labels", "patch_embeds", "enc_embeds")
 
 
 def job_train(job):
     """``job["steps"]`` steps from the inputs' parameters: the whole
-    parameters after them, and each step's metrics."""
-    from repro_torch.launch.specs import state_layout
+    parameters after them, each step's metrics, and (on a mesh) the shape
+    of every leaf each rank holds and ``Layout.rank_bytes()``."""
+    from repro_torch.distributed.sharding import tree_items
+    from repro_torch.launch.specs import abstract_state, state_layout
     from repro_torch.optim import constant, make_optimizer
     from repro_torch.runtime import build_train_step
     inp = _inputs(job)
@@ -173,26 +182,42 @@ def job_train(job):
     mesh = _mesh(job) if job.get("mesh") else None
     params = unflatten({k[2:]: torch.from_numpy(v.copy())
                         for k, v in inp.items() if k.startswith("p:")})
+    opt = make_optimizer(cfg.optimizer, constant(job["lr"]))
     layout = None
     if mesh is not None:
-        layout = state_layout(cfg, mesh, params)
-        params = layout.shard(params)
-    opt = make_optimizer(cfg.optimizer, constant(job["lr"]))
-    opt_state = opt.init(params)
+        _, o_meta = abstract_state(cfg, opt)
+        layout = state_layout(cfg, mesh, params, o_meta)
+        params = layout.part(0).shard(params)
+        opt_state = layout.part(1).zeros(o_meta, "cpu")
+    else:
+        opt_state = opt.init(params)
     step_fn = build_train_step(cfg, opt, microbatches=job["microbatches"],
-                               mesh=mesh)
+                               grad_dtype=torch.float32, mesh=mesh)
     metrics = []
     for s in range(job["steps"]):
         batch = {k: torch.from_numpy(inp[f"b{s}:{k}"])
-                 for k in ("tokens", "labels")}
+                 for k in BATCH_KEYS if f"b{s}:{k}" in inp}
         params, opt_state, m = step_fn(params, opt_state, batch, s)
         metrics.append([float(m[k]) for k in ("loss", "nll", "moe_aux",
                                               "grad_norm")])
+    out = {}
     if layout is not None:
-        params = layout.gather(params)
-    out = {f"p:{k}": v.detach().numpy() for k, v in flatten(params).items()}
+        held = {SEP.join(map(str, path)): tuple(leaf.shape)
+                for path, leaf in tree_items((params, opt_state))}
+        nbytes = sum(leaf.numel() * leaf.element_size()
+                     for _, leaf in tree_items((params, opt_state)))
+        every = [None] * mesh.size
+        tdist.all_gather_object(every, (held, nbytes))
+        for r, (h, n) in enumerate(every):
+            out.update({f"held{r}:{k}": np.array(v) for k, v in h.items()})
+            out[f"bytes{r}"] = np.int64(n)
+        out["rank_bytes"] = np.int64(layout.rank_bytes())
+        params = layout.part(0).gather(params)
+    out.update({f"p:{k}": v.detach().numpy()
+                for k, v in flatten(params).items()})
     out["metrics"] = np.array(metrics, np.float64)
     return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -205,8 +230,7 @@ def job_restart(job):
     rank once; both whole states after the last step."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.launch.specs import state_layout
-    from repro_torch.models import init_train_state
+    from repro_torch.launch.specs import rank_state
     from repro_torch.optim import constant, make_optimizer
     from repro_torch.runtime import TrainController, build_train_step
     cfg = train_config(job)
@@ -217,10 +241,9 @@ def job_restart(job):
                                 global_batch=4, seed=0))
     out = {}
     for tag, fault_at in (("clean", None), ("fault", job["fault_at"])):
-        whole = init_train_state(cfg, seed=0, device="cpu")
-        whole_opt = opt.init(whole)
-        layout = state_layout(cfg, mesh, (whole, whole_opt))
-        state = layout.shard((whole, whole_opt))
+        params, opt_state, layout = rank_state(cfg, mesh, opt, seed=0,
+                                               device="cpu")
+        state = (params, opt_state)
         fired = []
 
         def hook(step):
@@ -258,8 +281,7 @@ def job_warm(job):
     for and the trace lists."""
     from repro_torch.artifacts.dispatch import (DispatchCache,
                                                 set_default_cache)
-    from repro_torch.launch.specs import state_layout
-    from repro_torch.models import init_train_state
+    from repro_torch.launch.specs import rank_state
     from repro_torch.optim import adamw, constant
     from repro_torch.plans.trace import op_label, trace_train_warm_set
     from repro_torch.runtime import build_train_step, warm_train_dispatch
@@ -272,15 +294,14 @@ def job_warm(job):
         warm_train_dispatch(cfg, global_batch=B, seq=S, microbatches=2,
                             mesh=mesh)
         cold = cache.stats.cold_builds
-        params = init_train_state(cfg, device="cpu")
-        params = state_layout(cfg, mesh, params).shard(params)
         opt = adamw(constant(1e-3))
+        params, opt_state, _ = rank_state(cfg, mesh, opt, device="cpu")
         step = build_train_step(cfg, opt, microbatches=2, mesh=mesh)
         rng = np.random.default_rng(3)
         batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
                  for k in ("tokens", "labels")}
         with cache.record() as rec:
-            step(params, opt.init(params), batch, 0)
+            step(params, opt_state, batch, 0)
         cold = cache.stats.cold_builds - cold
     finally:
         set_default_cache(None)
@@ -291,5 +312,77 @@ def job_warm(job):
             "traced": np.array(traced)}
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism's collectives and attention
+# ---------------------------------------------------------------------------
+
+def _every_rank(t):
+    """Every rank's ``t`` (one shape), stacked in rank order."""
+    parts = [torch.empty_like(t) for _ in range(tdist.get_world_size())]
+    tdist.all_gather(parts, t.contiguous())
+    return torch.stack(parts).numpy()
+
+
+def job_comm(job):
+    """The new collectives over the world: ``gather`` along dim 1 of each
+    rank's x under losses that add (sum(w_r * y) on rank r), and the
+    Megatron pair around a column- then row-parallel MLP under one loss
+    (sum(w * y), w the same on every rank); every rank's gradients."""
+    from repro_torch.distributed.comm import copy_to, gather, reduce_from
+    inp = _inputs(job)
+    r, group = tdist.get_rank(), tdist.group.WORLD
+    x = torch.from_numpy(inp["x"][r]).requires_grad_()
+    y = gather(x, 1, group)
+    (torch.from_numpy(inp["w"][r]) * y).sum().backward()
+    out = {"gather_y": _every_rank(y.detach()), "gather_dx":
+           _every_rank(x.grad)}
+    n = tdist.get_world_size()
+    h = inp["w1"].shape[1] // n
+    a = torch.from_numpy(inp["a"]).requires_grad_()
+    w1 = torch.from_numpy(inp["w1"][:, r * h:(r + 1) * h]).requires_grad_()
+    w2 = torch.from_numpy(inp["w2"][r * h:(r + 1) * h]).requires_grad_()
+    z = reduce_from(torch.relu(copy_to(a, group) @ w1) @ w2, group)
+    (torch.from_numpy(inp["v"]) * z).sum().backward()
+    out.update({"mlp_z": _every_rank(z.detach()),
+                "mlp_da": _every_rank(a.grad),
+                "mlp_dw1": _every_rank(w1.grad),
+                "mlp_dw2": _every_rank(w2.grad)})
+    return out
+
+
+def attn_config():
+    from repro_torch.models.config import ModelConfig
+    # 10 query heads over 5 KV heads of 8: on 4 ranks each holds 2.5
+    # query heads and 1.25 KV heads, and its query heads straddle KV
+    # groups (K2 then reads KV heads repeated a query head)
+    return ModelConfig(name="tp-attn", layers=1, d_model=32, heads=10,
+                       kv_heads=5, head_dim=8, d_ff=64, vocab=64,
+                       dtype="float32", param_dtype="float32")
+
+
+def job_attn(job):
+    """``layers.attention`` over a ``model`` mesh from the whole weights'
+    column and row parts, one loss sum(w * y): y, dx and the whole
+    weights' gradients."""
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.models.layers import attention
+    inp = _inputs(job)
+    cfg, mesh = attn_config(), _mesh(job)
+    specs = {"wq": (None, "model"), "wk": (None, "model"),
+             "wv": (None, "model"), "wo": ("model",)}
+    p = {k: dist.local_shard(torch.from_numpy(inp[k]), spec,
+                             mesh).requires_grad_()
+         for k, spec in specs.items()}
+    x = torch.from_numpy(inp["x"]).requires_grad_()
+    with dist.use_mesh_rules(mesh, dist.rules_for(cfg, mesh)):
+        y = attention(p, x, cfg, positions=torch.arange(x.shape[1]))
+        (torch.from_numpy(inp["w"]) * y).sum().backward()
+    out = {"y": y.detach().numpy(), "dx": _every_rank(x.grad)}
+    for k, spec in specs.items():
+        out[f"d{k}"] = dist.gather_shard(p[k].grad, spec, mesh).numpy()
+    return out
+
+
 JOBS = {"a2a": job_a2a, "ring": job_ring, "train": job_train,
-        "restart": job_restart, "warm": job_warm}
+        "restart": job_restart, "warm": job_warm, "comm": job_comm,
+        "attn": job_attn}
