@@ -349,8 +349,29 @@ no phase is caught.
    all-to-all's CUDA-event time.  (d) kimi-k2, 1 of 61 layers, served as
    phase 8 serves it from the same init with its experts zero-padded to
    the 512 it stores under ``moe_a2a``: the tokens equal phase 8's,
-   request for request.  (c) is a training path and (d) an engine path
-   in the kernels' line (``by_paths`` "training" and "padded kimi").
+   request for request.  (e) 13 (b)'s llama3-8b run through the mesh
+   step and (f) (c) held to 13 (j): step 0 bit for bit, the launches a
+   step, 0 cold builds, the peak within 0.1 GB.  (g) the keys a rank of
+   (1, 4) and (1, 8) launches for llama3-8b, warmed on abstract meshes
+   and each held against its plain version and timed, and the four-card
+   cells' ``Layout.rank_bytes()``.  (h) 13 (g)'s mamba2-130m, (h)'s
+   hymba-1.5b and (c)'s whisper-large-v3 runs through the mesh step, two
+   steps each, and (i) 13 (j)'s llama4-scout run without ``moe_a2a`` (the
+   dense MoE layer's expert-parallel code at one rank), each held to its
+   phase 13 run as (e) is (every training path, phase 13's too, starts
+   with the split workspaces dropped, so each peak counts the workspaces
+   it grows).  (j) the keys a four-card rank of those blocks launches,
+   warmed on abstract meshes: K3 and K3b at mamba2-130m's 6 and 3 SSD
+   heads a rank of (1, 4) and (1, 8) and hymba-1.5b's cut 7 and 4, K2
+   and K2b at whisper-large-v3's encoder heads (non-causal 1500 x 1500)
+   and cross-attention heads (64 queries over 1500 frames), K1b and K4b
+   at llama4-scout's 4 of 16 experts and K1b at kimi-k2's 96 of 384 on
+   (4, 1), the routing groups sharded over ``data``; each launch
+   signature held against its plain version and timed beside its
+   library call; then the rank bytes of hymba-1.5b and whisper-large-v3
+   on (1, 4) and kimi-k2 (1 of 61 layers, dense) on (4, 1).  (c), (e),
+   (h) and (i) are training paths and (d) an engine path in the kernels'
+   line (``by_paths`` "training" and "padded kimi").
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -4326,10 +4347,17 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
     from repro_torch.optim import adamw, tree_leaves, warmup_cosine
     from repro_torch.runtime import build_train_step, warm_train_dispatch
 
+    from repro_torch.kernels.workspace import free_unheld
     cfg = full_cfg.scaled(layers=layers) if layers else full_cfg
     depth = (f"{cfg.layers} of {full_cfg.layers} layers (reduced: depth "
              f"only)" if layers else f"{cfg.layers} layers (nothing "
              f"reduced)")
+    # every path grows its own split workspaces: the peaks of two paths
+    # of one run compare
+    torch.cuda.synchronize()
+    free_unheld()
+    gc.collect()
+    torch.cuda.empty_cache()
     stats = get_default_cache().stats
     t0 = time.perf_counter()
     picks = warm_train_dispatch(cfg, global_batch=run["batch"],
@@ -4479,10 +4507,14 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
             "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
 
 
-def phase_train_whisper(gen) -> dict:
+def phase_train_whisper(gen, mesh=None, tag: str = "(c)", steps=None
+                        ) -> dict:
     """(c) whisper-large-v3 at full width, ``WHISPER_TRAIN``'s layers of
     32 + 32, rows of 1500 seeded frames and 64-token prompts: finite losses
-    and step times.  Counters as in (b)."""
+    and step times.  Counters as in (b).  The frames come from a generator
+    of their own, so a second run draws the same; with ``mesh`` the step
+    is the mesh's and the state the rank's part (as in :func:`train_path`),
+    ``steps`` of them (``WHISPER_TRAIN``'s by default)."""
     from repro_torch.artifacts.dispatch import get_default_cache
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
@@ -4491,27 +4523,44 @@ def phase_train_whisper(gen) -> dict:
     from repro_torch.runtime import build_train_step, warm_train_dispatch
     import dataclasses
     run = WHISPER_TRAIN
+    steps = steps or run["steps"]
     base_cfg = get_config("whisper_large_v3")
     cfg = base_cfg.scaled(layers=run["layers"], encoder=dataclasses.replace(
         base_cfg.encoder, layers=run["layers"]))
     stats = get_default_cache().stats
-    warm_train_dispatch(cfg, global_batch=run["batch"], seq=run["seq"])
+    warm_train_dispatch(cfg, global_batch=run["batch"], seq=run["seq"],
+                        mesh=mesh)
     cold0 = stats.cold_builds
-    params = init_train_state(cfg, seed=0, device=DEV)
+    from repro_torch.kernels.workspace import free_unheld
+    torch.cuda.synchronize()
+    free_unheld()          # as train_path: the path grows its workspaces
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     opt = adamw(constant(run["lr"]))
-    opt_state = opt.init(params)
-    step_fn = build_train_step(cfg, opt)
+    if mesh is None:
+        params = init_train_state(cfg, seed=0, device=DEV)
+        opt_state = opt.init(params)
+    else:
+        from repro_torch.launch.specs import rank_state
+        params, opt_state, _ = rank_state(cfg, mesh, opt, seed=0,
+                                          device=DEV)
+    step_fn = build_train_step(cfg, opt, mesh=mesh)
     ds = SyntheticLM(DataConfig(cfg.vocab, run["seq"], run["batch"],
                                 seed=0))
+    frames = torch.Generator(device=DEV)
+    frames.manual_seed(5)
     kernels = _counters(TRAIN_KERNELS)
     want = _train_counts(cfg, 1)
     _count_reset(kernels)
+    first, dev_ms = None, []
     t0 = time.perf_counter()
-    for step in range(run["steps"]):
+    for step in range(steps):
         batch = {k: torch.from_numpy(v).to(DEV)
                  for k, v in ds.batch_at(step).items()}
         batch["enc_embeds"] = torch.randn(
-            (run["batch"], cfg.encoder.seq_len, cfg.d_model), generator=gen,
+            (run["batch"], cfg.encoder.seq_len, cfg.d_model), generator=frames,
             device=DEV)
         c0 = {n_: k.launches for n_, k in kernels.items()}
         params, opt_state, m, h, ev = _step_timed(step_fn, params, opt_state,
@@ -4520,7 +4569,9 @@ def phase_train_whisper(gen) -> dict:
         if got != want or not math.isfinite(m["loss"]):
             raise AssertionError(f"whisper step {step}: launches {got} "
                                  f"(expected {want}), metrics {m}")
-        say(f"[train] (c) {cfg.name}, {cfg.encoder.layers} + {cfg.layers} "
+        first = first or m
+        dev_ms.append(ev)
+        say(f"[train] {tag} {cfg.name}, {cfg.encoder.layers} + {cfg.layers} "
             f"of 32 + 32 layers (reduced: depth only), {run['batch']} rows "
             f"of 1500 frames and {run['seq']} tokens, step {step}: loss "
             f"{m['loss']!r} grad_norm {m['grad_norm']!r}; host "
@@ -4530,15 +4581,18 @@ def phase_train_whisper(gen) -> dict:
     shapes = {n_: dict(k.shapes) for n_, k in kernels.items()}
     _train_lens(shapes)
     cold = stats.cold_builds - cold0
-    say(f"[train] (c) launches {json.dumps(launches)}; cold dispatch "
-        f"builds after warm-up: {cold}")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    say(f"[train] {tag} launches {json.dumps(launches)}; cold dispatch "
+        f"builds after warm-up: {cold}; peak device memory {peak:.2f} GB")
     if cold:
         raise AssertionError(f"{cold} dispatches resolved cold after warm-up")
     del params, opt_state
     gc.collect()
     torch.cuda.empty_cache()
     return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
-            "launches": launches, "shapes": shapes, "steps": run["steps"]}
+            "launches": launches, "shapes": shapes, "steps": steps,
+            "first": first, "per_step": want, "cold": cold, "peak_gb": peak,
+            "step_ms": sorted(dev_ms[1:])[len(dev_ms[1:]) // 2]}
 
 
 def phase_train_parity(archs=TRAIN_PARITY) -> None:
@@ -5204,11 +5258,39 @@ def phase_multi_llama4(mesh, gen, ref: dict) -> dict:
 MESH_LLAMA_RUN = dict(TRAIN_RUN, steps=3, ckpt_at=None)
 #: 14 (g): the abstract meshes whose rank keys are warmed and launched.
 RANK_MESHES = ((1, 4), (1, 8))
-#: 14 (g): (config, layers, mesh) of the four-card cells the layout sizes
-#: (``Layout.rank_bytes()`` on the meta device; nothing allocated).
-CELL_SIZES = (("llama3_8b", None, (1, 4)),
-              ("llama4_scout_17b_a16e", 4, (4, 1)),
-              ("kimi_k2_1t_a32b", 1, (4, 1)))
+#: 14 (g), (j): (config, layers, mesh, perf flags) of the four-card cells
+#: the layout sizes (``Layout.rank_bytes()`` on the meta device; nothing
+#: allocated).
+CELL_SIZES = (("llama3_8b", None, (1, 4), ()),
+              ("llama4_scout_17b_a16e", 4, (4, 1), ("moe_a2a",)),
+              ("kimi_k2_1t_a32b", 1, (4, 1), ("moe_a2a",)))
+#: 14 (j)'s cells: the SSD-hybrid and whisper under tensor parallelism,
+#: kimi-k2's dense MoE layer under expert parallelism.
+BLOCK_CELL_SIZES = (("hymba_1p5b", None, (1, 4), ()),
+                    ("whisper_large_v3", None, (1, 4), ()),
+                    ("kimi_k2_1t_a32b", 1, (4, 1), ()))
+#: 14 (h), (i): 13 (g)'s, (h)'s and (j)'s runs through the mesh step, two
+#: steps each, no checkpoint (13 (g) holds the restart).
+MESH_MAMBA_RUN = dict(MAMBA_TRAIN, steps=2, ckpt_at=None)
+MESH_HYMBA_RUN = dict(HYMBA_TRAIN, steps=2)
+MESH_LLAMA4_RUN = dict(LLAMA4_TRAIN, steps=2)
+#: 14 (j): a dense MoE rank of (4, 1): 8 rows of 1024 tokens in 2
+#: microbatches, one row (one routing group) a rank a microbatch: the
+#: groups shard over ``data``.
+EP_RUN = dict(batch=8, seq=1024, microbatches=2)
+#: 14 (j): (config, layers, run, abstract meshes, the families whose
+#: launch signatures are timed) of the keys a four-card rank launches.
+BLOCK_KEYS = (
+    ("mamba2_130m", None, MAMBA_TRAIN, ((1, 4), (1, 8)),
+     ("ssd_scan_h100", "ssd_scan_bwd_h100")),
+    ("hymba_1p5b", HYMBA_LAYERS, HYMBA_TRAIN, ((1, 4), (1, 8)),
+     ("ssd_scan_h100", "ssd_scan_bwd_h100")),
+    ("whisper_large_v3", WHISPER_TRAIN["layers"],
+     dict(WHISPER_TRAIN, microbatches=1), ((1, 4), (1, 8)),
+     ("flash_attention_h100", "flash_attention_bwd_h100")),
+    ("llama4_scout_17b_a16e", LLAMA4_LAYERS, EP_RUN, ((4, 1),),
+     ("matmul_h100_batched", "transpose_h100_batched")),
+    ("kimi_k2_1t_a32b", 1, EP_RUN, ((4, 1),), ("matmul_h100_batched",)))
 
 
 def same_as_one_card(tag: str, rec: dict, ref: dict, what: str) -> None:
@@ -5288,31 +5370,58 @@ def phase_multi_llama3(mesh, ref: dict) -> dict:
     return rec
 
 
-def _rank_launches(op, gen) -> None:
+def _rank_launches(op, gen, cfg=None, rows: int = 4, heads=None,
+                   experts=None) -> None:
     """What the model launches for a traced forward key of a train step,
-    as ``layers.proj`` and ``layers._rows_attention`` launch it while
-    autograd records: K1 at (M, N, K) bf16 through ``MatmulFn`` and its
-    backward (K1's dA and dB, K4's transposes); K2 at (SQ, HD, GROUP, HK)
-    through ``AttentionFn`` over rows of SQ keys, and K2b."""
-    from repro_torch.kernels.autograd import AttentionFn, MatmulFn
+    as ``layers.proj``, ``layers._rows_attention``, ``layers.ssm_block``
+    and ``moe.experts_swiglu`` launch it while autograd records: K1 at
+    (M, N, K) bf16 through ``MatmulFn`` and its backward (K1's dA and dB,
+    K4's transposes), and at an expert site over ``experts`` experts
+    through ``BatchedMatmulFn`` (K1's and K4's batched entries); K2 at
+    (SQ, HD, GROUP, HK) through ``AttentionFn`` over ``rows`` rows, and
+    K2b: causal over SQ keys (``cfg``'s window), non-causal in whisper's
+    encoder and over its 1500 frames in the cross-attention; K3 at (SQ,
+    HD, STATE) over ``heads`` heads through ``SsdScanFn``, and K3b."""
+    from repro_torch.kernels.autograd import (AttentionFn, BatchedMatmulFn,
+                                              MatmulFn, SsdScanFn)
     d = op.data_dict()
+    bf16 = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV,
+                           dtype=bf16).requires_grad_()
+
+    fwd = [s for s in op.sites
+           if not s.endswith((".dA", ".dB", ".wT", ".xT", ".bwd"))]
     if op.family == "matmul_h100":
-        a = torch.randn((d["M"], d["K"]), generator=gen, device=DEV,
-                        dtype=torch.bfloat16).requires_grad_()
-        b = torch.randn((d["K"], d["N"]), generator=gen, device=DEV,
-                        dtype=torch.bfloat16).requires_grad_()
-        MatmulFn.apply(a, b).backward(torch.ones(
-            (d["M"], d["N"]), device=DEV, dtype=torch.float32))
+        M, N, K = d["M"], d["N"], d["K"]
+        if any(".moe.expert_" in s for s in fwd):
+            BatchedMatmulFn.apply(randn(experts, M, K),
+                                  randn(experts, K, N)).sum().backward()
+        if any(".moe.expert_" not in s for s in fwd):
+            MatmulFn.apply(randn(M, K), randn(K, N)).backward(torch.ones(
+                (M, N), device=DEV, dtype=torch.float32))
+    elif op.family == "ssd_scan_h100":
+        S, hd, n = d["SQ"], d["HD"], d["STATE"]
+        a = torch.rand((rows, S, heads), generator=gen, device=DEV)
+        a = (0.05 + 0.9 * a).requires_grad_()
+        y, _ = SsdScanFn.apply(randn(rows, S, heads, hd), a,
+                               randn(rows, S, n), randn(rows, S, n), None,
+                               None, None, None)
+        y.float().sum().backward()
     else:
-        R, S = 4, d["SQ"]
+        S = d["SQ"]
         h, hk = d["GROUP"] * d["HK"], d["HK"]
-        q = torch.randn((R, h, S, d["HD"]), generator=gen, device=DEV,
-                        dtype=torch.bfloat16).requires_grad_()
-        k, v = (torch.randn((R, S, hk, d["HD"]), generator=gen, device=DEV,
-                            dtype=torch.bfloat16).requires_grad_()
-                for _ in range(2))
-        lens = torch.full((R,), S, dtype=torch.int32, device=DEV)
-        AttentionFn.apply(q, k, v, None, lens, True, None).sum().backward()
+        kinds = {(".xattn." not in s and ".encode." not in s,
+                  cfg.encoder.seq_len if ".xattn." in s else S)
+                 for s in fwd} if cfg is not None else {(True, S)}
+        for causal, sk in sorted(kinds):
+            window = cfg.window if cfg is not None and causal else None
+            q = randn(rows, h, S, d["HD"])
+            k, v = randn(rows, sk, hk, d["HD"]), randn(rows, sk, hk, d["HD"])
+            lens = torch.full((rows,), sk, dtype=torch.int32, device=DEV)
+            AttentionFn.apply(q, k, v, None, lens, causal,
+                              window).sum().backward()
 
 
 def phase_multi_keys(gen) -> dict:
@@ -5374,26 +5483,153 @@ def phase_multi_keys(gen) -> dict:
             say(f"[multi] (g) {n} {sig[:-1]}: {fmt(row)}")
             torch.cuda.empty_cache()
     _count_reset(kernels)
-    for arch, layers, shape in CELL_SIZES:
-        c = get_config(arch)
-        c = c.scaled(layers=layers) if layers else c
-        if c.moe is not None:
-            c = c.scaled(perf_flags=("moe_a2a",))
-        cell = abstract_mesh(shape, ("data", "model"))
-        say(f"[multi] (g) four-card cell: {layout_line(c, cell)}")
+    cell_lines("(g)", CELL_SIZES)
     return rows
 
 
-def phase_multi(gen, llama4_ref: dict, llama3_ref: dict,
-                kimi_tokens) -> tuple:
+def cell_lines(tag: str, cells) -> None:
+    """:func:`layout_line` of each four-card cell of ``cells``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import abstract_mesh
+    for arch, layers, shape, flags in cells:
+        c = get_config(arch)
+        c = c.scaled(layers=layers, perf_flags=flags) if layers else \
+            c.scaled(perf_flags=flags)
+        cell = abstract_mesh(shape, ("data", "model"))
+        say(f"[multi] {tag} four-card cell: {layout_line(c, cell)}")
+
+
+def phase_multi_blocks(gen, mesh, refs: list) -> list:
+    """(h) 13 (g)'s mamba2-130m, (h)'s hymba-1.5b and (c)'s
+    whisper-large-v3 runs through the mesh step over the NCCL mesh, two
+    steps each; (i) 13 (j)'s llama4-scout run (no ``moe_a2a``: the dense
+    MoE layer's expert-parallel code) through it: each by
+    :func:`same_as_one_card` against its phase 13 record (``refs``:
+    phase 13's training paths, in order (b), (c), (g), (h), (j)).
+    Returns the four records."""
+    from repro_torch.configs import get_config
+    recs = []
+    for arch, layers, run, ref, what in (
+            ("mamba2_130m", None, MESH_MAMBA_RUN, refs[2], "13 (g)"),
+            ("hymba_1p5b", HYMBA_LAYERS, MESH_HYMBA_RUN, refs[3], "13 (h)")):
+        t0 = time.perf_counter()
+        rec = train_path("(14 h)", get_config(arch), layers, run, mesh=mesh)
+        same_as_one_card(f"(h) {arch}", rec, ref, what)
+        say(f"[multi] (h) {arch} {time.perf_counter() - t0:.1f} s")
+        recs.append(rec)
+    t0 = time.perf_counter()
+    rec = phase_train_whisper(gen, mesh=mesh, tag="(14 h)")
+    same_as_one_card("(h) whisper_large_v3", rec, refs[1], "13 (c)")
+    say(f"[multi] (h) whisper_large_v3 {time.perf_counter() - t0:.1f} s")
+    recs.append(rec)
+    t0 = time.perf_counter()
+    rec = train_path("(14 i)", get_config("llama4_scout_17b_a16e"),
+                     LLAMA4_LAYERS, MESH_LLAMA4_RUN, mesh=mesh)
+    same_as_one_card("(i)", rec, refs[4], "13 (j)")
+    say(f"[multi] (i) {time.perf_counter() - t0:.1f} s")
+    recs.append(rec)
+    return recs
+
+
+def phase_multi_block_keys(gen) -> dict:
+    """(j) The keys a four-card rank of this slice's blocks launches
+    (:data:`BLOCK_KEYS`): each config at full width on its abstract
+    meshes, ``warm_train_dispatch(mesh=)`` freezing the rank's keys, every
+    traced forward key launched as the model launches it (its backward
+    too; an SSD scan at the rank's heads, ``layers.ssm_tp_plan``; the
+    experts at the rank's E / data of them) with no cold build; then each
+    launch signature of the families the config names held against its
+    plain version at its tolerance on cold inputs and timed beside its
+    library call.  Then ``Layout.rank_bytes()`` of
+    :data:`BLOCK_CELL_SIZES`.  These launches check kernels: no main
+    path's.  Returns {name: {sig: row}}."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.layers import ssm_tp_plan
+    from repro_torch.plans.trace import trace_train_warm_set
+    from repro_torch.runtime import warm_train_dispatch
+    import dataclasses
+    kernels = _counters(TRAIN_KERNELS)
+    stats = get_default_cache().stats
+    rows = {n: {} for n in kernels}
+    for arch, layers, run, shapes, timed in BLOCK_KEYS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.scaled(layers=layers)
+        if cfg.encoder is not None:
+            cfg = cfg.scaled(encoder=dataclasses.replace(cfg.encoder,
+                                                         layers=layers))
+        kw = dict(global_batch=run["batch"], seq=run["seq"],
+                  microbatches=run["microbatches"])
+        for shape in shapes:
+            mesh = abstract_mesh(shape, ("data", "model"))
+            t0 = time.perf_counter()
+            warm_train_dispatch(cfg, mesh=mesh, **kw)
+            ops_ = trace_train_warm_set(cfg, mesh=mesh, **kw)
+            fwd = [op for op in ops_ if any(
+                not s.endswith((".dA", ".dB", ".wT", ".xT", ".bwd"))
+                for s in op.sites)]
+            t, n = shape[1], shape[0]
+            heads = experts = None
+            if cfg.ssm is not None:
+                plan = ssm_tp_plan(cfg, t, 0)
+                heads = plan["h1"] - plan["h0"] if plan else cfg.ssm.heads
+            if cfg.moe is not None:
+                E = cfg.moe.num_experts
+                experts = E // n if E % n == 0 else E
+            R = run["batch"] // run["microbatches"] // n
+            cold0 = stats.cold_builds
+            _count_reset(kernels)
+            for op in fwd:
+                _rank_launches(op, gen, cfg, rows=R, heads=heads,
+                               experts=experts)
+            torch.cuda.synchronize()
+            cold = stats.cold_builds - cold0
+            sigs = {name: dict(k.shapes) for name, k in kernels.items()}
+            _count_reset(kernels)
+            _train_lens(sigs)
+            keys = sorted(f"{op.family.replace('_h100', '')} "
+                          f"{dict(op.data)}" for op in fwd
+                          if op.family != "matmul_h100"
+                          or any(".moe." in s for s in op.sites))
+            say(f"[multi] (j) {cfg.name} on {shape}: {len(ops_)} (family, "
+                f"key) pairs traced and frozen, {len(fwd)} forward keys "
+                f"launched with their backwards in "
+                f"{time.perf_counter() - t0:.2f} s"
+                + (f", SSD heads a rank {heads} of {cfg.ssm.heads}"
+                   if heads else "")
+                + (f", experts a rank {experts} of {cfg.moe.num_experts}"
+                   if experts else "")
+                + f"; cold builds {cold}; keys beside K1's: "
+                + "; ".join(keys))
+            if cold:
+                raise AssertionError(f"(j) {cfg.name} {shape}: {cold} cold "
+                                     "builds")
+            for name in timed:
+                for sig in sorted(sigs[name], key=str):
+                    if sig not in rows[name]:
+                        rows[name][sig] = CASES[name](sig, gen, timed=True)
+                        say(f"[multi] (j) {cfg.name} {name} {sig[:-1]}: "
+                            f"{fmt(rows[name][sig])}")
+                        torch.cuda.empty_cache()
+    cell_lines("(j)", BLOCK_CELL_SIZES)
+    return rows
+
+
+def phase_multi(gen, refs: list, kimi_tokens) -> tuple:
     """Phase 14, on split workspaces of its own: (a) the NCCL group and
     mesh; (b) the MoE smoke configs' mesh step, card against CPU; (c)
     llama4-scout's training through the a2a at full width, on the layout
     the mesh step realises (FSDP over the batch axes, ZeRO-1), which (f)
     holds to (j); (e) llama3-8b's training through the mesh step, held to
-    13 (b); (g) a four-card rank's keys; (d) kimi-k2 served from padded
-    expert storage, its tokens phase 8's.  Returns ((c)'s and (e)'s
-    training path records, (d)'s serve path record, (g)'s rows)."""
+    13 (b); (g) a four-card rank's keys; (h) the SSD, hybrid and whisper
+    training paths and (i) llama4-scout's dense MoE one through the mesh
+    step, held to phase 13's (``refs``: its training paths (b), (c), (g),
+    (h), (j)); (j) a four-card rank's keys of those blocks; (d) kimi-k2
+    served from padded expert storage, its tokens phase 8's.  Returns
+    ((c)'s, (e)'s, (h)'s and (i)'s training path records, (d)'s serve
+    path record, (g)'s and (j)'s rows)."""
     import shutil
     import torch.distributed as tdist
     from repro_torch.configs import get_config
@@ -5406,6 +5642,7 @@ def phase_multi(gen, llama4_ref: dict, llama3_ref: dict,
         phase_multi_parity()
         say(f"[multi] (b) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
+        llama4_ref, llama3_ref = refs[4], refs[0]
         llama4 = phase_multi_llama4(mesh, gen, llama4_ref)
         say(f"[multi] (c) {time.perf_counter() - t0:.1f} s")
         # (f): (c) ran llama4-scout under its FSDP rules and ZeRO-1 (the
@@ -5420,6 +5657,13 @@ def phase_multi(gen, llama4_ref: dict, llama3_ref: dict,
         t0 = time.perf_counter()
         keys = phase_multi_keys(gen)
         say(f"[multi] (g) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        blocks = phase_multi_blocks(gen, mesh, refs)
+        say(f"[multi] (h), (i) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for name, by_sig in phase_multi_block_keys(gen).items():
+            keys.setdefault(name, {}).update(by_sig)
+        say(f"[multi] (j) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     serve = phase_serve("kimi_k2_1t_a32b", NEW_KW, NEW_LENS, layers=1,
                         padded=True)
@@ -5431,7 +5675,7 @@ def phase_multi(gen, llama4_ref: dict, llama3_ref: dict,
         raise AssertionError("padded storage changed kimi-k2's tokens")
     tdist.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)
-    return [llama4, llama3], serve, keys
+    return [llama4, llama3] + blocks, serve, keys
 
 
 def main() -> int:
@@ -5510,7 +5754,7 @@ def main() -> int:
     t1 = time.perf_counter()
     n_new = len(PATHS) + len(NEW_PATHS)
     multi_train, multi_serve, multi_rows = phase_multi(
-        gen, train_paths[4], train_paths[0], paths[n_new - 1]["tokens"])
+        gen, train_paths, paths[n_new - 1]["tokens"])
     for name, by_sig in multi_rows.items():
         errs[name] = max([errs.get(name, 0.0)]
                          + [r["err"] for r in by_sig.values()])

@@ -18,6 +18,9 @@ losses:
   adjoint is a reduce-scatter along that dim (``reduce_scatter_tensor``
   on NCCL; gloo has none and keeps an all-reduce and a chunk, the same
   sums).
+* :func:`scatter_sum` — the sum over the group, this rank's chunk of it
+  along a dim (the dense MoE layer's partial outputs back to each rank's
+  rows); its adjoint gathers the chunks' gradients.
 
 Ranks along ``model`` compute one loss together (tensor parallelism, the
 Megatron pair): a tensor replicated over them is one value, so
@@ -29,7 +32,8 @@ Megatron pair): a tensor replicated over them is one value, so
   row-parallel projection's output); its backward is the identity.
 
 Over a group of one rank :func:`gather`, :func:`reduce_scatter`,
-:func:`copy_to` and :func:`reduce_from` return the tensor itself.
+:func:`scatter_sum`, :func:`copy_to` and :func:`reduce_from` return the
+tensor itself.
 """
 from __future__ import annotations
 
@@ -136,6 +140,17 @@ class _Gather(torch.autograd.Function):
         return reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_along(g, ctx.dim, ctx.group), None, None
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -165,6 +180,12 @@ def gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim``; the backward
     reduce-scatters along it."""
     return x if _size(group) == 1 else _Gather.apply(x, dim, group)
+
+
+def scatter_sum(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of every rank's ``x``;
+    the backward gathers the gradient along it."""
+    return x if _size(group) == 1 else _ScatterSum.apply(x, dim, group)
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:

@@ -15,13 +15,13 @@ ZeRO-1), :func:`train_batch_specs`, :func:`cache_specs` and
 What the ranks hold (:func:`state_layout`) is the JAX layout itself:
 each parameter by its spec (tensor parallelism over ``model``, FSDP of
 ``embed`` over the batch axes for :data:`~repro_torch.distributed.
-sharding.FSDP_ARCHS`), each optimizer-state leaf by its ZeRO-1 spec, the
+sharding.FSDP_ARCHS`, a dense MoE layer's experts over ``data`` and their
+``ff`` over ``model``), each optimizer-state leaf by its ZeRO-1 spec, the
 batch's rows by :func:`train_batch_specs`.  The one exception is the
 expert stacks of a ``moe_a2a`` config, held over the all-to-all's group
-as the JAX schedule's ``shard_map`` takes them (:func:`expert_spec`);
-the JAX rules would put llama4-scout's experts over ``data`` and their
-``ff`` over ``model``.  :func:`rank_state` builds a rank's state leaf by
-leaf, never the whole tree.
+as the JAX schedule's ``shard_map`` takes them (:func:`expert_spec`).
+:func:`rank_state` builds a rank's state leaf by leaf, never the whole
+tree.
 """
 from __future__ import annotations
 
@@ -314,7 +314,9 @@ def state_layout(cfg: ModelConfig, mesh, params: PyTree,
     specs, but for a ``moe_a2a`` config's expert stacks and their state,
     held by :func:`expert_spec` (padded to a multiple of the group where E
     does not divide).  ``gathered`` lists the FSDP entries (over the batch
-    axes, of more than one rank) of each parameter but those experts."""
+    axes, of more than one rank) of each parameter but those experts; a
+    dense expert stack's expert dim is never among them (the layer runs
+    the rank's experts, :mod:`~repro_torch.models.moe`)."""
     a2a = a2a_active(cfg, mesh)
     p_sh, o_sh, _ = state_shardings(cfg, mesh, params, param_axes(cfg),
                                     opt_state)
@@ -331,7 +333,8 @@ def state_layout(cfg: ModelConfig, mesh, params: PyTree,
             entries = tuple((dim, dist.entry_axes(e)) for dim, e in
                             enumerate(spec) if dist.entry_axes(e)
                             and set(dist.entry_axes(e)) <= batch
-                            and mesh.axis_size(dist.entry_axes(e)) > 1)
+                            and mesh.axis_size(dist.entry_axes(e)) > 1
+                            and not (dim == 1 and _is_expert(path)))
             if prefix in ((), (0,)) and entries and not expert:
                 gathered[prefix + path] = entries
     items = list(dist.tree_items(tree))

@@ -26,7 +26,13 @@ the output over ``model``; ``embed`` looks up the rows the rank holds and
 all-reduces, ``unembed`` gives the rank's vocab columns.  The rank
 computes the heads its ``wo`` rows need (:func:`tp_heads`); where its
 columns do not hold whole heads and their KV heads, the projections'
-outputs are gathered over ``model`` first.  The collectives are
+outputs are gathered over ``model`` first.  Cross-attention projects its
+K/V from the encoder output the same way.  The SSD block
+(:func:`ssm_block`) is column-parallel in ``wx``, row-parallel in ``wo``;
+``wb`` and ``wc`` hold the rank's columns of the state dim, whose
+projections are gathered whole (B and C are shared across heads); ``wa``
+and ``a_bias`` hold the rank's heads where the head count divides, and
+are whole otherwise (:func:`ssm_tp_plan`).  The collectives are
 :mod:`repro_torch.distributed.comm`'s Megatron pair, so every rank along
 ``model`` backpropagates the one loss they compute together.
 """
@@ -222,24 +228,29 @@ def tp_heads(cfg: ModelConfig, t: int, j: int) -> Dict[str, int]:
 
 
 def _tp_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, t: int,
-                  *, positions: torch.Tensor, causal: bool) -> torch.Tensor:
+                  *, positions: torch.Tensor, causal: bool,
+                  context: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`attention` without a cache over ``model`` ranks: each
-    column-parallel projection of ``copy_to(x)`` gives the rank's columns
-    (a weight whose ``kv_proj`` does not divide is whole, and enters
-    through ``copy_to`` too: the rank reads only some of its heads); the
-    columns of the heads :func:`tp_heads` names come from the rank's own
-    where it holds them, else from the projection's output gathered over
+    column-parallel projection of ``copy_to(x)`` (K/V of
+    ``copy_to(context)`` for cross-attention) gives the rank's columns (a
+    weight whose ``kv_proj`` does not divide is whole, and enters through
+    ``copy_to`` too: the rank reads only some of its heads); the columns of
+    the heads :func:`tp_heads` names come from the rank's own where it
+    holds them, else from the projection's output gathered over
     ``model``; the output columns of its ``wo`` rows go through ``wo`` and
-    one all-reduce (``reduce_from``)."""
+    one all-reduce (``reduce_from``).  Cross-attention puts RoPE on
+    neither q nor k and masks nothing."""
     B, Sq, _ = x.shape
     hd = cfg.hd
     mesh = dist.current_mesh()
     group = mesh.group(("model",))
     plan = tp_heads(cfg, t, mesh.coords()["model"])
     xin = copy_to(x, group)
+    src = xin if context is None else copy_to(context, group)
+    Sk = src.shape[1]
 
-    def column(wname: str, bname: str, whole: int, lo: int, hi: int
-               ) -> torch.Tensor:
+    def column(wname: str, bname: str, whole: int, lo: int, hi: int,
+               inp: torch.Tensor) -> torch.Tensor:
         w, b = p[wname], p.get(bname) if cfg.qkv_bias else None
         if model_split(w, 1, whole) == 1:
             w = copy_to(w, group)
@@ -247,7 +258,7 @@ def _tp_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, t: int,
             c0 = 0
         else:
             c0 = mesh.coords()["model"] * w.shape[1]
-        y = proj(xin, w)
+        y = proj(inp, w)
         if b is not None:
             y = y + b.to(x.dtype)
         if not (c0 <= lo and hi <= c0 + y.shape[-1]):
@@ -256,18 +267,23 @@ def _tp_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, t: int,
 
     h0, h1, k0, k1 = plan["h0"], plan["h1"], plan["k0"], plan["k1"]
     nq, nk = cfg.heads * hd, cfg.kv_heads * hd
-    q = column("wq", "bq", nq, h0 * hd, h1 * hd).reshape(B, Sq, h1 - h0, hd)
-    k = column("wk", "bk", nk, k0 * hd, k1 * hd).reshape(B, Sq, k1 - k0, hd)
-    v = column("wv", "bv", nk, k0 * hd, k1 * hd).reshape(B, Sq, k1 - k0, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = column("wq", "bq", nq, h0 * hd, h1 * hd, xin).reshape(
+        B, Sq, h1 - h0, hd)
+    k = column("wk", "bk", nk, k0 * hd, k1 * hd, src).reshape(
+        B, Sk, k1 - k0, hd)
+    v = column("wv", "bv", nk, k0 * hd, k1 * hd, src).reshape(
+        B, Sk, k1 - k0, hd)
+    if context is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if plan["group"] == 1 and k1 - k0 != h1 - h0:
         g = cfg.heads // cfg.kv_heads
         idx = torch.tensor([(h0 + i) // g - k0 for i in range(h1 - h0)],
                            device=x.device)
         k, v = k[:, :, idx], v[:, :, idx]
-    out = _rows_attention(q, k, v.contiguous(), _full(B, Sq, x.device),
-                          causal=causal, window=cfg.window)
+    out = _rows_attention(q, k.contiguous(), v.contiguous(),
+                          _full(B, Sk, x.device), causal=causal,
+                          window=cfg.window if context is None else None)
     lo = plan["c0"] - h0 * hd
     out = out.reshape(B, Sq, (h1 - h0) * hd)[..., lo:lo + plan["c1"]
                                              - plan["c0"]]
@@ -310,13 +326,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     nh, nk, hd = cfg.heads, cfg.kv_heads, cfg.hd
     t = model_split(p["wq"], 1, nh * hd)
     if t > 1:
-        if cache is not None or context is not None \
-                or precomputed_kv is not None or return_kv:
+        if cache is not None or precomputed_kv is not None or return_kv:
             raise NotImplementedError(
-                "tensor parallelism covers self-attention without a cache "
-                "(the training forward)")
+                "tensor parallelism covers self- and cross-attention "
+                "without a cache (the training forward)")
         return _tp_attention(p, x, cfg, t, positions=positions,
-                             causal=causal)
+                             causal=causal, context=context)
     q = proj(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
@@ -374,6 +389,78 @@ def ssm_decays(p: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(proj(x.float(), p["wa"]) + p["a_bias"])
 
 
+def ssm_tp_plan(cfg: ModelConfig, t: int, j: int) -> Optional[Dict[str, int]]:
+    """The SSD heads rank ``j`` of ``t`` along ``model`` computes, or None
+    where the block's leaves are all whole (none of d_inner, the state
+    and the head count divides by t: every rank runs the block as one
+    process does).  Its ``wo`` rows are the d_inner columns [c0, c1)
+    (``j·d_inner // t`` on), which the heads [h0, h1) cover; a head cut
+    by a rank boundary is scanned whole by both ranks, each keeping its
+    columns of the output."""
+    s = cfg.ssm
+    di = s.heads * s.head_dim
+    if t == 1 or all(n % t for n in (di, s.state, s.heads)):
+        return None
+    c0, c1 = j * di // t, (j + 1) * di // t
+    return {"c0": c0, "c1": c1, "h0": c0 // s.head_dim,
+            "h1": -(-c1 // s.head_dim)}
+
+
+def _cols(y: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+    """Columns [lo, hi) of ``y``'s last dim, contiguous."""
+    return y if (lo, hi) == (0, y.shape[-1]) else y[..., lo:hi].contiguous()
+
+
+def _tp_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            plan: Dict[str, int]) -> torch.Tensor:
+    """:func:`ssm_block` without a state over ``model`` ranks, on the
+    heads of :func:`ssm_tp_plan`'s ``plan``: x's columns of those heads
+    from the rank's ``wx`` columns (gathered over ``model`` where a head
+    is cut), all N columns of b and c (the rank's gathered), the heads'
+    decays (from the rank's ``wa`` heads, or from the whole ``wa``),
+    one K3 call over the heads, and the output columns of the rank's
+    ``wo`` rows through ``wo`` and one all-reduce.  A whole leaf enters
+    through ``copy_to``: the rank reads only part of what it gives."""
+    s = cfg.ssm
+    B, S, _ = x.shape
+    hd, di = s.head_dim, s.heads * s.head_dim
+    mesh = dist.current_mesh()
+    group = mesh.group(("model",))
+    c0, c1, h0, h1 = plan["c0"], plan["c1"], plan["h0"], plan["h1"]
+    xin = copy_to(x, group)
+
+    def split(name: str, dim: int, whole: int) -> bool:
+        return model_split(p[name], dim, whole) > 1
+
+    if split("wx", 1, di):
+        xi, at = proj(xin, p["wx"]), c0
+        if (h0 * hd, h1 * hd) != (c0, c1):
+            xi, at = gather(xi, -1, group), 0
+    else:
+        xi, at = proj(xin, copy_to(p["wx"], group)), 0
+    xi = _cols(xi, h0 * hd - at, h1 * hd - at).reshape(B, S, h1 - h0, hd)
+
+    def shared(name: str) -> torch.Tensor:
+        if split(name, 1, s.state):
+            return gather(proj(xin, p[name]), -1, group)
+        return proj(xin, copy_to(p[name], group))
+
+    b, c = shared("wb"), shared("wc")
+    if split("wa", 1, s.heads):
+        a = torch.sigmoid(proj(xin.float(), p["wa"]) + p["a_bias"])
+    else:
+        a = torch.sigmoid(proj(xin.float(), copy_to(p["wa"], group))
+                          + copy_to(p["a_bias"], group))
+        a = _cols(a, h0, h1)
+    if recording(xi, a, b, c):
+        y, _ = SsdScanFn.apply(xi, a, b, c, None, None, None, None)
+    else:
+        y, _ = ops.ssd_scan(xi, a, b, c, None)
+    y = _cols(y.reshape(B, S, (h1 - h0) * hd), c0 - h0 * hd, c1 - h0 * hd)
+    wo = p["wo"] if split("wo", 0, di) else copy_to(p["wo"], group)[c0:c1]
+    return reduce_from(proj(y, wo), group)
+
+
 def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               state: Optional[torch.Tensor] = None,
               out_state: Optional[torch.Tensor] = None,
@@ -390,9 +477,23 @@ def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     decode step alike, is one K3 call over all rows.  While autograd
     records, the scan goes through ``SsdScanFn`` (K3 forward, K3b
     backward), which refuses the serve-only ``out_state``, ``mask`` and
-    ``state_rows``."""
+    ``state_rows``.  Where a leaf holds the rank's part along the mesh's
+    ``model`` axis, tensor-parallel (:func:`_tp_ssm`; the training
+    forward: no state, and the final state is None)."""
     s = cfg.ssm
     B, S, _ = x.shape
+    mesh = dist.current_mesh()
+    t = mesh.shape.get("model", 1) if mesh is not None else 1
+    split = t > 1 and any(
+        model_split(p[name], 1, whole) > 1 for name, whole in (
+            ("wx", s.heads * s.head_dim), ("wb", s.state), ("wa", s.heads)))
+    if split:
+        if any(v is not None for v in (state, out_state, mask, state_rows)):
+            raise NotImplementedError(
+                "tensor parallelism covers the SSD block without a state "
+                "(the training forward)")
+        plan = ssm_tp_plan(cfg, t, mesh.coords()["model"])
+        return _tp_ssm(p, x, cfg, plan), None
     xi = proj(x, p["wx"]).reshape(B, S, s.heads, s.head_dim)
     b = proj(x, p["wb"])                                    # (B, S, state)
     c = proj(x, p["wc"])

@@ -9,9 +9,24 @@ softmax is f32, as in the JAX layer; the expert SwiGLU runs on K1's batched
 entry (``ops.matmul_batched``), one launch a projection for all E experts
 at their capacity of C token rows.  The one-hot dispatch and combine
 contractions are plain ``torch.einsum``, as they are plain einsum outside
-any Pallas kernel in the JAX layer.  The JAX layer's sharding constraints
-are layout hints to GSPMD, which the port does not have; under a mesh the
-``moe_a2a`` schedule (:mod:`.moe_a2a`) is the port's expert parallelism.
+any Pallas kernel in the JAX layer.
+
+Under a mesh (a mesh step) the layer is expert-parallel as JAX's rules
+shard it: the experts over ``data``, their ``ff`` over ``model``, each
+rank's x its rows of the microbatch.  GSPMD keeps the one-device meaning,
+so the layer gives what it gives over the whole microbatch: the group
+size, the capacity and the padding come from the microbatch's tokens over
+every batch rank.  Where the rank's rows are whole groups, it routes them
+itself, and one all-to-all over ``data`` brings every group's rows of its
+experts to each rank (and a second one the outputs home); otherwise every
+rank gathers the microbatch's rows, routes all of them as one device
+does, runs its experts over every group and sums the experts' outputs
+back onto each rank's rows (:func:`~repro_torch.distributed.comm.
+scatter_sum`).  The experts' SwiGLU is column- then row-parallel over
+``model`` inside each expert.  The load-balance statistics are the whole
+microbatch's on every rank, so every rank's loss holds the whole aux
+loss.  The ``moe_a2a`` schedule (:mod:`.moe_a2a`) is the other expert
+parallelism, under its flag.
 
 Under the ``moe_a2a`` flag an E >= 256 config stores its experts padded to
 a multiple of 512 (:func:`a2a_padded_experts`), as the JAX init does; this
@@ -45,10 +60,13 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as dist
+from ..distributed.comm import (all_reduce_sum, all_to_all, copy_to, gather,
+                                reduce_from, scatter_sum)
 from ..kernels import ops
 from ..kernels.autograd import BatchedMatmulFn, MatmulFn
 from .config import ModelConfig
-from .layers import recording
+from .layers import model_split, recording
 
 Params = Dict[str, Any]
 
@@ -84,43 +102,114 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+class _Parts:
+    """Where the current mesh puts a dense MoE layer (every size 1 and
+    every group None without a mesh): its batch ranks (``n_b``, this
+    rank's index ``b``, their group), its expert shards over ``data``
+    (``n_e``, the rank's first expert ``e0``, their group) and its
+    ``model`` group where the experts' ``ff`` is split."""
+
+    def __init__(self, p: Params, cfg: ModelConfig):
+        E = cfg.moe.num_experts
+        mesh = dist.current_mesh()
+        self.n_b, self.b, self.batch = 1, 0, None
+        self.n_e, self.e0, self.experts, self.model = 1, 0, None, None
+        held = p["wi"].shape[0]
+        if mesh is not None:
+            axes = dist.batch_axes(mesh)
+            self.n_b, self.b = mesh.axis_size(axes), mesh.axis_index(axes)
+            if self.n_b > 1:
+                self.batch = mesh.group(axes)
+            if held < E:
+                self.n_e = E // held
+                if held * self.n_e != E or mesh.shape.get("data") != self.n_e:
+                    raise ValueError(f"{held} of {E} experts a rank: not the "
+                                     "part the 'expert' rule gives")
+                self.e0 = mesh.coords()["data"] * held
+                self.experts = mesh.group(("data",))
+            if model_split(p["wi"], 2, cfg.moe.d_ff_expert) > 1:
+                self.model = mesh.group(("model",))
+
+
 def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               group_size: int = MOE_GROUP_SIZE
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B, S, d), Switch load-balance loss (f32 scalar))."""
+    """Returns (output (B, S, d), Switch load-balance loss (f32 scalar));
+    under a mesh x is the rank's rows and ``p``'s experts its part, and
+    the loss the whole microbatch's (the module's docstring)."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
-    T = B * S
+    at = _Parts(p, cfg)
+    T_l = B * S                               # the rank's tokens
+    T = T_l * at.n_b                          # the microbatch's
     gsz = min(group_size, T)
-    G = -(-T // gsz)
-    Tp = G * gsz
     C = capacity(gsz, E, k, m.capacity_factor)
-    xt = x.reshape(T, d).contiguous()
+    xt = x.reshape(T_l, d).contiguous()
+    whole = at.n_b > 1 and T_l % gsz != 0     # groups straddle the ranks
+    if whole:
+        xt = gather(xt, 0, at.batch)          # backward: a reduce-scatter
+    Tr = xt.shape[0]                          # the tokens routed here
+    G = -(-Tr // gsz)
+    Tp = G * gsz
 
     # ---- routing: a zero padding token has zero logits ---------------------
-    logits = router_logits(p["router"], xt)                       # (T, E) f32
-    if Tp != T:
-        xt = F.pad(xt, (0, 0, 0, Tp - T))
-        logits = F.pad(logits, (0, 0, 0, Tp - T))
+    logits = router_logits(p["router"], xt)                      # (Tr, E) f32
+    if Tp != Tr:
+        xt = F.pad(xt, (0, 0, 0, Tp - Tr))
+        logits = F.pad(logits, (0, 0, 0, Tp - Tr))
     xg = xt.reshape(G, gsz, d)
     dispatch, combine, probs, onehot = route(logits.reshape(G, gsz, E), k, C)
 
     # ---- expert SwiGLU: each projection one batched K1 launch ---------------
-    xin = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
-    xin = xin.reshape(E, G * C, d).contiguous()
     wi, wg, wo = p["wi"], p["wg"], p["wo"]
-    if wi.shape[0] != E:                    # a2a-padded storage, dense path
+    if wi.shape[0] > E:                     # a2a-padded storage, dense path
         wi, wg, wo = wi[:E], wg[:E], wo[:E]
+    E_l = wi.shape[0]
+    if whole:                               # the rank's experts, all groups
+        dispatch = dispatch[:, :, at.e0:at.e0 + E_l]
+        combine = combine[:, :, at.e0:at.e0 + E_l]
+    xin = torch.einsum("gtec,gtd->egcd", dispatch.to(x.dtype), xg)
+    xin = xin.reshape(xin.shape[0], G * C, d).contiguous()
+    n_x = at.n_e if not whole else 1          # expert shards to exchange
+    if n_x > 1:
+        # chunk s of the expert axis to expert rank s: every group's rows
+        # of the rank's E_l experts, [source rank, expert, ...]
+        xin = all_to_all(xin, at.experts).reshape(n_x, E_l, G * C, d)
+        xin = xin.transpose(0, 1).reshape(E_l, n_x * G * C, d)
+    if at.model is not None:
+        xin = copy_to(xin, at.model)
     out = experts_swiglu(xin, wi, wg, wo)
+    if at.model is not None:
+        out = reduce_from(out, at.model)
+    if n_x > 1:
+        out = out.reshape(E_l, n_x, G * C, d).transpose(0, 1)
+        out = all_to_all(out, at.experts)
     y = torch.einsum("gtec,egcd->gtd", combine.to(x.dtype),
-                     out.reshape(E, G, C, d))
-    y = y.reshape(Tp, d)[:T].reshape(B, S, d)
+                     out.reshape(-1, G, C, d))
+    y = y.reshape(Tp, d)[:Tr]
+    if whole:                                 # the rank's rows of the sum
+        y = _rows(y, at)
 
     # ---- Switch aux loss: E * sum_e f_e * p_e -------------------------------
     frac_tokens = onehot[:, :, 0, :].mean(dim=(0, 1))           # top-1 share
     frac_probs = probs.mean(dim=(0, 1))
-    return y, E * (frac_tokens * frac_probs).sum()
+    if at.n_b > 1 and not whole:              # the microbatch's means
+        stats = all_reduce_sum(torch.stack([frac_tokens, frac_probs]),
+                               at.batch) / at.n_b
+        frac_tokens, frac_probs = stats[0], stats[1]
+    return y.reshape(B, S, d), E * (frac_tokens * frac_probs).sum()
+
+
+def _rows(y: torch.Tensor, at: _Parts) -> torch.Tensor:
+    """The rank's rows of the microbatch's output, summed over the expert
+    shards ``y`` (every row, the rank's experts' part) is one of: within
+    the rank's pod, one reduce-scatter over ``data``."""
+    if at.n_e == 1:
+        n = y.shape[0] // at.n_b
+        return y.narrow(0, at.b * n, n)
+    n = y.shape[0] * at.n_e // at.n_b         # a pod's rows
+    return scatter_sum(y.narrow(0, at.b // at.n_e * n, n), 0, at.experts)
 
 
 def _matmul(a, b, fn, op):

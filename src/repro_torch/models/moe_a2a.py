@@ -32,7 +32,8 @@ through ``reduce_from`` of the rank's rows in place, and the statistics
 sum over ``model`` through ``reduce_from`` before the data ranks' sum.
 
 A mesh with a ``pod`` axis of more than one rank is refused: the JAX
-schedule replicates its groups over pods (ROADMAP Queue 1 item 4c).
+schedule replicates its groups over pods (ROADMAP Queue 1 item 4c,
+part 4).
 """
 from __future__ import annotations
 
@@ -77,7 +78,8 @@ def moe_block_a2a(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if mesh.shape.get("pod", 1) > 1:
         raise NotImplementedError(
             "moe_a2a over a mesh of more than one pod is not ported: the "
-            "JAX schedule replicates its groups over pods")
+            "JAX schedule replicates its groups over pods (ROADMAP Queue 1 "
+            "item 4c, part 4)")
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k

@@ -65,25 +65,20 @@ def check_train(cfg: ModelConfig) -> None:
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
     """Raise for a config the mesh train step does not cover on ``mesh``:
-    the ``ssm`` and ``hybrid`` blocks and whisper's encoder-decoder on a
-    ``model`` axis of more than one rank (their tensor parallelism is
-    ROADMAP Queue 1 item 4c; they train on a data-only mesh), and an
-    ``attn_moe`` config on more than one rank without ``moe_a2a``."""
+    the ``moe_a2a`` schedule on a mesh of more than one pod (ROADMAP
+    Queue 1 item 4c, part 4).  Every config takes every single-pod mesh,
+    under its own flags: the attention, MLP, SSD and cross-attention
+    layers tensor-parallel over ``model`` where a leaf holds the rank's
+    part (:mod:`.layers`), whisper's encoder too, and the dense MoE layer
+    expert-parallel over ``data`` with its experts' ``ff`` over ``model``
+    (:mod:`.moe`)."""
     from .moe_a2a import a2a_active
-    t = mesh.shape.get("model", 1)
-    if t > 1 and (cfg.block in ("ssm", "hybrid") or cfg.encoder is not None):
+    if a2a_active(cfg, mesh) and mesh.shape.get("pod", 1) > 1:
         raise NotImplementedError(
-            f"config {cfg.name} (block {cfg.block}"
-            f"{', encoder-decoder' if cfg.encoder is not None else ''}) on "
-            f"a mesh with model {t}: tensor parallelism of the SSM, hybrid "
-            "and whisper blocks is ROADMAP Queue 1 item 4c; a mesh with "
-            "model 1 trains them")
-    if cfg.block == "attn_moe" and not a2a_active(cfg, mesh) \
-            and mesh.size > 1:
-        raise NotImplementedError(
-            f"config {cfg.name} on {mesh.size} ranks needs perf flag "
-            "'moe_a2a': the dense MoE layer routes each rank's rows, the "
-            "JAX layer the whole batch's")
+            f"config {cfg.name} under 'moe_a2a' on a mesh of "
+            f"{mesh.shape['pod']} pods: the JAX schedule replicates its "
+            "groups over pods, which is ROADMAP Queue 1 item 4c, part 4; a "
+            "single-pod mesh, or the dense layer, trains it")
 
 
 def check_paged(cfg: ModelConfig) -> None:
@@ -335,6 +330,9 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
             xa = L.attention(lp["xattn"], xn, cfg, positions=pos,
                              causal=False,
                              precomputed_kv=(xcache["ck"], xcache["cv"]))
+        elif xcache is None:
+            xa = L.attention(lp["xattn"], xn, cfg, positions=pos,
+                             causal=False, context=enc_out)
         else:
             xa, (k, v) = L.attention(lp["xattn"], xn, cfg, positions=pos,
                                      causal=False, context=enc_out,

@@ -58,11 +58,18 @@ each through the batched entries of K1 and K4 (``BatchedMatmulFn``), so
 :meth:`TracedOp.experts` gives E for every one of those sites.  Under a
 mesh each rank runs its rows of a microbatch, and a ``moe_a2a`` config its
 routing groups: the router at the rank's T / n tokens, the experts at
-``M = G·C`` (every group's capacity rows of the rank's experts); on a
-``model`` axis of t ranks its tensor-parallel keys: ``wq``, ``wk``,
-``wv``, ``wi``, ``wg`` and the lm_head at N / t, the row-parallel ``wo``s
-at K / t (a dim t does not divide stays whole), K2 and K2b at the heads
-the rank computes.
+``M = G·C`` (every group's capacity rows of the rank's experts).  The
+dense MoE layer under a mesh routes the rank's tokens where they are whole
+groups (the experts then at every group's rows of the rank's experts,
+``M = n_e·G_l·C`` over n_e expert shards) and the microbatch's T tokens
+otherwise (the experts at ``M = G·C``).  On a ``model`` axis of t ranks
+the rank's tensor-parallel keys: ``wq``, ``wk``, ``wv`` (the
+cross-attention's and the encoder's too), ``wi``, ``wg``, the experts'
+``wi``, ``wg``, the SSD block's ``wx``, ``wb``, ``wc``, ``wa`` and the
+lm_head at N / t, the row-parallel ``wo``s at K / t (a dim t does not
+divide stays whole; the SSD ``wo`` at the rank's d_inner columns,
+``layers.ssm_tp_plan``), K2 and K2b at the heads the rank computes; K3's
+key does not name its heads.
 
 Nothing is executed — this is an abstract walk of the step over shapes.
 """
@@ -72,7 +79,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
 from ..models.config import ModelConfig
-from ..models.layers import tp_heads
+from ..models.layers import ssm_tp_plan, tp_heads
 from ..models.moe import MOE_GROUP_SIZE, capacity
 from ..models.moe_a2a import a2a_active, a2a_axes
 from ..models.transformer import (check_block, check_mesh, check_paged,
@@ -124,9 +131,24 @@ def _split(n: int, tp: Optional[Tuple[int, int]]) -> int:
     return n // tp[0] if tp is not None and n % tp[0] == 0 else n
 
 
+def _heads(cfg: ModelConfig, SQ: int, tp: Optional[Tuple[int, int]]
+           ) -> Dict[str, int]:
+    """K2's key for an attention core at ``SQ`` queries over the heads the
+    rank of ``tp`` computes (``layers.tp_heads``), all heads without."""
+    hd, nq = cfg.hd, cfg.heads * cfg.hd
+    if tp is not None and _split(nq, tp) != nq:
+        plan = tp_heads(cfg, *tp)
+        h = plan["h1"] - plan["h0"]
+        return {"SQ": SQ, "HD": hd, "GROUP": plan["group"],
+                "HK": h // plan["group"]}
+    return {"SQ": SQ, "HD": hd, "GROUP": cfg.heads // cfg.kv_heads,
+            "HK": cfg.kv_heads}
+
+
 def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
                     a2a: Optional[Tuple[int, int]] = None,
-                    tp: Optional[Tuple[int, int]] = None
+                    tp: Optional[Tuple[int, int]] = None,
+                    ep: Optional[Tuple[int, int]] = None
                     ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
     """One layer's requests over ``M`` token rows whose cores run at
     sequence length ``SQ`` (a prefill chunk: M = SQ = C; a decode step:
@@ -134,17 +156,14 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
     ``moe_a2a`` schedule over n ranks for a batch of T tokens.  ``tp`` =
     (t, j): rank j of t along ``model`` (tensor parallelism): the
     column-parallel projections at their N / t, the row-parallel at their
-    K / t, the attention core at the rank's heads (``layers.tp_heads``)."""
+    K / t, the attention core at the rank's heads (``layers.tp_heads``),
+    the SSD block's as ``layers.ssm_tp_plan`` cuts it.  ``ep`` = (n_b,
+    n_e): the dense MoE layer of a rank of n_b batch ranks (M its tokens)
+    whose experts lie over n_e expert shards."""
     d, hd = cfg.d_model, cfg.hd
     if has_attn(cfg):
         nq, nk = cfg.heads * hd, cfg.kv_heads * hd
-        heads = {"SQ": SQ, "HD": hd, "GROUP": cfg.heads // cfg.kv_heads,
-                 "HK": cfg.kv_heads}
-        if tp is not None and _split(nq, tp) != nq:
-            plan = tp_heads(cfg, *tp)
-            h = plan["h1"] - plan["h0"]
-            hk = h // plan["group"]
-            heads = {"SQ": SQ, "HD": hd, "GROUP": plan["group"], "HK": hk}
+        heads = _heads(cfg, SQ, tp)
         yield (f"{prefix}.attn.q_proj", "matmul_h100",
                {"M": M, "N": _split(nq, tp), "K": d})
         yield (f"{prefix}.attn.kv_proj", "matmul_h100",
@@ -155,14 +174,17 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
     if has_ssm(cfg):
         s = cfg.ssm
         di = s.heads * s.head_dim
+        plan = ssm_tp_plan(cfg, *tp) if tp is not None else None
+        sp = tp if plan is not None else None
         yield (f"{prefix}.ssm.x_proj", "matmul_h100",
-               {"M": M, "N": di, "K": d})
+               {"M": M, "N": _split(di, sp), "K": d})
         yield (f"{prefix}.ssm.bc_proj", "matmul_h100",
-               {"M": M, "N": s.state, "K": d})    # wb and wc share it
+               {"M": M, "N": _split(s.state, sp), "K": d})  # wb and wc
         yield (f"{prefix}.ssm.decay_proj", "matmul_h100",
-               {"M": M, "N": s.heads, "K": d})    # f32, from f32 wa
+               {"M": M, "N": _split(s.heads, sp), "K": d})  # f32, f32 wa
         yield (f"{prefix}.ssm.out_proj", "matmul_h100",
-               {"M": M, "N": d, "K": di})
+               {"M": M, "N": d, "K": plan["c1"] - plan["c0"]
+                if plan is not None else di})
         yield (f"{prefix}.ssm.scan", "ssd_scan_h100",
                {"SQ": SQ, "HD": s.head_dim, "STATE": s.state})
     if has_mlp(cfg):
@@ -172,9 +194,15 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
                {"M": M, "N": d, "K": _split(cfg.d_ff, tp)})
     if cfg.block == "attn_moe":
         m = cfg.moe
+        fe = m.d_ff_expert
         if a2a is None:
-            gsz = min(MOE_GROUP_SIZE, M)
-            rows, groups = M, -(-M // gsz)
+            n_b, n_e = ep if ep is not None else (1, 1)
+            T = M * n_b                       # the microbatch's tokens
+            gsz = min(MOE_GROUP_SIZE, T)
+            whole = n_b > 1 and M % gsz != 0  # routed whole on every rank
+            rows = T if whole else M
+            groups = -(-rows // gsz) * (1 if whole else n_e)
+            fe = _split(fe, tp)
         else:                         # this rank's groups; every group's
             T, n = a2a                # rows of its experts
             gsz = min(MOE_GROUP_SIZE, max(1, T // n))
@@ -184,9 +212,9 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
         cap = groups * capacity(gsz, m.num_experts, m.top_k,
                                 m.capacity_factor)
         yield (f"{prefix}.moe.expert_up", "matmul_h100",
-               {"M": cap, "N": m.d_ff_expert, "K": d})   # wi and wg
+               {"M": cap, "N": fe, "K": d})   # wi and wg
         yield (f"{prefix}.moe.expert_down", "matmul_h100",
-               {"M": cap, "N": d, "K": m.d_ff_expert})
+               {"M": cap, "N": d, "K": fe})
 
 
 def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,
@@ -203,25 +231,26 @@ def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,
 
 
 def _cross_requests(cfg: ModelConfig, M: int, SQ: int, kv_rows: int,
-                    prefix: str
+                    prefix: str, tp: Optional[Tuple[int, int]] = None
                     ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
     """A whisper decoder layer's cross-attention over ``M`` token rows of
     ``SQ`` queries a sequence: q and out projections, the K/V projection
     over ``kv_rows`` encoder rows (none at decode: they are cached), and
-    the core at each query run of at most S_enc."""
+    the core at each query run of at most S_enc (``tp``: a rank's, as
+    :func:`_layer_requests` takes it)."""
     d, hd, sk = cfg.d_model, cfg.hd, cfg.encoder.seq_len
+    nq, nk = cfg.heads * hd, cfg.kv_heads * hd
     yield (f"{prefix}.xattn.q_proj", "matmul_h100",
-           {"M": M, "N": cfg.heads * hd, "K": d})
+           {"M": M, "N": _split(nq, tp), "K": d})
     if kv_rows:
         yield (f"{prefix}.xattn.kv_proj", "matmul_h100",
-               {"M": kv_rows, "N": cfg.kv_heads * hd, "K": d})
+               {"M": kv_rows, "N": _split(nk, tp), "K": d})
     yield (f"{prefix}.xattn.out_proj", "matmul_h100",
-           {"M": M, "N": d, "K": cfg.heads * hd})
+           {"M": M, "N": d, "K": _split(nq, tp)})
     for run in sorted({min(sk, SQ - s) for s in range(0, SQ, sk)},
                       reverse=True):
         yield (f"{prefix}.xattn.core", "flash_attention_h100",
-               {"SQ": run, "HD": hd, "GROUP": cfg.heads // cfg.kv_heads,
-                "HK": cfg.kv_heads})
+               _heads(cfg, run, tp))
 
 
 def _iter_step_requests(cfg: ModelConfig, *, batch: int, prompt_len: int
@@ -290,18 +319,21 @@ def trace_steps_warm_set(cfg: ModelConfig, *, batch: int, prompt_len: int,
 
 def _iter_train_requests(cfg: ModelConfig, *, rows: int, seq: int,
                          a2a: Optional[Tuple[int, int]] = None,
-                         tp: Optional[Tuple[int, int]] = None
+                         tp: Optional[Tuple[int, int]] = None,
+                         ep: Optional[Tuple[int, int]] = None
                          ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
-    """A microbatch's forward requests (``tp``: a rank's, as
-    :func:`_layer_requests` takes it; the lm_head at its vocab / t)."""
+    """A microbatch's forward requests (``tp``, ``ep``: a rank's, as
+    :func:`_layer_requests` takes them; the lm_head at its vocab / t)."""
     enc = cfg.encoder
     enc_rows = rows * enc.seq_len if enc is not None else 0
     if enc is not None:
-        yield from _layer_requests(cfg, enc_rows, enc.seq_len, "train.encode")
-    yield from _layer_requests(cfg, rows * seq, seq, "train.layer", a2a, tp)
+        yield from _layer_requests(cfg, enc_rows, enc.seq_len, "train.encode",
+                                   tp=tp)
+    yield from _layer_requests(cfg, rows * seq, seq, "train.layer", a2a, tp,
+                               ep)
     if enc is not None:
         yield from _cross_requests(cfg, rows * seq, seq, enc_rows,
-                                   "train.layer")
+                                   "train.layer", tp)
     yield ("train.lm_head", "matmul_h100",
            {"M": rows * seq, "N": _split(cfg.vocab, tp), "K": cfg.d_model})
 
@@ -338,9 +370,10 @@ def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
     Under a ``mesh`` (the step's) a rank runs its rows of each microbatch,
     and a ``moe_a2a`` config's MoE layers the schedule: the router at the
     rank's tokens, the experts at every group's rows (G·C a key, over the
-    rank's E_l experts, which the trace does not count); with ``model`` >
-    1 the rank's tensor-parallel keys (:func:`_layer_requests`' ``tp``,
-    the mesh's rank: rank 0 of an abstract mesh)."""
+    rank's E_l experts, which the trace does not count), and the dense MoE
+    layer its expert parallelism (:func:`_layer_requests`' ``ep``); with
+    ``model`` > 1 the rank's tensor-parallel keys (``tp``, the mesh's
+    rank: rank 0 of an abstract mesh)."""
     check_train(cfg)
     shards, tp = 1, None
     if mesh is not None:
@@ -353,8 +386,11 @@ def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
         raise ValueError(f"batch {global_batch} not a multiple of "
                          f"{microbatches} microbatches of {shards} shards")
     rows = global_batch // microbatches // shards
-    a2a = None
+    a2a = ep = None
     if a2a_active(cfg, mesh):
         a2a = (rows * seq * shards, mesh.axis_size(a2a_axes(mesh)))
+    elif mesh is not None and cfg.block == "attn_moe":
+        n = mesh.shape.get("data", 1)
+        ep = (shards, n if cfg.moe.num_experts % n == 0 else 1)
     return _dedup(_with_backward(_iter_train_requests(
-        cfg, rows=rows, seq=seq, a2a=a2a, tp=tp)))
+        cfg, rows=rows, seq=seq, a2a=a2a, tp=tp, ep=ep)))

@@ -45,7 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import AbstractMesh, NamedSharding
+from jax.sharding import AbstractMesh, NamedSharding, PartitionSpec
 
 import repro.configs as jconfigs
 import repro.launch.specs as jspecs
@@ -165,6 +165,42 @@ def test_state_layout_under_moe_a2a_is_jax_bar_the_experts(arch):
                 else:
                     assert tuple(spec) == want[name], name
         assert experts
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
+def test_dense_experts_are_held_by_jax_specs_and_never_gathered(arch, shape):
+    """Without ``moe_a2a`` the layout holds JAX's ``p_sh`` and ``o_sh`` for
+    every leaf, the dense layer's experts too (over ``data``, their ``ff``
+    over ``model``); no expert dim is among the FSDP gathers (a rank runs
+    its own experts); ``Layout.rank_bytes()`` sums every leaf's
+    ``NamedSharding.shard_shape``."""
+    cfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    jps, jaxes, jos = jspecs.abstract_state(
+        cfg, jopt.make_optimizer(cfg.optimizer, jopt.constant(LR)))
+    tps, tos = tspecs.abstract_state(
+        tcfg, topt.make_optimizer(tcfg.optimizer, topt.constant(LR)))
+    axes = ("data", "model")
+    jmesh, tmesh = AbstractMesh(shape, axes), abstract_mesh(shape, axes)
+    jp, jo, _ = jspecs.state_shardings(cfg, jmesh, jps, jaxes, jos)
+    lay = tspecs.state_layout(tcfg, tmesh, tps, tos)
+    nbytes = 0
+    for i, want in enumerate((_jax_named(jp), _jax_named(jo))):
+        part = lay.part(i)
+        held = {W.SEP.join(map(str, path)): tuple(spec) for path, spec
+                in part.specs.items()}
+        assert held == want, (shape, i)
+        for path, spec in part.specs.items():
+            nbytes += int(np.prod(NamedSharding(
+                jmesh, PartitionSpec(*spec)).shard_shape(
+                    part.shapes[path]))) * part.itemsizes[path]
+    assert lay.rank_bytes() == nbytes
+    experts = [p for p in lay.specs if p[0] == 0 and "moe" in p
+               and p[-1] in ("wi", "wg", "wo")]
+    assert experts
+    for path in experts:
+        assert tspecs.dist.entry_axes(lay.spec(path)[1]) == ("data",)
+        assert all(dim != 1 for dim, _ in lay.gathered.get(path, ()))
 
 
 # ---------------------------------------------------------------------------

@@ -1898,22 +1898,26 @@ def test_gpu_mesh_train_step_card_against_cpu(nccl_mesh, arch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["llama3_8b", "chameleon_34b"])
+@pytest.mark.parametrize("arch", ["llama3_8b", "chameleon_34b",
+                                  "mamba2_130m", "hymba_1p5b",
+                                  "llama4_scout_17b_a16e"])
 def test_gpu_sharded_mesh_step_at_world_size_one_is_the_one_card_step(
         nccl_mesh, arch):
-    """chip_smoke.py 14 (e) at smoke size: the mesh step over NCCL at world
-    size 1 (tensor parallelism, FSDP for chameleon-34b's name and ZeRO-1
-    realised on the (1, 1) mesh, every spec whole) from
-    ``launch.specs.rank_state``, three bf16 steps, bit for bit with the
-    one-card step: metrics and every parameter."""
+    """chip_smoke.py 14 (e), (h) and (i) at smoke size: the mesh step over
+    NCCL at world size 1 (tensor parallelism of the attention, MLP and SSD
+    layers, FSDP for chameleon-34b's and llama4-scout's names, ZeRO-1 and
+    the dense MoE layer's expert parallelism realised on the (1, 1) mesh,
+    every spec whole) from ``launch.specs.rank_state``, three bf16 steps,
+    bit for bit with the one-card step: metrics and every parameter."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.specs import rank_state
     from repro_torch.models import init_train_state
     from repro_torch.optim import adamw, constant, tree_leaves
     from repro_torch.runtime import build_train_step
     cfg = get_smoke_config(arch)
-    if arch == "chameleon_34b":
-        cfg = cfg.scaled(name="chameleon-34b")
+    if arch in ("chameleon_34b", "llama4_scout_17b_a16e"):
+        cfg = cfg.scaled(name={"chameleon_34b": "chameleon-34b"}.get(
+            arch, "llama4-scout-17b-a16e"))
     rng = np.random.default_rng(11)
     S = 272 if cfg.frontend == "stub" else 32
     batches = []

@@ -71,13 +71,15 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.strip()) >= 30       # every submodule was imported
 
 
-#: the modules the sharded step (tensor parallelism, FSDP, ZeRO-1) changed
+#: the modules the sharded step (tensor parallelism, FSDP, ZeRO-1, the
+#: dense MoE layer's expert parallelism) changed
 SHARDED_STEP = ["repro_torch.distributed.comm",
                 "repro_torch.distributed.sharding",
                 "repro_torch.launch.mesh", "repro_torch.launch.specs",
                 "repro_torch.launch.train",
                 "repro_torch.models.layers", "repro_torch.models.transformer",
-                "repro_torch.models.moe_a2a", "repro_torch.runtime.steps",
+                "repro_torch.models.moe_a2a", "repro_torch.models.moe",
+                "repro_torch.runtime.steps",
                 "repro_torch.optim.optimizers",
                 "repro_torch.checkpoint.manager", "repro_torch.plans.trace"]
 

@@ -1,5 +1,6 @@
 """The port's sharded train step against JAX's, on the CPU: tensor
-parallelism over ``model``, FSDP over the batch axes and ZeRO-1.
+parallelism over ``model``, FSDP over the batch axes, ZeRO-1, and the
+dense MoE layer's expert parallelism.
 
 * **The steps.** Two f32 steps in two microbatches on 4 gloo ranks, the
   metrics and every parameter against JAX's step jitted with
@@ -11,10 +12,19 @@ parallelism over ``model``, FSDP over the batch axes and ZeRO-1.
   (biases) on (1, 4), chameleon-smoke renamed ``chameleon-34b`` (FSDP)
   over 272 tokens with its 256 patch embeddings on (4, 1) and (2, 2),
   llama4-smoke renamed ``llama4-scout-17b-a16e`` with ``moe_a2a`` on (2,
-  2) (FSDP, tensor-parallel attention, the all-to-all), and kimi-smoke
+  2) (FSDP, tensor-parallel attention, the all-to-all), kimi-smoke
   renamed ``kimi-k2-1t-a32b`` with ``moe_a2a`` and Adafactor on (4, 1)
-  (its factored moments under ZeRO-1).  ``FSDP_ARCHS`` keys on the name,
-  hence the renames on both sides; the accumulators are f32 on both.
+  (its factored moments under ZeRO-1); mamba2-smoke and hymba-smoke on
+  (2, 2), a hymba variant whose attention and SSD heads both cut on (1,
+  4) (1.5 query heads, half a KV head and 1.5 SSD heads a rank, ``wa``
+  whole), whisper-smoke on (2, 2) and a whisper variant of 6 heads of 16
+  on (1, 4) (its encoder, decoder and cross-attention heads cut); the
+  two MoE configs without ``moe_a2a`` (the dense layer, experts over
+  ``data``): llama4 on (2, 2) over one routing group a microbatch, and
+  over 8 rows of 512 tokens, two groups a microbatch, which shard over
+  ``data`` (capacity factor 2: tokens drop), and kimi with Adafactor on
+  (4, 1).  ``FSDP_ARCHS`` keys on the name, hence the renames on both
+  sides; the accumulators are f32 on both.
 * **What each rank holds.** Every leaf of every rank has the shape
   ``NamedSharding.shard_shape`` gives for JAX's spec (the ``moe_a2a``
   experts: the all-to-all's layout), and ``Layout.rank_bytes()`` is the
@@ -22,14 +32,20 @@ parallelism over ``model``, FSDP over the batch axes and ZeRO-1.
 * **The collectives.** ``gather`` (losses that add) and the Megatron pair
   ``copy_to`` / ``reduce_from`` (one loss) at 2 ranks against autograd of
   the same function on one process; attention over 4 ranks whose query
-  and KV heads are cut and straddle KV groups, against the single
-  process.
+  and KV heads are cut and straddle KV groups, and the SSD block over 4
+  ranks whose heads are cut (its b and c gathered, ``wa`` whole), against
+  the single process.
+* **The dense MoE layer.** Which experts keep each token (capacity drops
+  at factor 0.5), the output and the aux loss at 2 and 4 ranks, over
+  groups each rank routes and groups every rank routes whole, against
+  JAX's ``moe_block`` on the whole batch.
 * **A restart** through the controller on (2, 2) bit for bit, with FSDP
   leaves and ZeRO-1 optimizer state (kimi-smoke's Adafactor moments).
 * **The warm set.** No cold build after ``warm_train_dispatch(mesh=)``
-  on (2, 2) and (1, 4), and the keys asked for are the traced ones.
-* **The refusals.** mamba2, hymba and whisper raise on a mesh with model
-  > 1, naming ROADMAP item 4c, and still step on (2, 1).
+  on (2, 2) and (1, 4), and the keys asked for are the traced ones, for
+  llama3 and for the SSD, hybrid, whisper and dense MoE cases.
+* **The meshes.** Every config takes every single-pod mesh; ``moe_a2a``
+  over two pods raises, naming ROADMAP item 4c.
 
 Ranks are spawned once a world size (2 and 4) for the module
 (``tests/torch_dist_workers.py``); JAX runs once, in one subprocess.
@@ -79,20 +95,47 @@ CASES = {
                    (2, 2)),
     "kimi_4x1": (dict(arch="kimi_k2_1t_a32b", name="kimi-k2-1t-a32b",
                       flags=("moe_a2a",), optimizer="adafactor"), (4, 1)),
+    "mamba2_2x2": (dict(arch="mamba2_130m"), (2, 2)),
+    "hymba_2x2": (dict(arch="hymba_1p5b"), (2, 2)),
+    # attention: 6 query heads over 2 KV heads of 8; SSD: 6 heads of 8
+    "hymba_cut_1x4": (dict(arch="hymba_1p5b", dims=dict(
+        heads=6, kv_heads=2, head_dim=8), ssm=(8, 6, 8, 16)), (1, 4)),
+    "whisper_2x2": (dict(arch="whisper_large_v3"), (2, 2)),
+    "whisper_cut_1x4": (dict(arch="whisper_large_v3", dims=dict(
+        d_model=96, heads=6, kv_heads=6, head_dim=16)), (1, 4)),
+    "llama4_dense_2x2": (dict(arch="llama4_scout_17b_a16e",
+                              name="llama4-scout-17b-a16e"), (2, 2)),
+    "llama4_groups_2x2": (dict(arch="llama4_scout_17b_a16e",
+                               name="llama4-scout-17b-a16e", seq=512,
+                               cf=2.0), (2, 2)),
+    "kimi_dense_4x1": (dict(arch="kimi_k2_1t_a32b", name="kimi-k2-1t-a32b",
+                            optimizer="adafactor"), (4, 1)),
 }
-#: the configs whose tensor parallelism is item 4c: a data-only mesh
+#: the SSD, hybrid and whisper configs on a data-only mesh too
 DATA_ONLY = {"mamba2_130m": 40, "hymba_1p5b": 40, "whisper_large_v3": 16}
+#: the cases whose warm set is checked besides llama3's
+WARM_CASES = ("mamba2_2x2", "hymba_cut_1x4", "whisper_cut_1x4",
+              "llama4_dense_2x2", "llama4_groups_2x2", "kimi_dense_4x1")
 
 
-def _jax_cfg(arch, flags=(), name=None, optimizer=None, **_):
+def _job(change):
+    """A case's changes with the capacity factor made explicit."""
+    return dict({"cf": DROPLESS_CF}, **change)
+
+
+def _jax_cfg(arch, flags=(), name=None, optimizer=None, dims=None, ssm=None,
+             cf=DROPLESS_CF, **_):
+    from repro.models.config import SSMConfig
     base = jconfigs.get_smoke_config(arch)
     cfg = base.scaled(dtype="float32", param_dtype="float32",
                       perf_flags=tuple(flags),
-                      optimizer=optimizer or base.optimizer)
+                      optimizer=optimizer or base.optimizer, **(dims or {}))
+    if ssm:
+        cfg = cfg.scaled(ssm=SSMConfig(*ssm))
     if cfg.moe is not None:
         m = cfg.moe
         cfg = cfg.scaled(moe=type(m)(m.num_experts, m.top_k, m.d_ff_expert,
-                                     DROPLESS_CF))
+                                     cf))
     return cfg.scaled(name=name) if name else cfg
 
 
@@ -123,12 +166,15 @@ def _inputs(change, seed=1):
 
 JAX_SCRIPT = textwrap.dedent("""
     import json, os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    # LLVM's backend optimisation off: the steps are tiny, their compile
+    # is the subprocess's time
+    os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=8 "
+                               "--xla_backend_optimization_level=0")
     import numpy as np, jax, jax.numpy as jnp
     from jax.sharding import AxisType, Mesh
     from repro.distributed import sharding as dist
     from repro.launch import specs
-    from repro.models.config import MoEConfig
+    from repro.models.config import MoEConfig, SSMConfig
     from repro import configs, optim
     from repro.runtime import steps
 
@@ -162,7 +208,10 @@ JAX_SCRIPT = textwrap.dedent("""
         base = configs.get_smoke_config(job["arch"])
         cfg = base.scaled(dtype="float32", param_dtype="float32",
                           perf_flags=tuple(job.get("flags", ())),
-                          optimizer=job.get("optimizer", base.optimizer))
+                          optimizer=job.get("optimizer", base.optimizer),
+                          **job.get("dims", {}))
+        if job.get("ssm"):
+            cfg = cfg.scaled(ssm=SSMConfig(*job["ssm"]))
         if cfg.moe is not None:
             m = cfg.moe
             cfg = cfg.scaled(moe=MoEConfig(m.num_experts, m.top_k,
@@ -222,6 +271,54 @@ def _attn_inputs():
     return {k: v.astype(np.float32) for k, v in out.items()}
 
 
+def _ssm_inputs():
+    cfg = W.ssm_config()
+    s = cfg.ssm
+    rng = np.random.default_rng(7)
+    d, di = cfg.d_model, s.heads * s.head_dim
+    out = {"x": rng.standard_normal((2, 20, d)),
+           "wx": rng.standard_normal((d, di)) / np.sqrt(d),
+           "wb": rng.standard_normal((d, s.state)) / np.sqrt(d),
+           "wc": rng.standard_normal((d, s.state)) / np.sqrt(d),
+           "wa": 0.1 * rng.standard_normal((d, s.heads)) / np.sqrt(d),
+           "a_bias": np.full((s.heads,), 2.0),
+           "wo": rng.standard_normal((di, d)) / np.sqrt(di),
+           "w": rng.standard_normal((2, 20, d))}
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+#: (world size, routing) -> the dense MoE layer's block-level case: rows
+#: over the batch axes; "local": each rank's rows are whole groups,
+#: "whole": groups straddle the ranks (every rank routes them all); the
+#: "pods" cases on (pod, data, model) = (2, 2, 1), the experts over
+#: ``data`` within each pod; capacity factor 0.5, so tokens drop
+MOE_CASES = {
+    (2, "local"): dict(mesh=(2, 1), B=4, S=16, group_size=32),
+    (2, "whole"): dict(mesh=(2, 1), B=4, S=16, group_size=24),
+    (4, "local"): dict(mesh=(4, 1), B=8, S=8, group_size=16),
+    (4, "whole"): dict(mesh=(2, 2), B=4, S=16, group_size=48),
+    (4, "pods_local"): dict(mesh=(2, 2, 1), axes=("pod",) + AXES, B=4,
+                            S=16, group_size=16),
+    (4, "pods_whole"): dict(mesh=(2, 2, 1), axes=("pod",) + AXES, B=4,
+                            S=16, group_size=24),
+}
+for _case in MOE_CASES.values():
+    _case.update(d=32, f=32, E=4, k=2, cf=0.5)
+    _case.setdefault("axes", AXES)
+
+
+def _moe_inputs(case):
+    rng = np.random.default_rng(8)
+    d, f, E = case["d"], case["f"], case["E"]
+    out = {"x": rng.standard_normal((case["B"], case["S"], d)),
+           "router": rng.standard_normal((d, E)) / np.sqrt(d),
+           "wi": rng.standard_normal((E, d, f)) / np.sqrt(d),
+           "wg": rng.standard_normal((E, d, f)) / np.sqrt(d),
+           "wo": rng.standard_normal((E, f, d)) / np.sqrt(f),
+           "r": rng.standard_normal((d,))}
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Write every input; run the JAX subprocess and the 2- and 4-rank
@@ -231,12 +328,15 @@ def runs(tmp_path_factory):
     for name, (change, mesh) in CASES.items():
         inputs = os.path.join(d, f"in_{name}.npz")
         np.savez(inputs, **_inputs(change))
-        common = dict(kind="train", **change, cf=DROPLESS_CF, lr=LR,
-                      steps=STEPS, microbatches=MICRO, inputs=inputs,
-                      mesh=mesh)
+        common = dict(kind="train", **_job(change), lr=LR, steps=STEPS,
+                      microbatches=MICRO, inputs=inputs, mesh=mesh)
         jax_jobs.append(dict(common, out=os.path.join(d, f"jax_{name}.npz")))
         rank_jobs[4].append(dict(common, axes=AXES, out=os.path.join(
             d, f"port_{name}.npz")))
+        # the single-process step, on one rank of the 2-rank world
+        rank_jobs[2].append(dict(common, kind="single",
+                                 rank=len(jax_jobs) % 2,
+                                 out=os.path.join(d, f"single_{name}.npz")))
     for arch, seq in DATA_ONLY.items():
         inputs = os.path.join(d, f"in_{arch}.npz")
         np.savez(inputs, **_inputs(dict(arch=arch, seq=seq)))
@@ -261,6 +361,22 @@ def runs(tmp_path_factory):
                                  seq=64, mesh=mesh, axes=AXES,
                                  out=os.path.join(d, f"warm_{mesh[0]}x"
                                                   f"{mesh[1]}.npz")))
+    for name in WARM_CASES:
+        change, mesh = CASES[name]
+        rank_jobs[4].append(dict(dict(kind="warm", batch=B, seq=16),
+                                 **_job(change), mesh=mesh, axes=AXES,
+                                 out=os.path.join(d, f"warm_{name}.npz")))
+    np.savez(os.path.join(d, "ssm.npz"), **_ssm_inputs())
+    rank_jobs[4].append(dict(kind="ssm", inputs=os.path.join(d, "ssm.npz"),
+                             mesh=(1, 4), axes=AXES,
+                             out=os.path.join(d, "ssm_out.npz")))
+    for (ws, routing), case in MOE_CASES.items():
+        inputs = os.path.join(d, f"moe_{ws}_{routing}.npz")
+        np.savez(inputs, **_moe_inputs(case))
+        rank_jobs[ws].append(dict(kind="moe", case=case, inputs=inputs,
+                                  mesh=case["mesh"], axes=case["axes"],
+                                  out=os.path.join(
+                                      d, f"moe_{ws}_{routing}_out.npz")))
     spec = os.path.join(d, "jax_jobs.json")
     with open(spec, "w") as f:
         json.dump(jax_jobs, f)
@@ -283,11 +399,10 @@ def _load(d, name):
         return {k: f[k] for k in f.files}
 
 
-def _single_process(runs, name, change):
-    """The port's step on the whole batch, no mesh."""
-    return W.job_train(dict(**change, cf=DROPLESS_CF, lr=LR, steps=STEPS,
-                            microbatches=MICRO,
-                            inputs=os.path.join(runs, f"in_{name}.npz")))
+def _single_process(runs, name):
+    """The port's step on the whole batch, no mesh (one rank of the
+    2-rank world ran it)."""
+    return _load(runs, f"single_{name}.npz")
 
 
 def _close(got, want):
@@ -315,7 +430,7 @@ def _close(got, want):
 def test_sharded_step_matches_jax_and_single_process(runs, name):
     got = _load(runs, f"port_{name}.npz")
     _close(got, _load(runs, f"jax_{name}.npz"))
-    _close(got, _single_process(runs, name, CASES[name][0]))
+    _close(got, _single_process(runs, name))
 
 
 def _jax_specs(change, shape):
@@ -341,7 +456,7 @@ def test_every_rank_holds_its_jax_shard(runs, name):
     experts: the all-to-all's layout), no leaf its spec shards is held
     whole, and ``Layout.rank_bytes()`` is the sum of the rank's bytes."""
     change, shape = CASES[name]
-    tcfg = W.train_config(dict(change, cf=DROPLESS_CF))
+    tcfg = W.train_config(_job(change))
     opt = make_optimizer(tcfg.optimizer, constant(LR))
     p_meta, o_meta = tspecs.abstract_state(tcfg, opt)
     tmesh = abstract_mesh(shape, AXES)
@@ -498,15 +613,139 @@ def test_sharded_warm_set_leaves_no_cold_build(runs, mesh):
     assert f"matmul_h100@K64xM{M}xN{512 // t}" in labels
 
 
-@pytest.mark.parametrize("arch", sorted(DATA_ONLY))
-def test_ssm_hybrid_and_whisper_refuse_model_axis(arch):
-    cfg = W.train_config(dict(arch=arch))
+@pytest.mark.parametrize("name", WARM_CASES)
+def test_sharded_warm_set_of_the_new_blocks_leaves_no_cold_build(runs,
+                                                                 name):
+    """F5 for the SSD, hybrid (heads cut), whisper (encoder, decoder and
+    cross-attention heads cut) and dense MoE cases: after
+    ``warm_train_dispatch(..., mesh=)`` the step resolves nothing cold and
+    rank 0 asks for exactly the traced keys."""
+    out = _load(runs, f"warm_{name}.npz")
+    assert int(out["cold"]) == 0
+    assert list(out["seen"]) == list(out["traced"])
+
+
+def test_moe_a2a_over_two_pods_still_raises():
+    """The one refusal left: the ``moe_a2a`` schedule on a mesh of two
+    pods (item 4c, part 4); the dense layer takes the mesh."""
+    from repro_torch.models.transformer import check_mesh
+    change = dict(arch="llama4_scout_17b_a16e", name="llama4-scout-17b-a16e")
+    mesh = abstract_mesh((2, 1, 2), ("pod", "data", "model"))
+    cfg = W.train_config(dict(change, flags=("moe_a2a",)))
     opt = make_optimizer(cfg.optimizer, constant(LR))
-    mesh = abstract_mesh((1, 2), AXES)
     with pytest.raises(NotImplementedError, match="item 4c"):
         build_train_step(cfg, opt, microbatches=2, mesh=mesh)
     with pytest.raises(NotImplementedError, match="item 4c"):
         trace_train_warm_set(cfg, global_batch=4, seq=16, mesh=mesh)
+    dense = W.train_config(change)
+    check_mesh(dense, mesh)
+    assert trace_train_warm_set(dense, global_batch=4, seq=16, mesh=mesh)
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_config_takes_every_single_pod_mesh(arch):
+    """``check_mesh`` refuses nothing on a single-pod mesh, with or
+    without ``moe_a2a``, and the rank's warm set traces on each."""
+    from repro_torch.models.transformer import check_mesh
+    base = W.train_config(dict(arch=arch))
+    cfgs = [base] + ([base.scaled(perf_flags=("moe_a2a",))]
+                     if base.moe is not None else [])
+    for cfg in cfgs:
+        for shape in ((2, 2), (1, 4), (4, 1), (1, 8), (8, 1)):
+            mesh = abstract_mesh(shape, AXES)
+            check_mesh(cfg, mesh)
+            assert trace_train_warm_set(cfg, global_batch=16, seq=16,
+                                        mesh=mesh)
+
+
+def test_ssm_block_with_cut_heads_matches_one_process(runs):
+    """On 4 ranks each rank's ``wx`` columns hold 1.5 SSD heads, its
+    ``wb`` and ``wc`` columns a quarter of the state and ``wa``, ``a_bias``
+    are whole (6 heads on 4): each rank scans the 2 heads its ``wo`` rows
+    need over b and c gathered whole; y, dx and every weight's gradient
+    (the gather's adjoint: the ranks' partial db and dc summed) equal one
+    process's autograd."""
+    from repro_torch.models.layers import ssm_block, ssm_tp_plan
+    cfg = W.ssm_config()
+    plans = [ssm_tp_plan(cfg, 4, j) for j in range(4)]
+    assert all(p["h1"] - p["h0"] == 2 for p in plans)
+    assert [p["c0"] for p in plans] == [0, 12, 24, 36]
+    out = _load(runs, "ssm_out.npz")
+    inp = _ssm_inputs()
+    p = {k: torch.from_numpy(inp[k]).requires_grad_() for k in W.SSM_SPECS}
+    x = torch.from_numpy(inp["x"]).requires_grad_()
+    y, _ = ssm_block(p, x, cfg)
+    (torch.from_numpy(inp["w"]) * y).sum().backward()
+    for r in range(4):
+        np.testing.assert_allclose(out["y"][r], y.detach(), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(out["dx"][r], x.grad, rtol=1e-5,
+                                   atol=1e-6)
+    for k in p:
+        # a weight's gradient sums the ranks' partial sums (b and c's over
+        # every head): f32 rounding at 1e-6 of the gradient's scale
+        want = p[k].grad.numpy()
+        np.testing.assert_allclose(out[f"d{k}"], want, rtol=1e-5,
+                                   atol=1e-6 * np.abs(want).max(),
+                                   err_msg=k)
+
+
+def _kept(ys):
+    """Which experts keep each token, from the outputs (E + 1, ..., d) of
+    a layer with expert e's ``wo`` zeroed (e < E) and as given (E): e
+    keeps t where zeroing e moves t's output (a token e does not keep
+    meets e's outputs only through zero combine weights, so its output
+    is the same to the bit)."""
+    E = ys.shape[0] - 1
+    return np.stack([(ys[e] != ys[E]).any(-1) for e in range(E)], -1)
+
+
+def _jax_moe(case, inp):
+    """JAX's ``moe_block`` on the whole batch, from one ``jax.vmap`` over
+    the E + 1 scalings of ``wo`` :func:`_kept` reads: (y, aux, which
+    experts keep each token)."""
+    import jax.numpy as jnp
+    from repro.models.config import ModelConfig, MoEConfig
+    from repro.models.moe import moe_block
+    E = case["E"]
+    cfg = ModelConfig(
+        name="ep-test", layers=1, d_model=case["d"], heads=4, kv_heads=2,
+        d_ff=case["f"], vocab=64, block="attn_moe",
+        moe=MoEConfig(E, case["k"], case["f"], case["cf"]),
+        dtype="float32", param_dtype="float32")
+    p = {k: jnp.asarray(inp[k]) for k in ("router", "wi", "wg", "wo")}
+    x = jnp.asarray(inp["x"])
+
+    def scaled(s):
+        return moe_block(dict(p, wo=p["wo"] * s[:, None, None]), x, cfg,
+                         group_size=case["group_size"])
+
+    scales = np.ones((E + 1, E), np.float32)
+    scales[np.arange(E), np.arange(E)] = 0.0
+    ys, auxs = (np.asarray(v) for v in jax.vmap(scaled)(scales))
+    return ys[E], float(auxs[E]), _kept(ys)
+
+
+@pytest.mark.parametrize("ws, routing", sorted(MOE_CASES))
+def test_dense_moe_drops_and_aux_match_jax(runs, ws, routing):
+    """The dense MoE layer expert-parallel over ``data`` (and its experts'
+    ``ff`` over ``model`` on (2, 2); over two pods, each holding every
+    expert): which experts keep each token, with tokens dropped at
+    capacity factor 0.5, the output, and every rank's aux loss equal
+    JAX's ``moe_block`` over the whole batch, whether each rank routes its
+    own groups or every rank routes them all."""
+    case = MOE_CASES[(ws, routing)]
+    out = _load(runs, f"moe_{ws}_{routing}_out.npz")
+    y, aux, kept = _jax_moe(case, _moe_inputs(case))
+    shape = dict(zip(case["axes"], case["mesh"]))
+    T_l = case["B"] * case["S"] // shape["data"] // shape.get("pod", 1)
+    assert (T_l % case["group_size"] == 0) == routing.endswith("local")
+    assert int(out["held"]) == case["E"] // shape["data"]
+    np.testing.assert_array_equal(_kept(out["y"]), kept)
+    assert (kept.sum(-1) < case["k"]).any()           # capacity drops
+    np.testing.assert_allclose(out["y"][-1], y, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out["aux"], np.full((ws, 1), aux),
+                               rtol=1e-6)
 
 
 @pytest.mark.parametrize("arch", sorted(DATA_ONLY))

@@ -149,14 +149,20 @@ def job_ring(job):
 # ---------------------------------------------------------------------------
 
 def train_config(job):
+    """The smoke config of ``job["arch"]`` in f32, with the job's flags,
+    remat, optimizer, widths (``dims``: the config's fields; ``ssm``:
+    (state, heads, head_dim, chunk)), capacity factor and name."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models.config import MoEConfig
+    from repro_torch.models.config import MoEConfig, SSMConfig
     base = get_smoke_config(job["arch"])
     cfg = base.scaled(
         dtype="float32", param_dtype="float32",
         perf_flags=tuple(job.get("flags", ())),
         remat=job.get("remat", "none"),
-        optimizer=job.get("optimizer", base.optimizer))
+        optimizer=job.get("optimizer", base.optimizer),
+        **job.get("dims", {}))
+    if job.get("ssm"):
+        cfg = cfg.scaled(ssm=SSMConfig(*job["ssm"]))
     if cfg.moe is not None and job.get("cf"):
         m = cfg.moe
         cfg = cfg.scaled(moe=MoEConfig(m.num_experts, m.top_k,
@@ -300,6 +306,9 @@ def job_warm(job):
         rng = np.random.default_rng(3)
         batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
                  for k in ("tokens", "labels")}
+        if cfg.encoder is not None:
+            batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
         with cache.record() as rec:
             step(params, opt_state, batch, 0)
         cold = cache.stats.cold_builds - cold
@@ -383,6 +392,95 @@ def job_attn(job):
     return out
 
 
+def ssm_config():
+    from repro_torch.models.config import ModelConfig, SSMConfig
+    # 6 SSD heads of 8 (48 columns) on 4 ranks: 1.5 heads a rank, each
+    # rank's ``wo`` rows cut a head; the state (8) splits, the heads do not
+    return ModelConfig(name="tp-ssm", layers=1, d_model=32, heads=4,
+                       kv_heads=4, d_ff=0, vocab=64, block="ssm",
+                       ssm=SSMConfig(state=8, heads=6, head_dim=8, chunk=16),
+                       dtype="float32", param_dtype="float32")
+
+
+SSM_SPECS = {"wx": (None, "model"), "wb": (None, "model"),
+             "wc": (None, "model"), "wa": (), "a_bias": (),
+             "wo": ("model",)}
+
+
+def job_ssm(job):
+    """``layers.ssm_block`` over a ``model`` mesh from the whole weights'
+    parts as JAX's rules give them, one loss sum(w * y): y, dx and the
+    whole weights' gradients."""
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.models.layers import ssm_block
+    inp = _inputs(job)
+    cfg, mesh = ssm_config(), _mesh(job)
+    p = {k: dist.local_shard(torch.from_numpy(inp[k]), spec,
+                             mesh).requires_grad_()
+         for k, spec in SSM_SPECS.items()}
+    x = torch.from_numpy(inp["x"]).requires_grad_()
+    with dist.use_mesh_rules(mesh, dist.rules_for(cfg, mesh)):
+        y, state = ssm_block(p, x, cfg)
+        (torch.from_numpy(inp["w"]) * y).sum().backward()
+    assert state is None
+    out = {"y": _every_rank(y.detach()), "dx": _every_rank(x.grad)}
+    for k, spec in SSM_SPECS.items():
+        out[f"d{k}"] = dist.gather_shard(p[k].grad, spec, mesh).numpy()
+    return out
+
+
+def moe_config(case):
+    from repro_torch.models.config import ModelConfig, MoEConfig
+    return ModelConfig(
+        name="ep-test", layers=1, d_model=case["d"], heads=4, kv_heads=2,
+        d_ff=case["f"], vocab=64, block="attn_moe",
+        moe=MoEConfig(num_experts=case["E"], top_k=case["k"],
+                      d_ff_expert=case["f"], capacity_factor=case["cf"]),
+        dtype="float32", param_dtype="float32")
+
+
+def job_moe(job):
+    """The dense MoE layer over the mesh, each rank its rows of x (over
+    the batch axes), its experts (over ``data``) and their ``ff`` columns
+    (over ``model``), once as given and once with each expert's ``wo``
+    zeroed: the whole outputs (E + 1, B, S, d), every rank's aux loss and
+    the experts a rank holds."""
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.models.moe import moe_block
+    inp = _inputs(job)
+    case = job["case"]
+    cfg, mesh = moe_config(case), _mesh(job)
+    specs = {"router": (), "wi": ("data", None, "model"),
+             "wg": ("data", None, "model"), "wo": ("data", "model")}
+    p = {k: dist.local_shard(torch.from_numpy(inp[k]), spec, mesh)
+         for k, spec in specs.items()}
+    batch = dist.batch_axes(mesh)
+    rows = (batch if len(batch) > 1 else batch[0],)
+    x = dist.local_shard(torch.from_numpy(inp["x"]), rows, mesh)
+    E = case["E"]
+    scales = torch.ones((E + 1, E))
+    scales[torch.arange(E), torch.arange(E)] = 0.0
+    scales = dist.local_shard(scales, (None, "data"), mesh)
+    ys = []
+    with dist.use_mesh_rules(mesh, dist.rules_for(cfg, mesh)):
+        for s in scales:
+            q = dict(p, wo=p["wo"] * s[:, None, None])
+            y, aux = moe_block(q, x, cfg, group_size=case["group_size"])
+            ys.append(dist.gather_shard(y, rows, mesh))
+    return {"y": torch.stack(ys).numpy(),
+            "aux": _every_rank(aux.reshape(1)),
+            "held": np.int64(p["wi"].shape[0])}
+
+
+def job_single(job):
+    """:func:`job_train` without a mesh on rank ``job["rank"]`` alone,
+    which writes its output itself (the single-process reference, run
+    beside the other ranks' work)."""
+    if tdist.get_rank() == job["rank"]:
+        np.savez(job["out"], **job_train(dict(job, mesh=None)))
+
+
 JOBS = {"a2a": job_a2a, "ring": job_ring, "train": job_train,
         "restart": job_restart, "warm": job_warm, "comm": job_comm,
-        "attn": job_attn}
+        "attn": job_attn, "ssm": job_ssm, "moe": job_moe,
+        "single": job_single}
