@@ -372,6 +372,26 @@ no phase is caught.
    on (1, 4) and kimi-k2 (1 of 61 layers, dense) on (4, 1).  (c), (e),
    (h) and (i) are training paths and (d) an engine path in the kernels'
    line (``by_paths`` "training" and "padded kimi").
+15. dry run (``src/repro_torch/launch/dryrun.py``, its count of a launch's
+   work ``launch/roofline.py``'s, which this script's bounds read too):
+   (a) 13 (b), (c), (g), (h) and (j)'s training paths through the dry run
+   on the mesh (1, 1): ``argument_bytes`` equal to the bytes of the state
+   and batch the card held and each family's launches a step equal to
+   phase 13's counters, exactly (a failure raises); the roofline's bound
+   beside the measured median step and the measured peak
+   (``torch.cuda.max_memory_allocated``) beside ``argument_bytes``.  (b)
+   the four-card cells of 14 (g) and (j) through the dry run at their
+   phase 14 runs: rank bytes (``Layout.rank_bytes()``, as 14 prints
+   them), collective bytes a step by op (ring model) and the roofline's
+   compute, memory and collective terms on the H100's datasheet rates.
+   (c) the keys a rank of (pod, data, model) = (2, 2, 1) launches for
+   llama4-scout (1 of 48 layers) under ``moe_a2a``, warmed and launched
+   on the abstract mesh as 14 (j) does: 0 cold builds, every K1b launch
+   signature held against its plain version and timed.  (d) llama3-8b at
+   full width (32 layers, bf16 weights) through the non-paged steps on
+   one card and through the mesh serve steps (``build_serve_steps(cfg,
+   mesh)``) over an NCCL mesh (1, 1) of its own: prefill and 8 decode
+   steps' logits bit for bit, the same launches, 0 cold builds.
 
 Times are medians over 5 CUDA-event batches of repeated launches after one
 warm-up launch, printed with their spread (the slowest batch less the
@@ -508,12 +528,10 @@ import torch
 import torch.nn.functional as F
 
 DEV = "cuda"
-HBM_BYTES_PER_S = 3.35e12
 L2_FLUSH_BYTES = 128 * 2**20          # more than twice the H100's 50 MB L2
 #: Outputs of this many bytes or more get two launches a CUDA graph (a
 #: 22.5 GB dB of kimi-k2 fits the card twice, not twenty times).
 BIG_OUTPUT = 1 << 30
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 MM_TOL = dict(rtol=1e-4, atol=1e-3)
 FA_TOL = dict(rtol=1e-2, atol=1e-2)
 FA_REL = 2.0 ** -6                    # relative Frobenius error, split rows
@@ -650,118 +668,34 @@ def held(name: str, got: torch.Tensor, want: torch.Tensor, tol: dict
     return err
 
 
+def _roofline():
+    """The port's one count of a launch's work and the H100's datasheet
+    rates (``src/repro_torch/launch/roofline.py``), which the dry run
+    reads too."""
+    from repro_torch.launch import roofline
+    return roofline
+
+
 def work(name: str, sig) -> tuple:
-    """(bytes, flops, peak flop/s) of one launch of ``name`` at ``sig``:
-    each input read once, each output written once; attention counts the
-    query-key pairs its masks leave visible, the SSD scan the recurrence's
-    multiply-adds (S = a·S + b⊗x, y = c·S: 5·state·hd flops a step and
-    head) at the rate of the unit that does them (the bf16 tensor cores
-    for a bf16 chunk, f32 for a step or f32; :func:`ssd_f32_bound_ms`
-    gives a bf16 chunk's bound at the f32 rate), attention's K/V bytes over
-    its hk KV heads and
-    only the keys some query can see (a window's), matadd one f32 add an element, a Jacobi sweep
-    two adds and a division a point, a transpose none.  A paged K2 launch
-    counts each row at its length in ``PAGED_LENS`` (its q and output, and
-    the pool's bytes of the keys it can see)."""
-    esz = torch.empty((), dtype=sig[-2 if sig[0] == "paged" else -1]
-                      ).element_size()
-    if name == "matmul_h100":
-        M, N, K = sig[:3]
-        return ((M * K + K * N) * esz + M * N * 4, 2.0 * M * N * K,
-                PEAK_FLOPS[sig[-1]])
-    if name == "matmul_h100_batched":       # every expert's A, B and C
-        E, M, N, K = sig[:4]
-        return (E * ((M * K + K * N) * esz + M * N * 4), 2.0 * E * M * N * K,
-                PEAK_FLOPS[sig[-1]])
-    if name == "matadd_h100":
-        M, N = sig[:2]
-        return 3 * M * N * esz, float(M * N), PEAK_FLOPS[torch.float32]
-    if name == "transpose_h100":
-        M, N = sig[:2]
-        return 2 * M * N * esz, 0.0, PEAK_FLOPS[torch.float32]
-    if name == "transpose_h100_batched":
-        E, M, N = sig[:3]
-        return 2 * E * M * N * esz, 0.0, PEAK_FLOPS[torch.float32]
-    if name == "jacobi1d_h100":          # one sweep: n read, n - 2 written
-        n = sig[0]
-        return (2 * n - 2) * esz, 3.0 * (n - 2), PEAK_FLOPS[torch.float32]
-    if name == "ssd_scan_h100":
-        R, S, H, hd, n, _, _, with_state, masked, srows, dtype = sig
-        state_bytes = 4 * R * H * n * hd          # the R rows read, written
-        # a bf16 chunk runs its products on the tensor cores; the step body
-        # and f32 run on the CUDA cores in f32
-        peak = PEAK_FLOPS[dtype if S > 1 else torch.float32]
-        return (2 * R * S * H * hd * esz + 4 * R * S * H + 2 * R * S * n * esz
-                + R * masked + 4 * R * (srows > 0)
-                + state_bytes * (2 if with_state else 1),
-                5.0 * R * S * H * n * hd, peak)
-    if name == "ssd_scan_bwd_h100":
-        return ssd_bwd_work(sig)
-    if name == "flash_attention_bwd_h100":    # 2.5 times the forward's flops
-        rows, h, hk, sq, page, d, _, _, causal, window, _ = sig
-        pairs = sum(int(_visible(sq, n, causal, window).sum())
-                    for n in BWD_LENS[sig])
-        return (esz * 4 * rows * d * (h * sq + hk * page) + 8 * rows * h * sq,
-                2.5 * 4.0 * h * pairs * d, PEAK_FLOPS[sig[-1]])
-    if sig[0] == "paged":
-        _, rows, h, hk, sq, _, d, _, _, _, _, _, causal, window, dtype, kv = sig
-        kv_esz = torch.empty((), dtype=kv).element_size()
-        nbytes, flops = 0, 0.0
-        for n in PAGED_LENS[sig]:            # each row at its own length
-            mask = _visible(sq, n, causal, window) if n else None
-            keys = int(mask.any(0).sum()) if n else 0
-            pairs = int(mask.sum()) if n else 0
-            nbytes += 2 * h * sq * d * esz + 2 * hk * keys * d * kv_esz
-            flops += 4.0 * h * pairs * d
-        return nbytes, flops, PEAK_FLOPS[dtype]
-    h, hk, sq, sk, d = sig[:5]
-    causal, window = sig[9:11]
-    mask = _visible(sq, sk, causal, window)
-    keys = int(mask.any(0).sum())           # keys some query can see
-    pairs = int(mask.sum())
-    return (2 * (h * sq * d + hk * keys * d) * esz, 4.0 * h * pairs * d,
-            PEAK_FLOPS[sig[-1]])
+    """(bytes, flops, peak flop/s) of one launch of ``name`` at ``sig``
+    (``roofline.work``); a paged K2 launch counts each row at its length
+    in ``PAGED_LENS``, a K2b call in ``BWD_LENS``."""
+    lens = (BWD_LENS.get(sig) if name == "flash_attention_bwd_h100"
+            else PAGED_LENS.get(sig) if sig[0] == "paged" else None)
+    return _roofline().work(name, sig, lens)
 
 
 def bound_terms_ms(name: str, sig) -> tuple:
     nbytes, flops, peak = work(name, sig)
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / peak
-
-
-def ssd_bwd_work(sig) -> tuple:
-    """(bytes, flops, peak) of one K3b call at (rows, seq, heads, hd, state,
-    chunk, shared, state0 given, dS_final given, dtype): x, dy, b, c,
-    the decay and the given states read once, dx, da, db, dc and d(state0)
-    written once; the flops of the chunk formulas (kernels/ssd_scan_bwd.py)
-    over the call's own chunks of n <= min(chunk, seq) steps, 10·n·N·hd +
-    n²·(3N + 2hd) a (row, head), at the bf16 tensor-core peak for bf16
-    inputs (:func:`ssd_bwd_f32_bound_ms` gives them at the f32 rate)."""
-    R, S, H, hd, n, chunk, shared, with_state, with_dsf, dtype = sig
-    esz = torch.empty((), dtype=dtype).element_size()
-    nb = n if shared else H * n
-    ck = min(chunk, S)
-    steps = [min(ck, S - t0) for t0 in range(0, S, ck)]
-    flops = R * H * sum(10.0 * m * n * hd + m * m * (3 * n + 2 * hd)
-                        for m in steps)
-    nbytes = (3 * R * S * H * hd * esz + 8 * R * S * H + 4 * R * S * nb * esz
-              + 4 * R * H * n * hd * (1 + with_state + with_dsf))
-    return nbytes, flops, PEAK_FLOPS[dtype]
+    return (1e3 * nbytes / _roofline().HBM_BYTES_PER_S, 1e3 * flops / peak)
 
 
 def ssd_bwd_f32_bound_ms(sig) -> float:
-    """K3b's bound at ``sig`` with every flop at the f32 rate, the rate of
-    its FMA body."""
-    nbytes, flops, _ = ssd_bwd_work(sig)
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                     flops / PEAK_FLOPS[torch.float32])
+    return _roofline().ssd_bwd_f32_bound_ms(sig)
 
 
 def ssd_f32_bound_ms(sig) -> float:
-    """K3's bound at ``sig`` with every flop at the f32 rate, as the
-    parent's kernel (all on the CUDA cores) was bound."""
-    nbytes, flops, _ = work("ssd_scan_h100", sig)
-    return 1e3 * max(nbytes / HBM_BYTES_PER_S,
-                     flops / PEAK_FLOPS[torch.float32])
+    return _roofline().ssd_f32_bound_ms(sig)
 
 
 # ---------------------------------------------------------------------------
@@ -855,14 +789,7 @@ def batched_case(sig, gen, *, timed: bool, leaf_only: bool = False,
 
 
 def _visible(sq: int, sk: int, causal: bool, window) -> torch.Tensor:
-    qpos = torch.arange(sq, device=DEV)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=DEV)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=DEV)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    return mask
+    return _roofline().visible(sq, sk, causal, window, device=DEV)
 
 
 _SDPA_GQA = []
@@ -3558,9 +3485,9 @@ def phase_whisper(gen) -> dict:
     say(f"[whisper] (b) reckoned from the config, not measured: ck/cv "
         f"{2 * 2 * cfg.layers * S_enc * nk * hd / 1e6:.1f} MB a row; a "
         f"decode tick at {B} rows reads {tick_bytes / 1e9:.3f} GB, "
-        f"{1e3 * tick_bytes / HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; "
+        f"{1e3 * tick_bytes / _roofline().HBM_BYTES_PER_S:.3f} ms at 3.35 TB/s; "
         f"encoding {B} rows is {enc_flops / 1e12:.2f} TFLOP, "
-        f"{1e3 * enc_flops / PEAK_FLOPS[torch.bfloat16]:.3f} ms at the "
+        f"{1e3 * enc_flops / _roofline().PEAK_FLOPS[torch.bfloat16]:.3f} ms at the "
         f"dense bf16 peak")
 
     t0 = time.perf_counter()
@@ -4382,7 +4309,8 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
     step_fn = build_train_step(cfg, opt, microbatches=run["microbatches"],
                                mesh=mesh)
     n = sum(t.numel() for t in tree_leaves(params))
-    state_gb = (_nbytes(params) + _nbytes(opt_state)) / 1e9
+    state_bytes = _nbytes(params) + _nbytes(opt_state)
+    state_gb = state_bytes / 1e9
     say(f"[train] {tag} {cfg.name} at full width ({_widths(cfg)}), "
         f"{depth}, bf16 compute, f32 masters: {n / 1e9:.3f} B parameters; "
         f"state (masters and AdamW's two moments) {state_gb:.2f} GB, with "
@@ -4392,6 +4320,7 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
     batches = [{k: torch.from_numpy(v).to(DEV)
                 for k, v in ds.batch_at(s).items()}
                for s in range(run["steps"])]
+    batch_bytes = _nbytes(batches[0])
     kernels = _counters(TRAIN_KERNELS)
     want = _train_counts(cfg, run["microbatches"])
     ckpt_at = run.get("ckpt_at")
@@ -4439,7 +4368,7 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
         f"{wall:.2f} s; median step (after the first) {med:.1f} ms of "
         f"CUDA-event time, {tokens / med * 1e3:.1f} tokens/s; model flops "
         f"{flops / 1e12:.2f} T a step, {flops / med / 1e9:.1f} TFLOP/s, "
-        f"{100 * flops / (med * 1e-3) / PEAK_FLOPS[torch.bfloat16]:.2f} % "
+        f"{100 * flops / (med * 1e-3) / _roofline().PEAK_FLOPS[torch.bfloat16]:.2f} % "
         f"of the bf16 dense peak (989 TFLOP/s); peak device memory "
         f"{peak:.2f} GB (torch.cuda.max_memory_allocated; "
         f"{torch.cuda.max_memory_reserved() / 1e9:.2f} GB reserved) against "
@@ -4504,7 +4433,9 @@ def train_path(tag: str, full_cfg, layers, run, mesh=None) -> dict:
             "step_ms": med, "peak_gb": peak, "kernel_ms": kernel_ms,
             "profiled_ms": sum(kernel_ms.values()), "first": first,
             "per_step": want, "cold": cold,
-            "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+            "reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "cfg": cfg, "run": run, "state_bytes": state_bytes,
+            "batch_bytes": batch_bytes}
 
 
 def phase_train_whisper(gen, mesh=None, tag: str = "(c)", steps=None
@@ -4551,6 +4482,7 @@ def phase_train_whisper(gen, mesh=None, tag: str = "(c)", steps=None
                                 seed=0))
     frames = torch.Generator(device=DEV)
     frames.manual_seed(5)
+    state_bytes = _nbytes(params) + _nbytes(opt_state)
     kernels = _counters(TRAIN_KERNELS)
     want = _train_counts(cfg, 1)
     _count_reset(kernels)
@@ -4561,7 +4493,7 @@ def phase_train_whisper(gen, mesh=None, tag: str = "(c)", steps=None
                  for k, v in ds.batch_at(step).items()}
         batch["enc_embeds"] = torch.randn(
             (run["batch"], cfg.encoder.seq_len, cfg.d_model), generator=frames,
-            device=DEV)
+            device=DEV).to(getattr(torch, cfg.dtype))
         c0 = {n_: k.launches for n_, k in kernels.items()}
         params, opt_state, m, h, ev = _step_timed(step_fn, params, opt_state,
                                                   batch, step)
@@ -4571,6 +4503,7 @@ def phase_train_whisper(gen, mesh=None, tag: str = "(c)", steps=None
                                  f"(expected {want}), metrics {m}")
         first = first or m
         dev_ms.append(ev)
+        batch_bytes = _nbytes(batch)
         say(f"[train] {tag} {cfg.name}, {cfg.encoder.layers} + {cfg.layers} "
             f"of 32 + 32 layers (reduced: depth only), {run['batch']} rows "
             f"of 1500 frames and {run['seq']} tokens, step {step}: loss "
@@ -4592,7 +4525,9 @@ def phase_train_whisper(gen, mesh=None, tag: str = "(c)", steps=None
     return {"name": f"{cfg.name} training", "wall_ms": 1e3 * wall,
             "launches": launches, "shapes": shapes, "steps": steps,
             "first": first, "per_step": want, "cold": cold, "peak_gb": peak,
-            "step_ms": sorted(dev_ms[1:])[len(dev_ms[1:]) // 2]}
+            "step_ms": sorted(dev_ms[1:])[len(dev_ms[1:]) // 2],
+            "cfg": cfg, "run": dict(run, microbatches=1),
+            "state_bytes": state_bytes, "batch_bytes": batch_bytes}
 
 
 def phase_train_parity(archs=TRAIN_PARITY) -> None:
@@ -5678,6 +5613,281 @@ def phase_multi(gen, refs: list, kimi_tokens) -> tuple:
     return [llama4, llama3] + blocks, serve, keys
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the dry run against the card; the serve steps over a mesh
+# ---------------------------------------------------------------------------
+
+#: 15 (c): llama4-scout under ``moe_a2a`` on a rank of (pod, data, model)
+#: = (2, 2, 1): 14 (j)'s run (one routing group a rank a microbatch), the
+#: groups over ("data", "model") and every pod routing them all.
+POD_MESH = (2, 2, 1)
+#: 15 (d): llama3-8b at full width (32 layers) through the non-paged
+#: steps, one card and the mesh (1, 1): prompts, cache, decode steps.
+MESH_SERVE_RUN = dict(batch=4, prompt_len=16, max_len=64, steps=8)
+
+
+def _dry_shape(run: dict):
+    from repro_torch.models.config import ShapeConfig
+    return ShapeConfig("phase-15", run["seq"], run["batch"], "train")
+
+
+def _dry_line(tag: str, name: str, rec: dict) -> str:
+    r, c = rec["roofline"], rec["collectives"]
+    by_op = ", ".join(f"{op} {b / 1e9:.4f}" for op, b in
+                      r["collective_bytes_by_op"].items()) or "none"
+    return (f"[dryrun] {tag} {name} on {rec['devices']} rank(s): "
+            f"argument_bytes {rec['memory']['argument_bytes']} "
+            f"({rec['memory']['argument_bytes'] / 1e9:.2f} GB), flops "
+            f"{rec['cost']['flops']:.4g}, bytes {rec['cost']['bytes_accessed']:.4g}; "
+            f"collective GB a step by op (ring model) {by_op} "
+            f"({c['weighted_bytes'] / 1e9:.4f} in all, "
+            f"{r['collective_run']}); roofline on h100_sxm (datasheet): "
+            f"compute {1e3 * r['compute_s']:.3f} ms, memory "
+            f"{1e3 * r['memory_s']:.3f} ms, collective "
+            f"{1e3 * r['collective_s']:.3f} ms, bound "
+            f"{1e3 * r['bound_s']:.3f} ms")
+
+
+def phase_dry_training(refs: list) -> None:
+    """(a) Each training path phases 13 and 14 run at world size 1 (13
+    (b), (c), (g), (h), (j); ``refs``) through the dry run on the mesh (1,
+    1): its ``argument_bytes`` equal the bytes of the state and the batch
+    the card held, and each family's launches a step equal phase 13's
+    counters (exact; a failure raises); the roofline's bound beside the
+    measured step, the measured peak beside ``argument_bytes``."""
+    from repro_torch.launch.dryrun import cell_record
+    for ref in refs:
+        cfg, run = ref["cfg"], ref["run"]
+        rec = cell_record(cfg, _dry_shape(run), (1, 1),
+                          microbatches=run.get("microbatches", 1))
+        held = ref["state_bytes"] + ref["batch_bytes"]
+        got = {f: row["launches"] for f, row in
+               rec["cost"]["by_family"].items()}
+        want = {f: n for f, n in ref["per_step"].items() if n}
+        say(_dry_line("(a)", ref["name"], rec))
+        say(f"[dryrun] (a) {ref['name']}: argument_bytes "
+            f"{rec['memory']['argument_bytes']} against {held} held "
+            f"(state {ref['state_bytes']}, batch {ref['batch_bytes']}); "
+            f"launches a step {json.dumps(got)} against phase 13's "
+            f"{json.dumps(want)}; bound {1e3 * rec['roofline']['bound_s']:.2f}"
+            f" ms against the measured median step {ref['step_ms']:.2f} ms "
+            f"({100 * 1e3 * rec['roofline']['bound_s'] / ref['step_ms']:.1f}"
+            f" %); peak allocated {ref['peak_gb']:.2f} GB "
+            f"(torch.cuda.max_memory_allocated) beside argument_bytes "
+            f"{rec['memory']['argument_bytes'] / 1e9:.2f} GB")
+        if rec["memory"]["argument_bytes"] != held:
+            raise AssertionError(f"(a) {ref['name']}: argument_bytes "
+                                 f"{rec['memory']['argument_bytes']} != "
+                                 f"{held} held on the card")
+        if got != want:
+            raise AssertionError(f"(a) {ref['name']}: the dry run's "
+                                 f"launches {got} != phase 13's {want}")
+
+
+def phase_dry_cells() -> None:
+    """(b) The four-card cells (:data:`CELL_SIZES`,
+    :data:`BLOCK_CELL_SIZES`) through the dry run at their phase 14 runs:
+    rank bytes (equal to :func:`layout_line`'s ``Layout.rank_bytes()``),
+    collective bytes a step by op and the roofline's terms: the
+    prediction the four-card benchmark will test."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import cell_record, mesh_of
+    from repro_torch.launch.specs import abstract_state, state_layout
+    from repro_torch.optim import constant, make_optimizer
+    import dataclasses
+    runs = {"llama3_8b": TRAIN_RUN, "hymba_1p5b": HYMBA_TRAIN,
+            "whisper_large_v3": dict(WHISPER_TRAIN, microbatches=1)}
+    for arch, layers, shape, flags in CELL_SIZES + BLOCK_CELL_SIZES:
+        cfg = get_config(arch).scaled(perf_flags=flags)
+        if layers:
+            cfg = cfg.scaled(layers=layers)
+            if cfg.encoder is not None:
+                cfg = cfg.scaled(encoder=dataclasses.replace(
+                    cfg.encoder, layers=layers))
+        run = runs.get(arch, EP_RUN)
+        rec = cell_record(cfg, _dry_shape(run), shape,
+                          microbatches=run["microbatches"])
+        opt = make_optimizer(cfg.optimizer, constant(1e-4))
+        p_meta, o_meta = abstract_state(cfg, opt)
+        mesh = mesh_of(shape)
+        state = state_layout(cfg, mesh, p_meta, o_meta).rank_bytes()
+        # the rank's rows: int32 tokens and labels, whisper's bf16 frames
+        rows = run["batch"] // mesh.axis_size(
+            [a for a in ("pod", "data") if a in mesh.axis_names])
+        batch = 2 * 4 * rows * run["seq"] + (
+            2 * rows * cfg.encoder.seq_len * cfg.d_model
+            if cfg.encoder is not None else 0)
+        say(_dry_line("(b)", f"{cfg.name} ({cfg.layers} layers"
+                      f"{', ' + ','.join(flags) if flags else ''}) {shape}",
+                      rec)
+            + f"; rank bytes {state} ({state / 1e9:.2f} GB, "
+            f"Layout.rank_bytes()) and the rank's batch {batch}")
+        if rec["memory"]["argument_bytes"] != state + batch:
+            raise AssertionError(f"(b) {cfg.name} {shape}: argument_bytes "
+                                 f"{rec['memory']['argument_bytes']} is not "
+                                 f"the layout's {state} and the batch's "
+                                 f"{batch}")
+
+
+def phase_dry_pod_keys(gen) -> dict:
+    """(c) The keys a rank of :data:`POD_MESH` launches for llama4-scout
+    (full width, ``LLAMA4_LAYERS`` layers) under ``moe_a2a``, warmed on
+    the abstract mesh: every traced forward key launched as the model
+    launches it (its backward too; the experts at the rank's E_l of the
+    16, the router at the rank's tokens of the whole batch) with no cold
+    build, then each K1b launch signature held against its plain version
+    and timed.  These launches check kernels: no main path's.  Returns
+    {name: {sig: row}}."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models.moe import a2a_padded_experts
+    from repro_torch.plans.trace import trace_train_warm_set
+    from repro_torch.runtime import warm_train_dispatch
+    cfg = get_config("llama4_scout_17b_a16e").scaled(
+        layers=LLAMA4_LAYERS, perf_flags=("moe_a2a",))
+    mesh = abstract_mesh(POD_MESH, ("pod", "data", "model"))
+    kw = dict(global_batch=EP_RUN["batch"], seq=EP_RUN["seq"],
+              microbatches=EP_RUN["microbatches"])
+    kernels = _counters(TRAIN_KERNELS)
+    stats = get_default_cache().stats
+    t0 = time.perf_counter()
+    warm_train_dispatch(cfg, mesh=mesh, **kw)
+    ops_ = trace_train_warm_set(cfg, mesh=mesh, **kw)
+    fwd = [op for op in ops_ if any(
+        not s.endswith((".dA", ".dB", ".wT", ".xT", ".bwd"))
+        for s in op.sites)]
+    n_dev = POD_MESH[1] * POD_MESH[2]
+    experts = -(-a2a_padded_experts(cfg) // n_dev)
+    shards = POD_MESH[0] * POD_MESH[1]
+    R = EP_RUN["batch"] // EP_RUN["microbatches"] // shards
+    cold0 = stats.cold_builds
+    _count_reset(kernels)
+    for op in fwd:
+        _rank_launches(op, gen, cfg, rows=R, experts=experts)
+    torch.cuda.synchronize()
+    cold = stats.cold_builds - cold0
+    sigs = {name: dict(k.shapes) for name, k in kernels.items()}
+    _count_reset(kernels)
+    _train_lens(sigs)
+    keys = sorted(f"{op.family.replace('_h100', '')} {dict(op.data)}"
+                  for op in fwd if any(".moe." in s for s in op.sites))
+    say(f"[dryrun] (c) {cfg.name} under moe_a2a on {POD_MESH} (pod, data, "
+        f"model): {len(ops_)} (family, key) pairs traced and frozen, "
+        f"{len(fwd)} forward keys launched with their backwards in "
+        f"{time.perf_counter() - t0:.2f} s, experts a rank {experts} of "
+        f"{cfg.moe.num_experts}; cold builds {cold}; MoE keys: "
+        + "; ".join(keys))
+    if cold:
+        raise AssertionError(f"(c) {POD_MESH}: {cold} cold builds")
+    rows = {"matmul_h100_batched": {}}
+    for sig in sorted(sigs["matmul_h100_batched"], key=str):
+        row = CASES["matmul_h100_batched"](sig, gen, timed=True)
+        rows["matmul_h100_batched"][sig] = row
+        say(f"[dryrun] (c) matmul_h100_batched {sig[:-1]}: {fmt(row)}")
+        torch.cuda.empty_cache()
+    if not rows["matmul_h100_batched"]:
+        raise AssertionError("(c) no K1b launch at the pod mesh's keys")
+    return rows
+
+
+def phase_dry_serve() -> None:
+    """(d) llama3-8b at full width (32 layers, bf16 weights) through the
+    non-paged steps on one card and through ``build_serve_steps(cfg,
+    mesh)`` over an NCCL mesh (1, 1) (a communicator of its own):
+    ``MESH_SERVE_RUN``'s prefill and decode logits bit for bit, the same
+    launches, 0 cold builds after ``warm_steps_dispatch``.  Every launch
+    counter is set to 0 just before each run and read just after."""
+    import shutil
+    import tempfile
+    import torch.distributed as tdist
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import init_train_state
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.runtime.steps import (build_serve_steps, greedy_sample,
+                                           rank_cache, warm_steps_dispatch)
+    run = MESH_SERVE_RUN
+    cfg = get_config("llama3_8b").scaled(param_dtype="bfloat16")
+    store = tempfile.mkdtemp(prefix="repro_torch_store_")
+    init_distributed(init_method=f"file://{store}/init", rank=0,
+                     world_size=1, backend="nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        params = init_train_state(cfg, seed=0, device=DEV)
+        B, S, L = run["batch"], run["prompt_len"], run["max_len"]
+        warm_steps_dispatch(cfg, batch=B, prompt_len=S, max_len=L)
+        tokens = torch.randint(0, cfg.vocab, (B, S), device=DEV,
+                               generator=torch.Generator(device=DEV)
+                               .manual_seed(11), dtype=torch.int32)
+        kernels = _counters(SERVE_KERNELS)
+        stats = get_default_cache().stats
+        out = {}
+        for tag, m in (("one card", None), ("mesh (1, 1)", mesh)):
+            pre, dec = build_serve_steps(cfg, m)
+            cache = (init_cache(cfg, B, L, device=DEV) if m is None else
+                     rank_cache(cfg, m, B, L, device=DEV))
+            cold0 = stats.cold_builds
+            _count_reset(kernels)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = pre(params, tokens, cache)
+                steps = [logits]
+                tok = greedy_sample(logits)
+                for i in range(run["steps"]):
+                    logits, cache = dec(params, tok, cache,
+                                        torch.tensor(S + i, device=DEV))
+                    steps.append(logits)
+                    tok = greedy_sample(logits)
+            torch.cuda.synchronize()
+            launches = {n: k.launches for n, k in kernels.items()}
+            out[tag] = (torch.stack(steps), launches,
+                        stats.cold_builds - cold0,
+                        time.perf_counter() - t0)
+            del cache
+        (a, la, ca, sa), (b, lb, cb, sb) = out["one card"], \
+            out["mesh (1, 1)"]
+        same = torch.equal(a, b)
+        say(f"[dryrun] (d) {cfg.name} at full width ({cfg.layers} layers, "
+            f"bf16 weights): prefill of {B} x {S} and {run['steps']} decode "
+            f"steps, one card against the mesh (1, 1) serve steps: logits "
+            f"bit for bit {same}; launches {json.dumps(la)} against "
+            f"{json.dumps(lb)}; cold builds {ca} and {cb}; wall "
+            f"{sa:.2f} and {sb:.2f} s")
+        if not same or la != lb or ca or cb:
+            raise AssertionError("(d) the mesh serve steps differ from the "
+                                 "one-card steps")
+        if not all(lb[n] for n in ("matmul_h100", "flash_attention_h100")):
+            raise AssertionError(f"(d) a kernel of the path did not launch: "
+                                 f"{lb}")
+        del params
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun(gen, refs: list) -> dict:
+    """Phase 15: (a) phase 13's training paths (``refs``) against their
+    dry runs, (b) the four-card cells' dry runs, (c) a pod mesh's keys
+    under ``moe_a2a``, (d) the mesh serve steps.  Returns (c)'s rows."""
+    t0 = time.perf_counter()
+    phase_dry_training(refs)
+    say(f"[dryrun] (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dry_cells()
+    say(f"[dryrun] (b) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows = phase_dry_pod_keys(gen)
+    say(f"[dryrun] (c) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_dry_serve()
+    say(f"[dryrun] (d) {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
@@ -5761,6 +5971,13 @@ def main() -> int:
     multi_s = time.perf_counter() - t1
     say(f"[multi] phase {multi_s:.1f} s")
     t0 += multi_s
+    t1 = time.perf_counter()
+    for name, by_sig in phase_dryrun(gen, train_paths).items():
+        errs[name] = max([errs.get(name, 0.0)]
+                         + [r["err"] for r in by_sig.values()])
+    dry_s = time.perf_counter() - t1
+    say(f"[dryrun] phase {dry_s:.1f} s")
+    t0 += dry_s
     train = _group_shapes(train_paths + multi_train, TRAIN_KERNELS)
     t1 = time.perf_counter()
     k4_rows = phase_train_k4(train_paths, gen)

@@ -252,14 +252,13 @@ def gather_shard(x: torch.Tensor, spec: Spec, mesh,
     """The inverse of :func:`local_shard`, collective over the ranks of
     each sharded dim's axes: every rank's part gathered into the whole,
     cut back to ``shape`` where :func:`local_shard` padded."""
+    from .comm import gather_along
     out = x.contiguous()
     for dim, entry in enumerate(spec):
         axes = entry_axes(entry)
         if not axes or mesh.axis_size(axes) == 1:
             continue
-        parts = [torch.empty_like(out) for _ in range(mesh.axis_size(axes))]
-        dist.all_gather(parts, out, group=mesh.group(axes))
-        out = torch.cat(parts, dim=dim)
+        out = gather_along(out, dim, mesh.group(axes))
     if shape is not None:
         for dim, size in enumerate(shape):
             if out.shape[dim] != size:

@@ -294,7 +294,10 @@ def flash_attention_paged_plain(q: torch.Tensor, k: torch.Tensor,
     acc / l.  A row of length 0 gives zeros.  q [rows, h, sq, d], k, v
     [num_blocks, page, hk, d], tables [rows, nblk], lens [rows]; query head
     i reads KV head i // (h/hk).  ``bq`` and ``stages`` shape the launch
-    only and are taken and ignored."""
+    only and are taken and ignored.  On the ``meta`` device (the dry run)
+    the result's shape and type only."""
+    if q.is_meta:
+        return torch.empty_like(q)
     rows, h, sq, d = q.shape
     page, hk = k.shape[1], k.shape[2]
     nblk = tables.shape[1]

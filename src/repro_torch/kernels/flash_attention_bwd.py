@@ -159,7 +159,10 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     exp(s − lse), δ = rowsum(dO∘O), dV = Pᵀ·dO, dS = P∘(dO·Vᵀ − δ), dQ =
     scale·dS·K, dK = scale·dSᵀ·Q, the group's query heads summed into their
     KV head.  Returns (dq, dk, dv) in the inputs' types.  ``bq`` and
-    ``bkv`` shape the launch only and are taken and ignored."""
+    ``bkv`` shape the launch only and are taken and ignored.  On the
+    ``meta`` device (the dry run) the results' shapes and types only."""
+    if q.is_meta:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rows, h, sq, d = q.shape
     page, hk = k.shape[1], k.shape[2]
     group = h // hk

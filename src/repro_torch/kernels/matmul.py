@@ -92,9 +92,12 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int, bn: int,
     sums its k tiles of ``bk`` in f32 in order, then the splits are added in
     order 0..kb-1.  The block format does not change the result (paper
     Def. 2 ii), so ``bm``/``bn``/``s``/``stages``/``cached`` are taken and
-    ignored."""
+    ignored.  On the ``meta`` device (the dry run) the result's shape and
+    type only."""
     M, K = a.shape
     N = b.shape[1]
+    if a.is_meta:
+        return torch.empty((M, N), dtype=torch.float32, device="meta")
     out = torch.zeros((M, N), dtype=torch.float32, device=a.device)
     for tiles in split_tiles(K, bk, kb):
         part = torch.zeros_like(out)
@@ -109,6 +112,9 @@ def matmul_batched_plain(a: torch.Tensor, b: torch.Tensor, **kw
                          ) -> torch.Tensor:
     """Plain version of the batched entry: :func:`matmul_plain` for each
     expert, A [E, M, K] and B [E, K, N] -> C [E, M, N] f32."""
+    if a.is_meta:
+        return torch.empty((a.shape[0], a.shape[1], b.shape[2]),
+                           dtype=torch.float32, device="meta")
     return torch.stack([matmul_plain(a[e], b[e], **kw)
                         for e in range(a.shape[0])])
 

@@ -227,9 +227,14 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     scan reads state0 before anything is written), rows that ``mask``
     leaves out keeping theirs and getting y = 0, as the kernel does; with
     ``state_rows`` row r reads and writes state row ``state_rows[r]`` by
-    indexing.  Returns (y in x's type, final state f32)."""
+    indexing.  Returns (y in x's type, final state f32); on the ``meta``
+    device (the dry run) their shapes and types only."""
     N = _check(x, a, b, c, state0, out_state, mask, state_rows)[0]
     R, S, H, hd = x.shape
+    if x.is_meta:
+        return torch.empty_like(x), (
+            out_state if out_state is not None else torch.empty(
+                (R, H, N, hd), dtype=torch.float32, device="meta"))
     rows = state_rows.long() if state_rows is not None else None
     xf = x.float().transpose(1, 2)                     # (R, H, S, hd)
     af = a.float().transpose(1, 2)                     # (R, H, S)

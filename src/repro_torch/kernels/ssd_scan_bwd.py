@@ -230,9 +230,16 @@ def ssd_scan_bwd_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     last one cut at seq), the states entering each chunk recomputed from
     ``state0`` (zero when None), dS carried from ``dS_final`` (zero when
     None) back to the first chunk.  Returns (dx in x's type, da f32, db and
-    dc in b's type and shape, d(state0) f32, None when ``state0`` is)."""
+    dc in b's type and shape, d(state0) f32, None when ``state0`` is); on
+    the ``meta`` device (the dry run) their shapes and types only."""
     N = _check(x, a, b, c, state0, None, None)[0]
     R, S, H, hd = x.shape
+    if x.is_meta:
+        return (torch.empty_like(x), torch.empty(a.shape, dtype=torch.float32,
+                                                 device="meta"),
+                torch.empty_like(b), torch.empty_like(c),
+                None if state0 is None else torch.empty(
+                    state0.shape, dtype=torch.float32, device="meta"))
     dev = x.device
     xf = x.float().transpose(1, 2)                     # (R, H, S, hd)
     dyf = dy.float().transpose(1, 2)

@@ -96,6 +96,8 @@ def transpose_batched_plain(a: torch.Tensor, *, bm: int, bn: int, s: int,
                             cached: bool = True) -> torch.Tensor:
     """Plain version of the batched entry: :func:`transpose_plain` for each
     expert, A [E, M, N] -> B [E, N, M]."""
+    if a.is_meta:
+        return a.transpose(1, 2).contiguous()
     return torch.stack([transpose_plain(a[e], bm=bm, bn=bn, s=s,
                                         cached=cached)
                         for e in range(a.shape[0])])

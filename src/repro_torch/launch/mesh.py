@@ -9,7 +9,10 @@ all-to-all's group); :meth:`Mesh.group` builds any other set of axes on
 first use, and :attr:`Mesh.world` is the group of all of them.  An
 abstract mesh (:func:`abstract_mesh`) has a shape and names and no
 groups: the spec trees of :mod:`repro_torch.distributed.sharding` and
-:mod:`repro_torch.launch.specs` are computed on it.
+:mod:`repro_torch.launch.specs` are computed on it, and under the
+collective record (:func:`repro_torch.distributed.comm.recording`) its
+groups are sizes only, so a rank's step runs on it on the ``meta``
+device (``launch/dryrun.py``).
 
 :func:`init_distributed` starts the process group: NCCL for the card,
 gloo for the CPU, from torchrun's ``RANK``, ``WORLD_SIZE`` and
@@ -111,7 +114,11 @@ class Mesh:
         card."""
         axes = tuple(axes)
         if self.abstract:
-            raise RuntimeError(f"{self!r} has no process groups")
+            from ..distributed import comm
+            if not comm.is_recording():
+                raise RuntimeError(f"{self!r} has no process groups")
+            ranks = self.ranks_along(axes)
+            return comm.AbstractGroup(len(ranks), ranks.index(self.rank))
         if axes not in self._groups:
             order = [self.axis_names.index(a) for a in axes]
             if order != sorted(order):

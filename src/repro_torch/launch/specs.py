@@ -25,6 +25,7 @@ tree.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -41,6 +42,22 @@ from ..optim import Optimizer
 PyTree = Any
 
 PATCH_TOKENS = 256        # chameleon stub: VQ patches fused at the front
+
+
+def skip_reason(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """Cell-skip policy (recorded, never silent), the JAX module's."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return ("long-context policy: pure full-attention arch has no "
+                "sub-quadratic path at 524k (DESIGN.md §7)")
+    return None
+
+
+def probe_config(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """Same arch with a reduced *layer count only* (roofline probes)."""
+    kw: Dict[str, Any] = {"layers": layers}
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, layers=layers)
+    return dataclasses.replace(cfg, **kw)
 
 
 def abstract_state(cfg: ModelConfig, optimizer: Optional[Optimizer] = None

@@ -150,7 +150,7 @@ def _full(B: int, n, device: torch.device) -> torch.Tensor:
 def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      cache: Dict[str, torch.Tensor],
                      cache_index: torch.Tensor, cfg: ModelConfig, *,
-                     causal: bool) -> torch.Tensor:
+                     causal: bool, read=None) -> torch.Tensor:
     """Self-attention over the non-paged cache {"k","v"} (B, W, nk, hd),
     written in place at positions ``cache_index + i`` (``cache_index`` a 0-d
     or (B,) integer tensor on the device).  A windowed config whose cache
@@ -161,8 +161,11 @@ def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     slots unmasked: every written slot holds a token inside the window, so
     this is the JAX layer's masked softmax over the ring, summed in slot
     order.  Any other cache is read up to ``cache_index + Sq`` with the
-    causal (and window) mask, queries ends-aligned, in the cache's type."""
+    causal (and window) mask, queries ends-aligned, in the cache's type.
+    ``read``, when given, maps the K/V a core reads (B, P, KV heads, hd)
+    to the heads it reads them for (a tensor-parallel rank's)."""
     ck, cv = cache["k"], cache["v"]
+    read = read or (lambda t: t)
     B, Sq = q.shape[:2]
     W = ck.shape[1]
     dev = q.device
@@ -179,16 +182,17 @@ def _cache_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ck[rows, slots] = kw_.to(ck.dtype)
         cv[rows, slots] = vw_.to(cv.dtype)
         if Sq > 1:
-            return _rows_attention(q, k, v, _full(B, Sq, dev), causal=causal,
-                                   window=cfg.window)
+            return _rows_attention(q, read(k), read(v), _full(B, Sq, dev),
+                                   causal=causal, window=cfg.window)
         lens = torch.clamp(idx + 1, max=W).to(torch.int32)
-        return _rows_attention(q, _readable(ck, q.dtype),
-                               _readable(cv, q.dtype), lens, causal=False,
-                               window=None)
+        return _rows_attention(q, read(_readable(ck, q.dtype)),
+                               read(_readable(cv, q.dtype)), lens,
+                               causal=False, window=None)
     slots = idx[:, None] + steps
     ck[rows, slots] = k.to(ck.dtype)
     cv[rows, slots] = v.to(cv.dtype)
-    return _rows_attention(q, _readable(ck, q.dtype), _readable(cv, q.dtype),
+    return _rows_attention(q, read(_readable(ck, q.dtype)),
+                           read(_readable(cv, q.dtype)),
                            (idx + Sq).to(torch.int32), causal=causal,
                            window=cfg.window)
 
@@ -229,25 +233,36 @@ def tp_heads(cfg: ModelConfig, t: int, j: int) -> Dict[str, int]:
 
 def _tp_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, t: int,
                   *, positions: torch.Tensor, causal: bool,
-                  context: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`attention` without a cache over ``model`` ranks: each
-    column-parallel projection of ``copy_to(x)`` (K/V of
-    ``copy_to(context)`` for cross-attention) gives the rank's columns (a
-    weight whose ``kv_proj`` does not divide is whole, and enters through
-    ``copy_to`` too: the rank reads only some of its heads); the columns of
-    the heads :func:`tp_heads` names come from the rank's own where it
-    holds them, else from the projection's output gathered over
-    ``model``; the output columns of its ``wo`` rows go through ``wo`` and
-    one all-reduce (``reduce_from``).  Cross-attention puts RoPE on
-    neither q nor k and masks nothing."""
+                  context: Optional[torch.Tensor] = None,
+                  cache: Optional[Dict[str, torch.Tensor]] = None,
+                  cache_index: Optional[torch.Tensor] = None,
+                  precomputed_kv: Optional[Tuple[torch.Tensor,
+                                                 torch.Tensor]] = None,
+                  kv_held: Optional[int] = None):
+    """:func:`attention` over ``model`` ranks: each column-parallel
+    projection of ``copy_to(x)`` (K/V of ``copy_to(context)`` for
+    cross-attention) gives the rank's columns (a weight whose ``kv_proj``
+    does not divide is whole, and enters through ``copy_to`` too: the rank
+    reads only some of its heads); the columns of the heads
+    :func:`tp_heads` names come from the rank's own where it holds them,
+    else from the projection's output gathered over ``model``; the output
+    columns of its ``wo`` rows go through ``wo`` and one all-reduce
+    (``reduce_from``).  Cross-attention puts RoPE on neither q nor k and
+    masks nothing.  A non-paged ``cache`` (the serve steps) holds the KV
+    heads its spec gives the rank, all of them or the rank's 1 / t: the
+    rank projects and writes those, and its core reads its own heads of
+    them; cross-attention's cached K/V (``precomputed_kv``) are read the
+    same way, and with ``kv_held`` (the heads the cross cache holds) the
+    call returns (output, (k, v)) of those heads, to be cached."""
     B, Sq, _ = x.shape
     hd = cfg.hd
     mesh = dist.current_mesh()
     group = mesh.group(("model",))
-    plan = tp_heads(cfg, t, mesh.coords()["model"])
+    j = mesh.coords()["model"]
+    plan = tp_heads(cfg, t, j)
     xin = copy_to(x, group)
     src = xin if context is None else copy_to(context, group)
-    Sk = src.shape[1]
+    cross = context is not None or precomputed_kv is not None
 
     def column(wname: str, bname: str, whole: int, lo: int, hi: int,
                inp: torch.Tensor) -> torch.Tensor:
@@ -257,7 +272,7 @@ def _tp_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, t: int,
             b = copy_to(b, group) if b is not None else None
             c0 = 0
         else:
-            c0 = mesh.coords()["model"] * w.shape[1]
+            c0 = j * w.shape[1]
         y = proj(inp, w)
         if b is not None:
             y = y + b.to(x.dtype)
@@ -269,25 +284,49 @@ def _tp_attention(p: Params, x: torch.Tensor, cfg: ModelConfig, t: int,
     nq, nk = cfg.heads * hd, cfg.kv_heads * hd
     q = column("wq", "bq", nq, h0 * hd, h1 * hd, xin).reshape(
         B, Sq, h1 - h0, hd)
-    k = column("wk", "bk", nk, k0 * hd, k1 * hd, src).reshape(
-        B, Sk, k1 - k0, hd)
-    v = column("wv", "bv", nk, k0 * hd, k1 * hd, src).reshape(
-        B, Sk, k1 - k0, hd)
-    if context is None:
+    # the KV heads this call projects: the rank's, or those its cache
+    # holds (all, or the rank's 1 / t)
+    n = (cache["k"].shape[2] if cache is not None else
+         precomputed_kv[0].shape[2] if precomputed_kv is not None else
+         kv_held)
+    K0, K1 = (k0, k1) if n is None else (0, n) if n == cfg.kv_heads \
+        else (j * n, (j + 1) * n)
+    if precomputed_kv is not None:
+        k, v = (_readable(kv, x.dtype) for kv in precomputed_kv)
+    else:
+        Sk = src.shape[1]
+        k = column("wk", "bk", nk, K0 * hd, K1 * hd, src).reshape(
+            B, Sk, K1 - K0, hd)
+        v = column("wv", "bv", nk, K0 * hd, K1 * hd, src).reshape(
+            B, Sk, K1 - K0, hd)
+    if not cross:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    g = cfg.heads // cfg.kv_heads
+    heads = None                      # K/V heads the core reads, by index
     if plan["group"] == 1 and k1 - k0 != h1 - h0:
-        g = cfg.heads // cfg.kv_heads
-        idx = torch.tensor([(h0 + i) // g - k0 for i in range(h1 - h0)],
-                           device=x.device)
-        k, v = k[:, :, idx], v[:, :, idx]
-    out = _rows_attention(q, k.contiguous(), v.contiguous(),
-                          _full(B, Sk, x.device), causal=causal,
-                          window=cfg.window if context is None else None)
+        heads = [(h0 + i) // g - K0 for i in range(h1 - h0)]
+    elif (K0, K1) != (k0, k1):
+        heads = list(range(k0 - K0, k1 - K0))
+
+    def read(kv: torch.Tensor) -> torch.Tensor:
+        if heads is None:
+            return kv.contiguous()
+        return kv[:, :, torch.tensor(heads, device=kv.device)].contiguous()
+
+    if cache is not None:
+        out = _cache_attention(q, k, v, cache, cache_index, cfg,
+                               causal=causal, read=read)
+    else:
+        out = _rows_attention(q, read(k), read(v),
+                              _full(B, k.shape[1], x.device),
+                              causal=causal and not cross,
+                              window=None if cross else cfg.window)
     lo = plan["c0"] - h0 * hd
     out = out.reshape(B, Sq, (h1 - h0) * hd)[..., lo:lo + plan["c1"]
                                              - plan["c0"]]
-    return reduce_from(proj(out, p["wo"]), group)
+    y = reduce_from(proj(out, p["wo"]), group)
+    return (y, (k, v)) if kv_held is not None else y
 
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -300,11 +339,13 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               context: Optional[torch.Tensor] = None,
               precomputed_kv: Optional[Tuple[torch.Tensor,
                                              torch.Tensor]] = None,
-              return_kv: bool = False):
+              return_kv: bool = False, kv_held: Optional[int] = None):
     """Self-attention over x (B, Sq, d), or cross-attention when
     ``context`` (B, Sk, d) or ``precomputed_kv`` (k, v) (B, Sk, nk, hd) is
     given; returns the output (B, Sq, d), or (output, (k, v)) with the
-    projected, unrounded K/V of ``context`` under ``return_kv``.
+    projected, unrounded K/V of ``context`` under ``return_kv`` (of the
+    ``kv_held`` KV heads the cross cache holds, on a tensor-parallel rank:
+    :func:`_tp_attention`).
 
     Cross-attention projects K/V from ``context`` (or reads them as given,
     whisper's cross cache, cast to x's type), puts RoPE on neither q nor k,
@@ -326,12 +367,15 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     nh, nk, hd = cfg.heads, cfg.kv_heads, cfg.hd
     t = model_split(p["wq"], 1, nh * hd)
     if t > 1:
-        if cache is not None or precomputed_kv is not None or return_kv:
+        if block_tables is not None:
             raise NotImplementedError(
-                "tensor parallelism covers self- and cross-attention "
-                "without a cache (the training forward)")
+                "tensor parallelism covers the non-paged cache; the paged "
+                "engine runs on one card")
         return _tp_attention(p, x, cfg, t, positions=positions,
-                             causal=causal, context=context)
+                             causal=causal, context=context, cache=cache,
+                             cache_index=cache_index,
+                             precomputed_kv=precomputed_kv,
+                             kv_held=kv_held if return_kv else None)
     q = proj(x, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
@@ -412,7 +456,8 @@ def _cols(y: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
 
 
 def _tp_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig,
-            plan: Dict[str, int]) -> torch.Tensor:
+            plan: Dict[str, int],
+            state: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`ssm_block` without a state over ``model`` ranks, on the
     heads of :func:`ssm_tp_plan`'s ``plan``: x's columns of those heads
     from the rank's ``wx`` columns (gathered over ``model`` where a head
@@ -420,7 +465,10 @@ def _tp_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig,
     decays (from the rank's ``wa`` heads, or from the whole ``wa``),
     one K3 call over the heads, and the output columns of the rank's
     ``wo`` rows through ``wo`` and one all-reduce.  A whole leaf enters
-    through ``copy_to``: the rank reads only part of what it gives."""
+    through ``copy_to``: the rank reads only part of what it gives.  A
+    ``state`` (the serve steps' cache slice, updated in place) holds the
+    heads its spec gives the rank, all of them or the rank's: the scan
+    runs from and into the rank's heads of it."""
     s = cfg.ssm
     B, S, _ = x.shape
     hd, di = s.head_dim, s.heads * s.head_dim
@@ -454,8 +502,14 @@ def _tp_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig,
         a = _cols(a, h0, h1)
     if recording(xi, a, b, c):
         y, _ = SsdScanFn.apply(xi, a, b, c, None, None, None, None)
-    else:
+    elif state is None:
         y, _ = ops.ssd_scan(xi, a, b, c, None)
+    elif state.shape[1] == h1 - h0:         # the rank's heads, in place
+        y, _ = ops.ssd_scan(xi, a, b, c, state, out_state=state)
+    else:
+        st = state[:, h0:h1].contiguous()
+        y, _ = ops.ssd_scan(xi, a, b, c, st, out_state=st)
+        state[:, h0:h1] = st
     y = _cols(y.reshape(B, S, (h1 - h0) * hd), c0 - h0 * hd, c1 - h0 * hd)
     wo = p["wo"] if split("wo", 0, di) else copy_to(p["wo"], group)[c0:c1]
     return reduce_from(proj(y, wo), group)
@@ -488,12 +542,14 @@ def ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         model_split(p[name], 1, whole) > 1 for name, whole in (
             ("wx", s.heads * s.head_dim), ("wb", s.state), ("wa", s.heads)))
     if split:
-        if any(v is not None for v in (state, out_state, mask, state_rows)):
+        if mask is not None or state_rows is not None \
+                or out_state is not state:
             raise NotImplementedError(
                 "tensor parallelism covers the SSD block without a state "
-                "(the training forward)")
+                "or with one updated in place (the non-paged steps); the "
+                "paged engine runs on one card")
         plan = ssm_tp_plan(cfg, t, mesh.coords()["model"])
-        return _tp_ssm(p, x, cfg, plan), None
+        return _tp_ssm(p, x, cfg, plan, state), state
     xi = proj(x, p["wx"]).reshape(B, S, s.heads, s.head_dim)
     b = proj(x, p["wb"])                                    # (B, S, state)
     c = proj(x, p["wc"])

@@ -31,9 +31,21 @@ parallelism), so there the block's input and router enter through
 through ``reduce_from`` of the rank's rows in place, and the statistics
 sum over ``model`` through ``reduce_from`` before the data ranks' sum.
 
-A mesh with a ``pod`` axis of more than one rank is refused: the JAX
-schedule replicates its groups over pods (ROADMAP Queue 1 item 4c,
-part 4).
+Over more than one pod the schedule is JAX's ``shard_map``, whose specs
+name only ("data", "model"): the token groups are the whole batch's (T =
+B·S over every pod), they lie over ("data", "model") and each pod
+computes all of them, the experts lie over ("data", "model") and are
+replicated over ``pod`` (their gradients sum over it as any replicated
+leaf's).  The groups a rank routes are then not its own rows: the ranks
+along the batch axes ("pod", "data") of one ``model`` coordinate gather
+the batch (``all_gather``, whose adjoint is a reduce-scatter) and each
+takes the groups of its (data, model) index; after the exchange the
+outputs come home over ``model`` (``reduce_from``, as in one pod) and
+then over ``data`` within the pod (``all_gather``), and each rank keeps
+its own rows.  A pod's copy of a group is thus read back only by that
+pod's rows: each row's gradient enters once, through its own pod, and
+each pod's copy of the statistics, like every rank's loss, is divided by
+the row shards as before.  On one pod every launch and bit is as it was.
 """
 from __future__ import annotations
 
@@ -43,8 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed import sharding as dist
-from ..distributed.comm import (all_reduce_sum, all_to_all, copy_to,
-                                reduce_from)
+from ..distributed.comm import (all_gather, all_reduce_sum, all_to_all,
+                                copy_to, reduce_from)
 from .config import ModelConfig
 from .moe import (MOE_GROUP_SIZE, capacity, experts_swiglu, route,
                   router_logits)
@@ -75,11 +87,6 @@ def moe_block_a2a(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if mesh is None or "data" not in mesh.axis_names:
         raise ValueError("moe_block_a2a needs a current mesh with a 'data' "
                          "axis (distributed.use_mesh_rules)")
-    if mesh.shape.get("pod", 1) > 1:
-        raise NotImplementedError(
-            "moe_a2a over a mesh of more than one pod is not ported: the "
-            "JAX schedule replicates its groups over pods (ROADMAP Queue 1 "
-            "item 4c, part 4)")
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
@@ -92,8 +99,9 @@ def moe_block_a2a(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         raise ValueError(f"{E_l} experts a rank over {n_dev} ranks hold "
                          f"fewer than the {E} routed")
 
-    T_l = B * S                           # the data shard's tokens
-    T = T_l * mesh.shape["data"]
+    T_l = B * S                           # the rank's rows' tokens
+    n_pod = mesh.shape.get("pod", 1)
+    T = T_l * mesh.shape["data"] * n_pod
     gsz = min(group_size, max(1, T // n_dev))
     G = T // gsz
     if T % gsz or G % n_dev:
@@ -106,7 +114,13 @@ def moe_block_a2a(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if n_model > 1:
         mgroup = mesh.group(("model",))
         x, router = copy_to(x, mgroup), copy_to(router, mgroup)
-    xt = x.reshape(T_l, d)[j * G_l * gsz:(j + 1) * G_l * gsz].contiguous()
+    if n_pod > 1:       # the batch, then the groups of (data, model) index
+        xg = all_gather(x.reshape(T_l, d), mesh.group(("pod", "data")))
+        i = mesh.axis_index(axes)
+        xt = xg[i * G_l * gsz:(i + 1) * G_l * gsz].contiguous()
+    else:
+        xt = x.reshape(T_l, d)[j * G_l * gsz:(j + 1) * G_l * gsz]
+        xt = xt.contiguous()
 
     dispatch, combine, probs, onehot = route(
         router_logits(router, xt).reshape(G_l, gsz, E), k, C)
@@ -136,4 +150,8 @@ def moe_block_a2a(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     # load-balance stats: the group's means (pmean)
     stats = all_reduce_sum(stats, group) / n_dev
     aux = E * (stats[0] * stats[1]).sum()
+    if n_pod > 1:       # the pod's outputs, then the rank's own rows
+        y = all_gather(y, mesh.group(("data",)))
+        b = mesh.axis_index(("pod", "data"))
+        y = y[b * T_l:(b + 1) * T_l]
     return y.reshape(B, S, d), aux

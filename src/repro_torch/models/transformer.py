@@ -64,21 +64,20 @@ def check_train(cfg: ModelConfig) -> None:
 
 
 def check_mesh(cfg: ModelConfig, mesh) -> None:
-    """Raise for a config the mesh train step does not cover on ``mesh``:
-    the ``moe_a2a`` schedule on a mesh of more than one pod (ROADMAP
-    Queue 1 item 4c, part 4).  Every config takes every single-pod mesh,
-    under its own flags: the attention, MLP, SSD and cross-attention
-    layers tensor-parallel over ``model`` where a leaf holds the rank's
-    part (:mod:`.layers`), whisper's encoder too, and the dense MoE layer
-    expert-parallel over ``data`` with its experts' ``ff`` over ``model``
-    (:mod:`.moe`)."""
-    from .moe_a2a import a2a_active
-    if a2a_active(cfg, mesh) and mesh.shape.get("pod", 1) > 1:
-        raise NotImplementedError(
-            f"config {cfg.name} under 'moe_a2a' on a mesh of "
-            f"{mesh.shape['pod']} pods: the JAX schedule replicates its "
-            "groups over pods, which is ROADMAP Queue 1 item 4c, part 4; a "
-            "single-pod mesh, or the dense layer, trains it")
+    """Raise for a mesh the model does not run on: axes other than
+    ("pod", "data", "model"), or out of that order.  Every config takes
+    every such mesh, under its own flags: the attention, MLP, SSD and
+    cross-attention layers tensor-parallel over ``model`` where a leaf
+    holds the rank's part (:mod:`.layers`), whisper's encoder too, the
+    dense MoE layer expert-parallel over ``data`` with its experts' ``ff``
+    over ``model`` (:mod:`.moe`), and the ``moe_a2a`` schedule over
+    ("data", "model") on any number of pods (:mod:`.moe_a2a`)."""
+    known = ("pod", "data", "model")
+    names = tuple(mesh.axis_names)
+    if not set(names) <= set(known) or list(names) != sorted(
+            names, key=known.index):
+        raise ValueError(f"config {cfg.name}: mesh axes {names}, not an "
+                         f"ordered subset of {known}")
 
 
 def check_paged(cfg: ModelConfig) -> None:
@@ -336,7 +335,8 @@ def _block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
         else:
             xa, (k, v) = L.attention(lp["xattn"], xn, cfg, positions=pos,
                                      causal=False, context=enc_out,
-                                     return_kv=True)
+                                     return_kv=True,
+                                     kv_held=xcache["ck"].shape[2])
             if xcache is not None:
                 xcache["ck"].copy_(k)
                 xcache["cv"].copy_(v)
@@ -534,14 +534,31 @@ def _steps(params: Params, cfg: ModelConfig, x: torch.Tensor,
     each writing its cache slices in place; returns the last rows'
     normed hidden state (B, 1, d)."""
     ssm = cache.get("ssm")
-    for i, lp in enumerate(params["layers"]):
-        x, _ = _block(lp, x, cfg, ssm_state=ssm[i] if ssm is not None
-                      else None, enc_out=enc_out,
+    for i, lp in enumerate(layer_list(params["layers"], cfg.layers)):
+        x, _ = _layer(lp, x, cfg, "layers",
+                      ssm_state=ssm[i] if ssm is not None else None,
+                      enc_out=enc_out,
                       xcache=_layer_cache(cache, i, ("ck", "cv")),
                       positions=positions,
                       cache=_layer_cache(cache, i, ("k", "v")),
                       cache_index=idx)
-    return L.rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    return L.rmsnorm(_used(params["ln_f"], ("ln_f",)), x[:, -1:],
+                     cfg.norm_eps)
+
+
+def _logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+            ) -> torch.Tensor:
+    """The last rows' logits (B, V) of the normed hidden state x (B, 1,
+    d); a vocab-parallel ``out`` (a mesh's serve step) gives the rank's
+    columns, gathered over ``model`` into all of them."""
+    out = _used({"out": params["embed"]["out"]}, ("embed",))
+    logits = L.unembed(out, x, cfg.vocab)[:, 0]
+    if logits.shape[-1] != cfg.vocab:
+        from ..distributed import sharding as dist
+        from ..distributed.comm import gather_along
+        logits = gather_along(logits, -1,
+                              dist.current_mesh().group(("model",)))
+    return logits
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens,
@@ -563,7 +580,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens,
     positions = torch.arange(x.shape[1], device=dev)
     idx0 = torch.zeros((), dtype=torch.long, device=dev)
     x = _steps(params, cfg, x, cache, idx0, positions, enc_out)
-    return L.unembed(params["embed"], x, cfg.vocab)[:, 0], cache
+    return _logits(params, cfg, x), cache
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens,
@@ -577,11 +594,12 @@ def decode_step(params: Params, cfg: ModelConfig, tokens,
     no host work and no host-device copy, so a CUDA graph can capture it
     once and replay it on new contents of the same tensors."""
     dev = _device(params)
-    x = L.embed(params["embed"], _long(tokens, dev), _dtype(cfg), cfg.vocab)
+    x = L.embed(_used({"tok": params["embed"]["tok"]}, ("embed",)),
+                _long(tokens, dev), _dtype(cfg), cfg.vocab)
     idx = _long(cache_index, dev)
     positions = idx[:, None] if idx.dim() == 1 else idx.reshape(1)
     x = _steps(params, cfg, x, cache, idx, positions, None)
-    return L.unembed(params["embed"], x, cfg.vocab)[:, 0], cache
+    return _logits(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------

@@ -78,9 +78,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Tuple
 
+import torch
+
+from ..kernels.flash_attention_bwd import launches_a_call
+from ..kernels.ssd_scan_bwd import LAUNCHES_A_CALL
 from ..models.config import ModelConfig
 from ..models.layers import ssm_tp_plan, tp_heads
-from ..models.moe import MOE_GROUP_SIZE, capacity
+from ..models.moe import MOE_GROUP_SIZE, a2a_padded_experts, capacity
 from ..models.moe_a2a import a2a_active, a2a_axes
 from ..models.transformer import (check_block, check_mesh, check_paged,
                                   check_train, has_attn, has_mlp, has_ssm)
@@ -145,11 +149,15 @@ def _heads(cfg: ModelConfig, SQ: int, tp: Optional[Tuple[int, int]]
             "HK": cfg.kv_heads}
 
 
+Request = Tuple[str, str, Dict[str, int], Dict]
+
+
 def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
                     a2a: Optional[Tuple[int, int]] = None,
                     tp: Optional[Tuple[int, int]] = None,
-                    ep: Optional[Tuple[int, int]] = None
-                    ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+                    ep: Optional[Tuple[int, int]] = None, *,
+                    causal: bool = True, kv: Optional[Tuple[int, int]] = None
+                    ) -> Iterator[Request]:
     """One layer's requests over ``M`` token rows whose cores run at
     sequence length ``SQ`` (a prefill chunk: M = SQ = C; a decode step:
     M = max_batch, SQ = 1).  ``a2a`` = (T, n): the MoE layer runs the
@@ -159,39 +167,54 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
     K / t, the attention core at the rank's heads (``layers.tp_heads``),
     the SSD block's as ``layers.ssm_tp_plan`` cuts it.  ``ep`` = (n_b,
     n_e): the dense MoE layer of a rank of n_b batch ranks (M its tokens)
-    whose experts lie over n_e expert shards."""
+    whose experts lie over n_e expert shards.  Each request carries what
+    a launch's work depends on (:class:`Launch`): its launches a call of
+    the layer (``n``: ``wk`` and ``wv`` are two), a K1 request's input
+    type where it is not the config's (the f32 decay projection), the
+    experts of a batched launch, a core's rows, its keys (``kv`` = (keys a
+    row's pool holds, keys it reads), the core's own SQ without a cache)
+    and masks, and the SSD heads the rank scans."""
     d, hd = cfg.d_model, cfg.hd
+    sk, klen = kv if kv is not None else (SQ, SQ)
+    rows = M // SQ
     if has_attn(cfg):
         nq, nk = cfg.heads * hd, cfg.kv_heads * hd
         heads = _heads(cfg, SQ, tp)
         yield (f"{prefix}.attn.q_proj", "matmul_h100",
-               {"M": M, "N": _split(nq, tp), "K": d})
+               {"M": M, "N": _split(nq, tp), "K": d}, {})
         yield (f"{prefix}.attn.kv_proj", "matmul_h100",
-               {"M": M, "N": _split(nk, tp), "K": d})
+               {"M": M, "N": _split(nk, tp), "K": d}, {"n": 2})
         yield (f"{prefix}.attn.out_proj", "matmul_h100",
-               {"M": M, "N": d, "K": _split(nq, tp)})
-        yield (f"{prefix}.attn.core", "flash_attention_h100", heads)
+               {"M": M, "N": d, "K": _split(nq, tp)}, {})
+        yield (f"{prefix}.attn.core", "flash_attention_h100", heads,
+               {"rows": rows, "sk": sk, "len": klen, "causal": causal,
+                "window": cfg.window})
     if has_ssm(cfg):
         s = cfg.ssm
         di = s.heads * s.head_dim
         plan = ssm_tp_plan(cfg, *tp) if tp is not None else None
         sp = tp if plan is not None else None
         yield (f"{prefix}.ssm.x_proj", "matmul_h100",
-               {"M": M, "N": _split(di, sp), "K": d})
+               {"M": M, "N": _split(di, sp), "K": d}, {})
         yield (f"{prefix}.ssm.bc_proj", "matmul_h100",
-               {"M": M, "N": _split(s.state, sp), "K": d})  # wb and wc
+               {"M": M, "N": _split(s.state, sp), "K": d},
+               {"n": 2})                                    # wb and wc
         yield (f"{prefix}.ssm.decay_proj", "matmul_h100",
-               {"M": M, "N": _split(s.heads, sp), "K": d})  # f32, f32 wa
+               {"M": M, "N": _split(s.heads, sp), "K": d},
+               {"dtype": "float32"})                        # f32, f32 wa
         yield (f"{prefix}.ssm.out_proj", "matmul_h100",
                {"M": M, "N": d, "K": plan["c1"] - plan["c0"]
-                if plan is not None else di})
+                if plan is not None else di}, {})
         yield (f"{prefix}.ssm.scan", "ssd_scan_h100",
-               {"SQ": SQ, "HD": s.head_dim, "STATE": s.state})
+               {"SQ": SQ, "HD": s.head_dim, "STATE": s.state},
+               {"rows": rows, "H": plan["h1"] - plan["h0"]
+                if plan is not None else s.heads})
     if has_mlp(cfg):
         yield (f"{prefix}.mlp.up_proj", "matmul_h100",
-               {"M": M, "N": _split(cfg.d_ff, tp), "K": d})  # wi and wg
+               {"M": M, "N": _split(cfg.d_ff, tp), "K": d},
+               {"n": 2})                                    # wi and wg
         yield (f"{prefix}.mlp.down_proj", "matmul_h100",
-               {"M": M, "N": d, "K": _split(cfg.d_ff, tp)})
+               {"M": M, "N": d, "K": _split(cfg.d_ff, tp)}, {})
     if cfg.block == "attn_moe":
         m = cfg.moe
         fe = m.d_ff_expert
@@ -200,39 +223,40 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
             T = M * n_b                       # the microbatch's tokens
             gsz = min(MOE_GROUP_SIZE, T)
             whole = n_b > 1 and M % gsz != 0  # routed whole on every rank
-            rows = T if whole else M
-            groups = -(-rows // gsz) * (1 if whole else n_e)
+            routed = T if whole else M
+            groups = -(-routed // gsz) * (1 if whole else n_e)
             fe = _split(fe, tp)
+            held = m.num_experts // n_e
         else:                         # this rank's groups; every group's
             T, n = a2a                # rows of its experts
             gsz = min(MOE_GROUP_SIZE, max(1, T // n))
-            rows, groups = T // n, T // gsz
+            routed, groups = T // n, T // gsz
+            held = -(-a2a_padded_experts(cfg) // n)
         yield (f"{prefix}.moe.router", "matmul_h100",
-               {"M": rows, "N": m.num_experts, "K": d})
+               {"M": routed, "N": m.num_experts, "K": d}, {})
         cap = groups * capacity(gsz, m.num_experts, m.top_k,
                                 m.capacity_factor)
         yield (f"{prefix}.moe.expert_up", "matmul_h100",
-               {"M": cap, "N": fe, "K": d})   # wi and wg
+               {"M": cap, "N": fe, "K": d}, {"n": 2, "E": held})  # wi, wg
         yield (f"{prefix}.moe.expert_down", "matmul_h100",
-               {"M": cap, "N": d, "K": fe})
+               {"M": cap, "N": d, "K": fe}, {"E": held})
 
 
 def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,
-                   prefill_chunk: int
-                   ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+                   prefill_chunk: int) -> Iterator[Request]:
     for c in chunk_lengths(prefill_chunk, max_len):
         pre = f"serve.prefill@{c}"
         yield from _layer_requests(cfg, c, c, pre)
         yield (f"{pre}.lm_head", "matmul_h100",
-               {"M": 1, "N": cfg.vocab, "K": cfg.d_model})
+               {"M": 1, "N": cfg.vocab, "K": cfg.d_model}, {})
     yield from _layer_requests(cfg, max_batch, 1, "serve.decode")
     yield ("serve.decode.lm_head", "matmul_h100",
-           {"M": max_batch, "N": cfg.vocab, "K": cfg.d_model})
+           {"M": max_batch, "N": cfg.vocab, "K": cfg.d_model}, {})
 
 
 def _cross_requests(cfg: ModelConfig, M: int, SQ: int, kv_rows: int,
                     prefix: str, tp: Optional[Tuple[int, int]] = None
-                    ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+                    ) -> Iterator[Request]:
     """A whisper decoder layer's cross-attention over ``M`` token rows of
     ``SQ`` queries a sequence: q and out projections, the K/V projection
     over ``kv_rows`` encoder rows (none at decode: they are cached), and
@@ -241,36 +265,66 @@ def _cross_requests(cfg: ModelConfig, M: int, SQ: int, kv_rows: int,
     d, hd, sk = cfg.d_model, cfg.hd, cfg.encoder.seq_len
     nq, nk = cfg.heads * hd, cfg.kv_heads * hd
     yield (f"{prefix}.xattn.q_proj", "matmul_h100",
-           {"M": M, "N": _split(nq, tp), "K": d})
+           {"M": M, "N": _split(nq, tp), "K": d}, {})
     if kv_rows:
         yield (f"{prefix}.xattn.kv_proj", "matmul_h100",
-               {"M": kv_rows, "N": _split(nk, tp), "K": d})
+               {"M": kv_rows, "N": _split(nk, tp), "K": d}, {"n": 2})
     yield (f"{prefix}.xattn.out_proj", "matmul_h100",
-           {"M": M, "N": d, "K": _split(nq, tp)})
-    for run in sorted({min(sk, SQ - s) for s in range(0, SQ, sk)},
-                      reverse=True):
+           {"M": M, "N": d, "K": _split(nq, tp)}, {})
+    runs = [min(sk, SQ - s) for s in range(0, SQ, sk)]
+    for run in sorted(set(runs), reverse=True):
         yield (f"{prefix}.xattn.core", "flash_attention_h100",
-               _heads(cfg, run, tp))
+               _heads(cfg, run, tp),
+               {"n": runs.count(run), "rows": M // SQ, "sk": sk,
+                "len": sk, "causal": False, "window": None})
 
 
-def _iter_step_requests(cfg: ModelConfig, *, batch: int, prompt_len: int
-                        ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+def _iter_step_requests(cfg: ModelConfig, *, batch: int, prompt_len: int,
+                        max_len: Optional[int] = None,
+                        tp: Optional[Tuple[int, int]] = None,
+                        ep: Optional[Tuple[int, int]] = None,
+                        a2a: Optional[Tuple[int, int]] = None,
+                        parts: Tuple[str, ...] = ("prefill", "decode")
+                        ) -> Iterator[Request]:
+    """The non-paged steps' requests: ``parts`` of "prefill" (the
+    encoder's too) and "decode" (a step at the last index of a cache of
+    ``max_len``), ``tp``, ``ep`` and ``a2a`` a rank's as
+    :func:`_layer_requests` takes them, ``batch`` the rank's rows."""
     enc = cfg.encoder
     enc_rows = batch * enc.seq_len if enc is not None else 0
-    if enc is not None:
-        yield from _layer_requests(cfg, enc_rows, enc.seq_len, "serve.encode")
-    pre = f"serve.prefill@{prompt_len}"
-    yield from _layer_requests(cfg, batch * prompt_len, prompt_len, pre)
-    if enc is not None:
-        yield from _cross_requests(cfg, batch * prompt_len, prompt_len,
-                                   enc_rows, pre)
-    yield (f"{pre}.lm_head", "matmul_h100",
-           {"M": batch, "N": cfg.vocab, "K": cfg.d_model})
-    yield from _layer_requests(cfg, batch, 1, "serve.decode")
-    if enc is not None:
-        yield from _cross_requests(cfg, batch, 1, 0, "serve.decode")
-    yield ("serve.decode.lm_head", "matmul_h100",
-           {"M": batch, "N": cfg.vocab, "K": cfg.d_model})
+    max_len = max_len or prompt_len
+    W = min(cfg.window, max_len) if cfg.window else max_len
+    ring = cfg.window is not None and W <= cfg.window
+    if "prefill" in parts:
+        if enc is not None:
+            yield from _layer_requests(cfg, enc_rows, enc.seq_len,
+                                       "serve.encode", tp=tp, ep=ep,
+                                       causal=False)
+        pre = f"serve.prefill@{prompt_len}"
+        # a prompt on a ring attends within itself; any other reads the
+        # cache it has just written, up to its length
+        kv = (prompt_len, prompt_len) if ring else (W, prompt_len)
+        yield from _layer_requests(cfg, batch * prompt_len, prompt_len, pre,
+                                   a2a, tp, ep, kv=kv)
+        if enc is not None:
+            yield from _cross_requests(cfg, batch * prompt_len, prompt_len,
+                                       enc_rows, pre, tp)
+        yield (f"{pre}.lm_head", "matmul_h100",
+               {"M": batch, "N": _split(cfg.vocab, tp), "K": cfg.d_model},
+               {})
+    if "decode" in parts:
+        kv = (W, min(max_len, W))
+        for req in _layer_requests(cfg, batch, 1, "serve.decode", a2a, tp,
+                                   ep, kv=kv):
+            if ring and req[1] == "flash_attention_h100":
+                req = (req[0], req[1], req[2], dict(req[3], causal=False,
+                                                    window=None))
+            yield req
+        if enc is not None:
+            yield from _cross_requests(cfg, batch, 1, 0, "serve.decode", tp)
+        yield ("serve.decode.lm_head", "matmul_h100",
+               {"M": batch, "N": _split(cfg.vocab, tp), "K": cfg.d_model},
+               {})
 
 
 def _dedup(requests: Iterator[Tuple[str, str, Dict[str, int]]]
@@ -279,7 +333,7 @@ def _dedup(requests: Iterator[Tuple[str, str, Dict[str, int]]]
     asking for it."""
     out: List[TracedOp] = []
     index: Dict[Tuple[str, Tuple[Tuple[str, int], ...]], int] = {}
-    for site, family, data in requests:
+    for site, family, data, *_ in requests:
         items = tuple(sorted((k, int(v)) for k, v in data.items()))
         key = (family, items)
         at = index.get(key)
@@ -321,21 +375,22 @@ def _iter_train_requests(cfg: ModelConfig, *, rows: int, seq: int,
                          a2a: Optional[Tuple[int, int]] = None,
                          tp: Optional[Tuple[int, int]] = None,
                          ep: Optional[Tuple[int, int]] = None
-                         ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
+                         ) -> Iterator[Request]:
     """A microbatch's forward requests (``tp``, ``ep``: a rank's, as
     :func:`_layer_requests` takes them; the lm_head at its vocab / t)."""
     enc = cfg.encoder
     enc_rows = rows * enc.seq_len if enc is not None else 0
     if enc is not None:
         yield from _layer_requests(cfg, enc_rows, enc.seq_len, "train.encode",
-                                   tp=tp)
+                                   tp=tp, causal=False)
     yield from _layer_requests(cfg, rows * seq, seq, "train.layer", a2a, tp,
                                ep)
     if enc is not None:
         yield from _cross_requests(cfg, rows * seq, seq, enc_rows,
                                    "train.layer", tp)
     yield ("train.lm_head", "matmul_h100",
-           {"M": rows * seq, "N": _split(cfg.vocab, tp), "K": cfg.d_model})
+           {"M": rows * seq, "N": _split(cfg.vocab, tp), "K": cfg.d_model},
+           {})
 
 
 #: The backward family of each forward family but K1's, at the forward's
@@ -344,36 +399,31 @@ BACKWARD = {"flash_attention_h100": "flash_attention_bwd_h100",
             "ssd_scan_h100": "ssd_scan_bwd_h100"}
 
 
-def _with_backward(requests: Iterator[Tuple[str, str, Dict[str, int]]]
-                   ) -> Iterator[Tuple[str, str, Dict[str, int]]]:
-    """Each forward request, then what its backward asks for; raises for
-    a family whose backward it does not know."""
-    for site, family, data in requests:
-        yield site, family, data
+def _with_backward(requests: Iterator[Request]) -> Iterator[Request]:
+    """Each forward request, then what its backward asks for (a K1
+    request's dA, dB and K4's two transposes, as many as it has calls);
+    raises for a family whose backward it does not know."""
+    for site, family, data, *rest in requests:
+        info = dict(rest[0]) if rest else {}
+        yield site, family, data, info
+        back = dict(info, backward=True)
         if family == "matmul_h100":
             M, N, K = data["M"], data["N"], data["K"]
-            yield f"{site}.dA", family, {"M": M, "N": K, "K": N}
-            yield f"{site}.dB", family, {"M": K, "N": N, "K": M}
-            yield f"{site}.wT", "transpose_h100", {"M": K, "N": N}
-            yield f"{site}.xT", "transpose_h100", {"M": M, "N": K}
+            yield f"{site}.dA", family, {"M": M, "N": K, "K": N}, back
+            yield f"{site}.dB", family, {"M": K, "N": N, "K": M}, back
+            yield f"{site}.wT", "transpose_h100", {"M": K, "N": N}, back
+            yield f"{site}.xT", "transpose_h100", {"M": M, "N": K}, back
         elif family in BACKWARD:
-            yield f"{site}.bwd", BACKWARD[family], data
+            yield f"{site}.bwd", BACKWARD[family], data, back
         else:
             raise ValueError(f"{site}: no backward of family {family!r} "
                              "is known")
 
 
-def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
-                         microbatches: int = 1, mesh=None) -> List[TracedOp]:
-    """The warm set of a train step: ordered, deduplicated by (family,
-    data), deterministic.  A config the port does not train is refused.
-    Under a ``mesh`` (the step's) a rank runs its rows of each microbatch,
-    and a ``moe_a2a`` config's MoE layers the schedule: the router at the
-    rank's tokens, the experts at every group's rows (G·C a key, over the
-    rank's E_l experts, which the trace does not count), and the dense MoE
-    layer its expert parallelism (:func:`_layer_requests`' ``ep``); with
-    ``model`` > 1 the rank's tensor-parallel keys (``tp``, the mesh's
-    rank: rank 0 of an abstract mesh)."""
+def _train_requests(cfg: ModelConfig, global_batch: int, seq: int,
+                    microbatches: int, mesh) -> Iterator[Request]:
+    """A rank's requests in one microbatch of a train step over ``mesh``,
+    forward and backward."""
     check_train(cfg)
     shards, tp = 1, None
     if mesh is not None:
@@ -386,11 +436,134 @@ def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
         raise ValueError(f"batch {global_batch} not a multiple of "
                          f"{microbatches} microbatches of {shards} shards")
     rows = global_batch // microbatches // shards
-    a2a = ep = None
+    return _with_backward(_iter_train_requests(
+        cfg, rows=rows, seq=seq, tp=tp,
+        **_rank_moe(cfg, mesh, rows * seq * shards, shards)))
+
+
+def _rank_moe(cfg: ModelConfig, mesh, tokens: int, shards: int
+              ) -> Dict[str, Optional[Tuple[int, int]]]:
+    """The MoE layer's ``a2a`` or ``ep`` argument of a rank of ``mesh``
+    whose batch is ``tokens`` over ``shards`` row shards."""
     if a2a_active(cfg, mesh):
-        a2a = (rows * seq * shards, mesh.axis_size(a2a_axes(mesh)))
-    elif mesh is not None and cfg.block == "attn_moe":
+        return {"a2a": (tokens, mesh.axis_size(a2a_axes(mesh)))}
+    if mesh is not None and cfg.block == "attn_moe":
         n = mesh.shape.get("data", 1)
-        ep = (shards, n if cfg.moe.num_experts % n == 0 else 1)
-    return _dedup(_with_backward(_iter_train_requests(
-        cfg, rows=rows, seq=seq, a2a=a2a, tp=tp, ep=ep)))
+        return {"ep": (shards, n if cfg.moe.num_experts % n == 0 else 1)}
+    return {}
+
+
+def trace_train_warm_set(cfg: ModelConfig, *, global_batch: int, seq: int,
+                         microbatches: int = 1, mesh=None) -> List[TracedOp]:
+    """The warm set of a train step: ordered, deduplicated by (family,
+    data), deterministic.  A config the port does not train is refused.
+    Under a ``mesh`` (the step's) a rank runs its rows of each microbatch,
+    and a ``moe_a2a`` config's MoE layers the schedule: the router at the
+    rank's tokens (over every pod, the batch's T over the ("data",
+    "model") ranks: each pod routes every group), the experts at every
+    group's rows (G·C a key, over the rank's E_l experts, which the key
+    does not name), and the dense MoE layer its expert parallelism
+    (:func:`_layer_requests`' ``ep``); with ``model`` > 1 the rank's
+    tensor-parallel keys (``tp``, the mesh's rank: rank 0 of an abstract
+    mesh)."""
+    return _dedup(_train_requests(cfg, global_batch, seq, microbatches,
+                                  mesh))
+
+
+# ---------------------------------------------------------------------------
+# Every launch of one step, with its count
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Launch:
+    """A kernel launch site of one step and how often the step makes it:
+    ``calls`` requests of the dispatch ``family`` at ``key`` (what a
+    ``DispatchCache.record()`` counts), ``launches`` kernels of the
+    wrapper that counts them (``wrapper``: ``matmul_h100_batched`` and
+    ``transpose_h100_batched`` for the experts' batched entries; K2b and
+    K3b launch several kernels a call), and ``info``, what the launch's
+    work depends on beyond its key (:func:`~repro_torch.launch.roofline.
+    launch_signature`)."""
+
+    site: str
+    family: str
+    wrapper: str
+    key: Tuple[Tuple[str, int], ...]
+    calls: int
+    launches: int
+    info: Dict
+
+
+def _launches(cfg: ModelConfig, requests: Iterator[Request], times
+              ) -> List[Launch]:
+    """Each request as a :class:`Launch`, its calls ``times(site, info)``
+    times its ``n``."""
+    cdt = getattr(torch, cfg.dtype)
+    out = []
+    for site, family, data, info in requests:
+        info = dict(info)
+        info["dtype"] = getattr(torch, info.get("dtype", cfg.dtype))
+        wrapper = family
+        if "E" in info and family in ("matmul_h100", "transpose_h100"):
+            wrapper += "_batched"
+        calls = info.pop("n", 1) * times(site, info)
+        per = (launches_a_call(cdt) if family == "flash_attention_bwd_h100"
+               else LAUNCHES_A_CALL if family == "ssd_scan_bwd_h100" else 1)
+        out.append(Launch(site, family, wrapper,
+                          tuple(sorted((k, int(v)) for k, v in data.items())),
+                          calls, calls * per, info))
+    return out
+
+
+def trace_train_launches(cfg: ModelConfig, *, global_batch: int, seq: int,
+                         microbatches: int = 1, mesh=None) -> List[Launch]:
+    """Every launch of one train step of a rank, in request order, not
+    deduplicated: the warm set's requests (:func:`trace_train_warm_set`)
+    of each layer times the layers (a whisper encoder's times its own),
+    each product's and core's as many as it has calls, every microbatch;
+    under ``remat="full"`` a block's forward runs again in the backward,
+    so its forward launches count twice (the lm_head's once), as
+    ``torch.utils.checkpoint`` recomputes it."""
+    enc = cfg.encoder.layers if cfg.encoder is not None else 0
+    remat = 2 if cfg.remat == "full" else 1
+
+    def times(site: str, info: Dict) -> int:
+        depth = (cfg.layers if site.startswith("train.layer.") else
+                 enc if site.startswith("train.encode.") else 0)
+        again = remat if depth and not info.get("backward") else 1
+        return microbatches * max(depth, 1) * again
+
+    return _launches(cfg, _train_requests(cfg, global_batch, seq,
+                                          microbatches, mesh), times)
+
+
+def trace_serve_launches(cfg: ModelConfig, *, batch: int, prompt_len: int,
+                         max_len: int, part: str, mesh=None
+                         ) -> List[Launch]:
+    """Every launch of one non-paged serve step of a rank: ``part``
+    "prefill" (``batch`` prompts of ``prompt_len`` tokens into a cache of
+    ``max_len``, the encoder first) or "decode" (one token a row at the
+    cache's last index), each layer's requests times the layers; under
+    ``mesh`` the rank's rows (``launch.specs.batch_entry``) and its
+    tensor-parallel keys and experts."""
+    check_block(cfg)
+    tp = moe = None
+    if mesh is not None:
+        check_mesh(cfg, mesh)
+        from ..distributed.sharding import entry_axes
+        from ..launch.specs import batch_entry
+        shards = mesh.axis_size(entry_axes(batch_entry(mesh, batch)))
+        if mesh.shape.get("model", 1) > 1:
+            tp = (mesh.shape["model"], mesh.coords()["model"])
+        tokens = batch * (prompt_len if part == "prefill" else 1)
+        moe = _rank_moe(cfg, mesh, tokens, shards)
+        batch //= shards
+    enc = cfg.encoder.layers if cfg.encoder is not None else 0
+
+    def times(site: str, info: Dict) -> int:
+        return (enc if site.startswith("serve.encode.") else
+                1 if site.endswith(".lm_head") else cfg.layers)
+
+    return _launches(cfg, _iter_step_requests(
+        cfg, batch=batch, prompt_len=prompt_len, max_len=max_len, tp=tp,
+        parts=(part,), **(moe or {})), times)

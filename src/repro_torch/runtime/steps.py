@@ -25,14 +25,14 @@ from typing import Any, Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as tdist
 
 from ..artifacts.dispatch import get_default_cache
 from ..core.params import H100_SXM, MachineDescription
+from ..device import resolve_device
 from ..kernels.ops import FAMILIES
 from ..models.config import ModelConfig
-from ..models.transformer import (check_mesh, check_train, decode_step,
-                                  forward, prefill)
+from ..models.transformer import (check_block, check_mesh, check_train,
+                                  decode_step, forward, prefill)
 from ..optim import (Optimizer, Part, clip_by_global_norm, tree_leaves,
                      tree_map)
 from ..plans.trace import (TracedOp, trace_steps_warm_set,
@@ -55,12 +55,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
         gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
         return torch.mean(logz - gold), torch.mean(torch.square(logz))
     from ..distributed import sharding as dist
-    from ..distributed.comm import reduce_from
+    from ..distributed.comm import all_reduce_, reduce_from
     mesh = dist.current_mesh()
     group = mesh.group(("model",))
     n = logits.shape[-1]
-    top = logits.detach().amax(dim=-1)
-    tdist.all_reduce(top, op=tdist.ReduceOp.MAX, group=group)
+    top = all_reduce_(logits.detach().amax(dim=-1), group, "max")
     sums = reduce_from(torch.exp(logits - top[..., None]).sum(-1), group)
     logz = top + torch.log(sums)
     local = labels.long() - mesh.coords()["model"] * n
@@ -130,7 +129,7 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     rank's slice from the rank's state (``optim.Part`` carries the whole
     leaf's statistics), and the slices are all-gathered back into the
     parameter.  The clipping norm counts each element's square once.
-    Raises for what the mesh step does not cover
+    A mesh over axes other than ("pod", "data", "model") raises
     (:func:`~repro_torch.models.transformer.check_mesh`).
     Without a mesh nothing changes."""
     check_train(cfg)
@@ -237,9 +236,9 @@ class _LeafPlan:
             padded[d] = shape[d] * mesh.axis_size(axes)
 
         def total(t):
+            from ..distributed.comm import all_reduce_
             t = t if owner else torch.zeros_like(t)
-            tdist.all_reduce(t, group=mesh.world)
-            return t
+            return all_reduce_(t, mesh.world)
 
         def whole_of(key, s):
             return dist.gather_shard(s, states[key], mesh)
@@ -256,7 +255,7 @@ def _mesh_train_step(cfg: ModelConfig, optimizer: Optimizer,
                      grad_dtype: torch.dtype, mesh) -> Callable:
     """:func:`build_train_step`'s step over ``mesh``."""
     from ..distributed import sharding as dist
-    from ..distributed.comm import gather_along, reduce_scatter
+    from ..distributed.comm import all_reduce_, gather_along, reduce_scatter
     from ..launch.specs import abstract_state, row_spec, state_layout
 
     check_mesh(cfg, mesh)
@@ -301,7 +300,7 @@ def _mesh_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     view = p.narrow(plan.zdim, idx * n, n)
                 else:
                     if plan.sum_group is not None:
-                        tdist.all_reduce(g, group=plan.sum_group)
+                        all_reduce_(g, plan.sum_group)
                     view = p
                 g.div_(microbatches * shards_of_rows)
                 views[id(p)], grads[id(p)] = view, g
@@ -311,7 +310,7 @@ def _mesh_train_step(cfg: ModelConfig, optimizer: Optimizer,
                           else torch.zeros((), dtype=torch.float32,
                                            device=g.device))
             total = torch.sum(torch.stack(sq))
-            tdist.all_reduce(total, group=mesh.world)
+            all_reduce_(total, mesh.world)
             grads, gnorm = clip_by_global_norm(
                 tree_map(lambda p: grads[id(p)], params), clip_norm,
                 torch.sqrt(total))
@@ -322,7 +321,7 @@ def _mesh_train_step(cfg: ModelConfig, optimizer: Optimizer,
                 if plan.zdim is not None:
                     p.copy_(gather_along(views[id(p)], plan.zdim,
                                          plan.batch_group))
-            tdist.all_reduce(sums, group=batch_group)
+            all_reduce_(sums, batch_group)
             sums /= microbatches * shards_of_rows
         for p in leaves:
             p.grad = None
@@ -358,19 +357,100 @@ def warm_train_dispatch(cfg: ModelConfig, *, global_batch: int, seq: int,
         microbatches=microbatches, mesh=mesh), machine)
 
 
-def build_serve_steps(cfg: ModelConfig) -> Tuple[Callable, Callable]:
+def build_serve_steps(cfg: ModelConfig, mesh=None
+                      ) -> Tuple[Callable, Callable]:
     """(prefill_step, decode_one) of the non-paged serve path.
 
     prefill_step(params, tokens, cache[, enc_embeds/patch_embeds])
         -> (last_logits, cache)
     decode_one(params, tokens (B, 1), cache, index) -> (logits, cache)
-    """
+
+    With a ``mesh`` the steps are JAX's dry run's, sharded over it:
+    ``params`` are the rank's parts of the training tree by
+    ``launch.specs.state_layout`` (the layers stacked), ``cache`` the
+    rank's part of ``init_cache``'s by ``launch.specs.cache_specs``
+    (:func:`rank_cache`), and every rank gets the whole batch (tokens and
+    ``enc_embeds`` / ``patch_embeds``) and takes its rows by
+    ``launch.specs.batch_entry``.  The layers run as the mesh train step
+    runs them (FSDP leaves gathered on use, tensor parallelism over
+    ``model``: attention, the SSD block, the MLP, whisper's encoder and
+    cross-attention, the dense MoE layer's experts over ``data``), each
+    reading and writing its rank's KV and SSD heads of the cache; the
+    vocab-parallel lm_head's columns are gathered over ``model`` and the
+    rows over the batch axes, so every rank returns the whole batch's
+    logits (JAX's replicated ``out_shardings``).  Without a mesh nothing
+    changes; the paged engine runs on one card, as in JAX."""
+    if mesh is not None:
+        return _mesh_serve_steps(cfg, mesh)
 
     def prefill_step(params, tokens, cache, **kw):
         return prefill(params, cfg, tokens, cache, **kw)
 
     def decode_one(params, tokens, cache, index):
         return decode_step(params, cfg, tokens, cache, index)
+
+    return prefill_step, decode_one
+
+
+def rank_cache(cfg: ModelConfig, mesh, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16, *, device=None
+               ) -> Dict[str, torch.Tensor]:
+    """The rank's part of ``init_cache(cfg, batch, max_len)`` on ``mesh``
+    by ``launch.specs.cache_specs`` (zeros, as the whole is)."""
+    from ..distributed import sharding as dist
+    from ..launch.specs import cache_specs
+    from ..models.transformer import init_cache
+    meta, specs = cache_specs(cfg, batch, max_len, mesh)
+    whole = init_cache(cfg, batch, max_len, dtype, device="meta")
+    return {k: torch.zeros(dist.shard_shape(meta[k].shape, specs[k], mesh),
+                           dtype=whole[k].dtype,
+                           device=resolve_device(device))
+            for k in meta}
+
+
+def _mesh_serve_steps(cfg: ModelConfig, mesh) -> Tuple[Callable, Callable]:
+    """:func:`build_serve_steps`' steps over ``mesh``."""
+    from ..distributed import sharding as dist
+    from ..distributed.comm import gather_along
+    from ..launch.specs import abstract_state, batch_entry, state_layout
+
+    check_block(cfg)
+    check_mesh(cfg, mesh)
+    rules = dist.rules_for(cfg, mesh)
+    p_meta, _ = abstract_state(cfg)
+    layout = state_layout(cfg, mesh, p_meta)
+
+    def rows(batch: int):
+        """(the rows' spec entry, its axes' group or None)."""
+        entry = batch_entry(mesh, batch)
+        axes = dist.entry_axes(entry)
+        n = mesh.axis_size(axes)
+        return entry, (mesh.group(axes) if n > 1 else None)
+
+    def mine(x, entry):
+        return dist.local_shard(torch.as_tensor(x), (entry,), mesh) \
+            if x is not None else None
+
+    def whole(logits, group):
+        return gather_along(logits, 0, group) if group is not None \
+            else logits
+
+    def prefill_step(params, tokens, cache, **kw):
+        entry, group = rows(tokens.shape[0])
+        kw = {k: mine(v, entry) for k, v in kw.items()}
+        with torch.no_grad(), dist.use_mesh_rules(mesh, rules, layout):
+            logits, cache = prefill(params, cfg, mine(tokens, entry), cache,
+                                    **kw)
+            return whole(logits, group), cache
+
+    def decode_one(params, tokens, cache, index):
+        entry, group = rows(tokens.shape[0])
+        if isinstance(index, torch.Tensor) and index.dim() == 1:
+            index = mine(index, entry)
+        with torch.no_grad(), dist.use_mesh_rules(mesh, rules, layout):
+            logits, cache = decode_step(params, cfg, mine(tokens, entry),
+                                        cache, index)
+            return whole(logits, group), cache
 
     return prefill_step, decode_one
 

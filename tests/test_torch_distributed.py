@@ -12,7 +12,10 @@
   (and E_pad > E), and at E = 260 with storage padded to 512.  Tolerance
   1e-5 (y, aux) and 1e-4 (gradients), relative and absolute: the same f32
   math summed in another order; ``tests/test_moe_a2a.py`` allows 2e-4 and
-  2e-3.
+  2e-3.  Over two pods, (pod, data, model) = (2, 2, 1) and (2, 1, 2) on 4
+  ranks, against JAX's on the same three ``Auto`` axes (its groups over
+  (data, model), replicated over pods), dropless and at capacity factor
+  0.5 (tokens drop: a wrong grouping shows).
 * **The ring.** The int8 quantisation is bit for bit with JAX's on JAX's
   noise; the ring over a pod axis of 2 and 4 ranks has a mean relative
   error under 0.02, as ``tests/test_distributed.py`` asks.
@@ -20,9 +23,10 @@
   dense (llama3-8b's smoke shape) and ``moe_a2a`` (llama4-scout's,
   dropless; on 4 also under ``remat="full"``, whose backward runs the
   all-to-alls again), AdamW, and kimi-k2's smoke shape with its
-  Adafactor on 4: the metrics and parameters against the single-process
-  step on the whole batch and against JAX's jitted step (on the same
-  mesh shape for the a2a), at the tolerances of
+  Adafactor on 4, and ``moe_a2a`` over two pods ((2, 2, 1) and (2, 1,
+  2)): the metrics and parameters against the single-process step on
+  the whole batch and against JAX's jitted step (on the same mesh shape
+  for the a2a), at the tolerances of
   ``tests/test_torch_train.py``.  After ``warm_train_dispatch(...,
   mesh=)`` a step resolves nothing cold (F5).
 * **The controller.** A restart from a checkpoint written by rank 0 and
@@ -34,6 +38,7 @@ The ranks are spawned once a world size for the whole module
 temporary directory); the JAX side runs once, in one subprocess, beside
 them.
 """
+import functools
 import json
 import os
 import subprocess
@@ -290,6 +295,9 @@ A2A_CASES = {
     "padded": dict(E=260, k=2, d=8, f=8, cf=2.0, group_size=8, skew=0.0),
 }
 A2A_MESHES = {2: (2, 1), 4: (2, 2), 8: (2, 4)}
+#: 4 ranks over two pods: (pod, data, model)
+POD_MESHES = ((2, 2, 1), (2, 1, 2))
+POD_AXES = ("pod", "data", "model")
 TRAIN = {  # name -> the config's changes and {world size: mesh}
     "dense": (dict(arch="llama3_8b"), {2: (2, 1), 4: (2, 2)}),
     "a2a": (dict(arch="llama4_scout_17b_a16e", flags=("moe_a2a",)),
@@ -301,7 +309,15 @@ TRAIN = {  # name -> the config's changes and {world size: mesh}
     # whole leaf's
     "adafactor": (dict(arch="kimi_k2_1t_a32b", flags=("moe_a2a",),
                        optimizer="adafactor"), {4: (2, 2)}),
+    # two pods: the groups over (data, model), every pod routing them all
+    "a2a_pods_221": (dict(arch="llama4_scout_17b_a16e", flags=("moe_a2a",)),
+                     {4: (2, 2, 1)}),
+    "a2a_pods_212": (dict(arch="llama4_scout_17b_a16e", flags=("moe_a2a",)),
+                     {4: (2, 1, 2)}),
 }
+#: entries whose config and inputs are another entry's: they share its
+#: inputs and its single-process step
+SAME_RUN = {"a2a_pods_221": "a2a", "a2a_pods_212": "a2a"}
 DROPLESS_CF = 64.0
 
 
@@ -361,11 +377,10 @@ JAX_SCRIPT = textwrap.dedent("""
 
     SEP = "::"
 
-    def mesh_of(shape):
+    def mesh_of(shape, axes):
         n = int(np.prod(shape))
         devs = np.array(jax.devices()[:n]).reshape(shape)
-        return Mesh(devs, ("data", "model"),
-                    axis_types=(AxisType.Auto, AxisType.Auto))
+        return Mesh(devs, tuple(axes), axis_types=(AxisType.Auto,) * len(axes))
 
     def unflatten(flat):
         out = {}
@@ -388,7 +403,7 @@ JAX_SCRIPT = textwrap.dedent("""
 
     for job in json.load(open(sys.argv[1])):
         inp = dict(np.load(job["inputs"]))
-        mesh = mesh_of(tuple(job["mesh"]))
+        mesh = mesh_of(tuple(job["mesh"]), job.get("axes", ("data", "model")))
         if job["kind"] == "a2a":
             c = job["case"]
             cfg = ModelConfig(
@@ -458,6 +473,16 @@ def runs(tmp_path_factory):
             rank_jobs[ws].append(dict(common, axes=("data", "model"),
                                       out=os.path.join(
                                           d, f"port_a2a_{name}_{ws}.npz")))
+        if name == "padded":
+            continue
+        for mesh in POD_MESHES:
+            tag = "x".join(map(str, mesh))
+            common = dict(kind="a2a", case=case, mesh=mesh, inputs=inputs,
+                          axes=POD_AXES)
+            jax_jobs.append(dict(common, out=os.path.join(
+                d, f"jax_a2a_{name}_{tag}.npz")))
+            rank_jobs[4].append(dict(common, out=os.path.join(
+                d, f"port_a2a_{name}_{tag}.npz")))
     ring_in = os.path.join(d, "ring.npz")
     rng = np.random.default_rng(3)
     np.savez(ring_in, w=rng.standard_normal((64, 64)).astype(np.float32),
@@ -468,15 +493,16 @@ def runs(tmp_path_factory):
                                   axes=("pod", "data", "model"),
                                   out=os.path.join(d, f"ring_{ws}.npz")))
     for name, (change, meshes) in TRAIN.items():
-        inputs = os.path.join(d, f"train_{name}.npz")
-        np.savez(inputs, **_train_inputs(**change))
+        inputs = os.path.join(d, f"train_{SAME_RUN.get(name, name)}.npz")
+        if name not in SAME_RUN:
+            np.savez(inputs, **_train_inputs(**change))
         for ws, mesh in meshes.items():
+            axes = POD_AXES if len(mesh) == 3 else ("data", "model")
             common = dict(kind="train", **change, cf=DROPLESS_CF, lr=LR,
                           steps=STEPS, microbatches=MICRO, inputs=inputs,
-                          mesh=mesh)
-            rank_jobs[ws].append(dict(common, axes=("data", "model"),
-                                      out=os.path.join(
-                                          d, f"port_train_{name}_{ws}.npz")))
+                          mesh=mesh, axes=axes)
+            rank_jobs[ws].append(dict(common, out=os.path.join(
+                d, f"port_train_{name}_{ws}.npz")))
             if change.get("flags"):
                 jax_jobs.append(dict(common, out=os.path.join(
                     d, f"jax_train_{name}_{ws}.npz")))
@@ -543,6 +569,27 @@ def test_moe_block_a2a_matches_jax_on_the_same_mesh(runs, case, ws):
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("mesh", POD_MESHES)
+@pytest.mark.parametrize("case", ["binding", "dropless"])
+def test_moe_block_a2a_over_two_pods_matches_jax(runs, case, mesh):
+    """Over (pod, data, model) meshes of two pods on 4 ranks the block is
+    JAX's ``shard_map`` schedule: the groups are the whole batch's over
+    the (data, model) ranks, each pod routing all of them, and each rank
+    keeps its own rows of the output; with capacity binding tokens drop,
+    so a wrong grouping would move y."""
+    tag = "x".join(map(str, mesh))
+    got = _load(runs, f"port_a2a_{case}_{tag}.npz")
+    want = _load(runs, f"jax_a2a_{case}_{tag}.npz")
+    assert (_drops(A2A_CASES[case], mesh[1] * mesh[2]) > 0) == \
+        (case == "binding")
+    np.testing.assert_allclose(got["y"], want["y"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got["aux"], want["aux"], rtol=1e-5)
+    for k in ("router", "wi", "wg", "wo"):
+        assert got[k].shape == want[k].shape
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # The ring
 # ---------------------------------------------------------------------------
@@ -563,7 +610,13 @@ def test_int8_ring_over_the_pod_axis(runs, ws):
 # ---------------------------------------------------------------------------
 
 def _single_process(runs, name):
-    """The port's step on the whole batch, no mesh: (metrics, params)."""
+    """The port's step on the whole batch, no mesh: (metrics, params),
+    run once a module for the entries that share it."""
+    return _single_run(runs, SAME_RUN.get(name, name))
+
+
+@functools.lru_cache(maxsize=None)
+def _single_run(runs, name):
     return W.job_train(dict(**TRAIN[name][0], cf=DROPLESS_CF, lr=LR,
                             steps=STEPS, microbatches=MICRO,
                             inputs=os.path.join(runs, f"train_{name}.npz")))

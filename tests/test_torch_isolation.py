@@ -6,8 +6,10 @@ package and the kernel monitor, and the training path (optimizers, data,
 checkpoints, the autograd functions and K2b, the train launcher) and the
 multi-rank path (the mesh, the sharding rules, the collectives, the int8
 ring, the all-to-all MoE layer; the tensor-parallel layers, FSDP's
-gathers, the sharded step and ZeRO-1) included.  Each module the
-sharded step changed also imports first, alone, in a fresh process."""
+gathers, the sharded step and ZeRO-1) and the dry run (its collective
+record, the ring model, the count of a launch's work) included.  Each
+module the sharded step or the dry run changed also imports first,
+alone, in a fresh process."""
 import os
 import pathlib
 import re
@@ -54,7 +56,9 @@ assert {"repro_torch.obs.events", "repro_torch.obs.recorder",
         "repro_torch.distributed.sharding",
         "repro_torch.distributed.compression",
         "repro_torch.distributed.comm", "repro_torch.models.moe_a2a",
-        "repro_torch.models.layers", "repro_torch.models.transformer"
+        "repro_torch.models.layers", "repro_torch.models.transformer",
+        "repro_torch.launch.dryrun", "repro_torch.launch.comm_analysis",
+        "repro_torch.launch.roofline"
         } <= set(names), names
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
@@ -82,9 +86,12 @@ SHARDED_STEP = ["repro_torch.distributed.comm",
                 "repro_torch.runtime.steps",
                 "repro_torch.optim.optimizers",
                 "repro_torch.checkpoint.manager", "repro_torch.plans.trace"]
+#: the dry run's modules
+DRY_RUN = ["repro_torch.launch.dryrun", "repro_torch.launch.comm_analysis",
+           "repro_torch.launch.roofline"]
 
 
-@pytest.mark.parametrize("module", SHARDED_STEP)
+@pytest.mark.parametrize("module", SHARDED_STEP + DRY_RUN)
 def test_sharded_step_module_imports_first_with_jax_and_repro_blocked(
         module):
     code = ("import sys; sys.modules['jax'] = None; "

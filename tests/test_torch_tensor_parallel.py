@@ -44,8 +44,22 @@ dense MoE layer's expert parallelism.
 * **The warm set.** No cold build after ``warm_train_dispatch(mesh=)``
   on (2, 2) and (1, 4), and the keys asked for are the traced ones, for
   llama3 and for the SSD, hybrid, whisper and dense MoE cases.
-* **The meshes.** Every config takes every single-pod mesh; ``moe_a2a``
-  over two pods raises, naming ROADMAP item 4c.
+* **The meshes.** Every config takes every single-pod mesh, and every
+  two-pod one, ``moe_a2a`` included (its groups replicated over pods:
+  ``tests/test_torch_distributed.py`` holds it to JAX there).
+* **The serve steps over a mesh.** ``build_serve_steps(cfg, mesh)`` for
+  the dense, SSM, hybrid, whisper and dense-MoE smoke configs in f32 on
+  (1, 2), (2, 1) (2 ranks) and (2, 2) (4 ranks): a prefill and three
+  greedy decode steps, each step's logits within 1e-5 relative of the
+  one-process steps' (rank 0's) and the greedy tokens equal.
+* **The dry run's prediction.** One step of llama3-smoke on (1, 4) and
+  (4, 1) and of llama4-smoke under ``moe_a2a`` on (4, 1) and (2, 2, 1),
+  on 4 gloo ranks under ``comm.recording()``: rank 0's collectives (op,
+  call site, bytes, type, group, in order) equal those of the same step
+  run on the ``meta`` device over an abstract mesh
+  (``launch.dryrun.record_train_step``), its dispatch requests the walk's
+  calls, and the bytes of its state and rows the dry run's
+  ``argument_bytes``.
 
 Ranks are spawned once a world size (2 and 4) for the module
 (``tests/torch_dist_workers.py``); JAX runs once, in one subprocess.
@@ -116,6 +130,26 @@ DATA_ONLY = {"mamba2_130m": 40, "hymba_1p5b": 40, "whisper_large_v3": 16}
 #: the cases whose warm set is checked besides llama3's
 WARM_CASES = ("mamba2_2x2", "hymba_cut_1x4", "whisper_cut_1x4",
               "llama4_dense_2x2", "llama4_groups_2x2", "kimi_dense_4x1")
+#: the dry run's prediction against 4 ranks: (the config's changes, mesh)
+RECORD_CASES = {
+    "llama3_1x4": (dict(arch="llama3_8b"), (1, 4)),
+    "llama3_4x1": (dict(arch="llama3_8b"), (4, 1)),
+    "llama4_a2a_4x1": (dict(arch="llama4_scout_17b_a16e",
+                            name="llama4-scout-17b-a16e",
+                            flags=("moe_a2a",)), (4, 1)),
+    "llama4_a2a_2x2x1": (dict(arch="llama4_scout_17b_a16e",
+                              name="llama4-scout-17b-a16e",
+                              flags=("moe_a2a",)), (2, 2, 1)),
+}
+RECORD_SEQ = 16
+#: the serve steps over a mesh: the smoke configs and meshes
+SERVE_ARCHS = ("llama3_8b", "mamba2_130m", "hymba_1p5b", "whisper_large_v3",
+               "llama4_scout_17b_a16e")
+SERVE_MESHES = ((1, 2), (2, 1), (2, 2))
+
+
+def _axes(mesh):
+    return (("pod",) if len(mesh) == 3 else ()) + AXES
 
 
 def _job(change):
@@ -366,6 +400,17 @@ def runs(tmp_path_factory):
         rank_jobs[4].append(dict(dict(kind="warm", batch=B, seq=16),
                                  **_job(change), mesh=mesh, axes=AXES,
                                  out=os.path.join(d, f"warm_{name}.npz")))
+    for name, (change, mesh) in RECORD_CASES.items():
+        rank_jobs[4].append(dict(
+            kind="record", **_job(change), lr=LR, batch=B, seq=RECORD_SEQ,
+            microbatches=MICRO, mesh=mesh, axes=_axes(mesh),
+            out=os.path.join(d, f"record_{name}.npz")))
+    for arch in SERVE_ARCHS:
+        for mesh in SERVE_MESHES:
+            rank_jobs[mesh[0] * mesh[1]].append(dict(
+                kind="serve", arch=arch, batch=4, prompt=12, decode=3,
+                mesh=mesh, axes=AXES, out=os.path.join(
+                    d, f"serve_{arch}_{mesh[0]}x{mesh[1]}.npz")))
     np.savez(os.path.join(d, "ssm.npz"), **_ssm_inputs())
     rank_jobs[4].append(dict(kind="ssm", inputs=os.path.join(d, "ssm.npz"),
                              mesh=(1, 4), axes=AXES,
@@ -625,21 +670,81 @@ def test_sharded_warm_set_of_the_new_blocks_leaves_no_cold_build(runs,
     assert list(out["seen"]) == list(out["traced"])
 
 
-def test_moe_a2a_over_two_pods_still_raises():
-    """The one refusal left: the ``moe_a2a`` schedule on a mesh of two
-    pods (item 4c, part 4); the dense layer takes the mesh."""
+@pytest.mark.parametrize("shape", [(2, 2, 1), (2, 1, 2)])
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_config_takes_a_two_pod_mesh(arch, shape):
+    """``check_mesh`` refuses nothing on (pod, data, model) meshes of two
+    pods, with or without ``moe_a2a`` (the refusal that cited ROADMAP item
+    4c is gone), and the rank's warm set traces: under ``moe_a2a`` the
+    router at the rank's share of the whole batch's tokens over the
+    (data, model) ranks, every pod routing them all."""
     from repro_torch.models.transformer import check_mesh
-    change = dict(arch="llama4_scout_17b_a16e", name="llama4-scout-17b-a16e")
-    mesh = abstract_mesh((2, 1, 2), ("pod", "data", "model"))
-    cfg = W.train_config(dict(change, flags=("moe_a2a",)))
-    opt = make_optimizer(cfg.optimizer, constant(LR))
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        build_train_step(cfg, opt, microbatches=2, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 4c"):
-        trace_train_warm_set(cfg, global_batch=4, seq=16, mesh=mesh)
-    dense = W.train_config(change)
-    check_mesh(dense, mesh)
-    assert trace_train_warm_set(dense, global_batch=4, seq=16, mesh=mesh)
+    base = W.train_config(dict(arch=arch))
+    cfgs = [base] + ([base.scaled(perf_flags=("moe_a2a",))]
+                     if base.moe is not None else [])
+    mesh = abstract_mesh(shape, ("pod",) + AXES)
+    for cfg in cfgs:
+        check_mesh(cfg, mesh)
+        ops = trace_train_warm_set(cfg, global_batch=16, seq=16,
+                                   microbatches=2, mesh=mesh)
+        assert ops
+        if "moe_a2a" in cfg.perf_flags:
+            T, n = 16 // 2 * 16, shape[1] * shape[2]
+            router = [o for o in ops if any(".moe.router" == s[-11:]
+                                            for s in o.sites)]
+            assert [o.data_dict() for o in router] == [
+                {"M": T // n, "N": cfg.moe.num_experts, "K": cfg.d_model}]
+
+
+def _record(d, name):
+    """(the ranks' record, their requests, their held bytes) of a case."""
+    from repro_torch.distributed.comm import Collective
+    out = _load(d, f"record_{name}.npz")
+    rec = [Collective(str(o), str(s), int(n), str(t), int(g)) for o, s, n, t,
+           g in zip(out["ops"], out["sites"], out["nbytes"], out["dtypes"],
+                    out["groups"])]
+    reqs = {}
+    for key, n in zip(out["requests"], out["request_counts"]):
+        fam, items = str(key).split("|", 1)
+        reqs[(fam, items)] = int(n)
+    return rec, reqs, int(out["held_bytes"])
+
+
+@pytest.mark.parametrize("name", sorted(RECORD_CASES))
+def test_dry_run_predicts_the_ranks_collectives(runs, name):
+    """The abstract mesh's step on ``meta`` records rank 0's collectives
+    of the gloo step exactly (op, call site, bytes, type, group size, in
+    order: so the ops' counts and the bytes by call site too); the walk's
+    calls are rank 0's dispatch requests key by key; the dry run's
+    ``argument_bytes`` are the bytes of rank 0's state and rows."""
+    from repro_torch.launch import comm_analysis, dryrun
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.plans.trace import trace_train_launches
+    change, mesh = RECORD_CASES[name]
+    cfg = W.train_config(_job(change))
+    shape = ShapeConfig("t", RECORD_SEQ, B, "train")
+    got, reqs, held = _record(runs, name)
+    assert got
+    want = dryrun.record_train_step(cfg, dryrun.mesh_of(mesh), shape, MICRO)
+    assert want == got
+    rep = comm_analysis.collective_report(got)
+    cell = dryrun.cell_record(cfg, shape, mesh, microbatches=MICRO)
+    assert cell["collectives"] == rep.summary()
+    assert cell["roofline"]["collective_bytes_by_site"] == rep.by_comp
+    assert cell["memory"]["argument_bytes"] == held
+    walked = {}
+    for ln in trace_train_launches(cfg, global_batch=B, seq=RECORD_SEQ,
+                                   microbatches=MICRO,
+                                   mesh=dryrun.mesh_of(mesh)):
+        key = (ln.family, str(ln.key))
+        walked[key] = walked.get(key, 0) + ln.calls
+    assert walked == reqs
+    ops = {c.op for c in got}
+    assert "all-reduce" in ops
+    if "moe_a2a" in cfg.perf_flags:
+        assert "all-to-all" in ops
+        if len(mesh) == 3:          # the batch gathered over the pods
+            assert {"all-gather", "reduce-scatter"} <= ops
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
@@ -757,3 +862,26 @@ def test_ssm_hybrid_and_whisper_step_on_a_data_mesh(runs, arch):
                             microbatches=MICRO,
                             inputs=os.path.join(runs, f"in_{arch}.npz")))
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The serve steps over a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", SERVE_MESHES)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_mesh_serve_steps_match_one_process(runs, arch, mesh):
+    """The prefill and three decode steps over the mesh, the parameters
+    and cache the rank's parts (tensor-parallel KV and SSD heads on
+    ``model``, rows over ``data``, the dense MoE layer's experts over
+    ``data``): every step's logits within 1e-5 relative of the one
+    process's (f32; the tensor-parallel sums in another order) and the
+    greedy tokens equal; the cache holds the rank's part."""
+    out = _load(runs, f"serve_{arch}_{mesh[0]}x{mesh[1]}.npz")
+    got, want = out["mesh_logits"], out["one_logits"]
+    vocab = W.train_config(dict(arch=arch)).vocab
+    assert got.shape == want.shape == (4, 4, vocab)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(out["mesh_tokens"], out["one_tokens"])
+    rows = out["cache_shapes"][:, 1]
+    assert (rows == 4 // mesh[0]).all(), out["cache_shapes"]

@@ -109,25 +109,29 @@ def job_a2a(job):
     mesh = _mesh(job)
     axes = a2a_axes(mesh)
     espec = (axes if len(axes) > 1 else axes[0],)
-    n_data = mesh.shape["data"]
-    x = dist.local_shard(torch.from_numpy(inp["x"]), ("data",), mesh)
+    batch = dist.batch_axes(mesh)
+    row = batch if len(batch) > 1 else batch[0]
+    n_rows = mesh.axis_size(batch)
+    x = dist.local_shard(torch.from_numpy(inp["x"]), (row,), mesh)
     p = {"router": torch.from_numpy(inp["router"]).requires_grad_()}
     for k in ("wi", "wg", "wo"):
         p[k] = dist.local_shard(torch.from_numpy(inp[k]), espec,
                                 mesh).requires_grad_()
     with dist.use_mesh_rules(mesh, dist.rules_for(cfg, mesh)):
         y, aux = moe_block_a2a(p, x, cfg, group_size=case["group_size"])
-        # the data shards' losses add; the ranks along model compute one
+        # the row shards' losses add; the ranks along model compute one
         # (the aux loss is the whole group's, in every shard's loss)
-        loss = (y * y).sum() + 0.01 * aux / n_data
+        loss = (y * y).sum() + 0.01 * aux / n_rows
         loss.backward()
     g_router = p["router"].grad.clone()
-    tdist.all_reduce(g_router, group=mesh.group(("data",)))
-    out = {"y": dist.gather_shard(y.detach(), ("data",), mesh).numpy(),
+    tdist.all_reduce(g_router, group=mesh.group(batch))
+    out = {"y": dist.gather_shard(y.detach(), (row,), mesh).numpy(),
            "aux": np.float32(aux.item()), "router": g_router.numpy()}
     for k in ("wi", "wg", "wo"):
-        out[k] = dist.gather_shard(p[k].grad, espec, mesh,
-                                   inp[k].shape).numpy()
+        g = p[k].grad
+        if "pod" in mesh.axis_names:      # replicated over pods: summed
+            tdist.all_reduce(g, group=mesh.group(("pod",)))
+        out[k] = dist.gather_shard(g, espec, mesh, inp[k].shape).numpy()
     return out
 
 
@@ -480,7 +484,97 @@ def job_single(job):
         np.savez(job["out"], **job_train(dict(job, mesh=None)))
 
 
-JOBS = {"a2a": job_a2a, "ring": job_ring, "train": job_train,
+# ---------------------------------------------------------------------------
+# The serve steps over a mesh
+# ---------------------------------------------------------------------------
+
+def job_serve(job):
+    """The f32 smoke config's non-paged steps over the mesh and (on rank
+    0) on one process, from one seeded init: a prefill of ``prompt``
+    tokens and ``decode`` greedy steps; each step's logits and tokens."""
+    from repro_torch.launch.specs import abstract_state, state_layout
+    from repro_torch.models import init_train_state
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.runtime.steps import (build_serve_steps, greedy_sample,
+                                           rank_cache)
+    cfg = train_config(job)
+    mesh = _mesh(job)
+    params = init_train_state(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(4)
+    B, S, n = job["batch"], job["prompt"], job["decode"]
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32))
+    kw = {}
+    if cfg.encoder is not None:
+        kw["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.encoder.seq_len, cfg.d_model)).astype(np.float32))
+    out = {}
+    layout = state_layout(cfg, mesh, abstract_state(cfg)[0])
+    runs = (("mesh", mesh),) + ((("one", None),) if mesh.rank == 0 else ())
+    for tag, m in runs:
+        pre, dec = build_serve_steps(cfg, m)
+        mine = layout.shard(params) if m is not None else params
+        cache = (rank_cache(cfg, mesh, B, S + n, torch.float32, device="cpu")
+                 if m is not None else
+                 init_cache(cfg, B, S + n, torch.float32, device="cpu"))
+        logits, cache = pre(mine, tokens, cache, **kw)
+        steps, toks = [logits], [greedy_sample(logits)]
+        for i in range(n):
+            logits, cache = dec(mine, toks[-1], cache, torch.tensor(S + i))
+            steps.append(logits)
+            toks.append(greedy_sample(logits))
+        out[f"{tag}_logits"] = torch.stack(steps).numpy()
+        out[f"{tag}_tokens"] = torch.cat(toks, 1).numpy()
+        if m is not None:
+            out["cache_shapes"] = np.array([list(v.shape) + [0] * (
+                5 - v.dim()) for _, v in sorted(cache.items())])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# One step under the collective record (the dry run's prediction)
+# ---------------------------------------------------------------------------
+
+def job_record(job):
+    """One f32 train step of the job's config over the mesh under
+    ``comm.recording()`` and the dispatch cache's record, from
+    ``rank_state``: rank 0's collectives in order (op, site, bytes, type,
+    group size), its dispatch requests by (family, key) and the bytes of
+    its state and of its rows of the batch."""
+    from repro_torch.artifacts.dispatch import get_default_cache
+    from repro_torch.distributed import comm
+    from repro_torch.distributed import sharding as dist
+    from repro_torch.launch.specs import rank_state, row_spec
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.runtime import build_train_step
+    cfg = train_config(job)
+    mesh = _mesh(job)
+    opt = make_optimizer(cfg.optimizer, constant(job["lr"]))
+    params, opt_state, _ = rank_state(cfg, mesh, opt, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (job["batch"], job["seq"])).astype(np.int32))
+        for k in ("tokens", "labels")}
+    step = build_train_step(cfg, opt, microbatches=job["microbatches"],
+                            mesh=mesh)
+    with get_default_cache().record() as requests, comm.recording() as rec:
+        step(params, opt_state, batch, 0)
+    leaves = [x for _, x in dist.tree_items((params, opt_state))] + [
+        dist.local_shard(v, row_spec(mesh), mesh) for v in batch.values()]
+    return {"ops": np.array([c.op for c in rec]),
+            "sites": np.array([c.site for c in rec]),
+            "nbytes": np.array([c.nbytes for c in rec], np.int64),
+            "dtypes": np.array([c.dtype for c in rec]),
+            "groups": np.array([c.group for c in rec], np.int64),
+            "requests": np.array([f"{f}|{items}" for f, _, items
+                                  in requests.counts]),
+            "request_counts": np.array(list(requests.counts.values()),
+                                       np.int64),
+            "held_bytes": np.int64(sum(x.numel() * x.element_size()
+                                       for x in leaves))}
+
+
+JOBS = {"record": job_record, "serve": job_serve, "a2a": job_a2a, "ring": job_ring, "train": job_train,
         "restart": job_restart, "warm": job_warm, "comm": job_comm,
         "attn": job_attn, "ssm": job_ssm, "moe": job_moe,
         "single": job_single}
