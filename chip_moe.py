@@ -1,18 +1,24 @@
 """The MoE training path on one card alone: the kernels' build with its
 ``ptxas`` check, ``chip_smoke.py`` phase 13 (i) and (j), and with
-``--parity`` 13 (d)'s MoE smoke steps against the CPU.
+``--parity`` 13 (d)'s MoE smoke steps against the CPU, with ``--mesh``
+phase 14 (a) and (c) after (j).
 
-    python3 chip_moe.py [--parity] [--skip-kernels]
+    python3 chip_moe.py [--parity] [--skip-kernels] [--mesh]
 
 The work is ``chip_smoke.py``'s own: :func:`chip_smoke.phase_build`,
-:func:`chip_smoke.phase_train_moe_kernels` (K1's and K4's batched entries
-at llama4-scout's and kimi-k2's expert training keys: two launches bit for
+:func:`chip_smoke.phase_train_moe_kernels` (K1b and K4's batched entry at
+llama4-scout's and kimi-k2's expert training keys: two launches bit for
 bit, held against their plain versions, timed eagerly and as device time
-beside the bound and ``torch.bmm`` or ``a.transpose(1, 2).contiguous()``),
+beside the bound, K1b beside today's entry and ``torch.bmm``, K4b beside
+``a.transpose(1, 2).contiguous()``; then K1b's leaf sweep),
 :func:`chip_smoke.phase_train_llama4` (llama4-scout at full width, 1 of 48
 layers, with its launches a step against ``_train_counts``, peak memory
 and the profiled step) and, with ``--parity``, the MoE steps of
-:func:`chip_smoke.phase_train_parity`.  ``--skip-kernels`` leaves out (i).
+:func:`chip_smoke.phase_train_parity` (the f32 experts' route, counted).
+``--skip-kernels`` leaves out (i).  ``--mesh`` then starts NCCL at world
+size 1 (:func:`chip_smoke.phase_multi_group`) and runs (j)'s llama4-scout
+through ``moe_a2a`` and the mesh step beside the communicator
+(:func:`chip_smoke.phase_multi_llama4`), held to (j).
 Exits 2 without a card.
 """
 from __future__ import annotations
@@ -33,6 +39,8 @@ def main() -> int:
                     help="also the MoE smoke steps against the CPU, 13 (d)")
     ap.add_argument("--skip-kernels", action="store_true",
                     help="leave out 13 (i)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="also 14 (a) and (c) after (j)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_moe: no CUDA device", file=sys.stderr)
@@ -60,13 +68,22 @@ def main() -> int:
         t0 = time.perf_counter()
         p = cs.phase_train_llama4(gen)
         share = {n: p["kernel_ms"][n] / p["profiled_ms"]
-                 for n in ("K1", "K4", "K2", "K2b", "other")}
+                 for n in ("K1", "K1b", "K4", "K2", "K2b", "other")}
         cs.say(f"[moe] (j) {time.perf_counter() - t0:.1f} s; {p['name']}: "
                f"median step {p['step_ms']:.1f} ms (CUDA events), peak "
                f"{p['peak_gb']:.2f} GB; share of the profiled step's device "
                f"time: " + ", ".join(f"{n} {100 * v:.1f} %"
                                      for n, v in share.items()))
         torch.cuda.synchronize()
+        if args.mesh:
+            import shutil
+            import torch.distributed as tdist
+            t0 = time.perf_counter()
+            mesh, store = cs.phase_multi_group(gen)
+            cs.phase_multi_llama4(mesh, gen, p)
+            cs.say(f"[moe] (14 a, c) {time.perf_counter() - t0:.1f} s")
+            tdist.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
     return 0
 
 

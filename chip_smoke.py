@@ -8,9 +8,10 @@ no phase is caught.
 
 1. device: torch and CUDA versions, the card's name and power limit.
 2. build: ``nvcc`` builds the kernels (``csrc/*.cu``), one process
-   each, all started together; the build time; each K2b, K3b and K4
-   kernel's ``ptxas`` registers and spills (any of K3b's eight kernels or
-   K4's, or a K2b tensor-core kernel, that spills fails the run).
+   each, all started together; the build time; each K1b, K2b, K3b and K4
+   kernel's ``ptxas`` registers and spills (any of K1b's nine kernels,
+   K3b's eight or K4's, or a K2b tensor-core kernel, that spills fails the
+   run).
 3. K1 ``matmul_h100`` against its plain version: in bf16 at every matmul
    triple of the full llama3-8b serve path at M = 4 and 32 through the leaf
    the dispatch picks; through the pick at N = 25 in f32 and N = 32001 in
@@ -21,15 +22,17 @@ no phase is caught.
    kb, stages, cached) each (the pick, the leaves one step from it, the
    napkin's two worst and its best others), each held against the plain
    version (the paper's code soundness, Def. 2 ii) and timed, eagerly and
-   as device time, with the napkin's rank beside the card's.  Then K1's
-   batched entry (one launch for every expert of a MoE layer) through the
-   pick of the per-expert key at the experts' signatures of llama4-scout
-   (E = 16, M = 4, N = 8192, K = 5120 up; N = 5120, K = 8192 down) and
-   kimi-k2 (E = 384, M = 4, N = 2048, K = 7168 up; N = 7168, K = 2048
-   down): held against the plain version (K1's, expert by expert) and
-   timed eagerly and as device time beside ``torch.bmm`` (a yardstick)
-   and the bound, every expert's weights read once (1.34 and 11.3 GB a
-   launch, too large to cycle through copies).
+   as device time, with the napkin's rank beside the card's.  Then K1b
+   (``matmul_experts_h100``: one launch for every expert of a MoE layer,
+   TMA and ``wgmma``, bf16 out) through the pick of its key (E, M, N, K)
+   at the experts' signatures of llama4-scout (E = 16, M = 4, N = 8192, K
+   = 5120 up; N = 5120, K = 8192 down) and kimi-k2 (E = 384, M = 4, N =
+   2048, K = 7168 up; N = 7168, K = 2048 down): two launches bit for bit,
+   held against its plain version and timed eagerly and as device time
+   beside today's entry (K1's batched entry at the per-expert pick, f32
+   out, device time), ``torch.bmm`` (a yardstick, bf16 out) and the
+   bound, every expert's weights read once (1.34 and 11.3 GB a launch,
+   too large to cycle through copies), with its grid's blocks.
 4. K2 ``flash_attention_h100`` against its plain version in bf16, through
    the leaf the dispatch picks: with one KV head a query head, a prefill
    chunk, decode over a ragged cache, non-causal sk = 200, window 128; GQA
@@ -114,8 +117,8 @@ no phase is caught.
    layers, 54.0 GB: 48 would be 203.5 GB) and kimi-k2-1t-a32b (1 of 61
    layers, 38.8 GB: every width, 384 experts and top-8 kept); the depth
    cuts are one 80 GB card's, and each path prints its peak device memory.
-   The MoE paths launch K1's batched entry once a projection (wi, wg, wo)
-   a layer a step, and the router on K1.  Each
+   The MoE paths launch K1b once a projection (wi, wg, wo) a layer a
+   step, and the router on K1.  Each
    engine captures its decode tick and one prefill graph for each
    quantized chunk length (nine for mamba2's 256: 256 down to 1; six for
    32) at construction, all sharing one memory pool (each graph's capture
@@ -124,7 +127,7 @@ no phase is caught.
    graph replayed once a decode tick and the prefill graphs once a chunk
    with no eager prefill body, the launch counts (a replay counting its
    captured launches) match the steps run — K1 per projection and router,
-   the batched entry per expert projection, K2 and K3 one a layer, for
+   K1b per expert projection, K2 and K3 one a layer, for
    every prefill chunk and decode step — no dispatch
    resolved cold after warm-up, and a full-width forward gives finite
    logits.  The host time of a decode tick (over the ticks that ran no
@@ -140,7 +143,7 @@ no phase is caught.
    the profiler lists) / the run's wall.
 9. main-path shapes: every launch signature of phase 8 is run again on
    fresh inputs of its shape, held against the plain version, and timed:
-   kernel, plain version, the library call, and the bound (a batched
+   kernel, plain version, the library call, and the bound (a K1b
    signature phase 3 timed keeps its row).  A paged K2
    signature runs through the paged entry over a pool and tables at the
    served lengths: a decode step's rows each halfway through its request's
@@ -200,7 +203,7 @@ no phase is caught.
    whose pick the tuned tables change, the measured pick held against the
    plain version and timed as phase 9 times a pick (the kernel alone), and
    the sums over phase 8's launches beside the symbolic picks' (phase 9)
-   and the library's, K1 and K1b also by the symbolic pick's kb; then
+   and the library's, K1 also by the symbolic pick's kb; then
    llama3-8b at phase 8's settings from the tuned tables: every warm pick
    ``measured``, 0 cold builds, its bf16 tokens against phase 8's
    (reported, with the first difference).  (c) llama3-8b at phase 8's
@@ -276,7 +279,10 @@ no phase is caught.
    whisper's, mamba2's and hymba's (40 tokens: past their chunk of 16
    and hymba's window of 32) and the two MoE configs' on the card against
    the CPU, and one of kimi-k2's smoke config with its own Adafactor and
-   bf16 accumulators (tolerances at ``phase_train_parity``).  (f) K3b
+   bf16 accumulators (tolerances at ``phase_train_parity``); the MoE
+   configs' f32 steps on the card are the f32 experts' route's path (K1's
+   batched entry three times and K4b twice an expert product, no K1b,
+   counted each step).  (f) K3b
    (``ssd_scan_bwd_h100``) through the pick of each key of
    ``SSD_BWD_SIGNATURES`` (mamba2-130m's and hymba-1.5b's training
    microbatches, a ragged seq of 1000 and seq 1 with
@@ -302,22 +308,29 @@ no phase is caught.
    records (launches against the step's products, cores and scans: K1
    3·(pL+1)·mb, K4 2·(pL+1)·mb with p = 5 for mamba and 12 for hymba, K2
    L·mb, K2b 3·L·mb, K3 L·mb, K3b 3·L·mb) and the share of the profiled
-   step K3 and K3b take.  (i) K1's and K4's batched entries (K1b, K4b)
-   at the MoE experts' training keys of one routing group of 1024 tokens
-   (``moe_bwd_keys``): llama4-scout's (E 16, C 80: the forward and dA
-   products (80, 8192, 5120) and (80, 5120, 8192), dB (5120, 8192, 80)
-   and (8192, 5120, 80), transposes (5120, 8192), (80, 5120), (8192,
-   5120), (80, 8192)) and kimi-k2's held out (E 384, C 27; dB's f32
-   output 22.5 GB): two launches bit for bit, K1b held expert by expert
-   against K1's plain version, K4b bit for bit against its own, each
-   timed eagerly and as device time on inputs cold to the L2 beside its
-   bound and ``torch.bmm`` or ``a.transpose(1, 2).contiguous()``.  (j)
-   llama4-scout at full width, 1 of 48 layers (reduced: depth only; 4.1 B
-   parameters, 66.3 GB of state), ``remat="full"``: the router's K1
-   launched twice bit for bit, then (b)'s records over 4 steps of 2 x
-   1024 tokens in 2 microbatches (launches a microbatch: K1 (2+2)·5 + 3,
-   K4 2·6, K1b (2+2)·3, K4b 6, K2 2, K2b 3: a block's forward runs twice
-   under remat), a fifth under the profiler, peak memory beside the
+   step K3 and K3b take.  (i) K1b and K4's batched entry (K4b) at the
+   MoE experts' training keys of one routing group of 1024 tokens
+   (``moe_bwd_keys``): llama4-scout's (E 16, C 80: the forward products
+   (80, 8192, 5120) and (80, 5120, 8192), NN; dA (80, 5120, 8192) and
+   (80, 8192, 5120), NT, the stored weight read transposed; dB (5120,
+   8192, 80) and (8192, 5120, 80), TN, the stored rows read transposed;
+   K4b's transposes (5120, 8192), (80, 5120), (8192, 5120), (80, 8192),
+   the f32 route's copies) and kimi-k2's held out (E 384, C 27; dB's
+   output 11.3 GB): two launches bit for bit, K1b held against its plain
+   version, K4b bit for bit against its own, each timed eagerly and as
+   device time on inputs cold to the L2 beside its bound, K1b beside
+   today's entry (K1's batched entry at the per-expert pick over the
+   transposed copies, f32 out) and ``torch.bmm``, K4b beside
+   ``a.transpose(1, 2).contiguous()``; then K1b's leaf sweep: every leaf
+   of its tree at llama4-scout's three keys of the up projection (forward,
+   dA, dB) and kimi-k2's forward and dA, held out, each bit for bit and
+   as device time, napkin rank beside card rank.  (j) llama4-scout at
+   full width, 1 of 48 layers (reduced: depth only; 4.1 B parameters,
+   66.3 GB of state), ``remat="full"``: the router's K1 launched twice
+   bit for bit, then (b)'s records over 4 steps of 2 x 1024 tokens in 2
+   microbatches (launches a microbatch: K1 (2+2)·5 + 3, K4 2·6, K1b
+   (2+2)·3, K4b 0, K2 2, K2b 3: a block's forward runs twice under
+   remat), a fifth under the profiler, peak memory beside the
    reckoned state; no checkpoint (the state has no second copy on the
    card).  Every launch counter is set to 0 just before (b), (c), (g), (h)
    and (j) and read just after.  (e) K4 at each launch signature of (b),
@@ -330,8 +343,9 @@ no phase is caught.
    signatures of (b), (c), (g), (h) and (j) are then timed as phase 9
    times a pick (K2b's of (a), K3b's of (f), K1b's and K4b's of (i) and
    K4's of phase 6 and (e) keep their rows), and the five are main paths
-   of K1, K1b, K2, K2b, K3, K3b, K4 and K4b in the kernels' line
-   (``by_paths`` "training").
+   of K1, K1b, K2, K2b, K3, K3b and K4 in the kernels' line (``by_paths``
+   "training"), and 13 (d)'s f32 MoE steps the path of K1's batched entry
+   and K4b (``by_paths`` "f32 MoE training (13 (d))").
 14. multi-device at world size 1 (one card: NCCL refuses two ranks on one
    GPU; 2-8 ranks are the CPU tests' business), on split workspaces of
    its own: (a) NCCL started on a ``file://`` store in a temporary
@@ -364,9 +378,9 @@ no phase is caught.
    warmed on abstract meshes: K3 and K3b at mamba2-130m's 6 and 3 SSD
    heads a rank of (1, 4) and (1, 8) and hymba-1.5b's cut 7 and 4, K2
    and K2b at whisper-large-v3's encoder heads (non-causal 1500 x 1500)
-   and cross-attention heads (64 queries over 1500 frames), K1b and K4b
-   at llama4-scout's 4 of 16 experts and K1b at kimi-k2's 96 of 384 on
-   (4, 1), the routing groups sharded over ``data``; each launch
+   and cross-attention heads (64 queries over 1500 frames), K1b at
+   llama4-scout's 4 of 16 experts and at kimi-k2's 96 of 384 on (4, 1),
+   the routing groups sharded over ``data``; each launch
    signature held against its plain version and timed beside its
    library call; then the rank bytes of hymba-1.5b and whisper-large-v3
    on (1, 4) and kimi-k2 (1 of 61 layers, dense) on (4, 1).  (c), (e),
@@ -387,7 +401,8 @@ no phase is caught.
    (c) the keys a rank of (pod, data, model) = (2, 2, 1) launches for
    llama4-scout (1 of 48 layers) under ``moe_a2a``, warmed and launched
    on the abstract mesh as 14 (j) does: 0 cold builds, every K1b launch
-   signature held against its plain version and timed.  (d) llama3-8b at
+   signature held against its plain version and timed beside today's
+   entry, no launch of K1's batched entry or K4b.  (d) llama3-8b at
    full width (32 layers, bf16 weights) through the non-paged steps on
    one card and through the mesh serve steps (``build_serve_steps(cfg,
    mesh)``) over an NCCL mesh (1, 1) of its own: prefill and 8 decode
@@ -429,8 +444,8 @@ from the plain sweep is printed, not held); no single PyTorch call computes
 the SSD scan, so K3 has none.
 
 The line before the last is the kernels' JSON record (its ``ms`` are the
-eager times above, as in every earlier run).  For K1, K1's batched entry,
-K2 and K3 ``launches`` is the count over the main paths: phase 8's nine
+eager times above, as in every earlier run).  For K1, K1b, K2 and K3
+``launches`` is the count over the main paths: phase 8's nine
 engine paths, phase 12 (b)'s whisper path and phase 14 (d)'s padded
 kimi-k2; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` are sums over those launches, each timed
@@ -441,14 +456,20 @@ tunes at the nine engine paths' signatures only.  For K4-K6
 the same numbers come from phase 6's case-study path (1, 1 and 8
 launches), each signature timed in phase 6.  The training paths of phase
 13 ((b), (c), (g), (h), (j)) and 14 (c) are main paths too: their
-launches and sums are added to those of K1, K1b, K2, K2b, K3, K3b, K4 and
-K4b (K4's batched entry, which only training launches), and ``by_paths``
+launches and sums are added to those of K1, K1b, K2, K2b, K3, K3b and K4,
+and those of 13 (d)'s f32 MoE steps to K1's batched entry and K4b (K4's
+batched entry), the f32 experts' route (no bf16 path launches them), and
+``by_paths``
 "training" gives them apart.  ``max_abs_err`` is the largest error against the plain
 version over phases 3-6, 9, 12 and 13.  The last line is the device
 record.
 
 Tolerances, kernel against plain version on the same inputs:
 
+- K1b (bf16 in and out), rtol = atol = 1e-2: both the kernel and its plain
+  version sum in f32 and round once to bf16, in another order of sums
+  (``wgmma``'s against one f32 ``torch.bmm``'s), so an element may
+  round one bf16 step apart (2^-8 to 2^-7 of it).
 - matmul (bf16 or f32 in, f32 out; the batched entry alike, expert by
   expert), rtol 1e-4 / atol 1e-3: a bf16 product
   is exact in f32, so the two differ only in the order of K f32 additions
@@ -570,6 +591,10 @@ NEW_LENS = PATHS[2][2]
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "matmul_h100": ("src/repro_torch/csrc/matmul.cu",
                     "src/repro/kernels/matmul.py:73"),
+    # K1b: the experts' batched product, on TMA and wgmma (bf16)
+    "matmul_experts_h100": ("src/repro_torch/csrc/matmul_experts.cu",
+                            "src/repro/kernels/matmul.py:73"),
+    # K1's batched entry: the experts' products of an f32 config
     "matmul_h100_batched": ("src/repro_torch/csrc/matmul.cu",
                             "src/repro/kernels/matmul.py:73"),
     "flash_attention_h100": ("src/repro_torch/csrc/flash_attention.cu",
@@ -594,8 +619,12 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "ssd_scan_bwd_h100": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
                           "src/repro/kernels/ssd_scan.py:70"),
 }
-SERVE_KERNELS = ("matmul_h100", "matmul_h100_batched", "flash_attention_h100",
-                 "ssd_scan_h100")
+#: K1b's wrapper: the experts' products of every bf16 path.
+K1B = "matmul_experts_h100"
+SERVE_KERNELS = ("matmul_h100", K1B, "flash_attention_h100", "ssd_scan_h100")
+#: The f32 experts' route (K1's batched entry, K4b's copies): the f32 MoE
+#: training steps of 13 (d) are its path.
+F32_EXPERT_KERNELS = ("matmul_h100_batched", "transpose_h100_batched")
 CASE_KERNELS = ("transpose_h100", "matadd_h100", "jacobi1d_h100")
 #: The case-study path (phase 6): (family, data) at the paper's sizes.
 CASE_PATH = (
@@ -786,6 +815,132 @@ def batched_case(sig, gen, *, timed: bool, leaf_only: bool = False,
     row["library_device_ms"] = graph_ms(library, reps)
     torch.cuda.empty_cache()
     return row
+
+
+#: K1b's tolerance against its plain version: both sum in f32 and round
+#: once to bf16, in another order of sums, so they may round one bf16 step
+#: apart (2^-8 to 2^-7 of an element).
+K1B_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def k1b_operands(sig, gen):
+    """K1b's stored operands at ``sig`` (E, M, N, K, ta, tb, bm, bn,
+    stages, dtype): A [E, M, K] (or [E, K, M] with ta), B [E, K, N] (or
+    [E, N, K] with tb) over sqrt(K), as the model scales its weights."""
+    E, M, N, K, ta, tb = sig[:6]
+    dtype = sig[-1]
+    a = torch.randn((E, K, M) if ta else (E, M, K), generator=gen,
+                    device=DEV, dtype=dtype)
+    b = torch.randn((E, N, K) if tb else (E, K, N), generator=gen,
+                    device=DEV, dtype=dtype)
+    b.div_(math.sqrt(K))
+    return a, b
+
+
+def k1b_grid(sig) -> int:
+    """K1b's tiles at ``sig``: E·⌈M/bm⌉·⌈N/bn⌉, walked by as many
+    persistent blocks as the 132 SMs hold."""
+    E, M, N, _, _, _, bm, bn = sig[:8]
+    return E * -(-M // bm) * -(-N // bn)
+
+
+def experts_case(sig, gen, *, timed: bool, leaf_only: bool = False,
+                 plain_timed: bool = True, eager: bool = True,
+                 reps: int = 20):
+    """K1b at (E, M, N, K, ta, tb, bm, bn, stages, dtype), the wrapper's
+    ``shapes`` key, on fresh inputs: two launches bit for bit, each expert
+    held against the plain version one at a time (a kimi-k2 dB's 11 GB
+    output needs no second copy beside it); timed when ``timed``, eagerly
+    and as device time on copies of the inputs cold to the L2 (an operand
+    past the flush size alone), beside the byte and flop bound and unless
+    ``leaf_only``: today's entry (K1's batched entry at the per-expert
+    pick, f32 out, on the operands copied transposed first, as its
+    backward had them: the copies are not timed), ``torch.bmm`` over the
+    same stored operands (bf16 out, a transposed one as a view: a
+    yardstick) and, when ``plain_timed``, the plain version; ``eager``
+    False times device time alone, over ``reps`` launches a graph.
+    Outputs of ``BIG_OUTPUT`` bytes or more get two launches a graph."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import matmul_h100_batched
+    from repro_torch.kernels.matmul_experts import (matmul_experts_h100,
+                                                    matmul_experts_plain)
+    E, M, N, K, ta, tb, bm, bn, stages, dtype = sig
+    a, b = k1b_operands(sig, gen)
+    kw = dict(bm=bm, bn=bn, stages=stages)
+    got = matmul_experts_h100(a, b, ta, tb, **kw)
+    again = matmul_experts_h100(a, b, ta, tb, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"K1b {sig}: two launches differ")
+    del again
+    # the plain version over runs of experts whose f32 sum takes 256 MB
+    step = max(1, (1 << 26) // (M * N))
+    row = {"err": max(held(f"K1b {sig} experts {e}..", got[e:e + step],
+                           matmul_experts_plain(a[e:e + step],
+                                                b[e:e + step], ta=ta,
+                                                tb=tb), K1B_TOL)
+                      for e in range(0, E, step)),
+           "blocks": k1b_grid(sig)}
+    del got
+    torch.cuda.empty_cache()
+    if not timed:
+        return row
+    ins = _cold_copies((a, b), (a.numel() + b.numel()) * a.element_size())
+    reps = 2 if E * M * N * 4 >= BIG_OUTPUT else reps
+    kernel = lambda: matmul_experts_h100(*next(ins), ta, tb, **kw)  # noqa
+    if eager:
+        time_into(row, "ms", kernel, min(reps, 10))
+    row["device_ms"] = graph_ms(kernel, reps)
+    row["bound_ms"] = max(bound_terms_ms(K1B, sig))
+    if leaf_only:
+        return row
+    if plain_timed:
+        time_into(row, "plain_ms", lambda: matmul_experts_plain(
+            *next(ins), ta=ta, tb=tb), 1)
+
+    def view(x, t):
+        return x.transpose(1, 2) if t else x
+    library = lambda: torch.bmm(*(view(x, t) for x, t in zip(  # noqa: E731
+        next(ins), (ta, tb))))
+    time_into(row, "library_ms", library, min(reps, 10))
+    row["library_device_ms"] = graph_ms(library, reps)
+    torch.cuda.empty_cache()
+    # today's entry on the same product: the per-expert pick of K1's
+    # batched entry over contiguous copies of the transposed operands
+    cand = ops.select("matmul_h100", {"M": M, "N": N, "K": K})
+    old_kw = {n: int(cand.assignment[n]) for n in MM_PARAMS}
+    old_kw["cached"] = bool(cand.plan.flags["smem_cache"])
+    del ins
+    copies = [tuple(view(x, t).contiguous() for x, t in zip((a, b),
+                                                            (ta, tb)))]
+    if (a.numel() + b.numel()) * a.element_size() < L2_FLUSH_BYTES:
+        copies = _cold_copies(copies[0], (a.numel() + b.numel())
+                              * a.element_size())
+    else:
+        copies = itertools.cycle(copies)
+    row["old_device_ms"] = graph_ms(
+        lambda: matmul_h100_batched(*next(copies), **old_kw), reps)
+    row["old_pick"] = tuple(old_kw.values())
+    del copies
+    torch.cuda.empty_cache()
+    return row
+
+
+def k1b_line(row) -> str:
+    """K1b's row beside its bound, today's entry and ``torch.bmm``."""
+    out = fmt(row) + f"; {row['blocks']} tiles (132 SMs)"
+    if row.get("device_ms"):
+        out += (f"; device time {100 * row['bound_ms'] / row['device_ms']:.1f}"
+                f" % of the bound")
+    if row.get("library_device_ms"):
+        out += (f", {row['device_ms'] / row['library_device_ms']:.3f} x "
+                f"torch.bmm's")
+    if row.get("old_device_ms"):
+        out += (f"; today's entry (K1's batched entry, pick "
+                f"{row['old_pick']}, f32 out) {row['old_device_ms']:.4f} ms "
+                f"device, {row['old_device_ms'] / row['device_ms']:.3f} x "
+                f"K1b's")
+    return out
 
 
 def _visible(sq: int, sk: int, causal: bool, window) -> torch.Tensor:
@@ -1225,6 +1380,7 @@ def jacobi_case(sig, gen, *, timed: bool):
 
 
 CASES = {"matmul_h100": matmul_case, "matmul_h100_batched": batched_case,
+         K1B: experts_case,
          "flash_attention_h100": flash_case,
          "ssd_scan_h100": ssd_case, "transpose_h100": transpose_case,
          "matadd_h100": matadd_case, "jacobi1d_h100": jacobi_case}
@@ -1320,6 +1476,21 @@ def phase_build() -> None:
             f"{st} bytes, spill loads {ld} bytes")
         if st or ld:
             raise AssertionError(f"K4 {label} spills registers")
+    # K1b's nine kernels (bn 64, 128, 256 by layouts NN, NT, TN):
+    # registers and spills, none allowed
+    lines = ptxas_lines(build.build_log("matmul_experts"), "experts_kernel")
+    if len(lines) != 9:
+        raise AssertionError(f"K1b: ptxas reported {len(lines)} of its 9 "
+                             f"kernels")
+    for name, regs, st, ld in lines:
+        bn, ta, tb = re.search(r"experts_kernelILi(\d+)ELi(\d)ELi(\d)E",
+                               name).groups()
+        layout = {"00": "NN", "01": "NT", "10": "TN"}[ta + tb]
+        label = f"<bn {bn}, {layout}>"
+        say(f"[build] K1b experts_kernel{label}: ptxas {regs} registers, "
+            f"spill stores {st} bytes, spill loads {ld} bytes")
+        if st or ld:
+            raise AssertionError(f"K1b {label} spills registers")
     # K3b's eight kernels (the bf16 body's walk and chunk kernels, each for
     # at most 4 and 8 tiles or items a warp; the f32 body's states and
     # chunks; heads in both types): registers and spills, none allowed
@@ -1501,9 +1672,9 @@ def phase_k1(gen) -> float:
     return err
 
 
-#: K1's batched entry at the experts' signatures of the two MoE paths,
-#: (E, M, N, K) for up (wi, wg) and down (wo): M = 4 is the capacity of a
-#: decode step's 4 rows and of every chunk up to 32 tokens at both configs.
+#: K1b at the experts' signatures of the two MoE paths, (E, M, N, K) for
+#: up (wi, wg) and down (wo): M = 4 is the capacity of a decode step's 4
+#: rows and of every chunk up to 32 tokens at both configs.
 BATCHED_SIGNATURES = (
     ("llama4-scout expert up", (16, 4, 8192, 5120)),
     ("llama4-scout expert down", (16, 4, 5120, 8192)),
@@ -1512,22 +1683,30 @@ BATCHED_SIGNATURES = (
 )
 
 
-def phase_k1_batched(gen) -> tuple:
-    """K1's batched entry through the pick of the per-expert key, at
-    ``BATCHED_SIGNATURES``: held against the plain version and timed
-    beside ``torch.bmm`` and the bound (every expert's weights read once);
-    returns (largest error, {sig: row}), the rows phase 9 reuses."""
+def k1b_sig(E, M, N, K, ta=False, tb=False, dtype=torch.bfloat16) -> tuple:
+    """K1b's launch signature at (E, M, N, K) through the dispatch's pick
+    (an uncached leaf runs its 2-slot ring)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul_experts import UNCACHED_STAGES
+    cand = ops.select(K1B, {"E": E, "M": M, "N": N, "K": K})
+    a = cand.assignment
+    stages = (a["stages"] if cand.plan.flags["smem_cache"]
+              else UNCACHED_STAGES)
+    return (E, M, N, K, ta, tb, a["bm"], a["bn"], stages, dtype)
+
+
+def phase_k1_batched(gen) -> tuple:
+    """K1b through the pick of its key at ``BATCHED_SIGNATURES``: held
+    against the plain version and timed beside today's entry, ``torch.bmm``
+    and the bound (every expert's weights read once); returns (largest
+    error, {sig: row}), the rows phase 9 reuses."""
     err, rows = 0.0, {}
     for name, (E, M, N, K) in BATCHED_SIGNATURES:
-        data = {"M": M, "N": N, "K": K}
-        cand = ops.select("matmul_h100", data)
-        sig = (E,) + _mm_sig(data, cand, torch.bfloat16)
-        row = rows[sig] = batched_case(sig, gen, timed=True)
+        sig = k1b_sig(E, M, N, K)
+        row = rows[sig] = experts_case(sig, gen, timed=True)
         err = max(err, row["err"])
-        say(f"[K1 batched] {name} E{E} M{M} N{N} K{K} leaf "
-            f"{dict(cand.assignment)} cached {cand.plan.flags['smem_cache']}"
-            f": {fmt(row)} (library: torch.bmm)")
+        say(f"[K1b] {name} E{E} M{M} N{N} K{K} leaf (bm, bn, stages) "
+            f"{sig[6:9]}: {k1b_line(row)} (library: torch.bmm)")
         torch.cuda.empty_cache()
     return err, rows
 
@@ -2325,7 +2504,7 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
     attn, ssm, mlp = has_attn(cfg), has_ssm(cfg), has_mlp(cfg)
     moe = cfg.block == "attn_moe"
     # K1: q, k, v, o; the SSM's x, B, C, decay and out; the MLP's wi, wg,
-    # wo; the MoE router, and its experts' wi, wg, wo on the batched entry
+    # wo; the MoE router, and its experts' wi, wg, wo on K1b
     per_step_mm = cfg.layers * (4 * attn + 5 * ssm + 3 * mlp + moe) + 1
     per_step_batched = cfg.layers * 3 * moe
     steps = st.prefill_chunks + st.decode_ticks
@@ -2338,10 +2517,10 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
         say(f"[serve] {cfg.name} {line}")
     say(f"[serve] {cfg.name} {clock.profile()}")
     say(f"[serve] {cfg.name} launches: {json.dumps(launches)}; matmul per "
-        f"prefill chunk or decode step {per_step_mm}, batched matmul "
+        f"prefill chunk or decode step {per_step_mm}, K1b "
         f"{per_step_batched}, K2 and K3 one a layer each; cold dispatch "
         f"builds after warm-up: {cold}")
-    used = ["matmul_h100"] + ["matmul_h100_batched"] * moe \
+    used = ["matmul_h100"] + [K1B] * moe \
         + ["flash_attention_h100"] * attn + ["ssd_scan_h100"] * ssm
     if any(launches[n] == 0 for n in used):
         raise AssertionError(f"a kernel of the path never launched: "
@@ -2358,9 +2537,8 @@ def phase_serve(arch: str, serve_kw: dict, prompt_lens: tuple,
                              f" {st.prefill_chunks} chunks")
     if launches["matmul_h100"] != per_step_mm * steps:
         raise AssertionError("matmul launches do not match the steps run")
-    if launches["matmul_h100_batched"] != per_step_batched * steps:
-        raise AssertionError("batched matmul launches do not match the "
-                             "steps run")
+    if launches[K1B] != per_step_batched * steps:
+        raise AssertionError("K1b launches do not match the steps run")
     if launches["flash_attention_h100"] != cfg.layers * steps * attn:
         raise AssertionError("attention launches do not match the steps run")
     if launches["ssd_scan_h100"] != cfg.layers * steps * ssm:
@@ -2905,7 +3083,7 @@ def phase_drill() -> None:
 
 #: The families phase 11 tunes at the serve signatures (K4-K6 at their
 #: case-study sizes).
-TUNED = ("matmul_h100", "flash_attention_h100", "ssd_scan_h100")
+TUNED = ("matmul_h100", K1B, "flash_attention_h100", "ssd_scan_h100")
 #: (a)'s measurement: every candidate of a bucket (the tables keep 8), no
 #: dim clamped, three timed replays of ten launches after one untimed.
 TUNE_CFG = dict(iters=3, warmup=1, trim=1, max_dim=1 << 30, top_k=8,
@@ -2919,6 +3097,8 @@ def _data_of(name: str, sig) -> dict:
         return dict(zip("MNK", sig[:3]))
     if name == "matmul_h100_batched":
         return dict(zip("MNK", sig[1:4]))
+    if name == K1B:
+        return dict(zip("EMNK", sig[:4]))
     if name == "ssd_scan_h100":
         return {"SQ": sig[1], "HD": sig[3], "STATE": sig[4]}
     h, hk, sq, _, d = sig[2:7] if sig[0] == "paged" else sig[:5]
@@ -2931,6 +3111,12 @@ def _with_pick(name: str, sig, cand) -> tuple:
         return _mm_sig(_data_of(name, sig), cand, sig[-1])
     if name == "matmul_h100_batched":
         return sig[:1] + _mm_sig(_data_of(name, sig), cand, sig[-1])
+    if name == K1B:
+        from repro_torch.kernels.matmul_experts import UNCACHED_STAGES
+        a = cand.assignment
+        return sig[:6] + (a["bm"], a["bn"], a["stages"] if
+                          cand.plan.flags["smem_cache"] else
+                          UNCACHED_STAGES) + sig[9:]
     a = cand.assignment
     if name == "ssd_scan_h100":
         return sig[:5] + (a["chunk"], a["bd"]) + sig[7:]
@@ -3577,7 +3763,7 @@ def phase_whisper(gen) -> dict:
         raise AssertionError(f"{step.replays} decode graph replays")
     if (launches["matmul_h100"], launches["flash_attention_h100"]) != (
             want_mm, want_fa) or launches["ssd_scan_h100"] \
-            or launches["matmul_h100_batched"]:
+            or launches[K1B]:
         raise AssertionError(f"whisper launches {launches}, expected K1 "
                              f"{want_mm} and K2 {want_fa}")
     if cold:
@@ -3703,8 +3889,7 @@ TRAIN_PARITY = ("llama3_8b", "granite_3_8b", "yi_6b", "qwen1p5_4b",
                 "hymba_1p5b", "llama4_scout_17b_a16e", "kimi_k2_1t_a32b")
 TRAIN_KERNELS = ("matmul_h100", "transpose_h100", "flash_attention_h100",
                  "flash_attention_bwd_h100", "ssd_scan_h100",
-                 "ssd_scan_bwd_h100", "matmul_h100_batched",
-                 "transpose_h100_batched")
+                 "ssd_scan_bwd_h100", K1B) + F32_EXPERT_KERNELS
 #: K3b's keys in 13 (f): (label, rows, seq, heads, hd, state, state0
 #: given, dS_final given), b and c shared across heads as the model passes
 #: them; the first two are (g)'s and (h)'s microbatches.
@@ -4105,8 +4290,10 @@ def _train_counts(cfg, mb: int) -> dict:
     ``launches_a_call``) an attention core, one K3 and one K3b call (three
     kernels) an SSD core; an MoE layer's three expert products on K1's
     batched entry, their dA and dB there too, and two K4b transposes a
-    product.  Under ``remat="full"`` a block's forward runs again in the
-    backward: its forward launches count twice (the lm_head's once)."""
+    product; in bf16 K1b instead, its dA and dB reading the stored operands
+    transposed: three launches a product and no K4b.  Under
+    ``remat="full"`` a block's forward runs again in the backward: its
+    forward launches count twice (the lm_head's once)."""
     from repro_torch.kernels import ssd_scan_bwd
     from repro_torch.kernels.flash_attention_bwd import launches_a_call
     from repro_torch.models.transformer import has_attn, has_mlp, has_ssm
@@ -4128,8 +4315,18 @@ def _train_counts(cfg, mb: int) -> dict:
                 launches_a_call(getattr(torch, cfg.dtype)) * cores * mb,
             "ssd_scan_h100": fwd * scans * mb,
             "ssd_scan_bwd_h100": ssd_scan_bwd.LAUNCHES_A_CALL * scans * mb,
-            "matmul_h100_batched": (fwd + 2) * experts * mb,
-            "transpose_h100_batched": 2 * experts * mb}
+            **expert_counts(cfg, (fwd + 2) * experts * mb,
+                            2 * experts * mb)}
+
+
+def expert_counts(cfg, launches: int, copies: int) -> dict:
+    """The experts' products' ``launches`` (forwards, dA and dB) and their
+    backwards' ``copies`` of transposed operands by wrapper: K1b and no
+    copy in bf16; K1's batched entry and K4b's copies in f32."""
+    bf16 = cfg.dtype == "bfloat16"
+    return {K1B: launches if bf16 else 0,
+            "matmul_h100_batched": 0 if bf16 else launches,
+            "transpose_h100_batched": 0 if bf16 else copies}
 
 
 def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:
@@ -4149,13 +4346,15 @@ def _step_timed(step_fn, params, opt_state, batch, step) -> tuple:
 
 def _profile_step(fn) -> tuple:
     """One call of ``fn`` under ``torch.profiler``: (a line of device ms by
-    kernel group (K1, K4, K2, K2b, K3, K3b, NCCL's collectives, the rest)
-    and the rest's largest kernels, {group: device ms})."""
+    kernel group (K1 and its batched entry, K1b, K4 and K4b, K2, K2b, K3,
+    K3b, NCCL's collectives, the rest) and the rest's largest kernels,
+    {group: device ms})."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    groups = {"K1": ("matmul_kernel",), "K4": ("transpose_",),
+    groups = {"K1": ("matmul_kernel",), "K1b": ("experts_kernel",),
+              "K4": ("transpose_",),
               "K2": ("flash_kernel", "combine_kernel"),
               "K2b": ("fa_bwd_",),
               "K3": ("ssd_step_kernel", "ssd_tc_kernel", "ssd_fma_kernel"),
@@ -4530,7 +4729,7 @@ def phase_train_whisper(gen, mesh=None, tag: str = "(c)", steps=None
             "state_bytes": state_bytes, "batch_bytes": batch_bytes}
 
 
-def phase_train_parity(archs=TRAIN_PARITY) -> None:
+def phase_train_parity(archs=TRAIN_PARITY) -> dict:
     """(d) One f32 train step (AdamW, microbatches 2) of each smoke config
     of ``archs`` on the card against the CPU plain versions from the
     same state: the loss at rtol 1e-5, grad_norm at 1e-4 (sums in another
@@ -4541,7 +4740,10 @@ def phase_train_parity(archs=TRAIN_PARITY) -> None:
     its own optimizer and accumulators (Adafactor, bf16) at the tolerances
     of the CPU test against JAX: grad_norm at 1e-2 (a gradient near a bf16
     rounding boundary rounds to a neighbour), the loss, nll and aux loss
-    at 1e-5, the parameters as above."""
+    at 1e-5, the parameters as above.  The MoE steps on the card are the
+    f32 experts' route's path: K1's batched entry three times and K4b
+    twice an expert product, no K1b (counted, every counter set to 0 just
+    before each step and read just after); returns that path's record."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import init_train_state
     from repro_torch.optim import constant, make_optimizer, tree_leaves
@@ -4549,6 +4751,10 @@ def phase_train_parity(archs=TRAIN_PARITY) -> None:
     lr = 1e-3
     steps = ([(arch, "adamw", torch.float32) for arch in archs]
              + [("kimi_k2_1t_a32b", "adafactor", torch.bfloat16)])
+    kernels = _counters((K1B,) + F32_EXPERT_KERNELS)
+    f32 = {"name": "f32 MoE training (13 (d))",
+           "launches": {n: 0 for n in F32_EXPERT_KERNELS},
+           "shapes": {n: {} for n in F32_EXPERT_KERNELS}}
     for arch, optimizer, grad_dtype in steps:
         cfg = get_smoke_config(arch).scaled(dtype="float32")
         rng = np.random.default_rng(5)
@@ -4563,11 +4769,29 @@ def phase_train_parity(archs=TRAIN_PARITY) -> None:
             params = _to(init_train_state(cfg, seed=2, device="cpu"), dev)
             opt = make_optimizer(optimizer, constant(lr))
             tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            _count_reset(kernels)
             params, _, m = build_train_step(
                 cfg, opt, microbatches=2, grad_dtype=grad_dtype)(
                 params, opt.init(params), tb, 0)
             out[dev] = ({k: float(v) for k, v in m.items()},
                         [p.detach().cpu() for p in tree_leaves(params)])
+            if dev == DEV and cfg.block == "attn_moe":
+                torch.cuda.synchronize()
+                fwd = 2 if cfg.remat == "full" else 1
+                products = 3 * cfg.layers * 2
+                want = expert_counts(cfg, (fwd + 2) * products, 2 * products)
+                got = {n: k.launches for n, k in kernels.items()}
+                say(f"[train] (d) {cfg.name} f32 experts' launches {got}, "
+                    f"expected {want}")
+                if got != want:
+                    raise AssertionError(f"{cfg.name}: the f32 experts' "
+                                         f"launches {got} != {want}")
+                for n in F32_EXPERT_KERNELS:
+                    f32["launches"][n] += kernels[n].launches
+                    for sig, c in kernels[n].shapes.items():
+                        f32["shapes"][n][sig] = \
+                            f32["shapes"][n].get(sig, 0) + c
+                _count_reset(kernels)
         (gm, gp), (wm, wp) = out[DEV], out["cpu"]
         flips = total = 0
         worst = 0.0
@@ -4592,6 +4816,10 @@ def phase_train_parity(archs=TRAIN_PARITY) -> None:
         if not ok:
             raise AssertionError(f"{cfg.name}: the card's train step differs "
                                  "from the CPU's")
+    if not all(f32["launches"].values()):
+        raise AssertionError(f"the f32 experts' route never launched: "
+                             f"{f32['launches']}")
+    return f32
 
 
 def k4b_case(sig, gen, *, timed: bool, plain_timed: bool = True):
@@ -4639,10 +4867,10 @@ CASES["transpose_h100_batched"] = k4b_case
 def moe_bwd_keys(arch: str) -> tuple:
     """(K1b signatures, K4b signatures) of an MoE config's expert products
     in a train step over one routing group of 1024 tokens, in bf16, at the
-    picks of their per-expert keys: the forward and dA of each product
-    (the up projection's forward key is the down projection's dA key and
-    back), dB, and the transposes of each product's weights and
-    activations."""
+    picks of their keys: K1b's forward (NN), dA (NT: the stored weight
+    read transposed) and dB (TN: the stored rows read transposed) of the
+    up and down projections; and K4's batched entry at the transposes of
+    each product's weights and activations that the f32 route copies."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.moe import capacity
@@ -4651,11 +4879,10 @@ def moe_bwd_keys(arch: str) -> tuple:
     E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
     C = capacity(1024, E, m.top_k, m.capacity_factor)
     bf16 = torch.bfloat16
-    k1b = []
-    for M, N, K in ((C, f, d), (C, d, f), (d, f, C), (f, d, C)):
-        data = {"M": M, "N": N, "K": K}
-        k1b.append((E,) + _mm_sig(data, ops.select("matmul_h100", data),
-                                  bf16))
+    k1b = [k1b_sig(E, M, N, K, ta, tb) for M, N, K, ta, tb in (
+        (C, f, d, False, False), (C, d, f, False, False),    # forward
+        (C, d, f, False, True), (C, f, d, False, True),      # dA
+        (d, f, C, True, False), (f, d, C, True, False))]     # dB
     k4b = []
     for M, N in ((d, f), (C, d), (f, d), (C, f)):
         cand = ops.select("transpose_h100", {"M": M, "N": N})
@@ -4664,30 +4891,84 @@ def moe_bwd_keys(arch: str) -> tuple:
     return k1b, k4b
 
 
+#: The leaf sweep of 13 (i): llama4-scout's three training keys of the up
+#: projection (forward, dA, dB), where the napkin's constants were chosen,
+#: and kimi-k2's forward and dA, held out.
+K1B_SWEEP = (("llama4-scout forward", 0, False),
+             ("llama4-scout dA", 2, False),
+             ("llama4-scout dB", 4, False),
+             ("kimi-k2 forward", 0, True),
+             ("kimi-k2 dA", 2, True))
+
+
+def _spearman(a, b) -> float:
+    ra, rb = (np.argsort(np.argsort(np.asarray(x))) for x in (a, b))
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def k1b_leaf_sweep(gen) -> None:
+    """Every leaf of K1b's tree at the keys of :data:`K1B_SWEEP`, each bit
+    for bit twice and within its tolerance of the plain version, as cold
+    device time, with the napkin's rank (H100_SXM) beside the card's and
+    the pick's time against the fastest leaf's."""
+    from repro_torch.core.params import H100_SXM
+    from repro_torch.core.select import enumerate_candidates
+    from repro_torch.kernels.matmul_experts import FAMILY, UNCACHED_STAGES
+    keys = {arch: moe_bwd_keys(arch)[0] for arch, _ in MOE_BWD_CONFIGS}
+    for label, i, held_out in K1B_SWEEP:
+        pick = keys[MOE_BWD_CONFIGS[held_out][0]][i]
+        E, M, N, K, ta, tb = pick[:6]
+        data = {"E": E, "M": M, "N": N, "K": K}
+        leaves = {}
+        for c in enumerate_candidates(FAMILY, H100_SXM, data):
+            a = c.assignment
+            run = (a["stages"] if c.plan.flags["smem_cache"]
+                   else UNCACHED_STAGES)
+            fmt_ = (a["bm"], a["bn"], run)
+            leaves[fmt_] = max(leaves.get(fmt_, 0.0), c.score)
+        times = {}
+        for fmt_ in sorted(leaves):
+            sig = pick[:6] + fmt_ + pick[9:]
+            times[fmt_] = experts_case(sig, gen, timed=True,
+                                       leaf_only=True, eager=False,
+                                       reps=4 if held_out else 10
+                                       )["device_ms"]
+            torch.cuda.empty_cache()
+        order = sorted(times, key=times.get)
+        napkin = sorted(leaves, key=lambda f: -leaves[f])
+        rho = _spearman([napkin.index(f) for f in order],
+                        list(range(len(order))))
+        say(f"[train] (i) K1b leaf sweep, {label}"
+            f"{' (held out)' if held_out else ''} E {E} (M, N, K) "
+            f"{(M, N, K)} ta {ta} tb {tb}: {len(order)} leaves (bm, bn, "
+            f"stages) by device ms, napkin rank in brackets: "
+            + ", ".join(f"{f} {times[f]:.4f} [{napkin.index(f) + 1}]"
+                        for f in order)
+            + f"; Spearman {rho:.2f}; the pick {pick[6:9]} "
+            f"{times[pick[6:9]]:.4f} ms, {times[pick[6:9]] / times[order[0]]:.3f}"
+            f" x the fastest")
+
+
 def phase_train_moe_kernels(gen) -> tuple:
-    """(i) K1's and K4's batched entries at each key of
-    ``MOE_BWD_CONFIGS`` (:func:`moe_bwd_keys`): :func:`batched_case`
-    and :func:`k4b_case`, each timed, the plain version timed at the keys
-    the path (j) runs (the held-out keys' plain versions are checked, not
-    timed); returns (largest K1b error, {sig: row}, largest K4b error,
-    {sig: row})."""
+    """(i) K1b and K4b at each key of ``MOE_BWD_CONFIGS``
+    (:func:`moe_bwd_keys`): :func:`experts_case` and :func:`k4b_case`,
+    each timed, the plain version timed at the keys the path (j) runs
+    (the held-out keys' plain versions are checked, not timed); then
+    :func:`k1b_leaf_sweep`.  Returns (largest K1b error, {sig: row},
+    largest K4b error, {sig: row})."""
     k1_err = k4_err = 0.0
     k1_rows, k4_rows = {}, {}
     for arch, held_out in MOE_BWD_CONFIGS:
         k1b, k4b = moe_bwd_keys(arch)
         what = "held out" if held_out else "(j)'s"
         for sig in k1b:
-            row = batched_case(sig, gen, timed=True,
+            row = experts_case(sig, gen, timed=True,
                                plain_timed=not held_out)
             k1_rows[sig] = row
             k1_err = max(k1_err, row["err"])
             say(f"[train] (i) K1b {arch} {what} key E {sig[0]} (M, N, K) "
-                f"{sig[1:4]}, pick {sig[4:10]}: {fmt(row)}; two launches "
-                f"equal bit for bit; device time "
-                f"{100 * row['bound_ms'] / row['device_ms']:.1f} % of the "
-                f"bound, torch.bmm (bf16 out) "
-                f"{row['library_device_ms'] / row['device_ms']:.3f} x its "
-                f"device time")
+                f"{sig[1:4]} ta {sig[4]} tb {sig[5]}, pick {sig[6:9]}: "
+                f"{k1b_line(row)}; two launches equal bit for bit")
         for sig in k4b:
             row = k4b_case(sig, gen, timed=True, plain_timed=not held_out)
             k4_rows[sig] = row
@@ -4699,6 +4980,7 @@ def phase_train_moe_kernels(gen) -> tuple:
                 f"byte bound, a.transpose(1, 2).contiguous() "
                 f"{row['library_device_ms'] / row['device_ms']:.3f} x its "
                 f"device time")
+    k1b_leaf_sweep(gen)
     return k1_err, k1_rows, k4_err, k4_rows
 
 
@@ -4724,7 +5006,7 @@ def router_bits_once(gen) -> None:
 
 def phase_train_llama4(gen) -> dict:
     """(j) llama4-scout at full width, ``LLAMA4_LAYERS`` of 48 layers, on
-    ``LLAMA4_TRAIN``: :func:`train_path` (K1b and K4b among its counted
+    ``LLAMA4_TRAIN``: :func:`train_path` (K1b among its counted
     kernels), after :func:`router_bits_once`."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.workspace import free_unheld
@@ -4957,7 +5239,8 @@ def phase_train(gen) -> tuple:
     mamba2-130m training; (h) hymba-1.5b training; (i) K1b and K4b at the
     MoE training keys; (j) llama4-scout training.  Returns (K2b's largest
     error, K2b's rows, the five training paths' records, K3b's largest
-    error, K3b's rows, (i)'s errors and rows)."""
+    error, K3b's rows, (i)'s errors and rows and (d)'s f32 experts'
+    path)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.workspace import scratch
     with scratch():
@@ -4971,7 +5254,7 @@ def phase_train(gen) -> tuple:
         paths.append(phase_train_whisper(gen))
         say(f"[train] (c) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        phase_train_parity()
+        f32_path = phase_train_parity()
         say(f"[train] (d) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         ssd_err, ssd_rows = phase_train_k3b(gen)
@@ -4985,7 +5268,7 @@ def phase_train(gen) -> tuple:
                                 HYMBA_LAYERS, HYMBA_TRAIN))
         say(f"[train] (h) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        moe = phase_train_moe_kernels(gen)
+        moe = phase_train_moe_kernels(gen) + (f32_path,)
         say(f"[train] (i) {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         paths.append(phase_train_llama4(gen))
@@ -4998,10 +5281,9 @@ def phase_train(gen) -> tuple:
                 f"profiled step's device time: " + ", ".join(
                     f"{n} {100 * v:.1f} %" for n, v in share.items()))
         p = paths[4]
-        # the profiler names K1's batched launches as K1's (one kernel) and
-        # K4b's as K4's
+        # the profiler names K4b's launches as K4's (one kernel)
         share = {n: p["kernel_ms"][n] / p["profiled_ms"]
-                 for n in ("K1", "K4", "K2", "K2b", "other")}
+                 for n in ("K1", "K1b", "K4", "K2", "K2b", "other")}
         say(f"[train] {p['name']}: median step {p['step_ms']:.1f} ms "
             f"(CUDA events), peak {p['peak_gb']:.2f} GB; share of the "
             f"profiled step's device time: " + ", ".join(
@@ -5140,9 +5422,9 @@ def a2a_event_ms(mesh, gen, reps: int = 20) -> float:
 
 def phase_multi_llama4(mesh, gen, ref: dict) -> dict:
     """(c) llama4-scout at full width, 1 of 48 layers, ``moe_a2a`` through
-    the launcher's step over the NCCL mesh: (j)'s run (``LLAMA4_TRAIN``,
-    the same seed) by :func:`train_path`, after the split workspaces are
-    dropped as before (j).  Step 0's loss and grad_norm held to (j)'s at
+    the launcher's step over the NCCL mesh: (j)'s run (the same seed) by
+    :func:`train_path`, after the split workspaces are dropped as
+    before (j).  Step 0's loss and grad_norm held to (j)'s at
     rtol 1e-5 and 1e-4 (13 (d)'s; at one rank the routing is (j)'s, so
     they should be equal bit for bit, which is printed); the step's time,
     peak memory and launches beside (j)'s; 0 cold builds; the all-to-all's
@@ -5223,9 +5505,8 @@ BLOCK_KEYS = (
     ("whisper_large_v3", WHISPER_TRAIN["layers"],
      dict(WHISPER_TRAIN, microbatches=1), ((1, 4), (1, 8)),
      ("flash_attention_h100", "flash_attention_bwd_h100")),
-    ("llama4_scout_17b_a16e", LLAMA4_LAYERS, EP_RUN, ((4, 1),),
-     ("matmul_h100_batched", "transpose_h100_batched")),
-    ("kimi_k2_1t_a32b", 1, EP_RUN, ((4, 1),), ("matmul_h100_batched",)))
+    ("llama4_scout_17b_a16e", LLAMA4_LAYERS, EP_RUN, ((4, 1),), (K1B,)),
+    ("kimi_k2_1t_a32b", 1, EP_RUN, ((4, 1),), (K1B,)))
 
 
 def same_as_one_card(tag: str, rec: dict, ref: dict, what: str) -> None:
@@ -5305,14 +5586,13 @@ def phase_multi_llama3(mesh, ref: dict) -> dict:
     return rec
 
 
-def _rank_launches(op, gen, cfg=None, rows: int = 4, heads=None,
-                   experts=None) -> None:
+def _rank_launches(op, gen, cfg=None, rows: int = 4, heads=None) -> None:
     """What the model launches for a traced forward key of a train step,
     as ``layers.proj``, ``layers._rows_attention``, ``layers.ssm_block``
     and ``moe.experts_swiglu`` launch it while autograd records: K1 at
     (M, N, K) bf16 through ``MatmulFn`` and its backward (K1's dA and dB,
-    K4's transposes), and at an expert site over ``experts`` experts
-    through ``BatchedMatmulFn`` (K1's and K4's batched entries); K2 at
+    K4's transposes); K1b at (E, M, N, K) through ``BatchedMatmulFn`` and
+    its backward (K1b's dA and dB); K2 at
     (SQ, HD, GROUP, HK) through ``AttentionFn`` over ``rows`` rows, and
     K2b: causal over SQ keys (``cfg``'s window), non-causal in whisper's
     encoder and over its 1500 frames in the cross-attention; K3 at (SQ,
@@ -5328,14 +5608,14 @@ def _rank_launches(op, gen, cfg=None, rows: int = 4, heads=None,
 
     fwd = [s for s in op.sites
            if not s.endswith((".dA", ".dB", ".wT", ".xT", ".bwd"))]
-    if op.family == "matmul_h100":
+    if op.family == K1B:
+        E, M, N, K = d["E"], d["M"], d["N"], d["K"]
+        BatchedMatmulFn.apply(randn(E, M, K), randn(E, K, N)).sum(
+            ).backward()
+    elif op.family == "matmul_h100":
         M, N, K = d["M"], d["N"], d["K"]
-        if any(".moe.expert_" in s for s in fwd):
-            BatchedMatmulFn.apply(randn(experts, M, K),
-                                  randn(experts, K, N)).sum().backward()
-        if any(".moe.expert_" not in s for s in fwd):
-            MatmulFn.apply(randn(M, K), randn(K, N)).backward(torch.ones(
-                (M, N), device=DEV, dtype=torch.float32))
+        MatmulFn.apply(randn(M, K), randn(K, N)).backward(torch.ones(
+            (M, N), device=DEV, dtype=torch.float32))
     elif op.family == "ssd_scan_h100":
         S, hd, n = d["SQ"], d["HD"], d["STATE"]
         a = torch.rand((rows, S, heads), generator=gen, device=DEV)
@@ -5517,8 +5797,7 @@ def phase_multi_block_keys(gen) -> dict:
             cold0 = stats.cold_builds
             _count_reset(kernels)
             for op in fwd:
-                _rank_launches(op, gen, cfg, rows=R, heads=heads,
-                               experts=experts)
+                _rank_launches(op, gen, cfg, rows=R, heads=heads)
             torch.cuda.synchronize()
             cold = stats.cold_builds - cold0
             sigs = {name: dict(k.shapes) for name, k in kernels.items()}
@@ -5545,8 +5824,9 @@ def phase_multi_block_keys(gen) -> dict:
                 for sig in sorted(sigs[name], key=str):
                     if sig not in rows[name]:
                         rows[name][sig] = CASES[name](sig, gen, timed=True)
+                        row = rows[name][sig]
                         say(f"[multi] (j) {cfg.name} {name} {sig[:-1]}: "
-                            f"{fmt(rows[name][sig])}")
+                            + (k1b_line(row) if name == K1B else fmt(row)))
                         torch.cuda.empty_cache()
     cell_lines("(j)", BLOCK_CELL_SIZES)
     return rows
@@ -5764,7 +6044,7 @@ def phase_dry_pod_keys(gen) -> dict:
     cold0 = stats.cold_builds
     _count_reset(kernels)
     for op in fwd:
-        _rank_launches(op, gen, cfg, rows=R, experts=experts)
+        _rank_launches(op, gen, cfg, rows=R)
     torch.cuda.synchronize()
     cold = stats.cold_builds - cold0
     sigs = {name: dict(k.shapes) for name, k in kernels.items()}
@@ -5780,14 +6060,17 @@ def phase_dry_pod_keys(gen) -> dict:
         + "; ".join(keys))
     if cold:
         raise AssertionError(f"(c) {POD_MESH}: {cold} cold builds")
-    rows = {"matmul_h100_batched": {}}
-    for sig in sorted(sigs["matmul_h100_batched"], key=str):
-        row = CASES["matmul_h100_batched"](sig, gen, timed=True)
-        rows["matmul_h100_batched"][sig] = row
-        say(f"[dryrun] (c) matmul_h100_batched {sig[:-1]}: {fmt(row)}")
+    rows = {K1B: {}}
+    for sig in sorted(sigs[K1B], key=str):
+        row = CASES[K1B](sig, gen, timed=True)
+        rows[K1B][sig] = row
+        say(f"[dryrun] (c) {K1B} {sig[:-1]}: {k1b_line(row)}")
         torch.cuda.empty_cache()
-    if not rows["matmul_h100_batched"]:
+    if not rows[K1B]:
         raise AssertionError("(c) no K1b launch at the pod mesh's keys")
+    if any(sigs[n] for n in F32_EXPERT_KERNELS):
+        raise AssertionError("(c) the bf16 experts launched K1's batched "
+                             "entry or K4b")
     return rows
 
 
@@ -5909,7 +6192,7 @@ def main() -> int:
     phase_build()
     t0 = time.perf_counter()
     errs = {"matmul_h100": phase_k1(gen)}
-    errs["matmul_h100_batched"], batched_rows = phase_k1_batched(gen)
+    errs[K1B], batched_rows = phase_k1_batched(gen)
     say(f"[K1] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     errs["flash_attention_h100"] = phase_k2(gen)
@@ -5936,8 +6219,7 @@ def main() -> int:
             f"{p['name']} {p['peak_gib']:.2f}" for p in paths))
     engine = _group_shapes(paths)
     t0 = time.perf_counter()
-    rows = phase_shapes(engine, gen,
-                        timed={"matmul_h100_batched": batched_rows})
+    rows = phase_shapes(engine, gen, timed={K1B: batched_rows})
     phase_host_cost(gen)
     say(f"[shapes] phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -5959,8 +6241,9 @@ def main() -> int:
     t0 = time.perf_counter()
     (errs["flash_attention_bwd_h100"], bwd_rows, train_paths,
      errs["ssd_scan_bwd_h100"], ssd_bwd_rows, moe) = phase_train(gen)
-    k1b_err, k1b_rows, errs["transpose_h100_batched"], k4b_rows = moe
-    errs["matmul_h100_batched"] = max(errs["matmul_h100_batched"], k1b_err)
+    k1b_err, k1b_rows, errs["transpose_h100_batched"], k4b_rows, f32_path \
+        = moe
+    errs[K1B] = max(errs[K1B], k1b_err)
     t1 = time.perf_counter()
     n_new = len(PATHS) + len(NEW_PATHS)
     multi_train, multi_serve, multi_rows = phase_multi(
@@ -5992,8 +6275,7 @@ def main() -> int:
                                         **k4_rows},
              "flash_attention_bwd_h100": bwd_rows,
              "ssd_scan_bwd_h100": ssd_bwd_rows,
-             "matmul_h100_batched": {**rows["matmul_h100_batched"],
-                                     **k1b_rows},
+             K1B: {**rows[K1B], **k1b_rows},
              "transpose_h100_batched": k4b_rows}
     for name, row in phase_shapes(train, gen, timed=timed,
                                   before="phase 6, 9, 12 or 13 (a), (e), "
@@ -6045,6 +6327,24 @@ def main() -> int:
         totals[name] = dict(train_sums[name]) if before is None else {
             k: (None if v is None or train_sums[name][k] is None
                 else v + train_sums[name][k]) for k, v in before.items()}
+    # 13 (d)'s f32 MoE steps, the f32 experts' route's path: K1's batched
+    # entry and K4b, each signature timed as phase 9 times a pick
+    f32_rows = phase_shapes(f32_path["shapes"], gen,
+                            timed={"transpose_h100_batched": k4b_rows},
+                            before="13 (i)")
+    f32_sums = launch_sums(f32_path["shapes"], f32_rows)
+    say(f"[train] kernel time over the f32 experts' route's launches (13 "
+        f"(d)): {_sums_line(f32_sums)}")
+    for name in F32_EXPERT_KERNELS:
+        errs[name] = max([errs.get(name, 0.0)]
+                         + [r["err"] for r in f32_rows[name].values()])
+        rows.setdefault(name, {}).update(f32_rows[name])
+        launches[name] += f32_path["launches"][name]
+        for sig, n in f32_path["shapes"][name].items():
+            shapes[name][sig] = shapes[name].get(sig, 0) + n
+        totals[name] = {k: (None if v is None or f32_sums[name][k] is None
+                            else v + f32_sums[name][k])
+                        for k, v in totals[name].items()}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -6072,6 +6372,12 @@ def main() -> int:
             by_paths["training"] = {
                 "launches": sum(p["launches"][name] for p in train_paths),
                 **{k: train_sums[name][k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms",
+                    "library_ms")}}
+        if name in F32_EXPERT_KERNELS:
+            by_paths[f32_path["name"]] = {
+                "launches": f32_path["launches"][name],
+                **{k: f32_sums[name][k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms",
                     "library_ms")}}
         if by_paths:

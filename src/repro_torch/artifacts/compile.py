@@ -62,6 +62,14 @@ DEFAULT_DATA_GRIDS: Dict[str, List[Dict[str, int]]] = {
     # the training keys: mamba2-130m at seq 1024, hymba-1.5b at 2048
     "ssd_scan_bwd_h100": [{"SQ": 1024, "HD": 64, "STATE": 128},
                           {"SQ": 2048, "HD": 64, "STATE": 16}],
+    # llama4-scout's experts (E 16, d 5120, ff 8192): a decode step's 4
+    # rows, and a training group's 80 rows forward, dA and dB
+    "matmul_experts_h100": [
+        {"E": 16, "M": 4, "N": 8192, "K": 5120},
+        {"E": 16, "M": 4, "N": 5120, "K": 8192},
+        {"E": 16, "M": 80, "N": 8192, "K": 5120},
+        {"E": 16, "M": 80, "N": 5120, "K": 8192},
+        {"E": 16, "M": 5120, "N": 8192, "K": 80}],
 }
 
 

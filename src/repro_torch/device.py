@@ -31,6 +31,23 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def grow_segments_in_place() -> None:
+    """Turn on the CUDA caching allocator's ``expandable_segments`` for this
+    process, unless ``PYTORCH_CUDA_ALLOC_CONF`` already sets it; without
+    CUDA, nothing.  A training step at full width frees and asks for blocks
+    the size of a gradient (2.7 GB for one of llama4-scout's expert weights
+    in f32) in an order that leaves the allocator's cached segments split:
+    llama4-scout's step beside NCCL's communicator then ran out of memory
+    on an 80 GB H100 with 4.8 GiB free in pieces.  Segments that grow in
+    place map freed pages anew instead, so a request is refused only when
+    the card is full."""
+    if not torch.cuda.is_available():
+        return
+    if "expandable_segments" in os.environ.get("PYTORCH_CUDA_ALLOC_CONF", ""):
+        return
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 

@@ -10,14 +10,15 @@ plain version never runs on a CUDA tensor.  So:
   (``transpose_h100``, bit-exact).  K1 takes two operands of one type, so
   dC is cast to the operands' type first, as the JAX bf16 einsum's
   cotangent is bf16; the gradients come back in the operands' type.
-- :class:`BatchedMatmulFn`: C[e] = A[e]·B[e] through K1's batched entry
-  (``ops.matmul_batched``, f32 out, one launch for every expert e); its
-  backward is the batched entry again, dA[e] = dC[e]·B[e]ᵀ and dB[e] =
-  A[e]ᵀ·dC[e], one launch each, over operands transposed by K4's batched
-  entry (``ops.transpose_batched``, one launch each).  dC is cast to the
-  operands' type first and the gradients come back in the operands'
-  types, as for :class:`MatmulFn`; each transposed operand is freed once
-  its product is made.
+- :class:`BatchedMatmulFn`: C[e] = A[e]·B[e] for every expert e, one
+  launch (``ops.matmul_batched``).  In bf16 that is K1b
+  (``matmul_experts_h100``, bf16 out) and its backward is K1b again, dA[e]
+  = dC[e]·B[e]ᵀ and dB[e] = Aᵀ[e]·dC[e], each one launch reading the
+  stored B or A transposed in place (``tb`` / ``ta``): no copy, no cast.
+  In f32 it is K1's batched entry (f32 out) and the backward's transposed
+  operands are copies by K4's batched entry inside the op, as the 2-D
+  :class:`MatmulFn` has it; the gradients come back in the operands'
+  types (the output's, as C has them).
 - :class:`AttentionFn`: K2's paged entry over a batch's K/V read as a pool
   of one block a row (the table ``[[b]]``); it saves q, k, v, o and the
   lengths, and its backward is K2b (``flash_attention_bwd_h100``).  A real
@@ -61,8 +62,8 @@ class MatmulFn(torch.autograd.Function):
 
 
 class BatchedMatmulFn(torch.autograd.Function):
-    """C[E, M, N] = A[E, M, K]·B[E, K, N] in f32 (K1's batched entry),
-    differentiable."""
+    """C[E, M, N] = A[E, M, K]·B[E, K, N] (``ops.matmul_batched``: K1b in
+    bf16, K1's batched entry in f32), differentiable."""
 
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -72,12 +73,12 @@ class BatchedMatmulFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dc: torch.Tensor):
         a, b = ctx.saved_tensors
-        dc = dc.to(a.dtype).contiguous()
+        dc = dc.contiguous()
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = ops.matmul_batched(dc, ops.transpose_batched(b)).to(a.dtype)
+            da = ops.matmul_batched(dc, b, tb=True)
         if ctx.needs_input_grad[1]:
-            db = ops.matmul_batched(ops.transpose_batched(a), dc).to(b.dtype)
+            db = ops.matmul_batched(a, dc, ta=True)
         return da, db
 
 

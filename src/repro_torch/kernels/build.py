@@ -23,8 +23,9 @@ from pathlib import Path
 from typing import Callable, Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("matmul", "flash_attention", "flash_attention_bwd", "ssd_scan",
-           "ssd_scan_bwd", "matadd", "transpose", "jacobi1d")
+SOURCES = ("matmul", "matmul_experts", "flash_attention",
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd", "matadd",
+           "transpose", "jacobi1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -28,9 +28,11 @@ Machine parameters:  V (shared bytes a block), G (registers a thread),
 The batched entry (:func:`matmul_h100_batched`, the built callable's
 ``.batched``) runs E independent products A [E, M, K] @ B [E, K, N] in one
 launch, E x kb blocks on the grid's z: a mixture-of-experts layer's expert
-projections, each expert at its capacity of M token rows.  It takes the
-pick of the per-expert key {M, N, K}, as the JAX trace keys the experts'
-matmuls.
+projections, each expert at its capacity of M token rows, in f32.  It
+takes the pick of the per-expert key {M, N, K}, as the JAX trace keys the
+experts' matmuls.  bf16 experts do not come here: ``ops.matmul_batched``
+runs them on K1b (:mod:`.matmul_experts`, ``matmul_experts_h100``), keyed
+on (E, M, N, K).
 
 The split-K workspace (f32 partials and per-tile tickets) is one per device
 (:mod:`.workspace`): it grows on demand until a captured CUDA graph holds

@@ -24,13 +24,15 @@ from .flash_attention_bwd import FAMILY as FLASH_BWD_FAMILY
 from .jacobi1d import FAMILY as JACOBI_FAMILY
 from .matadd import FAMILY as MATADD_FAMILY
 from .matmul import FAMILY as MATMUL_FAMILY
+from .matmul_experts import FAMILY as EXPERTS_FAMILY, product_dims
 from .ssd_scan import FAMILY as SSD_FAMILY
 from .ssd_scan_bwd import FAMILY as SSD_BWD_FAMILY
 from .transpose import FAMILY as TRANSPOSE_FAMILY
 
 FAMILIES = {f.name: f for f in (MATMUL_FAMILY, MATADD_FAMILY, JACOBI_FAMILY,
                                 TRANSPOSE_FAMILY, FLASH_FAMILY, SSD_FAMILY,
-                                FLASH_BWD_FAMILY, SSD_BWD_FAMILY)}
+                                FLASH_BWD_FAMILY, SSD_BWD_FAMILY,
+                                EXPERTS_FAMILY)}
 
 
 def select(family_name: str, data: Mapping[str, int],
@@ -50,14 +52,30 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
     return fn(a, b)
 
 
-def matmul_batched(a: torch.Tensor, b: torch.Tensor, *,
+def matmul_batched(a: torch.Tensor, b: torch.Tensor, *, ta: bool = False,
+                   tb: bool = False,
                    machine: MachineDescription = H100_SXM) -> torch.Tensor:
-    """C[e] = A[e] @ B[e] in f32 over A [E, M, K], B [E, K, N] (K1's batched
-    entry, one launch for every e), keyed on the per-expert (M, N, K) as
-    :func:`matmul`, through the same frozen lane."""
-    _, M, K = a.shape
-    N = b.shape[2]
-    fn = get_default_cache().warm_callable(
+    """C[e] = op(A[e]) @ op(B[e]) for every expert e, one launch: A [E, M,
+    K] (or [E, K, M] with ``ta``), B [E, K, N] (or [E, N, K] with ``tb``).
+
+    bf16 operands run K1b (``matmul_experts_h100``) keyed on the product's
+    (E, M, N, K), which reads a transposed operand in place and returns
+    bf16.  f32 operands run K1's batched entry through the pick of the
+    per-expert key (M, N, K), the same frozen lane as :func:`matmul`, and
+    return f32; ``ta`` / ``tb`` then copy the operand transposed by K4's
+    batched entry first.  The branch is on the operands' type alone."""
+    E, M, N, K = product_dims(a, b, ta, tb)
+    cache = get_default_cache()
+    if a.dtype == torch.bfloat16:
+        fn = cache.warm_callable(
+            EXPERTS_FAMILY, machine, (("E", E), ("M", M), ("N", N), ("K", K)),
+            a.device.type)
+        return fn(a, b, ta=ta, tb=tb)
+    if ta:
+        a = transpose_batched(a, machine=machine)
+    if tb:
+        b = transpose_batched(b, machine=machine)
+    fn = cache.warm_callable(
         MATMUL_FAMILY, machine, (("M", M), ("N", N), ("K", K)), a.device.type)
     return fn.batched(a, b)
 

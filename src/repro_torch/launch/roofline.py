@@ -79,7 +79,8 @@ def work(name: str, sig, lens: Optional[Sequence[int]] = None) -> tuple:
     matadd one f32 add an element, a Jacobi sweep two adds and a division
     a point, a transpose none.  A paged K2 launch and a K2b call count
     each row at its length in ``lens`` (its q and output, and the pool's
-    bytes of the keys it can see)."""
+    bytes of the keys it can see).  K1's batched entry writes f32, K1b
+    its operands' type."""
     esz = torch.empty((), dtype=sig[-2 if sig[0] == "paged" else -1]
                       ).element_size()
     if name == "matmul_h100":
@@ -89,6 +90,10 @@ def work(name: str, sig, lens: Optional[Sequence[int]] = None) -> tuple:
     if name == "matmul_h100_batched":       # every expert's A, B and C
         E, M, N, K = sig[:4]
         return (E * ((M * K + K * N) * esz + M * N * 4), 2.0 * E * M * N * K,
+                PEAK_FLOPS[sig[-1]])
+    if name == "matmul_experts_h100":       # C in the operands' type
+        E, M, N, K = sig[:4]
+        return (E * (M * K + K * N + M * N) * esz, 2.0 * E * M * N * K,
                 PEAK_FLOPS[sig[-1]])
     if name == "matadd_h100":
         M, N = sig[:2]
@@ -197,6 +202,10 @@ def launch_signature(launch, pick: Dict[str, int]) -> Tuple[tuple, tuple]:
                                            "stages")) + (True, dt)
         E = (info["E"],) if name == "matmul_h100_batched" else ()
         return E + (key["M"], key["N"], key["K"]) + tail, ()
+    if name == "matmul_experts_h100":
+        return ((key["E"], key["M"], key["N"], key["K"],
+                 bool(info.get("ta")), bool(info.get("tb")), pick.get("bm"),
+                 pick.get("bn"), pick.get("stages"), dt), ())
     if name in ("transpose_h100", "transpose_h100_batched"):
         tail = tuple(pick.get(k) for k in ("bm", "bn", "s")) + (True, dt)
         E = (info["E"],) if name == "transpose_h100_batched" else ()

@@ -43,6 +43,7 @@ from repro_torch.artifacts.dispatch import get_default_cache
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import flash_attention_h100
 from repro_torch.kernels.matmul import matmul_h100, matmul_h100_batched
+from repro_torch.kernels.matmul_experts import matmul_experts_h100
 from repro_torch.kernels.ssd_scan import ssd_scan_h100
 from repro_torch.models import init_model
 from repro_torch.obs import FlightRecorder, install
@@ -154,8 +155,8 @@ def main() -> None:
         print(f"warm-up: {len(eng.kernel_plan)} kernel picks frozen")
     stats = get_default_cache().stats
     cold0 = stats.cold_builds
-    kernels = (matmul_h100, matmul_h100_batched, flash_attention_h100,
-               ssd_scan_h100)
+    kernels = (matmul_h100, matmul_h100_batched, matmul_experts_h100,
+               flash_attention_h100, ssd_scan_h100)
     for k in kernels:
         k.launches = 0
 

@@ -5,9 +5,10 @@ Tokens are processed in groups of ``min(MOE_GROUP_SIZE, T)`` (the last one
 padded with zero tokens, which route but are cut from the output), so the
 dispatch and combine one-hot tensors stay (G, gsz, E, C).  The router runs
 on K1 (``ops.matmul``, f32 out) from compute-dtype inputs and only the
-softmax is f32, as in the JAX layer; the expert SwiGLU runs on K1's batched
-entry (``ops.matmul_batched``), one launch a projection for all E experts
-at their capacity of C token rows.  The one-hot dispatch and combine
+softmax is f32, as in the JAX layer; the expert SwiGLU runs one launch a
+projection for all E experts at their capacity of C token rows
+(``ops.matmul_batched``: K1b in bf16, whose output is bf16; K1's batched
+entry in f32).  The one-hot dispatch and combine
 contractions are plain ``torch.einsum``, as they are plain einsum outside
 any Pallas kernel in the JAX layer.
 
@@ -35,7 +36,8 @@ dense layer then runs the first E of them, as the JAX layer slices them.
 While autograd records (``layers.recording``: a train step), the router
 runs through ``MatmulFn`` (its backward K1 over K4 transposes, the logits
 still f32) and the three expert products through ``BatchedMatmulFn`` (its
-backward K1's batched entry over K4's batched transposes); the softmax,
+backward K1b over the stored operands read transposed in bf16, K1's
+batched entry over K4's batched transposes in f32); the softmax,
 the top-k, the capacity assignment, the dispatch and combine einsums and
 the aux loss are PyTorch's own ops, differentiated as JAX differentiates
 the JAX layer's: a dropped token carries no gradient through the experts.
@@ -248,11 +250,12 @@ def route(logits: torch.Tensor, k: int, C: int):
 def experts_swiglu(xin: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
                    wo: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU over their rows ``xin`` (E, M, d): three launches
-    of K1's batched entry (``BatchedMatmulFn`` while autograd records),
-    (E, M, d) out in ``xin``'s type."""
+    of ``ops.matmul_batched`` (``BatchedMatmulFn`` while autograd records),
+    (E, M, d) out in ``xin``'s type: K1b returns bf16 for bf16 rows, K1's
+    batched entry f32 for f32 rows."""
     def expert(a, w):
         return _matmul(a, w.to(xin.dtype), BatchedMatmulFn,
-                       ops.matmul_batched).to(xin.dtype)
+                       ops.matmul_batched)
 
     h = expert(xin, wi)
     g = expert(xin, wg)

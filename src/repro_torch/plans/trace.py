@@ -21,9 +21,12 @@ SSM decay projection (ROADMAP F5).  The paged serve path of
   E, k, cf)``, one paged attention core over all rows at ``SQ = 1``, and
   one SSD scan over all rows at ``SQ = 1``.
 
-The experts' ``expert_up`` (``wi`` and ``wg``) and ``expert_down`` keys are
-per expert, as the JAX trace keys them; the model launches each through
-K1's batched entry over all E experts (:meth:`TracedOp.experts`).
+The experts' ``expert_up`` (``wi`` and ``wg``) and ``expert_down`` requests
+follow the config's compute type, as ``ops.matmul_batched`` dispatches:
+in bf16 K1b (``matmul_experts_h100``) at the product's (E, M, N, K), one
+launch for the E experts; in f32 K1's batched entry at the per-expert
+key (M, N, K), as the JAX trace keys the experts (:meth:`TracedOp.
+experts`).
 
 C ranges over the scheduler's quantized chunk lengths: ``prefill_chunk``
 and every power of two below it (capped by ``max_len``).
@@ -52,13 +55,16 @@ the forward also asks, in the backward (``kernels/autograd.py``), for dA =
 dC·Bᵀ at (M, K, N) and dB = Aᵀ·dC at (K, N, M), and for K4's transposes of
 B [K, N] and of A [M, K]; every attention core asks for K2b at K2's key,
 and every SSD scan for K3b at K3's.  The MoE router is such a K1 request
-(its dA at (T, d, E), its dB at (d, E, T)); the experts' products ask for
-their dA, dB and transposes at the per-expert keys, and the model launches
-each through the batched entries of K1 and K4 (``BatchedMatmulFn``), so
-:meth:`TracedOp.experts` gives E for every one of those sites.  Under a
-mesh each rank runs its rows of a microbatch, and a ``moe_a2a`` config its
-routing groups: the router at the rank's T / n tokens, the experts at
-``M = G·C`` (every group's capacity rows of the rank's experts).  The
+(its dA at (T, d, E), its dB at (d, E, T)).  The experts' products
+(``BatchedMatmulFn``) in bf16 ask for K1b's dA at (E, M, K, N), reading
+the stored B transposed (``tb``), and dB at (E, K, N, M), reading the
+stored A transposed (``ta``), and for no transpose; in f32 for K1's
+batched entry's dA, dB and K4's batched transposes at the per-expert
+keys, so :meth:`TracedOp.experts` gives E for every one of those sites.
+Under a mesh each rank runs its rows of a microbatch, and a ``moe_a2a``
+config its routing groups: the router at the rank's T / n tokens, the
+experts at ``M = G·C`` (every group's capacity rows of the rank's
+experts).  The
 dense MoE layer under a mesh routes the rank's tokens where they are whole
 groups (the experts then at every group's rows of the rank's experts,
 ``M = n_e·G_l·C`` over n_e expert shards) and the microbatch's T tokens
@@ -90,6 +96,10 @@ from ..models.transformer import (check_block, check_mesh, check_paged,
                                   check_train, has_attn, has_mlp, has_ssm)
 
 
+#: K1b's dispatch family: the experts' products of a bf16 config.
+EXPERTS = "matmul_experts_h100"
+
+
 def op_label(family: str, data: Dict[str, int]) -> str:
     """Canonical label for a traced (family, data) pair, e.g.
     ``matmul_h100@K4096xM32xN14336``."""
@@ -110,11 +120,12 @@ class TracedOp:
         return dict(self.data)
 
     def experts(self, cfg: ModelConfig) -> int:
-        """The products (or transposes) one launch at this key makes: E
-        where a site runs K1's or K4's batched entry over the experts (the
-        forward's and the backward's expert sites; a key a 2-D site shares
-        needs no more), else 1."""
-        return cfg.moe.num_experts if any(
+        """The products (or transposes) one launch at this key of K1 or K4
+        makes: E where a site runs K1's or K4's batched entry over the
+        experts (an f32 config's expert sites, forward and backward; a key
+        a 2-D site shares needs no more), else 1.  K1b's key names its E."""
+        return cfg.moe.num_experts if self.family in (
+            "matmul_h100", "transpose_h100") and any(
             ".moe.expert_" in s for s in self.sites) else 1
 
 
@@ -236,10 +247,16 @@ def _layer_requests(cfg: ModelConfig, M: int, SQ: int, prefix: str,
                {"M": routed, "N": m.num_experts, "K": d}, {})
         cap = groups * capacity(gsz, m.num_experts, m.top_k,
                                 m.capacity_factor)
-        yield (f"{prefix}.moe.expert_up", "matmul_h100",
-               {"M": cap, "N": fe, "K": d}, {"n": 2, "E": held})  # wi, wg
-        yield (f"{prefix}.moe.expert_down", "matmul_h100",
-               {"M": cap, "N": d, "K": fe}, {"E": held})
+        if cfg.dtype == "bfloat16":           # K1b, keyed on its E
+            yield (f"{prefix}.moe.expert_up", EXPERTS,
+                   {"E": held, "M": cap, "N": fe, "K": d}, {"n": 2})
+            yield (f"{prefix}.moe.expert_down", EXPERTS,
+                   {"E": held, "M": cap, "N": d, "K": fe}, {})
+        else:                                 # K1's batched entry
+            yield (f"{prefix}.moe.expert_up", "matmul_h100",
+                   {"M": cap, "N": fe, "K": d}, {"n": 2, "E": held})
+            yield (f"{prefix}.moe.expert_down", "matmul_h100",
+                   {"M": cap, "N": d, "K": fe}, {"E": held})
 
 
 def _iter_requests(cfg: ModelConfig, *, max_len: int, max_batch: int,
@@ -401,13 +418,20 @@ BACKWARD = {"flash_attention_h100": "flash_attention_bwd_h100",
 
 def _with_backward(requests: Iterator[Request]) -> Iterator[Request]:
     """Each forward request, then what its backward asks for (a K1
-    request's dA, dB and K4's two transposes, as many as it has calls);
-    raises for a family whose backward it does not know."""
+    request's dA, dB and K4's two transposes, a K1b request's dA and dB
+    reading B and A transposed, as many as it has calls); raises for a
+    family whose backward it does not know."""
     for site, family, data, *rest in requests:
         info = dict(rest[0]) if rest else {}
         yield site, family, data, info
         back = dict(info, backward=True)
-        if family == "matmul_h100":
+        if family == EXPERTS:
+            E, M, N, K = data["E"], data["M"], data["N"], data["K"]
+            yield (f"{site}.dA", family, {"E": E, "M": M, "N": K, "K": N},
+                   dict(back, tb=True))
+            yield (f"{site}.dB", family, {"E": E, "M": K, "N": N, "K": M},
+                   dict(back, ta=True))
+        elif family == "matmul_h100":
             M, N, K = data["M"], data["N"], data["K"]
             yield f"{site}.dA", family, {"M": M, "N": K, "K": N}, back
             yield f"{site}.dB", family, {"M": K, "N": N, "K": M}, back
@@ -480,8 +504,9 @@ class Launch:
     ``calls`` requests of the dispatch ``family`` at ``key`` (what a
     ``DispatchCache.record()`` counts), ``launches`` kernels of the
     wrapper that counts them (``wrapper``: ``matmul_h100_batched`` and
-    ``transpose_h100_batched`` for the experts' batched entries; K2b and
-    K3b launch several kernels a call), and ``info``, what the launch's
+    ``transpose_h100_batched`` for an f32 config's experts' batched
+    entries, ``matmul_experts_h100`` for K1b; K2b and K3b launch several
+    kernels a call), and ``info``, what the launch's
     work depends on beyond its key (:func:`~repro_torch.launch.roofline.
     launch_signature`)."""
 

@@ -43,12 +43,13 @@ import torch
 from ..artifacts.dispatch import DispatchKey, get_default_cache
 from ..kernels.flash_attention import flash_attention_h100
 from ..kernels.matmul import matmul_h100, matmul_h100_batched
+from ..kernels.matmul_experts import matmul_experts_h100
 from ..kernels.ssd_scan import ssd_scan_h100
 from ..kernels.workspace import WORKSPACES
 
 #: The wrappers whose counters a captured step carries: the serve path's.
-COUNTED = (matmul_h100, matmul_h100_batched, flash_attention_h100,
-           ssd_scan_h100)
+COUNTED = (matmul_h100, matmul_h100_batched, matmul_experts_h100,
+           flash_attention_h100, ssd_scan_h100)
 
 
 class CudaGraph:

@@ -28,7 +28,7 @@ import torch
 
 from ..artifacts.dispatch import get_default_cache
 from ..core.params import H100_SXM, MachineDescription
-from ..device import resolve_device
+from ..device import grow_segments_in_place, resolve_device
 from ..kernels.ops import FAMILIES
 from ..models.config import ModelConfig
 from ..models.transformer import (check_block, check_mesh, check_train,
@@ -131,8 +131,13 @@ def build_train_step(cfg: ModelConfig, optimizer: Optimizer, *,
     parameter.  The clipping norm counts each element's square once.
     A mesh over axes other than ("pod", "data", "model") raises
     (:func:`~repro_torch.models.transformer.check_mesh`).
-    Without a mesh nothing changes."""
+    Without a mesh nothing changes.
+
+    The CUDA allocator's segments grow in place from here on
+    (:func:`~repro_torch.device.grow_segments_in_place`): the step's
+    gradient-sized blocks would otherwise split its cache."""
     check_train(cfg)
+    grow_segments_in_place()
     if mesh is not None:
         return _mesh_train_step(cfg, optimizer, microbatches, clip_norm,
                                 grad_dtype, mesh)

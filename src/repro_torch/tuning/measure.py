@@ -84,6 +84,8 @@ def _block_minima(family_name: str,
         if family_name == "matmul_h100":
             need("M", a["bm"]); need("N", a["bn"])
             need("K", a["bk"] * a.get("kb", 1))
+        elif family_name == "matmul_experts_h100":
+            need("M", a["bm"]); need("N", a["bn"]); need("K", a["bk"])
         elif family_name in ("matadd_h100", "transpose_h100"):
             need("M", a["bm"]); need("N", a["bn"] * a["s"])
         elif family_name == "jacobi1d_h100":
@@ -183,6 +185,9 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
     - ``matmul_h100`` {M, N, K}: bf16 A [M, K] @ B [K, N] through the 2-D
       entry, the product the key names (the batched entry shares the key
       and is not timed);
+    - ``matmul_experts_h100`` {E, M, N, K}: bf16 A [E, M, K] @ B [E, K, N],
+      the forward's layout (the backward's reads of a transposed operand
+      share the key);
     - ``flash_attention_h100`` {SQ, HD, GROUP, HK}: bf16, GROUP·HK query
       heads over HK KV heads of ``FA_KEYS`` keys (SQ if more); at SQ 1 the
       paged entry the decode step launches (one row, ``FA_PAGE``-token
@@ -210,6 +215,10 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
     if family_name == "matmul_h100":
         M, N, K = data["M"], data["N"], data["K"]
         a, b = normal((M, K), bf16), normal((K, N), bf16)
+        return [(a, b)] + [(a, b.clone()) for _ in range(copies - 1)], {}, ""
+    if family_name == "matmul_experts_h100":
+        E, M, N, K = data["E"], data["M"], data["N"], data["K"]
+        a, b = normal((E, M, K), bf16), normal((E, K, N), bf16)
         return [(a, b)] + [(a, b.clone()) for _ in range(copies - 1)], {}, ""
     if family_name == "flash_attention_h100":
         sq, hd = data["SQ"], data["HD"]
@@ -261,11 +270,11 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
 
 def _weight_copies(family_name: str, data: Mapping[str, int],
                    launches: int) -> int:
-    """K1 cycles through enough copies of B (at most one a launch) that
-    ``L2_FLUSH_BYTES`` lie between two reads of one copy."""
-    if family_name != "matmul_h100":
+    """K1 and K1b cycle through enough copies of B (at most one a launch)
+    that ``L2_FLUSH_BYTES`` lie between two reads of one copy."""
+    if family_name not in ("matmul_h100", "matmul_experts_h100"):
         return 1
-    nbytes = 2 * data["K"] * data["N"]
+    nbytes = 2 * data.get("E", 1) * data["K"] * data["N"]
     return max(1, min(launches, math.ceil(L2_FLUSH_BYTES / nbytes)))
 
 

@@ -170,10 +170,11 @@ NEW_ARCHS = ("granite_3_8b", "yi_6b", "qwen1p5_4b", "chameleon_34b",
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_new_warm_sets_resolve_within_gpu_limits(arch):
     """At full width, every K1 triple of the serve warm set (the routers at
-    N = E, the experts' batched launches over all E experts, granite's odd
-    lm_head, qwen's and llama4's wide vocabularies) and every K2 key (qwen's
-    group 1 of 20 KV heads, llama4's group 5 at HD 128) resolves to a
-    format the C entry points take for both types."""
+    N = E, granite's odd lm_head, qwen's and llama4's wide vocabularies)
+    and every K2 key (qwen's group 1 of 20 KV heads, llama4's group 5 at
+    HD 128) resolves to a format the C entry points take for both types;
+    the MoE configs' experts (bf16) to a K1b format its C entry point takes
+    at (E, M, N, K) in the forward's layout."""
     cfg = get_config(arch)
     cache = DispatchCache()
     ops = trace_warm_set(cfg, max_len=256, max_batch=4, prefill_chunk=32)
@@ -188,6 +189,12 @@ def test_new_warm_sets_resolve_within_gpu_limits(arch):
                     d["M"], d["N"], d["K"], *(a[n] for n in MM_PARAMS),
                     cand.plan.flags["smem_cache"], dtype,
                     experts=op.experts(cfg)) is None, (op.label, a)
+        elif op.family == "matmul_experts_h100":
+            from repro_torch.kernels.matmul_experts import format_error
+            assert op.experts(cfg) == 1
+            assert format_error(d["E"], d["M"], d["N"], d["K"], ta=False,
+                                tb=False, bm=a["bm"], bn=a["bn"],
+                                stages=a["stages"]) is None, (op.label, a)
         else:
             groups.add((d["GROUP"], d["HK"]))
             for dtype in (torch.float32, torch.bfloat16):
@@ -196,7 +203,8 @@ def test_new_warm_sets_resolve_within_gpu_limits(arch):
                     *(a[n] for n in FA_PARAMS), dtype) is None, (op.label, a)
     assert groups == {(cfg.heads // cfg.kv_heads, cfg.kv_heads)}
     n = {op.family for op in ops}
-    assert n == {"matmul_h100", "flash_attention_h100"}
+    assert n == {"matmul_h100", "flash_attention_h100"} | (
+        {"matmul_experts_h100"} if cfg.block == "attn_moe" else set())
     if cfg.block == "attn_moe":
         labels = {s.rsplit(".", 1)[-1] for op in ops for s in op.sites}
         assert {"router", "expert_up", "expert_down"} <= labels

@@ -263,7 +263,11 @@ def test_cli_writes_a_skip_and_an_ok_cell_with_the_jax_keys(tmp_path):
                           "bf16_flops": 989e12, "f32_flops": 67e12}
     assert ok["devices"] == 4 and ok["mesh"] == "2x2x1"
     assert ok["collectives"]["counts"]["all-to-all"] >= 1
-    assert ok["cost"]["by_family"]["matmul_h100_batched"]["launches"] > 0
+    # the bf16 experts run on K1b, their backward reading the stored
+    # operands transposed: no K4b, no K1 batched entry
+    fams = ok["cost"]["by_family"]
+    assert fams["matmul_experts_h100"]["launches"] > 0
+    assert not {"matmul_h100_batched", "transpose_h100_batched"} & set(fams)
 
 
 def test_probe_extension_is_the_full_depth_record():

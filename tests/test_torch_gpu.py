@@ -1452,32 +1452,187 @@ def test_gpu_matmul_fn_backward_matches_autograd_of_plain(cuda, dtype, tol):
 @pytest.mark.parametrize("E,M,N,K", [(16, 80, 384, 256), (3, 5, 40, 200)])
 def test_gpu_batched_matmul_fn_backward_matches_autograd_of_plain(
         cuda, dtype, tol, E, M, N, K):
-    """``BatchedMatmulFn`` on the card (K1's batched entry forward; the
-    same over K4's batched transposes backward: three K1b and two K4b
-    launches, no 2-D launch) against autograd of the batched plain
-    version."""
+    """``BatchedMatmulFn`` on the card against autograd of the plain
+    version of its route: in f32 K1's batched entry forward and the same
+    over K4's batched transposes backward (three K1 batched and two K4b
+    launches, no 2-D launch); in bf16 K1b forward and backward, dA and dB
+    reading the stored operands transposed (three K1b launches, nothing
+    else)."""
     from repro_torch.kernels.autograd import BatchedMatmulFn
+    from repro_torch.kernels.matmul_experts import (matmul_experts_h100,
+                                                    matmul_experts_plain)
     from repro_torch.kernels.transpose import transpose_h100_batched
     a0 = _t((E, M, K), 33, cuda)
     b0 = _t((E, K, N), 34, cuda) / 16
-    dc = _t((E, M, N), 35, cuda)
+    dc = _t((E, M, N), 35, cuda).to(dtype)
     a, b = (x.to(dtype).requires_grad_() for x in (a0, b0))
-    c0 = (matmul_h100_batched.launches, transpose_h100_batched.launches,
-          matmul_h100.launches, transpose_h100.launches)
+    counters = (matmul_h100_batched, transpose_h100_batched,
+                matmul_experts_h100, matmul_h100, transpose_h100)
+    c0 = [k.launches for k in counters]
     BatchedMatmulFn.apply(a, b).backward(dc)
     torch.cuda.synchronize()
-    assert (matmul_h100_batched.launches - c0[0],
-            transpose_h100_batched.launches - c0[1],
-            matmul_h100.launches - c0[2],
-            transpose_h100.launches - c0[3]) == (3, 2, 0, 0)
+    want = (3, 2, 0, 0, 0) if dtype == torch.float32 else (0, 0, 3, 0, 0)
+    assert tuple(k.launches - n for k, n in zip(counters, c0)) == want
     a2, b2 = (x.to(dtype).requires_grad_() for x in (a0, b0))
-    matmul_batched_plain(a2, b2, bm=16, bn=32, bk=32, s=1).backward(
-        dc.to(dtype).float())
+    if dtype == torch.float32:
+        matmul_batched_plain(a2, b2, bm=16, bn=32, bk=32, s=1).backward(dc)
+    else:
+        matmul_experts_plain(a2, b2).backward(dc)
     for got, want in ((a.grad, a2.grad), (b.grad, b2.grad)):
         assert got.dtype == dtype
         want = want.float()
         torch.testing.assert_close(got.float(), want, rtol=tol,
                                    atol=tol * float(want.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K1b: the experts' batched product on TMA and wgmma (matmul_experts_h100)
+# ---------------------------------------------------------------------------
+
+#: Every format the family's domain holds whose ring and staging tile fit.
+K1B_FORMATS = [(bm, bn, st) for bm in (64, 128) for bn in (64, 128, 256)
+               for st in (2, 3, 4)
+               if not (bm == 128 and bn == 256 and st == 4)]
+#: (E, M, N, K): E 4, 16 and 384; ragged M (27, 80, 200), K not a multiple
+#: of the 64-deep k tile (72, 520), N not a multiple of any bn (136).
+K1B_SHAPES = [(4, 80, 192, 256), (16, 27, 136, 72), (4, 200, 256, 520),
+              (384, 4, 64, 128)]
+#: Layouts (ta, tb): NN the forward, NT dA = dC·Bᵀ, TN dB = Aᵀ·dC.
+K1B_LAYOUTS = {"NN": (False, False), "NT": (False, True),
+               "TN": (True, False)}
+
+
+def _k1b_operands(E, M, N, K, ta, tb, dev, seed=41):
+    a = _t((E, K, M) if ta else (E, M, K), seed, dev, torch.bfloat16)
+    b = (_t((E, N, K) if tb else (E, K, N), seed + 1, dev) / K ** 0.5).to(
+        torch.bfloat16)
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(K1B_LAYOUTS))
+@pytest.mark.parametrize("E,M,N,K", K1B_SHAPES)
+def test_gpu_matmul_experts_matches_plain(cuda, layout, E, M, N, K):
+    """K1b at every format of its domain against its plain version, bf16
+    out within one bf16 step (rtol = atol = 1e-2: both sum in f32 and
+    round once, in another order of sums); a transposed operand is read in
+    place (A stored [E, K, M] for TN, B stored [E, N, K] for NT).  A TN
+    product whose M is no multiple of 8 has rows of A that TMA cannot
+    address and is refused."""
+    from repro_torch.kernels.matmul_experts import (format_error,
+                                                    matmul_experts_h100,
+                                                    matmul_experts_plain)
+    ta, tb = K1B_LAYOUTS[layout]
+    a, b = _k1b_operands(E, M, N, K, ta, tb, cuda)
+    want = matmul_experts_plain(a, b, ta=ta, tb=tb)
+    for bm, bn, stages in K1B_FORMATS:
+        kw = dict(bm=bm, bn=bn, stages=stages)
+        if format_error(E, M, N, K, ta=ta, tb=tb, **kw) is not None:
+            assert ta and M % 8
+            with pytest.raises(ValueError):
+                matmul_experts_h100(a, b, ta, tb, **kw)
+            continue
+        got = matmul_experts_h100(a, b, ta, tb, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (E, M, N)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2, msg=str(kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", list(K1B_LAYOUTS))
+def test_gpu_matmul_experts_is_bit_for_bit_and_counted(cuda, layout):
+    """Two launches equal bit for bit (each element one fixed order of
+    sums), each counted once on ``matmul_experts_h100`` under its
+    signature and on no other wrapper; a CUDA graph's replay (the tensor
+    maps captured by value) equals the eager launch."""
+    from repro_torch.kernels.matmul_experts import matmul_experts_h100
+    ta, tb = K1B_LAYOUTS[layout]
+    E, M, N, K = 16, 80, 320, 200
+    a, b = _k1b_operands(E, M, N, K, ta, tb, cuda, seed=43)
+    kw = dict(bm=128, bn=128, stages=3)
+    n0, m0 = matmul_experts_h100.launches, matmul_h100_batched.launches
+    s0 = matmul_experts_h100.shapes[(E, M, N, K, ta, tb, 128, 128, 3,
+                                     torch.bfloat16)]
+    one = matmul_experts_h100(a, b, ta, tb, **kw)
+    two = matmul_experts_h100(a, b, ta, tb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    assert matmul_experts_h100.launches == n0 + 2
+    assert matmul_h100_batched.launches == m0
+    assert matmul_experts_h100.shapes[(E, M, N, K, ta, tb, 128, 128, 3,
+                                       torch.bfloat16)] == s0 + 2
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = matmul_experts_h100(a, b, ta, tb, **kw)
+    out.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, one)
+
+
+@pytest.mark.gpu
+def test_gpu_matmul_experts_refuses_what_it_cannot_take(cuda):
+    """A base off the 16-byte boundary, rows that are no multiple of 16
+    bytes, f32 operands, a non-contiguous operand and both operands
+    transposed are refused before any launch, and nothing is counted."""
+    from repro_torch.kernels.matmul_experts import matmul_experts_h100
+    kw = dict(bm=64, bn=64, stages=2)
+    E, M, N, K = 4, 16, 64, 64
+    a, b = _k1b_operands(E, M, N, K, False, False, cuda)
+    flat = torch.zeros(E * M * K + 1, dtype=torch.bfloat16, device=cuda)
+    off = flat[1:].view(E, M, K)                  # 2 bytes past the boundary
+    off.copy_(a)
+    n0 = matmul_experts_h100.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        matmul_experts_h100(off, b, **kw)
+    with pytest.raises(ValueError, match="16 bytes"):
+        matmul_experts_h100(a[:, :, :60].contiguous(),
+                            b[:, :60].contiguous(), **kw)
+    with pytest.raises(TypeError):
+        matmul_experts_h100(a.float(), b.float(), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        matmul_experts_h100(a.transpose(1, 2), b, True, False, **kw)
+    with pytest.raises(ValueError, match="both"):
+        matmul_experts_h100(a.transpose(1, 2).contiguous(),
+                            b.transpose(1, 2).contiguous(), True, True, **kw)
+    assert matmul_experts_h100.launches == n0
+    torch.testing.assert_close(
+        matmul_experts_h100(a, b, **kw).float(),
+        (a.float() @ b.float()).to(torch.bfloat16).float(), rtol=1e-2,
+        atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_ops_matmul_batched_routes_by_type(cuda, dtype):
+    """``ops.matmul_batched`` on the card: bf16 operands launch K1b once a
+    call, whatever the layout, and return bf16; f32 operands launch K1's
+    batched entry (after a K4b copy of a transposed operand) and return
+    f32, each within its tolerance of the product."""
+    from repro_torch.kernels.matmul_experts import matmul_experts_h100
+    from repro_torch.kernels.transpose import transpose_h100_batched
+    E, M, N, K = 8, 40, 96, 128
+    for ta, tb in K1B_LAYOUTS.values():
+        a, b = (x.to(dtype) for x in _k1b_operands(E, M, N, K, ta, tb,
+                                                    cuda))
+        counters = (matmul_experts_h100, matmul_h100_batched,
+                    transpose_h100_batched)
+        c0 = [k.launches for k in counters]
+        got = ops.matmul_batched(a, b, ta=ta, tb=tb)
+        torch.cuda.synchronize()
+        moved = tuple(k.launches - n for k, n in zip(counters, c0))
+        A = a.float().transpose(1, 2) if ta else a.float()
+        B = b.float().transpose(1, 2) if tb else b.float()
+        want = A @ B
+        if dtype == torch.bfloat16:
+            assert moved == (1, 0, 0) and got.dtype == torch.bfloat16
+            torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                                       rtol=1e-2, atol=1e-2)
+        else:
+            assert moved == (0, 1, int(ta) + int(tb))
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=8e-4)
 
 
 @pytest.mark.gpu

@@ -69,18 +69,19 @@ def test_matmul_matches_jax_pallas(M, K, N, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("E,M,K,N", [(3, 128, 128, 128), (2, 300, 200, 150)])
 def test_matmul_batched_matches_jax_pallas_per_expert(E, M, K, N, dtype):
-    """K1's batched entry (the pick at the per-expert key, its plain version
-    on the CPU) against the JAX Pallas matmul of each expert, as the JAX
-    MoE layer's per-expert einsum is traced."""
+    """``ops.matmul_batched`` (its plain versions on the CPU: K1's batched
+    entry at the per-expert key in f32, f32 out; K1b at (E, M, N, K) in
+    bf16, bf16 out) against the JAX Pallas matmul of each expert, as the
+    JAX MoE layer's per-expert einsum is traced."""
     ja, ta = _pair(_np((E, M, K), SEED + 2), dtype)
     jb, tb = _pair(_np((E, K, N), SEED + 3), dtype)
     got = ops.matmul_batched(ta, tb)
-    assert got.dtype == torch.float32 and got.shape == (E, M, N)
+    assert got.dtype == ta.dtype and got.shape == (E, M, N)
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     for e in range(E):
         want = np.asarray(jops.matmul(ja[e], jb[e], impl="pallas",
                                       interpret=True))
-        np.testing.assert_allclose(got[e].numpy(), want, rtol=tol,
+        np.testing.assert_allclose(got[e].float().numpy(), want, rtol=tol,
                                    atol=tol * 8)
 
 

@@ -30,6 +30,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.autograd import BatchedMatmulFn
 from repro_torch.kernels.matmul import (matmul_batched_plain,
                                         matmul_h100_batched, matmul_plain)
+from repro_torch.kernels.matmul_experts import (
+    format_error as k1b_format_error, matmul_experts_plain)
 from repro_torch.kernels.transpose import (format_error as tr_format_error,
                                            transpose_batched_plain,
                                            transpose_h100_batched,
@@ -186,9 +188,11 @@ def test_batched_plain_is_matmul_plain_per_expert(dtype, E, M, N, K, kb):
 
 
 def test_ops_matmul_batched_takes_the_per_expert_pick():
-    """``ops.matmul_batched`` resolves the per-expert key {M, N, K} through
-    the frozen lane ``ops.matmul`` uses, and its result is the per-expert
-    ``ops.matmul``."""
+    """In f32 ``ops.matmul_batched`` resolves the per-expert key {M, N, K}
+    through the frozen lane ``ops.matmul`` uses, and its result is the
+    per-expert ``ops.matmul``, f32; in bf16 it resolves K1b's key {E, M,
+    N, K} (``matmul_experts_h100``) and returns K1b's plain version, bf16:
+    the branch is on the operands' type."""
     from repro_torch.artifacts.dispatch import (DispatchCache,
                                                 set_default_cache)
     g = torch.Generator().manual_seed(9)
@@ -200,12 +204,19 @@ def test_ops_matmul_batched_takes_the_per_expert_pick():
         with cache.record() as rec:
             got = ops.matmul_batched(a, b)
             want = torch.stack([ops.matmul(a[e], b[e]) for e in range(6)])
+        with cache.record() as rec16:
+            got16 = ops.matmul_batched(a.bfloat16(), b.bfloat16())
     finally:
         set_default_cache(None)
     assert torch.equal(got, want)
     torch.testing.assert_close(got, a @ b, **TOL)
     assert {items for _, _, items in rec.requests} == {
         (("K", 128), ("M", 4), ("N", 48))}
+    assert {(f, items) for f, _, items in rec16.requests} == {
+        ("matmul_experts_h100", (("E", 6), ("K", 128), ("M", 4), ("N", 48)))}
+    assert got16.dtype == torch.bfloat16
+    assert torch.equal(got16, matmul_experts_plain(a.bfloat16(),
+                                                   b.bfloat16()))
 
 
 def test_batched_format_error_counts_experts_times_splits():
@@ -336,23 +347,28 @@ def test_moe_block_gradients_match_jax(arch, shape, seed):
 @pytest.mark.parametrize("E,M,N,K", [(4, 4, 96, 64), (3, 5, 40, 200),
                                      (8, 16, 64, 96)])
 def test_batched_matmul_fn_gradients(dtype, E, M, N, K):
-    """``BatchedMatmulFn``'s dA and dB against autograd of
-    ``matmul_batched_plain`` over the same operands: dC cast to the
-    operands' type first, as the function does, and the gradients in the
-    operands' type."""
+    """``BatchedMatmulFn``'s dA and dB against autograd of the plain
+    version of the route ``ops.matmul_batched`` takes over the same
+    operands: in f32 K1's batched entry (``matmul_batched_plain``, f32
+    out), in bf16 K1b (``matmul_experts_plain``, bf16 out, its backward
+    reading the stored operands transposed); the gradients in the
+    operands' type, as the output is."""
     g = torch.Generator().manual_seed(E * M + K)
     a = torch.randn((E, M, K), generator=g).to(dtype)
     b = (torch.randn((E, K, N), generator=g) / K ** 0.5).to(dtype)
-    dc = torch.randn((E, M, N), generator=g)
+    dc = torch.randn((E, M, N), generator=g).to(dtype)
     ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
     c = BatchedMatmulFn.apply(ta, tb)
-    assert c.dtype == torch.float32
+    assert c.dtype == dtype
     c.backward(dc)
-    kw = dict(bm=16, bn=32, bk=32, s=1, kb=1, stages=2)
     pa, pb = a.clone().requires_grad_(), b.clone().requires_grad_()
-    want = matmul_batched_plain(pa, pb, **kw)
+    if dtype == torch.float32:
+        want = matmul_batched_plain(pa, pb, bm=16, bn=32, bk=32, s=1, kb=1,
+                                    stages=2)
+    else:
+        want = matmul_experts_plain(pa, pb)
     assert torch.equal(c.detach(), ops.matmul_batched(a, b))
-    want.backward(dc.to(dtype).float())
+    want.backward(dc)
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else \
         dict(rtol=2e-2, atol=2e-2)
     for got, exp in ((ta.grad, pa.grad), (tb.grad, pb.grad)):
@@ -410,45 +426,70 @@ def test_ops_transpose_batched_takes_the_per_expert_pick():
 @pytest.mark.parametrize("arch", ["llama4_scout_17b_a16e", "kimi_k2_1t_a32b"])
 def test_moe_train_warm_set_lists_the_expert_backward(arch):
     """At the full config, 1 × 1024 tokens a microbatch: the router's dA
-    (T, d, E) and dB (d, E, T) and the experts' dA, dB and K4 transposes
-    at the per-expert keys, every expert site with ``experts() == E``;
-    K1 and K4 take each pick's format, at K = E the router's masked
-    loads included."""
+    (T, d, E) and dB (d, E, T) on K1; in bf16 (the config's type) the
+    experts' forward, dA and dB on K1b at the products' (E, M, N, K), dA
+    reading the stored weight and dB the stored rows transposed, and no
+    transpose; in f32 their dA, dB and K4 transposes at the per-expert
+    keys, every expert site with ``experts() == E``.  Each pick's format
+    is one its C entry point takes, at K = E the router's masked loads
+    included."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.matmul import format_error as mm_format_error
     from repro_torch.plans.trace import trace_train_warm_set
-    cfg = get_config(arch).scaled(layers=1)
-    m = cfg.moe
-    E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
-    C = tmoe.capacity(1024, E, m.top_k, m.capacity_factor)
-    ops_ = trace_train_warm_set(cfg, global_batch=2, seq=1024,
-                                microbatches=2)
-    by_site = {s: op for op in ops_ for s in op.sites}
-    up, down = "train.layer.moe.expert_up", "train.layer.moe.expert_down"
-    want = {
-        "train.layer.moe.router.dA": ("matmul_h100", (1024, d, E)),
-        "train.layer.moe.router.dB": ("matmul_h100", (d, E, 1024)),
-        f"{up}.dA": ("matmul_h100", (C, d, f)),
-        f"{up}.dB": ("matmul_h100", (d, f, C)),
-        f"{down}.dA": ("matmul_h100", (C, f, d)),
-        f"{down}.dB": ("matmul_h100", (f, d, C)),
-        f"{up}.wT": ("transpose_h100", (d, f)),
-        f"{up}.xT": ("transpose_h100", (C, d)),
-        f"{down}.wT": ("transpose_h100", (f, d)),
-        f"{down}.xT": ("transpose_h100", (C, f)),
-    }
-    for site, (family, key) in want.items():
-        op = by_site[site]
-        data = op.data_dict()
-        names = ("M", "N", "K") if family == "matmul_h100" else ("M", "N")
-        assert op.family == family and tuple(data[n] for n in names) == key
-        assert op.experts(cfg) == (E if ".moe.expert_" in site else 1)
-        a = ops.select(family, data).assignment
-        if family == "matmul_h100":
-            assert mm_format_error(
-                *key, a["bm"], a["bn"], a["bk"], a["s"], a["kb"],
-                a["stages"], True, torch.bfloat16,
-                experts=op.experts(cfg)) is None, site
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_config(arch).scaled(layers=1, dtype=dtype)
+        m = cfg.moe
+        E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
+        C = tmoe.capacity(1024, E, m.top_k, m.capacity_factor)
+        ops_ = trace_train_warm_set(cfg, global_batch=2, seq=1024,
+                                    microbatches=2)
+        by_site = {s: op for op in ops_ for s in op.sites}
+        up, down = "train.layer.moe.expert_up", "train.layer.moe.expert_down"
+        want = {
+            "train.layer.moe.router.dA": ("matmul_h100", (1024, d, E)),
+            "train.layer.moe.router.dB": ("matmul_h100", (d, E, 1024)),
+        }
+        if dtype == "bfloat16":
+            k1b = "matmul_experts_h100"
+            want.update({
+                up: (k1b, (E, C, f, d)), down: (k1b, (E, C, d, f)),
+                f"{up}.dA": (k1b, (E, C, d, f)),
+                f"{up}.dB": (k1b, (E, d, f, C)),
+                f"{down}.dA": (k1b, (E, C, f, d)),
+                f"{down}.dB": (k1b, (E, f, d, C))})
+            assert not [s for s in by_site if s.endswith(("wT", "xT"))
+                        and ".moe.expert_" in s]
         else:
-            assert tr_format_error(*key, a["bm"], a["bn"], a["s"], 2,
-                                   experts=op.experts(cfg)) is None, site
+            want.update({
+                f"{up}.dA": ("matmul_h100", (C, d, f)),
+                f"{up}.dB": ("matmul_h100", (d, f, C)),
+                f"{down}.dA": ("matmul_h100", (C, f, d)),
+                f"{down}.dB": ("matmul_h100", (f, d, C)),
+                f"{up}.wT": ("transpose_h100", (d, f)),
+                f"{up}.xT": ("transpose_h100", (C, d)),
+                f"{down}.wT": ("transpose_h100", (f, d)),
+                f"{down}.xT": ("transpose_h100", (C, f))})
+        for site, (family, key) in want.items():
+            op = by_site[site]
+            data = op.data_dict()
+            names = {"matmul_h100": ("M", "N", "K"),
+                     "matmul_experts_h100": ("E", "M", "N", "K"),
+                     "transpose_h100": ("M", "N")}[family]
+            assert op.family == family and tuple(data[n] for n in names) \
+                == key, site
+            a = ops.select(family, data).assignment
+            if family == "matmul_experts_h100":
+                assert op.experts(cfg) == 1
+                lay = dict(ta=site.endswith(".dB"), tb=site.endswith(".dA"))
+                assert k1b_format_error(*key, **lay, bm=a["bm"], bn=a["bn"],
+                                        stages=a["stages"]) is None, site
+                continue
+            assert op.experts(cfg) == (E if ".moe.expert_" in site else 1)
+            if family == "matmul_h100":
+                assert mm_format_error(
+                    *key, a["bm"], a["bn"], a["bk"], a["s"], a["kb"],
+                    a["stages"], True, getattr(torch, dtype),
+                    experts=op.experts(cfg)) is None, site
+            else:
+                assert tr_format_error(*key, a["bm"], a["bn"], a["s"], 2,
+                                       experts=op.experts(cfg)) is None, site

@@ -184,7 +184,8 @@ def test_launcher_serves_smoke_on_cpu(monkeypatch, capsys, fresh_cache):
 def test_launcher_serves_new_configs_on_cpu(arch, monkeypatch, capsys,
                                             fresh_cache):
     """``--arch`` takes the new ids (a dense config with q/k/v biases, a MoE
-    config); the launcher counts the batched entry beside K1."""
+    config); the launcher counts K1b (the experts' wrapper) and K1's
+    batched entry beside K1."""
     from repro_torch.launch import serve
     monkeypatch.setattr("sys.argv", [
         "serve", "--arch", arch, "--device", "cpu", "--requests", "3",
@@ -192,6 +193,7 @@ def test_launcher_serves_new_configs_on_cpu(arch, monkeypatch, capsys,
     serve.main()
     out = capsys.readouterr().out
     assert "3 requests, 6 tokens" in out
+    assert "matmul_experts_h100=0" in out
     assert "matmul_h100_batched=0" in out
     assert "cold dispatch builds during the run: 0" in out
 
@@ -843,26 +845,35 @@ def test_moe_trace_keys_and_expert_workspaces():
     """The MoE layer's traced keys: the router at the step's rows, the
     experts at the per-expert capacity of one routing group (a prefill
     chunk of C tokens, or the decode step's max_batch rows), the JAX
-    trace's keys; the engine sizes K1's split-K workspace for all E
-    experts of a batched launch."""
+    trace's keys.  In f32 the experts run K1's batched entry at the
+    per-expert key and the engine sizes K1's split-K workspace for all E
+    experts of a batched launch; in bf16 (the config's type) K1b at (E,
+    M, N, K), which needs no workspace (``experts()`` 1)."""
     from repro_torch.models.moe import capacity
     from repro_torch.plans.trace import trace_warm_set
-    cfg = get_smoke_config("kimi_k2_1t_a32b")
-    m = cfg.moe
-    ops = trace_warm_set(cfg, max_len=48, max_batch=3, prefill_chunk=8)
-    by_site = {}
-    for op in ops:
-        for site in op.sites:
-            by_site[site] = op
-    for C in chunk_lengths(8, 48):
-        cap = capacity(C, m.num_experts, m.top_k, m.capacity_factor)
-        up = by_site[f"serve.prefill@{C}.moe.expert_up"].data_dict()
-        assert up == {"M": cap, "N": m.d_ff_expert, "K": cfg.d_model}
-        assert by_site[f"serve.prefill@{C}.moe.router"].data_dict() == {
-            "M": C, "N": m.num_experts, "K": cfg.d_model}
-    down = by_site["serve.decode.moe.expert_down"]
-    assert down.data_dict() == {"M": capacity(3, m.num_experts, m.top_k,
-                                              m.capacity_factor),
-                                "N": cfg.d_model, "K": m.d_ff_expert}
-    assert down.experts(cfg) == m.num_experts
-    assert by_site["serve.decode.moe.router"].experts(cfg) == 1
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_smoke_config("kimi_k2_1t_a32b").scaled(dtype=dtype)
+        m = cfg.moe
+        E = {"E": m.num_experts} if dtype == "bfloat16" else {}
+        ops = trace_warm_set(cfg, max_len=48, max_batch=3, prefill_chunk=8)
+        by_site = {}
+        for op in ops:
+            for site in op.sites:
+                by_site[site] = op
+        for C in chunk_lengths(8, 48):
+            cap = capacity(C, m.num_experts, m.top_k, m.capacity_factor)
+            up = by_site[f"serve.prefill@{C}.moe.expert_up"].data_dict()
+            assert up == {"M": cap, "N": m.d_ff_expert, "K": cfg.d_model,
+                          **E}
+            assert by_site[f"serve.prefill@{C}.moe.router"].data_dict() \
+                == {"M": C, "N": m.num_experts, "K": cfg.d_model}
+        down = by_site["serve.decode.moe.expert_down"]
+        assert down.data_dict() == {"M": capacity(3, m.num_experts,
+                                                  m.top_k,
+                                                  m.capacity_factor),
+                                    "N": cfg.d_model, "K": m.d_ff_expert,
+                                    **E}
+        assert down.family == ("matmul_experts_h100" if E
+                               else "matmul_h100")
+        assert down.experts(cfg) == (1 if E else m.num_experts)
+        assert by_site["serve.decode.moe.router"].experts(cfg) == 1

@@ -292,6 +292,28 @@ def test_train_step_updates_in_place():
     assert all(p.grad is None for p in topt.tree_leaves(tp))
 
 
+@pytest.mark.parametrize("cuda, conf, asked", [
+    (True, None, ["expandable_segments:True"]),
+    (True, "max_split_size_mb:512", ["expandable_segments:True"]),
+    (True, "expandable_segments:False", []),
+    (False, None, [])])
+def test_train_step_lets_cuda_segments_grow_in_place(cuda, conf, asked,
+                                                     monkeypatch):
+    """Building a train step turns on the allocator's expandable segments
+    where there is CUDA, unless PYTORCH_CUDA_ALLOC_CONF already sets them."""
+    got = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    monkeypatch.setattr(torch.cuda.memory, "_set_allocator_settings",
+                        got.append)
+    if conf is None:
+        monkeypatch.delenv("PYTORCH_CUDA_ALLOC_CONF", raising=False)
+    else:
+        monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", conf)
+    tcfg = tconfigs.get_smoke_config("llama3_8b").scaled(dtype="float32")
+    build_train_step(tcfg, topt.adamw(topt.constant(LR)))
+    assert got == asked
+
+
 @pytest.mark.parametrize("arch", ["llama3_8b", WHISPER])
 def test_eval_step_matches_jax(arch):
     cfg, jp, tcfg, tp = _setup(arch)
