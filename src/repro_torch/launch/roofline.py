@@ -76,8 +76,9 @@ def work(name: str, sig, lens: Optional[Sequence[int]] = None) -> tuple:
     for a bf16 chunk, f32 for a step or f32; :func:`ssd_f32_bound_ms`
     gives a bf16 chunk's bound at the f32 rate), attention's K/V bytes over
     its hk KV heads and only the keys some query can see (a window's),
-    matadd one f32 add an element, a Jacobi sweep two adds and a division
-    a point, a transpose none.  A paged K2 launch and a K2b call count
+    matadd one f32 add an element, a Jacobi launch two adds and a division
+    a point a sweep of its depth (x read and y written once, whatever the
+    depth: the least work of those sweeps), a transpose none.  A paged K2 launch and a K2b call count
     each row at its length in ``lens`` (its q and output, and the pool's
     bytes of the keys it can see).  K1's batched entry writes f32, K1b
     its operands' type."""
@@ -104,9 +105,9 @@ def work(name: str, sig, lens: Optional[Sequence[int]] = None) -> tuple:
     if name == "transpose_h100_batched":
         E, M, N = sig[:3]
         return 2 * E * M * N * esz, 0.0, PEAK_FLOPS[torch.float32]
-    if name == "jacobi1d_h100":          # one sweep: n read, n - 2 written
-        n = sig[0]
-        return (2 * n - 2) * esz, 3.0 * (n - 2), PEAK_FLOPS[torch.float32]
+    if name == "jacobi1d_h100":          # x read, y written, depth sweeps
+        n, depth = sig[0], sig[4]
+        return 2 * n * esz, 3.0 * depth * (n - 2), PEAK_FLOPS[torch.float32]
     if name == "ssd_scan_h100":
         R, S, H, hd, n, _, _, with_state, masked, srows, dtype = sig
         state_bytes = 4 * R * H * n * hd          # the R rows read, written

@@ -88,8 +88,8 @@ def _block_minima(family_name: str,
             need("M", a["bm"]); need("N", a["bn"]); need("K", a["bk"])
         elif family_name in ("matadd_h100", "transpose_h100"):
             need("M", a["bm"]); need("N", a["bn"] * a["s"])
-        elif family_name == "jacobi1d_h100":
-            need("N", a["B"] * a["s"] + 2)
+        elif family_name == "jacobi1d_h100":         # a window of F sweeps
+            need("N", a["B"] * a["s"] + 2 * a["F"])
         elif family_name == "flash_attention_h100":
             need("SQ", a["bq"])
         elif family_name == "flash_attention_bwd_h100":
@@ -203,7 +203,7 @@ def _build_inputs(family_name: str, data: Mapping[str, int], seed: int,
       x, b, c and dy bf16, b and c shared across heads, the decay in (0,
       1), no final state's gradient;
     - ``matadd_h100`` / ``transpose_h100`` {M, N} f32; ``jacobi1d_h100``
-      {N} f32, 4 sweeps.
+      {N} f32, a call of 4 sweeps (one launch at F >= 4).
     """
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

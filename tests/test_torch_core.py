@@ -396,7 +396,9 @@ def test_case_discussions_of_the_paper(case):
     """matadd: two cases on R = G (grain 2 at the estimate 14, grain 1 at
     10 <= G < 14; paper Fig. 2).  transpose and jacobi: for one program
     point, three values of Z_B = V leave live in turn cached grain s, cached
-    grain 1 but not grain s, and uncached only (paper Figs. 7 and 8)."""
+    grain 1 but not grain s, and uncached only (paper Figs. 7 and 8); for
+    jacobi at F = 1 (one window), 4 and 32 (two buffers and the
+    mbarrier)."""
     from repro_torch.core.select import enumerate_candidates
     if case == "matadd_G":
         data = {"M": 1024, "N": 1024}
@@ -406,23 +408,29 @@ def test_case_discussions_of_the_paper(case):
             assert got and {c.assignment["s"] for c in got} == grains, G
         return
     if case == "transpose_V":
-        family, point, data = TRANSPOSE, {"bm": 32, "bn": 32, "s": 4}, \
-            {"M": 16384, "N": 16384}
-        z = lambda g: transpose_mod.smem_bytes(32, 32, g)
+        cases = [(TRANSPOSE, {"bm": 32, "bn": 32, "s": 4},
+                  {"M": 16384, "N": 16384},
+                  lambda g: transpose_mod.smem_bytes(32, 32, g))]
     else:
-        family, point, data = JACOBI, {"B": 256, "s": 4}, {"N": 32770}
-        z = lambda g: jacobi_mod.smem_bytes(256, g)
-    want = {z(4): {(True, False)},              # case 1: grain s fits
-            z(4) - 1: {(True, True)},           # case 2: only grain 1
-            z(1): {(True, True)},
-            z(1) - 1: {(False, True)}}          # case 3: nothing staged
-    for V, kinds in want.items():
-        machine = dataclasses.replace(tcore.H100_SXM, vmem_bytes=V)
-        assert _kinds(family, _live(family, machine, data, point)) == kinds, V
-    # on both real machines a whole tile fits: only case 1 is live
-    for machine in (tcore.H100_SXM, tcore.PAPER_M2050):
-        assert _kinds(family, _live(family, machine, data, point)) == {
-            (True, False)}
+        cases = [(JACOBI, {"B": 256, "s": 4, "F": F}, {"N": 32770},
+                  lambda g, F=F: jacobi_mod.smem_bytes(256, g, F))
+                 for F in (1, 4, 32)]
+    for family, point, data, z in cases:
+        want = {z(4): {(True, False)},          # case 1: grain s fits
+                z(4) - 1: {(True, True)},       # case 2: only grain 1
+                z(1): {(True, True)},
+                z(1) - 1: {(False, True)}}      # case 3: nothing staged
+        for V, kinds in want.items():
+            machine = dataclasses.replace(tcore.H100_SXM, vmem_bytes=V)
+            assert _kinds(family, _live(family, machine, data,
+                                        point)) == kinds, (point, V)
+        # on both real machines a whole tile fits: only case 1 is live
+        for machine in (tcore.H100_SXM, tcore.PAPER_M2050):
+            assert _kinds(family, _live(family, machine, data, point)) == {
+                (True, False)}
+    if case == "jacobi_V":                     # the counter is the kernel's
+        assert [jacobi_mod.smem_bytes(256, 4, F) for F in (1, 4, 32)] == [
+            4 * (1024 + 2), 8 * (1024 + 8 + 4) + 8, 8 * (1024 + 64 + 4) + 8]
 
 
 @pytest.mark.parametrize("family,data", [
@@ -443,11 +451,11 @@ def test_table_picks_fit_the_h100(family, data):
         assert transpose_mod.smem_bytes(a["bm"], a["bn"], g) <= 232_448
     if family is JACOBI and flags["smem_cache"]:
         g = grain(cand.plan, a["s"])
-        assert jacobi_mod.smem_bytes(a["B"], g) <= 232_448
+        assert jacobi_mod.smem_bytes(a["B"], g, a["F"]) <= 232_448
 
 
 @pytest.mark.parametrize("family,point", [
-    (TRANSPOSE, {"bm": 32, "bn": 32}), (JACOBI, {"B": 256})],
+    (TRANSPOSE, {"bm": 32, "bn": 32}), (JACOBI, {"B": 256, "F": 4})],
     ids=lambda v: getattr(v, "name", None) or "point")
 def test_phantom_grain_is_built_once(family, point):
     """Once reduce_granularity applied, s only names the source grain that

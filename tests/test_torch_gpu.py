@@ -45,6 +45,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_h100,
                                                  flash_attention_plain)
 from repro_torch.kernels.instantiate_cache import grain
 from repro_torch.kernels.jacobi1d import jacobi1d_h100, jacobi1d_plain
+from repro_torch.kernels.jacobi1d import launch as jac_launch
+from repro_torch.kernels.jacobi1d import launch_plan
 from repro_torch.kernels.matadd import matadd_h100, matadd_plain
 from repro_torch.kernels.matmul import (matmul_batched_plain, matmul_h100,
                                         matmul_h100_batched, matmul_plain)
@@ -872,34 +874,50 @@ def test_gpu_ops_launch_past_65535_column_blocks(cuda, op, shape):
     assert torch.equal(got, want)
 
 
+#: (n, steps, B, s, F, cached, shift): the case-study picks, vectors of one
+#: or two interior points (shorter than a window), steps no multiple of F,
+#: x ``shift`` elements past a 16-byte boundary (every window start
+#: unaligned, y's stores apart from x's slots), a halo wider than the block
+#: (B = 32, F = 32), every F of the domain, the uncached leaf, no step.
+JACOBI_CASES = [
+    (32770, 4, 256, 1, 16, True, 0), ((1 << 21) + 2, 4, 1024, 8, 32, True, 0),
+    ((1 << 21) + 2, 37, 1024, 8, 32, True, 1), (3, 5, 32, 1, 4, True, 0),
+    (4, 3, 32, 1, 2, True, 1), (4, 1, 256, 1, 1, True, 0),
+    (1026, 17, 128, 4, 4, True, 1), (1026, 7, 64, 1, 8, True, 2),
+    (1026, 3, 128, 4, 1, True, 3), (1000, 5, 1024, 8, 1, True, 0),
+    (32770, 40, 32, 1, 32, True, 1), (1026, 3, 64, 1, 1, False, 0),
+    (32770, 2, 128, 2, 1, False, 1), (1026, 0, 256, 1, 4, True, 0),
+] + [(32770, 37, 256, 2, F, True, 3) for F in (1, 2, 4, 8, 16, 32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,steps,B,s,cached", [
-    (32770, 4, 256, 1, True), (1026, 3, 128, 4, True), (3, 2, 32, 1, True),
-    (1000, 5, 1024, 8, True), (1026, 3, 64, 1, False),
-    (32770, 2, 128, 2, False), (1026, 0, 256, 1, True)])
-def test_gpu_jacobi_kernel_matches_plain(cuda, n, steps, B, s, cached):
-    x = _t((n,), 15, cuda)
+@pytest.mark.parametrize("n,steps,B,s,F,cached,shift", JACOBI_CASES)
+def test_gpu_jacobi_kernel_matches_plain(cuda, n, steps, B, s, F, cached,
+                                         shift):
+    x = _t((n + shift,), 15, cuda)[shift:]
     n0 = jacobi1d_h100.launches
-    got = jacobi1d_h100(x, steps, B=B, s=s, cached=cached)
+    got = jacobi1d_h100(x, steps, B=B, s=s, F=F, cached=cached)
     torch.cuda.synchronize()
-    assert jacobi1d_h100.launches == n0 + steps
-    want = jacobi1d_plain(x, steps, B=B, s=s, cached=cached)
+    assert jacobi1d_h100.launches == n0 + len(launch_plan(steps, F)) == \
+        n0 + -(-steps // F)
+    want = jacobi1d_plain(x, steps, B=B, s=s, F=F, cached=cached)
     assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("steps", [1, 2, 3])
-def test_gpu_jacobi_leaves_x_and_copies_only_the_ends(cuda, steps):
-    """The first sweep reads x itself and every sweep writes its buffer's
+@pytest.mark.parametrize("steps,F", [(1, 1), (3, 1), (1, 32), (2, 32),
+                                     (3, 4), (33, 32)])
+def test_gpu_jacobi_leaves_x_and_copies_only_the_ends(cuda, steps, F):
+    """The first launch reads x itself and every launch writes its buffer's
     two fixed ends: x is untouched, the result is a new tensor whose ends
     are x's, and it equals the plain version bit for bit."""
     x = _t((2 ** 21 + 2,), 17, cuda)
     before = x.clone()
-    got = jacobi1d_h100(x, steps, B=1024, s=8)
+    got = jacobi1d_h100(x, steps, B=1024, s=8, F=F)
     torch.cuda.synchronize()
     assert torch.equal(x, before) and got.data_ptr() != x.data_ptr()
     assert torch.equal(got[[0, -1]], x[[0, -1]])
-    assert torch.equal(got, jacobi1d_plain(x, steps, B=1024, s=8))
+    assert torch.equal(got, jacobi1d_plain(x, steps, B=1024, s=8, F=F))
 
 
 @pytest.mark.gpu
@@ -935,6 +953,10 @@ def test_gpu_wrappers_raise_instead_of_falling_back(cuda):
         jacobi1d_h100(m[0].bfloat16(), 2, B=32, s=1)
     with pytest.raises(ValueError):                     # not a vector
         jacobi1d_h100(m, 2, B=32, s=1)
+    with pytest.raises(ValueError):                     # uncached, F > 1
+        jacobi1d_h100(m[0], 2, B=32, s=1, F=4, cached=False)
+    with pytest.raises(RuntimeError):                   # depth past F
+        jac_launch(m[0], torch.empty_like(m[0]), B=32, s=1, F=2, depth=3)
 
 
 # ---------------------------------------------------------------------------

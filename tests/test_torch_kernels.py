@@ -6,7 +6,9 @@ the port's op, which on CPU tensors runs the kernel's plain version under
 the leaf the H100 dispatch picks.  The CUDA kernels themselves are checked
 on the card (``tests/test_torch_gpu.py`` and ``chip_smoke.py``).
 """
+import dataclasses
 import itertools
+import math
 
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import pallas_flash_attention
 from repro.kernels.jacobi1d import pallas_jacobi1d
 from repro.models.layers import _sdpa as j_sdpa
+from repro_torch.core import params as tcore_params
+from repro_torch.kernels import jacobi1d as jac_mod
 from repro_torch.kernels import matmul as mm_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import transpose as tr_mod
@@ -859,14 +863,53 @@ def test_transpose_napkin_sector_fill(M, bm, want):
     assert tr_mod._sector_fill(M, 2 * bm) == pytest.approx(want)
 
 
-@pytest.mark.parametrize("B,s,cached", [
-    (256, 1, True), (32, 8, True), (1024, 2, True), (64, 1, False),
-    (128, 4, False)])
-def test_jacobi_every_block_format_same_result(B, s, cached):
+@pytest.mark.parametrize("B,s,F,cached", [
+    (256, 1, 1, True), (32, 8, 2, True), (1024, 2, 32, True),
+    (256, 4, 4, True), (64, 1, 1, False), (128, 4, 1, False)])
+def test_jacobi_every_block_format_same_result(B, s, F, cached):
     jx, tx = _pair(_np((1000,), SEED + 200), "float32")
-    got = jacobi1d_h100(tx, 3, B=B, s=s, cached=cached)
+    got = jacobi1d_h100(tx, 3, B=B, s=s, F=F, cached=cached)
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jref.jacobi1d(jx, 3)))
+
+
+@pytest.mark.parametrize("F", jac_mod.FUSE_DOMAIN)
+@pytest.mark.parametrize("steps", [0, 1, 3, 4, 5, 17])
+def test_jacobi_launch_plan(steps, F):
+    """A call of ``steps`` sweeps is ceil(steps / F) launches, each of F
+    sweeps but the last, which runs what is left; 0 steps launch none."""
+    depths = jac_mod.launch_plan(steps, F)
+    assert len(depths) == math.ceil(steps / F) and sum(depths) == steps
+    assert all(d == F for d in depths[:-1])
+    assert all(1 <= d <= F for d in depths)
+
+
+@pytest.mark.parametrize("n", [3, 1026, (1 << 21) + 2])
+@pytest.mark.parametrize("depth", [1, 4])
+def test_jacobi_roofline_counts_one_read_and_one_write(n, depth):
+    """A K6 launch of any depth counts x read once and y written once (4·n
+    bytes each) and 3 flops (two adds, a division) a point a sweep at the
+    f32 rate: the least work of its sweeps."""
+    from repro_torch.launch import roofline
+    sig = (n, 256, 4, 4, depth, True, torch.float32)
+    nbytes, flops, peak = roofline.work("jacobi1d_h100", sig)
+    assert (nbytes, flops) == (4 * n + 4 * n, depth * 3.0 * (n - 2))
+    assert peak == roofline.PEAK_FLOPS[torch.float32] == 67e12
+
+
+@pytest.mark.parametrize("n", [(1 << 15) + 2, (1 << 21) + 2])
+def test_jacobi_picks_run_the_case_study_call_in_one_launch(n):
+    """The napkin's picks at the case-study sizes fuse at least the 4
+    sweeps of a call (F >= 4), cached at full grain; every candidate of
+    the uncached leaf runs one sweep a launch (F = 1)."""
+    from repro_torch.core.select import enumerate_candidates
+    cand = ops.select("jacobi1d_h100", {"N": n})
+    assert cand.plan.flags["smem_cache"] and cand.assignment["F"] >= 4
+    assert len(jac_mod.launch_plan(4, cand.assignment["F"])) == 1
+    small = dataclasses.replace(tcore_params.H100_SXM, vmem_bytes=0)
+    got = enumerate_candidates(jac_mod.FAMILY, small, {"N": n})
+    assert got and all(not c.plan.flags["smem_cache"]
+                       and c.assignment["F"] == 1 for c in got)
 
 
 @pytest.mark.parametrize("n", [0, 1, 2])
@@ -924,7 +967,6 @@ def test_kernel_path_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         ssd_mod._launch(x, torch.full((1, 3, 2), 0.5), x[..., :4],
                         x[..., :4], chunk=16, bd=8)
-    from repro_torch.kernels import jacobi1d as jac_mod
     from repro_torch.kernels import matadd as add_mod
     from repro_torch.kernels import transpose as tr_mod
     with pytest.raises(ValueError):
